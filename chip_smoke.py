@@ -7,9 +7,10 @@ Run from the root of a checkout.  Builds the port's CUDA kernels from the
 sources in the checkout, holds each to its plain PyTorch version on the
 card, drives the flagship Llama at llama_7b widths (random weights from a
 seed) through the full-sequence flash forward, KV-cache generate and the
-slot-pool ServingEngine, and checks the outputs.  Exits non-zero if any
-phase fails, and at once (printing no result) without a CUDA device or
-outside a checkout.
+slot-pool ServingEngine, checks the outputs, and traces the forward and a
+window of decode dispatches with torch.profiler (device busy share, top
+kernels).  Exits non-zero if any phase fails, and at once (printing no
+result) without a CUDA device or outside a checkout.
 
 Stdout ends with: a ``{"kernels": [...]}`` line (per kernel: launches on
 the main path, max error, kernel / plain / library times and the card's
@@ -80,6 +81,40 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_profile(torch, fn, top: int = 6) -> dict:
+    """One traced call of ``fn`` (torch.profiler, CPU + CUDA activity):
+    its wall time, the summed time of its device kernels and their share
+    of the wall (the device's busy share), and the kernels with the most
+    device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.monotonic() - t0) * 1e6
+    kernels: dict = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            n, tot = kernels.get(evt.name, (0, 0.0))
+            kernels[evt.name] = (n + 1, tot + evt.time_range.elapsed_us())
+    busy_us = sum(tot for _, tot in kernels.values())
+    check(busy_us > 0, "the profiler saw no device kernel")
+    ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    return {
+        "wall_ms": wall_us / 1e3,
+        "device_busy_ms": busy_us / 1e3,
+        "device_busy_share": busy_us / wall_us,
+        "kernel_launches": sum(n for n, _ in kernels.values()),
+        "top_kernels": [{"name": name[:90], "calls": n, "ms": tot / 1e3,
+                         "share_of_busy": tot / busy_us}
+                        for name, (n, tot) in ranked],
+    }
 
 
 def attention_pairs(T: int, causal: bool, window: int) -> int:
@@ -221,7 +256,9 @@ def phase_forward_and_serve_f32(torch, port, record):
 
 def phase_main_path(torch, fa, port, record):
     """The main path at full llama_7b size in bf16: the 32-layer flash
-    forward on 2048 tokens, then the engine answering 6 requests."""
+    forward on 2048 tokens, then the engine answering 6 requests.  After
+    the launch counts are read, the same forward and 8 decode dispatches
+    of the same engine traffic are traced for where the time goes."""
     llama, convert, _, serve = port
     cfg = dataclasses.replace(llama.llama_7b(), attention="flash")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
@@ -245,13 +282,19 @@ def phase_main_path(torch, fa, port, record):
     check(forward_launches == cfg.n_layers,
           f"flash launches {forward_launches} != {cfg.n_layers} layers")
 
-    rng = torch.Generator().manual_seed(SEED + 2)
     lens = (64, 128, 200, 333, 512, 96)
     new = 32
-    eng = serve.ServingEngine(model, max_slots=4, max_len=512 + new)
-    for n in lens:
-        eng.submit(torch.randint(1, cfg.vocab, (n,), generator=rng).tolist(),
-                   new)
+
+    def engine():
+        """A 4-slot engine holding the main path's 6 requests."""
+        rng = torch.Generator().manual_seed(SEED + 2)
+        eng = serve.ServingEngine(model, max_slots=4, max_len=512 + new)
+        for n in lens:
+            eng.submit(torch.randint(1, cfg.vocab, (n,),
+                                     generator=rng).tolist(), new)
+        return eng
+
+    eng = engine()
     t0 = time.monotonic()
     done = eng.run()
     wall = time.monotonic() - t0
@@ -270,10 +313,12 @@ def phase_main_path(torch, fa, port, record):
         forward=dict(layers=cfg.n_layers, tokens=[1, 2048],
                      dtype="bfloat16", flash_launches=forward_launches,
                      first_call_s=first_s, ms=t_forward),
-        serve=dict(requests=len(lens), prompt_lens=list(lens),
-                   new_tokens=new, max_slots=4, wall_s=wall,
-                   ttft_p50_s=serve.nearest_rank(ttft, 0.50),
-                   ttft_p99_s=serve.nearest_rank(ttft, 0.99),
+        # Six samples give no tail percentile (a nearest-rank p99 of 6
+        # is the max), so the tail is reported as the max.
+        serve=dict(card=record["card"], requests=len(lens),
+                   prompt_lens=list(lens), new_tokens=new, max_slots=4,
+                   wall_s=wall, ttft_p50_s=serve.nearest_rank(ttft, 0.50),
+                   ttft_max_s=max(ttft),
                    decode_tokens=decode_tokens,
                    decode_s=eng.stats["decode_seconds"],
                    decode_tokens_per_s=(decode_tokens
@@ -283,6 +328,28 @@ def phase_main_path(torch, fa, port, record):
         flash_launches=main_launches,
         peak_memory_bytes=torch.cuda.max_memory_allocated())
     log("main path", json.dumps(record["main_path"]))
+
+    with torch.inference_mode():
+        forward_profile = device_profile(torch, lambda: model(tokens))
+    eng = engine()
+    eng.step()  # admits 4 of the 6 requests: all slots hold one
+
+    def decode():
+        for _ in range(8):
+            eng.step()
+
+    record["profile"] = {"card": record["card"],
+                         "forward_1x2048": forward_profile,
+                         "decode_8_dispatches_4_slots":
+                             device_profile(torch, decode)}
+    for name, w in record["profile"].items():
+        if name == "card":
+            continue
+        log(f"profile {name}: wall {w['wall_ms']:.2f} ms, device busy "
+            f"{w['device_busy_ms']:.2f} ms ({w['device_busy_share']:.1%}),"
+            f" {w['kernel_launches']} kernel launches;",
+            "; ".join(f"{k['ms']:.3f} ms x{k['calls']} {k['name'][:40]}"
+                      for k in w["top_kernels"]))
     return main_launches
 
 
