@@ -4,13 +4,17 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  Builds the port's CUDA kernels from the
-sources in the checkout, holds each to its plain PyTorch version on the
-card, drives the flagship Llama at llama_7b widths (random weights from a
-seed) through the full-sequence flash forward, KV-cache generate and the
-slot-pool ServingEngine, checks the outputs, and traces the forward and a
-window of decode dispatches with torch.profiler (device busy share, top
-kernels).  Exits non-zero if any phase fails, and at once (printing no
-result) without a CUDA device or outside a checkout.
+sources in the checkout (one nvcc per source, all at once), holds each to
+its plain PyTorch version on the card, and drives the flagship Llama at
+llama_7b widths (random weights from a seed) down both of the port's
+paths: serving (the full-sequence flash forward, KV-cache generate and
+the slot-pool ServingEngine) and training (f32 flash-vs-full parity of
+loss, grads and a 4-step trajectory, then an 8-layer bf16 train step with
+an f32 master copy, on the card and with the optimizer state offloaded to
+pinned host memory).  It checks the outputs and traces the forward, a
+window of decode dispatches and one train step with torch.profiler
+(device busy share, top kernels).  Exits non-zero if any phase fails, and
+at once (printing no result) without a CUDA device or outside a checkout.
 
 Stdout ends with: a ``{"kernels": [...]}`` line (per kernel: launches on
 the main path, max error, kernel / plain / library times and the card's
@@ -22,10 +26,14 @@ chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -44,6 +52,43 @@ TOL_LSE = {"float32": 1e-4, "bfloat16": 1e-3}
 # f32 logits of 2 llama_7b-width layers, flash kernel vs plain full
 # attention: both exact f32; ~1e-5 expected, 1e-3 allowed.
 TOL_FLASH_VS_FULL = 1e-3
+# Backward kernels against the plain backward on the same (q, k, v, dO,
+# lse, Δ), each output (dQ, dK, dV) on its own scale:
+# - max|got - want| / max|want|.  f32 — two f32 summation orders; bf16 —
+#   both sides accumulate in f32 from the same bf16 inputs and round once,
+#   so an element differs by at most one bf16 ULP, 2**-7 of its own size
+#   (0.0078);
+# - the relative RMS error ||got - want|| / ||want|| of the whole output,
+#   and the worst one of its (batch, 64-row tile, head) blocks, which a
+#   dropped or misweighted tile moves where the largest element hides it;
+# - with causal window 1, dQ and dK are zero by the mathematics (P is 1 on
+#   the diagonal, so dS = dP - Δ = 0): both sides must stay under an
+#   absolute limit instead.
+# The RMS and zero limits are 4x the largest reading over all cases on an
+# H100 80GB HBM3 (RMS f32 6.06e-7, bf16 7.83e-5; worst block f32 1.40e-6,
+# bf16 4.28e-4; zero outputs 8.16e-6).
+TOL_GRAD = {"float32": 1e-4, "bfloat16": 8e-3}
+TOL_GRAD_RMS = {"float32": 2.5e-6, "bfloat16": 3.2e-4}
+TOL_GRAD_TILE = {"float32": 5.7e-6, "bfloat16": 1.8e-3}
+TOL_GRAD_ZERO = 3.3e-5
+GRAD_TILE = 64
+# Training at llama_7b widths in f32, flash kernels vs plain full
+# attention: loss relative; each grad against its own largest |value|.
+TOL_TRAIN_LOSS = 1e-5
+TOL_TRAIN_GRAD = 1e-3
+# The bf16 main path at 8 layers, flash kernels vs plain full attention on
+# the same weights and batch: step-0 loss relative, and each param grad's
+# relative RMS difference.  Both sides round differently in bf16, so the
+# limits are 4x the reading on an H100 80GB HBM3 (loss 1.82e-5, worst
+# grad 3.19e-2).
+TOL_BF16_LOSS = 7.3e-5
+TOL_BF16_GRAD_RMS = 0.13
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+# Device time of a profile summed by kernel family (name substrings): the
+# port's kernels, cuBLAS products, and everything else (elementwise,
+# reductions, copies).
+KERNEL_GROUPS = {"port_kernels": ("flash_fwd_kernel", "flash_bwd_"),
+                 "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma")}
 
 
 class Fail(Exception):
@@ -83,6 +128,14 @@ def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters: int = 10) -> float:
+    """Device time of one call of ``fn``: the summed time of its kernels
+    under torch.profiler over ``iters`` calls, without the host's gaps."""
+    fn()
+    busy = device_profile(torch, lambda: [fn() for _ in range(iters)])
+    return busy["device_busy_ms"] / iters
+
+
 def device_profile(torch, fn, top: int = 6) -> dict:
     """One traced call of ``fn`` (torch.profiler, CPU + CUDA activity):
     its wall time, the summed time of its device kernels and their share
@@ -106,11 +159,17 @@ def device_profile(torch, fn, top: int = 6) -> dict:
     busy_us = sum(tot for _, tot in kernels.values())
     check(busy_us > 0, "the profiler saw no device kernel")
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
+    groups = dict.fromkeys(list(KERNEL_GROUPS) + ["other"], 0.0)
+    for name, (_, tot) in kernels.items():
+        group = next((g for g, keys in KERNEL_GROUPS.items()
+                      if any(key in name for key in keys)), "other")
+        groups[group] += tot / 1e3
     return {
         "wall_ms": wall_us / 1e3,
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / wall_us,
         "kernel_launches": sum(n for n, _ in kernels.values()),
+        "ms_by_group": groups,
         "top_kernels": [{"name": name[:90], "calls": n, "ms": tot / 1e3,
                          "share_of_busy": tot / busy_us}
                         for name, (n, tot) in ranked],
@@ -126,13 +185,23 @@ def attention_pairs(T: int, causal: bool, window: int) -> int:
     return sum(min(p + 1, window) for p in range(T))
 
 
-def flash_bound(B, T, H, d, dtype: str, causal: bool, window: int):
-    """Least time on the card: the larger of operations over the peak
-    rate of the input type and bytes (q, k, v read once, O written once)
-    over the memory rate."""
-    flops = 4 * B * H * d * attention_pairs(T, causal, window)
+# Per kernel: flops per (query, key) pair and head-dim element; (B, T, H,
+# d) tensors moved (read once or written once); f32 (B, H, T) rows read.
+# Forward: QK^T, PV; q, k, v in, O out.  dQ: QK^T, dO V^T, dS K; q, k, v,
+# dO in, dQ out; lse, Δ in.  dK/dV: the same two plus P^T dO, dS^T Q;
+# dK, dV out.
+BOUND_COUNTS = {"fwd": (4, 4, 0), "dq": (6, 5, 2), "dkv": (8, 6, 2)}
+
+
+def flash_bound(B, T, H, d, dtype: str, causal: bool, window: int,
+                kind: str = "fwd"):
+    """Least time on the card for one ``kind`` kernel call: the larger of
+    operations over the peak rate of the input type and bytes (each input
+    read once, each output written once) over the memory rate."""
+    per_pair, tensors, rows = BOUND_COUNTS[kind]
+    flops = per_pair * B * H * d * attention_pairs(T, causal, window)
     itemsize = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * B * T * H * d * itemsize
+    nbytes = tensors * B * T * H * d * itemsize + rows * B * H * T * 4
     t_ops = flops / PEAK_FLOPS[dtype]
     t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
@@ -212,10 +281,129 @@ def phase_kernel(torch, fa, record):
     log("flash_fwd timing", json.dumps(record["flash_fwd_timing"]))
 
 
+def backward_inputs(fa, q, k, v, do, causal: bool, window: int):
+    """The backward's arguments as the train step makes them: lse from the
+    forward kernel, Δ from its O."""
+    out, lse = fa.flash_attention(q, k, v, causal=causal, window=window,
+                                  return_lse=True)
+    return (q, k, v, do, lse, fa._delta(out, do), q.shape[-1] ** -0.5,
+            causal, window)
+
+
+def backward_kernels(fa, args):
+    return (fa.flash_bwd_dq(*args),) + fa.flash_bwd_dkv(*args)
+
+
+def grad_errors(torch, got, want, zero: bool) -> dict:
+    """How far one (B, T, H, d) backward output lies from the plain one:
+    the largest error and value, and unless the output is ``zero`` by the
+    mathematics, the errors on its own scale (see TOL_GRAD)."""
+    diff = got.float() - want.float()
+    row = dict(max_abs_err=diff.abs().max().item(),
+               max_abs_want=want.float().abs().max().item())
+    if zero:
+        return row
+    B, T, H, d = diff.shape
+    tiles = -(-T // GRAD_TILE)
+
+    def tile_sq(x):  # squared norm of each (batch, tile, head) block
+        x = torch.nn.functional.pad(x, (0, 0, 0, 0, 0, tiles * GRAD_TILE - T))
+        return x.square().reshape(B, tiles, GRAD_TILE, H, d).sum((2, 4))
+
+    row.update(rel_max_err=row["max_abs_err"] / row["max_abs_want"],
+               rel_rms_err=(diff.norm() / want.float().norm()).item(),
+               tile_rel_rms_err=(tile_sq(diff) / tile_sq(want.float()))
+               .sqrt().max().item())
+    return row
+
+
+def phase_backward_kernels(torch, fa, record):
+    """Every forward case again for the backward kernels against the plain
+    backward on the card; bitwise repeatability; times at the main path's
+    shape beside the plain backward's and SDPA's backward."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    rows = []
+    for c in kernel_cases():
+        c = {key: val for key, val in c.items() if key != "lse"}
+        B, H = (1, 32) if c["T"] == 2048 else (2, 4)
+        dt = getattr(torch, c["dtype"])
+        q, k, v, do = (torch.randn(B, c["T"], H, c["d"], device="cuda",
+                                   generator=gen).to(dt) for _ in range(4))
+        args = backward_inputs(fa, q, k, v, do, c["causal"],
+                               c["window"])
+        got = backward_kernels(fa, args)
+        want = (fa._dq_reference(*args),) + fa._dkv_reference(*args)
+        torch.cuda.synchronize()
+        row = dict(c, B=B, H=H)
+        ok = True
+        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+            check(g.dtype == dt and g.shape == q.shape,
+                  f"{name} dtype/shape {c}")
+            check(bool(torch.isfinite(g.float()).all()),
+                  f"{name} not finite {c}")
+            zero = c["causal"] and c["window"] == 1 and name != "dv"
+            e = row[name] = grad_errors(torch, g, w, zero)
+            if zero:
+                ok = ok and max(e["max_abs_err"], e["max_abs_want"]) \
+                    <= TOL_GRAD_ZERO
+            else:
+                ok = ok and e["rel_max_err"] <= TOL_GRAD[c["dtype"]] \
+                    and e["rel_rms_err"] <= TOL_GRAD_RMS[c["dtype"]] \
+                    and e["tile_rel_rms_err"] <= TOL_GRAD_TILE[c["dtype"]]
+        rows.append(row)
+        log("backward case", json.dumps(row))
+        check(ok, f"backward kernels disagree with the plain backward: {row}")
+    record["backward_cases"] = rows
+
+    B, T, H, d = 1, 2048, 32, 128
+    q, k, v, do = (torch.randn(B, T, H, d, device="cuda",
+                               generator=gen).to(torch.bfloat16)
+                   for _ in range(4))
+    args = backward_inputs(fa, q, k, v, do, True, 0)
+    first = backward_kernels(fa, args)
+    second = backward_kernels(fa, args)
+    torch.cuda.synchronize()
+    bitwise = all(torch.equal(a, b) for a, b in zip(first, second))
+    log(f"backward kernels bitwise repeatable: {bitwise}")
+    check(bitwise, "two backward calls on the same inputs differ")
+
+    main = [r for r in rows if r["dtype"] == "bfloat16" and r["T"] == T
+            and r["d"] == d and r["window"] == 0][0]
+    out = fa.flash_attention(q, k, v)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    timing = dict(
+        shape=[B, T, H, d], dtype="bfloat16", causal=True,
+        bitwise_repeatable=bitwise,
+        dq_ms=cuda_ms(torch, lambda: fa.flash_bwd_dq(*args)),
+        dkv_ms=cuda_ms(torch, lambda: fa.flash_bwd_dkv(*args)),
+        delta_ms=cuda_ms(torch, lambda: fa._delta(out, do)),
+        plain_dq_ms=cuda_ms(torch, lambda: fa._dq_reference(*args)),
+        plain_dkv_ms=cuda_ms(torch, lambda: fa._dkv_reference(*args)),
+        # SDPA's backward alone; one call gives dQ, dK and dV.  Its device
+        # time comes from the profiler: events around autograd.grad also
+        # time the host's launch gaps, which vary from run to run.
+        library_ms=device_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True)),
+        library_event_ms=cuda_ms(torch, lambda: torch.autograd.grad(
+            sdpa_out, (qt, kt, vt), dot, retain_graph=True)),
+        errors={name: main[name] for name in ("dq", "dk", "dv")})
+    timing["kernels_and_delta_ms"] = (timing["dq_ms"] + timing["dkv_ms"]
+                                      + timing["delta_ms"])
+    for kind in ("dq", "dkv"):
+        bound, by = flash_bound(B, T, H, d, "bfloat16", True, 0, kind)
+        timing[f"{kind}_bound_ms"], timing[f"{kind}_bound_by"] = bound, by
+    record["flash_bwd_timing"] = timing
+    log("flash_bwd timing", json.dumps(timing))
+
+
 def phase_forward_and_serve_f32(torch, port, record):
     """llama_7b widths, 2 layers, f32: flash logits against full; the
     engine token-exact against generate()."""
-    llama, convert, generate, serve = port
+    llama, convert, generate, serve, _ = port
     cfg = dataclasses.replace(llama.llama_7b(), n_layers=2,
                               dtype="float32", attention="flash")
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -259,7 +447,7 @@ def phase_main_path(torch, fa, port, record):
     forward on 2048 tokens, then the engine answering 6 requests.  After
     the launch counts are read, the same forward and 8 decode dispatches
     of the same engine traffic are traced for where the time goes."""
-    llama, convert, _, serve = port
+    llama, convert, _, serve, _ = port
     cfg = dataclasses.replace(llama.llama_7b(), attention="flash")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     t0 = time.monotonic()
@@ -353,6 +541,202 @@ def phase_main_path(torch, fa, port, record):
     return main_launches
 
 
+def phase_train_f32_parity(torch, port, record):
+    """llama_7b widths, 2 layers, f32: loss and every grad, then a 4-step
+    loss trajectory, through the flash kernels against full attention."""
+    llama, convert, _, _, train = port
+    cfg = dataclasses.replace(llama.llama_7b(), n_layers=2,
+                              dtype="float32", attention="flash")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    flash_model = convert.init_weights(cfg, gen)
+    full_model = llama.Llama(dataclasses.replace(cfg, attention="full"))
+    full_model.load_state_dict(flash_model.state_dict())
+    # A batch a step: on one repeated batch the loss falls to ~1e-3 by
+    # step 3, where a relative tolerance measures rounding, not the path.
+    batches = [torch.randint(0, cfg.vocab, (2, 257), device="cuda",
+                             generator=gen) for _ in range(4)]
+
+    def loss_and_grads(model):
+        loss = train.loss_fn(model, batches[0])
+        return loss.item(), torch.autograd.grad(loss,
+                                                list(model.parameters()))
+
+    def trajectory(model):
+        opt = train.make_optimizer()
+        state = train.TrainState.for_model(model, opt)
+        step = train.make_train_step(model, opt)
+        return [step(state, tokens)[1].item() for tokens in batches]
+
+    loss_f, grads_f = loss_and_grads(flash_model)
+    loss_u, grads_u = loss_and_grads(full_model)
+    grad_err = max(
+        ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+        for a, b in zip(grads_f, grads_u))
+    del grads_f, grads_u
+    traj_f = trajectory(flash_model)
+    traj_u = trajectory(full_model)
+    traj_err = max(abs(a - b) / abs(b) for a, b in zip(traj_f, traj_u))
+    row = dict(layers=2, tokens=[2, 257], loss_flash=loss_f,
+               loss_full=loss_u, loss_err=abs(loss_f - loss_u) / abs(loss_u),
+               grad_err=grad_err, trajectory_flash=traj_f,
+               trajectory_full=traj_u, trajectory_err=traj_err,
+               tol_loss=TOL_TRAIN_LOSS, tol_grad=TOL_TRAIN_GRAD)
+    record["train_f32_flash_vs_full"] = row
+    log("train f32 flash vs full", json.dumps(row))
+    check(all(map(math.isfinite, traj_f + traj_u)), "f32 losses not finite")
+    check(row["loss_err"] <= TOL_TRAIN_LOSS, f"step-0 loss: {row}")
+    check(grad_err <= TOL_TRAIN_GRAD, f"step-0 grads: {row}")
+    check(traj_err <= TOL_TRAIN_LOSS, f"4-step trajectory: {row}")
+
+
+def train_bf16_flash_vs_full(torch, llama, train, model, tokens, record):
+    """The main path's model and batch: step-0 loss and every param grad
+    through the flash kernels against plain full attention."""
+    full = llama.Llama(dataclasses.replace(model.cfg, attention="full"),
+                       device=model.device)
+    full.load_state_dict(model.state_dict(), assign=True)  # shared weights
+
+    def loss_and_grads(m):
+        loss = train.loss_fn(m, tokens)
+        return loss.item(), torch.autograd.grad(loss, list(m.parameters()))
+
+    loss_f, grads_f = loss_and_grads(model)
+    loss_u, grads_u = loss_and_grads(full)
+    names = [n for n, _ in model.named_parameters()]
+    rms = {n: ((a.float() - b.float()).norm() / b.float().norm()).item()
+           for n, a, b in zip(names, grads_f, grads_u)}
+    worst = max(rms, key=rms.get)
+    row = dict(layers=model.cfg.n_layers, tokens=list(tokens.shape),
+               dtype="bfloat16", loss_flash=loss_f, loss_full=loss_u,
+               loss_err=abs(loss_f - loss_u) / abs(loss_u),
+               grad_rel_rms_err_max=rms[worst], worst_grad=worst,
+               grad_rel_rms_err_median=statistics.median(rms.values()),
+               tol_loss=TOL_BF16_LOSS, tol_grad_rms=TOL_BF16_GRAD_RMS)
+    del full, grads_f, grads_u
+    record["train_bf16_flash_vs_full"] = row
+    log("train bf16 flash vs full", json.dumps(row))
+    check(math.isfinite(loss_f) and row["loss_err"] <= TOL_BF16_LOSS,
+          f"bf16 step-0 loss: {row}")
+    check(rms[worst] <= TOL_BF16_GRAD_RMS, f"bf16 step-0 grads: {row}")
+
+
+def phase_train_main(torch, fa, port, record):
+    """The training path: llama_7b widths cut to 8 layers, bf16 with the
+    f32 master copy, flash attention, 6 steps on one (1, 2049) batch; then
+    3 steps from the same seed with the optimizer state offloaded."""
+    llama, _, _, _, train = port
+    cfg = dataclasses.replace(llama.llama_7b(), n_layers=8,
+                              attention="flash")
+    tokens = torch.randint(
+        0, cfg.vocab, (1, 2049), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+    n_tokens = tokens.shape[1] - 1
+
+    def fresh():
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        return train.init_train_state(cfg, gen)
+
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    model, opt, state = fresh()
+    train_bf16_flash_vs_full(torch, llama, train, model, tokens, record)
+    step = train.make_train_step(model, opt)
+    n_params = sum(p.numel() for p in model.parameters())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, times, per_step = [], [], []
+    for f in counters:
+        f.launches = 0
+    # The largest tensor of the optimizer state (the last of the two
+    # vocab-sized ones): after step 3 it shows that the offloaded state
+    # is whole on the host as soon as the step returns.
+    big = max(range(len(state.params)),
+              key=lambda i: (state.params[i].numel(), i))
+    for i in range(6):
+        before = [f.launches for f in counters]
+        t0 = time.monotonic()
+        state, loss = step(state, tokens)
+        losses.append(loss.item())  # waits for the step
+        times.append(time.monotonic() - t0)
+        per_step.append([f.launches - b for f, b in zip(counters, before)])
+        if i == 2:
+            nu_step3 = state.opt_state.nu[big].cpu()
+    launches = [f.launches for f in counters]
+    between = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    check(all(map(math.isfinite, losses)), f"train losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(all(n == [cfg.n_layers] * 3 for n in per_step),
+          f"kernel launches per step {per_step}, want {cfg.n_layers} each")
+    median = statistics.median(times[1:])
+    main = dict(card=record["card"], layers=cfg.n_layers, params=n_params,
+                tokens=[1, n_tokens + 1], dtype="bfloat16",
+                master="float32", lr=opt.lr, losses=losses, step_s=times,
+                median_step_s_2_to_6=median,
+                tokens_per_s=n_tokens / median,
+                launches_per_step=dict(zip(
+                    ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                    per_step[0])),
+                peak_memory_bytes=peak, between_steps_bytes=between)
+    log("train main path", json.dumps(main))
+    record["train_profile"] = device_profile(
+        torch, lambda: step(state, tokens), top=10)
+    w = record["train_profile"]
+    log(f"profile train step: wall {w['wall_ms']:.2f} ms, device busy "
+        f"{w['device_busy_ms']:.2f} ms ({w['device_busy_share']:.1%}), "
+        f"{w['kernel_launches']} kernel launches; by group (ms) "
+        f"{json.dumps(w['ms_by_group'])};",
+        "; ".join(f"{k['ms']:.3f} ms x{k['calls']} {k['name'][:40]}"
+                  for k in w["top_kernels"]))
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, opt, state = fresh()
+    state = train.offload_state(state)
+    step = train.OffloadedTrainStep(train.make_train_step(model, opt))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    off_losses, off_times = [], []
+    for _ in range(3):
+        t0 = time.monotonic()
+        state, loss = step(state, tokens)  # waits for the host copy
+        off_times.append(time.monotonic() - t0)
+        # Read on the host before anything else waits for the card.
+        host_state_whole = torch.equal(state.opt_state.nu[big], nu_step3)
+        off_losses.append(loss.item())
+    torch.cuda.synchronize()
+    main["offloaded"] = dict(
+        mode=step.mode, losses=off_losses, step_s=off_times,
+        equal_bitwise=off_losses == losses[:3],
+        host_state_equal_after_step_3=host_state_whole,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        between_steps_bytes=torch.cuda.memory_allocated(),
+        opt_state_pinned=all(t.is_pinned() for t in state.opt_state.mu))
+    main["offload_saves_bytes"] = (between
+                                   - main["offloaded"]["between_steps_bytes"])
+    record["train_main_path"] = main
+    log("train offloaded", json.dumps(main["offloaded"]),
+        f"saves {main['offload_saves_bytes'] / 1e9:.2f} GB between steps")
+    check(main["offloaded"]["equal_bitwise"],
+          f"offloaded losses {off_losses} != on-device {losses[:3]}")
+    check(main["offloaded"]["opt_state_pinned"],
+          "optimizer state not in pinned host memory")
+    check(host_state_whole, "the host's optimizer state after step 3, read "
+          "as the step returned, differs from the on-device step's")
+    del model, opt, state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
+               bound, library_ms, **extra):
+    return dict(name=name, route="cuda", source=source, replaces=replaces,
+                launches=launches, max_abs_err=max_abs_err, ms=ms,
+                plain_ms=plain_ms, bound_ms=bound[0], bound_by=bound[1],
+                library_ms=library_ms, **extra)
+
+
 def main() -> int:
     import torch
 
@@ -362,7 +746,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from k8s_vgpu_scheduler_tpu_torch.entry import entry
     from k8s_vgpu_scheduler_tpu_torch.models import (
-        convert, generate, llama, serve)
+        convert, generate, llama, serve, train)
     from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
     from k8s_vgpu_scheduler_tpu_torch.ops import flash_attention as fa
 
@@ -374,12 +758,14 @@ def main() -> int:
     record = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
     t0 = time.monotonic()
-    _kernels.flash_fwd()
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        list(pool.map(_kernels.build, KERNEL_SOURCES))
     record["build_s"] = time.monotonic() - t0
-    log(f"built flash_fwd in {record['build_s']:.1f} s")
-    log(_kernels.build_logs.get("flash_fwd", "").strip())
+    log(f"built {', '.join(KERNEL_SOURCES)} in {record['build_s']:.1f} s")
+    for name in KERNEL_SOURCES:
+        log(_kernels.build_logs.get(name, "").strip())
 
-    port = (llama, convert, generate, serve)
+    port = (llama, convert, generate, serve, train)
     try:
         forward, (model, tokens) = entry()
         logits = forward(model, tokens)
@@ -387,22 +773,45 @@ def main() -> int:
               and bool(torch.isfinite(logits.float()).all()),
               "entry() logits")
         phase_kernel(torch, fa, record)
+        phase_backward_kernels(torch, fa, record)
         phase_forward_and_serve_f32(torch, port, record)
         torch.cuda.empty_cache()
-        launches = phase_main_path(torch, fa, port, record)
+        serve_launches = phase_main_path(torch, fa, port, record)
+        gc.collect()
+        torch.cuda.empty_cache()  # the 32-layer serving model is gone
+        phase_train_f32_parity(torch, port, record)
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_launches = phase_train_main(torch, fa, port, record)
     except Fail as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
 
     t = record["flash_fwd_timing"]
-    kernels = [{
-        "name": "flash_fwd", "route": "cuda",
-        "source": "k8s_vgpu_scheduler_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "k8s_vgpu_scheduler_tpu/ops/flash_attention.py:57",
-        "launches": launches, "max_abs_err": t["max_abs_err"],
-        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
-        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-    }]
+    b = record["flash_bwd_timing"]
+    src = "k8s_vgpu_scheduler_tpu_torch/csrc/"
+    tpu = "k8s_vgpu_scheduler_tpu/ops/flash_attention.py:"
+    kernels = [
+        kernel_row("flash_fwd", src + "flash_fwd.cu", tpu + "57",
+                   serve_launches + train_launches[0], t["max_abs_err"],
+                   t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
+                   t["library_ms"],
+                   launches_by_path={"serve": serve_launches,
+                                     "train": train_launches[0]}),
+        kernel_row("flash_bwd_dq", src + "flash_bwd.cu", tpu + "172",
+                   train_launches[1], b["errors"]["dq"]["max_abs_err"],
+                   b["dq_ms"], b["plain_dq_ms"],
+                   (b["dq_bound_ms"], b["dq_bound_by"]), b["library_ms"],
+                   library_covers="dq, dk and dv",
+                   errors={"dq": b["errors"]["dq"]}),
+        kernel_row("flash_bwd_dkv", src + "flash_bwd.cu", tpu + "213",
+                   train_launches[2],
+                   max(b["errors"][n]["max_abs_err"] for n in ("dk", "dv")),
+                   b["dkv_ms"], b["plain_dkv_ms"],
+                   (b["dkv_bound_ms"], b["dkv_bound_by"]), b["library_ms"],
+                   library_covers="dq, dk and dv",
+                   errors={n: b["errors"][n] for n in ("dk", "dv")}),
+    ]
     record["kernels"] = kernels
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)

@@ -34,6 +34,17 @@ FLASH_FWD_ARGTYPES = (
     + (_ll,) * 12
     + (ctypes.c_float, _i, _i, _p)
 )
+# flash_bwd_dq(q, k, v, do, lse, delta, dq, dtype, batch, seq_len, heads,
+#              head_dim, 15 strides, sm_scale, causal, window, stream)
+# flash_bwd_dkv(q, k, v, do, lse, delta, dk, dv, dtype, batch, seq_len,
+#               heads, head_dim, 18 strides, sm_scale, causal, window,
+#               stream) — csrc/flash_bwd.cu
+FLASH_BWD_DQ_ARGTYPES = (
+    (_p,) * 7 + (_i,) * 5 + (_ll,) * 15 + (ctypes.c_float, _i, _i, _p)
+)
+FLASH_BWD_DKV_ARGTYPES = (
+    (_p,) * 8 + (_i,) * 5 + (_ll,) * 18 + (ctypes.c_float, _i, _i, _p)
+)
 
 _lock = threading.Lock()
 _libs: dict = {}
@@ -88,3 +99,11 @@ def load(name: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":
 
 def flash_fwd():
     return load("flash_fwd", "flash_fwd", FLASH_FWD_ARGTYPES)
+
+
+def flash_bwd_dq():
+    return load("flash_bwd", "flash_bwd_dq", FLASH_BWD_DQ_ARGTYPES)
+
+
+def flash_bwd_dkv():
+    return load("flash_bwd", "flash_bwd_dkv", FLASH_BWD_DKV_ARGTYPES)

@@ -6,7 +6,8 @@
   box without a card they raise instead of quietly using the CPU.
 - Importing the kernel binding compiles nothing (the tests import it on
   boxes without nvcc).
-- The CUDA entry point and its ctypes signature agree.
+- The CUDA entry points and their ctypes signatures agree.
+- The CPU path, forward and backward, builds and launches nothing.
 """
 
 import ast
@@ -22,7 +23,9 @@ from k8s_vgpu_scheduler_tpu_torch.device import resolve_device
 from k8s_vgpu_scheduler_tpu_torch.entry import entry
 from k8s_vgpu_scheduler_tpu_torch.models.convert import init_weights
 from k8s_vgpu_scheduler_tpu_torch.models.llama import Llama, llama_tiny
+from k8s_vgpu_scheduler_tpu_torch.models.train import init_train_state
 from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+from k8s_vgpu_scheduler_tpu_torch.ops import flash_attention as tfa
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "k8s_vgpu_scheduler_tpu_torch"
@@ -53,7 +56,9 @@ def test_imports_nothing_of_jax(path):
     lambda: Llama(llama_tiny()),
     lambda: init_weights(llama_tiny(), torch.Generator()),
     lambda: entry(),
-], ids=["resolve_device", "Llama", "init_weights", "entry"])
+    lambda: init_train_state(llama_tiny(), torch.Generator()),
+], ids=["resolve_device", "Llama", "init_weights", "entry",
+        "init_train_state"])
 def test_entry_points_default_to_the_card(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -71,6 +76,7 @@ def test_kernel_module_import_runs_no_compiler():
         "import k8s_vgpu_scheduler_tpu_torch.ops._kernels as k\n"
         "import k8s_vgpu_scheduler_tpu_torch.ops.flash_attention\n"
         "import k8s_vgpu_scheduler_tpu_torch.entry\n"
+        "import k8s_vgpu_scheduler_tpu_torch.models.train\n"
         "assert not k._libs\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -78,20 +84,48 @@ def test_kernel_module_import_runs_no_compiler():
     assert res.returncode == 0, res.stderr
 
 
-def test_cuda_signature_matches_ctypes():
-    src = (_kernels.CSRC / "flash_fwd.cu").read_text()
-    m = re.search(r'extern "C" int flash_fwd\(([^)]*)\)', src)
-    assert m, "flash_fwd entry point not found"
+def _assert_signature(source: str, symbol: str, argtypes) -> None:
+    src = (_kernels.CSRC / source).read_text()
+    m = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src)
+    assert m, f"{symbol} entry point not found"
     params = [p.strip() for p in m.group(1).split(",")]
-    assert len(params) == len(_kernels.FLASH_FWD_ARGTYPES)
+    assert len(params) == len(argtypes)
     # c_longlong is an alias of c_long on LP64 platforms.
     ctypes_kind = {"c_void_p": "void*", "c_int": "int",
                    "c_longlong": "long long", "c_long": "long long",
                    "c_float": "float"}
-    for decl, ctype in zip(params, _kernels.FLASH_FWD_ARGTYPES):
+    for decl, ctype in zip(params, argtypes):
         want = ctypes_kind[ctype.__name__]
         got = decl.rsplit(" ", 1)[0].replace("const ", "").replace(" *", "*")
         assert got == want, f"{decl!r} bound as {ctype.__name__}"
+
+
+def test_cuda_signature_matches_ctypes():
+    _assert_signature("flash_fwd.cu", "flash_fwd", _kernels.FLASH_FWD_ARGTYPES)
+
+
+@pytest.mark.parametrize("symbol,argtypes", [
+    ("flash_bwd_dq", _kernels.FLASH_BWD_DQ_ARGTYPES),
+    ("flash_bwd_dkv", _kernels.FLASH_BWD_DKV_ARGTYPES),
+], ids=["flash_bwd_dq", "flash_bwd_dkv"])
+def test_backward_signatures_match_ctypes(symbol, argtypes):
+    _assert_signature("flash_bwd.cu", symbol, argtypes)
+
+
+def test_cpu_backward_launches_nothing(monkeypatch):
+    def refuse():
+        raise AssertionError("the CPU path must not build or launch")
+
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        monkeypatch.setattr(tfa._kernels, name, refuse)
+    counters = (tfa.flash_attention, tfa.flash_bwd_dq, tfa.flash_bwd_dkv)
+    before = [f.launches for f in counters]
+    q, k, v = (torch.randn(1, 16, 2, 16, requires_grad=True)
+               for _ in range(3))
+    tfa.flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert [f.launches for f in counters] == before
+    assert not _kernels._libs
 
 
 def test_kernels_build_for_sm90a_into_an_ignored_dir():
