@@ -102,9 +102,13 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
-def _check(q, **others) -> None:
+def _check(q, *, aligned: bool = False, **others) -> None:
     """What every kernel takes: f32 or bf16, a head_dim it was built for,
-    operands of q's shape, dtype and device, a contiguous head dim."""
+    operands of q's shape, dtype and device, a contiguous head dim.  With
+    ``aligned`` (the forward, whose bf16 tensor-core kernel copies 16 bytes
+    at a time with ``cp.async``), bf16 operands also need 16-byte aligned
+    data and batch, token and head strides that are multiples of 8
+    elements (a dimension of size 1 is never stepped)."""
     d = q.shape[-1]
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, "
@@ -119,6 +123,14 @@ def _check(q, **others) -> None:
     for name, t in dict(q=q, **others).items():
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dimension must be contiguous")
+        if not aligned or t.dtype != torch.bfloat16:
+            continue
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}'s data must be 16-byte aligned")
+        if any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1):
+            raise ValueError(f"{name}'s batch, token and head strides must "
+                             f"be multiples of 8 elements, not "
+                             f"{t.stride()[:3]}")
 
 
 def _check_rows(q, **rows) -> None:
@@ -150,7 +162,7 @@ def _call(name: str, counter, device, *args) -> None:
 def _launch(q, k, v, sm_scale: float, causal: bool, window: int,
             return_lse: bool):
     B, T, H, d = q.shape
-    _check(q, k=k, v=v)
+    _check(q, aligned=True, k=k, v=v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if return_lse else None)

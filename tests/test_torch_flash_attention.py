@@ -127,6 +127,33 @@ def test_cpu_path_launches_nothing(monkeypatch):
     assert tfa.flash_attention.launches == before
 
 
+def test_bf16_operands_must_suit_cp_async():
+    # The tensor-core kernel copies 16-byte chunks: bf16 data 16-byte
+    # aligned, batch/token/head strides multiples of 8 elements.
+    q, k, v = to_torch(qkv(T=16, d=16), "bfloat16")
+    tfa._check(q, aligned=True, k=k, v=v)  # the contiguous layout passes
+    wide = torch.zeros(2, 16, 4, 24, dtype=torch.bfloat16)
+    tfa._check(wide[..., :16], aligned=True, k=k, v=v)  # 1536, 96, 24
+    odd = torch.zeros(2, 16, 4 * 16 + 1, dtype=torch.bfloat16)
+    sliced = odd[:, :, :64].unflatten(-1, (4, 16))  # token stride 65
+    with pytest.raises(ValueError, match="strides"):
+        tfa._check(sliced, aligned=True, k=k, v=v)
+    with pytest.raises(ValueError, match="strides"):
+        tfa._check(q, aligned=True, k=k, v=sliced)
+    flat = torch.zeros(2 * 16 * 4 * 16 + 1, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 16, 4, 16)  # 2 bytes off the allocation
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._check(shifted, aligned=True, k=k, v=v)
+    # The forward's wrapper asks for the rule; the backward kernels, which
+    # load element by element, and the f32 scalar kernel take any layout.
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._launch(shifted, k, v, 0.25, True, 0, False)
+    tfa._check(shifted, k=sliced, v=v, do=q)
+    odd32 = torch.zeros(2 * 16 * 65 + 1)[1:].view(2, 16, 65)
+    tfa._check(odd32[:, :, :64].unflatten(-1, (4, 16)), aligned=True,
+               k=k.float(), v=v.float())
+
+
 def test_other_devices_raise():
     q = torch.empty((1, 8, 2, 16), device="meta")
     with pytest.raises(ValueError):

@@ -19,6 +19,7 @@ from pathlib import Path
 import pytest
 import torch
 
+import chip_smoke
 from k8s_vgpu_scheduler_tpu_torch.device import resolve_device
 from k8s_vgpu_scheduler_tpu_torch.entry import entry
 from k8s_vgpu_scheduler_tpu_torch.models.convert import init_weights
@@ -126,6 +127,19 @@ def test_cpu_backward_launches_nothing(monkeypatch):
     assert q.grad is not None and k.grad is not None and v.grad is not None
     assert [f.launches for f in counters] == before
     assert not _kernels._libs
+
+
+def test_every_cuda_kernel_has_a_profile_family():
+    # chip_smoke.py sums device time by kernel name; a kernel its patterns
+    # miss would drop silently into the "other" family.
+    patterns = chip_smoke.KERNEL_GROUPS["port_kernels"]
+    names = [name for src in sorted(_kernels.CSRC.glob("*.cu"))
+             for name in re.findall(
+                 r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
+                 r"(\w+)\s*\(", src.read_text())]
+    assert len(names) >= 4
+    missed = [n for n in names if not any(p in n for p in patterns)]
+    assert not missed, f"kernels outside KERNEL_GROUPS: {missed}"
 
 
 def test_kernels_build_for_sm90a_into_an_ignored_dir():
