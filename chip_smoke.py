@@ -4,9 +4,10 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  Builds the port's CUDA kernels from the
-sources in the checkout (one nvcc per source, all at once), holds each to
-its plain PyTorch version on the card (the forward in f32 through its
-scalar kernel, in bf16 through its tensor-core kernel), and drives the
+sources in the checkout (one nvcc per source, all at once; the
+tensor-core kernels must not spill), holds each to its plain PyTorch
+version on the card (f32 through the scalar kernels, bf16 through the
+tensor-core ones), and drives the
 flagship Llama at llama_7b widths (random weights from a seed) down both
 of the port's paths: serving (f32 and bf16 flash-vs-full logits, the
 full-sequence flash forward, KV-cache generate and the slot-pool
@@ -32,6 +33,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -70,11 +72,11 @@ TOL_FLASH_VS_FULL = 1e-3
 # elsewhere): relative RMS, 4x the reading on an H100 80GB HBM3 (1.24e-2).
 TOL_BF16_FLASH_VS_FULL = 5e-2
 # Backward kernels against the plain backward on the same (q, k, v, dO,
-# lse, Δ), each output (dQ, dK, dV) on its own scale:
-# - max|got - want| / max|want|.  f32 — two f32 summation orders; bf16 —
-#   both sides accumulate in f32 from the same bf16 inputs and round once,
-#   so an element differs by at most one bf16 ULP, 2**-7 of its own size
-#   (0.0078);
+# lse, Δ), each output (dQ, dK, dV) on its own scale (judge_backward):
+# - max|got - want| / max|want|.  f32 (the scalar kernels): two f32
+#   summation orders, TOL_GRAD.  bf16 (the tensor-core kernels, which
+#   round P and dS to bf16 before their products): derived from that
+#   rounding in grad_max_limits;
 # - the relative RMS error ||got - want|| / ||want|| of the whole output,
 #   and the worst one of its (batch, 64-row tile, head) blocks, which a
 #   dropped or misweighted tile moves where the largest element hides it;
@@ -82,11 +84,14 @@ TOL_BF16_FLASH_VS_FULL = 5e-2
 #   the diagonal, so dS = dP - Δ = 0): both sides must stay under an
 #   absolute limit instead.
 # The RMS and zero limits are 4x the largest reading over all cases on an
-# H100 80GB HBM3 (RMS f32 6.06e-7, bf16 7.83e-5; worst block f32 1.40e-6,
-# bf16 4.28e-4; zero outputs 8.16e-6).
-TOL_GRAD = {"float32": 1e-4, "bfloat16": 8e-3}
-TOL_GRAD_RMS = {"float32": 2.5e-6, "bfloat16": 3.2e-4}
-TOL_GRAD_TILE = {"float32": 5.7e-6, "bfloat16": 1.8e-3}
+# H100 80GB HBM3 (RMS f32 6.06e-7, bf16 2.84e-3; worst block f32
+# 1.40e-6, bf16 3.91e-3; zero outputs 8.16e-6).  The bf16 readings are
+# the tensor-core kernels' (P and dS rounded to bf16); the plain torch
+# emulation of that rounding in tests/test_torch_flash_backward.py reads
+# 2.82e-3 and 3.88e-3 on its CPU cases.
+TOL_GRAD = 1e-4
+TOL_GRAD_RMS = {"float32": 2.5e-6, "bfloat16": 1.14e-2}
+TOL_GRAD_TILE = {"float32": 5.7e-6, "bfloat16": 1.57e-2}
 TOL_GRAD_ZERO = 3.3e-5
 GRAD_TILE = 64
 # Training at llama_7b widths in f32, flash kernels vs plain full
@@ -107,6 +112,8 @@ KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
 # port's kernels (one name each: every __global__ under csrc/), cuBLAS
 # products, and everything else (elementwise, reductions, copies).
 KERNEL_GROUPS = {"port_kernels": ("flash_fwd_mma_kernel", "flash_fwd_kernel",
+                                  "flash_bwd_dq_mma_kernel",
+                                  "flash_bwd_dkv_mma_kernel",
                                   "flash_bwd_dq_kernel",
                                   "flash_bwd_dkv_kernel"),
                  "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma")}
@@ -123,6 +130,31 @@ def check(ok: bool, what: str) -> None:
 
 def log(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ptxas_kernels(build_log: str) -> list:
+    """Per kernel instantiation in an ``nvcc -Xptxas -v`` log: its name and
+    head_dim (the first template argument), registers a thread and spill
+    bytes (stores + loads)."""
+    rows, cur = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = re.search(r"(flash_[a-z_]+_kernel)(?:ILi(\d+)E)?",
+                             m.group(1))
+            cur = dict(kernel=name.group(1) if name else m.group(1),
+                       head_dim=int(name.group(2)) if name and name.group(2)
+                       else None, registers=None, spill_bytes=None)
+            rows.append(cur)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur is not None:
+            cur["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+    return rows
 
 
 def card_line() -> str:
@@ -287,32 +319,65 @@ def operands(torch, c, B, H, n, gen):
     return xs
 
 
-def check_refusals(torch, fa, record):
-    """A bf16 operand the tensor-core kernel cannot copy 16 bytes at a time
-    (data 2 bytes off 16-byte alignment; an odd token stride) raises
-    before anything is launched: there is no fallback to the scalar
-    kernel."""
+def bad_bf16_operands(torch):
+    """A contiguous bf16 (1, 128, 4, 64) operand, and two of the same shape
+    that the tensor-core kernels cannot copy 16 bytes at a time: data 2
+    bytes off 16-byte alignment, and an odd token stride."""
     B, T, H, d = 1, 128, 4, 64
     q = torch.zeros(B, T, H, d, device="cuda", dtype=torch.bfloat16)
     flat = torch.zeros(q.numel() + 1, device="cuda", dtype=torch.bfloat16)
     wide = torch.zeros(B, T, H * d + 1, device="cuda", dtype=torch.bfloat16)
-    bad = {"misaligned": flat[1:].view(B, T, H, d),
-           "odd_token_stride": wide[..., :H * d].unflatten(-1, (H, d))}
-    before = fa.flash_attention.launches
+    return q, {"misaligned": flat[1:].view(B, T, H, d),
+               "odd_token_stride": wide[..., :H * d].unflatten(-1, (H, d))}
+
+
+def refusals(torch, counters, calls) -> dict:
+    """Which of ``calls`` raised ValueError, and the kernel launches the
+    ``counters`` counted meanwhile."""
+    before = sum(f.launches for f in counters)
     refused = {}
-    for name, x in bad.items():
+    for name, call in calls.items():
         try:
-            fa.flash_attention(x, q, q)
+            call()
             refused[name] = False
         except ValueError:
             refused[name] = True
     torch.cuda.synchronize()
-    launched = fa.flash_attention.launches - before
-    record["bf16_refusals"] = dict(refused=refused, launches=launched)
-    log("bf16 refusals", json.dumps(record["bf16_refusals"]))
-    check(all(refused.values()) and launched == 0,
-          f"a bf16 operand cp.async cannot take was not refused: "
-          f"{record['bf16_refusals']}")
+    return dict(refused=refused,
+                launches=sum(f.launches for f in counters) - before)
+
+
+def check_refusals(torch, fa, record):
+    """A bf16 operand the tensor-core kernel cannot copy 16 bytes at a time
+    raises before anything is launched: there is no fallback to the scalar
+    kernel."""
+    q, bad = bad_bf16_operands(torch)
+    got = record["bf16_refusals"] = refusals(
+        torch, (fa.flash_attention,),
+        {name: lambda x=x: fa.flash_attention(x, q, q)
+         for name, x in bad.items()})
+    log("bf16 refusals", json.dumps(got))
+    check(all(got["refused"].values()) and got["launches"] == 0,
+          f"a bf16 operand cp.async cannot take was not refused: {got}")
+
+
+def check_backward_refusals(torch, fa, record):
+    """The backward twin of check_refusals: each bad bf16 operand, as dO
+    of either backward kernel, raises with no backward launch."""
+    q, bad = bad_bf16_operands(torch)
+    B, T, H, d = q.shape
+    rows = torch.zeros(B, H, T, device="cuda")
+    calls = {}
+    for name, x in bad.items():
+        for f in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+            calls[f"{f.__name__}_{name}"] = (
+                lambda f=f, x=x: f(q, q, q, x, rows, rows, d ** -0.5, True))
+    got = record["bf16_backward_refusals"] = refusals(
+        torch, (fa.flash_bwd_dq, fa.flash_bwd_dkv), calls)
+    log("bf16 backward refusals", json.dumps(got))
+    check(all(got["refused"].values()) and got["launches"] == 0,
+          f"a bf16 backward operand cp.async cannot take was not refused: "
+          f"{got}")
 
 
 def phase_kernel(torch, fa, record):
@@ -426,10 +491,59 @@ def grad_errors(torch, got, want, zero: bool) -> dict:
     return row
 
 
+def grad_max_limits(torch, fa, args, want) -> dict:
+    """The bf16 tensor-core backward's limit on max|got - want| / max|want|
+    for each of dQ, dK, dV: 2**-7 + 2**-8 max(B) / max|want|, derived from
+    its rounding.  Rounding P (before Pᵀ dO) or dS (before dS K and dSᵀ Q)
+    to bf16 moves each entry by at most 2**-8 of itself, so an output
+    element by at most 2**-8 of the same sum over absolute values, B: for
+    dV, Pᵀ|dO|; for dK, scale·|dS|ᵀ|Q|; for dQ, scale·|dS||K|, each
+    computed in f32 by the plain code from the same inputs.  Both sides
+    round the output to bf16, each by at most 2**-8 of max|want|."""
+    q, k, _, do, _, _, scale, _, _ = args
+    _, p, ds = fa._recompute(*args)
+    ads = ds.abs()
+    bound = dict(
+        dq=torch.einsum("bhts,bshd->bthd", ads, k.float().abs()) * scale,
+        dk=torch.einsum("bhts,bthd->bshd", ads, q.float().abs()) * scale,
+        dv=torch.einsum("bhts,bthd->bshd", p, do.float().abs()))
+    return {name: 2 ** -7 + 2 ** -8 * bound[name].max().item()
+            / max(w.float().abs().max().item(), 1e-30)
+            for name, w in zip(("dq", "dk", "dv"), want)}
+
+
+def judge_backward(torch, fa, args, got, want):
+    """Each of (dQ, dK, dV) ``got`` against the plain ``want`` on the
+    backward's inputs ``args``: its errors (grad_errors) beside the limits
+    of its dtype (see TOL_GRAD), and whether all three keep them."""
+    q, *_, causal, window = args
+    dtype = str(q.dtype).removeprefix("torch.")
+    limits = (grad_max_limits(torch, fa, args, want)
+              if dtype == "bfloat16" else None)
+    ok, rows = True, {}
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        zero = causal and window == 1 and name != "dv"
+        e = rows[name] = grad_errors(torch, g, w, zero)
+        if zero:
+            e["tol_abs"] = TOL_GRAD_ZERO
+            ok = ok and max(e["max_abs_err"], e["max_abs_want"]) \
+                <= TOL_GRAD_ZERO
+            continue
+        e.update(tol_rel_max=limits[name] if limits else TOL_GRAD,
+                 tol_rel_rms=TOL_GRAD_RMS[dtype],
+                 tol_tile_rel_rms=TOL_GRAD_TILE[dtype])
+        ok = ok and e["rel_max_err"] <= e["tol_rel_max"] \
+            and e["rel_rms_err"] <= e["tol_rel_rms"] \
+            and e["tile_rel_rms_err"] <= e["tol_tile_rel_rms"]
+    return ok, rows
+
+
 def phase_backward_kernels(torch, fa, record):
-    """Every forward case again for the backward kernels against the plain
-    backward on the card; bitwise repeatability; times at the main path's
-    shape beside the plain backward's and SDPA's backward."""
+    """Every forward case again for the backward kernels (f32 through the
+    scalar kernels, bf16 through the tensor-core ones) against the plain
+    backward on the card (judge_backward); the bf16 layouts they refuse;
+    bitwise repeatability; times at the main path's shape, bf16 and the f32
+    scalar kernels, beside the plain backward's and SDPA's backward."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
     rows = []
     for c in kernel_cases():
@@ -442,26 +556,18 @@ def phase_backward_kernels(torch, fa, record):
         got = backward_kernels(fa, args)
         want = (fa._dq_reference(*args),) + fa._dkv_reference(*args)
         torch.cuda.synchronize()
-        row = dict(c, B=B, H=H)
-        ok = True
-        for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        for name, g in zip(("dq", "dk", "dv"), got):
             check(g.dtype == dt and g.shape == q.shape,
                   f"{name} dtype/shape {c}")
             check(bool(torch.isfinite(g.float()).all()),
                   f"{name} not finite {c}")
-            zero = c["causal"] and c["window"] == 1 and name != "dv"
-            e = row[name] = grad_errors(torch, g, w, zero)
-            if zero:
-                ok = ok and max(e["max_abs_err"], e["max_abs_want"]) \
-                    <= TOL_GRAD_ZERO
-            else:
-                ok = ok and e["rel_max_err"] <= TOL_GRAD[c["dtype"]] \
-                    and e["rel_rms_err"] <= TOL_GRAD_RMS[c["dtype"]] \
-                    and e["tile_rel_rms_err"] <= TOL_GRAD_TILE[c["dtype"]]
+        ok, errors = judge_backward(torch, fa, args, got, want)
+        row = dict(c, B=B, H=H, **errors)
         rows.append(row)
         log("backward case", json.dumps(row))
         check(ok, f"backward kernels disagree with the plain backward: {row}")
     record["backward_cases"] = rows
+    check_backward_refusals(torch, fa, record)
 
     B, T, H, d = 1, 2048, 32, 128
     q, k, v, do = (torch.randn(B, T, H, d, device="cuda",
@@ -483,11 +589,16 @@ def phase_backward_kernels(torch, fa, record):
     sdpa_out = torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True)
     dot = do.transpose(1, 2)
+    # The scalar kernels, which every f32 call takes, at the same shape.
+    args32 = backward_inputs(fa, *(x.float() for x in (q, k, v, do)), True,
+                             0)
     timing = dict(
         shape=[B, T, H, d], dtype="bfloat16", causal=True,
         bitwise_repeatable=bitwise,
         dq_ms=cuda_ms(torch, lambda: fa.flash_bwd_dq(*args)),
         dkv_ms=cuda_ms(torch, lambda: fa.flash_bwd_dkv(*args)),
+        dq_f32_ms=cuda_ms(torch, lambda: fa.flash_bwd_dq(*args32)),
+        dkv_f32_ms=cuda_ms(torch, lambda: fa.flash_bwd_dkv(*args32)),
         delta_ms=cuda_ms(torch, lambda: fa._delta(out, do)),
         plain_dq_ms=cuda_ms(torch, lambda: fa._dq_reference(*args)),
         plain_dkv_ms=cuda_ms(torch, lambda: fa._dkv_reference(*args)),
@@ -830,7 +941,9 @@ def phase_train_main(torch, fa, port, record):
                   for k in w["top_kernels"]))
     check(w["port_kernel_calls"] == dict(
         flash_fwd_mma_kernel=cfg.n_layers, flash_fwd_kernel=0,
-        flash_bwd_dq_kernel=cfg.n_layers, flash_bwd_dkv_kernel=cfg.n_layers),
+        flash_bwd_dq_mma_kernel=cfg.n_layers,
+        flash_bwd_dkv_mma_kernel=cfg.n_layers,
+        flash_bwd_dq_kernel=0, flash_bwd_dkv_kernel=0),
         f"the traced train step ran the port's kernels "
         f"{w['port_kernel_calls']}")
     del model, opt, state, step
@@ -912,9 +1025,17 @@ def main() -> int:
                        for name in KERNEL_SOURCES}
     for name in KERNEL_SOURCES:
         log(record["ptxas"][name].strip())
+    record["registers"] = [row for name in KERNEL_SOURCES
+                           for row in ptxas_kernels(record["ptxas"][name])]
+    log("registers", json.dumps(record["registers"]))
 
     port = (llama, convert, generate, serve, train)
     try:
+        # The tensor-core kernels keep every value in registers.
+        mma = [r for r in record["registers"] if "mma" in r["kernel"]]
+        check(len(mma) == 3 * len(fa._HEAD_DIMS)
+              and all(r["spill_bytes"] == 0 for r in mma),
+              f"tensor-core kernels spill or are missing: {mma}")
         forward, (model, tokens) = entry()
         logits = forward(model, tokens)
         check(logits.shape == (2, 32, 256)
@@ -958,13 +1079,18 @@ def main() -> int:
                    b["dq_ms"], b["plain_dq_ms"],
                    (b["dq_bound_ms"], b["dq_bound_by"]), b["library_ms"],
                    library_covers="dq, dk and dv",
-                   errors={"dq": b["errors"]["dq"]}),
+                   kernel="flash_bwd_dq_mma_kernel (bf16, mma.sync)",
+                   f32_kernel="flash_bwd_dq_kernel (scalar f32)",
+                   f32_ms=b["dq_f32_ms"], errors={"dq": b["errors"]["dq"]}),
         kernel_row("flash_bwd_dkv", src + "flash_bwd.cu", tpu + "213",
                    train_launches[2],
                    max(b["errors"][n]["max_abs_err"] for n in ("dk", "dv")),
                    b["dkv_ms"], b["plain_dkv_ms"],
                    (b["dkv_bound_ms"], b["dkv_bound_by"]), b["library_ms"],
                    library_covers="dq, dk and dv",
+                   kernel="flash_bwd_dkv_mma_kernel (bf16, mma.sync)",
+                   f32_kernel="flash_bwd_dkv_kernel (scalar f32)",
+                   f32_ms=b["dkv_f32_ms"],
                    errors={n: b["errors"][n] for n in ("dk", "dv")}),
     ]
     record["kernels"] = kernels

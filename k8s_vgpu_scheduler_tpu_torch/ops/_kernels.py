@@ -2,9 +2,10 @@
 
 Each kernel source under ``csrc/`` exposes a plain C entry point.  On first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library named
-by the hash of its source (so an edited source never loads a stale build)
-and loaded with ``ctypes``.  Importing this module compiles nothing and
-needs no ``nvcc``: the CPU tests import it.
+by the hash of its source and of the headers it includes (so an edited
+source or header never loads a stale build) and loaded with ``ctypes``.
+Importing this module compiles nothing and needs no ``nvcc``: the CPU
+tests import it.
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -61,11 +63,30 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
+def source_digest(src: Path) -> str:
+    """Hash of a kernel source and of every header it includes with
+    quotes, followed recursively from the including file's directory."""
+    h = hashlib.sha256()
+    seen = set()
+
+    def add(path: Path) -> None:
+        if path in seen:
+            return
+        seen.add(path)
+        text = path.read_bytes()
+        h.update(text)
+        for inc in re.findall(rb'^\s*#\s*include\s+"([^"]+)"', text, re.M):
+            add((path.parent / inc.decode()).resolve())
+
+    add(src.resolve())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source
-    exists; return the shared library's path."""
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
+    its headers exists; return the shared library's path."""
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    digest = source_digest(src)
     out = BUILD_DIR / f"lib{name}-{digest}.so"
     if out.exists():
         return out

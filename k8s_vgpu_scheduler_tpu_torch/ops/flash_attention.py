@@ -102,13 +102,27 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (16, 32, 64, 128)
 
 
-def _check(q, *, aligned: bool = False, **others) -> None:
+def _cp_async_fault(t) -> Optional[str]:
+    """Why the bf16 tensor-core kernels, which copy 16 bytes at a time with
+    ``cp.async``, cannot read ``t``; None if they can (or ``t`` is not
+    bf16).  They need 16-byte aligned data and batch, token and head
+    strides that are multiples of 8 elements (a dimension of size 1 is
+    never stepped)."""
+    if t.dtype != torch.bfloat16:
+        return None
+    if t.data_ptr() % 16:
+        return "data must be 16-byte aligned"
+    if any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1):
+        return (f"batch, token and head strides must be multiples of 8 "
+                f"elements, not {t.stride()[:3]}")
+    return None
+
+
+def _check(q, **others) -> None:
     """What every kernel takes: f32 or bf16, a head_dim it was built for,
-    operands of q's shape, dtype and device, a contiguous head dim.  With
-    ``aligned`` (the forward, whose bf16 tensor-core kernel copies 16 bytes
-    at a time with ``cp.async``), bf16 operands also need 16-byte aligned
-    data and batch, token and head strides that are multiples of 8
-    elements (a dimension of size 1 is never stepped)."""
+    operands of q's shape, dtype and device, a contiguous head dim; and
+    bf16 operands the tensor-core kernels can copy (:func:`_cp_async_fault`).
+    The f32 kernels take any layout with a contiguous head dim."""
     d = q.shape[-1]
     if q.dtype not in _DTYPES:
         raise TypeError(f"flash kernel takes float32 or bfloat16, "
@@ -123,14 +137,9 @@ def _check(q, *, aligned: bool = False, **others) -> None:
     for name, t in dict(q=q, **others).items():
         if t.stride(-1) != 1:
             raise ValueError(f"{name}'s head dimension must be contiguous")
-        if not aligned or t.dtype != torch.bfloat16:
-            continue
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}'s data must be 16-byte aligned")
-        if any(t.stride(i) % 8 for i in range(3) if t.shape[i] > 1):
-            raise ValueError(f"{name}'s batch, token and head strides must "
-                             f"be multiples of 8 elements, not "
-                             f"{t.stride()[:3]}")
+        fault = _cp_async_fault(t)
+        if fault:
+            raise ValueError(f"{name}'s {fault}")
 
 
 def _check_rows(q, **rows) -> None:
@@ -162,7 +171,7 @@ def _call(name: str, counter, device, *args) -> None:
 def _launch(q, k, v, sm_scale: float, causal: bool, window: int,
             return_lse: bool):
     B, T, H, d = q.shape
-    _check(q, aligned=True, k=k, v=v)
+    _check(q, k=k, v=v)
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = (torch.empty((B, H, T), dtype=torch.float32, device=q.device)
            if return_lse else None)
@@ -260,10 +269,15 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do, _dlse):
+        """Δ, dQ and dK/dV from the incoming dO.  q, k and v are the
+        forward's, already checked; a dO the kernels cannot read (head
+        dimension not contiguous, or a bf16 layout that breaks the 16-byte
+        ``cp.async`` rule) is first copied into a fresh contiguous tensor:
+        a layout copy, after which the kernels run as usual."""
         q, k, v, out, lse = ctx.saved_tensors
         sm_scale, causal, window = ctx.attrs
-        if do.stride(-1) != 1:
-            do = do.contiguous()
+        if do.stride(-1) != 1 or _cp_async_fault(do):
+            do = do.clone(memory_format=torch.contiguous_format)
         delta = _delta(out, do)
         dq = flash_bwd_dq(q, k, v, do, lse, delta, sm_scale, causal, window)
         dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, sm_scale, causal,

@@ -128,30 +128,32 @@ def test_cpu_path_launches_nothing(monkeypatch):
 
 
 def test_bf16_operands_must_suit_cp_async():
-    # The tensor-core kernel copies 16-byte chunks: bf16 data 16-byte
+    # The tensor-core kernels copy 16-byte chunks: bf16 data 16-byte
     # aligned, batch/token/head strides multiples of 8 elements.
     q, k, v = to_torch(qkv(T=16, d=16), "bfloat16")
-    tfa._check(q, aligned=True, k=k, v=v)  # the contiguous layout passes
+    tfa._check(q, k=k, v=v)  # the contiguous layout passes
     wide = torch.zeros(2, 16, 4, 24, dtype=torch.bfloat16)
-    tfa._check(wide[..., :16], aligned=True, k=k, v=v)  # 1536, 96, 24
+    tfa._check(wide[..., :16], k=k, v=v)  # 1536, 96, 24
     odd = torch.zeros(2, 16, 4 * 16 + 1, dtype=torch.bfloat16)
     sliced = odd[:, :, :64].unflatten(-1, (4, 16))  # token stride 65
     with pytest.raises(ValueError, match="strides"):
-        tfa._check(sliced, aligned=True, k=k, v=v)
+        tfa._check(sliced, k=k, v=v)
     with pytest.raises(ValueError, match="strides"):
-        tfa._check(q, aligned=True, k=k, v=sliced)
+        tfa._check(q, k=k, v=sliced)
     flat = torch.zeros(2 * 16 * 4 * 16 + 1, dtype=torch.bfloat16)
     shifted = flat[1:].view(2, 16, 4, 16)  # 2 bytes off the allocation
     with pytest.raises(ValueError, match="aligned"):
-        tfa._check(shifted, aligned=True, k=k, v=v)
-    # The forward's wrapper asks for the rule; the backward kernels, which
-    # load element by element, and the f32 scalar kernel take any layout.
+        tfa._check(shifted, k=k, v=v)
+    # Every wrapper asks for the rule: the forward and both backward
+    # kernels run bf16 on the tensor cores.  The f32 scalar kernels take
+    # any layout with a contiguous head dimension.
     with pytest.raises(ValueError, match="aligned"):
         tfa._launch(shifted, k, v, 0.25, True, 0, False)
-    tfa._check(shifted, k=sliced, v=v, do=q)
+    with pytest.raises(ValueError, match="aligned"):
+        tfa._check(shifted, k=sliced, v=v, do=q)
     odd32 = torch.zeros(2 * 16 * 65 + 1)[1:].view(2, 16, 65)
-    tfa._check(odd32[:, :, :64].unflatten(-1, (4, 16)), aligned=True,
-               k=k.float(), v=v.float())
+    tfa._check(odd32[:, :, :64].unflatten(-1, (4, 16)), k=k.float(),
+               v=v.float())
 
 
 def test_other_devices_raise():

@@ -7,10 +7,12 @@
 - Importing the kernel binding compiles nothing (the tests import it on
   boxes without nvcc).
 - The CUDA entry points and their ctypes signatures agree.
+- A kernel's build is named by its source and the headers it includes.
 - The CPU path, forward and backward, builds and launches nothing.
 """
 
 import ast
+import hashlib
 import re
 import subprocess
 import sys
@@ -137,9 +139,13 @@ def test_every_cuda_kernel_has_a_profile_family():
              for name in re.findall(
                  r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?"
                  r"(\w+)\s*\(", src.read_text())]
-    assert len(names) >= 4
+    assert len(names) >= 6
     missed = [n for n in names if not any(p in n for p in patterns)]
     assert not missed, f"kernels outside KERNEL_GROUPS: {missed}"
+    # One name each: a pattern inside another kernel's name would count
+    # that kernel's calls as its own.
+    for p in patterns:
+        assert [n for n in names if p in n] == [p], p
 
 
 def test_kernels_build_for_sm90a_into_an_ignored_dir():
@@ -147,3 +153,52 @@ def test_kernels_build_for_sm90a_into_an_ignored_dir():
     ignored = (ROOT / ".gitignore").read_text().split()
     rel = _kernels.BUILD_DIR.relative_to(ROOT).as_posix() + "/"
     assert rel in ignored
+
+
+def test_build_digest_covers_included_headers(tmp_path):
+    # An edited header must not load a library built from the old one.
+    (tmp_path / "inner.cuh").write_text("#define A 1\n")
+    (tmp_path / "outer.cuh").write_text('#pragma once\n#include "inner.cuh"\n')
+    (tmp_path / "other.cuh").write_text("#define B 1\n")
+    src = tmp_path / "k.cu"
+    src.write_text('#include <stdint.h>\n  #include "outer.cuh"\nint x;\n')
+    first = _kernels.source_digest(src)
+    assert _kernels.source_digest(src) == first
+    (tmp_path / "other.cuh").write_text("#define B 2\n")  # not included
+    assert _kernels.source_digest(src) == first
+    (tmp_path / "inner.cuh").write_text("#define A 2\n")
+    second = _kernels.source_digest(src)
+    assert second != first
+    src.write_text('#include <stdint.h>\n  #include "outer.cuh"\nint y;\n')
+    assert _kernels.source_digest(src) not in (first, second)
+
+
+@pytest.mark.parametrize("source", ["flash_fwd.cu", "flash_bwd.cu"])
+def test_kernel_sources_share_the_tensor_core_header(source):
+    src = _kernels.CSRC / source
+    assert '#include "tensor_core.cuh"' in src.read_text()
+    alone = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
+    assert _kernels.source_digest(src) != alone
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__fd017272_12_flash_bwd_cu_3c15cd2824flash_bwd_dkv_mma_kernelILi128ELi32EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiNS_7StridesES7_S7_S7_S7_S7_fii' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__fd017272_12_flash_bwd_cu_3c15cd2824flash_bwd_dkv_mma_kernelILi128ELi32EEEvPK13__nv_bfloat16S3_S3_S3_PKfS5_PS1_S6_iiNS_7StridesES7_S7_S7_S7_S7_fii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 242 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN45_GLOBAL__N__fd017272_12_flash_bwd_cu_3c15cd2819flash_bwd_dq_kernelILi16EEEvPKfS2_S2_S2_S2_S2_Pfii' for 'sm_90a'
+ptxas info    : Function properties for _ZN45_GLOBAL__N__fd017272_12_flash_bwd_cu_3c15cd2819flash_bwd_dq_kernelILi16EEEvPKfS2_S2_S2_S2_S2_Pfii
+    8 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 42 registers, used 1 barriers, 4096 bytes smem
+"""
+
+
+def test_ptxas_log_reads_registers_and_spills():
+    # chip_smoke.py fails a run whose tensor-core kernels spill; the names
+    # sit inside the mangled anonymous namespace of their file.
+    assert chip_smoke.ptxas_kernels(PTXAS_LOG) == [
+        dict(kernel="flash_bwd_dkv_mma_kernel", head_dim=128,
+             registers=242, spill_bytes=0),
+        dict(kernel="flash_bwd_dq_kernel", head_dim=16, registers=42,
+             spill_bytes=32)]
