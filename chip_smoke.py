@@ -16,13 +16,19 @@ a 4-step trajectory, then an 8-layer bf16 train step with an f32 master
 copy, on the card and with the optimizer state offloaded to pinned host
 memory).  It checks the outputs and traces the forward, a window of
 decode dispatches and one train step with torch.profiler (device busy
-share, top kernels, calls of each of the port's kernels).  Exits non-zero
-if any phase fails, and at once (printing no result) without a CUDA
-device or outside a checkout.
+share, top kernels, calls of each of the port's kernels).  Then the
+enforcement layer (phase_enforce), each part in a child process of this
+script (``--enforce-child <name>``) with its own grant env and region:
+the card's inventory and a 24000 MiB memory cap under the 32-layer
+forward, the 8-layer train step uncapped (its AdamW state through host
+swap), then under a 30% compute grant beside an 8000 MiB grant the
+weights cannot fit.  Exits non-zero if any phase fails, and at once (printing no
+result) without a CUDA device or outside a checkout.
 
-Stdout ends with: a ``{"kernels": [...]}`` line (per kernel: launches on
-the main path, max error, kernel / plain / library times and the card's
-bound), the card's name and power limit from nvidia-smi, and the line
+Stdout ends with: the enforcement phase's ``{"phase": "enforce", ...}``
+line, a ``{"kernels": [...]}`` line (per kernel: launches on the main
+paths, max error, kernel / plain / library times and the card's bound),
+the card's name and power limit from nvidia-smi, and the line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
 chiprun_out/chip_smoke.json.
 """
@@ -33,10 +39,12 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -117,6 +125,28 @@ KERNEL_GROUPS = {"port_kernels": ("flash_fwd_mma_kernel", "flash_fwd_kernel",
                                   "flash_bwd_dq_kernel",
                                   "flash_bwd_dkv_kernel"),
                  "matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma")}
+# The enforcement phase (phase_enforce): a 24000 MiB grant for the 32-layer
+# forward (13.5 GB of bf16 weights) and one the weights cannot fit; 256 MiB
+# blocks up to the grant, whose refusal must come within 2 blocks of it;
+# the region's published use within 5% of the allocator's reserved bytes;
+# a 30% compute grant whose duty must land within 10 points of it (the
+# bound of tests/test_shim.py's duty check), an uncapped duty above 85%;
+# each step's charged cost within 10% of its device time; the swapped
+# AdamW state's bytes freed within 1%.
+MIB = 1 << 20
+ENFORCE_LIMIT_MIB = 24000
+ENFORCE_SMALL_LIMIT_MIB = 8000
+ENFORCE_BLOCK = 256 * MIB
+ENFORCE_SM_LIMIT = 30
+TOL_DUTY_POINTS = 0.10
+MIN_UNCAPPED_DUTY = 0.85
+TOL_CHARGED = 0.10
+TOL_USED = 0.05
+TOL_SWAP_BYTES = 0.01
+# The grant env of every child, cleared of whatever the caller's env holds.
+GRANT_ENV = ("CUDA_DEVICE_MEMORY_", "CUDA_DEVICE_SM_LIMIT",
+             "CUDA_TASK_PRIORITY", "CUDA_OVERSUBSCRIBE", "NVIDIA_VISIBLE_",
+             "GPU_CORE_UTILIZATION_POLICY", "ACTIVE_OOM_KILLER", "VTPU_")
 
 
 class Fail(Exception):
@@ -157,13 +187,17 @@ def ptxas_kernels(build_log: str) -> list:
     return rows
 
 
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60)
+def nvidia_smi(query: str) -> str:
+    """The first card's ``--query-gpu`` fields, as nvidia-smi prints them."""
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}",
+                          "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
     check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
     return res.stdout.strip().splitlines()[0]
+
+
+def card_line() -> str:
+    return nvidia_smi("name,power.limit")
 
 
 def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
@@ -988,6 +1022,426 @@ def phase_train_main(torch, fa, port, record):
     return launches
 
 
+def enforce_port():
+    sys.path.insert(0, str(ROOT))
+    from k8s_vgpu_scheduler_tpu_torch.models import convert, llama, train
+    from k8s_vgpu_scheduler_tpu_torch.ops import flash_attention as fa
+    from k8s_vgpu_scheduler_tpu_torch.shim import core, oversub
+    return llama, convert, train, fa, core, oversub
+
+
+def inventory(torch):
+    """The card through TorchBackend, and the H100 fixture through the
+    mock, side by side; needs no grant."""
+    sys.path.insert(0, str(ROOT))
+    from k8s_vgpu_scheduler_tpu_torch.tpulib import (
+        H100_FIXTURE, MockBackend, TorchBackend)
+
+    inv = TorchBackend().inventory()
+    mock = MockBackend({**H100_FIXTURE, "mesh": [1]}).inventory()
+    props = torch.cuda.get_device_properties(0)
+    chip = inv.chips[0]
+    smi_uuid = nvidia_smi("uuid")
+    check(len(inv.chips) == 1, f"{len(inv.chips)} devices, want 1")
+    check(chip.uuid == smi_uuid, f"uuid {chip.uuid} != nvidia-smi's "
+          f"{smi_uuid}")
+    check(chip.board.startswith(props.name), f"name {chip.board}")
+    check(abs(chip.hbm_mib * MIB - props.total_memory)
+          <= 0.01 * props.total_memory, f"memory {chip.hbm_mib} MiB")
+    # Where cuBLAS's workspace comes from: what a first product allocates
+    # beyond its output is drawn from the caching allocator (and counts
+    # against a grant).
+    a = torch.ones(256, 256, device="cuda", dtype=torch.bfloat16)
+    before = torch.cuda.memory_allocated(0)
+    b = a @ a
+    torch.cuda.synchronize()
+    workspace = torch.cuda.memory_allocated(0) - before - b.nbytes
+    return dict(torch=[dataclasses.asdict(c) for c in inv.chips],
+                torch_topology=dataclasses.asdict(inv.topology),
+                mock=[dataclasses.asdict(c) for c in mock.chips],
+                mock_topology=dataclasses.asdict(mock.topology),
+                nvidia_smi_uuid=smi_uuid, total_memory=props.total_memory,
+                sms=props.multi_processor_count,
+                first_product_workspace_bytes=workspace)
+
+
+def child_memory_cap(torch):
+    """The inventory (before the shim comes up: it needs no grant); then,
+    under a 24000 MiB grant, the virtual total, the 32-layer bf16 forward,
+    256 MiB blocks until the allocator refuses, and the region's published
+    use one watchdog interval later."""
+    llama, convert, _, fa, core, _ = enforce_port()
+    limit = ENFORCE_LIMIT_MIB * MIB
+    t0 = time.monotonic()
+    cards = inventory(torch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    times = {"inventory_s": time.monotonic() - t0}
+    t0 = time.monotonic()
+    shim = core.install()
+    times["install_s"] = time.monotonic() - t0
+    total = torch.cuda.get_device_properties(0).total_memory
+    info = shim.memory_info(0)
+    check(info["total"] == limit, f"memory_info total {info['total']}")
+    cfg = dataclasses.replace(llama.llama_7b(), attention="flash")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    t0 = time.monotonic()
+    model = convert.init_weights(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab, (1, 2048), device="cuda",
+                           generator=gen)
+    torch.cuda.synchronize()
+    times["init_weights_s"] = time.monotonic() - t0
+    out = []
+    fa.flash_attention.launches = 0
+    with torch.inference_mode():  # one forward: counted and traced
+        profile = device_profile(torch, lambda: out.append(model(tokens)))
+    launches = fa.flash_attention.launches
+    logits = out.pop()
+    check(launches == cfg.n_layers, f"flash launches {launches}")
+    check(logits.shape == (1, 2048, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()), "capped logits")
+    del logits
+    times["forward_s"] = profile["wall_ms"] / 1e3
+    calls = profile["port_kernel_calls"]
+    check(calls["flash_fwd_mma_kernel"] == cfg.n_layers,
+          f"the capped forward ran the port's kernels {calls}")
+    peak_forward = torch.cuda.max_memory_reserved(0)
+    blocks, refused_at = [], None
+    for _ in range(limit // ENFORCE_BLOCK + 4):
+        try:
+            blocks.append(torch.empty(ENFORCE_BLOCK, dtype=torch.uint8,
+                                      device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            refused_at = torch.cuda.memory_reserved(0)
+            break
+    check(refused_at is not None, f"{len(blocks)} blocks of 256 MiB past a "
+          f"{ENFORCE_LIMIT_MIB} MiB grant raised no OutOfMemoryError")
+    check(limit - 2 * ENFORCE_BLOCK <= refused_at <= limit,
+          f"refused at {refused_at} reserved bytes, grant {limit}")
+    time.sleep(1.5)  # the watchdog publishes once a second
+    reserved = torch.cuda.memory_reserved(0)
+    used = shim.native.read_region(
+        os.environ["CUDA_DEVICE_MEMORY_SHARED_CACHE"])["used"][0]
+    check(abs(used - reserved) <= TOL_USED * reserved,
+          f"region used {used} against reserved {reserved}")
+    free, card_total = torch.cuda.mem_get_info(0)
+    outside = card_total - free - reserved - int(os.environ["PARENT_USED"])
+    return dict(inventory=cards, times=times,
+                limit=limit, total_memory=total, fraction=limit / total,
+                memory_info_total=info["total"], flash_launches=launches,
+                profile_flash_fwd_mma_calls=calls["flash_fwd_mma_kernel"],
+                forward_peak_reserved=peak_forward,
+                blocks_before_refusal=len(blocks),
+                reserved_at_refusal=refused_at,
+                grant_minus_reserved_at_refusal=limit - refused_at,
+                region_used=used, reserved_when_read=reserved,
+                outside_allocator_bytes=outside)
+
+
+def child_load_oom(torch):
+    """Under an 8000 MiB grant the 13.5 GB of weights cannot load: the
+    allocator must refuse while they do."""
+    llama, convert, _, _, core, _ = enforce_port()
+    limit = ENFORCE_SMALL_LIMIT_MIB * MIB
+    t0 = time.monotonic()
+    core.install()
+    install_s = time.monotonic() - t0
+    cfg = dataclasses.replace(llama.llama_7b(), attention="flash")
+    t0 = time.monotonic()
+    try:
+        convert.init_weights(cfg, torch.Generator(device="cuda")
+                             .manual_seed(SEED + 1))
+        refused_at = None
+    except torch.cuda.OutOfMemoryError:
+        refused_at = torch.cuda.memory_reserved(0)
+    load_s = time.monotonic() - t0
+    check(refused_at is not None,
+          f"13.5 GB of weights loaded under a {ENFORCE_SMALL_LIMIT_MIB} MiB "
+          "grant")
+    check(refused_at <= limit, f"reserved {refused_at} past the grant")
+    return dict(limit=limit, reserved_at_refusal=refused_at,
+                install_s=install_s, load_until_refused_s=load_s)
+
+
+def enforce_train_state(torch, llama, train):
+    """phase_train_main's model and batch: llama_7b widths, 8 layers,
+    bf16 with the f32 master copy, one (1, 2049) batch."""
+    cfg = dataclasses.replace(llama.llama_7b(), n_layers=8,
+                              attention="flash")
+    tokens = torch.randint(
+        0, cfg.vocab, (1, 2049), device="cuda",
+        generator=torch.Generator(device="cuda").manual_seed(SEED + 5))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    model, opt, state = train.init_train_state(cfg, gen)
+    return cfg, tokens, model, state, train.make_train_step(model, opt)
+
+
+def host_swap(torch, core, oversub, state) -> dict:
+    """The train state's AdamW state through HostSwapStore: suspend must
+    free its bytes; then a dispatch that takes the state must find it on
+    the card again (the gate brings it back), bit for bit."""
+    tree = {"mu": state.opt_state.mu, "nu": state.opt_state.nu}
+    leaves = oversub.tree_leaves(tree)
+    nbytes = oversub.tree_bytes(tree)
+    kept = [t.clone() for t in leaves]
+    store = oversub.global_store()
+    store.register("adamw", tree)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated(0)
+    t0 = time.monotonic()
+    freed = store.suspend("adamw")
+    suspend_s = time.monotonic() - t0
+    after = torch.cuda.memory_allocated(0)
+    pinned = all(t.device.type == "cpu" and t.is_pinned() for t in leaves)
+    t0 = time.monotonic()
+    core.gate(lambda state: None, state)
+    resume_s = time.monotonic() - t0
+    on_card = all(t.is_cuda for t in leaves)
+    bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(leaves, kept))
+    check(abs((before - after) - nbytes) <= TOL_SWAP_BYTES * nbytes,
+          f"suspend freed {before - after} bytes of a {nbytes}-byte state")
+    check(freed == nbytes and pinned and on_card and bitwise,
+          f"freed {freed}, pinned {pinned}, back on the card {on_card}, "
+          f"bitwise {bitwise}")
+    return dict(state_bytes=nbytes, allocated_before=before,
+                allocated_suspended=after, freed=before - after,
+                suspend_s=suspend_s, resume_s=resume_s, host_pinned=pinned,
+                resumed_bitwise=bitwise)
+
+
+def child_train(torch):
+    """2 warm-up and 8 timed train steps, each one dispatch of the gate
+    (VTPU_SYNC_EVERY=1), capped or not by the env: per step its device
+    time (CUDA events inside the gate), its wall time and the cost the
+    gate charged; the duty is device time over wall time.  Where the grant
+    oversubscribes, the AdamW state goes through host swap after the
+    warm-up (host_swap), so the timed steps' losses are those after a
+    suspend and resume."""
+    llama, _, train, fa, core, oversub = enforce_port()
+    shim = core.install()
+    cfg, tokens, model, state, step = enforce_train_state(torch, llama, train)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for f in counters:
+        f.launches = 0
+    losses, per_step = [], []
+
+    def launches():
+        return [f.launches for f in counters]
+
+    for _ in range(2):  # through the step callable's own gate
+        n0, before = shim.dispatches, launches()
+        state, loss = step(state, tokens)
+        losses.append(loss.item())
+        check(shim.dispatches == n0 + 1, "the train step was not one "
+              "dispatch of the gate")
+        per_step.append([a - b for a, b in zip(launches(), before)])
+    swap = host_swap(torch, core, oversub, state) \
+        if oversub.enabled_from_env() else None
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(8)]
+    step_s, charged_us = [], []
+    t_start = time.monotonic()
+    for start, end in events:
+        def timed(state, tokens):
+            start.record()
+            out = step(state, tokens)  # nested: part of this dispatch
+            end.record()
+            return out
+
+        before = launches()
+        t0 = time.monotonic()
+        state, loss = core.gate(timed, state, tokens)
+        step_s.append(time.monotonic() - t0)
+        charged_us.append(shim.last_cost_us[0])
+        losses.append(loss.item())
+        per_step.append([a - b for a, b in zip(launches(), before)])
+    wall_s = time.monotonic() - t_start
+    torch.cuda.synchronize()
+    busy_ms = [a.elapsed_time(b) for a, b in events]
+    duty = sum(busy_ms) / (wall_s * 1e3)
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    check(all(n == [cfg.n_layers] * 3 for n in per_step),
+          f"kernel launches per step {per_step}")
+    for ms, us in zip(busy_ms, charged_us):
+        check(abs(us / 1e3 - ms) <= TOL_CHARGED * ms,
+              f"charged {us} us for a step of {ms:.3f} device ms")
+    return dict(sm_limit=int(shim.native.lib.vgpu_get_sm_limit(0)),
+                policy=os.environ.get("GPU_CORE_UTILIZATION_POLICY"),
+                losses=losses, step_s=step_s,
+                median_step_s=statistics.median(step_s),
+                device_ms=busy_ms, charged_us=charged_us, wall_s=wall_s,
+                duty=duty, dispatches=shim.dispatches, host_swap=swap,
+                launches=dict(zip(("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"), launches())))
+
+
+ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
+                    "load_oom": child_load_oom,
+                    "train": child_train}
+
+
+def enforce_child(name: str) -> int:
+    """One sub-phase of phase_enforce, in a process of its own: imports
+    what it needs, waits for the parent's go on stdin (the card is then
+    this sub-phase's), and prints its readings as one ENFORCE line."""
+    import torch
+
+    enforce_port()
+    if sys.stdin.readline() != "go\n":
+        return 3  # the parent is gone: leave the card alone
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.monotonic()
+    try:
+        out = ENFORCE_CHILDREN[name](torch)
+    except Fail as exc:
+        print(f"chip_smoke: FAIL: {name}: {exc}", file=sys.stderr)
+        return 1
+    out["run_s"] = time.monotonic() - t0
+    print("ENFORCE " + json.dumps(out), flush=True)
+    return 0
+
+
+class EnforceChild:
+    """One sub-phase under ``grant`` (env) with a region of its own, in a
+    process started at once: its start-up (the Python imports) overlaps
+    the sub-phases before it, and it touches the card only after
+    :meth:`run`.  Its output goes to chiprun_out/enforce_<label>.log."""
+
+    def __init__(self, name, tmp: Path, label=None, **grant) -> None:
+        self.label = label or name
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(GRANT_ENV)}
+        env.update({k: str(v) for k, v in grant.items()})
+        env["CUDA_DEVICE_MEMORY_SHARED_CACHE"] = str(
+            tmp / self.label / "cudevshr.cache")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
+             name], env=env, cwd=ROOT, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+    def run(self, record) -> dict:
+        """Let it go on the card and wait for its readings."""
+        t0 = time.monotonic()
+        try:
+            stdout, stderr = self.proc.communicate("go\n", timeout=300)
+        except subprocess.TimeoutExpired:
+            self.stop()
+            raise Fail(f"enforce child {self.label} ran past 300 s")
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / f"enforce_{self.label}.log").write_text(stdout + stderr)
+        check(self.proc.returncode == 0, f"enforce child {self.label} exited "
+              f"{self.proc.returncode}: {stderr.strip()[-2000:]}")
+        line = [x for x in stdout.splitlines() if x.startswith("ENFORCE ")]
+        check(len(line) == 1, f"enforce child {self.label} printed no result")
+        reading = json.loads(line[0][len("ENFORCE "):])
+        reading["child_s"] = time.monotonic() - t0
+        record.setdefault("enforce", {})[self.label] = reading
+        return reading
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.communicate()
+
+
+def phase_enforce(torch, record):
+    """The enforcement layer on the card, each sub-phase in a child process
+    with its own grant and region: the inventory and a 24000 MiB memory
+    cap under the 32-layer forward (alone on the card, which it measures);
+    the 8-layer train step uncapped with an oversubscribed grant (its
+    AdamW state through host swap after the warm-up); then under a 30%
+    compute grant, beside an 8000 MiB grant the weights cannot fit (a
+    child that runs no kernel, at the capped step's idle 70%).  Returns
+    the port kernels' launches in the children (each child counts from
+    0)."""
+    uuid = nvidia_smi("uuid")
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(0)
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+        tmp = Path(tmp)
+        children = [
+            EnforceChild("memory_cap", tmp,
+                         CUDA_DEVICE_MEMORY_LIMIT_0=f"{ENFORCE_LIMIT_MIB}m",
+                         NVIDIA_VISIBLE_DEVICES=uuid,
+                         PARENT_USED=total - free),
+            EnforceChild("train", tmp, label="uncapped", VTPU_SYNC_EVERY=1,
+                         CUDA_OVERSUBSCRIBE="true"),
+            EnforceChild("load_oom", tmp,
+                         CUDA_DEVICE_MEMORY_LIMIT_0=(
+                             f"{ENFORCE_SMALL_LIMIT_MIB}m"),
+                         NVIDIA_VISIBLE_DEVICES=uuid),
+            EnforceChild("train", tmp, label="capped", VTPU_SYNC_EVERY=1,
+                         CUDA_DEVICE_SM_LIMIT=ENFORCE_SM_LIMIT,
+                         GPU_CORE_UTILIZATION_POLICY="force")]
+        try:
+            mem = children[0].run(record)
+            uncapped = children[1].run(record)
+            load_oom = pool.submit(children[2].run, record)
+            capped = children[3].run(record)
+            load_oom.result()
+        finally:
+            for child in children:
+                child.stop()
+    record["enforce_s"] = time.monotonic() - t0
+    swap = uncapped["host_swap"]
+    check(capped["sm_limit"] == ENFORCE_SM_LIMIT
+          and uncapped["sm_limit"] == 0, "the region's SM limits")
+    check(abs(capped["duty"] - ENFORCE_SM_LIMIT / 100) <= TOL_DUTY_POINTS,
+          f"capped duty {capped['duty']:.4f}, grant {ENFORCE_SM_LIMIT}%")
+    check(uncapped["duty"] > MIN_UNCAPPED_DUTY,
+          f"uncapped duty {uncapped['duty']:.4f}")
+    check(swap is not None and capped["host_swap"] is None,
+          "host swap ran in the wrong child")
+    # The capped run never suspends: equal losses show both that
+    # throttling and that the swap leave the results as they were.
+    check(capped["losses"] == uncapped["losses"],
+          f"capped losses {capped['losses']} != uncapped (swapped after "
+          f"step 2) {uncapped['losses']}")
+    summary = {
+        "phase": "enforce", "card": record["card"],
+        "seconds": record["enforce_s"],
+        "inventory": mem["inventory"]["torch"],
+        "mock_h100": mem["inventory"]["mock"],
+        "memory_cap": {k: mem[k] for k in (
+            "limit", "fraction", "memory_info_total", "flash_launches",
+            "profile_flash_fwd_mma_calls", "reserved_at_refusal",
+            "grant_minus_reserved_at_refusal", "region_used",
+            "reserved_when_read", "outside_allocator_bytes")},
+        "load_oom": {k: record["enforce"]["load_oom"][k]
+                     for k in ("limit", "reserved_at_refusal",
+                               "load_until_refused_s")},
+        "child_s": {label: run["child_s"]
+                    for label, run in record["enforce"].items()},
+        "compute": {name: {k: run[k] for k in (
+            "sm_limit", "duty", "median_step_s", "device_ms", "charged_us",
+            "losses")} for name, run in (("uncapped", uncapped),
+                                         ("capped", capped))},
+        "host_swap": {k: swap[k] for k in (
+            "state_bytes", "freed", "suspend_s", "resume_s",
+            "resumed_bitwise")},
+    }
+    log(f"memory cap: {mem['outside_allocator_bytes'] / MIB:.0f} MiB of the "
+        "capped child on the card outside the caching allocator (its CUDA "
+        "context: driver state, kernel images, library handles), not "
+        "counted against the grant; a first product allocated "
+        f"{mem['inventory']['first_product_workspace_bytes']}"
+        " bytes beyond its output through the allocator (cuBLAS's "
+        "workspace, counted)")
+    log(json.dumps(summary))
+    counts = [sum(run["launches"][n] for run in (uncapped, capped))
+              for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+    counts[0] += mem["flash_launches"]
+    return counts
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                bound, library_ms, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -997,6 +1451,8 @@ def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 
 
 def main() -> int:
+    if len(sys.argv) == 3 and sys.argv[1] == "--enforce-child":
+        return enforce_child(sys.argv[2])
     import torch
 
     if not torch.cuda.is_available():
@@ -1017,8 +1473,10 @@ def main() -> int:
     record = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+        vgpu = pool.submit(_kernels.build_vgpu)  # the enforcement library
         list(pool.map(_kernels.build, KERNEL_SOURCES))
+        vgpu.result()
     record["build_s"] = time.monotonic() - t0
     log(f"built {', '.join(KERNEL_SOURCES)} in {record['build_s']:.1f} s")
     record["ptxas"] = {name: _kernels.build_logs.get(name, "")
@@ -1056,6 +1514,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_launches = phase_train_main(torch, fa, port, record)
+        enforce_launches = phase_enforce(torch, record)
     except Fail as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -1066,27 +1525,34 @@ def main() -> int:
     tpu = "k8s_vgpu_scheduler_tpu/ops/flash_attention.py:"
     kernels = [
         kernel_row("flash_fwd", src + "flash_fwd.cu", tpu + "57",
-                   serve_launches + train_launches[0], t["max_abs_err"],
+                   serve_launches + train_launches[0] + enforce_launches[0],
+                   t["max_abs_err"],
                    t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
                    t["library_ms"],
                    launches_by_path={"serve": serve_launches,
-                                     "train": train_launches[0]},
+                                     "train": train_launches[0],
+                                     "enforce": enforce_launches[0]},
                    kernel="flash_fwd_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_fwd_kernel (scalar f32)",
                    f32_ms=t["f32_ms"], errors=t["errors"]),
         kernel_row("flash_bwd_dq", src + "flash_bwd.cu", tpu + "172",
-                   train_launches[1], b["errors"]["dq"]["max_abs_err"],
+                   train_launches[1] + enforce_launches[1],
+                   b["errors"]["dq"]["max_abs_err"],
                    b["dq_ms"], b["plain_dq_ms"],
                    (b["dq_bound_ms"], b["dq_bound_by"]), b["library_ms"],
+                   launches_by_path={"train": train_launches[1],
+                                     "enforce": enforce_launches[1]},
                    library_covers="dq, dk and dv",
                    kernel="flash_bwd_dq_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_bwd_dq_kernel (scalar f32)",
                    f32_ms=b["dq_f32_ms"], errors={"dq": b["errors"]["dq"]}),
         kernel_row("flash_bwd_dkv", src + "flash_bwd.cu", tpu + "213",
-                   train_launches[2],
+                   train_launches[2] + enforce_launches[2],
                    max(b["errors"][n]["max_abs_err"] for n in ("dk", "dv")),
                    b["dkv_ms"], b["plain_dkv_ms"],
                    (b["dkv_bound_ms"], b["dkv_bound_by"]), b["library_ms"],
+                   launches_by_path={"train": train_launches[2],
+                                     "enforce": enforce_launches[2]},
                    library_covers="dq, dk and dv",
                    kernel="flash_bwd_dkv_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_bwd_dkv_kernel (scalar f32)",

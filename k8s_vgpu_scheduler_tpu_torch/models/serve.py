@@ -24,6 +24,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..shim.core import gated
 from .generate import _sample
 from .llama import LayerCache, Llama, PAD_POSITION, torch_dtype
 
@@ -175,6 +176,7 @@ class ServingEngine:
         return _sample(logits, self.temperature, self.generator,
                        self.top_k, self.top_p)
 
+    @gated
     def _prefill(self, prompt: List[int], slot: int) -> int:
         """Prefill one slot's rows (a B=1 view of the pool written at
         index 0; pads included — their sentinel key positions keep them
@@ -198,6 +200,7 @@ class ServingEngine:
         self.key_pos[slot] = row
         return int(self._sample(logits[0, plen - 1]))
 
+    @gated
     def _decode(self) -> np.ndarray:
         """``horizon`` lock-step decode steps over every slot; returns the
         sampled tokens [horizon, S]."""

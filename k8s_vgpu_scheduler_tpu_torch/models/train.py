@@ -26,6 +26,8 @@ from typing import Callable, List, Optional, Tuple
 import torch
 
 from ..device import resolve_device
+from ..shim.core import gated
+from ..shim.oversub import host_copy
 from .convert import init_weights
 from .llama import Llama, LlamaConfig
 
@@ -193,6 +195,7 @@ def make_train_step(model: Llama, optimizer: Optimizer):
     is a detached device scalar (reading it waits for the step)."""
     params = list(model.parameters())
 
+    @gated
     def train_step(state: TrainState, tokens: torch.Tensor):
         loss = loss_fn(model, tokens)
         grads = list(torch.autograd.grad(loss, params))
@@ -213,15 +216,8 @@ def _to_host(opt_state: OptState) -> OptState:
     """A host copy of ``opt_state``, pinned where it comes from the card so
     the copies both ways are plain DMA.  Returns once the copies have
     landed: a reader on the host may use it at once."""
-    def copy(t: torch.Tensor) -> torch.Tensor:
-        if t.device.type == "cpu":
-            return t.clone()
-        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        host.copy_(t, non_blocking=True)
-        return host
-
     device = opt_state.mu[0].device if opt_state.mu else None
-    host = opt_state.map(copy)
+    host = opt_state.map(host_copy)
     if device is not None and device.type == "cuda":
         landed = torch.cuda.Event()
         landed.record(torch.cuda.current_stream(device))
@@ -250,6 +246,7 @@ class OffloadedTrainStep:
     def __init__(self, device_step):
         self._step = device_step
 
+    @gated
     def __call__(self, state: TrainState, tokens: torch.Tensor):
         device = state.params[0].device
         state.opt_state = state.opt_state.map(

@@ -1,11 +1,12 @@
-"""Build and bind the port's CUDA kernels.
+"""Build and bind the port's CUDA kernels and its native host library.
 
 Each kernel source under ``csrc/`` exposes a plain C entry point.  On first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library named
 by the hash of its source and of the headers it includes (so an edited
 source or header never loads a stale build) and loaded with ``ctypes``.
-Importing this module compiles nothing and needs no ``nvcc``: the CPU
-tests import it.
+The enforcement library (``csrc/vgpu/*.cc``, host C++) is built the same
+way with ``g++`` into ``libvgpu_torch-<hash>.so``.  Importing this module
+compiles nothing and needs no compiler: the CPU tests import it.
 """
 
 from __future__ import annotations
@@ -25,6 +26,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # .gitignore.
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+VGPU_DIR = CSRC / "vgpu"
+HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread")
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -82,26 +85,45 @@ def source_digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
-    its headers exists; return the shared library's path."""
-    src = CSRC / f"{name}.cu"
-    digest = source_digest(src)
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+def _compile(name: str, out: Path, cmd) -> Path:
+    """Run ``cmd -o <tmp>`` unless ``out`` exists, then move the result to
+    ``out``; raise with the compiler's errors if it fails."""
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
-    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", tmp, str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([*cmd, "-o", tmp], capture_output=True, text=True)
     build_logs[name] = res.stdout + res.stderr
     if res.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {src}:\n{res.stderr}")
+        raise RuntimeError(f"{cmd[0]} failed for {name}:\n{res.stderr}")
     os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
     return out
+
+
+def build(name: str) -> Path:
+    """Compile ``csrc/<name>.cu`` unless a build of this exact source and
+    its headers exists; return the shared library's path."""
+    src = CSRC / f"{name}.cu"
+    out = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
+    return _compile(name, out, [
+        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+        "-Xcompiler", "-fPIC", "-Xptxas", "-v", str(src)])
+
+
+def build_vgpu() -> Path:
+    """Compile the enforcement library from ``csrc/vgpu/*.cc`` with g++
+    unless a build of these exact sources and headers exists; return the
+    shared library's path.  Raises when g++ is missing or fails."""
+    srcs = sorted(VGPU_DIR.glob("*.cc"))
+    digest = hashlib.sha256(
+        "".join(source_digest(s) for s in srcs).encode()).hexdigest()[:16]
+    gxx = shutil.which("g++")
+    if gxx is None:
+        raise RuntimeError("g++ not found: libvgpu_torch cannot be built")
+    return _compile("vgpu", BUILD_DIR / f"libvgpu_torch-{digest}.so",
+                    [gxx, *HOST_FLAGS, "-shared", *map(str, srcs)])
 
 
 def load(name: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":

@@ -9,9 +9,13 @@
 - The CUDA entry points and their ctypes signatures agree.
 - A kernel's build is named by its source and the headers it includes.
 - The CPU path, forward and backward, builds and launches nothing.
+- The enforcement layer (``shim/``, ``tpulib/``) imports torch only inside
+  functions, nothing in the port reads ``lib/tpu/``, and ``csrc/vgpu/``
+  builds with g++ into the port's build directory.
 """
 
 import ast
+import ctypes
 import hashlib
 import re
 import subprocess
@@ -80,7 +84,9 @@ def test_kernel_module_import_runs_no_compiler():
         "import k8s_vgpu_scheduler_tpu_torch.ops.flash_attention\n"
         "import k8s_vgpu_scheduler_tpu_torch.entry\n"
         "import k8s_vgpu_scheduler_tpu_torch.models.train\n"
-        "assert not k._libs\n"
+        "import k8s_vgpu_scheduler_tpu_torch.shim\n"
+        "import k8s_vgpu_scheduler_tpu_torch.tpulib\n"
+        "assert not k._libs and not k.build_logs\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -202,3 +208,52 @@ def test_ptxas_log_reads_registers_and_spills():
              registers=242, spill_bytes=0),
         dict(kernel="flash_bwd_dq_kernel", head_dim=16, registers=42,
              spill_bytes=32)]
+
+
+ENFORCEMENT = sorted((PORT / "shim").glob("*.py")) + \
+    sorted((PORT / "tpulib").glob("*.py"))
+
+
+@pytest.mark.parametrize("path", ENFORCEMENT,
+                         ids=[str(p.relative_to(ROOT)) for p in ENFORCEMENT])
+def test_enforcement_imports_torch_only_inside_functions(path):
+    top = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            top |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            top.add(node.module.split(".")[0])
+    assert not top & {"torch", "numpy", *FORBIDDEN}, sorted(top)
+
+
+def test_enforcement_import_loads_no_torch():
+    code = ("import sys\n"
+            "import k8s_vgpu_scheduler_tpu_torch.shim\n"
+            "import k8s_vgpu_scheduler_tpu_torch.tpulib\n"
+            "assert 'torch' not in sys.modules, 'torch imported'\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+PORT_FILES = sorted(p for p in PORT.rglob("*")
+                    if p.is_file() and "build" not in p.parts
+                    and "__pycache__" not in p.parts)
+
+
+def test_nothing_in_the_port_reads_lib_tpu():
+    hits = [str(p.relative_to(ROOT)) for p in PORT_FILES
+            if re.search(rb"lib/tpu|libvtpu|vtpu/", p.read_bytes())]
+    assert not hits
+
+
+def test_vgpu_library_builds_with_gxx_into_the_port_build_dir():
+    path = _kernels.build_vgpu()
+    assert path.parent == _kernels.BUILD_DIR
+    assert re.fullmatch(r"libvgpu_torch-[0-9a-f]{16}\.so", path.name)
+    assert _kernels.build_vgpu() == path  # built once, by its sources
+    lib = ctypes.CDLL(str(path))
+    assert hasattr(lib, "vgpu_init_path") and hasattr(lib, "vgpu_rate_acquire")
+    assert not hasattr(lib, "vtpu_init_path")
+    assert "-pthread" in _kernels.HOST_FLAGS and "-fPIC" in _kernels.HOST_FLAGS
