@@ -22,8 +22,13 @@ script (``--enforce-child <name>``) with its own grant env and region:
 the card's inventory and a 24000 MiB memory cap under the 32-layer
 forward, the 8-layer train step uncapped (its AdamW state through host
 swap), then under a 30% compute grant beside an 8000 MiB grant the
-weights cannot fit.  Exits non-zero if any phase fails, and at once (printing no
-result) without a CUDA device or outside a checkout.
+weights cannot fit; then the same grants through the CUDA driver-API
+interposer (``LD_PRELOAD``, the Python shim standing down): the 24000 MiB
+cap with the context counted, two processes of one pod on one grant, a
+process that imports only torch, and the train step without the
+interposer, through it uncapped and through it at 30%.  Exits non-zero if
+any phase fails, and at once (printing no result) without a CUDA device or
+outside a checkout.
 
 Stdout ends with: the enforcement phase's ``{"phase": "enforce", ...}``
 line, a ``{"kernels": [...]}`` line (per kernel: launches on the main
@@ -143,10 +148,33 @@ MIN_UNCAPPED_DUTY = 0.85
 TOL_CHARGED = 0.10
 TOL_USED = 0.05
 TOL_SWAP_BYTES = 0.01
+# The interposer's children: 256 MiB blocks up to the grant, which
+# nvidia-smi's reading (the card's used memory less what it held before,
+# contexts included) must not pass and must come within 512 MiB of, for
+# one process, for a pod's two and for a process that imports only torch;
+# the same 5% between the region's `used` and that reading; the fixed
+# context charge at most 64 MiB above what the card shows outside the
+# allocations, and never below it; 3 train steps traced for their device
+# time after the 8 timed ones; 3 pairs of train children without and with
+# the interposer, uncapped, for its end-to-end cost; the C driver's null
+# kernel launched NULL_LAUNCHES times each way for its host cost a launch;
+# a co-tenant outside the pod allocating and freeing 1 GiB blocks while the
+# pod's contexts come up.
+INTERPOSER_STEPS_TRACED = 3
+TOL_GRANT_MIB = 512
+TOL_CONTEXT_MIB = 64
+AB_PAIRS = 3
+NULL_LAUNCHES = 20000
+COTENANT_BLOCK = 1024 * MIB
+# vgpu_interposer_stats' fields (csrc/vgpu/cuda_interposer.cc).
+INTERPOSER_STATS = ("launches", "gated", "charged_us", "samples",
+                    "sampled_us", "context_bytes", "alloc_bytes",
+                    "refusals", "capture_skips")
 # The grant env of every child, cleared of whatever the caller's env holds.
 GRANT_ENV = ("CUDA_DEVICE_MEMORY_", "CUDA_DEVICE_SM_LIMIT",
              "CUDA_TASK_PRIORITY", "CUDA_OVERSUBSCRIBE", "NVIDIA_VISIBLE_",
-             "GPU_CORE_UTILIZATION_POLICY", "ACTIVE_OOM_KILLER", "VTPU_")
+             "GPU_CORE_UTILIZATION_POLICY", "ACTIVE_OOM_KILLER", "VTPU_",
+             "LD_PRELOAD", "POD_")
 
 
 class Fail(Exception):
@@ -198,6 +226,21 @@ def nvidia_smi(query: str) -> str:
 
 def card_line() -> str:
     return nvidia_smi("name,power.limit")
+
+
+def smi_env() -> dict:
+    """This env without a preloaded library: nvidia-smi must read the
+    card, not a grant (the interposer virtualises NVML)."""
+    return {k: v for k, v in os.environ.items() if k != "LD_PRELOAD"}
+
+
+def smi_card_mib() -> int:
+    """The card's used memory by nvidia-smi (``memory.used``), in MiB."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
+                          "--format=csv,noheader,nounits"], env=smi_env(),
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return int(res.stdout.strip().splitlines()[0])
 
 
 def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1276,9 +1319,278 @@ def child_train(torch):
                                    "flash_bwd_dkv"), launches())))
 
 
+def interposer_stats() -> dict:
+    """The preloaded interposer's counters on device 0."""
+    import ctypes
+
+    fn = ctypes.CDLL(None).vgpu_interposer_stats
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int]
+    out = (ctypes.c_uint64 * len(INTERPOSER_STATS))()
+    n = fn(0, out, len(out))
+    return dict(zip(INTERPOSER_STATS, out[:n]))
+
+
+def stood_down(core) -> dict:
+    """Install the shim as a container's startup would, and check that it
+    stood down for the interposer: no fraction, no gate, no publishing."""
+    shim = core.install()
+    check(core.interposer_active() and shim.interposed
+          and shim.native.interposed and core._GATE is None
+          and not shim.fractions,
+          "the Python shim did not stand down under the interposer")
+    return shim
+
+
+def check_grant(smi: int, grant_mib: int, what: str) -> None:
+    """nvidia-smi's reading at a refusal: at most the grant, within
+    TOL_GRANT_MIB of it."""
+    check(grant_mib - TOL_GRANT_MIB <= smi <= grant_mib,
+          f"{what}: nvidia-smi reads {smi} MiB at the refusal, grant "
+          f"{grant_mib} MiB")
+
+
+def child_interposer_cap(torch):
+    """Under a 24000 MiB grant through the interposer alone: the shim stands
+    down, the virtual total, the 32-layer bf16 forward, then 256 MiB blocks
+    until torch.OutOfMemoryError, read by nvidia-smi (the context
+    included) and from the region at the refusal.  What the card holds
+    beyond the charged allocations is the process's footprint, which the
+    fixed context charge must cover, by at most TOL_CONTEXT_MIB more."""
+    llama, convert, _, fa, core, _ = enforce_port()
+    limit = ENFORCE_LIMIT_MIB * MIB
+    baseline = smi_card_mib()  # before this process brings CUDA up
+    shim = stood_down(core)
+    free, total = torch.cuda.mem_get_info(0)
+    check(total == limit, f"mem_get_info total {total}, grant {limit}")
+    after_init = interposer_stats()
+    cfg = dataclasses.replace(llama.llama_7b(), attention="flash")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    model = convert.init_weights(cfg, gen)
+    tokens = torch.randint(0, cfg.vocab, (1, 2048), device="cuda",
+                           generator=gen)
+    fa.flash_attention.launches = 0
+    with torch.inference_mode():
+        logits = model(tokens)
+        torch.cuda.synchronize()
+    launches = fa.flash_attention.launches
+    check(launches == cfg.n_layers, f"flash launches {launches}")
+    check(logits.shape == (1, 2048, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()), "capped logits")
+    del logits
+    blocks, refused = [], False
+    for _ in range(limit // ENFORCE_BLOCK + 4):
+        try:
+            blocks.append(torch.empty(ENFORCE_BLOCK, dtype=torch.uint8,
+                                      device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            refused = True
+            break
+    torch.cuda.synchronize()
+    smi = smi_card_mib() - baseline
+    used = int(shim.native.lib.vgpu_get_used(0))
+    reserved = torch.cuda.memory_reserved(0)
+    stats = interposer_stats()
+    check(refused, f"{len(blocks)} blocks of 256 MiB past a "
+          f"{ENFORCE_LIMIT_MIB} MiB grant raised no OutOfMemoryError")
+    check_grant(smi, ENFORCE_LIMIT_MIB, f"one process (card {baseline} MiB "
+                f"before, region used {used})")
+    check(abs(used - smi * MIB) <= TOL_USED * smi * MIB,
+          f"region used {used} against nvidia-smi's {smi} MiB")
+    footprint = smi * MIB - stats["alloc_bytes"]
+    check(0 <= stats["context_bytes"] - footprint <= TOL_CONTEXT_MIB * MIB,
+          f"context charged {stats['context_bytes']} bytes, the card shows "
+          f"{footprint} outside the allocations")
+    return dict(limit=limit, mem_get_info_total=total,
+                mem_get_info_free=free,
+                device_total_memory=torch.cuda.get_device_properties(0)
+                .total_memory,
+                flash_launches=launches, blocks_before_refusal=len(blocks),
+                smi_used_mib_at_refusal=smi,
+                grant_minus_smi_mib=ENFORCE_LIMIT_MIB - smi,
+                region_used_at_refusal=used, reserved_at_refusal=reserved,
+                smi_baseline_mib=baseline,
+                context_bytes=stats["context_bytes"],
+                context_bytes_at_init=after_init["context_bytes"],
+                footprint_bytes=footprint,
+                alloc_bytes=stats["alloc_bytes"],
+                refusals=stats["refusals"], interposer=stats)
+
+
+def wait_for(path: Path, what: str) -> None:
+    t0 = time.monotonic()
+    while not path.exists():
+        check(time.monotonic() - t0 < 120, f"no {what}")
+        time.sleep(0.01)
+
+
+def child_interposer_pod(torch):
+    """One of two processes of one pod (one region, one 24000 MiB grant):
+    bring CUDA up at the same time as the other, while a co-tenant outside
+    the pod allocates and frees; once the co-tenant is gone, take 256 MiB
+    blocks at the same time as the other until refused, and hold them until
+    the parent has read the card."""
+    pod = Path(os.environ["POD_DIR"])
+    me = int(os.environ["POD_INDEX"])
+    wait_for(pod / "churning", f"pod {me}: co-tenant")
+    ctx_start = time.monotonic()  # one clock for every process of the host
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    ctx_end = time.monotonic()
+    (pod / f"ready{me}").touch()
+    wait_for(pod / "blocks", f"pod {me}: the parent's go")
+    blocks, refused = [], False
+    for _ in range(ENFORCE_LIMIT_MIB * MIB // ENFORCE_BLOCK + 4):
+        try:
+            blocks.append(torch.empty(ENFORCE_BLOCK, dtype=torch.uint8,
+                                      device="cuda"))
+        except torch.cuda.OutOfMemoryError:
+            refused = True
+            break
+    torch.cuda.synchronize()
+    (pod / f"refused{me}").touch()
+    wait_for(pod / "release", f"pod {me}: release")
+    check(refused, f"pod {me}: {len(blocks)} blocks and no refusal")
+    return dict(blocks=len(blocks), reserved=torch.cuda.memory_reserved(0),
+                ctx_window_s=[ctx_start, ctx_end],
+                interposer=interposer_stats())
+
+
+def child_cotenant(torch):
+    """A process outside the pod (no interposer, no region): allocates and
+    frees COTENANT_BLOCK, back to the driver each time, until the parent
+    says stop; the pod's contexts come up meanwhile."""
+    pod = Path(os.environ["POD_DIR"])
+    times = []
+    while not (pod / "stop_cotenant").exists():
+        x = torch.empty(COTENANT_BLOCK, dtype=torch.uint8, device="cuda")
+        torch.cuda.synchronize()
+        del x
+        torch.cuda.empty_cache()
+        times.append(time.monotonic())
+        if len(times) == 1:
+            (pod / "churning").touch()
+        check(len(times) < 10 ** 6, "the co-tenant was never stopped")
+    return dict(cycles=len(times), first_s=times[0], last_s=times[-1])
+
+
+def child_plain_torch(torch):
+    """A process that imports torch and nothing of the port, under an 8000
+    MiB grant the interposer alone enforces: 256 MiB blocks until refused,
+    read by nvidia-smi."""
+    port = sorted(m for m in sys.modules if m.startswith("k8s_vgpu"))
+    check(not port, f"the plain child imported {port}")
+    baseline = smi_card_mib()  # before this process brings CUDA up
+    free, total = torch.cuda.mem_get_info(0)
+    blocks = []
+    try:
+        while len(blocks) < 1000:
+            blocks.append(torch.empty(ENFORCE_BLOCK, dtype=torch.uint8,
+                                      device="cuda"))
+        check(False, "1000 blocks of 256 MiB and no refusal")
+    except torch.cuda.OutOfMemoryError:
+        pass
+    torch.cuda.synchronize()
+    smi = smi_card_mib() - baseline
+    check_grant(smi, ENFORCE_SMALL_LIMIT_MIB, "a process that imports only "
+                "torch")
+    return dict(limit=ENFORCE_SMALL_LIMIT_MIB * MIB, mem_get_info_total=total,
+                blocks_before_refusal=len(blocks),
+                smi_used_mib_at_refusal=smi, smi_baseline_mib=baseline,
+                reserved_at_refusal=torch.cuda.memory_reserved(0),
+                port_modules=port)
+
+
+def child_interposer_train(torch):
+    """The 8-layer bf16 train step with nothing in its way but what the env
+    preloads: the shim, if installed, stands down (no gate: the step
+    callables run as plain calls).  2 warm-up steps, 8 timed ones (CUDA
+    events around each, host wall), then INTERPOSER_STEPS_TRACED traced
+    ones whose kernels' device
+    time is a step's busy time: events around a throttled step would count
+    the throttle's sleeps inside it.  The duty is that busy time, times the
+    8 steps, over their wall."""
+    llama, _, train, fa, core, _ = enforce_port()
+    preloaded = "LD_PRELOAD" in os.environ
+    if preloaded:
+        stood_down(core)
+    cfg, tokens, model, state, step = enforce_train_state(torch, llama, train)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for f in counters:
+        f.launches = 0
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, tokens)
+        losses.append(loss.item())
+    torch.cuda.synchronize()
+    before = interposer_stats() if preloaded else None
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(8)]
+    step_s = []
+    t_start = time.monotonic()
+    for start, end in events:
+        t0 = time.monotonic()
+        start.record()
+        state, loss = step(state, tokens)
+        end.record()
+        losses.append(loss.item())
+        step_s.append(time.monotonic() - t0)
+    wall_s = time.monotonic() - t_start
+    after = interposer_stats() if preloaded else None
+    event_ms = [a.elapsed_time(b) for a, b in events]
+    out = []
+
+    def traced():
+        nonlocal state
+        for _ in range(INTERPOSER_STEPS_TRACED):
+            state, loss = step(state, tokens)
+            out.append(loss.item())
+
+    profile = device_profile(torch, traced)
+    losses += out
+    busy_ms = profile["device_busy_ms"] / INTERPOSER_STEPS_TRACED
+    steps = 10 + INTERPOSER_STEPS_TRACED
+    launches = [f.launches for f in counters]
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    check(launches == [cfg.n_layers * steps] * 3,
+          f"flash launches {launches} in {steps} steps")
+    calls = profile["port_kernel_calls"]
+    check(all(calls[k] == cfg.n_layers * INTERPOSER_STEPS_TRACED
+              for k in ("flash_fwd_mma_kernel", "flash_bwd_dq_mma_kernel",
+                        "flash_bwd_dkv_mma_kernel")),
+          f"the traced steps ran the port's kernels {calls}")
+    timed = dict(
+        preloaded=preloaded,
+        sm_limit=os.environ.get("CUDA_DEVICE_SM_LIMIT"),
+        policy=os.environ.get("GPU_CORE_UTILIZATION_POLICY"),
+        losses=losses, step_s=step_s,
+        median_step_s=statistics.median(step_s), event_ms=event_ms,
+        wall_s=wall_s, busy_ms_per_step=busy_ms,
+        duty=busy_ms * len(events) / (wall_s * 1e3),
+        traced_wall_ms=profile["wall_ms"],
+        traced_busy_share=profile["device_busy_share"],
+        profiler_launches_per_step=profile["kernel_launches"]
+        / INTERPOSER_STEPS_TRACED,
+        launches=dict(zip(("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                          launches)))
+    if preloaded:
+        delta = {k: after[k] - before[k] for k in after}
+        timed.update(
+            interposer=after,
+            hooked_launches_per_step=delta["launches"] / len(events),
+            charged_us_per_step=delta["charged_us"] / len(events),
+            charged_over_busy=delta["charged_us"] / 1e3
+            / (busy_ms * len(events)))
+    return timed
+
+
 ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "load_oom": child_load_oom,
-                    "train": child_train}
+                    "train": child_train,
+                    "interposer_cap": child_interposer_cap,
+                    "interposer_pod": child_interposer_pod,
+                    "plain_torch": child_plain_torch,
+                    "cotenant": child_cotenant,
+                    "interposer_train": child_interposer_train}
 
 
 def enforce_child(name: str) -> int:
@@ -1287,7 +1599,8 @@ def enforce_child(name: str) -> int:
     this sub-phase's), and prints its readings as one ENFORCE line."""
     import torch
 
-    enforce_port()
+    if name not in ("plain_torch", "cotenant"):  # torch and nothing else
+        enforce_port()
     if sys.stdin.readline() != "go\n":
         return 3  # the parent is gone: leave the card alone
     if not torch.cuda.is_available():
@@ -1312,13 +1625,14 @@ class EnforceChild:
     the sub-phases before it, and it touches the card only after
     :meth:`run`.  Its output goes to chiprun_out/enforce_<label>.log."""
 
-    def __init__(self, name, tmp: Path, label=None, **grant) -> None:
+    def __init__(self, name, tmp: Path, label=None, region=None,
+                 **grant) -> None:
         self.label = label or name
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(GRANT_ENV)}
         env.update({k: str(v) for k, v in grant.items()})
         env["CUDA_DEVICE_MEMORY_SHARED_CACHE"] = str(
-            tmp / self.label / "cudevshr.cache")
+            region or tmp / self.label / "cudevshr.cache")
         self.proc = subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
              name], env=env, cwd=ROOT, stdin=subprocess.PIPE,
@@ -1350,26 +1664,36 @@ class EnforceChild:
             self.proc.communicate()
 
 
-def phase_enforce(torch, record):
+def phase_enforce(torch, record, interposer: Path, driver: Path):
     """The enforcement layer on the card, each sub-phase in a child process
     with its own grant and region: the inventory and a 24000 MiB memory
     cap under the 32-layer forward (alone on the card, which it measures);
     the 8-layer train step uncapped with an oversubscribed grant (its
     AdamW state through host swap after the warm-up); then under a 30%
     compute grant, beside an 8000 MiB grant the weights cannot fit (a
-    child that runs no kernel, at the capped step's idle 70%).  Returns
-    the port kernels' launches in the children (each child counts from
-    0)."""
+    child that runs no kernel, at the capped step's idle 70%).  Then the
+    interposer (``interposer``, preloaded), each alone on the card: the
+    24000 MiB cap with the context counted, two processes of one pod on
+    one 24000 MiB grant (their contexts made together while a co-tenant
+    outside the pod allocates and frees), a process that imports only
+    torch under 8000 MiB, the train step without the interposer and
+    through it uncapped, AB_PAIRS times in turn, and through it at 30%
+    with the Python gate off.  Returns the port kernels' launches in the
+    children (each child counts from 0)."""
     uuid = nvidia_smi("uuid")
     t0 = time.monotonic()
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info(0)
-    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(1) as pool:
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(3) as pool:
         tmp = Path(tmp)
+        pod = tmp / "pod"
+        pod.mkdir()
+        preload = dict(LD_PRELOAD=interposer, NVIDIA_VISIBLE_DEVICES=uuid)
+        cap = f"{ENFORCE_LIMIT_MIB}m"
         children = [
             EnforceChild("memory_cap", tmp,
-                         CUDA_DEVICE_MEMORY_LIMIT_0=f"{ENFORCE_LIMIT_MIB}m",
+                         CUDA_DEVICE_MEMORY_LIMIT_0=cap,
                          NVIDIA_VISIBLE_DEVICES=uuid,
                          PARENT_USED=total - free),
             EnforceChild("train", tmp, label="uncapped", VTPU_SYNC_EVERY=1,
@@ -1380,14 +1704,46 @@ def phase_enforce(torch, record):
                          NVIDIA_VISIBLE_DEVICES=uuid),
             EnforceChild("train", tmp, label="capped", VTPU_SYNC_EVERY=1,
                          CUDA_DEVICE_SM_LIMIT=ENFORCE_SM_LIMIT,
-                         GPU_CORE_UTILIZATION_POLICY="force")]
+                         GPU_CORE_UTILIZATION_POLICY="force"),
+            EnforceChild("interposer_cap", tmp,
+                         CUDA_DEVICE_MEMORY_LIMIT_0=cap, **preload),
+            *(EnforceChild("interposer_pod", tmp, label=f"pod{i}",
+                           region=pod / "cudevshr.cache",
+                           CUDA_DEVICE_MEMORY_LIMIT_0=cap, POD_DIR=pod,
+                           POD_INDEX=i, **preload) for i in range(2)),
+            EnforceChild("cotenant", tmp, POD_DIR=pod),
+            EnforceChild("plain_torch", tmp,
+                         CUDA_DEVICE_MEMORY_LIMIT_0=(
+                             f"{ENFORCE_SMALL_LIMIT_MIB}m"), **preload)]
+        for i in range(AB_PAIRS):  # without and with the interposer, in turn
+            children += [
+                EnforceChild("interposer_train", tmp,
+                             label=f"train_plain_{i}"),
+                EnforceChild("interposer_train", tmp,
+                             label=f"interposer_uncapped_{i}", **preload)]
+        children.append(EnforceChild(
+            "interposer_train", tmp, label="interposer_capped",
+            CUDA_DEVICE_SM_LIMIT=ENFORCE_SM_LIMIT,
+            GPU_CORE_UTILIZATION_POLICY="force", **preload))
         try:
             mem = children[0].run(record)
             uncapped = children[1].run(record)
             load_oom = pool.submit(children[2].run, record)
             capped = children[3].run(record)
             load_oom.result()
+            icap = children[4].run(record)
+            pods, pod_smi, cotenant = run_pod(pool, pod, children[5:7],
+                                              children[7], record)
+            plain_torch = children[8].run(record)
+            trains = {c.label: c.run(record) for c in children[9:]}
+            costs = {"uncapped": launch_cost(driver, interposer, tmp,
+                                             "launch_uncapped"),
+                     "capped": launch_cost(
+                         driver, interposer, tmp, "launch_capped",
+                         CUDA_DEVICE_SM_LIMIT=ENFORCE_SM_LIMIT,
+                         GPU_CORE_UTILIZATION_POLICY="force")}
         finally:
+            (pod / "release").touch()
             for child in children:
                 child.stop()
     record["enforce_s"] = time.monotonic() - t0
@@ -1405,6 +1761,9 @@ def phase_enforce(torch, record):
     check(capped["losses"] == uncapped["losses"],
           f"capped losses {capped['losses']} != uncapped (swapped after "
           f"step 2) {uncapped['losses']}")
+    interposed = interposer_checks(icap, pods, pod_smi, cotenant,
+                                   plain_torch, trains, capped["losses"])
+    interposed["host_us_per_launch"]["null_kernel"] = costs
     summary = {
         "phase": "enforce", "card": record["card"],
         "seconds": record["enforce_s"],
@@ -1427,6 +1786,7 @@ def phase_enforce(torch, record):
         "host_swap": {k: swap[k] for k in (
             "state_bytes", "freed", "suspend_s", "resume_s",
             "resumed_bitwise")},
+        "interposer": interposed,
     }
     log(f"memory cap: {mem['outside_allocator_bytes'] / MIB:.0f} MiB of the "
         "capped child on the card outside the caching allocator (its CUDA "
@@ -1435,11 +1795,154 @@ def phase_enforce(torch, record):
         f"{mem['inventory']['first_product_workspace_bytes']}"
         " bytes beyond its output through the allocator (cuBLAS's "
         "workspace, counted)")
+    log(f"interposer: refusal at {icap['smi_used_mib_at_refusal']} MiB by "
+        f"nvidia-smi under a {ENFORCE_LIMIT_MIB} MiB grant, context "
+        f"{icap['context_bytes']} bytes charged, {icap['footprint_bytes']} "
+        f"on the card; pod peak {interposed['pod']['smi_peak_mib']} MiB "
+        f"beside a co-tenant's {cotenant['cycles']} allocations; capped duty "
+        f"{trains['interposer_capped']['duty']:.4f}")
     log(json.dumps(summary))
-    counts = [sum(run["launches"][n] for run in (uncapped, capped))
+    counts = [sum(run["launches"][n] for run in (uncapped, capped,
+                                                 *trains.values()))
               for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
-    counts[0] += mem["flash_launches"]
+    counts[0] += mem["flash_launches"] + icap["flash_launches"]
     return counts
+
+
+def launch_cost(driver: Path, interposer: Path, tmp: Path, label: str,
+                **grant) -> dict:
+    """The interposer's host time a launch: its C test driver launches a
+    null kernel NULL_LAUNCHES times through the hooks and as many straight
+    to the driver, in one process (the least of 5 rounds each)."""
+    env = {k: v for k, v in os.environ.items() if not k.startswith(GRANT_ENV)}
+    env.update({k: str(v) for k, v in grant.items()},
+               LD_PRELOAD=str(interposer),
+               CUDA_DEVICE_MEMORY_SHARED_CACHE=str(tmp / label / "c.cache"))
+    res = subprocess.run([str(driver), "launch_cost", str(NULL_LAUNCHES)],
+                         env=env, capture_output=True, text=True, timeout=120)
+    check(res.returncode == 0 and "RESULT PASS" in res.stdout,
+          f"launch_cost {label}: {res.stdout[-1000:]} {res.stderr[-1000:]}")
+    line = next(x for x in res.stdout.splitlines()
+                if x.startswith("LAUNCH_NS "))
+    hooked, direct = float(line.split()[2]), float(line.split()[4])
+    return {"hooked_ns": hooked, "direct_ns": direct,
+            "added_us": (hooked - direct) / 1e3}
+
+
+def run_pod(pool, pod: Path, pods, cotenant, record):
+    """The pod's two processes bring CUDA up together while ``cotenant``
+    churns; once it has ended, they take blocks while the card is watched.
+    Returns their readings, nvidia-smi's and the co-tenant's."""
+    baseline = smi_card_mib()  # before any of them brings CUDA up
+    churn = pool.submit(cotenant.run, record)
+    runs = [pool.submit(c.run, record) for c in pods]
+    t0 = time.monotonic()
+    while not all((pod / f"ready{i}").exists() for i in range(2)):
+        check(time.monotonic() - t0 < 120 and not churn.done()
+              and not any(f.done() for f in runs),
+              "the pod's contexts did not come up beside the co-tenant")
+        time.sleep(0.01)
+    (pod / "stop_cotenant").touch()
+    churned = churn.result()
+    (pod / "blocks").touch()
+    readings = watch_pod(pod, pods, baseline)
+    return [f.result() for f in runs], readings, churned
+
+
+def watch_pod(pod: Path, children, baseline: int) -> list:
+    """nvidia-smi's reading of the pod (the card's used memory less
+    ``baseline``, what it held before the pod's processes started) while
+    its two processes take blocks, until both are refused or gone (the
+    last reading has both holding what they took); then lets them go."""
+    readings = []
+    t0 = time.monotonic()
+    try:
+        while time.monotonic() - t0 < 240:
+            done = all((pod / f"refused{i}").exists() for i in range(2))
+            gone = any(c.proc.poll() is not None for c in children)
+            readings.append(smi_card_mib() - baseline)
+            if done or gone:
+                break
+    finally:
+        (pod / "release").touch()
+    return readings
+
+
+def interposer_checks(icap, pods, pod_smi, cotenant, plain_torch, trains,
+                      gated_losses) -> dict:
+    """The checks across the interposer's children, and their summary."""
+    plains = [trains[f"train_plain_{i}"] for i in range(AB_PAIRS)]
+    frees = [trains[f"interposer_uncapped_{i}"] for i in range(AB_PAIRS)]
+    capped = trains["interposer_capped"]
+    check(bool(pod_smi), "no nvidia-smi reading of the pod")
+    check_grant(pod_smi[-1], ENFORCE_LIMIT_MIB, "the pod's two processes")
+    check(max(pod_smi) <= ENFORCE_LIMIT_MIB,
+          f"the pod's two processes read {pod_smi} MiB by nvidia-smi, grant "
+          f"{ENFORCE_LIMIT_MIB} MiB")
+    rate = cotenant["cycles"] / max(cotenant["last_s"] - cotenant["first_s"],
+                                    1e-9)
+    for p in pods:
+        start, end = p["ctx_window_s"]
+        check(cotenant["first_s"] <= start and end <= cotenant["last_s"]
+              and rate * (end - start) >= 10,
+              f"the co-tenant ({cotenant}) did not churn all through a pod "
+              f"context's bring-up ({start}, {end})")
+        check(p["interposer"]["context_bytes"]
+              == icap["interposer"]["context_bytes"],
+              f"a pod context charged {p['interposer']['context_bytes']} "
+              "bytes beside the co-tenant")
+    check(capped["sm_limit"] == str(ENFORCE_SM_LIMIT)
+          and all(f["sm_limit"] is None for f in frees),
+          "the interposer children's grants")
+    check(abs(capped["duty"] - ENFORCE_SM_LIMIT / 100) <= TOL_DUTY_POINTS,
+          f"interposer capped duty {capped['duty']:.4f}, grant "
+          f"{ENFORCE_SM_LIMIT}%")
+    for run in (*plains, *frees):  # uncapped: the Python gate's bound too
+        check(run["duty"] > MIN_UNCAPPED_DUTY,
+              f"uncapped duty {run['duty']:.4f} (preloaded: "
+              f"{run['preloaded']})")
+    # Uncapped, the interposer must gate no launch.
+    for free in frees:
+        check(free["interposer"]["gated"] == 0
+              and free["interposer"]["charged_us"] == 0,
+              f"the uncapped interposer gated launches: {free['interposer']}")
+    losses = [run["losses"] for run in (*plains, *frees, capped)]
+    check(all(x == losses[0] for x in losses)
+          and capped["losses"][:len(gated_losses)] == gated_losses,
+          f"losses differ: {losses}, gated {gated_losses}")
+    launches = frees[0]["hooked_launches_per_step"]
+    # Each pair's step wall with the interposer less without it, a launch.
+    added = [(b["median_step_s"] - a["median_step_s"]) * 1e6 / launches
+             for a, b in zip(plains, frees)]
+    mean = statistics.mean(added)
+    spread = max(added) - min(added)
+    return {
+        "cap": {k: icap[k] for k in (
+            "limit", "mem_get_info_total", "device_total_memory",
+            "flash_launches", "blocks_before_refusal",
+            "smi_used_mib_at_refusal", "grant_minus_smi_mib",
+            "region_used_at_refusal", "reserved_at_refusal",
+            "context_bytes", "context_bytes_at_init", "footprint_bytes",
+            "refusals")},
+        "pod": {"blocks": [p["blocks"] for p in pods],
+                "smi_mib": pod_smi, "smi_peak_mib": max(pod_smi),
+                "context_bytes": [p["interposer"]["context_bytes"]
+                                  for p in pods],
+                "ctx_window_s": [p["ctx_window_s"] for p in pods],
+                "cotenant": cotenant},
+        "plain_torch": {k: plain_torch[k] for k in (
+            "limit", "mem_get_info_total", "blocks_before_refusal",
+            "smi_used_mib_at_refusal", "port_modules")},
+        "train": {name: {k: run.get(k) for k in (
+            "duty", "median_step_s", "busy_ms_per_step",
+            "hooked_launches_per_step", "charged_us_per_step",
+            "charged_over_busy", "losses")}
+            for name, run in trains.items()},
+        "host_us_per_launch": {
+            "train_step_pairs": added, "train_step_mean": mean,
+            "train_step_spread": spread,
+            "train_step_resolved": abs(mean) > spread},
+    }
 
 
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
@@ -1473,10 +1976,13 @@ def main() -> int:
     record = {"card": card, "device": torch.cuda.get_device_name(0),
               "torch": torch.__version__, "cuda": torch.version.cuda}
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 1) as pool:
+    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 3) as pool:
         vgpu = pool.submit(_kernels.build_vgpu)  # the enforcement library
+        interposer = pool.submit(_kernels.build_interposer)
+        driver = pool.submit(_kernels.build_interposer_test)
         list(pool.map(_kernels.build, KERNEL_SOURCES))
         vgpu.result()
+        interposer, driver = interposer.result(), driver.result()
     record["build_s"] = time.monotonic() - t0
     log(f"built {', '.join(KERNEL_SOURCES)} in {record['build_s']:.1f} s")
     record["ptxas"] = {name: _kernels.build_logs.get(name, "")
@@ -1514,7 +2020,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         train_launches = phase_train_main(torch, fa, port, record)
-        enforce_launches = phase_enforce(torch, record)
+        enforce_launches = phase_enforce(torch, record, interposer, driver)
     except Fail as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1

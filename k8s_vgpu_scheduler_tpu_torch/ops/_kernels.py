@@ -4,9 +4,13 @@ Each kernel source under ``csrc/`` exposes a plain C entry point.  On first
 use it is compiled with ``nvcc`` for ``sm_90a`` into a shared library named
 by the hash of its source and of the headers it includes (so an edited
 source or header never loads a stale build) and loaded with ``ctypes``.
-The enforcement library (``csrc/vgpu/*.cc``, host C++) is built the same
-way with ``g++`` into ``libvgpu_torch-<hash>.so``.  Importing this module
-compiles nothing and needs no compiler: the CPU tests import it.
+The enforcement library (``csrc/vgpu/``, host C++) is built the same way
+with ``g++`` into ``libvgpu_torch-<hash>.so``; so are the CUDA driver-API
+interposer (``libvgpu_cuda-<hash>.so``, the same region and limiter code
+with the driver hooks, for ``LD_PRELOAD``), the mock driver its CPU tests
+run against (``mock_cuda-<hash>/libcuda.so.1`` and ``libnvidia-ml.so.1``)
+and their C test driver (``test_interposer-<hash>``).  Importing this
+module compiles nothing and needs no compiler: the CPU tests import it.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 VGPU_DIR = CSRC / "vgpu"
 HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread")
+# The region, limiter and reader: libvgpu_torch, and the interposer's base.
+VGPU_SOURCES = ("rate_limiter.cc", "reader.cc", "region.cc")
 
 _p = ctypes.c_void_p
 _i = ctypes.c_int
@@ -112,18 +118,68 @@ def build(name: str) -> Path:
         "-Xcompiler", "-fPIC", "-Xptxas", "-v", str(src)])
 
 
-def build_vgpu() -> Path:
-    """Compile the enforcement library from ``csrc/vgpu/*.cc`` with g++
-    unless a build of these exact sources and headers exists; return the
-    shared library's path.  Raises when g++ is missing or fails."""
-    srcs = sorted(VGPU_DIR.glob("*.cc"))
-    digest = hashlib.sha256(
+def _digest(srcs) -> str:
+    return hashlib.sha256(
         "".join(source_digest(s) for s in srcs).encode()).hexdigest()[:16]
+
+
+def _gxx() -> str:
     gxx = shutil.which("g++")
     if gxx is None:
-        raise RuntimeError("g++ not found: libvgpu_torch cannot be built")
-    return _compile("vgpu", BUILD_DIR / f"libvgpu_torch-{digest}.so",
-                    [gxx, *HOST_FLAGS, "-shared", *map(str, srcs)])
+        raise RuntimeError("g++ not found: the host libraries cannot be built")
+    return gxx
+
+
+def build_vgpu() -> Path:
+    """Compile the enforcement library from ``csrc/vgpu/`` with g++
+    unless a build of these exact sources and headers exists; return the
+    shared library's path.  Raises when g++ is missing or fails."""
+    srcs = [VGPU_DIR / s for s in VGPU_SOURCES]
+    return _compile("vgpu", BUILD_DIR / f"libvgpu_torch-{_digest(srcs)}.so",
+                    [_gxx(), *HOST_FLAGS, "-shared", *map(str, srcs)])
+
+
+def build_interposer() -> Path:
+    """The CUDA driver-API interposer: ``cuda_interposer.cc`` on the
+    enforcement library's sources, one shared library for ``LD_PRELOAD``.
+    Its references to its own hooks bind inside it (``-Bsymbolic``)."""
+    srcs = [VGPU_DIR / "cuda_interposer.cc",
+            *(VGPU_DIR / s for s in VGPU_SOURCES)]
+    return _compile("interposer",
+                    BUILD_DIR / f"libvgpu_cuda-{_digest(srcs)}.so",
+                    [_gxx(), *HOST_FLAGS, "-shared", "-Wl,-Bsymbolic",
+                     *map(str, srcs), "-ldl", "-lpthread"])
+
+
+def build_mock_cuda() -> Path:
+    """The mock driver, ``libcuda.so.1`` in a directory of its own with
+    ``libnvidia-ml.so.1`` beside it (a link to the same file, so the two
+    share one state); returns the directory, for ``LD_LIBRARY_PATH``.  Its
+    references to its own entry points bind inside it (``-Bsymbolic``), as
+    the driver's do: a preloaded library exporting the same names must not
+    capture them."""
+    src = VGPU_DIR / "mock_cuda.cc"
+    out = BUILD_DIR / f"mock_cuda-{_digest([src])}"
+    out.mkdir(parents=True, exist_ok=True)
+    _compile("mock_cuda", out / "libcuda.so.1",
+             [_gxx(), *HOST_FLAGS, "-shared", "-Wl,-Bsymbolic",
+              "-Wl,-soname,libcuda.so.1",
+              str(src), "-ldl", "-lpthread"])
+    nvml = out / "libnvidia-ml.so.1"
+    if not nvml.exists():
+        tmp = out / f"libnvidia-ml.so.1.{os.getpid()}"
+        tmp.unlink(missing_ok=True)
+        tmp.symlink_to("libcuda.so.1")
+        os.replace(tmp, nvml)
+    return out
+
+
+def build_interposer_test() -> Path:
+    """The C test driver of the interposer (an executable)."""
+    src = VGPU_DIR / "test_interposer.cc"
+    return _compile("interposer_test",
+                    BUILD_DIR / f"test_interposer-{_digest([src])}",
+                    [_gxx(), "-O2", "-std=c++17", str(src), "-ldl"])
 
 
 def load(name: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":

@@ -21,8 +21,9 @@ this module is the PyTorch integration:
   the allocator and is not counted against the grant (cuBLAS's workspace
   comes from the allocator and is); and two processes of one pod that
   grow within one watchdog interval of each other can together pass the
-  grant until the next interval.  Closing both is the driver-API
-  interposer's job;
+  grant until the next interval.  The driver-API interposer
+  (``csrc/vgpu/cuda_interposer.cc``, preloaded) closes both; where it is
+  loaded this shim stands down (:func:`install`);
 - throttles compute by gating the port's dispatch units through the
   native duty-cycle limiter: the step callables of ``models/train.py``
   and ``models/serve.py`` (each consults :func:`gate`) and
@@ -59,12 +60,29 @@ MAX_DEVICES = 16  # csrc/vgpu/shared_region.h VGPU_MAX_DEVICES
 QOS_CLASSES = {0: "best-effort", 1: "latency-critical"}
 
 
+def interposer_active() -> bool:
+    """Whether the CUDA driver-API interposer is loaded into this process
+    and enforcing: its ``vgpu_interposer_active`` symbol, looked up in the
+    process itself, answers 1."""
+    try:
+        fn = ctypes.CDLL(None).vgpu_interposer_active
+    except AttributeError:
+        return False
+    fn.argtypes, fn.restype = [], ctypes.c_int
+    return fn() == 1
+
+
 class Native:
     """ctypes surface of ``libvgpu_torch.so``; builds it on first use
-    unless ``path`` names a built library."""
+    unless ``path`` names a built library.  Where the interposer is loaded
+    (and no ``path`` is given) it binds to the interposer's copy of the
+    ``vgpu_*`` functions instead: a second library would take a second
+    proc slot and attach the region twice in one process."""
 
     def __init__(self, path: Optional[str] = None) -> None:
-        self.lib = L = ctypes.CDLL(str(path or _kernels.build_vgpu()))
+        self.interposed = path is None and interposer_active()
+        self.lib = L = ctypes.CDLL(
+            None if self.interposed else str(path or _kernels.build_vgpu()))
         c_int, c_u64, c_p = ctypes.c_int, ctypes.c_uint64, ctypes.c_void_p
         L.vgpu_init_path.argtypes = [ctypes.c_char_p]
         L.vgpu_init_path.restype = c_int
@@ -210,6 +228,10 @@ class Shim:
         self.native = native
         self._clock = clock
         self._watchdog: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        # The driver-API interposer accounts and gates this process: the
+        # shim then publishes nothing, caps nothing and gates nothing.
+        self.interposed = interposer_active()
         # Set by the watchdog when VTPU_OOM_ACTION=exit trips; consumed by
         # the next dispatching thread at its gate boundary (_gated_call),
         # which performs the teardown + exit.
@@ -473,8 +495,8 @@ class Shim:
         only if this process has already brought CUDA up: the watchdog
         must never initialize it itself."""
         torch = _cuda_ready()
-        if torch is None:
-            return
+        if torch is None or self.interposed:
+            return  # interposed: the interposer's charges are the use
         for i in range(min(torch.cuda.device_count(), MAX_DEVICES)):
             self._published[i] = torch.cuda.memory_reserved(i)
             self.native.lib.vgpu_set_used(i, self._published[i])
@@ -487,8 +509,7 @@ class Shim:
 
         def loop():
             warned = False
-            while True:
-                time.sleep(interval)
+            while not self._stop.wait(interval):
                 self.publish_usage_once()
                 self.refresh_memory_cap()
                 for i in range(MAX_DEVICES):
@@ -519,6 +540,13 @@ class Shim:
 
         self._watchdog = threading.Thread(target=loop, daemon=True)
         self._watchdog.start()
+
+    def stop(self) -> None:
+        """End the watchdog (within one interval) and detach the host-swap
+        spiller; the region stays attached."""
+        self._stop.set()
+        with self._inflight_lock:
+            self._spiller = None
 
     def _oom_teardown(self) -> None:
         """Terminal stage of ``VTPU_OOM_ACTION=exit``: wait until no
@@ -594,15 +622,23 @@ def install(region_path: Optional[str] = None, torch_hooks: bool = True,
             native: Optional[Native] = None) -> Shim:
     """Full shim bring-up; idempotent.  The memory cap is on unless the
     grant oversubscribes (``CUDA_OVERSUBSCRIBE``), where host swap at the
-    gate takes its place."""
+    gate takes its place.  Where the driver-API interposer is loaded the
+    shim stands down, as the JAX shim does under its PJRT interposer: the
+    interposer charges every allocation and the context and gates every
+    launch, so a memory fraction would cap the allocator a second time and
+    gating the step callables would stack a second token bucket on the
+    interposer's.  The shim then sets no fraction, gates nothing and
+    publishes nothing; it reads the region through the interposer."""
     global _GLOBAL
     if _GLOBAL is not None:
         return _GLOBAL
     native = native or Native()
     native.init(region_path)
     shim = Shim(native)
-    oversubscribed = oversub.enabled_from_env()
-    if memory_cap is None:
+    oversubscribed = oversub.enabled_from_env() and not shim.interposed
+    if shim.interposed:
+        torch_hooks = memory_cap = False
+    elif memory_cap is None:
         memory_cap = not oversubscribed
     if torch_hooks:
         shim.install_torch_hooks()

@@ -28,11 +28,14 @@ log = logging.getLogger(__name__)
 
 MOCK_ENV = "VTPU_MOCK_JSON"
 
-# A fixture's defaults: an H100 and its 80 GiB.
+# A fixture's defaults: an H100 and the memory its driver reports,
+# 85,017,493,504 bytes (81,079 MiB) on an H100 80GB HBM3 (chip_smoke.py's
+# inventory), not the 80 GiB of its name.
 DEFAULT_GENERATION = "h100"
-DEFAULT_HBM_MIB = 80 * 1024
+DEFAULT_HBM_MIB = 81079
 
-# An HGX H100 node: eight 80 GiB HBM3 cards in one NVLink/NVSwitch domain.
+# An HGX H100 node: eight H100 80GB HBM3 cards in one NVLink/NVSwitch
+# domain.
 H100_FIXTURE = {"generation": "h100", "mesh": [8], "hbm_mib": DEFAULT_HBM_MIB}
 
 
@@ -56,10 +59,10 @@ class MockBackend(Backend):
           "generation": "h100",
           "mesh": [8],
           "wraparound": [false],
-          "hbm_mib": 81920,              # default per device
+          "hbm_mib": 81079,              # default per device
           "chips": [                      # optional; defaults to full mesh
             {"coords": [0], "uuid": "...", "healthy": true,
-             "hbm_mib": 81920, "type": "NVIDIA-h100"},
+             "hbm_mib": 81079, "type": "NVIDIA-h100"},
             ...
           ]
         }

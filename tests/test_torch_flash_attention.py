@@ -7,8 +7,10 @@ chip_smoke.py.  Tolerances: f32 1e-5 (two f32 softmax orders); bf16 2e-2
 (one bf16 ULP of outputs of order 1).
 """
 
+import contextlib
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -78,16 +80,35 @@ def test_ragged_length(window):
     np.testing.assert_allclose(f32(got), f32(want), atol=1e-5, rtol=1e-5)
 
 
+@contextlib.contextmanager
+def full_f32_products():
+    """Both frameworks' f32 products at full f32 precision, whatever an
+    earlier test in the same worker process left set (torch's
+    ``float32_matmul_precision`` "medium" runs CPU products in bf16 here)."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
 @pytest.mark.parametrize("window,dtype", [(0, "float32"), (16, "float32"),
                                           (0, "bfloat16")])
 def test_logsumexp_matches_kernel(window, dtype):
+    # Each side reads its own copy of the inputs (on the CPU JAX may alias
+    # a numpy buffer and run asynchronously), and the JAX result is
+    # complete before the port's computation starts.
     xs = qkv(seed=2)
     B, T, H, d = xs[0].shape
-    want_o, want_lse = jfa._flash_fwd_impl(
-        *to_jax(xs, dtype), 1.0 / d ** 0.5, True, 32, 32, True,
-        window=window, return_lse=True)
-    got_o, got_lse = tfa.flash_attention(*to_torch(xs, dtype), causal=True,
-                                         window=window, return_lse=True)
+    with full_f32_products():
+        want_o, want_lse = jax.block_until_ready(jfa._flash_fwd_impl(
+            *to_jax([x.copy() for x in xs], dtype), 1.0 / d ** 0.5, True,
+            32, 32, True, window=window, return_lse=True))
+        got_o, got_lse = tfa.flash_attention(
+            *to_torch([x.copy() for x in xs], dtype), causal=True,
+            window=window, return_lse=True)
     assert got_lse.dtype == torch.float32 and got_lse.shape == (B, H, T)
     np.testing.assert_allclose(got_lse.numpy(),
                                np.asarray(want_lse).reshape(B, H, T),

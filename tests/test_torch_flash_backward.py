@@ -14,6 +14,7 @@ must catch a backward that is visibly wrong.  The layout rule the
 backward wrappers share with the forward is pinned on the CPU.
 """
 
+import contextlib
 import importlib
 
 import jax
@@ -71,25 +72,44 @@ def close(got, want, dtype):
                                rtol=TOL[dtype])
 
 
+@contextlib.contextmanager
+def full_f32_products():
+    """Both frameworks' f32 products at full f32 precision, whatever an
+    earlier test in the same worker process left set (torch's
+    ``float32_matmul_precision`` "medium" runs CPU products in bf16 here)."""
+    before = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with jax.default_matmul_precision("highest"):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(before)
+
+
 @pytest.mark.parametrize("causal,window,dtype", CASES)
 def test_plain_backward_matches_jax_kernels(causal, window, dtype):
     # The same O, lse and dO into both backwards: JAX's _dq_kernel and
-    # _dkv_kernel (interpret mode) against the port's plain versions.
+    # _dkv_kernel (interpret mode) against the port's plain versions.  Each
+    # side reads its own copy of the inputs, and the JAX results are
+    # complete before the port's computation starts.
     q, k, v, g = arrays()
     B, T, H, d = q.shape
     scale = 1.0 / d ** 0.5
-    jq, jk, jv, jg = to_jax((q, k, v, g), dtype)
-    o, lse = jfa._flash_fwd_impl(jq, jk, jv, scale, causal, 32, 32, True,
-                                 window=window, return_lse=True)
-    want = jfa._flash_bwd_impl(jq, jk, jv, o, lse, jg, scale, causal, 32, 32,
-                               True, window=window)
-    tq, tk, tv, tg = to_torch((q, k, v, g), dtype)
-    to = torch.from_numpy(np.array(f32(o))).to(tq.dtype)
-    tlse = torch.from_numpy(np.array(lse).reshape(B, H, T))
-    delta = tfa._delta(to, tg)
-    dq = tfa.flash_bwd_dq(tq, tk, tv, tg, tlse, delta, scale, causal, window)
-    dk, dv = tfa.flash_bwd_dkv(tq, tk, tv, tg, tlse, delta, scale, causal,
-                               window)
+    with full_f32_products():
+        jq, jk, jv, jg = to_jax([x.copy() for x in (q, k, v, g)], dtype)
+        o, lse = jfa._flash_fwd_impl(jq, jk, jv, scale, causal, 32, 32, True,
+                                     window=window, return_lse=True)
+        want = jax.block_until_ready(jfa._flash_bwd_impl(
+            jq, jk, jv, o, lse, jg, scale, causal, 32, 32, True,
+            window=window))
+        tq, tk, tv, tg = to_torch([x.copy() for x in (q, k, v, g)], dtype)
+        to = torch.from_numpy(np.array(f32(o))).to(tq.dtype)
+        tlse = torch.from_numpy(np.array(lse).reshape(B, H, T))
+        delta = tfa._delta(to, tg)
+        dq = tfa.flash_bwd_dq(tq, tk, tv, tg, tlse, delta, scale, causal,
+                              window)
+        dk, dv = tfa.flash_bwd_dkv(tq, tk, tv, tg, tlse, delta, scale,
+                                   causal, window)
     for got, w in zip((dq, dk, dv), want):
         assert got.dtype == tq.dtype and got.shape == tq.shape
         close(got, w, dtype)

@@ -11,7 +11,9 @@
 - The CPU path, forward and backward, builds and launches nothing.
 - The enforcement layer (``shim/``, ``tpulib/``) imports torch only inside
   functions, nothing in the port reads ``lib/tpu/``, and ``csrc/vgpu/``
-  builds with g++ into the port's build directory.
+  builds with g++ into the port's build directory: the enforcement
+  library, the driver-API interposer, its mock driver and its C test
+  driver, each named by its sources.
 """
 
 import ast
@@ -257,3 +259,47 @@ def test_vgpu_library_builds_with_gxx_into_the_port_build_dir():
     assert hasattr(lib, "vgpu_init_path") and hasattr(lib, "vgpu_rate_acquire")
     assert not hasattr(lib, "vtpu_init_path")
     assert "-pthread" in _kernels.HOST_FLAGS and "-fPIC" in _kernels.HOST_FLAGS
+
+
+INTERPOSER_TARGETS = {
+    "interposer": (_kernels.build_interposer,
+                   r"libvgpu_cuda-[0-9a-f]{16}\.so"),
+    "mock_cuda": (_kernels.build_mock_cuda, r"mock_cuda-[0-9a-f]{16}"),
+    "interposer_test": (_kernels.build_interposer_test,
+                        r"test_interposer-[0-9a-f]{16}"),
+}
+
+
+@pytest.mark.parametrize("target", sorted(INTERPOSER_TARGETS))
+def test_interposer_targets_build_with_gxx_into_the_port_build_dir(target):
+    build, name = INTERPOSER_TARGETS[target]
+    path = build()
+    assert path.parent == _kernels.BUILD_DIR
+    assert re.fullmatch(name, path.name)
+    assert build() == path  # built once, by its sources
+    if target == "mock_cuda":
+        cuda, nvml = path / "libcuda.so.1", path / "libnvidia-ml.so.1"
+        assert cuda.is_file() and nvml.resolve() == cuda.resolve()
+    elif target == "interposer_test":
+        assert path.stat().st_mode & 0o100
+    else:
+        lib = ctypes.CDLL(str(path))
+        for symbol in ("vgpu_init_path", "vgpu_rate_acquire",
+                       "vgpu_interposer_active", "vgpu_interposer_stats",
+                       "dlsym", "cuGetProcAddress_v2", "cuMemAlloc_v2",
+                       "cuLaunchKernel", "nvmlDeviceGetMemoryInfo"):
+            assert hasattr(lib, symbol), symbol
+        assert not hasattr(lib, "vtpu_init_path")
+
+
+def test_interposer_digest_covers_the_enforcement_sources():
+    """The interposer links the region and limiter sources: an edit to one
+    names a new build of both libraries."""
+    srcs = [_kernels.VGPU_DIR / s for s in _kernels.VGPU_SOURCES]
+    assert _kernels.build_vgpu().name == \
+        f"libvgpu_torch-{_kernels._digest(srcs)}.so"
+    assert _kernels.build_interposer().name == "libvgpu_cuda-" + \
+        _kernels._digest([_kernels.VGPU_DIR / "cuda_interposer.cc", *srcs]) \
+        + ".so"
+    assert not {"cuda_interposer.cc", "mock_cuda.cc", "test_interposer.cc"} \
+        & set(_kernels.VGPU_SOURCES)

@@ -975,3 +975,21 @@ shutdown()
     left = max(0, 24000 - held_mib) * MIB
     assert shared.strip() == str({0: left / total})
     assert alone.strip() == str({0: 24000 * MIB / total})
+
+
+@pytest.mark.parametrize("interval", [0.05, 0.2])
+def test_stop_ends_the_watchdog_within_two_intervals(interval):
+    """The counterpart of the JAX shim's stop(): the watchdog waits on an
+    event between ticks, so stop() ends it within an interval, and the
+    host-swap spiller is detached."""
+    shim = core.Shim(FakeNative({0: 1000 * MIB}))
+    shim._spiller = object()  # attached, as attach_pressure_spiller does
+    shim.start_watchdog(interval=interval)
+    time.sleep(interval * 1.5)  # mid-wait, one tick done
+    assert shim._watchdog.is_alive()
+    t0 = time.monotonic()
+    shim.stop()
+    shim._watchdog.join(timeout=2 * interval)
+    assert not shim._watchdog.is_alive()
+    assert time.monotonic() - t0 < 2 * interval
+    assert shim._spiller is None

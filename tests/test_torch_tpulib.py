@@ -63,7 +63,8 @@ def test_h100_fixture_is_one_nvlink_domain_of_80gib_cards():
     inv = ttpulib.MockBackend(ttpulib.H100_FIXTURE).inventory()
     assert len(inv.chips) == 8
     assert inv.topology == ttpulib.TopologyDesc(generation="h100", mesh=(8,))
-    assert {c.hbm_mib for c in inv.chips} == {80 * 1024}
+    # What the card's driver reports, not the 80 GiB of its name.
+    assert {c.hbm_mib for c in inv.chips} == {81079}
     assert {c.type for c in inv.chips} == {"NVIDIA-h100"}
     assert len({c.uuid for c in inv.chips}) == 8
 
@@ -71,7 +72,7 @@ def test_h100_fixture_is_one_nvlink_domain_of_80gib_cards():
 def test_generation_defaults_to_the_h100():
     inv = ttpulib.MockBackend({"mesh": [2]}).inventory()
     assert inv.topology.generation == "h100"
-    assert [c.hbm_mib for c in inv.chips] == [80 * 1024] * 2
+    assert [c.hbm_mib for c in inv.chips] == [81079] * 2
 
 
 @pytest.mark.parametrize("from_file", [False, True], ids=["dict", "file"])
