@@ -26,12 +26,19 @@ weights cannot fit; then the same grants through the CUDA driver-API
 interposer (``LD_PRELOAD``, the Python shim standing down): the 24000 MiB
 cap with the context counted, two processes of one pod on one grant, a
 process that imports only torch, and the train step without the
-interposer, through it uncapped and through it at 30%.  Exits non-zero if
-any phase fails, and at once (printing no result) without a CUDA device or
-outside a checkout.
+interposer, through it uncapped and through it at 30%.  Then two pods
+share the card under the port's node monitor (phase_coresidency, children
+``--enforce-child cores_serve|cores_train``, the monitor's loop in a
+thread, no ``force``): a serving pod (priority 0) and the train step
+(priority 1), 50% of the card each, in a flat leg (the priority switch)
+and a tiered one (latency-critical and best-effort), after the serving
+pod alone without and with the interposer.  Exits non-zero if any phase
+fails, and at once (printing no result) without a CUDA device or outside a
+checkout.
 
 Stdout ends with: the enforcement phase's ``{"phase": "enforce", ...}``
-line, a ``{"kernels": [...]}`` line (per kernel: launches on the main
+line, the co-residency phase's ``{"phase": "coresidency", ...}`` line, a
+``{"kernels": [...]}`` line (per kernel: launches on the main
 paths, max error, kernel / plain / library times and the card's bound),
 the card's name and power limit from nvidia-smi, and the line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -50,6 +57,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -166,6 +174,38 @@ TOL_CONTEXT_MIB = 64
 AB_PAIRS = 3
 NULL_LAUNCHES = 20000
 COTENANT_BLOCK = 1024 * MIB
+# The main path's serving traffic: 6 requests of these prompt lengths, 32
+# new tokens each, on a 4-slot engine.
+SERVE_LENS = (64, 128, 200, 333, 512, 96)
+SERVE_NEW = 32
+SERVE_SLOTS = 4
+# The co-residency phase (phase_coresidency): a serving pod (priority 0)
+# and a training pod (priority 1) on one card, each asking
+# nvidia.com/gpucores: 50 (the lab's own split, shim/simlab.py's
+# drive_serving), under the port's node monitor ticking every 0.5 s (the
+# lab's monitor_interval_s).  The parent reads every region every 0.1 s.
+# The switch must turn on within 2 ticks of the serving pod's first
+# prefill and off within 5 ticks of its last launch (recent_kernel is set
+# to 3 and aged 1 a tick), each reading late by up to one timeline period;
+# T's duty while its switch is on must land within TOL_DUTY_POINTS of 50%
+# on the solo basis, and above MIN_UNCAPPED_DUTY while it is off; the
+# sampler's throttled time within one tick of the timeline's.  Memory:
+# 24000 + 40000 MiB of grants and two 640 MiB context charges.
+CORES_SM_LIMIT = 50
+CORES_SERVE_MIB = 24000
+CORES_TRAIN_MIB = 40000
+MONITOR_INTERVAL_S = 0.5
+TIMELINE_S = 0.1
+SWITCH_ON_TICKS = 2
+SWITCH_OFF_TICKS = 5
+CORES_SOLO_S = 3.0     # T alone before S's first launch (F1's window)
+CORES_BURST_S = 10.0   # waves back to back
+CORES_IDLE_S = 8.0     # S idle between its two bursts
+CORES_TAIL_S = 4.0     # T alone after S's last launch
+CORES_TIERED_S = 20.0  # S's waves in the tiered leg
+CORES_ALONE_S = 8.0    # S's waves alone, in each of 2 pairs without and
+#                        with the interposer, in turn
+ALONE = tuple(f"uidA{i}_serve" for i in range(4))  # odd: preloaded
 # vgpu_interposer_stats' fields (csrc/vgpu/cuda_interposer.cc).
 INTERPOSER_STATS = ("launches", "gated", "charged_us", "samples",
                     "sampled_us", "context_bytes", "alloc_bytes",
@@ -766,6 +806,13 @@ def phase_forward_bf16(torch, port, record):
     check(rms <= TOL_BF16_FLASH_VS_FULL, f"bf16 flash vs full logits: {rms}")
 
 
+def serve_prompts(torch, cfg) -> list:
+    """The main path's 6 prompts, from the seed."""
+    rng = torch.Generator().manual_seed(SEED + 2)
+    return [torch.randint(1, cfg.vocab, (n,), generator=rng).tolist()
+            for n in SERVE_LENS]
+
+
 def phase_main_path(torch, fa, port, record):
     """The main path at full llama_7b size in bf16: the 32-layer flash
     forward on 2048 tokens, then the engine answering 6 requests.  After
@@ -794,16 +841,14 @@ def phase_main_path(torch, fa, port, record):
     check(forward_launches == cfg.n_layers,
           f"flash launches {forward_launches} != {cfg.n_layers} layers")
 
-    lens = (64, 128, 200, 333, 512, 96)
-    new = 32
+    lens, new = SERVE_LENS, SERVE_NEW
 
     def engine():
         """A 4-slot engine holding the main path's 6 requests."""
-        rng = torch.Generator().manual_seed(SEED + 2)
-        eng = serve.ServingEngine(model, max_slots=4, max_len=512 + new)
-        for n in lens:
-            eng.submit(torch.randint(1, cfg.vocab, (n,),
-                                     generator=rng).tolist(), new)
+        eng = serve.ServingEngine(model, max_slots=SERVE_SLOTS,
+                                  max_len=max(lens) + new)
+        for prompt in serve_prompts(torch, cfg):
+            eng.submit(prompt, new)
         return eng
 
     eng = engine()
@@ -1319,15 +1364,25 @@ def child_train(torch):
                                    "flash_bwd_dkv"), launches())))
 
 
-def interposer_stats() -> dict:
-    """The preloaded interposer's counters on device 0."""
+def stats_reader():
+    """A reader of the preloaded interposer's counters on device 0, bound
+    once: the co-residency children read it after every step."""
     import ctypes
 
     fn = ctypes.CDLL(None).vgpu_interposer_stats
     fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_uint64), ctypes.c_int]
     out = (ctypes.c_uint64 * len(INTERPOSER_STATS))()
-    n = fn(0, out, len(out))
-    return dict(zip(INTERPOSER_STATS, out[:n]))
+
+    def read() -> dict:
+        n = fn(0, out, len(out))
+        return dict(zip(INTERPOSER_STATS, out[:n]))
+
+    return read
+
+
+def interposer_stats() -> dict:
+    """The preloaded interposer's counters on device 0."""
+    return stats_reader()()
 
 
 def stood_down(core) -> dict:
@@ -1583,6 +1638,142 @@ def child_interposer_train(torch):
     return timed
 
 
+def child_cores_train(torch):
+    """Pod T of phase_coresidency: the 8-layer bf16 train step through the
+    interposer (the shim stands down), 2 warm-up steps, then steps without
+    pause until the parent says stop.  Each step's start and end
+    (time.monotonic(), one clock for every process of the host), loss,
+    CUDA-event device time and the interposer's charged µs after it.  When
+    the parent asks (``trace_<name>``), INTERPOSER_STEPS_TRACED steps run
+    under torch.profiler for their kernel time."""
+    llama, _, train, fa, core, _ = enforce_port()
+    ctl = Path(os.environ["CORES_DIR"])
+    stood_down(core)
+    stats = stats_reader()
+    cfg, tokens, model, state, step = enforce_train_state(torch, llama, train)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for f in counters:
+        f.launches = 0
+    steps, events, traces = [], [], {}
+
+    def one(traced=None):
+        nonlocal state
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.monotonic()
+        start.record()
+        state, loss = step(state, tokens)
+        end.record()
+        value = loss.item()
+        steps.append(dict(start=t0, end=time.monotonic(), loss=value,
+                          charged_us=stats()["charged_us"], traced=traced))
+        events.append((start, end))
+
+    for _ in range(2):
+        one()
+    (ctl / "train_ready").touch()
+    while not (ctl / "train_stop").exists():
+        asked = [n for n in ("solo", "shared")
+                 if (ctl / f"trace_{n}").exists() and n not in traces]
+        if not asked:
+            one()
+            check(len(steps) < 10 ** 5, "the train pod was never stopped")
+            continue
+        t0 = time.monotonic()
+        prof = device_profile(torch, lambda: [
+            one(asked[0]) for _ in range(INTERPOSER_STEPS_TRACED)])
+        traces[asked[0]] = dict(
+            span=[t0, time.monotonic()], wall_ms=prof["wall_ms"],
+            busy_ms_per_step=prof["device_busy_ms"] / INTERPOSER_STEPS_TRACED,
+            busy_share=prof["device_busy_share"],
+            port_kernel_calls=prof["port_kernel_calls"])
+        (ctl / f"traced_{asked[0]}").touch()
+    torch.cuda.synchronize()
+    for s, (a, b) in zip(steps, events):
+        s["event_ms"] = a.elapsed_time(b)
+    launches = [f.launches for f in counters]
+    check(all(math.isfinite(s["loss"]) for s in steps), "a loss not finite")
+    check(launches == [cfg.n_layers * len(steps)] * 3,
+          f"flash launches {launches} in {len(steps)} steps")
+    return dict(steps=steps, traces=traces, interposer=stats(),
+                losses=[s["loss"] for s in steps], end_t=time.monotonic(),
+                launches=dict(zip(("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"), launches)))
+
+
+def child_cores_serve(torch):
+    """Pod S of phase_coresidency: the 32-layer bf16 llama_7b behind a
+    4-slot ServingEngine (its prefill and decode attend through the KV
+    cache, as the JAX engine's do: no flash kernel).  One wave is the main path's 6 requests,
+    submitted at once (a deterministic schedule).  After loading and one
+    warm-up wave it says ready and waits for the parent's go; then waves
+    back to back for each burst of ``CORES_BURSTS`` (seconds), idle
+    CORES_IDLE_S between bursts.  Through the interposer when the env
+    preloads it, else with nothing in its way."""
+    llama, convert, _, fa, core, _ = enforce_port()
+    from k8s_vgpu_scheduler_tpu_torch.models import serve
+
+    ctl = Path(os.environ["CORES_DIR"])
+    name = os.environ["CORES_NAME"]
+    preloaded = "LD_PRELOAD" in os.environ
+    if preloaded:
+        stood_down(core)
+    stats = stats_reader() if preloaded else dict
+    cfg = dataclasses.replace(llama.llama_7b(), attention="flash")
+    t0 = time.monotonic()
+    model = convert.init_weights(
+        cfg, torch.Generator(device="cuda").manual_seed(SEED + 1))
+    torch.cuda.synchronize()
+    init_s = time.monotonic() - t0
+    prompts = serve_prompts(torch, cfg)
+
+    def wave() -> dict:
+        start = time.monotonic()  # before the wave's first launch
+        eng = serve.ServingEngine(model, max_slots=SERVE_SLOTS,
+                                  max_len=max(SERVE_LENS) + SERVE_NEW)
+        ids = [eng.submit(p, SERVE_NEW) for p in prompts]
+        done = {c.request_id: c for c in eng.run()}
+        check(sorted(done) == sorted(ids), f"{name}: the engine lost a "
+              "request")
+        return dict(start=start, end=time.monotonic(),
+                    tokens=[done[i].tokens for i in ids],
+                    ttft_s=[done[i].ttft_s for i in ids],
+                    decode_tokens=eng.stats["tokens_out"]
+                    - eng.stats["prefills"],
+                    decode_s=eng.stats["decode_seconds"],
+                    decode_dispatches=eng.stats["decode_dispatches"])
+
+    warm = wave()
+    (ctl / f"{name}_ready").touch()
+    wait_for(ctl / f"{name}_go", f"{name}: the parent's go")
+    bursts = []
+    for b, burst_s in enumerate(map(float,
+                                    os.environ["CORES_BURSTS"].split(","))):
+        if b:
+            time.sleep(CORES_IDLE_S)
+        (ctl / f"{name}_burst{b}").touch()
+        before = stats()
+        waves = [wave()]
+        while time.monotonic() - waves[0]["start"] < burst_s:
+            waves.append(wave())
+        after = stats()
+        bursts.append(dict(start=waves[0]["start"], end=waves[-1]["end"],
+                           waves=waves, interposer={
+                               k: after[k] - before[k] for k in after}))
+    tokens = [w["tokens"] for b in bursts for w in b["waves"]]
+    check(all(t == warm["tokens"] for t in tokens),
+          f"{name}: the waves' tokens differ from each other")
+    check(all(0 <= t < cfg.vocab for w in tokens for c in w for t in c),
+          f"{name}: a token out of vocabulary")
+    # The engine prefills through the KV-cache path, as the JAX engine
+    # does: the port's kernels are T's.
+    check(fa.flash_attention.launches == 0,
+          f"{name}: the engine launched the flash kernel")
+    return dict(preloaded=preloaded, init_s=init_s, warm=warm,
+                bursts=bursts, tokens=warm["tokens"],
+                interposer=stats(), end_t=time.monotonic())
+
+
 ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "load_oom": child_load_oom,
                     "train": child_train,
@@ -1590,7 +1781,9 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "interposer_pod": child_interposer_pod,
                     "plain_torch": child_plain_torch,
                     "cotenant": child_cotenant,
-                    "interposer_train": child_interposer_train}
+                    "interposer_train": child_interposer_train,
+                    "cores_train": child_cores_train,
+                    "cores_serve": child_cores_serve}
 
 
 def enforce_child(name: str) -> int:
@@ -1616,6 +1809,11 @@ def enforce_child(name: str) -> int:
         return 1
     out["run_s"] = time.monotonic() - t0
     print("ENFORCE " + json.dumps(out), flush=True)
+    if name.startswith("cores_"):
+        # Leave the region's slot behind, as a killed process does: the
+        # node monitor's GC must clear it.
+        sys.stderr.flush()
+        os._exit(0)
     return 0
 
 
@@ -1638,8 +1836,9 @@ class EnforceChild:
              name], env=env, cwd=ROOT, stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
-    def run(self, record) -> dict:
-        """Let it go on the card and wait for its readings."""
+    def run(self, record, section: str = "enforce") -> dict:
+        """Let it go on the card and wait for its readings, kept in
+        ``record[section]`` under its label."""
         t0 = time.monotonic()
         try:
             stdout, stderr = self.proc.communicate("go\n", timeout=300)
@@ -1655,7 +1854,8 @@ class EnforceChild:
         check(len(line) == 1, f"enforce child {self.label} printed no result")
         reading = json.loads(line[0][len("ENFORCE "):])
         reading["child_s"] = time.monotonic() - t0
-        record.setdefault("enforce", {})[self.label] = reading
+        reading["pid"] = self.proc.pid
+        record.setdefault(section, {})[self.label] = reading
         return reading
 
     def stop(self) -> None:
@@ -1945,6 +2145,446 @@ def interposer_checks(icap, pods, pod_smi, cotenant, plain_torch, trains,
     }
 
 
+# A timeline sample's fields (Timeline).
+T_, SWITCH, RECENT, WEIGHT, YIELD, PIDS, USED = range(7)
+
+
+class Timeline:
+    """Every TIMELINE_S, each region under ``root`` through the port's
+    RegionReader (its own handles, beside the monitor's): the time, the
+    switch, recent_kernel, the QoS weight and yield, the pids of the proc
+    slots and device 0's used bytes, by container key."""
+
+    def __init__(self, reader, root: Path) -> None:
+        self.reader, self.root = reader, root
+        self.samples: dict = {}
+        self._regions: dict = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        from k8s_vgpu_scheduler_tpu_torch.monitor import scan_container_dirs
+
+        while not self._stop.is_set():
+            t = time.monotonic()
+            for key, path in scan_container_dirs(str(self.root)).items():
+                r = self._regions.get(key) or self.reader.open(path)
+                if r is None:
+                    continue  # not initialized yet
+                self._regions[key] = r
+                self.samples.setdefault(key, []).append((
+                    t, r.utilization_switch, r.recent_kernel, r.qos_weight,
+                    r.qos_yield, tuple(r.proc_pids()), r.used(0)))
+            self._stop.wait(TIMELINE_S)
+
+    def close(self) -> None:
+        self._stop.set()
+        self._thread.join()
+        for r in self._regions.values():
+            r.close()
+
+    def of(self, key: str, lo: float = 0.0, hi: float = math.inf) -> list:
+        return [x for x in list(self.samples.get(key, ()))
+                if lo <= x[T_] <= hi]
+
+    def first(self, key: str, since: float, field: int, value) -> float:
+        """The time of the first sample at or after ``since`` whose
+        ``field`` reads ``value``, or inf."""
+        return next((x[T_] for x in self.of(key, since)
+                     if x[field] == value), math.inf)
+
+    def on_seconds(self, key: str) -> float:
+        """The switch's summed on-time, sample to sample."""
+        xs = self.of(key)
+        return sum(b[T_] - a[T_] for a, b in zip(xs, xs[1:]) if a[SWITCH])
+
+
+def await_file(path: Path, futures, what: str, limit: float = 300) -> None:
+    """Wait for a child's handshake file; fail at once if a child ended
+    (raising its failure) or after ``limit`` seconds."""
+    t0 = time.monotonic()
+    while not path.exists():
+        for f in futures:
+            if f.done():
+                f.result()
+                check(False, f"{what}: a pod ended first")
+        check(time.monotonic() - t0 < limit, f"no {what} in {limit} s")
+        time.sleep(0.01)
+
+
+def await_switch(tl: Timeline, key: str, value: int, since: float,
+                 what: str, limit: float = 60) -> float:
+    t0 = time.monotonic()
+    while math.isinf(t := tl.first(key, since, SWITCH, value)):
+        check(time.monotonic() - t0 < limit, f"{what}: no switch {value} "
+              f"in {limit} s")
+        time.sleep(TIMELINE_S)
+    return t
+
+
+def await_gc(tl: Timeline, keys, what: str) -> None:
+    """Wait until the monitor's GC has cleared every slot of ``keys``
+    (pods that exited without detaching) and their used bytes."""
+    t0 = time.monotonic()
+    while True:
+        last = [tl.of(k)[-1] for k in keys]
+        if all(not x[PIDS] and x[USED] == 0 for x in last):
+            return
+        check(time.monotonic() - t0 < 10 * MONITOR_INTERVAL_S,
+              f"{what}: the monitor left the exited pods' slots {last}")
+        time.sleep(TIMELINE_S)
+
+
+def duty_over(steps: list, pieces, step_ms: float) -> dict:
+    """T's duty over the time ``pieces`` ([a, b] each), from the untraced
+    steps that lie wholly inside one: on the solo basis (steps x
+    ``step_ms``, T's device time a step alone) and on the interposer's
+    charge (its charged µs across them), each over their wall."""
+    n, wall, charged = 0, 0.0, 0
+    for a, b in pieces:
+        idx = [i for i, s in enumerate(steps) if i and not s["traced"]
+               and a <= s["start"] and s["end"] <= b]
+        if not idx:
+            continue
+        run = steps[idx[0]:idx[-1] + 1]
+        n += len(run)
+        wall += run[-1]["end"] - run[0]["start"]
+        charged += run[-1]["charged_us"] - steps[idx[0] - 1]["charged_us"]
+    check(n > 0 and wall > 0, f"no train step inside {pieces}")
+    return dict(steps=n, wall_s=wall, solo=n * step_ms / (wall * 1e3),
+                charge=charged / 1e6 / wall)
+
+
+def cut(window, span):
+    """``window`` less ``span``: one or two pieces."""
+    a, b = window
+    lo, hi = span
+    if hi <= a or lo >= b:
+        return [window]
+    return [p for p in ((a, lo), (hi, b)) if p[1] > p[0]]
+
+
+def serve_summary(run: dict) -> dict:
+    """TTFT and decode rate over every measured wave of an S run."""
+    waves = [w for b in run["bursts"] for w in b["waves"]]
+    ttft = [t for w in waves for t in w["ttft_s"]]
+    tokens = sum(w["decode_tokens"] for w in waves)
+    return dict(waves=len(waves), ttft_p50_s=statistics.median(ttft),
+                ttft_max_s=max(ttft),
+                decode_tokens_per_s=tokens / sum(w["decode_s"]
+                                                 for w in waves),
+                wave_s=statistics.median(w["end"] - w["start"]
+                                         for w in waves),
+                init_s=run["init_s"])
+
+
+def phase_coresidency(torch, record, vgpu: Path, interposer: Path):
+    """Two pods share the card under the port's node monitor, with no
+    ``force`` anywhere.  The monitor (cmd/monitor.py's loop: FeedbackLoop
+    then UsageSampler) runs in a thread of this process every 0.5 s over
+    ``<tmp>/containers/``; each pod is a child with its region there, the
+    interposer preloaded and the card's UUID in NVIDIA_VISIBLE_DEVICES.
+    S serves the 32-layer llama_7b (priority 0, 50% of the card, 24000
+    MiB), T trains the 8-layer step (priority 1, 50%, 40000 MiB).  First S
+    alone, without and with the interposer; then the flat leg: T alone,
+    then S's two bursts of waves with an idle gap, T stepping throughout;
+    then the tiered leg: S latency-critical, T best-effort, under the
+    QosConfig defaults.  Checks F1–F7 (coresidency_checks) and returns the
+    port kernels' launches in the pods."""
+    from k8s_vgpu_scheduler_tpu_torch.accounting import UsageSampler
+    from k8s_vgpu_scheduler_tpu_torch.cmd import monitor
+    from k8s_vgpu_scheduler_tpu_torch.monitor import FeedbackLoop, RegionReader
+
+    uuid = nvidia_smi("uuid")
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    runs = record.setdefault("coresidency_children", {})
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        tmp = Path(tmp)
+        root = tmp / "containers"
+        root.mkdir()
+
+        def pod(name, key, leg, **grant):
+            (tmp / leg).mkdir(exist_ok=True)
+            child = EnforceChild(name, tmp, label=key,
+                                 region=root / key / "cudevshr.cache",
+                                 CORES_DIR=tmp / leg,
+                                 NVIDIA_VISIBLE_DEVICES=uuid,
+                                 CUDA_DEVICE_SM_LIMIT=CORES_SM_LIMIT, **grant)
+            child.ctl = tmp / leg
+            child.name = grant.get("CORES_NAME")
+            child.go = lambda: pool.submit(child.run, record,
+                                           "coresidency_children")
+            return child
+
+        serve = dict(CUDA_TASK_PRIORITY=0,
+                     CUDA_DEVICE_MEMORY_LIMIT_0=f"{CORES_SERVE_MIB}m")
+        train = dict(CUDA_TASK_PRIORITY=1, LD_PRELOAD=interposer,
+                     CUDA_DEVICE_MEMORY_LIMIT_0=f"{CORES_TRAIN_MIB}m")
+        # Started at once: their imports overlap; each touches the card
+        # only after its go.
+        children = [
+            *(pod("cores_serve", key, "alone", CORES_NAME=key,
+                  CORES_BURSTS=CORES_ALONE_S, **serve,
+                  **(dict(LD_PRELOAD=interposer) if i % 2 else {}))
+              for i, key in enumerate(ALONE)),
+            pod("cores_train", "uidF_train", "flat", **train),
+            pod("cores_serve", "uidF_serve", "flat", CORES_NAME="serve",
+                CORES_BURSTS=f"{CORES_BURST_S},{CORES_BURST_S}",
+                LD_PRELOAD=interposer, **serve),
+            pod("cores_train", "uidQ_train", "tiered",
+                VTPU_QOS_CLASS="best-effort", **train),
+            pod("cores_serve", "uidQ_serve", "tiered", CORES_NAME="serve",
+                CORES_BURSTS=CORES_TIERED_S, LD_PRELOAD=interposer,
+                VTPU_QOS_CLASS="latency-critical", **serve)]
+        reader = RegionReader(str(vgpu))
+        loop = FeedbackLoop(str(root), reader=reader)
+        sampler = UsageSampler(loop)
+        stop = threading.Event()
+        # The monitor's own view after each tick: every region's slots,
+        # and the critical class's dispatch-wait p99 on each GPU.
+        ticks = record.setdefault("coresidency_monitor", [])
+        ticker = threading.Thread(target=monitor.run, daemon=True, args=(
+            loop, sampler, MONITOR_INTERVAL_S, stop), kwargs=dict(
+                on_tick=lambda: ticks.append((time.monotonic(), {
+                    k: c.region.proc_pids()
+                    for k, c in loop.containers.items()},
+                    dict(loop.qos.critical_p99_us)))))
+        ticker.start()
+        tl = Timeline(reader, root)
+        try:
+            legs = {}
+            for s in children[:len(ALONE)]:  # S alone on the card
+                fut = s.go()
+                await_file(s.ctl / f"{s.name}_ready", [fut],
+                           f"{s.label} ready")
+                (s.ctl / f"{s.name}_go").touch()
+                legs[s.label] = fut.result()
+            legs.update(flat_leg(tl, *children[-4:-2]))
+            legs.update(tiered_leg(tl, *children[-2:]))
+            with loop.lock:
+                qos = dict(critical_p99_us=dict(loop.qos.critical_p99_us),
+                           reweights_total=loop.qos.reweights_total)
+            rows = {r["ctrkey"]: r for r in sampler.snapshot()}
+        finally:
+            stop.set()
+            ticker.join()
+            tl.close()
+            loop.close()
+            for child in children:
+                child.stop()
+            record["coresidency_timeline"] = tl.samples
+    record["coresidency_s"] = time.monotonic() - t_phase
+    summary = record["coresidency"] = coresidency_checks(
+        record, tl, legs, rows, qos, ticks)
+    log(json.dumps(summary))
+    return [sum(run["launches"].get(n, 0) for run in legs.values()
+                if isinstance(run, dict) and "launches" in run)
+            for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+
+
+def flat_leg(tl: Timeline, t, s) -> dict:
+    """T alone (F1's window, then 3 traced steps for its device time a
+    step); S loads and warms up; once T's switch has fallen, S's two
+    bursts (T's second traced window 3 s into the second); T alone again
+    for CORES_TAIL_S; both exit, and the monitor must clear their slots."""
+    ft = t.go()
+    await_file(t.ctl / "train_ready", [ft], "T ready")
+    solo = [time.monotonic()]
+    time.sleep(CORES_SOLO_S)
+    solo.append(time.monotonic())
+    (t.ctl / "trace_solo").touch()
+    await_file(t.ctl / "traced_solo", [ft], "T's solo trace")
+    fs = s.go()
+    await_file(s.ctl / f"{s.name}_ready", [ft, fs], "S ready", limit=600)
+    await_switch(tl, t.label, 0, time.monotonic(), "T after S's loading")
+    time.sleep(MONITOR_INTERVAL_S)
+    (s.ctl / f"{s.name}_go").touch()
+    await_file(s.ctl / f"{s.name}_burst1", [ft, fs], "S's second burst")
+    time.sleep(3.0)
+    (t.ctl / "trace_shared").touch()
+    await_file(t.ctl / "traced_shared", [ft, fs], "T's shared trace")
+    serve = fs.result()
+    time.sleep(CORES_TAIL_S)
+    (t.ctl / "train_stop").touch()
+    trainer = ft.result()
+    await_gc(tl, (t.label, s.label), "flat leg")
+    return {t.label: trainer, s.label: serve, "flat": dict(solo=solo)}
+
+
+def tiered_leg(tl: Timeline, t, s) -> dict:
+    """T (best-effort) alone for CORES_SOLO_S, then S (latency-critical)
+    loads, warms up and serves CORES_TIERED_S of waves beside it; T alone
+    for CORES_TAIL_S; both exit and their slots must be cleared."""
+    ft = t.go()
+    await_file(t.ctl / "train_ready", [ft], "T ready (tiered)")
+    time.sleep(CORES_SOLO_S)
+    fs = s.go()
+    await_file(s.ctl / f"{s.name}_ready", [ft, fs], "S ready (tiered)",
+               limit=600)
+    (s.ctl / f"{s.name}_go").touch()
+    serve = fs.result()
+    time.sleep(CORES_TAIL_S)
+    (t.ctl / "train_stop").touch()
+    trainer = ft.result()
+    await_gc(tl, (t.label, s.label), "tiered leg")
+    return {t.label: trainer, s.label: serve}
+
+
+def coresidency_checks(record, tl: Timeline, legs: dict, rows: dict,
+                       qos: dict, ticks: list) -> dict:
+    """F1–F7 across phase_coresidency's legs, and their summary.  T's duty
+    is read on three bases: the solo basis (steps x T's traced device time
+    a step alone, over wall), the interposer's charge, and the traced
+    kernel time of steps traced beside S."""
+    from k8s_vgpu_scheduler_tpu_torch.shim import simlab
+
+    tick = MONITOR_INTERVAL_S
+    alone = [legs[k] for k in ALONE]
+    ft, fs, meta = legs["uidF_train"], legs["uidF_serve"], legs["flat"]
+    qt, qs = legs["uidQ_train"], legs["uidQ_serve"]
+    T, S = "uidF_train", "uidF_serve"
+    solo_ms = ft["traces"]["solo"]["busy_ms_per_step"]
+    # F1: a priority-1 pod borrows an idle card.
+    f1 = duty_over(ft["steps"], [meta["solo"]], solo_ms)
+    first = tl.of(T, *meta["solo"])
+    check(first and not any(x[SWITCH] for x in first),
+          "F1: T's switch on before S's first launch")
+    check(f1["solo"] > MIN_UNCAPPED_DUTY, f"F1: T's duty alone {f1}")
+    # F2, F4: the switch follows S's bursts.
+    windows, on_lat, off_lat = [], [], []
+    for b in fs["bursts"]:
+        before = tl.of(T, 0.0, b["start"])
+        check(before and before[-1][SWITCH] == 0,
+              "F2: T's switch on before S's burst")
+        on = tl.first(T, b["start"], SWITCH, 1)
+        off = tl.first(T, b["end"], SWITCH, 0)
+        on_lat.append(on - b["start"])
+        off_lat.append(off - b["end"])
+        check(on_lat[-1] <= SWITCH_ON_TICKS * tick + TIMELINE_S,
+              f"F2: T's switch on {on_lat[-1]:.3f} s after S's first "
+              "prefill")
+        check(all(x[SWITCH] for x in tl.of(T, on, b["end"])),
+              "F2: T's switch fell while S launched")
+        check(off_lat[-1] <= SWITCH_OFF_TICKS * tick + TIMELINE_S,
+              f"F4: T's switch off {off_lat[-1]:.3f} s after S's last "
+              "launch")
+        windows.append((on, off))
+    # F3: T held to its grant while S is active, on the solo basis.
+    span = ft["traces"]["shared"]["span"]
+    pieces = [p for w in windows for p in cut(w, span)]
+    f3 = duty_over(ft["steps"], pieces, solo_ms)
+    check(abs(f3["solo"] - CORES_SM_LIMIT / 100) <= TOL_DUTY_POINTS,
+          f"F3: T's duty beside S {f3}, grant {CORES_SM_LIMIT}%")
+    # F4: T borrows the card again in the second half of S's idle gap.
+    gap = (fs["bursts"][0]["end"], fs["bursts"][1]["start"])
+    half = ((gap[0] + gap[1]) / 2, gap[1])
+    f4 = duty_over(ft["steps"], [half], solo_ms)
+    check(not any(x[SWITCH] for x in tl.of(T, *half)),
+          "F4: T's switch on in the second half of S's idle gap")
+    check(f4["solo"] > MIN_UNCAPPED_DUTY,
+          f"F4: T's duty in the second half of S's idle gap {f4}")
+    # F5: sharing the card changes no result.
+    solo = record["enforce"]["train_plain_0"]["losses"]
+    for run in (ft, qt):
+        check(run["losses"][:len(solo)] == solo,
+              f"F5: T's losses {run['losses'][:len(solo)]} != alone {solo}")
+    check(all(run["tokens"] == alone[0]["tokens"]
+              for run in (*alone, fs, qs)),
+          "F5: S's tokens beside T differ from S's alone")
+    # F6: the sampler's throttled time and the monitor's GC.
+    t_on = tl.on_seconds(T)
+    check(rows[S]["throttled_seconds"] == 0,
+          f"F6: S throttled {rows[S]['throttled_seconds']} s")
+    check(abs(rows[T]["throttled_seconds"] - t_on) <= tick,
+          f"F6: the sampler's {rows[T]['throttled_seconds']} s throttled "
+          f"against the timeline's {t_on:.3f} s")
+    for key in (*ALONE[1::2], T, S, "uidQ_train", "uidQ_serve"):
+        # From its slot's first sighting (a fresh region is readable an
+        # instant before the attaching process takes its slot) to the
+        # pod's last stamp.
+        pid = legs[key]["pid"]
+        samples = tl.of(key, 0.0, legs[key]["end_t"])
+        seen = next((i for i, x in enumerate(samples) if pid in x[PIDS]),
+                    None)
+        gone = [x for x in samples[seen or 0:] if pid not in x[PIDS]]
+        check(seen is not None and not gone, f"F6: {key}'s slot (pid "
+              f"{pid}) cleared while it lived: {gone[:3]}")
+        check(not tl.of(key)[-1][PIDS] and tl.of(key)[-1][USED] == 0,
+              f"F6: {key}'s slot left after it exited")
+    # F7: the tiered leg holds each class to what it is entitled to.
+    b = qs["bursts"][0]
+    be = [st["charged_us"] for st in qt["steps"] if st["end"] <= b["end"]][-1] \
+        - [st["charged_us"] for st in qt["steps"]
+           if st["end"] <= b["start"]][-1]
+    leg = dict(tiered=True, elapsed_s=b["end"] - b["start"],
+               critical=dict(admitted_device_s=b["interposer"]["charged_us"]
+                             / 1e6),
+               best_effort=dict(admitted_device_s=be / 1e6))
+    violations = simlab.serving_violations(leg, serve_core=CORES_SM_LIMIT,
+                                           train_core=CORES_SM_LIMIT)
+    check(not violations, f"F7: {violations}")
+    tiered = tl.of("uidQ_serve", b["start"], b["end"] + tick)
+    p99 = [v for t, _, p in ticks if b["start"] <= t <= b["end"] + tick
+           for v in p.values()]
+    waits = rows["uidQ_serve"]
+    tiered_t = tl.of("uidQ_train", b["start"], b["end"] + tick)
+    beside = [st["end"] - st["start"] for st in ft["steps"]
+              if any(a <= st["start"] and st["end"] <= z for a, z in pieces)
+              and not st["traced"]]
+    # The interposer's cost in S's host-bound loop, pair by pair: the
+    # median wave's wall with it less without, over its hooked launches.
+    cost = []
+    for plain, pre in zip(alone[0::2], alone[1::2]):
+        a, b = serve_summary(plain), serve_summary(pre)
+        launches = sum(x["interposer"]["launches"] for x in pre["bursts"])
+        per_wave = launches / b["waves"]
+        cost.append(dict(hooked_launches_per_wave=per_wave,
+                         wave_s_added=b["wave_s"] - a["wave_s"],
+                         us_per_hooked_launch=(b["wave_s"] - a["wave_s"])
+                         * 1e6 / per_wave,
+                         decode_tokens_per_s_ratio=b["decode_tokens_per_s"]
+                         / a["decode_tokens_per_s"]))
+    shared = ft["traces"]["shared"]
+    return {
+        "phase": "coresidency", "card": record["card"],
+        "seconds": record["coresidency_s"],
+        "switch": {"on_after_first_prefill_s": on_lat,
+                   "off_after_last_launch_s": off_lat,
+                   "tick_s": tick, "timeline_s": TIMELINE_S},
+        "t_duty": {"alone": f1, "beside_s": f3, "idle_second_half": f4,
+                   "solo_ms_per_step": solo_ms,
+                   "traced_beside_s": shared["busy_share"],
+                   "traced_beside_ms_per_step": shared["busy_ms_per_step"]},
+        "t_step_ms": {
+            "alone": 1e3 * statistics.median(
+                st["end"] - st["start"] for st in ft["steps"]
+                if meta["solo"][0] <= st["start"]
+                and st["end"] <= meta["solo"][1]),
+            "beside_s": 1e3 * statistics.median(beside)},
+        "serve": {**{f"alone_{'pre' if i % 2 else 'plain'}_{i // 2}":
+                     serve_summary(run) for i, run in enumerate(alone)},
+                  "beside_t_flat": serve_summary(fs),
+                  "beside_t_tiered": serve_summary(qs)},
+        "interposer_decode_cost": cost,
+        "sampler": {"t_throttled_s": rows[T]["throttled_seconds"],
+                    "t_switch_on_s": t_on,
+                    "s_throttled_s": rows[S]["throttled_seconds"]},
+        "tiered": {"leg": leg, "violations": violations,
+                   "s_weight_max": max(x[WEIGHT] for x in tiered),
+                   "t_weight_min": min(x[WEIGHT] for x in tiered_t),
+                   "t_yield_share": statistics.mean(
+                       x[YIELD] for x in tiered_t),
+                   "t_switch_on_share": statistics.mean(
+                       x[SWITCH] for x in tiered_t),
+                   "critical_p99_us_max": max(p99, default=None),
+                   "s_wait_s": waits["qos_wait_seconds_total"],
+                   "s_wait_hist": waits["qos_wait_hist"], **qos},
+    }
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                bound, library_ms, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -1981,8 +2621,8 @@ def main() -> int:
         interposer = pool.submit(_kernels.build_interposer)
         driver = pool.submit(_kernels.build_interposer_test)
         list(pool.map(_kernels.build, KERNEL_SOURCES))
-        vgpu.result()
-        interposer, driver = interposer.result(), driver.result()
+        vgpu, interposer, driver = (vgpu.result(), interposer.result(),
+                                    driver.result())
     record["build_s"] = time.monotonic() - t0
     log(f"built {', '.join(KERNEL_SOURCES)} in {record['build_s']:.1f} s")
     record["ptxas"] = {name: _kernels.build_logs.get(name, "")
@@ -2021,6 +2661,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         train_launches = phase_train_main(torch, fa, port, record)
         enforce_launches = phase_enforce(torch, record, interposer, driver)
+        cores_launches = phase_coresidency(torch, record, vgpu, interposer)
     except Fail as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -2031,34 +2672,40 @@ def main() -> int:
     tpu = "k8s_vgpu_scheduler_tpu/ops/flash_attention.py:"
     kernels = [
         kernel_row("flash_fwd", src + "flash_fwd.cu", tpu + "57",
-                   serve_launches + train_launches[0] + enforce_launches[0],
+                   serve_launches + train_launches[0] + enforce_launches[0]
+                   + cores_launches[0],
                    t["max_abs_err"],
                    t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
                    t["library_ms"],
                    launches_by_path={"serve": serve_launches,
                                      "train": train_launches[0],
-                                     "enforce": enforce_launches[0]},
+                                     "enforce": enforce_launches[0],
+                                     "coresidency": cores_launches[0]},
                    kernel="flash_fwd_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_fwd_kernel (scalar f32)",
                    f32_ms=t["f32_ms"], errors=t["errors"]),
         kernel_row("flash_bwd_dq", src + "flash_bwd.cu", tpu + "172",
-                   train_launches[1] + enforce_launches[1],
+                   train_launches[1] + enforce_launches[1]
+                   + cores_launches[1],
                    b["errors"]["dq"]["max_abs_err"],
                    b["dq_ms"], b["plain_dq_ms"],
                    (b["dq_bound_ms"], b["dq_bound_by"]), b["library_ms"],
                    launches_by_path={"train": train_launches[1],
-                                     "enforce": enforce_launches[1]},
+                                     "enforce": enforce_launches[1],
+                                     "coresidency": cores_launches[1]},
                    library_covers="dq, dk and dv",
                    kernel="flash_bwd_dq_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_bwd_dq_kernel (scalar f32)",
                    f32_ms=b["dq_f32_ms"], errors={"dq": b["errors"]["dq"]}),
         kernel_row("flash_bwd_dkv", src + "flash_bwd.cu", tpu + "213",
-                   train_launches[2] + enforce_launches[2],
+                   train_launches[2] + enforce_launches[2]
+                   + cores_launches[2],
                    max(b["errors"][n]["max_abs_err"] for n in ("dk", "dv")),
                    b["dkv_ms"], b["plain_dkv_ms"],
                    (b["dkv_bound_ms"], b["dkv_bound_by"]), b["library_ms"],
                    launches_by_path={"train": train_launches[2],
-                                     "enforce": enforce_launches[2]},
+                                     "enforce": enforce_launches[2],
+                                     "coresidency": cores_launches[2]},
                    library_covers="dq, dk and dv",
                    kernel="flash_bwd_dkv_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_bwd_dkv_kernel (scalar f32)",

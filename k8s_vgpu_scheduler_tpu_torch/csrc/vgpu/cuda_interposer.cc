@@ -62,7 +62,12 @@
 // (on an idle device less the host's time to submit the launch after the
 // start event).  Each (function, grid, block)
 // keeps its own estimate: its first two launches are timed, then every
-// 64th.  Where no device is capped the
+// 64th.  A launch timed while the monitor's switch is on (a higher-priority
+// pod is active on the card, whose time is sliced between the two pods'
+// contexts) may only lower an estimate that already has one: its pair can
+// span the other pod's slices too, which would charge the pod its
+// neighbour's time, and the samples that span none pull back what the
+// last tick before the switch let in.  Where no device is capped the
 // launch only marks activity for the monitor: no lock, no syscall.
 // Launches into a stream that is being captured run nothing and are not
 // charged; the graph's launch is.
@@ -442,6 +447,7 @@ struct Pending {
   Estimate* est;
   int slot;
   bool busy;        // the device had earlier work when the launch was queued
+  bool shared;      // the region's switch was on: a sharer was active
   uint64_t gap_ns;  // the host's time from the start event to the launch
 };
 
@@ -514,9 +520,15 @@ void harvest(ThreadState& ts) {
         ms >= 0) {
       double ns = (double)ms * 1e6;
       if (!p.busy) ns = ns > (double)p.gap_ns ? ns - (double)p.gap_ns : 0;
-      e.ns = e.samples ? e.ns + (ns - e.ns) / 4 : ns;
+      if (!e.samples)
+        e.ns = ns;
+      else if (!p.shared || ns < e.ns)
+        e.ns += (ns - e.ns) / 4;
       e.samples++;
-      ts.mean_ns = ts.mean_ns ? ts.mean_ns + (ns - ts.mean_ns) / 64 : ns;
+      if (!ts.mean_ns)
+        ts.mean_ns = ns;
+      else if (!p.shared || ns < ts.mean_ns)
+        ts.mean_ns += (ns - ts.mean_ns) / 64;
       g_stats[p.slot].samples.fetch_add(1, std::memory_order_relaxed);
       g_stats[p.slot].sampled_us.fetch_add((uint64_t)(ns / 1000),
                                            std::memory_order_relaxed);
@@ -584,8 +596,11 @@ CUresult gated_launch(const char* what, uint64_t key, CUstream stream,
     if (rc == CUDA_SUCCESS && g_cu.cuEventRecord(b, on) == CUDA_SUCCESS) {
       // Still pending after the launch was queued: the device was busy.
       bool busy = g_cu.cuEventQuery(a) == CUDA_ERROR_NOT_READY;
+      vgpu_region_t* r = vgpu_region();
+      bool shared =
+          r && __atomic_load_n(&r->utilization_switch, __ATOMIC_RELAXED);
       ts.ring[(ts.head + ts.count) % kPending] =
-          Pending{a, b, &e, slot, busy, gap};
+          Pending{a, b, &e, slot, busy, shared, gap};
       ts.count++;
       e.pending++;
       e.since = 0;

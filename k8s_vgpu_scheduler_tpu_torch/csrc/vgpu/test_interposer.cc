@@ -265,6 +265,37 @@ static void run_main(const Control& c) {
   c.rate_test_mode(0);
   setenv("MOCK_EXEC_US", "0", 1);
 
+  // ---- a sharer's time slices do not raise an estimate -----------------------
+  // With the switch on, the kernel's pair spans the other pod's slices too
+  // (here: the device time trebles): re-timed launches leave the shape's
+  // estimate where it was, and only a shorter one would lower it; with the
+  // switch off again it follows them.
+  c.set_switch(c.region(), 0);
+  c.rate_test_mode(1);
+  setenv("MOCK_EXEC_US", "100", 1);
+  launches(4, "cuLaunchKernel", 0, (void*)0x3);
+  c.set_switch(c.region(), 1);
+  setenv("MOCK_EXEC_US", "300", 1);
+  uint64_t base_us = counter(c, 0, S_CHARGED_US);
+  uint64_t sampled0 = counter(c, 0, S_SAMPLES);
+  launches(130, "cuLaunchKernel", 0, (void*)0x3);
+  CHECK(counter(c, 0, S_CHARGED_US) - base_us == 130 * 100ull &&
+            counter(c, 0, S_SAMPLES) > sampled0,
+        "launches timed beside a sharer do not raise the estimate");
+  setenv("MOCK_EXEC_US", "50", 1);
+  base_us = counter(c, 0, S_CHARGED_US);
+  launches(130, "cuLaunchKernel", 0, (void*)0x3);
+  CHECK(counter(c, 0, S_CHARGED_US) - base_us < 130 * 100ull,
+        "a shorter launch beside a sharer lowers the estimate");
+  setenv("MOCK_EXEC_US", "300", 1);
+  c.set_switch(c.region(), 0);
+  base_us = counter(c, 0, S_CHARGED_US);
+  launches(130, "cuLaunchKernel", 0, (void*)0x3);
+  CHECK(counter(c, 0, S_CHARGED_US) - base_us > 130 * 100ull,
+        "alone again, the estimate follows the launches' device time");
+  c.rate_test_mode(0);
+  setenv("MOCK_EXEC_US", "0", 1);
+
   // ---- versioned lookups: the driver's mapping decides ----------------------
   CHECK(hooked(entry("cuCtxCreate", 3020)) && hooked(entry("cuCtxCreate", 11040)) &&
             hooked(entry("cuCtxCreate", 12080)) &&

@@ -1,0 +1,9 @@
+"""The node monitor of the PyTorch/CUDA port: reads every container's
+shared region, flips the priority switch and re-weights QoS duty (the JAX
+package's ``monitor/`` for the GPU; its Prometheus exporter and node RPC
+are not ported)."""
+
+from .feedback import FeedbackLoop
+from .reader import Region, RegionReader, scan_container_dirs
+
+__all__ = ["FeedbackLoop", "Region", "RegionReader", "scan_container_dirs"]

@@ -136,6 +136,8 @@ class Native:
         L.vgpu_r_proc_pids.restype = c_int
         L.vgpu_r_gc.argtypes = [c_p, ctypes.POINTER(ctypes.c_int32), c_int]
         L.vgpu_r_gc.restype = c_int
+        L.vgpu_r_set_hostpid.argtypes = [c_p, ctypes.c_int32, ctypes.c_int32]
+        L.vgpu_r_set_hostpid.restype = None
         L.vgpu_r_qos_wait_hist.argtypes = [
             c_p, ctypes.POINTER(ctypes.c_uint64), c_int]
         L.vgpu_r_qos_wait_hist.restype = c_int

@@ -41,6 +41,10 @@ non-JAX client throttled to duty cycle     launches throttled to the duty cycle
 throttle wait bounded                      throttle wait bounded; each launch
                                            charged its event-timed device time;
                                            waits are the charge over the rate
+(none: one client a chip)                  launches timed beside a sharer (the
+                                           switch on) do not raise the
+                                           estimate, shorter ones lower it;
+                                           alone again, it follows
 old-ABI caller (small struct_size)         cuCtxCreate at 3020, 11040, 12080
                                            reach the _v2, _v3, _v4 hooks; an
                                            unhooked entry point is the
@@ -153,7 +157,7 @@ def test_runtime_path_capped_and_throttled(built, tmp_path, entries):
     res = drive(built, preload_env(
         built, tmp_path / "r.cache", CUDA_DEVICE_MEMORY_LIMIT_0="100m",
         CUDA_DEVICE_SM_LIMIT=30, CUDA_TASK_PRIORITY=1, **extra))
-    assert len(passes(res)) == 25
+    assert len(passes(res)) == 28
 
 
 @pytest.mark.parametrize("nvml", [True, False], ids=["nvml", "no_nvml"])

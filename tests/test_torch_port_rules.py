@@ -10,7 +10,9 @@
 - A kernel's build is named by its source and the headers it includes.
 - The CPU path, forward and backward, builds and launches nothing.
 - The enforcement layer (``shim/``, ``tpulib/``) imports torch only inside
-  functions, nothing in the port reads ``lib/tpu/``, and ``csrc/vgpu/``
+  functions, and the node monitor (``monitor/``, ``accounting/``,
+  ``cmd/monitor.py``) imports none at all; nothing in the port reads
+  ``lib/tpu/``, and ``csrc/vgpu/``
   builds with g++ into the port's build directory: the enforcement
   library, the driver-API interposer, its mock driver and its C test
   driver, each named by its sources.
@@ -88,6 +90,10 @@ def test_kernel_module_import_runs_no_compiler():
         "import k8s_vgpu_scheduler_tpu_torch.models.train\n"
         "import k8s_vgpu_scheduler_tpu_torch.shim\n"
         "import k8s_vgpu_scheduler_tpu_torch.tpulib\n"
+        "import k8s_vgpu_scheduler_tpu_torch.monitor\n"
+        "import k8s_vgpu_scheduler_tpu_torch.accounting\n"
+        "import k8s_vgpu_scheduler_tpu_torch.cmd.monitor\n"
+        "import k8s_vgpu_scheduler_tpu_torch.shim.simlab\n"
         "assert not k._libs and not k.build_logs\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -214,10 +220,14 @@ def test_ptxas_log_reads_registers_and_spills():
 
 ENFORCEMENT = sorted((PORT / "shim").glob("*.py")) + \
     sorted((PORT / "tpulib").glob("*.py"))
+# The node monitor: a daemon that never touches the card.
+MONITOR = sorted((PORT / "monitor").glob("*.py")) + \
+    sorted((PORT / "accounting").glob("*.py")) + [PORT / "cmd" / "monitor.py"]
 
 
-@pytest.mark.parametrize("path", ENFORCEMENT,
-                         ids=[str(p.relative_to(ROOT)) for p in ENFORCEMENT])
+@pytest.mark.parametrize("path", ENFORCEMENT + MONITOR,
+                         ids=[str(p.relative_to(ROOT))
+                              for p in ENFORCEMENT + MONITOR])
 def test_enforcement_imports_torch_only_inside_functions(path):
     top = set()
     for node in ast.parse(path.read_text(), str(path)).body:
@@ -226,12 +236,26 @@ def test_enforcement_imports_torch_only_inside_functions(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0:
             top.add(node.module.split(".")[0])
     assert not top & {"torch", "numpy", *FORBIDDEN}, sorted(top)
+    if path in MONITOR:  # not even inside a function
+        inner = set(_imported_roots(path))
+        assert not inner & {"torch", "numpy", *FORBIDDEN}, sorted(inner)
 
 
 def test_enforcement_import_loads_no_torch():
     code = ("import sys\n"
             "import k8s_vgpu_scheduler_tpu_torch.shim\n"
             "import k8s_vgpu_scheduler_tpu_torch.tpulib\n"
+            "import k8s_vgpu_scheduler_tpu_torch.monitor\n"
+            "import k8s_vgpu_scheduler_tpu_torch.accounting\n"
+            "import k8s_vgpu_scheduler_tpu_torch.cmd.monitor\n"
+            "import k8s_vgpu_scheduler_tpu_torch.shim.simlab\n"
+            "import tempfile\n"
+            "from k8s_vgpu_scheduler_tpu_torch.monitor import FeedbackLoop\n"
+            "from k8s_vgpu_scheduler_tpu_torch.accounting import "
+            "UsageSampler\n"
+            "loop = FeedbackLoop(tempfile.mkdtemp())\n"
+            "loop.tick()\n"
+            "UsageSampler(loop).sample()\n"
             "assert 'torch' not in sys.modules, 'torch imported'\n"
             "assert 'jax' not in sys.modules, 'jax imported'\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -303,3 +327,25 @@ def test_interposer_digest_covers_the_enforcement_sources():
         + ".so"
     assert not {"cuda_interposer.cc", "mock_cuda.cc", "test_interposer.cc"} \
         & set(_kernels.VGPU_SOURCES)
+
+
+def test_package_data_ships_every_source_the_port_builds():
+    """An installed port builds its kernels and its libraries from the
+    sources under csrc/: pyproject.toml's package data must name each."""
+    import fnmatch
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = conf["tool"]["setuptools"]["package-data"][PORT.name]
+    sources = [p.relative_to(PORT).as_posix()
+               for p in sorted((PORT / "csrc").rglob("*")) if p.is_file()]
+    assert len(sources) >= 12
+    def ships(path, glob):  # setuptools' globs: one segment each
+        parts, pattern = path.split("/"), glob.split("/")
+        return len(parts) == len(pattern) and all(
+            fnmatch.fnmatchcase(a, b) for a, b in zip(parts, pattern))
+
+    missed = [s for s in sources if not any(ships(s, g) for g in globs)]
+    assert not missed, missed
+    assert conf["project"]["scripts"]["vgpu-monitor"] == \
+        "k8s_vgpu_scheduler_tpu_torch.cmd.monitor:main"

@@ -9,7 +9,8 @@ is an integer or a byte.
 
 - The region ABI: a region the port writes reads, through the JAX
   package's monitor reader, exactly like one the TPU library writes, and
-  the files are the same bytes apart from the writer's pid and the mutex.
+  the files are the same bytes apart from the writer's pid and the mutex;
+  both monitors' readers clear a dead process's slot in either.
 - The limiter on its test clock: the same acquires and feedback give the
   same waits, clock, QoS wait/cost counters and wait histogram.
 - The cases of tests/test_shim.py that do not need jax, on both.
@@ -39,6 +40,8 @@ from k8s_vgpu_scheduler_tpu_torch.models import serve as tserve
 from k8s_vgpu_scheduler_tpu_torch.models import train as ttrain
 from k8s_vgpu_scheduler_tpu_torch.models.convert import init_weights
 from k8s_vgpu_scheduler_tpu_torch.models.llama import LlamaConfig
+from k8s_vgpu_scheduler_tpu_torch.monitor.reader import \
+    RegionReader as PortRegionReader
 from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
 from k8s_vgpu_scheduler_tpu_torch.shim import core, oversub
 
@@ -411,18 +414,22 @@ print(try_alloc(0, 50*MIB), get_used(0)//MIB)
 
 @pytest.mark.parametrize("flavor", FLAVORS, ids=lambda f: f.name)
 def test_monitor_gc_clears_dead_slots(tmp_path, libs, flavor):
+    """Through the JAX package's reader and through the port's, each on a
+    slot that a process left behind in ``flavor``'s region."""
     path = tmp_path / "r.cache"
-    run_child(flavor, libs, ATTACH + """
+    for reader in (RegionReader(str(TPU_LIB)),
+                   PortRegionReader(libs["port"])):
+        run_child(flavor, libs, ATTACH + """
 assert try_alloc(0, 70*MIB) == 0
 os._exit(0)
 """, grant_env(flavor, path, limits_mib={0: 100}))
-    r = RegionReader(str(TPU_LIB)).open(str(path))
-    try:
-        assert r.used(0) == 70 * MIB
-        assert r.gc([]) == 1
-        assert r.used(0) == 0
-    finally:
-        r.close()
+        r = reader.open(str(path))
+        try:
+            assert r.used(0) == 70 * MIB
+            assert r.gc([]) == 1
+            assert r.used(0) == 0
+        finally:
+            r.close()
 
 
 # -- the Python shims -----------------------------------------------------
