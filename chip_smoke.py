@@ -32,13 +32,23 @@ share the card under the port's node monitor (phase_coresidency, children
 thread, no ``force``): a serving pod (priority 0) and the train step
 (priority 1), 50% of the card each, in a flat leg (the priority switch)
 and a tiered one (latency-critical and best-effort), after the serving
-pod alone without and with the interposer.  Exits non-zero if any phase
-fails, and at once (printing no result) without a CUDA device or outside a
-checkout.
+pod alone without and with the interposer.  Then the pod's life cycle:
+checkpoint-first eviction (phase_preempt, children ``--enforce-child
+preempt``): a training pod told to leave by its annotations file
+checkpoints at the next step boundary and exits, and resumed in a fresh
+process finishes bit for bit as an uninterrupted run; and the serving
+pod's own entry point (phase_quant_serve, ``python -m
+k8s_vgpu_scheduler_tpu_torch.cmd.serve``) restores the 32-layer model
+from a checkpoint, quantizes it to int8 under an 8000 MiB grant its bf16
+weights cannot fit (and to int4 under 5000 MiB) and serves the main
+path's requests over HTTP with the tokens of an in-process engine, then
+drains on SIGTERM.  Exits non-zero if any phase fails, and at once
+(printing no result) without a CUDA device or outside a checkout.
 
 Stdout ends with: the enforcement phase's ``{"phase": "enforce", ...}``
-line, the co-residency phase's ``{"phase": "coresidency", ...}`` line, a
-``{"kernels": [...]}`` line (per kernel: launches on the main
+line, the co-residency phase's ``{"phase": "coresidency", ...}`` line,
+the ``{"phase": "preempt", ...}`` and ``{"phase": "quant_serve", ...}``
+lines, each phase's seconds, a ``{"kernels": [...]}`` line (per kernel: launches on the main
 paths, max error, kernel / plain / library times and the card's bound),
 the card's name and power limit from nvidia-smi, and the line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -53,6 +63,7 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -206,10 +217,43 @@ CORES_TIERED_S = 20.0  # S's waves in the tiered leg
 CORES_ALONE_S = 8.0    # S's waves alone, in each of 2 pairs without and
 #                        with the interposer, in turn
 ALONE = tuple(f"uidA{i}_serve" for i in range(4))  # odd: preloaded
+# The preemption phase (phase_preempt): the train step at llama_7b widths
+# through the interposer under T's 40000 MiB grant, 8 steps of one batch;
+# the parent swaps the annotation in once the victim has finished step 3,
+# as kubelet would; the card's memory must fall back to the parent's own
+# within 5 s of the victim's exit (64 MiB: TOL_CONTEXT_MIB's slack).  The
+# step is T's, 8 layers; R's checkpoint goes to the disk, V's and V''s to
+# SHM, a tmpfs in host memory: the card's machine ends a command once it
+# has written 45 GiB to its disk, deleted files included, and the three
+# checkpoints of 12 B a parameter (3 x 18.8 GiB) beside phase_quant_serve's
+# 11.1 GiB would pass that.
+PREEMPT_LAYERS = 8
+SHM = Path("/dev/shm")
+PREEMPT_MIB = CORES_TRAIN_MIB
+PREEMPT_STEPS = 8
+PREEMPT_AFTER = 3
+PREEMPT_UID = "uid-hp-serve"
+RETURN_S = 5.0
+TOL_RETURN_MIB = 64
+# The quantized serving phase (phase_quant_serve): the 32-layer model
+# written as a checkpoint and served by the pod's own entry point under a
+# grant its bf16 weights cannot fit (8000 MiB, which refuses their load
+# in phase_enforce) as int8, and as int4 under 5000 MiB; fidelity on a
+# (1, 512) prompt: the int8 logits' cosine to the bf16 ones above the JAX
+# package's own bound (tests/test_quant.py); QuantLinear4 against the JAX
+# package's QuantDense4 written in plain torch over weights unpacked apart
+# from quant.py, on 2 layers: relative RMS within 4x the first reading on
+# an H100 80GB HBM3 at 700 W (0.0169; a control that swaps each byte's
+# nibbles read 1.43 and must stay past the limit).
+QUANT_GRANT_MIB = {"int8": 8000, "int4": 5000}
+QUANT_PROMPT = 512
+MIN_INT8_COSINE = 0.999
+TOL_INT4_VS_GROUP_SUMS = 4 * 0.0169
+PROFILE_S = 1.0
 # vgpu_interposer_stats' fields (csrc/vgpu/cuda_interposer.cc).
 INTERPOSER_STATS = ("launches", "gated", "charged_us", "samples",
                     "sampled_us", "context_bytes", "alloc_bytes",
-                    "refusals", "capture_skips")
+                    "refusals", "capture_skips", "fixed_bytes")
 # The grant env of every child, cleared of whatever the caller's env holds.
 GRANT_ENV = ("CUDA_DEVICE_MEMORY_", "CUDA_DEVICE_SM_LIMIT",
              "CUDA_TASK_PRIORITY", "CUDA_OVERSUBSCRIBE", "NVIDIA_VISIBLE_",
@@ -306,6 +350,9 @@ def device_ms(torch, fn, iters: int = 10) -> float:
     return busy["device_busy_ms"] / iters
 
 
+_TRACER_STARTED: list = []
+
+
 def device_profile(torch, fn, top: int = 6) -> dict:
     """One traced call of ``fn`` (torch.profiler, CPU + CUDA activity):
     its wall time, the summed time of its device kernels and their share
@@ -314,9 +361,19 @@ def device_profile(torch, fn, top: int = 6) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    if not _TRACER_STARTED:
+        # The process's first trace starts CUPTI; one read 30 of a
+        # forward's 32 flash launches.  Started on a few small kernels,
+        # whose trace is not read.
+        x = torch.zeros(1, device="cuda")
+        with profile(activities=activities):
+            for _ in range(8):
+                x.add_(1)
+            torch.cuda.synchronize()
+        _TRACER_STARTED.append(True)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=activities) as prof:
         t0 = time.monotonic()
         fn()
         torch.cuda.synchronize()
@@ -1251,10 +1308,10 @@ def child_load_oom(torch):
                 install_s=install_s, load_until_refused_s=load_s)
 
 
-def enforce_train_state(torch, llama, train):
+def enforce_train_state(torch, llama, train, n_layers: int = 8):
     """phase_train_main's model and batch: llama_7b widths, 8 layers,
     bf16 with the f32 master copy, one (1, 2049) batch."""
-    cfg = dataclasses.replace(llama.llama_7b(), n_layers=8,
+    cfg = dataclasses.replace(llama.llama_7b(), n_layers=n_layers,
                               attention="flash")
     tokens = torch.randint(
         0, cfg.vocab, (1, 2049), device="cuda",
@@ -1774,6 +1831,80 @@ def child_cores_serve(torch):
                 interposer=stats(), end_t=time.monotonic())
 
 
+def child_preempt(torch):
+    """One pod of phase_preempt: the PREEMPT_LAYERS-layer bf16 train step
+    (f32 master) through the interposer under PREEMPT_MIB, driven by
+    run_preemptible for PREEMPT_STEPS on one batch, with a CheckpointManager on
+    PREEMPT_DIR, stopping on a PreemptionWatch of its own annotations file
+    (VTPU_PODINFO_ANNOTATIONS).  Prints ``STEP <n>`` once step n has
+    finished on the card (its loss read back)."""
+    llama, _, train, fa, core, _ = enforce_port()
+    from k8s_vgpu_scheduler_tpu_torch.models.checkpoint import (
+        CheckpointManager)
+    from k8s_vgpu_scheduler_tpu_torch.shim.preempt import PreemptionWatch
+
+    stood_down(core)
+    cfg, tokens, model, state, step = enforce_train_state(
+        torch, llama, train, PREEMPT_LAYERS)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for f in counters:
+        f.launches = 0
+    io = {"saves": [], "restores": []}
+
+    class Timed(CheckpointManager):
+        def save(self, step, state, wait=False):
+            t0 = time.monotonic()
+            super().save(step, state, wait)
+            io["saves"].append(dict(step=step, s=time.monotonic() - t0,
+                                    bytes=os.path.getsize(self.path(step)),
+                                    end_t=time.monotonic()))
+
+        def restore(self, state_like, step=None):
+            t0 = time.monotonic()
+            out = super().restore(state_like, step)
+            torch.cuda.synchronize()
+            io["restores"].append(dict(
+                step=state_like.step, s=time.monotonic() - t0,
+                bytes=os.path.getsize(self.path(state_like.step))))
+            return out
+
+    watch = PreemptionWatch()
+    seen = []
+
+    def should_stop() -> bool:
+        if not watch.requested():
+            return False
+        seen.append(time.monotonic())
+        return True
+
+    losses = []
+
+    def logged(state, tokens):
+        state, loss = step(state, tokens)
+        losses.append(loss.item())
+        print(f"STEP {state.step}", flush=True)
+        return state, loss
+
+    mgr = Timed(os.environ["PREEMPT_DIR"])
+    t0 = time.monotonic()
+    state, done, preempted = train.run_preemptible(
+        logged, state, tokens, PREEMPT_STEPS, mgr, should_stop)
+    torch.cuda.synchronize()
+    launches = [f.launches for f in counters]
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    check(launches == [cfg.n_layers * len(losses)] * 3,
+          f"flash launches {launches} in {len(losses)} steps")
+    return dict(done=done, preempted=preempted,
+                first_step=done - len(losses) + 1, losses=losses,
+                requester=watch.requester(),
+                stop_seen_t=seen[0] if seen else None,
+                run_s=time.monotonic() - t0, io=io,
+                peak_allocated=torch.cuda.max_memory_allocated(),
+                interposer=interposer_stats(), exit_t=time.monotonic(),
+                launches=dict(zip(("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"), launches)))
+
+
 ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "load_oom": child_load_oom,
                     "train": child_train,
@@ -1783,7 +1914,8 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "cotenant": child_cotenant,
                     "interposer_train": child_interposer_train,
                     "cores_train": child_cores_train,
-                    "cores_serve": child_cores_serve}
+                    "cores_serve": child_cores_serve,
+                    "preempt": child_preempt}
 
 
 def enforce_child(name: str) -> int:
@@ -1836,15 +1968,35 @@ class EnforceChild:
              name], env=env, cwd=ROOT, stdin=subprocess.PIPE,
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
 
-    def run(self, record, section: str = "enforce") -> dict:
+    def run(self, record, section: str = "enforce",
+            on_line=lambda line: None) -> dict:
         """Let it go on the card and wait for its readings, kept in
-        ``record[section]`` under its label."""
+        ``record[section]`` under its label.  ``on_line`` is called with
+        each line of its stdout as it comes."""
         t0 = time.monotonic()
+        err, late = [], []
+        drain = threading.Thread(target=lambda: err.append(
+            self.proc.stderr.read()), daemon=True)
+        timer = threading.Timer(300, lambda: (late.append(True),
+                                              self.proc.kill()))
+        drain.start()
+        timer.start()
         try:
-            stdout, stderr = self.proc.communicate("go\n", timeout=300)
-        except subprocess.TimeoutExpired:
-            self.stop()
-            raise Fail(f"enforce child {self.label} ran past 300 s")
+            try:
+                self.proc.stdin.write("go\n")
+                self.proc.stdin.close()
+            except BrokenPipeError:  # it has already exited: read why
+                pass
+            lines = []
+            for line in self.proc.stdout:
+                lines.append(line)
+                on_line(line.rstrip("\n"))
+            self.proc.wait()
+            drain.join()
+        finally:
+            timer.cancel()
+        check(not late, f"enforce child {self.label} ran past 300 s")
+        stdout, stderr = "".join(lines), "".join(err)
         out = ROOT / "chiprun_out"
         out.mkdir(exist_ok=True)
         (out / f"enforce_{self.label}.log").write_text(stdout + stderr)
@@ -2585,6 +2737,610 @@ def coresidency_checks(record, tl: Timeline, legs: dict, rows: dict,
     }
 
 
+def same_checkpoints(torch, a: Path, b: Path) -> dict:
+    """Two train-state checkpoints, mapped from disk, tensor for tensor:
+    the master copy, mu, nu, the counts and the step."""
+    x = torch.load(a, map_location="cpu", mmap=True, weights_only=True)
+    y = torch.load(b, map_location="cpu", mmap=True, weights_only=True)
+    ox, oy = x["opt_state"], y["opt_state"]
+    pairs = {"params": (x["params"], y["params"]),
+             "mu": (ox["mu"], oy["mu"]), "nu": (ox["nu"], oy["nu"]),
+             "acc": (ox["acc"], oy["acc"])}
+    equal = {k: len(u) == len(v) and all(
+        torch.equal(s, t) for s, t in zip(u, v))
+        for k, (u, v) in pairs.items()}
+    equal.update(count=ox["count"] == oy["count"],
+                 mini_step=ox["mini_step"] == oy["mini_step"],
+                 step=x["step"] == y["step"])
+    return dict(equal=equal, tensors=len(x["params"]) * 3,
+                bytes=os.path.getsize(a))
+
+
+def phase_preempt(torch, record, vgpu: Path, interposer: Path):
+    """Checkpoint-first eviction on the card, three pods of the
+    PREEMPT_LAYERS-layer train step through the interposer: R runs
+    PREEMPT_STEPS uninterrupted, checkpointing to the disk;
+    V, the victim, checkpointing to SHM, watches an annotations file, and
+    the parent, acting as
+    kubelet, swaps ``vtpu.dev/preempt-requested="<uid>"`` in
+    (``os.replace``) once V has finished step PREEMPT_AFTER: V must
+    checkpoint at the next boundary and exit 0; V' resumes on V's
+    directory in a fresh process and finishes.  V''s losses and its final
+    checkpoint must be R's bit for bit, the card's memory must return to
+    the parent's within RETURN_S of V's exit, and V's region must hold no
+    used bytes.  Returns the port kernels' launches in the three."""
+    from k8s_vgpu_scheduler_tpu_torch.monitor import RegionReader
+
+    uuid = nvidia_smi("uuid")
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(SHM.is_dir(), f"no {SHM} for V's checkpoints")
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryDirectory(dir=SHM) as shm:
+        tmp, shm = Path(tmp), Path(shm)
+        disk, shm_space = shutil.disk_usage(tmp), shutil.disk_usage(shm)
+        host_free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+
+        def pod(label, ckpt: Path):
+            """A pod with its own downward-API annotations file."""
+            (tmp / label).mkdir()
+            annotations = tmp / label / "annotations"
+            annotations.write_text('kubernetes.io/config.seen="2026"\n')
+            return EnforceChild(
+                "preempt", tmp, label=label, LD_PRELOAD=interposer,
+                NVIDIA_VISIBLE_DEVICES=uuid,
+                CUDA_DEVICE_MEMORY_LIMIT_0=f"{PREEMPT_MIB}m",
+                PREEMPT_DIR=ckpt, VTPU_PODINFO_ANNOTATIONS=annotations)
+
+        # Started at once: their imports overlap; each touches the card
+        # only after its go.  V' is the rescheduled pod: a new pod (its
+        # annotations do not carry the request) on V's checkpoints.
+        r, v, v2 = (pod("preempt_R", tmp / "R"), pod("preempt_V", shm / "V"),
+                    pod("preempt_V2", shm / "V"))
+        annotations = tmp / "preempt_V" / "annotations"
+        pending = tmp / "preempt_V" / ".pending"
+        pending.write_text('kubernetes.io/config.seen="2026"\n'
+                           f'vtpu.dev/preempt-requested="{PREEMPT_UID}"\n')
+        arrival = []
+
+        def kubelet(line: str) -> None:
+            if line == f"STEP {PREEMPT_AFTER}" and not arrival:
+                os.replace(pending, annotations)
+                arrival.append(time.monotonic())
+
+        try:
+            baseline = smi_card_mib()  # the parent alone on the card
+            ref = r.run(record, "preempt")
+            victim = v.run(record, "preempt", kubelet)
+            exited = time.monotonic()
+            back, smi_after = None, []
+            while time.monotonic() - exited < RETURN_S and back is None:
+                smi_after.append(smi_card_mib())
+                if smi_after[-1] <= baseline + TOL_RETURN_MIB:
+                    back = time.monotonic() - exited
+            reader = RegionReader(str(vgpu))
+            region = reader.open(str(tmp / "preempt_V" / "cudevshr.cache"))
+            check(region is not None, "V's region is gone")
+            try:
+                v_used, v_pids = region.used(0), region.proc_pids()
+            finally:
+                region.close()
+            resumed = v2.run(record, "preempt")
+        finally:
+            for child in (r, v, v2):
+                child.stop()
+        k = victim["done"]
+        t0 = time.monotonic()
+        final = same_checkpoints(torch, tmp / "R" / str(PREEMPT_STEPS) /
+                                 "state.pt",
+                                 shm / "V" / str(PREEMPT_STEPS) / "state.pt")
+        compare_s = time.monotonic() - t0
+        shutil.rmtree(tmp / "R")
+        shutil.rmtree(shm / "V")
+    check(ref["done"] == PREEMPT_STEPS and not ref["preempted"]
+          and len(ref["losses"]) == PREEMPT_STEPS,
+          f"R: {ref['done']} steps, preempted {ref['preempted']}")
+    check(bool(arrival), f"V never printed STEP {PREEMPT_AFTER}")
+    check(victim["preempted"] and PREEMPT_AFTER <= k < PREEMPT_STEPS
+          and victim["requester"] == PREEMPT_UID,
+          f"V: preempted {victim['preempted']} at step {k}, requester "
+          f"{victim['requester']}")
+    check([s["step"] for s in victim["io"]["saves"]] == [k],
+          f"V's saves {victim['io']['saves']}")
+    check(resumed["done"] == PREEMPT_STEPS and not resumed["preempted"]
+          and resumed["first_step"] == k + 1
+          and [s["step"] for s in resumed["io"]["restores"]] == [k],
+          f"V': from step {resumed['first_step']} to {resumed['done']}, "
+          f"restores {resumed['io']['restores']}")
+    check(victim["losses"] == ref["losses"][:k]
+          and resumed["losses"] == ref["losses"][k:],
+          f"losses: R {ref['losses']}, V {victim['losses']}, V' "
+          f"{resumed['losses']}")
+    check(all(final["equal"].values()),
+          f"the step-{PREEMPT_STEPS} checkpoints differ: {final['equal']}")
+    check(back is not None, f"the card read {smi_after} MiB for {RETURN_S} "
+          f"s after V's exit, the parent {baseline} MiB")
+    check(v_used == 0 and v.proc.pid not in v_pids,
+          f"V's region: used {v_used}, pids {v_pids} (V was {v.proc.pid})")
+    saves = [s for run in (ref, victim, resumed) for s in run["io"]["saves"]]
+    summary = record["preempt_summary"] = {
+        "phase": "preempt", "card": record["card"],
+        "seconds": time.monotonic() - t_phase,
+        "disk_free_bytes": disk.free, "disk_total_bytes": disk.total,
+        "shm_free_bytes": shm_space.free, "host_free_bytes": host_free,
+        "preempted_at_step": k,
+        "annotation_to_stop_seen_s": victim["stop_seen_t"] - arrival[0],
+        "annotation_to_exit_s": exited - arrival[0],
+        "victim_exit_t_to_parent_s": exited - victim["exit_t"],
+        "save_s": [s["s"] for s in saves],
+        "restore_s": [x["s"] for x in resumed["io"]["restores"]],
+        "checkpoint_bytes": saves[0]["bytes"],
+        "compare_s": compare_s, "compared_tensors": final["tensors"],
+        "smi_baseline_mib": baseline, "smi_after_exit_mib": smi_after,
+        "memory_back_s": back, "victim_region_used": v_used,
+        "losses": ref["losses"],
+        "peak_allocated_bytes": [run["peak_allocated"]
+                                 for run in (ref, victim, resumed)],
+        "child_s": {run: record["preempt"][run]["child_s"]
+                    for run in ("preempt_R", "preempt_V", "preempt_V2")}}
+    log(json.dumps(summary))
+    return [sum(run["launches"][n] for run in (ref, victim, resumed))
+            for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def http(url: str, body=None, timeout: float = 300, on_event=None):
+    """(status, parsed body) of a GET, or of a POST of ``body`` as JSON;
+    a server-sent-events reply becomes its list of events (``on_event``
+    is called as each arrives)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url, data=data, headers={
+        "Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            kind = r.headers.get("Content-Type", "")
+            if kind == "text/event-stream":
+                events = []
+                for raw in r:
+                    line = raw.decode().strip()
+                    if line.startswith("data: "):
+                        events.append((time.monotonic(),
+                                       json.loads(line[len("data: "):])))
+                        if on_event is not None:
+                            on_event()
+                return r.status, events
+            text = r.read().decode()
+            return r.status, json.loads(text) if "json" in kind else text
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def parse_metrics(text: str) -> dict:
+    """Prometheus text: sample name -> value; every line must parse."""
+    out = {}
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            check(line.startswith(("# HELP ", "# TYPE ")) or not line,
+                  f"/metrics line {line!r}")
+            continue
+        name, value = line.split(" ")
+        out[name] = float(value)
+    return out
+
+
+def quant_fixture(model, layer: int = 0) -> dict:
+    """The full-precision weights of one layer's projections as a
+    Flax-layout tree of f32 numpy arrays ([in, out]), on the host."""
+    from k8s_vgpu_scheduler_tpu_torch.models.convert import _projections
+
+    tree: dict = {}
+    for path, parent, name in _projections(model):
+        if path[0] == f"layer_{layer}":
+            w = getattr(parent, name).weight.detach().float().T
+            tree.setdefault(path[1], {})[name] = {
+                "kernel": w.contiguous().cpu().numpy()}
+    return tree
+
+
+def same_quant_bytes(quant, model, tree: dict, bits: int) -> bool:
+    """The card's quantized layer-0 buffers against quantize_params of the
+    same f32 values on the host."""
+    import numpy as np
+
+    want = quant.quantize_params(tree, bits)
+    key = "kernel_q" if bits == 8 else "kernel_q4"
+    layer = model.layers[0]
+    return all(
+        np.array_equal(getattr(getattr(mod, name), key).cpu().numpy(),
+                       leaf[key])
+        and np.array_equal(getattr(mod, name).scale.cpu().numpy(),
+                           leaf["scale"])
+        for group, mod in (("attn", layer.attn), ("mlp", layer.mlp))
+        for name, leaf in want[group].items())
+
+
+def fidelity(torch, got, want) -> dict:
+    """Cosine and top-1 agreement of two logits tensors (f32 on the
+    card)."""
+    a, b = got.float().reshape(-1), want.float().reshape(-1)
+    cos = float(torch.dot(a, b) / (a.norm() * b.norm()))
+    top1 = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    return dict(cosine=cos, top1_agreement=top1)
+
+
+def reference_tokens(serve, model, prompts) -> dict:
+    """The six requests through an in-process 4-slot engine, one after
+    another: the pod's expected tokens."""
+    eng = serve.ServingEngine(model, max_slots=SERVE_SLOTS,
+                              max_len=max(SERVE_LENS) + SERVE_NEW)
+    tokens, ttft = [], []
+    t0 = time.monotonic()
+    for p in prompts:
+        eng.submit(p, SERVE_NEW)
+        (c,) = eng.run()
+        tokens.append(c.tokens)
+        ttft.append(c.ttft_s)
+    decode_tokens = eng.stats["tokens_out"] - eng.stats["prefills"]
+    return dict(tokens=tokens, wall_s=time.monotonic() - t0,
+                ttft_p50_s=serve.nearest_rank(ttft, 0.5),
+                ttft_max_s=max(ttft),
+                decode_tokens_per_s=decode_tokens
+                / eng.stats["decode_seconds"])
+
+
+def trace_summary(reply) -> dict:
+    """A /profilez reply's trace: its CUDA kernel events, its events by
+    category and the span of its kernels."""
+    trace = json.loads((Path(reply[1]["trace_dir"]) / "trace.json")
+                       .read_text())
+    cats: dict = {}
+    kernels = []
+    for e in trace["traceEvents"]:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        if e.get("cat") == "kernel":
+            kernels.append(e)
+    span_us = (max(e["ts"] + e.get("dur", 0) for e in kernels)
+               - min(e["ts"] for e in kernels)) if kernels else 0.0
+    return dict(kernels=len(kernels), kernel_span_s=span_us / 1e6,
+                events_by_cat=cats)
+
+
+def run_pod_serve(quant: str, config: Path, ckpt: Path, tmp: Path, uuid,
+                  vgpu: Path, interposer: Path, prompts, want,
+                  out: dict) -> None:
+    """The serving pod as a pod runs it: ``python -m
+    k8s_vgpu_scheduler_tpu_torch.cmd.serve`` through the interposer under
+    QUANT_GRANT_MIB[quant].  Once /healthz answers, six clients post the
+    six requests at once (the first streams) while /healthz, /statsz and
+    /metrics are read, and /profilez once the streamed request's first
+    token has come: the pod's first trace, in its decode (the pod started
+    the tracer, and charged it, before loading its model).  Then one
+    blocking request and SIGTERM.  From the pod's start to its exit
+    nvidia-smi reads the card (less what it held before) and the region
+    the pod's charge: every reading is held to the grant.  Readings go
+    into ``out`` as they come."""
+    import signal
+
+    from k8s_vgpu_scheduler_tpu_torch.cmd.serve import TRACER_MIB
+    from k8s_vgpu_scheduler_tpu_torch.monitor import RegionReader
+
+    grant = QUANT_GRANT_MIB[quant]
+    label = f"serve_{quant}"
+    region_file = tmp / label / "cudevshr.cache"
+    (tmp / label / "prof").mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items() if not k.startswith(GRANT_ENV)}
+    env.update(LD_PRELOAD=str(interposer), NVIDIA_VISIBLE_DEVICES=uuid,
+               CUDA_DEVICE_MEMORY_LIMIT_0=f"{grant}m",
+               CUDA_DEVICE_MEMORY_SHARED_CACHE=str(region_file),
+               VTPU_PROFILE_BASE=str(tmp / label / "prof"))
+    port = free_port()
+    url = f"http://127.0.0.1:{port}"
+    logs = ROOT / "chiprun_out"
+    logs.mkdir(exist_ok=True)
+    baseline = smi_card_mib()
+    reader = RegionReader(str(vgpu))
+    samples, stop = [], threading.Event()  # (t, card MiB, charged MiB)
+
+    def watch():
+        region = None
+        try:
+            while not stop.is_set():
+                if region is None and region_file.exists():
+                    region = reader.open(str(region_file))
+                charged = region.used(0) / MIB if region else None
+                samples.append((time.monotonic(), smi_card_mib() - baseline,
+                                charged))
+                stop.wait(0.1)
+        finally:
+            if region is not None:
+                region.close()
+
+    got, surfaces, decoding, traced = {}, {}, threading.Event(), []
+
+    def client(i):
+        req = {"prompt": prompts[i], "max_new_tokens": SERVE_NEW}
+        sent = time.monotonic()
+        if i == 0:
+            status, events = http(url + "/v1/generate", dict(req, stream=True),
+                                  on_event=decoding.set)
+            got[i] = (status, [e["token"] for _, e in events if "token" in e],
+                      events[0][0] - sent if events else None)
+        else:
+            status, body = http(url + "/v1/generate", req)
+            got[i] = (status, body.get("tokens")
+                      if isinstance(body, dict) else body, None)
+
+    def read_surfaces():
+        for name in ("healthz", "statsz", "metrics"):
+            surfaces[name] = http(f"{url}/{name}")
+        decoding.wait(300)
+        traced.append(time.monotonic())
+        surfaces["profilez"] = http(f"{url}/profilez?seconds={PROFILE_S}")
+
+    t0 = time.monotonic()
+    with open(logs / f"{label}.log", "w") as logf:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_vgpu_scheduler_tpu_torch.cmd.serve",
+             "--config", str(config), "--checkpoint", str(ckpt), "--quant",
+             quant, "--max-slots", str(SERVE_SLOTS), "--max-len",
+             str(max(SERVE_LENS) + SERVE_NEW), "--bind", f"127.0.0.1:{port}"],
+            env=env, cwd=ROOT, stdout=logf, stderr=subprocess.STDOUT)
+        watcher = threading.Thread(target=watch, daemon=True)
+        watcher.start()
+        try:
+            while True:
+                check(proc.poll() is None, f"the {quant} pod exited "
+                      f"{proc.returncode} before serving (see {label}.log)")
+                check(time.monotonic() - t0 < 600,
+                      f"the {quant} pod did not come up in 600 s")
+                try:
+                    if http(url + "/healthz", timeout=5)[0] == 200:
+                        break
+                except OSError:
+                    pass
+                time.sleep(0.2)
+            out["ready_s"] = time.monotonic() - t0
+            start = time.monotonic()
+            threads = [threading.Thread(target=client, args=(i,))
+                       for i in range(len(prompts))]
+            threads.append(threading.Thread(target=read_surfaces))
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+                check(not t.is_alive(), f"the {quant} pod's wave hung")
+            out["wave_s"] = time.monotonic() - start
+            check(proc.poll() is None, f"the {quant} pod exited "
+                  f"{proc.returncode} during its wave (see {label}.log)")
+            _, again = http(url + "/v1/generate",
+                            {"prompt": prompts[0],
+                             "max_new_tokens": SERVE_NEW})
+            _, stats = http(url + "/statsz")
+            _, metrics = http(url + "/metrics")
+            sigterm = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=120)
+            out["sigterm_to_exit_s"] = time.monotonic() - sigterm
+        finally:
+            stop.set()
+            watcher.join()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    cap_t, traced = traced[0], surfaces["profilez"]
+    before = [mib for t, mib, _ in samples if t < cap_t]
+    during = [mib for t, mib, _ in samples if cap_t <= t < sigterm]
+    peak = max(mib for _, mib, _ in samples)
+    out.update(grant_mib=grant, smi_baseline_mib=baseline, smi_peak_mib=peak,
+               charged_peak_mib=max(c for _, _, c in samples
+                                    if c is not None),
+               memory_timeline=[(t - t0, mib, charged)
+                                for t, mib, charged in samples],
+               profilez_s=cap_t - t0, profilez_status=traced[0],
+               profilez_reply=traced[1], tracer_charge_mib=TRACER_MIB,
+               smi_rise_from_profilez_mib=max(during) - before[-1])
+    if traced[0] == 200:
+        out["trace"] = trace_summary(traced)
+    if isinstance(stats, dict):
+        lat = stats["latency"]
+        decode_tokens = (stats["stats"]["tokens_out"]
+                         - stats["stats"]["prefills"])
+        out.update(stream_ttft_s=got[0][2] if 0 in got else None,
+                   ttft_p50_s=lat["ttft_s"]["p50"],
+                   ttft_max_s=lat["ttft_s"]["p95"],  # nearest-rank p95 of 7
+                   decode_tokens_per_s=decode_tokens
+                   / stats["stats"]["decode_seconds"],
+                   pool_bytes=stats["pool_hbm_bytes"])
+    log_text = (logs / f"{label}.log").read_text()
+    check(peak <= grant, f"the {quant} pod peaked at {peak} MiB by "
+          f"nvidia-smi, grant {grant} MiB")
+    check(rc == 0 and "drain complete" in log_text,
+          f"the {quant} pod exited {rc} after SIGTERM (see {label}.log)")
+    check(all(got[i][0] == 200 for i in got),
+          f"{quant} pod statuses {[got[i][0] for i in sorted(got)]}")
+    check(all(surfaces[n][0] == 200 for n in ("healthz", "statsz",
+                                               "metrics")),
+          f"{quant} pod surfaces {[(n, surfaces[n][0]) for n in surfaces]}")
+    tokens = [got[i][1] for i in range(len(prompts))]
+    rows = [i for i in range(len(prompts)) if tokens[i] != want[i]]
+    check(not rows, f"the {quant} pod's tokens differ from the in-process "
+          f"engine's in requests {rows}")
+    check(again["tokens"] == tokens[0], "streamed tokens != blocking ones")
+    prom = parse_metrics(metrics)
+    out["metrics_samples"] = len(prom)
+    check(prom["vtpu_serve_completions_total"] == len(prompts) + 1,
+          f"/metrics completions {prom.get('vtpu_serve_completions_total')}")
+    check(traced[0] == 200 and out["trace"]["kernels"] > 0,
+          f"the {quant} pod's /profilez: {traced[0]} "
+          f"{out.get('trace', traced[1])}")
+
+
+def phase_quant_serve(torch, port, record, vgpu: Path, interposer: Path):
+    """The serving pod's life on the card: the seeded 32-layer bf16
+    llama_7b written with save_checkpoint; its bf16, int8 (quantized in
+    place on the card) and int4 (restored to the host, quantized on the
+    way up) logits on a (1, QUANT_PROMPT) prompt through the flash
+    kernel; the card's layer-0 bytes against quantize_params on the host;
+    the six requests through an in-process engine of each precision, one
+    after another; then the pod itself (run_pod_serve) as int8 under
+    8000 MiB and int4 under 5000 MiB, each held to its in-process tokens;
+    and QuantLinear4 against the JAX form of its product, written here
+    (int4_vs_group_sums), on 2 layers.  Returns the forward kernel's
+    launches."""
+    llama, convert, _, serve, _ = port
+    from k8s_vgpu_scheduler_tpu_torch.models import checkpoint, quant
+    from k8s_vgpu_scheduler_tpu_torch.ops import flash_attention as fa
+
+    uuid = nvidia_smi("uuid")
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = llama.llama_7b()
+    fcfg = dataclasses.replace(cfg, attention="flash")
+    res = record["quant_serve"] = {"card": record["card"]}
+    fa.flash_attention.launches = 0
+    with tempfile.TemporaryDirectory() as tmp, torch.no_grad():
+        tmp = Path(tmp)
+        ckpt = tmp / "llama_7b"
+        config = tmp / "llama_7b.json"
+        config.write_text(json.dumps(dataclasses.asdict(cfg)))
+        model = convert.init_weights(
+            fcfg, torch.Generator(device="cuda").manual_seed(SEED + 1))
+        t0 = time.monotonic()
+        checkpoint.save_checkpoint(str(ckpt), 0, model)
+        res["save_s"] = time.monotonic() - t0
+        res["checkpoint_bytes"] = os.path.getsize(ckpt / "0" / "state.pt")
+        prompt = torch.randint(0, cfg.vocab, (1, QUANT_PROMPT), device="cuda",
+                               generator=torch.Generator(
+                                   device="cuda").manual_seed(SEED + 7))
+        prompts = serve_prompts(torch, cfg)
+        bf16 = model(prompt).float()
+        tree = quant_fixture(model)
+        t0 = time.monotonic()
+        convert.quantize_model(model, 8)
+        torch.cuda.synchronize()
+        res["int8_quantize_on_card_s"] = time.monotonic() - t0
+        check(same_quant_bytes(quant, model, tree, 8),
+              "int8 bytes on the card != quantize_params on the host")
+        res["int8"] = fidelity(torch, model(prompt), bf16)
+        check(res["int8"]["cosine"] > MIN_INT8_COSINE,
+              f"int8 logits' cosine {res['int8']['cosine']} to bf16")
+        ref8 = reference_tokens(serve, model, prompts)
+        res["int8"]["in_process"] = {k: v for k, v in ref8.items()
+                                     if k != "tokens"}
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_pod_serve("int8", config, ckpt, tmp, uuid, vgpu, interposer,
+                      prompts, ref8["tokens"], res["int8"].setdefault(
+                          "pod", {}))
+        host = llama.Llama(fcfg, device="cpu")
+        t0 = time.monotonic()
+        checkpoint.restore_checkpoint(str(ckpt), host, device="cpu")
+        res["restore_to_host_s"] = time.monotonic() - t0
+        t0 = time.monotonic()
+        model = convert.quantize_model(host, 4)
+        torch.cuda.synchronize()
+        res["int4_quantize_on_the_way_up_s"] = time.monotonic() - t0
+        del host
+        check(same_quant_bytes(quant, model, tree, 4),
+              "int4 bytes on the card != quantize_params on the host")
+        res["int4"] = fidelity(torch, model(prompt), bf16)
+        ref4 = reference_tokens(serve, model, prompts)
+        res["int4"]["in_process"] = {k: v for k, v in ref4.items()
+                                     if k != "tokens"}
+        res["int4"]["model_bytes"] = sum(
+            t.numel() * t.element_size() for t in model.state_dict().values())
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        run_pod_serve("int4", config, ckpt, tmp, uuid, vgpu, interposer,
+                      prompts, ref4["tokens"], res["int4"].setdefault(
+                          "pod", {}))
+        shutil.rmtree(ckpt)
+        res["int4_vs_group_sums"] = int4_vs_group_sums(
+            torch, convert, fcfg, prompt)
+    launches = fa.flash_attention.launches
+    want = 3 * cfg.n_layers + 3 * 2
+    check(launches == want, f"flash launches {launches} in the quantized "
+          f"path, want {want}")
+    sums = res["int4_vs_group_sums"]
+    check(sums["rel_rms"] <= TOL_INT4_VS_GROUP_SUMS
+          < sums["control"]["rel_rms"],
+          f"QuantLinear4 vs the per-group sums: {sums}, limit "
+          f"{TOL_INT4_VS_GROUP_SUMS}")
+    res["seconds"] = time.monotonic() - t_phase
+    res["flash_launches"] = launches
+    log(json.dumps({"phase": "quant_serve", **res}))
+    return launches
+
+
+def int4_vs_group_sums(torch, convert, cfg, prompt) -> dict:
+    """2 layers at llama_7b widths: the int4 model's (1, QUANT_PROMPT)
+    logits against the same model whose projections are the JAX
+    package's QuantDense4 written here in plain torch (a partial product
+    per 128-row group, scaled, then summed) over weights unpacked here
+    from the model's bytes on the host, apart from quant.py; and against a
+    control whose unpacking swaps the two nibbles of a byte.  Relative
+    RMS and max error of each."""
+    import numpy as np
+
+    cfg2 = dataclasses.replace(cfg, n_layers=2)
+    model = convert.init_weights(
+        cfg2, torch.Generator(device="cuda").manual_seed(SEED + 8))
+    convert.quantize_model(model, 4)
+    got = model(prompt).float()
+
+    class GroupSums(torch.nn.Module):
+        def __init__(self, packed, scale, dtype, swap: bool):
+            super().__init__()
+            b = packed.cpu().numpy()
+            lo = (b & 0xF).astype(np.int8) - 8   # row 2i, offset by 8
+            hi = (b >> 4).astype(np.int8) - 8    # row 2i + 1
+            if swap:
+                lo, hi = hi, lo
+            w = np.empty((2 * b.shape[0], b.shape[1]), np.int8)
+            w[0::2], w[1::2] = lo, hi
+            self.w = torch.from_numpy(w).to(scale.device)
+            self.scale, self.dtype = scale, dtype
+
+        def forward(self, x):
+            (groups, out), n_in = self.scale.shape, self.w.shape[0]
+            xg = x.to(self.dtype).reshape(*x.shape[:-1], groups,
+                                          n_in // groups)
+            wg = self.w.to(self.dtype).reshape(groups, n_in // groups, out)
+            y = torch.einsum("...gi,gif->...gf", xg, wg)
+            return (y * self.scale.to(self.dtype)).sum(-2).to(self.dtype)
+
+    def error(swap: bool) -> dict:
+        kept = [(parent, name, getattr(parent, name))
+                for _, parent, name in convert._projections(model)]
+        for parent, name, mod in kept:
+            setattr(parent, name, GroupSums(mod.kernel_q4, mod.scale,
+                                            mod.dtype, swap))
+        try:
+            want = model(prompt).float()
+        finally:
+            for parent, name, mod in kept:
+                setattr(parent, name, mod)
+        return dict(rel_rms=float((got - want).norm() / want.norm()),
+                    max_err_over_max=float((got - want).abs().max()
+                                           / want.abs().max()))
+
+    return dict(error(swap=False), control=error(swap=True))
+
+
 def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                bound, library_ms, **extra):
     return dict(name=name, route="cuda", source=source, replaces=replaces,
@@ -2596,6 +3352,7 @@ def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--enforce-child":
         return enforce_child(sys.argv[2])
+    t_script = time.monotonic()
     import torch
 
     if not torch.cuda.is_available():
@@ -2662,6 +3419,9 @@ def main() -> int:
         train_launches = phase_train_main(torch, fa, port, record)
         enforce_launches = phase_enforce(torch, record, interposer, driver)
         cores_launches = phase_coresidency(torch, record, vgpu, interposer)
+        preempt_launches = phase_preempt(torch, record, vgpu, interposer)
+        quant_launches = phase_quant_serve(torch, port, record, vgpu,
+                                           interposer)
     except Fail as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -2673,39 +3433,43 @@ def main() -> int:
     kernels = [
         kernel_row("flash_fwd", src + "flash_fwd.cu", tpu + "57",
                    serve_launches + train_launches[0] + enforce_launches[0]
-                   + cores_launches[0],
+                   + cores_launches[0] + preempt_launches[0] + quant_launches,
                    t["max_abs_err"],
                    t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
                    t["library_ms"],
                    launches_by_path={"serve": serve_launches,
                                      "train": train_launches[0],
                                      "enforce": enforce_launches[0],
-                                     "coresidency": cores_launches[0]},
+                                     "coresidency": cores_launches[0],
+                                     "preempt": preempt_launches[0],
+                                     "quant": quant_launches},
                    kernel="flash_fwd_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_fwd_kernel (scalar f32)",
                    f32_ms=t["f32_ms"], errors=t["errors"]),
         kernel_row("flash_bwd_dq", src + "flash_bwd.cu", tpu + "172",
                    train_launches[1] + enforce_launches[1]
-                   + cores_launches[1],
+                   + cores_launches[1] + preempt_launches[1],
                    b["errors"]["dq"]["max_abs_err"],
                    b["dq_ms"], b["plain_dq_ms"],
                    (b["dq_bound_ms"], b["dq_bound_by"]), b["library_ms"],
                    launches_by_path={"train": train_launches[1],
                                      "enforce": enforce_launches[1],
-                                     "coresidency": cores_launches[1]},
+                                     "coresidency": cores_launches[1],
+                                     "preempt": preempt_launches[1]},
                    library_covers="dq, dk and dv",
                    kernel="flash_bwd_dq_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_bwd_dq_kernel (scalar f32)",
                    f32_ms=b["dq_f32_ms"], errors={"dq": b["errors"]["dq"]}),
         kernel_row("flash_bwd_dkv", src + "flash_bwd.cu", tpu + "213",
                    train_launches[2] + enforce_launches[2]
-                   + cores_launches[2],
+                   + cores_launches[2] + preempt_launches[2],
                    max(b["errors"][n]["max_abs_err"] for n in ("dk", "dv")),
                    b["dkv_ms"], b["plain_dkv_ms"],
                    (b["dkv_bound_ms"], b["dkv_bound_by"]), b["library_ms"],
                    launches_by_path={"train": train_launches[2],
                                      "enforce": enforce_launches[2],
-                                     "coresidency": cores_launches[2]},
+                                     "coresidency": cores_launches[2],
+                                     "preempt": preempt_launches[2]},
                    library_covers="dq, dk and dv",
                    kernel="flash_bwd_dkv_mma_kernel (bf16, mma.sync)",
                    f32_kernel="flash_bwd_dkv_kernel (scalar f32)",
@@ -2713,6 +3477,13 @@ def main() -> int:
                    errors={n: b["errors"][n] for n in ("dk", "dv")}),
     ]
     record["kernels"] = kernels
+    record["script_s"] = time.monotonic() - t_script
+    record["phase_s"] = {k: record.get(k) for k in (
+        "build_s", "enforce_s", "coresidency_s")} | {
+        "preempt_s": record["preempt_summary"]["seconds"],
+        "quant_serve_s": record["quant_serve"]["seconds"]}
+    log(json.dumps({"phase_s": record["phase_s"],
+                    "script_s": record["script_s"]}))
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "chip_smoke.json").write_text(json.dumps(record, indent=1))

@@ -48,6 +48,12 @@
 // in that window too.  So the charge needs no NVML, and no other process
 // moves it.
 //
+// A tracer.  What CUPTI keeps on the card once a process starts tracing
+// CUDA activity (torch.profiler) is allocated outside the hooked entry
+// points too.  The process charges it itself before its first trace,
+// through vgpu_interposer_charge: a fixed footprint, refused where the
+// grant cannot hold it, held until the process exits, as a context's is.
+//
 // Memory info.  cuMemGetInfo_v2, cuDeviceTotalMem_v2,
 // nvmlDeviceGetMemoryInfo and nvmlDeviceGetMemoryInfo_v2 report the grant
 // as the total and the region's `used` (all of the pod's processes) as
@@ -306,7 +312,8 @@ void* real_fn(int id) {
 // -- per-device bookkeeping ----------------------------------------------------
 struct DevStats {
   std::atomic<uint64_t> gated{0}, charged_us{0}, samples{0}, sampled_us{0},
-      context_bytes{0}, alloc_bytes{0}, refusals{0}, capture_skips{0};
+      context_bytes{0}, alloc_bytes{0}, refusals{0}, capture_skips{0},
+      fixed_bytes{0};
 };
 DevStats g_stats[VGPU_MAX_DEVICES];
 std::atomic<uint64_t> g_launches{0};
@@ -1085,7 +1092,8 @@ const char* vgpu_interposer_hooks(void) {
 // Counters of device `dev`, in this order: launches through the hooks (all
 // devices), gated launches, charged us, timed launches, their device us,
 // context bytes charged, live allocation bytes charged, refusals, launches
-// skipped while capturing.  Returns how many were written.
+// skipped while capturing, bytes charged through vgpu_interposer_charge.
+// Returns how many were written.
 int vgpu_interposer_stats(int dev, uint64_t* out, int n) {
   if (dev < 0 || dev >= VGPU_MAX_DEVICES || !out) return 0;
   const DevStats& s = g_stats[dev];
@@ -1093,10 +1101,22 @@ int vgpu_interposer_stats(int dev, uint64_t* out, int n) {
                         s.charged_us.load(),    s.samples.load(),
                         s.sampled_us.load(),    s.context_bytes.load(),
                         s.alloc_bytes.load(),   s.refusals.load(),
-                        s.capture_skips.load()};
+                        s.capture_skips.load(), s.fixed_bytes.load()};
   int k = 0;
   for (; k < n && k < (int)(sizeof(v) / sizeof(v[0])); ++k) out[k] = v[k];
   return k;
+}
+
+// Charge `bytes` on device `dev` for memory this process holds on the card
+// outside every allocation the hooks see (see "A tracer" above), until it
+// exits.  1 charged, 0 refused (the grant cannot hold it), -1 nothing is
+// enforced here.
+int vgpu_interposer_charge(int dev, uint64_t bytes) {
+  if (!g_enforce || dev < 0 || dev >= VGPU_MAX_DEVICES) return -1;
+  int ok = admit(slot_of(dev), bytes);
+  if (ok == 1)
+    g_stats[dev].fixed_bytes.fetch_add(bytes, std::memory_order_relaxed);
+  return ok;
 }
 
 }  // extern "C"

@@ -113,6 +113,7 @@ struct Control {
   uint64_t (*get_limit)(int);
   int (*active)(void);
   int (*stats)(int, uint64_t*, int);
+  int (*charge)(int, uint64_t);
   const char* (*hooks)(void);
   uint64_t (*mock_calls)(const char*);
 };
@@ -128,6 +129,8 @@ static Control control(void* cuda) {
   c.active = (int (*)(void))dlsym(RTLD_DEFAULT, "vgpu_interposer_active");
   c.stats = (int (*)(int, uint64_t*, int))dlsym(RTLD_DEFAULT,
                                                "vgpu_interposer_stats");
+  c.charge = (int (*)(int, uint64_t))dlsym(RTLD_DEFAULT,
+                                          "vgpu_interposer_charge");
   c.hooks = (const char* (*)(void))dlsym(RTLD_DEFAULT,
                                          "vgpu_interposer_hooks");
   c.mock_calls = (uint64_t(*)(const char*))dlsym(cuda, "mock_cuda_calls");
@@ -140,7 +143,7 @@ static uint64_t counter(const Control& c, int dev, int field) {
   return v[field];
 }
 enum { S_LAUNCHES, S_GATED, S_CHARGED_US, S_SAMPLES, S_SAMPLED_US, S_CONTEXT,
-       S_ALLOC, S_REFUSALS, S_CAPTURE };
+       S_ALLOC, S_REFUSALS, S_CAPTURE, S_FIXED };
 
 static CUcontext g_ctx[2];
 
@@ -519,6 +522,32 @@ static void run_passthrough(const Control& c) {
   CHECK(c.rate_test_now() <= 1, "launches never wait");
   CHECK(c.mock_calls("cuLaunchKernel") == 50, "every launch reached the driver");
   CHECK(counter(c, 0, S_LAUNCHES) == 0, "nothing counted");
+  CHECK(c.charge && c.charge(0, kMiB) == -1, "a fixed charge is not taken");
+}
+
+// -- charge: a fixed footprint outside the allocations (a tracer's) ----------
+static void run_charge(const Control& c) {
+  CHECK(bring_up() == 0, "cuInit and primary contexts");
+  CHECK(c.charge != nullptr, "the interposer exports vgpu_interposer_charge");
+  if (!c.charge) return;
+  const uint64_t before = c.get_used(0);
+  CHECK(c.charge(0, 30 * kMiB) == 1 && c.get_used(0) == before + 30 * kMiB,
+        "a charge the grant holds is taken");
+  CHECK(counter(c, 0, S_FIXED) == 30 * kMiB, "fixed bytes counted");
+  uint64_t total = 0;
+  CHECK(used_by_memgetinfo(&total) == before + 30 * kMiB,
+        "cuMemGetInfo reports it as used");
+  const uint64_t room = c.get_limit(0) - c.get_used(0);
+  CHECK(c.charge(0, room + kMiB) == 0 &&
+            c.get_used(0) == before + 30 * kMiB &&
+            counter(c, 0, S_REFUSALS) == 1 &&
+            counter(c, 0, S_FIXED) == 30 * kMiB,
+        "a charge past the grant is refused and takes nothing");
+  CUdeviceptr p = 0;
+  CHECK(alloc_mib(room / kMiB + 1, &p) == CUDA_ERROR_OUT_OF_MEMORY &&
+            alloc_mib(room / kMiB, &p) == CUDA_SUCCESS,
+        "allocations get what the charge leaves of the grant");
+  CHECK(c.charge(-1, kMiB) == -1, "no such device");
 }
 
 
@@ -603,6 +632,8 @@ int main(int argc, char** argv) {
     run_pod(c, argc > 2 ? strtoull(argv[2], nullptr, 10) : 10);
   else if (!strcmp(mode, "passthrough"))
     run_passthrough(c);
+  else if (!strcmp(mode, "charge"))
+    run_charge(c);
   else if (!strcmp(mode, "launch_cost"))
     run_launch_cost(cuda, argc > 2 ? atoi(argv[2]) : 20000);
   else {

@@ -24,6 +24,7 @@ from torch import nn
 from ..device import resolve_device
 from ..ops.flash_attention import flash_attention
 from ..parallel.ring import full_attention_reference
+from .quant import BITS, QuantLinear, QuantLinear4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -37,7 +38,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: str = "bfloat16"
-    # Weight-only quantization ("int8" | "int4"): a later slice.
+    # Weight-only quantization of the block projections ("int8" | "int4";
+    # models/quant.py): serving only.
     quant: Optional[str] = None
     # "full" | "flash" here; "ring" | "ulysses" come with the
     # multi-device slice.
@@ -143,15 +145,25 @@ def _linear(n_in: int, n_out: int, device, dtype) -> nn.Linear:
                                     device=device, dtype=dtype)
 
 
+def _proj(cfg: LlamaConfig, n_in: int, n_out: int, device, dtype):
+    """Block projection layer: a Linear, or a quant module when the config
+    carries weight-only quantization (the JAX ``_dense``)."""
+    if cfg.quant == "int8":
+        return QuantLinear(n_in, n_out, dtype, device)
+    if cfg.quant == "int4":
+        return QuantLinear4(n_in, n_out, dtype, device)
+    return _linear(n_in, n_out, device, dtype)
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: LlamaConfig, device, dtype):
         super().__init__()
         self.cfg = cfg
         hd = cfg.head_dim
-        self.q_proj = _linear(cfg.dim, cfg.n_heads * hd, device, dtype)
-        self.k_proj = _linear(cfg.dim, cfg.n_kv_heads * hd, device, dtype)
-        self.v_proj = _linear(cfg.dim, cfg.n_kv_heads * hd, device, dtype)
-        self.o_proj = _linear(cfg.n_heads * hd, cfg.dim, device, dtype)
+        self.q_proj = _proj(cfg, cfg.dim, cfg.n_heads * hd, device, dtype)
+        self.k_proj = _proj(cfg, cfg.dim, cfg.n_kv_heads * hd, device, dtype)
+        self.v_proj = _proj(cfg, cfg.dim, cfg.n_kv_heads * hd, device, dtype)
+        self.o_proj = _proj(cfg, cfg.n_heads * hd, cfg.dim, device, dtype)
 
     def forward(self, x, positions, key_positions=None, write_index=None,
                 cache: Optional[LayerCache] = None):
@@ -206,9 +218,9 @@ class Attention(nn.Module):
 class MLP(nn.Module):
     def __init__(self, cfg: LlamaConfig, device, dtype):
         super().__init__()
-        self.gate_proj = _linear(cfg.dim, cfg.ffn_hidden, device, dtype)
-        self.up_proj = _linear(cfg.dim, cfg.ffn_hidden, device, dtype)
-        self.down_proj = _linear(cfg.ffn_hidden, cfg.dim, device, dtype)
+        self.gate_proj = _proj(cfg, cfg.dim, cfg.ffn_hidden, device, dtype)
+        self.up_proj = _proj(cfg, cfg.dim, cfg.ffn_hidden, device, dtype)
+        self.down_proj = _proj(cfg, cfg.ffn_hidden, cfg.dim, device, dtype)
 
     def forward(self, x):
         return self.down_proj(F.silu(self.gate_proj(x)) * self.up_proj(x))
@@ -236,14 +248,13 @@ class Llama(nn.Module):
     ``forward(tokens)`` is the full-sequence forward (``cfg.attention``
     picks ``full`` or ``flash``); passing ``cache`` (see
     :meth:`new_cache`) runs the decode path instead, which attends through
-    the cache mask whatever ``cfg.attention`` says."""
+    the cache mask whatever ``cfg.attention`` says.  With ``cfg.quant``
+    the block projections are :mod:`.quant` modules (serving only)."""
 
     def __init__(self, cfg: LlamaConfig, device="cuda"):
         super().__init__()
-        if cfg.quant is not None:
-            raise NotImplementedError(
-                "weight-only quantization arrives with a later slice "
-                "(quant.py)")
+        if cfg.quant not in (None, *BITS):
+            raise ValueError(f"quant={cfg.quant!r}: None, 'int8' or 'int4'")
         if cfg.n_experts:
             raise NotImplementedError(
                 "MoE arrives with the multi-device slice (parallel/moe.py)")

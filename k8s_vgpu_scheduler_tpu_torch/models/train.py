@@ -4,8 +4,9 @@ Port of the JAX package's models/train.py, single-device parts: the
 cross-entropy loss, ``make_optimizer`` (optax's adamw behind optional
 global-norm clipping, a warmup/cosine schedule and MultiSteps
 accumulation, re-implemented here over lists of tensors), the train state
-and step, and the optimizer-state offload to pinned host memory.  The
-sharded step, ``run_preemptible`` and MoE come with later slices.
+and step, the optimizer-state offload to pinned host memory, and
+``run_preemptible`` (the victim's side of checkpoint-first eviction, with
+models/checkpoint.py).  The sharded step and MoE come with later slices.
 
 Precision: Flax keeps f32 params and casts them to ``cfg.dtype`` at every
 matmul, so the gradient of an f32 param is the working-dtype gradient
@@ -21,7 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -163,16 +164,24 @@ make_optimizer = Optimizer
 class TrainState:
     """``params``: the f32 master copy, one tensor per parameter of the
     model in ``model.parameters()`` order (the parameter itself where it is
-    f32); ``opt_state``: the optimizer's state; ``step``: calls made."""
+    f32); ``opt_state``: the optimizer's state; ``step``: calls made;
+    ``working``: the model's parameters that are not f32, by their index
+    in ``params`` — a checkpoint restore writes each master back into its
+    parameter, rounded, as the step does."""
     params: List[torch.Tensor]
     opt_state: OptState
     step: int = 0
+    working: Dict[int, torch.Tensor] = dataclasses.field(
+        default_factory=dict, repr=False)
 
     @classmethod
     def for_model(cls, model: Llama, optimizer: Optimizer) -> "TrainState":
-        master = [p.detach() if p.dtype == torch.float32
-                  else p.detach().float() for p in model.parameters()]
-        return cls(master, optimizer.init(master))
+        model_params = [p.detach() for p in model.parameters()]
+        master = [p if p.dtype == torch.float32 else p.float()
+                  for p in model_params]
+        working = {i: p for i, p in enumerate(model_params)
+                   if p.dtype != torch.float32}
+        return cls(master, optimizer.init(master), working=working)
 
 
 def init_train_state(cfg: LlamaConfig, generator: torch.Generator,
@@ -192,7 +201,11 @@ def make_train_step(model: Llama, optimizer: Optimizer):
     """``train_step(state, tokens) -> (state, loss)``: one optimizer step
     on the next-token loss of ``tokens``.  Updates the model, the master
     copy and the optimizer state in place and returns ``state``; the loss
-    is a detached device scalar (reading it waits for the step)."""
+    is a detached device scalar (reading it waits for the step).  A
+    quantized model serves only and is refused."""
+    if model.cfg.quant is not None:
+        raise ValueError(f"a {model.cfg.quant} model serves only: train the "
+                         "full-precision one")
     params = list(model.parameters())
 
     @gated
@@ -254,3 +267,37 @@ class OffloadedTrainStep:
         state, loss = self._step(state, tokens)
         state.opt_state = _to_host(state.opt_state)
         return state, loss
+
+
+def run_preemptible(step, state: TrainState, tokens, n_steps: int,
+                    ckpt, should_stop) -> Tuple[TrainState, int, bool]:
+    """Drive ``step`` for ``n_steps``, honoring a preemption request at
+    every step boundary (the JAX package's scheduler/preempt.py contract:
+    the victim checkpoints and exits; the grant frees; the pod resumes
+    later on an identical trajectory).
+
+    ``ckpt`` is a :class:`~.checkpoint.CheckpointManager`; ``should_stop``
+    is any zero-arg callable — in a pod, ``PreemptionWatch().requested``
+    (``shim/preempt.py``).  Resumes from the manager's latest step when it
+    is ahead of ``state.step``.  Returns ``(state, steps_done, preempted)``;
+    the caller exits 0 on ``preempted`` (k8s restarts the pod wherever it
+    is next scheduled, and this function picks up from the checkpoint).
+    """
+    latest = ckpt.latest_step()
+    done = int(state.step)
+    if latest is not None and latest > done:
+        state = ckpt.restore(state, step=latest)
+        done = int(state.step)
+    saved = latest if latest is not None else -1
+    while done < n_steps:
+        if should_stop():
+            if done > saved:
+                ckpt.save(done, state, wait=True)
+            return state, done, True
+        state, _loss = step(state, tokens)
+        # Count on the host: reading anything of the step's results would
+        # wait for the card at every step.
+        done += 1
+    if done > saved:
+        ckpt.save(done, state, wait=True)
+    return state, done, False

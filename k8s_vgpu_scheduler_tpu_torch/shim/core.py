@@ -72,6 +72,21 @@ def interposer_active() -> bool:
     return fn() == 1
 
 
+def interposer_charge(device: int, nbytes: int) -> Optional[bool]:
+    """Charge ``nbytes`` on ``device`` to the pod's grant for memory this
+    process holds on the card outside its allocations (a tracer's
+    buffers), through the interposer's ``vgpu_interposer_charge``: True
+    once charged, False where the grant cannot hold it, None where no
+    interposer enforces."""
+    try:
+        fn = ctypes.CDLL(None).vgpu_interposer_charge
+    except AttributeError:
+        return None
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_uint64], ctypes.c_int
+    rc = fn(device, nbytes)
+    return None if rc < 0 else rc == 1
+
+
 class Native:
     """ctypes surface of ``libvgpu_torch.so``; builds it on first use
     unless ``path`` names a built library.  Where the interposer is loaded

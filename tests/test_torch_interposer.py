@@ -185,6 +185,17 @@ def test_context_modules_and_vmm_are_charged(built, tmp_path, nvml):
     assert len(passes(res)) == (17 if nvml else 16)
 
 
+def test_a_fixed_charge_outside_the_allocations(built, tmp_path):
+    """vgpu_interposer_charge (what a process charges for a tracer's
+    buffers): taken where the grant holds it, shown by cuMemGetInfo and
+    counted; refused past the grant, taking nothing; allocations then get
+    only what it leaves."""
+    res = drive(built, preload_env(
+        built, tmp_path / "r.cache", CUDA_DEVICE_MEMORY_LIMIT_0="100m"),
+        "charge")
+    assert len(passes(res)) == 9
+
+
 @pytest.mark.parametrize("path", ["dlsym", "lookup"])
 def test_no_hook_is_missing(built, tmp_path, path):
     """Every expected hook is what dlsym(libcuda or libnvidia-ml, name)
@@ -304,7 +315,8 @@ print(json.dumps(dict(
     native_is_the_process=shim.native.interposed, gate=core._GATE is not None,
     fractions=shim.fractions, spiller=shim._spiller is not None,
     dispatches=shim.dispatches, gated=gated, pids=region["pids"],
-    pid=os.getpid())))
+    pid=os.getpid(), charge=core.interposer_charge(0, 1 << 20),
+    overcharge=core.interposer_charge(0, 1 << 30))))
 """
 
 
@@ -316,7 +328,8 @@ def test_python_shim_stands_down_under_the_interposer(built, tmp_path,
     binds to its vgpu_* (one proc slot, one attach), and sets no memory
     fraction, gates nothing and attaches no spiller, whatever install is
     asked for.  Without it, install brings the gate up (the memory cap and
-    the spiller need a card)."""
+    the spiller need a card).  ``interposer_charge`` reaches the
+    interposer's charge from Python, and answers None without it."""
     env = preload_env(built, tmp_path / "r.cache", REPO=REPO,
                       CUDA_DEVICE_MEMORY_LIMIT_0="100m",
                       INSTALL=json.dumps({}))
@@ -332,6 +345,10 @@ def test_python_shim_stands_down_under_the_interposer(built, tmp_path,
     assert got["pids"] == [got["pid"]] and got["gated"] == "ran"
     assert got["fractions"] == {}
     assert got["dispatches"] == (0 if preloaded else 1)
+    # interposer_charge (a tracer's footprint): taken inside the grant,
+    # refused past it; None where no interposer enforces.
+    assert (got["charge"], got["overcharge"]) == (
+        (True, False) if preloaded else (None, None))
     if preloaded:
         assert got["active"] and got["interposed"]
         assert got["native_is_the_process"]

@@ -1,7 +1,9 @@
 """Rules of the PyTorch/CUDA port that no parity test would catch.
 
 - The port and chip_smoke.py import nothing of JAX, Flax, optax or the
-  JAX package (the port keeps its own copies).
+  JAX package (the port keeps its own copies), nor orbax (the checkpoint
+  writes with torch.save) or prometheus_client (the HTTP front writes its
+  exposition text itself).
 - Entry points run on the card unless the caller asks for the CPU: on a
   box without a card they raise instead of quietly using the CPU.
 - Importing the kernel binding compiles nothing (the tests import it on
@@ -30,9 +32,12 @@ import pytest
 import torch
 
 import chip_smoke
+from k8s_vgpu_scheduler_tpu_torch.cmd import serve as serve_cmd
 from k8s_vgpu_scheduler_tpu_torch.device import resolve_device
 from k8s_vgpu_scheduler_tpu_torch.entry import entry
-from k8s_vgpu_scheduler_tpu_torch.models.convert import init_weights
+from k8s_vgpu_scheduler_tpu_torch.models.checkpoint import restore_checkpoint
+from k8s_vgpu_scheduler_tpu_torch.models.convert import (
+    init_weights, quantize_model)
 from k8s_vgpu_scheduler_tpu_torch.models.llama import Llama, llama_tiny
 from k8s_vgpu_scheduler_tpu_torch.models.train import init_train_state
 from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
@@ -62,14 +67,33 @@ def test_imports_nothing_of_jax(path):
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_imports_no_orbax_or_prometheus_client(path):
+    bad = sorted(set(_imported_roots(path)) & {"orbax", "prometheus_client"})
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_new_modules_are_under_the_import_rules():
+    for rel in ("models/checkpoint.py", "models/quant.py", "cmd/serve.py",
+                "shim/preempt.py"):
+        assert PORT / rel in SOURCES, rel
+
+
 @pytest.mark.parametrize("call", [
     lambda: resolve_device(),
     lambda: Llama(llama_tiny()),
     lambda: init_weights(llama_tiny(), torch.Generator()),
     lambda: entry(),
     lambda: init_train_state(llama_tiny(), torch.Generator()),
+    lambda: restore_checkpoint("unused", init_weights(
+        llama_tiny(), torch.Generator(), device="cpu")),
+    lambda: quantize_model(init_weights(
+        llama_tiny(), torch.Generator(), device="cpu"), 8),
+    lambda: serve_cmd.build_engine(serve_cmd.parse_args(["--demo", "tiny"])),
 ], ids=["resolve_device", "Llama", "init_weights", "entry",
-        "init_train_state"])
+        "init_train_state", "restore_checkpoint", "quantize_model",
+        "serve_build_engine"])
 def test_entry_points_default_to_the_card(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -94,6 +118,10 @@ def test_kernel_module_import_runs_no_compiler():
         "import k8s_vgpu_scheduler_tpu_torch.accounting\n"
         "import k8s_vgpu_scheduler_tpu_torch.cmd.monitor\n"
         "import k8s_vgpu_scheduler_tpu_torch.shim.simlab\n"
+        "import k8s_vgpu_scheduler_tpu_torch.shim.preempt\n"
+        "import k8s_vgpu_scheduler_tpu_torch.models.checkpoint\n"
+        "import k8s_vgpu_scheduler_tpu_torch.models.quant\n"
+        "import k8s_vgpu_scheduler_tpu_torch.cmd.serve\n"
         "assert not k._libs and not k.build_logs\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -225,6 +253,27 @@ MONITOR = sorted((PORT / "monitor").glob("*.py")) + \
     sorted((PORT / "accounting").glob("*.py")) + [PORT / "cmd" / "monitor.py"]
 
 
+def test_serve_command_imports_torch_only_under_its_entry_point():
+    """The serving pod brings the card up inside its enforcement env: the
+    HTTP front's module imports the stdlib only."""
+    path = PORT / "cmd" / "serve.py"
+    top = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.Import):
+            top |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, (ast.ImportFrom)) and node.level == 0:
+            top.add(node.module.split(".")[0])
+    assert top <= set(sys.stdlib_module_names) | {"__future__"}, sorted(top)
+    code = ("import sys\n"
+            "import k8s_vgpu_scheduler_tpu_torch.cmd.serve as s\n"
+            "s.prometheus_text({'stats': {}, 'utilization': 0, "
+            "'queue_depth': 0, 'pool_hbm_bytes': 0})\n"
+            "assert 'torch' not in sys.modules, 'torch imported'\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 @pytest.mark.parametrize("path", ENFORCEMENT + MONITOR,
                          ids=[str(p.relative_to(ROOT))
                               for p in ENFORCEMENT + MONITOR])
@@ -310,6 +359,7 @@ def test_interposer_targets_build_with_gxx_into_the_port_build_dir(target):
         lib = ctypes.CDLL(str(path))
         for symbol in ("vgpu_init_path", "vgpu_rate_acquire",
                        "vgpu_interposer_active", "vgpu_interposer_stats",
+                       "vgpu_interposer_charge",
                        "dlsym", "cuGetProcAddress_v2", "cuMemAlloc_v2",
                        "cuLaunchKernel", "nvmlDeviceGetMemoryInfo"):
             assert hasattr(lib, symbol), symbol
@@ -349,3 +399,5 @@ def test_package_data_ships_every_source_the_port_builds():
     assert not missed, missed
     assert conf["project"]["scripts"]["vgpu-monitor"] == \
         "k8s_vgpu_scheduler_tpu_torch.cmd.monitor:main"
+    assert conf["project"]["scripts"]["vgpu-serve"] == \
+        "k8s_vgpu_scheduler_tpu_torch.cmd.serve:main"
