@@ -42,13 +42,22 @@ k8s_vgpu_scheduler_tpu_torch.cmd.serve``) restores the 32-layer model
 from a checkpoint, quantizes it to int8 under an 8000 MiB grant its bf16
 weights cannot fit (and to int4 under 5000 MiB) and serves the main
 path's requests over HTTP with the tokens of an in-process engine, then
-drains on SIGTERM.  Exits non-zero if any phase fails, and at once
+drains on SIGTERM.  Last, the reference's ten benchmark cases
+(phase_workloads: ResNet-V2-50/152, VGG-16, DeepLab-v3 and the LSTM,
+inference and training at bench.py's shapes): all ten on bare metal in
+one child (``--enforce-child workloads_bare``), then each as a pod
+through the interposer under its memory grant (``--enforce-child
+workload:<case>``), each held to the f32 path of its weights, its grant
+and its region.  Exits non-zero if any phase fails, and at once
 (printing no result) without a CUDA device or outside a checkout.
 
 Stdout ends with: the enforcement phase's ``{"phase": "enforce", ...}``
 line, the co-residency phase's ``{"phase": "coresidency", ...}`` line,
 the ``{"phase": "preempt", ...}`` and ``{"phase": "quant_serve", ...}``
-lines, each phase's seconds, a ``{"kernels": [...]}`` line (per kernel: launches on the main
+lines, the ``{"phase": "workloads", ...}`` line and a ``{"workloads":
+[...]}`` line (one row a case: images/s in both legs and their ratio, the
+grant and peaks, MFU, the bf16 error), each phase's seconds, a
+``{"kernels": [...]}`` line (per kernel: launches on the main
 paths, max error, kernel / plain / library times and the card's bound),
 the card's name and power limit from nvidia-smi, and the line
 ``{"ok": true, "device": {...}}``.  The full record is also written to
@@ -250,6 +259,43 @@ QUANT_PROMPT = 512
 MIN_INT8_COSINE = 0.999
 TOL_INT4_VS_GROUP_SUMS = 4 * 0.0169
 PROFILE_S = 1.0
+# The workloads phase (phase_workloads): the reference's ten benchmark
+# cases (models/workloads.py, bench.py's CASES), at full shape with seeded
+# weights, on bare metal (one child, no interposer, the ten in turn) and
+# each as a pod through the interposer under its memory grant and no
+# compute limit, as bench.py's pods run.  Both legs: cuDNN's heuristics
+# (benchmark off: no autotuning, whose workspaces a grant may refuse) and
+# no TF32.  The bf16 output (step-0 loss in training) against the f32
+# path of the same weights on the card: relative RMS of the logits, the
+# loss's relative error; each case's limit 4x its first reading on an
+# H100 80GB HBM3 at 700 W (in brackets), the same in both legs.
+WORKLOAD_SEED = SEED + 11
+TOL_WORKLOAD = {
+    "resnet_v2_50_inference_bf16_b50_346": 2.02e-2,   # (5.04e-3)
+    "resnet_v2_152_inference_bf16_b10_256": 4.48e-2,  # (1.12e-2)
+    "resnet_v2_50_train_bf16_b20_346": 3.33e-4,       # (8.33e-5)
+    "vgg16_inference_bf16_b20_224": 2.96e-2,          # (7.40e-3)
+    "deeplab_inference_bf16_b2_512": 0.131,           # (3.27e-2)
+    "lstm_inference_bf16_b100_1024x300": 1.35e-2,     # (3.36e-3)
+    "resnet_v2_152_train_bf16_b10_256": 8.16e-4,      # (2.04e-4)
+    "vgg16_train_bf16_b2_224": 2.82e-5,               # (7.04e-6)
+    "deeplab_train_bf16_b1_384": 4.51e-4,             # (1.13e-4)
+    "lstm_train_bf16_b10_1024x300": 3.53e-4,          # (8.84e-5)
+}
+# Timed windows a case and leg, of which the median is reported: the
+# host-bound cases' images/s moved by up to a quarter window to window on
+# one card (the host's cores are shared; more between the legs' runs).
+WORKLOAD_WINDOWS = 3
+WORKLOAD_PROFILED = ("resnet_v2_50_inference_bf16_b50_346",
+                     "resnet_v2_50_train_bf16_b20_346")
+# Device time of a workload's profile by kernel family (first match).
+WORKLOAD_GROUPS = {"conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn",
+                            "implicit"),
+                   "norm": ("Welford", "addcmul"),
+                   "matmul": ("gemm", "nvjet", "cutlass", "sm90_xmma"),
+                   "elementwise": ("elementwise", "reduce_kernel", "copy",
+                                   "Copy", "pool", "CatArray")}
+SMI_EVERY_S = 0.5
 # vgpu_interposer_stats' fields (csrc/vgpu/cuda_interposer.cc).
 INTERPOSER_STATS = ("launches", "gated", "charged_us", "samples",
                     "sampled_us", "context_bytes", "alloc_bytes",
@@ -353,10 +399,11 @@ def device_ms(torch, fn, iters: int = 10) -> float:
 _TRACER_STARTED: list = []
 
 
-def device_profile(torch, fn, top: int = 6) -> dict:
+def device_profile(torch, fn, top: int = 6, groups=None) -> dict:
     """One traced call of ``fn`` (torch.profiler, CPU + CUDA activity):
     its wall time, the summed time of its device kernels and their share
-    of the wall (the device's busy share), and the kernels with the most
+    of the wall (the device's busy share), their device time by family
+    (``groups``, default KERNEL_GROUPS), and the kernels with the most
     device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -386,11 +433,12 @@ def device_profile(torch, fn, top: int = 6) -> dict:
     busy_us = sum(tot for _, tot in kernels.values())
     check(busy_us > 0, "the profiler saw no device kernel")
     ranked = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:top]
-    groups = dict.fromkeys(list(KERNEL_GROUPS) + ["other"], 0.0)
+    groups = groups or KERNEL_GROUPS
+    by_group = dict.fromkeys(list(groups) + ["other"], 0.0)
     for name, (_, tot) in kernels.items():
-        group = next((g for g, keys in KERNEL_GROUPS.items()
+        group = next((g for g, keys in groups.items()
                       if any(key in name for key in keys)), "other")
-        groups[group] += tot / 1e3
+        by_group[group] += tot / 1e3
     port_calls = {key: sum(n for name, (n, _) in kernels.items()
                            if key in name)
                   for key in KERNEL_GROUPS["port_kernels"]}
@@ -399,7 +447,7 @@ def device_profile(torch, fn, top: int = 6) -> dict:
         "device_busy_ms": busy_us / 1e3,
         "device_busy_share": busy_us / wall_us,
         "kernel_launches": sum(n for n, _ in kernels.values()),
-        "ms_by_group": groups,
+        "ms_by_group": by_group,
         "port_kernel_calls": port_calls,
         "top_kernels": [{"name": name[:90], "calls": n, "ms": tot / 1e3,
                          "share_of_busy": tot / busy_us}
@@ -1905,6 +1953,120 @@ def child_preempt(torch):
                                    "flash_bwd_dkv"), launches)))
 
 
+def workload_build(torch, name: str, refs: Path, bare: bool) -> tuple:
+    """One case of models/workloads.py on the card, built from
+    WORKLOAD_SEED, and the f32 path of its weights: its logits (in
+    training, the loss before any step).  The bare leg computes it and
+    keeps it in ``refs`` for the pods, then empties the cache of what it
+    took; a pod reads it."""
+    from k8s_vgpu_scheduler_tpu_torch.models import workloads as wl
+
+    torch.backends.cudnn.benchmark = False
+    w = wl.build(name, torch.Generator(device="cuda").manual_seed(
+        WORKLOAD_SEED))
+    if not bare:
+        return w, torch.load(refs / f"{name}.pt")
+    with torch.no_grad():
+        ref = (wl.loss(w, torch.float32) if w.case.train
+               else wl.infer_step(w, torch.float32)).cpu()
+    gc.collect()
+    torch.cuda.empty_cache()
+    return w, {"f32": ref}
+
+
+def workload_measure(torch, name: str, w, ref: dict) -> dict:
+    """The case's bf16 output (in training, step 0's loss) against the
+    f32 path, then WORKLOAD_WINDOWS windows of ``timed`` (2 warm-ups,
+    ``iters`` steps by CUDA events each): the median window's images/s,
+    and the first window's losses, which must be finite."""
+    from k8s_vgpu_scheduler_tpu_torch.models import workloads as wl
+
+    torch.cuda.reset_peak_memory_stats()
+    out = (wl.train_step(w) if w.case.train else wl.infer_step(w)).cpu()
+    diff = float((out.double() - ref["f32"].double()).norm()
+                 / ref["f32"].double().norm())
+    windows = [wl.timed(w) for _ in range(WORKLOAD_WINDOWS)]
+    torch.cuda.synchronize()
+    t = sorted(windows, key=lambda r: r["seconds"])[WORKLOAD_WINDOWS // 2]
+    losses = windows[0]["losses"]  # bench.py's iters steps from step 1
+    check(losses is None or all(math.isfinite(v) for v in losses),
+          f"{name}: losses {losses}")
+    check(diff <= TOL_WORKLOAD[name], f"{name}: bf16 against the f32 path "
+          f"{diff:.3e}, limit {TOL_WORKLOAD[name]}")
+    return dict(case=name, bf16_vs_f32=diff, out=out,
+                same_as_bare=torch.equal(out, ref["bf16"])
+                if "bf16" in ref else None,
+                seconds=t["seconds"], images_per_s=t["images_per_s"],
+                windows=[r["images_per_s"] for r in windows], losses=losses,
+                reserved_peak=torch.cuda.max_memory_reserved(),
+                allocated_peak=torch.cuda.max_memory_allocated())
+
+
+def child_workloads_bare(torch):
+    """The bare leg of phase_workloads: no interposer, the ten cases in
+    turn, the cache emptied between them; each case's f32 path and bf16
+    output kept for the pods, its FLOPs (one more step, counted), and a
+    traced step of WORKLOAD_PROFILED after them all.  Prints WORKLOAD_CASE
+    lines around each case's bf16 steps, by which the parent reads
+    nvidia-smi's peak."""
+    from k8s_vgpu_scheduler_tpu_torch.models import workloads as wl
+
+    refs = Path(os.environ["WORKLOAD_REFS"])
+    baseline = smi_card_mib()
+    cases = {}
+    for name in wl.CASES:
+        t0 = time.monotonic()
+        w, ref = workload_build(torch, name, refs, bare=True)
+        log(f"WORKLOAD_CASE begin {name}")
+        row = workload_measure(torch, name, w, ref)
+        row["smi_mib"] = smi_card_mib() - baseline  # its memory still held
+        log(f"WORKLOAD_CASE end {name}")
+        torch.save({"f32": ref["f32"], "bf16": row.pop("out")},
+                   refs / f"{name}.pt")
+        row["flops_per_step"] = wl.step_flops(w)
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+        row["run_s"] = time.monotonic() - t0
+        cases[name] = row
+    # Traced last: a process CUPTI has traced may pay for it in every
+    # later launch, which the host-bound cases' images/s would carry.
+    for name in WORKLOAD_PROFILED:
+        w, _ = workload_build(torch, name, refs, bare=False)
+        step = wl.train_step if w.case.train else wl.infer_step
+        step(w)
+        cases[name]["profile"] = device_profile(
+            torch, lambda: step(w), top=8, groups=WORKLOAD_GROUPS)
+        del w
+        gc.collect()
+        torch.cuda.empty_cache()
+    return dict(cases=cases)
+
+
+def child_workload_pod(torch, name: str):
+    """One pod of phase_workloads: the case through the preloaded
+    interposer under its grant (no compute limit).  Once it has run, with
+    its memory held: nvidia-smi's reading (less the card's before this
+    process brought CUDA up), the region's ``used`` and the interposer's
+    counters."""
+    import ctypes
+
+    baseline = smi_card_mib()
+    w, ref = workload_build(torch, name, Path(os.environ["WORKLOAD_REFS"]),
+                            bare=False)
+    built = interposer_stats()["launches"]
+    row = workload_measure(torch, name, w, ref)
+    del row["out"]
+    row["launches_per_step"] = ((interposer_stats()["launches"] - built)
+                                / (1 + WORKLOAD_WINDOWS * (w.case.iters + 2)))
+    get_used = ctypes.CDLL(None).vgpu_get_used
+    get_used.argtypes, get_used.restype = [ctypes.c_int], ctypes.c_uint64
+    row.update(smi_mib=smi_card_mib() - baseline, region_used=get_used(0),
+               smi_baseline_mib=baseline, interposer=interposer_stats())
+    del w
+    return row
+
+
 ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "load_oom": child_load_oom,
                     "train": child_train,
@@ -1915,7 +2077,8 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "interposer_train": child_interposer_train,
                     "cores_train": child_cores_train,
                     "cores_serve": child_cores_serve,
-                    "preempt": child_preempt}
+                    "preempt": child_preempt,
+                    "workloads_bare": child_workloads_bare}
 
 
 def enforce_child(name: str) -> int:
@@ -1926,6 +2089,7 @@ def enforce_child(name: str) -> int:
 
     if name not in ("plain_torch", "cotenant"):  # torch and nothing else
         enforce_port()
+    print("READY", flush=True)
     if sys.stdin.readline() != "go\n":
         return 3  # the parent is gone: leave the card alone
     if not torch.cuda.is_available():
@@ -1935,7 +2099,10 @@ def enforce_child(name: str) -> int:
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.monotonic()
     try:
-        out = ENFORCE_CHILDREN[name](torch)
+        if name.startswith("workload:"):
+            out = child_workload_pod(torch, name.split(":", 1)[1])
+        else:
+            out = ENFORCE_CHILDREN[name](torch)
     except Fail as exc:
         print(f"chip_smoke: FAIL: {name}: {exc}", file=sys.stderr)
         return 1
@@ -2009,6 +2176,12 @@ class EnforceChild:
         reading["pid"] = self.proc.pid
         record.setdefault(section, {})[self.label] = reading
         return reading
+
+    def wait_ready(self) -> None:
+        """Wait until it has imported what it needs (its READY line)."""
+        line = self.proc.stdout.readline()
+        check(line == "READY\n", f"enforce child {self.label} did not start: "
+              f"{line!r}")
 
     def stop(self) -> None:
         if self.proc.poll() is None:
@@ -3286,6 +3459,143 @@ def phase_quant_serve(torch, port, record, vgpu: Path, interposer: Path):
     return launches
 
 
+class SmiWatch:
+    """nvidia-smi's reading of the card, less what it held on entry, every
+    SMI_EVERY_S in a thread from entry to exit: (time, MiB) samples."""
+
+    def __enter__(self) -> "SmiWatch":
+        self.baseline = smi_card_mib()
+        self.samples: list = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._watch, daemon=True)
+        self._thread.start()
+        return self
+
+    def _watch(self) -> None:
+        while not self._stop.is_set():
+            self.samples.append((time.monotonic(),
+                                 smi_card_mib() - self.baseline))
+            self._stop.wait(SMI_EVERY_S)
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
+def phase_workloads(torch, record, interposer: Path):
+    """The reference's ten benchmark cases on the card: the bare leg
+    (child_workloads_bare: no interposer, nvidia-smi read through each
+    case from the parent) and then each case as a pod
+    (child_workload_pod) through the interposer under its grant, alone on
+    the card and read by nvidia-smi from its go to its exit.  Checks each
+    pod: it ran with no refusal, every nvidia-smi reading within its
+    grant, the region's ``used`` within TOL_USED of nvidia-smi's reading,
+    no launch gated, its output within the bare leg's bound of the f32
+    path.  Records images/s in both legs and their ratio, the peaks,
+    FLOPs and MFU against the bf16 peak, and the V100 baseline ratio."""
+    from k8s_vgpu_scheduler_tpu_torch.models import workloads as wl
+
+    uuid = nvidia_smi("uuid")
+    t0 = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    marks: dict = {}
+
+    def mark(line: str) -> None:
+        if line.startswith("WORKLOAD_CASE "):
+            _, which, name = line.split()
+            marks[(which, name)] = time.monotonic()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        refs = tmp / "refs"
+        refs.mkdir()
+        bare = EnforceChild("workloads_bare", tmp, WORKLOAD_REFS=refs)
+        pods = {name: EnforceChild(
+            f"workload:{name}", tmp, label=name, WORKLOAD_REFS=refs,
+            LD_PRELOAD=interposer, NVIDIA_VISIBLE_DEVICES=uuid,
+            CUDA_DEVICE_MEMORY_LIMIT_0=f"{case.grant_mib}m")
+            for name, case in wl.CASES.items()}
+        try:
+            for child in (bare, *pods.values()):  # no imports beside a run
+                child.wait_ready()
+            with SmiWatch() as watch:
+                cases = bare.run(record, "workloads", on_line=mark)["cases"]
+            peaks = {name: max([cases[name]["smi_mib"]] + [
+                mib for t, mib in watch.samples
+                if marks[("begin", name)] <= t <= marks[("end", name)]])
+                for name in wl.CASES}
+            runs, smi = {}, {}
+            for name, child in pods.items():
+                with SmiWatch() as watch:
+                    runs[name] = child.run(record, "workloads")
+                smi[name] = [mib for _, mib in watch.samples] + [
+                    runs[name]["smi_mib"]]
+        finally:
+            for child in (bare, *pods.values()):
+                child.stop()
+    rows = []
+    for name, case in wl.CASES.items():
+        b, p = cases[name], runs[name]
+        stats = p["interposer"]
+        check(stats["refusals"] == 0, f"{name}: the pod was refused "
+              f"{stats['refusals']} times")
+        check(max(smi[name]) <= case.grant_mib, f"{name}: the pod read "
+              f"{max(smi[name])} MiB by nvidia-smi, grant {case.grant_mib}")
+        check(abs(p["region_used"] - p["smi_mib"] * MIB)
+              <= TOL_USED * p["smi_mib"] * MIB,
+              f"{name}: region used {p['region_used']} against "
+              f"nvidia-smi's {p['smi_mib']} MiB")
+        check(stats["gated"] == 0, f"{name}: {stats['gated']} launches "
+              "gated with no compute limit")
+        flops = b["flops_per_step"]
+        mfu = {leg: flops * case.iters / r["seconds"] / PEAK_FLOPS["bfloat16"]
+               for leg, r in (("bare", b), ("pod", p))}
+        rows.append(dict(
+            case=name, model=case.model, batch=case.batch, size=case.size,
+            iters=case.iters, train=case.train, grant_mib=case.grant_mib,
+            grant_rule_mib=wl.grant_for(peaks[name]),
+            bare_images_per_s=b["images_per_s"],
+            pod_images_per_s=p["images_per_s"],
+            pod_over_bare=p["images_per_s"] / b["images_per_s"],
+            bare_windows=b["windows"], pod_windows=p["windows"],
+            bare_smi_peak_mib=peaks[name], pod_smi_peak_mib=max(smi[name]),
+            pod_smi_mib_held=p["smi_mib"],
+            pod_region_used_mib=p["region_used"] / MIB,
+            pod_context_charged_mib=stats["context_bytes"] / MIB,
+            pod_footprint_mib=p["smi_mib"] - stats["alloc_bytes"] / MIB,
+            bare_reserved_peak_mib=b["reserved_peak"] / MIB,
+            pod_reserved_peak_mib=p["reserved_peak"] / MIB,
+            bf16_vs_f32=b["bf16_vs_f32"], pod_bf16_vs_f32=p["bf16_vs_f32"],
+            pod_same_as_bare=p["same_as_bare"],
+            bound=TOL_WORKLOAD[name], flops_per_step=flops,
+            flops_source="analytic" if case.model == "lstm"
+            else "FlopCounterMode",
+            bare_mfu=mfu["bare"], pod_mfu=mfu["pod"],
+            v100_vgpu_tf24_images_per_s=case.baseline,
+            pod_vs_v100_baseline=p["images_per_s"] / case.baseline,
+            pod_launches_per_step=p["launches_per_step"],
+            pod_child_s=p["child_s"]))
+    summary = {
+        "phase": "workloads", "card": record["card"],
+        "seconds": time.monotonic() - t0,
+        "settings": "cudnn.benchmark off, no TF32; pods: interposer, "
+                    "memory grant only",
+        "mfu_peak_tflops": PEAK_FLOPS["bfloat16"] / 1e12,
+        "profiles": {name: dict(
+            cases[name]["profile"],
+            busy_share_of_timed_step=cases[name]["profile"]["device_busy_ms"]
+            / (1e3 * cases[name]["seconds"] / wl.CASES[name].iters))
+            for name in WORKLOAD_PROFILED},
+        "bare_child_s": record["workloads"]["workloads_bare"]["child_s"]}
+    record["workloads_summary"] = dict(summary, rows=rows, losses={
+        name: {"bare": cases[name]["losses"], "pod": runs[name]["losses"]}
+        for name in wl.CASES if wl.CASES[name].train})
+    record["workloads_s"] = summary["seconds"]
+    log(json.dumps(summary))
+    log(json.dumps({"workloads": rows}))
+
+
 def int4_vs_group_sums(torch, convert, cfg, prompt) -> dict:
     """2 layers at llama_7b widths: the int4 model's (1, QUANT_PROMPT)
     logits against the same model whose projections are the JAX
@@ -3422,6 +3732,7 @@ def main() -> int:
         preempt_launches = phase_preempt(torch, record, vgpu, interposer)
         quant_launches = phase_quant_serve(torch, port, record, vgpu,
                                            interposer)
+        phase_workloads(torch, record, interposer)
     except Fail as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)
         return 1
@@ -3481,7 +3792,8 @@ def main() -> int:
     record["phase_s"] = {k: record.get(k) for k in (
         "build_s", "enforce_s", "coresidency_s")} | {
         "preempt_s": record["preempt_summary"]["seconds"],
-        "quant_serve_s": record["quant_serve"]["seconds"]}
+        "quant_serve_s": record["quant_serve"]["seconds"],
+        "workloads_s": record["workloads_s"]}
     log(json.dumps({"phase_s": record["phase_s"],
                     "script_s": record["script_s"]}))
     out = ROOT / "chiprun_out"

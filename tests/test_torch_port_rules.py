@@ -36,9 +36,15 @@ from k8s_vgpu_scheduler_tpu_torch.cmd import serve as serve_cmd
 from k8s_vgpu_scheduler_tpu_torch.device import resolve_device
 from k8s_vgpu_scheduler_tpu_torch.entry import entry
 from k8s_vgpu_scheduler_tpu_torch.models.checkpoint import restore_checkpoint
+from k8s_vgpu_scheduler_tpu_torch.models import convert, workloads
 from k8s_vgpu_scheduler_tpu_torch.models.convert import (
     init_weights, quantize_model)
+from k8s_vgpu_scheduler_tpu_torch.models.deeplab import DeepLabV3, deeplab_v3
 from k8s_vgpu_scheduler_tpu_torch.models.llama import Llama, llama_tiny
+from k8s_vgpu_scheduler_tpu_torch.models.lstm import LSTMClassifier
+from k8s_vgpu_scheduler_tpu_torch.models.resnet import (
+    ResNetConfig, ResNetV2, resnet_v2_50)
+from k8s_vgpu_scheduler_tpu_torch.models.vgg import VGG16
 from k8s_vgpu_scheduler_tpu_torch.models.train import init_train_state
 from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
 from k8s_vgpu_scheduler_tpu_torch.ops import flash_attention as tfa
@@ -76,8 +82,13 @@ def test_imports_no_orbax_or_prometheus_client(path):
 
 def test_new_modules_are_under_the_import_rules():
     for rel in ("models/checkpoint.py", "models/quant.py", "cmd/serve.py",
-                "shim/preempt.py"):
+                "shim/preempt.py", "models/layers.py", "models/resnet.py",
+                "models/vgg.py", "models/deeplab.py", "models/lstm.py",
+                "models/workloads.py"):
         assert PORT / rel in SOURCES, rel
+
+
+SMALL_RESNET = ResNetConfig(stage_sizes=(1, 1, 1, 1), width=32)
 
 
 @pytest.mark.parametrize("call", [
@@ -91,9 +102,26 @@ def test_new_modules_are_under_the_import_rules():
     lambda: quantize_model(init_weights(
         llama_tiny(), torch.Generator(), device="cpu"), 8),
     lambda: serve_cmd.build_engine(serve_cmd.parse_args(["--demo", "tiny"])),
+    lambda: ResNetV2(resnet_v2_50()),
+    lambda: VGG16(),
+    lambda: DeepLabV3(deeplab_v3()),
+    lambda: LSTMClassifier(),
+    lambda: convert.init_resnet(SMALL_RESNET, torch.Generator()),
+    lambda: convert.init_vgg(torch.Generator(), size=32),
+    lambda: convert.init_deeplab(deeplab_v3(), torch.Generator()),
+    lambda: convert.init_lstm(torch.Generator()),
+    lambda: convert.resnet_from_flax({}, SMALL_RESNET),
+    lambda: convert.vgg_from_flax({}),
+    lambda: convert.deeplab_from_flax({}, deeplab_v3()),
+    lambda: convert.lstm_from_flax({}),
+    lambda: workloads.build("lstm_train_bf16_b10_1024x300",
+                            torch.Generator()),
 ], ids=["resolve_device", "Llama", "init_weights", "entry",
         "init_train_state", "restore_checkpoint", "quantize_model",
-        "serve_build_engine"])
+        "serve_build_engine", "ResNetV2", "VGG16", "DeepLabV3",
+        "LSTMClassifier", "init_resnet", "init_vgg", "init_deeplab",
+        "init_lstm", "resnet_from_flax", "vgg_from_flax",
+        "deeplab_from_flax", "lstm_from_flax", "workloads_build"])
 def test_entry_points_default_to_the_card(call):
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device is valid")
@@ -122,6 +150,7 @@ def test_kernel_module_import_runs_no_compiler():
         "import k8s_vgpu_scheduler_tpu_torch.models.checkpoint\n"
         "import k8s_vgpu_scheduler_tpu_torch.models.quant\n"
         "import k8s_vgpu_scheduler_tpu_torch.cmd.serve\n"
+        "import k8s_vgpu_scheduler_tpu_torch.models.workloads\n"
         "assert not k._libs and not k.build_logs\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
