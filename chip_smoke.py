@@ -32,7 +32,13 @@ share the card under the port's node monitor (phase_coresidency, children
 thread, no ``force``): a serving pod (priority 0) and the train step
 (priority 1), 50% of the card each, in a flat leg (the priority switch)
 and a tiered one (latency-critical and best-effort), after the serving
-pod alone without and with the interposer.  Then the pod's life cycle:
+pod alone without and with the interposer.  Then the port's node agent
+(phase_device_plugin): the device plugin in a child that never imports
+torch (``--enforce-child node_agent``) lists the card through NVML, which
+makes no CUDA context, and answers Allocate for the serving and the
+training pod as a scheduler bound them; the two pods then run one flat
+leg of the co-residency phase with the env a kubelet builds from those
+answers and nothing else.  Then the pod's life cycle:
 checkpoint-first eviction (phase_preempt, children ``--enforce-child
 preempt``): a training pod told to leave by its annotations file
 checkpoints at the next step boundary and exits, and resumed in a fresh
@@ -53,6 +59,8 @@ and its region.  Exits non-zero if any phase fails, and at once
 
 Stdout ends with: the enforcement phase's ``{"phase": "enforce", ...}``
 line, the co-residency phase's ``{"phase": "coresidency", ...}`` line,
+the ``{"phase": "device_plugin", ...}`` line (NVML's fields and every
+memory size read),
 the ``{"phase": "preempt", ...}`` and ``{"phase": "quant_serve", ...}``
 lines, the ``{"phase": "workloads", ...}`` line and a ``{"workloads":
 [...]}`` line (one row a case: images/s in both legs and their ratio, the
@@ -226,6 +234,20 @@ CORES_TIERED_S = 20.0  # S's waves in the tiered leg
 CORES_ALONE_S = 8.0    # S's waves alone, in each of 2 pairs without and
 #                        with the interposer, in turn
 ALONE = tuple(f"uidA{i}_serve" for i in range(4))  # odd: preloaded
+# The device-plugin phase (phase_device_plugin): the port's node agent in a
+# child that never imports torch (--enforce-child node_agent) lists the
+# card through NVML, polls its health and answers Allocate for two pods
+# bound by a scheduler, S (CORES_SERVE_MIB) and T (CORES_TRAIN_MIB), each
+# CORES_SM_LIMIT of the card; it polls NODE_AGENT_POLLS more times, 0.5 s
+# apart, while nvidia-smi is sampled every NODE_AGENT_SMI_S: the card's
+# used memory may not rise past TOL_CONTEXT_MIB (no context).  Then S and T
+# run as the pods a kubelet would start from those answers: one flat leg
+# of phase_coresidency, S's waves for one burst of CORES_BURST_S.
+PLUGIN_NODE = "h100-node"
+PLUGIN_PODS = (("serve", "uidDS", CORES_SERVE_MIB, 0),
+               ("train", "uidDT", CORES_TRAIN_MIB, 1))
+NODE_AGENT_POLLS = 4
+NODE_AGENT_SMI_S = 0.1
 # The preemption phase (phase_preempt): the train step at llama_7b widths
 # through the interposer under T's 40000 MiB grant, 8 steps of one batch;
 # the parent swaps the annotation in once the victim has finished step 3,
@@ -1743,6 +1765,11 @@ def child_interposer_train(torch):
     return timed
 
 
+def grant_env() -> dict:
+    """This process's grant keys (GRANT_ENV) as its env holds them."""
+    return {k: v for k, v in os.environ.items() if k.startswith(GRANT_ENV)}
+
+
 def child_cores_train(torch):
     """Pod T of phase_coresidency: the 8-layer bf16 train step through the
     interposer (the shim stands down), 2 warm-up steps, then steps without
@@ -1756,6 +1783,7 @@ def child_cores_train(torch):
     stood_down(core)
     stats = stats_reader()
     cfg, tokens, model, state, step = enforce_train_state(torch, llama, train)
+    mem_total = torch.cuda.mem_get_info()[1]
     counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     for f in counters:
         f.launches = 0
@@ -1803,7 +1831,8 @@ def child_cores_train(torch):
     return dict(steps=steps, traces=traces, interposer=stats(),
                 losses=[s["loss"] for s in steps], end_t=time.monotonic(),
                 launches=dict(zip(("flash_fwd", "flash_bwd_dq",
-                                   "flash_bwd_dkv"), launches)))
+                                   "flash_bwd_dkv"), launches)),
+                mem_total=mem_total, grant_env=grant_env())
 
 
 def child_cores_serve(torch):
@@ -1830,6 +1859,7 @@ def child_cores_serve(torch):
         cfg, torch.Generator(device="cuda").manual_seed(SEED + 1))
     torch.cuda.synchronize()
     init_s = time.monotonic() - t0
+    mem_total = torch.cuda.mem_get_info()[1]
     prompts = serve_prompts(torch, cfg)
 
     def wave() -> dict:
@@ -1876,7 +1906,8 @@ def child_cores_serve(torch):
           f"{name}: the engine launched the flash kernel")
     return dict(preloaded=preloaded, init_s=init_s, warm=warm,
                 bursts=bursts, tokens=warm["tokens"],
-                interposer=stats(), end_t=time.monotonic())
+                interposer=stats(), end_t=time.monotonic(),
+                mem_total=mem_total, grant_env=grant_env())
 
 
 def child_preempt(torch):
@@ -2910,6 +2941,407 @@ def coresidency_checks(record, tl: Timeline, legs: dict, rows: dict,
     }
 
 
+def node_agent() -> int:
+    """The port's node agent on the card (``--enforce-child node_agent``),
+    in a process that never imports torch: the card through NVML
+    (``detect()``), one health poll, then a GpuDevicePlugin on a FakeKube
+    answers Allocate through its core for the two PLUGIN_PODS, each bound
+    as the scheduler's Bind leaves a pod (the node lock held, its grant
+    written with the port's codec); NODE_AGENT_POLLS more polls.  Prints
+    the cards, the inventory, the advertisement, the polls and each pod's
+    spec, response, bind phase and lock as one ENFORCE line."""
+    sys.path.insert(0, str(ROOT))
+    import importlib.metadata
+
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
+        DeviceCache, GpuDevicePlugin, advertised_devices)
+    from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube
+    from k8s_vgpu_scheduler_tpu_torch.tpulib import NvmlBackend, detect
+    from k8s_vgpu_scheduler_tpu_torch.util import codec, nodelock
+    from k8s_vgpu_scheduler_tpu_torch.util import types as t
+    from k8s_vgpu_scheduler_tpu_torch.util.config import Config
+
+    tmp = Path(os.environ["PLUGIN_DIR"])
+    t0 = time.monotonic()
+    backend = detect()
+    if not isinstance(backend, NvmlBackend):
+        print(f"chip_smoke: FAIL: node_agent: detect() gave "
+              f"{type(backend).__name__}, not NVML", file=sys.stderr)
+        return 1
+    try:
+        cards = backend.cards()
+        cache = DeviceCache(backend, heartbeat_seconds=0)
+        polls = [cache.poll_once()]
+        inv = cache.inventory
+        cfg = Config(node_name=PLUGIN_NODE, shim_host_dir=str(tmp / "shim"),
+                     cache_host_dir=str(tmp / "containers"))
+        kube = FakeKube()
+        kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
+        plugin = GpuDevicePlugin(kube, inv, cfg)
+        chip = inv.chips[0]
+        pods = {}
+        for name, uid, mib, priority in PLUGIN_PODS:
+            nodelock.lock_node(kube, PLUGIN_NODE)
+            grant = [[t.ContainerDevice(chip.uuid, chip.type, mib,
+                                        CORES_SM_LIMIT)]]
+            kube.create_pod({
+                "metadata": {"name": name, "namespace": "default", "uid": uid,
+                             "annotations": {
+                                 t.BIND_TIME_ANNOTATION: str(time.time_ns()),
+                                 t.BIND_PHASE_ANNOTATION: t.BIND_ALLOCATING,
+                                 t.ASSIGNED_NODE_ANNOTATION: PLUGIN_NODE,
+                                 t.TO_ALLOCATE_ANNOTATION:
+                                     codec.encode_pod_devices(grant)}},
+                # The webhook writes the priority into the pod's spec.
+                "spec": {"nodeName": PLUGIN_NODE, "containers": [{
+                    "name": name, "env": [{"name": "CUDA_TASK_PRIORITY",
+                                           "value": str(priority)}]}]}})
+            [resp] = plugin.allocate(1)
+            pods[name] = dict(
+                key=f"{uid}_{name}", grant_mib=mib, priority=priority,
+                pod=kube.get_pod("default", name),
+                response=dataclasses.asdict(resp),
+                locked=nodelock.is_locked(kube, PLUGIN_NODE))
+        for _ in range(NODE_AGENT_POLLS):
+            time.sleep(0.5)
+            polls.append(cache.poll_once())
+        events = backend.events
+        out = dict(
+            backend=type(backend).__name__, cards=cards,
+            inventory=[dataclasses.asdict(c) for c in inv.chips],
+            advertised=advertised_devices(inv, cfg), polls=polls,
+            events_registered=events.registered if events else None,
+            events_unsupported=events.unsupported if events else None,
+            events_error=backend.events_error, pods=pods, packages={})
+        for dist in ("grpcio", "protobuf"):  # the gRPC edge's, not loaded
+            try:
+                out["packages"][dist] = importlib.metadata.version(dist)
+            except importlib.metadata.PackageNotFoundError:
+                out["packages"][dist] = None
+    except Fail as exc:
+        print(f"chip_smoke: FAIL: node_agent: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        backend.close()
+    out["torch_loaded"] = "torch" in sys.modules
+    out["run_s"] = time.monotonic() - t0
+    print("ENFORCE " + json.dumps(out), flush=True)
+    return 0
+
+
+def smi_rows(query: str) -> list:
+    """nvidia-smi's rows for ``query`` (``--query-gpu`` or
+    ``--query-compute-apps``), each a list of fields, no units."""
+    res = subprocess.run(["nvidia-smi", query,
+                          "--format=csv,noheader,nounits"], env=smi_env(),
+                         capture_output=True, text=True, timeout=60)
+    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
+    return [[f.strip() for f in line.split(",")]
+            for line in res.stdout.strip().splitlines() if line.strip()]
+
+
+def kubelet_env(pod: dict, resp: dict) -> dict:
+    """What a kubelet gives a pod's container from the pod's spec and the
+    device plugin's answer, and nothing else: the spec's env, the answer's
+    env, and the library the mounted /etc/ld.so.preload names as
+    LD_PRELOAD.  Mounts are container paths mapped to host paths: a path
+    under one is rewritten to the host's (no mount namespace here)."""
+    mounts = {m["container_path"]: m["host_path"] for m in resp["mounts"]}
+
+    def host(path: str) -> str:
+        for c, h in mounts.items():
+            if path == c or path.startswith(c + "/"):
+                return h + path[len(c):]
+        return path
+
+    env = {e["name"]: e["value"] for e in pod["spec"]["containers"][0]["env"]}
+    env.update({k: host(v) for k, v in resp["envs"].items()})
+    preload = Path(mounts["/etc/ld.so.preload"]).read_text().split()
+    env["LD_PRELOAD"] = ":".join(host(lib) for lib in preload)
+    return env
+
+
+def phase_device_plugin(torch, record, vgpu: Path):
+    """The port's node agent on the card.  (a) ``node_agent`` in a child
+    that never imports torch: its NVML inventory held to nvidia-smi and to
+    this process's TorchBackend, the memory it advertises to CUDA's size,
+    one healthy poll, each bind phase ``success`` with the node lock
+    released, each pod's region dir made, and the card's used memory
+    sampled through its life (no context).  (b) S and T as pods whose
+    grant env comes only from the answers (``kubelet_env``), with the
+    interposer the plugin installed, under the port's monitor scanning the
+    plugin's cache_host_dir: one flat leg (plugin_leg).  Each pod's env,
+    region, ``mem_get_info`` and nvidia-smi samples hold its grant; T's
+    switch comes on while S serves; S's tokens and T's losses are
+    phase_coresidency's flat leg's.  Returns T's kernel launches."""
+    from k8s_vgpu_scheduler_tpu_torch.accounting import UsageSampler
+    from k8s_vgpu_scheduler_tpu_torch.cmd import monitor
+    from k8s_vgpu_scheduler_tpu_torch.monitor import FeedbackLoop, RegionReader
+    from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+    from k8s_vgpu_scheduler_tpu_torch.tpulib import TorchBackend
+
+    t_phase = time.monotonic()
+    gc.collect()
+    torch.cuda.empty_cache()
+    props = torch.cuda.get_device_properties(0)
+    torch_chip = TorchBackend().inventory().chips[0]
+    [smi] = smi_rows("--query-gpu=index,uuid,name,memory.total,"
+                     "memory.reserved,pci.bus_id")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(GRANT_ENV)}
+    with tempfile.TemporaryDirectory() as tmp, ThreadPoolExecutor(2) as pool:
+        tmp = Path(tmp)
+        root = tmp / "containers"
+        root.mkdir()
+        _kernels.install_shim(tmp / "shim")
+        # (a) The node agent, alone with this idle process on the card.
+        base = int(smi_rows("--query-gpu=memory.used")[0][0])
+        t0 = time.monotonic()
+        agent = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
+             "node_agent"], env={**env, "PLUGIN_DIR": str(tmp)}, cwd=ROOT,
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        life = []
+        try:
+            while agent.poll() is None:
+                check(time.monotonic() - t0 < 120, "the node agent hung")
+                life.append((time.monotonic() - t0,
+                             int(smi_rows("--query-gpu=memory.used")[0][0]),
+                             [r[0] for r in smi_rows(
+                                 "--query-compute-apps=pid")]))
+                time.sleep(NODE_AGENT_SMI_S)
+            stdout, stderr = agent.communicate()
+        finally:
+            if agent.poll() is None:
+                agent.kill()
+                agent.communicate()
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        (out / "enforce_node_agent.log").write_text(stdout + stderr)
+        check(agent.returncode == 0, f"node agent exited {agent.returncode}"
+              f": {stderr.strip()[-2000:]}")
+        line = [x for x in stdout.splitlines() if x.startswith("ENFORCE ")]
+        check(len(line) == 1, "the node agent printed no result")
+        na = json.loads(line[0][len("ENFORCE "):])
+        record["node_agent"] = dict(na, life=life, base_mib=base)
+        [card], [chip] = na["cards"], na["inventory"]
+        check([card["index"], card["uuid"], card["name"],
+               card["memory_total"] >> 20] == [int(smi[0]), smi[1], smi[2],
+                                               int(smi[3])],
+              f"NVML's card {card} against nvidia-smi's {smi}")
+        check((card["pci_bus_id"] or "[N/A]").lower() == smi[5].lower(),
+              f"PCI bus id {card['pci_bus_id']} against nvidia-smi's "
+              f"{smi[5]}")
+        check((chip["uuid"], chip["type"], card["name"]) == (
+            torch_chip.uuid, torch_chip.type, props.name),
+              f"NVML's card {chip} against torch's {torch_chip}")
+        v2 = card["memory_v2"]
+        sizes = dict(
+            nvml_total=card["memory_total"], nvml_free=card["memory_free"],
+            nvml_used=card["memory_used"],
+            nvml_v2=v2, smi_total_mib=int(smi[3]),
+            smi_reserved_mib=int(smi[4]),
+            torch_total=props.total_memory,
+            advertised_mib=na["advertised"][0]["devmem"])
+        check(sizes["advertised_mib"] == chip["hbm_mib"]
+              == props.total_memory >> 20,
+              f"advertised {sizes['advertised_mib']} MiB, CUDA's "
+              f"{props.total_memory >> 20} MiB")
+        check(v2 is None or v2["total"] - v2["reserved"]
+              == props.total_memory,
+              f"v2 total less reserved {v2} against {props.total_memory}")
+        check(not any(na["polls"]) and chip["healthy"],
+              f"the node agent's polls {na['polls']}, healthy "
+              f"{chip['healthy']}")
+        check(not na["torch_loaded"], "the node agent loaded torch")
+        rise = max(m for _, m, _ in life) - base if life else None
+        check(len(life) >= 5 and rise <= TOL_CONTEXT_MIB,
+              f"the card's memory rose {rise} MiB in the node agent's life "
+              f"({len(life)} samples)")
+        check(not any(str(agent.pid) in pids for _, _, pids in life),
+              "the node agent is a compute process")
+        for name, pod in na["pods"].items():
+            anns = pod["pod"]["metadata"]["annotations"]
+            check(anns["vtpu.dev/bind-phase"] == "success"
+                  and not pod["locked"],
+                  f"{name}: bind phase {anns['vtpu.dev/bind-phase']}, lock "
+                  f"{pod['locked']}")
+            check((root / pod["key"]).is_dir(), f"{name}: no region dir")
+        # (b) The two pods, started at once (their imports overlap); each
+        # touches the card only after its go.
+        envs = {name: kubelet_env(pod["pod"], pod["response"])
+                for name, pod in na["pods"].items()}
+        check(all(e["LD_PRELOAD"] == str(tmp / "shim" / "libvgpu_cuda.so")
+                  for e in envs.values()),
+              f"LD_PRELOAD {[e['LD_PRELOAD'] for e in envs.values()]}")
+        leg = tmp / "leg"
+        leg.mkdir()
+        children = {}
+        for name, pod in na["pods"].items():
+            grant = dict(envs[name])
+            child = EnforceChild(
+                f"cores_{name}", tmp, label=f"plugin_{name}",
+                region=grant.pop("CUDA_DEVICE_MEMORY_SHARED_CACHE"),
+                CORES_DIR=leg, CORES_NAME=name,
+                CORES_BURSTS=CORES_BURST_S, **grant)
+            child.ctl, child.name, child.key = leg, name, pod["key"]
+            child.go = (lambda c: lambda: pool.submit(
+                c.run, record, "device_plugin_children"))(child)
+            children[name] = child
+        reader = RegionReader(str(vgpu))
+        loop = FeedbackLoop(str(root), reader=reader)
+        sampler = UsageSampler(loop)
+        stop = threading.Event()
+        seen = set()
+        ticker = threading.Thread(target=monitor.run, daemon=True, args=(
+            loop, sampler, MONITOR_INTERVAL_S, stop), kwargs=dict(
+                on_tick=lambda: seen.update(loop.containers)))
+        ticker.start()
+        tl = Timeline(reader, root)
+        card_mib = []
+        smi_stop = threading.Event()
+
+        def sample_card():
+            while not smi_stop.is_set():
+                card_mib.append((time.monotonic(), int(smi_rows(
+                    "--query-gpu=memory.used")[0][0])))
+                smi_stop.wait(SMI_EVERY_S)
+
+        smi_thread = threading.Thread(target=sample_card, daemon=True)
+        base = int(smi_rows("--query-gpu=memory.used")[0][0])
+        smi_thread.start()
+        try:
+            legs = plugin_leg(tl, children["train"], children["serve"])
+            regions = {}
+            for name, child in children.items():
+                r = reader.open(str(root / child.key / "cudevshr.cache"))
+                check(r is not None, f"{name}: no region")
+                regions[name] = dict(limit=r.limit(0), sm_limit=r.sm_limit(0),
+                                     uuid=r.uuid(0), priority=r.priority)
+                r.close()
+        finally:
+            smi_stop.set()
+            smi_thread.join()
+            stop.set()
+            ticker.join()
+            tl.close()
+            loop.close()
+            for child in children.values():
+                child.stop()
+    record["device_plugin_s"] = time.monotonic() - t_phase
+    summary = record["device_plugin"] = plugin_checks(
+        record, na, sizes, envs, regions, legs, tl, seen, card_mib, base,
+        children)
+    log(json.dumps(summary))
+    t = legs["train"]
+    return [t["launches"][n] for n in ("flash_fwd", "flash_bwd_dq",
+                                       "flash_bwd_dkv")]
+
+
+def plugin_leg(tl: Timeline, t, s) -> dict:
+    """phase_coresidency's flat leg, shortened: T alone for CORES_SOLO_S;
+    S loads and warms up; once T's switch has fallen, S's one burst; T
+    alone for CORES_TAIL_S; both exit, and the monitor must clear their
+    slots.  Each pod's life on the host clock goes with its reading."""
+    t_go = time.monotonic()
+    ft = t.go()
+    await_file(t.ctl / "train_ready", [ft], "T ready (device plugin)")
+    time.sleep(CORES_SOLO_S)
+    s_go = time.monotonic()
+    fs = s.go()
+    await_file(s.ctl / f"{s.name}_ready", [ft, fs],
+               "S ready (device plugin)", limit=600)
+    await_switch(tl, t.key, 0, time.monotonic(), "T after S's loading")
+    time.sleep(MONITOR_INTERVAL_S)
+    (s.ctl / f"{s.name}_go").touch()
+    serve = dict(fs.result(), life=(s_go, time.monotonic()))
+    time.sleep(CORES_TAIL_S)
+    (t.ctl / "train_stop").touch()
+    trainer = dict(ft.result(), life=(t_go, time.monotonic()))
+    await_gc(tl, (t.key, s.key), "device plugin leg")
+    return {"train": trainer, "serve": serve}
+
+
+def plugin_checks(record, na, sizes, envs, regions, legs, tl, seen,
+                  card_mib, base, children) -> dict:
+    """(b)'s checks and the phase's summary line."""
+    pods = na["pods"]
+    uuid = na["cards"][0]["uuid"]
+    for name, run in legs.items():
+        pod = pods[name]
+        grant = pod["grant_mib"] * MIB
+        check(run["grant_env"] == envs[name],
+              f"{name}: the pod's grant env {run['grant_env']} is not what "
+              f"the answer and its spec give: {envs[name]}")
+        want = dict(limit=grant, sm_limit=CORES_SM_LIMIT, uuid=uuid,
+                    priority=pod["priority"])
+        check(regions[name] == want,
+              f"{name}: region {regions[name]}, grant {want}")
+        check(run["mem_total"] == grant,
+              f"{name}: mem_get_info total {run['mem_total']}, grant {grant}")
+    # nvidia-smi lists every process of this machine under one pid, so
+    # the card's reading less this process's is held to the grants of the
+    # pods alive at the sample (S's memory may take RETURN_S to come back
+    # after it exits).
+    t_life = legs["train"]["life"]
+    s_life = (legs["serve"]["life"][0], legs["serve"]["life"][1] + RETURN_S)
+    worst = {}
+    for at, mib in card_mib:
+        alive = [n for n, (a, b) in (("train", t_life), ("serve", s_life))
+                 if a <= at <= b]
+        if not alive:
+            continue
+        key = "+".join(alive)
+        allowed = sum(pods[n]["grant_mib"] for n in alive)
+        check(mib - base <= allowed, f"{key}: {mib - base} MiB on the card "
+              f"past the grants' {allowed} MiB")
+        worst[key] = max(worst.get(key, 0), mib - base)
+    check({"train", "train+serve"} <= set(worst),
+          f"no nvidia-smi sample with T alone and with both: {worst}")
+    T, S = children["train"].key, children["serve"].key
+    check({T, S} <= seen, f"the monitor saw {sorted(seen)}")
+    b = legs["serve"]["bursts"][0]
+    on = tl.first(T, b["start"], SWITCH, 1)
+    check(on <= b["end"], "T's switch never came on while S served")
+    flat = record["coresidency_children"]
+    check(legs["serve"]["tokens"] == flat["uidF_serve"]["tokens"],
+          "S's tokens differ from phase_coresidency's")
+    ref = flat["uidF_train"]["losses"]
+    n = min(len(ref), len(legs["train"]["losses"]))
+    check(n >= 4 and legs["train"]["losses"][:n] == ref[:n],
+          f"T's losses {legs['train']['losses'][:n]} differ from "
+          f"phase_coresidency's {ref[:n]}")
+    return {
+        "phase": "device_plugin", "card": record["card"],
+        "seconds": record["device_plugin_s"],
+        "nvml": {k: na["cards"][0][k] for k in (
+            "index", "uuid", "name", "serial", "pci_bus_id", "minor",
+            "not_supported")},
+        "memory": sizes,
+        "events": {"registered": na["events_registered"],
+                   "unsupported": na["events_unsupported"],
+                   "error": na["events_error"]},
+        "packages": na["packages"],
+        "node_agent": {
+            "run_s": na["run_s"],
+            "samples": len(record["node_agent"]["life"]),
+            "card_mib_rise_max": max(
+                (m for _, m, _ in record["node_agent"]["life"]),
+                default=0) - record["node_agent"]["base_mib"],
+            "torch_loaded": na["torch_loaded"], "polls": na["polls"]},
+        "pods": {name: {
+            "grant_mib": pods[name]["grant_mib"],
+            "envs": pods[name]["response"]["envs"],
+            "region": regions[name], "mem_total": legs[name]["mem_total"],
+            "losses" if name == "train" else "waves":
+                len(legs[name]["losses"]) if name == "train"
+                else len(legs[name]["bursts"][0]["waves"])}
+            for name in legs},
+        "card_mib_max_over_base": worst,
+        "switch_on_after_first_prefill_s": on - b["start"],
+    }
+
+
 def same_checkpoints(torch, a: Path, b: Path) -> dict:
     """Two train-state checkpoints, mapped from disk, tensor for tensor:
     the master copy, mu, nu, the counts and the step."""
@@ -3661,6 +4093,8 @@ def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
 
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--enforce-child":
+        if sys.argv[2] == "node_agent":  # before torch is imported
+            return node_agent()
         return enforce_child(sys.argv[2])
     t_script = time.monotonic()
     import torch
@@ -3729,6 +4163,7 @@ def main() -> int:
         train_launches = phase_train_main(torch, fa, port, record)
         enforce_launches = phase_enforce(torch, record, interposer, driver)
         cores_launches = phase_coresidency(torch, record, vgpu, interposer)
+        plugin_launches = phase_device_plugin(torch, record, vgpu)
         preempt_launches = phase_preempt(torch, record, vgpu, interposer)
         quant_launches = phase_quant_serve(torch, port, record, vgpu,
                                            interposer)
@@ -3744,7 +4179,8 @@ def main() -> int:
     kernels = [
         kernel_row("flash_fwd", src + "flash_fwd.cu", tpu + "57",
                    serve_launches + train_launches[0] + enforce_launches[0]
-                   + cores_launches[0] + preempt_launches[0] + quant_launches,
+                   + cores_launches[0] + plugin_launches[0]
+                   + preempt_launches[0] + quant_launches,
                    t["max_abs_err"],
                    t["ms"], t["plain_ms"], (t["bound_ms"], t["bound_by"]),
                    t["library_ms"],
@@ -3752,6 +4188,7 @@ def main() -> int:
                                      "train": train_launches[0],
                                      "enforce": enforce_launches[0],
                                      "coresidency": cores_launches[0],
+                                     "device_plugin": plugin_launches[0],
                                      "preempt": preempt_launches[0],
                                      "quant": quant_launches},
                    kernel="flash_fwd_mma_kernel (bf16, mma.sync)",
@@ -3759,13 +4196,15 @@ def main() -> int:
                    f32_ms=t["f32_ms"], errors=t["errors"]),
         kernel_row("flash_bwd_dq", src + "flash_bwd.cu", tpu + "172",
                    train_launches[1] + enforce_launches[1]
-                   + cores_launches[1] + preempt_launches[1],
+                   + cores_launches[1] + plugin_launches[1]
+                   + preempt_launches[1],
                    b["errors"]["dq"]["max_abs_err"],
                    b["dq_ms"], b["plain_dq_ms"],
                    (b["dq_bound_ms"], b["dq_bound_by"]), b["library_ms"],
                    launches_by_path={"train": train_launches[1],
                                      "enforce": enforce_launches[1],
                                      "coresidency": cores_launches[1],
+                                     "device_plugin": plugin_launches[1],
                                      "preempt": preempt_launches[1]},
                    library_covers="dq, dk and dv",
                    kernel="flash_bwd_dq_mma_kernel (bf16, mma.sync)",
@@ -3773,13 +4212,15 @@ def main() -> int:
                    f32_ms=b["dq_f32_ms"], errors={"dq": b["errors"]["dq"]}),
         kernel_row("flash_bwd_dkv", src + "flash_bwd.cu", tpu + "213",
                    train_launches[2] + enforce_launches[2]
-                   + cores_launches[2] + preempt_launches[2],
+                   + cores_launches[2] + plugin_launches[2]
+                   + preempt_launches[2],
                    max(b["errors"][n]["max_abs_err"] for n in ("dk", "dv")),
                    b["dkv_ms"], b["plain_dkv_ms"],
                    (b["dkv_bound_ms"], b["dkv_bound_by"]), b["library_ms"],
                    launches_by_path={"train": train_launches[2],
                                      "enforce": enforce_launches[2],
                                      "coresidency": cores_launches[2],
+                                     "device_plugin": plugin_launches[2],
                                      "preempt": preempt_launches[2]},
                    library_covers="dq, dk and dv",
                    kernel="flash_bwd_dkv_mma_kernel (bf16, mma.sync)",
@@ -3790,7 +4231,7 @@ def main() -> int:
     record["kernels"] = kernels
     record["script_s"] = time.monotonic() - t_script
     record["phase_s"] = {k: record.get(k) for k in (
-        "build_s", "enforce_s", "coresidency_s")} | {
+        "build_s", "enforce_s", "coresidency_s", "device_plugin_s")} | {
         "preempt_s": record["preempt_summary"]["seconds"],
         "quant_serve_s": record["quant_serve"]["seconds"],
         "workloads_s": record["workloads_s"]}

@@ -9,7 +9,10 @@ with ``g++`` into ``libvgpu_torch-<hash>.so``; so are the CUDA driver-API
 interposer (``libvgpu_cuda-<hash>.so``, the same region and limiter code
 with the driver hooks, for ``LD_PRELOAD``), the mock driver its CPU tests
 run against (``mock_cuda-<hash>/libcuda.so.1`` and ``libnvidia-ml.so.1``)
-and their C test driver (``test_interposer-<hash>``).  Importing this
+and their C test driver (``test_interposer-<hash>``), and the mock NVML
+the node agent's CPU tests run against (``mock_nvml-<hash>/
+libnvidia-ml.so.1``).  ``install_shim`` puts the interposer and the
+``ld.so.preload`` naming it into a node's shim directory.  Importing this
 module compiles nothing and needs no compiler: the CPU tests import it.
 """
 
@@ -172,6 +175,36 @@ def build_mock_cuda() -> Path:
         tmp.symlink_to("libcuda.so.1")
         os.replace(tmp, nvml)
     return out
+
+
+def build_mock_nvml() -> Path:
+    """The mock NVML, ``libnvidia-ml.so.1`` in a directory of its own,
+    driven by a MockBackend fixture named by ``$MOCK_NVML_JSON``
+    (``csrc/vgpu/mock_nvml.cc``); returns the library's path."""
+    src = VGPU_DIR / "mock_nvml.cc"
+    out = BUILD_DIR / f"mock_nvml-{_digest([src])}"
+    out.mkdir(parents=True, exist_ok=True)
+    return _compile("mock_nvml", out / "libnvidia-ml.so.1",
+                    [_gxx(), *HOST_FLAGS, "-shared",
+                     "-Wl,-soname,libnvidia-ml.so.1", str(src)])
+
+
+def install_shim(shim_dir) -> Path:
+    """Install the interposer into a node's shim directory, as the device
+    plugin mounts it into every container: ``libvgpu_cuda.so`` (built from
+    the checkout's sources) and ``ld.so.preload`` naming it where the
+    container sees the directory.  Returns the library's path."""
+    from ..util.types import PRELOAD_FILE, SHIM_CONTAINER_DIR, SHIM_LIBRARY
+
+    shim_dir = Path(shim_dir)
+    shim_dir.mkdir(parents=True, exist_ok=True)
+    lib = shim_dir / SHIM_LIBRARY
+    tmp = shim_dir / f".{SHIM_LIBRARY}.{os.getpid()}"
+    shutil.copyfile(build_interposer(), tmp)
+    os.replace(tmp, lib)
+    (shim_dir / PRELOAD_FILE).write_text(
+        f"{SHIM_CONTAINER_DIR}/{SHIM_LIBRARY}\n")
+    return lib
 
 
 def build_interposer_test() -> Path:

@@ -7,11 +7,16 @@ a JSON fixture* (mock/cndev.c reads ``$MOCK_JSON`` — SURVEY.md §4, N5).
 - :class:`MockBackend` reads a JSON fixture (``$VTPU_MOCK_JSON`` or an
   inline dict) describing devices, memory sizes, fabric shape and health,
   in the JAX backend's schema.  :data:`H100_FIXTURE` is an HGX H100 node.
+- :class:`NvmlBackend` enumerates the real cards through NVML
+  (``tpulib/nvml.py``), the counterpart of the JAX package's
+  ``SysfsBackend``: it opens no CUDA context, so the node agent holds none
+  of a card's memory and is no compute process on it.
 - :class:`TorchBackend` enumerates the real cards through
-  ``torch.cuda.get_device_properties``.
+  ``torch.cuda.get_device_properties``, which creates a context on each
+  (chip_smoke.py holds NVML's inventory to it).
 
-``detect()`` picks the mock when ``$VTPU_MOCK_JSON`` is set, else the real
-cards; with neither it raises.
+``detect()`` picks the mock when ``$VTPU_MOCK_JSON`` is set, else NVML;
+with neither it raises.  It never falls back to torch.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import os
 from itertools import product
 from typing import Optional
 
+from . import nvml
 from .types import ChipInfo, NodeInventory, TopologyDesc
 
 log = logging.getLogger(__name__)
@@ -184,16 +190,133 @@ def normalize_kind(name: str) -> str:
     return k.replace("nvidia ", "").replace(" ", "-")
 
 
+class NvmlBackend(Backend):
+    """The real cards through NVML: per card its index, UUID, name,
+    memory, serial, PCI bus id and minor number (:meth:`cards`).  All
+    cards are taken as one NVLink/NVSwitch domain (coordinates along one
+    axis), as in :class:`TorchBackend`.
+
+    Health: a card is unhealthy while its handle, UUID or memory query
+    fails, and from its first critical Xid event on (an Xid an application
+    causes excepted), where the driver delivers events; ``events_error``
+    says why it does not.  Raises :class:`OSError` without
+    ``libnvidia-ml.so.1`` and :class:`nvml.NvmlError` when NVML fails."""
+
+    def __init__(self, library: Optional[str] = None) -> None:
+        self.nvml = nvml.Nvml(library or nvml.LIBRARY)
+        self.events = None
+        self.events_error = ""
+        self._xid: dict = {}  # index -> the first critical Xid
+
+    def cards(self) -> list:
+        """What NVML reports of each card, as dicts.  The index, UUID,
+        name and memory must answer; a driver that refuses the serial,
+        the PCI bus id, the minor number or ``nvmlDeviceGetMemoryInfo_v2``
+        with ``NVML_ERROR_NOT_SUPPORTED`` leaves that field None and the
+        call named in ``not_supported``."""
+        out = []
+        for i in range(self.nvml.device_count()):
+            h = self.nvml.handle(i)
+            total, free, used = self.nvml.memory(h)
+            card = dict(index=self.nvml.index(h), uuid=self.nvml.uuid(h),
+                        name=self.nvml.name(h), memory_total=total,
+                        memory_free=free, memory_used=used, not_supported=[])
+            for field, read in (("serial", self.nvml.serial),
+                                ("pci_bus_id", self.nvml.pci_bus_id),
+                                ("minor", self.nvml.minor),
+                                ("memory_v2", self.nvml.memory_v2)):
+                try:
+                    card[field] = read(h)
+                except nvml.NvmlError as e:
+                    if e.code != nvml.ERROR_NOT_SUPPORTED:
+                        raise
+                    card[field] = None
+                    card["not_supported"].append(e.call)
+            if card["memory_v2"] is not None:
+                card["memory_v2"] = dict(zip(
+                    ("total", "reserved", "free", "used"), card["memory_v2"]))
+            out.append(card)
+        return out
+
+    def inventory(self) -> NodeInventory:
+        cards = self.cards()
+        if not cards:
+            raise RuntimeError("NVML reports no GPU")
+        chips = [
+            ChipInfo(
+                index=c["index"],
+                uuid=c["uuid"],
+                type=f"NVIDIA-{normalize_kind(c['name'])}",
+                hbm_mib=advertised_mib(c),
+                coords=(i,),
+                serial=c["serial"] or "",
+                board=c["name"],
+            )
+            for i, c in enumerate(cards)
+        ]
+        if self.events is None and not self.events_error:
+            try:
+                self.events = nvml.XidEvents(
+                    self.nvml, [self.nvml.handle(c.index) for c in chips])
+            except nvml.NvmlError as e:
+                self.events_error = str(e)
+        return NodeInventory(chips=chips, topology=TopologyDesc(
+            generation=normalize_kind(cards[0]["name"]), mesh=(len(chips),)))
+
+    def refresh_health(self, inv: NodeInventory) -> bool:
+        if self.events is not None:
+            for index, xid in self.events.drain():
+                self._xid.setdefault(index, xid)
+                log.warning("critical Xid %d on GPU %d", xid, index)
+        changed = False
+        for chip in inv.chips:
+            try:
+                h = self.nvml.handle(chip.index)
+                ok = self.nvml.uuid(h) == chip.uuid
+                self.nvml.memory(h)
+            except nvml.NvmlError as e:
+                log.warning("GPU %d (%s): %s", chip.index, chip.uuid, e)
+                ok = False
+            ok = ok and chip.index not in self._xid
+            if chip.healthy != ok:
+                chip.healthy = ok
+                changed = True
+        return changed
+
+    def close(self) -> None:
+        if self.events is not None:
+            self.events.close()
+            self.events = None
+        self.nvml.shutdown()
+
+
+def advertised_mib(card: dict) -> int:
+    """The memory a card advertises, in MiB: what a CUDA process on it can
+    get, so that a grant of the whole card is one a process can reach.
+
+    NVML's ``total`` counts what the driver reserves for itself, which no
+    CUDA process gets: on an H100 80GB HBM3 ``total`` is 81,559 MiB,
+    ``reserved`` 480 MiB, and ``total - reserved`` is 85,017,493,504
+    bytes, CUDA's ``total_memory`` to the byte (chip_smoke.py's
+    ``phase_device_plugin``).  Where the driver refuses
+    ``nvmlDeviceGetMemoryInfo_v2``, ``total`` it is, as the reference
+    advertises."""
+    v2 = card.get("memory_v2")
+    if v2 is not None:
+        return (v2["total"] - v2["reserved"]) >> 20
+    return card["memory_total"] >> 20
+
+
 def detect() -> Backend:
-    """The mock if $VTPU_MOCK_JSON is set, else the real cards; raises
-    when there are none."""
+    """The mock if $VTPU_MOCK_JSON is set, else the cards through NVML;
+    raises when NVML cannot be loaded or initialised.  Never torch: the
+    node agent must hold no context on the cards it advertises."""
     if os.environ.get(MOCK_ENV):
         log.info("using MockBackend fixture %s", os.environ[MOCK_ENV])
         return MockBackend()
-    import torch
-
-    if not torch.cuda.is_available():
+    try:
+        return NvmlBackend()
+    except (OSError, nvml.NvmlError) as e:
         raise RuntimeError(
-            f"no CUDA device is visible; set ${MOCK_ENV} to a fixture file "
-            "to run against MockBackend")
-    return TorchBackend()
+            f"no NVML ({e}); set ${MOCK_ENV} to a fixture file to run "
+            "against MockBackend") from e

@@ -13,7 +13,10 @@
 - The CPU path, forward and backward, builds and launches nothing.
 - The enforcement layer (``shim/``, ``tpulib/``) imports torch only inside
   functions, and the node monitor (``monitor/``, ``accounting/``,
-  ``cmd/monitor.py``) imports none at all; nothing in the port reads
+  ``cmd/monitor.py``) and the node agent (``deviceplugin/``, ``k8s/``,
+  ``util/``, ``api/``, ``tpulib/nvml.py``, ``cmd/device_plugin.py``) import
+  none at all; the node agent's Allocate core imports neither grpc nor
+  protobuf, and the agent raises without NVML and without the mock; nothing in the port reads
   ``lib/tpu/``, and ``csrc/vgpu/``
   builds with g++ into the port's build directory: the enforcement
   library, the driver-API interposer, its mock driver and its C test
@@ -23,6 +26,7 @@
 import ast
 import ctypes
 import hashlib
+import os
 import re
 import subprocess
 import sys
@@ -84,7 +88,15 @@ def test_new_modules_are_under_the_import_rules():
     for rel in ("models/checkpoint.py", "models/quant.py", "cmd/serve.py",
                 "shim/preempt.py", "models/layers.py", "models/resnet.py",
                 "models/vgg.py", "models/deeplab.py", "models/lstm.py",
-                "models/workloads.py"):
+                "models/workloads.py", "tpulib/nvml.py",
+                "deviceplugin/plugin.py", "deviceplugin/cache.py",
+                "deviceplugin/register.py", "cmd/device_plugin.py",
+                "k8s/client.py", "k8s/fake.py", "k8s/rest.py",
+                "util/types.py", "util/config.py", "util/codec.py",
+                "util/nodelock.py", "util/protocol.py",
+                "util/enforcement.py", "util/trace.py", "api/kubelet.py",
+                "api/service.py", "api/deviceplugin_pb2.py",
+                "api/device_register_pb2.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -151,6 +163,10 @@ def test_kernel_module_import_runs_no_compiler():
         "import k8s_vgpu_scheduler_tpu_torch.models.quant\n"
         "import k8s_vgpu_scheduler_tpu_torch.cmd.serve\n"
         "import k8s_vgpu_scheduler_tpu_torch.models.workloads\n"
+        "import k8s_vgpu_scheduler_tpu_torch.deviceplugin\n"
+        "import k8s_vgpu_scheduler_tpu_torch.cmd.device_plugin\n"
+        "import k8s_vgpu_scheduler_tpu_torch.api.kubelet\n"
+        "import k8s_vgpu_scheduler_tpu_torch.api.service\n"
         "assert not k._libs and not k.build_logs\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -346,6 +362,82 @@ PORT_FILES = sorted(p for p in PORT.rglob("*")
                     and "__pycache__" not in p.parts)
 
 
+# The node agent: a DaemonSet that must hold no context on the cards it
+# advertises, so no torch anywhere in it.
+NODE_AGENT = sorted(p for d in ("deviceplugin", "k8s", "util", "api")
+                    for p in (PORT / d).glob("*.py")) + [
+    PORT / "tpulib" / "nvml.py", PORT / "cmd" / "device_plugin.py"]
+
+
+@pytest.mark.parametrize("path", NODE_AGENT,
+                         ids=[str(p.relative_to(ROOT)) for p in NODE_AGENT])
+def test_node_agent_imports_no_torch(path):
+    inner = set(_imported_roots(path))
+    assert not inner & {"torch", "numpy", *FORBIDDEN}, sorted(inner)
+
+
+def test_allocate_core_runs_without_grpc_protobuf_or_torch(tmp_path):
+    """The core that turns a pod into per-container env and mounts, with
+    grpc and protobuf blocked: the card's machine need not have them."""
+    code = (
+        "import sys\n"
+        "for name in ('grpc', 'google.protobuf', 'torch'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (\n"
+        "    DeviceCache, GpuDevicePlugin, advertised_devices)\n"
+        "from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube\n"
+        "from k8s_vgpu_scheduler_tpu_torch.tpulib import MockBackend, "
+        "H100_FIXTURE\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util import codec, nodelock\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util import types as t\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util.config import Config\n"
+        "cache = DeviceCache(MockBackend(H100_FIXTURE))\n"
+        "cache.poll_once()\n"
+        "inv = cache.inventory\n"
+        "kube = FakeKube()\n"
+        "kube.add_node({'metadata': {'name': 'n', 'annotations': {}}})\n"
+        "nodelock.lock_node(kube, 'n')\n"
+        "grant = [[t.ContainerDevice(inv.chips[0].uuid, inv.chips[0].type,"
+        " 24000, 50)]]\n"
+        "kube.create_pod({'metadata': {'name': 'p', 'namespace': 'default',"
+        " 'uid': 'u', 'annotations': {t.BIND_TIME_ANNOTATION: '1',"
+        " t.BIND_PHASE_ANNOTATION: t.BIND_ALLOCATING,"
+        " t.ASSIGNED_NODE_ANNOTATION: 'n',"
+        " t.TO_ALLOCATE_ANNOTATION: codec.encode_pod_devices(grant)}},"
+        " 'spec': {'nodeName': 'n'}})\n"
+        f"cfg = Config(node_name='n', cache_host_dir={str(tmp_path)!r},"
+        f" shim_host_dir={str(tmp_path / 'shim')!r})\n"
+        "[r] = GpuDevicePlugin(kube, inv, cfg).allocate(1)\n"
+        "assert r.envs['CUDA_DEVICE_MEMORY_LIMIT_0'] == '24000', r\n"
+        "assert not nodelock.is_locked(kube, 'n')\n"
+        "assert advertised_devices(inv, cfg)[0]['devmem'] == 81079\n"
+        "assert not {'grpc', 'torch'} & {m.split('.')[0] for m, v in "
+        "sys.modules.items() if v is not None}\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_device_plugin_raises_without_nvml_or_the_mock(tmp_path):
+    code = (
+        "import sys\n"
+        "from k8s_vgpu_scheduler_tpu_torch.tpulib import backend\n"
+        "backend.nvml.LIBRARY = 'libnvidia-ml-absent.so.1'\n"
+        "from k8s_vgpu_scheduler_tpu_torch.cmd import device_plugin\n"
+        "try:\n"
+        f"    device_plugin.main(['--fake-kube', '--socket-dir', "
+        f"{str(tmp_path)!r}])\n"
+        "except RuntimeError as e:\n"
+        "    assert 'VTPU_MOCK_JSON' in str(e), e\n"
+        "else:\n"
+        "    raise AssertionError('served without NVML')\n"
+        "assert 'torch' not in sys.modules\n")
+    env = {k: v for k, v in os.environ.items() if k != "VTPU_MOCK_JSON"}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_nothing_in_the_port_reads_lib_tpu():
     hits = [str(p.relative_to(ROOT)) for p in PORT_FILES
             if re.search(rb"lib/tpu|libvtpu|vtpu/", p.read_bytes())]
@@ -366,6 +458,8 @@ def test_vgpu_library_builds_with_gxx_into_the_port_build_dir():
 INTERPOSER_TARGETS = {
     "interposer": (_kernels.build_interposer,
                    r"libvgpu_cuda-[0-9a-f]{16}\.so"),
+    "mock_nvml": (lambda: _kernels.build_mock_nvml().parent,
+                  r"mock_nvml-[0-9a-f]{16}"),
     "mock_cuda": (_kernels.build_mock_cuda, r"mock_cuda-[0-9a-f]{16}"),
     "interposer_test": (_kernels.build_interposer_test,
                         r"test_interposer-[0-9a-f]{16}"),
@@ -382,6 +476,13 @@ def test_interposer_targets_build_with_gxx_into_the_port_build_dir(target):
     if target == "mock_cuda":
         cuda, nvml = path / "libcuda.so.1", path / "libnvidia-ml.so.1"
         assert cuda.is_file() and nvml.resolve() == cuda.resolve()
+    elif target == "mock_nvml":
+        lib = ctypes.CDLL(str(path / "libnvidia-ml.so.1"))
+        for symbol in ("nvmlInit_v2", "nvmlDeviceGetCount_v2",
+                       "nvmlDeviceGetHandleByIndex_v2",
+                       "nvmlDeviceGetMemoryInfo_v2", "nvmlEventSetWait_v2",
+                       "nvmlErrorString"):
+            assert hasattr(lib, symbol), symbol
     elif target == "interposer_test":
         assert path.stat().st_mode & 0o100
     else:
@@ -430,3 +531,5 @@ def test_package_data_ships_every_source_the_port_builds():
         "k8s_vgpu_scheduler_tpu_torch.cmd.monitor:main"
     assert conf["project"]["scripts"]["vgpu-serve"] == \
         "k8s_vgpu_scheduler_tpu_torch.cmd.serve:main"
+    assert conf["project"]["scripts"]["vgpu-device-plugin"] == \
+        "k8s_vgpu_scheduler_tpu_torch.cmd.device_plugin:main"

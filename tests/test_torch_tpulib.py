@@ -5,8 +5,10 @@ H100 one) and must give the same ``NodeInventory`` fields as the JAX
 backend, apart from the device kind: the default type string and UUID
 prefix name a GPU ("NVIDIA-<gen>", "GPU-<gen>-mock-<i>") where the JAX
 backend names a TPU, and a fixture without a memory size defaults to the
-H100's 80 GiB.  ``detect()`` picks the mock under ``VTPU_MOCK_JSON`` and
-raises without a card.  ``TorchBackend`` on a card runs in chip_smoke.py.
+H100's 80 GiB.  ``detect()`` picks the mock under ``VTPU_MOCK_JSON``, else
+NVML, and raises without either (tests/test_torch_nvml.py drives
+``NvmlBackend`` over the mock NVML).  ``TorchBackend`` on a card runs in
+chip_smoke.py.
 """
 
 import dataclasses
@@ -109,9 +111,16 @@ def test_detect_returns_the_mock_under_vtpu_mock_json(tmp_path, monkeypatch):
 
 
 def test_detect_raises_without_a_card(monkeypatch):
+    """No mock and no NVML: detect() raises, and never falls back to
+    TorchBackend (a node agent must hold no context on a card)."""
     monkeypatch.delenv("VTPU_MOCK_JSON", raising=False)
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: detect() returns TorchBackend")
+    monkeypatch.setattr(tbackend.nvml, "LIBRARY", "libnvidia-ml-absent.so.1")
+
+    def refuse(*args):
+        raise AssertionError("detect() touched torch")
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", refuse)
+    monkeypatch.setattr(torch.cuda, "device_count", refuse)
     with pytest.raises(RuntimeError, match="VTPU_MOCK_JSON"):
         ttpulib.detect()
 
