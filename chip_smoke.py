@@ -184,6 +184,10 @@ MIN_UNCAPPED_DUTY = 0.85
 TOL_CHARGED = 0.10
 TOL_USED = 0.05
 TOL_SWAP_BYTES = 0.01
+# Under the interposer (child_interposer_swap): the charge taken 256 MiB
+# past the spiller's pressure point, and 3 steps after the swap.
+SWAP_OVER_MIB = 256
+INTERPOSER_SWAP_STEPS = 3
 # The interposer's children: 256 MiB blocks up to the grant, which
 # nvidia-smi's reading (the card's used memory less what it held before,
 # contexts included) must not pass and must come within 512 MiB of, for
@@ -236,18 +240,22 @@ CORES_ALONE_S = 8.0    # S's waves alone, in each of 2 pairs without and
 ALONE = tuple(f"uidA{i}_serve" for i in range(4))  # odd: preloaded
 # The device-plugin phase (phase_device_plugin): the port's node agent in a
 # child that never imports torch (--enforce-child node_agent) lists the
-# card through NVML, polls its health and answers Allocate for two pods
-# bound by a scheduler, S (CORES_SERVE_MIB) and T (CORES_TRAIN_MIB), each
-# CORES_SM_LIMIT of the card; it polls NODE_AGENT_POLLS more times, 0.5 s
+# card through NVML, polls its health, registers it with the port's
+# scheduler extender, and answers Allocate for two pods that the
+# extender's webhook, Filter and Bind placed, S (CORES_SERVE_MIB, priority
+# 0) and T (CORES_TRAIN_MIB, priority 1), each CORES_SM_LIMIT of the card
+# by their resources; it polls NODE_AGENT_POLLS more times, 0.5 s
 # apart, while nvidia-smi is sampled every NODE_AGENT_SMI_S: the card's
 # used memory may not rise past TOL_CONTEXT_MIB (no context).  Then S and T
 # run as the pods a kubelet would start from those answers: one flat leg
-# of phase_coresidency, S's waves for one burst of CORES_BURST_S.
+# of phase_coresidency, S's waves for one burst of CORES_BURST_S.  The
+# node's registration must reach the scheduler within REGISTER_WAIT_S.
 PLUGIN_NODE = "h100-node"
 PLUGIN_PODS = (("serve", "uidDS", CORES_SERVE_MIB, 0),
                ("train", "uidDT", CORES_TRAIN_MIB, 1))
 NODE_AGENT_POLLS = 4
 NODE_AGENT_SMI_S = 0.1
+REGISTER_WAIT_S = 30.0
 # The preemption phase (phase_preempt): the train step at llama_7b widths
 # through the interposer under T's 40000 MiB grant, 8 steps of one batch;
 # the parent swaps the annotation in once the victim has finished step 3,
@@ -1491,6 +1499,110 @@ def child_train(torch):
                                    "flash_bwd_dkv"), launches())))
 
 
+def child_interposer_swap(torch):
+    """Host swap under the interposer (an oversubscribed grant,
+    ``CUDA_OVERSUBSCRIBE=true``): install() must attach the spiller and
+    the spill-only gate, and the limiter must never be called.  The
+    8-layer train step, 2 warm-up steps, then pressure.  With the AdamW
+    state registered, an allocation outside the gate takes what the
+    interposer charges SWAP_OVER_MIB past the spiller's pressure point
+    (the grant less the headroom), while the allocated bytes and the
+    headroom stay below the grant: only a reading of the charge spills.
+    A dispatch that holds nothing must spill the state at its gate, and
+    the bytes it frees are read as the interposer's charge (the region's
+    ``used``) and as nvidia-smi's card reading.  A dispatch then takes
+    half the state's bytes, which the grant holds only with the state
+    spilled, and the next dispatch that takes the state must find it on
+    the card bit for bit; no allocation may be refused throughout.  Then
+    INTERPOSER_SWAP_STEPS more steps, whose losses go beside the
+    unswapped interposed run's."""
+    llama, _, train, fa, core, oversub = enforce_port()
+    shim = core.install()
+    spiller = shim._spiller
+    check(shim.interposed and shim.native.interposed
+          and spiller is not None and core._GATE is shim
+          and not shim.fractions,
+          "install() under the interposer with CUDA_OVERSUBSCRIBE: no "
+          "spiller, or a memory fraction")
+    lib, limiter = shim.native.lib, []
+    for name in ("vgpu_rate_acquire", "vgpu_rate_feedback"):
+        setattr(lib, name, (lambda real, name: lambda *a: (
+            limiter.append(name), real(*a))[1])(getattr(lib, name), name))
+    cfg, tokens, model, state, step = enforce_train_state(torch, llama, train)
+    counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for f in counters:
+        f.launches = 0
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, tokens)
+        losses.append(loss.item())
+
+    def read():
+        torch.cuda.synchronize()
+        return dict(region_used=int(lib.vgpu_get_used(0)),
+                    smi=smi_card_mib() * MIB)
+
+    tree = {"mu": state.opt_state.mu, "nu": state.opt_state.nu}
+    leaves = oversub.tree_leaves(tree)
+    n = oversub.tree_bytes(tree)
+    kept = [t.clone() for t in leaves]
+    oversub.global_store().register("adamw", tree)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    refusals = interposer_stats()["refusals"]
+    [(_, charged, grant)] = spiller.sample()
+    fill = grant - charged - spiller.headroom + SWAP_OVER_MIB * MIB
+    check(fill > 0, f"the state's charge {charged} is already past the "
+          f"pressure point of a {grant}-byte grant")
+    ballast = torch.empty(fill, dtype=torch.uint8, device="cuda")
+    pressure = dict(grant=grant, charged=charged, ballast=fill,
+                    allocated=torch.cuda.memory_allocated(0),
+                    headroom=spiller.headroom,
+                    charged_at_gate=spiller.sample()[0][1])
+    check(pressure["allocated"] + spiller.headroom < grant,
+          f"the allocated bytes alone reach the pressure point: {pressure}")
+    before = read()
+    t0 = time.monotonic()
+    core.gate(lambda: None)  # holds nothing: the pressure spills the state
+    suspend_s = time.monotonic() - t0
+    during = read()
+    spilled = all(t.device.type == "cpu" and t.is_pinned() for t in leaves)
+    room = core.gate(lambda: torch.empty(n // 2, dtype=torch.uint8,
+                                         device="cuda"))
+    del room, ballast
+    torch.cuda.empty_cache()
+    t0 = time.monotonic()
+    core.gate(lambda state: None, state)
+    resume_s = time.monotonic() - t0
+    on_card = all(t.is_cuda for t in leaves)
+    bitwise = all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                  for a, b in zip(leaves, kept))
+    del kept
+    pressure["refusals"] = interposer_stats()["refusals"] - refusals
+    check(spilled and on_card and bitwise and not pressure["refusals"],
+          f"spilled at the gate {spilled}, back on the card {on_card}, "
+          f"bitwise {bitwise}, refusals {pressure['refusals']}")
+    freed = {k: before[k] - during[k] for k in before}
+    for what, got in freed.items():
+        check(abs(got - n) <= TOL_SWAP_BYTES * n,
+              f"the spill under the interposer freed {got} bytes by {what}, "
+              f"the state is {n}")
+    for _ in range(INTERPOSER_SWAP_STEPS):
+        state, loss = step(state, tokens)
+        losses.append(loss.item())
+    check(not limiter and not shim.last_cost_us and shim.dispatches == 0,
+          f"the limiter ran under the interposer: {limiter[:4]}")
+    check(all(map(math.isfinite, losses)), f"losses {losses}")
+    return dict(losses=losses, freed=freed, limiter_calls=len(limiter),
+                pressure=pressure,
+                host_swap=dict(state_bytes=n, suspend_s=suspend_s,
+                               resume_s=resume_s, resumed_bitwise=bitwise),
+                interposer=interposer_stats(),
+                launches=dict(zip(("flash_fwd", "flash_bwd_dq",
+                                   "flash_bwd_dkv"),
+                                  [f.launches for f in counters])))
+
+
 def stats_reader():
     """A reader of the preloaded interposer's counters on device 0, bound
     once: the co-residency children read it after every step."""
@@ -2106,6 +2218,7 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "plain_torch": child_plain_torch,
                     "cotenant": child_cotenant,
                     "interposer_train": child_interposer_train,
+                    "interposer_swap": child_interposer_swap,
                     "cores_train": child_cores_train,
                     "cores_serve": child_cores_serve,
                     "preempt": child_preempt,
@@ -2233,9 +2346,11 @@ def phase_enforce(torch, record, interposer: Path, driver: Path):
     one 24000 MiB grant (their contexts made together while a co-tenant
     outside the pod allocates and frees), a process that imports only
     torch under 8000 MiB, the train step without the interposer and
-    through it uncapped, AB_PAIRS times in turn, and through it at 30%
-    with the Python gate off.  Returns the port kernels' launches in the
-    children (each child counts from 0)."""
+    through it uncapped, AB_PAIRS times in turn, through it at 30%
+    with the Python gate off, and through it with an oversubscribed
+    40000 MiB grant, its AdamW state through host swap at the spill-only
+    gate (child_interposer_swap).  Returns the port kernels' launches in
+    the children (each child counts from 0)."""
     uuid = nvidia_smi("uuid")
     t0 = time.monotonic()
     gc.collect()
@@ -2281,6 +2396,9 @@ def phase_enforce(torch, record, interposer: Path, driver: Path):
             "interposer_train", tmp, label="interposer_capped",
             CUDA_DEVICE_SM_LIMIT=ENFORCE_SM_LIMIT,
             GPU_CORE_UTILIZATION_POLICY="force", **preload))
+        children.append(EnforceChild(
+            "interposer_swap", tmp, CUDA_OVERSUBSCRIBE="true",
+            CUDA_DEVICE_MEMORY_LIMIT_0=f"{CORES_TRAIN_MIB}m", **preload))
         try:
             mem = children[0].run(record)
             uncapped = children[1].run(record)
@@ -2291,7 +2409,8 @@ def phase_enforce(torch, record, interposer: Path, driver: Path):
             pods, pod_smi, cotenant = run_pod(pool, pod, children[5:7],
                                               children[7], record)
             plain_torch = children[8].run(record)
-            trains = {c.label: c.run(record) for c in children[9:]}
+            trains = {c.label: c.run(record) for c in children[9:-1]}
+            iswap = children[-1].run(record)
             costs = {"uncapped": launch_cost(driver, interposer, tmp,
                                              "launch_uncapped"),
                      "capped": launch_cost(
@@ -2319,6 +2438,14 @@ def phase_enforce(torch, record, interposer: Path, driver: Path):
           f"step 2) {uncapped['losses']}")
     interposed = interposer_checks(icap, pods, pod_smi, cotenant,
                                    plain_torch, trains, capped["losses"])
+    unswapped = trains["interposer_uncapped_0"]["losses"]
+    check(iswap["losses"] == unswapped[:len(iswap["losses"])],
+          f"losses after the swap under the interposer {iswap['losses']} "
+          f"!= the unswapped interposed run's {unswapped}")
+    interposed["host_swap"] = {k: iswap[k] for k in (
+        "freed", "limiter_calls", "pressure")} | {
+        k: iswap["host_swap"][k] for k in ("state_bytes", "suspend_s",
+                                           "resume_s", "resumed_bitwise")}
     interposed["host_us_per_launch"]["null_kernel"] = costs
     summary = {
         "phase": "enforce", "card": record["card"],
@@ -2358,7 +2485,7 @@ def phase_enforce(torch, record, interposer: Path, driver: Path):
         f"beside a co-tenant's {cotenant['cycles']} allocations; capped duty "
         f"{trains['interposer_capped']['duty']:.4f}")
     log(json.dumps(summary))
-    counts = [sum(run["launches"][n] for run in (uncapped, capped,
+    counts = [sum(run["launches"][n] for run in (uncapped, capped, iswap,
                                                  *trains.values()))
               for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
     counts[0] += mem["flash_launches"] + icap["flash_launches"]
@@ -2941,15 +3068,123 @@ def coresidency_checks(record, tl: Timeline, legs: dict, rows: dict,
     }
 
 
+def apply_json_patch(obj: dict, ops: list) -> dict:
+    """What the apiserver makes of ``obj`` under a webhook's JSONPatch: a
+    copy with each ``add`` applied in order (the only op the webhook
+    writes)."""
+    out = json.loads(json.dumps(obj))
+    for op in ops:
+        check(op["op"] == "add", f"JSONPatch op {op}")
+        keys = [k.replace("~1", "/").replace("~0", "~")
+                for k in op["path"].split("/")[1:]]
+        parent = out
+        for k in keys[:-1]:
+            parent = parent[int(k)] if isinstance(parent, list) else parent[k]
+        value, last = json.loads(json.dumps(op["value"])), keys[-1]
+        if not isinstance(parent, list):
+            parent[last] = value
+        elif last == "-":
+            parent.append(value)
+        else:
+            parent.insert(int(last), value)
+    return out
+
+
+def schedule_pod(base: str, kube, pod: dict, node: str) -> dict:
+    """One pod through the port's scheduler extender at ``base`` as the
+    apiserver and kube-scheduler drive it: an AdmissionReview to
+    /webhook, its patch applied and the pod created; /filter offering
+    ``node``; /bind to the node Filter chose.  Returns the patch, the two
+    replies and the seconds each call took."""
+    import base64
+
+    meta = pod["metadata"]
+    out = {}
+    t0 = time.monotonic()
+    status, review = http(f"{base}/webhook", {
+        "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+        "request": {"uid": f"review-{meta['uid']}", "operation": "CREATE",
+                    "namespace": meta["namespace"], "object": pod}})
+    out["webhook_s"] = time.monotonic() - t0
+    check(status == 200 and review["response"]["allowed"]
+          and review["response"].get("patchType") == "JSONPatch",
+          f"{meta['name']}: the webhook answered {status} {review}")
+    out["patch"] = json.loads(base64.b64decode(review["response"]["patch"]))
+    created = kube.create_pod(apply_json_patch(pod, out["patch"]))
+    t0 = time.monotonic()
+    status, out["filter"] = http(f"{base}/filter",
+                                 {"Pod": created, "NodeNames": [node]})
+    out["filter_s"] = time.monotonic() - t0
+    check(status == 200 and out["filter"]["NodeNames"] == [node]
+          and not out["filter"]["Error"],
+          f"{meta['name']}: Filter answered {status} {out['filter']}")
+    t0 = time.monotonic()
+    status, out["bind"] = http(f"{base}/bind", {
+        "PodName": meta["name"], "PodNamespace": meta["namespace"],
+        "PodUID": meta["uid"], "Node": out["filter"]["NodeNames"][0]})
+    out["bind_s"] = time.monotonic() - t0
+    check(status == 200 and out["bind"] == {"Error": ""},
+          f"{meta['name']}: Bind answered {status} {out['bind']}")
+    return out
+
+
+class ControlPlane:
+    """The port's scheduler extender and a node agent's register stream,
+    in this process, on ``kube``: a Scheduler with its register service on
+    the unix socket ``sock``, a DeviceRegister streaming ``backend``'s
+    cards to it as node ``cfg.node_name``, and the HTTP extender on
+    127.0.0.1 at a port of its own.  Up once the scheduler holds the
+    node's inventory."""
+
+    def __init__(self, kube, backend, cfg, sock: Path) -> None:
+        from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import \
+            start_register_service
+        from k8s_vgpu_scheduler_tpu_torch.deviceplugin import DeviceRegister
+        from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler
+        from k8s_vgpu_scheduler_tpu_torch.scheduler.routes import \
+            ExtenderServer
+
+        self.scheduler = Scheduler(kube, cfg)
+        self.scheduler.resync_from_apiserver()
+        self.grpc = start_register_service(self.scheduler, f"unix:{sock}",
+                                           workers=4)
+        self.register = DeviceRegister(backend, cfg, endpoint=f"unix:{sock}")
+        self.http = ExtenderServer(self.scheduler, cfg, host="127.0.0.1",
+                                   port=0)
+        self.base = f"http://127.0.0.1:{self.http.port}"
+        try:
+            self.register.start()
+            self.http.start()
+            t0 = time.monotonic()
+            while self.scheduler.nodes.get_node(cfg.node_name) is None:
+                check(time.monotonic() - t0 < REGISTER_WAIT_S,
+                      f"node {cfg.node_name} never registered")
+                time.sleep(0.05)
+            self.register_s = time.monotonic() - t0
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        self.register.stop()
+        self.http.stop()
+        self.grpc.stop(grace=1).wait()
+        if self.register._thread is not None:
+            self.register._thread.join(timeout=10)
+
+
 def node_agent() -> int:
-    """The port's node agent on the card (``--enforce-child node_agent``),
-    in a process that never imports torch: the card through NVML
-    (``detect()``), one health poll, then a GpuDevicePlugin on a FakeKube
-    answers Allocate through its core for the two PLUGIN_PODS, each bound
-    as the scheduler's Bind leaves a pod (the node lock held, its grant
-    written with the port's codec); NODE_AGENT_POLLS more polls.  Prints
-    the cards, the inventory, the advertisement, the polls and each pod's
-    spec, response, bind phase and lock as one ENFORCE line."""
+    """The port's node agent and scheduler extender on the card
+    (``--enforce-child node_agent``), in a process that never imports
+    torch: the card through NVML (``detect()``), one health poll; then the
+    port's control plane on a FakeKube (ControlPlane: the scheduler, the
+    register stream from these cards over a unix socket, the extender on
+    127.0.0.1).  Each of the two PLUGIN_PODS is created with resources
+    only, mutated by /webhook, placed by /filter and bound by /bind
+    (schedule_pod), then answered by a GpuDevicePlugin's Allocate;
+    NODE_AGENT_POLLS more polls.  Prints the cards, the inventory, the
+    advertisement, what the scheduler registered, the polls and each pod's
+    spec, handshake, response, bind phase and lock as one ENFORCE line."""
     sys.path.insert(0, str(ROOT))
     import importlib.metadata
 
@@ -2957,8 +3192,7 @@ def node_agent() -> int:
         DeviceCache, GpuDevicePlugin, advertised_devices)
     from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube
     from k8s_vgpu_scheduler_tpu_torch.tpulib import NvmlBackend, detect
-    from k8s_vgpu_scheduler_tpu_torch.util import codec, nodelock
-    from k8s_vgpu_scheduler_tpu_torch.util import types as t
+    from k8s_vgpu_scheduler_tpu_torch.util import nodelock
     from k8s_vgpu_scheduler_tpu_torch.util.config import Config
 
     tmp = Path(os.environ["PLUGIN_DIR"])
@@ -2968,6 +3202,7 @@ def node_agent() -> int:
         print(f"chip_smoke: FAIL: node_agent: detect() gave "
               f"{type(backend).__name__}, not NVML", file=sys.stderr)
         return 1
+    plane = None
     try:
         cards = backend.cards()
         cache = DeviceCache(backend, heartbeat_seconds=0)
@@ -2977,31 +3212,33 @@ def node_agent() -> int:
                      cache_host_dir=str(tmp / "containers"))
         kube = FakeKube()
         kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
+        plane = ControlPlane(kube, backend, cfg, tmp / "scheduler.sock")
+        registered = [dataclasses.asdict(d) for d in
+                      plane.scheduler.nodes.get_node(PLUGIN_NODE).devices]
         plugin = GpuDevicePlugin(kube, inv, cfg)
-        chip = inv.chips[0]
         pods = {}
         for name, uid, mib, priority in PLUGIN_PODS:
-            nodelock.lock_node(kube, PLUGIN_NODE)
-            grant = [[t.ContainerDevice(chip.uuid, chip.type, mib,
-                                        CORES_SM_LIMIT)]]
-            kube.create_pod({
-                "metadata": {"name": name, "namespace": "default", "uid": uid,
-                             "annotations": {
-                                 t.BIND_TIME_ANNOTATION: str(time.time_ns()),
-                                 t.BIND_PHASE_ANNOTATION: t.BIND_ALLOCATING,
-                                 t.ASSIGNED_NODE_ANNOTATION: PLUGIN_NODE,
-                                 t.TO_ALLOCATE_ANNOTATION:
-                                     codec.encode_pod_devices(grant)}},
-                # The webhook writes the priority into the pod's spec.
-                "spec": {"nodeName": PLUGIN_NODE, "containers": [{
-                    "name": name, "env": [{"name": "CUDA_TASK_PRIORITY",
-                                           "value": str(priority)}]}]}})
+            # What a user writes: resources only.
+            spec = {"metadata": {"name": name, "namespace": "default",
+                                 "uid": uid, "annotations": {}},
+                    "spec": {"containers": [{"name": name, "resources": {
+                        "limits": {"nvidia.com/gpu": "1",
+                                   "nvidia.com/gpumem": str(mib),
+                                   "nvidia.com/gpucores":
+                                       str(CORES_SM_LIMIT),
+                                   "nvidia.com/priority": str(priority)}}}]}}
+            handshake = schedule_pod(plane.base, kube, spec, PLUGIN_NODE)
+            t_alloc = time.monotonic()
             [resp] = plugin.allocate(1)
+            handshake["allocate_s"] = time.monotonic() - t_alloc
             pods[name] = dict(
                 key=f"{uid}_{name}", grant_mib=mib, priority=priority,
-                pod=kube.get_pod("default", name),
+                pod=kube.get_pod("default", name), handshake=handshake,
                 response=dataclasses.asdict(resp),
                 locked=nodelock.is_locked(kube, PLUGIN_NODE))
+        register_s = plane.register_s
+        plane.close()
+        plane = None
         for _ in range(NODE_AGENT_POLLS):
             time.sleep(0.5)
             polls.append(cache.poll_once())
@@ -3009,11 +3246,12 @@ def node_agent() -> int:
         out = dict(
             backend=type(backend).__name__, cards=cards,
             inventory=[dataclasses.asdict(c) for c in inv.chips],
-            advertised=advertised_devices(inv, cfg), polls=polls,
+            advertised=advertised_devices(inv, cfg), registered=registered,
+            register_s=register_s, polls=polls,
             events_registered=events.registered if events else None,
             events_unsupported=events.unsupported if events else None,
             events_error=backend.events_error, pods=pods, packages={})
-        for dist in ("grpcio", "protobuf"):  # the gRPC edge's, not loaded
+        for dist in ("grpcio", "protobuf"):
             try:
                 out["packages"][dist] = importlib.metadata.version(dist)
             except importlib.metadata.PackageNotFoundError:
@@ -3022,6 +3260,8 @@ def node_agent() -> int:
         print(f"chip_smoke: FAIL: node_agent: {exc}", file=sys.stderr)
         return 1
     finally:
+        if plane is not None:
+            plane.close()
         backend.close()
     out["torch_loaded"] = "torch" in sys.modules
     out["run_s"] = time.monotonic() - t0
@@ -3040,13 +3280,35 @@ def smi_rows(query: str) -> list:
             for line in res.stdout.strip().splitlines() if line.strip()]
 
 
-def kubelet_env(pod: dict, resp: dict) -> dict:
-    """What a kubelet gives a pod's container from the pod's spec and the
-    device plugin's answer, and nothing else: the spec's env, the answer's
-    env, and the library the mounted /etc/ld.so.preload names as
-    LD_PRELOAD.  Mounts are container paths mapped to host paths: a path
+def podinfo_text(annotations: dict) -> str:
+    """kubelet's downward-API file of a pod's annotations: one
+    ``key="value"`` line a key, sorted, the value quoted."""
+    return "".join(f"{k}={json.dumps(v)}\n"
+                   for k, v in sorted(annotations.items()))
+
+
+def kubelet_env(pod: dict, resp: dict, volumes: Path) -> dict:
+    """What a kubelet gives a pod's first container from the pod's spec and
+    the device plugin's answer, and nothing else: the spec's env, the
+    answer's env, the library the mounted /etc/ld.so.preload names as
+    LD_PRELOAD, and the spec's downward-API volumes, written under
+    ``volumes``.  Mounts are container paths mapped to host paths: a path
     under one is rewritten to the host's (no mount namespace here)."""
     mounts = {m["container_path"]: m["host_path"] for m in resp["mounts"]}
+    ctr = pod["spec"]["containers"][0]
+    for vol in pod["spec"].get("volumes", []):
+        if "downwardAPI" not in vol:
+            continue
+        [mount] = [m for m in ctr.get("volumeMounts", [])
+                   if m["name"] == vol["name"]]
+        host_dir = volumes / pod["metadata"]["uid"] / vol["name"]
+        host_dir.mkdir(parents=True)
+        for item in vol["downwardAPI"]["items"]:
+            check(item["fieldRef"]["fieldPath"] == "metadata.annotations",
+                  f"downward-API item {item}")
+            (host_dir / item["path"]).write_text(
+                podinfo_text(pod["metadata"]["annotations"]))
+        mounts[mount["mountPath"]] = str(host_dir)
 
     def host(path: str) -> str:
         for c, h in mounts.items():
@@ -3054,7 +3316,7 @@ def kubelet_env(pod: dict, resp: dict) -> dict:
                 return h + path[len(c):]
         return path
 
-    env = {e["name"]: e["value"] for e in pod["spec"]["containers"][0]["env"]}
+    env = {e["name"]: host(e["value"]) for e in ctr.get("env", [])}
     env.update({k: host(v) for k, v in resp["envs"].items()})
     preload = Path(mounts["/etc/ld.so.preload"]).read_text().split()
     env["LD_PRELOAD"] = ":".join(host(lib) for lib in preload)
@@ -3062,13 +3324,17 @@ def kubelet_env(pod: dict, resp: dict) -> dict:
 
 
 def phase_device_plugin(torch, record, vgpu: Path):
-    """The port's node agent on the card.  (a) ``node_agent`` in a child
-    that never imports torch: its NVML inventory held to nvidia-smi and to
-    this process's TorchBackend, the memory it advertises to CUDA's size,
-    one healthy poll, each bind phase ``success`` with the node lock
-    released, each pod's region dir made, and the card's used memory
-    sampled through its life (no context).  (b) S and T as pods whose
-    grant env comes only from the answers (``kubelet_env``), with the
+    """The port's node agent and scheduler extender on the card.  (a)
+    ``node_agent`` in a child that never imports torch: its NVML inventory
+    held to nvidia-smi and to this process's TorchBackend, the memory it
+    advertises to CUDA's size and what the port's scheduler registered
+    from its stream, one healthy poll, each pod placed by the port's
+    webhook, Filter and Bind (``placed``: no grant key comes from this
+    script), each bind phase ``success`` with the node lock released,
+    each pod's region dir made, and the card's used memory sampled
+    through its life (no context).  (b) S and T as pods whose grant env
+    comes only from their specs and the answers (``kubelet_env``, which
+    also writes T's downward-API annotations file), with the
     interposer the plugin installed, under the port's monitor scanning the
     plugin's cache_host_dir: one flat leg (plugin_leg).  Each pod's env,
     region, ``mem_get_info`` and nvidia-smi samples hold its grant; T's
@@ -3160,6 +3426,11 @@ def phase_device_plugin(torch, record, vgpu: Path):
               f"({len(life)} samples)")
         check(not any(str(agent.pid) in pids for _, _, pids in life),
               "the node agent is a compute process")
+        check([(d["id"], d["devmem"], d["count"], d["health"])
+               for d in na["registered"]]
+              == [(chip["uuid"], sizes["advertised_mib"], 10, True)],
+              f"the scheduler registered {na['registered']}, NVML's card "
+              f"{chip['uuid']} advertised at {sizes['advertised_mib']} MiB")
         for name, pod in na["pods"].items():
             anns = pod["pod"]["metadata"]["annotations"]
             check(anns["vtpu.dev/bind-phase"] == "success"
@@ -3167,10 +3438,17 @@ def phase_device_plugin(torch, record, vgpu: Path):
                   f"{name}: bind phase {anns['vtpu.dev/bind-phase']}, lock "
                   f"{pod['locked']}")
             check((root / pod["key"]).is_dir(), f"{name}: no region dir")
+            placed(name, pod, chip["uuid"])
         # (b) The two pods, started at once (their imports overlap); each
         # touches the card only after its go.
-        envs = {name: kubelet_env(pod["pod"], pod["response"])
+        volumes = tmp / "volumes"
+        envs = {name: kubelet_env(pod["pod"], pod["response"], volumes)
                 for name, pod in na["pods"].items()}
+        check(Path(envs["train"]["VTPU_PODINFO_ANNOTATIONS"]).read_text()
+              == podinfo_text(na["pods"]["train"]["pod"]["metadata"]
+                              ["annotations"])
+              and "VTPU_PODINFO_ANNOTATIONS" not in envs["serve"],
+              "T's downward-API annotations file")
         check(all(e["LD_PRELOAD"] == str(tmp / "shim" / "libvgpu_cuda.so")
                   for e in envs.values()),
               f"LD_PRELOAD {[e['LD_PRELOAD'] for e in envs.values()]}")
@@ -3236,6 +3514,33 @@ def phase_device_plugin(torch, record, vgpu: Path):
     t = legs["train"]
     return [t["launches"][n] for n in ("flash_fwd", "flash_bwd_dq",
                                        "flash_bwd_dkv")]
+
+
+def placed(name: str, pod: dict, uuid: str) -> None:
+    """Checks of one PLUGIN_PODS pod that the port's control plane placed:
+    the webhook's env and scheduler name in its spec, Filter's node, and
+    the grant Filter wrote (the card's UUID, the pod's MiB and cores) as
+    what Allocate took."""
+    from k8s_vgpu_scheduler_tpu_torch.util import codec
+
+    spec = pod["pod"]["spec"]
+    env = {e["name"]: e["value"] for e in spec["containers"][0]["env"]}
+    check(env.get("CUDA_TASK_PRIORITY") == str(pod["priority"])
+          and spec.get("schedulerName") == "vgpu-scheduler"
+          and spec.get("nodeName") == PLUGIN_NODE,
+          f"{name}: the webhook's spec {spec}")
+    anns = pod["pod"]["metadata"]["annotations"]
+    [[grant]] = codec.decode_pod_devices(anns["vtpu.dev/assigned-ids"])
+    check(anns["vtpu.dev/assigned-node"] == PLUGIN_NODE
+          and (grant.uuid, grant.usedmem, grant.usedcores)
+          == (uuid, pod["grant_mib"], CORES_SM_LIMIT)
+          and pod["handshake"]["filter"]["NodeNames"] == [PLUGIN_NODE],
+          f"{name}: Filter's grant {grant} on "
+          f"{anns['vtpu.dev/assigned-node']}")
+    check(pod["response"]["envs"]["CUDA_DEVICE_MEMORY_LIMIT_0"]
+          == str(pod["grant_mib"])
+          and pod["response"]["envs"]["NVIDIA_VISIBLE_DEVICES"] == uuid,
+          f"{name}: Allocate's answer {pod['response']['envs']}")
 
 
 def plugin_leg(tl: Timeline, t, s) -> dict:
@@ -3329,6 +3634,11 @@ def plugin_checks(record, na, sizes, envs, regions, legs, tl, seen,
                 (m for _, m, _ in record["node_agent"]["life"]),
                 default=0) - record["node_agent"]["base_mib"],
             "torch_loaded": na["torch_loaded"], "polls": na["polls"]},
+        "control_plane": {
+            "register_s": na["register_s"], "registered": na["registered"],
+            **{name: {k: pods[name]["handshake"][k] for k in (
+                "patch", "webhook_s", "filter", "filter_s", "bind",
+                "bind_s", "allocate_s")} for name in pods}},
         "pods": {name: {
             "grant_mib": pods[name]["grant_mib"],
             "envs": pods[name]["response"]["envs"],

@@ -1,0 +1,193 @@
+"""Scheduler extender entrypoint of the port.
+
+    vgpu-scheduler --http-bind 0.0.0.0:9443 --grpc-bind 0.0.0.0:9090 ...
+    python -m k8s_vgpu_scheduler_tpu_torch.cmd.scheduler ...
+
+The port's counterpart of the JAX package's ``cmd/scheduler.py`` with the
+reference's flags (cmd/scheduler/main.go:50–100): the gRPC and HTTP binds,
+the TLS cert and key, the scheduler name, the request defaults and the
+resource names, plus the node policy, the leases and the informer's
+knobs.  Boot order: list the pods and reconcile the grants before anything
+serves (a restarted scheduler that filtered against an empty registry
+would book cards twice), then the watch thread, the register service and
+the HTTP extender.  ``/metrics`` waits for the port's metrics slice.
+This module is the gRPC edge: the core imports neither grpc nor protobuf.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+import signal
+import threading
+from concurrent import futures
+
+from ..k8s import FakeKube, make_client
+from ..k8s.client import KubeClient, NotFound
+from ..scheduler.core import Scheduler, run_watch_loop
+from ..scheduler.routes import ExtenderServer
+from ..util.config import Config, ResourceNames
+
+log = logging.getLogger(__name__)
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("vgpu-scheduler")
+    p.add_argument("--grpc-bind", default="0.0.0.0:9090",
+                   help="the register stream's address (host:port, or "
+                        "unix:<path>)")
+    p.add_argument("--http-bind", default="0.0.0.0:9443")
+    p.add_argument("--cert-file", default="")
+    p.add_argument("--key-file", default="")
+    p.add_argument("--scheduler-name", default="vgpu-scheduler")
+    p.add_argument("--default-mem", type=int, default=0,
+                   help="MiB a container that asks for cards but no memory "
+                        "gets; 0 = the whole card")
+    p.add_argument("--default-cores", type=int, default=0)
+    p.add_argument("--resource-name", default="nvidia.com/gpu")
+    p.add_argument("--resource-mem", default="nvidia.com/gpumem")
+    p.add_argument("--resource-mem-percentage",
+                   default="nvidia.com/gpumem-percentage")
+    p.add_argument("--resource-cores", default="nvidia.com/gpucores")
+    p.add_argument("--resource-priority", default="nvidia.com/priority")
+    p.add_argument("--node-scheduler-policy", default="spread",
+                   choices=("spread", "binpack"),
+                   help="among fitting nodes: spread = the most free "
+                        "capacity wins; binpack = the fullest wins")
+    p.add_argument("--lease-ttl", type=float, default=15.0,
+                   help="seconds without a register-stream message before "
+                        "a node takes no new placement")
+    p.add_argument("--lease-grace-beats", type=int, default=2,
+                   help="further lease-ttl periods before the node is dead")
+    p.add_argument("--resync-seconds", type=float, default=None,
+                   help="full re-list period; default 300 with the watch, "
+                        "30 without")
+    p.add_argument("--no-watch", action="store_true",
+                   help="no pod watch: the resync alone frees grants")
+    p.add_argument("--fake-kube", action="store_true",
+                   help="an in-memory apiserver (a dry run)")
+    p.add_argument("--kube-url", default="",
+                   help="apiserver base URL; empty = in-cluster")
+    p.add_argument("-v", "--verbose", action="count", default=0)
+    return p.parse_args(argv)
+
+
+def build_config(args) -> Config:
+    return Config(
+        resources=ResourceNames(
+            count=args.resource_name, memory=args.resource_mem,
+            memory_percentage=args.resource_mem_percentage,
+            cores=args.resource_cores, priority=args.resource_priority),
+        scheduler_name=args.scheduler_name, default_mem=args.default_mem,
+        default_cores=args.default_cores,
+        node_scheduler_policy=args.node_scheduler_policy,
+        lease_ttl_s=args.lease_ttl, lease_grace_beats=args.lease_grace_beats)
+
+
+def resolve_watch_and_resync(no_watch: bool, client, resync_seconds):
+    """(watch on, resync period): the watch runs unless disabled or the
+    client cannot watch; the resync is then the safety net (300 s), else
+    the only delete path (30 s)."""
+    watch = (not no_watch and type(client).watch_pods_events
+             is not KubeClient.watch_pods_events)
+    if resync_seconds is None:
+        resync_seconds = 300.0 if watch else 30.0
+    return watch, resync_seconds
+
+
+class DryRunKube(FakeKube):
+    """A FakeKube for ``--fake-kube`` dry runs: a pod POSTed to /filter
+    that was never created is created by its decision write, and a node
+    a device plugin registers exists for Bind's lock."""
+
+    def patch_pod_annotations(self, namespace, name, annotations,
+                              resource_version=None):
+        try:
+            return super().patch_pod_annotations(
+                namespace, name, annotations,
+                resource_version=resource_version)
+        except NotFound:
+            self.create_pod({
+                "metadata": {"name": name, "namespace": namespace,
+                             "uid": f"dryrun-{namespace}-{name}",
+                             "annotations": {}},
+                "spec": {"containers": []}})
+            return super().patch_pod_annotations(namespace, name,
+                                                 annotations)
+
+    def get_node(self, name):
+        try:
+            return super().get_node(name)
+        except NotFound:
+            self.add_node({"metadata": {"name": name, "annotations": {}}})
+            return super().get_node(name)
+
+
+def start_register_service(scheduler: Scheduler, bind: str,
+                           workers: int = 16):
+    """The gRPC register service (DeviceService.Register) on ``bind``,
+    started; returns the server."""
+    import grpc
+
+    from ..api import device_register_pb2 as pb
+    from ..api.service import add_device_service
+
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=workers))
+
+    def register(request_iterator, context):
+        node = scheduler.handle_register_stream(request_iterator, context)
+        return pb.RegisterReply(message=f"bye {node}")
+
+    add_device_service(server, register)
+    if server.add_insecure_port(bind) == 0:
+        raise OSError(f"cannot bind the register service to {bind}")
+    server.start()
+    return server
+
+
+def main(argv=None):
+    args = parse_args(argv)
+    logging.basicConfig(
+        level=logging.DEBUG if args.verbose else logging.INFO,
+        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    client = DryRunKube() if args.fake_kube else \
+        make_client(kube_url=args.kube_url)
+    scheduler = Scheduler(client, build_config(args))
+    # Before anything serves: the grants of the running pods.
+    initial_rv = scheduler.resync_from_apiserver()
+    watch, resync_s = resolve_watch_and_resync(args.no_watch, client,
+                                               args.resync_seconds)
+    stop = threading.Event()
+    if watch:
+        threading.Thread(target=run_watch_loop, args=(scheduler, stop),
+                         kwargs={"initial_rv": initial_rv},
+                         name="pod-watch", daemon=True).start()
+    grpc_server = start_register_service(scheduler, args.grpc_bind)
+    host, _, port = args.http_bind.rpartition(":")
+    http_server = ExtenderServer(
+        scheduler, scheduler.cfg, host=host or "0.0.0.0", port=int(port),
+        certfile=args.cert_file or None, keyfile=args.key_file or None)
+    http_server.start()
+    log.info("vgpu-scheduler up: grpc=%s http=%s:%d", args.grpc_bind,
+             host or "0.0.0.0", http_server.port)
+
+    def terminate(signum, frame):
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, terminate)
+    try:
+        while not stop.wait(resync_s):
+            try:
+                scheduler.resync_from_apiserver()
+            except Exception:  # noqa: BLE001 — a passing apiserver loss
+                log.exception("resync failed")
+    except KeyboardInterrupt:
+        pass
+    finally:
+        stop.set()
+        http_server.stop()
+        grpc_server.stop(grace=2)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,449 @@
+"""Scheduler core: the node and pod registries, Filter and Bind (the port's
+copy of the reference's surface of the JAX package's ``scheduler/core.py``).
+
+Reference: pkg/scheduler/scheduler.go (the Register stream handler
+134–169, getNodesUsage 176–222, Filter 266–314, Bind 224–264).  Filter is
+the extender's predicate: given a pod and candidate nodes, it picks the
+best node, writes the device decision into the pod's annotations and
+returns that node alone.  Bind takes the node lock, marks the allocating
+phase and posts the Binding; the node agent's Allocate completes the
+two-phase commit and releases the lock.
+
+Each decision runs whole under one lock, as the JAX package's serial path
+does (``Config.optimistic_commit=False``).  Of the JAX scheduler's
+subsystems this one carries only the node leases.  A pod that declares a
+device mesh (``vtpu.dev/mesh``) or a gang (``vtpu.dev/pod-group``) is
+refused with an error that names the slice that places it: it is never
+placed as though it declared neither.  This module imports neither grpc
+nor protobuf: the register stream's messages are read through their
+attributes, and only ``cmd/scheduler.py`` converts at the gRPC edge.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from typing import Dict, List, Optional, Tuple
+
+from ..health.lease import LeaseConfig, LeaseTracker
+from ..k8s.client import (
+    Gone,
+    KubeClient,
+    NotFound,
+    is_pod_terminated,
+    pod_name,
+    pod_namespace,
+    pod_qos,
+    pod_uid,
+)
+from ..util import codec, trace
+from ..util.config import Config
+from ..util.nodelock import NodeLockError, lock_node, release_node
+from ..util.protocol import bind_timestamp
+from ..util.resources import container_requests, pod_priority
+from ..util.types import (
+    ASSIGNED_IDS_ANNOTATION,
+    ASSIGNED_NODE_ANNOTATION,
+    ASSIGNED_TIME_ANNOTATION,
+    BIND_ALLOCATING,
+    BIND_PHASE_ANNOTATION,
+    BIND_TIME_ANNOTATION,
+    GANG_GROUP_ANNOTATION,
+    MESH_ANNOTATION,
+    QOS_BEST_EFFORT,
+    QOS_DUTY_SPLIT_ANNOTATION,
+    TO_ALLOCATE_ANNOTATION,
+)
+from . import score as score_mod
+from .nodes import DeviceInfo, NodeInfo, NodeManager
+from .pods import PodInfo, PodManager
+
+log = logging.getLogger(__name__)
+
+#: Annotations this scheduler refuses to place without, by the slice of
+#: the port that places them.
+UNPLACED_ANNOTATIONS = {
+    MESH_ANNOTATION: "device meshes are placed by the topology slice "
+                     "(ROADMAP A.3c)",
+    GANG_GROUP_ANNOTATION: "pod groups are placed by the gang slice "
+                           "(ROADMAP A.5)",
+}
+
+
+class FilterResult:
+    def __init__(self, node: Optional[str] = None,
+                 failed: Optional[Dict[str, str]] = None,
+                 error: str = "") -> None:
+        self.node = node
+        self.failed = failed or {}
+        self.error = error
+
+
+def decode_register_request(req) -> NodeInfo:
+    """A RegisterRequest (any object with its fields) → NodeInfo.  The
+    card's fabric coordinates and the node's topology are not read: the
+    topology slice places by them."""
+    return NodeInfo(name=req.node, devices=[
+        DeviceInfo(id=d.id, count=d.count, devmem=d.devmem, type=d.type,
+                   health=d.health, cores=d.cores or 100)
+        for d in req.devices])
+
+
+class Scheduler:
+    def __init__(self, client: KubeClient, cfg: Optional[Config] = None,
+                 clock=None) -> None:
+        self.client = client
+        self.cfg = cfg or Config()
+        self.nodes = NodeManager()
+        self.pods = PodManager()
+        # ``clock`` (time.monotonic by default) drives the leases, so
+        # tests age them without sleeping.
+        self.leases = LeaseTracker(
+            LeaseConfig(ttl_s=self.cfg.lease_ttl_s,
+                        grace_beats=self.cfg.lease_grace_beats),
+            clock=clock)
+        # Held for a whole decision: candidate evaluation and the
+        # tentative grant, never across apiserver I/O.
+        self._lock = threading.Lock()
+        # uid -> monotonic time of its DELETE.  A uid never returns, so a
+        # replayed ADDED of one (a resync list older than the delete) is
+        # ignored, or it would book a dead pod's cards again.
+        self._deleted_uids: Dict[str, float] = {}
+        self._deleted_lock = threading.Lock()
+        self._deleted_horizon_s = 900.0
+        self._deleted_pruned_at = 0.0
+
+    # -- register stream (gRPC DeviceService.Register) -------------------------
+    def observe_registration(self, node_name: str, info: NodeInfo) -> None:
+        """One register-stream message: a lease beat, and the inventory
+        where it changed."""
+        self.leases.beat(node_name)
+        if not self.nodes.same_inventory(node_name, info):
+            self.nodes.add_node(node_name, info)
+            log.info("registered node %s with %d cards", node_name,
+                     len(info.devices))
+
+    def handle_register_stream(self, request_iterator, context=None) -> str:
+        """Consume one node agent's stream; when it ends, drop the node
+        (reference Register, scheduler.go:134–169).  The node's lease is
+        kept: an agent reconnects within seconds, and a blip must not
+        read as a dead node."""
+        node_name = ""
+        try:
+            for req in request_iterator:
+                node_name = req.node
+                self.observe_registration(node_name,
+                                          decode_register_request(req))
+        finally:
+            if node_name:
+                log.warning("register stream for %s closed; dropping node",
+                            node_name)
+                self.nodes.rm_node(node_name)
+        return node_name
+
+    # -- pod informer ----------------------------------------------------------
+    def _note_deleted(self, uid: str) -> None:
+        """Tombstone a deleted uid.  Tombstones past the horizon are pruned
+        at most once a minute: a scan on every DELETE would make a
+        completion storm quadratic."""
+        now = time.monotonic()
+        with self._deleted_lock:
+            if now - self._deleted_pruned_at >= 60.0:
+                self._deleted_pruned_at = now
+                cutoff = now - self._deleted_horizon_s
+                for u in [u for u, t in self._deleted_uids.items()
+                          if t < cutoff]:
+                    del self._deleted_uids[u]
+            self._deleted_uids[uid] = now
+
+    def _deleted(self, uid: str) -> bool:
+        with self._deleted_lock:
+            return uid in self._deleted_uids
+
+    def on_pod_event(self, event: str, pod: dict) -> None:
+        """Rebuild the grants from the pods' ``assigned-ids`` (reference
+        onAddPod, scheduler.go:66–86): free a deleted or finished pod's,
+        and ignore an ADDED replayed after its DELETE."""
+        uid = pod_uid(pod)
+        if not uid:
+            return
+        anns = pod.get("metadata", {}).get("annotations", {}) or {}
+        node = anns.get(ASSIGNED_NODE_ANNOTATION, "")
+        if event == "DELETED" or is_pod_terminated(pod):
+            if self.pods.get(uid) is not None and not self._deleted(uid):
+                trace.tracer().event(uid, "deleted", trace_id=anns.get(
+                    trace.TRACE_ID_ANNOTATION, ""), pod=pod_name(pod),
+                    event=event)
+            self._note_deleted(uid)
+            self.pods.del_pod(uid)
+            return
+        if not node:
+            self.pods.del_pod(uid)
+            return
+        if event == "ADDED" and self._deleted(uid):
+            return
+        encoded = anns.get(ASSIGNED_IDS_ANNOTATION, "")
+        if not encoded:
+            return
+        try:
+            devices = codec.decode_pod_devices(encoded)
+        except codec.CodecError as e:
+            log.error("pod %s has a malformed %s: %s", pod_name(pod),
+                      ASSIGNED_IDS_ANNOTATION, e)
+            return
+        try:
+            prio = pod_priority(pod, self.cfg)
+        except Exception:  # noqa: BLE001 — a priority never blocks the rebuild
+            prio = 0
+        info = PodInfo(uid=uid, name=pod_name(pod),
+                       namespace=pod_namespace(pod), node=node,
+                       devices=devices, priority=prio,
+                       trace_id=anns.get(trace.TRACE_ID_ANNOTATION, ""),
+                       qos=pod_qos(pod))
+        # Usually the echo of this scheduler's own decision write.
+        if not self.pods.refresh_if_unchanged(info):
+            self.pods.add_pod(info)
+        if event == "ADDED" and self._deleted(uid):
+            # A DELETE that landed between the check above and the add.
+            self.pods.del_pod(uid)
+
+    def resync_from_apiserver(self) -> str:
+        """Full reconcile: apply every listed pod and prune the grants of
+        pods no longer listed.  Returns the list's resourceVersion, where
+        :func:`run_watch_loop` resumes.  A grant recorded after the list
+        began is kept unless a point read says its pod is gone (the list
+        may simply predate it)."""
+        list_started = time.monotonic()
+        try:
+            pods, rv = self.client.list_pods_with_rv()
+        except NotImplementedError:
+            pods, rv = self.client.list_pods(), "0"
+        for pod in pods:
+            self.on_pod_event("ADDED", pod)
+        alive = {pod_uid(p) for p in pods}
+        for info in self.pods.list_pods():
+            if info.uid in alive:
+                continue
+            if info.touched_at >= list_started:
+                try:
+                    cur = self.client.get_pod(info.namespace, info.name)
+                    if pod_uid(cur) == info.uid:
+                        continue
+                except NotFound:
+                    pass
+                except Exception:  # noqa: BLE001 — kept; the next pass retries
+                    continue
+            self.pods.del_pod(info.uid)
+        return rv
+
+    # -- usage -----------------------------------------------------------------
+    def get_nodes_usage(self, node_names: Optional[List[str]] = None
+                        ) -> Dict[str, Tuple[NodeInfo,
+                                             Dict[str, score_mod.DeviceUsage]]]:
+        """Each registered node's inventory less its grants (reference
+        getNodesUsage), built fresh: the caller owns the maps."""
+        allow = None if node_names is None else set(node_names)
+        return {name: (info, score_mod.build_usage(
+                    info, self.pods.pods_on_node(name)))
+                for name, info in self.nodes.list_nodes().items()
+                if allow is None or name in allow}
+
+    # -- Filter ----------------------------------------------------------------
+    def filter(self, pod: dict, node_names: List[str]) -> FilterResult:
+        """Decide under the lock, then write the decision outside it; the
+        tentative grant is rolled back if the write fails.  The decision
+        is the ``filter`` span, the write the ``decision-write`` span."""
+        tid = trace.trace_id_of(pod)
+        tr = trace.tracer()
+        with tr.span("filter", trace_id=tid, pod=pod_name(pod),
+                     candidates=len(node_names), qos=pod_qos(pod)) as sp:
+            result = self._decide(pod, node_names)
+            if result.failed:
+                sp.set("rejected_nodes", len(result.failed))
+            if result.error:
+                sp.set("error", result.error)
+            if result.node is not None:
+                sp.set("node", result.node)
+        uid = pod_uid(pod)
+        if result.node is None:
+            if result.error or result.failed:
+                tr.event(uid, "filter-rejected", trace_id=tid,
+                         pod=pod_name(pod), error=result.error)
+            return result
+        tr.event(uid, "filter-assigned", trace_id=tid, pod=pod_name(pod),
+                 node=result.node)
+        err = self._write_decision(pod, result)
+        if err is None:
+            return result
+        self.pods.del_pod(uid)
+        tr.event(uid, "decision-write-failed", trace_id=tid, error=err)
+        return FilterResult(error=err)
+
+    def _decide(self, pod: dict, node_names: List[str]) -> FilterResult:
+        try:
+            requests = container_requests(pod, self.cfg)
+        except ValueError as e:
+            return FilterResult(error=f"bad resource request: {e}")
+        if not any(r.nums > 0 for r in requests):
+            # Not ours: every candidate passes (the default scheduler
+            # decides).
+            return FilterResult()
+        anns = pod.get("metadata", {}).get("annotations", {}) or {}
+        for key, why in UNPLACED_ANNOTATIONS.items():
+            if anns.get(key):
+                return FilterResult(
+                    error=f"{key} is not placed by this scheduler: {why}")
+        with self._lock:
+            return self._decide_locked(pod, requests, node_names, anns)
+
+    def _decide_locked(self, pod: dict, requests, node_names: List[str],
+                       anns: Dict[str, str]) -> FilterResult:
+        """Every candidate fitted on a copy of its usage; the highest
+        score wins, the first of equals in the candidates' order."""
+        uid = pod_uid(pod)
+        self.pods.del_pod(uid)  # a retried Filter replaces its grant
+        affinity = score_mod.parse_affinity(anns)
+        failed: Dict[str, str] = {}
+        best: Optional[Tuple[float, str, list]] = None
+        for name in node_names:
+            info = self.nodes.get_node(name)
+            if info is None:
+                failed[name] = "no GPU inventory registered"
+                continue
+            why = self.leases.reject_reason(name)
+            if why is not None:
+                failed[name] = why
+                continue
+            usage = score_mod.build_usage(info, self.pods.pods_on_node(name))
+            why = score_mod.type_excluded(affinity, usage)
+            if why is not None:
+                failed[name] = why
+                continue
+            reasons: Dict[str, str] = {}
+            placement = score_mod.fit_pod(requests, usage, anns, reasons)
+            if placement is None:
+                failed[name] = reasons.get("reason",
+                                           "insufficient GPU capacity")
+                continue
+            s = score_mod.node_score(usage, self.cfg.node_scheduler_policy)
+            if best is None or s > best[0]:
+                best = (s, name, placement)
+        if best is None:
+            return FilterResult(error="no node fits GPU request",
+                                failed=failed)
+        _, node, placement = best
+        # Recorded at once, so the next decision sees the grant.
+        self.pods.add_pod(PodInfo(
+            uid=uid, name=pod_name(pod), namespace=pod_namespace(pod),
+            node=node, devices=placement,
+            priority=pod_priority(pod, self.cfg),
+            trace_id=trace.trace_id_of(pod), qos=pod_qos(pod)))
+        return FilterResult(node=node, failed=failed)
+
+    def _write_decision(self, pod: dict, result: FilterResult
+                        ) -> Optional[str]:
+        """The decision as one annotation patch; the error, or None."""
+        encoded = codec.encode_pod_devices(
+            self.pods.get(pod_uid(pod)).devices)
+        patch = {
+            ASSIGNED_NODE_ANNOTATION: result.node,
+            ASSIGNED_IDS_ANNOTATION: encoded,
+            TO_ALLOCATE_ANNOTATION: encoded,
+            ASSIGNED_TIME_ANNOTATION: str(int(time.time())),
+        }
+        if pod_qos(pod):
+            patch[QOS_DUTY_SPLIT_ANNOTATION] = self._qos_duty_split(
+                result.node)
+        with trace.tracer().span("decision-write",
+                                 trace_id=trace.trace_id_of(pod),
+                                 pod=pod_name(pod), node=result.node) as sp:
+            try:
+                self.client.patch_pod_annotations(
+                    pod_namespace(pod), pod_name(pod), patch)
+            except Exception as e:  # noqa: BLE001 — no grant outlives a failed write
+                log.error("failed to write the decision for %s: %s",
+                          pod_name(pod), e)
+                sp.set("error", str(e))
+                return f"writing decision failed: {e}"
+        return None
+
+    def _qos_duty_split(self, node: str) -> str:
+        """The granted cores of each QoS class on ``node`` as of this
+        decision: ``best-effort=120,latency-critical=40`` (an unclassed
+        grant counts as best-effort, the region's default)."""
+        split: Dict[str, int] = {}
+        for info in self.pods.pods_on_node(node):
+            cls = info.qos or QOS_BEST_EFFORT
+            cores = sum(d.usedcores for ctr in info.devices for d in ctr)
+            split[cls] = split.get(cls, 0) + cores
+        return ",".join(f"{cls}={split[cls]}" for cls in sorted(split))
+
+    # -- Bind ------------------------------------------------------------------
+    def bind(self, namespace: str, name: str, uid: str, node: str
+             ) -> Optional[str]:
+        """The error, or None (reference Bind, scheduler.go:224–264).  On
+        success the node lock stays held: the device plugin releases it
+        when the allocation completes."""
+        info = self.pods.get(uid)
+        tid = info.trace_id if info is not None else ""
+        tr = trace.tracer()
+        with tr.span("bind", trace_id=tid, pod=name, node=node,
+                     qos=info.qos if info is not None else "") as sp:
+            try:
+                lock_node(self.client, node)
+            except NodeLockError as e:
+                sp.set("error", str(e))
+                tr.event(uid, "bind-lock-denied", trace_id=tid, node=node)
+                return str(e)
+            try:
+                self.client.patch_pod_annotations(namespace, name, {
+                    BIND_PHASE_ANNOTATION: BIND_ALLOCATING,
+                    BIND_TIME_ANNOTATION: bind_timestamp()})
+                self.client.bind_pod(namespace, name, node)
+            except Exception as e:  # noqa: BLE001 — any failure frees the node
+                log.error("bind %s/%s to %s failed: %s", namespace, name,
+                          node, e)
+                try:
+                    release_node(self.client, node)
+                except Exception:  # noqa: BLE001
+                    log.exception("failed to release the lock on %s", node)
+                sp.set("error", str(e))
+                tr.event(uid, "bind-failed", trace_id=tid, node=node,
+                         error=str(e))
+                return str(e)
+        tr.event(uid, "bound", trace_id=tid, pod=name, node=node)
+        return None
+
+
+def run_watch_loop(scheduler: Scheduler, stop: threading.Event,
+                   window_seconds: float = 50.0, error_backoff: float = 2.0,
+                   initial_rv: Optional[str] = None) -> None:
+    """The informer (reference scheduler.go:66–86): stream pod events from
+    a list's bookmark into :meth:`Scheduler.on_pod_event`, so a deleted
+    pod's grant is freed at once; a 410 Gone or a transport error re-lists
+    and resumes.  Runs until ``stop`` is set; ``initial_rv`` is the boot
+    reconcile's bookmark."""
+    client = scheduler.client
+    rv: Optional[str] = initial_rv
+    while not stop.is_set():
+        try:
+            if rv is None:
+                rv = scheduler.resync_from_apiserver()
+            for ev, pod, new_rv in client.watch_pods_events(
+                    rv, timeout_seconds=window_seconds):
+                scheduler.on_pod_event(ev, pod)
+                rv = new_rv
+                if stop.is_set():
+                    return
+        except Gone:
+            log.info("watch bookmark expired; re-listing")
+            rv = None
+        except NotImplementedError:
+            log.info("the client cannot watch; the periodic resync remains")
+            return
+        except Exception:  # noqa: BLE001 — re-list after a pause
+            log.exception("watch stream failed; re-listing in %.1fs",
+                          error_backoff)
+            rv = None
+            stop.wait(error_backoff)

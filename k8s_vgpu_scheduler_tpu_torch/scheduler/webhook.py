@@ -1,0 +1,207 @@
+"""Mutating admission webhook (the port's copy of the JAX package's
+``scheduler/webhook.py``).
+
+Reference: pkg/scheduler/webhook.go:170–247.  On pod CREATE:
+
+- a pod with a privileged container is left as it is (it sees the host's
+  cards anyway);
+- a container with a priority limit gets ``CUDA_TASK_PRIORITY`` in its env,
+  which the region reads (``csrc/vgpu/region.cc``);
+- a pod that asks for cards gets ``spec.schedulerName`` pointed at this
+  scheduler and a ``vtpu.dev/trace-id`` annotation: the id every later
+  phase (Filter, Bind, Allocate) stamps its spans with;
+- a card-using container that opted into low priority (>= 1) also gets the
+  downward-API annotations volume, its mount and ``VTPU_PODINFO_ANNOTATIONS``,
+  so the in-container ``PreemptionWatch`` finds the file.
+
+An unknown ``vtpu.dev/qos`` class is refused with a 422.  The JAX
+package's capacity-queue gate and its mesh validation wait for the port's
+quota and topology slices.  AdmissionReview v1 in, a JSONPatch out.
+"""
+
+from __future__ import annotations
+
+import base64
+import json
+import logging
+from typing import List, Optional
+
+from ..shim.preempt import PATH_ENV
+from ..util import trace
+from ..util.config import Config
+from ..util.resources import container_requests
+from ..util.types import ENV_TASK_PRIORITY, QOS_ANNOTATION, QOS_CLASSES
+
+log = logging.getLogger(__name__)
+
+#: The injected volume and its mount; a pod that already has one of these
+#: names keeps its own.
+PODINFO_VOLUME = "vtpu-podinfo"
+PODINFO_MOUNT_PATH = "/etc/vtpu-podinfo"
+
+
+def _is_privileged(container: dict) -> bool:
+    return bool(container.get("securityContext", {}).get("privileged", False))
+
+
+def _append(patches: List[dict], path: str, exists: bool, entry) -> None:
+    """Add ``entry`` to the list at ``path``, creating the list where it
+    does not ``exist``."""
+    if exists:
+        patches.append({"op": "add", "path": f"{path}/-", "value": entry})
+    else:
+        patches.append({"op": "add", "path": path, "value": [entry]})
+
+
+def mutate_pod(pod: dict, cfg: Config, trace_id: str = "",
+               info: Optional[dict] = None) -> List[dict]:
+    """The JSONPatch ops for one pod (empty: no mutation).  ``info``, when
+    given, receives ``wants_gpu``: whether the pod asks for cards."""
+    containers = pod.get("spec", {}).get("containers", [])
+    if any(_is_privileged(c) for c in containers):
+        log.info("pod %s has a privileged container; not mutated",
+                 pod.get("metadata", {}).get("name", "?"))
+        return []
+    try:
+        requests = container_requests(pod, cfg)
+    except ValueError as e:
+        log.warning("webhook: unreadable resources: %s", e)
+        return []
+
+    patches: List[dict] = []
+    wants_gpu = False
+    needs_podinfo = []
+    env_created: set = set()  # containers whose env list a patch created
+    for i, (ctr, req) in enumerate(zip(containers, requests)):
+        limits = dict(ctr.get("resources", {}).get("requests", {}))
+        limits.update(ctr.get("resources", {}).get("limits", {}))
+        if req.nums > 0:
+            wants_gpu = True
+        prio = limits.get(cfg.resources.priority)
+        if prio is None:
+            continue
+        env = ctr.get("env", [])
+        if not any(e.get("name") == ENV_TASK_PRIORITY for e in env):
+            _append(patches, f"/spec/containers/{i}/env", bool(env),
+                    {"name": ENV_TASK_PRIORITY, "value": str(prio)})
+            if not env:
+                env_created.add(i)
+        try:
+            low = int(str(prio).strip()) >= 1
+        except ValueError:
+            low = False
+        if low and req.nums > 0:
+            needs_podinfo.append(i)
+    if needs_podinfo:
+        patches.extend(_podinfo_patches(pod, needs_podinfo, env_created))
+    if info is not None:
+        info["wants_gpu"] = wants_gpu
+    if not wants_gpu:
+        return patches
+    if pod.get("spec", {}).get("schedulerName", "") != cfg.scheduler_name:
+        patches.append({"op": "add", "path": "/spec/schedulerName",
+                        "value": cfg.scheduler_name})
+    anns = pod.get("metadata", {}).get("annotations")
+    if trace_id and (anns is None or trace.TRACE_ID_ANNOTATION not in anns):
+        if anns is None:
+            patches.append({"op": "add", "path": "/metadata/annotations",
+                            "value": {trace.TRACE_ID_ANNOTATION: trace_id}})
+        else:
+            # The '/' of the key, escaped for the JSON pointer.
+            key = trace.TRACE_ID_ANNOTATION.replace("~", "~0").replace(
+                "/", "~1")
+            patches.append({"op": "add",
+                            "path": f"/metadata/annotations/{key}",
+                            "value": trace_id})
+    return patches
+
+
+def _podinfo_patches(pod: dict, container_idxs: List[int],
+                     env_created: set) -> List[dict]:
+    """The downward-API annotations volume, and each container's mount and
+    env.  ``env_created``: containers whose env list an earlier patch of
+    this mutation created (JSONPatch applies in order, so those take
+    ``env/-``; a second ``add env`` would replace the first)."""
+    patches: List[dict] = []
+    spec = pod.get("spec", {})
+    volumes = spec.get("volumes", [])
+    if not any(v.get("name") == PODINFO_VOLUME for v in volumes):
+        _append(patches, "/spec/volumes", bool(volumes), {
+            "name": PODINFO_VOLUME,
+            "downwardAPI": {"items": [{
+                "path": "annotations",
+                "fieldRef": {"fieldPath": "metadata.annotations"},
+            }]},
+        })
+    containers = spec.get("containers", [])
+    for i in container_idxs:
+        ctr = containers[i]
+        mounts = ctr.get("volumeMounts", [])
+        if not any(m.get("name") == PODINFO_VOLUME for m in mounts):
+            _append(patches, f"/spec/containers/{i}/volumeMounts",
+                    bool(mounts),
+                    {"name": PODINFO_VOLUME, "mountPath": PODINFO_MOUNT_PATH,
+                     "readOnly": True})
+        env = ctr.get("env", [])
+        if not any(e.get("name") == PATH_ENV for e in env):
+            _append(patches, f"/spec/containers/{i}/env",
+                    bool(env) or i in env_created,
+                    {"name": PATH_ENV,
+                     "value": f"{PODINFO_MOUNT_PATH}/annotations"})
+    return patches
+
+
+def validate_pod_qos(pod: dict) -> Optional[str]:
+    """The user-facing refusal for an unknown ``vtpu.dev/qos`` class (it
+    would run as best-effort, the region's default, without a word), or
+    None."""
+    anns = pod.get("metadata", {}).get("annotations") or {}
+    value = anns.get(QOS_ANNOTATION)
+    if value is None or value in QOS_CLASSES:
+        return None
+    return (f"{QOS_ANNOTATION}: unknown QoS class {value!r} "
+            f"(expected one of: {', '.join(QOS_CLASSES)})")
+
+
+def handle_admission_review(body: dict, cfg: Config) -> dict:
+    """AdmissionReview in, AdmissionReview out.  Only pods that ask for
+    cards get a trace id and a webhook span (the webhook sees every pod
+    CREATE of the cluster)."""
+    req = body.get("request", {})
+    uid = req.get("uid", "")
+    response = {"uid": uid, "allowed": True}
+    pod = req.get("object")
+    if isinstance(pod, dict) and req.get("operation", "CREATE") == "CREATE":
+        why = validate_pod_qos(pod)
+        if why is not None:
+            log.warning("webhook: refusing pod %s: %s",
+                        pod.get("metadata", {}).get("name", "?"), why)
+            return {
+                "apiVersion": "admission.k8s.io/v1",
+                "kind": "AdmissionReview",
+                "response": {"uid": uid, "allowed": False,
+                             "status": {"code": 422, "reason": "Invalid",
+                                        "message": why}},
+            }
+        trace_id = trace.trace_id_of(pod) or trace.new_trace_id()
+        info: dict = {}
+        sp = trace.Span("webhook", trace_id)
+        patches = mutate_pod(pod, cfg, trace_id=trace_id, info=info)
+        if info.get("wants_gpu"):
+            meta = pod.get("metadata", {})
+            sp.set("pod", meta.get("name", "?"))
+            sp.set("patch_ops", len(patches))
+            qos = (meta.get("annotations") or {}).get(QOS_ANNOTATION, "")
+            if qos:
+                sp.set("qos", qos)
+            trace.tracer().finish(sp)
+            if patches:
+                trace.tracer().event(meta.get("uid", ""), "webhook-mutated",
+                                     trace_id=trace_id,
+                                     patch_ops=len(patches))
+        if patches:
+            response["patchType"] = "JSONPatch"
+            response["patch"] = base64.b64encode(
+                json.dumps(patches).encode()).decode()
+    return {"apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "response": response}

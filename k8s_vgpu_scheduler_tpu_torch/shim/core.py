@@ -23,7 +23,7 @@ this module is the PyTorch integration:
   grow within one watchdog interval of each other can together pass the
   grant until the next interval.  The driver-API interposer
   (``csrc/vgpu/cuda_interposer.cc``, preloaded) closes both; where it is
-  loaded this shim stands down (:func:`install`);
+  loaded this shim stands down (:func:`install`) but for host swap;
 - throttles compute by gating the port's dispatch units through the
   native duty-cycle limiter: the step callables of ``models/train.py``
   and ``models/serve.py`` (each consults :func:`gate`) and
@@ -247,7 +247,8 @@ class Shim:
         self._watchdog: Optional[threading.Thread] = None
         self._stop = threading.Event()
         # The driver-API interposer accounts and gates this process: the
-        # shim then publishes nothing, caps nothing and gates nothing.
+        # shim then publishes nothing, caps nothing and limits nothing
+        # (its gate only spills and restores, for host swap).
         self.interposed = interposer_active()
         # Set by the watchdog when VTPU_OOM_ACTION=exit trips; consumed by
         # the next dispatching thread at its gate boundary (_gated_call),
@@ -345,6 +346,9 @@ class Shim:
             self._oom_teardown()
         self._local.depth = 1
         try:
+            if self.interposed:
+                # The spill-only gate: the interposer meters the launches.
+                return fn(*args, **kwargs)
             return self._dispatch(fn, args, kwargs, slots)
         finally:
             self._local.depth = 0
@@ -597,13 +601,28 @@ class Shim:
         """Bring up device->host swap for oversubscribed grants (reference
         CUDA_OVERSUBSCRIBE): at each gated dispatch, tensors registered in
         ``oversub.global_store()`` are spilled LRU to pinned host memory
-        when a card's allocated bytes near its physical size, and the
-        dispatch's own are brought back (``_gated_call``)."""
+        when a card's bytes in use near its size, and the dispatch's own
+        are brought back (``_gated_call``).  Without the interposer that
+        is the JAX shim's rule: the caching allocator's allocated bytes
+        against the card's physical size (0 without a card: nothing spills
+        under pressure, and a state suspended by hand still comes back at
+        the gate).  Under the interposer that rule spills too late: the
+        interposer refuses at the grant, short of the card's size, and it
+        charges more than the allocated bytes (the allocator's segments
+        and a fixed footprint for each context).  There the spiller reads
+        each card as CUDA reports it through the interposer
+        (``oversub.cards_as_cuda_reports``): the grant, and all that is
+        charged against it; where the card holds less than the grant, its
+        free memory binds instead.  Under pressure the allocator's free
+        blocks go back first, and the state spills only if the charge is
+        still past the pressure point."""
         import torch
 
-        physical = torch.cuda.get_device_properties(0).total_memory
-        self._spiller = oversub.PressureSpiller(oversub.global_store(),
-                                                physical)
+        physical = torch.cuda.get_device_properties(0).total_memory \
+            if torch.cuda.is_available() else 0
+        self._spiller = oversub.PressureSpiller(
+            oversub.global_store(), physical,
+            sample=oversub.cards_as_cuda_reports if self.interposed else None)
         return self._spiller
 
 
@@ -643,18 +662,23 @@ def install(region_path: Optional[str] = None, torch_hooks: bool = True,
     shim stands down, as the JAX shim does under its PJRT interposer: the
     interposer charges every allocation and the context and gates every
     launch, so a memory fraction would cap the allocator a second time and
-    gating the step callables would stack a second token bucket on the
-    interposer's.  The shim then sets no fraction, gates nothing and
-    publishes nothing; it reads the region through the interposer."""
+    rate-limiting the step callables would stack a second token bucket on
+    the interposer's.  The shim then sets no fraction, limits nothing and
+    publishes nothing; it reads the region through the interposer.  Host
+    swap stays, as the JAX shim's spiller does under its interposer: an
+    oversubscribed grant gets the spiller and a spill-only gate, which
+    spills and restores at each dispatch unit and neither waits on the
+    limiter nor feeds it costs (``_gated_call``)."""
     global _GLOBAL
     if _GLOBAL is not None:
         return _GLOBAL
     native = native or Native()
     native.init(region_path)
     shim = Shim(native)
-    oversubscribed = oversub.enabled_from_env() and not shim.interposed
+    oversubscribed = oversub.enabled_from_env()
     if shim.interposed:
-        torch_hooks = memory_cap = False
+        torch_hooks = torch_hooks and oversubscribed
+        memory_cap = False
     elif memory_cap is None:
         memory_cap = not oversubscribed
     if torch_hooks:

@@ -13,7 +13,10 @@ tensors:
   ``spill_until`` evicts least-recently-used entries until enough device
   bytes are free.
 - :class:`PressureSpiller` — the pressure check: spills registered
-  entries when a card's allocated bytes approach its physical size.
+  entries when a card's bytes in use approach its size: its allocated
+  bytes and its physical size (the JAX shim's reading), or under the
+  driver-API interposer what the interposer charges and the grant
+  (:func:`cards_as_cuda_reports`).
 
 A tensor moves *in place*: its storage is swapped (``tensor.data =``), so
 every reference the caller holds follows it to the host and back, and a
@@ -235,15 +238,20 @@ class HostSwapStore:
 class PressureSpiller:
     """Device-memory pressure check.
 
-    The reference's libvgpu reacts to cuMemAlloc ENOMEM inline; here the
-    caching allocator's allocated bytes are compared with the physical
-    size and registered tensors are spilled *before* the allocator runs
-    out.  ``headroom_bytes`` is the cushion kept free for scratch and
-    fragmentation.  ``sample`` gives (device, allocated bytes) for each
-    card in use; by default the caching allocator's counts.  The shim
-    calls :meth:`before_dispatch` at each gated dispatch; nothing checks
-    in the background, since a spill in the middle of a step would move
-    the tensors it is updating.
+    The reference's libvgpu reacts to cuMemAlloc ENOMEM inline; here a
+    card's bytes in use are compared with its size and registered tensors
+    are spilled *before* an allocation is refused.  ``headroom_bytes`` is
+    the cushion kept free for scratch and fragmentation.  ``sample`` gives
+    (device, bytes in use, size) for each card in use; by default the
+    JAX shim's reading, the caching allocator's allocated bytes against
+    ``physical_bytes`` (:meth:`allocated`).  Under pressure the caching
+    allocator's free blocks go back to the driver first and the cards are
+    read again, so a charge that counts them (the interposer's) spills
+    only what its cache cannot give back; after a spill they go back
+    again, so the spilled bytes leave the card and not only the
+    allocator's count.  The shim calls :meth:`before_dispatch` at each
+    gated dispatch; nothing checks in the background, since a spill in
+    the middle of a step would move the tensors it is updating.
     """
 
     def __init__(self, store: HostSwapStore, physical_bytes: int,
@@ -251,35 +259,47 @@ class PressureSpiller:
         self.store = store
         self.physical = physical_bytes
         self.headroom = headroom_bytes
-        self.sample = sample or _devices_bytes_in_use
+        self.sample = sample or self.allocated
+
+    def allocated(self) -> "list[tuple]":
+        """(device, allocated bytes, ``physical_bytes``) per card."""
+        return [(dev, b, self.physical) for dev, b in _devices_bytes_in_use()]
 
     def check_once(self, in_use: Optional[int] = None, keep=()) -> int:
         """One pressure check; returns bytes spilled.  Without an explicit
-        ``in_use`` sample, every card this process uses is checked and the
-        worst overshoot drives the spill.  Entries named in ``keep``
-        stay."""
-        if self.physical <= 0:
-            return 0
-        worst_dev = None
+        ``in_use`` sample (against ``physical_bytes``), every card
+        ``sample`` reads is checked and the worst overshoot drives the
+        spill; a card of size 0 is never under pressure.  Entries named in
+        ``keep`` stay."""
         if in_use is not None:
-            over = in_use + self.headroom - self.physical
+            over = in_use + self.headroom - self.physical \
+                if self.physical > 0 else 0
+            worst_dev = None
         else:
-            over = 0
-            for dev, b in self.sample():
-                dev_over = b + self.headroom - self.physical
-                if dev_over > over:
-                    over, worst_dev = dev_over, dev
-        if over > 0:
-            # Spill against the pressured device specifically.
-            spilled = self.store.spill_until(over, device=worst_dev,
-                                             keep=keep)
-            if spilled:
-                log.warning(
-                    "oversub: device memory pressure (worst device %d MiB "
-                    "over); spilled %d MiB to host",
-                    over // MIB, spilled // MIB)
-            return spilled
-        return 0
+            over, worst_dev = self._worst()
+            if over > 0:
+                _release_cached()
+                over, worst_dev = self._worst()
+        if over <= 0:
+            return 0
+        # Spill against the pressured device specifically.
+        spilled = self.store.spill_until(over, device=worst_dev, keep=keep)
+        if spilled:
+            _release_cached()
+            log.warning(
+                "oversub: device memory pressure (worst device %d MiB "
+                "over); spilled %d MiB to host", over // MIB, spilled // MIB)
+        return spilled
+
+    def _worst(self) -> "tuple":
+        """(bytes over the pressure point, device) of the card ``sample``
+        finds furthest over it; (0, None) where none is."""
+        over, worst_dev = 0, None
+        for dev, b, size in self.sample():
+            dev_over = b + self.headroom - size
+            if size > 0 and dev_over > over:
+                over, worst_dev = dev_over, dev
+        return over, worst_dev
 
     def before_dispatch(self, trees, idle: bool) -> int:
         """The host swap at the gate of one dispatch whose arguments are
@@ -294,14 +314,45 @@ class PressureSpiller:
         return spilled
 
 
+def _cards() -> "list[tuple]":
+    """(index, device) of each card, once this process has brought CUDA
+    up; never initializes it."""
+    torch = sys.modules.get("torch")
+    if torch is None or not torch.cuda.is_initialized():
+        return []
+    return [(i, torch.device("cuda", i))
+            for i in range(torch.cuda.device_count())]
+
+
 def _devices_bytes_in_use() -> "list[tuple]":
     """(device, allocated bytes) per card, once this process has brought
     CUDA up; never initializes it."""
     torch = sys.modules.get("torch")
-    if torch is None or not torch.cuda.is_initialized():
-        return []
-    return [(torch.device("cuda", i), torch.cuda.memory_allocated(i))
-            for i in range(torch.cuda.device_count())]
+    return [(dev, torch.cuda.memory_allocated(i)) for i, dev in _cards()]
+
+
+def cards_as_cuda_reports() -> "list[tuple]":
+    """(device, bytes in use, size) per card this process holds memory
+    on, as CUDA reports them to it (``cuMemGetInfo``).  Under the
+    driver-API interposer the size is the grant and the free bytes are the
+    lesser of the card's and the grant's, so the bytes in use are all the
+    interposer charges the pod there (every process's segments and
+    contexts) or whatever else fills the card.  A card this process holds
+    nothing on is left out, so no context is made to read it."""
+    torch = sys.modules.get("torch")
+    out = []
+    for i, dev in _cards():
+        if torch.cuda.memory_reserved(i):
+            free, total = torch.cuda.mem_get_info(i)
+            out.append((dev, total - free, total))
+    return out
+
+
+def _release_cached() -> None:
+    """Give the caching allocator's free blocks back to the driver (where
+    the interposer uncharges them)."""
+    if _cards():
+        sys.modules["torch"].cuda.empty_cache()
 
 
 def enabled_from_env() -> bool:

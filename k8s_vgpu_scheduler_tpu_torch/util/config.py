@@ -1,9 +1,9 @@
-"""Configuration of the port's node agent.
+"""Configuration of the port's node agent and scheduler extender.
 
 The port's copy of the JAX package's ``util/config.py``, cut to the fields
-the node agent reads (the scheduler's wait for the scheduler slice).  One
-immutable Config passed explicitly, where the reference scatters mutable
-package globals (pkg/util/util.go:35–47, pkg/device-plugin/config:528–537).
+the node agent and the reference's extender surface read.  One immutable
+Config passed explicitly, where the reference scatters mutable package
+globals (pkg/util/util.go:35–47, pkg/device-plugin/config:528–537).
 """
 
 from __future__ import annotations
@@ -27,6 +27,23 @@ class ResourceNames:
 @dataclasses.dataclass(frozen=True)
 class Config:
     resources: ResourceNames = dataclasses.field(default_factory=ResourceNames)
+    scheduler_name: str = "vgpu-scheduler"
+
+    # Defaults applied when a pod asks for cards but no memory or cores
+    # (reference --default-mem/--default-cores, cmd/scheduler/main.go:50–63;
+    # default_mem 0 means the whole card's memory).
+    default_mem: int = 0
+    default_cores: int = 0
+
+    # Node choice among fitting nodes: "spread" (most free capacity wins,
+    # the reference's rule) or "binpack" (the fullest fitting node wins).
+    node_scheduler_policy: str = "spread"
+
+    # Node leases (health/lease.py): seconds without a register-stream
+    # message before a node takes no new placements, and how many more of
+    # those periods before it is dead.
+    lease_ttl_s: float = 15.0
+    lease_grace_beats: int = 2
 
     # Node-agent knobs (reference pkg/device-plugin/config:528–537).
     device_split_count: int = 10

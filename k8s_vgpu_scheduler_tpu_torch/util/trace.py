@@ -1,13 +1,14 @@
 """Scheduling traces and the pod-lifecycle journal of the port's node agent.
 
 The port's copy of the part of the JAX package's ``util/trace.py`` that
-``Allocate`` and the register stream use: the per-process tracer, its
-spans and its event journal, ``trace_id_of`` and ``ENV_TRACE_ID``.  The
-mutating webhook issues a trace id into the pod's annotations; Allocate
-records its span under it and hands it to the container as
-``VTPU_TRACE_ID``, and drops it next to the pod's region.  The phase
-histograms, the OTLP export and the /debug renderers wait for the
-scheduler slice.
+the webhook, Filter, Bind and ``Allocate`` use: the per-process tracer,
+its spans and its event journal, ``new_trace_id``, ``trace_id_of`` and
+``ENV_TRACE_ID``.  The mutating
+webhook issues a trace id into the pod's annotations; Filter and Bind
+record their spans under it; Allocate records its span under it, hands it
+to the container as ``VTPU_TRACE_ID`` and drops it next to the pod's
+region.  The phase histograms, the rejection counters, the OTLP export
+and the /debug renderers wait for the metrics slice.
 
 A finished span is one slotted object appended to a ``deque(maxlen=N)``
 (append is atomic under the GIL: no lock on the record path).
@@ -18,6 +19,7 @@ from __future__ import annotations
 import itertools
 import os
 import time
+import uuid
 from collections import deque
 from typing import Dict, List, Optional
 
@@ -31,6 +33,12 @@ ENV_TRACE_ID = "VTPU_TRACE_ID"
 # Span ids are randomly seeded once, then counted up: within-process
 # uniqueness is all OTLP needs.
 _SPAN_SEQ = itertools.count(int.from_bytes(os.urandom(8), "big") | 1)
+
+
+def new_trace_id() -> str:
+    """OTLP-compatible 16-byte trace id as 32 hex chars, issued once per
+    pod admission."""
+    return uuid.uuid4().hex
 
 
 def new_span_id() -> str:

@@ -18,15 +18,26 @@ import dataclasses
 from typing import List
 
 # --- Annotation keys (the inter-process scheduling protocol) -----------------
+ASSIGNED_TIME_ANNOTATION = "vtpu.dev/assigned-time"
+ASSIGNED_IDS_ANNOTATION = "vtpu.dev/assigned-ids"
 TO_ALLOCATE_ANNOTATION = "vtpu.dev/devices-to-allocate"
 ASSIGNED_NODE_ANNOTATION = "vtpu.dev/assigned-node"
 BIND_TIME_ANNOTATION = "vtpu.dev/bind-time"
 BIND_PHASE_ANNOTATION = "vtpu.dev/bind-phase"
 
+# GPU-type affinity, user-set (reference types.go:30–31, consumed by
+# score.go:67–87): comma-separated, case-insensitive substrings of a card's
+# type ("NVIDIA-h100").
+GPU_USE_TYPE_ANNOTATION = "nvidia.com/use-gputype"
+GPU_NOUSE_TYPE_ANNOTATION = "nvidia.com/nouse-gputype"
+
 # SLO-tiered co-residency: the webhook-validated class, and the scheduler's
 # placement-time per-class duty split, carried into the container env.
 QOS_ANNOTATION = "vtpu.dev/qos"
 QOS_DUTY_SPLIT_ANNOTATION = "vtpu.dev/qos-duty-split"
+QOS_LATENCY_CRITICAL = "latency-critical"
+QOS_BEST_EFFORT = "best-effort"
+QOS_CLASSES = (QOS_LATENCY_CRITICAL, QOS_BEST_EFFORT)
 
 # Host-memory oversubscription of a pod's grant.
 OVERSUBSCRIBE_ANNOTATION = "vtpu.dev/oversubscribe"
@@ -37,6 +48,10 @@ GANG_GROUP_ANNOTATION = "vtpu.dev/pod-group"
 GANG_TOTAL_ANNOTATION = "vtpu.dev/pod-group-total"
 GANG_RANK_ANNOTATION = "vtpu.dev/pod-group-rank"
 GANG_COORDINATOR_ANNOTATION = "vtpu.dev/pod-group-coordinator"
+
+# A pod's declared device mesh (the JAX package's placement/mesh.py key),
+# placed by the topology slice.
+MESH_ANNOTATION = "vtpu.dev/mesh"
 
 # Node annotation used as a cluster-wide mutex for the bind/allocate two-phase
 # commit (reference: 4pd.io/mutex.lock, types.go:57; nodelock.go:144–230).
@@ -59,6 +74,7 @@ ENV_MEMORY_LIMIT_PREFIX = "CUDA_DEVICE_MEMORY_LIMIT_"  # MiB, i-th card
 ENV_SM_LIMIT = "CUDA_DEVICE_SM_LIMIT"                 # percent, 0 = none
 ENV_SHARED_CACHE = "CUDA_DEVICE_MEMORY_SHARED_CACHE"  # the region file
 ENV_OVERSUBSCRIBE = "CUDA_OVERSUBSCRIBE"
+ENV_TASK_PRIORITY = "CUDA_TASK_PRIORITY"             # written by the webhook
 ENV_VISIBLE_DEVICES = "NVIDIA_VISIBLE_DEVICES"        # the cards' UUIDs
 ENV_QOS_CLASS = "VTPU_QOS_CLASS"
 ENV_QOS_DUTY_SPLIT = "VTPU_QOS_DUTY_SPLIT"
@@ -83,6 +99,20 @@ class ContainerDevice:
     type: str
     usedmem: int
     usedcores: int
+
+
+@dataclasses.dataclass
+class ContainerDeviceRequest:
+    """One container's decoded resource request (reference
+    ContainerDeviceRequest, types.go:86–92).  ``memreq`` MiB wins over
+    ``mem_percentage_req``; a percentage is resolved against a card's size
+    when Filter fits it (score.go:146–148)."""
+
+    nums: int
+    type: str = NVIDIA_DEVICE
+    memreq: int = 0
+    mem_percentage_req: int = 0
+    coresreq: int = 0
 
 
 ContainerDevices = List[ContainerDevice]

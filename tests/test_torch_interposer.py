@@ -309,33 +309,46 @@ sys.path.insert(0, os.environ["REPO"])
 from k8s_vgpu_scheduler_tpu_torch.shim import core
 shim = core.install(watchdog=False, **json.loads(os.environ["INSTALL"]))
 region = shim.native.read_region(os.environ["CUDA_DEVICE_MEMORY_SHARED_CACHE"])
+limiter = []
+for name in ("vgpu_rate_acquire", "vgpu_rate_feedback"):
+    setattr(shim.native.lib, name,
+            lambda *a, name=name, real=getattr(shim.native.lib, name):
+            (limiter.append(name), real(*a))[1])
 gated = core.gate(lambda: "ran")
 print(json.dumps(dict(
     active=core.interposer_active(), interposed=shim.interposed,
     native_is_the_process=shim.native.interposed, gate=core._GATE is not None,
     fractions=shim.fractions, spiller=shim._spiller is not None,
     dispatches=shim.dispatches, gated=gated, pids=region["pids"],
+    limiter=limiter, costs=shim.last_cost_us,
     pid=os.getpid(), charge=core.interposer_charge(0, 1 << 20),
     overcharge=core.interposer_charge(0, 1 << 30))))
 """
 
 
-@pytest.mark.parametrize("preloaded", [True, False],
-                         ids=["interposed", "alone"])
+@pytest.mark.parametrize("preloaded,oversubscribed",
+                         [(True, True), (False, False), (True, False)],
+                         ids=["interposed", "alone", "interposed_flat"])
 def test_python_shim_stands_down_under_the_interposer(built, tmp_path,
-                                                      preloaded):
+                                                      preloaded,
+                                                      oversubscribed):
     """With the interposer loaded the shim finds its symbol in the process,
     binds to its vgpu_* (one proc slot, one attach), and sets no memory
-    fraction, gates nothing and attaches no spiller, whatever install is
-    asked for.  Without it, install brings the gate up (the memory cap and
-    the spiller need a card).  ``interposer_charge`` reaches the
-    interposer's charge from Python, and answers None without it."""
+    fraction and limits nothing, whatever install is asked for; an
+    oversubscribed grant (CUDA_OVERSUBSCRIBE=true) gets the host-swap
+    spiller and its spill-only gate, as the JAX shim keeps its spiller
+    under its PJRT interposer: a dispatch through the gate runs, and the
+    limiter is never called and charged nothing; a grant that does not
+    oversubscribe gets no gate at all.  Without the interposer,
+    install brings the rate-limiting gate up (the memory cap and the
+    spiller need a card).  ``interposer_charge`` reaches the interposer's
+    charge from Python, and answers None without it."""
     env = preload_env(built, tmp_path / "r.cache", REPO=REPO,
                       CUDA_DEVICE_MEMORY_LIMIT_0="100m",
                       INSTALL=json.dumps({}))
-    if preloaded:
+    if oversubscribed:
         env["CUDA_OVERSUBSCRIBE"] = "true"
-    else:
+    if not preloaded:
         del env["LD_PRELOAD"]
         env["INSTALL"] = json.dumps({"memory_cap": False})
     res = subprocess.run([sys.executable, "-c", SHIM_CHILD], env=env,
@@ -352,11 +365,13 @@ def test_python_shim_stands_down_under_the_interposer(built, tmp_path,
     if preloaded:
         assert got["active"] and got["interposed"]
         assert got["native_is_the_process"]
-        assert not got["gate"] and not got["spiller"]
+        assert got["gate"] == got["spiller"] == oversubscribed
+        assert got["limiter"] == [] and got["costs"] == {}
     else:
         assert not got["active"] and not got["interposed"]
         assert not got["native_is_the_process"]
         assert got["gate"] and not got["spiller"]
+        assert got["limiter"] == ["vgpu_rate_acquire", "vgpu_rate_feedback"]
 
 
 # The PJRT side of the same sequence, compiled against the same

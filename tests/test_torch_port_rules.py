@@ -14,9 +14,12 @@
 - The enforcement layer (``shim/``, ``tpulib/``) imports torch only inside
   functions, and the node monitor (``monitor/``, ``accounting/``,
   ``cmd/monitor.py``) and the node agent (``deviceplugin/``, ``k8s/``,
-  ``util/``, ``api/``, ``tpulib/nvml.py``, ``cmd/device_plugin.py``) import
-  none at all; the node agent's Allocate core imports neither grpc nor
-  protobuf, and the agent raises without NVML and without the mock; nothing in the port reads
+  ``util/``, ``api/``, ``tpulib/nvml.py``, ``cmd/device_plugin.py``) and
+  the scheduler extender (``scheduler/``, ``health/``,
+  ``util/resources.py``, ``cmd/scheduler.py``) import none at all; the
+  node agent's Allocate core and the scheduler's core import neither grpc
+  nor protobuf, and the agent raises without NVML and without the mock;
+  nothing in the port reads
   ``lib/tpu/``, and ``csrc/vgpu/``
   builds with g++ into the port's build directory: the enforcement
   library, the driver-API interposer, its mock driver and its C test
@@ -96,7 +99,12 @@ def test_new_modules_are_under_the_import_rules():
                 "util/nodelock.py", "util/protocol.py",
                 "util/enforcement.py", "util/trace.py", "api/kubelet.py",
                 "api/service.py", "api/deviceplugin_pb2.py",
-                "api/device_register_pb2.py"):
+                "api/device_register_pb2.py", "util/resources.py",
+                "scheduler/__init__.py", "scheduler/core.py",
+                "scheduler/nodes.py", "scheduler/pods.py",
+                "scheduler/score.py", "scheduler/webhook.py",
+                "scheduler/routes.py", "health/__init__.py",
+                "health/lease.py", "cmd/scheduler.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -167,6 +175,8 @@ def test_kernel_module_import_runs_no_compiler():
         "import k8s_vgpu_scheduler_tpu_torch.cmd.device_plugin\n"
         "import k8s_vgpu_scheduler_tpu_torch.api.kubelet\n"
         "import k8s_vgpu_scheduler_tpu_torch.api.service\n"
+        "import k8s_vgpu_scheduler_tpu_torch.scheduler.routes\n"
+        "import k8s_vgpu_scheduler_tpu_torch.cmd.scheduler\n"
         "assert not k._libs and not k.build_logs\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -363,10 +373,13 @@ PORT_FILES = sorted(p for p in PORT.rglob("*")
 
 
 # The node agent: a DaemonSet that must hold no context on the cards it
-# advertises, so no torch anywhere in it.
-NODE_AGENT = sorted(p for d in ("deviceplugin", "k8s", "util", "api")
+# advertises, so no torch anywhere in it; nor in the scheduler extender,
+# a control plane that holds no tensor.
+NODE_AGENT = sorted(p for d in ("deviceplugin", "k8s", "util", "api",
+                                "scheduler", "health")
                     for p in (PORT / d).glob("*.py")) + [
-    PORT / "tpulib" / "nvml.py", PORT / "cmd" / "device_plugin.py"]
+    PORT / "tpulib" / "nvml.py", PORT / "cmd" / "device_plugin.py",
+    PORT / "cmd" / "scheduler.py"]
 
 
 @pytest.mark.parametrize("path", NODE_AGENT,
@@ -413,6 +426,61 @@ def test_allocate_core_runs_without_grpc_protobuf_or_torch(tmp_path):
         "assert advertised_devices(inv, cfg)[0]['devmem'] == 81079\n"
         "assert not {'grpc', 'torch'} & {m.split('.')[0] for m, v in "
         "sys.modules.items() if v is not None}\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_scheduler_core_runs_without_grpc_protobuf_or_torch():
+    """The extender's core, webhook and HTTP routes, with grpc and
+    protobuf blocked: a register message is read by its fields, and a pod
+    is mutated, placed and bound over HTTP."""
+    code = (
+        "import sys, json, types, urllib.request\n"
+        "for name in ('grpc', 'google.protobuf', 'torch'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "from k8s_vgpu_scheduler_tpu_torch.deviceplugin import "
+        "advertised_devices\n"
+        "from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler.core import "
+        "decode_register_request\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler.routes import "
+        "ExtenderServer\n"
+        "from k8s_vgpu_scheduler_tpu_torch.tpulib import MockBackend, "
+        "H100_FIXTURE\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util.config import Config\n"
+        "kube = FakeKube()\n"
+        "kube.add_node({'metadata': {'name': 'n', 'annotations': {}}})\n"
+        "s = Scheduler(kube, Config())\n"
+        "inv = MockBackend(H100_FIXTURE).inventory()\n"
+        "msg = types.SimpleNamespace(node='n', devices=[\n"
+        "    types.SimpleNamespace(**d) for d in advertised_devices(\n"
+        "        inv, Config())])\n"
+        "s.observe_registration('n', decode_register_request(msg))\n"
+        "srv = ExtenderServer(s, Config(), host='127.0.0.1', port=0)\n"
+        "srv.start()\n"
+        "def post(path, body):\n"
+        "    req = urllib.request.Request(\n"
+        "        f'http://127.0.0.1:{srv.port}{path}',\n"
+        "        data=json.dumps(body).encode())\n"
+        "    with urllib.request.urlopen(req, timeout=30) as r:\n"
+        "        return json.loads(r.read())\n"
+        "pod = {'metadata': {'name': 'p', 'namespace': 'default',\n"
+        "                    'uid': 'u'}, 'spec': {'containers': [{\n"
+        "    'name': 'c', 'resources': {'limits': {\n"
+        "        'nvidia.com/gpu': '1', 'nvidia.com/gpumem': '24000'}}}]}}\n"
+        "r = post('/webhook', {'request': {'uid': 'r', 'object': pod}})\n"
+        "assert r['response']['allowed'] and r['response']['patch'], r\n"
+        "kube.create_pod(pod)\n"
+        "f = post('/filter', {'Pod': pod, 'NodeNames': ['n']})\n"
+        "assert f['NodeNames'] == ['n'] and not f['Error'], f\n"
+        "assert post('/bind', {'PodName': 'p', 'PodNamespace': 'default',\n"
+        "                      'PodUID': 'u', 'Node': 'n'}) == {'Error': ''}\n"
+        "srv.stop()\n"
+        "loaded = {m for m, v in sys.modules.items() if v is not None}\n"
+        "assert not {m for m in loaded if m.split('.')[0] in\n"
+        "            ('grpc', 'torch') or m.startswith('google.protobuf')}\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
@@ -533,3 +601,5 @@ def test_package_data_ships_every_source_the_port_builds():
         "k8s_vgpu_scheduler_tpu_torch.cmd.serve:main"
     assert conf["project"]["scripts"]["vgpu-device-plugin"] == \
         "k8s_vgpu_scheduler_tpu_torch.cmd.device_plugin:main"
+    assert conf["project"]["scripts"]["vgpu-scheduler"] == \
+        "k8s_vgpu_scheduler_tpu_torch.cmd.scheduler:main"

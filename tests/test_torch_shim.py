@@ -721,7 +721,7 @@ def always_over(store):
     check, so every idle gate spills what it may."""
     return oversub.PressureSpiller(
         store, physical_bytes=1, headroom_bytes=0,
-        sample=lambda: [(torch.device("cpu"), 1 << 40)])
+        sample=lambda: [(torch.device("cpu"), 1 << 40, 1)])
 
 
 def plain_train(steps=3):
@@ -794,6 +794,112 @@ def test_a_dispatch_brings_its_spilled_state_back(monkeypatch):
     store.resume_all()
     assert losses == want_losses
     assert same_bits(state.opt_state.mu + state.opt_state.nu, want_state)
+
+
+def test_the_interposed_gate_spills_and_restores_without_the_limiter(
+        monkeypatch):
+    """Under the interposer (here its symbol, monkeypatched) with
+    CUDA_OVERSUBSCRIBE=true the gate only spills and restores: a dispatch
+    that does not hold the state spills it, the next step's gate brings it
+    back, and the losses and state are those of steps never spilled, bit
+    for bit; the limiter is never called and nothing is charged."""
+    monkeypatch.setenv("CUDA_OVERSUBSCRIBE", "true")
+    monkeypatch.setattr(core, "interposer_active", lambda: True)
+    want_losses, want_state = plain_train()
+    state, store, held_step, suspends = swapped_train(monkeypatch)
+    shim = core._GATE
+    assert shim.interposed
+    losses = []
+    for seed in range(3):
+        losses.append(core.gate(held_step, state, tokens(16, seed))[1].item())
+        core.gate(lambda: None)
+        assert not store._entries["adamw"].on_device
+    assert suspends == [False] * 3
+    store.resume_all()
+    assert losses == want_losses
+    assert same_bits(state.opt_state.mu + state.opt_state.nu, want_state)
+    lib = shim.native.lib
+    assert (lib.acquires, lib.feedbacks, shim.last_cost_us,
+            shim.dispatches) == ([], [], {}, 0)
+
+
+class InterposedCard:
+    """One card as CUDA reports it through the interposer, for a process
+    whose caching allocator holds ``other`` allocated and ``cached`` free
+    bytes beside the store's state: the interposer charges the
+    allocator's segments and a fixed ``context``, and refuses past
+    ``grant``.  The store's tensors lie on the CPU; the spiller is shown
+    them as this card's."""
+
+    def __init__(self, store, grant, context, other, cached):
+        self.store, self.grant, self.context = store, grant, context
+        self.other = other
+        self.reserved = other + cached + store.device_bytes()
+        self.released = 0
+
+    def allocated(self):
+        return self.other + self.store.device_bytes()
+
+    def used(self):  # the region's `used`
+        self.reserved = max(self.reserved, self.allocated())
+        return self.context + self.reserved
+
+    def memory_reserved(self, i):
+        return self.reserved
+
+    def mem_get_info(self, i):
+        return self.grant - self.used(), self.grant
+
+    def empty_cache(self):
+        self.released += self.reserved - self.allocated()
+        self.reserved = self.allocated()
+
+
+@pytest.mark.parametrize(
+    "other_mib,cached_mib,spills",
+    [(1024, 0, True), (512, 0, False), (512, 512, False)],
+    ids=["past_the_pressure_point", "below_it", "past_it_by_its_cache"])
+def test_the_interposed_pressure_point_counts_what_the_interposer_charges(
+        monkeypatch, other_mib, cached_mib, spills):
+    """Under the interposer the spiller reads the card as the interposer
+    charges it: the grant as its size, the segments and the context as
+    its use.  With 1024 MiB allocated beside the state, the allocated
+    bytes and the headroom stay below the 2048 MiB grant, but the 640 MiB
+    context takes the charge past the pressure point: the idle gate
+    spills the state, the allocator's freed blocks go back, so the charge
+    falls by the state's bytes, and the next dispatch that takes the state
+    brings it back bit for bit.  With 512 MiB nothing spills; with 512 MiB
+    more in the allocator's cache the charge is past the pressure point
+    until the cache goes back, and then nothing spills."""
+    monkeypatch.setenv("CUDA_OVERSUBSCRIBE", "true")
+    monkeypatch.setattr(core, "interposer_active", lambda: True)
+    store = oversub.HostSwapStore()
+    monkeypatch.setattr(oversub, "_GLOBAL_STORE", store)
+    state = {"mu": [torch.randn(4096) for _ in range(4)]}
+    kept = [t.clone() for t in state["mu"]]
+    store.register("adamw", state)
+    nbytes = store.device_bytes()
+    card = InterposedCard(store, grant=2048 * MIB, context=640 * MIB,
+                          other=other_mib * MIB, cached=cached_mib * MIB)
+    assert card.allocated() + 512 * MIB < card.grant
+    monkeypatch.setattr(oversub, "_cards",
+                        lambda: [(0, torch.device("cpu"))])
+    for name in ("memory_reserved", "mem_get_info", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, getattr(card, name))
+    shim = fake_shim(monkeypatch, on_card=False)
+    assert shim.interposed
+    shim.attach_pressure_spiller()
+    monkeypatch.setattr(core, "_GATE", shim)
+    charged = card.used()
+    core.gate(lambda: None)  # holds nothing: may spill the state
+    assert store._entries["adamw"].on_device is not spills
+    assert charged - card.used() == card.released == (
+        nbytes if spills else cached_mib * MIB)
+    core.gate(lambda state: None, state)
+    assert store._entries["adamw"].on_device
+    assert same_bits(state["mu"], kept)
+    lib = shim.native.lib
+    assert (lib.acquires, lib.feedbacks, shim.dispatches) == ([], [], 0)
 
 
 def test_no_spill_while_a_gated_step_holds_the_state(monkeypatch):
