@@ -39,10 +39,17 @@ makes no CUDA context, and answers Allocate for the serving and the
 training pod as a scheduler bound them; the two pods then run one flat
 leg of the co-residency phase with the env a kubelet builds from those
 answers and nothing else.  Then the pod's life cycle:
-checkpoint-first eviction (phase_preempt, children ``--enforce-child
-preempt``): a training pod told to leave by its annotations file
-checkpoints at the next step boundary and exits, and resumed in a fresh
-process finishes bit for bit as an uninterrupted run; and the serving
+checkpoint-first eviction from the scheduler's own plan (phase_preempt:
+the control plane up for the whole phase in a child without torch,
+``--enforce-child control_plane``, with preemption on; the pods
+``--enforce-child preempt|preempt_swap`` under the env of their Allocate
+answers): a training pod placed by the extender is asked by the
+scheduler to leave for a high-priority pod that fits nowhere,
+checkpoints at the next step boundary and exits; the high-priority pod
+is placed in its room and spills its AdamW state to the host through the
+shim the startup hook installed as it imported its port; the trainer, rescheduled, finishes bit
+for bit as an uninterrupted run; then the node's lease expires and the
+rescuer rescinds what is left on it; and the serving
 pod's own entry point (phase_quant_serve, ``python -m
 k8s_vgpu_scheduler_tpu_torch.cmd.serve``) restores the 32-layer model
 from a checkpoint, quantizes it to int8 under an 8000 MiB grant its bf16
@@ -258,20 +265,31 @@ NODE_AGENT_SMI_S = 0.1
 REGISTER_WAIT_S = 30.0
 # The preemption phase (phase_preempt): the train step at llama_7b widths
 # through the interposer under T's 40000 MiB grant, 8 steps of one batch;
-# the parent swaps the annotation in once the victim has finished step 3,
-# as kubelet would; the card's memory must fall back to the parent's own
-# within 5 s of the victim's exit (64 MiB: TOL_CONTEXT_MIB's slack).  The
-# step is T's, 8 layers; R's checkpoint goes to the disk, V's and V''s to
-# SHM, a tmpfs in host memory: the card's machine ends a command once it
-# has written 45 GiB to its disk, deleted files included, and the three
+# the high-priority pod arrives once the victim has finished step 3, and
+# the parent mirrors the annotations the scheduler wrote into the victim's
+# file, as kubelet would; the card's memory must fall back to the parent's
+# own within 5 s of the victim's exit (64 MiB: TOL_CONTEXT_MIB's slack).
+# The step is T's, 8 layers; R's checkpoint goes to the disk, V's and V''s
+# to SHM, a tmpfs in host memory: the card's machine ends a command once
+# it has written 45 GiB to its disk, deleted files included, and the three
 # checkpoints of 12 B a parameter (3 x 18.8 GiB) beside phase_quant_serve's
-# 11.1 GiB would pass that.
+# 11.1 GiB would pass that.  A control-plane call gets PLANE_CALL_S.
+# V (the victim, priority 1) and V' (V rescheduled, a new pod on V's
+# checkpoints) ask for T's 40000 MiB; H (priority 0, oversubscribed, host
+# swap's pod) for 48000 MiB, which does not fit beside V on the 81,079
+# MiB the node agent advertises.  name, uid, MiB, priority, annotations.
 PREEMPT_LAYERS = 8
 SHM = Path("/dev/shm")
 PREEMPT_MIB = CORES_TRAIN_MIB
+PREEMPT_H_MIB = 48000
+PREEMPT_PODS = {
+    "V": ("trainer", "uidPV", PREEMPT_MIB, 1, {}),
+    "H": ("serve-hp", "uidPH", PREEMPT_H_MIB, 0,
+          {"vtpu.dev/oversubscribe": "true"}),
+    "V2": ("trainer-2", "uidPV2", PREEMPT_MIB, 1, {})}
 PREEMPT_STEPS = 8
 PREEMPT_AFTER = 3
-PREEMPT_UID = "uid-hp-serve"
+PLANE_CALL_S = 120.0
 RETURN_S = 5.0
 TOL_RETURN_MIB = 64
 # The quantized serving phase (phase_quant_serve): the 32-layer model
@@ -334,7 +352,7 @@ INTERPOSER_STATS = ("launches", "gated", "charged_us", "samples",
 GRANT_ENV = ("CUDA_DEVICE_MEMORY_", "CUDA_DEVICE_SM_LIMIT",
              "CUDA_TASK_PRIORITY", "CUDA_OVERSUBSCRIBE", "NVIDIA_VISIBLE_",
              "GPU_CORE_UTILIZATION_POLICY", "ACTIVE_OOM_KILLER", "VTPU_",
-             "LD_PRELOAD", "POD_")
+             "LD_PRELOAD", "POD_", "PYTHONPATH")
 
 
 class Fail(Exception):
@@ -1500,9 +1518,40 @@ def child_train(torch):
 
 
 def child_interposer_swap(torch):
+    """Host swap under the interposer, installed by this process:
+    interposer_swap's body after ``core.install()``."""
+    _, _, _, _, core, _ = enforce_port()
+    return interposer_swap(torch, core.install())
+
+
+def child_preempt_swap(torch):
+    """phase_preempt's H: interposer_swap's body in a pod started with the
+    env and mounts of its Allocate alone, which never calls install().
+    The shim's startup hook must have installed it as this process
+    imported its port (``core._GLOBAL`` set by the import), into the
+    port beside this script, not a copy in the shim dir; install() is
+    then made to fail, so nothing here installs it."""
+    _, _, _, _, core, _ = enforce_port()
+    shim = core._GLOBAL
+    check(shim is not None, "the startup hook did not install the shim")
+    check(Path(core.__file__).resolve()
+          == ROOT / "k8s_vgpu_scheduler_tpu_torch" / "shim" / "core.py",
+          f"the shim installed is {core.__file__}, not this checkout's")
+
+    def install(*args, **kwargs):
+        raise Fail("install() was called in a pod the hook set up")
+
+    core.install = install
+    out = interposer_swap(torch, shim)
+    out["shim_source"] = core.__file__
+    out["pythonpath"] = os.environ.get("PYTHONPATH")
+    return out
+
+
+def interposer_swap(torch, shim):
     """Host swap under the interposer (an oversubscribed grant,
-    ``CUDA_OVERSUBSCRIBE=true``): install() must attach the spiller and
-    the spill-only gate, and the limiter must never be called.  The
+    ``CUDA_OVERSUBSCRIBE=true``): ``shim`` must have the spiller and the
+    spill-only gate, and the limiter must never be called.  The
     8-layer train step, 2 warm-up steps, then pressure.  With the AdamW
     state registered, an allocation outside the gate takes what the
     interposer charges SWAP_OVER_MIB past the spiller's pressure point
@@ -1517,7 +1566,6 @@ def child_interposer_swap(torch):
     INTERPOSER_SWAP_STEPS more steps, whose losses go beside the
     unswapped interposed run's."""
     llama, _, train, fa, core, oversub = enforce_port()
-    shim = core.install()
     spiller = shim._spiller
     check(shim.interposed and shim.native.interposed
           and spiller is not None and core._GATE is shim
@@ -2219,6 +2267,7 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "cotenant": child_cotenant,
                     "interposer_train": child_interposer_train,
                     "interposer_swap": child_interposer_swap,
+                    "preempt_swap": child_preempt_swap,
                     "cores_train": child_cores_train,
                     "cores_serve": child_cores_serve,
                     "preempt": child_preempt,
@@ -3090,12 +3139,59 @@ def apply_json_patch(obj: dict, ops: list) -> dict:
     return out
 
 
+def user_pod(name: str, uid: str, mib: int, priority: int, cores=None,
+             annotations=None) -> dict:
+    """A pod as its user writes it: one container asking for one card,
+    ``mib`` of its memory (and ``cores`` of its compute where given) at
+    ``priority``, by resources only."""
+    limits = {"nvidia.com/gpu": "1", "nvidia.com/gpumem": str(mib),
+              "nvidia.com/priority": str(priority)}
+    if cores is not None:
+        limits["nvidia.com/gpucores"] = str(cores)
+    return {"metadata": {"name": name, "namespace": "default", "uid": uid,
+                         "annotations": dict(annotations or {})},
+            "spec": {"containers": [{"name": name, "resources": {
+                "limits": limits}}]}}
+
+
 def schedule_pod(base: str, kube, pod: dict, node: str) -> dict:
     """One pod through the port's scheduler extender at ``base`` as the
-    apiserver and kube-scheduler drive it: an AdmissionReview to
-    /webhook, its patch applied and the pod created; /filter offering
-    ``node``; /bind to the node Filter chose.  Returns the patch, the two
-    replies and the seconds each call took."""
+    apiserver and kube-scheduler drive it: admit_pod, then place_pod.
+    Returns the patch, the replies and the seconds each call took."""
+    created, out = admit_pod(base, kube, pod)
+    place_pod(base, created, node, out)
+    return out
+
+
+def filter_pod(base: str, pod: dict, node: str) -> tuple:
+    """/filter offering ``node``: the reply and the seconds it took."""
+    t0 = time.monotonic()
+    status, reply = http(f"{base}/filter", {"Pod": pod, "NodeNames": [node]})
+    check(status == 200, f"{pod['metadata']['name']}: Filter answered "
+          f"{status} {reply}")
+    return reply, time.monotonic() - t0
+
+
+def place_pod(base: str, pod: dict, node: str, out: dict) -> None:
+    """/filter offering ``node``, which must place the pod there, then
+    /bind to it; the replies and seconds go into ``out``."""
+    meta = pod["metadata"]
+    out["filter"], out["filter_s"] = filter_pod(base, pod, node)
+    check(out["filter"]["NodeNames"] == [node] and not out["filter"]["Error"],
+          f"{meta['name']}: Filter answered {out['filter']}")
+    t0 = time.monotonic()
+    status, out["bind"] = http(f"{base}/bind", {
+        "PodName": meta["name"], "PodNamespace": meta["namespace"],
+        "PodUID": meta["uid"], "Node": out["filter"]["NodeNames"][0]})
+    out["bind_s"] = time.monotonic() - t0
+    check(status == 200 and out["bind"] == {"Error": ""},
+          f"{meta['name']}: Bind answered {status} {out['bind']}")
+
+
+def admit_pod(base: str, kube, pod: dict) -> tuple:
+    """An AdmissionReview of ``pod`` to /webhook, its patch applied and
+    the pod created in ``kube``: the pod as created, and a record of the
+    patch and the seconds."""
     import base64
 
     meta = pod["metadata"]
@@ -3110,33 +3206,19 @@ def schedule_pod(base: str, kube, pod: dict, node: str) -> dict:
           and review["response"].get("patchType") == "JSONPatch",
           f"{meta['name']}: the webhook answered {status} {review}")
     out["patch"] = json.loads(base64.b64decode(review["response"]["patch"]))
-    created = kube.create_pod(apply_json_patch(pod, out["patch"]))
-    t0 = time.monotonic()
-    status, out["filter"] = http(f"{base}/filter",
-                                 {"Pod": created, "NodeNames": [node]})
-    out["filter_s"] = time.monotonic() - t0
-    check(status == 200 and out["filter"]["NodeNames"] == [node]
-          and not out["filter"]["Error"],
-          f"{meta['name']}: Filter answered {status} {out['filter']}")
-    t0 = time.monotonic()
-    status, out["bind"] = http(f"{base}/bind", {
-        "PodName": meta["name"], "PodNamespace": meta["namespace"],
-        "PodUID": meta["uid"], "Node": out["filter"]["NodeNames"][0]})
-    out["bind_s"] = time.monotonic() - t0
-    check(status == 200 and out["bind"] == {"Error": ""},
-          f"{meta['name']}: Bind answered {status} {out['bind']}")
-    return out
+    return kube.create_pod(apply_json_patch(pod, out["patch"])), out
 
 
 class ControlPlane:
     """The port's scheduler extender and a node agent's register stream,
-    in this process, on ``kube``: a Scheduler with its register service on
+    in this process, on ``kube``: a Scheduler (its informer on ``kube``'s
+    pod events, its leases on ``clock``) with its register service on
     the unix socket ``sock``, a DeviceRegister streaming ``backend``'s
     cards to it as node ``cfg.node_name``, and the HTTP extender on
     127.0.0.1 at a port of its own.  Up once the scheduler holds the
     node's inventory."""
 
-    def __init__(self, kube, backend, cfg, sock: Path) -> None:
+    def __init__(self, kube, backend, cfg, sock: Path, clock=None) -> None:
         from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import \
             start_register_service
         from k8s_vgpu_scheduler_tpu_torch.deviceplugin import DeviceRegister
@@ -3144,8 +3226,10 @@ class ControlPlane:
         from k8s_vgpu_scheduler_tpu_torch.scheduler.routes import \
             ExtenderServer
 
-        self.scheduler = Scheduler(kube, cfg)
+        self.scheduler = Scheduler(kube, cfg, clock=clock)
         self.scheduler.resync_from_apiserver()
+        kube.watch_pods(self.scheduler.on_pod_event)
+        self.closed = False
         self.grpc = start_register_service(self.scheduler, f"unix:{sock}",
                                            workers=4)
         self.register = DeviceRegister(backend, cfg, endpoint=f"unix:{sock}")
@@ -3166,6 +3250,9 @@ class ControlPlane:
             raise
 
     def close(self) -> None:
+        if self.closed:
+            return
+        self.closed = True
         self.register.stop()
         self.http.stop()
         self.grpc.stop(grace=1).wait()
@@ -3218,15 +3305,7 @@ def node_agent() -> int:
         plugin = GpuDevicePlugin(kube, inv, cfg)
         pods = {}
         for name, uid, mib, priority in PLUGIN_PODS:
-            # What a user writes: resources only.
-            spec = {"metadata": {"name": name, "namespace": "default",
-                                 "uid": uid, "annotations": {}},
-                    "spec": {"containers": [{"name": name, "resources": {
-                        "limits": {"nvidia.com/gpu": "1",
-                                   "nvidia.com/gpumem": str(mib),
-                                   "nvidia.com/gpucores":
-                                       str(CORES_SM_LIMIT),
-                                   "nvidia.com/priority": str(priority)}}}]}}
+            spec = user_pod(name, uid, mib, priority, cores=CORES_SM_LIMIT)
             handshake = schedule_pod(plane.base, kube, spec, PLUGIN_NODE)
             t_alloc = time.monotonic()
             [resp] = plugin.allocate(1)
@@ -3267,6 +3346,213 @@ def node_agent() -> int:
     out["run_s"] = time.monotonic() - t0
     print("ENFORCE " + json.dumps(out), flush=True)
     return 0
+
+
+class OffsetClock:
+    """The monotonic clock plus an offset a caller advances: the
+    scheduler's lease clock, aged without waiting."""
+
+    def __init__(self) -> None:
+        self.offset = 0.0
+
+    def __call__(self) -> float:
+        return time.monotonic() + self.offset
+
+
+def control_plane() -> int:
+    """phase_preempt's control plane (``--enforce-child control_plane``),
+    up for the whole phase in a process that never imports torch: the card
+    through NVML, the shim dir filled as ``vgpu-device-plugin
+    --install-shim`` fills it, a DeviceCache polling it every second whose keepalives
+    go down the register stream, the port's scheduler extender with
+    ``enable_preemption`` and its leases on an OffsetClock (ControlPlane),
+    and a GpuDevicePlugin, on a FakeKube.  Prints one JSON line once up
+    (the extender's base URL, the card, the seconds to register and to
+    install the shim, the shim dir's files), then
+    answers one JSON line for each command line on stdin (``{"ok": ...}``
+    or ``{"error": ...}``): ``create`` a pod, ``get`` or ``delete`` one by
+    name (the fake apiserver's writes and reads, as a kubelet and an
+    apiserver make them), ``allocate`` (kubelet's Allocate for the pod
+    Bind left allocating), ``requested`` (each victim's eviction request
+    and the monotonic time it reached the apiserver), ``grants`` (the
+    scheduler's registry), and ``end``: the register stream closes, the
+    lease clock moves into the Suspect window for one rescue sweep and
+    past the Dead deadline for another, and the answer holds both sweeps'
+    actions and the annotations of every pod that held a grant."""
+    sys.path.insert(0, str(ROOT))
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
+        DeviceCache, GpuDevicePlugin)
+    from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube
+    from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
+        PREEMPT_ANNOTATION
+    from k8s_vgpu_scheduler_tpu_torch.tpulib import NvmlBackend, detect
+    from k8s_vgpu_scheduler_tpu_torch.util import nodelock
+    from k8s_vgpu_scheduler_tpu_torch.util.config import Config
+
+    tmp = Path(os.environ["PLUGIN_DIR"])
+    backend = detect()
+    if not isinstance(backend, NvmlBackend):
+        print(f"chip_smoke: FAIL: control_plane: detect() gave "
+              f"{type(backend).__name__}, not NVML", file=sys.stderr)
+        return 1
+    # The shim dir, as vgpu-device-plugin --install-shim fills it.
+    t0 = time.monotonic()
+    _kernels.install_shim(tmp / "shim")
+    install_s = time.monotonic() - t0
+    cache = DeviceCache(backend, poll_seconds=1.0)
+    clock = OffsetClock()
+    cfg = Config(node_name=PLUGIN_NODE, shim_host_dir=str(tmp / "shim"),
+                 cache_host_dir=str(tmp / "containers"),
+                 enable_preemption=True)
+    kube = FakeKube()
+    kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
+    requested = {}
+
+    def on_event(event, pod):
+        meta = pod["metadata"]
+        value = (meta.get("annotations") or {}).get(PREEMPT_ANNOTATION)
+        if value and meta["uid"] not in requested:
+            requested[meta["uid"]] = [value, time.monotonic()]
+
+    kube.watch_pods(on_event)
+    plane = None
+    try:
+        plane = ControlPlane(kube, backend, cfg, tmp / "scheduler.sock",
+                             clock=clock)
+        cache.subscribe("register", plane.register.push_update,
+                        heartbeat=True)
+        cache.start()
+        sched = plane.scheduler
+        plugin = GpuDevicePlugin(kube, cache.inventory, cfg)
+
+        def allocate(_):
+            t0 = time.monotonic()
+            [resp] = plugin.allocate(1)
+            return dict(allocate_s=time.monotonic() - t0,
+                        response=dataclasses.asdict(resp),
+                        locked=nodelock.is_locked(kube, PLUGIN_NODE))
+
+        def delete(cmd):
+            kube.delete_pod("default", cmd["name"])
+
+        def grants(_=None):
+            return sorted([p.uid, p.name]
+                          for p in sched.pods.pods_on_node(PLUGIN_NODE))
+
+        def end(_):
+            held = grants()
+            cache.stop()
+            plane.close()  # the stream ends: the inventory goes, the lease stays
+            leases = sched.leases
+            clock.offset += cfg.lease_ttl_s + 5.0 - leases.age_of(PLUGIN_NODE)
+            suspect = dict(age_s=leases.age_of(PLUGIN_NODE),
+                           actions=sched.rescuer.sweep(), left=grants())
+            clock.offset += (leases.cfg.dead_after_s + 5.0
+                             - leases.age_of(PLUGIN_NODE))
+            dead = dict(age_s=leases.age_of(PLUGIN_NODE),
+                        actions=sched.rescuer.sweep(), left=grants())
+            return dict(held=held, suspect=suspect, dead=dead,
+                        registered=sched.nodes.get_node(PLUGIN_NODE)
+                        is not None,
+                        annotations={name: kube.get_pod("default", name)[
+                            "metadata"]["annotations"] for _, name in held},
+                        torch_loaded="torch" in sys.modules)
+
+        ops = {"create": lambda cmd: kube.create_pod(cmd["pod"]),
+               "get": lambda cmd: kube.get_pod("default", cmd["name"]),
+               "delete": delete, "allocate": allocate,
+               "requested": lambda _: requested, "grants": grants,
+               "end": end}
+        chip = cache.inventory.chips[0]
+        print(json.dumps({"base": plane.base, "uuid": chip.uuid,
+                          "hbm_mib": chip.hbm_mib,
+                          "register_s": plane.register_s,
+                          "install_shim_s": install_s,
+                          "shim_files": sorted(
+                              p.name for p in (tmp / "shim").iterdir())}),
+              flush=True)
+        for line in sys.stdin:
+            cmd = json.loads(line)
+            try:
+                out = {"ok": ops[cmd["op"]](cmd)}
+            except Exception as exc:  # noqa: BLE001 — the parent reports it
+                out = {"error": f"{type(exc).__name__}: {exc}"}
+            print(json.dumps(out), flush=True)
+            if cmd["op"] == "end":
+                break
+    except Fail as exc:
+        print(f"chip_smoke: FAIL: control_plane: {exc}", file=sys.stderr)
+        return 1
+    finally:
+        cache.stop()
+        if plane is not None:
+            plane.close()
+        backend.close()
+    return 0
+
+
+class PlaneChild:
+    """The control_plane child, driven by this process as kube-scheduler,
+    apiserver client and kubelet: its extender over HTTP at ``base``, the
+    rest over its stdin and stdout (``call``).  A call that gets no answer
+    within PLANE_CALL_S ends the child.  Its stderr goes to
+    chiprun_out/enforce_control_plane.log."""
+
+    def __init__(self, env: dict) -> None:
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        self.log = open(out / "enforce_control_plane.log", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
+             "control_plane"], env=env, cwd=ROOT, stdin=subprocess.PIPE,
+            stdout=subprocess.PIPE, stderr=self.log, text=True)
+        try:
+            self.ready = self._read("start")
+        except BaseException:
+            self.close()
+            raise
+        self.base = self.ready["base"]
+
+    def _read(self, what: str) -> dict:
+        timer = threading.Timer(PLANE_CALL_S, self.proc.kill)
+        timer.start()
+        try:
+            line = self.proc.stdout.readline()
+        finally:
+            timer.cancel()
+        check(bool(line), f"the control plane ended at {what} (exit "
+              f"{self.proc.poll()}; chiprun_out/enforce_control_plane.log)")
+        return json.loads(line)
+
+    def call(self, op: str, **args):
+        self.proc.stdin.write(json.dumps({"op": op, **args}) + "\n")
+        self.proc.stdin.flush()
+        out = self._read(op)
+        check("error" not in out, f"control plane {op}: {out.get('error')}")
+        return out["ok"]
+
+    def create_pod(self, pod: dict) -> dict:
+        return self.call("create", pod=pod)
+
+    def get_pod(self, name: str) -> dict:
+        return self.call("get", name=name)
+
+    def close(self) -> int:
+        """End the child (after ``end``, it exits by itself): its exit
+        code."""
+        if not self.log.closed:
+            try:
+                self.proc.stdin.close()
+            except BrokenPipeError:
+                pass
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+            self.log.close()
+        return self.proc.returncode
 
 
 def smi_rows(query: str) -> list:
@@ -3516,10 +3802,10 @@ def phase_device_plugin(torch, record, vgpu: Path):
                                        "flash_bwd_dkv")]
 
 
-def placed(name: str, pod: dict, uuid: str) -> None:
-    """Checks of one PLUGIN_PODS pod that the port's control plane placed:
-    the webhook's env and scheduler name in its spec, Filter's node, and
-    the grant Filter wrote (the card's UUID, the pod's MiB and cores) as
+def placed(name: str, pod: dict, uuid: str, cores=CORES_SM_LIMIT) -> None:
+    """Checks of one pod that the port's control plane placed: the
+    webhook's env and scheduler name in its spec, Filter's node, and the
+    grant Filter wrote (the card's UUID, the pod's MiB and ``cores``) as
     what Allocate took."""
     from k8s_vgpu_scheduler_tpu_torch.util import codec
 
@@ -3533,7 +3819,7 @@ def placed(name: str, pod: dict, uuid: str) -> None:
     [[grant]] = codec.decode_pod_devices(anns["vtpu.dev/assigned-ids"])
     check(anns["vtpu.dev/assigned-node"] == PLUGIN_NODE
           and (grant.uuid, grant.usedmem, grant.usedcores)
-          == (uuid, pod["grant_mib"], CORES_SM_LIMIT)
+          == (uuid, pod["grant_mib"], cores)
           and pod["handshake"]["filter"]["NodeNames"] == [PLUGIN_NODE],
           f"{name}: Filter's grant {grant} on "
           f"{anns['vtpu.dev/assigned-node']}")
@@ -3672,79 +3958,177 @@ def same_checkpoints(torch, a: Path, b: Path) -> dict:
 
 
 def phase_preempt(torch, record, vgpu: Path, interposer: Path):
-    """Checkpoint-first eviction on the card, three pods of the
-    PREEMPT_LAYERS-layer train step through the interposer: R runs
-    PREEMPT_STEPS uninterrupted, checkpointing to the disk;
-    V, the victim, checkpointing to SHM, watches an annotations file, and
-    the parent, acting as
-    kubelet, swaps ``vtpu.dev/preempt-requested="<uid>"`` in
-    (``os.replace``) once V has finished step PREEMPT_AFTER: V must
-    checkpoint at the next boundary and exit 0; V' resumes on V's
-    directory in a fresh process and finishes.  V''s losses and its final
-    checkpoint must be R's bit for bit, the card's memory must return to
-    the parent's within RETURN_S of V's exit, and V's region must hold no
-    used bytes.  Returns the port kernels' launches in the three."""
+    """Checkpoint-first eviction on the card, planned by the port's
+    scheduler.  The control plane (PlaneChild: the extender with
+    ``enable_preemption``, the register stream from NVML, the device
+    plugin) stays up for the whole phase; this process drives it as
+    kube-scheduler and acts as kubelet.  Four pods of the PREEMPT_LAYERS
+    layer train step through the interposer: R runs PREEMPT_STEPS
+    uninterrupted, checkpointing to the disk, under a grant of its own
+    (not placed).  V, priority 1, PREEMPT_MIB, written with resources only,
+    is placed by the webhook, Filter and Bind and runs under the env a
+    kubelet builds from Allocate's answer, checkpointing to SHM.  Once V
+    has finished step PREEMPT_AFTER, H (priority 0, PREEMPT_H_MIB, which
+    does not fit beside V, ``vtpu.dev/oversubscribe``) is admitted: its
+    Filter must find no node, and the scheduler must write
+    ``vtpu.dev/preempt-requested=<H's uid>`` on V.  This process mirrors V's
+    annotations, as the apiserver holds them, into V's downward-API file
+    (``os.replace``; it never writes the value).  V must checkpoint at
+    the next boundary and exit 0; its pod is deleted, the informer frees
+    its grant, and H's next Filter must place H on the card with its own
+    MiB.  H runs interposer_swap under Allocate's env alone
+    (``child_preempt_swap``): the startup hook installs the shim, the
+    AdamW state spills at the gate with no refusal and comes back bit for
+    bit, and H's losses are R's first ones.  H's pod is deleted; V', a new
+    pod on V's checkpoints, is placed by the extender and finishes.  V''s
+    losses and its final checkpoint must be R's bit for bit, the card's
+    memory must return to this process's within RETURN_S of V's exit
+    (read before H starts), and V's region must hold no used bytes.  Last,
+    the control plane's register stream closes and its rescuer sweeps
+    twice on an advanced lease clock: HEALTHY -> SUSPECT with nothing
+    rescinded, then SUSPECT -> DEAD, rescinding V''s grant (its finished
+    pod left in the apiserver) with its decision annotations cleared; the
+    card's used memory stays flat through the sweeps.  Returns the port
+    kernels' launches in R, V, H and V'."""
     from k8s_vgpu_scheduler_tpu_torch.monitor import RegionReader
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
+        PREEMPT_ANNOTATION
 
     uuid = nvidia_smi("uuid")
     t_phase = time.monotonic()
     gc.collect()
     torch.cuda.empty_cache()
     check(SHM.is_dir(), f"no {SHM} for V's checkpoints")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(GRANT_ENV)}
+    names = {k: v[0] for k, v in PREEMPT_PODS.items()}
     with tempfile.TemporaryDirectory() as tmp, \
             tempfile.TemporaryDirectory(dir=SHM) as shm:
         tmp, shm = Path(tmp), Path(shm)
         disk, shm_space = shutil.disk_usage(tmp), shutil.disk_usage(shm)
         host_free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
+        (tmp / "containers").mkdir()
+        volumes = tmp / "volumes"
+        plane = PlaneChild({**env, "PLUGIN_DIR": str(tmp)})
+        install_s = plane.ready["install_shim_s"]
+        check(plane.ready["shim_files"] == [
+            "ld.so.preload", "libvgpu_cuda.so", "sitecustomize.py"],
+            f"the node agent's shim dir {plane.ready['shim_files']}")
+        children, pods = [], {}
 
-        def pod(label, ckpt: Path):
-            """A pod with its own downward-API annotations file."""
-            (tmp / label).mkdir()
-            annotations = tmp / label / "annotations"
-            annotations.write_text('kubernetes.io/config.seen="2026"\n')
-            return EnforceChild(
-                "preempt", tmp, label=label, LD_PRELOAD=interposer,
-                NVIDIA_VISIBLE_DEVICES=uuid,
-                CUDA_DEVICE_MEMORY_LIMIT_0=f"{PREEMPT_MIB}m",
-                PREEMPT_DIR=ckpt, VTPU_PODINFO_ANNOTATIONS=annotations)
+        def schedule(key: str) -> dict:
+            """One of PREEMPT_PODS through the webhook, Filter, Bind and
+            Allocate; its spec, answer and the env a kubelet builds."""
+            name, uid, mib, priority, anns = PREEMPT_PODS[key]
+            created, hs = admit_pod(plane.base, plane,
+                                    user_pod(name, uid, mib, priority,
+                                             annotations=anns))
+            place_pod(plane.base, created, PLUGIN_NODE, hs)
+            return allocated(key, hs)
 
-        # Started at once: their imports overlap; each touches the card
-        # only after its go.  V' is the rescheduled pod: a new pod (its
-        # annotations do not carry the request) on V's checkpoints.
-        r, v, v2 = (pod("preempt_R", tmp / "R"), pod("preempt_V", shm / "V"),
-                    pod("preempt_V2", shm / "V"))
-        annotations = tmp / "preempt_V" / "annotations"
-        pending = tmp / "preempt_V" / ".pending"
-        pending.write_text('kubernetes.io/config.seen="2026"\n'
-                           f'vtpu.dev/preempt-requested="{PREEMPT_UID}"\n')
-        arrival = []
+        def allocated(key: str, hs: dict) -> dict:
+            name, uid, mib, priority, _ = PREEMPT_PODS[key]
+            got = plane.call("allocate")
+            hs["allocate_s"] = got["allocate_s"]
+            pod = dict(key=f"{uid}_{name}", grant_mib=mib, priority=priority,
+                       pod=plane.get_pod(name), handshake=hs,
+                       response=got["response"], locked=got["locked"])
+            check(pod["pod"]["metadata"]["annotations"][
+                "vtpu.dev/bind-phase"] == "success" and not pod["locked"],
+                  f"{name}: bind phase, lock {pod['locked']}")
+            placed(name, pod, uuid, cores=0)
+            pod["env"] = kubelet_env(pod["pod"], pod["response"], volumes)
+            pods[key] = pod
+            return pod
+
+        def pod_child(key: str, name: str, **extra) -> EnforceChild:
+            grant = dict(pods[key]["env"])
+            child = EnforceChild(
+                name, tmp, label=f"preempt_{key}",
+                region=grant.pop("CUDA_DEVICE_MEMORY_SHARED_CACHE"),
+                **extra, **grant)
+            children.append(child)
+            return child
+
+        events = {}
 
         def kubelet(line: str) -> None:
-            if line == f"STEP {PREEMPT_AFTER}" and not arrival:
-                os.replace(pending, annotations)
-                arrival.append(time.monotonic())
+            """On V's STEP PREEMPT_AFTER: H arrives; once its Filter has
+            answered, V's annotations go into V's downward-API file."""
+            if line != f"STEP {PREEMPT_AFTER}" or events:
+                return
+            name, uid, mib, priority, anns = PREEMPT_PODS["H"]
+            created, hs = admit_pod(plane.base, plane, user_pod(
+                name, uid, mib, priority, annotations=anns))
+            events["nofit_sent"] = time.monotonic()
+            hs["nofit"], hs["nofit_s"] = filter_pod(plane.base, created,
+                                                    PLUGIN_NODE)
+            events["nofit"] = time.monotonic()
+            events["h"] = hs
+            annotations = plane.get_pod(names["V"])["metadata"][
+                "annotations"]
+            path = Path(pods["V"]["env"]["VTPU_PODINFO_ANNOTATIONS"])
+            staged = path.with_name(".annotations")
+            staged.write_text(podinfo_text(annotations))
+            os.replace(staged, path)
+            events["mirrored"] = time.monotonic()
+            events["v_annotations"] = annotations
 
         try:
-            baseline = smi_card_mib()  # the parent alone on the card
+            check(plane.ready["uuid"] == uuid,
+                  f"the control plane's card {plane.ready} is not {uuid}")
+            (tmp / "preempt_R").mkdir()
+            r_annotations = tmp / "preempt_R" / "annotations"
+            r_annotations.write_text('kubernetes.io/config.seen="2026"\n')
+            r = EnforceChild(
+                "preempt", tmp, label="preempt_R", LD_PRELOAD=interposer,
+                NVIDIA_VISIBLE_DEVICES=uuid,
+                CUDA_DEVICE_MEMORY_LIMIT_0=f"{PREEMPT_MIB}m",
+                PREEMPT_DIR=tmp / "R",
+                VTPU_PODINFO_ANNOTATIONS=r_annotations)
+            children.append(r)
+            schedule("V")
+            v = pod_child("V", "preempt", PREEMPT_DIR=shm / "V")
+            baseline = smi_card_mib()  # this process alone on the card
             ref = r.run(record, "preempt")
             victim = v.run(record, "preempt", kubelet)
             exited = time.monotonic()
+            check(bool(events), f"V never printed STEP {PREEMPT_AFTER}")
+            plane.call("delete", name=names["V"])
+            deleted = time.monotonic()
             back, smi_after = None, []
             while time.monotonic() - exited < RETURN_S and back is None:
                 smi_after.append(smi_card_mib())
                 if smi_after[-1] <= baseline + TOL_RETURN_MIB:
                     back = time.monotonic() - exited
             reader = RegionReader(str(vgpu))
-            region = reader.open(str(tmp / "preempt_V" / "cudevshr.cache"))
+            region = reader.open(str(tmp / "containers" / pods["V"]["key"]
+                                     / "cudevshr.cache"))
             check(region is not None, "V's region is gone")
             try:
                 v_used, v_pids = region.used(0), region.proc_pids()
             finally:
                 region.close()
-            resumed = v2.run(record, "preempt")
+            # H's next Filter, as kube-scheduler retries a pending pod.
+            h_hs = events["h"]
+            place_pod(plane.base, plane.get_pod(names["H"]), PLUGIN_NODE,
+                      h_hs)
+            h_placed = time.monotonic()
+            allocated("H", h_hs)
+            swap = pod_child("H", "preempt_swap").run(record, "preempt")
+            plane.call("delete", name=names["H"])
+            schedule("V2")
+            resumed = pod_child("V2", "preempt",
+                                PREEMPT_DIR=shm / "V").run(record, "preempt")
+            requested = plane.call("requested")
+            smi_end = [smi_card_mib()]
+            ended = plane.call("end")
+            smi_end.append(smi_card_mib())
+            check(plane.close() == 0, "the control plane exited non-zero")
         finally:
-            for child in (r, v, v2):
+            for child in children:
                 child.stop()
+            plane.close()
         k = victim["done"]
         t0 = time.monotonic()
         final = same_checkpoints(torch, tmp / "R" / str(PREEMPT_STEPS) /
@@ -3753,12 +4137,21 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
         compare_s = time.monotonic() - t0
         shutil.rmtree(tmp / "R")
         shutil.rmtree(shm / "V")
+    h_uid, v_uid = PREEMPT_PODS["H"][1], PREEMPT_PODS["V"][1]
+    nofit = events["h"]["nofit"]
+    check(nofit["NodeNames"] == [] and nofit["Error"]
+          and nofit["FailedNodes"].get(PLUGIN_NODE, "").startswith(
+              "insufficient-hbm"),
+          f"H's first Filter answered {nofit}")
+    check(events["v_annotations"].get(PREEMPT_ANNOTATION) == h_uid
+          and list(requested) == [v_uid] and requested[v_uid][0] == h_uid,
+          f"the scheduler's requests {requested}, V's annotations "
+          f"{events['v_annotations']}")
     check(ref["done"] == PREEMPT_STEPS and not ref["preempted"]
           and len(ref["losses"]) == PREEMPT_STEPS,
           f"R: {ref['done']} steps, preempted {ref['preempted']}")
-    check(bool(arrival), f"V never printed STEP {PREEMPT_AFTER}")
     check(victim["preempted"] and PREEMPT_AFTER <= k < PREEMPT_STEPS
-          and victim["requester"] == PREEMPT_UID,
+          and victim["requester"] == h_uid,
           f"V: preempted {victim['preempted']} at step {k}, requester "
           f"{victim['requester']}")
     check([s["step"] for s in victim["io"]["saves"]] == [k],
@@ -3778,29 +4171,77 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
           f"s after V's exit, the parent {baseline} MiB")
     check(v_used == 0 and v.proc.pid not in v_pids,
           f"V's region: used {v_used}, pids {v_pids} (V was {v.proc.pid})")
+    h_env = pods["H"]["env"]
+    check(h_env.get("CUDA_OVERSUBSCRIBE") == "true"
+          and h_env.get("PYTHONPATH") == str(tmp / "shim"),
+          f"H's env from Allocate {h_env}")
+    check(swap["losses"] == ref["losses"][:len(swap["losses"])],
+          f"H's losses {swap['losses']} are not R's {ref['losses']}")
+    held = {uid for uid, _ in ended["held"]}
+    dead_rescued = [a for a in ended["dead"]["actions"]
+                    if a["kind"] == "rescued"]
+    check(ended["suspect"]["actions"] == [
+        {"kind": "lease", "node": PLUGIN_NODE, "from": "HEALTHY",
+         "to": "SUSPECT"}] and {u for u, _ in ended["suspect"]["left"]}
+          == held, f"the sweep in the Suspect window: {ended['suspect']}")
+    check(ended["dead"]["actions"][0] == {
+        "kind": "lease", "node": PLUGIN_NODE, "from": "SUSPECT",
+        "to": "DEAD"} and {a["uid"] for a in dead_rescued} == held
+          and held == {PREEMPT_PODS["V2"][1]}
+          and all(a["via"] == "rescind" and a["reason"] == "node-dead"
+                  for a in dead_rescued)
+          and not ended["dead"]["left"] and not ended["registered"],
+          f"the sweep past the Dead deadline: {ended['dead']}, held "
+          f"{ended['held']}")
+    check(all(anns.get(key) == "" for anns in ended["annotations"].values()
+              for key in ("vtpu.dev/assigned-node", "vtpu.dev/assigned-ids",
+                          "vtpu.dev/devices-to-allocate",
+                          "vtpu.dev/bind-phase")),
+          f"decision annotations after the rescue {ended['annotations']}")
+    check(not ended["torch_loaded"], "the control plane loaded torch")
+    check(max(smi_end) - min(smi_end) <= TOL_RETURN_MIB,
+          f"the card's memory moved through the sweeps: {smi_end} MiB")
     saves = [s for run in (ref, victim, resumed) for s in run["io"]["saves"]]
+    swapped = swap["host_swap"]
     summary = record["preempt_summary"] = {
         "phase": "preempt", "card": record["card"],
-        "seconds": time.monotonic() - t_phase,
+        "seconds": time.monotonic() - t_phase, "install_shim_s": install_s,
         "disk_free_bytes": disk.free, "disk_total_bytes": disk.total,
         "shm_free_bytes": shm_space.free, "host_free_bytes": host_free,
         "preempted_at_step": k,
-        "annotation_to_stop_seen_s": victim["stop_seen_t"] - arrival[0],
-        "annotation_to_exit_s": exited - arrival[0],
+        "calls_s": {key: {c: pod["handshake"][f"{c}_s"] for c in (
+            "webhook", "filter", "bind", "allocate")}
+            for key, pod in pods.items()},
+        "h_nofit_filter_s": events["h"]["nofit_s"],
+        "nofit_filter_to_annotation_written_s":
+            requested[v_uid][1] - events["nofit_sent"],
+        "annotation_written_to_mirrored_s":
+            events["mirrored"] - requested[v_uid][1],
+        "annotation_written_to_stop_seen_s":
+            victim["stop_seen_t"] - requested[v_uid][1],
+        "annotation_to_exit_s": exited - requested[v_uid][1],
+        "victim_exit_to_h_placed_s": h_placed - exited,
+        "victim_exit_to_deleted_s": deleted - exited,
         "victim_exit_t_to_parent_s": exited - victim["exit_t"],
+        "h_spill_s": swapped["suspend_s"], "h_resume_s": swapped["resume_s"],
+        "h_state_bytes": swapped["state_bytes"], "h_freed": swap["freed"],
+        "h_pressure": swap["pressure"], "h_shim_source": swap["shim_source"],
+        "h_losses": swap["losses"],
         "save_s": [s["s"] for s in saves],
         "restore_s": [x["s"] for x in resumed["io"]["restores"]],
         "checkpoint_bytes": saves[0]["bytes"],
         "compare_s": compare_s, "compared_tensors": final["tensors"],
         "smi_baseline_mib": baseline, "smi_after_exit_mib": smi_after,
         "memory_back_s": back, "victim_region_used": v_used,
+        "smi_through_sweeps_mib": smi_end,
+        "sweeps": {k: ended[k] for k in ("suspect", "dead")},
         "losses": ref["losses"],
         "peak_allocated_bytes": [run["peak_allocated"]
                                  for run in (ref, victim, resumed)],
         "child_s": {run: record["preempt"][run]["child_s"]
-                    for run in ("preempt_R", "preempt_V", "preempt_V2")}}
+                    for run in record["preempt"]}}
     log(json.dumps(summary))
-    return [sum(run["launches"][n] for run in (ref, victim, resumed))
+    return [sum(run["launches"][n] for run in (ref, victim, swap, resumed))
             for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
 
 
@@ -4405,6 +4846,8 @@ def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--enforce-child":
         if sys.argv[2] == "node_agent":  # before torch is imported
             return node_agent()
+        if sys.argv[2] == "control_plane":
+            return control_plane()
         return enforce_child(sys.argv[2])
     t_script = time.monotonic()
     import torch

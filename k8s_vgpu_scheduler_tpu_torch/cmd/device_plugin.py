@@ -10,8 +10,10 @@ override from /config/config.json, kubelet socket watch for restart,
 plugin + registration wiring).  The cards come from NVML (``detect()``:
 the mock under ``$VTPU_MOCK_JSON``, else NVML, else it raises); the node
 agent never imports torch.  ``--install-shim`` first builds the interposer
-and installs it with its ``ld.so.preload`` into ``--shim-dir``, the
-directory Allocate mounts into every container.  The partition strategies
+and installs it with its ``ld.so.preload`` and the shim's startup hook
+(``sitecustomize.py``) into ``--shim-dir``, the directory Allocate mounts
+into every container and puts on the ``PYTHONPATH`` of an oversubscribed
+one.  The partition strategies
 (MIG), the unsatisfiable-sizes annotation, the usage counters and the
 debug endpoints wait for their own slices.
 """
@@ -58,8 +60,9 @@ def parse_args(argv=None):
     p.add_argument("--config-file", default="/config/config.json")
     p.add_argument("--shim-dir", default="/usr/local/vgpu")
     p.add_argument("--install-shim", action="store_true",
-                   help="build the interposer and install it and its "
-                        "ld.so.preload into --shim-dir before serving")
+                   help="build the interposer and install it, its "
+                        "ld.so.preload and the startup hook into --shim-dir "
+                        "before serving")
     p.add_argument("--cache-dir", default="/tmp/vgpu/containers")
     p.add_argument("--fake-kube", action="store_true")
     p.add_argument("--kube-url", default="",

@@ -6,11 +6,12 @@
 The port's counterpart of the JAX package's ``cmd/scheduler.py`` with the
 reference's flags (cmd/scheduler/main.go:50–100): the gRPC and HTTP binds,
 the TLS cert and key, the scheduler name, the request defaults and the
-resource names, plus the node policy, the leases and the informer's
-knobs.  Boot order: list the pods and reconcile the grants before anything
-serves (a restarted scheduler that filtered against an empty registry
-would book cards twice), then the watch thread, the register service and
-the HTTP extender.  ``/metrics`` waits for the port's metrics slice.
+resource names, plus the node policy, priority preemption, the leases,
+the card quarantine, the rescue sweep and the informer's knobs.  Boot
+order: list the pods and reconcile the grants before anything serves (a
+restarted scheduler that filtered against an empty registry would book
+cards twice), then the watch thread, the rescue thread, the register
+service and the HTTP extender.  ``/metrics`` waits for the port's metrics slice.
 This module is the gRPC edge: the core imports neither grpc nor protobuf.
 """
 
@@ -54,11 +55,37 @@ def parse_args(argv=None):
                    choices=("spread", "binpack"),
                    help="among fitting nodes: spread = the most free "
                         "capacity wins; binpack = the fullest wins")
+    p.add_argument("--enable-preemption", action="store_true",
+                   help="let a pod that fits nowhere ask strictly lower-"
+                        "priority pods to checkpoint and leave (the "
+                        "vtpu.dev/preempt-requested annotation)")
     p.add_argument("--lease-ttl", type=float, default=15.0,
                    help="seconds without a register-stream message before "
                         "a node takes no new placement")
     p.add_argument("--lease-grace-beats", type=int, default=2,
-                   help="further lease-ttl periods before the node is dead")
+                   help="further lease-ttl periods before the node is dead "
+                        "and its pods are rescued")
+    p.add_argument("--quarantine-flap-threshold", type=int, default=3,
+                   help="card health flips inside the flap window that "
+                        "quarantine the card out of the schedulable set")
+    p.add_argument("--quarantine-flap-window", type=float, default=60.0,
+                   help="seconds of the flap-damping window")
+    p.add_argument("--quarantine-probation", type=float, default=30.0,
+                   help="seconds a quarantined card must stay healthy "
+                        "before it is placed on again")
+    p.add_argument("--rescue-interval", type=float, default=5.0,
+                   help="period of the background rescue sweep")
+    p.add_argument("--rescue-checkpoint-grace", type=float, default=120.0,
+                   help="seconds a victim on a quarantined card, asked to "
+                        "checkpoint, gets to exit before its grant is "
+                        "rescinded anyway")
+    p.add_argument("--lease-retention", type=float, default=900.0,
+                   help="seconds a Dead lease is kept once nothing remains "
+                        "to rescue on its node")
+    p.add_argument("--no-rescue", action="store_true",
+                   help="no background rescue sweep (the leases and the "
+                        "quarantine still gate Filter; grants on dead "
+                        "nodes stay until an operator acts)")
     p.add_argument("--resync-seconds", type=float, default=None,
                    help="full re-list period; default 300 with the watch, "
                         "30 without")
@@ -81,7 +108,15 @@ def build_config(args) -> Config:
         scheduler_name=args.scheduler_name, default_mem=args.default_mem,
         default_cores=args.default_cores,
         node_scheduler_policy=args.node_scheduler_policy,
-        lease_ttl_s=args.lease_ttl, lease_grace_beats=args.lease_grace_beats)
+        enable_preemption=args.enable_preemption,
+        lease_ttl_s=args.lease_ttl, lease_grace_beats=args.lease_grace_beats,
+        quarantine_flap_threshold=args.quarantine_flap_threshold,
+        quarantine_flap_window_s=args.quarantine_flap_window,
+        quarantine_probation_s=args.quarantine_probation,
+        rescue_interval_s=args.rescue_interval,
+        rescue_checkpoint_grace_s=args.rescue_checkpoint_grace,
+        lease_retention_s=args.lease_retention,
+        enable_rescue=not args.no_rescue)
 
 
 def resolve_watch_and_resync(no_watch: bool, client, resync_seconds):
@@ -162,6 +197,8 @@ def main(argv=None):
         threading.Thread(target=run_watch_loop, args=(scheduler, stop),
                          kwargs={"initial_rv": initial_rv},
                          name="pod-watch", daemon=True).start()
+    if scheduler.cfg.enable_rescue:
+        scheduler.rescuer.start()
     grpc_server = start_register_service(scheduler, args.grpc_bind)
     host, _, port = args.http_bind.rpartition(":")
     http_server = ExtenderServer(
@@ -185,6 +222,7 @@ def main(argv=None):
         pass
     finally:
         stop.set()
+        scheduler.rescuer.stop()
         http_server.stop()
         grpc_server.stop(grace=2)
 

@@ -24,9 +24,15 @@ The env a container gets (read by ``csrc/vgpu/region.cc``):
   region maps its slots by them
 - ``CUDA_OVERSUBSCRIBE``             present when host swap is enabled
 - ``VTPU_QOS_CLASS``/``_DUTY_SPLIT``, ``VTPU_GANG_*``, ``VTPU_TRACE_ID``
+- ``PYTHONPATH``                     the mounted shim dir, where the
+  shim's startup hook (``sitecustomize.py``) installs the Python shim in
+  every Python process of the pod that imports the port (the JAX
+  package's chart sets it; the port has no chart yet, so Allocate does),
+  for a grant that oversubscribes or a node with no ``ld.so.preload``:
+  elsewhere the interposer does all the shim would
 - mounts: the per-container region dir at /tmp/vgpu, the node's shim dir
-  at /usr/local/vgpu (``libvgpu_cuda.so``) and its ``ld.so.preload`` at
-  /etc/ld.so.preload.
+  at /usr/local/vgpu (``libvgpu_cuda.so`` and ``sitecustomize.py``) and
+  its ``ld.so.preload`` at /etc/ld.so.preload.
 
 No device specs: the container runtime mounts the cards
 ``NVIDIA_VISIBLE_DEVICES`` names, as the reference relies on.  No physical
@@ -74,6 +80,9 @@ from ..util.types import (
     QOS_DUTY_SPLIT_ANNOTATION,
     SHIM_CONTAINER_DIR,
 )
+
+#: Set where the shim dir is mounted and the Python shim enforces.
+ENV_PYTHONPATH = "PYTHONPATH"
 
 log = logging.getLogger(__name__)
 
@@ -168,6 +177,14 @@ def attach_enforcement(resp: ContainerResponse, cfg: Config, cache_key: str,
         resp.mounts.append(Mount(container_path=SHIM_CONTAINER_DIR,
                                  host_path=cfg.shim_host_dir,
                                  read_only=True))
+        # The shim's startup hook (sitecustomize.py in the directory,
+        # shim/startup.py) then installs the Python shim in every process
+        # of the pod that imports the port.  Only where that shim has work
+        # the interposer does not do (host swap, or all of it where no
+        # interposer is preloaded): the setting replaces a PYTHONPATH
+        # baked into the pod's image, as the JAX chart's setting does.
+        if ENV_OVERSUBSCRIBE in resp.envs or not mount_preload:
+            resp.envs[ENV_PYTHONPATH] = SHIM_CONTAINER_DIR
     if mount_preload:
         resp.mounts.append(Mount(
             container_path=f"/etc/{PRELOAD_FILE}",

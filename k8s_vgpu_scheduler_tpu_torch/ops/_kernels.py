@@ -11,9 +11,10 @@ with the driver hooks, for ``LD_PRELOAD``), the mock driver its CPU tests
 run against (``mock_cuda-<hash>/libcuda.so.1`` and ``libnvidia-ml.so.1``)
 and their C test driver (``test_interposer-<hash>``), and the mock NVML
 the node agent's CPU tests run against (``mock_nvml-<hash>/
-libnvidia-ml.so.1``).  ``install_shim`` puts the interposer and the
-``ld.so.preload`` naming it into a node's shim directory.  Importing this
-module compiles nothing and needs no compiler: the CPU tests import it.
+libnvidia-ml.so.1``).  ``install_shim`` puts the interposer, the
+``ld.so.preload`` naming it and the shim's startup hook into a node's shim
+directory.  Importing this module compiles nothing and needs no compiler:
+the CPU tests import it.
 """
 
 from __future__ import annotations
@@ -189,11 +190,17 @@ def build_mock_nvml() -> Path:
                      "-Wl,-soname,libnvidia-ml.so.1", str(src)])
 
 
+#: The startup hook's name in a shim directory.
+HOOK_FILE = "sitecustomize.py"
+
+
 def install_shim(shim_dir) -> Path:
-    """Install the interposer into a node's shim directory, as the device
-    plugin mounts it into every container: ``libvgpu_cuda.so`` (built from
-    the checkout's sources) and ``ld.so.preload`` naming it where the
-    container sees the directory.  Returns the library's path."""
+    """Install the shim into a node's shim directory, as the device plugin
+    mounts it into every container: ``libvgpu_cuda.so`` (built from the
+    checkout's sources), ``ld.so.preload`` naming it where the container
+    sees the directory, and the startup hook ``sitecustomize.py``
+    (``shim/startup.py``, which installs into the port the pod's program
+    imports and carries none).  Returns the library's path."""
     from ..util.types import PRELOAD_FILE, SHIM_CONTAINER_DIR, SHIM_LIBRARY
 
     shim_dir = Path(shim_dir)
@@ -204,6 +211,9 @@ def install_shim(shim_dir) -> Path:
     os.replace(tmp, lib)
     (shim_dir / PRELOAD_FILE).write_text(
         f"{SHIM_CONTAINER_DIR}/{SHIM_LIBRARY}\n")
+    tmp = shim_dir / f".{HOOK_FILE}.{os.getpid()}"
+    shutil.copyfile(CSRC.parent / "shim" / "startup.py", tmp)
+    os.replace(tmp, shim_dir / HOOK_FILE)
     return lib
 
 

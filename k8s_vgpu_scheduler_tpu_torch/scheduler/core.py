@@ -11,12 +11,18 @@ two-phase commit and releases the lock.
 
 Each decision runs whole under one lock, as the JAX package's serial path
 does (``Config.optimistic_commit=False``).  Of the JAX scheduler's
-subsystems this one carries only the node leases.  A pod that declares a
-device mesh (``vtpu.dev/mesh``) or a gang (``vtpu.dev/pod-group``) is
-refused with an error that names the slice that places it: it is never
-placed as though it declared neither.  This module imports neither grpc
-nor protobuf: the register stream's messages are read through their
-attributes, and only ``cmd/scheduler.py`` converts at the gRPC edge.
+subsystems this one carries fleet health (``health/``: the node leases
+Filter gates on, the card quarantine stripped from every usage, the
+rescuer) and priority preemption (``preempt.py``): with
+``Config.enable_preemption``, a pod that fits nowhere asks strictly
+lower-priority pods to checkpoint and leave, and the requests are kept,
+rescinded and rebuilt from the annotations as in the JAX scheduler.  A pod
+that declares a device mesh (``vtpu.dev/mesh``) or a gang
+(``vtpu.dev/pod-group``) is refused with an error that names the slice
+that places it: it is never placed as though it declared neither.  This
+module imports neither grpc nor protobuf: the register stream's messages
+are read through their attributes, and only ``cmd/scheduler.py`` converts
+at the gRPC edge.
 """
 
 from __future__ import annotations
@@ -26,7 +32,9 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
-from ..health.lease import LeaseConfig, LeaseTracker
+from ..health.lease import LeaseConfig, LeaseState, LeaseTracker
+from ..health.quarantine import ChipQuarantine, QuarantineConfig
+from ..health.rescuer import RESCUE_VALUE_PREFIX, RescueConfig, Rescuer
 from ..k8s.client import (
     Gone,
     KubeClient,
@@ -58,6 +66,7 @@ from ..util.types import (
 from . import score as score_mod
 from .nodes import DeviceInfo, NodeInfo, NodeManager
 from .pods import PodInfo, PodManager
+from .preempt import PREEMPT_ANNOTATION, PreemptionPlan, plan_preemption
 
 log = logging.getLogger(__name__)
 
@@ -70,14 +79,21 @@ UNPLACED_ANNOTATIONS = {
                            "(ROADMAP A.5)",
 }
 
+#: Filter's error when no candidate fits: the case preemption plans for.
+NO_FIT = "no node fits GPU request"
+
 
 class FilterResult:
     def __init__(self, node: Optional[str] = None,
                  failed: Optional[Dict[str, str]] = None,
-                 error: str = "") -> None:
+                 error: str = "",
+                 preempt: Optional[PreemptionPlan] = None) -> None:
         self.node = node
         self.failed = failed or {}
         self.error = error
+        # A no-fit decision may carry an eviction plan: filter() writes
+        # its requests outside the lock and the pod pends meanwhile.
+        self.preempt = preempt
 
 
 def decode_register_request(req) -> NodeInfo:
@@ -97,11 +113,26 @@ class Scheduler:
         self.cfg = cfg or Config()
         self.nodes = NodeManager()
         self.pods = PodManager()
-        # ``clock`` (time.monotonic by default) drives the leases, so
-        # tests age them without sleeping.
+        # ``clock`` (time.monotonic by default) drives the leases, the
+        # quarantine and the rescuer, so tests age them without sleeping.
         self.leases = LeaseTracker(
             LeaseConfig(ttl_s=self.cfg.lease_ttl_s,
                         grace_beats=self.cfg.lease_grace_beats),
+            clock=clock)
+        self.quarantine = ChipQuarantine(
+            QuarantineConfig(
+                flap_threshold=self.cfg.quarantine_flap_threshold,
+                flap_window_s=self.cfg.quarantine_flap_window_s,
+                probation_s=self.cfg.quarantine_probation_s),
+            clock=clock)
+        # vgpu-scheduler starts the rescue thread; embedders and tests
+        # call rescuer.sweep() themselves.
+        self.rescuer = Rescuer(
+            self,
+            RescueConfig(
+                interval_s=self.cfg.rescue_interval_s,
+                checkpoint_grace_s=self.cfg.rescue_checkpoint_grace_s,
+                lease_retention_s=self.cfg.lease_retention_s),
             clock=clock)
         # Held for a whole decision: candidate evaluation and the
         # tentative grant, never across apiserver I/O.
@@ -113,12 +144,34 @@ class Scheduler:
         self._deleted_lock = threading.Lock()
         self._deleted_horizon_s = 900.0
         self._deleted_pruned_at = 0.0
+        # victim uid -> monotonic time of its last eviction request: the
+        # pending pod is Filtered again every cycle while its victims
+        # checkpoint, and the request is not written again within
+        # PREEMPT_REASK_S.
+        self._preempt_requested: Dict[str, float] = {}
+        # requester uid -> {victim uid: (namespace, name)}, to rescind the
+        # requests when the requester is placed or deleted.
+        self._preempt_by_requester: Dict[str, Dict[str, Tuple[str, str]]] \
+            = {}
+        self._preempt_lock = threading.Lock()
+        #: Eviction requests written since the start.
+        self.preemptions_requested = 0
+
+    #: Seconds before a victim's eviction request is written again, and
+    #: the age past which a request is forgotten once more than
+    #: PREEMPT_CAP are held.
+    PREEMPT_REASK_S = 30.0
+    PREEMPT_FORGET_S = 300.0
+    PREEMPT_CAP = 4096
 
     # -- register stream (gRPC DeviceService.Register) -------------------------
     def observe_registration(self, node_name: str, info: NodeInfo) -> None:
-        """One register-stream message: a lease beat, and the inventory
-        where it changed."""
+        """One register-stream message: a lease beat, a health reading of
+        each card for the quarantine, and the inventory where it
+        changed."""
         self.leases.beat(node_name)
+        self.quarantine.observe_node(
+            node_name, {d.id: d.health for d in info.devices})
         if not self.nodes.same_inventory(node_name, info):
             self.nodes.add_node(node_name, info)
             log.info("registered node %s with %d cards", node_name,
@@ -176,6 +229,9 @@ class Scheduler:
                     trace.TRACE_ID_ANNOTATION, ""), pod=pod_name(pod),
                     event=event)
             self._note_deleted(uid)
+            # A deleted requester's victims need not checkpoint.
+            if self._preempt_by_requester.get(uid):
+                self._rescind_preemptions(uid)
             self.pods.del_pod(uid)
             return
         if not node:
@@ -185,6 +241,18 @@ class Scheduler:
             return
         encoded = anns.get(ASSIGNED_IDS_ANNOTATION, "")
         if not encoded:
+            return
+        if self.nodes.get_node(node) is None and \
+                self.leases.state_of(node) is LeaseState.DEAD:
+            # A grant on a node whose inventory is gone and whose lease
+            # has expired: adding it would book cards nobody can account
+            # for.  The rescuer clears the decision so the pod reschedules.
+            # (A node with no lease stays on the add path: at boot the
+            # agents have not connected yet.)
+            self.pods.del_pod(uid)
+            self.rescuer.enqueue(uid, "node-dead",
+                                 namespace=pod_namespace(pod),
+                                 name=pod_name(pod), node=node)
             return
         try:
             devices = codec.decode_pod_devices(encoded)
@@ -235,19 +303,73 @@ class Scheduler:
                 except Exception:  # noqa: BLE001 — kept; the next pass retries
                     continue
             self.pods.del_pod(info.uid)
+        self._reconcile_preemptions(pods)
         return rv
 
+    def _reconcile_preemptions(self, pods: List[dict]) -> None:
+        """The annotations are the preemption ledger's log: after a
+        restart the requester -> victims map is empty but the victims'
+        annotations remain.  Rebuild the map from the list, and rescind
+        each request whose requester is gone or already placed."""
+        by_uid = {pod_uid(p): p for p in pods}
+        for pod in pods:
+            anns = pod.get("metadata", {}).get("annotations", {}) or {}
+            requester = anns.get(PREEMPT_ANNOTATION)
+            if not requester or requester.startswith(RESCUE_VALUE_PREFIX):
+                # A rescue request's grace and rescission are the
+                # rescuer's.
+                continue
+            req_pod = by_uid.get(requester)
+            still_pending = (
+                req_pod is not None and not is_pod_terminated(req_pod)
+                and not (req_pod.get("metadata", {}).get("annotations")
+                         or {}).get(ASSIGNED_NODE_ANNOTATION))
+            if still_pending:
+                with self._preempt_lock:
+                    self._preempt_by_requester.setdefault(
+                        requester, {})[pod_uid(pod)] = (
+                            pod_namespace(pod), pod_name(pod))
+                continue
+            try:
+                self.client.patch_pod_annotations(
+                    pod_namespace(pod), pod_name(pod),
+                    {PREEMPT_ANNOTATION: ""})
+                log.info("resync: rescinded stale preemption on %s "
+                         "(requester %s gone or placed)", pod_name(pod),
+                         requester)
+            except Exception as e:  # noqa: BLE001 — the next resync retries
+                log.info("resync: stale-preemption rescission for %s not "
+                         "written (%s)", pod_name(pod), e)
+
     # -- usage -----------------------------------------------------------------
+    def _usage(self, name: str, info: NodeInfo
+               ) -> Dict[str, score_mod.DeviceUsage]:
+        """``name``'s inventory less its grants, built fresh, with its
+        quarantined cards left out: no fit can place on a card it cannot
+        see."""
+        usage = score_mod.build_usage(info, self.pods.pods_on_node(name))
+        quarantined = self.quarantine.quarantined_on(name)
+        if quarantined:
+            usage = {cid: u for cid, u in usage.items()
+                     if cid not in quarantined}
+        return usage
+
     def get_nodes_usage(self, node_names: Optional[List[str]] = None
                         ) -> Dict[str, Tuple[NodeInfo,
                                              Dict[str, score_mod.DeviceUsage]]]:
-        """Each registered node's inventory less its grants (reference
-        getNodesUsage), built fresh: the caller owns the maps."""
+        """Each registered node's inventory less its grants and its
+        quarantined cards (reference getNodesUsage), built fresh: the
+        caller owns the maps."""
         allow = None if node_names is None else set(node_names)
-        return {name: (info, score_mod.build_usage(
-                    info, self.pods.pods_on_node(name)))
+        return {name: (info, self._usage(name, info))
                 for name, info in self.nodes.list_nodes().items()
                 if allow is None or name in allow}
+
+    def _pods_by_node(self) -> Dict[str, List[PodInfo]]:
+        out: Dict[str, List[PodInfo]] = {}
+        for info in self.pods.list_pods():
+            out.setdefault(info.node, []).append(info)
+        return out
 
     # -- Filter ----------------------------------------------------------------
     def filter(self, pod: dict, node_names: List[str]) -> FilterResult:
@@ -269,10 +391,17 @@ class Scheduler:
         if result.node is None:
             if result.error or result.failed:
                 tr.event(uid, "filter-rejected", trace_id=tid,
-                         pod=pod_name(pod), error=result.error)
+                         pod=pod_name(pod), error=result.error,
+                         preempting=result.preempt is not None)
+            if result.preempt is not None:
+                self._request_preemptions(pod, result.preempt)
             return result
         tr.event(uid, "filter-assigned", trace_id=tid, pod=pod_name(pod),
                  node=result.node)
+        if self._preempt_by_requester.get(uid):
+            # Placed after all (room freed elsewhere): its eviction
+            # requests are pointless now.
+            self._rescind_preemptions(uid)
         err = self._write_decision(pod, result)
         if err is None:
             return result
@@ -295,7 +424,95 @@ class Scheduler:
                 return FilterResult(
                     error=f"{key} is not placed by this scheduler: {why}")
         with self._lock:
-            return self._decide_locked(pod, requests, node_names, anns)
+            result = self._decide_locked(pod, requests, node_names, anns)
+        if result.node is None and result.error == NO_FIT:
+            result.preempt = self._plan_preemption(pod, requests, anns,
+                                                   node_names)
+        return result
+
+    def _plan_preemption(self, pod: dict, requests, anns: Dict[str, str],
+                         node_names: List[str]
+                         ) -> Optional[PreemptionPlan]:
+        """The eviction plan for a pod that fits nowhere, off the lock
+        (the planner is pure and may scan every node's pods).  Only the
+        offered nodes that take placements count: room freed elsewhere is
+        no use to the pod."""
+        if not self.cfg.enable_preemption:
+            return None
+        offered = set(node_names)
+        entries = {name: (info, None)
+                   for name, info in self.nodes.list_nodes().items()
+                   if name in offered
+                   and self.leases.reject_reason(name) is None}
+        return plan_preemption(
+            requests, pod_priority(pod, self.cfg), entries,
+            self._pods_by_node(), anns,
+            node_policy=self.cfg.node_scheduler_policy)
+
+    def _request_preemptions(self, pod: dict, plan: PreemptionPlan) -> None:
+        """Write the plan's eviction requests (apiserver writes, outside
+        the lock).  A victim is asked again only after PREEMPT_REASK_S:
+        it needs a while to checkpoint, and the pending pod is Filtered
+        every cycle meanwhile."""
+        now = time.monotonic()
+        requester = pod_uid(pod)
+        for v in plan.victims:
+            with self._preempt_lock:
+                if now - self._preempt_requested.get(v.uid, 0.0) \
+                        < self.PREEMPT_REASK_S:
+                    continue
+                self._preempt_requested[v.uid] = now
+                if len(self._preempt_requested) > self.PREEMPT_CAP:
+                    for u in [u for u, t in self._preempt_requested.items()
+                              if now - t > self.PREEMPT_FORGET_S]:
+                        del self._preempt_requested[u]
+            try:
+                self.client.patch_pod_annotations(
+                    v.namespace, v.name, {PREEMPT_ANNOTATION: requester})
+            except Exception as e:  # noqa: BLE001 — the next cycle retries
+                log.error("preemption request for %s failed: %s", v.name, e)
+                with self._preempt_lock:
+                    self._preempt_requested.pop(v.uid, None)
+                continue
+            with self._preempt_lock:
+                self.preemptions_requested += 1
+                self._preempt_by_requester.setdefault(
+                    requester, {})[v.uid] = (v.namespace, v.name)
+            tr = trace.tracer()
+            tr.event(v.uid, "preempt-requested", namespace=v.namespace,
+                     name=v.name, requester=requester,
+                     requester_pod=pod_name(pod), node=plan.node)
+            tr.event(requester, "preemption-planned",
+                     namespace=pod_namespace(pod), name=pod_name(pod),
+                     node=plan.node,
+                     victims=[f"{x.namespace}/{x.name}"
+                              for x in plan.victims])
+            log.warning("preemption: asked %s/%s (prio %d) to checkpoint "
+                        "and release %s for pod %s", v.namespace, v.name,
+                        v.priority, plan.node, pod_name(pod))
+
+    def _rescind_preemptions(self, requester_uid: str) -> None:
+        """The requester no longer needs the room (placed, or deleted):
+        clear its victims' requests to the empty value, which the
+        in-container watch reads as none (a key deletion is not portable
+        across patch types)."""
+        with self._preempt_lock:
+            victims = self._preempt_by_requester.pop(requester_uid, None)
+        for vuid, (namespace, name) in (victims or {}).items():
+            with self._preempt_lock:
+                self._preempt_requested.pop(vuid, None)
+            try:
+                self.client.patch_pod_annotations(
+                    namespace, name, {PREEMPT_ANNOTATION: ""})
+            except Exception as e:  # noqa: BLE001 — the victim may be gone
+                log.info("preemption rescission for %s/%s not written "
+                         "(%s)", namespace, name, e)
+                continue
+            trace.tracer().event(vuid, "preempt-rescinded",
+                                 namespace=namespace, name=name,
+                                 requester=requester_uid)
+            log.info("preemption rescinded for %s/%s (requester %s no "
+                     "longer pending)", namespace, name, requester_uid)
 
     def _decide_locked(self, pod: dict, requests, node_names: List[str],
                        anns: Dict[str, str]) -> FilterResult:
@@ -315,7 +532,7 @@ class Scheduler:
             if why is not None:
                 failed[name] = why
                 continue
-            usage = score_mod.build_usage(info, self.pods.pods_on_node(name))
+            usage = self._usage(name, info)
             why = score_mod.type_excluded(affinity, usage)
             if why is not None:
                 failed[name] = why
@@ -330,8 +547,7 @@ class Scheduler:
             if best is None or s > best[0]:
                 best = (s, name, placement)
         if best is None:
-            return FilterResult(error="no node fits GPU request",
-                                failed=failed)
+            return FilterResult(error=NO_FIT, failed=failed)
         _, node, placement = best
         # Recorded at once, so the next decision sees the grant.
         self.pods.add_pod(PodInfo(

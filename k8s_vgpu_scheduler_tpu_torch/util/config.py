@@ -1,7 +1,7 @@
 """Configuration of the port's node agent and scheduler extender.
 
 The port's copy of the JAX package's ``util/config.py``, cut to the fields
-the node agent and the reference's extender surface read.  One immutable
+the node agent and the scheduler extender read.  One immutable
 Config passed explicitly, where the reference scatters mutable package
 globals (pkg/util/util.go:35–47, pkg/device-plugin/config:528–537).
 """
@@ -39,11 +39,31 @@ class Config:
     # the reference's rule) or "binpack" (the fullest fitting node wins).
     node_scheduler_policy: str = "spread"
 
+    # Priority preemption (scheduler/preempt.py): a pod that fits nowhere
+    # may ask strictly lower-priority pods to checkpoint and leave.  Off
+    # by default: eviction is the operator's choice (--enable-preemption).
+    enable_preemption: bool = False
+
     # Node leases (health/lease.py): seconds without a register-stream
     # message before a node takes no new placements, and how many more of
-    # those periods before it is dead.
+    # those periods before it is dead and its grants are rescued.
     lease_ttl_s: float = 15.0
     lease_grace_beats: int = 2
+    # Card quarantine (health/quarantine.py): this many health flips
+    # inside the window quarantine a card until it has stayed healthy for
+    # the probation.
+    quarantine_flap_threshold: int = 3
+    quarantine_flap_window_s: float = 60.0
+    quarantine_probation_s: float = 30.0
+    # The rescue sweep (health/rescuer.py): its period, how long a victim
+    # asked to checkpoint off a quarantined card gets before its grant is
+    # rescinded, and how long a Dead lease is kept once nothing is left
+    # on it.  enable_rescue gates the daemon's sweep thread; detection
+    # and the quarantine's gating are always on.
+    rescue_interval_s: float = 5.0
+    rescue_checkpoint_grace_s: float = 120.0
+    lease_retention_s: float = 900.0
+    enable_rescue: bool = True
 
     # Node-agent knobs (reference pkg/device-plugin/config:528–537).
     device_split_count: int = 10

@@ -20,13 +20,22 @@ The env table (JAX -> port):
 - ``TPU_VISIBLE_DEVICES``, ``TPU_DEVICE_PHYSICAL_MEMORY_<i>``: none
 - ``VTPU_*`` unchanged; mounts /tmp/vtpu -> /tmp/vgpu and /usr/local/vtpu
   -> /usr/local/vgpu, on the same host paths.
+
+One stated difference: where the shim dir is mounted and the grant
+oversubscribes, the port's answer also sets ``PYTHONPATH`` to it
+(``SHIM_ENV``), so the shim's startup hook installs the Python shim's
+host swap in the pod; the JAX package leaves that to its chart, and the
+port has no chart yet.
 """
 
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 import time
 from concurrent import futures
+from pathlib import Path
 
 import grpc
 import pytest
@@ -77,6 +86,9 @@ ENV_TABLE = {"TPU_DEVICE_CORE_LIMIT": "CUDA_DEVICE_SM_LIMIT",
              "TPU_OVERSUBSCRIBE": "CUDA_OVERSUBSCRIBE"}
 PATHS = {"/tmp/vtpu/vtpu.cache": "/tmp/vgpu/cudevshr.cache",
          "/tmp/vtpu": "/tmp/vgpu", "/usr/local/vtpu": "/usr/local/vgpu"}
+# The port's one key beyond the JAX answer, where the shim dir is mounted
+# and the grant oversubscribes.
+SHIM_ENV = {"PYTHONPATH": "/usr/local/vgpu"}
 
 
 def as_port_envs(envs: dict) -> dict:
@@ -223,7 +235,9 @@ def test_allocate_responses_equal_the_jax_plugin(sides, tmp_path, case):
     jr, jerr = j.allocate(len(grants))
     tr, terr = t.allocate(len(grants))
     assert jerr is None and terr is None, (jerr, terr)
-    assert [envs for envs, _ in tr] == [as_port_envs(e) for e, _ in jr]
+    assert [envs for envs, _ in tr] == [
+        {**as_port_envs(e),
+         **(SHIM_ENV if "TPU_OVERSUBSCRIBE" in e else {})} for e, _ in jr]
     assert [m for _, m in tr] == [[(PATHS.get(c, c), h, ro)
                                    for c, h, ro in m] for _, m in jr]
     assert t.outcome() == j.outcome()
@@ -541,3 +555,214 @@ def test_entry_point_serves_the_mock_and_registers(tmp_path, monkeypatch):
                "--config-file", str(tmp_path / "none.json")])
     assert seen["devices"] == 40
     assert not os.path.exists(tmp_path / "vgpu.sock")  # stopped
+
+
+# -- the shim's startup hook ---------------------------------------------------
+def test_a_missing_shim_dir_sets_no_pythonpath(tmp_path):
+    """PYTHONPATH comes with the shim dir's mount, and only with it."""
+    t = Side(True, tmp_path)  # no shim dir installed under tmp_path
+    t.bind([[(0, 90000, 50)]],
+           annotations={"vtpu.dev/oversubscribe": "true"})
+    [(envs, mounts)], err = t.allocate(1)
+    assert err is None
+    assert envs["CUDA_OVERSUBSCRIBE"] == "true"
+    assert "PYTHONPATH" not in envs
+    assert "/usr/local/vgpu" not in [c for c, _, _ in mounts]
+
+
+@pytest.mark.parametrize("preload,oversubscribe,want", [
+    (True, False, False), (True, True, True), (False, False, True),
+    (False, True, True)],
+    ids=["interposer", "interposer_oversubscribed", "no_interposer",
+         "no_interposer_oversubscribed"])
+def test_pythonpath_only_where_the_python_shim_enforces(
+        tmp_path, preload, oversubscribe, want):
+    """Where the interposer is preloaded it does all the Python shim
+    would but host swap, so only an oversubscribed grant gets the hook
+    (and loses the image's PYTHONPATH); with no ld.so.preload every pod
+    does."""
+    (tmp_path / "shim").mkdir()
+    if preload:
+        (tmp_path / "shim" / "ld.so.preload").write_text(
+            "/usr/local/vgpu/libvgpu_cuda.so\n")
+    t = Side(True, tmp_path)
+    t.bind([[(0, 90000, 50)]], annotations={
+        "vtpu.dev/oversubscribe": "true"} if oversubscribe else None)
+    [(envs, mounts)], err = t.allocate(1)
+    assert err is None
+    assert ("CUDA_OVERSUBSCRIBE" in envs) == oversubscribe
+    assert envs.get("PYTHONPATH") == ("/usr/local/vgpu" if want else None)
+    assert "/usr/local/vgpu" in [c for c, _, _ in mounts]
+
+
+#: What a node's shim dir holds: no copy of the port.
+SHIM_FILES = ["ld.so.preload", "libvgpu_cuda.so", "sitecustomize.py"]
+
+
+def shim_files(shim) -> list:
+    """The shim dir's files, less the bytecode a writable directory gets
+    (a pod's mount is read-only)."""
+    return sorted(p.name for p in shim.iterdir() if p.name != "__pycache__")
+
+
+@pytest.fixture(scope="module")
+def shim_install(tmp_path_factory):
+    """A node's shim install as vgpu-device-plugin --install-shim makes
+    it: the interposer, its ld.so.preload and the startup hook."""
+    from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+
+    shim = tmp_path_factory.mktemp("node") / "shim"
+    _kernels.install_shim(shim)
+    return shim
+
+
+def side_on(shim, tmp_path) -> Side:
+    """The port's side on this node's shim install (its shim dir a link
+    to it)."""
+    (tmp_path / "shim").symlink_to(shim, target_is_directory=True)
+    return Side(True, tmp_path)
+
+
+def test_allocate_mounts_the_startup_hook(shim_install, tmp_path):
+    t = side_on(shim_install, tmp_path)
+    t.bind([[(0, 90000, 50)]],
+           annotations={"vtpu.dev/oversubscribe": "true"})
+    [(envs, mounts)], err = t.allocate(1)
+    assert err is None
+    mounted = {c: (h, ro) for c, h, ro in mounts}
+    assert envs["PYTHONPATH"] == "/usr/local/vgpu"
+    assert mounted["/usr/local/vgpu"] == (str(tmp_path / "shim"), True)
+    assert shim_files(shim_install) == SHIM_FILES
+    hook = shim_install / "sitecustomize.py"
+    assert hook.read_text() == (
+        ttypes_root() / "shim" / "startup.py").read_text()
+
+
+def ttypes_root():
+    return Path(ttypes.__file__).resolve().parent.parent
+
+
+PORT_NAME = "k8s_vgpu_scheduler_tpu_torch"
+HOOK_PROBE = (
+    "import json, sys\n"
+    "at_start = sorted(m for m in sys.modules if m.startswith('k8s_vgpu'))\n"
+    "torch_at_start = 'torch' in sys.modules\n"
+    "from k8s_vgpu_scheduler_tpu_torch.shim import core\n"
+    "shim = core._GLOBAL\n"
+    "print(json.dumps(dict(\n"
+    "    at_start=at_start, torch_at_start=torch_at_start,\n"
+    "    installed=bool(shim),\n"
+    "    spiller=bool(shim) and shim._spiller is not None,\n"
+    "    gate=bool(shim) and core._GATE is shim,\n"
+    "    fractions=bool(shim) and shim.fractions,\n"
+    "    torch='torch' in sys.modules, source=core.__file__,\n"
+    "    lib=shim.native.lib._name if shim else None)))\n")
+
+
+def pod_process(shim, tmp_path, allocated: dict, code=HOOK_PROBE):
+    """A Python process started with the answer's env alone, its container
+    paths put where a kubelet mounts them (no LD_PRELOAD: the interposer
+    is held to its own tests), running ``code`` as a script that has its
+    own port beside it (a link to this checkout's package), as a program
+    that runs the port from its own directory does; ``code`` never calls
+    install()."""
+    host = {"/usr/local/vgpu": str(shim),
+            "/tmp/vgpu": str(tmp_path / "region")}
+    (tmp_path / "region").mkdir(exist_ok=True)
+    app = tmp_path / "app"
+    app.mkdir(exist_ok=True)
+    if not (app / PORT_NAME).exists():
+        (app / PORT_NAME).symlink_to(ttypes_root(), target_is_directory=True)
+    (app / "main.py").write_text(code)
+
+    def on_host(value):
+        for c, h in host.items():
+            if value == c or value.startswith(c + "/"):
+                return h + value[len(c):]
+        return value
+
+    env = {"PATH": os.environ["PATH"], "HOME": str(tmp_path),
+           **{k: on_host(v) for k, v in allocated.items()}}
+    return subprocess.run([sys.executable, str(app / "main.py")], env=env,
+                          cwd=tmp_path, capture_output=True, text=True,
+                          timeout=300)
+
+
+def answer(shim, tmp_path, annotations=None) -> dict:
+    t = side_on(shim, tmp_path)
+    t.bind([[(0, 90000, 50)]], annotations=annotations)
+    [(envs, _)], err = t.allocate(1)
+    assert err is None
+    return envs
+
+
+def test_the_hook_installs_the_spiller_without_install(shim_install,
+                                                       tmp_path):
+    """An oversubscribed pod's process gets the shim, with the spiller
+    and the gate, as it imports its own port's shim, without calling
+    install(): the hook imports nothing of the port at start, the shim
+    is the program's port (beside its script, which joins sys.path after
+    the hook ran), its library builds in that port's build dir, and the
+    shim dir gains nothing."""
+    from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+
+    envs = answer(shim_install, tmp_path, {"vtpu.dev/oversubscribe": "true"})
+    assert envs["CUDA_OVERSUBSCRIBE"] == "true"
+    res = pod_process(shim_install, tmp_path, envs)
+    assert res.returncode == 0, res.stderr
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["at_start"] == [] and not got["torch_at_start"], got
+    assert got["installed"] and got["spiller"] and got["gate"] \
+        and not got["fractions"], got
+    assert got["source"] == str(tmp_path / "app" / PORT_NAME / "shim"
+                                / "core.py"), got
+    assert Path(got["lib"]).parent == _kernels.BUILD_DIR, got
+    region = tmp_path / "region" / "cudevshr.cache"
+    assert region.exists()
+    assert shim_files(shim_install) == SHIM_FILES
+
+
+def test_a_failed_install_ends_the_process_nonzero(shim_install, tmp_path):
+    from k8s_vgpu_scheduler_tpu_torch.shim import startup
+
+    envs = answer(shim_install, tmp_path, {"vtpu.dev/oversubscribe": "true"})
+    # The region's directory is a file: the region cannot be attached.
+    (tmp_path / "blocked").write_text("")
+    envs["CUDA_DEVICE_MEMORY_SHARED_CACHE"] = str(
+        tmp_path / "blocked" / "cudevshr.cache")
+    res = pod_process(shim_install, tmp_path, envs, code=(
+        "from k8s_vgpu_scheduler_tpu_torch.models import train\n"
+        "print('ran unenforced')\n"))
+    assert res.returncode == startup.EXIT_UNENFORCED, (res.returncode,
+                                                       res.stderr)
+    assert "ran unenforced" not in res.stdout
+    assert "the shim did not install" in res.stderr
+
+
+@pytest.mark.parametrize("drop", ["CUDA_DEVICE_MEMORY_SHARED_CACHE",
+                                  "VTPU_DISABLE"],
+                         ids=["unmanaged", "disabled"])
+def test_outside_a_managed_container_the_hook_does_nothing(shim_install,
+                                                           tmp_path, drop):
+    envs = answer(shim_install, tmp_path, {"vtpu.dev/oversubscribe": "true"})
+    if drop == "VTPU_DISABLE":
+        envs["VTPU_DISABLE"] = "1"
+    else:
+        del envs[drop]
+    res = pod_process(shim_install, tmp_path, envs)
+    assert res.returncode == 0, res.stderr
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert not got["installed"] and not got["torch"], got
+
+
+def test_a_process_that_never_imports_the_port_gets_nothing(shim_install,
+                                                            tmp_path):
+    """In a managed container the hook waits for the port's shim: a
+    process that never imports the port loads none of it, nor torch."""
+    envs = answer(shim_install, tmp_path, {"vtpu.dev/oversubscribe": "true"})
+    res = pod_process(shim_install, tmp_path, envs, code=(
+        "import json, sys\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "                        if m.startswith(('k8s_vgpu', 'torch')))))\n"))
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []

@@ -104,8 +104,48 @@ def test_new_modules_are_under_the_import_rules():
                 "scheduler/nodes.py", "scheduler/pods.py",
                 "scheduler/score.py", "scheduler/webhook.py",
                 "scheduler/routes.py", "health/__init__.py",
-                "health/lease.py", "cmd/scheduler.py"):
+                "health/lease.py", "cmd/scheduler.py",
+                "health/quarantine.py", "health/faults.py",
+                "health/rescuer.py", "scheduler/preempt.py",
+                "shim/startup.py"):
         assert PORT / rel in SOURCES, rel
+
+
+def test_the_startup_hook_imports_the_standard_library_alone():
+    """The hook runs at the start of every Python process of a pod: it
+    imports os and sys at its top, importlib only once the program
+    imports the port's shim, and names the port by a string alone;
+    importing it as a module installs nothing."""
+    path = PORT / "shim" / "startup.py"
+    tree = ast.parse(path.read_text())
+    top = {alias.name for node in tree.body
+           if isinstance(node, ast.Import) for alias in node.names}
+    assert top == {"os", "sys"}
+    assert not [n for n in tree.body if isinstance(n, ast.ImportFrom)]
+    inner = set(_imported_roots(path))
+    assert inner <= {"os", "sys", "importlib"}, inner
+    code = ("import sys\n"
+            "import k8s_vgpu_scheduler_tpu_torch.shim.startup as s\n"
+            "assert s.__name__ != 'sitecustomize'\n"
+            "assert s.managed()\n"
+            "from k8s_vgpu_scheduler_tpu_torch.shim import core\n"
+            "assert core._GLOBAL is None and 'torch' not in sys.modules\n"
+            "assert s.SHIM_MODULE == core.__name__\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         env=dict(os.environ,
+                                  CUDA_DEVICE_MEMORY_SHARED_CACHE="/x/y"),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_the_shim_install_carries_no_copy_of_the_port(tmp_path):
+    """install_shim writes the interposer, its ld.so.preload and the
+    startup hook, and nothing else: a pod imports its own port."""
+    _kernels.install_shim(tmp_path / "shim")
+    assert sorted(p.name for p in (tmp_path / "shim").iterdir()) == [
+        "ld.so.preload", "libvgpu_cuda.so", "sitecustomize.py"]
+    assert (tmp_path / "shim" / "sitecustomize.py").read_bytes() == \
+        (PORT / "shim" / "startup.py").read_bytes()
 
 
 SMALL_RESNET = ResNetConfig(stage_sizes=(1, 1, 1, 1), width=32)

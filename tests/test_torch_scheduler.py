@@ -117,13 +117,19 @@ class Clock:
     def __call__(self):
         return self.now
 
+    def advance(self, dt):
+        self.now += dt
+        return self.now
+
 
 class Side:
     """One package's scheduler on its own FakeKube, with the fleet
-    registered and the informer wired."""
+    (``FLEET`` unless another is given) registered and the informer
+    wired."""
 
-    def __init__(self, port: bool, **cfg):
+    def __init__(self, port: bool, fleet=None, **cfg):
         self.port = port
+        self.fleet = fleet or FLEET
         self.clock = Clock()
         base = JKube if not port else TKube
         side = self
@@ -140,7 +146,7 @@ class Side:
 
         self.fail_writes = 0
         self.kube = Kube()
-        for name in NODES:
+        for name in self.fleet:
             self.kube.add_node({"metadata": {"name": name,
                                              "annotations": {}}})
         if port:
@@ -149,7 +155,7 @@ class Side:
             self.cfg = JConfig(resources=JNames(**PORT_NAMES),
                                scheduler_name="vgpu-scheduler",
                                optimistic_commit=False, **cfg)
-        self.fixtures = copy.deepcopy(FLEET)
+        self.fixtures = copy.deepcopy(self.fleet)
         self.seen = {}
         self.s = None
         self.start()
@@ -160,7 +166,7 @@ class Side:
         cls = TScheduler if self.port else JScheduler
         self.s = cls(self.kube, self.cfg, clock=self.clock)
         self.kube.watch_pods(self.s.on_pod_event)
-        for name in NODES:
+        for name in self.fleet:
             self.s.observe_registration(name, self.info(name))
 
     def request(self, node):
@@ -188,10 +194,13 @@ class Side:
 
     def filter(self, name, nodes=None):
         p = self.kube.get_pod("default", name)
-        r = self.s.filter(p, list(nodes or NODES))
+        r = self.s.filter(p, list(nodes or self.fleet))
         self.seen[name] = self.kube.get_pod("default", name)
+        plan = getattr(r, "preempt", None)
         return dict(node=r.node, failed=r.failed, error=r.error,
-                    annotations=decision(self.seen[name]))
+                    annotations=decision(self.seen[name]),
+                    preempt=plan and [plan.node,
+                                      [v.uid for v in plan.victims]])
 
     def bind(self, name, node):
         err = self.s.bind("default", name, f"uid-{name}", node)

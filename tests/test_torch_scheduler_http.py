@@ -426,3 +426,85 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
     train = na["pods"]["train"]["pod"]["spec"]
     assert [v["name"] for v in train["volumes"]] == ["vtpu-podinfo"]
     assert "volumes" not in na["pods"]["serve"]["pod"]["spec"]
+
+
+def test_the_control_plane_child_preempts_and_rescues_on_the_mock_nvml(
+        tmp_path):
+    """phase_preempt's control plane on the CPU, its NVML the mock, driven
+    as the phase drives it: V placed by the webhook, Filter, Bind and
+    Allocate; H's Filter finds no node and the scheduler writes the
+    request on V; V's pod deleted, H's next Filter places it with host
+    swap's env and the startup hook on its PYTHONPATH (V, not
+    oversubscribed, has none); V' placed; then the
+    two rescue sweeps of ``end``.  torch is never loaded."""
+    lib = _kernels.build_mock_nvml()
+    fixture = tmp_path / "nvml.json"
+    fixture.write_text(json.dumps({"generation": "h100", "mesh": [1],
+                                   "hbm_mib": 81079}))
+    (tmp_path / "containers").mkdir()
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("VTPU_MOCK_JSON", "MOCK_NVML_NOT_SUPPORTED")}
+    env.update(LD_LIBRARY_PATH=str(lib.parent), MOCK_NVML_JSON=str(fixture),
+               PLUGIN_DIR=str(tmp_path))
+    plane = chip_smoke.PlaneChild(env)
+    node, pods = chip_smoke.PLUGIN_NODE, chip_smoke.PREEMPT_PODS
+    try:
+        # The node agent filled the shim dir as --install-shim does.
+        assert plane.ready["shim_files"] == [
+            "ld.so.preload", "libvgpu_cuda.so", "sitecustomize.py"]
+        def admit(key):
+            name, uid, mib, prio, anns = pods[key]
+            return chip_smoke.admit_pod(plane.base, plane, chip_smoke.user_pod(
+                name, uid, mib, prio, annotations=anns))
+
+        def allocate(key):
+            got = plane.call("allocate")
+            pod = plane.get_pod(pods[key][0])
+            return pod, chip_smoke.kubelet_env(pod, got["response"],
+                                               tmp_path / "volumes")
+
+        created, out = admit("V")
+        chip_smoke.place_pod(plane.base, created, node, out)
+        v, v_env = allocate("V")
+        assert "PYTHONPATH" not in v_env  # not oversubscribed
+        h, out = admit("H")
+        nofit, _ = chip_smoke.filter_pod(plane.base, h, node)
+        assert nofit["NodeNames"] == [] and nofit["FailedNodes"][
+            node].startswith("insufficient-hbm")
+        requested = plane.call("requested")
+        assert [*requested] == ["uidPV"] and requested["uidPV"][0] == "uidPH"
+        anns = plane.get_pod("trainer")["metadata"]["annotations"]
+        assert anns["vtpu.dev/preempt-requested"] == "uidPH"
+        assert plane.call("grants") == [["uidPV", "trainer"]]
+        plane.call("delete", name="trainer")
+        assert plane.call("grants") == []
+        chip_smoke.place_pod(plane.base, plane.get_pod("serve-hp"), node, out)
+        h, h_env = allocate("H")
+        assert h_env["CUDA_OVERSUBSCRIBE"] == "true"
+        assert h_env["CUDA_DEVICE_MEMORY_LIMIT_0"] == "48000"
+        assert h_env["PYTHONPATH"] == str(tmp_path / "shim")
+        assert (tmp_path / "shim" / "sitecustomize.py").is_file()
+        plane.call("delete", name="serve-hp")
+        created, out = admit("V2")
+        chip_smoke.place_pod(plane.base, created, node, out)
+        allocate("V2")
+        ended = plane.call("end")
+    finally:
+        rc = plane.close()
+    assert rc == 0
+    assert ended["held"] == [["uidPV2", "trainer-2"]]
+    assert ended["suspect"]["actions"] == [
+        {"kind": "lease", "node": node, "from": "HEALTHY",
+         "to": "SUSPECT"}]
+    assert ended["suspect"]["left"] == ended["held"]
+    assert ended["dead"]["actions"] == [
+        {"kind": "lease", "node": node, "from": "SUSPECT", "to": "DEAD"},
+        {"kind": "rescued", "pod": "trainer-2", "uid": "uidPV2",
+         "reason": "node-dead", "via": "rescind"}]
+    assert ended["dead"]["left"] == [] and not ended["registered"]
+    assert 15.0 < ended["suspect"]["age_s"] <= 45.0 < ended["dead"]["age_s"]
+    anns = ended["annotations"]["trainer-2"]
+    assert all(anns[k] == "" for k in (
+        "vtpu.dev/assigned-node", "vtpu.dev/assigned-ids",
+        "vtpu.dev/devices-to-allocate", "vtpu.dev/bind-phase"))
+    assert not ended["torch_loaded"]

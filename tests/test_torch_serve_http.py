@@ -245,20 +245,55 @@ def test_profilez_charges_the_tracer_to_the_grant_first(monkeypatch,
 
 
 def test_timeout_cancels_and_frees_slot(tiny_model):
+    """The timed-out request is cancelled once, wherever it was: the
+    frontend's counter covers the whole request (a timeout may fire before
+    the frontend's loop hands the request to the engine, which then never
+    sees it).  The engine's steps wait until the timeout has fired: the
+    tiny model's 40 tokens take about as long as the timeout, and a
+    request that completes first is served, not cancelled."""
     _, _, model = tiny_model
     eng = ServingEngine(model, max_slots=1, max_len=64, horizon=1)
+    timed_out = threading.Event()
+    step = eng.step
+    eng.step = lambda: (timed_out.wait(60), step())[1]
     fe = EngineFrontend(eng)
     try:
         with pytest.raises(TimeoutError):
             fe.submit_and_wait([1, 2, 3], 40, timeout=0.05)
+        timed_out.set()
         deadline = time.monotonic() + 60
-        while (eng.stats["cancelled"] < 1 or eng.active.any()) \
+        while (fe.stats()["stats"]["cancelled"] < 1 or eng.active.any()) \
                 and time.monotonic() < deadline:
             time.sleep(0.05)
-        assert eng.stats["cancelled"] == 1
+        assert fe.stats()["stats"]["cancelled"] == 1
         assert not eng.active.any()
         c = fe.submit_and_wait([4, 5], 4, timeout=120)
         assert len(c.tokens) == 4
+    finally:
+        fe.shutdown()
+
+
+def test_a_cancel_before_submission_counts_once_and_takes_no_slot(
+        tiny_model):
+    """A request cancelled while still in the frontend's queue: the engine
+    never sees it, the frontend counts it once, and the one slot stays
+    free for the next request."""
+    _, _, model = tiny_model
+    eng = ServingEngine(model, max_slots=1, max_len=64, horizon=1)
+    fe = EngineFrontend(eng)
+    try:
+        with fe._cv:  # the loop cannot take the request before its cancel
+            waiter = fe.submit_stream([1, 2, 3], 40)
+            fe.cancel(waiter)
+        deadline = time.monotonic() + 60
+        while fe.stats()["stats"]["cancelled"] < 1 \
+                and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert "rid" not in waiter
+        assert eng.stats["cancelled"] == 0 and not eng.active.any()
+        c = fe.submit_and_wait([4, 5], 4, timeout=120)
+        assert len(c.tokens) == 4
+        assert fe.stats()["stats"]["cancelled"] == 1
     finally:
         fe.shutdown()
 
