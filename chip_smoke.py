@@ -36,7 +36,12 @@ pod alone without and with the interposer.  Then the port's node agent
 (phase_device_plugin): the device plugin in a child that never imports
 torch (``--enforce-child node_agent``) lists the card through NVML, which
 makes no CUDA context, and answers Allocate for the serving and the
-training pod as a scheduler bound them; the two pods then run one flat
+training pod as a scheduler bound them; it reads the card's fabric from
+NVML's NVLink P2P matrix, answers kubelet's GetPreferredAllocation, and
+two agents on the mock NVML (``--enforce-child mock_agent``) add an
+eight-card NVSwitch node on which the scheduler places slice and mesh
+pods on ring-adjacent cards, and a four-card PCIe node on which it
+refuses guaranteed and mesh pods; the two pods then run one flat
 leg of the co-residency phase with the env a kubelet builds from those
 answers and nothing else.  Then the pod's life cycle:
 checkpoint-first eviction from the scheduler's own plan (phase_preempt:
@@ -66,8 +71,8 @@ and its region.  Exits non-zero if any phase fails, and at once
 
 Stdout ends with: the enforcement phase's ``{"phase": "enforce", ...}``
 line, the co-residency phase's ``{"phase": "coresidency", ...}`` line,
-the ``{"phase": "device_plugin", ...}`` line (NVML's fields and every
-memory size read),
+the ``{"phase": "device_plugin", ...}`` line (NVML's fields, every
+memory size read, the fabric's answers and placements with their times),
 the ``{"phase": "preempt", ...}`` and ``{"phase": "quant_serve", ...}``
 lines, the ``{"phase": "workloads", ...}`` line and a ``{"workloads":
 [...]}`` line (one row a case: images/s in both legs and their ratio, the
@@ -263,8 +268,55 @@ PLUGIN_PODS = (("serve", "uidDS", CORES_SERVE_MIB, 0),
 NODE_AGENT_POLLS = 4
 NODE_AGENT_SMI_S = 0.1
 REGISTER_WAIT_S = 30.0
+# The fabric, in the same child.  The real node: NVML's NVLink P2P matrix
+# (one card: the card with itself, nothing between cards) is recorded and
+# the node must register mesh (1,) with its card at (0,); kubelet, over the
+# plugin's socket, reads the options and asks for PREFERRED_SIZES of all
+# the card's virtual IDs and for 2 with one must-include: each answer must
+# be SliceAllocator.preferred's on the same inventory under the plugin's
+# policy (PLUGIN_POLICY), on the one card, and the node carries no
+# vtpu.dev/ici-unsatisfiable-sizes.  Then a mock HGX node beside it, once
+# S and T are bound: a second node agent (--enforce-child mock_agent, no
+# torch) on the mock NVML with HGX_FIXTURE (eight 81,079 MiB cards, every
+# pair NVLink OK) streams to the same scheduler as HGX_NODE, which must
+# register an (8,) ring.  HGX_PODS then go through the port's webhook,
+# Filter (offered both nodes) and Bind: whole cards of HGX_MIB each, so
+# each card they take is busy for the next: a guaranteed 4-card pod on a
+# ring arc, a vtpu.dev/mesh "2" pod on a neighbouring pair, one card, and
+# (the mesh pod deleted) a guaranteed 3-card pod that no free arc holds
+# (Filter's no-ici-slice); a malformed mesh is refused by the webhook with
+# the JAX package's message (BAD_MESH_MESSAGE); then the PCIe node
+# (PCIE_NODE, a third agent) and PCIE_PODS.  The pods never run: the
+# node lock is released after each Bind, as the node's Allocate would,
+# and deleting them must free their grants.
+PLUGIN_POLICY = "guaranteed"
+PREFERRED_SIZES = (1, 2)
+HGX_NODE = "hgx-node"
+HGX_FIXTURE = {"generation": "h100", "mesh": [8], "hbm_mib": 81079,
+               "fabric": "nvswitch"}
+HGX_MIB = 1000
+GUARANTEED = {"vtpu.dev/topology-policy": "guaranteed"}
+HGX_PODS = (("ring4", "uidX4", 4, GUARANTEED),
+            ("mesh2", "uidXM", 2, {"vtpu.dev/mesh": "2"}),
+            ("pin", "uidXP", 1, {}),
+            ("arc3", "uidX3", 3, GUARANTEED))
+# The PCIe node beside it (PCIE_FIXTURE: four cards, no pair NVLink OK),
+# so no fabric: its cards register without coordinates, it adds no mesh
+# to the fleet's fabrics, and PCIE_PODS, offered it alone, get Filter's
+# topology-unverifiable (a guaranteed 2-card pod and a mesh "2" pod) or
+# the plain choice of two cards (a 2-card pod of the default policy).
+# name, uid, cards, annotations, Filter's reason ("": placed).
+PCIE_NODE = "pcie-node"
+PCIE_FIXTURE = {"generation": "h100", "mesh": [4], "hbm_mib": 81079,
+                "fabric": "pcie"}
+PCIE_PODS = (("pguar2", "uidXG", 2, GUARANTEED, "topology-unverifiable"),
+             ("pmesh2", "uidXN", 2, {"vtpu.dev/mesh": "2"},
+              "topology-unverifiable"),
+             ("pplain2", "uidXQ", 2, {}, ""))
+BAD_MESH = "2x"
+BAD_MESH_MESSAGE = "vtpu.dev/mesh: mesh '2x' must look like '2x4'"
 # The preemption phase (phase_preempt): the train step at llama_7b widths
-# through the interposer under T's 40000 MiB grant, 8 steps of one batch;
+# through the interposer under T's 40000 MiB grant, 6 steps of one batch;
 # the high-priority pod arrives once the victim has finished step 3, and
 # the parent mirrors the annotations the scheduler wrote into the victim's
 # file, as kubelet would; the card's memory must fall back to the parent's
@@ -287,7 +339,7 @@ PREEMPT_PODS = {
     "H": ("serve-hp", "uidPH", PREEMPT_H_MIB, 0,
           {"vtpu.dev/oversubscribe": "true"}),
     "V2": ("trainer-2", "uidPV2", PREEMPT_MIB, 1, {})}
-PREEMPT_STEPS = 8
+PREEMPT_STEPS = 6
 PREEMPT_AFTER = 3
 PLANE_CALL_S = 120.0
 RETURN_S = 5.0
@@ -3140,11 +3192,11 @@ def apply_json_patch(obj: dict, ops: list) -> dict:
 
 
 def user_pod(name: str, uid: str, mib: int, priority: int, cores=None,
-             annotations=None) -> dict:
-    """A pod as its user writes it: one container asking for one card,
-    ``mib`` of its memory (and ``cores`` of its compute where given) at
-    ``priority``, by resources only."""
-    limits = {"nvidia.com/gpu": "1", "nvidia.com/gpumem": str(mib),
+             annotations=None, cards: int = 1) -> dict:
+    """A pod as its user writes it: one container asking for ``cards``
+    cards, ``mib`` of each one's memory (and ``cores`` of its compute
+    where given) at ``priority``, by resources only."""
+    limits = {"nvidia.com/gpu": str(cards), "nvidia.com/gpumem": str(mib),
               "nvidia.com/priority": str(priority)}
     if cores is not None:
         limits["nvidia.com/gpucores"] = str(cores)
@@ -3163,20 +3215,24 @@ def schedule_pod(base: str, kube, pod: dict, node: str) -> dict:
     return out
 
 
-def filter_pod(base: str, pod: dict, node: str) -> tuple:
-    """/filter offering ``node``: the reply and the seconds it took."""
+def filter_pod(base: str, pod: dict, node: str, offer=None) -> tuple:
+    """/filter offering ``node`` (or the nodes ``offer`` lists): the reply
+    and the seconds it took."""
     t0 = time.monotonic()
-    status, reply = http(f"{base}/filter", {"Pod": pod, "NodeNames": [node]})
+    status, reply = http(f"{base}/filter", {"Pod": pod,
+                                            "NodeNames": offer or [node]})
     check(status == 200, f"{pod['metadata']['name']}: Filter answered "
           f"{status} {reply}")
     return reply, time.monotonic() - t0
 
 
-def place_pod(base: str, pod: dict, node: str, out: dict) -> None:
-    """/filter offering ``node``, which must place the pod there, then
-    /bind to it; the replies and seconds go into ``out``."""
+def place_pod(base: str, pod: dict, node: str, out: dict,
+              offer=None) -> None:
+    """/filter offering ``node`` (or ``offer``), which must place the pod
+    on ``node``, then /bind to it; the replies and seconds go into
+    ``out``."""
     meta = pod["metadata"]
-    out["filter"], out["filter_s"] = filter_pod(base, pod, node)
+    out["filter"], out["filter_s"] = filter_pod(base, pod, node, offer)
     check(out["filter"]["NodeNames"] == [node] and not out["filter"]["Error"],
           f"{meta['name']}: Filter answered {out['filter']}")
     t0 = time.monotonic()
@@ -3188,6 +3244,18 @@ def place_pod(base: str, pod: dict, node: str, out: dict) -> None:
           f"{meta['name']}: Bind answered {status} {out['bind']}")
 
 
+def review_pod(base: str, pod: dict) -> tuple:
+    """An AdmissionReview of ``pod`` to /webhook: the status, the reply
+    and the seconds it took."""
+    meta = pod["metadata"]
+    t0 = time.monotonic()
+    status, review = http(f"{base}/webhook", {
+        "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+        "request": {"uid": f"review-{meta['uid']}", "operation": "CREATE",
+                    "namespace": meta["namespace"], "object": pod}})
+    return status, review, time.monotonic() - t0
+
+
 def admit_pod(base: str, kube, pod: dict) -> tuple:
     """An AdmissionReview of ``pod`` to /webhook, its patch applied and
     the pod created in ``kube``: the pod as created, and a record of the
@@ -3196,12 +3264,7 @@ def admit_pod(base: str, kube, pod: dict) -> tuple:
 
     meta = pod["metadata"]
     out = {}
-    t0 = time.monotonic()
-    status, review = http(f"{base}/webhook", {
-        "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
-        "request": {"uid": f"review-{meta['uid']}", "operation": "CREATE",
-                    "namespace": meta["namespace"], "object": pod}})
-    out["webhook_s"] = time.monotonic() - t0
+    status, review, out["webhook_s"] = review_pod(base, pod)
     check(status == 200 and review["response"]["allowed"]
           and review["response"].get("patchType") == "JSONPatch",
           f"{meta['name']}: the webhook answered {status} {review}")
@@ -3271,7 +3334,9 @@ def node_agent() -> int:
     (schedule_pod), then answered by a GpuDevicePlugin's Allocate;
     NODE_AGENT_POLLS more polls.  Prints the cards, the inventory, the
     advertisement, what the scheduler registered, the polls and each pod's
-    spec, handshake, response, bind phase and lock as one ENFORCE line."""
+    spec, handshake, response, bind phase and lock as one ENFORCE line,
+    with the real node's fabric (fabric_checks) and the mock HGX node's
+    placements (hgx_leg), both made once S and T are bound."""
     sys.path.insert(0, str(ROOT))
     import importlib.metadata
 
@@ -3302,7 +3367,9 @@ def node_agent() -> int:
         plane = ControlPlane(kube, backend, cfg, tmp / "scheduler.sock")
         registered = [dataclasses.asdict(d) for d in
                       plane.scheduler.nodes.get_node(PLUGIN_NODE).devices]
-        plugin = GpuDevicePlugin(kube, inv, cfg)
+        plugin = GpuDevicePlugin(
+            kube, inv, dataclasses.replace(cfg, topology_policy=PLUGIN_POLICY),
+            socket_dir=str(tmp))
         pods = {}
         for name, uid, mib, priority in PLUGIN_PODS:
             spec = user_pod(name, uid, mib, priority, cores=CORES_SM_LIMIT)
@@ -3315,6 +3382,8 @@ def node_agent() -> int:
                 pod=kube.get_pod("default", name), handshake=handshake,
                 response=dataclasses.asdict(resp),
                 locked=nodelock.is_locked(kube, PLUGIN_NODE))
+        fabric = fabric_checks(backend, plane, plugin, kube, inv)
+        hgx = hgx_leg(plane, kube, tmp)
         register_s = plane.register_s
         plane.close()
         plane = None
@@ -3329,7 +3398,8 @@ def node_agent() -> int:
             register_s=register_s, polls=polls,
             events_registered=events.registered if events else None,
             events_unsupported=events.unsupported if events else None,
-            events_error=backend.events_error, pods=pods, packages={})
+            events_error=backend.events_error, pods=pods, fabric=fabric,
+            hgx=hgx, packages={})
         for dist in ("grpcio", "protobuf"):
             try:
                 out["packages"][dist] = importlib.metadata.version(dist)
@@ -3344,6 +3414,318 @@ def node_agent() -> int:
         backend.close()
     out["torch_loaded"] = "torch" in sys.modules
     out["run_s"] = time.monotonic() - t0
+    print("ENFORCE " + json.dumps(out), flush=True)
+    return 0
+
+
+def fabric_checks(backend, plane, plugin, kube, inv) -> dict:
+    """The real node's fabric, in node_agent: NVML's P2P answers (with one
+    card, the card with itself), the topology and coordinates the
+    scheduler registered from the stream, kubelet's GetDevicePluginOptions
+    and GetPreferredAllocation over the plugin's socket (each answer held
+    to SliceAllocator.preferred on the same inventory, on the one card),
+    and the unsatisfiable-sizes annotation under PLUGIN_POLICY (absent)."""
+    import grpc
+
+    from k8s_vgpu_scheduler_tpu_torch.api import deviceplugin_pb2 as pb
+    from k8s_vgpu_scheduler_tpu_torch.api.kubelet import DevicePluginStub
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
+        UNSATISFIABLE_ANNOTATION, SliceAllocator, publish_unsatisfiable)
+    from k8s_vgpu_scheduler_tpu_torch.tpulib import nvml
+
+    out = {"p2p": backend.last_fabric}
+    h = backend.nvml.handle(0)
+    try:
+        status = backend.nvml.p2p_status(h, h)
+        out["p2p_self"] = dict(status=status,
+                               name=nvml.P2P_STATUS.get(status))
+    except nvml.NvmlError as e:
+        if e.code != nvml.ERROR_NOT_SUPPORTED:
+            raise
+        out["p2p_self"] = dict(not_supported=e.call)
+    info = plane.scheduler.nodes.get_node(PLUGIN_NODE)
+    topo = info.topology
+    out["registered"] = dict(
+        topology=topo and dict(generation=topo.generation,
+                               mesh=list(topo.mesh),
+                               wraparound=list(topo.wraparound)),
+        coords=[list(d.coords) for d in info.devices])
+    check(topo is not None
+          and (topo.generation, topo.mesh, topo.wrap())
+          == (inv.topology.generation, inv.topology.mesh,
+              inv.topology.wrap())
+          and out["registered"]["coords"]
+          == [list(c.coords) for c in inv.chips],
+          f"the scheduler registered {out['registered']}, the inventory "
+          f"{inv.topology}")
+    if len(inv.chips) == 1:
+        check(topo.mesh == (1,) and out["registered"]["coords"] == [[0]],
+              f"one card registered as {out['registered']}")
+    every = [d.ID for d in plugin.api_devices()]
+    asks = [(n, []) for n in PREFERRED_SIZES] + [(2, [every[-1]])]
+    answers = []
+    plugin.serve()
+    try:
+        with grpc.insecure_channel(f"unix://{plugin.socket_path}") as ch:
+            stub = DevicePluginStub(ch)
+            t0 = time.monotonic()
+            opts = stub.GetDevicePluginOptions(pb.Empty(), timeout=10)
+            out["options_s"] = time.monotonic() - t0
+            for size, must in asks:
+                t0 = time.monotonic()
+                resp = stub.GetPreferredAllocation(
+                    pb.PreferredAllocationRequest(container_requests=[
+                        pb.ContainerPreferredAllocationRequest(
+                            available_deviceIDs=every,
+                            must_include_deviceIDs=must,
+                            allocation_size=size)]), timeout=10)
+                answers.append(dict(
+                    size=size, must=must,
+                    ids=list(resp.container_responses[0].deviceIDs),
+                    seconds=time.monotonic() - t0))
+    finally:
+        plugin.stop()
+    check(opts.get_preferred_allocation_available,
+          "GetDevicePluginOptions offers no preferred allocation")
+    alloc = SliceAllocator(inv, PLUGIN_POLICY)
+    for a in answers:
+        want = alloc.preferred(every, a["must"], a["size"])
+        cards = {i.rsplit("-", 1)[0] for i in a["ids"]}
+        check(a["ids"] == want and len(want) == a["size"]
+              and set(a["must"]) <= set(want)
+              and (len(inv.chips) > 1 or cards == {inv.chips[0].uuid}),
+              f"GetPreferredAllocation answered {a}, the allocator {want}")
+    out["preferred"] = answers
+    publish_unsatisfiable(kube, PLUGIN_NODE, inv, PLUGIN_POLICY)
+    anns = kube.get_node(PLUGIN_NODE)["metadata"].get("annotations") or {}
+    out["unsatisfiable"] = anns.get(UNSATISFIABLE_ANNOTATION)
+    check(out["unsatisfiable"] is None,
+          f"{UNSATISFIABLE_ANNOTATION} is {out['unsatisfiable']!r}")
+    return out
+
+
+def start_mock_agent(kube, node: str, fixture: dict, lib: Path,
+                     tmp: Path):
+    """A node agent (mock_agent) on the mock NVML, streaming ``fixture``'s
+    cards to the scheduler on <tmp>/scheduler.sock as ``node``."""
+    path = tmp / f"{node}_nvml.json"
+    path.write_text(json.dumps(fixture))
+    kube.add_node({"metadata": {"name": node, "annotations": {}}})
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("MOCK_NVML_NOT_SUPPORTED", "VTPU_MOCK_JSON")}
+    env.update(MOCK_NVML_JSON=str(path), MOCK_NVML_LIB=str(lib),
+               PLUGIN_DIR=str(tmp), MOCK_NODE=node)
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
+         "mock_agent"], env=env, cwd=ROOT, stdin=subprocess.PIPE,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def registered(sched, node: str, agent) -> dict:
+    """Wait for ``node``'s registration: the seconds, the topology, each
+    card's coordinates and the memory sizes the scheduler holds."""
+    t0 = time.monotonic()
+    while sched.nodes.get_node(node) is None:
+        check(agent.poll() is None,
+              f"the agent of {node} exited {agent.returncode}")
+        check(time.monotonic() - t0 < REGISTER_WAIT_S,
+              f"{node} never registered")
+        time.sleep(0.05)
+    seconds = time.monotonic() - t0
+    info = sched.nodes.get_node(node)
+    topo = info.topology
+    return dict(register_s=seconds, topology=topo and dict(
+        generation=topo.generation, mesh=list(topo.mesh),
+        wraparound=list(topo.wraparound)),
+        coords=[list(d.coords) for d in info.devices],
+        devmem=sorted({d.devmem for d in info.devices}))
+
+
+def stop_mock_agent(agent, node: str) -> dict:
+    """Close the agent's stdin (its end) and read its ENFORCE line."""
+    try:
+        stdout, stderr = agent.communicate("", timeout=30)
+    except subprocess.TimeoutExpired:
+        agent.kill()
+        stdout, stderr = agent.communicate()
+    check(agent.returncode == 0, f"the agent of {node} exited "
+          f"{agent.returncode}: {stderr.strip()[-2000:]}")
+    line = [x for x in stdout.splitlines() if x.startswith("ENFORCE ")]
+    check(len(line) == 1, f"the agent of {node} printed no result")
+    out = json.loads(line[0][len("ENFORCE "):])
+    check(not out["torch_loaded"], f"the agent of {node} imported torch")
+    return out
+
+
+def hgx_leg(plane, kube, tmp: Path) -> dict:
+    """The mock nodes beside the real one, in node_agent once S and T
+    are bound: two node agents (mock_agent) on the mock NVML stream
+    HGX_FIXTURE's eight NVSwitch cards and PCIE_FIXTURE's four PCIe cards
+    to the same scheduler; then HGX_PODS through the webhook, Filter
+    (offered the real and the HGX node) and Bind, the mesh pod deleted
+    before the 3-card pod, a malformed mesh through the webhook, and
+    PCIE_PODS offered the PCIe node alone; then every pod deleted, and
+    their grants must be freed."""
+    from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+    from k8s_vgpu_scheduler_tpu_torch.topology import is_contiguous
+    from k8s_vgpu_scheduler_tpu_torch.util import codec, nodelock
+
+    lib = _kernels.build_mock_nvml()
+    agents = {node: start_mock_agent(kube, node, fx, lib, tmp)
+              for node, fx in ((HGX_NODE, HGX_FIXTURE),
+                               (PCIE_NODE, PCIE_FIXTURE))}
+    out: dict = {}
+    sched = plane.scheduler
+
+    def freed(uids) -> None:
+        t0 = time.monotonic()
+        while any(sched.pods.get(u) is not None for u in uids):
+            check(time.monotonic() - t0 < REGISTER_WAIT_S,
+                  f"the informer kept the grants of {uids}")
+            time.sleep(0.01)
+
+    def granted(name: str) -> list:
+        pod = kube.get_pod("default", name)
+        [grants] = codec.decode_pod_devices(
+            pod["metadata"]["annotations"]["vtpu.dev/assigned-ids"])
+        return [g.uuid for g in grants]
+
+    try:
+        reg = out["registered"] = registered(sched, HGX_NODE,
+                                             agents[HGX_NODE])
+        out["register_s"] = reg["register_s"]
+        topo = sched.nodes.get_node(HGX_NODE).topology
+        coord_of = {d.id: d.coords
+                    for d in sched.nodes.get_node(HGX_NODE).devices}
+        check(topo is not None and (topo.mesh, topo.wrap()) == ((8,), (True,))
+              and reg["coords"] == [[i] for i in range(8)]
+              and reg["devmem"] == [HGX_FIXTURE["hbm_mib"]],
+              f"the HGX node registered {reg}")
+        offer = [PLUGIN_NODE, HGX_NODE]
+        pods = out["pods"] = {}
+        for name, uid, cards, anns in HGX_PODS:
+            if name == "arc3":
+                kube.delete_pod("default", "mesh2")
+                freed(["uidXM"])
+            created, rec = admit_pod(plane.base, kube, user_pod(
+                name, uid, HGX_MIB, 1, cores=100, annotations=anns,
+                cards=cards))
+            pods[name] = rec
+            if name == "arc3":
+                rec["filter"], rec["filter_s"] = filter_pod(
+                    plane.base, created, HGX_NODE, offer)
+                why = rec["filter"]["FailedNodes"].get(HGX_NODE, "")
+                check(not rec["filter"]["NodeNames"]
+                      and why.startswith("no-ici-slice:"),
+                      f"arc3: Filter answered {rec['filter']}")
+                continue
+            place_pod(plane.base, created, HGX_NODE, rec, offer)
+            nodelock.release_node(kube, HGX_NODE)  # the node's Allocate
+            coords = [coord_of[u] for u in granted(name)]
+            rec["cards"] = [c[0] for c in coords]
+            check(len(set(coords)) == cards
+                  and is_contiguous(coords, topo),
+                  f"{name}: Filter granted cards {rec['cards']}")
+        status, review, seconds = review_pod(plane.base, user_pod(
+            "badmesh", "uidXB", HGX_MIB, 1, cores=100, cards=2,
+            annotations={"vtpu.dev/mesh": BAD_MESH}))
+        resp = review["response"]
+        out["bad_mesh"] = dict(status=resp.get("status"), webhook_s=seconds)
+        check(status == 200 and not resp["allowed"]
+              and resp["status"]["code"] == 422
+              and resp["status"]["message"] == BAD_MESH_MESSAGE,
+              f"the webhook answered the malformed mesh {review}")
+
+        # The PCIe node: no fabric, so a guaranteed or mesh pod is refused
+        # there and a plain pod takes the plain choice.
+        reg = out["pcie_registered"] = registered(sched, PCIE_NODE,
+                                                  agents[PCIE_NODE])
+        check(reg["topology"] is not None
+              and reg["topology"]["mesh"] == [4]
+              and reg["coords"] == [[]] * 4,
+              f"the PCIe node registered {reg}")
+        known = sorted(list(t.mesh) for t in sched.known_topologies())
+        out["known_topologies"] = known
+        check(known == [[1], [8]], f"the fleet's fabrics: {known}")
+        uuids = {d.id for d in sched.nodes.get_node(PCIE_NODE).devices}
+        for name, uid, cards, anns, token in PCIE_PODS:
+            created, rec = admit_pod(plane.base, kube, user_pod(
+                name, uid, HGX_MIB, 1, cores=100, annotations=anns,
+                cards=cards))
+            pods[name] = rec
+            if token:
+                rec["filter"], rec["filter_s"] = filter_pod(
+                    plane.base, created, PCIE_NODE)
+                why = rec["filter"]["FailedNodes"].get(PCIE_NODE, "")
+                check(not rec["filter"]["NodeNames"]
+                      and why.startswith(token + ":"),
+                      f"{name}: Filter answered {rec['filter']}")
+                continue
+            place_pod(plane.base, created, PCIE_NODE, rec)
+            nodelock.release_node(kube, PCIE_NODE)
+            got = granted(name)
+            rec["cards"] = len(set(got))
+            check(len(set(got)) == cards and set(got) <= uuids,
+                  f"{name}: Filter granted {got}")
+        for name in ("ring4", "pin", "arc3") + tuple(
+                p[0] for p in PCIE_PODS):
+            kube.delete_pod("default", name)
+        freed([uid for _, uid, _, _ in HGX_PODS]
+              + [p[1] for p in PCIE_PODS])
+        for node in agents:
+            usage = sched.get_nodes_usage([node])[node][1]
+            check(not any(u.used_slots or u.used_mem or u.used_cores
+                          for u in usage.values()),
+                  f"the cards of {node} are still granted")
+    finally:
+        ends = {}
+        for node, agent in agents.items():  # stops every agent
+            try:
+                ends[node] = stop_mock_agent(agent, node)
+            except Exception as e:  # noqa: BLE001 — raised after the rest
+                ends[node] = e
+    for node, end in ends.items():
+        if isinstance(end, Exception):
+            raise end
+    out["agent"], out["pcie_agent"] = ends[HGX_NODE], ends[PCIE_NODE]
+    check(out["agent"]["fabric"]["kind"] == "nvlink",
+          f"the HGX agent: {out['agent']}")
+    check(out["pcie_agent"]["fabric"]["kind"] == "none"
+          and out["pcie_agent"]["coords"] == [[]] * 4,
+          f"the PCIe agent: {out['pcie_agent']}")
+    return out
+
+
+def mock_agent() -> int:
+    """A mock node's agent (``--enforce-child mock_agent``), in a process
+    that never imports torch: NvmlBackend over the mock NVML
+    ($MOCK_NVML_LIB, reading $MOCK_NVML_JSON) streams its inventory to the
+    scheduler on <PLUGIN_DIR>/scheduler.sock as $MOCK_NODE until its stdin
+    closes.  Prints the fabric NVML showed and the inventory as one
+    ENFORCE line."""
+    sys.path.insert(0, str(ROOT))
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import DeviceRegister
+    from k8s_vgpu_scheduler_tpu_torch.tpulib import NvmlBackend
+    from k8s_vgpu_scheduler_tpu_torch.util.config import Config
+
+    sock = Path(os.environ["PLUGIN_DIR"]) / "scheduler.sock"
+    backend = NvmlBackend(os.environ["MOCK_NVML_LIB"])
+    try:
+        inv = backend.inventory()
+        register = DeviceRegister(
+            backend, Config(node_name=os.environ["MOCK_NODE"]),
+            endpoint=f"unix:{sock}")
+        register.start()
+        sys.stdin.read()  # the parent closes it when it is done
+        register.stop()
+        register._thread.join(timeout=10)
+        out = dict(fabric=backend.last_fabric,
+                   topology=dataclasses.asdict(inv.topology),
+                   coords=[list(c.coords) for c in inv.chips],
+                   boards=sorted({c.board for c in inv.chips}))
+    finally:
+        backend.close()
+    out["torch_loaded"] = "torch" in sys.modules
     print("ENFORCE " + json.dumps(out), flush=True)
     return 0
 
@@ -3618,7 +4000,13 @@ def phase_device_plugin(torch, record, vgpu: Path):
     webhook, Filter and Bind (``placed``: no grant key comes from this
     script), each bind phase ``success`` with the node lock released,
     each pod's region dir made, and the card's used memory sampled
-    through its life (no context).  (b) S and T as pods whose grant env
+    through its life (no context); the fabric (fabric_checks, hgx_leg,
+    fabric_summary): NVML's P2P answers beside nvidia-smi's ``topo -p2p
+    n``, the registered (1,) mesh, kubelet's preferred allocations, no
+    unsatisfiable sizes, the mock HGX node's slice and mesh grants, its
+    no-ici-slice refusal and the webhook's malformed-mesh refusal, and
+    the mock PCIe node's topology-unverifiable refusals and plain grant.
+    (b) S and T as pods whose grant env
     comes only from their specs and the answers (``kubelet_env``, which
     also writes T's downward-API annotations file), with the
     interposer the plugin installed, under the port's monitor scanning the
@@ -3676,6 +4064,12 @@ def phase_device_plugin(torch, record, vgpu: Path):
         check(len(line) == 1, "the node agent printed no result")
         na = json.loads(line[0][len("ENFORCE "):])
         record["node_agent"] = dict(na, life=life, base_mib=base)
+        p2p = subprocess.run(["nvidia-smi", "topo", "-p2p", "n"],
+                             capture_output=True, text=True, timeout=60,
+                             env=smi_env())
+        check(p2p.returncode == 0, f"nvidia-smi topo -p2p n failed: "
+              f"{p2p.stderr.strip()}")
+        na["fabric"]["smi_topo_p2p_n"] = p2p.stdout
         [card], [chip] = na["cards"], na["inventory"]
         check([card["index"], card["uuid"], card["name"],
                card["memory_total"] >> 20] == [int(smi[0]), smi[1], smi[2],
@@ -3802,6 +4196,39 @@ def phase_device_plugin(torch, record, vgpu: Path):
                                        "flash_bwd_dkv")]
 
 
+def fabric_summary(na: dict) -> dict:
+    """The node agent's fabric record (checked in the child by
+    fabric_checks and hgx_leg), cut to what the phase's line prints:
+    NVML's answers and nvidia-smi's P2P matrix, the registered topology,
+    kubelet's answers, the annotation, and the mock nodes' registrations,
+    grants, reasons and times."""
+    fabric, hgx = na["fabric"], na["hgx"]
+    pods = hgx["pods"]
+    return {
+        "p2p": fabric["p2p"], "p2p_self": fabric["p2p_self"],
+        "smi_topo_p2p_n": fabric.get("smi_topo_p2p_n"),
+        "registered": fabric["registered"],
+        "options_s": fabric["options_s"], "preferred": fabric["preferred"],
+        "unsatisfiable": fabric["unsatisfiable"],
+        "hgx": {
+            "register_s": hgx["register_s"],
+            "registered": hgx["registered"]["topology"],
+            "agent_fabric": {k: hgx["agent"]["fabric"][k]
+                             for k in ("kind", "not_supported")},
+            "bad_mesh": hgx["bad_mesh"],
+            "pcie_registered": {k: hgx["pcie_registered"][k]
+                                for k in ("register_s", "topology",
+                                          "coords")},
+            "pcie_agent_fabric": hgx["pcie_agent"]["fabric"]["kind"],
+            "known_topologies": hgx["known_topologies"],
+            **{name: {
+                "cards": rec.get("cards"),
+                "failed": rec["filter"]["FailedNodes"],
+                **{k: rec[k] for k in ("webhook_s", "filter_s", "bind_s")
+                   if k in rec}} for name, rec in pods.items()}},
+    }
+
+
 def placed(name: str, pod: dict, uuid: str, cores=CORES_SM_LIMIT) -> None:
     """Checks of one pod that the port's control plane placed: the
     webhook's env and scheduler name in its spec, Filter's node, and the
@@ -3920,6 +4347,7 @@ def plugin_checks(record, na, sizes, envs, regions, legs, tl, seen,
                 (m for _, m, _ in record["node_agent"]["life"]),
                 default=0) - record["node_agent"]["base_mib"],
             "torch_loaded": na["torch_loaded"], "polls": na["polls"]},
+        "fabric": fabric_summary(na),
         "control_plane": {
             "register_s": na["register_s"], "registered": na["registered"],
             **{name: {k: pods[name]["handshake"][k] for k in (
@@ -4848,6 +5276,8 @@ def main() -> int:
             return node_agent()
         if sys.argv[2] == "control_plane":
             return control_plane()
+        if sys.argv[2] == "mock_agent":
+            return mock_agent()
         return enforce_child(sys.argv[2])
     t_script = time.monotonic()
     import torch

@@ -1,6 +1,7 @@
 """GPU device-plugin entrypoint of the port (a DaemonSet, one per node).
 
     vgpu-device-plugin --node-name <node> [--mode mem-share] \
+        [--topology-policy best-effort] \
         [--shim-dir /usr/local/vgpu --install-shim]
     python -m k8s_vgpu_scheduler_tpu_torch.cmd.device_plugin ...
 
@@ -13,9 +14,12 @@ agent never imports torch.  ``--install-shim`` first builds the interposer
 and installs it with its ``ld.so.preload`` and the shim's startup hook
 (``sitecustomize.py``) into ``--shim-dir``, the directory Allocate mounts
 into every container and puts on the ``PYTHONPATH`` of an oversubscribed
-one.  The partition strategies
-(MIG), the unsatisfiable-sizes annotation, the usage counters and the
-debug endpoints wait for their own slices.
+one.  ``--topology-policy`` is the policy of kubelet's preferred
+allocation; under ``restricted`` or ``guaranteed`` the node carries
+``vtpu.dev/ici-unsatisfiable-sizes`` (the card counts no free slice
+holds), published at start and after each health change.  The partition
+strategies (MIG), the usage counters and the debug endpoints wait for
+their own slices.
 """
 
 from __future__ import annotations
@@ -27,11 +31,13 @@ import logging
 import os
 import time
 
-from ..deviceplugin import DeviceCache, DeviceRegister, GpuDevicePlugin
+from ..deviceplugin import (DeviceCache, DeviceRegister, GpuDevicePlugin,
+                            publish_unsatisfiable)
 from ..deviceplugin.plugin import CrashLoopBreaker
 from ..k8s import make_client
 from ..tpulib import detect
 from ..util.config import Config
+from ..util.types import TOPOLOGY_POLICIES
 
 log = logging.getLogger(__name__)
 
@@ -45,6 +51,12 @@ def parse_args(argv=None):
     p.add_argument("--device-memory-scaling", type=float, default=1.0)
     p.add_argument("--device-cores-scaling", type=float, default=1.0)
     p.add_argument("--disable-core-limit", action="store_true")
+    p.add_argument("--topology-policy", default="best-effort",
+                   choices=TOPOLOGY_POLICIES,
+                   help="policy of kubelet's preferred allocation: "
+                        "guaranteed = one contiguous slice or nothing, "
+                        "restricted = contiguous where a slice of the count "
+                        "exists, best-effort = contiguous where it can")
     p.add_argument("--mode", default="mem-share",
                    choices=["default", "mem-share", "env-share"],
                    help="sharing mode (reference MLU modes): mem-share = "
@@ -108,6 +120,7 @@ def main(argv=None):
         device_memory_scaling=args.device_memory_scaling,
         device_cores_scaling=args.device_cores_scaling,
         disable_core_limit=args.disable_core_limit,
+        topology_policy=args.topology_policy,
         sharing_mode=args.mode,
         shim_host_dir=args.shim_dir,
         cache_host_dir=args.cache_dir,
@@ -125,10 +138,19 @@ def main(argv=None):
     plugin = GpuDevicePlugin(client, cache.inventory, cfg,
                              socket_dir=args.socket_dir)
     register = DeviceRegister(backend, cfg)
-    cache.subscribe("plugin", lambda inv: plugin.notify_health_changed())
+
+    def on_health_change(inv):
+        plugin.notify_health_changed()
+        # A health change alters which slice sizes stay placeable
+        # (reference server.go:493–522).
+        publish_unsatisfiable(client, cfg.node_name, inv, cfg.topology_policy)
+
+    cache.subscribe("plugin", on_health_change)
     # The register stream is the lease-heartbeat channel: it alone
     # receives the periodic unchanged-inventory keepalives.
     cache.subscribe("register", register.push_update, heartbeat=True)
+    publish_unsatisfiable(client, cfg.node_name, cache.inventory,
+                          cfg.topology_policy)
     cache.start()
     register.start()
     plugin.serve()

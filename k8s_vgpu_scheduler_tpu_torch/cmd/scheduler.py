@@ -6,7 +6,7 @@
 The port's counterpart of the JAX package's ``cmd/scheduler.py`` with the
 reference's flags (cmd/scheduler/main.go:50–100): the gRPC and HTTP binds,
 the TLS cert and key, the scheduler name, the request defaults and the
-resource names, plus the node policy, priority preemption, the leases,
+resource names, plus the topology and node policies, priority preemption, the leases,
 the card quarantine, the rescue sweep and the informer's knobs.  Boot
 order: list the pods and reconcile the grants before anything serves (a
 restarted scheduler that filtered against an empty registry would book
@@ -28,6 +28,7 @@ from ..k8s.client import KubeClient, NotFound
 from ..scheduler.core import Scheduler, run_watch_loop
 from ..scheduler.routes import ExtenderServer
 from ..util.config import Config, ResourceNames
+from ..util.types import TOPOLOGY_POLICIES
 
 log = logging.getLogger(__name__)
 
@@ -51,6 +52,10 @@ def parse_args(argv=None):
                    default="nvidia.com/gpumem-percentage")
     p.add_argument("--resource-cores", default="nvidia.com/gpucores")
     p.add_argument("--resource-priority", default="nvidia.com/priority")
+    p.add_argument("--topology-policy", default="best-effort",
+                   choices=TOPOLOGY_POLICIES,
+                   help="the topology policy of a multi-card request whose "
+                        "pod names none (vtpu.dev/topology-policy)")
     p.add_argument("--node-scheduler-policy", default="spread",
                    choices=("spread", "binpack"),
                    help="among fitting nodes: spread = the most free "
@@ -107,6 +112,7 @@ def build_config(args) -> Config:
             cores=args.resource_cores, priority=args.resource_priority),
         scheduler_name=args.scheduler_name, default_mem=args.default_mem,
         default_cores=args.default_cores,
+        topology_policy=args.topology_policy,
         node_scheduler_policy=args.node_scheduler_policy,
         enable_preemption=args.enable_preemption,
         lease_ttl_s=args.lease_ttl, lease_grace_beats=args.lease_grace_beats,

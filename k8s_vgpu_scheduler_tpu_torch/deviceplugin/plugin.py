@@ -11,7 +11,11 @@ The port's counterpart of the JAX package's ``deviceplugin/plugin.py``
   answers with the env and mounts the port's interposer enforces
   (plugin.go:318–386);
 - a failure finalizes the handshake as failed and releases the node lock,
-  so the pod can reschedule.
+  so the pod can reschedule;
+- ``GetPreferredAllocation`` packs a whole-card request that kubelet
+  places on its own onto a slice of the node's fabric
+  (``allocator.SliceAllocator`` under ``Config.topology_policy``; the
+  reference's server.go:441–491).
 
 The env a container gets (read by ``csrc/vgpu/region.cc``):
 
@@ -39,7 +43,7 @@ No device specs: the container runtime mounts the cards
 memory env: the port has no ballast.
 
 The core (:meth:`GpuDevicePlugin.allocate`, :meth:`build_container_response`,
-:meth:`api_devices`) returns plain dataclasses and imports neither grpc nor
+:meth:`api_devices`, ``allocator``) returns plain dataclasses and imports neither grpc nor
 protobuf; the kubelet servicer methods, :meth:`serve` and
 :meth:`register_with_kubelet` import them and convert at the edge.
 """
@@ -80,6 +84,7 @@ from ..util.types import (
     QOS_DUTY_SPLIT_ANNOTATION,
     SHIM_CONTAINER_DIR,
 )
+from .allocator import SliceAllocator
 
 #: Set where the shim dir is mounted and the Python shim enforces.
 ENV_PYTHONPATH = "PYTHONPATH"
@@ -219,6 +224,9 @@ class GpuDevicePlugin:
         self._watch_lock = threading.Lock()
         self._stop = threading.Event()
         self._probe_failures = 0
+        # Kubelet's topology path (reference server.go:441–491): packs a
+        # whole-card pod placed without the extender.
+        self.allocator = SliceAllocator(inventory, cfg.topology_policy)
 
     # -- the core: plain dataclasses, no grpc ----------------------------------
     def api_devices(self) -> List[Device]:
@@ -331,11 +339,9 @@ class GpuDevicePlugin:
     def GetDevicePluginOptions(self, request, context):  # noqa: N802
         from ..api import deviceplugin_pb2 as pb
 
-        # No preferred allocation until the port has an NVLink/NVSwitch
-        # topology model (the JAX package's allocator.py).
         return pb.DevicePluginOptions(
             pre_start_required=False,
-            get_preferred_allocation_available=False)
+            get_preferred_allocation_available=True)
 
     def ListAndWatch(self, request, context):  # noqa: N802
         from ..api import deviceplugin_pb2 as pb
@@ -365,10 +371,19 @@ class GpuDevicePlugin:
                 self._watch_qs.pop(sid, None)
 
     def GetPreferredAllocation(self, request, context):  # noqa: N802
-        """Not offered (GetDevicePluginOptions says so): an empty answer."""
+        """Topology-pack kubelet's choice of virtual devices.  A pod the
+        extender placed ignores it (Allocate obeys the annotations); a
+        whole-card pod the default scheduler placed gets cards of one
+        slice here."""
         from ..api import deviceplugin_pb2 as pb
 
-        return pb.PreferredAllocationResponse()
+        return pb.PreferredAllocationResponse(container_responses=[
+            pb.ContainerPreferredAllocationResponse(
+                deviceIDs=self.allocator.preferred(
+                    list(creq.available_deviceIDs),
+                    list(creq.must_include_deviceIDs),
+                    creq.allocation_size))
+            for creq in request.container_requests])
 
     def PreStartContainer(self, request, context):  # noqa: N802
         from ..api import deviceplugin_pb2 as pb
@@ -461,7 +476,7 @@ class GpuDevicePlugin:
                     # Kubelet reads the options carried here, not a later
                     # GetDevicePluginOptions call.
                     options=pb.DevicePluginOptions(
-                        get_preferred_allocation_available=False),
+                        get_preferred_allocation_available=True),
                 ),
                 timeout=10,
             )

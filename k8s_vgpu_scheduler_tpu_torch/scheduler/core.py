@@ -16,10 +16,14 @@ Filter gates on, the card quarantine stripped from every usage, the
 rescuer) and priority preemption (``preempt.py``): with
 ``Config.enable_preemption``, a pod that fits nowhere asks strictly
 lower-priority pods to checkpoint and leave, and the requests are kept,
-rescinded and rebuilt from the annotations as in the JAX scheduler.  A pod
-that declares a device mesh (``vtpu.dev/mesh``) or a gang
-(``vtpu.dev/pod-group``) is refused with an error that names the slice
-that places it: it is never placed as though it declared neither.  This
+rescinded and rebuilt from the annotations as in the JAX scheduler.  A
+node's fabric (the ``TopologyDesc`` and card coordinates its agent
+registers) places multi-card requests by the slice engine under the pod's
+topology policy, and ``vtpu.dev/mesh`` pods by ``placement/mesh.py``.  A
+pod that declares a gang (``vtpu.dev/pod-group``) or an elastic mesh range
+(``vtpu.dev/mesh-min``/``-max``) is refused with an error that names the
+slice that places it: it is never placed as though it declared neither.
+This
 module imports neither grpc nor protobuf: the register stream's messages
 are read through their attributes, and only ``cmd/scheduler.py`` converts
 at the gRPC edge.
@@ -45,6 +49,7 @@ from ..k8s.client import (
     pod_qos,
     pod_uid,
 )
+from ..tpulib.types import TopologyDesc
 from ..util import codec, trace
 from ..util.config import Config
 from ..util.nodelock import NodeLockError, lock_node, release_node
@@ -58,7 +63,8 @@ from ..util.types import (
     BIND_PHASE_ANNOTATION,
     BIND_TIME_ANNOTATION,
     GANG_GROUP_ANNOTATION,
-    MESH_ANNOTATION,
+    MESH_MAX_ANNOTATION,
+    MESH_MIN_ANNOTATION,
     QOS_BEST_EFFORT,
     QOS_DUTY_SPLIT_ANNOTATION,
     TO_ALLOCATE_ANNOTATION,
@@ -73,10 +79,12 @@ log = logging.getLogger(__name__)
 #: Annotations this scheduler refuses to place without, by the slice of
 #: the port that places them.
 UNPLACED_ANNOTATIONS = {
-    MESH_ANNOTATION: "device meshes are placed by the topology slice "
-                     "(ROADMAP A.3c)",
     GANG_GROUP_ANNOTATION: "pod groups are placed by the gang slice "
                            "(ROADMAP A.5)",
+    MESH_MIN_ANNOTATION: "elastic mesh ranges are placed by the elastic "
+                         "slice (ROADMAP A.5)",
+    MESH_MAX_ANNOTATION: "elastic mesh ranges are placed by the elastic "
+                         "slice (ROADMAP A.5)",
 }
 
 #: Filter's error when no candidate fits: the case preemption plans for.
@@ -97,13 +105,19 @@ class FilterResult:
 
 
 def decode_register_request(req) -> NodeInfo:
-    """A RegisterRequest (any object with its fields) → NodeInfo.  The
-    card's fabric coordinates and the node's topology are not read: the
-    topology slice places by them."""
-    return NodeInfo(name=req.node, devices=[
-        DeviceInfo(id=d.id, count=d.count, devmem=d.devmem, type=d.type,
-                   health=d.health, cores=d.cores or 100)
-        for d in req.devices])
+    """A RegisterRequest (any object with its fields) → NodeInfo, each
+    card's fabric coordinates and the node's topology with it (an empty
+    mesh: no topology)."""
+    devices = [DeviceInfo(id=d.id, count=d.count, devmem=d.devmem,
+                          type=d.type, health=d.health,
+                          coords=tuple(d.coords), cores=d.cores or 100)
+               for d in req.devices]
+    topo = None
+    if req.topology.mesh:
+        topo = TopologyDesc(generation=req.topology.generation,
+                            mesh=tuple(req.topology.mesh),
+                            wraparound=tuple(req.topology.wraparound) or ())
+    return NodeInfo(name=req.node, devices=devices, topology=topo)
 
 
 class Scheduler:
@@ -365,6 +379,20 @@ class Scheduler:
                 for name, info in self.nodes.list_nodes().items()
                 if allow is None or name in allow}
 
+    def known_topologies(self) -> List[TopologyDesc]:
+        """The distinct fabrics registered in the fleet, one per shape and
+        wraparound: the webhook's mesh-feasibility check reads them.  A
+        node none of whose cards has coordinates has no fabric (what
+        ``NvmlBackend`` sends without an all-pairs NVLink matrix) and
+        adds none: Filter refuses every mesh pod there.  The JAX
+        scheduler lists its mesh."""
+        seen = {}
+        for info in self.nodes.list_nodes().values():
+            t = info.topology
+            if t is not None and any(d.coords for d in info.devices):
+                seen[(t.mesh, t.wrap())] = t
+        return list(seen.values())
+
     def _pods_by_node(self) -> Dict[str, List[PodInfo]]:
         out: Dict[str, List[PodInfo]] = {}
         for info in self.pods.list_pods():
@@ -446,7 +474,7 @@ class Scheduler:
                    and self.leases.reject_reason(name) is None}
         return plan_preemption(
             requests, pod_priority(pod, self.cfg), entries,
-            self._pods_by_node(), anns,
+            self._pods_by_node(), anns, self.cfg.topology_policy,
             node_policy=self.cfg.node_scheduler_policy)
 
     def _request_preemptions(self, pod: dict, plan: PreemptionPlan) -> None:
@@ -538,7 +566,9 @@ class Scheduler:
                 failed[name] = why
                 continue
             reasons: Dict[str, str] = {}
-            placement = score_mod.fit_pod(requests, usage, anns, reasons)
+            placement = score_mod.fit_pod(requests, usage, info.topology,
+                                          anns, self.cfg.topology_policy,
+                                          reasons)
             if placement is None:
                 failed[name] = reasons.get("reason",
                                            "insufficient GPU capacity")

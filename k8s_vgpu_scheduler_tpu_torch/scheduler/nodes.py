@@ -2,9 +2,10 @@
 package's ``scheduler/nodes.py``).
 
 Reference: pkg/scheduler/nodes.go (addNode, and rmNodeDevice, which drops a
-node's devices when its register stream breaks, nodes.go:269–305).  The
-fabric fields (``coords``, ``topology``) stay empty until the port's
-topology slice: Filter here takes the reference's plain choice of cards.
+node's devices when its register stream breaks, nodes.go:269–305).  Each
+card carries its fabric coordinates (none on a node without a fabric)
+and the node its ``TopologyDesc`` where its agent sent one: Filter's slice
+search reads them.
 """
 
 from __future__ import annotations
@@ -48,14 +49,24 @@ class NodeManager:
         reference merges by id, nodes.go:269–281, which keeps a dead card
         schedulable; the JAX package's deliberate deviation, kept.)"""
         with self._lock:
-            self._nodes[name] = NodeInfo(name, list(info.devices))
+            existing = self._nodes.get(name)
+            if existing is None or not existing.devices:
+                self._nodes[name] = NodeInfo(name, list(info.devices),
+                                             info.topology)
+                return
+            existing.devices = list(info.devices)
+            # A registration without a topology keeps the one stored.
+            if info.topology is not None:
+                existing.topology = info.topology
 
     def same_inventory(self, name: str, info: NodeInfo) -> bool:
-        """Whether ``info`` is the stored inventory (most register-stream
-        messages are keepalives)."""
+        """Whether ``info`` is the stored inventory and topology, where it
+        sends one (most register-stream messages are keepalives)."""
         with self._lock:
             cur = self._nodes.get(name)
-            return cur is not None and cur.devices == info.devices
+            if cur is None or cur.devices != info.devices:
+                return False
+            return info.topology is None or cur.topology == info.topology
 
     def rm_node(self, name: str) -> None:
         """The node agent's stream broke: its inventory is no longer

@@ -21,10 +21,8 @@ nowhere simply pends.  Here, since the train state is explicit
 5. The victim is rescheduled later and resumes from its checkpoint on the
    same trajectory.
 
-The planner is pure (no I/O, no locks) and works on the usage Filter
-builds.  It has no topology or policy argument: the port's ``fit_pod``
-takes the plain choice of cards, which is the JAX planner's on a node
-without a ``TopologyDesc``.
+The planner is pure (no I/O, no locks) and fits as Filter does: on each
+node's ``TopologyDesc`` under the scheduler's default topology policy.
 """
 
 from __future__ import annotations
@@ -32,6 +30,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+from ..util.types import BEST_EFFORT
 from . import score as score_mod
 from .nodes import NodeInfo
 from .pods import PodInfo
@@ -50,10 +49,10 @@ class PreemptionPlan:
 
 
 def _fits_without(requests, info: NodeInfo, pods: List[PodInfo],
-                  excluded: set, anns: Dict[str, str]):
+                  excluded: set, anns: Dict[str, str], policy: str):
     remaining = [p for p in pods if p.uid not in excluded]
     usage = score_mod.build_usage(info, remaining)
-    return score_mod.fit_pod(requests, usage, anns)
+    return score_mod.fit_pod(requests, usage, info.topology, anns, policy)
 
 
 def plan_preemption(
@@ -62,6 +61,7 @@ def plan_preemption(
     entries: Dict[str, Tuple[NodeInfo, object]],
     pods_by_node: Dict[str, List[PodInfo]],
     anns: Dict[str, str],
+    policy: str = BEST_EFFORT,
     protected_uids: Optional[set] = None,
     node_policy: str = "spread",
 ) -> Optional[PreemptionPlan]:
@@ -88,8 +88,8 @@ def plan_preemption(
         chosen: Optional[List[PodInfo]] = None
         # One victim first: the cheapest plan a node can offer.
         for c in candidates:
-            if _fits_without(requests, info, pods, {c.uid},
-                             anns) is not None:
+            if _fits_without(requests, info, pods, {c.uid}, anns,
+                             policy) is not None:
                 chosen = [c]
                 break
         if chosen is None:
@@ -99,8 +99,8 @@ def plan_preemption(
             for c in candidates:
                 acc.append(c)
                 excluded.add(c.uid)
-                if _fits_without(requests, info, pods, excluded,
-                                 anns) is not None:
+                if _fits_without(requests, info, pods, excluded, anns,
+                                 policy) is not None:
                     chosen = list(acc)
                     break
         if chosen is None:

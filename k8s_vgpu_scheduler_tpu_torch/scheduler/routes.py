@@ -104,7 +104,8 @@ class _Handler(BaseHTTPRequestHandler):
             elif self.path == "/bind":
                 self._reply(200, bind_endpoint(self.scheduler, body))
             elif self.path == "/webhook":
-                self._reply(200, handle_admission_review(body, self.cfg))
+                self._reply(200, handle_admission_review(
+                    body, self.cfg, self.scheduler.known_topologies))
             else:
                 self._reply(404, {"error": "not found"})
         except Exception as e:  # noqa: BLE001 — the extender answers, never dies

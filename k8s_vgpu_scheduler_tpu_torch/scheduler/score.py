@@ -14,12 +14,17 @@ rules keep their reference semantics:
   included (score.go:159–162);
 - the virtual-slot capacity ``used_slots < total_slots``.
 
-Cards are chosen by the reference's plain rule (shared cards first, so
-whole cards stay free for exclusive and multi-card requests); the JAX
-package's fabric-aware slice search waits for the port's topology slice.
-The node score is the reference's spread rule (the sum of the free
-fractions after the tentative placement, Filter takes the largest), or
-its negation under ``binpack``.
+A multi-card request on a node with a fabric goes through the slice
+engine (``topology/torus.py``) under the pod's topology policy
+(``vtpu.dev/topology-policy``, else the configured default), and a pod
+that declares ``vtpu.dev/mesh`` through ``placement/mesh.py``, as the JAX
+package's Filter does.  On a node whose cards lack coordinates (a node
+without a fabric) both refuse such a pod, ``topology-unverifiable``,
+where it is ``guaranteed`` or declares a mesh.  Elsewhere cards are
+chosen by the reference's plain rule (shared cards first, so whole cards
+stay free for exclusive and multi-card requests).  The node score is the reference's spread rule
+(the sum of the free fractions after the tentative placement, Filter
+takes the largest), or its negation under ``binpack``.
 """
 
 from __future__ import annotations
@@ -27,9 +32,15 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
+from ..placement.mesh import find_mesh_slice, local_mesh_for, parse_mesh
+from ..topology import find_slice
+from ..tpulib.types import TopologyDesc
 from ..util.types import (
+    BEST_EFFORT,
     GPU_NOUSE_TYPE_ANNOTATION,
     GPU_USE_TYPE_ANNOTATION,
+    GUARANTEED,
+    MESH_ANNOTATION,
     ContainerDevice,
     ContainerDeviceRequest,
     ContainerDevices,
@@ -39,6 +50,9 @@ from .pods import PodInfo
 
 Affinity = Tuple[Optional[List[str]], List[str]]
 
+# Pod annotation selecting the topology policy of its multi-card grants.
+TOPOLOGY_POLICY_ANNOTATION = "vtpu.dev/topology-policy"
+
 
 @dataclasses.dataclass(slots=True)
 class DeviceUsage:
@@ -47,6 +61,7 @@ class DeviceUsage:
     id: str
     type: str
     health: bool
+    coords: Tuple[int, ...]
     total_slots: int
     used_slots: int
     total_mem: int
@@ -71,8 +86,8 @@ def build_usage(node: NodeInfo, pods_on_node: List[PodInfo]
                 ) -> Dict[str, DeviceUsage]:
     """Registered inventory less the grants of every scheduled pod
     (reference getNodesUsage, scheduler.go:176–222)."""
-    usage = {d.id: DeviceUsage(d.id, d.type, d.health, d.count, 0, d.devmem,
-                               0, d.cores, 0)
+    usage = {d.id: DeviceUsage(d.id, d.type, d.health, tuple(d.coords),
+                               d.count, 0, d.devmem, 0, d.cores, 0)
              for d in node.devices}
     for pod in pods_on_node:
         for container in pod.devices:
@@ -168,7 +183,8 @@ def _reject_summary(req: ContainerDeviceRequest,
 
 
 def fit_container(req: ContainerDeviceRequest, usage: Dict[str, DeviceUsage],
-                  annotations: Dict[str, str],
+                  topo: Optional[TopologyDesc], annotations: Dict[str, str],
+                  policy: str = BEST_EFFORT,
                   reasons: Optional[Dict[str, str]] = None
                   ) -> Optional[ContainerDevices]:
     """Place one container's request, mutating ``usage`` on success.  On
@@ -182,11 +198,41 @@ def fit_container(req: ContainerDeviceRequest, usage: Dict[str, DeviceUsage],
         if reasons is not None:
             reasons["reason"] = _reject_summary(req, usage, affinity)
         return None
-    # Shared cards first, so whole cards stay free for exclusive and
-    # multi-card requests.  The sort is stable under reverse=True: among
-    # equals the node's registration order decides.
-    chosen = sorted(eligible, key=lambda u: (u.used_slots, u.used_mem),
-                    reverse=True)[:req.nums]
+
+    chosen: Optional[List[DeviceUsage]] = None
+    mesh_value = annotations.get(MESH_ANNOTATION, "")
+    if mesh_value and req.nums > 1:
+        # The pod asked for axis structure, not only contiguous cards: the
+        # grant must be a box realizing its local mesh under every policy
+        # (a mesh has no scattered fallback).
+        chosen = _fit_mesh(req, eligible, topo, mesh_value, reasons)
+        if chosen is None:
+            return None
+    elif topo is not None and req.nums > 1:
+        # Slice placement needs coordinates present and unique on every
+        # eligible card; a node agent that sends none leaves the plain
+        # choice, which cannot promise contiguity.
+        coord_map = {u.coords: u for u in eligible if u.coords != ()}
+        if len(coord_map) == len(eligible):
+            coords = find_slice(topo, coord_map.keys(), req.nums, policy)
+            if coords is None:
+                if reasons is not None:
+                    reasons["reason"] = (
+                        f"no-ici-slice: no contiguous slice of "
+                        f"{req.nums} chips under policy {policy}")
+                return None
+            chosen = [coord_map[c] for c in coords]
+        elif policy == GUARANTEED:
+            if reasons is not None:
+                reasons["reason"] = ("topology-unverifiable: guaranteed "
+                                     "policy but chip coords missing")
+            return None
+    if chosen is None:
+        # Shared cards first, so whole cards stay free for exclusive and
+        # multi-card requests.  The sort is stable under reverse=True:
+        # among equals the node's registration order decides.
+        chosen = sorted(eligible, key=lambda u: (u.used_slots, u.used_mem),
+                        reverse=True)[:req.nums]
     grants: ContainerDevices = []
     for chip in chosen:
         mem = _resolve_mem(req, chip)
@@ -198,15 +244,55 @@ def fit_container(req: ContainerDeviceRequest, usage: Dict[str, DeviceUsage],
     return grants
 
 
+def _fit_mesh(req: ContainerDeviceRequest, eligible: List[DeviceUsage],
+              topo: Optional[TopologyDesc], mesh_value: str,
+              reasons: Optional[Dict[str, str]]
+              ) -> Optional[List[DeviceUsage]]:
+    """The cards of a ``vtpu.dev/mesh`` request: a box of the fabric that
+    realizes the pod's local mesh (``placement.mesh.find_mesh_slice``),
+    or None with the reason.  The webhook validates the annotation at
+    admission; Filter parses it again, so a caller without the webhook
+    never sees a malformed mesh placed as a scatter."""
+    def reject(token: str, detail: str):
+        if reasons is not None:
+            reasons["reason"] = f"{token}: {detail}"
+        return None
+
+    try:
+        mesh = parse_mesh(mesh_value)
+    except ValueError as e:
+        return reject("bad-mesh", str(e))
+    local, why = local_mesh_for(mesh, req.nums)
+    if local is None:
+        return reject("bad-mesh", why)
+    if topo is None:
+        return reject("topology-unverifiable",
+                      "mesh declared but node advertises no ICI topology")
+    coord_map = {u.coords: u for u in eligible if u.coords != ()}
+    if len(coord_map) != len(eligible):
+        return reject("topology-unverifiable",
+                      "mesh declared but chip coords missing")
+    coords = find_mesh_slice(topo, coord_map.keys(), local)
+    if coords is None:
+        return reject(
+            "no-mesh-slice",
+            f"no free box realizes local mesh "
+            f"{'x'.join(map(str, local))} ({req.nums} chips)")
+    return [coord_map[c] for c in coords]
+
+
 def fit_pod(requests: List[ContainerDeviceRequest],
-            usage: Dict[str, DeviceUsage], annotations: Dict[str, str],
+            usage: Dict[str, DeviceUsage], topo: Optional[TopologyDesc],
+            annotations: Dict[str, str], default_policy: str = BEST_EFFORT,
             reasons: Optional[Dict[str, str]] = None
             ) -> Optional[List[ContainerDevices]]:
     """All containers or none; mutates ``usage`` as it goes (callers pass
-    a copy per candidate node)."""
+    a copy per candidate node).  The pod's ``vtpu.dev/topology-policy``
+    wins over ``default_policy``."""
+    policy = annotations.get(TOPOLOGY_POLICY_ANNOTATION, default_policy)
     out: List[ContainerDevices] = []
     for i, req in enumerate(requests):
-        got = fit_container(req, usage, annotations, reasons)
+        got = fit_container(req, usage, topo, annotations, policy, reasons)
         if got is None:
             if reasons is not None and len(requests) > 1:
                 # A suffix: the leading token stays the counter's key.

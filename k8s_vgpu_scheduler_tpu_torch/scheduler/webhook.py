@@ -14,9 +14,13 @@ Reference: pkg/scheduler/webhook.go:170–247.  On pod CREATE:
   downward-API annotations volume, its mount and ``VTPU_PODINFO_ANNOTATIONS``,
   so the in-container ``PreemptionWatch`` finds the file.
 
-An unknown ``vtpu.dev/qos`` class is refused with a 422.  The JAX
-package's capacity-queue gate and its mesh validation wait for the port's
-quota and topology slices.  AdmissionReview v1 in, a JSONPatch out.
+A pod is refused with a 422 where its ``vtpu.dev/mesh`` could never place
+(the JAX package's messages: the shape parses, its volume is the pod's
+card count, its local mesh fits a fabric registered in the fleet), where
+it declares an elastic mesh range (``vtpu.dev/mesh-min``/``-max``, placed
+by the elastic slice, ROADMAP A.5), or where its ``vtpu.dev/qos`` class is
+unknown.  The JAX package's capacity-queue gate waits for the port's
+quota slice.  AdmissionReview v1 in, a JSONPatch out.
 """
 
 from __future__ import annotations
@@ -30,7 +34,15 @@ from ..shim.preempt import PATH_ENV
 from ..util import trace
 from ..util.config import Config
 from ..util.resources import container_requests
-from ..util.types import ENV_TASK_PRIORITY, QOS_ANNOTATION, QOS_CLASSES
+from ..placement.mesh import validate_mesh
+from ..util.types import (
+    ENV_TASK_PRIORITY,
+    MESH_ANNOTATION,
+    MESH_MAX_ANNOTATION,
+    MESH_MIN_ANNOTATION,
+    QOS_ANNOTATION,
+    QOS_CLASSES,
+)
 
 log = logging.getLogger(__name__)
 
@@ -151,6 +163,45 @@ def _podinfo_patches(pod: dict, container_idxs: List[int],
     return patches
 
 
+def validate_pod_mesh(pod: dict, cfg: Config,
+                      topologies=None) -> Optional[str]:
+    """Admission-time ``vtpu.dev/mesh`` validation: the shape parses, its
+    volume is the pod's card count, and its local mesh is realizable on at
+    least one fabric in the fleet.  The user-facing refusal, or None.
+    ``topologies`` is an iterable of TopologyDesc or a callable giving one
+    (the extender passes ``Scheduler.known_topologies``); none skips the
+    fleet check, so the first pod of a cluster whose agents have not
+    registered yet is not refused.  A gang counts one member: the port
+    refuses pod groups (ROADMAP A.5)."""
+    anns = pod.get("metadata", {}).get("annotations") or {}
+    mesh_value = anns.get(MESH_ANNOTATION, "")
+    if not mesh_value:
+        return None
+    try:
+        requests = container_requests(pod, cfg)
+    except ValueError as e:
+        return (f"{MESH_ANNOTATION} {mesh_value!r}: cannot validate "
+                f"against unparseable resources: {e}")
+    nums = max((r.nums for r in requests), default=0)
+    topos = list(topologies() if callable(topologies)
+                 else (topologies or ()))
+    why = validate_mesh(mesh_value, nums, 1, topos)
+    if why is None:
+        return None
+    return f"{MESH_ANNOTATION}: {why}"
+
+
+def validate_pod_mesh_range(pod: dict) -> Optional[str]:
+    """The refusal of a pod that declares an elastic mesh range, or None:
+    the port places no elastic mesh yet."""
+    anns = pod.get("metadata", {}).get("annotations") or {}
+    if not (anns.get(MESH_MIN_ANNOTATION) or anns.get(MESH_MAX_ANNOTATION)):
+        return None
+    return (f"{MESH_MIN_ANNOTATION}/{MESH_MAX_ANNOTATION}: elastic mesh "
+            "ranges are not placed by this scheduler: they are placed by "
+            "the elastic slice (ROADMAP A.5)")
+
+
 def validate_pod_qos(pod: dict) -> Optional[str]:
     """The user-facing refusal for an unknown ``vtpu.dev/qos`` class (it
     would run as best-effort, the region's default, without a word), or
@@ -163,16 +214,19 @@ def validate_pod_qos(pod: dict) -> Optional[str]:
             f"(expected one of: {', '.join(QOS_CLASSES)})")
 
 
-def handle_admission_review(body: dict, cfg: Config) -> dict:
-    """AdmissionReview in, AdmissionReview out.  Only pods that ask for
-    cards get a trace id and a webhook span (the webhook sees every pod
-    CREATE of the cluster)."""
+def handle_admission_review(body: dict, cfg: Config,
+                            topologies=None) -> dict:
+    """AdmissionReview in, AdmissionReview out.  ``topologies``: the
+    fleet's fabrics for the mesh check (see :func:`validate_pod_mesh`).
+    Only pods that ask for cards get a trace id and a webhook span (the
+    webhook sees every pod CREATE of the cluster)."""
     req = body.get("request", {})
     uid = req.get("uid", "")
     response = {"uid": uid, "allowed": True}
     pod = req.get("object")
     if isinstance(pod, dict) and req.get("operation", "CREATE") == "CREATE":
-        why = validate_pod_qos(pod)
+        why = validate_pod_mesh(pod, cfg, topologies) \
+            or validate_pod_mesh_range(pod) or validate_pod_qos(pod)
         if why is not None:
             log.warning("webhook: refusing pod %s: %s",
                         pod.get("metadata", {}).get("name", "?"), why)

@@ -10,7 +10,9 @@ a JSON fixture* (mock/cndev.c reads ``$MOCK_JSON`` — SURVEY.md §4, N5).
 - :class:`NvmlBackend` enumerates the real cards through NVML
   (``tpulib/nvml.py``), the counterpart of the JAX package's
   ``SysfsBackend``: it opens no CUDA context, so the node agent holds none
-  of a card's memory and is no compute process on it.
+  of a card's memory and is no compute process on it.  It reads the
+  node's fabric from NVML's NVLink peer-to-peer matrix (:meth:`NvmlBackend.
+  fabric`), not from the cards' order.
 - :class:`TorchBackend` enumerates the real cards through
   ``torch.cuda.get_device_properties``, which creates a context on each
   (chip_smoke.py holds NVML's inventory to it).
@@ -192,9 +194,24 @@ def normalize_kind(name: str) -> str:
 
 class NvmlBackend(Backend):
     """The real cards through NVML: per card its index, UUID, name,
-    memory, serial, PCI bus id and minor number (:meth:`cards`).  All
-    cards are taken as one NVLink/NVSwitch domain (coordinates along one
-    axis), as in :class:`TorchBackend`.
+    memory, serial, PCI bus id and minor number (:meth:`cards`), and the
+    fabric that NVML's NVLink peer-to-peer matrix shows (:meth:`fabric`),
+    in the TopologyDesc vocabulary the slice engine reads:
+
+    - one card: ``coords=(0,)`` on ``mesh=(1,)``;
+    - every pair of cards reports NVLink P2P ``OK`` (an HGX/DGX board on
+      NVSwitch, or a bridged pair): ``coords=(i,)`` on ``mesh=(n,)`` with
+      ``wraparound=(n > 2,)``, a ring.  A ring under-states an all-to-all
+      switch (a set of cards that is not an arc is refused under
+      ``guaranteed``, though NVSwitch would carry it) and never
+      over-states it;
+    - otherwise (PCIe only, bridged pairs among more than two cards, P2P
+      not supported): no fabric, ``coords=()`` on every card of
+      ``mesh=(n,)``, the form the slice engine reads as coordinates
+      missing.  Filter then refuses a multi-card ``guaranteed`` pod and a
+      ``vtpu.dev/mesh`` pod there (``topology-unverifiable``) and takes
+      its plain choice of cards for any other, and kubelet's preferred
+      allocation leaves the choice to kubelet.
 
     Health: a card is unhealthy while its handle, UUID or memory query
     fails, and from its first critical Xid event on (an Xid an application
@@ -207,6 +224,7 @@ class NvmlBackend(Backend):
         self.events = None
         self.events_error = ""
         self._xid: dict = {}  # index -> the first critical Xid
+        self.last_fabric: Optional[dict] = None  # inventory()'s fabric()
 
     def cards(self) -> list:
         """What NVML reports of each card, as dicts.  The index, UUID,
@@ -238,17 +256,48 @@ class NvmlBackend(Backend):
             out.append(card)
         return out
 
+    def fabric(self, n: int) -> dict:
+        """NVML's NVLink peer-to-peer matrix of cards 0..n-1 and what the
+        rule reads from it: ``links``, ``[i, j, status]`` for each pair
+        i < j asked (an ``nvmlGpuP2PStatus_t``, ``nvml.P2P_STATUS``
+        names it); ``not_supported``, the calls the driver refused as
+        not supported (the matrix stops at the first); and ``kind``:
+        ``single`` (one card, nothing asked), ``nvlink`` (every pair OK)
+        or ``none``.  Any other NVML error raises."""
+        out = dict(links=[], not_supported=[], kind="single")
+        if n == 1:
+            return out
+        handles = [self.nvml.handle(i) for i in range(n)]
+        out["kind"] = "nvlink"
+        for i in range(n):
+            for j in range(i + 1, n):
+                try:
+                    status = self.nvml.p2p_status(handles[i], handles[j])
+                except nvml.NvmlError as e:
+                    if e.code != nvml.ERROR_NOT_SUPPORTED:
+                        raise
+                    out["not_supported"].append(e.call)
+                    out["kind"] = "none"
+                    return out
+                out["links"].append([i, j, status])
+                if status != nvml.P2P_STATUS_OK:
+                    out["kind"] = "none"
+        return out
+
     def inventory(self) -> NodeInventory:
         cards = self.cards()
         if not cards:
             raise RuntimeError("NVML reports no GPU")
+        n = len(cards)
+        self.last_fabric = self.fabric(n)
+        kind = self.last_fabric["kind"]
         chips = [
             ChipInfo(
                 index=c["index"],
                 uuid=c["uuid"],
                 type=f"NVIDIA-{normalize_kind(c['name'])}",
                 hbm_mib=advertised_mib(c),
-                coords=(i,),
+                coords=() if kind == "none" else (i,),
                 serial=c["serial"] or "",
                 board=c["name"],
             )
@@ -260,8 +309,10 @@ class NvmlBackend(Backend):
                     self.nvml, [self.nvml.handle(c.index) for c in chips])
             except nvml.NvmlError as e:
                 self.events_error = str(e)
-        return NodeInventory(chips=chips, topology=TopologyDesc(
-            generation=normalize_kind(cards[0]["name"]), mesh=(len(chips),)))
+        gen = normalize_kind(cards[0]["name"])
+        wrap = (n > 2,) if kind == "nvlink" else ()
+        topo = TopologyDesc(generation=gen, mesh=(n,), wraparound=wrap)
+        return NodeInventory(chips=chips, topology=topo)
 
     def refresh_health(self, inv: NodeInventory) -> bool:
         if self.events is not None:

@@ -16,6 +16,9 @@ Every entry point is declared with its C types here.  The ABI it relies on
   ``nvmlMemory_v2_t`` leads with a ``version`` word and adds ``reserved``;
 - UUID and name buffers of 96 bytes, the serial's of 30, the PCI bus id's
   of 32 (``nvmlPciInfo_t.busId``);
+- ``nvmlDeviceGetP2PStatus`` takes an ``nvmlGpuP2PCapsIndex_t`` and
+  writes an ``nvmlGpuP2PStatus_t``, both C enums (``int``), with the values
+  below;
 - every call returns an ``nvmlReturn_t``: nonzero raises :class:`NvmlError`
   with ``nvmlErrorString``'s text.
 
@@ -39,6 +42,14 @@ UUID_BUFFER = 96
 NAME_BUFFER = 96
 SERIAL_BUFFER = 30
 BUS_ID_BUFFER = 32
+
+# nvmlGpuP2PCapsIndex_t's NVLink index and the nvmlGpuP2PStatus_t values,
+# as the nvml.h of CUDA 12.8 defines them.
+P2P_CAPS_INDEX_NVLINK = 2
+P2P_STATUS = {0: "OK", 1: "CHIPSET_NOT_SUPPORTED", 2: "GPU_NOT_SUPPORTED",
+              3: "IOH_TOPOLOGY_NOT_SUPPORTED", 4: "DISABLED_BY_REGKEY",
+              5: "NOT_SUPPORTED", 6: "UNKNOWN"}
+P2P_STATUS_OK = 0
 
 # nvmlEventTypeXidCriticalError, the one event the reference registers.
 EVENT_XID_CRITICAL = 0x8
@@ -106,6 +117,8 @@ SIGNATURES = {
     "nvmlDeviceGetPciInfo_v3": (_h, ctypes.POINTER(PciInfo)),
     "nvmlDeviceGetMemoryInfo": (_h, ctypes.POINTER(Memory)),
     "nvmlDeviceGetMemoryInfo_v2": (_h, ctypes.POINTER(MemoryV2)),
+    "nvmlDeviceGetP2PStatus": (_h, _h, ctypes.c_int,
+                               ctypes.POINTER(ctypes.c_int)),
     "nvmlDeviceGetSupportedEventTypes": (_h,
                                          ctypes.POINTER(ctypes.c_ulonglong)),
     "nvmlEventSetCreate": (ctypes.POINTER(_h),),
@@ -201,6 +214,15 @@ class Nvml:
         m = MemoryV2(version=MEMORY_V2_VERSION)
         self._call("nvmlDeviceGetMemoryInfo_v2", handle, ctypes.byref(m))
         return m.total, m.reserved, m.free, m.used
+
+    def p2p_status(self, a, b, index: int = P2P_CAPS_INDEX_NVLINK) -> int:
+        """``nvmlDeviceGetP2PStatus`` of two cards' handles for one
+        capability (NVLink by default): an ``nvmlGpuP2PStatus_t`` value,
+        ``P2P_STATUS_OK`` where the pair has it."""
+        status = ctypes.c_int(-1)
+        self._call("nvmlDeviceGetP2PStatus", a, b, index,
+                   ctypes.byref(status))
+        return status.value
 
 
 class XidEvents:

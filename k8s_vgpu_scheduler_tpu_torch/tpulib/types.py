@@ -21,7 +21,8 @@ class TopologyDesc:
 
     ``mesh`` is the per-host device grid: for GPUs in one NVLink/NVSwitch
     domain, one axis of the domain's GPUs, e.g. (8,) on an HGX H100 board.
-    ``wraparound`` marks axes with wrap links.
+    On a node without a fabric ``NvmlBackend`` sends one axis of its cards
+    and no card coordinates.  ``wraparound`` marks axes with wrap links.
     """
 
     generation: str  # e.g. "h100"

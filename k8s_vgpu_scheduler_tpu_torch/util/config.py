@@ -35,6 +35,11 @@ class Config:
     default_mem: int = 0
     default_cores: int = 0
 
+    # The topology policy of a multi-card request whose pod names none
+    # (``vtpu.dev/topology-policy``), and the node agent's policy for
+    # kubelet's preferred allocation.
+    topology_policy: str = "best-effort"
+
     # Node choice among fitting nodes: "spread" (most free capacity wins,
     # the reference's rule) or "binpack" (the fullest fitting node wins).
     node_scheduler_policy: str = "spread"

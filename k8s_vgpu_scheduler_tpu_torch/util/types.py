@@ -49,9 +49,12 @@ GANG_TOTAL_ANNOTATION = "vtpu.dev/pod-group-total"
 GANG_RANK_ANNOTATION = "vtpu.dev/pod-group-rank"
 GANG_COORDINATOR_ANNOTATION = "vtpu.dev/pod-group-coordinator"
 
-# A pod's declared device mesh (the JAX package's placement/mesh.py key),
-# placed by the topology slice.
+# A pod's declared device mesh (placement/mesh.py), and the bounds of an
+# elastic mesh range (the JAX package's elastic/ranges.py keys; the port
+# places no elastic mesh yet).
 MESH_ANNOTATION = "vtpu.dev/mesh"
+MESH_MIN_ANNOTATION = "vtpu.dev/mesh-min"
+MESH_MAX_ANNOTATION = "vtpu.dev/mesh-max"
 
 # Node annotation used as a cluster-wide mutex for the bind/allocate two-phase
 # commit (reference: 4pd.io/mutex.lock, types.go:57; nodelock.go:144–230).
@@ -63,6 +66,15 @@ NODE_LOCK_EXPIRE_SECONDS = 300.0
 BIND_ALLOCATING = "allocating"
 BIND_FAILED = "failed"
 BIND_SUCCESS = "success"
+
+# Topology placement policies for multi-card requests: whether a request
+# may be met by cards that do not form a contiguous slice of the node's
+# fabric (reference: the MLULink ring policies best-effort/restricted/
+# guaranteed, types.go:44–46).
+BEST_EFFORT = "best-effort"
+RESTRICTED = "restricted"
+GUARANTEED = "guaranteed"
+TOPOLOGY_POLICIES = (BEST_EFFORT, RESTRICTED, GUARANTEED)
 
 # The device type the node agent allocates (reference NvidiaGPUDevice,
 # types.go:48–53); a card's type is "NVIDIA-<generation>" (tpulib).

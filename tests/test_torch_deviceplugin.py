@@ -33,6 +33,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 from concurrent import futures
 from pathlib import Path
@@ -58,6 +59,7 @@ from k8s_vgpu_scheduler_tpu_torch.api import deviceplugin_pb2 as tpb
 from k8s_vgpu_scheduler_tpu_torch.api.kubelet import (
     API_VERSION, DevicePluginStub, add_registration_service)
 from k8s_vgpu_scheduler_tpu_torch.cmd import device_plugin as tcmd
+from k8s_vgpu_scheduler_tpu_torch.deviceplugin import allocator as tallocator
 from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
     DeviceCache, DeviceRegister, GpuDevicePlugin, advertised_devices,
     inventory_to_request)
@@ -315,10 +317,16 @@ def test_api_devices_equal_the_jax_plugin(sides, mode):
 
 
 def test_options_offer_no_preferred_allocation(sides):
-    _, t = sides()
+    """The options as the JAX plugin gives them: no PreStartContainer, and
+    (since the port's slice allocator) a preferred allocation."""
+    j, t = sides()
     opts = t.plugin.GetDevicePluginOptions(tpb.Empty(), None)
+    want = j.plugin.GetDevicePluginOptions(jpb.Empty(), None)
     assert not opts.pre_start_required
-    assert not opts.get_preferred_allocation_available
+    assert opts.get_preferred_allocation_available
+    assert (opts.pre_start_required, opts.get_preferred_allocation_available
+            ) == (want.pre_start_required,
+                  want.get_preferred_allocation_available)
 
 
 @pytest.fixture
@@ -391,7 +399,7 @@ def test_register_with_a_fake_kubelet(served, tmp_path):
     r = received[0]
     assert (r.version, r.resource_name, r.endpoint) == (
         API_VERSION, "nvidia.com/gpu", "t.sock")
-    assert not r.options.get_preferred_allocation_available
+    assert r.options.get_preferred_allocation_available
 
 
 def test_serving_liveness(served):
@@ -555,6 +563,61 @@ def test_entry_point_serves_the_mock_and_registers(tmp_path, monkeypatch):
                "--config-file", str(tmp_path / "none.json")])
     assert seen["devices"] == 40
     assert not os.path.exists(tmp_path / "vgpu.sock")  # stopped
+
+
+@pytest.mark.parametrize("policy,want", [
+    ("guaranteed", "3"), ("restricted", "3"), ("best-effort", None)])
+def test_entry_point_publishes_unsatisfiable_sizes(tmp_path, monkeypatch,
+                                                   policy, want):
+    """vgpu-device-plugin --topology-policy: the node carries the card
+    counts no free slice holds, from the start (none on a healthy line of
+    four) and after a health change (card 1 lost: no arc of 3); kubelet's
+    preferred allocation follows the policy."""
+    fx = {"generation": "h100", "mesh": [4], "hbm_mib": 81079,
+          "chips": [{"coords": [i]} for i in range(4)]}
+    fix = tmp_path / "line.json"
+    fix.write_text(json.dumps(fx))
+    monkeypatch.setenv("VTPU_MOCK_JSON", str(fix))
+    kube = TKube()
+    kube.add_node({"metadata": {"name": NODE, "annotations": {}}})
+    monkeypatch.setattr(tcmd, "make_client", lambda **_: kube)
+    seen = {}
+
+    def annotation():
+        return (kube.get_node(NODE)["metadata"].get("annotations") or {}
+                ).get(tallocator.UNSATISFIABLE_ANNOTATION)
+
+    def stop(_):
+        seen["start"] = annotation()
+        fx["chips"][1]["healthy"] = False
+        fix.write_text(json.dumps(fx))
+        waited = threading.Event()
+        for _ in range(200):
+            if annotation() is not None or waited.wait(0.02):
+                break
+        seen["lost"] = annotation()
+        sock = str(tmp_path / "vgpu.sock")
+        with grpc.insecure_channel(f"unix://{sock}") as ch:
+            resp = DevicePluginStub(ch).GetPreferredAllocation(
+                tpb.PreferredAllocationRequest(container_requests=[
+                    tpb.ContainerPreferredAllocationRequest(
+                        available_deviceIDs=[f"GPU-h100-mock-{i}-0"
+                                             for i in (0, 2, 3)],
+                        allocation_size=3)]), timeout=10)
+        seen["preferred"] = list(resp.container_responses[0].deviceIDs)
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(tcmd.time, "sleep", stop)
+    tcmd.main(["--fake-kube", "--node-name", NODE, "--socket-dir",
+               str(tmp_path), "--shim-dir", str(tmp_path / "shim"),
+               "--cache-dir", str(tmp_path / "cache"),
+               "--scheduler-endpoint", "127.0.0.1:1",
+               "--health-poll-seconds", "0.02",
+               "--topology-policy", policy,
+               "--config-file", str(tmp_path / "none.json")])
+    assert seen["start"] is None and seen["lost"] == want
+    assert seen["preferred"] == ([] if want else [
+        f"GPU-h100-mock-{i}-0" for i in (0, 2, 3)])
 
 
 # -- the shim's startup hook ---------------------------------------------------

@@ -6,8 +6,9 @@ Three levels, each compared by equality:
 - the lease tracker and the quarantine alone, on one clock: every read
   and every transition a script of writes produces;
 - both schedulers on the same fleet (tests/test_torch_scheduler.py's
-  ``Side``: the JAX side's serial path, the port's resource names, no
-  ``TopologyDesc``), through tests/test_health.py's and tests/test_chaos.py's
+  ``Side``: the JAX side's serial path, the port's resource names, each
+  node's ``TopologyDesc`` as registered; the slice-neighbour case also on
+  a grid and a ring), through tests/test_health.py's and tests/test_chaos.py's
   scenarios: each ``Rescuer.sweep()``'s actions, field by field, the
   rescue queue, the registry, the pods' annotations, the quarantine and
   the leases;
@@ -32,7 +33,8 @@ import pytest
 from k8s_vgpu_scheduler_tpu import health as jhealth
 from k8s_vgpu_scheduler_tpu_torch import health as thealth
 from tests.test_torch_preempt import PreemptSide
-from tests.test_torch_scheduler import Clock, as_port, fixture, limits, pod
+from tests.test_torch_scheduler import (Clock, as_port, fabric, fixture,
+                                        limits, pod)
 
 
 # -- the lease tracker alone ---------------------------------------------------
@@ -328,6 +330,23 @@ SCENARIOS = {
         ("create", pod("g1", limits(nums=2, mem=2000))), (F, "g1"),
         ("quarantine", "node-0", 0), ("sweep",), ("qactive",), ("pods",),
         ("usage",)]),
+    "slice_neighbours_on_a_grid_are_quarantined": (
+        {"node-0": fabric("node-0", [2, 2])}, {}, [
+            ("create", pod("g1", limits(nums=2, mem=2000),
+                           anns={"vtpu.dev/topology-policy": "guaranteed"})),
+            (F, "g1"), ("quarantine", "node-0", 1), ("sweep",),
+            ("qactive",), ("pods",), ("usage",),
+            ("create", pod("g2", limits(nums=2, mem=2000),
+                           anns={"vtpu.dev/topology-policy": "guaranteed"})),
+            (F, "g2")]),
+    "slice_neighbours_on_a_ring_are_quarantined": (
+        {"node-0": fabric("node-0", [8], wrap=[True]),
+         "node-1": fabric("node-1", [8], wrap=[True])}, {}, [
+            ("create", pod("g1", limits(nums=3, mem=2000, cores=100))),
+            ("create", pod("g2", limits(nums=3, mem=2000, cores=100))),
+            (F, "g1", ["node-0"]), (F, "g2", ["node-0"]),
+            ("quarantine", "node-0", 4), ("sweep",), ("qactive",),
+            ("pods",), (F, "g2"), ("usage",)]),
     "resync_routes_dead_node_grants_to_the_rescuer": (nodes(2, 4), {}, [
         ("create", P), (F, "p1"), ("rm_node", "node-0"),
         ("tick", 60.0, "node-0"), ("resync",), ("pods",), ("pending",),

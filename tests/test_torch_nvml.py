@@ -6,7 +6,10 @@ port's own.
 The mock reads the MockBackend fixture its ``$MOCK_NVML_JSON`` names, so
 ``NvmlBackend`` over it must give the inventory ``MockBackend`` gives for
 the same file (the board is NVML's name of the card), and what the JAX
-backend gives but for the device kind.  This runs the binding's real
+backend gives but for the device kind.  The fabric (coordinates, mesh,
+wraparound) comes from the mock's NVLink P2P answers (its ``"fabric"``
+key), so it is compared where the fixture states one, or has one card;
+elsewhere the node has none.  This runs the binding's real
 ``ctypes`` signatures and structs: a lost card answers
 ``NVML_ERROR_GPU_IS_LOST`` and ``ListAndWatch`` then pushes ``Unhealthy``;
 a critical Xid marks its card; calls the driver refuses as not supported
@@ -39,7 +42,16 @@ FIXTURES = {
                   {"coords": [2], "type": "NVIDIA-h100"}]},
     "a100_pair": {"generation": "a100", "mesh": [2], "hbm_mib": 40326},
     "one_card": {"generation": "h100", "mesh": [1]},
+    "hgx_nvswitch": {"generation": "h100", "mesh": [8], "wraparound": [True],
+                     "hbm_mib": 81079, "fabric": "nvswitch"},
+    "bridged_pair": {"generation": "h100", "mesh": [2],
+                     "wraparound": [False], "hbm_mib": 81079,
+                     "fabric": "pairs"},
 }
+
+
+def states_fabric(fx) -> bool:
+    return "fabric" in fx or fx["mesh"] == [1]
 
 
 @pytest.fixture(scope="module")
@@ -60,9 +72,20 @@ def fixture_file(tmp_path, monkeypatch):
     return write
 
 
-def without_board(inv):
-    return ([{k: v for k, v in dataclasses.asdict(c).items() if k != "board"}
-             for c in inv.chips], dataclasses.asdict(inv.topology))
+def without_board(inv, fabric=True):
+    """The inventory but the boards; without the fabric (coordinates, mesh
+    and wraparound) where ``fabric`` is false."""
+    drop = {"board"} if fabric else {"board", "coords"}
+    topo = dataclasses.asdict(inv.topology)
+    if not fabric:
+        topo = {"generation": topo["generation"]}
+    return ([{k: v for k, v in dataclasses.asdict(c).items() if k not in drop}
+             for c in inv.chips], topo)
+
+
+def no_fabric(inv) -> bool:
+    return inv.topology.mesh == (len(inv.chips),) \
+        and all(c.coords == () for c in inv.chips)
 
 
 @pytest.mark.parametrize("name", list(FIXTURES))
@@ -74,7 +97,9 @@ def test_nvml_over_the_mock_equals_mock_backend(library, fixture_file, name):
     finally:
         b.close()
     want = backend.MockBackend(path=str(path)).inventory()
-    assert without_board(got) == without_board(want)
+    fabric = states_fabric(FIXTURES[name])
+    assert without_board(got, fabric) == without_board(want, fabric)
+    assert fabric or no_fabric(got)
     assert {c.board for c in got.chips} == {
         "NVIDIA " + c.type.split("-", 1)[1] for c in want.chips}
 
@@ -94,14 +119,21 @@ def test_nvml_over_the_mock_equals_the_jax_backend(library, fixture_file,
         b.close()
     j = jtpulib.MockBackend(path=str(path)).inventory()
     gen = j.topology.generation
+    fabric = states_fabric(FIXTURES[name])
     want = []
     for c in j.chips:
         d = {k: v for k, v in dataclasses.asdict(c).items() if k != "board"}
         d["type"] = d["type"].replace("TPU-", "NVIDIA-")
         if d["uuid"] == f"TPU-{gen}-mock-{c.index}":
             d["uuid"] = f"GPU-{gen}-mock-{c.index}"
+        if not fabric:
+            del d["coords"]
         want.append(d)
-    assert without_board(got) == (want, dataclasses.asdict(j.topology))
+    topo = dataclasses.asdict(j.topology)
+    if not fabric:
+        topo = {"generation": topo["generation"]}
+    assert without_board(got, fabric) == (want, topo)
+    assert fabric or no_fabric(got)
 
 
 def test_cards_read_every_field(library, fixture_file):
@@ -292,3 +324,176 @@ def test_detect_returns_nvml_without_the_mock_backend(library, fixture_file,
         assert len(b.inventory().chips) == 8
     finally:
         b.close()
+
+
+def test_p2p_values_are_nvml_h_s():
+    """``NVML_P2P_CAPS_INDEX_NVLINK`` and ``nvmlGpuP2PStatus_t`` as the
+    nvml.h of the card machine's CUDA 12.8 toolkit defines them."""
+    assert nvml.P2P_CAPS_INDEX_NVLINK == 2
+    assert nvml.P2P_STATUS_OK == 0
+    assert nvml.P2P_STATUS == {
+        0: "OK", 1: "CHIPSET_NOT_SUPPORTED", 2: "GPU_NOT_SUPPORTED",
+        3: "IOH_TOPOLOGY_NOT_SUPPORTED", 4: "DISABLED_BY_REGKEY",
+        5: "NOT_SUPPORTED", 6: "UNKNOWN"}
+    assert nvml.SIGNATURES["nvmlDeviceGetP2PStatus"][2] is ctypes.c_int
+
+
+# fabric key, cards -> the wraparound and whether the cards have coords
+# (the mesh is always one axis of the cards).
+FABRICS = {
+    "nvswitch_8": ("nvswitch", 8, (True,), True),
+    "nvswitch_4": ("nvswitch", 4, (True,), True),
+    "nvswitch_2": ("nvswitch", 2, (False,), True),
+    "bridged_pair": ("pairs", 2, (False,), True),
+    "pairs_4": ("pairs", 4, (), False),
+    "pairs_8": ("pairs", 8, (), False),
+    "pcie_4": ("pcie", 4, (), False),
+    "pcie_2": ("pcie", 2, (), False),
+    "absent_4": (None, 4, (), False),
+    "one_card_nvswitch": ("nvswitch", 1, (), True),
+    "one_card_pcie": ("pcie", 1, (), True),
+    "one_card_absent": (None, 1, (), True),
+}
+
+
+@pytest.mark.parametrize("name", list(FABRICS))
+def test_the_fabric_is_what_the_p2p_matrix_shows(library, fixture_file,
+                                                 name):
+    """A ring only where every pair reports NVLink OK; one card is (1,);
+    anything else is no fabric: one axis of the cards and no card
+    coordinates, which the scheduler registers as they are."""
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import inventory_to_request
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.core import \
+        decode_register_request
+
+    key, n, wrap, coords = FABRICS[name]
+    fx = {"generation": "h100", "mesh": [n], "hbm_mib": 81079}
+    if key:
+        fx["fabric"] = key
+    fixture_file(fx)
+    b = backend.NvmlBackend(library)
+    try:
+        inv = b.inventory()
+        fabric = b.last_fabric
+    finally:
+        b.close()
+    assert (inv.topology.mesh, inv.topology.wraparound) == ((n,), wrap)
+    assert [c.coords for c in inv.chips] == \
+        [(i,) if coords else () for i in range(n)]
+    assert inv.topology.generation == "h100"
+    assert fabric["kind"] == ("single" if n == 1 else
+                              "nvlink" if coords else "none")
+    assert fabric["not_supported"] == (
+        ["nvmlDeviceGetP2PStatus"] if key is None and n > 1 else [])
+    if key is not None and n > 1:
+        assert [link[:2] for link in fabric["links"]] == \
+            [[i, j] for i in range(n) for j in range(i + 1, n)]
+    info = decode_register_request(inventory_to_request("n", inv, Config()))
+    assert (info.topology.mesh, info.topology.wrap()) == \
+        ((n,), inv.topology.wrap())
+    assert [d.coords for d in info.devices] == [c.coords for c in inv.chips]
+
+
+def test_p2p_status_answers_per_pair_and_index(library, fixture_file):
+    fixture_file({"generation": "h100", "mesh": [4], "fabric": "pairs"})
+    n = nvml.Nvml(library)
+    try:
+        h = [n.handle(i) for i in range(4)]
+        got = [[n.p2p_status(h[i], h[j]) for j in range(4)]
+               for i in range(4)]
+        with pytest.raises(nvml.NvmlError) as ei:
+            n.p2p_status(h[0], h[1], nvml.P2P_CAPS_INDEX_NVLINK + 1)
+    finally:
+        n.shutdown()
+    assert got == [[0, 0, 5, 5], [0, 0, 5, 5], [5, 5, 0, 0], [5, 5, 0, 0]]
+    assert ei.value.code == nvml.ERROR_NOT_SUPPORTED
+
+
+def test_a_refused_p2p_query_is_recorded_not_raised(library, fixture_file,
+                                                    monkeypatch):
+    fixture_file(FIXTURES["hgx_nvswitch"])
+    monkeypatch.setenv("MOCK_NVML_NOT_SUPPORTED", "nvmlDeviceGetP2PStatus")
+    b = backend.NvmlBackend(library)
+    try:
+        inv = b.inventory()
+    finally:
+        b.close()
+    assert b.last_fabric == dict(links=[], kind="none",
+                                 not_supported=["nvmlDeviceGetP2PStatus"])
+    assert no_fabric(inv)
+
+
+def test_a_failed_p2p_query_raises(library, fixture_file):
+    """A lost card's P2P query is no refusal: the inventory raises."""
+    fx = json.loads(json.dumps(FIXTURES["hgx_nvswitch"]))
+    path = fixture_file(fx)
+    b = backend.NvmlBackend(library)
+    try:
+        b.inventory()
+        h = [b.nvml.handle(i) for i in range(2)]
+        fx["chips"] = [{"coords": [i], "healthy": i != 1} for i in range(8)]
+        path.write_text(json.dumps(fx))
+        b.nvml.handle(0)  # the mock reads its fixture again
+        with pytest.raises(nvml.NvmlError) as ei:
+            b.nvml.p2p_status(h[0], h[1])
+    finally:
+        b.close()
+    assert ei.value.code == nvml.ERROR_GPU_IS_LOST
+
+
+@pytest.mark.parametrize("policy,reason", [
+    ("guaranteed", "topology-unverifiable: guaranteed policy but chip "
+                   "coords missing"),
+    ("mesh", "topology-unverifiable: mesh declared but chip coords "
+             "missing"),
+    ("restricted", None), ("best-effort", None),
+])
+@pytest.mark.parametrize("key", ["pcie", "pairs", None],
+                         ids=["pcie", "pairs", "absent"])
+def test_a_node_without_a_fabric_is_held_to_it_end_to_end(
+        library, fixture_file, key, policy, reason):
+    """NVML over the mock, four cards without an all-pairs NVLink matrix,
+    through the register stream into the port's scheduler: a 2-card pod
+    that is guaranteed or declares a mesh is refused, any other gets two
+    of the cards.  The plugin's allocator leaves kubelet to choose."""
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
+        SliceAllocator, inventory_to_request)
+    from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.core import \
+        decode_register_request
+    from k8s_vgpu_scheduler_tpu_torch.util import types as t
+
+    fx = {"generation": "h100", "mesh": [4], "hbm_mib": 81079}
+    if key:
+        fx["fabric"] = key
+    fixture_file(fx)
+    b = backend.NvmlBackend(library)
+    try:
+        inv = b.inventory()
+    finally:
+        b.close()
+    kube = FakeKube()
+    s = Scheduler(kube, Config())
+    s.observe_registration("n", decode_register_request(
+        inventory_to_request("n", inv, Config())))
+    anns = ({t.MESH_ANNOTATION: "2"} if policy == "mesh"
+            else {"vtpu.dev/topology-policy": policy})
+    p = {"metadata": {"name": "p", "namespace": "default", "uid": "uid-p",
+                      "annotations": anns},
+         "spec": {"containers": [{"name": "c", "resources": {"limits": {
+             "nvidia.com/gpu": "2", "nvidia.com/gpumem": "1000",
+             "nvidia.com/gpucores": "100"}}}]}}
+    kube.create_pod(p)
+    r = s.filter(p, ["n"])
+    if reason is None:
+        assert r.node == "n" and r.failed == {}
+        ids = kube.get_pod("default", "p")["metadata"]["annotations"][
+            t.ASSIGNED_IDS_ANNOTATION]
+        assert len({c.uuid for c in inv.chips if c.uuid in ids}) == 2
+    else:
+        assert r.node is None and r.failed == {"n": reason}
+    assert s.known_topologies() == []
+    vids = [f"{c.uuid}-{k}" for c in inv.chips for k in range(2)]
+    for allocator_policy in ("best-effort", "restricted", "guaranteed"):
+        assert SliceAllocator(inv, allocator_policy).preferred(
+            vids, [], 2) == []

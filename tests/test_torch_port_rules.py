@@ -16,9 +16,12 @@
   ``cmd/monitor.py``) and the node agent (``deviceplugin/``, ``k8s/``,
   ``util/``, ``api/``, ``tpulib/nvml.py``, ``cmd/device_plugin.py``) and
   the scheduler extender (``scheduler/``, ``health/``,
-  ``util/resources.py``, ``cmd/scheduler.py``) import none at all; the
-  node agent's Allocate core and the scheduler's core import neither grpc
-  nor protobuf, and the agent raises without NVML and without the mock;
+  ``util/resources.py``, ``cmd/scheduler.py``) and the slice engine
+  (``topology/``, ``placement/``, ``deviceplugin/allocator.py``) import
+  none at all; the node agent's Allocate core, the slice engine and the
+  scheduler's core import neither grpc nor protobuf, and the agent raises
+  without NVML and without the mock; ``placement/`` imports nothing but
+  its mesh module;
   nothing in the port reads
   ``lib/tpu/``, and ``csrc/vgpu/``
   builds with g++ into the port's build directory: the enforcement
@@ -107,7 +110,9 @@ def test_new_modules_are_under_the_import_rules():
                 "health/lease.py", "cmd/scheduler.py",
                 "health/quarantine.py", "health/faults.py",
                 "health/rescuer.py", "scheduler/preempt.py",
-                "shim/startup.py"):
+                "shim/startup.py", "topology/__init__.py",
+                "topology/torus.py", "placement/__init__.py",
+                "placement/mesh.py", "deviceplugin/allocator.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -416,7 +421,8 @@ PORT_FILES = sorted(p for p in PORT.rglob("*")
 # advertises, so no torch anywhere in it; nor in the scheduler extender,
 # a control plane that holds no tensor.
 NODE_AGENT = sorted(p for d in ("deviceplugin", "k8s", "util", "api",
-                                "scheduler", "health")
+                                "scheduler", "health", "topology",
+                                "placement")
                     for p in (PORT / d).glob("*.py")) + [
     PORT / "tpulib" / "nvml.py", PORT / "cmd" / "device_plugin.py",
     PORT / "cmd" / "scheduler.py"]
@@ -496,7 +502,8 @@ def test_scheduler_core_runs_without_grpc_protobuf_or_torch():
         "inv = MockBackend(H100_FIXTURE).inventory()\n"
         "msg = types.SimpleNamespace(node='n', devices=[\n"
         "    types.SimpleNamespace(**d) for d in advertised_devices(\n"
-        "        inv, Config())])\n"
+        "        inv, Config())], topology=types.SimpleNamespace(\n"
+        "    generation='h100', mesh=[8], wraparound=[True]))\n"
         "s.observe_registration('n', decode_register_request(msg))\n"
         "srv = ExtenderServer(s, Config(), host='127.0.0.1', port=0)\n"
         "srv.start()\n"
@@ -524,6 +531,49 @@ def test_scheduler_core_runs_without_grpc_protobuf_or_torch():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_slice_engine_runs_without_grpc_protobuf_or_torch():
+    """The slice engine, mesh placement and the kubelet-path allocator,
+    with grpc, protobuf and torch blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('grpc', 'google.protobuf', 'torch', 'numpy'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "from k8s_vgpu_scheduler_tpu_torch.deviceplugin.allocator import (\n"
+        "    SliceAllocator, unsatisfiable_sizes)\n"
+        "from k8s_vgpu_scheduler_tpu_torch.placement import "
+        "find_mesh_slice\n"
+        "from k8s_vgpu_scheduler_tpu_torch.topology import find_slice\n"
+        "from k8s_vgpu_scheduler_tpu_torch.tpulib import MockBackend\n"
+        "inv = MockBackend({'mesh': [8], 'wraparound': [True]}).inventory()\n"
+        "t = inv.topology\n"
+        "assert find_slice(t, [(i,) for i in (6, 7, 0, 3)], 3, "
+        "'guaranteed') == [(6,), (7,), (0,)]\n"
+        "assert find_mesh_slice(t, [(i,) for i in range(8)], (2,)) == "
+        "[(0,), (1,)]\n"
+        "ids = [f'{c.uuid}-0' for c in inv.chips]\n"
+        "assert len(SliceAllocator(inv, 'guaranteed').preferred(ids, [], "
+        "4)) == 4\n"
+        "assert unsatisfiable_sizes(inv) == []\n"
+        "loaded = {m for m, v in sys.modules.items() if v is not None}\n"
+        "assert not {m for m in loaded if m.split('.')[0] in\n"
+        "            ('grpc', 'torch') or m.startswith('google.protobuf')}\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_placement_imports_nothing_but_its_mesh_module():
+    """The JAX package's placement/__init__ imports its defragmenter,
+    reservations and fragmentation views; the port's waits for them
+    (ROADMAP A.5) and imports its mesh module alone."""
+    tree = ast.parse((PORT / "placement" / "__init__.py").read_text())
+    rel = {(n.level, n.module) for n in ast.walk(tree)
+           if isinstance(n, ast.ImportFrom)}
+    assert rel == {(1, "mesh")}
+    assert not {"reserve", "defrag", "frag"} & set(_imported_roots(
+        PORT / "placement" / "mesh.py"))
 
 
 def test_device_plugin_raises_without_nvml_or_the_mock(tmp_path):

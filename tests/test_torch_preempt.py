@@ -4,8 +4,11 @@ in ``scheduler/core.py``) against the JAX package's, on the CPU.
 Both schedulers run the JAX package's serial path on the same fleet and
 the same pod scripts, as tests/test_torch_scheduler.py runs them (its
 ``Side``: the port's resource names, ``optimistic_commit=False`` on the
-JAX side, no ``TopologyDesc``), with ``enable_preemption=True``.  The
-scenarios are tests/test_preempt.py's, on H100 nodes: each Filter's node,
+JAX side, each node's ``TopologyDesc`` as its agent registers it), with
+``enable_preemption=True``.  The scenarios are tests/test_preempt.py's, on
+H100 nodes whose fabric is a line of cards and again on the (cards, 1)
+mesh of tests/test_preempt.py, plus plans whose requester needs a
+contiguous slice under each topology policy: each Filter's node,
 reasons, error and eviction plan (node, victims in order), the pods'
 annotations after each step (the ``vtpu.dev/preempt-requested`` value
 included), the requester -> victims ledger and the victims asked, the
@@ -13,8 +16,8 @@ count of requests written, and the cards' usage.  Every comparison is
 equality.
 
 Left out, and why: tests/test_preempt.py's gang case (the port refuses a
-pod group by name until the gang slice, ROADMAP A.5), its planner case on
-a ``TopologyDesc`` node (A.3c), and its trajectory and watch cases (the
+pod group by name until the gang slice, ROADMAP A.5), and its trajectory
+and watch cases (the
 port's run_preemptible and watch are held in tests/test_torch_checkpoint.py;
 the watch's reading of a rescue value is held below).
 """
@@ -42,7 +45,7 @@ from k8s_vgpu_scheduler_tpu_torch.util import types as ttypes
 from k8s_vgpu_scheduler_tpu_torch.util.resources import \
     container_requests as trequests
 from tests.test_torch_scheduler import (
-    Side, as_port, decision, fixture, limits, pod)
+    Side, as_port, decision, fabric, fixture, limits, pod)
 
 PREEMPT = {"enable_preemption": True}
 ONE = {"node-a": fixture("node-a", ["h100"])}
@@ -200,6 +203,90 @@ def test_the_port_preempts_as_the_jax_scheduler(name):
     want = as_port(run(fleet, cfg, script, port=False))
     got = run(fleet, cfg, script, port=True)
     assert got == want
+
+
+def column(fleet):
+    """The fleet's nodes as tests/test_preempt.py builds them: the cards on
+    a (cards, 1) mesh."""
+    out = {}
+    for name, fx in fleet.items():
+        col = fabric(name, [len(fx["chips"]), 1])
+        for mine, theirs in zip(col["chips"], fx["chips"]):
+            mine["uuid"] = theirs["uuid"]
+        out[name] = col
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(SCENARIOS))
+def test_the_port_preempts_on_a_column_mesh_as_the_jax_scheduler(name):
+    fleet, cfg, script = SCENARIOS[name]
+    want = as_port(run(column(fleet), cfg, script, port=False))
+    got = run(column(fleet), cfg, script, port=True)
+    assert got == want
+
+
+def whole(name, nums, prio, anns=None):
+    return ("create", pod(name, limits(nums=nums, mem=1000, cores=100,
+                                       prio=prio), anns=anns))
+
+
+LINE4 = {"node-a": fabric("node-a", [4, 1])}
+RING8 = {"node-a": fabric("node-a", [8], wrap=[True]),
+         "node-b": fabric("node-b", [8], wrap=[True])}
+GUAR = {"vtpu.dev/topology-policy": "guaranteed"}
+# Four exclusive one-card pods fill the line (cards 0-3 in order), the
+# second one not preemptible; a two-card requester then needs victims
+# that free two neighbours.
+FILL = [whole("v3", 1, 3), whole("keep", 1, 0), whole("v2", 1, 2),
+        whole("v1", 1, 1), (F, "v3"), (F, "keep"), (F, "v2"), (F, "v1")]
+TOPO_SCENARIOS = {
+    "a_slice_needs_neighbouring_victims": (LINE4, PREEMPT, [
+        *FILL, whole("hp", 2, 0, GUAR), (F, "hp"),
+        *[("anns", v) for v in ("v1", "v2", "v3")], ("ledger",)]),
+    "best_effort_takes_any_two_victims": (LINE4, PREEMPT, [
+        *FILL, whole("hp", 2, 0), (F, "hp"),
+        *[("anns", v) for v in ("v1", "v2", "v3")], ("ledger",)]),
+    "the_configured_policy_plans": (
+        LINE4, {**PREEMPT, "topology_policy": "guaranteed"}, [
+            *FILL, whole("hp", 2, 0), (F, "hp"), ("ledger",)]),
+    "no_victims_make_a_slice": (LINE4, PREEMPT, [
+        *FILL, whole("hp", 3, 0, GUAR), (F, "hp"), ("ledger",)]),
+    "fewest_victims_across_rings": (RING8, PREEMPT, [
+        *[whole(f"a{i}", 2, 1 + i % 2) for i in range(4)],
+        *[whole(f"b{i}", 1, 1) for i in range(8)],
+        *[(F, f"a{i}", ["node-a"]) for i in range(4)],
+        *[(F, f"b{i}", ["node-b"]) for i in range(8)],
+        whole("hp", 4, 0, GUAR), (F, "hp"), ("ledger",),
+        ("delete", "a1"), ("delete", "a3"), (F, "hp"), ("ledger",),
+        ("usage",)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOPO_SCENARIOS))
+def test_the_port_plans_slices_as_the_jax_scheduler(name):
+    fleet, cfg, script = TOPO_SCENARIOS[name]
+    want = as_port(run(fleet, cfg, script, port=False))
+    got = run(fleet, cfg, script, port=True)
+    assert got == want
+
+
+def test_the_slice_plans_differ_by_policy():
+    """Under guaranteed the planner evicts up to a free pair of
+    neighbours; under best-effort any two victims do."""
+    plans = {}
+    for name in ("a_slice_needs_neighbouring_victims",
+                 "best_effort_takes_any_two_victims",
+                 "no_victims_make_a_slice"):
+        fleet, cfg, script = TOPO_SCENARIOS[name]
+        [rec] = [r[2] for r in run(fleet, cfg, script, port=True)
+                 if r[:2] == [F, "hp"]]
+        plans[name] = rec["preempt"]
+    assert plans == {
+        "a_slice_needs_neighbouring_victims":
+            ["node-a", ["uid-v3", "uid-v2", "uid-v1"]],
+        "best_effort_takes_any_two_victims":
+            ["node-a", ["uid-v3", "uid-v2"]],
+        "no_victims_make_a_slice": None}
 
 
 def test_the_scenarios_write_and_rescind_requests():

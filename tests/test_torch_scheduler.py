@@ -16,9 +16,11 @@ What the JAX side is given, and why:
   decision.  The default optimistic path picks among nodes within 1% of
   the best score by Python's salted ``hash()``, which changes from run to
   run;
-- the register request without its ``Topology`` message: the port's
-  topology slice (ROADMAP A.3c) has not landed, and a JAX node without
-  one takes the same plain choice of cards (its ``score.py:366–370``).
+- the port's register request as it is, ``Topology`` message included:
+  both sides place a multi-card request on a node with a fabric by the
+  slice engine under the pod's topology policy, and a ``vtpu.dev/mesh``
+  pod by the mesh engine; a node without one (an empty mesh) takes the
+  plain choice of cards on both.
 
 Pods and strings are compared under the name table: the JAX side's pods
 carry the type-affinity keys under its names (``vtpu.dev/use-tputype``
@@ -34,10 +36,11 @@ ROADMAP A.5), ``vtpu.dev/preempt-requested`` (preemption is off by
 default; ROADMAP A.3b), ``vtpu.dev/queue``/``queue-state`` (capacity
 queues are off without a quota config; A.5), the shard owner (the shard
 layer is off without a replica name; A.5) and ``vtpu.dev/mesh-assigned``
-(elastic meshes are off by default; A.3c).
+(elastic meshes are off by default; A.5).
 """
 
 import copy
+import itertools
 import json
 
 import pytest
@@ -58,6 +61,7 @@ from k8s_vgpu_scheduler_tpu_torch.health import LeaseConfig, LeaseTracker
 from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube as TKube
 from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler as TScheduler
 from k8s_vgpu_scheduler_tpu_torch.scheduler import score as tscore
+from k8s_vgpu_scheduler_tpu_torch.scheduler import webhook
 from k8s_vgpu_scheduler_tpu_torch.scheduler.core import \
     decode_register_request as tdecode
 from k8s_vgpu_scheduler_tpu_torch.tpulib import MockBackend
@@ -83,6 +87,22 @@ def fixture(node: str, types) -> dict:
                        "hbm_mib": H100_MIB if kind == "h100" else A100_MIB,
                        "uuid": f"GPU-{node}-{i:02d}-5b3f-0a1c-2222"}
                       for i, kind in enumerate(types)]}
+
+
+def fabric(node: str, mesh, wrap=None, missing=()) -> dict:
+    """A node of H100s at every point of ``mesh`` (``wrap``: its
+    wraparound), the cards in ``missing`` without coordinates.  All of
+    them missing is a node without a fabric, as NvmlBackend reports a
+    node whose NVLink matrix is not all pairs."""
+    points = list(itertools.product(*(range(d) for d in mesh)))
+    fx = {"generation": "h100", "mesh": list(mesh), "hbm_mib": H100_MIB,
+          "chips": [{"coords": [] if i in missing else list(c),
+                     "type": "NVIDIA-h100", "hbm_mib": H100_MIB,
+                     "uuid": f"GPU-{node}-{i:02d}-5b3f-0a1c-2222"}
+                    for i, c in enumerate(points)]}
+    if wrap is not None:
+        fx["wraparound"] = list(wrap)
+    return fx
 
 
 FLEET = {**{f"h100-{n}": fixture(f"h100-{n}", ["h100"] * 8)
@@ -176,9 +196,7 @@ class Side:
             node, MockBackend(self.fixtures[node]).inventory(), TConfig())
         if self.port:
             return req
-        jreq = jpb.RegisterRequest.FromString(req.SerializeToString())
-        jreq.ClearField("topology")
-        return jreq
+        return jpb.RegisterRequest.FromString(req.SerializeToString())
 
     def info(self, node):
         return (tdecode if self.port else jdecode)(self.request(node))
@@ -247,6 +265,34 @@ class Side:
     def fail_next_write(self):
         self.fail_writes = 1
 
+    def topologies(self):
+        """known_topologies.  The JAX scheduler also lists the mesh of a
+        node none of whose cards has coordinates, and the port does not
+        (test_a_node_without_a_fabric_adds_no_mesh_to_the_fleet): the
+        JAX side's list leaves those out here."""
+        fabrics = {(i.topology.mesh, i.topology.wrap())
+                   for i in self.s.nodes.list_nodes().values()
+                   if i.topology and any(d.coords for d in i.devices)}
+        return sorted([list(t.mesh), list(t.wrap())]
+                      for t in self.s.known_topologies()
+                      if self.port or (t.mesh, t.wrap()) in fabrics)
+
+    def refabric(self, node, mesh, wrap=None):
+        """The node re-registers with another fabric (an empty mesh: none,
+        and no card coordinates)."""
+        fx = self.fixtures[node]
+        fx["mesh"] = list(mesh)
+        fx.pop("wraparound", None)
+        if wrap is not None:
+            fx["wraparound"] = list(wrap)
+        points = list(itertools.product(*(range(d) for d in mesh)))
+        for i, chip in enumerate(fx["chips"]):
+            chip["coords"] = list(points[i]) if mesh else []
+        self.beat(node)
+        info = self.s.nodes.get_node(node)
+        return info.topology and [list(info.topology.mesh),
+                                  list(info.topology.wrap())]
+
     def usage(self):
         got = self.s.get_nodes_usage()
         return {n: [[u.id, u.used_slots, u.used_mem, u.used_cores,
@@ -264,8 +310,8 @@ def decision(p: dict) -> dict:
     return anns
 
 
-def run(script, port: bool, cfg: dict):
-    side = Side(port, **cfg)
+def run(script, port: bool, cfg: dict, fleet=None):
+    side = Side(port, fleet=fleet, **cfg)
     out = []
     for op, *args in script:
         got = getattr(side, op)(*args)
@@ -412,6 +458,142 @@ def test_the_port_decides_as_the_jax_scheduler(name):
     assert got == want
 
 
+# A fleet with fabrics: an NVSwitch board (a ring of 8), a 4x2 grid, a
+# node of four cards without a fabric and a line of four whose third card
+# sent no coordinates.
+TOPO_FLEET = {"ring": fabric("ring", [8], wrap=[True]),
+              "grid": fabric("grid", [4, 2]),
+              "pcie": fabric("pcie", [4], missing=range(4)),
+              "partial": fabric("partial", [4], missing=(2,))}
+POLICY = "vtpu.dev/topology-policy"
+GUAR = {POLICY: "guaranteed"}
+RING, GRID, PCIE, PART = ["ring"], ["grid"], ["pcie"], ["partial"]
+
+
+def whole(name, nums, anns=None):
+    """A pod of ``nums`` whole cards (exclusive, so each card it takes is
+    busy for every later pod)."""
+    return ("create", pod(name, limits(nums=nums, mem=1000, cores=100),
+                          anns=anns))
+
+
+TOPO_SCENARIOS = {
+    "guaranteed_arcs_on_a_ring": ({}, [
+        whole("a", 4, GUAR), whole("b", 2, GUAR), whole("c", 1),
+        whole("d", 3, GUAR), whole("e", 2, GUAR),
+        (F, "a", RING), (F, "b", RING), (F, "c", RING), ("delete", "b"),
+        (F, "d", RING), (F, "e", RING), ("usage",)]),
+    "policies_on_a_fragmented_ring": ({}, [
+        whole("a", 2), whole("b", 1), whole("c", 2), whole("d", 1),
+        whole("g", 3, GUAR), whole("r", 3, {POLICY: "restricted"}),
+        whole("e", 3, {POLICY: "best-effort"}),
+        (F, "a", RING), (F, "b", RING), (F, "c", RING), (F, "d", RING),
+        ("delete", "a"), ("delete", "c"),
+        (F, "g", RING), (F, "r", RING), (F, "e", RING), ("usage",)]),
+    "slices_on_a_grid_and_across_nodes": ({}, [
+        whole("a", 4), whole("b", 2, GUAR), whole("c", 3),
+        whole("d", 3, GUAR), whole("e", 5, {POLICY: "restricted"}),
+        (F, "a"), (F, "b", GRID), (F, "c", GRID), (F, "d"), (F, "e"),
+        ("usage",)]),
+    "the_configured_default_policy": ({"topology_policy": "guaranteed"}, [
+        whole("a", 1), whole("b", 3), whole("c", 3),
+        whole("d", 3, {POLICY: "best-effort"}), whole("e", 2),
+        (F, "a", GRID), (F, "b", GRID), (F, "c", GRID), (F, "d", GRID),
+        (F, "e", PART + PCIE), ("usage",)]),
+    "meshes": ({}, [
+        whole("sq", 4, {t.MESH_ANNOTATION: "2x2"}),
+        whole("line", 4, {t.MESH_ANNOTATION: "4"}),
+        whole("wide", 8, {t.MESH_ANNOTATION: "2x4"}),
+        whole("bad", 2, {t.MESH_ANNOTATION: "2x"}),
+        whole("vol", 2, {t.MESH_ANNOTATION: "3"}),
+        whole("one", 1, {t.MESH_ANNOTATION: "1"}),
+        whole("pair", 2, {t.MESH_ANNOTATION: "2", **GUAR}),
+        (F, "sq"), (F, "line", RING), (F, "wide"), (F, "bad"),
+        (F, "vol"), (F, "one", PCIE), (F, "pair", PCIE + PART + RING),
+        ("usage",)]),
+    "coords_missing_and_no_fabric": ({}, [
+        whole("a", 2, GUAR), whole("b", 2), whole("c", 3, GUAR),
+        whole("d", 2, {t.MESH_ANNOTATION: "2"}),
+        (F, "a", PART), (F, "b", PART), (F, "c", PCIE), (F, "d", PCIE),
+        (F, "d", PART), ("usage",)]),
+    "known_topologies_and_reregistration": ({}, [
+        ("topologies",), ("refabric", "ring", [8], [False]),
+        ("topologies",), whole("a", 2, GUAR), (F, "a", RING),
+        ("refabric", "ring", []), ("topologies",),
+        whole("b", 2, GUAR), (F, "b", RING),
+        ("refabric", "pcie", [4]), ("topologies",), whole("c", 4, GUAR),
+        (F, "c", PCIE), ("disconnect", "grid"), ("topologies",),
+        ("usage",)]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(TOPO_SCENARIOS))
+def test_the_port_places_on_a_fabric_as_the_jax_scheduler(name):
+    cfg, script = TOPO_SCENARIOS[name]
+    want = as_port(run(script, port=False, cfg=cfg, fleet=TOPO_FLEET))
+    got = run(script, port=True, cfg=cfg, fleet=TOPO_FLEET)
+    assert got == want
+
+
+@pytest.mark.parametrize("anns,reason", [
+    (GUAR, "topology-unverifiable: guaranteed policy but chip coords "
+           "missing"),
+    ({t.MESH_ANNOTATION: "2"}, "topology-unverifiable: mesh declared but "
+                               "chip coords missing"),
+    ({t.MESH_ANNOTATION: "2", POLICY: "best-effort"},
+     "topology-unverifiable: mesh declared but chip coords missing"),
+    ({POLICY: "restricted"}, None), ({POLICY: "best-effort"}, None), ({}, None),
+], ids=["guaranteed", "mesh", "mesh_best_effort", "restricted",
+        "best_effort", "default"])
+def test_a_node_without_a_fabric_refuses_a_guaranteed_or_mesh_pod(anns,
+                                                                   reason):
+    """On the PCIe node a 2-card pod that is guaranteed or declares a mesh
+    is refused; any other gets two of its cards."""
+    side = Side(True, fleet=TOPO_FLEET)
+    side.create(whole("p", 2, anns)[1])
+    rec = side.filter("p", PCIE)
+    if reason is None:
+        assert rec["node"] == "pcie" and rec["failed"] == {}, rec
+        cards = rec["annotations"][t.ASSIGNED_IDS_ANNOTATION]
+        assert cards.count("GPU-pcie-") == 2, cards
+    else:
+        assert rec["node"] is None and rec["failed"] == {"pcie": reason}
+
+
+def test_a_node_without_a_fabric_adds_no_mesh_to_the_fleet():
+    """known_topologies leaves out a node none of whose cards has
+    coordinates (the JAX scheduler lists its mesh), so the webhook refuses
+    a mesh that only such a node's line of cards could hold."""
+    fleet = {"pcie": fabric("pcie", [8], missing=range(8)),
+             "ring": fabric("ring", [4], wrap=[True])}
+    port, jax = Side(True, fleet=fleet), Side(False, fleet=fleet)
+    assert port.topologies() == [[[4], [True]]]
+    assert sorted([list(t.mesh), list(t.wrap())]
+                  for t in jax.s.known_topologies()) == \
+        [[[4], [True]], [[8], [False]]]
+    p = pod("m", limits(nums=8, mem=1000, cores=100),
+            anns={t.MESH_ANNOTATION: "8"})
+    why = webhook.validate_pod_mesh(p, TConfig(),
+                                    port.s.known_topologies)
+    assert why == ("vtpu.dev/mesh: mesh '8': per-pod local mesh 8 fits no "
+                   "node topology in the fleet (meshes: 4)")
+    port.refabric("pcie", [8])
+    assert webhook.validate_pod_mesh(p, TConfig(),
+                                     port.s.known_topologies) is None
+
+
+def test_the_fabric_scenarios_reach_every_topology_token():
+    seen, placed = set(), 0
+    for cfg, script in TOPO_SCENARIOS.values():
+        for op, *_, rec in run(script, port=True, cfg=cfg, fleet=TOPO_FLEET):
+            if op == F:
+                placed += rec["node"] is not None
+                seen |= {why.split(":")[0] for why in rec["failed"].values()}
+    assert seen >= {"no-ici-slice", "no-mesh-slice", "bad-mesh",
+                    "topology-unverifiable"}, seen
+    assert placed >= 15
+
+
 def test_scenarios_reach_every_rejection_token():
     """The scripts above reach each per-card reason and every node gate."""
     seen = set()
@@ -431,19 +613,26 @@ def test_scenarios_reach_every_rejection_token():
                     "no GPU inventory registered"}, seen
 
 
-@pytest.mark.parametrize("key,value", [
-    (t.MESH_ANNOTATION, "2x4"),
-    (t.GANG_GROUP_ANNOTATION, "job-1"),
-], ids=["mesh", "pod_group"])
-def test_a_mesh_or_gang_pod_is_refused_never_placed(key, value):
+@pytest.mark.parametrize("anns", [
+    {t.GANG_GROUP_ANNOTATION: "job-1"},
+    {t.GANG_GROUP_ANNOTATION: "job-1", t.MESH_ANNOTATION: "2x4"},
+    {t.MESH_MIN_ANNOTATION: "2x2", t.MESH_MAX_ANNOTATION: "2x4",
+     t.MESH_ANNOTATION: "2x4"},
+    {t.MESH_MAX_ANNOTATION: "2x4"},
+], ids=["pod_group", "mesh+pod_group", "mesh_range", "mesh_max"])
+def test_a_mesh_or_gang_pod_is_refused_never_placed(anns):
+    """A gang (with or without a mesh) and an elastic mesh range are
+    refused by name until their slice (ROADMAP A.5); a plain mesh pod is
+    placed (test_the_port_places_on_a_fabric_as_the_jax_scheduler)."""
     side = Side(True)
     p = pod("m", limits(nums=8, mem=1000),
-            anns={key: value, t.GANG_TOTAL_ANNOTATION: "2"})
+            anns={**anns, t.GANG_TOTAL_ANNOTATION: "2"})
     side.create(p)
     rec = side.filter("m")
-    slice_ = "A.3c" if key == t.MESH_ANNOTATION else "A.5"
     assert rec["node"] is None and rec["failed"] == {}
-    assert key in rec["error"] and slice_ in rec["error"], rec["error"]
+    key = rec["error"].split(" ")[0]
+    assert key in anns and key != t.MESH_ANNOTATION, rec["error"]
+    assert "A.5" in rec["error"], rec["error"]
     assert t.ASSIGNED_NODE_ANNOTATION not in rec["annotations"]
     assert side.s.pods.list_pods() == []
 
@@ -489,7 +678,8 @@ USAGE = [("c0", "NVIDIA-h100", True, 10, 2, H100_MIB, 30000, 100, 40),
 def usages():
     j = {r[0]: jscore.DeviceUsage(r[0], r[1], r[2], (), *r[3:])
          for r in USAGE}
-    t_ = {r[0]: tscore.DeviceUsage(*r) for r in USAGE}
+    t_ = {r[0]: tscore.DeviceUsage(r[0], r[1], r[2], (), *r[3:])
+          for r in USAGE}
     return j, t_
 
 
@@ -515,7 +705,7 @@ def test_fit_and_reject_summary_match_the_jax_score(req, anns):
     from k8s_vgpu_scheduler_tpu.util.types import ContainerDeviceRequest
     want = jscore.fit_pod([ContainerDeviceRequest(**req)], ju, None, janns,
                           reasons=jwhy)
-    got = tscore.fit_pod([t.ContainerDeviceRequest(**req)], tu, tanns,
+    got = tscore.fit_pod([t.ContainerDeviceRequest(**req)], tu, None, tanns,
                          reasons=twhy)
     assert twhy == jwhy
     assert (got is None) == (want is None)

@@ -9,6 +9,10 @@ package's, and the whole handshake of the port on the CPU.
   real HTTP on 127.0.0.1 answer with the JAX ExtenderServer's JSON, each
   server over a scheduler of its own package on the same fleet
   (``tests/test_torch_scheduler.py``'s Side).
+- A ``vtpu.dev/mesh`` pod's admission, directly and over HTTP against
+  each scheduler's registered fabrics, is refused (422) or admitted as
+  the JAX webhook does it, with its message; an elastic mesh range is
+  refused by name (ROADMAP A.5).
 - The register stream runs over gRPC on a unix socket, from the port's
   DeviceRegister to the port's scheduler.
 - The whole port on the mock NVML: ``chip_smoke.py``'s node-agent child,
@@ -44,8 +48,8 @@ from k8s_vgpu_scheduler_tpu_torch.scheduler import webhook as twebhook
 from k8s_vgpu_scheduler_tpu_torch.tpulib import MockBackend
 from k8s_vgpu_scheduler_tpu_torch.util import types as t
 from k8s_vgpu_scheduler_tpu_torch.util.config import Config as TConfig
-from tests.test_torch_scheduler import (FLEET, PORT_NAMES, Side, limits,
-                                        pod)
+from tests.test_torch_scheduler import (FLEET, PORT_NAMES, TOPO_FLEET,
+                                        Side, limits, pod)
 
 ROOT = Path(__file__).resolve().parent.parent
 JCFG = JConfig(resources=JNames(**PORT_NAMES), scheduler_name="vgpu-scheduler",
@@ -158,6 +162,77 @@ def test_admission_review_matches_jax(name):
     if "patch" in want["response"]:
         want["response"]["patch"] = as_port(want["response"]["patch"])
     assert decoded(got) == want
+
+
+MESH_CASES = {
+    "fits_a_ring": ("4", 4), "fits_the_grid": ("2x4", 8),
+    "fits_no_fabric": ("2x2x2", 8), "bad_shape": ("2x", 2),
+    "volume_mismatch": ("2x2", 2), "no_cards": ("2", 0),
+    "too_many_axes": ("1x1x1x1x2", 2), "one_card": ("1", 1),
+    "bad_quantity": ("2", "lots"),
+}
+
+
+def mesh_pod(value, nums):
+    if nums == "lots":
+        spec = limits(nums=2, mem="lots")
+    else:
+        spec = limits(nums=nums, mem=1000) if nums else {"cpu": "1"}
+    return pod("m", spec, anns={t.MESH_ANNOTATION: value})
+
+
+@pytest.mark.parametrize("fleet", ["fabrics", "lines", "none"])
+@pytest.mark.parametrize("name", sorted(MESH_CASES))
+def test_mesh_admission_matches_jax(name, fleet):
+    """validate_pod_mesh and the AdmissionReview of a mesh pod, against
+    the fabrics each package's scheduler registered (TOPO_FLEET, or
+    FLEET's lines of 8), or none (the fleet check is skipped)."""
+    if fleet == "none":
+        topos = {False: None, True: None}
+    else:
+        topos = {port: Side(port, fleet=TOPO_FLEET if fleet == "fabrics"
+                            else FLEET).s.known_topologies
+                 for port in (False, True)}
+    p = mesh_pod(*MESH_CASES[name])
+    want = jwebhook.validate_pod_mesh(as_jax(p), JCFG, topos[False])
+    got = twebhook.validate_pod_mesh(copy.deepcopy(p), TCFG, topos[True])
+    assert got == (want and want.replace("TPU", "GPU"))
+    jr = decoded(jwebhook.handle_admission_review(as_jax(review(p)), JCFG,
+                                                  topos[False]))
+    tr = decoded(twebhook.handle_admission_review(review(p), TCFG,
+                                                  topos[True]))
+    if "patch" in jr["response"]:
+        jr["response"]["patch"] = as_port(jr["response"]["patch"])
+    assert tr == json.loads(json.dumps(jr).replace("no TPU", "no GPU"))
+    assert tr["response"]["allowed"] == (got is None)
+
+
+@pytest.mark.parametrize("anns", [
+    {"vtpu.dev/mesh-min": "2x2", "vtpu.dev/mesh-max": "2x4",
+     t.MESH_ANNOTATION: "2x4"},
+    {"vtpu.dev/mesh-max": "2x4"}], ids=["range", "max_only"])
+def test_an_elastic_mesh_range_is_refused_by_name(anns):
+    reply = twebhook.handle_admission_review(
+        review(pod("e", limits(nums=8, mem=1000), anns=anns)), TCFG,
+        Side(True, fleet=TOPO_FLEET).s.known_topologies)
+    resp = reply["response"]
+    assert not resp["allowed"] and resp["status"]["code"] == 422
+    assert "vtpu.dev/mesh-min" in resp["status"]["message"]
+    assert "A.5" in resp["status"]["message"]
+
+
+def test_the_extender_checks_a_mesh_against_its_fleet(servers):
+    """Over HTTP each extender validates against its own scheduler's
+    registered fabrics (FLEET: lines of 8): a 2x4 mesh fits none."""
+    def call(side, base):
+        return [post(base, "/webhook", review(mesh_pod(v, n)))
+                for v, n in (("2x4", 8), ("8", 8), ("4", 4))]
+    want, got = both(servers, call)
+    assert [r[1]["response"]["allowed"] for r in got] == [False, True, True]
+    assert got[0][1]["response"]["status"]["message"] == \
+        want[0][1]["response"]["status"]["message"]
+    assert "fits no node topology in the fleet (meshes: 8)" in \
+        got[0][1]["response"]["status"]["message"]
 
 
 def post(base: str, path: str, body=None):
@@ -298,10 +373,12 @@ def test_scheduler_flags_build_the_config():
         "7", "--resource-name", "a/gpu", "--resource-mem", "a/mem",
         "--resource-mem-percentage", "a/pct", "--resource-cores", "a/c",
         "--resource-priority", "a/p", "--node-scheduler-policy", "binpack",
-        "--lease-ttl", "3", "--lease-grace-beats", "4"]))
+        "--lease-ttl", "3", "--lease-grace-beats", "4",
+        "--topology-policy", "guaranteed"]))
     assert (cfg.scheduler_name, cfg.default_mem, cfg.default_cores,
             cfg.node_scheduler_policy, cfg.lease_ttl_s,
-            cfg.lease_grace_beats) == ("x", 5, 7, "binpack", 3.0, 4)
+            cfg.lease_grace_beats, cfg.topology_policy) == (
+                "x", 5, 7, "binpack", 3.0, 4, "guaranteed")
     assert (cfg.resources.count, cfg.resources.memory,
             cfg.resources.memory_percentage, cfg.resources.cores,
             cfg.resources.priority) == ("a/gpu", "a/mem", "a/pct", "a/c",
@@ -426,6 +503,24 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
     train = na["pods"]["train"]["pod"]["spec"]
     assert [v["name"] for v in train["volumes"]] == ["vtpu-podinfo"]
     assert "volumes" not in na["pods"]["serve"]["pod"]["spec"]
+    # The fabric: one card (the mock refuses P2P without a "fabric" key),
+    # kubelet's answers on it, and the HGX node's placements.
+    summary = chip_smoke.fabric_summary(na)
+    assert summary["p2p"] == {"links": [], "not_supported": [],
+                              "kind": "single"}
+    assert summary["p2p_self"] == {"not_supported": "nvmlDeviceGetP2PStatus"}
+    assert [a["ids"] for a in summary["preferred"]] == [
+        [f"{chip['uuid']}-0"], [f"{chip['uuid']}-0", f"{chip['uuid']}-1"],
+        [f"{chip['uuid']}-9", f"{chip['uuid']}-0"]]
+    hgx = summary["hgx"]
+    assert hgx["registered"] == {"generation": "h100", "mesh": [8],
+                                 "wraparound": [True]}
+    assert hgx["agent_fabric"] == {"kind": "nvlink", "not_supported": []}
+    assert [hgx[n]["cards"] for n in ("ring4", "mesh2", "pin", "arc3")] \
+        == [[0, 1, 2, 3], [4, 5], [6], None]
+    assert hgx["arc3"]["failed"]["hgx-node"].startswith("no-ici-slice:")
+    assert hgx["bad_mesh"]["status"]["message"] == \
+        chip_smoke.BAD_MESH_MESSAGE
 
 
 def test_the_control_plane_child_preempts_and_rescues_on_the_mock_nvml(
