@@ -41,9 +41,13 @@ NVML's NVLink P2P matrix, answers kubelet's GetPreferredAllocation, and
 two agents on the mock NVML (``--enforce-child mock_agent``) add an
 eight-card NVSwitch node on which the scheduler places slice and mesh
 pods on ring-adjacent cards, and a four-card PCIe node on which it
-refuses guaranteed and mesh pods; the two pods then run one flat
+refuses guaranteed and mesh pods; the card's MIG mode is read from NVML
+beside nvidia-smi's (never changed), and a mock MIG node runs the agent's
+entry point under ``--partition-strategy mixed``, serving its MIG devices
+to this script as kubelet; the two pods then run one flat
 leg of the co-residency phase with the env a kubelet builds from those
-answers and nothing else.  Then the pod's life cycle:
+answers and nothing else, and a process started from a bundle that
+``vgpu-oci-runtime`` injected is held to its grant.  Then the pod's life cycle:
 checkpoint-first eviction from the scheduler's own plan (phase_preempt:
 the control plane up for the whole phase in a child without torch,
 ``--enforce-child control_plane``, with preemption on; the pods
@@ -207,15 +211,15 @@ INTERPOSER_SWAP_STEPS = 3
 # the same 5% between the region's `used` and that reading; the fixed
 # context charge at most 64 MiB above what the card shows outside the
 # allocations, and never below it; 3 train steps traced for their device
-# time after the 8 timed ones; 3 pairs of train children without and with
-# the interposer, uncapped, for its end-to-end cost; the C driver's null
-# kernel launched NULL_LAUNCHES times each way for its host cost a launch;
-# a co-tenant outside the pod allocating and freeing 1 GiB blocks while the
-# pod's contexts come up.
+# time after the 8 timed ones; AB_PAIRS pairs of train children without
+# and with the interposer, uncapped, for its end-to-end cost; the C
+# driver's null kernel launched NULL_LAUNCHES times each way for its host
+# cost a launch; a co-tenant outside the pod allocating and freeing 1 GiB
+# blocks while the pod's contexts come up.
 INTERPOSER_STEPS_TRACED = 3
 TOL_GRANT_MIB = 512
 TOL_CONTEXT_MIB = 64
-AB_PAIRS = 3
+AB_PAIRS = 2
 NULL_LAUNCHES = 20000
 COTENANT_BLOCK = 1024 * MIB
 # The main path's serving traffic: 6 requests of these prompt lengths, 32
@@ -315,6 +319,51 @@ PCIE_PODS = (("pguar2", "uidXG", 2, GUARANTEED, "topology-unverifiable"),
              ("pplain2", "uidXQ", 2, {}, ""))
 BAD_MESH = "2x"
 BAD_MESH_MESSAGE = "vtpu.dev/mesh: mesh '2x' must look like '2x4'"
+# Card partitions (MIG), in the same child.  The card runs with MIG off,
+# and nothing here changes its mode: NVML's MIG answer for it goes beside
+# nvidia-smi's (MIG_MODE_NAMES), and under --partition-strategy mixed an
+# agent's inventory must make no partition plugin and give kubelet and the
+# scheduler what it gives under none.  Then a mock MIG node: the real entry
+# point (vgpu-device-plugin --partition-strategy mixed, --enforce-child
+# mock_agent with MOCK_AGENT_ARGS, no torch) on the mock NVML with
+# MIG_FIXTURE (four 81,079 MiB cards; cards 0 and 1 with two 3g.40gb MIG
+# devices each, card 2 with seven 1g.10gb, card 3 MIG off), its sockets in
+# a directory of its own, where the child acts as kubelet: the Register
+# calls (MIG_REGISTERED), each MIG plugin's ListAndWatch, preferred
+# allocations, Allocate of one 3g.40gb device (its UUID, its MiB, no SM
+# limit, a part-<sha1> region dir) and of an unknown ID
+# (INVALID_ARGUMENT).  The scheduler must hold card 3 alone, and a
+# whole-card pod of MIG_WHOLE_CARDS cards offered that node alone gets no
+# node.  Two more agents under single exit non-zero at start, each with
+# its MIG_REFUSALS message: a --partition-chips subset, and the two
+# flavors.  These pods never run.
+MIG_MODE_NAMES = {0: "Disabled", 1: "Enabled"}
+MIG_NODE = "mig-node"
+MIG_3G_MIB = 40448
+MIG_1G_MIB = 9984
+MIG_FIXTURE = {"generation": "h100", "mesh": [4], "hbm_mib": 81079, "chips": [
+    {"coords": [i], "uuid": f"GPU-mig-node-{i}", "mig": [
+        {"slices": s, "mib": mib, "uuid": f"MIG-mig-node-{i}-{k}"}
+        for k in range(n)]}
+    for i, (n, s, mib) in enumerate(((2, 3, MIG_3G_MIB), (2, 3, MIG_3G_MIB),
+                                     (7, 1, MIG_1G_MIB)))] + [
+    {"coords": [3], "uuid": "GPU-mig-node-3"}]}
+MIG_REGISTERED = [("nvidia.com/gpu", "vgpu.sock"),
+                  ("nvidia.com/mig-1g.10gb", "vgpu-1g.10gb.sock"),
+                  ("nvidia.com/mig-3g.40gb", "vgpu-3g.40gb.sock")]
+MIG_WHOLE_CARDS = 2
+MIG_REFUSALS = {"subset": "would strand chips",
+                "flavors": "MIG devices of 2 flavors"}
+# The runtime wrapper on the card, last in the phase: a bundle whose
+# process is --enforce-child oci_pod (torch and nothing of the port), with
+# an image PYTHONPATH of its own that holds OCI_PROBE, injected by
+# vgpu-oci-runtime create under an oci.json that grants the card
+# OCI_GRANT_MIB, oversubscribed (so the shim dir goes on PYTHONPATH before
+# the image's); a stand-in runtime (the machine has no root for runc)
+# starts it with the bundle's env and its bind mounts read as kubelet_env
+# reads an answer's.  Then delete with a broken oci.json.
+OCI_GRANT_MIB = 4000
+OCI_PROBE = "oci_image_probe"
 # The preemption phase (phase_preempt): the train step at llama_7b widths
 # through the interposer under T's 40000 MiB grant, 6 steps of one batch;
 # the high-priority pod arrives once the victim has finished step 3, and
@@ -396,6 +445,46 @@ WORKLOAD_GROUPS = {"conv": ("fprop", "dgrad", "wgrad", "conv", "cudnn",
                    "elementwise": ("elementwise", "reduce_kernel", "copy",
                                    "Copy", "pool", "CatArray")}
 SMI_EVERY_S = 0.5
+# A reading of the card's used memory (smi_card_mib) is the least of
+# NVML's readings every CARD_EVERY_S over CARD_WINDOW_S.  The card on
+# the machine this script runs on rises 435-526 MiB for under 0.1 s
+# about once a minute with no process of this machine on it, none of
+# them holding a context and none in NVML's process lists
+# (tools/card_transients.py): a memory reading that lands in it counts
+# memory that belongs to no pod.  The window is twice the longest such
+# rise seen, so it never holds one alone; what a pod holds for a window
+# shows whole.  A window whose highest reading stands past both ends by
+# CARD_TRANSIENT_MIB is kept in CARD_TRANSIENTS (this process's) and
+# printed at the end.
+CARD_WINDOW_S = 0.2
+CARD_EVERY_S = 0.005
+CARD_TRANSIENT_MIB = 256
+CARD_TRANSIENTS: list = []
+# Run with -I -S by a process without the preloaded interposer (which
+# virtualises NVML): prints the window's least, highest, first and last
+# readings of NVML's v2 ``used`` (nvidia-smi's ``memory.used``) in MiB.
+CARD_WINDOW = r"""
+import ctypes, sys, time
+class Mem(ctypes.Structure):
+    _fields_ = [("version", ctypes.c_uint), ("total", ctypes.c_ulonglong),
+                ("reserved", ctypes.c_ulonglong), ("free", ctypes.c_ulonglong),
+                ("used", ctypes.c_ulonglong)]
+nvml = ctypes.CDLL("libnvidia-ml.so.1")
+card = ctypes.c_void_p()
+if nvml.nvmlInit_v2() or nvml.nvmlDeviceGetHandleByIndex_v2(
+        0, ctypes.byref(card)):
+    sys.exit("NVML found no card")
+mem = Mem(version=ctypes.sizeof(Mem) | 2 << 24)
+got = []
+t0 = time.monotonic()
+while len(got) < 2 or time.monotonic() - t0 < float(sys.argv[1]):
+    rc = nvml.nvmlDeviceGetMemoryInfo_v2(card, ctypes.byref(mem))
+    if rc:
+        sys.exit(f"nvmlDeviceGetMemoryInfo_v2 returned {rc}")
+    got.append(mem.used >> 20)
+    time.sleep(float(sys.argv[2]))
+print(min(got), max(got), got[0], got[-1])
+"""
 # vgpu_interposer_stats' fields (csrc/vgpu/cuda_interposer.cc).
 INTERPOSER_STATS = ("launches", "gated", "charged_us", "samples",
                     "sampled_us", "context_bytes", "alloc_bytes",
@@ -465,12 +554,17 @@ def smi_env() -> dict:
 
 
 def smi_card_mib() -> int:
-    """The card's used memory by nvidia-smi (``memory.used``), in MiB."""
-    res = subprocess.run(["nvidia-smi", "--query-gpu=memory.used",
-                          "--format=csv,noheader,nounits"], env=smi_env(),
-                         capture_output=True, text=True, timeout=60)
-    check(res.returncode == 0, f"nvidia-smi failed: {res.stderr.strip()}")
-    return int(res.stdout.strip().splitlines()[0])
+    """The card's used memory (nvidia-smi's ``memory.used``, NVML's v2
+    ``used``), in MiB: the least reading over CARD_WINDOW_S (see there)."""
+    res = subprocess.run([sys.executable, "-I", "-S", "-c", CARD_WINDOW,
+                          str(CARD_WINDOW_S), str(CARD_EVERY_S)],
+                         env=smi_env(), capture_output=True, text=True,
+                         timeout=60)
+    check(res.returncode == 0, f"NVML failed: {res.stderr.strip()}")
+    least, most, first, last = map(int, res.stdout.split())
+    if most - max(first, last) > CARD_TRANSIENT_MIB:
+        CARD_TRANSIENTS.append((time.monotonic(), least, most))
+    return least
 
 
 def cuda_ms(torch, fn, iters: int = 10, warmup: int = 2) -> float:
@@ -1894,6 +1988,43 @@ def child_plain_torch(torch):
                 port_modules=port)
 
 
+def child_oci_pod(torch):
+    """A process started from a bundle that vgpu-oci-runtime injected
+    (phase_device_plugin's oci_leg), importing torch and nothing of the
+    port: the image's module on its own PYTHONPATH entry, after the
+    injected shim dir; then 256 MiB blocks until refused, read by
+    nvidia-smi and by the preloaded interposer's region."""
+    import ctypes
+    import importlib
+
+    probe = importlib.import_module(OCI_PROBE)
+    hook = sys.modules.get("sitecustomize")
+    baseline = smi_card_mib()  # before this process brings CUDA up
+    free, total = torch.cuda.mem_get_info(0)
+    blocks = []
+    try:
+        while len(blocks) < 1000:
+            blocks.append(torch.empty(ENFORCE_BLOCK, dtype=torch.uint8,
+                                      device="cuda"))
+        check(False, "1000 blocks of 256 MiB and no refusal")
+    except torch.cuda.OutOfMemoryError:
+        pass
+    torch.cuda.synchronize()
+    smi = smi_card_mib() - baseline
+    get_used = ctypes.CDLL(None).vgpu_get_used
+    get_used.argtypes, get_used.restype = [ctypes.c_int], ctypes.c_uint64
+    port = sorted(m for m in sys.modules if m.startswith("k8s_vgpu"))
+    check(not port, f"the OCI pod imported {port}")
+    return dict(mem_get_info_total=total, mem_get_info_free=free,
+                blocks_before_refusal=len(blocks),
+                smi_used_mib_at_refusal=smi, smi_baseline_mib=baseline,
+                region_used_at_refusal=int(get_used(0)),
+                pythonpath=os.environ.get("PYTHONPATH"),
+                sys_path=sys.path, probe=probe.__file__,
+                hook=getattr(hook, "__file__", None),
+                ld_preload=os.environ.get("LD_PRELOAD"), port_modules=port)
+
+
 def child_interposer_train(torch):
     """The 8-layer bf16 train step with nothing in its way but what the env
     preloads: the shim, if installed, stands down (no gate: the step
@@ -2316,6 +2447,7 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "interposer_cap": child_interposer_cap,
                     "interposer_pod": child_interposer_pod,
                     "plain_torch": child_plain_torch,
+                    "oci_pod": child_oci_pod,
                     "cotenant": child_cotenant,
                     "interposer_train": child_interposer_train,
                     "interposer_swap": child_interposer_swap,
@@ -2332,7 +2464,7 @@ def enforce_child(name: str) -> int:
     this sub-phase's), and prints its readings as one ENFORCE line."""
     import torch
 
-    if name not in ("plain_torch", "cotenant"):  # torch and nothing else
+    if name not in ("plain_torch", "cotenant", "oci_pod"):  # torch alone
         enforce_port()
     print("READY", flush=True)
     if sys.stdin.readline() != "go\n":
@@ -3335,8 +3467,9 @@ def node_agent() -> int:
     NODE_AGENT_POLLS more polls.  Prints the cards, the inventory, the
     advertisement, what the scheduler registered, the polls and each pod's
     spec, handshake, response, bind phase and lock as one ENFORCE line,
-    with the real node's fabric (fabric_checks) and the mock HGX node's
-    placements (hgx_leg), both made once S and T are bound."""
+    with the real node's fabric (fabric_checks) and MIG state
+    (real_mig_checks), the mock HGX node's placements (hgx_leg) and the
+    mock MIG node's answers (mig_leg), all made once S and T are bound."""
     sys.path.insert(0, str(ROOT))
     import importlib.metadata
 
@@ -3383,7 +3516,9 @@ def node_agent() -> int:
                 response=dataclasses.asdict(resp),
                 locked=nodelock.is_locked(kube, PLUGIN_NODE))
         fabric = fabric_checks(backend, plane, plugin, kube, inv)
+        mig_real = real_mig_checks(kube, inv, cfg, cards, tmp)
         hgx = hgx_leg(plane, kube, tmp)
+        mig = mig_leg(plane, kube, tmp)
         register_s = plane.register_s
         plane.close()
         plane = None
@@ -3399,7 +3534,7 @@ def node_agent() -> int:
             events_registered=events.registered if events else None,
             events_unsupported=events.unsupported if events else None,
             events_error=backend.events_error, pods=pods, fabric=fabric,
-            hgx=hgx, packages={})
+            hgx=hgx, mig_real=mig_real, mig=mig, packages={})
         for dist in ("grpcio", "protobuf"):
             try:
                 out["packages"][dist] = importlib.metadata.version(dist)
@@ -3504,10 +3639,241 @@ def fabric_checks(backend, plane, plugin, kube, inv) -> dict:
     return out
 
 
+def real_mig_checks(kube, inv, cfg, cards, tmp: Path) -> dict:
+    """The real card's MIG state, in node_agent: NVML's answer (``mode``,
+    current and pending, or None where the driver refuses the query as
+    not supported, with the call named), and, under each of none and
+    mixed, the partition plugins (none), the whole-card view, the
+    register request and the devices kubelet's ListAndWatch gets over the
+    plugin's socket, which must be equal: with MIG off, mixed changes
+    nothing the node advertises."""
+    from k8s_vgpu_scheduler_tpu_torch.api import deviceplugin_pb2 as pb
+    from k8s_vgpu_scheduler_tpu_torch.api.kubelet import DevicePluginStub
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
+        GpuDevicePlugin, get_partition_plugins, inventory_to_request,
+        whole_chip_view)
+    import grpc
+
+    t0 = time.monotonic()
+    out = {"nvml": cards[0]["mig"], "not_supported": [
+        c for c in cards[0]["not_supported"] if "Mig" in c]}
+    views = {}
+    for strategy in ("none", "mixed"):
+        c = dataclasses.replace(cfg, partition_strategy=strategy)
+        parts = get_partition_plugins(strategy, inv, c, str(tmp))
+        view = whole_chip_view(inv)
+        plugin = GpuDevicePlugin(kube, view, c, socket_dir=str(tmp),
+                                 socket_name=f"mig-{strategy}.sock")
+        plugin.serve()
+        try:
+            with grpc.insecure_channel(
+                    f"unix://{plugin.socket_path}") as channel:
+                stream = DevicePluginStub(channel).ListAndWatch(
+                    pb.Empty(), timeout=10)
+                devices = [(d.ID, d.health) for d in next(iter(stream))
+                           .devices]
+                stream.cancel()
+        finally:
+            plugin.stop()
+        views[strategy] = dict(
+            plugins=len(parts), view=[chip.uuid for chip in view.chips],
+            request=inventory_to_request(PLUGIN_NODE, inv, c)
+            .SerializeToString().hex(), devices=devices)
+    check(views["mixed"] == views["none"]
+          and views["none"]["plugins"] == 0
+          and views["none"]["view"] == [chip.uuid for chip in inv.chips],
+          f"under mixed the node advertises {views['mixed']}, under none "
+          f"{views['none']}")
+    out["list_and_watch_devices"] = len(views["none"]["devices"])
+    out["seconds"] = time.monotonic() - t0
+    return out
+
+
+def mig_leg(plane, kube, tmp: Path) -> dict:
+    """The mock MIG node beside the real one, in node_agent: three
+    agents on the mock NVML with MIG_FIXTURE, started together, each the
+    entry point: under mixed, with its sockets in <tmp>/mig where this
+    process serves kubelet's Registration; and two under single that must
+    exit at start with their MIG_REFUSALS message.  As kubelet: the
+    Register calls, ListAndWatch on every socket, GetPreferredAllocation
+    (two 1g.10gb of seven; two 3g.40gb of three on two cards), Allocate of
+    one 3g.40gb device and of an unknown ID, each timed; the scheduler's
+    registration of the node and a whole-card pod's Filter."""
+    import hashlib
+
+    import grpc
+
+    from k8s_vgpu_scheduler_tpu_torch.api import deviceplugin_pb2 as pb
+    from k8s_vgpu_scheduler_tpu_torch.api.kubelet import (
+        DevicePluginStub, add_registration_service)
+    from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+
+    lib = _kernels.build_mock_nvml()
+    chips = MIG_FIXTURE["chips"]
+    migs = {f: [m["uuid"] for c in chips for m in c.get("mig", ())
+                if (f == "3g.40gb") == (m["slices"] == 3)]
+            for f in ("3g.40gb", "1g.10gb")}
+    socks = tmp / "mig"
+    socks.mkdir()
+    received = []
+    kubelet = grpc.server(ThreadPoolExecutor(max_workers=2))
+    add_registration_service(kubelet, lambda request, context: (
+        received.append((time.monotonic(), request)), pb.Empty())[1])
+    kubelet.add_insecure_port(f"unix://{socks / 'kubelet.sock'}")
+    kubelet.start()
+
+    def args(strategy: str, node: str, *extra) -> list:
+        return ["--fake-kube", "--node-name", node, "--socket-dir",
+                str(socks if strategy == "mixed" else tmp / node),
+                "--scheduler-endpoint", f"unix:{tmp / 'scheduler.sock'}",
+                "--partition-strategy", strategy, "--shim-dir",
+                str(tmp / "shim"), "--cache-dir", str(tmp / "mig_containers"),
+                "--config-file", str(tmp / "no_config.json"), *extra]
+
+    out: dict = {}
+    sched = plane.scheduler
+    t0 = time.monotonic()
+    agents = {"mixed": start_mock_agent(kube, MIG_NODE, MIG_FIXTURE, lib, tmp,
+                                        args("mixed", MIG_NODE))}
+    for name, extra in (("subset", ("--partition-chips", chips[0]["uuid"])),
+                        ("flavors", ())):
+        (tmp / f"mig-{name}").mkdir()
+        agents[name] = start_mock_agent(
+            kube, f"mig-{name}", MIG_FIXTURE, lib, tmp,
+            args("single", f"mig-{name}", *extra))
+    try:
+        agent = agents["mixed"]
+        while len(received) < len(MIG_REGISTERED):
+            check(agent.poll() is None,
+                  f"the MIG agent exited {agent.returncode}")
+            check(time.monotonic() - t0 < REGISTER_WAIT_S,
+                  f"kubelet got {len(received)} Register calls")
+            time.sleep(0.02)
+        out["kubelet_register_s"] = max(t for t, _ in received) - t0
+        out["registered"] = sorted((r.resource_name, r.endpoint)
+                                   for _, r in received)
+        check(out["registered"] == MIG_REGISTERED
+              and all(r.options.get_preferred_allocation_available
+                      for _, r in received),
+              f"kubelet's Register calls {out['registered']}")
+        reg = out["scheduler"] = registered(sched, MIG_NODE, agent)
+        ids = [d.id for d in sched.nodes.get_node(MIG_NODE).devices]
+        check(ids == [chips[3]["uuid"]],
+              f"the scheduler registered {ids} of the MIG node")
+
+        def rpc(sock: str, call: str, request):
+            t = time.monotonic()
+            with grpc.insecure_channel(f"unix://{socks / sock}") as ch:
+                stub = DevicePluginStub(ch)
+                if call == "ListAndWatch":
+                    stream = stub.ListAndWatch(request, timeout=10)
+                    reply = next(iter(stream))
+                    stream.cancel()
+                else:
+                    reply = getattr(stub, call)(request, timeout=10)
+            return reply, time.monotonic() - t
+
+        lw = out["list_and_watch"] = {}
+        for res, sock in MIG_REGISTERED:
+            reply, seconds = rpc(sock, "ListAndWatch", pb.Empty())
+            lw[res] = dict(ids=[d.ID for d in reply.devices],
+                           healthy=all(d.health == "Healthy"
+                                       for d in reply.devices),
+                           seconds=seconds)
+        check(lw["nvidia.com/mig-3g.40gb"]["ids"] == migs["3g.40gb"]
+              and lw["nvidia.com/mig-1g.10gb"]["ids"] == migs["1g.10gb"]
+              and lw["nvidia.com/gpu"]["ids"] == [
+                  f"{chips[3]['uuid']}-{k}" for k in range(10)]
+              and all(v["healthy"] for v in lw.values()),
+              f"ListAndWatch on the MIG node: {lw}")
+        created, rec = admit_pod(plane.base, kube, user_pod(
+            "migwhole", "uidMW", HGX_MIB, 1, cores=100,
+            cards=MIG_WHOLE_CARDS))
+        rec["filter"], rec["filter_s"] = filter_pod(plane.base, created,
+                                                    MIG_NODE)
+        out["whole_pod"] = rec
+        check(not rec["filter"]["NodeNames"],
+              f"a {MIG_WHOLE_CARDS}-card pod on the MIG node: "
+              f"{rec['filter']}")
+        kube.delete_pod("default", "migwhole")
+        pref = out["preferred"] = []
+        for sock, avail in (("vgpu-1g.10gb.sock", migs["1g.10gb"]),
+                            ("vgpu-3g.40gb.sock", migs["3g.40gb"][1:])):
+            reply, seconds = rpc(sock, "GetPreferredAllocation",
+                                 pb.PreferredAllocationRequest(
+                                     container_requests=[
+                                         pb.ContainerPreferredAllocationRequest(
+                                             available_deviceIDs=avail,
+                                             allocation_size=2)]))
+            pref.append(dict(sock=sock, available=avail, seconds=seconds,
+                             ids=list(reply.container_responses[0]
+                                      .deviceIDs)))
+        check(pref[0]["ids"] == migs["1g.10gb"][:2]
+              and pref[1]["ids"] == migs["3g.40gb"][2:4],
+              f"GetPreferredAllocation on the MIG node: {pref}")
+        one = migs["3g.40gb"][0]
+        reply, seconds = rpc("vgpu-3g.40gb.sock", "Allocate",
+                             pb.AllocateRequest(container_requests=[
+                                 pb.ContainerAllocateRequest(
+                                     devicesIDs=[one])]))
+        r = reply.container_responses[0]
+        envs = dict(r.envs)
+        mounts = {m.container_path: m.host_path for m in r.mounts}
+        key = "part-" + hashlib.sha1(one.encode()).hexdigest()[:12]
+        out["allocate"] = dict(id=one, envs=envs, mounts=mounts,
+                               seconds=seconds)
+        check(envs.get("NVIDIA_VISIBLE_DEVICES") == one
+              and envs.get("CUDA_DEVICE_MEMORY_LIMIT_0") == str(MIG_3G_MIB)
+              and "CUDA_DEVICE_SM_LIMIT" not in envs
+              and mounts.get("/tmp/vgpu") == str(tmp / "mig_containers"
+                                                 / key)
+              and (tmp / "mig_containers" / key).is_dir(),
+              f"Allocate of {one}: {envs}, {mounts}")
+        t = time.monotonic()
+        try:
+            rpc("vgpu-3g.40gb.sock", "Allocate", pb.AllocateRequest(
+                container_requests=[pb.ContainerAllocateRequest(
+                    devicesIDs=["MIG-unknown"])]))
+            code = None
+        except grpc.RpcError as e:
+            code = e.code().name
+        out["unknown"] = dict(code=code, seconds=time.monotonic() - t)
+        check(code == "INVALID_ARGUMENT",
+              f"Allocate of an unknown ID answered {code}")
+    finally:
+        ends = {}
+        t_stop = time.monotonic()
+        for name, agent in agents.items():
+            try:
+                stdout, stderr = agent.communicate("", timeout=30)
+            except subprocess.TimeoutExpired:
+                agent.kill()
+                stdout, stderr = agent.communicate()
+            ends[name] = (agent.returncode, stdout, stderr)
+        out["stop_s"] = time.monotonic() - t_stop
+        kubelet.stop(grace=1)
+    rc, stdout, stderr = ends.pop("mixed")
+    check(rc == 0, f"the MIG agent exited {rc}: {stderr.strip()[-2000:]}")
+    line = [x for x in stdout.splitlines() if x.startswith("ENFORCE ")]
+    check(len(line) == 1 and not json.loads(line[0][8:])["torch_loaded"],
+          f"the MIG agent printed {line}")
+    out["refusals"] = {}
+    for name, (rc, _, stderr) in ends.items():
+        said = [x for x in stderr.splitlines() if MIG_REFUSALS[name] in x]
+        out["refusals"][name] = dict(rc=rc, message=said[-1] if said else
+                                     stderr.strip()[-400:])
+        check(rc != 0 and said,
+              f"single ({name}) exited {rc}: {stderr.strip()[-2000:]}")
+    out["run_s"] = time.monotonic() - t0
+    return out
+
+
 def start_mock_agent(kube, node: str, fixture: dict, lib: Path,
-                     tmp: Path):
+                     tmp: Path, args=None):
     """A node agent (mock_agent) on the mock NVML, streaming ``fixture``'s
-    cards to the scheduler on <tmp>/scheduler.sock as ``node``."""
+    cards to the scheduler on <tmp>/scheduler.sock as ``node``; with
+    ``args``, the entry point (vgpu-device-plugin ``args``) with the mock
+    first on the library path."""
     path = tmp / f"{node}_nvml.json"
     path.write_text(json.dumps(fixture))
     kube.add_node({"metadata": {"name": node, "annotations": {}}})
@@ -3515,6 +3881,10 @@ def start_mock_agent(kube, node: str, fixture: dict, lib: Path,
            if k not in ("MOCK_NVML_NOT_SUPPORTED", "VTPU_MOCK_JSON")}
     env.update(MOCK_NVML_JSON=str(path), MOCK_NVML_LIB=str(lib),
                PLUGIN_DIR=str(tmp), MOCK_NODE=node)
+    if args is not None:
+        env["MOCK_AGENT_ARGS"] = json.dumps(args)
+        env["LD_LIBRARY_PATH"] = os.pathsep.join(
+            p for p in (str(lib.parent), env.get("LD_LIBRARY_PATH")) if p)
     return subprocess.Popen(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
          "mock_agent"], env=env, cwd=ROOT, stdin=subprocess.PIPE,
@@ -3704,6 +4074,8 @@ def mock_agent() -> int:
     closes.  Prints the fabric NVML showed and the inventory as one
     ENFORCE line."""
     sys.path.insert(0, str(ROOT))
+    if os.environ.get("MOCK_AGENT_ARGS"):
+        return mock_entry_point(json.loads(os.environ["MOCK_AGENT_ARGS"]))
     from k8s_vgpu_scheduler_tpu_torch.deviceplugin import DeviceRegister
     from k8s_vgpu_scheduler_tpu_torch.tpulib import NvmlBackend
     from k8s_vgpu_scheduler_tpu_torch.util.config import Config
@@ -3727,6 +4099,28 @@ def mock_agent() -> int:
         backend.close()
     out["torch_loaded"] = "torch" in sys.modules
     print("ENFORCE " + json.dumps(out), flush=True)
+    return 0
+
+
+def mock_entry_point(args: list) -> int:
+    """vgpu-device-plugin's ``main(args)`` on the mock NVML (first on
+    LD_LIBRARY_PATH, so ``detect()`` loads it as NVML) until stdin closes,
+    when a thread sends this process SIGINT, as ^C does (a real signal
+    cuts the agent's sleep short), and the agent stops its plugins.  A
+    refusal at start exits non-zero with its message, as the entry point
+    does."""
+    import signal
+
+    from k8s_vgpu_scheduler_tpu_torch.cmd import device_plugin
+
+    def wait() -> None:
+        sys.stdin.read()
+        os.kill(os.getpid(), signal.SIGINT)
+
+    threading.Thread(target=wait, daemon=True).start()
+    device_plugin.main(args)
+    print("ENFORCE " + json.dumps({"torch_loaded": "torch" in sys.modules}),
+          flush=True)
     return 0
 
 
@@ -4013,7 +4407,14 @@ def phase_device_plugin(torch, record, vgpu: Path):
     plugin's cache_host_dir: one flat leg (plugin_leg).  Each pod's env,
     region, ``mem_get_info`` and nvidia-smi samples hold its grant; T's
     switch comes on while S serves; S's tokens and T's losses are
-    phase_coresidency's flat leg's.  Returns T's kernel launches."""
+    phase_coresidency's flat leg's.  MIG (real_mig_checks, mig_leg,
+    mig_summary): NVML's MIG mode of the card beside nvidia-smi's, the
+    card's advertisement unchanged under mixed, and the mock MIG node's
+    Register calls, ListAndWatch, preferred allocations, Allocate answers,
+    scheduler registration and single's refusals.  (c) The runtime
+    wrapper (oci_leg): a pod started from a bundle that vgpu-oci-runtime
+    injected, held to its grant with the bundle's PYTHONPATH kept, and
+    delete with a broken config.  Returns T's kernel launches."""
     from k8s_vgpu_scheduler_tpu_torch.accounting import UsageSampler
     from k8s_vgpu_scheduler_tpu_torch.cmd import monitor
     from k8s_vgpu_scheduler_tpu_torch.monitor import FeedbackLoop, RegionReader
@@ -4035,7 +4436,7 @@ def phase_device_plugin(torch, record, vgpu: Path):
         root.mkdir()
         _kernels.install_shim(tmp / "shim")
         # (a) The node agent, alone with this idle process on the card.
-        base = int(smi_rows("--query-gpu=memory.used")[0][0])
+        base = smi_card_mib()
         t0 = time.monotonic()
         agent = subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
@@ -4045,8 +4446,7 @@ def phase_device_plugin(torch, record, vgpu: Path):
         try:
             while agent.poll() is None:
                 check(time.monotonic() - t0 < 120, "the node agent hung")
-                life.append((time.monotonic() - t0,
-                             int(smi_rows("--query-gpu=memory.used")[0][0]),
+                life.append((time.monotonic() - t0, smi_card_mib(),
                              [r[0] for r in smi_rows(
                                  "--query-compute-apps=pid")]))
                 time.sleep(NODE_AGENT_SMI_S)
@@ -4071,6 +4471,16 @@ def phase_device_plugin(torch, record, vgpu: Path):
               f"{p2p.stderr.strip()}")
         na["fabric"]["smi_topo_p2p_n"] = p2p.stdout
         [card], [chip] = na["cards"], na["inventory"]
+        # MIG: NVML's answer (or its refusal, recorded) beside nvidia-smi's.
+        [mig_smi] = smi_rows("--query-gpu=mig.mode.current,mig.mode.pending")
+        na["mig_real"]["smi"] = mig_smi
+        nvml_mig = na["mig_real"]["nvml"]
+        check(nvml_mig is not None or na["mig_real"]["not_supported"],
+              "NVML gave no MIG answer and no refusal")
+        check(nvml_mig is None or [MIG_MODE_NAMES.get(m, m) for m in
+                                   nvml_mig["mode"]] == mig_smi,
+              f"NVML's MIG mode {nvml_mig} against nvidia-smi's {mig_smi}")
+        check(not chip["mig"], f"the card has MIG devices {chip['mig']}")
         check([card["index"], card["uuid"], card["name"],
                card["memory_total"] >> 20] == [int(smi[0]), smi[1], smi[2],
                                                int(smi[3])],
@@ -4161,12 +4571,11 @@ def phase_device_plugin(torch, record, vgpu: Path):
 
         def sample_card():
             while not smi_stop.is_set():
-                card_mib.append((time.monotonic(), int(smi_rows(
-                    "--query-gpu=memory.used")[0][0])))
+                card_mib.append((time.monotonic(), smi_card_mib()))
                 smi_stop.wait(SMI_EVERY_S)
 
         smi_thread = threading.Thread(target=sample_card, daemon=True)
-        base = int(smi_rows("--query-gpu=memory.used")[0][0])
+        base = smi_card_mib()
         smi_thread.start()
         try:
             legs = plugin_leg(tl, children["train"], children["serve"])
@@ -4186,14 +4595,163 @@ def phase_device_plugin(torch, record, vgpu: Path):
             loop.close()
             for child in children.values():
                 child.stop()
+        # (c) The runtime wrapper, alone on the card.
+        oci = oci_leg(tmp, chip["uuid"])
     record["device_plugin_s"] = time.monotonic() - t_phase
     summary = record["device_plugin"] = plugin_checks(
         record, na, sizes, envs, regions, legs, tl, seen, card_mib, base,
         children)
+    summary["mig"] = mig_summary(na)
+    summary["oci"] = oci
     log(json.dumps(summary))
     t = legs["train"]
     return [t["launches"][n] for n in ("flash_fwd", "flash_bwd_dq",
                                        "flash_bwd_dkv")]
+
+
+# The stand-in OCI runtime oci_leg writes (the machine has no root for
+# runc): it logs its argv, and on create starts the bundle's process with
+# the bundle's env alone, each bind-mounted container path read as its
+# host path (PYTHONPATH entry by entry) and the library the mounted
+# /etc/ld.so.preload names as LD_PRELOAD, as kubelet_env reads an answer.
+OCI_STANDIN = """#!{python}
+import json, os, subprocess, sys
+with open(os.environ["OCI_STANDIN_LOG"], "a") as f:
+    f.write(json.dumps(sys.argv) + "\\n")
+if "create" not in sys.argv:
+    sys.exit(0)
+bundle = sys.argv[sys.argv.index("--bundle") + 1]
+with open(os.path.join(bundle, "config.json")) as f:
+    spec = json.load(f)
+mounts = {{m["destination"]: m["source"] for m in spec.get("mounts", [])
+          if m.get("type") == "bind"}}
+def host(path):
+    for c, h in mounts.items():
+        if path == c or path.startswith(c + "/"):
+            return h + path[len(c):]
+    return path
+env = {{}}
+for e in spec["process"]["env"]:
+    k, v = e.split("=", 1)
+    env[k] = ":".join(map(host, v.split(":"))) if k == "PYTHONPATH" else host(v)
+if "/etc/ld.so.preload" in mounts:
+    with open(mounts["/etc/ld.so.preload"]) as f:
+        env["LD_PRELOAD"] = ":".join(host(lib) for lib in f.read().split())
+sys.exit(subprocess.call(spec["process"]["args"], env=env,
+                         cwd=spec["process"].get("cwd", "/")))
+"""
+
+
+def oci_leg(tmp: Path, uuid: str) -> dict:
+    """The runtime wrapper on the card, alone on it: a bundle (the
+    ``oci_pod`` child, this process's env as the image's but for any
+    grant, PYTHONPATH the image's module dir) and an oci.json granting the
+    card OCI_GRANT_MIB, oversubscribed, with the shim the plugin installed
+    and a region dir of its own; ``vgpu-oci-runtime --root <dir> create``
+    through the stand-in, which runs the pod.  The injected bundle must
+    hold the grant, the mounts and PYTHONPATH = the shim dir then the
+    image's; the pod is refused within TOL_GRANT_MIB of the grant by
+    nvidia-smi, its region's ``used`` within TOL_USED of that reading,
+    ``mem_get_info`` totals the grant, and it imported the image's module
+    and nothing of the port.  Then ``delete`` with a broken oci.json must
+    reach the stand-in, argv[0] forced to it, as create did."""
+    root = tmp / "oci"
+    bundle, image, region = root / "bundle", root / "image", root / "region"
+    for d in (bundle, image, region):
+        d.mkdir(parents=True)
+    (image / f"{OCI_PROBE}.py").write_text("IMAGE = True\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(GRANT_ENV)}
+    spec = {"ociVersion": "1.0.2", "process": {
+        "args": [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--enforce-child", "oci_pod"],
+        "env": [f"{k}={v}" for k, v in env.items()]
+        + [f"PYTHONPATH={image}"], "cwd": str(ROOT)},
+        "mounts": [{"destination": "/proc", "source": "proc",
+                    "type": "proc"}]}
+    (bundle / "config.json").write_text(json.dumps(spec))
+    config = root / "oci.json"
+    config.write_text(json.dumps({
+        "chip_limits_mib": {"0": OCI_GRANT_MIB}, "visible_devices": uuid,
+        "oversubscribe": True, "shim_host_dir": str(tmp / "shim"),
+        "cache_host_dir": str(region)}))
+    standin, log_path = root / "runtime", root / "runtime.log"
+    standin.write_text(OCI_STANDIN.format(python=sys.executable))
+    standin.chmod(0o755)
+    wrapper_env = dict(env, VTPU_OCI_RUNTIME=str(standin),
+                       VTPU_OCI_CONFIG=str(config),
+                       OCI_STANDIN_LOG=str(log_path))
+    state = str(root / "state")
+    wrapper = [sys.executable, "-m",
+               "k8s_vgpu_scheduler_tpu_torch.cmd.oci_runtime", "--root",
+               state]
+    t0 = time.monotonic()
+    res = subprocess.run(wrapper + ["create", "--bundle", str(bundle),
+                                    "oci-pod"], env=wrapper_env, cwd=ROOT,
+                         input="go\n", capture_output=True, text=True,
+                         timeout=300)
+    create_s = time.monotonic() - t0
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "enforce_oci_pod.log").write_text(res.stdout + res.stderr)
+    check(res.returncode == 0, f"vgpu-oci-runtime create exited "
+          f"{res.returncode}: {res.stderr.strip()[-2000:]}")
+    line = [x for x in res.stdout.splitlines() if x.startswith("ENFORCE ")]
+    check(len(line) == 1, "the OCI pod printed no result")
+    pod = json.loads(line[0][len("ENFORCE "):])
+    injected = json.loads((bundle / "config.json").read_text())
+    envs = dict(e.split("=", 1) for e in injected["process"]["env"])
+    grant = {k: v for k, v in envs.items() if k.startswith(GRANT_ENV)}
+    mounts = sorted((m["destination"], m["source"], m.get("options"))
+                    for m in injected["mounts"])
+    shim = tmp / "shim"
+    check(grant == {"CUDA_DEVICE_MEMORY_LIMIT_0": str(OCI_GRANT_MIB),
+                    "NVIDIA_VISIBLE_DEVICES": uuid,
+                    "CUDA_OVERSUBSCRIBE": "true",
+                    "CUDA_DEVICE_MEMORY_SHARED_CACHE":
+                        "/tmp/vgpu/cudevshr.cache",
+                    "PYTHONPATH": f"/usr/local/vgpu:{image}"}
+          and mounts == sorted([
+              ("/proc", "proc", None),
+              ("/usr/local/vgpu", str(shim), ["rbind", "ro"]),
+              ("/etc/ld.so.preload", str(shim / "ld.so.preload"),
+               ["rbind", "ro"]),
+              ("/tmp/vgpu", str(region), ["rbind", "rw"])]),
+          f"the injected bundle: {grant}, {mounts}")
+    smi = pod["smi_used_mib_at_refusal"]
+    check_grant(smi, OCI_GRANT_MIB, "the OCI pod")
+    check(abs(pod["region_used_at_refusal"] - smi * MIB)
+          <= TOL_USED * smi * MIB,
+          f"the OCI pod's region used {pod['region_used_at_refusal']} "
+          f"against nvidia-smi's {smi} MiB")
+    check(pod["mem_get_info_total"] == OCI_GRANT_MIB * MIB,
+          f"the OCI pod's mem_get_info total {pod['mem_get_info_total']}")
+    check(pod["pythonpath"] == f"{shim}:{image}"
+          and pod["probe"] == str(image / f"{OCI_PROBE}.py")
+          and pod["hook"] == str(shim / "sitecustomize.py")
+          and pod["ld_preload"] == str(shim / "libvgpu_cuda.so"),
+          f"the OCI pod's PYTHONPATH {pod['pythonpath']}, module "
+          f"{pod['probe']}, hook {pod['hook']}, LD_PRELOAD "
+          f"{pod['ld_preload']}")
+    config.write_text("{not json")
+    t0 = time.monotonic()
+    res = subprocess.run(wrapper + ["delete", "oci-pod"], env=wrapper_env,
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    delete_s = time.monotonic() - t0
+    check(res.returncode == 0, f"vgpu-oci-runtime delete with a broken "
+          f"config exited {res.returncode}: {res.stderr.strip()[-2000:]}")
+    argvs = [json.loads(x) for x in log_path.read_text().splitlines()]
+    check(argvs == [[str(standin), "--root", state, "create", "--bundle",
+                     str(bundle), "oci-pod"],
+                    [str(standin), "--root", state, "delete", "oci-pod"]],
+          f"the runtime was called with {argvs}")
+    return dict(create_s=create_s, delete_s=delete_s, grant=grant,
+                runtime_argvs=len(argvs),
+                pod={k: pod[k] for k in (
+                    "mem_get_info_total", "blocks_before_refusal",
+                    "smi_used_mib_at_refusal", "smi_baseline_mib",
+                    "region_used_at_refusal", "pythonpath", "run_s")})
 
 
 def fabric_summary(na: dict) -> dict:
@@ -4227,6 +4785,28 @@ def fabric_summary(na: dict) -> dict:
                 **{k: rec[k] for k in ("webhook_s", "filter_s", "bind_s")
                    if k in rec}} for name, rec in pods.items()}},
     }
+
+
+def mig_summary(na: dict) -> dict:
+    """The MIG record of the phase's line (checked in node_agent and the
+    phase): the real card's NVML and nvidia-smi answers, and the mock MIG
+    node's registrations, answers, refusals and times."""
+    real, mig = na["mig_real"], na["mig"]
+    return {
+        "real": {k: real.get(k) for k in ("nvml", "not_supported", "smi",
+                                          "list_and_watch_devices",
+                                          "seconds")},
+        "kubelet_register_s": mig["kubelet_register_s"],
+        "registered": mig["registered"],
+        "scheduler_register_s": mig["scheduler"]["register_s"],
+        "list_and_watch": {r: [len(v["ids"]), v["seconds"]]
+                           for r, v in mig["list_and_watch"].items()},
+        "whole_pod_failed": mig["whole_pod"]["filter"]["FailedNodes"],
+        "preferred": [[p["ids"], p["seconds"]] for p in mig["preferred"]],
+        "allocate": {k: mig["allocate"][k] for k in ("id", "envs",
+                                                     "seconds")},
+        "unknown": mig["unknown"], "refusals": mig["refusals"],
+        "run_s": mig["run_s"]}
 
 
 def placed(name: str, pod: dict, uuid: str, cores=CORES_SM_LIMIT) -> None:
@@ -4811,7 +5391,7 @@ def run_pod_serve(quant: str, config: Path, ckpt: Path, tmp: Path, uuid,
     token has come: the pod's first trace, in its decode (the pod started
     the tracer, and charged it, before loading its model).  Then one
     blocking request and SIGTERM.  From the pod's start to its exit
-    nvidia-smi reads the card (less what it held before) and the region
+    smi_card_mib reads the card (less what it held before) and the region
     the pod's charge: every reading is held to the grant.  Readings go
     into ``out`` as they come."""
     import signal
@@ -4845,6 +5425,14 @@ def run_pod_serve(quant: str, config: Path, ckpt: Path, tmp: Path, uuid,
                 charged = region.used(0) / MIB if region else None
                 samples.append((time.monotonic(), smi_card_mib() - baseline,
                                 charged))
+                if samples[-1][1] > grant and "over_grant" not in out:
+                    # Whose memory: the card's processes at the first
+                    # reading past the grant (the pod is proc.pid).
+                    out["over_grant"] = dict(
+                        t_s=samples[-1][0] - t0, mib=samples[-1][1],
+                        pod_pid=proc.pid, parent_pid=os.getpid(),
+                        apps=smi_rows("--query-compute-apps=pid,"
+                                      "used_memory"))
                 stop.wait(0.1)
         finally:
             if region is not None:
@@ -4947,8 +5535,12 @@ def run_pod_serve(quant: str, config: Path, ckpt: Path, tmp: Path, uuid,
                    / stats["stats"]["decode_seconds"],
                    pool_bytes=stats["pool_hbm_bytes"])
     log_text = (logs / f"{label}.log").read_text()
-    check(peak <= grant, f"the {quant} pod peaked at {peak} MiB by "
-          f"nvidia-smi, grant {grant} MiB")
+    (logs / f"{label}_memory.json").write_text(json.dumps(
+        {k: out.get(k) for k in ("grant_mib", "smi_baseline_mib",
+                                 "smi_peak_mib", "over_grant",
+                                 "memory_timeline")}))
+    check(peak <= grant, f"the {quant} pod peaked at {peak} MiB on the "
+          f"card, grant {grant} MiB (see {label}_memory.json)")
     check(rc == 0 and "drain complete" in log_text,
           f"the {quant} pod exited {rc} after SIGTERM (see {label}.log)")
     check(all(got[i][0] == 200 for i in got),
@@ -5298,7 +5890,12 @@ def main() -> int:
     card = card_line()
     log("card:", card)
     record = {"card": card, "device": torch.cuda.get_device_name(0),
-              "torch": torch.__version__, "cuda": torch.version.cuda}
+              "torch": torch.__version__, "cuda": torch.version.cuda,
+              "card_used_mib": dict(
+                  nvidia_smi=int(smi_rows("--query-gpu=memory.used")[0][0]),
+                  window=smi_card_mib())}
+    log("the card's used MiB by nvidia-smi and by a window of NVML:",
+        record["card_used_mib"])
     t0 = time.monotonic()
     with ThreadPoolExecutor(len(KERNEL_SOURCES) + 3) as pool:
         vgpu = pool.submit(_kernels.build_vgpu)  # the enforcement library
@@ -5412,6 +6009,10 @@ def main() -> int:
                    errors={n: b["errors"][n] for n in ("dk", "dv")}),
     ]
     record["kernels"] = kernels
+    record["card_transients"] = [(t - t_script, least, most)
+                                 for t, least, most in CARD_TRANSIENTS]
+    log("card transients (s, least MiB, highest MiB):",
+        json.dumps(record["card_transients"]))
     record["script_s"] = time.monotonic() - t_script
     record["phase_s"] = {k: record.get(k) for k in (
         "build_s", "enforce_s", "coresidency_s", "device_plugin_s")} | {

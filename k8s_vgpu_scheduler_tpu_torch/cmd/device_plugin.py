@@ -2,6 +2,7 @@
 
     vgpu-device-plugin --node-name <node> [--mode mem-share] \
         [--topology-policy best-effort] \
+        [--partition-strategy none|single|mixed] [--partition-chips <uuids>] \
         [--shim-dir /usr/local/vgpu --install-shim]
     python -m k8s_vgpu_scheduler_tpu_torch.cmd.device_plugin ...
 
@@ -17,8 +18,15 @@ into every container and puts on the ``PYTHONPATH`` of an oversubscribed
 one.  ``--topology-policy`` is the policy of kubelet's preferred
 allocation; under ``restricted`` or ``guaranteed`` the node carries
 ``vtpu.dev/ici-unsatisfiable-sizes`` (the card counts no free slice
-holds), published at start and after each health change.  The partition
-strategies (MIG), the usage counters and the debug endpoints wait for
+holds), published at start and after each health change.
+``--partition-strategy`` serves the cards' MIG devices by kubelet
+passthrough (``deviceplugin/partition.py``): ``mixed`` runs one plugin a
+flavor (``nvidia.com/mig-<profile>``) beside the whole-card plugin,
+``single`` serves them under ``nvidia.com/gpu`` in its place (no register
+stream then: the extender has no card to place), and a card with MIG on is
+never in the whole-card view that the plugin, the register stream and the
+annotation read.  ``single`` refuses to start where it would strand a
+card or mix flavors.  The usage counters and the debug endpoints wait for
 their own slices.
 """
 
@@ -33,6 +41,9 @@ import time
 
 from ..deviceplugin import (DeviceCache, DeviceRegister, GpuDevicePlugin,
                             publish_unsatisfiable)
+from ..deviceplugin.partition import (STRATEGIES, get_partition_plugins,
+                                      outside_both_views, single_refusal,
+                                      whole_chip_view)
 from ..deviceplugin.plugin import CrashLoopBreaker
 from ..k8s import make_client
 from ..tpulib import detect
@@ -57,6 +68,15 @@ def parse_args(argv=None):
                         "guaranteed = one contiguous slice or nothing, "
                         "restricted = contiguous where a slice of the count "
                         "exists, best-effort = contiguous where it can")
+    p.add_argument("--partition-strategy", default="none", choices=STRATEGIES,
+                   help="MIG: none = whole cards only, mixed = one plugin "
+                        "per MIG profile beside the whole-card plugin, "
+                        "single = the MIG devices under the main resource "
+                        "name in its place")
+    p.add_argument("--partition-chips", default="",
+                   help="comma-separated UUIDs of the MIG cards to "
+                        "partition (empty = every MIG card); a card with "
+                        "MIG on is never in the whole-card path")
     p.add_argument("--mode", default="mem-share",
                    choices=["default", "mem-share", "env-share"],
                    help="sharing mode (reference MLU modes): mem-share = "
@@ -121,6 +141,9 @@ def main(argv=None):
         device_cores_scaling=args.device_cores_scaling,
         disable_core_limit=args.disable_core_limit,
         topology_policy=args.topology_policy,
+        partition_strategy=args.partition_strategy,
+        partition_chips=tuple(
+            c for c in args.partition_chips.split(",") if c),
         sharing_mode=args.mode,
         shim_host_dir=args.shim_dir,
         cache_host_dir=args.cache_dir,
@@ -128,38 +151,76 @@ def main(argv=None):
     cfg = apply_node_config_overrides(cfg, args.config_file)
 
     backend = detect()
+    client = make_client(fake=args.fake_kube, kube_url=args.kube_url)
+    cache = DeviceCache(backend, poll_seconds=args.health_poll_seconds,
+                        heartbeat_seconds=args.heartbeat_seconds)
+    refusal = single_refusal(cache.inventory, cfg)
+    if refusal:
+        close = getattr(backend, "close", None)
+        if close is not None:
+            close()
+        raise SystemExit(refusal)
+    for uuid in outside_both_views(cache.inventory, cfg):
+        log.warning("GPU %s has MIG on and no partition plugin (strategy "
+                    "none, outside --partition-chips, or no MIG device "
+                    "yet): neither the whole-card nor a partition plugin "
+                    "serves it", uuid)
     if args.install_shim:
         from ..ops import _kernels
 
         log.info("installed %s", _kernels.install_shim(cfg.shim_host_dir))
-    client = make_client(fake=args.fake_kube, kube_url=args.kube_url)
-    cache = DeviceCache(backend, poll_seconds=args.health_poll_seconds,
-                        heartbeat_seconds=args.heartbeat_seconds)
-    plugin = GpuDevicePlugin(client, cache.inventory, cfg,
+    # The whole-card surfaces (kubelet's fan-out, the register stream, the
+    # annotation) leave out every card with MIG on; the view shares its
+    # ChipInfo objects with the cache's inventory, so health refreshes
+    # show in it.
+    whole_inv = whole_chip_view(cache.inventory)
+    plugin = GpuDevicePlugin(client, whole_inv, cfg,
                              socket_dir=args.socket_dir)
     register = DeviceRegister(backend, cfg)
+    # MIG (mig-strategy.go:169–210): `single` replaces the whole-card
+    # plugin under the main resource name, `mixed` runs one more plugin a
+    # flavor beside it.
+    part_plugins = get_partition_plugins(cfg.partition_strategy,
+                                         cache.inventory, cfg,
+                                         args.socket_dir)
+    serve_main = not (cfg.partition_strategy == "single" and part_plugins)
 
     def on_health_change(inv):
         plugin.notify_health_changed()
         # A health change alters which slice sizes stay placeable
         # (reference server.go:493–522).
-        publish_unsatisfiable(client, cfg.node_name, inv, cfg.topology_policy)
+        publish_unsatisfiable(client, cfg.node_name, whole_chip_view(inv),
+                              cfg.topology_policy)
 
-    cache.subscribe("plugin", on_health_change)
-    # The register stream is the lease-heartbeat channel: it alone
-    # receives the periodic unchanged-inventory keepalives.
-    cache.subscribe("register", register.push_update, heartbeat=True)
-    publish_unsatisfiable(client, cfg.node_name, cache.inventory,
-                          cfg.topology_policy)
+    def on_partition_health(inv):
+        for pp in part_plugins:
+            pp.notify_health_changed()
+
+    cache.subscribe("partition", on_partition_health)
+    if serve_main:
+        # The register stream and the whole-card path exist only while the
+        # whole-card plugin serves: under `single` kubelet allocates the
+        # MIG devices by passthrough, and the extender manages no card.
+        cache.subscribe("plugin", on_health_change)
+        # The register stream is the lease-heartbeat channel: it alone
+        # receives the periodic unchanged-inventory keepalives.
+        cache.subscribe("register", register.push_update, heartbeat=True)
+        publish_unsatisfiable(client, cfg.node_name, whole_inv,
+                              cfg.topology_policy)
     cache.start()
-    register.start()
-    plugin.serve()
+    if serve_main:
+        register.start()
+        plugin.serve()
+    for pp in part_plugins:
+        pp.serve()
+    supervised = ([plugin] if serve_main else []) + list(part_plugins)
 
     kubelet_sock = os.path.join(args.socket_dir, "kubelet.sock")
 
     def try_register():
         try:
-            plugin.register_with_kubelet(kubelet_sock)
+            for p in supervised:
+                p.register_with_kubelet(kubelet_sock)
             return True
         except Exception as e:  # noqa: BLE001
             log.warning("kubelet registration failed: %s", e)
@@ -178,20 +239,26 @@ def main(argv=None):
     breaker = CrashLoopBreaker()
 
     def ensure_serving(count_crash: bool) -> bool:
-        """Restart a dead plugin server; True if it was restarted.
+        """Restart every dead plugin server; True if one was restarted.
         ``count_crash`` is False when the kubelet just restarted (it wipes
-        the whole plugin dir — an external event, not a server crash)."""
-        if plugin.serving():
+        the whole plugin dir — an external event, not a server crash); the
+        breaker counts at most one crash a tick, however many plugins are
+        down."""
+        dead = [p for p in supervised if not p.serving()]
+        if not dead:
             return False
         if count_crash:
-            breaker.record(f"device-plugin server ({plugin.resource_name})")
-        log.warning("server for %s down; restarting", plugin.resource_name)
-        try:
-            plugin.serve()
-            return True
-        except Exception:  # noqa: BLE001 — retried next tick
-            log.exception("restart failed for %s", plugin.resource_name)
-            return False
+            breaker.record("device-plugin server ("
+                           + ",".join(p.resource_name for p in dead) + ")")
+        restarted = False
+        for p in dead:
+            log.warning("server for %s down; restarting", p.resource_name)
+            try:
+                p.serve()
+                restarted = True
+            except Exception:  # noqa: BLE001 — retried next tick
+                log.exception("restart failed for %s", p.resource_name)
+        return restarted
 
     try:
         while True:
@@ -213,6 +280,8 @@ def main(argv=None):
     except KeyboardInterrupt:
         pass
     finally:
+        for pp in part_plugins:
+            pp.stop()
         plugin.stop()
         register.stop()
         cache.stop()

@@ -21,6 +21,7 @@ from typing import List, Optional
 from ..tpulib.backend import Backend
 from ..tpulib.types import NodeInventory
 from ..util.config import Config
+from .partition import whole_chip_view
 
 log = logging.getLogger(__name__)
 
@@ -29,19 +30,22 @@ def advertised_devices(inv: NodeInventory, cfg: Config) -> List[dict]:
     """Scaled capacity, one dict a card in ``ChipDevice``'s fields:
     deviceMemoryScaling > 1 oversubscribes memory, deviceCoresScaling > 1
     compute (register.go:422–426).  ``devmem`` is the card's advertised
-    MiB (``tpulib.backend.advertised_mib`` on a node)."""
+    MiB (``tpulib.backend.advertised_mib`` on a node).  Only the cards of
+    the whole-card view: a card with MIG on is allocated by kubelet
+    passthrough, and advertising it to the extender would let the two
+    paths book the same card (``partition.whole_chip_view``)."""
     return [
         dict(id=chip.uuid, count=cfg.effective_split_count(),
              devmem=int(chip.hbm_mib * cfg.device_memory_scaling),
              type=chip.type, health=chip.healthy, coords=list(chip.coords),
              cores=int(chip.cores * cfg.device_cores_scaling))
-        for chip in inv.chips
+        for chip in whole_chip_view(inv).chips
     ]
 
 
 def inventory_to_request(node_name: str, inv: NodeInventory, cfg: Config):
-    """The register stream's message: ``advertised_devices`` and the
-    fabric."""
+    """The register stream's message: ``advertised_devices`` (the
+    whole-card view) and the fabric."""
     from ..api import device_register_pb2 as pb
 
     topo = pb.Topology(

@@ -30,7 +30,7 @@ from itertools import product
 from typing import Optional
 
 from . import nvml
-from .types import ChipInfo, NodeInventory, TopologyDesc
+from .types import ChipInfo, MigDevice, NodeInventory, TopologyDesc
 
 log = logging.getLogger(__name__)
 
@@ -70,10 +70,17 @@ class MockBackend(Backend):
           "hbm_mib": 81079,              # default per device
           "chips": [                      # optional; defaults to full mesh
             {"coords": [0], "uuid": "...", "healthy": true,
-             "hbm_mib": 81079, "type": "NVIDIA-h100"},
+             "hbm_mib": 81079, "type": "NVIDIA-h100",
+             "mig": [{"slices": 3, "mib": 40192, "uuid": "MIG-..."},
+                     null, ...]},    # optional: MIG on, one a slot
             ...
           ]
         }
+
+    A chip's ``"mig"`` is the mock NVML's (``csrc/vgpu/mock_nvml.cc``):
+    each entry a MIG device (``compute_slices`` defaults to ``slices``,
+    the UUID to ``MIG-<gen>-mock-<i>-<slot>``, its memory is ``mib``), a
+    null an empty slot; an empty list is MIG on with no device made.
     """
 
     def __init__(self, fixture: Optional[dict] = None, path: Optional[str] = None):
@@ -110,6 +117,8 @@ class MockBackend(Backend):
                         healthy=bool(c.get("healthy", True)),
                         serial=c.get("serial", f"SN{i:04d}"),
                         board=c.get("board", "mock-board"),
+                        mig_enabled=c.get("mig") is not None,
+                        mig=mock_mig(c.get("mig") or (), gen, i),
                     )
                 )
         else:
@@ -147,10 +156,23 @@ class MockBackend(Backend):
         return changed
 
 
+def mock_mig(entries, gen: str, index: int) -> tuple:
+    """A fixture chip's ``"mig"`` list as its MIG devices, as the mock
+    NVML answers it."""
+    return tuple(
+        MigDevice(uuid=m.get("uuid", f"MIG-{gen}-mock-{index}-{k}"),
+                  slices=int(m["slices"]),
+                  compute_slices=int(m.get("compute_slices", m["slices"])),
+                  memory_mib=int(m["mib"]), hbm_mib=int(m["mib"]))
+        for k, m in enumerate(entries) if m is not None)
+
+
 class TorchBackend(Backend):
     """The real cards, through ``torch.cuda.get_device_properties``: name,
     total memory, UUID and SM count.  All visible cards are taken as one
-    NVLink/NVSwitch domain (coordinates along one axis)."""
+    NVLink/NVSwitch domain (coordinates along one axis).  No card carries
+    MIG devices: torch sees a MIG instance only as the one CUDA device of
+    its process, not the card's layout."""
 
     def inventory(self) -> NodeInventory:
         import torch  # deferred: the control plane must not need torch
@@ -213,6 +235,10 @@ class NvmlBackend(Backend):
       its plain choice of cards for any other, and kubelet's preferred
       allocation leaves the choice to kubelet.
 
+    MIG: a card whose current MIG mode is on carries its MIG devices
+    (:meth:`mig`); one with MIG off, or whose driver refuses the MIG
+    query as not supported, carries none.
+
     Health: a card is unhealthy while its handle, UUID or memory query
     fails, and from its first critical Xid event on (an Xid an application
     causes excepted), where the driver delivers events; ``events_error``
@@ -253,7 +279,48 @@ class NvmlBackend(Backend):
             if card["memory_v2"] is not None:
                 card["memory_v2"] = dict(zip(
                     ("total", "reserved", "free", "used"), card["memory_v2"]))
+            card["mig"] = self.mig(h, card["not_supported"])
             out.append(card)
+        return out
+
+    def mig(self, handle, not_supported: list) -> Optional[dict]:
+        """A card's MIG state: ``mode``, [current, pending]
+        (``nvml.MIG_ENABLE`` or ``MIG_DISABLE``), and, where the current
+        mode is on, ``devices``: per occupied slot its ``slot``, ``uuid``,
+        ``slices`` and ``compute_slices`` (the GPU and compute instances'
+        slice counts), ``memory_mib`` (the attributes' memory size) and
+        ``hbm_mib`` (:func:`advertised_mib` of the MIG handle's memory).
+        None where the driver refuses ``nvmlDeviceGetMigMode`` as not
+        supported, which is then named in ``not_supported``: MIG off."""
+        try:
+            mode = self.nvml.mig_mode(handle)
+        except nvml.NvmlError as e:
+            if e.code != nvml.ERROR_NOT_SUPPORTED:
+                raise
+            not_supported.append(e.call)
+            return None
+        out = dict(mode=list(mode), devices=[])
+        if mode[0] != nvml.MIG_ENABLE:
+            return out
+        for slot in range(self.nvml.max_mig_devices(handle)):
+            h = self.nvml.mig_handle(handle, slot)
+            if h is None:
+                continue
+            attrs = self.nvml.attributes(h)
+            memory = dict(memory_total=self.nvml.memory(h)[0], memory_v2=None)
+            try:
+                memory["memory_v2"] = dict(zip(
+                    ("total", "reserved", "free", "used"),
+                    self.nvml.memory_v2(h)))
+            except nvml.NvmlError as e:
+                if e.code != nvml.ERROR_NOT_SUPPORTED:
+                    raise
+            out["devices"].append(dict(
+                slot=slot, uuid=self.nvml.uuid(h),
+                slices=attrs["gpuInstanceSliceCount"],
+                compute_slices=attrs["computeInstanceSliceCount"],
+                memory_mib=attrs["memorySizeMB"],
+                hbm_mib=advertised_mib(memory)))
         return out
 
     def fabric(self, n: int) -> dict:
@@ -300,9 +367,21 @@ class NvmlBackend(Backend):
                 coords=() if kind == "none" else (i,),
                 serial=c["serial"] or "",
                 board=c["name"],
+                mig_enabled=bool(c["mig"])
+                and c["mig"]["mode"][0] == nvml.MIG_ENABLE,
+                mig=tuple(MigDevice(**{k: d[k] for k in (
+                    "uuid", "slices", "compute_slices", "memory_mib",
+                    "hbm_mib")}) for d in (c["mig"] or {}).get("devices", ())),
             )
             for i, c in enumerate(cards)
         ]
+        for c in cards:
+            if c["mig"] and c["mig"]["mode"][0] == nvml.MIG_ENABLE \
+                    and not c["mig"]["devices"]:
+                log.warning("GPU %d (%s) has MIG on and no MIG device: "
+                            "it can run nothing, and no plugin serves it, "
+                            "until one is made",
+                            c["index"], c["uuid"])
         if self.events is None and not self.events_error:
             try:
                 self.events = nvml.XidEvents(

@@ -19,6 +19,12 @@ Every entry point is declared with its C types here.  The ABI it relies on
 - ``nvmlDeviceGetP2PStatus`` takes an ``nvmlGpuP2PCapsIndex_t`` and
   writes an ``nvmlGpuP2PStatus_t``, both C enums (``int``), with the values
   below;
+- ``nvmlDeviceGetMigMode`` writes two ``unsigned int`` modes (current,
+  pending), ``NVML_DEVICE_MIG_DISABLE`` 0 or ``NVML_DEVICE_MIG_ENABLE``
+  1; ``nvmlDeviceGetMigDeviceHandleByIndex`` returns
+  ``NVML_ERROR_NOT_FOUND`` (6) for an empty slot; ``nvmlDeviceAttributes_t``
+  is eight ``unsigned int`` and an ``unsigned long long`` (40 bytes), and
+  ``nvmlDeviceGetAttributes_v2`` answers only for a MIG handle;
 - every call returns an ``nvmlReturn_t``: nonzero raises :class:`NvmlError`
   with ``nvmlErrorString``'s text.
 
@@ -34,6 +40,7 @@ LIBRARY = "libnvidia-ml.so.1"
 
 SUCCESS = 0
 ERROR_NOT_SUPPORTED = 3
+ERROR_NOT_FOUND = 6
 ERROR_TIMEOUT = 10
 ERROR_GPU_IS_LOST = 15
 ERROR_FUNCTION_NOT_FOUND = 13
@@ -50,6 +57,10 @@ P2P_STATUS = {0: "OK", 1: "CHIPSET_NOT_SUPPORTED", 2: "GPU_NOT_SUPPORTED",
               3: "IOH_TOPOLOGY_NOT_SUPPORTED", 4: "DISABLED_BY_REGKEY",
               5: "NOT_SUPPORTED", 6: "UNKNOWN"}
 P2P_STATUS_OK = 0
+
+# NVML_DEVICE_MIG_DISABLE and NVML_DEVICE_MIG_ENABLE (nvml.h, CUDA 12.8).
+MIG_DISABLE = 0
+MIG_ENABLE = 1
 
 # nvmlEventTypeXidCriticalError, the one event the reference registers.
 EVENT_XID_CRITICAL = 0x8
@@ -90,6 +101,20 @@ class EventData(ctypes.Structure):
                 ("computeInstanceId", ctypes.c_uint)]
 
 
+class DeviceAttributes(ctypes.Structure):
+    """``nvmlDeviceAttributes_t`` as the nvml.h of CUDA 12.8 lays it out."""
+
+    _fields_ = [("multiprocessorCount", ctypes.c_uint),
+                ("sharedCopyEngineCount", ctypes.c_uint),
+                ("sharedDecoderCount", ctypes.c_uint),
+                ("sharedEncoderCount", ctypes.c_uint),
+                ("sharedJpegCount", ctypes.c_uint),
+                ("sharedOfaCount", ctypes.c_uint),
+                ("gpuInstanceSliceCount", ctypes.c_uint),
+                ("computeInstanceSliceCount", ctypes.c_uint),
+                ("memorySizeMB", ctypes.c_ulonglong)]
+
+
 class NvmlError(RuntimeError):
     """A nonzero ``nvmlReturn_t``: ``code`` is the value, ``call`` the
     entry point that returned it."""
@@ -119,6 +144,10 @@ SIGNATURES = {
     "nvmlDeviceGetMemoryInfo_v2": (_h, ctypes.POINTER(MemoryV2)),
     "nvmlDeviceGetP2PStatus": (_h, _h, ctypes.c_int,
                                ctypes.POINTER(ctypes.c_int)),
+    "nvmlDeviceGetMigMode": (_h, _pu, _pu),
+    "nvmlDeviceGetMaxMigDeviceCount": (_h, _pu),
+    "nvmlDeviceGetMigDeviceHandleByIndex": (_h, _u, ctypes.POINTER(_h)),
+    "nvmlDeviceGetAttributes_v2": (_h, ctypes.POINTER(DeviceAttributes)),
     "nvmlDeviceGetSupportedEventTypes": (_h,
                                          ctypes.POINTER(ctypes.c_ulonglong)),
     "nvmlEventSetCreate": (ctypes.POINTER(_h),),
@@ -223,6 +252,39 @@ class Nvml:
         self._call("nvmlDeviceGetP2PStatus", a, b, index,
                    ctypes.byref(status))
         return status.value
+
+    def mig_mode(self, handle) -> Tuple[int, int]:
+        """``nvmlDeviceGetMigMode``: (current, pending), each
+        ``MIG_DISABLE`` or ``MIG_ENABLE``."""
+        current, pending = ctypes.c_uint(), ctypes.c_uint()
+        self._call("nvmlDeviceGetMigMode", handle, ctypes.byref(current),
+                   ctypes.byref(pending))
+        return current.value, pending.value
+
+    def max_mig_devices(self, handle) -> int:
+        v = ctypes.c_uint()
+        self._call("nvmlDeviceGetMaxMigDeviceCount", handle, ctypes.byref(v))
+        return v.value
+
+    def mig_handle(self, handle, index: int):
+        """The MIG device in slot ``index`` of a card, or None where the
+        slot is empty (``NVML_ERROR_NOT_FOUND``)."""
+        h = _h()
+        try:
+            self._call("nvmlDeviceGetMigDeviceHandleByIndex", handle, index,
+                       ctypes.byref(h))
+        except NvmlError as e:
+            if e.code == ERROR_NOT_FOUND:
+                return None
+            raise
+        return h
+
+    def attributes(self, handle) -> dict:
+        """``nvmlDeviceGetAttributes_v2`` of a MIG handle, as a dict of
+        ``nvmlDeviceAttributes_t``'s fields."""
+        a = DeviceAttributes()
+        self._call("nvmlDeviceGetAttributes_v2", handle, ctypes.byref(a))
+        return {name: getattr(a, name) for name, _ in a._fields_}
 
 
 class XidEvents:

@@ -78,6 +78,12 @@ class Config:
     node_name: str = ""
     scheduler_endpoint: str = "127.0.0.1:9090"
 
+    # Card partitions (deviceplugin/partition.py): "none", "single" or
+    # "mixed" over the MIG instances NVML reports, and the UUIDs of the
+    # MIG cards to partition (empty: every one).
+    partition_strategy: str = "none"
+    partition_chips: tuple = ()
+
     # The node's install of the interposer (libvgpu_cuda.so and the
     # ld.so.preload naming it), and the per-container region directories
     # the node monitor scans (cmd/monitor.py's --container-root).

@@ -110,7 +110,8 @@ def test_nvml_over_the_mock_equals_the_jax_backend(library, fixture_file,
                                                    name):
     """The JAX backend's inventory of the same file, its device kind
     ("TPU-<gen>", "TPU-<gen>-mock-<i>") written as the port's (a fixture
-    without a memory size defaults to a TPU's there, an H100's here)."""
+    without a memory size defaults to a TPU's there, an H100's here), and
+    no MIG device on any card (a field the JAX ChipInfo has not)."""
     path = fixture_file(FIXTURES[name])
     b = backend.NvmlBackend(library)
     try:
@@ -124,6 +125,7 @@ def test_nvml_over_the_mock_equals_the_jax_backend(library, fixture_file,
     for c in j.chips:
         d = {k: v for k, v in dataclasses.asdict(c).items() if k != "board"}
         d["type"] = d["type"].replace("TPU-", "NVIDIA-")
+        d["mig_enabled"], d["mig"] = False, ()
         if d["uuid"] == f"TPU-{gen}-mock-{c.index}":
             d["uuid"] = f"GPU-{gen}-mock-{c.index}"
         if not fabric:
@@ -150,7 +152,8 @@ def test_cards_read_every_field(library, fixture_file):
         memory_used=480 << 20, not_supported=[], serial="SN0001",
         pci_bus_id="00000000:02:00.0", minor=1,
         memory_v2=dict(total=81559 << 20, reserved=480 << 20,
-                       free=81079 << 20, used=0))
+                       free=81079 << 20, used=0),
+        mig=dict(mode=[nvml.MIG_DISABLE, nvml.MIG_DISABLE], devices=[]))
 
 
 @pytest.mark.parametrize("refused,want_mib", [
@@ -497,3 +500,170 @@ def test_a_node_without_a_fabric_is_held_to_it_end_to_end(
     for allocator_policy in ("best-effort", "restricted", "guaranteed"):
         assert SliceAllocator(inv, allocator_policy).preferred(
             vids, [], 2) == []
+
+
+# -- MIG ---------------------------------------------------------------------------
+MIG_FIXTURE = {
+    "generation": "h100", "mesh": [4], "hbm_mib": 81079,
+    "chips": [
+        {"coords": [0], "mig": [{"slices": 3, "mib": 40448}] * 2},
+        {"coords": [1], "mig": [{"slices": 3, "mib": 40448,
+                                 "uuid": "MIG-1a"}, None,
+                                {"slices": 3, "mib": 40448,
+                                 "uuid": "MIG-1c"}]},
+        {"coords": [2], "mig": [{"slices": 1, "mib": 9984}] * 7},
+        {"coords": [3]}]}
+
+
+def test_mig_structs_and_values_are_nvml_h_s():
+    """``nvmlDeviceAttributes_t`` (pinned by a static_assert in the mock
+    too) and the MIG mode and NOT_FOUND values as the nvml.h of the card
+    machine's CUDA 12.8 toolkit defines them."""
+    assert ctypes.sizeof(nvml.DeviceAttributes) == 40
+    assert nvml.DeviceAttributes.gpuInstanceSliceCount.offset == 24
+    assert nvml.DeviceAttributes.memorySizeMB.offset == 32
+    assert (nvml.MIG_DISABLE, nvml.MIG_ENABLE, nvml.ERROR_NOT_FOUND) == (
+        0, 1, 6)
+    assert nvml.SIGNATURES["nvmlDeviceGetMigMode"][1:] == (
+        ctypes.POINTER(ctypes.c_uint),) * 2
+
+
+def test_mig_devices_over_the_mock(library, fixture_file):
+    """MIG off, two 3g.40gb, two in slots 0 and 2 with slot 1 empty
+    (NVML_ERROR_NOT_FOUND, skipped), seven 1g.10gb."""
+    fixture_file(MIG_FIXTURE)
+    b = backend.NvmlBackend(library)
+    try:
+        cards = b.cards()
+        h = b.nvml.handle(1)
+        assert b.nvml.mig_handle(h, 1) is None
+        with pytest.raises(nvml.NvmlError) as ei:
+            b.nvml.attributes(h)  # a card's own handle
+        assert ei.value.code == nvml.ERROR_NOT_SUPPORTED
+        inv = b.inventory()
+    finally:
+        b.close()
+    modes = [c["mig"]["mode"] for c in cards]
+    assert modes == [[1, 1]] * 3 + [[0, 0]]
+    assert [c.mig_enabled for c in inv.chips] == [True] * 3 + [False]
+    assert [[d["slot"] for d in c["mig"]["devices"]] for c in cards] == [
+        [0, 1], [0, 2], list(range(7)), []]
+    assert cards[1]["mig"]["devices"][1] == dict(
+        slot=2, uuid="MIG-1c", slices=3, compute_slices=3, memory_mib=40448,
+        hbm_mib=40448)
+    assert [[m.profile for m in c.mig] for c in inv.chips] == [
+        ["3g.40gb"] * 2, ["3g.40gb"] * 2, ["1g.10gb"] * 7, []]
+    assert inv.chips[0].mig[0].uuid == "MIG-h100-mock-0-0"
+
+
+def test_nvml_and_the_fixture_backend_agree_on_mig(library, fixture_file):
+    path = fixture_file(MIG_FIXTURE)
+    b = backend.NvmlBackend(library)
+    try:
+        got = b.inventory()
+    finally:
+        b.close()
+    want = backend.MockBackend(path=str(path)).inventory()
+    assert without_board(got, False) == without_board(want, False)
+
+
+def test_a_refused_mig_query_is_mig_off(library, fixture_file, monkeypatch):
+    """A driver that refuses nvmlDeviceGetMigMode as not supported: the
+    call is recorded, and the card has no MIG device."""
+    fixture_file(MIG_FIXTURE)
+    monkeypatch.setenv("MOCK_NVML_NOT_SUPPORTED", "nvmlDeviceGetMigMode")
+    b = backend.NvmlBackend(library)
+    try:
+        cards = b.cards()
+        inv = b.inventory()
+    finally:
+        b.close()
+    assert all(c["mig"] is None
+               and c["not_supported"] == ["nvmlDeviceGetMigMode"]
+               for c in cards)
+    assert all(c.mig == () and not c.mig_enabled for c in inv.chips)
+
+
+# A card with MIG on and no MIG device yet (the state between
+# `nvidia-smi -mig 1` and making instances), and a GPU instance of three
+# slices holding a compute instance of one.
+MIG_EDGE_FIXTURE = {
+    "generation": "h100", "mesh": [3], "hbm_mib": 81079,
+    "chips": [{"coords": [0], "mig": []},
+              {"coords": [1], "mig": [{"slices": 3, "compute_slices": 1,
+                                       "mib": 40448}]},
+              {"coords": [2]}]}
+
+
+def test_mig_on_with_no_device_and_a_smaller_compute_instance(
+        library, fixture_file):
+    """NVML answers MIG on for card 0 with every slot NOT_FOUND, and card
+    1's compute instance names its profile ``1c.3g.40gb``; the fixture
+    backend agrees."""
+    path = fixture_file(MIG_EDGE_FIXTURE)
+    b = backend.NvmlBackend(library)
+    try:
+        cards = b.cards()
+        inv = b.inventory()
+    finally:
+        b.close()
+    assert [c["mig"]["mode"] for c in cards] == [[1, 1], [1, 1], [0, 0]]
+    assert cards[0]["mig"]["devices"] == []
+    assert [(c.mig_enabled, [m.profile for m in c.mig])
+            for c in inv.chips] == [(True, []), (True, ["1c.3g.40gb"]),
+                                    (False, [])]
+    want = backend.MockBackend(path=str(path)).inventory()
+    assert without_board(inv, False) == without_board(want, False)
+
+
+@pytest.mark.parametrize("strategy", ["none", "single", "mixed"])
+def test_a_mig_card_with_no_device_is_in_neither_view(
+        library, fixture_file, strategy):
+    """A card with MIG on runs no CUDA context on the parent whether or
+    not a MIG device was made yet, so it is never in the whole-card view
+    (kubelet's plugin, the register stream); with no MIG device no
+    partition plugin serves it either, and the agent names it at start."""
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import partition, register
+    from k8s_vgpu_scheduler_tpu_torch.util.config import Config
+
+    fixture_file(MIG_EDGE_FIXTURE)
+    b = backend.NvmlBackend(library)
+    try:
+        inv = b.inventory()
+    finally:
+        b.close()
+    cfg = Config(node_name="n", partition_strategy=strategy)
+    whole = [c.uuid for c in partition.whole_chip_view(inv).chips]
+    card0, card1, card2 = (c.uuid for c in inv.chips)
+    assert whole == [card2]
+    assert [d.id for d in register.inventory_to_request("n", inv, cfg)
+            .devices] == [card2]
+    assert {p.chip_uuid for p in partition.enumerate_partitions(
+        inv, cfg)} == {card1}
+    assert partition.outside_both_views(inv, cfg) == (
+        [card0, card1] if strategy == "none" else [card0])
+    why = partition.single_refusal(inv, cfg)
+    if strategy == "single":  # card 2 alone, MIG off, is stranded
+        assert f"strand cards with MIG off ['{card2}']" in why
+    else:
+        assert why is None
+
+
+# The H100 80GB's MIG profiles, at sizes just under their nominal GiB as
+# the driver gives them: the name rounds the size up, where the JAX
+# package's flavor (1c.<MiB // 1024>gb) rounds down.
+H100_PROFILES = {"1g.10gb": (1, 9984), "1g.20gb": (1, 20096),
+                 "2g.20gb": (2, 20096), "3g.40gb": (3, 40448),
+                 "4g.40gb": (4, 40448), "7g.80gb": (7, 81152)}
+
+
+@pytest.mark.parametrize("name", list(H100_PROFILES))
+def test_profile_names_round_the_memory_up(name):
+    from k8s_vgpu_scheduler_tpu_torch.tpulib.types import MigDevice
+
+    slices, mib = H100_PROFILES[name]
+    m = MigDevice(uuid="MIG-x", slices=slices, compute_slices=slices,
+                  memory_mib=mib, hbm_mib=mib)
+    assert m.profile == name
+    assert mib // 1024 < int(name.split(".")[1][:-2])
+    assert MigDevice("MIG-x", 3, 1, 40448, 40448).profile == "1c.3g.40gb"

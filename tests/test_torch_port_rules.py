@@ -112,7 +112,9 @@ def test_new_modules_are_under_the_import_rules():
                 "health/rescuer.py", "scheduler/preempt.py",
                 "shim/startup.py", "topology/__init__.py",
                 "topology/torus.py", "placement/__init__.py",
-                "placement/mesh.py", "deviceplugin/allocator.py"):
+                "placement/mesh.py", "deviceplugin/allocator.py",
+                "deviceplugin/partition.py", "oci/__init__.py",
+                "oci/spec.py", "oci/runtime.py", "cmd/oci_runtime.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -422,10 +424,10 @@ PORT_FILES = sorted(p for p in PORT.rglob("*")
 # a control plane that holds no tensor.
 NODE_AGENT = sorted(p for d in ("deviceplugin", "k8s", "util", "api",
                                 "scheduler", "health", "topology",
-                                "placement")
+                                "placement", "oci")
                     for p in (PORT / d).glob("*.py")) + [
     PORT / "tpulib" / "nvml.py", PORT / "cmd" / "device_plugin.py",
-    PORT / "cmd" / "scheduler.py"]
+    PORT / "cmd" / "scheduler.py", PORT / "cmd" / "oci_runtime.py"]
 
 
 @pytest.mark.parametrize("path", NODE_AGENT,
@@ -470,6 +472,43 @@ def test_allocate_core_runs_without_grpc_protobuf_or_torch(tmp_path):
         "assert r.envs['CUDA_DEVICE_MEMORY_LIMIT_0'] == '24000', r\n"
         "assert not nodelock.is_locked(kube, 'n')\n"
         "assert advertised_devices(inv, cfg)[0]['devmem'] == 81079\n"
+        "assert not {'grpc', 'torch'} & {m.split('.')[0] for m, v in "
+        "sys.modules.items() if v is not None}\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_partitions_and_the_oci_wrapper_run_without_grpc_protobuf_or_torch(
+        tmp_path):
+    """The partition core (enumeration, the whole-card view, passthrough
+    Allocate, the single refusals) and the OCI wrapper's injection, with
+    grpc and protobuf blocked."""
+    code = (
+        "import sys\n"
+        "for name in ('grpc', 'google.protobuf', 'torch'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "from k8s_vgpu_scheduler_tpu_torch.deviceplugin import partition\n"
+        "from k8s_vgpu_scheduler_tpu_torch.cmd import oci_runtime\n"
+        "from k8s_vgpu_scheduler_tpu_torch.oci import inject_vgpu\n"
+        "from k8s_vgpu_scheduler_tpu_torch.tpulib import MockBackend\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util.config import Config\n"
+        "fx = {'generation': 'h100', 'mesh': [2], 'chips': [\n"
+        "    {'coords': [0], 'mig': [{'slices': 3, 'mib': 40448}] * 2},\n"
+        "    {'coords': [1]}]}\n"
+        "inv = MockBackend(fx).inventory()\n"
+        f"cfg = Config(partition_strategy='mixed', cache_host_dir="
+        f"{str(tmp_path)!r}, shim_host_dir={str(tmp_path / 'shim')!r})\n"
+        "[p] = partition.get_partition_plugins('mixed', inv, cfg,\n"
+        f"                                 {str(tmp_path)!r})\n"
+        "r = p.allocate(['MIG-h100-mock-0-1'])\n"
+        "assert r.envs['CUDA_DEVICE_MEMORY_LIMIT_0'] == '40448', r\n"
+        "assert [c.uuid for c in partition.whole_chip_view(inv).chips]"
+        " == ['GPU-h100-mock-1']\n"
+        "assert partition.single_refusal(inv, Config(\n"
+        "    partition_strategy='single'))\n"
+        "spec = inject_vgpu({0: 100})({'process': {}})\n"
+        "assert spec['process']['env'], spec\n"
         "assert not {'grpc', 'torch'} & {m.split('.')[0] for m, v in "
         "sys.modules.items() if v is not None}\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -693,3 +732,5 @@ def test_package_data_ships_every_source_the_port_builds():
         "k8s_vgpu_scheduler_tpu_torch.cmd.device_plugin:main"
     assert conf["project"]["scripts"]["vgpu-scheduler"] == \
         "k8s_vgpu_scheduler_tpu_torch.cmd.scheduler:main"
+    assert conf["project"]["scripts"]["vgpu-oci-runtime"] == \
+        "k8s_vgpu_scheduler_tpu_torch.cmd.oci_runtime:main"

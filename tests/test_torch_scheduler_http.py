@@ -470,7 +470,8 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
     and each pod, written with resources only, goes through /webhook,
     /filter, /bind and Allocate; each ends ``success`` with the lock
     released and its grant (the card, its MiB, 50 cores) written by
-    Filter; torch is never loaded."""
+    Filter; torch is never loaded.  The mock MIG node's leg runs there
+    too, its checks made in the child."""
     lib = _kernels.build_mock_nvml()
     fixture = tmp_path / "nvml.json"
     fixture.write_text(json.dumps({"generation": "h100", "mesh": [1],
@@ -521,6 +522,20 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
     assert hgx["arc3"]["failed"]["hgx-node"].startswith("no-ici-slice:")
     assert hgx["bad_mesh"]["status"]["message"] == \
         chip_smoke.BAD_MESH_MESSAGE
+    # MIG: the mock's card has MIG off; the mock MIG node serves its
+    # instances by flavor, registers its MIG-off card alone, and both
+    # refusals of single exit non-zero with their messages.
+    mig = chip_smoke.mig_summary(na)
+    assert mig["real"]["nvml"] == {"mode": [0, 0], "devices": []}
+    assert mig["registered"] == [list(r) for r in chip_smoke.MIG_REGISTERED]
+    assert mig["list_and_watch"]["nvidia.com/mig-3g.40gb"][0] == 4
+    assert mig["list_and_watch"]["nvidia.com/mig-1g.10gb"][0] == 7
+    assert mig["whole_pod_failed"]["mig-node"]
+    assert mig["allocate"]["envs"]["CUDA_DEVICE_MEMORY_LIMIT_0"] == str(
+        chip_smoke.MIG_3G_MIB)
+    assert mig["unknown"]["code"] == "INVALID_ARGUMENT"
+    assert {k: v["rc"] != 0 for k, v in mig["refusals"].items()} == {
+        "subset": True, "flavors": True}
 
 
 def test_the_control_plane_child_preempts_and_rescues_on_the_mock_nvml(

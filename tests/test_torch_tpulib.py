@@ -39,11 +39,13 @@ FIXTURES = {
 
 def as_gpu(inv):
     """The JAX backend's inventory with its defaulted device-kind strings
-    ("TPU-<gen>", "TPU-<gen>-mock-<i>") written as the port's."""
+    ("TPU-<gen>", "TPU-<gen>-mock-<i>") written as the port's, and no MIG
+    device on any card (a field the JAX ChipInfo has not)."""
     gen = inv.topology.generation
     chips = []
     for c in inv.chips:
         d = dataclasses.asdict(c)
+        d["mig_enabled"], d["mig"] = False, ()
         if d["type"] == f"TPU-{gen}":
             d["type"] = f"NVIDIA-{gen}"
         if d["uuid"] == f"TPU-{gen}-mock-{c.index}":
