@@ -46,7 +46,11 @@ beside nvidia-smi's (never changed), and a mock MIG node runs the agent's
 entry point under ``--partition-strategy mixed``, serving its MIG devices
 to this script as kubelet; the two pods then run one flat
 leg of the co-residency phase with the env a kubelet builds from those
-answers and nothing else, and a process started from a bundle that
+answers and nothing else, while the node's observability surface
+(``cmd/monitor.py``'s ``serve`` over that leg's monitor loop: the
+exporter, NodeTPUInfo and ``/debug``; ``NodeView``) is read three times
+against both pods' regions and ``vgpu-smi`` runs under T's grant env
+alone, and a process started from a bundle that
 ``vgpu-oci-runtime`` injected is held to its grant.  Then the pod's life cycle:
 checkpoint-first eviction from the scheduler's own plan (phase_preempt:
 the control plane up for the whole phase in a child without torch,
@@ -57,7 +61,12 @@ scheduler to leave for a high-priority pod that fits nowhere,
 checkpoints at the next step boundary and exits; the high-priority pod
 is placed in its room and spills its AdamW state to the host through the
 shim the startup hook installed as it imported its port; the trainer, rescheduled, finishes bit
-for bit as an uninterrupted run; then the node's lease expires and the
+for bit as an uninterrupted run; ``vgpu-monitor`` itself, as a process
+over the placed pods' regions, feeds their usage counters through
+NodeTPUInfo and the register stream into the extender's ledger, which
+its exporter, ``/usagez``, ``/debug/tracez``, ``vgpu-report`` and
+``vgpu-smi top`` must show as the monitor counted them (``FleetView``);
+then the node's lease expires and the
 rescuer rescinds what is left on it; and the serving
 pod's own entry point (phase_quant_serve, ``python -m
 k8s_vgpu_scheduler_tpu_torch.cmd.serve``) restores the 32-layer model
@@ -76,9 +85,12 @@ and its region.  Exits non-zero if any phase fails, and at once
 Stdout ends with: the enforcement phase's ``{"phase": "enforce", ...}``
 line, the co-residency phase's ``{"phase": "coresidency", ...}`` line,
 the ``{"phase": "device_plugin", ...}`` line (NVML's fields, every
-memory size read, the fabric's answers and placements with their times),
-the ``{"phase": "preempt", ...}`` and ``{"phase": "quant_serve", ...}``
-lines, the ``{"phase": "workloads", ...}`` line and a ``{"workloads":
+memory size read, the fabric's answers and placements with their times,
+and ``node_view``: each reading's scrape and RPC seconds, bytes,
+families and samples, the switches, vgpu-smi's view and seconds),
+the ``{"phase": "preempt", ...}`` (with ``fleet_view``: both scrapes,
+the ledger's rows, the phase counts, V's trace, each command's seconds)
+and ``{"phase": "quant_serve", ...}`` lines, the ``{"phase": "workloads", ...}`` line and a ``{"workloads":
 [...]}`` line (one row a case: images/s in both legs and their ratio, the
 grant and peaks, MFU, the bf16 error), each phase's seconds, a
 ``{"kernels": [...]}`` line (per kernel: launches on the main
@@ -210,13 +222,14 @@ INTERPOSER_SWAP_STEPS = 3
 # one process, for a pod's two and for a process that imports only torch;
 # the same 5% between the region's `used` and that reading; the fixed
 # context charge at most 64 MiB above what the card shows outside the
-# allocations, and never below it; 3 train steps traced for their device
-# time after the 8 timed ones; AB_PAIRS pairs of train children without
+# allocations, and never below it; INTERPOSER_STEPS_TRACED train steps
+# traced for their device time after the 8 timed ones; AB_PAIRS pairs of train children without
 # and with the interposer, uncapped, for its end-to-end cost; the C
 # driver's null kernel launched NULL_LAUNCHES times each way for its host
 # cost a launch; a co-tenant outside the pod allocating and freeing 1 GiB
-# blocks while the pod's contexts come up.
-INTERPOSER_STEPS_TRACED = 3
+# blocks while the pod's contexts come up.  Two traced steps, not three:
+# the script's time goes to the observability legs.
+INTERPOSER_STEPS_TRACED = 2
 TOL_GRANT_MIB = 512
 TOL_CONTEXT_MIB = 64
 AB_PAIRS = 2
@@ -243,9 +256,16 @@ CORES_SM_LIMIT = 50
 CORES_SERVE_MIB = 24000
 CORES_TRAIN_MIB = 40000
 MONITOR_INTERVAL_S = 0.5
+# The control-plane child's register stream beats every second; each beat
+# carries the usage rows of vgpu-monitor's NodeTPUInfo (leg (b)).
+REGISTER_BEAT_S = 1.0
 TIMELINE_S = 0.1
 SWITCH_ON_TICKS = 2
 SWITCH_OFF_TICKS = 5
+# A launch sets the region's recent_kernel to 3 and each monitor tick ages
+# it by one (csrc/vgpu/rate_limiter.cc): the sampler credits a pod as
+# active for up to 3 ticks past its last launch.
+CENSUS_TICKS = 3
 CORES_SOLO_S = 3.0     # T alone before S's first launch (F1's window)
 CORES_BURST_S = 10.0   # waves back to back
 CORES_IDLE_S = 8.0     # S idle between its two bursts
@@ -434,7 +454,9 @@ TOL_WORKLOAD = {
 # Timed windows a case and leg, of which the median is reported: the
 # host-bound cases' images/s moved by up to a quarter window to window on
 # one card (the host's cores are shared; more between the legs' runs).
-WORKLOAD_WINDOWS = 3
+# Two, not three: the script's time goes to the node's and the fleet's
+# observability legs instead (of two, the slower window is reported).
+WORKLOAD_WINDOWS = 2
 WORKLOAD_PROFILED = ("resnet_v2_50_inference_bf16_b50_346",
                      "resnet_v2_50_train_bf16_b20_346")
 # Device time of a workload's profile by kernel family (first match).
@@ -2502,6 +2524,7 @@ class EnforceChild:
     def __init__(self, name, tmp: Path, label=None, region=None,
                  **grant) -> None:
         self.label = label or name
+        self.started = time.monotonic()
         env = {k: v for k, v in os.environ.items()
                if not k.startswith(GRANT_ENV)}
         env.update({k: str(v) for k, v in grant.items()})
@@ -2550,6 +2573,7 @@ class EnforceChild:
         check(len(line) == 1, f"enforce child {self.label} printed no result")
         reading = json.loads(line[0][len("ENFORCE "):])
         reading["child_s"] = time.monotonic() - t0
+        reading["life_s"] = time.monotonic() - self.started
         reading["pid"] = self.proc.pid
         record.setdefault(section, {})[self.label] = reading
         return reading
@@ -3093,12 +3117,36 @@ def phase_coresidency(torch, record, vgpu: Path, interposer: Path):
                 child.stop()
             record["coresidency_timeline"] = tl.samples
     record["coresidency_s"] = time.monotonic() - t_phase
+    record["coresidency_region_scan"] = region_scan_cost()
+    log("the monitor's region-scan ticks:",
+        json.dumps(record["coresidency_region_scan"]))
     summary = record["coresidency"] = coresidency_checks(
         record, tl, legs, rows, qos, ticks)
     log(json.dumps(summary))
     return [sum(run["launches"].get(n, 0) for run in legs.values()
                 if isinstance(run, dict) and "launches" in run)
             for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
+
+
+def region_scan_cost(n: int = 20000) -> dict:
+    """What the ``region-scan`` span costs each monitor tick, beside the
+    tick itself: the process's histogram of the ticks so far (count, mean
+    seconds) and the mean of ``n`` spans around nothing, with the tick's
+    one attribute, in a tracer of their own (the process's histogram stays
+    as the ticks left it).  The span opens before the feedback loop's tick
+    and closes after the sampler's, so it holds no region's lock."""
+    from k8s_vgpu_scheduler_tpu_torch.util import trace
+
+    snap = trace.tracer().histogram_snapshot().get(("region-scan", ""))
+    check(snap is not None and snap[1] > 0, "no region-scan tick recorded")
+    tr = trace.Tracer()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with tr.span("region-scan") as sp:
+            sp.set("containers", 0)
+    span_s = (time.perf_counter() - t0) / n
+    return dict(ticks=snap[1], mean_tick_s=snap[2] / snap[1], span_s=span_s,
+                span_share_of_interval=span_s / MONITOR_INTERVAL_S)
 
 
 def flat_leg(tl: Timeline, t, s) -> dict:
@@ -3413,7 +3461,8 @@ class ControlPlane:
     127.0.0.1 at a port of its own.  Up once the scheduler holds the
     node's inventory."""
 
-    def __init__(self, kube, backend, cfg, sock: Path, clock=None) -> None:
+    def __init__(self, kube, backend, cfg, sock: Path, clock=None,
+                 usage_source=None) -> None:
         from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import \
             start_register_service
         from k8s_vgpu_scheduler_tpu_torch.deviceplugin import DeviceRegister
@@ -3427,7 +3476,8 @@ class ControlPlane:
         self.closed = False
         self.grpc = start_register_service(self.scheduler, f"unix:{sock}",
                                            workers=4)
-        self.register = DeviceRegister(backend, cfg, endpoint=f"unix:{sock}")
+        self.register = DeviceRegister(backend, cfg, endpoint=f"unix:{sock}",
+                                       usage_source=usage_source)
         self.http = ExtenderServer(self.scheduler, cfg, host="127.0.0.1",
                                    port=0)
         self.base = f"http://127.0.0.1:{self.http.port}"
@@ -4154,10 +4204,19 @@ def control_plane() -> int:
     scheduler's registry), and ``end``: the register stream closes, the
     lease clock moves into the Suspect window for one rescue sweep and
     past the Dead deadline for another, and the answer holds both sweeps'
-    actions and the annotations of every pod that held a grant."""
+    actions and the annotations of every pod that held a grant.  Its
+    register stream carries the usage counters of the vgpu-monitor at
+    ``$USAGE_FROM``, where set (``monitor_usage_source``, as ``vgpu-device-plugin
+    --usage-from`` wires it; the keepalive every second), and its extender
+    also serves the scheduler's exporter (the ready line's ``metrics``)
+    and ``/debug`` (``enable_debug``)."""
     sys.path.insert(0, str(ROOT))
     from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
         DeviceCache, GpuDevicePlugin)
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin.register import \
+        monitor_usage_source
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.metrics import \
+        start_metrics_server
     from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube
     from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
     from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
@@ -4176,11 +4235,12 @@ def control_plane() -> int:
     t0 = time.monotonic()
     _kernels.install_shim(tmp / "shim")
     install_s = time.monotonic() - t0
-    cache = DeviceCache(backend, poll_seconds=1.0)
+    cache = DeviceCache(backend, poll_seconds=1.0,
+                        heartbeat_seconds=REGISTER_BEAT_S)
     clock = OffsetClock()
     cfg = Config(node_name=PLUGIN_NODE, shim_host_dir=str(tmp / "shim"),
                  cache_host_dir=str(tmp / "containers"),
-                 enable_preemption=True)
+                 enable_preemption=True, enable_debug=True)
     kube = FakeKube()
     kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
     requested = {}
@@ -4192,14 +4252,21 @@ def control_plane() -> int:
             requested[meta["uid"]] = [value, time.monotonic()]
 
     kube.watch_pods(on_event)
-    plane = None
+    plane = metrics = None
     try:
+        usage_from = os.environ.get("USAGE_FROM")
         plane = ControlPlane(kube, backend, cfg, tmp / "scheduler.sock",
-                             clock=clock)
+                             clock=clock, usage_source=usage_from and
+                             monitor_usage_source(usage_from))
+        metrics = start_metrics_server(plane.scheduler, port=0,
+                                       host="127.0.0.1")
         cache.subscribe("register", plane.register.push_update,
                         heartbeat=True)
         cache.start()
         sched = plane.scheduler
+        # The node agent shares this process, so its own `allocate` span
+        # lands in the extender's tracer beside the scheduler's (the
+        # checks after V' tell them apart).
         plugin = GpuDevicePlugin(kube, cache.inventory, cfg)
 
         def allocate(_):
@@ -4242,6 +4309,8 @@ def control_plane() -> int:
                "end": end}
         chip = cache.inventory.chips[0]
         print(json.dumps({"base": plane.base, "uuid": chip.uuid,
+                          "metrics": f"http://127.0.0.1:{metrics.port}"
+                                     "/metrics",
                           "hbm_mib": chip.hbm_mib,
                           "register_s": plane.register_s,
                           "install_shim_s": install_s,
@@ -4262,6 +4331,8 @@ def control_plane() -> int:
         return 1
     finally:
         cache.stop()
+        if metrics is not None:
+            metrics.stop()
         if plane is not None:
             plane.close()
         backend.close()
@@ -4288,7 +4359,7 @@ class PlaneChild:
         except BaseException:
             self.close()
             raise
-        self.base = self.ready["base"]
+        self.base, self.metrics = self.ready["base"], self.ready["metrics"]
 
     def _read(self, what: str) -> dict:
         timer = threading.Timer(PLANE_CALL_S, self.proc.kill)
@@ -4407,7 +4478,14 @@ def phase_device_plugin(torch, record, vgpu: Path):
     plugin's cache_host_dir: one flat leg (plugin_leg).  Each pod's env,
     region, ``mem_get_info`` and nvidia-smi samples hold its grant; T's
     switch comes on while S serves; S's tokens and T's losses are
-    phase_coresidency's flat leg's.  MIG (real_mig_checks, mig_leg,
+    phase_coresidency's flat leg's.  Over that leg's monitor loop and
+    sampler, NodeView serves the node's exporter, NodeTPUInfo and debug
+    server through ``cmd/monitor.py``'s ``serve`` and reads them before
+    S's first prefill, while S serves with T's switch on and after S's
+    last launch, each time against both regions and the sampler's rows
+    (``node_reading``); vgpu-smi runs under T's grant env alone and over
+    the containers dir; /debug/vars and /debug/stacks answer
+    (``node_view_checks``).  MIG (real_mig_checks, mig_leg,
     mig_summary): NVML's MIG mode of the card beside nvidia-smi's, the
     card's advertisement unchanged under mixed, and the mock MIG node's
     Register calls, ListAndWatch, preferred allocations, Allocate answers,
@@ -4561,9 +4639,21 @@ def phase_device_plugin(torch, record, vgpu: Path):
         sampler = UsageSampler(loop)
         stop = threading.Event()
         seen = set()
-        ticker = threading.Thread(target=monitor.run, daemon=True, args=(
-            loop, sampler, MONITOR_INTERVAL_S, stop), kwargs=dict(
-                on_tick=lambda: seen.update(loop.containers)))
+        smi_grant = {k: v for k, v in envs["train"].items()
+                     if k.startswith(GRANT_ENV)
+                     and k not in ("LD_PRELOAD", "PYTHONPATH")}
+        view = NodeView(loop, sampler, reader, root, PLUGIN_NODE,
+                        {"PATH": os.environ.get("PATH", ""), **smi_grant},
+                        vgpu)
+
+        def on_tick():
+            seen.update(loop.containers)
+            view.on_tick()
+
+        ticker = threading.Thread(
+            target=monitor.run, daemon=True, name="vgpu-monitor-ticker",
+            args=(loop, sampler, MONITOR_INTERVAL_S, stop),
+            kwargs=dict(on_tick=on_tick))
         ticker.start()
         tl = Timeline(reader, root)
         card_mib = []
@@ -4578,7 +4668,7 @@ def phase_device_plugin(torch, record, vgpu: Path):
         base = smi_card_mib()
         smi_thread.start()
         try:
-            legs = plugin_leg(tl, children["train"], children["serve"])
+            legs = plugin_leg(tl, children["train"], children["serve"], view)
             regions = {}
             for name, child in children.items():
                 r = reader.open(str(root / child.key / "cudevshr.cache"))
@@ -4586,11 +4676,13 @@ def phase_device_plugin(torch, record, vgpu: Path):
                 regions[name] = dict(limit=r.limit(0), sm_limit=r.sm_limit(0),
                                      uuid=r.uuid(0), priority=r.priority)
                 r.close()
+            node_view = view.debug_checks()
         finally:
             smi_stop.set()
             smi_thread.join()
             stop.set()
             ticker.join()
+            view.stop()
             tl.close()
             loop.close()
             for child in children.values():
@@ -4601,6 +4693,8 @@ def phase_device_plugin(torch, record, vgpu: Path):
     summary = record["device_plugin"] = plugin_checks(
         record, na, sizes, envs, regions, legs, tl, seen, card_mib, base,
         children)
+    summary["node_view"] = node_view_checks(node_view, legs, children,
+                                            sizes["advertised_mib"])
     summary["mig"] = mig_summary(na)
     summary["oci"] = oci
     log(json.dumps(summary))
@@ -4836,11 +4930,15 @@ def placed(name: str, pod: dict, uuid: str, cores=CORES_SM_LIMIT) -> None:
           f"{name}: Allocate's answer {pod['response']['envs']}")
 
 
-def plugin_leg(tl: Timeline, t, s) -> dict:
+def plugin_leg(tl: Timeline, t, s, view=None) -> dict:
     """phase_coresidency's flat leg, shortened: T alone for CORES_SOLO_S;
     S loads and warms up; once T's switch has fallen, S's one burst; T
     alone for CORES_TAIL_S; both exit, and the monitor must clear their
-    slots.  Each pod's life on the host clock goes with its reading."""
+    slots.  Each pod's life on the host clock goes with its reading.
+    ``view`` (a NodeView) reads the node's surfaces before S's first
+    prefill, while S serves with T's switch on, and after S's last launch,
+    where vgpu-smi also runs (``NodeView.smi``)."""
+    keys = (t.key, s.key)
     t_go = time.monotonic()
     ft = t.go()
     await_file(t.ctl / "train_ready", [ft], "T ready (device plugin)")
@@ -4851,13 +4949,337 @@ def plugin_leg(tl: Timeline, t, s) -> dict:
                "S ready (device plugin)", limit=600)
     await_switch(tl, t.key, 0, time.monotonic(), "T after S's loading")
     time.sleep(MONITOR_INTERVAL_S)
+    if view is not None:
+        view.read("before_prefill", keys)
     (s.ctl / f"{s.name}_go").touch()
+    if view is not None:
+        await_switch(tl, t.key, 1, time.monotonic(), "T while S serves")
+        view.read("switch_on", keys)
     serve = dict(fs.result(), life=(s_go, time.monotonic()))
-    time.sleep(CORES_TAIL_S)
+    tail = time.monotonic()
+    if view is not None:
+        view.read("after_last_launch", keys)
+        view.smi(t.key, keys)
+    time.sleep(max(0.0, CORES_TAIL_S - (time.monotonic() - tail)))
     (t.ctl / "train_stop").touch()
     trainer = dict(ft.result(), life=(t_go, time.monotonic()))
-    await_gc(tl, (t.key, s.key), "device plugin leg")
+    await_gc(tl, keys, "device plugin leg")
     return {"train": trainer, "serve": serve}
+
+
+class NodeView:
+    """Leg (a) of the node's observability: over phase_device_plugin's
+    monitor loop and sampler, the exporter, NodeTPUInfo (loopback) and the
+    debug server, started through ``cmd/monitor.py``'s ``serve`` with
+    NVML's inventory (``detect()``); the ticker's ``on_tick`` is
+    :meth:`on_tick`.  :meth:`read` takes one reading: right after a tick,
+    each pod's region, the sampler's rows, a scrape and a GetNodeTPU call,
+    then the regions and rows again, until no tick fell between (at most
+    5 tries), held together by ``node_reading``."""
+
+    def __init__(self, loop, sampler, reader, root: Path, node: str,
+                 smi_env: dict, vgpu: Path) -> None:
+        import grpc
+
+        from k8s_vgpu_scheduler_tpu_torch.cmd import monitor
+        from k8s_vgpu_scheduler_tpu_torch.monitor.noderpc import node_tpu_stub
+        from k8s_vgpu_scheduler_tpu_torch.tpulib import detect
+        from k8s_vgpu_scheduler_tpu_torch.util import trace
+
+        self.loop, self.sampler, self.reader = loop, sampler, reader
+        self.root, self.node = root, node
+        self.smi_env, self.vgpu = smi_env, vgpu
+        snap = trace.tracer().histogram_snapshot().get(("region-scan", ""))
+        self.scans0 = snap[1] if snap else 0
+        self.ticks = 0
+        self.ticked = threading.Event()
+        self.readings: dict = {}
+        self.backend = detect()
+        self.advertised = {c.uuid: c.hbm_mib
+                           for c in self.backend.inventory().chips}
+        try:
+            t0 = time.monotonic()
+            self.serving = monitor.serve(
+                loop, sampler, self.backend, node, metrics_port=0,
+                grpc_port=free_port(), debug_port=free_port(),
+                metrics_host="127.0.0.1")
+            self.serve_s = time.monotonic() - t0
+        except BaseException:
+            self.close_backend()
+            raise
+        self.url = f"http://127.0.0.1:{self.serving.metrics.port}/metrics"
+        self.debug = f"http://127.0.0.1:{self.serving.debug.port}"
+        self.channel = grpc.insecure_channel(
+            f"127.0.0.1:{self.serving.rpc_port}")
+        self.stub = node_tpu_stub(self.channel)
+
+    def on_tick(self) -> None:
+        self.ticks += 1
+        self.ticked.set()
+
+    def regions(self, keys) -> dict:
+        out = {}
+        for key in keys:
+            r = self.reader.open(str(self.root / key / "cudevshr.cache"))
+            check(r is not None, f"{key}: no region")
+            try:
+                out[key] = region_reading(r)
+            finally:
+                r.close()
+        return out
+
+    def rows(self, keys) -> dict:
+        return {row["ctrkey"]: row for row in self.sampler.snapshot()
+                if row["ctrkey"] in keys}
+
+    def read(self, label: str, keys) -> dict:
+        from k8s_vgpu_scheduler_tpu_torch.api import noderpc_pb2 as npb
+
+        def steady(r):
+            return {k: dict(v, used=None) for k, v in r.items()}
+
+        for _ in range(5):
+            self.ticked.clear()
+            check(self.ticked.wait(10 * MONITOR_INTERVAL_S),
+                  f"{label}: no monitor tick")
+            n, before, rows = self.ticks, self.regions(keys), self.rows(keys)
+            metrics, scrape_s, nbytes, families = scrape(self.url)
+            t0 = time.monotonic()
+            reply = self.stub(npb.GetNodeTPURequest(), timeout=30)
+            rpc_s = time.monotonic() - t0
+            after = self.regions(keys)
+            if self.ticks == n and steady(before) == steady(after) \
+                    and rows == self.rows(keys):
+                break
+        else:
+            check(False, f"{label}: a monitor tick fell in every reading")
+        pods = node_reading(metrics, rpc_usages(reply), {
+            k: dict(before[k], used=after[k]["used"]) for k in keys}, rows,
+            self.scans0 + n, self.advertised, self.node)
+        self.readings[label] = dict(
+            at=time.monotonic(), scrape_s=scrape_s, scrape_bytes=nbytes,
+            families=families,
+            samples=sum(len(v) for v in metrics.values()),
+            get_node_tpu_s=rpc_s, pods=pods)
+        log(f"node view {label}: " + json.dumps(self.readings[label]))
+        return self.readings[label]
+
+    def smi(self, key: str, keys) -> None:
+        """vgpu-smi --json under T's grant env alone (no LD_PRELOAD: the
+        interposer would join the process to T's region), and
+        vgpu-smi --containers-dir over the monitor's root."""
+        def run(args, env):
+            t0 = time.monotonic()
+            res = subprocess.run(
+                [sys.executable, "-m", "k8s_vgpu_scheduler_tpu_torch.cmd."
+                 "vgpu_smi", "--json", "--library", str(self.vgpu), *args],
+                env=env, cwd=ROOT, capture_output=True, text=True,
+                timeout=120)
+            check(res.returncode == 0, f"vgpu-smi {args} exited "
+                  f"{res.returncode}: {res.stderr.strip()[-2000:]}")
+            return json.loads(res.stdout), time.monotonic() - t0
+
+        with ThreadPoolExecutor(2) as pool:
+            before = self.regions([key])[key]
+            inside = pool.submit(run, [], self.smi_env)
+            node = pool.submit(run, ["--containers-dir", str(self.root)],
+                               {"PATH": os.environ.get("PATH", "")})
+            (got, inside_s), (listed, node_s) = inside.result(), \
+                node.result()
+        after = self.regions([key])[key]
+        [dev] = got["this container"]["devices"]
+        check(dev["memory_total_mib"] == before["limit"] // MIB
+              and dev["core_limit_pct"] == before["sm_limit"]
+              and dev["memory_used_mib"] in (before["used"] // MIB,
+                                             after["used"] // MIB),
+              f"vgpu-smi under T's grant reads {dev}, T's region "
+              f"{before} then {after}")
+        check(set(keys) <= set(listed), f"vgpu-smi --containers-dir lists "
+              f"{sorted(listed)}")
+        self.readings["smi"] = dict(device=dev, inside_s=inside_s,
+                                    containers_dir_s=node_s,
+                                    listed=sorted(listed))
+        log("vgpu-smi: " + json.dumps(self.readings["smi"]))
+
+    def debug_checks(self) -> dict:
+        """/debug/vars gives this process's pid and /debug/stacks shows
+        the ticker thread: the readings."""
+        status, vars_ = http(f"{self.debug}/debug/vars", timeout=30)
+        check(status == 200 and vars_["pid"] == os.getpid(),
+              f"/debug/vars answered {status} {vars_}")
+        status, stacks = http(f"{self.debug}/debug/stacks", timeout=30)
+        check(status == 200 and "vgpu-monitor-ticker" in stacks,
+              "/debug/stacks shows no ticker thread")
+        return dict(self.readings, serve_s=self.serve_s,
+                    advertised=self.advertised)
+
+    def close_backend(self) -> None:
+        close = getattr(self.backend, "close", None)  # NVML's shutdown
+        if close is not None:
+            close()
+
+    def stop(self) -> None:
+        if self.channel is not None:
+            self.channel.close()
+            self.channel = None
+            self.serving.stop()
+            self.close_backend()
+
+
+def node_view_checks(view: dict, legs: dict, children: dict,
+                     advertised_mib: int) -> dict:
+    """Leg (a) across its readings: T's switch 0 before S's first prefill
+    and 1 while S serves (the reading inside S's burst), S's 0 at every
+    reading; the summary."""
+    T, S = children["train"].key, children["serve"].key
+    order = ("before_prefill", "switch_on", "after_last_launch")
+    switch = {k: [view[r]["pods"][k]["switch"] for r in order]
+              for k in (T, S)}
+    check(switch[T][:2] == [0, 1] and switch[S] == [0, 0, 0],
+          f"the switches at the readings {switch}")
+    b = legs["serve"]["bursts"][0]
+    at = view["switch_on"]["at"]
+    check(b["start"] <= at <= b["end"], f"the switch-on reading at {at} "
+          f"fell outside S's burst {b['start']}..{b['end']}")
+    check(list(view["advertised"].values()) == [advertised_mib],
+          f"the exporter's inventory {view['advertised']}, the card "
+          f"advertised at {advertised_mib} MiB")
+    dev = view["smi"]["device"]
+    check(dev["memory_total_mib"] == legs["train"]["mem_total"] // MIB
+          and dev["core_limit_pct"] == CORES_SM_LIMIT,
+          f"vgpu-smi under T's grant reads {dev}, T's grant "
+          f"{legs['train']['mem_total'] // MIB} MiB at {CORES_SM_LIMIT}%")
+    return dict(view, switch=switch, advertised_mib=advertised_mib)
+
+
+def scrape(url: str) -> tuple:
+    """GET a Prometheus exporter through the port's own parser
+    (``vgpu_smi.parse_prom``): (metrics, seconds, bytes, families)."""
+    import urllib.request
+
+    from k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_smi import parse_prom
+
+    t0 = time.monotonic()
+    with urllib.request.urlopen(url, timeout=30) as r:
+        check(r.status == 200, f"{url} answered {r.status}")
+        text = r.read().decode()
+    seconds = time.monotonic() - t0
+    families = sum(1 for line in text.splitlines()
+                   if line.startswith("# TYPE "))
+    return parse_prom(text), seconds, len(text.encode()), families
+
+
+def metric(metrics: dict, name: str, **labels):
+    """The value of ``name``'s one sample whose labels include ``labels``
+    (in ``parse_prom``'s form), or None; two such samples fail."""
+    hits = [v for got, v in metrics.get(name, [])
+            if all(got.get(k) == x for k, x in labels.items())]
+    check(len(hits) <= 1, f"{name}{labels}: {len(hits)} samples")
+    return hits[0] if hits else None
+
+
+def region_reading(r) -> dict:
+    """A region's fields as the node's surfaces report them (device 0)."""
+    return dict(uuid=r.uuid(0) or "0", limit=r.limit(0),
+                sm_limit=r.sm_limit(0), used=r.used(0),
+                procs=len(r.proc_pids()), oversubscribe=r.oversubscribe,
+                switch=r.utilization_switch)
+
+
+def rpc_usages(reply) -> dict:
+    """A GetNodeTPU reply's regions in ``region_reading``'s form."""
+    return {u.ctrkey: dict(uuid=u.info.uuids[0], limit=u.info.limit[0],
+                           sm_limit=u.info.sm_limit[0], used=u.info.used[0],
+                           procs=len(u.info.procs),
+                           oversubscribe=u.info.oversubscribe,
+                           switch=u.info.utilization_switch)
+            for u in reply.usages}
+
+
+def within(got, want, rel: float) -> bool:
+    return got is not None and abs(got - want) <= rel * abs(want)
+
+
+def node_reading(metrics: dict, rpc: dict, direct: dict, rows: dict,
+                 scans: int, advertised: dict, node: str) -> dict:
+    """Leg (a)'s checks at one reading of the node exporter (``metrics``,
+    parsed) and NodeTPUInfo (``rpc``, ``rpc_usages``) against each
+    region read at once (``direct``: key -> ``region_reading``, its
+    ``used`` read just after) and the sampler's rows (key -> row): limit,
+    core cap, processes, oversubscription and switch equal; used within 1%
+    on both surfaces; the usage counters equal the rows'; each card's
+    ``host_tpu_memory_total_mib`` its advertised MiB (``advertised``: uuid
+    -> MiB); ``region-scan`` counted ``scans`` times."""
+    out = {}
+    for key, d in direct.items():
+        dev = dict(container=key, deviceuuid=d["uuid"])
+        got = dict(
+            limit=metric(metrics, "vtpu_device_memory_limit_bytes", **dev),
+            sm_limit=metric(metrics, "vtpu_device_core_limit_percent", **dev),
+            procs=metric(metrics, "vtpu_container_processes", container=key),
+            oversubscribe=metric(metrics, "vtpu_oversubscribe",
+                                 container=key),
+            switch=metric(metrics, "vtpu_utilization_switch", container=key))
+        want = {k: d[k] for k in got}
+        check(got == want, f"{key}: the exporter reads {got}, the region "
+              f"{want}")
+        r = rpc.get(key)
+        check(r is not None and {k: r[k] for k in (*want, "uuid")}
+              == {**want, "uuid": d["uuid"]},
+              f"{key}: NodeTPUInfo reads {r}, the region {d}")
+        used = metric(metrics, "vtpu_device_memory_usage_bytes", **dev)
+        check(within(used, d["used"], 0.01) and within(r["used"], d["used"],
+                                                       0.01),
+              f"{key}: used {used} (exporter), {r['used']} (NodeTPUInfo), "
+              f"{d['used']} (region)")
+        row = rows[key]
+        for field in ("chip_seconds", "throttled_seconds"):
+            m = metric(metrics, f"vtpu_usage_{field}_total", container=key)
+            check(m == row[field], f"{key}: vtpu_usage_{field} {m}, the "
+                  f"sampler's {row[field]}")
+        out[key] = dict(switch=d["switch"], procs=d["procs"],
+                        used=d["used"], exporter_used=used, rpc_used=r["used"],
+                        chip_seconds=row["chip_seconds"],
+                        throttled_seconds=row["throttled_seconds"])
+    for uuid, mib in advertised.items():
+        got = metric(metrics, "host_tpu_memory_total_mib", node=node,
+                     deviceuuid=uuid)
+        check(got == mib, f"host_tpu_memory_total_mib {got}, advertised "
+              f"{mib}")
+    got = metric(metrics, "vtpu_monitor_phase_latency_seconds_count",
+                 phase="region-scan", qos="")
+    check(got == scans, f"region-scan counted {got} times, {scans} ticks")
+    return out
+
+
+def efficiency_skew_bound(covered_s: float) -> float:
+    """The most a pod's efficiency on /usagez can read (ROADMAP C.9).  The
+    join divides GPU-seconds counted on the monitor's clock by a window on
+    the ledger's: the window runs from the ledger's first record of the
+    pod to its last, but the first record's counts were sampled up to one
+    register beat and one monitor tick before it, and the two loops jitter
+    by up to a tick more.  So a pod that launches for its whole window
+    reads up to ``1 + (beat + 2 ticks) / window``, above 1."""
+    return 1 + (REGISTER_BEAT_S + 2 * MONITOR_INTERVAL_S) / covered_s
+
+
+def ledger_vs_monitor(ext: dict, mon: dict, pods: dict) -> dict:
+    """Leg (b): each pod's ledger totals on the extender's exporter
+    (``ext``) against the counters on the monitor's own (``mon``) for the
+    same container key (``pods``: key -> (namespace, name)), to a relative
+    1e-9, each above 0."""
+    out = {}
+    for key, (namespace, name) in pods.items():
+        row = {}
+        for field in ("chip_seconds", "hbm_byte_seconds"):
+            m = metric(mon, f"vtpu_usage_{field}_total", container=key)
+            e = metric(ext, f"vtpu_usage_{field}_total",
+                       podnamespace=namespace, podname=name)
+            check(m is not None and m > 0 and within(e, m, 1e-9),
+                  f"{key}: {field} {e} in the ledger, {m} on the monitor")
+            row[field] = e
+        out[key] = row
+    return out
 
 
 def plugin_checks(record, na, sizes, envs, regions, legs, tl, seen,
@@ -4965,6 +5387,210 @@ def same_checkpoints(torch, a: Path, b: Path) -> dict:
                 bytes=os.path.getsize(a))
 
 
+class FleetView:
+    """Leg (b) of the observability surface: ``vgpu-monitor`` itself, as a
+    process through its module, over phase_preempt's containers dir (the
+    placed pods' regions; R's stays outside it), ticking every
+    MONITOR_INTERVAL_S with loopback metrics, NodeTPUInfo and debug ports
+    (``grpc``: the endpoint the control plane's ``--usage-from`` reads).
+    Its log goes to chiprun_out/vgpu_monitor.log."""
+
+    def __init__(self, root: Path, vgpu: Path, env: dict) -> None:
+        ports = [free_port() for _ in range(3)]
+        self.url = f"http://127.0.0.1:{ports[0]}/metrics"
+        self.grpc = f"127.0.0.1:{ports[1]}"
+        self.debug = f"http://127.0.0.1:{ports[2]}"
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        self.log = open(out / "vgpu_monitor.log", "w")
+        t0 = time.monotonic()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_vgpu_scheduler_tpu_torch.cmd.monitor",
+             "--container-root", str(root), "--interval",
+             str(MONITOR_INTERVAL_S), "--metrics-port", str(ports[0]),
+             "--grpc-port", str(ports[1]), "--grpc-bind", "127.0.0.1",
+             "--debug-port", str(ports[2]), "--node-name", PLUGIN_NODE,
+             "--library", str(vgpu)], env=env, cwd=ROOT, stdout=self.log,
+            stderr=subprocess.STDOUT)
+        try:
+            while True:
+                check(self.proc.poll() is None, f"vgpu-monitor exited "
+                      f"{self.proc.returncode} (chiprun_out/vgpu_monitor.log)")
+                check(time.monotonic() - t0 < 60,
+                      "vgpu-monitor served no /metrics in 60 s")
+                try:
+                    scrape(self.url)
+                    break
+                except OSError:
+                    time.sleep(0.1)
+            self.up_s = time.monotonic() - t0
+        except BaseException:
+            self.stop()
+            raise
+
+    def stop(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        if not self.log.closed:
+            self.log.close()
+
+    def read(self, plane, pods: dict, runs: dict, nofit: dict) -> dict:
+        """After V' exits and before ``end``: once the monitor's counters
+        for V, H and V' stop moving, the extender's ledger must hold them
+        (its register stream beats every second); then the extender's
+        exporter, /usagez, /debug/tracez, ``vgpu-report`` and ``vgpu-smi
+        top`` are held to them and to the calls this script made.  V''s
+        efficiency comes back with the window it covers, unchecked here:
+        its bound depends on how V' used its grant (efficiency_skew_bound)."""
+        keys = {pods[k]["key"]: k for k in runs}
+        t0 = time.monotonic()
+        prev = None
+        while True:
+            mon, mon_s, mon_bytes, mon_fams = scrape(self.url)
+            now = {key: [metric(mon, f"vtpu_usage_{f}_total", container=key)
+                         for f in ("chip_seconds", "hbm_byte_seconds")]
+                   for key in keys}
+            if now == prev and all(None not in v for v in now.values()):
+                break
+            check(time.monotonic() - t0 < 60,
+                  f"the monitor's counters kept moving: {prev} then {now}")
+            prev = now
+            time.sleep(2 * MONITOR_INTERVAL_S)
+        settle_s = time.monotonic() - t0
+        status, vars_ = http(f"{self.debug}/debug/vars", timeout=30)
+        check(status == 200 and vars_["pid"] == self.proc.pid,
+              f"the monitor's /debug/vars answered {status} {vars_}")
+        held = plane.call("grants")
+        live = {uid for uid, _ in held}
+        names = {key: ("default" if pods[k]["pod"]["metadata"]["uid"] in live
+                       else "(unresolved)",
+                       pods[k]["pod"]["metadata"]["name"])
+                 for key, k in keys.items()}
+        t1 = time.monotonic()
+        while True:
+            ext, ext_s, ext_bytes, ext_fams = scrape(plane.metrics)
+            try:
+                ledger = ledger_vs_monitor(ext, mon, names)
+                break
+            except Fail:
+                if time.monotonic() - t1 > 10.0:
+                    raise
+                time.sleep(0.5)
+        ledger_s = time.monotonic() - t1
+        # A pod's region stays in the monitor's loop after it exits (its
+        # dir stays), so V's switch is on, and V is billed throttled
+        # seconds, while H runs: recorded, not held to 0.
+        throttled = {k: metric(mon, "vtpu_usage_throttled_seconds_total",
+                               container=key) for key, k in keys.items()}
+        for key, k in keys.items():
+            # The census credits up to CENSUS_TICKS past the last
+            # launch, and one more tick of the monitor's sleep jitter.
+            life = runs[k]["life_s"]
+            bound = life + (CENSUS_TICKS + 1) * MONITOR_INTERVAL_S
+            check(ledger[key]["chip_seconds"] <= bound,
+                  f"{k}: {ledger[key]['chip_seconds']} GPU-seconds in a "
+                  f"life of {life} s on the card (bound {bound})")
+        uuid = plane.ready["uuid"]
+        check(metric(ext, "vtpu_preemption_requests_total") == 1,
+              "vtpu_preemption_requests is not 1")
+        check(metric(ext, "tpu_device_memory_limit_mib", node=PLUGIN_NODE,
+                     deviceuuid=uuid) == plane.ready["hbm_mib"],
+              "tpu_device_memory_limit_mib is not the advertised MiB")
+        check(metric(ext, "vtpu_node_lease_state", node=PLUGIN_NODE) == 0,
+              "the node's lease is not healthy")
+        grants = {(x["podnamespace"], x["podname"], x["deviceuuid"]): v
+                  for x, v in ext.get("vtpu_pod_device_allocated_mib", [])}
+        want = {("default", name, uuid): next(
+            p[2] for p in PREEMPT_PODS.values() if p[0] == name)
+            for _, name in held}
+        check(grants == want, f"vtpu_pod_device_allocated_mib {grants}, "
+              f"the grants held {want}")
+        counts = {}
+        for labels, v in ext.get(
+                "vtpu_scheduling_phase_latency_seconds_count", []):
+            counts[labels["phase"]] = counts.get(labels["phase"], 0) + v
+        # Each allocation is timed twice here: the scheduler's span and
+        # the node agent's, which shares the control-plane child.
+        calls = dict(filter=len(pods) + 1, bind=len(pods),
+                     allocate=2 * len(pods))
+        check({k: counts.get(k) for k in calls} == calls,
+              f"the extender's phase counts {counts}, the calls {calls}")
+        reason = nofit["FailedNodes"][PLUGIN_NODE].split(":", 1)[0].strip()
+        check((metric(ext, "vtpu_filter_rejections_total", reason=reason)
+               or 0) >= 1, f"vtpu_filter_rejections has no {reason!r}")
+        tid = pods["V"]["pod"]["metadata"]["annotations"]["vtpu.dev/trace-id"]
+        status, otlp = http(f"{plane.base}/debug/tracez?trace={tid}"
+                            "&format=json", timeout=30)
+        check(status == 200, f"/debug/tracez answered {status}")
+        spans = otlp["resourceSpans"][0]["scopeSpans"][0]["spans"]
+        # The scheduler's `allocate` carries the bind phase it saw; the
+        # node agent's, from the same process, does not.
+        agent = [x for x in spans if x["name"] == "allocate" and not any(
+            a["key"] == "phase" for a in x["attributes"])]
+        trail = [x["name"] for x in sorted(
+            spans, key=lambda x: int(x["startTimeUnixNano"]))
+            if x not in agent]
+        check(trail == ["webhook", "filter", "decision-write", "bind",
+                        "allocate"] and len(agent) == 1,
+              f"V's trace {trail}, the agent's allocate spans {len(agent)}")
+        window = 86400
+        t2 = time.monotonic()
+        status, usage = http(f"{plane.base}/usagez?window={window}",
+                             timeout=30)
+        usagez_s = time.monotonic() - t2
+        check(status == 200, f"/usagez answered {status} {usage}")
+
+        def command(module, *args):
+            t0 = time.monotonic()
+            res = subprocess.run(
+                [sys.executable, "-m", f"k8s_vgpu_scheduler_tpu_torch.cmd."
+                 f"{module}", *args], cwd=ROOT, capture_output=True,
+                text=True, timeout=120)
+            check(res.returncode == 0, f"{module} {args} exited "
+                  f"{res.returncode}: {res.stderr.strip()[-2000:]}")
+            return json.loads(res.stdout), time.monotonic() - t0
+
+        with ThreadPoolExecutor(2) as pool:
+            rep = pool.submit(command, "vgpu_report", "--cluster", plane.base,
+                              "--json", "--pods", "--window", str(window))
+            top = pool.submit(command, "vgpu_smi", "top", "--cluster",
+                              plane.metrics, "--json")
+            (report, report_s), (topv, top_s) = rep.result(), top.result()
+        stable = ("uid", "pod", "namespace", "node", "chip_seconds",
+                  "hbm_byte_seconds", "granted_chips", "idle", "live")
+        rows = [{k: r[k] for k in stable} for r in usage["pods"]]
+        check(rows == [{k: r[k] for k in stable} for r in report["pods"]]
+              and len(rows) == len(keys),
+              f"/usagez's pods {rows}, vgpu-report's {report['pods']}")
+        v2 = pods["V2"]["pod"]["metadata"]
+        [row] = [r for r in usage["pods"] if r["uid"] == v2["uid"]]
+        [trow] = [r for r in topv["pods"] if r["name"] == v2["name"]]
+        v2_ledger = ledger[pods["V2"]["key"]]["chip_seconds"]
+        check(trow["namespace"] == "default" and trow["chips"] == 1
+              and within(trow["chip_seconds"], v2_ledger, 1e-9),
+              f"vgpu-smi top's V' {trow}, the ledger's {v2_ledger}")
+        out = dict(
+            monitor_up_s=self.up_s, settle_s=settle_s, ledger_wait_s=ledger_s,
+            monitor_scrape=dict(s=mon_s, bytes=mon_bytes, families=mon_fams,
+                                samples=sum(len(v) for v in mon.values())),
+            extender_scrape=dict(s=ext_s, bytes=ext_bytes, families=ext_fams,
+                                 samples=sum(len(v) for v in ext.values())),
+            ledger={keys[k]: v for k, v in ledger.items()},
+            life_s={k: runs[k]["life_s"] for k in runs},
+            throttled_s=throttled, phase_counts=counts,
+            rejection=reason, trace=trail, usagez_s=usagez_s,
+            usagez_pods=rows, v2_efficiency=row["efficiency"],
+            v2_covered_s=row["window_covered_s"],
+            vgpu_report_s=report_s, vgpu_smi_top_s=top_s, top_v2=trow)
+        log("fleet view: " + json.dumps(out))
+        return out
+
+
 def phase_preempt(torch, record, vgpu: Path, interposer: Path):
     """Checkpoint-first eviction on the card, planned by the port's
     scheduler.  The control plane (PlaneChild: the extender with
@@ -4996,8 +5622,12 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
     twice on an advanced lease clock: HEALTHY -> SUSPECT with nothing
     rescinded, then SUSPECT -> DEAD, rescinding V''s grant (its finished
     pod left in the apiserver) with its decision annotations cleared; the
-    card's used memory stays flat through the sweeps.  Returns the port
-    kernels' launches in R, V, H and V'."""
+    card's used memory stays flat through the sweeps.  Through the phase
+    ``vgpu-monitor`` runs as a process over the containers dir and the
+    control plane's register stream carries its counters (FleetView);
+    after V' exits the extender's ledger, exporter, /usagez, trace,
+    vgpu-report and vgpu-smi top are held to them (``FleetView.read``).
+    Returns the port kernels' launches in R, V, H and V'."""
     from k8s_vgpu_scheduler_tpu_torch.monitor import RegionReader
     from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
         PREEMPT_ANNOTATION
@@ -5017,7 +5647,13 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
         host_free = os.sysconf("SC_AVPHYS_PAGES") * os.sysconf("SC_PAGE_SIZE")
         (tmp / "containers").mkdir()
         volumes = tmp / "volumes"
-        plane = PlaneChild({**env, "PLUGIN_DIR": str(tmp)})
+        fleet = FleetView(tmp / "containers", vgpu, env)
+        try:
+            plane = PlaneChild({**env, "PLUGIN_DIR": str(tmp),
+                                "USAGE_FROM": fleet.grpc})
+        except BaseException:
+            fleet.stop()
+            raise
         install_s = plane.ready["install_shim_s"]
         check(plane.ready["shim_files"] == [
             "ld.so.preload", "libvgpu_cuda.so", "sitecustomize.py"],
@@ -5129,6 +5765,11 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
             resumed = pod_child("V2", "preempt",
                                 PREEMPT_DIR=shm / "V").run(record, "preempt")
             requested = plane.call("requested")
+            observed = fleet.read(plane, pods, {
+                "V": victim, "H": swap, "V2": resumed}, events["h"]["nofit"])
+            check(observed["v2_efficiency"] is not None
+                  and 0 < observed["v2_efficiency"] <= 1,
+                  f"V''s efficiency {observed['v2_efficiency']}")
             smi_end = [smi_card_mib()]
             ended = plane.call("end")
             smi_end.append(smi_card_mib())
@@ -5137,6 +5778,7 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
             for child in children:
                 child.stop()
             plane.close()
+            fleet.stop()
         k = victim["done"]
         t0 = time.monotonic()
         final = same_checkpoints(torch, tmp / "R" / str(PREEMPT_STEPS) /
@@ -5243,7 +5885,7 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
         "memory_back_s": back, "victim_region_used": v_used,
         "smi_through_sweeps_mib": smi_end,
         "sweeps": {k: ended[k] for k in ("suspect", "dead")},
-        "losses": ref["losses"],
+        "losses": ref["losses"], "fleet_view": observed,
         "peak_allocated_bytes": [run["peak_allocated"]
                                  for run in (ref, victim, resumed)],
         "child_s": {run: record["preempt"][run]["child_s"]

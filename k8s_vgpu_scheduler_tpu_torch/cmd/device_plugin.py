@@ -26,8 +26,11 @@ flavor (``nvidia.com/mig-<profile>``) beside the whole-card plugin,
 stream then: the extender has no card to place), and a card with MIG on is
 never in the whole-card view that the plugin, the register stream and the
 annotation read.  ``single`` refuses to start where it would strand a
-card or mix flavors.  The usage counters and the debug endpoints wait for
-their own slices.
+card or mix flavors.  ``--usage-from`` names the node monitor's loopback
+NodeTPUInfo: each register-stream message carries the usage counters
+fetched there (``deviceplugin.register.monitor_usage_source``), which feed
+the scheduler's ledger.  ``--debug-port`` serves the loopback ``/debug``
+endpoints (the node-side view of the Allocate spans).
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ from ..deviceplugin.partition import (STRATEGIES, get_partition_plugins,
 from ..deviceplugin.plugin import CrashLoopBreaker
 from ..k8s import make_client
 from ..tpulib import detect
+from ..util import trace
 from ..util.config import Config
 from ..util.types import TOPOLOGY_POLICIES
 
@@ -88,7 +92,15 @@ def parse_args(argv=None):
                    help="max quiet time before the full inventory is "
                         "re-advertised down the register stream anyway — "
                         "the scheduler's lease beat; 0 disables heartbeats")
+    p.add_argument("--usage-from", default="127.0.0.1:9395",
+                   help="the co-located monitor's NodeTPUInfo endpoint; "
+                        "each register-stream message carries the usage "
+                        "counters fetched there, which feed the "
+                        "scheduler's ledger; empty disables usage reports")
     p.add_argument("--socket-dir", default="/var/lib/kubelet/device-plugins")
+    p.add_argument("--debug-port", type=int, default=0,
+                   help="loopback /debug endpoints incl. tracez/events, "
+                        "the node-side view of Allocate spans (0 = off)")
     p.add_argument("--config-file", default="/config/config.json")
     p.add_argument("--shim-dir", default="/usr/local/vgpu")
     p.add_argument("--install-shim", action="store_true",
@@ -133,6 +145,13 @@ def main(argv=None):
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s",
     )
+    trace.configure(service="vgpu-device-plugin")
+    debug = None
+    if args.debug_port:
+        from ..util.debugz import DebugServer
+
+        debug = DebugServer(port=args.debug_port)
+        debug.start()
     cfg = Config(
         node_name=args.node_name or os.uname().nodename,
         scheduler_endpoint=args.scheduler_endpoint,
@@ -176,7 +195,12 @@ def main(argv=None):
     whole_inv = whole_chip_view(cache.inventory)
     plugin = GpuDevicePlugin(client, whole_inv, cfg,
                              socket_dir=args.socket_dir)
-    register = DeviceRegister(backend, cfg)
+    usage_source = None
+    if args.usage_from:
+        from ..deviceplugin.register import monitor_usage_source
+
+        usage_source = monitor_usage_source(args.usage_from)
+    register = DeviceRegister(backend, cfg, usage_source=usage_source)
     # MIG (mig-strategy.go:169–210): `single` replaces the whole-card
     # plugin under the main resource name, `mixed` runs one more plugin a
     # flavor beside it.
@@ -285,6 +309,8 @@ def main(argv=None):
         plugin.stop()
         register.stop()
         cache.stop()
+        if debug is not None:
+            debug.stop()
         close = getattr(backend, "close", None)
         if close is not None:
             close()  # nvmlShutdown

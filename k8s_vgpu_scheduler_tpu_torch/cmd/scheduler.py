@@ -7,12 +7,16 @@ The port's counterpart of the JAX package's ``cmd/scheduler.py`` with the
 reference's flags (cmd/scheduler/main.go:50–100): the gRPC and HTTP binds,
 the TLS cert and key, the scheduler name, the request defaults and the
 resource names, plus the topology and node policies, priority preemption, the leases,
-the card quarantine, the rescue sweep and the informer's knobs.  Boot
-order: list the pods and reconcile the grants before anything serves (a
-restarted scheduler that filtered against an empty registry would book
-cards twice), then the watch thread, the rescue thread, the register
-service and the HTTP extender.  ``/metrics`` waits for the port's metrics slice.
-This module is the gRPC edge: the core imports neither grpc nor protobuf.
+the card quarantine, the rescue sweep, the informer's knobs, and the
+observability flags: ``--metrics-port`` (the cluster exporter,
+``scheduler/metrics.py``), ``--score-by-actual``, ``--efficiency-window``
+and ``--idle-grant-grace`` (the usage ledger's join) and ``--debug`` (the
+extender's ``/debug`` endpoints).  Boot order: list the pods and reconcile
+the grants before anything serves (a restarted scheduler that filtered
+against an empty registry would book cards twice), then the watch thread,
+the rescue thread, the register service, the exporter and the HTTP
+extender.  This module is the gRPC edge: the core imports neither grpc nor
+protobuf.
 """
 
 from __future__ import annotations
@@ -26,7 +30,9 @@ from concurrent import futures
 from ..k8s import FakeKube, make_client
 from ..k8s.client import KubeClient, NotFound
 from ..scheduler.core import Scheduler, run_watch_loop
+from ..scheduler.metrics import start_metrics_server
 from ..scheduler.routes import ExtenderServer
+from ..util import trace
 from ..util.config import Config, ResourceNames
 from ..util.types import TOPOLOGY_POLICIES
 
@@ -39,6 +45,8 @@ def parse_args(argv=None):
                    help="the register stream's address (host:port, or "
                         "unix:<path>)")
     p.add_argument("--http-bind", default="0.0.0.0:9443")
+    p.add_argument("--metrics-port", type=int, default=9395,
+                   help="the cluster exporter's /metrics port")
     p.add_argument("--cert-file", default="")
     p.add_argument("--key-file", default="")
     p.add_argument("--scheduler-name", default="vgpu-scheduler")
@@ -91,6 +99,23 @@ def parse_args(argv=None):
                    help="no background rescue sweep (the leases and the "
                         "quarantine still gate Filter; grants on dead "
                         "nodes stay until an operator acts)")
+    p.add_argument("--score-by-actual", action="store_true",
+                   help="bias candidate selection toward nodes whose "
+                        "MEASURED utilization (ledger usage reports) is "
+                        "low — packs against actual, not just granted, "
+                        "capacity; requires node monitors reporting usage")
+    p.add_argument("--efficiency-window", type=float, default=300.0,
+                   help="trailing window (seconds) for the granted-vs-"
+                        "actual efficiency join (vtpu_grant_efficiency_"
+                        "ratio, /usagez default window)")
+    p.add_argument("--idle-grant-grace", type=float, default=600.0,
+                   help="seconds a grant must accrue ~no GPU-seconds "
+                        "before it is surfaced as an idle grant "
+                        "(vtpu_idle_grants; flagged, never evicted)")
+    p.add_argument("--debug", action="store_true",
+                   help="enable the /debug endpoints (stacks, wall-clock "
+                        "profile, vars, tracez, events); unauthenticated — "
+                        "keep off unless the port is restricted")
     p.add_argument("--resync-seconds", type=float, default=None,
                    help="full re-list period; default 300 with the watch, "
                         "30 without")
@@ -122,7 +147,11 @@ def build_config(args) -> Config:
         rescue_interval_s=args.rescue_interval,
         rescue_checkpoint_grace_s=args.rescue_checkpoint_grace,
         lease_retention_s=args.lease_retention,
-        enable_rescue=not args.no_rescue)
+        enable_rescue=not args.no_rescue,
+        score_by_actual=args.score_by_actual,
+        efficiency_window_s=args.efficiency_window,
+        idle_grant_grace_s=args.idle_grant_grace,
+        enable_debug=args.debug)
 
 
 def resolve_watch_and_resync(no_watch: bool, client, resync_seconds):
@@ -191,6 +220,7 @@ def main(argv=None):
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    trace.configure(service="vgpu-scheduler")
     client = DryRunKube() if args.fake_kube else \
         make_client(kube_url=args.kube_url)
     scheduler = Scheduler(client, build_config(args))
@@ -206,13 +236,15 @@ def main(argv=None):
     if scheduler.cfg.enable_rescue:
         scheduler.rescuer.start()
     grpc_server = start_register_service(scheduler, args.grpc_bind)
+    metrics_server = start_metrics_server(scheduler, args.metrics_port)
     host, _, port = args.http_bind.rpartition(":")
     http_server = ExtenderServer(
         scheduler, scheduler.cfg, host=host or "0.0.0.0", port=int(port),
         certfile=args.cert_file or None, keyfile=args.key_file or None)
     http_server.start()
-    log.info("vgpu-scheduler up: grpc=%s http=%s:%d", args.grpc_bind,
-             host or "0.0.0.0", http_server.port)
+    log.info("vgpu-scheduler up: grpc=%s http=%s:%d metrics=:%d",
+             args.grpc_bind, host or "0.0.0.0", http_server.port,
+             metrics_server.port)
 
     def terminate(signum, frame):
         raise KeyboardInterrupt
@@ -230,6 +262,7 @@ def main(argv=None):
         stop.set()
         scheduler.rescuer.stop()
         http_server.stop()
+        metrics_server.stop()
         grpc_server.stop(grace=2)
 
 

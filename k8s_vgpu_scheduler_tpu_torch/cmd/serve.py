@@ -50,6 +50,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
+from ..util import exposition as expo
+
 log = logging.getLogger(__name__)
 
 DEMO_CONFIGS = {
@@ -256,37 +258,13 @@ class EngineFrontend:
                     w["event"].set()
 
 
-def _go_float(value) -> str:
-    """A sample value as Prometheus' text format writes it (Go's
-    formatting, which switches to exponents sooner than Python's)."""
-    d = float(value)
-    if d == float("inf"):
-        return "+Inf"
-    if d == float("-inf"):
-        return "-Inf"
-    if d != d:
-        return "NaN"
-    s = repr(d)
-    dot = s.find(".")
-    if d > 0 and dot > 6:
-        mantissa = f"{s[0]}.{s[1:dot]}{s[dot + 1:]}".rstrip("0.")
-        return f"{mantissa}e+0{dot - 1}"
-    return s
-
-
-def _family(name: str, kind: str, help_: str, value) -> str:
-    help_ = help_.replace("\\", r"\\").replace("\n", r"\n")
-    return (f"# HELP {name} {help_}\n# TYPE {name} {kind}\n"
-            f"{name} {_go_float(value)}\n")
-
-
 def prometheus_text(stats: dict) -> str:
     """The serving pod's Prometheus surface: the exposition text of the
     JAX package's ``prometheus_text`` (a counter family per engine
     counter, gauges for utilization, queue depth and pool bytes, and the
-    latency quantiles once the first completion lands), written here
-    line for line as ``prometheus_client`` would."""
-    out = []
+    latency quantiles once the first completion lands), written by the
+    port's ``util/exposition.py``."""
+    fams = []
     for key, help_ in (
             ("prefills", "Requests admitted into slots"),
             ("decode_steps", "Decode steps executed"),
@@ -294,8 +272,8 @@ def prometheus_text(stats: dict) -> str:
             ("tokens_out", "Tokens generated"),
             ("completions", "Requests completed"),
             ("cancelled", "Requests cancelled (timeout/disconnect)")):
-        out.append(_family(f"vtpu_serve_{key}_total", "counter", help_,
-                           stats["stats"].get(key, 0)))
+        fams.append(expo.CounterMetricFamily(
+            f"vtpu_serve_{key}", help_, value=stats["stats"].get(key, 0)))
     for name, help_, value in (
             ("vtpu_serve_slot_utilization", "Fraction of slots decoding",
              stats["utilization"]),
@@ -303,7 +281,7 @@ def prometheus_text(stats: dict) -> str:
              stats["queue_depth"]),
             ("vtpu_serve_pool_hbm_bytes", "KV-cache pool footprint",
              stats["pool_hbm_bytes"])):
-        out.append(_family(name, "gauge", help_, value))
+        fams.append(expo.GaugeMetricFamily(name, help_, value=value))
     # Latency quantiles appear once the first completion lands
     # (absent-not-zero, same contract as /statsz "latency").
     lat = stats.get("latency") or {}
@@ -313,9 +291,10 @@ def prometheus_text(stats: dict) -> str:
         if not q:
             continue
         for p in ("p50", "p95"):
-            out.append(_family(f"vtpu_serve_{key}_seconds_{p}", "gauge",
-                               help_ + f" ({p})", q[p]))
-    return "".join(out)
+            fams.append(expo.GaugeMetricFamily(
+                f"vtpu_serve_{key}_seconds_{p}", help_ + f" ({p})",
+                value=q[p]))
+    return expo.render(fams)
 
 
 _PROFILE_LOCK = threading.Lock()

@@ -22,11 +22,13 @@ Rescission reuses what exists:
    registry's entry at once.  The rescuer holds none of the scheduler's
    locks.
 
-What the JAX rescuer does beyond this waits for the slices that bring its
-parts: dropping a rescued pod from its gang (``gangs.drop_member``) and
-the ownership gate of a sharded control plane (``shards``) come with the
-gang and shard slice, and flagging idle oversubscribed grants
-(``grant_efficiency``) with the accounting slice (ROADMAP A.5).  The JAX
+Chronically idle oversubscribed grants (``grant_efficiency``, from the
+usage ledger) are flagged, never rescinded: a sweep action, a journal
+event and ``vtpu_idle_grants``.  What the JAX rescuer does beyond this
+waits for the slices that bring its parts: dropping a rescued pod from
+its gang (``gangs.drop_member``) and the ownership gate of a sharded
+control plane (``shards``) come with the gang and shard slice (ROADMAP
+A.5).  The JAX
 rescuer's provenance records go to the port's tracer (``util/trace``)
 under the same event names until the provenance slice (A.5).
 
@@ -96,6 +98,10 @@ class Rescuer:
         self._thread: Optional[threading.Thread] = None
         #: Grants rescinded since the start.
         self.rescued_total = 0
+        #: uid -> first flag time of a chronically idle OVERSUBSCRIBED
+        #: grant (accounting/efficiency.py).  Flag only: an idle pod is
+        #: not a broken one.
+        self.idle_flagged: Dict[str, float] = {}
 
     # -- queue -----------------------------------------------------------------
     def enqueue(self, uid: str, reason: str, namespace: str = "",
@@ -203,6 +209,35 @@ class Rescuer:
                     and uuids - {d.id for d in node_info.devices}:
                 # A re-registration dropped a card this grant holds.
                 self.enqueue(info.uid, "chip-vanished")
+
+        # 3b. Chronically idle oversubscribed grants: flagged, never
+        # evicted.  Such a grant holds memory beyond the card while it
+        # launches nothing, but idleness is not brokenness: the action is
+        # a finding an operator sees (journal event, sweep action,
+        # vtpu_idle_grants), not a rescind.
+        idle_now = set()
+        for pe in self.s.grant_efficiency(now).idle:
+            if not pe.oversubscribe:
+                continue
+            idle_now.add(pe.uid)
+            if pe.uid in self.idle_flagged:
+                continue
+            self.idle_flagged[pe.uid] = now
+            actions.append({"kind": "idle-grant", "pod": pe.name,
+                            "uid": pe.uid, "node": pe.node,
+                            "idle_for_s": round(pe.idle_for_s, 1)})
+            log.warning(
+                "idle grant: %s/%s holds %d card(s) on %s "
+                "(oversubscribed) but has launched nothing for %.0fs "
+                "— capacity wasted, not rescinding", pe.namespace,
+                pe.name, pe.granted_chips, pe.node, pe.idle_for_s)
+            tr.event(pe.uid, "idle-grant", pod=pe.name, node=pe.node,
+                     idle_for_s=round(pe.idle_for_s, 1),
+                     granted_chips=pe.granted_chips)
+        # A pod that launches again (or left) clears its flag, so a
+        # later relapse is reported again.
+        for uid in [u for u in self.idle_flagged if u not in idle_now]:
+            del self.idle_flagged[uid]
 
         # 4. The queue.
         with self._lock:

@@ -16,7 +16,13 @@ Filter gates on, the card quarantine stripped from every usage, the
 rescuer) and priority preemption (``preempt.py``): with
 ``Config.enable_preemption``, a pod that fits nowhere asks strictly
 lower-priority pods to checkpoint and leave, and the requests are kept,
-rescinded and rebuilt from the annotations as in the JAX scheduler.  A
+rescinded and rebuilt from the annotations as in the JAX scheduler.  Each
+register-stream message's usage counters go into the usage ledger
+(``accounting/ledger.py``), which the granted-vs-actual join
+(``grant_efficiency``, ``export_usage`` behind ``/usagez``), the
+exporter, the rescuer's idle-grant flag and ``Config.score_by_actual``
+read; the ``allocate`` span is rebuilt from the bind time and the
+terminal bind phase the informer sees.  A
 node's fabric (the ``TopologyDesc`` and card coordinates its agent
 registers) places multi-card requests by the slice engine under the pod's
 topology policy, and ``vtpu.dev/mesh`` pods by ``placement/mesh.py``.  A
@@ -36,6 +42,8 @@ import threading
 import time
 from typing import Dict, List, Optional, Tuple
 
+from ..accounting import efficiency as eff_mod
+from ..accounting.ledger import UsageLedger, decode_usage
 from ..health.lease import LeaseConfig, LeaseState, LeaseTracker
 from ..health.quarantine import ChipQuarantine, QuarantineConfig
 from ..health.rescuer import RESCUE_VALUE_PREFIX, RescueConfig, Rescuer
@@ -60,7 +68,9 @@ from ..util.types import (
     ASSIGNED_NODE_ANNOTATION,
     ASSIGNED_TIME_ANNOTATION,
     BIND_ALLOCATING,
+    BIND_FAILED,
     BIND_PHASE_ANNOTATION,
+    BIND_SUCCESS,
     BIND_TIME_ANNOTATION,
     GANG_GROUP_ANNOTATION,
     MESH_MAX_ANNOTATION,
@@ -125,6 +135,7 @@ class Scheduler:
                  clock=None) -> None:
         self.client = client
         self.cfg = cfg or Config()
+        self._clock = clock or time.monotonic
         self.nodes = NodeManager()
         self.pods = PodManager()
         # ``clock`` (time.monotonic by default) drives the leases, the
@@ -170,6 +181,18 @@ class Scheduler:
         self._preempt_lock = threading.Lock()
         #: Eviction requests written since the start.
         self.preemptions_requested = 0
+        # Usage accounting: per-pod actual-usage accounts fed by the
+        # counters each node agent's register stream carries, and the
+        # granted-vs-actual join /metrics, /usagez, the idle-grant flag
+        # and --score-by-actual read.
+        self.ledger = UsageLedger(clock=clock,
+                                  retention_s=self.cfg.usage_retention_s)
+        self.efficiency_cfg = eff_mod.EfficiencyConfig(
+            window_s=self.cfg.efficiency_window_s,
+            idle_grace_s=self.cfg.idle_grant_grace_s)
+        # uids whose allocate span was recorded (once each).
+        self._alloc_traced: set = set()
+        self._alloc_traced_lock = threading.Lock()
 
     #: Seconds before a victim's eviction request is written again, and
     #: the age past which a request is forgotten once more than
@@ -179,13 +202,17 @@ class Scheduler:
     PREEMPT_CAP = 4096
 
     # -- register stream (gRPC DeviceService.Register) -------------------------
-    def observe_registration(self, node_name: str, info: NodeInfo) -> None:
+    def observe_registration(self, node_name: str, info: NodeInfo,
+                             usage=None) -> None:
         """One register-stream message: a lease beat, a health reading of
-        each card for the quarantine, and the inventory where it
+        each card for the quarantine, the usage counters it carries
+        (USAGE_FIELDS rows) for the ledger, and the inventory where it
         changed."""
         self.leases.beat(node_name)
         self.quarantine.observe_node(
             node_name, {d.id: d.health for d in info.devices})
+        if usage:
+            self.ledger.record(node_name, usage)
         if not self.nodes.same_inventory(node_name, info):
             self.nodes.add_node(node_name, info)
             log.info("registered node %s with %d cards", node_name,
@@ -201,7 +228,8 @@ class Scheduler:
             for req in request_iterator:
                 node_name = req.node
                 self.observe_registration(node_name,
-                                          decode_register_request(req))
+                                          decode_register_request(req),
+                                          usage=decode_usage(req.usage))
         finally:
             if node_name:
                 log.warning("register stream for %s closed; dropping node",
@@ -237,6 +265,10 @@ class Scheduler:
             return
         anns = pod.get("metadata", {}).get("annotations", {}) or {}
         node = anns.get(ASSIGNED_NODE_ANNOTATION, "")
+        phase = anns.get(BIND_PHASE_ANNOTATION, "")
+        if event != "DELETED" and phase in (BIND_SUCCESS, BIND_FAILED):
+            # The node agent's half of the two-phase commit completed.
+            self._trace_allocate(uid, pod, anns, phase)
         if event == "DELETED" or is_pod_terminated(pod):
             if self.pods.get(uid) is not None and not self._deleted(uid):
                 trace.tracer().event(uid, "deleted", trace_id=anns.get(
@@ -289,6 +321,37 @@ class Scheduler:
         if event == "ADDED" and self._deleted(uid):
             # A DELETE that landed between the check above and the add.
             self.pods.del_pod(uid)
+
+    def _trace_allocate(self, uid: str, pod: dict, anns: Dict[str, str],
+                        phase: str) -> None:
+        """The ``allocate`` span, rebuilt from the bind-time annotation and
+        the arrival of the terminal bind phase: the scheduler's record of
+        the node agent's Allocate.  Once a uid; a replay older than 300 s
+        (a restart re-listing long-bound pods) goes to the journal alone,
+        so it cannot pollute the latency histogram."""
+        with self._alloc_traced_lock:
+            if uid in self._alloc_traced:
+                return
+            if len(self._alloc_traced) > 8192:
+                self._alloc_traced.clear()
+            self._alloc_traced.add(uid)
+        tid = anns.get(trace.TRACE_ID_ANNOTATION, "")
+        node = anns.get(ASSIGNED_NODE_ANNOTATION, "")
+        end = time.time()
+        try:
+            start = int(anns.get(BIND_TIME_ANNOTATION, "0")) / 1e9
+        except ValueError:
+            start = 0.0
+        extra: Dict[str, object] = {}
+        if 0.0 < start <= end and end - start < 300.0:
+            trace.tracer().record("allocate", tid, start, end,
+                                  pod=pod_name(pod), node=node,
+                                  phase=phase, qos=pod_qos(pod))
+        elif start > 0.0:
+            extra = {"histogram": "dropped-stale",
+                     "duration_s": round(end - start, 3)}
+        trace.tracer().event(uid, f"allocate-{phase}", trace_id=tid,
+                             pod=pod_name(pod), node=node, **extra)
 
     def resync_from_apiserver(self) -> str:
         """Full reconcile: apply every listed pod and prune the grants of
@@ -379,6 +442,29 @@ class Scheduler:
                 for name, info in self.nodes.list_nodes().items()
                 if allow is None or name in allow}
 
+    def inspect_all_nodes_usage(self) -> Dict[str, Dict[str,
+                                                      score_mod.DeviceUsage]]:
+        """For the metrics collector: each registered node's card usage,
+        built fresh (the caller owns the maps), off the decision lock."""
+        return {name: usage
+                for name, (_, usage) in self.get_nodes_usage().items()}
+
+    def grant_efficiency(self, now: Optional[float] = None
+                         ) -> "eff_mod.FleetEfficiency":
+        """The granted-vs-actual join of the live registry against the
+        usage ledger, read by the exporter, the rescuer's idle-grant flag
+        and /usagez; off the decision lock."""
+        return eff_mod.grant_efficiency(
+            self.pods.list_pods(), self.ledger, self.efficiency_cfg,
+            now=now if now is not None else self._clock())
+
+    def export_usage(self, window_s: Optional[float] = None) -> dict:
+        """Per-namespace showback over a trailing window (``GET /usagez``
+        → ``vgpu-report``)."""
+        return eff_mod.showback(self.pods.list_pods(), self.ledger,
+                                self.efficiency_cfg,
+                                now=self._clock(), window_s=window_s)
+
     def known_topologies(self) -> List[TopologyDesc]:
         """The distinct fabrics registered in the fleet, one per shape and
         wraparound: the webhook's mesh-feasibility check reads them.  A
@@ -410,7 +496,14 @@ class Scheduler:
                      candidates=len(node_names), qos=pod_qos(pod)) as sp:
             result = self._decide(pod, node_names)
             if result.failed:
+                # Each rejected node counts under its dominant token (the
+                # reason's leading word keeps the label set bounded).
+                for reason in result.failed.values():
+                    tr.reject(reason.split(":", 1)[0].strip())
                 sp.set("rejected_nodes", len(result.failed))
+                sp.set("rejections", "; ".join(
+                    f"{n}={r}" for n, r in
+                    sorted(result.failed.items())[:8]))
             if result.error:
                 sp.set("error", result.error)
             if result.node is not None:
@@ -574,6 +667,9 @@ class Scheduler:
                                            "insufficient GPU capacity")
                 continue
             s = score_mod.node_score(usage, self.cfg.node_scheduler_policy)
+            if self.cfg.score_by_actual:
+                s += eff_mod.actual_idle_bonus(self.ledger, name,
+                                               len(usage))
             if best is None or s > best[0]:
                 best = (s, name, placement)
         if best is None:
@@ -603,7 +699,8 @@ class Scheduler:
                 result.node)
         with trace.tracer().span("decision-write",
                                  trace_id=trace.trace_id_of(pod),
-                                 pod=pod_name(pod), node=result.node) as sp:
+                                 pod=pod_name(pod), node=result.node,
+                                 qos=pod_qos(pod)) as sp:
             try:
                 self.client.patch_pod_annotations(
                     pod_namespace(pod), pod_name(pod), patch)

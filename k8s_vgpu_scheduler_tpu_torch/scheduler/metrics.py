@@ -1,0 +1,844 @@
+"""Cluster-level Prometheus metrics of the port's scheduler extender (its
+copy of the JAX package's ``scheduler/metrics.py``).
+
+Reference: cmd/scheduler/metrics.go:179–355 (ClusterManagerCollector over
+InspectAllNodesUsage and GetScheduledPods, served on :9395).  Every family
+of the JAX collector is emitted, in its order, with its name, help, type
+and labels, so dashboards and alerts written for the JAX chart read the
+port's text (``util/exposition.py`` writes it; no ``prometheus_client``).
+
+Families whose source the port has carry values: grants per card and per
+pod, ``node_tpu_memory_percentage``, preemption requests, leases,
+quarantine, rescue, usage and efficiency from the ledger, idle grants,
+slice availability and the largest free box, QoS wait and weights, and
+the phase latency and rejections from the tracer.  Families whose
+subsystem waits for ROADMAP A.5 are emitted as the JAX collector emits
+them with that subsystem off, zero-valued or empty, so no series a
+dashboard names ever vanishes: see :data:`A5_FAMILIES`.  Standard library
+only.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterable, Optional
+
+from ..monitor.metrics import _fold_hist, qos_wait_family
+from ..placement.mesh import box_availability, max_free_box_volume
+from ..util import trace
+from ..util.exposition import (
+    CounterMetricFamily,
+    GaugeMetricFamily,
+    HistogramMetricFamily,
+    MetricsServer,
+)
+from .core import Scheduler
+
+#: Families whose source waits for ROADMAP A.5, each with the A.5 item
+#: that fills it.  They are emitted as the JAX collector emits them with
+#: the subsystem off: zero-valued where the family has no labels (or a
+#: fixed label set), empty where its labels name live objects.
+A5_FAMILIES = {
+    "vtpu_filter_commit_conflicts": "optimistic commit",
+    "vtpu_filter_batch_size": "batched scheduling cycles",
+    "vtpu_filter_batch_cycle_seconds": "batched scheduling cycles",
+    "vtpu_filter_batch_fallbacks": "batched scheduling cycles",
+    "vtpu_cycle_phase_seconds": "performance observatory",
+    "vtpu_lock_wait_seconds": "performance observatory",
+    "vtpu_lock_hold_seconds": "performance observatory",
+    "vtpu_lock_acquires": "performance observatory",
+    "vtpu_lock_sampled_acquires": "performance observatory",
+    "vtpu_informer_lag_seconds": "performance observatory",
+    "vtpu_informer_resync_seconds": "performance observatory",
+    "vtpu_pending_queue_depth": "batched scheduling cycles",
+    "vtpu_gc_collections": "performance observatory",
+    "vtpu_filter_worker_pool_size": "candidate-evaluation worker pool",
+    "vtpu_filter_workers_busy_peak": "candidate-evaluation worker pool",
+    "vtpu_solve_workers": "multicore solve workers",
+    "vtpu_solve_worker_restarts": "multicore solve workers",
+    "vtpu_solve_worker_eval_seconds": "multicore solve workers",
+    "vtpu_queue_pending": "capacity queues (quota)",
+    "vtpu_queue_admitted": "capacity queues (quota)",
+    "vtpu_queue_fair_share": "capacity queues (quota)",
+    "vtpu_borrowed_chips": "capacity queues (quota)",
+    "vtpu_reclaims": "capacity queues (quota)",
+    "vtpu_reserved_chips": "slice reservations",
+    "vtpu_defrag_plans": "defragmenter",
+    "vtpu_defrag_migrations": "defragmenter",
+    "vtpu_defrag_completed": "defragmenter",
+    "vtpu_defrag_aborted": "defragmenter",
+    "vtpu_resizes": "elastic meshes",
+    "vtpu_elastic_pods": "elastic meshes",
+    "vtpu_resize_thrash": "elastic meshes",
+    "vtpu_shard_epoch": "sharded control plane",
+    "vtpu_shards_owned": "sharded control plane",
+    "vtpu_shards_orphaned": "sharded control plane",
+    "vtpu_shard_rebalances": "sharded control plane",
+    "vtpu_commit_cas_failures": "sharded control plane",
+    "vtpu_capacity_queue_demand_chips": "capacity forecast",
+    "vtpu_capacity_forecast_demand_chips": "capacity forecast",
+    "vtpu_capacity_forecast_upper_chips": "capacity forecast",
+    "vtpu_capacity_queue_starvation_eta_seconds": "capacity forecast",
+    "vtpu_capacity_forecast_error_ratio": "capacity forecast",
+    "vtpu_capacity_nodes_current": "capacity forecast",
+    "vtpu_capacity_nodes_recommended": "capacity forecast",
+    "vtpu_audit_findings": "fleet audit",
+    "vtpu_audit_sweeps": "fleet audit",
+    "vtpu_audit_sweep_seconds": "fleet audit",
+    "vtpu_audit_last_clean_timestamp": "fleet audit",
+    "vtpu_slo_attainment_ratio": "SLO engine",
+    "vtpu_slo_error_budget_remaining_ratio": "SLO engine",
+    "vtpu_slo_burn_rate": "SLO engine",
+    "vtpu_slo_burn_alerts": "SLO engine",
+    "vtpu_decision_write_failures": "decision writer",
+}
+
+#: Slice sizes the availability gauge reports: a fixed label set, so its
+#: series never vanish as fleets grow and shrink (the JAX package's
+#: ``placement/frag.py``).
+CANONICAL_SIZES = (2, 4, 8, 16, 32, 64)
+
+
+def node_free_stats(info, usage) -> Optional[tuple]:
+    """One node's (largest free box, {size: disjoint free boxes}) over its
+    whole free cards (healthy, nothing granted), or None where the node
+    has no fabric or a card lacks coordinates (the JAX ``frag`` rule)."""
+    topo = info.topology
+    if topo is None:
+        return None
+    free = set()
+    seen = set()
+    for u in usage.values():
+        if not u.coords or u.coords in seen:
+            return None
+        seen.add(u.coords)
+        if u.health and u.used_slots == 0 and u.used_mem == 0 \
+                and u.used_cores == 0:
+            free.add(u.coords)
+    free = frozenset(free)
+    return (max_free_box_volume(topo, free),
+            box_availability(topo, free, CANONICAL_SIZES))
+
+
+class ClusterCollector:
+    def __init__(self, scheduler: Scheduler) -> None:
+        self.scheduler = scheduler
+
+    def collect(self) -> Iterable[GaugeMetricFamily]:
+        mem_limit = GaugeMetricFamily(
+            "tpu_device_memory_limit_mib",
+            "Advertised HBM capacity of a TPU chip",
+            labels=["node", "deviceuuid"],
+        )
+        mem_alloc = GaugeMetricFamily(
+            "tpu_device_memory_allocated_mib",
+            "HBM granted to pods on a TPU chip",
+            labels=["node", "deviceuuid"],
+        )
+        shared_num = GaugeMetricFamily(
+            "tpu_device_shared_num",
+            "Number of pod grants sharing a TPU chip",
+            labels=["node", "deviceuuid"],
+        )
+        core_alloc = GaugeMetricFamily(
+            "tpu_device_core_allocated",
+            "Compute percentage granted on a TPU chip",
+            labels=["node", "deviceuuid"],
+        )
+        mem_pct = GaugeMetricFamily(
+            "node_tpu_memory_percentage",
+            "Fraction of node TPU HBM allocated",
+            labels=["node"],
+        )
+        for node, usage in self.scheduler.inspect_all_nodes_usage().items():
+            total = used = 0
+            for u in usage.values():
+                mem_limit.add_metric([node, u.id], u.total_mem)
+                mem_alloc.add_metric([node, u.id], u.used_mem)
+                shared_num.add_metric([node, u.id], u.used_slots)
+                core_alloc.add_metric([node, u.id], u.used_cores)
+                total += u.total_mem
+                used += u.used_mem
+            if total:
+                mem_pct.add_metric([node], used / total)
+
+        pod_mem = GaugeMetricFamily(
+            "vtpu_pod_device_allocated_mib",
+            "HBM granted to one pod on one chip",
+            labels=["podnamespace", "podname", "deviceuuid"],
+        )
+        pod_cores = GaugeMetricFamily(
+            "vtpu_pod_core_allocated",
+            "Compute percentage granted to one pod on one chip",
+            labels=["podnamespace", "podname", "deviceuuid"],
+        )
+        for pod in self.scheduler.pods.list_pods():
+            for container in pod.devices:
+                for g in container:
+                    pod_mem.add_metric([pod.namespace, pod.name, g.uuid], g.usedmem)
+                    pod_cores.add_metric([pod.namespace, pod.name, g.uuid], g.usedcores)
+
+        preempts = CounterMetricFamily(
+            "vtpu_preemption_requests",
+            "Eviction requests written to victim pods (each one imposes a "
+            "checkpoint/restore cycle on a workload)",
+        )
+        preempts.add_metric([], self.scheduler.preemptions_requested)
+
+        conflicts = CounterMetricFamily(
+            "vtpu_filter_commit_conflicts",
+            "Optimistic Filter commits that lost their revision "
+            "generation race and re-evaluated (a high rate means many "
+            "concurrent Filters chase the same node — check node-policy "
+            "spread and fleet headroom)",
+        )
+        conflicts.add_metric([], 0)  # serial decisions: no commit race
+
+        # Batched scheduling cycles (A.5): the families, empty.
+        batch_size = HistogramMetricFamily(
+            "vtpu_filter_batch_size",
+            "Pods decided per batched scheduling cycle (the drain size "
+            "of one tick; sustained 1s mean the gate never aggregates — "
+            "check --batch-tick-ms against the Filter arrival rate)",
+        )
+        batch_lat = HistogramMetricFamily(
+            "vtpu_filter_batch_cycle_seconds",
+            "Wall-clock latency of one batched scheduling cycle "
+            "(snapshot refresh + vectorized evaluation + joint solve + "
+            "group commit + per-pod fallbacks)",
+        )
+
+        # Multicore solve workers (A.5): zero-valued, empty histograms.
+        solve_workers = GaugeMetricFamily(
+            "vtpu_solve_workers",
+            "Live solve worker processes mapping the shared-memory "
+            "columnar fleet read-only (0 = class evaluations run "
+            "in-process; raise --solve-workers on multi-core boxes)",
+        )
+        solve_restarts = CounterMetricFamily(
+            "vtpu_solve_worker_restarts",
+            "Solve worker processes respawned after a crash, a "
+            "stale-generation refusal or an unresponsive evaluation "
+            "(each respawn remaps the columnar segments fresh; any "
+            "failed dispatch falls back to the in-process evaluator)",
+        )
+        solve_eval = HistogramMetricFamily(
+            "vtpu_solve_worker_eval_seconds",
+            "Wall-clock latency of one offloaded class evaluation over "
+            "one solve worker's row shard (measured in the worker, "
+            "recorded by the parent at reply collection)",
+            labels=["worker"],
+        )
+        solve_workers.add_metric([], 0)
+        solve_restarts.add_metric([], 0)
+
+        pool_size = GaugeMetricFamily(
+            "vtpu_filter_worker_pool_size",
+            "Candidate-evaluation worker pool size (0 until the pool is "
+            "first used, or when evaluation is in-thread)",
+        )
+        pool_size.add_metric([], 0)
+        busy_peak = GaugeMetricFamily(
+            "vtpu_filter_workers_busy_peak",
+            "High-water mark of concurrently busy candidate-evaluation "
+            "workers (peak/size ~ 1 means the pool saturates and "
+            "--filter-workers may be raised)",
+        )
+        busy_peak.add_metric([], 0)
+
+        # Fleet health (health/): the leases, quarantine and rescuer keep
+        # their own small locks, so a scrape never blocks a decision.
+        lease_state = GaugeMetricFamily(
+            "vtpu_node_lease_state",
+            "Node heartbeat-lease state (0 healthy, 1 suspect = excluded "
+            "from new placements, 2 dead = grants being rescued)",
+            labels=["node"],
+        )
+        states = self.scheduler.leases.states()
+        for node, st in sorted(states.items()):
+            lease_state.add_metric([node], int(st))
+        leases_unhealthy = GaugeMetricFamily(
+            "vtpu_node_leases_unhealthy",
+            "Nodes whose lease is currently Suspect or Dead (many at once "
+            "is a lease-expiry storm: suspect a scheduler-side partition "
+            "or overload before believing in mass node death)",
+        )
+        leases_unhealthy.add_metric(
+            [], sum(1 for st in states.values() if int(st) > 0))
+        chips_quar = GaugeMetricFamily(
+            "vtpu_chips_quarantined",
+            "Chips currently quarantined out of the schedulable set "
+            "(flap damping / slice-neighbor containment)",
+        )
+        chips_quar.add_metric([], self.scheduler.quarantine.count())
+        quarantines = CounterMetricFamily(
+            "vtpu_chip_quarantines",
+            "Chip quarantine entries over this scheduler's lifetime",
+        )
+        quarantines.add_metric(
+            [], self.scheduler.quarantine.quarantines_total)
+        rescued = CounterMetricFamily(
+            "vtpu_rescued_pods",
+            "Grants rescinded by the rescue sweep (stranded on a dead "
+            "node, a quarantined chip, or vanished inventory); each one "
+            "forces a pod back through scheduling",
+        )
+        rescued.add_metric([], self.scheduler.rescuer.rescued_total)
+
+        # Usage accounting (accounting/): actual use per pod from the
+        # ledger, and the granted-vs-actual efficiency join.
+        u_chip = CounterMetricFamily(
+            "vtpu_usage_chip_seconds",
+            "Chip-seconds actually consumed by one pod (from node usage "
+            "reports; compare against its granted chips over time)",
+            labels=["podnamespace", "podname"],
+        )
+        u_hbm = CounterMetricFamily(
+            "vtpu_usage_hbm_byte_seconds",
+            "HBM byte-seconds actually held by one pod (occupancy "
+            "integrated over time, from node usage reports)",
+            labels=["podnamespace", "podname"],
+        )
+        eff_ratio = GaugeMetricFamily(
+            "vtpu_grant_efficiency_ratio",
+            "Actual / granted chip-seconds over the efficiency window "
+            "(1 = the grant is fully used; near 0 = the classic idle-"
+            "grant waste the fractional scheduler exists to prevent)",
+            labels=["podnamespace", "podname"],
+        )
+        idle_grants = GaugeMetricFamily(
+            "vtpu_idle_grants",
+            "Live grants that accrued ~no chip-seconds past the idle "
+            "grace — capacity held but unused (see /usagez and "
+            "vtpu-report for the per-pod list)",
+        )
+        # Capacity queues (A.5): empty, and the reclaim counter at 0.
+        q_pending = GaugeMetricFamily(
+            "vtpu_queue_pending",
+            "Pods held in one capacity queue awaiting fair-share "
+            "admission (sustained nonzero with zero admissions is "
+            "starvation — see the VtpuQueueStarvation alert)",
+            labels=["queue"],
+        )
+        q_admitted = CounterMetricFamily(
+            "vtpu_queue_admitted",
+            "Pods released from one capacity queue by the admission "
+            "loop over this scheduler's lifetime",
+            labels=["queue"],
+        )
+        q_share = GaugeMetricFamily(
+            "vtpu_queue_fair_share",
+            "Weighted dominant-resource share of one queue (held / "
+            "nominal / weight; the admission loop releases lowest "
+            "first, so sustained imbalance means quota or weight "
+            "misconfiguration)",
+            labels=["queue"],
+        )
+        q_borrowed = GaugeMetricFamily(
+            "vtpu_borrowed_chips",
+            "Chips one queue holds beyond its nominal quota (borrowed "
+            "from its cohort's unused capacity; the reclaimable set)",
+            labels=["queue"],
+        )
+        q_reclaims = CounterMetricFamily(
+            "vtpu_reclaims",
+            "Reclaim plans issued for starved in-quota tenants (each "
+            "one checkpoint-evicts borrowed grants)",
+        )
+        q_reclaims.add_metric([], 0)
+
+        # Placement: slice availability and the largest free box from
+        # each node's whole free cards; reservations and the
+        # defragmenter (A.5) at 0.
+        slice_avail = GaugeMetricFamily(
+            "vtpu_slice_availability",
+            "Disjoint contiguous free boxes of one slice size (chips) "
+            "admissible fleet-wide right now without any eviction — "
+            "the fragmentation number large gangs live and die by",
+            labels=["shape"],
+        )
+        max_box = GaugeMetricFamily(
+            "vtpu_fleet_max_free_box",
+            "Largest contiguous free box in the fleet (chips): the "
+            "biggest slice/mesh grant that can admit without the "
+            "defragmenter compacting",
+        )
+        reserved = GaugeMetricFamily(
+            "vtpu_reserved_chips",
+            "Chips held in slice reservations (a defrag compaction's "
+            "assembled box awaiting its beneficiary; excluded from the "
+            "schedulable set and the quota release throttle)",
+        )
+        defrag_plans = CounterMetricFamily(
+            "vtpu_defrag_plans",
+            "Compaction plans issued by the defragmenter (each migrates "
+            "checkpointable victims to assemble a contiguous slice)",
+        )
+        defrag_migrations = CounterMetricFamily(
+            "vtpu_defrag_migrations",
+            "Victims asked to checkpoint-migrate by defrag plans (each "
+            "one is a checkpoint/restore cycle imposed on a workload)",
+        )
+        defrag_completed = CounterMetricFamily(
+            "vtpu_defrag_completed",
+            "Compaction plans whose victims all checkpointed and "
+            "exited (the assembled slice went to reservation)",
+        )
+        defrag_aborted = CounterMetricFamily(
+            "vtpu_defrag_aborted",
+            "Compaction plans aborted (a victim missed the checkpoint "
+            "grace; requests rescinded, reservation returned)",
+        )
+        totals = {n: 0 for n in CANONICAL_SIZES}
+        biggest = 0
+        nodes_usage = self.scheduler.get_nodes_usage()
+        for name in sorted(nodes_usage):
+            stats = node_free_stats(*nodes_usage[name])
+            if stats is not None:
+                biggest = max(biggest, stats[0])
+                for size, count in stats[1].items():
+                    totals[size] += count
+        for size, count in sorted(totals.items()):
+            slice_avail.add_metric([str(size)], count)
+        max_box.add_metric([], biggest)
+        reserved.add_metric([], 0)
+        defrag_plans.add_metric([], 0)
+        defrag_migrations.add_metric([], 0)
+        defrag_completed.add_metric([], 0)
+        defrag_aborted.add_metric([], 0)
+
+        # Elastic meshes (A.5): the fixed label sets, zero-valued.
+        resizes = CounterMetricFamily(
+            "vtpu_resizes",
+            "Gang mesh resizes begun (checkpoint-restart at a new "
+            "rung), by direction (shrink/grow) and requesting "
+            "subsystem (reclaim/defrag/grow/admission)",
+            labels=["direction", "requester"],
+        )
+        elastic_pods = GaugeMetricFamily(
+            "vtpu_elastic_pods",
+            "Member pods of gangs declaring a mesh range, by state "
+            "(at-max: running at mesh-max; shrunk: running below it; "
+            "resizing: mid checkpoint-restart; pending: not admitted)",
+            labels=["state"],
+        )
+        resize_thrash = CounterMetricFamily(
+            "vtpu_resize_thrash",
+            "Grow attempts suppressed by hysteresis right after a "
+            "shrink (counted once per resize) — a rising rate means "
+            "capacity is oscillating and --resize-hysteresis is "
+            "absorbing shrink/grow ping-pong (VtpuResizeThrash)",
+        )
+        for direction in ("shrink", "grow"):
+            for req in ("reclaim", "defrag", "grow", "admission"):
+                resizes.add_metric([direction, req], 0)
+        for state in ("at-max", "shrunk", "resizing", "pending"):
+            elastic_pods.add_metric([state], 0)
+        resize_thrash.add_metric([], 0)
+
+        # Sharded control plane (A.5): empty, as with the layer absent.
+        shard_epoch = GaugeMetricFamily(
+            "vtpu_shard_epoch",
+            "Shard-map epoch this replica operates under (replicas "
+            "disagreeing for more than a tick means the coordination "
+            "object is unreachable; 0 = shard layer inert)",
+        )
+        shards_owned = GaugeMetricFamily(
+            "vtpu_shards_owned",
+            "Registered nodes this replica owns placements for under "
+            "the current shard map (the whole fleet when the shard "
+            "layer is inert)",
+        )
+        shards_orphaned = GaugeMetricFamily(
+            "vtpu_shards_orphaned",
+            "Registered nodes whose owner replica's lease is Dead but "
+            "whose shards have not been reassigned yet — nonzero for "
+            "longer than an epoch bump + adoption grace means "
+            "rebalancing is stuck (VtpuShardOrphaned)",
+        )
+        shard_rebalances = CounterMetricFamily(
+            "vtpu_shard_rebalances",
+            "Epoch transitions this replica adopted shards on (each "
+            "one replays the adopted nodes' decision-annotation WAL)",
+        )
+        cas_failures = CounterMetricFamily(
+            "vtpu_commit_cas_failures",
+            "Sharded decision commits that failed closed, by reason "
+            "(stale-map / lost-ownership / adopting: the epoch fence; "
+            "rv-conflict / already-decided: a concurrent peer decision "
+            "on the same pod; pod-gone / read-failed / write-failed: "
+            "apiserver I/O) — every one requeues its pod",
+            labels=["reason"],
+        )
+
+        # Performance observatory (A.5): empty, gauges and the
+        # per-generation gc counts at 0.
+        cycle_phase = HistogramMetricFamily(
+            "vtpu_cycle_phase_seconds",
+            "Wall-clock cost of one control-plane phase per tick "
+            "(drain, snapshot, columnar-refresh vs -rebuild, "
+            "vector-eval, solve, slice-stage, group-commit, "
+            "decision-write, decision-flush, opt-evaluate/commit, "
+            "informer-apply/-resync, register-apply, "
+            "quota/defrag/shard/capacity ticks, gc-pause, cycle-total "
+            "— where a tick's time goes; see GET /perfz for windowed "
+            "p50/p99 and the slow-tick table)",
+            labels=["phase"],
+        )
+        lock_wait = HistogramMetricFamily(
+            "vtpu_lock_wait_seconds",
+            "Time spent WAITING for a contended control-plane lock "
+            "(commit / pods / nodes / quota / leases / snapshot-cache; "
+            "uncontended acquires record nothing, and the hottest "
+            "locks observe 1-in-N sampled acquires — the count is the "
+            "sampled contention count)",
+            labels=["lock"],
+        )
+        lock_hold = HistogramMetricFamily(
+            "vtpu_lock_hold_seconds",
+            "Time a control-plane lock was HELD per acquire (sampled "
+            "1-in-N on the hottest locks; a hold distribution moving "
+            "up is the convoy precursor the wait histogram confirms)",
+            labels=["lock"],
+        )
+        lock_acquires = CounterMetricFamily(
+            "vtpu_lock_acquires",
+            "Acquires of one control-plane lock (exact; the hottest "
+            "locks observe wait/hold on 1-in-N sampled acquires, so "
+            "the contention ratio is vtpu_lock_wait_seconds_count "
+            "over the SAMPLED count — GET /perfz computes it)",
+            labels=["lock"],
+        )
+        lock_sampled = CounterMetricFamily(
+            "vtpu_lock_sampled_acquires",
+            "Acquires on which one control-plane lock's wait/hold "
+            "telemetry was observed (ceil(acquires / 2**sample_shift) — "
+            "the sampled acquire is the first of each block; the "
+            "contention-ratio denominator — dividing the wait count by "
+            "RAW acquires understates contention by the per-lock "
+            "sampling factor)",
+            labels=["lock"],
+        )
+        informer_lag = GaugeMetricFamily(
+            "vtpu_informer_lag_seconds",
+            "Pod-informer apply latency: p99 of the recent event-apply "
+            "window (callback entry -> registries updated).  The "
+            "dispatch loop is synchronous, so growth here is what "
+            "backs the watch up; transport-side queueing upstream of "
+            "the callback is not included",
+        )
+        informer_resync = GaugeMetricFamily(
+            "vtpu_informer_resync_seconds",
+            "Wall-clock cost of the most recent full informer resync "
+            "(list + chunked re-apply + prune).  The reconcile yields "
+            "between chunks so cycles interleave, but a growing figure "
+            "still means the safety net is re-walking a fleet the watch "
+            "should be keeping current — see the informer-resync phase "
+            "on GET /perfz for history",
+        )
+        pending_depth = GaugeMetricFamily(
+            "vtpu_pending_queue_depth",
+            "Pods queued at the batch gate awaiting their scheduling "
+            "cycle (sustained growth = ticks can't keep up with "
+            "arrivals; see drain_age_s on GET /perfz)",
+        )
+        gc_collections = CounterMetricFamily(
+            "vtpu_gc_collections",
+            "Python garbage collections in this scheduler process, by "
+            "generation (gen2 spikes stall every scheduling thread; "
+            "pause durations are the gc-pause phase of "
+            "vtpu_cycle_phase_seconds)",
+            labels=["generation"],
+        )
+        informer_lag.add_metric([], 0.0)
+        informer_resync.add_metric([], 0.0)
+        pending_depth.add_metric([], 0)
+        for gen in range(3):
+            gc_collections.add_metric([str(gen)], 0)
+
+        batch_fallbacks = CounterMetricFamily(
+            "vtpu_filter_batch_fallbacks",
+            "Batched-cycle jobs resolved via the per-pod path, by cause "
+            "(slice-no-fit: the in-cycle slice stage found no box; "
+            "no-fit: the joint solver found no node; commit-conflict: "
+            "lost a revision race in the group commit; error: cycle-"
+            "internal failure)",
+            labels=["reason"],
+        )
+
+        # Serving QoS: per-class dispatch-wait histograms and per-pod
+        # duty weights, from the qos fields the usage reports carry.
+        pod_qos_weight = GaugeMetricFamily(
+            "vtpu_pod_qos_duty_weight",
+            "Current duty-cycle weight of one QoS-classed pod (percent "
+            "of its core grant; 100 = neutral, shifted by the node "
+            "monitor's p99 feedback loop — vtpu-smi top shows this next "
+            "to the waste view)",
+            labels=["podnamespace", "podname", "class"],
+        )
+
+        # Capacity forecast (A.5): empty.
+        cap_demand = GaugeMetricFamily(
+            "vtpu_capacity_queue_demand_chips",
+            "Chips one capacity queue (or namespace, when ungoverned) "
+            "wants right now: held grants plus pending requests — the "
+            "demand series the forecaster learns",
+            labels=["queue"],
+        )
+        cap_forecast = GaugeMetricFamily(
+            "vtpu_capacity_forecast_demand_chips",
+            "Forecast demand of one queue at the horizon end (EWMA "
+            "level + additive seasonality over the ledger-tick demand "
+            "series; GET /capacityz carries the full per-bucket curve)",
+            labels=["queue"],
+        )
+        cap_upper = GaugeMetricFamily(
+            "vtpu_capacity_forecast_upper_chips",
+            "Upper confidence band of one queue's forecast demand at "
+            "the horizon end (the conservative bound starvation ETAs "
+            "and scale recommendations read)",
+            labels=["queue"],
+        )
+        cap_eta = GaugeMetricFamily(
+            "vtpu_capacity_queue_starvation_eta_seconds",
+            "Seconds until this queue's forecast demand (upper band) "
+            "exceeds what it can admit — 0 = starving now, +Inf = the "
+            "horizon stays clear (VtpuQueueStarvationForecast pages on "
+            "a finite ETA)",
+            labels=["queue"],
+        )
+        cap_err = GaugeMetricFamily(
+            "vtpu_capacity_forecast_error_ratio",
+            "Forecast-vs-actual drift of one queue's demand series: "
+            "EWMA |one-bucket-ahead error| / EWMA |actual| (~0 = the "
+            "model tracks the tenant; sustained high = forecasts are "
+            "noise and capacity answers should not be trusted — "
+            "VtpuCapacityForecastDrift)",
+            labels=["queue"],
+        )
+        cap_nodes_cur = GaugeMetricFamily(
+            "vtpu_capacity_nodes_current",
+            "Nodes currently registered (the scale recommendation's "
+            "baseline)",
+        )
+        cap_nodes_rec = GaugeMetricFamily(
+            "vtpu_capacity_nodes_recommended",
+            "Nodes the demand forecast needs: peak of the summed "
+            "per-queue upper bands over the horizon, in whole nodes "
+            "(analytic; verify with a vtpu-simulate capacity replay "
+            "before buying hardware — docs/observability.md)",
+        )
+
+        # Usage-series freshness: age of each pod's newest ledger sample
+        # (the vgpu-report / vgpu-smi staleness guard reads it).
+        series_age = GaugeMetricFamily(
+            "vtpu_usage_series_age_seconds",
+            "Seconds since the ledger last absorbed a usage report for "
+            "one pod (high = its node's monitor stopped reporting; "
+            "totals for it are frozen, not zero)",
+            labels=["podnamespace", "podname"],
+        )
+
+        # Fleet audit (A.5): the sweep counters at 0, no findings.
+        audit_findings = GaugeMetricFamily(
+            "vtpu_audit_findings",
+            "Open cross-plane audit findings by type (the fleet truth "
+            "auditor's live disagreements between grant registry, "
+            "decision-annotation WAL, snapshot/columnar views, shim-"
+            "region usage reports and the quota/reservation ledgers; "
+            "0 everywhere = the five planes agree — see GET /auditz "
+            "and vtpu-audit for subjects and lifecycle)",
+            labels=["type"],
+        )
+        audit_sweeps = CounterMetricFamily(
+            "vtpu_audit_sweeps",
+            "Audit sweeps run, by mode (delta = dirty nodes only, "
+            "cost tracks churn; full = whole fleet + kube/ledger/"
+            "quota/reservation planes, the bounded-rate backstop)",
+            labels=["mode"],
+        )
+        audit_sweep_s = GaugeMetricFamily(
+            "vtpu_audit_sweep_seconds",
+            "Wall-clock cost of the most recent audit sweep (the "
+            "audit-sweep phase of vtpu_cycle_phase_seconds carries "
+            "the distribution; delta sweeps should stay near zero on "
+            "a quiet fleet)",
+        )
+        audit_last_clean = GaugeMetricFamily(
+            "vtpu_audit_last_clean_timestamp",
+            "Unix time of the last audit sweep that ended with ZERO "
+            "open findings (0 = never since boot; time() minus this "
+            "growing while vtpu_audit_findings is nonzero is the "
+            "VtpuAuditFindingPersistent signal)",
+        )
+        audit_sweeps.add_metric(["full"], 0)
+        audit_sweeps.add_metric(["delta"], 0)
+        audit_sweep_s.add_metric([], 0.0)
+        audit_last_clean.add_metric([], 0.0)
+
+        # SLO engine (A.5): the severity taxonomy zero-valued.
+        slo_attainment = GaugeMetricFamily(
+            "vtpu_slo_attainment_ratio",
+            "Fraction of good events over each objective's budget "
+            "window (compare against the declared target; absent "
+            "until the objective has seen any event — GET /sloz and "
+            "vtpu-slo carry targets, budgets and per-window detail)",
+            labels=["objective"],
+        )
+        slo_budget = GaugeMetricFamily(
+            "vtpu_slo_error_budget_remaining_ratio",
+            "Unspent fraction of each objective's error budget over "
+            "its budget window, clamped to [0, 1] (0 = the promise is "
+            "fully broken for this window; the burn-rate gauges say "
+            "how fast it got there)",
+            labels=["objective"],
+        )
+        slo_burn = GaugeMetricFamily(
+            "vtpu_slo_burn_rate",
+            "Error-budget consumption speed per evaluation window, as "
+            "a multiple of 'exactly on budget' (1.0 = burning the "
+            "whole budget in one budget window; the multi-window rule "
+            "fires a signal only while BOTH a pair's windows exceed "
+            "its threshold)",
+            labels=["objective", "window"],
+        )
+        slo_alerts = GaugeMetricFamily(
+            "vtpu_slo_burn_alerts",
+            "Active multi-window burn signals by severity (page = the "
+            "fast 1h/5m pair, ticket = the slow 24h/6h pair; any "
+            "sustained nonzero fires VtpuErrorBudgetBurnFast/Slow — "
+            "vtpu-slo for the objective, burn rates and triage)",
+            labels=["severity"],
+        )
+        for severity in ("page", "ticket"):
+            slo_alerts.add_metric([severity], 0)
+
+        # Decision-write failures (A.5's decision writer): the JAX
+        # reasons, zero-valued.
+        dwf = CounterMetricFamily(
+            "vtpu_decision_write_failures",
+            "Decision-annotation writes that failed after their path's "
+            "retries, by reason (transport: the apiserver write itself "
+            "failed — batched AND single paths; shard-fence / "
+            "shard-cas: the sharded commit failed closed; every one "
+            "rolled its tentative grant back and requeued the pod)",
+            labels=["reason"],
+        )
+        for reason in ("shard-cas", "shard-fence", "transport"):
+            dwf.add_metric([reason], 0)
+
+        fleet = self.scheduler.grant_efficiency()
+        by_uid = {p.uid: p for p in fleet.pods}
+        qos_by_class: Dict[str, tuple] = {}
+        qos_weights: Dict[tuple, float] = {}
+        # Pruned accounts' folded-in totals first: the per-class sums
+        # must never go backwards when the ledger GCs a retired pod
+        # (Prometheus would read the dip as a counter reset).
+        retired = self.scheduler.ledger.qos_retired()
+        for cls, (hist, s) in retired.items():
+            _fold_hist(qos_by_class, cls, hist, s)
+        for acct in self.scheduler.ledger.accounts():
+            if not acct.qos_class:
+                continue
+            _fold_hist(qos_by_class, acct.qos_class,
+                       acct.qos_wait_hist, acct.qos_wait_seconds_total)
+            pe = by_uid.get(acct.uid)
+            namespace = pe.namespace if pe is not None else "(unresolved)"
+            name = pe.name if pe is not None else acct.name
+            # Latest wins on (ns, name, class) collisions — same dedup
+            # discipline as the efficiency gauges below.
+            qos_weights[(namespace, name, acct.qos_class)] = \
+                acct.qos_weight_pct
+        for (namespace, name, cls), w in sorted(qos_weights.items()):
+            pod_qos_weight.add_metric([namespace, name, cls], w)
+        # Aggregate by label pair BEFORE emitting: two retained accounts
+        # can resolve to the same (namespace, name) — successive
+        # incarnations of a restarted pod, both "(unresolved)" — and
+        # duplicate series would invalidate the whole exposition.
+        # Summing is correct for lifetime counters.
+        sums: Dict[tuple, list] = {}
+        ages: Dict[tuple, float] = {}
+        ledger_now = self.scheduler.ledger.now()
+        for acct in self.scheduler.ledger.accounts():
+            pe = by_uid.get(acct.uid)
+            namespace = pe.namespace if pe is not None else "(unresolved)"
+            name = pe.name if pe is not None else acct.name
+            agg = sums.setdefault((namespace, name), [0.0, 0.0])
+            agg[0] += acct.chip_seconds
+            agg[1] += acct.hbm_byte_seconds
+            # Freshest incarnation wins on (ns, name) collisions: the
+            # age gauge answers "is anything still reporting here".
+            age = max(0.0, ledger_now - acct.last_recorded)
+            prev = ages.get((namespace, name))
+            if prev is None or age < prev:
+                ages[(namespace, name)] = age
+        for (namespace, name), (chip_s, hbm_s) in sorted(sums.items()):
+            u_chip.add_metric([namespace, name], chip_s)
+            u_hbm.add_metric([namespace, name], hbm_s)
+        for (namespace, name), age in sorted(ages.items()):
+            series_age.add_metric([namespace, name], age)
+        # Same dedup discipline: a delete/recreate race can briefly hold
+        # two uids under one (namespace, name); latest registry entry wins.
+        ratios: Dict[tuple, float] = {}
+        for pe in fleet.pods:
+            if pe.efficiency is not None:
+                ratios[(pe.namespace, pe.name)] = pe.efficiency
+        for (namespace, name), ratio in sorted(ratios.items()):
+            eff_ratio.add_metric([namespace, name], ratio)
+        idle_grants.add_metric([], len(fleet.idle))
+
+        return [mem_limit, mem_alloc, shared_num, core_alloc, mem_pct,
+                pod_mem, pod_cores, preempts, conflicts, batch_size,
+                batch_lat, batch_fallbacks, cycle_phase, lock_wait,
+                lock_hold, lock_acquires, lock_sampled, informer_lag,
+                informer_resync, pending_depth,
+                gc_collections, pool_size, busy_peak,
+                solve_workers, solve_restarts, solve_eval,
+                lease_state, leases_unhealthy, chips_quar, quarantines,
+                rescued, q_pending, q_admitted, q_share, q_borrowed,
+                q_reclaims, slice_avail, max_box, reserved,
+                defrag_plans, defrag_migrations, defrag_completed,
+                defrag_aborted, resizes, elastic_pods, resize_thrash,
+                shard_epoch, shards_owned,
+                shards_orphaned, shard_rebalances, cas_failures,
+                cap_demand, cap_forecast, cap_upper, cap_eta, cap_err,
+                cap_nodes_cur, cap_nodes_rec,
+                audit_findings, audit_sweeps, audit_sweep_s,
+                audit_last_clean, slo_attainment, slo_budget,
+                slo_burn, slo_alerts, dwf, series_age,
+                u_chip, u_hbm, eff_ratio, idle_grants,
+                qos_wait_family(qos_by_class),
+                pod_qos_weight] + list(phase_metrics())
+
+
+def phase_metrics():
+    """Per-phase scheduling latency histograms + node-rejection-reason
+    counters, read out of this process's tracer (util/trace.py) — the
+    aggregate face of the spans /debug/tracez shows one pod at a time."""
+    latency = HistogramMetricFamily(
+        "vtpu_scheduling_phase_latency_seconds",
+        "Wall-clock latency of one scheduling phase (webhook, filter, "
+        "decision-write, bind, allocate), by the pod's QoS class "
+        "(empty = unclassed) so tiered scheduling latency slices the "
+        "same way vtpu.dev/qos slices traces",
+        labels=["phase", "qos"],
+    )
+    for (phase, qos), (buckets, _count, sum_s) in \
+            trace.tracer().histogram_snapshot().items():
+        latency.add_metric([phase, qos], buckets, sum_s)
+    rejections = CounterMetricFamily(
+        "vtpu_filter_rejections",
+        "Nodes rejected during Filter, by dominant reason token "
+        "(from scheduler/score.py per-chip rules)",
+        labels=["reason"],
+    )
+    for reason, n in trace.tracer().rejection_snapshot().items():
+        rejections.add_metric([reason], n)
+    return [latency, rejections]
+
+
+def start_metrics_server(scheduler: Scheduler, port: int = 9395,
+                         host: str = "0.0.0.0") -> MetricsServer:
+    """Serve ``/metrics`` with the cluster collector alone, started; the
+    server's ``port`` is the bound one (port 0 picks a free one)."""
+    collector = ClusterCollector(scheduler)
+    return MetricsServer(collector.collect, host=host, port=port).start()

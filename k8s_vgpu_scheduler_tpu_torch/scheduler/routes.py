@@ -11,15 +11,23 @@ Reference: pkg/scheduler/routes/route.go (PredicateRoute 41–77, Bind
                     Node} → ExtenderBindingResult{Error}
 - ``POST /webhook`` AdmissionReview v1
 - ``GET  /healthz``
+- ``GET  /usagez``  per-namespace showback over a trailing window
+                    (``?window=<seconds>``, a positive finite number, else
+                    400; an export error answers 500) for ``vgpu-report``
+- ``GET  /debug/*`` stacks, profile, vars, tracez, events
+                    (``util/debugz.py``), with ``Config.enable_debug``
 
-``/metrics`` and the JAX package's debug and export endpoints wait for the
-port's metrics slice.
+``/metrics`` is served on its own port (``scheduler/metrics.py``, as the
+JAX daemon does).  The JAX package's other export endpoints (``/queuez``,
+``/capacityz``, ``/auditz``, ``/sloz``, ``/explainz``, ``/perfz``,
+``/fleetz``) wait for ROADMAP A.5; ``vgpu-report`` degrades without them.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
@@ -85,8 +93,41 @@ class _Handler(BaseHTTPRequestHandler):
         self.wfile.write(body)
 
     def do_GET(self):  # noqa: N802 (http.server's API)
+        from urllib.parse import parse_qsl, urlsplit
+
+        parts = urlsplit(self.path)
         if self.path == "/healthz":
             self._reply(200, {"ok": True})
+        elif parts.path == "/usagez":
+            query = dict(parse_qsl(parts.query))
+            try:
+                window = (float(query["window"])
+                          if "window" in query else None)
+                # float() takes nan and inf, which would flow into the
+                # showback and break the body's strict JSON.
+                if window is not None and (
+                        not math.isfinite(window) or window <= 0):
+                    raise ValueError(f"not a positive finite number: "
+                                     f"{query['window']!r}")
+            except (ValueError, TypeError) as e:
+                self._reply(400, {"error": f"bad window: {e}"})
+                return
+            try:
+                self._reply(200, self.scheduler.export_usage(window))
+            except Exception as e:  # noqa: BLE001 — a 500, not a hangup
+                log.exception("usagez export failed")
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+        elif self.path.startswith("/debug/") and self.cfg.enable_debug:
+            from ..util import debugz
+
+            code, ctype, body = debugz.handle(
+                parts.path, dict(parse_qsl(parts.query)))
+            raw = body.encode()
+            self.send_response(code)
+            self.send_header("Content-Type", ctype)
+            self.send_header("Content-Length", str(len(raw)))
+            self.end_headers()
+            self.wfile.write(raw)
         else:
             self._reply(404, {"error": "not found"})
 

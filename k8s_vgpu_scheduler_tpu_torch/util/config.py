@@ -1,7 +1,7 @@
 """Configuration of the port's node agent and scheduler extender.
 
 The port's copy of the JAX package's ``util/config.py``, cut to the fields
-the node agent and the scheduler extender read.  One immutable
+the node agent and the scheduler extender read, with the JAX defaults.  One immutable
 Config passed explicitly, where the reference scatters mutable package
 globals (pkg/util/util.go:35–47, pkg/device-plugin/config:528–537).
 """
@@ -69,6 +69,21 @@ class Config:
     rescue_checkpoint_grace_s: float = 120.0
     lease_retention_s: float = 900.0
     enable_rescue: bool = True
+
+    # Usage accounting (accounting/): the trailing window of the
+    # granted-vs-actual efficiency join (vtpu_grant_efficiency_ratio, the
+    # /usagez default), how long a grant must accrue ~no GPU-seconds
+    # before it is an idle grant (flagged, never evicted), and how long
+    # the ledger keeps an account after its node stops reporting it.
+    efficiency_window_s: float = 300.0
+    idle_grant_grace_s: float = 600.0
+    usage_retention_s: float = 900.0
+    # Candidate selection adds a bounded bonus (at most one card's worth
+    # of the spread score) for nodes whose MEASURED utilization is low.
+    score_by_actual: bool = False
+    # The extender's /debug endpoints (stacks, profile, vars, tracez,
+    # events); unauthenticated, so off unless asked for.
+    enable_debug: bool = False
 
     # Node-agent knobs (reference pkg/device-plugin/config:528–537).
     device_split_count: int = 10

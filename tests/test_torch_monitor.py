@@ -791,7 +791,8 @@ def test_sampler_rows_equal_the_jax_ones():
 
 KEPT_FLAGS = ("interval", "qos_target_p99_ms", "qos_step_pct",
               "qos_min_weight", "qos_max_weight", "qos_recover_ticks",
-              "verbose")
+              "verbose", "metrics_port", "grpc_port", "grpc_bind",
+              "debug_port", "no_backend")
 
 
 def test_kept_flags_default_as_the_jax_ones():
@@ -799,8 +800,6 @@ def test_kept_flags_default_as_the_jax_ones():
     assert {k: getattr(port, k) for k in KEPT_FLAGS} == \
         {k: getattr(ref, k) for k in KEPT_FLAGS}
     assert port.container_root == "/tmp/vgpu/containers"
-    for gone in ("metrics_port", "grpc_port", "debug_port"):
-        assert not hasattr(port, gone)
     cfg = port_cmd.qos_config(port_cmd.parse_args(
         ["--qos-target-p99-ms", "5", "--qos-step-pct", "30",
          "--qos-recover-ticks", "2"]))
@@ -844,4 +843,5 @@ def test_main_returns_when_stopped(tmp_path, libs):
     stop = threading.Event()
     stop.set()
     port_cmd.main(["--container-root", str(tmp_path), "--library",
-                   libs["port"]], stop=stop)
+                   libs["port"], "--metrics-port", "0", "--grpc-port", "0",
+                   "--no-backend"], stop=stop)

@@ -114,7 +114,13 @@ def test_new_modules_are_under_the_import_rules():
                 "topology/torus.py", "placement/__init__.py",
                 "placement/mesh.py", "deviceplugin/allocator.py",
                 "deviceplugin/partition.py", "oci/__init__.py",
-                "oci/spec.py", "oci/runtime.py", "cmd/oci_runtime.py"):
+                "oci/spec.py", "oci/runtime.py", "cmd/oci_runtime.py",
+                "util/debugz.py", "util/exposition.py",
+                "accounting/forecast.py", "accounting/ledger.py",
+                "accounting/efficiency.py", "monitor/metrics.py",
+                "monitor/noderpc.py", "api/noderpc_pb2.py",
+                "scheduler/metrics.py", "cmd/vgpu_smi.py",
+                "cmd/vgpu_report.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -224,6 +230,10 @@ def test_kernel_module_import_runs_no_compiler():
         "import k8s_vgpu_scheduler_tpu_torch.api.service\n"
         "import k8s_vgpu_scheduler_tpu_torch.scheduler.routes\n"
         "import k8s_vgpu_scheduler_tpu_torch.cmd.scheduler\n"
+        "import k8s_vgpu_scheduler_tpu_torch.scheduler.metrics\n"
+        "import k8s_vgpu_scheduler_tpu_torch.monitor.metrics\n"
+        "import k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_smi\n"
+        "import k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_report\n"
         "assert not k._libs and not k.build_logs\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -734,3 +744,89 @@ def test_package_data_ships_every_source_the_port_builds():
         "k8s_vgpu_scheduler_tpu_torch.cmd.scheduler:main"
     assert conf["project"]["scripts"]["vgpu-oci-runtime"] == \
         "k8s_vgpu_scheduler_tpu_torch.cmd.oci_runtime:main"
+
+
+# The observability surface: the node exporter and its RPC, the ledger and
+# the join, the writer, the debug endpoints, the cluster exporter and the
+# two commands.
+OBSERVABILITY = sorted((PORT / "monitor").glob("*.py")) + \
+    sorted((PORT / "accounting").glob("*.py")) + [
+        PORT / rel for rel in (
+            "util/debugz.py", "util/exposition.py", "util/trace.py",
+            "scheduler/metrics.py", "scheduler/routes.py", "cmd/monitor.py",
+            "cmd/vgpu_smi.py", "cmd/vgpu_report.py", "api/noderpc_pb2.py",
+            "deviceplugin/register.py")]
+
+
+def _imported_names(path: Path):
+    """Every module an import statement names, anywhere in the file."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", OBSERVABILITY,
+                         ids=[str(p.relative_to(ROOT)) for p in OBSERVABILITY])
+def test_the_observability_surface_imports_no_torch(path):
+    roots = {n.split(".")[0] for n in _imported_names(path)}
+    assert not roots & {"torch", "numpy", "prometheus_client", *FORBIDDEN}
+
+
+def test_only_the_rpc_edges_import_grpc_or_protobuf():
+    edges = {str(p.relative_to(PORT)) for p in OBSERVABILITY
+             if any(n.split(".")[0] == "grpc" or n.startswith("google")
+                    for n in _imported_names(p))}
+    assert edges == {"monitor/noderpc.py", "api/noderpc_pb2.py",
+                     "deviceplugin/register.py"}
+
+
+def test_the_monitor_without_its_rpc_loads_neither_grpc_nor_protobuf(
+        tmp_path):
+    """vgpu-monitor --grpc-port 0, with grpc, protobuf and torch blocked:
+    the loop ticks, the exporter answers a scrape, the debug server its
+    vars, and neither edge is loaded."""
+    lib = _kernels.build_vgpu()
+    code = (
+        "import sys, threading, time, urllib.request\n"
+        "for name in ('grpc', 'google.protobuf', 'torch'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "from k8s_vgpu_scheduler_tpu_torch.cmd import monitor\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util import exposition\n"
+        "seen = []\n"
+        "class Server(exposition.MetricsServer):\n"
+        "    def __init__(self, *a, **k):\n"
+        "        super().__init__(*a, **k)\n"
+        "        seen.append(self)\n"
+        "monitor.start_metrics_server.__globals__['MetricsServer'] = Server\n"
+        "stop = threading.Event()\n"
+        f"args = ['--container-root', {str(tmp_path)!r}, '--grpc-port', '0',\n"
+        "        '--metrics-port', '0', '--no-backend', '--interval', '0.1',\n"
+        f"        '--library', {str(lib)!r}]\n"
+        "t = threading.Thread(target=monitor.main, args=(args, stop))\n"
+        "t.start()\n"
+        "while not seen:\n"
+        "    time.sleep(0.05)\n"
+        "time.sleep(0.3)\n"
+        "url = f'http://127.0.0.1:{seen[0].port}/metrics'\n"
+        "text = urllib.request.urlopen(url, timeout=10).read().decode()\n"
+        "assert 'vtpu_monitor_phase_latency_seconds_count{phase=\"region-scan\"' in text, text\n"
+        "stop.set()\n"
+        "t.join(timeout=30)\n"
+        "loaded = {m for m, v in sys.modules.items() if v is not None}\n"
+        "assert not {m for m in loaded if m.split('.')[0] in\n"
+        "            ('grpc', 'torch') or m.startswith('google.protobuf')}\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_the_observability_commands_are_packaged():
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    scripts = conf["project"]["scripts"]
+    assert scripts["vgpu-smi"] == "k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_smi:main"
+    assert scripts["vgpu-report"] == \
+        "k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_report:main"
