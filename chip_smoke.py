@@ -65,7 +65,11 @@ for bit as an uninterrupted run; ``vgpu-monitor`` itself, as a process
 over the placed pods' regions, feeds their usage counters through
 NodeTPUInfo and the register stream into the extender's ledger, which
 its exporter, ``/usagez``, ``/debug/tracez``, ``vgpu-report`` and
-``vgpu-smi top`` must show as the monitor counted them (``FleetView``);
+``vgpu-smi top`` must show as the monitor counted them (``FleetView``),
+while the capacity simulator ``vgpu-simulate`` replays the extender's
+``/fleetz`` (a pod of the card's remaining MiB fits, one of a MiB more
+pends) and a 968-pod job mix on 128 nodes of eight H100s (no card
+overbooked, metering within 5%, the idle pods named);
 then the node's lease expires and the
 rescuer rescinds what is left on it; and the serving
 pod's own entry point (phase_quant_serve, ``python -m
@@ -89,7 +93,8 @@ memory size read, the fabric's answers and placements with their times,
 and ``node_view``: each reading's scrape and RPC seconds, bytes,
 families and samples, the switches, vgpu-smi's view and seconds),
 the ``{"phase": "preempt", ...}`` (with ``fleet_view``: both scrapes,
-the ledger's rows, the phase counts, V's trace, each command's seconds)
+the ledger's rows, the phase counts, V's trace, each command's seconds,
+``/fleetz`` and the simulator's replays)
 and ``{"phase": "quant_serve", ...}`` lines, the ``{"phase": "workloads", ...}`` line and a ``{"workloads":
 [...]}`` line (one row a case: images/s in both legs and their ratio, the
 grant and peaks, MFU, the bf16 error), each phase's seconds, a
@@ -385,21 +390,24 @@ MIG_REFUSALS = {"subset": "would strand chips",
 OCI_GRANT_MIB = 4000
 OCI_PROBE = "oci_image_probe"
 # The preemption phase (phase_preempt): the train step at llama_7b widths
-# through the interposer under T's 40000 MiB grant, 6 steps of one batch;
+# through the interposer under T's 40000 MiB grant, PREEMPT_STEPS steps of
+# one batch (5, not 6: the script's time goes to the simulator's legs);
 # the high-priority pod arrives once the victim has finished step 3, and
 # the parent mirrors the annotations the scheduler wrote into the victim's
 # file, as kubelet would; the card's memory must fall back to the parent's
 # own within 5 s of the victim's exit (64 MiB: TOL_CONTEXT_MIB's slack).
-# The step is T's, 8 layers; R's checkpoint goes to the disk, V's and V''s
-# to SHM, a tmpfs in host memory: the card's machine ends a command once
-# it has written 45 GiB to its disk, deleted files included, and the three
-# checkpoints of 12 B a parameter (3 x 18.8 GiB) beside phase_quant_serve's
-# 11.1 GiB would pass that.  A control-plane call gets PLANE_CALL_S.
+# The step is T's at PREEMPT_LAYERS layers (4, not 8: the script ran past
+# its 1200 s on a slow host, and the phase's time is mostly its
+# checkpoints' reads and writes, 12 B a parameter); H's host swap runs the
+# same step, so its losses are R's first ones.  R's checkpoint goes to the
+# disk, V's and V''s to SHM, a tmpfs in host memory: the card's machine
+# ends a command once it has written 45 GiB to its disk, deleted files
+# included.  A control-plane call gets PLANE_CALL_S.
 # V (the victim, priority 1) and V' (V rescheduled, a new pod on V's
 # checkpoints) ask for T's 40000 MiB; H (priority 0, oversubscribed, host
 # swap's pod) for 48000 MiB, which does not fit beside V on the 81,079
 # MiB the node agent advertises.  name, uid, MiB, priority, annotations.
-PREEMPT_LAYERS = 8
+PREEMPT_LAYERS = 4
 SHM = Path("/dev/shm")
 PREEMPT_MIB = CORES_TRAIN_MIB
 PREEMPT_H_MIB = 48000
@@ -408,8 +416,17 @@ PREEMPT_PODS = {
     "H": ("serve-hp", "uidPH", PREEMPT_H_MIB, 0,
           {"vtpu.dev/oversubscribe": "true"}),
     "V2": ("trainer-2", "uidPV2", PREEMPT_MIB, 1, {})}
-PREEMPT_STEPS = 6
+PREEMPT_STEPS = 5
 PREEMPT_AFTER = 3
+# The capacity simulator's legs of phase_preempt (FleetView): the scale
+# leg replays SIM_FLEET (968 pods) on SIM_SCALE, 128 nodes of eight H100s
+# at the card's advertised MiB, starting with the phase so that it runs
+# beside the pods; the live leg replays one pod of the card's remaining
+# MiB, and one of a MiB more, against the extender's /fleetz.
+SIM_FLEET = ROOT / "examples" / "vgpu-simulate-fleet.json"
+SIM_SCALE = ("--nodes", "128", "--chips", "8", "--hbm", "81079", "--mesh",
+             "8", "--policy", "binpack")
+SIM_TIMEOUT_S = 300.0
 PLANE_CALL_S = 120.0
 RETURN_S = 5.0
 TOL_RETURN_MIB = 64
@@ -1687,7 +1704,8 @@ def child_train(torch):
 
 def child_interposer_swap(torch):
     """Host swap under the interposer, installed by this process:
-    interposer_swap's body after ``core.install()``."""
+    interposer_swap's body after ``core.install()``, on the 8-layer
+    step."""
     _, _, _, _, core, _ = enforce_port()
     return interposer_swap(torch, core.install())
 
@@ -1710,17 +1728,17 @@ def child_preempt_swap(torch):
         raise Fail("install() was called in a pod the hook set up")
 
     core.install = install
-    out = interposer_swap(torch, shim)
+    out = interposer_swap(torch, shim, PREEMPT_LAYERS)
     out["shim_source"] = core.__file__
     out["pythonpath"] = os.environ.get("PYTHONPATH")
     return out
 
 
-def interposer_swap(torch, shim):
+def interposer_swap(torch, shim, n_layers: int = 8):
     """Host swap under the interposer (an oversubscribed grant,
     ``CUDA_OVERSUBSCRIBE=true``): ``shim`` must have the spiller and the
     spill-only gate, and the limiter must never be called.  The
-    8-layer train step, 2 warm-up steps, then pressure.  With the AdamW
+    ``n_layers``-layer train step, 2 warm-up steps, then pressure.  With the AdamW
     state registered, an allocation outside the gate takes what the
     interposer charges SWAP_OVER_MIB past the spiller's pressure point
     (the grant less the headroom), while the allocated bytes and the
@@ -1744,7 +1762,8 @@ def interposer_swap(torch, shim):
     for name in ("vgpu_rate_acquire", "vgpu_rate_feedback"):
         setattr(lib, name, (lambda real, name: lambda *a: (
             limiter.append(name), real(*a))[1])(getattr(lib, name), name))
-    cfg, tokens, model, state, step = enforce_train_state(torch, llama, train)
+    cfg, tokens, model, state, step = enforce_train_state(torch, llama, train,
+                                                         n_layers)
     counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     for f in counters:
         f.launches = 0
@@ -5387,15 +5406,104 @@ def same_checkpoints(torch, a: Path, b: Path) -> dict:
                 bytes=os.path.getsize(a))
 
 
+def fleetz_checks(export: dict, ready: dict, held: dict) -> dict:
+    """The extender's ``GET /fleetz`` (``export``) against the card its
+    node agent registered from NVML (``ready``: the control-plane child's
+    ready line; the phase registers no other node) and the grants the
+    extender holds, each read from its pod's decision annotations
+    (``held``: uid -> the pod as the apiserver holds it).  Returns the
+    card's granted MiB with what was compared."""
+    from k8s_vgpu_scheduler_tpu_torch.util import codec
+
+    nodes = [[n["name"], n["mesh"], [[c["id"], c["devmem"], c["coords"]]
+                                     for c in n["chips"]]]
+             for n in export["nodes"]]
+    want_nodes = [[PLUGIN_NODE, [1], [[ready["uuid"], ready["hbm_mib"],
+                                       [0]]]]]
+    check(nodes == want_nodes,
+          f"/fleetz's nodes {nodes}, the card registered {want_nodes}")
+    want = {uid: [[[d.uuid, d.usedmem] for d in ctr]
+                  for ctr in codec.decode_pod_devices(
+                      pod["metadata"]["annotations"]["vtpu.dev/assigned-ids"])]
+            for uid, pod in held.items()}
+    got = {p["uid"]: [[[d["uuid"], d["usedmem"]] for d in ctr]
+                      for ctr in p["devices"]] for p in export["pods"]}
+    check(got == want, f"/fleetz's grants {got}, the pods' decisions {want}")
+    granted = sum(mib for ctrs in want.values() for ctr in ctrs
+                  for uuid, mib in ctr if uuid == ready["uuid"])
+    return dict(nodes=nodes, grants=got, granted_mib=granted,
+                config=export["config"])
+
+
+def simulate_live_checks(fit: dict, over: dict, ready: dict,
+                         granted: int, pods: int) -> dict:
+    """``vgpu-simulate --from-cluster``'s two replays of the live fleet:
+    one pod of the card's remaining MiB must fit on the card and fill it;
+    one of a MiB more must pend with Filter's own reason, the card's usage
+    in the replay the extender's granted MiB (``pods`` grants)."""
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.core import NO_FIT
+
+    card, hbm = f"{PLUGIN_NODE}/{ready['uuid']}", ready["hbm_mib"]
+    left = hbm - granted
+    got = [[p["pod"], p["node"], p["chips"]] for p in fit["placed"]]
+    check(fit["fits"] and got == [["fit-0", PLUGIN_NODE, [{
+        "uuid": ready["uuid"], "mem_mib": left, "cores": 0}]]]
+          and fit["chips"][card]["mem_mib"] == [hbm, hbm]
+          and fit["fleet"]["existing_pods"] == pods,
+          f"the pod of the remaining {left} MiB: placed {got}, the card "
+          f"{fit['chips'].get(card)}, pending {fit['pending']}")
+    check(not over["fits"] and not over["placed"]
+          and over["pending"] == [{"pod": "over-0", "reason": NO_FIT}]
+          and over["chips"][card]["mem_mib"] == [granted, hbm],
+          f"the pod of {left + 1} MiB: pending {over['pending']}, placed "
+          f"{over['placed']}, the card {over['chips'].get(card)} (granted "
+          f"{granted})")
+    return dict(remaining_mib=left, card_mib=over["chips"][card]["mem_mib"],
+                reason=over["pending"][0]["reason"])
+
+
+def simulate_scale_checks(result: dict, workload: dict) -> dict:
+    """The scale leg's replay of ``workload``: no card overbooked, every
+    pod placed or pending, the metering within 5%, and the idle grants
+    exactly the pods whose duty is 0."""
+    total = sum(int(e.get("count", 1)) for e in workload["pods"])
+    idle = sorted(f"{e['name']}-{i}" for e in workload["pods"]
+                  if float(e.get("duty", 1.0)) == 0.0
+                  for i in range(int(e.get("count", 1))))
+    over = sorted(k for k, c in result["chips"].items()
+                  if c["mem_mib"][0] > c["mem_mib"][1]
+                  or c["cores_pct"] > 100)
+    placed, pending = len(result["placed"]), len(result["pending"])
+    acct = result["accounting"]
+    check(not over and placed + pending == total,
+          f"overbooked {over}; {placed} placed + {pending} pending of "
+          f"{total}")
+    check(acct["metering_ok"] and acct["max_error_pct"] <= 5.0,
+          f"metering: ok {acct['metering_ok']}, max error "
+          f"{acct['max_error_pct']}%")
+    check(acct["idle_grants"] == idle,
+          f"idle grants {acct['idle_grants']}, the idle pods {idle}")
+    return dict(cards=len(result["chips"]), placed=placed, pending=pending,
+                reasons=sorted({p["reason"] for p in result["pending"]}),
+                hbm_allocated_fraction=result["hbm_allocated_fraction"],
+                max_error_pct=acct["max_error_pct"], idle_grants=len(idle),
+                fleet_efficiency=acct["fleet_efficiency"])
+
+
 class FleetView:
     """Leg (b) of the observability surface: ``vgpu-monitor`` itself, as a
     process through its module, over phase_preempt's containers dir (the
     placed pods' regions; R's stays outside it), ticking every
     MONITOR_INTERVAL_S with loopback metrics, NodeTPUInfo and debug ports
     (``grpc``: the endpoint the control plane's ``--usage-from`` reads).
-    Its log goes to chiprun_out/vgpu_monitor.log."""
+    Its log goes to chiprun_out/vgpu_monitor.log.  The capacity
+    simulator's scale leg (``vgpu-simulate`` on SIM_FLEET at SIM_SCALE)
+    starts with it, so that its CPU time runs beside the phase's pods;
+    ``read`` joins it (stderr in chiprun_out/vgpu_simulate.log)."""
 
     def __init__(self, root: Path, vgpu: Path, env: dict) -> None:
+        self.root = root
+        self.sim, self.sim_files = None, []
         ports = [free_port() for _ in range(3)]
         self.url = f"http://127.0.0.1:{ports[0]}/metrics"
         self.grpc = f"127.0.0.1:{ports[1]}"
@@ -5424,20 +5532,58 @@ class FleetView:
                 except OSError:
                     time.sleep(0.1)
             self.up_s = time.monotonic() - t0
+            self.sim_json = root.parent / "vgpu_simulate_fleet.json"
+            self.sim_files = [open(self.sim_json, "w"),
+                              open(out / "vgpu_simulate.log", "w")]
+            self.sim_t0, self.sim_s = time.monotonic(), None
+            self.sim = subprocess.Popen(
+                [sys.executable, "-m",
+                 "k8s_vgpu_scheduler_tpu_torch.cmd.simulate", "--workload",
+                 str(SIM_FLEET), *SIM_SCALE, "--json"], env=env, cwd=ROOT,
+                stdout=self.sim_files[0], stderr=self.sim_files[1])
+            self.sim_waiter = threading.Thread(target=self._sim_wait,
+                                               daemon=True)
+            self.sim_waiter.start()
         except BaseException:
             self.stop()
             raise
 
+    def _sim_wait(self) -> None:
+        self.sim.wait()
+        self.sim_s = time.monotonic() - self.sim_t0
+
+    def scale_leg(self) -> dict:
+        """The scale leg's result, once its process has ended: its
+        checks, its own seconds and the seconds ``read`` waited for it."""
+        t0 = time.monotonic()
+        self.sim_waiter.join(max(0.0, SIM_TIMEOUT_S
+                                 - (t0 - self.sim_t0)))
+        check(not self.sim_waiter.is_alive(),
+              f"vgpu-simulate's scale leg ran past {SIM_TIMEOUT_S} s")
+        waited = time.monotonic() - t0
+        for f in self.sim_files:
+            f.close()
+        check(self.sim.returncode in (0, 1),
+              f"vgpu-simulate's scale leg exited {self.sim.returncode} "
+              "(chiprun_out/vgpu_simulate.log)")
+        out = simulate_scale_checks(json.loads(self.sim_json.read_text()),
+                                    json.loads(SIM_FLEET.read_text()))
+        return dict(out, s=self.sim_s, read_waited_s=waited,
+                    exit_code=self.sim.returncode)
+
     def stop(self) -> None:
-        if self.proc.poll() is None:
-            self.proc.terminate()
+        for proc in (self.proc, self.sim):
+            if proc is None or proc.poll() is not None:
+                continue
+            proc.terminate()
             try:
-                self.proc.wait(timeout=30)
+                proc.wait(timeout=30)
             except subprocess.TimeoutExpired:
-                self.proc.kill()
-                self.proc.wait()
-        if not self.log.closed:
-            self.log.close()
+                proc.kill()
+                proc.wait()
+        for f in [self.log, *self.sim_files]:
+            if not f.closed:
+                f.close()
 
     def read(self, plane, pods: dict, runs: dict, nofit: dict) -> dict:
         """After V' exits and before ``end``: once the monitor's counters
@@ -5446,7 +5592,13 @@ class FleetView:
         exporter, /usagez, /debug/tracez, ``vgpu-report`` and ``vgpu-smi
         top`` are held to them and to the calls this script made.  V''s
         efficiency comes back with the window it covers, unchecked here:
-        its bound depends on how V' used its grant (efficiency_skew_bound)."""
+        its bound depends on how V' used its grant (efficiency_skew_bound).
+        The capacity simulator's legs: the extender's ``/fleetz`` is held
+        to the card and the grants (``fleetz_checks``); ``vgpu-simulate
+        --from-cluster`` replays a pod of the card's remaining MiB and one
+        of a MiB more (``simulate_live_checks``), in the pool beside
+        ``vgpu-report`` and ``vgpu-smi top``, where the scale leg is
+        joined (``simulate_scale_checks``)."""
         keys = {pods[k]["key"]: k for k in runs}
         t0 = time.monotonic()
         prev = None
@@ -5466,6 +5618,19 @@ class FleetView:
         check(status == 200 and vars_["pid"] == self.proc.pid,
               f"the monitor's /debug/vars answered {status} {vars_}")
         held = plane.call("grants")
+        t2 = time.monotonic()
+        status, export = http(f"{plane.base}/fleetz", timeout=30)
+        fleetz_s = time.monotonic() - t2
+        check(status == 200, f"/fleetz answered {status} {export}")
+        fleetz = fleetz_checks(export, plane.ready, {
+            uid: plane.get_pod(name) for uid, name in held})
+        left = plane.ready["hbm_mib"] - fleetz["granted_mib"]
+        live_specs = {}
+        for name, mib in (("fit", left), ("over", left + 1)):
+            path = live_specs[name] = (self.root.parent
+                                       / f"vgpu_simulate_{name}.json")
+            path.write_text(json.dumps(
+                {"pods": [{"name": name, "gpu": 1, "gpumem": mib}]}))
         live = {uid for uid, _ in held}
         names = {key: ("default" if pods[k]["pod"]["metadata"]["uid"] in live
                        else "(unresolved)",
@@ -5545,22 +5710,33 @@ class FleetView:
         usagez_s = time.monotonic() - t2
         check(status == 200, f"/usagez answered {status} {usage}")
 
-        def command(module, *args):
+        def command(module, *args, ok=0):
             t0 = time.monotonic()
             res = subprocess.run(
                 [sys.executable, "-m", f"k8s_vgpu_scheduler_tpu_torch.cmd."
                  f"{module}", *args], cwd=ROOT, capture_output=True,
                 text=True, timeout=120)
-            check(res.returncode == 0, f"{module} {args} exited "
+            check(res.returncode == ok, f"{module} {args} exited "
                   f"{res.returncode}: {res.stderr.strip()[-2000:]}")
             return json.loads(res.stdout), time.monotonic() - t0
 
-        with ThreadPoolExecutor(2) as pool:
+        with ThreadPoolExecutor(5) as pool:
             rep = pool.submit(command, "vgpu_report", "--cluster", plane.base,
                               "--json", "--pods", "--window", str(window))
             top = pool.submit(command, "vgpu_smi", "top", "--cluster",
                               plane.metrics, "--json")
+            sims = {name: pool.submit(
+                command, "simulate", "--workload", str(path),
+                "--from-cluster", plane.base, "--json",
+                ok=0 if name == "fit" else 1)
+                for name, path in live_specs.items()}
+            scale = pool.submit(self.scale_leg)
             (report, report_s), (topv, top_s) = rep.result(), top.result()
+            (fit, fit_s), (over, over_s) = (sims["fit"].result(),
+                                            sims["over"].result())
+            scaled = scale.result()
+        simulated = simulate_live_checks(fit, over, plane.ready,
+                                         fleetz["granted_mib"], len(held))
         stable = ("uid", "pod", "namespace", "node", "chip_seconds",
                   "hbm_byte_seconds", "granted_chips", "idle", "live")
         rows = [{k: r[k] for k in stable} for r in usage["pods"]]
@@ -5586,7 +5762,10 @@ class FleetView:
             rejection=reason, trace=trail, usagez_s=usagez_s,
             usagez_pods=rows, v2_efficiency=row["efficiency"],
             v2_covered_s=row["window_covered_s"],
-            vgpu_report_s=report_s, vgpu_smi_top_s=top_s, top_v2=trow)
+            vgpu_report_s=report_s, vgpu_smi_top_s=top_s, top_v2=trow,
+            fleetz=dict(fleetz, s=fleetz_s),
+            simulate_live=dict(simulated, fit_s=fit_s, over_s=over_s),
+            simulate_scale=scaled)
         log("fleet view: " + json.dumps(out))
         return out
 
@@ -5626,7 +5805,9 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
     ``vgpu-monitor`` runs as a process over the containers dir and the
     control plane's register stream carries its counters (FleetView);
     after V' exits the extender's ledger, exporter, /usagez, trace,
-    vgpu-report and vgpu-smi top are held to them (``FleetView.read``).
+    vgpu-report and vgpu-smi top are held to them, and ``vgpu-simulate``
+    to the extender's /fleetz and to a 1,024-card fleet
+    (``FleetView.read``).
     Returns the port kernels' launches in R, V, H and V'."""
     from k8s_vgpu_scheduler_tpu_torch.monitor import RegionReader
     from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \

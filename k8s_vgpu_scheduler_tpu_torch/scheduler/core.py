@@ -479,6 +479,57 @@ class Scheduler:
                 seen[(t.mesh, t.wrap())] = t
         return list(seen.values())
 
+    def export_fleet(self) -> dict:
+        """Read-only fleet snapshot for capacity tooling (``GET /fleetz``
+        → ``vgpu-simulate --from-cluster``): the node inventory with its
+        fabric and every live grant, one consistent copy under the
+        decision lock (no grant is recorded while the lists are taken) —
+        enough to rebuild this scheduler's placement state elsewhere.  A
+        node without a fabric goes out as it registered, ``mesh (n,)``
+        with no card coordinates; a node with no topology as None."""
+        with self._lock:
+            nodes = [
+                {
+                    "name": name,
+                    "generation": (info.topology.generation
+                                   if info.topology else None),
+                    "mesh": (list(info.topology.mesh)
+                             if info.topology else None),
+                    "wraparound": (list(info.topology.wraparound)
+                                   if info.topology else None),
+                    "chips": [
+                        {"id": d.id, "type": d.type, "count": d.count,
+                         "devmem": d.devmem, "health": d.health,
+                         "coords": list(d.coords), "cores": d.cores}
+                        for d in info.devices
+                    ],
+                }
+                for name, info in self.nodes.list_nodes().items()
+            ]
+            pods = [
+                {
+                    "uid": p.uid, "name": p.name, "namespace": p.namespace,
+                    "node": p.node, "priority": p.priority,
+                    "devices": [
+                        [{"uuid": d.uuid, "type": d.type,
+                          "usedmem": d.usedmem, "usedcores": d.usedcores}
+                         for d in container]
+                        for container in p.devices
+                    ],
+                }
+                for p in self.pods.list_pods()
+            ]
+        return {
+            "nodes": nodes,
+            "pods": pods,
+            # The policies a replay must place under to answer for this
+            # scheduler.
+            "config": {
+                "node_scheduler_policy": self.cfg.node_scheduler_policy,
+                "topology_policy": self.cfg.topology_policy,
+            },
+        }
+
     def _pods_by_node(self) -> Dict[str, List[PodInfo]]:
         out: Dict[str, List[PodInfo]] = {}
         for info in self.pods.list_pods():

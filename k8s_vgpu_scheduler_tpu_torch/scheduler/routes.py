@@ -11,6 +11,9 @@ Reference: pkg/scheduler/routes/route.go (PredicateRoute 41–77, Bind
                     Node} → ExtenderBindingResult{Error}
 - ``POST /webhook`` AdmissionReview v1
 - ``GET  /healthz``
+- ``GET  /fleetz``  the fleet snapshot (inventory, fabric, live grants and
+                    the placement policies) for ``vgpu-simulate
+                    --from-cluster``; an export error answers 500
 - ``GET  /usagez``  per-namespace showback over a trailing window
                     (``?window=<seconds>``, a positive finite number, else
                     400; an export error answers 500) for ``vgpu-report``
@@ -19,8 +22,8 @@ Reference: pkg/scheduler/routes/route.go (PredicateRoute 41–77, Bind
 
 ``/metrics`` is served on its own port (``scheduler/metrics.py``, as the
 JAX daemon does).  The JAX package's other export endpoints (``/queuez``,
-``/capacityz``, ``/auditz``, ``/sloz``, ``/explainz``, ``/perfz``,
-``/fleetz``) wait for ROADMAP A.5; ``vgpu-report`` degrades without them.
+``/capacityz``, ``/auditz``, ``/sloz``, ``/explainz``, ``/perfz``) wait
+for ROADMAP A.5; ``vgpu-report`` degrades without them.
 """
 
 from __future__ import annotations
@@ -98,6 +101,12 @@ class _Handler(BaseHTTPRequestHandler):
         parts = urlsplit(self.path)
         if self.path == "/healthz":
             self._reply(200, {"ok": True})
+        elif self.path == "/fleetz":
+            try:
+                self._reply(200, self.scheduler.export_fleet())
+            except Exception as e:  # noqa: BLE001 — a 500, not a hangup
+                log.exception("fleetz export failed")
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
         elif parts.path == "/usagez":
             query = dict(parse_qsl(parts.query))
             try:

@@ -333,6 +333,15 @@ def test_the_fleet_leg_runs_on_the_mock_nvml(tmp_path, v2_idle_s):
              if v2_idle_s == 0 else 1)
     assert 0 < got["v2_efficiency"] <= bound
     assert fleet.proc.returncode == 0
+    # The capacity simulator's legs: /fleetz holds V' alone, the replay of
+    # the card's remaining MiB fits and a MiB more pends, and the scale
+    # leg replayed the 968 pods with the 16 squatters idle.
+    assert got["fleetz"]["granted_mib"] == specs["V2"][2]
+    assert got["simulate_live"]["card_mib"] == [specs["V2"][2], 81079]
+    scaled = got["simulate_scale"]
+    assert (scaled["cards"], scaled["placed"] + scaled["pending"],
+            scaled["idle_grants"], scaled["exit_code"]) == (1024, 968, 16, 1)
+    assert fleet.sim.returncode == 1
 
 
 def test_the_node_leg_reads_live_regions(tmp_path, monkeypatch):
@@ -415,3 +424,108 @@ def test_region_scan_cost_reads_the_ticks(monkeypatch):
     assert got["span_share_of_interval"] == (
         got["span_s"] / chip_smoke.MONITOR_INTERVAL_S)
     assert trace.tracer().histogram_snapshot()[("region-scan", "")][1] == 3
+
+
+# The capacity simulator's legs of FleetView: their checks alone, passing
+# on agreement and failing on any one disagreement.
+LIVE_CARD = {"uuid": "GPU-card-0", "hbm_mib": 81079}
+
+
+def live_fleet(mib=40000):
+    """A /fleetz of the card alone with one grant of ``mib``, and that
+    pod as the apiserver holds it."""
+    from k8s_vgpu_scheduler_tpu_torch.util import codec
+    from k8s_vgpu_scheduler_tpu_torch.util.types import ContainerDevice
+
+    export = {"nodes": [{"name": chip_smoke.PLUGIN_NODE, "generation": "h100",
+                         "mesh": [1], "wraparound": [False],
+                         "chips": [{"id": LIVE_CARD["uuid"], "type": "NVIDIA-h100",
+                                    "count": 10, "devmem": 81079,
+                                    "health": True, "coords": [0],
+                                    "cores": 100}]}],
+              "pods": [{"uid": "uidPV2", "name": "trainer-2",
+                        "namespace": "default", "node": chip_smoke.PLUGIN_NODE,
+                        "priority": 1,
+                        "devices": [[{"uuid": LIVE_CARD["uuid"],
+                                      "type": "NVIDIA-h100",
+                                      "usedmem": mib, "usedcores": 0}]]}],
+              "config": {"node_scheduler_policy": "spread",
+                         "topology_policy": "best-effort"}}
+    anns = {"vtpu.dev/assigned-ids": codec.encode_pod_devices(
+        [[ContainerDevice(LIVE_CARD["uuid"], "NVIDIA-h100", 40000, 0)]])}
+    return export, {"uidPV2": {"metadata": {"annotations": anns}}}
+
+
+def test_fleetz_checks_hold_the_export_to_the_card_and_the_grants():
+    export, held = live_fleet()
+    assert chip_smoke.fleetz_checks(export, LIVE_CARD, held)["granted_mib"] == 40000
+
+
+@pytest.mark.parametrize("fault", ["mib", "extra_node", "mesh", "no_pod",
+                                   "devmem"])
+def test_fleetz_checks_fail_on_any_disagreement(fault):
+    export, held = live_fleet(40001 if fault == "mib" else 40000)
+    node = export["nodes"][0]
+    if fault == "extra_node":
+        export["nodes"].append(dict(node, name="mock-node"))
+    elif fault == "mesh":
+        node["mesh"] = [8]
+    elif fault == "no_pod":
+        export["pods"] = []
+    elif fault == "devmem":
+        node["chips"][0]["devmem"] = 81080
+    with pytest.raises(chip_smoke.Fail):
+        chip_smoke.fleetz_checks(export, LIVE_CARD, held)
+
+
+def _replays(export, fit_mib, over_mib):
+    from k8s_vgpu_scheduler_tpu_torch.cmd import simulate
+
+    return [simulate.run_simulation({"pods": [
+        {"name": name, "gpu": 1, "gpumem": mib}]}, fleet_export=export)
+        for name, mib in (("fit", fit_mib), ("over", over_mib))]
+
+
+def test_the_live_replays_fit_the_remaining_mib_and_refuse_one_more():
+    export, _ = live_fleet()
+    fit, over = _replays(export, 41079, 41080)
+    got = chip_smoke.simulate_live_checks(fit, over, LIVE_CARD, 40000, 1)
+    assert got["card_mib"] == [40000, 81079]
+    # A replay on another grant than the extender's is caught.
+    with pytest.raises(chip_smoke.Fail):
+        chip_smoke.simulate_live_checks(fit, over, LIVE_CARD, 39999, 1)
+    fit, over = _replays(export, 41078, 41079)
+    with pytest.raises(chip_smoke.Fail):
+        chip_smoke.simulate_live_checks(fit, over, LIVE_CARD, 40000, 1)
+
+
+SCALE = {"pods": [{"name": "train", "count": 3, "gpu": 4, "gpumem": 40000,
+                   "duty": 0.9},
+                  {"name": "squatter", "count": 2, "gpu": 1,
+                   "gpumem": 10000, "duty": 0.0}],
+         "accounting": {"runtime_s": 300, "tick_s": 5, "idle_grace_s": 120}}
+
+
+@pytest.mark.parametrize("fault", [None, "overbooked", "lost_pod",
+                                   "idle", "metering"])
+def test_the_scale_checks_fail_on_any_disagreement(fault):
+    import copy
+
+    from k8s_vgpu_scheduler_tpu_torch.cmd import simulate
+
+    r = simulate.run_simulation(copy.deepcopy(SCALE), nodes=2, chips=4,
+                                hbm=81079, mesh=(4,), policy="binpack")
+    if fault is None:
+        got = chip_smoke.simulate_scale_checks(r, SCALE)
+        assert (got["placed"], got["idle_grants"]) == (5, 2)
+        return
+    if fault == "overbooked":
+        next(iter(r["chips"].values()))["mem_mib"][0] = 81080
+    elif fault == "lost_pod":
+        r["placed"].pop()
+    elif fault == "idle":
+        r["accounting"]["idle_grants"].pop()
+    elif fault == "metering":
+        r["accounting"]["max_error_pct"] = 5.5
+    with pytest.raises(chip_smoke.Fail):
+        chip_smoke.simulate_scale_checks(r, SCALE)

@@ -21,8 +21,10 @@ Left out, and why: the JAX cases on the optimistic snapshot's revisions
 case of tests/test_health.py (the JAX optimistic path's), the device
 cache's (held in tests/test_torch_deviceplugin.py), the metrics
 collector's (the port's metrics slice, ROADMAP A.5), the simulator's
-chaos runs (``vtpu-simulate`` has no port yet, A.4) and the checkpointed
-trajectories (tests/test_torch_checkpoint.py holds the port's).
+chaos runs (held against the JAX simulator in
+tests/test_torch_simulate.py, on the port's ``cmd/simulate.py``) and the
+checkpointed trajectories (tests/test_torch_checkpoint.py holds the
+port's).
 """
 
 import dataclasses

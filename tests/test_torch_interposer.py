@@ -61,10 +61,10 @@ context is charged its fixed footprint, with or without NVML, and the VMM
 pair is charged and released; no hook is
 missing from either lookup path; outside a managed container every call
 passes through; two processes of a pod are refused together at one grant
-(the CPU gate of ROADMAP C.2, beside test_torch_shim.py's
-test_cap_leaves_out_a_second_process_of_the_pod); the Python shim stands
-down under the interposer; and the same sequence through the JAX
-package's PJRT interposer (its own built artifacts, as
+(the CPU check of a pod's processes under one grant, beside
+test_torch_shim.py's test_cap_leaves_out_a_second_process_of_the_pod);
+the Python shim stands down under the interposer; and the same sequence
+through the JAX package's PJRT interposer (its own built artifacts, as
 tests/test_pjrt_interposer.py runs them) leaves the same region readings.
 """
 

@@ -120,7 +120,7 @@ def test_new_modules_are_under_the_import_rules():
                 "accounting/efficiency.py", "monitor/metrics.py",
                 "monitor/noderpc.py", "api/noderpc_pb2.py",
                 "scheduler/metrics.py", "cmd/vgpu_smi.py",
-                "cmd/vgpu_report.py"):
+                "cmd/vgpu_report.py", "cmd/simulate.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -830,3 +830,57 @@ def test_the_observability_commands_are_packaged():
     assert scripts["vgpu-smi"] == "k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_smi:main"
     assert scripts["vgpu-report"] == \
         "k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_report:main"
+
+
+def test_the_simulator_imports_no_torch_grpc_or_protobuf():
+    """vgpu-simulate is control plane: no torch, numpy, grpc or protobuf
+    anywhere in it; the serving section's lab (shim/simlab.py, on the
+    standard library and ops/_kernels.py) is imported inside its
+    function."""
+    path = PORT / "cmd" / "simulate.py"
+    names = set(_imported_names(path))
+    assert not {n.split(".")[0] for n in names} & {
+        "torch", "numpy", "grpc", "google", *FORBIDDEN}, sorted(names)
+    tree = ast.parse(path.read_text())
+    top = {node.module for node in tree.body
+           if isinstance(node, ast.ImportFrom)}
+    assert "shim" not in top and "monitor.feedback" not in top, top
+
+
+def test_the_simulator_runs_without_grpc_protobuf_or_torch():
+    """Its placement, accounting and chaos paths and ``/fleetz``, with
+    grpc, protobuf and torch blocked; none of them is loaded after."""
+    code = (
+        "import sys, json, urllib.request\n"
+        "for name in ('grpc', 'google.protobuf', 'torch'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "from k8s_vgpu_scheduler_tpu_torch.cmd import simulate\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler.routes import "
+        "ExtenderServer\n"
+        "wl = {'pods': [{'name': 'w', 'count': 6, 'gpu': 1, "
+        "'gpumem': 20000, 'duty': 0.5}],\n"
+        "      'accounting': {'runtime_s': 60, 'tick_s': 5},\n"
+        "      'chaos': {'seed': 3, 'random_events': 4}}\n"
+        "r = simulate.run_simulation(wl, nodes=3, chips=2, hbm=81079,\n"
+        "                            mesh=(2,))\n"
+        "assert r['accounting']['metering_ok'], r['accounting']\n"
+        "assert r['chaos']['overbooked_chips'] == [], r['chaos']\n"
+        "assert len(r['placed']) + len(r['pending']) == 6\n"
+        "rc = simulate.main(['--workload', sys.argv[1], '--json'])\n"
+        "assert rc == 0, rc\n"
+        "loaded = {m for m, v in sys.modules.items() if v is not None}\n"
+        "assert not {m for m in loaded if m.split('.')[0] in\n"
+        "            ('grpc', 'torch') or m.startswith('google.protobuf')}\n")
+    res = subprocess.run(
+        [sys.executable, "-c", code,
+         str(ROOT / "examples" / "vgpu-workload-sim.json")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_the_simulator_is_packaged():
+    import tomllib
+
+    conf = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    assert conf["project"]["scripts"]["vgpu-simulate"] == \
+        "k8s_vgpu_scheduler_tpu_torch.cmd.simulate:main"
