@@ -5,7 +5,7 @@
         defrag-sim ha-sim qos-sim capacity-sim steady-sim explain-sim \
         audit-sim elastic-sim slo-sim bench-multicore batch-protocol \
         shard-protocol \
-        lint-dashboards dryrun scenarios controlplane \
+        lint-dashboards lint-torch-dashboards dryrun scenarios controlplane \
         bench-controlplane bench-steady bench-explain bench wheel clean
 
 all: native
@@ -220,6 +220,12 @@ shard-protocol:               ## shard suite + concurrency stress, CAS commit on
 # dashboarded or allowlisted with a reason (tests/test_vtpu_cluster.py).
 lint-dashboards:              ## validate Grafana panels + alert rules vs code
 	python -m pytest tests/test_vtpu_cluster.py -q \
+	    -k "dashboard or alert or emitted"
+
+# The port's chart (charts/vgpu): its dashboards and alert rules against
+# the port's collectors, both ways.
+lint-torch-dashboards:        ## validate charts/vgpu panels + alerts vs the port
+	python -m pytest tests/test_torch_chart.py -q \
 	    -k "dashboard or alert or emitted"
 
 # dryrun_multichip pins the CPU platform + device count itself,

@@ -4,8 +4,9 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout.  Builds the port's CUDA kernels from the
-sources in the checkout (one nvcc per source, all at once; the
-tensor-core kernels must not spill), holds each to its plain PyTorch
+sources in the checkout (``_kernels.build_all``, as the image's build
+stage does: one nvcc per source, all at once; the tensor-core kernels
+must not spill), holds each to its plain PyTorch
 version on the card (f32 through the scalar kernels, bf16 through the
 tensor-core ones), and drives the
 flagship Llama at llama_7b widths (random weights from a seed) down both
@@ -44,7 +45,13 @@ pods on ring-adjacent cards, and a four-card PCIe node on which it
 refuses guaranteed and mesh pods; the card's MIG mode is read from NVML
 beside nvidia-smi's (never changed), and a mock MIG node runs the agent's
 entry point under ``--partition-strategy mixed``, serving its MIG devices
-to this script as kubelet; the two pods then run one flat
+to this script as kubelet; the port's chart, charts/vgpu, is rendered and
+its extender, device plugin and monitor started as processes from the
+rendered command lines (chart_leg: the agent must register the card
+through NVML with the chart's extender, install the interposer, and
+register with this script as kubelet; the webhook and Filter must answer
+at the chart's paths, every family the chart's dashboards name must be
+scraped, and each daemon must stop on SIGTERM); the two pods then run one flat
 leg of the co-residency phase with the env a kubelet builds from those
 answers and nothing else, while the node's observability surface
 (``cmd/monitor.py``'s ``serve`` over that leg's monitor loop: the
@@ -363,6 +370,36 @@ BAD_MESH_MESSAGE = "vtpu.dev/mesh: mesh '2x' must look like '2x4'"
 # its MIG_REFUSALS message: a --partition-chips subset, and the two
 # flavors.  These pods never run.
 MIG_MODE_NAMES = {0: "Disabled", 1: "Enabled"}
+# The chart leg, in the same child: charts/vgpu rendered with its default
+# values as `helm template CHART_RELEASE[0] charts/vgpu -n
+# CHART_RELEASE[1]` renders it (tests/gotmpl.py, with PyYAML), and the
+# extender, the device plugin and the monitor started from the rendered
+# containers' command and env, each mapped onto this host by CHART_MAP's
+# rules (chart_mapping).  The agent must register the card with the
+# chart-started extender within CHART_REGISTER_S of its start; each
+# daemon must end within CHART_STOP_S of its SIGTERM.
+CHART = ROOT / "charts" / "vgpu"
+CHART_RELEASE = ("vgpu", "kube-system")
+CHART_NODE = "chart-node"
+CHART_REGISTER_S = 10.0
+CHART_STOP_S = 5.0
+CHART_POD = ("chartpod", "uidCP", 1000, 1)
+# Where each rendered value goes on this host.
+CHART_MAP = {
+    "python": "sys.executable",
+    "service DNS names and ports, binds": "free 127.0.0.1 ports",
+    "hostPath": "a directory under the leg's tmp",
+    "/config/config.json": "the rendered node ConfigMap's config.json",
+    "NODE_NAME": CHART_NODE,
+    "extender, device plugin": "--fake-kube appended (no apiserver)",
+    "TLS flags": "a pair from `openssl req -x509`, or dropped without openssl",
+}
+# PromQL words that are not metric names, and the series Prometheus
+# writes itself for each scrape (dashboard_metrics).
+PROMQL_KEYWORDS = {"and", "or", "unless", "offset", "bool", "by", "without",
+                   "on", "ignoring", "group_left", "group_right", "inf",
+                   "nan"}
+SCRAPE_SERIES = {"up"}
 MIG_NODE = "mig-node"
 MIG_3G_MIB = 40448
 MIG_1G_MIB = 9984
@@ -3537,8 +3574,9 @@ def node_agent() -> int:
     advertisement, what the scheduler registered, the polls and each pod's
     spec, handshake, response, bind phase and lock as one ENFORCE line,
     with the real node's fabric (fabric_checks) and MIG state
-    (real_mig_checks), the mock HGX node's placements (hgx_leg) and the
-    mock MIG node's answers (mig_leg), all made once S and T are bound."""
+    (real_mig_checks), the mock HGX node's placements (hgx_leg), the
+    mock MIG node's answers (mig_leg) and the daemons of charts/vgpu on
+    these cards (chart_leg), all made once S and T are bound."""
     sys.path.insert(0, str(ROOT))
     import importlib.metadata
 
@@ -3588,6 +3626,9 @@ def node_agent() -> int:
         mig_real = real_mig_checks(kube, inv, cfg, cards, tmp)
         hgx = hgx_leg(plane, kube, tmp)
         mig = mig_leg(plane, kube, tmp)
+        chart = chart_leg(tmp, {c["uuid"]: (c["memory_v2"]["total"]
+                                            - c["memory_v2"]["reserved"]) >> 20
+                                for c in cards})
         register_s = plane.register_s
         plane.close()
         plane = None
@@ -3603,7 +3644,7 @@ def node_agent() -> int:
             events_registered=events.registered if events else None,
             events_unsupported=events.unsupported if events else None,
             events_error=backend.events_error, pods=pods, fabric=fabric,
-            hgx=hgx, mig_real=mig_real, mig=mig, packages={})
+            hgx=hgx, mig_real=mig_real, mig=mig, chart=chart, packages={})
         for dist in ("grpcio", "protobuf"):
             try:
                 out["packages"][dist] = importlib.metadata.version(dist)
@@ -4135,6 +4176,404 @@ def hgx_leg(plane, kube, tmp: Path) -> dict:
     return out
 
 
+def chart_rendering() -> dict:
+    """charts/vgpu rendered with its default values (tests/gotmpl.py, the
+    repo's stand-in for ``helm template``; it needs PyYAML): the three
+    daemons' containers (``command``, ``env``, ``volumeMounts``), the
+    DaemonSet's hostPath volumes, the kube-scheduler's extender config
+    and profile, the node ConfigMap's ``config.json``, the TLS secret's
+    mount and the webhook's service."""
+    import importlib.util
+
+    import yaml
+
+    # By its path: tests/ is no package, and a site-packages `tests` may
+    # shadow it.
+    spec = importlib.util.spec_from_file_location(
+        "gotmpl", ROOT / "tests" / "gotmpl.py")
+    gotmpl = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gotmpl)
+    docs = [d for text in gotmpl.render_chart(
+        str(CHART), release_name=CHART_RELEASE[0],
+        namespace=CHART_RELEASE[1]).values()
+        for d in yaml.safe_load_all(text) if d]
+    by_kind = {}
+    for d in docs:
+        by_kind.setdefault(d["kind"], []).append(d)
+    [dep] = by_kind["Deployment"]
+    [ds] = by_kind["DaemonSet"]
+    [hook] = by_kind["MutatingWebhookConfiguration"]
+    maps = {d["metadata"]["name"]: d["data"] for d in by_kind["ConfigMap"]}
+    dep_spec = dep["spec"]["template"]["spec"]
+    ds_spec = ds["spec"]["template"]["spec"]
+    containers = {c["name"]: c for c in dep_spec["containers"]
+                  + ds_spec["containers"]}
+    sched_cfg = yaml.safe_load(next(
+        m["config.yaml"] for m in maps.values() if "config.yaml" in m))
+    node_cfg = next(m["config.json"] for m in maps.values()
+                    if "config.json" in m)
+    volumes = {v["name"]: v for v in dep_spec["volumes"] + ds_spec["volumes"]}
+    return dict(
+        containers={name: containers[name] for name in (
+            "vgpu-extender", "device-plugin", "monitor")},
+        volumes=volumes, extender=sched_cfg["extenders"][0],
+        scheduler_name=sched_cfg["profiles"][0]["schedulerName"],
+        node_config=node_cfg, webhook=hook["webhooks"][0]["clientConfig"])
+
+
+def argv_flags(argv: list) -> dict:
+    """``--flag=value`` (value None for a bare ``--flag``) of a rendered
+    command line, after ``python -m <module>``."""
+    out = {}
+    for tok in argv[3:]:
+        flag, eq, value = tok.partition("=")
+        out[flag] = value if eq else None
+    return out
+
+
+def chart_mapping(r: dict, root: Path, node: str) -> tuple:
+    """CHART_MAP applied to the rendering: (table, argvs, envs, paths).
+    ``table`` has one row per mapped value, [where, rendered, here];
+    ``argvs`` and ``envs`` the three daemons' command lines and
+    environments as they run here; ``paths`` the host directories by
+    their role.  Checks on the way that the chart ties its parts
+    together: the agent's endpoint is the extender's gRPC port behind its
+    service, the agent's usage source the monitor's RPC port, each path
+    flag a hostPath the container mounts, the config file and the TLS pair
+    mounts of their ConfigMap and Secret."""
+    c = r["containers"]
+    flags = {name: argv_flags(c[name]["command"]) for name in c}
+    ext, dp, mon = (flags[n] for n in (
+        "vgpu-extender", "device-plugin", "monitor"))
+    table = [["python", c["vgpu-extender"]["command"][0], sys.executable]]
+    port = {name: free_port() for name in (
+        "http", "grpc", "ext_metrics", "mon_metrics", "mon_grpc")}
+    grpc_port = ext["--grpc-bind"].rpartition(":")[2]
+    svc, _, ep_port = dp["--scheduler-endpoint"].rpartition(":")
+    check(ep_port == grpc_port and svc == "{}.{}.svc".format(
+        r["webhook"]["service"]["name"], r["webhook"]["service"]["namespace"]),
+        f"the agent's endpoint {dp['--scheduler-endpoint']} is not the "
+        f"extender's gRPC port {grpc_port} behind its service")
+    check(dp["--usage-from"] == f"127.0.0.1:{mon['--grpc-port']}",
+          f"the agent reads usage from {dp['--usage-from']}, the monitor "
+          f"serves NodeTPUInfo on {mon['--grpc-port']}")
+    here = {
+        ("vgpu-extender", "--http-bind"): f"127.0.0.1:{port['http']}",
+        ("vgpu-extender", "--grpc-bind"): f"127.0.0.1:{port['grpc']}",
+        ("vgpu-extender", "--metrics-port"): str(port["ext_metrics"]),
+        ("device-plugin", "--scheduler-endpoint"):
+            f"127.0.0.1:{port['grpc']}",
+        ("device-plugin", "--usage-from"): f"127.0.0.1:{port['mon_grpc']}",
+        ("monitor", "--metrics-port"): str(port["mon_metrics"]),
+        ("monitor", "--grpc-port"): str(port["mon_grpc"]),
+        ("monitor", "--grpc-bind"): "127.0.0.1",
+    }
+    paths, hostpaths = {}, {}
+    for name, flag in (("device-plugin", "--socket-dir"),
+                       ("device-plugin", "--shim-dir"),
+                       ("device-plugin", "--cache-dir"),
+                       ("monitor", "--container-root")):
+        rendered = flags[name][flag]
+        vol = [r["volumes"][m["name"]] for m in c[name]["volumeMounts"]
+               if m["mountPath"] == rendered]
+        check(len(vol) == 1 and vol[0].get("hostPath", {}).get("path")
+              == rendered, f"{name} {flag}={rendered} is no hostPath it "
+              "mounts there")
+        # Short: a unix socket's path must fit in 107 bytes.
+        host = hostpaths.setdefault(rendered, root / "h" / str(len(hostpaths)))
+        here[name, flag] = str(host)
+        paths[flag] = host
+        paths[flag].mkdir(parents=True, exist_ok=True)
+    check(paths["--cache-dir"] == paths["--container-root"],
+          "the agent's cache dir is not the monitor's container root")
+    cfg = dp["--config-file"]
+    [m] = [m for m in c["device-plugin"]["volumeMounts"]
+           if cfg.startswith(m["mountPath"] + "/")]
+    check("configMap" in r["volumes"][m["name"]],
+          f"{cfg} is not mounted from the node ConfigMap")
+    config = root / "config" / cfg.rpartition("/")[2]
+    config.parent.mkdir()
+    config.write_text(r["node_config"])
+    here["device-plugin", "--config-file"] = str(config)
+    tls = None
+    if shutil.which("openssl"):
+        tls = root / "tls"
+        tls.mkdir()
+        made = subprocess.run(
+            ["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes",
+             "-days", "1", "-subj", f"/CN={svc}", "-addext",
+             f"subjectAltName=DNS:{svc},IP:127.0.0.1",
+             "-keyout", str(tls / "tls.key"), "-out", str(tls / "tls.crt")],
+            capture_output=True, text=True, timeout=60)
+        check(made.returncode == 0, f"openssl req: {made.stderr[-2000:]}")
+        for flag, name in (("--cert-file", "tls.crt"),
+                           ("--key-file", "tls.key")):
+            [m] = [m for m in c["vgpu-extender"]["volumeMounts"]
+                   if ext[flag].startswith(m["mountPath"] + "/")]
+            check("secret" in r["volumes"][m["name"]],
+                  f"{ext[flag]} is not mounted from the TLS secret")
+            here["vgpu-extender", flag] = str(tls / name)
+    dropped = set() if tls else {"--cert-file", "--key-file"}
+    argvs, envs = {}, {}
+    for name in c:
+        argv = [sys.executable, *c[name]["command"][1:3]]
+        for tok in c[name]["command"][3:]:
+            flag, eq, value = tok.partition("=")
+            if flag in dropped and name == "vgpu-extender":
+                table.append([f"{name} {flag}", value, None])
+                continue
+            if (name, flag) in here:
+                table.append([f"{name} {flag}", value, here[name, flag]])
+                tok = f"{flag}={here[name, flag]}"
+            argv.append(tok)
+        if name != "monitor":
+            argv.append("--fake-kube")
+        argvs[name] = argv
+        env = {}
+        for e in c[name].get("env", ()):
+            if "valueFrom" in e:
+                check(e["valueFrom"] == {"fieldRef": {
+                    "fieldPath": "spec.nodeName"}}, f"{name}: env {e}")
+                table.append([f"{name} env {e['name']}", "spec.nodeName",
+                              node])
+                env[e["name"]] = node
+            else:
+                env[e["name"]] = e["value"]
+        envs[name] = env
+    paths["tls"] = tls
+    return table, argvs, envs, paths
+
+
+def dashboard_metrics(chart: Path = CHART) -> set:
+    """The metric names the chart's dashboards and alert rules query:
+    every identifier of their PromQL outside strings, label matchers,
+    ranges and ``by (...)`` groups that is not a function, a keyword or a
+    series Prometheus writes itself (of a ``label_values`` query, the
+    first argument)."""
+    import yaml
+
+    exprs = []
+    for path in sorted((chart / "dashboards").iterdir()):
+        if path.suffix == ".json":
+            dash = json.loads(path.read_text())
+            exprs += [t["expr"] for p in dash["panels"]
+                      for t in p["targets"]]
+            exprs += [re.sub(r"^label_values\(([^,]+),.*\)$", r"\1",
+                             v["query"])
+                      for v in dash["templating"]["list"]]
+        else:
+            exprs += [rule["expr"] for g in yaml.safe_load(
+                path.read_text())["groups"] for rule in g["rules"]]
+    out = set()
+    for e in exprs:
+        e = re.sub(r'"(?:[^"\\]|\\.)*"', "", e)
+        e = re.sub(r"\{[^}]*\}|\[[^\]]*\]", "", e)
+        e = re.sub(r"\b(?:by|without|on|ignoring|group_left|group_right)"
+                   r"\s*\([^)]*\)", "", e)
+        out |= {n for n in re.findall(
+            r"\b([a-zA-Z_:][a-zA-Z0-9_:]*)\b(?!\s*\()", e)
+            if n not in PROMQL_KEYWORDS | SCRAPE_SERIES}
+    return out
+
+
+def family_of(name: str) -> str:
+    """A sample's or a ``# TYPE`` line's family: the name less ``_total``
+    (a counter), ``_bucket``, ``_sum`` or ``_count`` (a histogram)."""
+    return re.sub(r"_(total|bucket|sum|count)$", "", name)
+
+
+def chart_leg(tmp: Path, cards: dict, env=None) -> dict:
+    """The port's chart on this host, in node_agent beside hgx_leg and
+    mig_leg: charts/vgpu rendered (chart_rendering), its three daemons
+    mapped (chart_mapping; the table is printed on a line of its own) and
+    started as processes with a kubelet Registration service in the
+    mapped socket dir; the agent reads ``cards`` ({UUID: MiB}, NVML's
+    total less reserved) through NVML.  Checks: all three stay up; the
+    agent registers with the extender within CHART_REGISTER_S of its
+    start and ``/fleetz`` holds ``cards``; kubelet gets a Register for
+    the extender's first managed resource; the shim dir holds the
+    interposer byte for byte as ``build_interposer()`` built it, its
+    ``ld.so.preload`` and the startup hook; the webhook at the chart's
+    path patches a one-card pod to the chart's scheduler and the chart's
+    filterVerb places it on the node; every family the dashboards and
+    alerts name (but the serving pod's) has a ``# TYPE`` line in the
+    extender's or the monitor's scrape; each daemon ends on SIGTERM within
+    CHART_STOP_S.  Logs in ``<tmp>/chart/<daemon>.log``."""
+    import base64
+    import signal
+    import ssl
+
+    import grpc
+
+    from k8s_vgpu_scheduler_tpu_torch.api import deviceplugin_pb2 as pb
+    from k8s_vgpu_scheduler_tpu_torch.api.kubelet import \
+        add_registration_service
+    from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+    from k8s_vgpu_scheduler_tpu_torch.util.types import (
+        PRELOAD_FILE, SHIM_CONTAINER_DIR, SHIM_LIBRARY)
+
+    t_leg = time.monotonic()
+    root = tmp / "chart"
+    root.mkdir()
+    r = chart_rendering()
+    interposer = _kernels.build_interposer().read_bytes()
+    table, argvs, envs, paths = chart_mapping(r, root, CHART_NODE)
+    log("chart mapping:", json.dumps({"rules": CHART_MAP, "table": table}))
+    out: dict = {"render": "tests/gotmpl.py", "mapping": table,
+                 "tls": "openssl" if paths["tls"] else
+                 "dropped: no openssl on PATH"}
+    base_env = {k: v for k, v in (env or os.environ).items()
+                if k != "VTPU_MOCK_JSON"}
+    received = []
+    kubelet = grpc.server(ThreadPoolExecutor(max_workers=2))
+    add_registration_service(kubelet, lambda request, context: (
+        received.append((time.monotonic(), request)), pb.Empty())[1])
+    kubelet.add_insecure_port(
+        f"unix://{paths['--socket-dir'] / 'kubelet.sock'}")
+    kubelet.start()
+    procs, logs = {}, {}
+    ext = argv_flags(argvs["vgpu-extender"])
+    scheme = "https" if paths["tls"] else "http"
+    base = f"{scheme}://{ext['--http-bind']}"
+    ctx = (ssl.create_default_context(cafile=str(paths["tls"] / "tls.crt"))
+           if paths["tls"] else None)
+    mon = argv_flags(argvs["monitor"])
+    metrics = {"extender": f"http://127.0.0.1:{ext['--metrics-port']}"
+                           "/metrics",
+               "monitor": f"http://127.0.0.1:{mon['--metrics-port']}"
+                          "/metrics"}
+
+    def start(name: str) -> float:
+        logs[name] = open(root / f"{name}.log", "w")
+        procs[name] = subprocess.Popen(
+            argvs[name], env={**base_env, **envs[name]}, cwd=ROOT,
+            stdin=subprocess.DEVNULL, stdout=logs[name],
+            stderr=subprocess.STDOUT)
+        return time.monotonic()
+
+    def alive(what: str) -> None:
+        for name, p in procs.items():
+            if p.poll() is not None:
+                logs[name].flush()
+                raise Fail(f"chart leg: {name} exited {p.returncode} "
+                           f"{what}: "
+                           f"{(root / f'{name}.log').read_text()[-3000:]}")
+
+    def wait(what: str, get, limit: float = 30.0):
+        t0 = time.monotonic()
+        while True:
+            alive(what)
+            try:
+                got = get()
+            except OSError:
+                got = None
+            if got:
+                return got
+            check(time.monotonic() - t0 < limit, f"chart leg: {what}")
+            time.sleep(0.05)
+
+    def fleet():
+        status, body = http(f"{base}/fleetz", timeout=5, context=ctx)
+        return body if status == 200 else None
+
+    try:
+        start("vgpu-extender")
+        wait("the extender's /healthz", lambda: http(
+            f"{base}/healthz", timeout=5, context=ctx)[0] == 200)
+        start("monitor")
+        wait("the monitor's /metrics", lambda: http(
+            metrics["monitor"], timeout=5)[0] == 200)
+        t_agent = start("device-plugin")
+        export = wait("the agent's registration", lambda: next(
+            (n for n in (fleet() or {}).get("nodes", ())
+             if n["name"] == CHART_NODE and n["chips"]), None),
+            limit=CHART_REGISTER_S)
+        out["register_s"] = time.monotonic() - t_agent
+        out["fleetz"] = {d["id"]: d["devmem"] for d in export["chips"]}
+        check(out["fleetz"] == cards, f"chart leg: /fleetz shows "
+              f"{out['fleetz']}, NVML {cards}")
+        managed = [m["name"] for m in r["extender"]["managedResources"]]
+        wait("kubelet's Register call", lambda: received, limit=10)
+        out["kubelet_register_s"] = received[0][0] - t_agent
+        out["kubelet"] = sorted(q.resource_name for _, q in received)
+        check(out["kubelet"] == [managed[0]],
+              f"chart leg: kubelet got Register for {out['kubelet']}")
+        shim = paths["--shim-dir"]
+        out["shim"] = sorted(p.name for p in shim.iterdir())
+        check((shim / SHIM_LIBRARY).read_bytes() == interposer
+              and (shim / PRELOAD_FILE).read_text()
+              == f"{SHIM_CONTAINER_DIR}/{SHIM_LIBRARY}\n"
+              and (shim / _kernels.HOOK_FILE).is_file(),
+              f"chart leg: the shim dir holds {out['shim']}")
+        # The chart's webhook path, then the chart's filterVerb under the
+        # extender config's urlPrefix.
+        name, uid, mib, priority = CHART_POD
+        pod = user_pod(name, uid, mib, priority)
+        t0 = time.monotonic()
+        status, review = http(f"{base}{r['webhook']['service']['path']}", {
+            "apiVersion": "admission.k8s.io/v1", "kind": "AdmissionReview",
+            "request": {"uid": f"review-{uid}", "operation": "CREATE",
+                        "namespace": "default", "object": pod}},
+            timeout=30, context=ctx)
+        out["webhook_s"] = time.monotonic() - t0
+        check(status == 200 and review["response"]["allowed"],
+              f"chart leg: the webhook answered {status} {review}")
+        patch = json.loads(base64.b64decode(review["response"]["patch"]))
+        created = apply_json_patch(pod, patch)
+        check(created["spec"].get("schedulerName") == r["scheduler_name"],
+              f"chart leg: the webhook's patch {patch}")
+        prefix = r["extender"]["urlPrefix"]
+        check(prefix == "https://127.0.0.1:{}".format(
+            r["webhook"]["service"]["port"]),
+            f"chart leg: the extender config's urlPrefix {prefix}")
+        t0 = time.monotonic()
+        status, reply = http(f"{base}/{r['extender']['filterVerb']}", {
+            "Pod": created, "NodeNames": [CHART_NODE]}, timeout=30,
+            context=ctx)
+        out["filter_s"] = time.monotonic() - t0
+        out["filter"] = reply
+        check(status == 200 and reply["NodeNames"] == [CHART_NODE]
+              and not reply["Error"],
+              f"chart leg: {r['extender']['filterVerb']} answered "
+              f"{status} {reply}")
+        # The dashboards' families in the two scrapes.
+        typed = {}
+        for who, url in metrics.items():
+            status, text = http(url, timeout=30)
+            check(status == 200, f"chart leg: {url} answered {status}")
+            typed[who] = {family_of(line.split()[2])
+                          for line in text.splitlines()
+                          if line.startswith("# TYPE ")}
+        want = {family_of(n) for n in dashboard_metrics()
+                if not n.startswith("vtpu_serve_")}
+        missing = want - typed["extender"] - typed["monitor"]
+        out["families"] = dict(dashboards=len(want), **{
+            who: len(t) for who, t in typed.items()})
+        check(not missing, f"chart leg: no # TYPE line for {missing}")
+        alive("before SIGTERM")
+        out["stop_s"] = {}
+        for name in ("device-plugin", "monitor", "vgpu-extender"):
+            t0 = time.monotonic()
+            procs[name].send_signal(signal.SIGTERM)
+            try:
+                rc = procs[name].wait(timeout=CHART_STOP_S)
+            except subprocess.TimeoutExpired:
+                rc = None
+            out["stop_s"][name] = time.monotonic() - t0
+            check(rc == 0, f"chart leg: {name} answered SIGTERM with "
+                  f"{rc} in {out['stop_s'][name]:.1f} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs.values():
+            f.close()
+        kubelet.stop(grace=1)
+    out["leg_s"] = time.monotonic() - t_leg
+    return out
+
+
 def mock_agent() -> int:
     """A mock node's agent (``--enforce-child mock_agent``), in a process
     that never imports torch: NvmlBackend over the mock NVML
@@ -4561,6 +5000,8 @@ def phase_device_plugin(torch, record, vgpu: Path):
         check(len(line) == 1, "the node agent printed no result")
         na = json.loads(line[0][len("ENFORCE "):])
         record["node_agent"] = dict(na, life=life, base_mib=base)
+        log("chart mapping:", json.dumps(na["chart"]["mapping"]))
+        log("chart leg:", json.dumps(chart_summary(na)))
         p2p = subprocess.run(["nvidia-smi", "topo", "-p2p", "n"],
                              capture_output=True, text=True, timeout=60,
                              env=smi_env())
@@ -4898,6 +5339,18 @@ def fabric_summary(na: dict) -> dict:
                 **{k: rec[k] for k in ("webhook_s", "filter_s", "bind_s")
                    if k in rec}} for name, rec in pods.items()}},
     }
+
+
+def chart_summary(na: dict) -> dict:
+    """The chart leg's record as the phase's line prints it (checked in
+    chart_leg): how it rendered and mapped TLS, the seconds to the
+    agent's registration and to kubelet's, the webhook's and Filter's
+    seconds, each daemon's seconds from SIGTERM to its end, the families
+    the dashboards name and the two scrapes held, and the leg's seconds."""
+    c = na["chart"]
+    return {k: c[k] for k in ("render", "tls", "register_s",
+                              "kubelet_register_s", "webhook_s", "filter_s",
+                              "stop_s", "families", "leg_s")}
 
 
 def mig_summary(na: dict) -> dict:
@@ -5369,6 +5822,7 @@ def plugin_checks(record, na, sizes, envs, regions, legs, tl, seen,
                 default=0) - record["node_agent"]["base_mib"],
             "torch_loaded": na["torch_loaded"], "polls": na["polls"]},
         "fabric": fabric_summary(na),
+        "chart": chart_summary(na),
         "control_plane": {
             "register_s": na["register_s"], "registered": na["registered"],
             **{name: {k: pods[name]["handshake"][k] for k in (
@@ -6084,10 +6538,12 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def http(url: str, body=None, timeout: float = 300, on_event=None):
+def http(url: str, body=None, timeout: float = 300, on_event=None,
+         context=None):
     """(status, parsed body) of a GET, or of a POST of ``body`` as JSON;
     a server-sent-events reply becomes its list of events (``on_event``
-    is called as each arrives)."""
+    is called as each arrives).  ``context``: an ``ssl.SSLContext`` for
+    an https URL."""
     import urllib.error
     import urllib.request
 
@@ -6095,7 +6551,8 @@ def http(url: str, body=None, timeout: float = 300, on_event=None):
     req = urllib.request.Request(url, data=data, headers={
         "Content-Type": "application/json"})
     try:
-        with urllib.request.urlopen(req, timeout=timeout) as r:
+        with urllib.request.urlopen(req, timeout=timeout,
+                                    context=context) as r:
             kind = r.headers.get("Content-Type", "")
             if kind == "text/event-stream":
                 events = []
@@ -6720,13 +7177,13 @@ def main() -> int:
     log("the card's used MiB by nvidia-smi and by a window of NVML:",
         record["card_used_mib"])
     t0 = time.monotonic()
-    with ThreadPoolExecutor(len(KERNEL_SOURCES) + 3) as pool:
-        vgpu = pool.submit(_kernels.build_vgpu)  # the enforcement library
-        interposer = pool.submit(_kernels.build_interposer)
+    with ThreadPoolExecutor(1) as pool:
+        # build_all is what the image's build stage runs: the kernels, the
+        # enforcement library and the interposer, all started together.
         driver = pool.submit(_kernels.build_interposer_test)
-        list(pool.map(_kernels.build, KERNEL_SOURCES))
-        vgpu, interposer, driver = (vgpu.result(), interposer.result(),
-                                    driver.result())
+        built = _kernels.build_all()
+        driver = driver.result()
+    vgpu, interposer = built["vgpu"], built["interposer"]
     record["build_s"] = time.monotonic() - t0
     log(f"built {', '.join(KERNEL_SOURCES)} in {record['build_s']:.1f} s")
     record["ptxas"] = {name: _kernels.build_logs.get(name, "")
@@ -6739,6 +7196,8 @@ def main() -> int:
 
     port = (llama, convert, generate, serve, train)
     try:
+        check(set(built) == {*KERNEL_SOURCES, "vgpu", "interposer"},
+              f"build_all built {sorted(built)}")
         # The tensor-core kernels keep every value in registers.
         mma = [r for r in record["registers"] if "mma" in r["kernel"]]
         check(len(mma) == 3 * len(fa._HEAD_DIMS)

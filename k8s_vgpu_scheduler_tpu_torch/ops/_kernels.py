@@ -14,7 +14,13 @@ the node agent's CPU tests run against (``mock_nvml-<hash>/
 libnvidia-ml.so.1``).  ``install_shim`` puts the interposer, the
 ``ld.so.preload`` naming it and the shim's startup hook into a node's shim
 directory.  Importing this module compiles nothing and needs no compiler:
-the CPU tests import it.
+the CPU tests import it.  A library that is already built is loaded
+without looking for a compiler, so a package copied with its ``build/``
+(the image's runtime stage) needs none.  ``build_all()``, or
+
+    python -m k8s_vgpu_scheduler_tpu_torch.ops._kernels
+
+builds every library a deployment ships (the image's build stage runs it).
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -34,6 +41,8 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # .gitignore.
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+#: The kernel sources under ``csrc/``, one library each.
+KERNELS = ("flash_fwd", "flash_bwd")
 VGPU_DIR = CSRC / "vgpu"
 HOST_FLAGS = ("-O2", "-fPIC", "-std=c++17", "-pthread")
 # The region, limiter and reader: libvgpu_torch, and the interposer's base.
@@ -66,13 +75,16 @@ _libs: dict = {}
 build_logs: dict = {}
 
 
+#: Where nvcc is looked for when it is not on PATH.
+NVCC_FALLBACK = Path("/usr/local/cuda/bin/nvcc")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:
         return found
-    fallback = Path("/usr/local/cuda/bin/nvcc")
-    if fallback.exists():
-        return str(fallback)
+    if NVCC_FALLBACK.exists():
+        return str(NVCC_FALLBACK)
     raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
@@ -95,11 +107,13 @@ def source_digest(src: Path) -> str:
     return h.hexdigest()[:16]
 
 
-def _compile(name: str, out: Path, cmd) -> Path:
-    """Run ``cmd -o <tmp>`` unless ``out`` exists, then move the result to
-    ``out``; raise with the compiler's errors if it fails."""
+def _compile(name: str, out: Path, compiler, *args) -> Path:
+    """Run ``<compiler()> args -o <tmp>`` unless ``out`` exists, then move
+    the result to ``out``; raise with the compiler's errors if it fails.
+    The compiler is looked for only when there is something to build."""
     if out.exists():
         return out
+    cmd = [compiler(), *args]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
     os.close(fd)
@@ -117,9 +131,9 @@ def build(name: str) -> Path:
     its headers exists; return the shared library's path."""
     src = CSRC / f"{name}.cu"
     out = BUILD_DIR / f"lib{name}-{source_digest(src)}.so"
-    return _compile(name, out, [
-        _nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-        "-Xcompiler", "-fPIC", "-Xptxas", "-v", str(src)])
+    return _compile(name, out, _nvcc, *ARCH_FLAGS, "-std=c++17", "-O3",
+                    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+                    str(src))
 
 
 def _digest(srcs) -> str:
@@ -140,7 +154,7 @@ def build_vgpu() -> Path:
     shared library's path.  Raises when g++ is missing or fails."""
     srcs = [VGPU_DIR / s for s in VGPU_SOURCES]
     return _compile("vgpu", BUILD_DIR / f"libvgpu_torch-{_digest(srcs)}.so",
-                    [_gxx(), *HOST_FLAGS, "-shared", *map(str, srcs)])
+                    _gxx, *HOST_FLAGS, "-shared", *map(str, srcs))
 
 
 def build_interposer() -> Path:
@@ -151,8 +165,8 @@ def build_interposer() -> Path:
             *(VGPU_DIR / s for s in VGPU_SOURCES)]
     return _compile("interposer",
                     BUILD_DIR / f"libvgpu_cuda-{_digest(srcs)}.so",
-                    [_gxx(), *HOST_FLAGS, "-shared", "-Wl,-Bsymbolic",
-                     *map(str, srcs), "-ldl", "-lpthread"])
+                    _gxx, *HOST_FLAGS, "-shared", "-Wl,-Bsymbolic",
+                    *map(str, srcs), "-ldl", "-lpthread")
 
 
 def build_mock_cuda() -> Path:
@@ -166,9 +180,8 @@ def build_mock_cuda() -> Path:
     out = BUILD_DIR / f"mock_cuda-{_digest([src])}"
     out.mkdir(parents=True, exist_ok=True)
     _compile("mock_cuda", out / "libcuda.so.1",
-             [_gxx(), *HOST_FLAGS, "-shared", "-Wl,-Bsymbolic",
-              "-Wl,-soname,libcuda.so.1",
-              str(src), "-ldl", "-lpthread"])
+             _gxx, *HOST_FLAGS, "-shared", "-Wl,-Bsymbolic",
+             "-Wl,-soname,libcuda.so.1", str(src), "-ldl", "-lpthread")
     nvml = out / "libnvidia-ml.so.1"
     if not nvml.exists():
         tmp = out / f"libnvidia-ml.so.1.{os.getpid()}"
@@ -186,8 +199,8 @@ def build_mock_nvml() -> Path:
     out = BUILD_DIR / f"mock_nvml-{_digest([src])}"
     out.mkdir(parents=True, exist_ok=True)
     return _compile("mock_nvml", out / "libnvidia-ml.so.1",
-                    [_gxx(), *HOST_FLAGS, "-shared",
-                     "-Wl,-soname,libnvidia-ml.so.1", str(src)])
+                    _gxx, *HOST_FLAGS, "-shared",
+                    "-Wl,-soname,libnvidia-ml.so.1", str(src))
 
 
 #: The startup hook's name in a shim directory.
@@ -222,7 +235,20 @@ def build_interposer_test() -> Path:
     src = VGPU_DIR / "test_interposer.cc"
     return _compile("interposer_test",
                     BUILD_DIR / f"test_interposer-{_digest([src])}",
-                    [_gxx(), "-O2", "-std=c++17", str(src), "-ldl"])
+                    _gxx, "-O2", "-std=c++17", str(src), "-ldl")
+
+
+def build_all() -> dict:
+    """Build every library a deployment ships, all started together: each
+    kernel of ``KERNELS`` with nvcc, the enforcement library and the
+    interposer with g++.  Returns {name: path}.  Raises where nvcc or g++
+    is missing or fails; no library is skipped."""
+    _nvcc()  # a host without nvcc fails here, before any build starts
+    jobs = {name: (build, name) for name in KERNELS}
+    jobs.update(vgpu=(build_vgpu,), interposer=(build_interposer,))
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        futures = {name: pool.submit(*job) for name, job in jobs.items()}
+        return {name: f.result() for name, f in futures.items()}
 
 
 def load(name: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":
@@ -249,3 +275,14 @@ def flash_bwd_dq():
 
 def flash_bwd_dkv():
     return load("flash_bwd", "flash_bwd_dkv", FLASH_BWD_DKV_ARGTYPES)
+
+
+def main() -> None:
+    """``python -m k8s_vgpu_scheduler_tpu_torch.ops._kernels``: build_all,
+    then one line a library, ``<name>: <path>``."""
+    for name, path in build_all().items():
+        print(f"{name}: {path}")
+
+
+if __name__ == "__main__":
+    main()

@@ -529,3 +529,90 @@ def test_the_scale_checks_fail_on_any_disagreement(fault):
         r["accounting"]["max_error_pct"] = 5.5
     with pytest.raises(chip_smoke.Fail):
         chip_smoke.simulate_scale_checks(r, SCALE)
+
+
+# -- the chart leg -----------------------------------------------------------------
+
+
+def test_the_chart_leg_runs_on_the_mock_nvml(tmp_path):
+    """phase_device_plugin's chart leg on the CPU: charts/vgpu rendered,
+    the extender, the device plugin and the monitor started from its
+    containers as mapped onto this host, the agent reading a two-card
+    fixture through the mock NVML; the same checks as on the card, the
+    card memory /fleetz must show taken from the fixture."""
+    import os
+
+    lib = _kernels.build_mock_nvml()
+    mib = 81079
+    fixture = tmp_path / "nvml.json"
+    fixture.write_text(json.dumps({"generation": "h100", "mesh": [2],
+                                   "hbm_mib": mib}))
+    cards = {c.uuid: c.hbm_mib for c in MockBackend(
+        json.loads(fixture.read_text())).inventory().chips}
+    assert len(cards) == 2 and set(cards.values()) == {mib}
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("VTPU_MOCK_JSON", "MOCK_NVML_NOT_SUPPORTED")}
+    env.update(LD_LIBRARY_PATH=str(lib.parent), MOCK_NVML_JSON=str(fixture))
+    got = chip_smoke.chart_leg(tmp_path, cards, env)
+    assert got["fleetz"] == cards
+    assert got["register_s"] < chip_smoke.CHART_REGISTER_S
+    assert got["kubelet"] == ["nvidia.com/gpu"]
+    assert got["filter"]["NodeNames"] == [chip_smoke.CHART_NODE]
+    assert got["tls"] == "openssl"
+    assert set(got["stop_s"]) == {"vgpu-extender", "device-plugin",
+                                  "monitor"}
+    assert max(got["stop_s"].values()) < chip_smoke.CHART_STOP_S
+    rows = {row[0]: row[1:] for row in got["mapping"]}
+    assert rows["device-plugin --scheduler-endpoint"][0] == \
+        "vgpu-scheduler.kube-system.svc:1080"
+    assert rows["device-plugin --shim-dir"][0] == "/usr/local/vgpu"
+    assert rows["device-plugin --cache-dir"][1] == \
+        rows["monitor --container-root"][1]
+    assert rows["device-plugin env NODE_NAME"][1] == chip_smoke.CHART_NODE
+
+
+def _break_endpoint(r):
+    c = r["containers"]["device-plugin"]["command"]
+    c[:] = [a.replace("svc:1080", "svc:1081") for a in c]
+
+
+def _break_usage(r):
+    c = r["containers"]["monitor"]["command"]
+    c[:] = [a.replace("--grpc-port=9395", "--grpc-port=9396") for a in c]
+
+
+def _break_mount(r):
+    r["containers"]["device-plugin"]["volumeMounts"] = [
+        m for m in r["containers"]["device-plugin"]["volumeMounts"]
+        if m["mountPath"] != "/usr/local/vgpu"]
+
+
+def _break_config(r):
+    [v] = [v for v in r["volumes"].values() if "configMap" in v
+           and v["configMap"]["name"].endswith("device-plugin")]
+    v["emptyDir"] = v.pop("configMap")
+
+
+@pytest.mark.parametrize("fault", [_break_endpoint, _break_usage,
+                                   _break_mount, _break_config],
+                         ids=["endpoint", "usage_source", "shim_mount",
+                              "node_config"])
+def test_the_chart_mapping_fails_where_the_chart_does_not_tie_up(
+        tmp_path, fault):
+    """chart_mapping maps the default rendering; a rendering whose agent
+    calls another port than the extender's, reads usage from another port
+    than the monitor's, or whose path flag or config file has no mount of
+    its kind is refused."""
+    r = chip_smoke.chart_rendering()
+    table, argvs, envs, paths = chip_smoke.chart_mapping(
+        r, tmp_path / "ok", "n")
+    assert argvs["device-plugin"][-1] == "--fake-kube"
+    assert "--fake-kube" not in argvs["monitor"]
+    assert envs["monitor"] == {"NODE_NAME": "n", "NVIDIA_VISIBLE_DEVICES":
+                               "all", "NVIDIA_DRIVER_CAPABILITIES":
+                               "utility"}
+    assert (paths["--cache-dir"] == paths["--container-root"]
+            != paths["--shim-dir"])
+    fault(r)
+    with pytest.raises(chip_smoke.Fail):
+        chip_smoke.chart_mapping(r, tmp_path / "bad", "n")
