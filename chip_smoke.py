@@ -252,6 +252,20 @@ COTENANT_BLOCK = 1024 * MIB
 SERVE_LENS = (64, 128, 200, 333, 512, 96)
 SERVE_NEW = 32
 SERVE_SLOTS = 4
+# Speculative decoding (models/generate.py speculative_generate), k draft
+# tokens a round: in f32 on the 2-layer model, a 1-layer early-exit draft
+# and a random 1-layer draft, SPEC_F32_NEW tokens on a SPEC_F32_PROMPT-
+# token prompt, each token-identical to generate(); in bf16 on the
+# 32-layer model, a SPEC_DRAFT_LAYERS-layer early-exit draft, SPEC_NEW
+# tokens on a SPEC_PROMPT-token prompt, timed against generate() (median
+# of SPEC_TIMED runs each).  bf16 argmax may break near-ties differently
+# in the 1-token and the (k + 1)-token forwards, so there the first
+# position where the two differ is recorded, not held.
+SPEC_K = 4
+SPEC_F32_PROMPT, SPEC_F32_NEW = 128, 32
+SPEC_PROMPT, SPEC_NEW = 512, 64
+SPEC_DRAFT_LAYERS = 2
+SPEC_TIMED = 3
 # The co-residency phase (phase_coresidency): a serving pod (priority 0)
 # and a training pod (priority 1) on one card, each asking
 # nvidia.com/gpucores: 50 (the lab's own split, shim/simlab.py's
@@ -455,6 +469,25 @@ PREEMPT_PODS = {
     "V2": ("trainer-2", "uidPV2", PREEMPT_MIB, 1, {})}
 PREEMPT_STEPS = 5
 PREEMPT_AFTER = 3
+# phase_preempt's quota leg (quota_leg): the control plane's capacity
+# queues, two in one cohort: team-a with no nominal (all it holds is
+# borrowed), team-b entitled to one card.  R, V, H and V' stay in the
+# ungoverned "default".  B (team-a) and E (team-b) ask for QUOTA_MIB
+# each: both fit beside V''s grant, not together.  The admission loop is
+# ticked through the control plane's stdin; its reclaim grace is
+# QUOTA_GRACE_S, and its release throttle counts QUOTA_HEADROOM grants a
+# card (the split count: every grant of the phase shares the one card).
+# B's kernel loop ends, failing, after QUOTA_POD_S without a request.
+QUOTA_QUEUES = [{"name": "team-a", "namespaces": ["team-a"], "cohort": "lab",
+                 "quota": {"chips": 0}, "borrow_limit_chips": 1},
+                {"name": "team-b", "namespaces": ["team-b"], "cohort": "lab",
+                 "quota": {"chips": 1}}]
+QUOTA_PODS = {"B": ("borrower", "uidQB", "team-a"),
+              "E": ("entitled", "uidQE", "team-b")}
+QUOTA_MIB = 24000
+QUOTA_GRACE_S = 2.0
+QUOTA_HEADROOM = 10.0
+QUOTA_POD_S = 120.0
 # The capacity simulator's legs of phase_preempt (FleetView): the scale
 # leg replays SIM_FLEET (968 pods) on SIM_SCALE, 128 nodes of eight H100s
 # at the card's advertised MiB, starting with the phase so that it runs
@@ -1113,7 +1146,8 @@ def phase_backward_kernels(torch, fa, record):
 
 def phase_forward_and_serve_f32(torch, port, record):
     """llama_7b widths, 2 layers, f32: flash logits against full; the
-    engine token-exact against generate()."""
+    engine token-exact against generate(); speculative decoding with an
+    early-exit and a random draft, each token-identical to generate()."""
     llama, convert, generate, serve, _ = port
     cfg = dataclasses.replace(llama.llama_7b(), n_layers=2,
                               dtype="float32", attention="flash")
@@ -1151,6 +1185,25 @@ def phase_forward_and_serve_f32(torch, port, record):
         requests=len(reqs), prompt_lens=[len(p) for p, _ in reqs],
         new_tokens=8, max_slots=2, token_exact=True)
     log("serve f32 vs generate", json.dumps(record["serve_f32_vs_generate"]))
+
+    prompt = torch.randint(1, cfg.vocab, (1, SPEC_F32_PROMPT), generator=rng)
+    want = generate.generate(flash_model, prompt, SPEC_F32_NEW)
+    drafts = {"early_exit_1_layer": convert.early_exit_draft(flash_model, 1),
+              "random_1_layer": convert.init_weights(
+                  dataclasses.replace(cfg, n_layers=1),
+                  torch.Generator(device="cuda").manual_seed(SEED + 9))}
+    runs = {}
+    for name, draft in drafts.items():
+        got, stats = generate.speculative_generate(
+            flash_model, draft, prompt, SPEC_F32_NEW, k=SPEC_K)
+        check(torch.equal(got, want), f"f32 speculative decoding with the "
+              f"{name} draft diverged from generate()")
+        runs[name] = dict(stats, acceptance=stats["accepted"]
+                          / max(1, stats["drafted"]), token_identical=True)
+    record["speculative_f32"] = dict(
+        layers=2, k=SPEC_K, prompt=SPEC_F32_PROMPT, new_tokens=SPEC_F32_NEW,
+        drafts=runs)
+    log("speculative f32 vs generate", json.dumps(record["speculative_f32"]))
 
 
 def phase_forward_bf16(torch, port, record):
@@ -1192,8 +1245,10 @@ def phase_main_path(torch, fa, port, record):
     """The main path at full llama_7b size in bf16: the 32-layer flash
     forward on 2048 tokens, then the engine answering 6 requests.  After
     the launch counts are read, the same forward and 8 decode dispatches
-    of the same engine traffic are traced for where the time goes."""
-    llama, convert, _, serve, _ = port
+    of the same engine traffic are traced for where the time goes.  Last,
+    speculative decoding with an early-exit draft against generate() on
+    one prompt (``speculative_bf16``)."""
+    llama, convert, generate, serve, _ = port
     cfg = dataclasses.replace(llama.llama_7b(), attention="flash")
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     t0 = time.monotonic()
@@ -1287,7 +1342,53 @@ def phase_main_path(torch, fa, port, record):
             f" {w['kernel_launches']} kernel launches;",
             "; ".join(f"{k['ms']:.3f} ms x{k['calls']} {k['name'][:40]}"
                       for k in w["top_kernels"]))
+    speculative_bf16(torch, model, convert, generate, record)
     return main_launches
+
+
+def speculative_bf16(torch, model, convert, generate, record):
+    """speculative_generate on the 32-layer bf16 model with its first
+    SPEC_DRAFT_LAYERS layers as the draft, against generate() on the same
+    prompt: wall-clock tokens/s of each (median of SPEC_TIMED runs, the
+    prefill included), the acceptance, the target forwards and the first
+    position where the tokens differ.  Numbers only: no limit."""
+    cfg = model.cfg
+    rng = torch.Generator().manual_seed(SEED + 12)
+    prompt = torch.randint(1, cfg.vocab, (1, SPEC_PROMPT), generator=rng)
+    draft = convert.early_exit_draft(model, SPEC_DRAFT_LAYERS)
+
+    def timed(fn):
+        walls, out = [], None
+        for _ in range(SPEC_TIMED):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            out = fn()
+            torch.cuda.synchronize()
+            walls.append(time.monotonic() - t0)
+        return out, sorted(walls)[len(walls) // 2], walls
+
+    plain, plain_s, plain_walls = timed(
+        lambda: generate.generate(model, prompt, SPEC_NEW))
+    (spec, stats), spec_s, spec_walls = timed(
+        lambda: generate.speculative_generate(model, draft, prompt,
+                                              SPEC_NEW, k=SPEC_K))
+    check(spec.shape == plain.shape == (1, SPEC_PROMPT + SPEC_NEW)
+          and torch.equal(spec[:, :SPEC_PROMPT], plain[:, :SPEC_PROMPT]),
+          f"speculative tokens {tuple(spec.shape)}")
+    check(bool(((spec >= 0) & (spec < cfg.vocab)).all()),
+          "speculative token out of vocabulary")
+    differ = (spec[0, SPEC_PROMPT:] != plain[0, SPEC_PROMPT:]).nonzero()
+    record["speculative_bf16"] = dict(
+        card=record["card"], layers=cfg.n_layers,
+        draft_layers=SPEC_DRAFT_LAYERS, k=SPEC_K, prompt=SPEC_PROMPT,
+        new_tokens=SPEC_NEW, **stats,
+        acceptance=stats["accepted"] / max(1, stats["drafted"]),
+        first_difference=int(differ[0]) if len(differ) else None,
+        generate_s=plain_s, speculative_s=spec_s,
+        generate_walls_s=plain_walls, speculative_walls_s=spec_walls,
+        generate_tokens_per_s=SPEC_NEW / plain_s,
+        speculative_tokens_per_s=SPEC_NEW / spec_s)
+    log("speculative bf16", json.dumps(record["speculative_bf16"]))
 
 
 def phase_train_f32_parity(torch, port, record):
@@ -2405,6 +2506,32 @@ def child_preempt(torch):
                                    "flash_bwd_dkv"), launches)))
 
 
+def child_quota_pod(torch):
+    """phase_preempt's B: a borrowed grant's pod, under the env of its
+    Allocate answer (the interposer preloaded), launching a loop of
+    matmuls on the card and printing ``LOOP <n>`` after each pass, until
+    a PreemptionWatch of its own annotations file sees the eviction
+    request; then it exits 0, as a checkpointed pod does."""
+    from k8s_vgpu_scheduler_tpu_torch.shim.preempt import PreemptionWatch
+
+    watch = PreemptionWatch()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    x = torch.randn(2048, 2048, device="cuda", generator=gen)
+    t0, loops = time.monotonic(), 0
+    while not watch.requested():
+        check(time.monotonic() - t0 < QUOTA_POD_S,
+              f"no eviction request in {QUOTA_POD_S} s")
+        for _ in range(16):
+            x = torch.tanh(x @ x / 2048 ** 0.5)
+        torch.cuda.synchronize()
+        loops += 1
+        print(f"LOOP {loops}", flush=True)
+    seen = time.monotonic()
+    check(bool(torch.isfinite(x).all()), "B's loop is not finite")
+    return dict(loops=loops, requester=watch.requester(), stop_seen_t=seen,
+                interposer=interposer_stats(), exit_t=time.monotonic())
+
+
 def workload_build(torch, name: str, refs: Path, bare: bool) -> tuple:
     """One case of models/workloads.py on the card, built from
     WORKLOAD_SEED, and the f32 path of its weights: its logits (in
@@ -2533,6 +2660,7 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "cores_train": child_cores_train,
                     "cores_serve": child_cores_serve,
                     "preempt": child_preempt,
+                    "quota_pod": child_quota_pod,
                     "workloads_bare": child_workloads_bare}
 
 
@@ -3428,7 +3556,8 @@ def apply_json_patch(obj: dict, ops: list) -> dict:
 
 
 def user_pod(name: str, uid: str, mib: int, priority: int, cores=None,
-             annotations=None, cards: int = 1) -> dict:
+             annotations=None, cards: int = 1,
+             namespace: str = "default") -> dict:
     """A pod as its user writes it: one container asking for ``cards``
     cards, ``mib`` of each one's memory (and ``cores`` of its compute
     where given) at ``priority``, by resources only."""
@@ -3436,7 +3565,7 @@ def user_pod(name: str, uid: str, mib: int, priority: int, cores=None,
               "nvidia.com/priority": str(priority)}
     if cores is not None:
         limits["nvidia.com/gpucores"] = str(cores)
-    return {"metadata": {"name": name, "namespace": "default", "uid": uid,
+    return {"metadata": {"name": name, "namespace": namespace, "uid": uid,
                          "annotations": dict(annotations or {})},
             "spec": {"containers": [{"name": name, "resources": {
                 "limits": limits}}]}}
@@ -4178,7 +4307,9 @@ def hgx_leg(plane, kube, tmp: Path) -> dict:
 
 def chart_rendering() -> dict:
     """charts/vgpu rendered with its default values (tests/gotmpl.py, the
-    repo's stand-in for ``helm template``; it needs PyYAML): the three
+    repo's stand-in for ``helm template``; it needs PyYAML, so the quota
+    values stay empty unless ``import yaml`` works, and they are empty
+    here: the extender reads a rendered quota.yaml with PyYAML): the three
     daemons' containers (``command``, ``env``, ``volumeMounts``), the
     DaemonSet's hostPath volumes, the kube-scheduler's extender config
     and profile, the node ConfigMap's ``config.json``, the TLS secret's
@@ -4656,10 +4787,13 @@ def control_plane() -> int:
     answers one JSON line for each command line on stdin (``{"ok": ...}``
     or ``{"error": ...}``): ``create`` a pod, ``get`` or ``delete`` one by
     name (the fake apiserver's writes and reads, as a kubelet and an
-    apiserver make them), ``allocate`` (kubelet's Allocate for the pod
-    Bind left allocating), ``requested`` (each victim's eviction request
-    and the monotonic time it reached the apiserver), ``grants`` (the
-    scheduler's registry), and ``end``: the register stream closes, the
+    apiserver make them; ``namespace`` defaults to "default"), ``allocate``
+    (kubelet's Allocate for the pod Bind left allocating), ``requested``
+    (each victim's eviction request and the monotonic time it reached the
+    apiserver), ``grants`` (the scheduler's registry), ``tick`` (one pass
+    of the capacity queues' admission loop, its actions; the queues are
+    ``$QUOTA_CONFIG``'s, read by ``vgpu-scheduler``'s loader, with
+    QUOTA_GRACE_S and QUOTA_HEADROOM), and ``end``: the register stream closes, the
     lease clock moves into the Suspect window for one rescue sweep and
     past the Dead deadline for another, and the answer holds both sweeps'
     actions and the annotations of every pod that held a grant.  Its
@@ -4669,6 +4803,7 @@ def control_plane() -> int:
     also serves the scheduler's exporter (the ready line's ``metrics``)
     and ``/debug`` (``enable_debug``)."""
     sys.path.insert(0, str(ROOT))
+    from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import load_quota_config
     from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
         DeviceCache, GpuDevicePlugin)
     from k8s_vgpu_scheduler_tpu_torch.deviceplugin.register import \
@@ -4698,7 +4833,11 @@ def control_plane() -> int:
     clock = OffsetClock()
     cfg = Config(node_name=PLUGIN_NODE, shim_host_dir=str(tmp / "shim"),
                  cache_host_dir=str(tmp / "containers"),
-                 enable_preemption=True, enable_debug=True)
+                 enable_preemption=True, enable_debug=True,
+                 quota_queues=load_quota_config(
+                     os.environ.get("QUOTA_CONFIG", "")),
+                 queue_reclaim_grace_s=QUOTA_GRACE_S,
+                 queue_fleet_headroom=QUOTA_HEADROOM)
     kube = FakeKube()
     kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
     requested = {}
@@ -4735,7 +4874,7 @@ def control_plane() -> int:
                         locked=nodelock.is_locked(kube, PLUGIN_NODE))
 
         def delete(cmd):
-            kube.delete_pod("default", cmd["name"])
+            kube.delete_pod(cmd.get("namespace", "default"), cmd["name"])
 
         def grants(_=None):
             return sorted([p.uid, p.name]
@@ -4761,10 +4900,11 @@ def control_plane() -> int:
                         torch_loaded="torch" in sys.modules)
 
         ops = {"create": lambda cmd: kube.create_pod(cmd["pod"]),
-               "get": lambda cmd: kube.get_pod("default", cmd["name"]),
+               "get": lambda cmd: kube.get_pod(
+                   cmd.get("namespace", "default"), cmd["name"]),
                "delete": delete, "allocate": allocate,
                "requested": lambda _: requested, "grants": grants,
-               "end": end}
+               "tick": lambda _: sched.admission.tick(), "end": end}
         chip = cache.inventory.chips[0]
         print(json.dumps({"base": plane.base, "uuid": chip.uuid,
                           "metrics": f"http://127.0.0.1:{metrics.port}"
@@ -4840,8 +4980,8 @@ class PlaneChild:
     def create_pod(self, pod: dict) -> dict:
         return self.call("create", pod=pod)
 
-    def get_pod(self, name: str) -> dict:
-        return self.call("get", name=name)
+    def get_pod(self, name: str, namespace: str = "default") -> dict:
+        return self.call("get", name=name, namespace=namespace)
 
     def close(self) -> int:
         """End the child (after ``end``, it exits by itself): its exit
@@ -6224,6 +6364,216 @@ class FleetView:
         return out
 
 
+def queue_view(plane) -> dict:
+    """The capacity queues as the extender's /queuez, its /metrics queue
+    families and vgpu-report (in this process, --json) show them, held to
+    one another; the /queuez document, its rows by queue name, and the
+    report's governed namespace rows."""
+    import contextlib
+    import io
+
+    from k8s_vgpu_scheduler_tpu_torch.cmd import vgpu_report
+
+    status, doc = http(f"{plane.base}/queuez", timeout=30)
+    check(status == 200 and doc["enabled"], f"/queuez answered {status} "
+          f"{doc}")
+    metrics = scrape(plane.metrics)[0]
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        code = vgpu_report.main(["--cluster", plane.base, "--json",
+                                 "--no-capacity", "--no-audit", "--no-slo"])
+    check(code == 0, f"vgpu-report exited {code}")
+    report = json.loads(out.getvalue())
+    rows = {r["queue"]: r for r in doc["queues"]}
+    for name, r in rows.items():
+        for family, key in (("vtpu_queue_pending", "pending"),
+                            ("vtpu_queue_admitted_total", "admitted_total"),
+                            ("vtpu_queue_fair_share", "fair_share"),
+                            ("vtpu_borrowed_chips", "borrowed_chips")):
+            check(metric(metrics, family, queue=name) == r[key],
+                  f"{family}{{queue={name}}} "
+                  f"{metric(metrics, family, queue=name)}, /queuez {r}")
+    check(metric(metrics, "vtpu_reclaims_total") == doc["reclaims_total"],
+          f"vtpu_reclaims_total {metric(metrics, 'vtpu_reclaims_total')}, "
+          f"/queuez {doc['reclaims_total']}")
+    check(report["queues"] == doc["queues"],
+          f"vgpu-report's queues {report['queues']}, /queuez {doc}")
+    columns = {r["namespace"]: r for r in report["namespaces"]
+               if "queue" in r}
+    for ns, r in columns.items():
+        q = rows[r["queue"]]
+        check(ns in q["namespaces"] and (r["nominal_chips"], r["held_chips"],
+                                         r["borrowed_chips"])
+              == (q["nominal_chips"], q["held_chips"], q["borrowed_chips"]),
+              f"vgpu-report's row {r}, /queuez {q}")
+    check(not any("default" in q["namespaces"] for q in doc["queues"]),
+          f"a queue governs the default namespace: {doc}")
+    return dict(queuez=doc, rows=rows, report_rows=columns)
+
+
+def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list
+              ) -> dict:
+    """The capacity queues on the card, after V' and before the rescuer's
+    sweeps.  B (team-a, all borrowed) goes through the webhook (queue and
+    held state stamped) and is held by Filter; a tick of the admission
+    loop releases it, Filter and Bind place it, and it runs its loop on
+    the card under Allocate's env (``child_quota_pod``).  Once it runs, E
+    (team-b, entitled to a card; its MiB does not fit beside B's) is
+    admitted and held; the next tick cannot release it (the cohort's one
+    nominal card is B's borrowed one) and reclaims: the eviction request
+    on B, which this process mirrors into B's downward-API file as kubelet
+    does.  B exits 0, its pod is deleted and its grant frees; the next
+    tick releases E, which is placed with its own MiB.  At each step
+    /queuez, /metrics and vgpu-report agree (queue_view)."""
+    from k8s_vgpu_scheduler_tpu_torch.quota.queues import (
+        QUEUE_ANNOTATION, QUEUE_POSITION_ANNOTATION, QUEUE_STATE_ANNOTATION)
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
+        PREEMPT_ANNOTATION
+
+    t_leg = time.monotonic()
+    views, t, out = {}, {}, {}
+    hs = {"B": {}, "E": {}}
+
+    def admit(key: str) -> dict:
+        name, uid, ns = QUOTA_PODS[key]
+        created, hs[key] = admit_pod(plane.base, plane, user_pod(
+            name, uid, QUOTA_MIB, 1, namespace=ns))
+        anns = created["metadata"]["annotations"]
+        check(anns.get(QUEUE_ANNOTATION) == ns
+              and anns.get(QUEUE_STATE_ANNOTATION) == "held",
+              f"{name}: the webhook's queue annotations {anns}")
+        reply, _ = filter_pod(plane.base, created, PLUGIN_NODE)
+        t[f"{key}_held"] = time.monotonic()
+        check(reply["NodeNames"] == [] and reply["Error"].startswith(
+            f"held in capacity queue {ns} (position 1/1"),
+            f"{name}: Filter answered {reply}")
+        hs[key]["hold"] = reply
+        return created
+
+    def tick(key: str) -> list:
+        acts = plane.call("tick")
+        t[key] = time.monotonic()
+        out.setdefault("ticks", []).append(acts)
+        return acts
+
+    def place(key: str) -> dict:
+        name, uid, ns = QUOTA_PODS[key]
+        place_pod(plane.base, plane.get_pod(name, ns), PLUGIN_NODE, hs[key])
+        t[f"{key}_placed"] = time.monotonic()
+        got = plane.call("allocate")
+        pod = dict(key=f"{uid}_{name}", grant_mib=QUOTA_MIB, priority=1,
+                   pod=plane.get_pod(name, ns), handshake=hs[key],
+                   response=got["response"], locked=got["locked"])
+        check(pod["pod"]["metadata"]["annotations"]["vtpu.dev/bind-phase"]
+              == "success" and not pod["locked"],
+              f"{name}: bind phase, lock {pod['locked']}")
+        placed(name, pod, uuid, cores=0)
+        pod["env"] = kubelet_env(pod["pod"], pod["response"], volumes)
+        return pod
+
+    def admits(acts) -> list:
+        return [a["pod"] for a in acts if a["kind"] == "admit"]
+
+    admit("B")
+    views["b_held"] = queue_view(plane)
+    a = views["b_held"]["rows"]["team-a"]
+    check((a["pending"], a["held_chips"], a["admitted_total"])
+          == (1, 0, 0), f"team-a with B held: {a}")
+    check(admits(tick("B_released")) == ["team-a/borrower"],
+          f"the tick after B: {out['ticks'][-1]}")
+    b = place("B")
+    views["b_placed"] = queue_view(plane)
+    a = views["b_placed"]["rows"]["team-a"]
+    check((a["pending"], a["held_chips"], a["borrowed_chips"],
+           a["admitted_total"]) == (0, 1, 1, 1),
+          f"team-a with B placed: {a}")
+    check(views["b_placed"]["report_rows"]["team-a"]["borrowed_chips"] == 1,
+          f"vgpu-report with B placed {views['b_placed']['report_rows']}")
+    grant = dict(b["env"])
+    child = EnforceChild("quota_pod", tmp, label="quota_B",
+                         region=grant.pop("CUDA_DEVICE_MEMORY_SHARED_CACHE"),
+                         **grant)
+    children.append(child)
+
+    def kubelet(line: str) -> None:
+        """On B's first loop: E arrives, is held, and the tick reclaims;
+        B's annotations go into its downward-API file."""
+        if line != "LOOP 1" or "E_held" in t:
+            return
+        admit("E")
+        acts = tick("reclaim")
+        out["reclaim"] = [x for x in acts if x["kind"] == "reclaim"]
+        out["e_blocked"] = not admits(acts)
+        views["reclaim"] = queue_view(plane)
+        out["b_annotations"] = anns = plane.get_pod(
+            QUOTA_PODS["B"][0], "team-a")["metadata"]["annotations"]
+        out["e_position"] = plane.get_pod(
+            QUOTA_PODS["E"][0], "team-b")["metadata"]["annotations"].get(
+                QUEUE_POSITION_ANNOTATION)
+        path = Path(b["env"]["VTPU_PODINFO_ANNOTATIONS"])
+        staged = path.with_name(".annotations")
+        staged.write_text(podinfo_text(anns))
+        os.replace(staged, path)
+        t["mirrored"] = time.monotonic()
+
+    ran = child.run({}, "quota", kubelet)
+    t["B_exit"] = time.monotonic()
+    check("E_held" in t, "B never printed LOOP 1")
+    plane.call("delete", name=QUOTA_PODS["B"][0], namespace="team-a")
+    check(admits(tick("E_released")) == ["team-b/entitled"],
+          f"the tick after B's exit: {out['ticks'][-1]}")
+    views["e_released"] = queue_view(plane)
+    e = place("E")
+    views["e_placed"] = queue_view(plane)
+    requested = plane.call("requested")
+    plane.call("delete", name=QUOTA_PODS["E"][0], namespace="team-b")
+
+    b_uid, e_uid = QUOTA_PODS["B"][1], QUOTA_PODS["E"][1]
+    [recl] = out["reclaim"] or [None]
+    check(recl is not None and out["e_blocked"]
+          and recl["for"] == "team-b/entitled"
+          and [(v["uid"], v["donor_borrowed"]) for v in recl["victims"]]
+          == [(b_uid, 1)], f"the reclaim tick: {out['ticks'][1]}")
+    check(out["b_annotations"].get(PREEMPT_ANNOTATION) == e_uid
+          and requested.get(b_uid, [None])[0] == e_uid,
+          f"B's annotations {out['b_annotations']}, requests {requested}")
+    check(out["e_position"] == "1/1", f"E's position {out['e_position']}")
+    check(ran["requester"] == e_uid and ran["loops"] >= 1,
+          f"B stopped on {ran['requester']} after {ran['loops']} loops")
+    rv = views["reclaim"]["rows"]
+    check(rv["team-b"]["pending"] == 1 and rv["team-a"]["borrowed_chips"] == 1
+          and views["reclaim"]["queuez"]["reclaims_total"] == 1,
+          f"the queues at the reclaim: {rv}")
+    er = views["e_released"]["rows"]
+    check(er["team-a"]["held_chips"] == 0 and er["team-a"][
+        "borrowed_chips"] == 0 and er["team-b"]["admitted_total"] == 1
+          and er["team-b"]["pending"] == 0,
+          f"the queues after B's exit: {er}")
+    ep = views["e_placed"]["rows"]["team-b"]
+    check((ep["held_chips"], ep["borrowed_chips"]) == (1, 0),
+          f"team-b with E placed: {ep}")
+    check(e["env"]["CUDA_DEVICE_MEMORY_LIMIT_0"] == str(QUOTA_MIB),
+          f"E's env {e['env']}")
+    return {
+        "queues": QUOTA_QUEUES, "mib": QUOTA_MIB,
+        "reclaim_grace_s": QUOTA_GRACE_S, "fleet_headroom": QUOTA_HEADROOM,
+        "reclaim": recl, "e_blocked_by": "the release loop (cohort cap)",
+        "b_loops": ran["loops"], "b_interposer": ran["interposer"],
+        "b_hold_to_release_s": t["B_released"] - t["B_held"],
+        "b_release_to_placed_s": t["B_placed"] - t["B_released"],
+        "reclaim_to_b_stop_seen_s": ran["stop_seen_t"] - t["reclaim"],
+        "reclaim_to_b_exit_s": t["B_exit"] - t["reclaim"],
+        "annotation_written_to_mirrored_s":
+            t["mirrored"] - requested[b_uid][1],
+        "b_exit_to_e_placed_s": t["E_placed"] - t["B_exit"],
+        "e_hold_to_release_s": t["E_released"] - t["E_held"],
+        "calls_s": {k: {c: hs[k][f"{c}_s"] for c in ("webhook", "filter",
+                                                     "bind")}
+                    for k in hs},
+        "queuez": {k: v["queuez"] for k, v in views.items()},
+        "seconds": time.monotonic() - t_leg}
+
+
 def phase_preempt(torch, record, vgpu: Path, interposer: Path):
     """Checkpoint-first eviction on the card, planned by the port's
     scheduler.  The control plane (PlaneChild: the extender with
@@ -6261,7 +6611,9 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
     after V' exits the extender's ledger, exporter, /usagez, trace,
     vgpu-report and vgpu-smi top are held to them, and ``vgpu-simulate``
     to the extender's /fleetz and to a 1,024-card fleet
-    (``FleetView.read``).
+    (``FleetView.read``).  Then the capacity queues' leg (``quota_leg``)
+    runs B and E in the governed team-a and team-b, while R, V, H and V'
+    stay in "default": no queue annotation, their flow unchanged.
     Returns the port kernels' launches in R, V, H and V'."""
     from k8s_vgpu_scheduler_tpu_torch.monitor import RegionReader
     from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
@@ -6283,9 +6635,12 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
         (tmp / "containers").mkdir()
         volumes = tmp / "volumes"
         fleet = FleetView(tmp / "containers", vgpu, env)
+        quota_config = tmp / "quota.json"
+        quota_config.write_text(json.dumps({"queues": QUOTA_QUEUES}))
         try:
             plane = PlaneChild({**env, "PLUGIN_DIR": str(tmp),
-                                "USAGE_FROM": fleet.grpc})
+                                "USAGE_FROM": fleet.grpc,
+                                "QUOTA_CONFIG": str(quota_config)})
         except BaseException:
             fleet.stop()
             raise
@@ -6405,6 +6760,7 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
             check(observed["v2_efficiency"] is not None
                   and 0 < observed["v2_efficiency"] <= 1,
                   f"V''s efficiency {observed['v2_efficiency']}")
+            quota = quota_leg(plane, uuid, volumes, tmp, children)
             smi_end = [smi_card_mib()]
             ended = plane.call("end")
             smi_end.append(smi_card_mib())
@@ -6484,6 +6840,12 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
                           "vtpu.dev/bind-phase")),
           f"decision annotations after the rescue {ended['annotations']}")
     check(not ended["torch_loaded"], "the control plane loaded torch")
+    for key, pod in pods.items():
+        queued = {k for k in (*pod["pod"]["metadata"]["annotations"],
+                              *(op["path"] for op in pod["handshake"]["patch"]))
+                  if "queue" in k}
+        check(not queued, f"{key} (ungoverned) got queue annotations "
+              f"{queued}")
     check(max(smi_end) - min(smi_end) <= TOL_RETURN_MIB,
           f"the card's memory moved through the sweeps: {smi_end} MiB")
     saves = [s for run in (ref, victim, resumed) for s in run["io"]["saves"]]
@@ -6520,7 +6882,7 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
         "memory_back_s": back, "victim_region_used": v_used,
         "smi_through_sweeps_mib": smi_end,
         "sweeps": {k: ended[k] for k in ("suspect", "dead")},
-        "losses": ref["losses"], "fleet_view": observed,
+        "losses": ref["losses"], "fleet_view": observed, "quota": quota,
         "peak_allocated_bytes": [run["peak_allocated"]
                                  for run in (ref, victim, resumed)],
         "child_s": {run: record["preempt"][run]["child_s"]

@@ -10,12 +10,16 @@ resource names, plus the topology and node policies, priority preemption, the le
 the card quarantine, the rescue sweep, the informer's knobs, and the
 observability flags: ``--metrics-port`` (the cluster exporter,
 ``scheduler/metrics.py``), ``--score-by-actual``, ``--efficiency-window``
-and ``--idle-grant-grace`` (the usage ledger's join) and ``--debug`` (the
-extender's ``/debug`` endpoints).  Boot order: list the pods and reconcile
-the grants before anything serves (a restarted scheduler that filtered
-against an empty registry would book cards twice), then the watch thread,
-the rescue thread, the register service, the exporter and the HTTP
-extender.  This module is the gRPC edge: the core imports neither grpc nor
+and ``--idle-grant-grace`` (the usage ledger's join), ``--debug`` (the
+extender's ``/debug`` endpoints) and the capacity queues:
+``--quota-config`` (JSON; YAML where PyYAML is installed),
+``--fair-share-usage-informed``, ``--admission-interval``,
+``--queue-reclaim-grace``, ``--queue-fleet-headroom`` and ``--no-reclaim``.
+Boot order: list the pods and reconcile the grants before anything serves
+(a restarted scheduler that filtered against an empty registry would book
+cards twice), then the watch thread, the rescue thread, the admission
+thread (with a quota config), the register service, the exporter and the
+HTTP extender.  This module is the gRPC edge: the core imports neither grpc nor
 protobuf.
 """
 
@@ -116,6 +120,31 @@ def parse_args(argv=None):
                    help="enable the /debug endpoints (stacks, wall-clock "
                         "profile, vars, tracez, events); unauthenticated — "
                         "keep off unless the port is restricted")
+    p.add_argument("--quota-config", default="",
+                   help="path to the capacity-queue config ({'queues': "
+                        "[{'name', 'namespaces', 'cohort', 'weight', "
+                        "'quota': {'chips', 'hbm_mib'}, "
+                        "'borrow_limit_chips', ...}]}), JSON or YAML; "
+                        "empty = the admission layer is off and every "
+                        "namespace bypasses it")
+    p.add_argument("--fair-share-usage-informed", action="store_true",
+                   help="fold measured grant efficiency (the usage ledger) "
+                        "into fair-share weights: chronically idle "
+                        "tenants are demoted toward a floor")
+    p.add_argument("--admission-interval", type=float, default=2.0,
+                   help="capacity-queue admission loop period (seconds)")
+    p.add_argument("--queue-reclaim-grace", type=float, default=15.0,
+                   help="seconds a released pod may sit unplaced before "
+                        "its under-nominal queue reclaims borrowed grants "
+                        "(also the per-queue floor between reclaims)")
+    p.add_argument("--queue-fleet-headroom", type=float, default=1.0,
+                   help="release-throttle multiplier over registered "
+                        "cards; raise above 1.0 on fleets whose split-"
+                        "count sharing packs many grants on a card")
+    p.add_argument("--no-reclaim", action="store_true",
+                   help="never reclaim borrowed grants for starved "
+                        "in-quota tenants (fair-share ordering and "
+                        "borrowing stay on)")
     p.add_argument("--resync-seconds", type=float, default=None,
                    help="full re-list period; default 300 with the watch, "
                         "30 without")
@@ -151,7 +180,47 @@ def build_config(args) -> Config:
         score_by_actual=args.score_by_actual,
         efficiency_window_s=args.efficiency_window,
         idle_grant_grace_s=args.idle_grant_grace,
-        enable_debug=args.debug)
+        enable_debug=args.debug,
+        quota_queues=load_quota_config(args.quota_config),
+        fair_share_usage_informed=args.fair_share_usage_informed,
+        admission_interval_s=args.admission_interval,
+        queue_reclaim_grace_s=args.queue_reclaim_grace,
+        queue_fleet_headroom=args.queue_fleet_headroom,
+        enable_reclaim=not args.no_reclaim)
+
+
+def load_quota_config(path: str) -> tuple:
+    """The --quota-config file -> ``Config.quota_queues``.  JSON first;
+    YAML (the chart renders ``quota.yaml``) only where PyYAML is
+    installed, else an error that names the file.  Checked at boot
+    (``parse_quota_config`` raises on a duplicate queue or a namespace two
+    queues govern): a bad quota must not come up half-governing."""
+    if not path:
+        return ()
+    import json
+
+    from ..quota.queues import parse_quota_config
+
+    with open(path) as f:
+        text = f.read()
+    try:
+        doc = json.loads(text) if text.strip() else None
+    except json.JSONDecodeError:
+        try:
+            import yaml
+        except ImportError:
+            raise ValueError(
+                f"--quota-config {path}: not JSON, and PyYAML is not "
+                "installed to read it as YAML") from None
+        doc = yaml.safe_load(text)
+    if doc is None:
+        return ()  # an empty or comments-only file: quota off
+    if not isinstance(doc, dict):
+        raise ValueError(
+            f"--quota-config {path}: expected a mapping with a "
+            f"'queues' list, got {type(doc).__name__}")
+    parse_quota_config(doc)  # raise early on a bad config
+    return tuple(doc.get("queues", ()))
 
 
 def resolve_watch_and_resync(no_watch: bool, client, resync_seconds):
@@ -235,6 +304,9 @@ def main(argv=None):
                          name="pod-watch", daemon=True).start()
     if scheduler.cfg.enable_rescue:
         scheduler.rescuer.start()
+    # After the boot reconcile, so held and admitted pods are known; a
+    # no-op without a quota config.
+    scheduler.admission.start()
     grpc_server = start_register_service(scheduler, args.grpc_bind)
     metrics_server = start_metrics_server(scheduler, args.metrics_port)
     host, _, port = args.http_bind.rpartition(":")
@@ -261,6 +333,7 @@ def main(argv=None):
     finally:
         stop.set()
         scheduler.rescuer.stop()
+        scheduler.admission.stop()
         http_server.stop()
         metrics_server.stop()
         grpc_server.stop(grace=2)

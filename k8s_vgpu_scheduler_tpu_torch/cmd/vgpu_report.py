@@ -7,13 +7,15 @@ byte-seconds actually used per namespace, granted GPU-seconds for the same
 window, the efficiency ratio and idle-grant counts; ``--pods`` adds a row
 a pod.  JSON for pipelines, CSV for spreadsheets, text for people.
 
-The JAX report also joins ``/queuez`` (capacity queues), ``/capacityz``,
-``/auditz``, ``/sloz`` and ``/explainz``; the port's extender serves none
-of them until ROADMAP A.5, and the report degrades exactly as the JAX
-report does where they are absent (no quota columns, no capacity section,
-the audit and slo lines as '-', no pending reasons).  ``--explain``
-renders decision provenance, which is A.5's: it exits 2 and says so.
-Standard library only.
+``GET /queuez`` (the capacity queues) is joined in: each governed
+namespace's row gets its queue, nominal, held and borrowed cards, and the
+text adds the queue table and the pending pods.  The JAX report also joins
+``/capacityz``, ``/auditz``, ``/sloz`` and ``/explainz``; the port's
+extender serves none of them until ROADMAP A.5, and the report degrades
+exactly as the JAX report does where they are absent (no capacity
+section, the audit and slo lines as '-', every pending pod's reason '-').
+``--explain`` renders decision provenance, which is A.5's: it exits 2 and
+says so.  Standard library only.
 
 Usage:
   vgpu-report --cluster http://sched:9443 [--window 3600] [--pods]

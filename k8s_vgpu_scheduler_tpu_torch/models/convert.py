@@ -89,6 +89,24 @@ def from_flax(params, cfg: LlamaConfig, device="cuda") -> Llama:
     return model
 
 
+def early_exit_draft(model: Llama, n_layers: int) -> Llama:
+    """A draft for speculative decoding that is the target's first
+    ``n_layers`` layers: the target's embedding, those blocks, its final
+    norm and its head, the same tensors on the same device (nothing is
+    copied).  bench.py builds its draft so in JAX: every draft leaf whose
+    path and shape exist in the target takes the target's weights."""
+    if not 0 < n_layers <= model.cfg.n_layers:
+        raise ValueError(f"n_layers={n_layers}: 1..{model.cfg.n_layers}")
+    draft = Llama.__new__(Llama)
+    torch.nn.Module.__init__(draft)
+    draft.cfg = dataclasses.replace(model.cfg, n_layers=n_layers)
+    draft.embed = model.embed
+    draft.layers = torch.nn.ModuleList(list(model.layers)[:n_layers])
+    draft.final_norm = model.final_norm
+    draft.lm_head = model.lm_head
+    return draft
+
+
 @torch.no_grad()
 def quantize_model(model: Llama, bits: int, device="cuda") -> Llama:
     """Quantize a full-precision Llama in place and move it to ``device``

@@ -9,6 +9,10 @@ Sampling: greedy (temperature 0) or temperature sampling with optional
 top-k / top-p truncation, drawn from a ``torch.Generator`` (not the
 numbers ``jax.random`` draws).  Ragged batches: LEFT-pad prompts and pass
 ``prompt_lens``.
+
+:func:`speculative_generate` is the JAX package's greedy speculative
+decoding: a draft model proposes k tokens, one target forward verifies
+them.
 """
 
 from __future__ import annotations
@@ -110,3 +114,83 @@ def generate(model: Llama, prompt: torch.Tensor, max_new_tokens: int,
         tok = _sample(logits[:, -1], temperature, generator, top_k, top_p)
         out.append(tok)
     return torch.cat([prompt, torch.stack(out, dim=1)], dim=1)
+
+
+def _rewind(cache, n_ctx: int) -> None:
+    """Set every layer's append index to ``n_ctx`` (the JAX
+    ``_set_cache_idx``).  Slots past it keep the keys of rejected tokens:
+    their positions lie above every query that reads the cache before they
+    are written again, so the mask ``key_pos <= q_pos`` hides them."""
+    for layer in cache:
+        layer.idx = n_ctx
+
+
+@torch.inference_mode()
+def speculative_generate(model: Llama, draft: Llama, prompt: torch.Tensor,
+                         max_new_tokens: int, k: int = 4):
+    """Greedy speculative decoding of one sequence (B = 1).
+
+    The draft proposes ``k`` tokens one at a time; the target verifies all
+    of them in ONE forward over k + 1 positions and keeps the longest
+    agreeing prefix plus its own next token, so each target forward emits
+    between 1 and k + 1 tokens.  Greedy acceptance makes the output the
+    tokens of greedy :func:`generate` whatever the draft, up to argmax
+    near-ties that the 1-token and the (k + 1)-token forwards may break
+    differently in low precision.
+
+    Returns ``(tokens [1, P + max_new_tokens], stats)``; ``stats`` holds
+    ``target_forwards`` (the prefill excluded), ``drafted`` and
+    ``accepted`` as ints.  The round loop is a Python ``while`` where the
+    JAX function has ``lax.while_loop``, and it reads the accepted count
+    back once a round.  The port has no ``jit_generate``, so JAX's
+    ``jit_speculative_generate`` has no counterpart here.
+    """
+    dev = model.device
+    prompt = prompt.to(dev).long()
+    B, P = prompt.shape
+    if B != 1:
+        raise ValueError("speculative decoding serves one sequence (B=1); "
+                         "batch serving uses generate()")
+    if draft.device != dev:
+        raise ValueError(f"the draft is on {draft.device}, the target on "
+                         f"{dev}")
+    stats = {"target_forwards": 0, "drafted": 0, "accepted": 0}
+    if max_new_tokens <= 0:
+        return prompt, stats
+    total = P + max_new_tokens + k + 1  # verify-overshoot slack
+    # B = 1, no padding: slot == logical position, so one constant map
+    # serves every round.
+    key_pos = torch.arange(total, device=dev)[None]
+    tcache = model.new_cache(1, total)
+    dcache = draft.new_cache(1, total)
+    logits = model(prompt, key_pos[:, :P], key_pos, cache=tcache)
+    draft(prompt, key_pos[:, :P], key_pos, cache=dcache)
+    pending = torch.argmax(logits[:, -1], dim=-1, keepdim=True)  # [1, 1]
+    out = [pending]
+    n_out, n_ctx = 1, P
+    while n_out < max_new_tokens:
+        # 1) k draft tokens from the pending (emitted, not yet cached) one.
+        _rewind(dcache, n_ctx)
+        tok, drafts = pending, []
+        for j in range(k):
+            lg = draft(tok, key_pos[:, n_ctx + j:n_ctx + j + 1], key_pos,
+                       cache=dcache)
+            tok = torch.argmax(lg[:, -1], dim=-1, keepdim=True)
+            drafts.append(tok)
+        drafts = torch.cat(drafts, dim=1)                       # [1, k]
+        # 2) One target forward over pending + the k drafts.
+        _rewind(tcache, n_ctx)
+        lg = model(torch.cat([pending, drafts], dim=1),
+                   key_pos[:, n_ctx:n_ctx + k + 1], key_pos, cache=tcache)
+        tpred = torch.argmax(lg[0], dim=-1)                     # [k + 1]
+        # 3) The longest agreeing prefix, then the target's own token.
+        m = int(torch.cumprod((drafts[0] == tpred[:k]).long(), 0).sum())
+        out.extend([drafts[:, :m], tpred[m:m + 1][None]])
+        pending = tpred[m:m + 1][None]
+        n_out += m + 1
+        n_ctx += m + 1
+        stats["target_forwards"] += 1
+        stats["accepted"] += m
+    stats["drafted"] = stats["target_forwards"] * k
+    new = torch.cat(out, dim=1)[:, :max_new_tokens]
+    return torch.cat([prompt, new], dim=1), stats

@@ -16,7 +16,11 @@ Filter gates on, the card quarantine stripped from every usage, the
 rescuer) and priority preemption (``preempt.py``): with
 ``Config.enable_preemption``, a pod that fits nowhere asks strictly
 lower-priority pods to checkpoint and leave, and the requests are kept,
-rescinded and rebuilt from the annotations as in the JAX scheduler.  Each
+rescinded and rebuilt from the annotations as in the JAX scheduler.  With
+``Config.quota_queues`` the capacity queues (``quota/``) gate Filter: a
+pod of a governed namespace is held until the admission loop releases it
+in fair-share order, and a starved in-quota queue reclaims borrowed grants
+through the same eviction requests.  Each
 register-stream message's usage counters go into the usage ledger
 (``accounting/ledger.py``), which the granted-vs-actual join
 (``grant_efficiency``, ``export_usage`` behind ``/usagez``), the
@@ -57,6 +61,8 @@ from ..k8s.client import (
     pod_qos,
     pod_uid,
 )
+from ..quota.admission import AdmissionConfig, AdmissionLoop
+from ..quota.queues import QuotaManager
 from ..tpulib.types import TopologyDesc
 from ..util import codec, trace
 from ..util.config import Config
@@ -158,6 +164,19 @@ class Scheduler:
                 interval_s=self.cfg.rescue_interval_s,
                 checkpoint_grace_s=self.cfg.rescue_checkpoint_grace_s,
                 lease_retention_s=self.cfg.lease_retention_s),
+            clock=clock)
+        # Capacity queues: inert (every namespace passes) without a quota
+        # config.  vgpu-scheduler starts the admission thread; embedders
+        # and tests call admission.tick() themselves.
+        self.quota = QuotaManager(self.cfg.quota_queues, clock=clock)
+        self.admission = AdmissionLoop(
+            self,
+            AdmissionConfig(
+                interval_s=self.cfg.admission_interval_s,
+                reclaim_grace_s=self.cfg.queue_reclaim_grace_s,
+                usage_informed=self.cfg.fair_share_usage_informed,
+                reclaim=self.cfg.enable_reclaim,
+                fleet_headroom=self.cfg.queue_fleet_headroom),
             clock=clock)
         # Held for a whole decision: candidate evaluation and the
         # tentative grant, never across apiserver I/O.
@@ -263,6 +282,12 @@ class Scheduler:
         uid = pod_uid(pod)
         if not uid:
             return
+        if self.quota.enabled:
+            # Deletes and placements leave the queues; after a restart the
+            # held and admitted pods are learned from their annotations.
+            self.quota.observe_pod(
+                event, pod,
+                requests_fn=lambda p: container_requests(p, self.cfg))
         anns = pod.get("metadata", {}).get("annotations", {}) or {}
         node = anns.get(ASSIGNED_NODE_ANNOTATION, "")
         phase = anns.get(BIND_PHASE_ANNOTATION, "")
@@ -465,6 +490,19 @@ class Scheduler:
                                 self.efficiency_cfg,
                                 now=self._clock(), window_s=window_s)
 
+    def export_queues(self) -> dict:
+        """Capacity-queue state (``GET /queuez``): each queue's quota,
+        held and borrowed cards, fair share and pending pods with their
+        positions, and the fair-share order; off the decision lock."""
+        stats = self.quota.stats(self.pods.list_pods())
+        stats["fair_share_order"] = [
+            name for _s, name in sorted(
+                (row["fair_share"], row["queue"])
+                for row in stats["queues"])
+        ]
+        stats["enabled"] = self.quota.enabled
+        return stats
+
     def known_topologies(self) -> List[TopologyDesc]:
         """The distinct fabrics registered in the fleet, one per shape and
         wraparound: the webhook's mesh-feasibility check reads them.  A
@@ -565,6 +603,10 @@ class Scheduler:
                 tr.event(uid, "filter-rejected", trace_id=tid,
                          pod=pod_name(pod), error=result.error,
                          preempting=result.preempt is not None)
+            if result.failed:
+                # A released governed pod that found no seat: the reclaim
+                # trigger's signal (borrowers may hold its cards).
+                self.quota.note_unplaced(uid)
             if result.preempt is not None:
                 self._request_preemptions(pod, result.preempt)
             return result
@@ -595,6 +637,11 @@ class Scheduler:
             if anns.get(key):
                 return FilterResult(
                     error=f"{key} is not placed by this scheduler: {why}")
+        # The capacity-queue gate, before any fit: a governed pod stays
+        # held until the admission loop releases it.
+        hold = self.quota.gate(pod, requests)
+        if hold is not None:
+            return FilterResult(error=hold)
         with self._lock:
             result = self._decide_locked(pod, requests, node_names, anns)
         if result.node is None and result.error == NO_FIT:

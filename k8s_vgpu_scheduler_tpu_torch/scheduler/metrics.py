@@ -10,8 +10,9 @@ port's text (``util/exposition.py`` writes it; no ``prometheus_client``).
 Families whose source the port has carry values: grants per card and per
 pod, ``node_tpu_memory_percentage``, preemption requests, leases,
 quarantine, rescue, usage and efficiency from the ledger, idle grants,
-slice availability and the largest free box, QoS wait and weights, and
-the phase latency and rejections from the tracer.  Families whose
+the capacity queues (pending, admitted, fair share, borrowed cards,
+reclaims), slice availability and the largest free box, QoS wait and
+weights, and the phase latency and rejections from the tracer.  Families whose
 subsystem waits for ROADMAP A.5 are emitted as the JAX collector emits
 them with that subsystem off, zero-valued or empty, so no series a
 dashboard names ever vanishes: see :data:`A5_FAMILIES`.  Standard library
@@ -56,11 +57,6 @@ A5_FAMILIES = {
     "vtpu_solve_workers": "multicore solve workers",
     "vtpu_solve_worker_restarts": "multicore solve workers",
     "vtpu_solve_worker_eval_seconds": "multicore solve workers",
-    "vtpu_queue_pending": "capacity queues (quota)",
-    "vtpu_queue_admitted": "capacity queues (quota)",
-    "vtpu_queue_fair_share": "capacity queues (quota)",
-    "vtpu_borrowed_chips": "capacity queues (quota)",
-    "vtpu_reclaims": "capacity queues (quota)",
     "vtpu_reserved_chips": "slice reservations",
     "vtpu_defrag_plans": "defragmenter",
     "vtpu_defrag_migrations": "defragmenter",
@@ -311,7 +307,8 @@ class ClusterCollector:
             "grace — capacity held but unused (see /usagez and "
             "vtpu-report for the per-pod list)",
         )
-        # Capacity queues (A.5): empty, and the reclaim counter at 0.
+        # Capacity queues, from one stats snapshot (empty, and the reclaim
+        # counter at 0, without a quota config).
         q_pending = GaugeMetricFamily(
             "vtpu_queue_pending",
             "Pods held in one capacity queue awaiting fair-share "
@@ -344,7 +341,21 @@ class ClusterCollector:
             "Reclaim plans issued for starved in-quota tenants (each "
             "one checkpoint-evicts borrowed grants)",
         )
-        q_reclaims.add_metric([], 0)
+        # getattr: a collector stub without the quota surface reads as
+        # quota off, as in the JAX collector.
+        quota = getattr(self.scheduler, "quota", None)
+        if quota is not None and quota.enabled:
+            stats = quota.stats(self.scheduler.pods.list_pods())
+            for row in stats["queues"]:
+                q_pending.add_metric([row["queue"]], row["pending"])
+                q_admitted.add_metric([row["queue"]],
+                                      row["admitted_total"])
+                q_share.add_metric([row["queue"]], row["fair_share"])
+                q_borrowed.add_metric([row["queue"]],
+                                      row["borrowed_chips"])
+            q_reclaims.add_metric([], stats["reclaims_total"])
+        else:
+            q_reclaims.add_metric([], 0)
 
         # Placement: slice availability and the largest free box from
         # each node's whole free cards; reservations and the

@@ -81,3 +81,13 @@ class NodeManager:
     def list_nodes(self) -> Dict[str, NodeInfo]:
         with self._lock:
             return dict(self._nodes)
+
+    def count(self) -> int:
+        with self._lock:
+            return len(self._nodes)
+
+    def total_chips(self) -> int:
+        """Cards registered fleet-wide: the quota release throttle's
+        denominator."""
+        with self._lock:
+            return sum(len(n.devices) for n in self._nodes.values())

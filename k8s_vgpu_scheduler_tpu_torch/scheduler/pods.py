@@ -11,7 +11,7 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterable, List, Optional, Set, Tuple
 
 from ..util.types import PodDevices
 
@@ -78,3 +78,20 @@ class PodManager:
     def pods_on_node(self, node: str) -> List[PodInfo]:
         with self._lock:
             return [p for p in self._pods.values() if p.node == node]
+
+    def ns_usage_snapshot(self, uids: Iterable[str]
+                          ) -> Tuple[Dict[str, Tuple[int, int]], Set[str]]:
+        """Per-namespace (cards, MiB) of the granted pods, and which of
+        ``uids`` hold a grant, read under one lock hold: the quota tick
+        needs both of the same instant (a grant recorded between two reads
+        would count in neither)."""
+        out: Dict[str, List[int]] = {}
+        with self._lock:
+            for p in self._pods.values():
+                row = out.setdefault(p.namespace, [0, 0])
+                for container in p.devices:
+                    for d in container:
+                        row[0] += 1
+                        row[1] += d.usedmem
+            granted = {u for u in uids if u in self._pods}
+        return {ns: (c, m) for ns, (c, m) in out.items() if c or m}, granted

@@ -14,6 +14,9 @@ Reference: pkg/scheduler/routes/route.go (PredicateRoute 41–77, Bind
 - ``GET  /fleetz``  the fleet snapshot (inventory, fabric, live grants and
                     the placement policies) for ``vgpu-simulate
                     --from-cluster``; an export error answers 500
+- ``GET  /queuez``  the capacity queues: quota, held and borrowed cards,
+                    fair shares, pending pods with their positions (an
+                    export error answers 500)
 - ``GET  /usagez``  per-namespace showback over a trailing window
                     (``?window=<seconds>``, a positive finite number, else
                     400; an export error answers 500) for ``vgpu-report``
@@ -21,8 +24,8 @@ Reference: pkg/scheduler/routes/route.go (PredicateRoute 41–77, Bind
                     (``util/debugz.py``), with ``Config.enable_debug``
 
 ``/metrics`` is served on its own port (``scheduler/metrics.py``, as the
-JAX daemon does).  The JAX package's other export endpoints (``/queuez``,
-``/capacityz``, ``/auditz``, ``/sloz``, ``/explainz``, ``/perfz``) wait
+JAX daemon does).  The JAX package's other export endpoints
+(``/capacityz``, ``/auditz``, ``/sloz``, ``/explainz``, ``/perfz``) wait
 for ROADMAP A.5; ``vgpu-report`` degrades without them.
 """
 
@@ -101,11 +104,13 @@ class _Handler(BaseHTTPRequestHandler):
         parts = urlsplit(self.path)
         if self.path == "/healthz":
             self._reply(200, {"ok": True})
-        elif self.path == "/fleetz":
+        elif self.path in ("/fleetz", "/queuez"):
+            export = (self.scheduler.export_fleet if self.path == "/fleetz"
+                      else self.scheduler.export_queues)
             try:
-                self._reply(200, self.scheduler.export_fleet())
+                self._reply(200, export())
             except Exception as e:  # noqa: BLE001 — a 500, not a hangup
-                log.exception("fleetz export failed")
+                log.exception("%s export failed", self.path)
                 self._reply(500, {"error": f"{type(e).__name__}: {e}"})
         elif parts.path == "/usagez":
             query = dict(parse_qsl(parts.query))

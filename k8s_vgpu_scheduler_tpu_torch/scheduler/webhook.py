@@ -12,15 +12,18 @@ Reference: pkg/scheduler/webhook.go:170–247.  On pod CREATE:
   phase (Filter, Bind, Allocate) stamps its spans with;
 - a card-using container that opted into low priority (>= 1) also gets the
   downward-API annotations volume, its mount and ``VTPU_PODINFO_ANNOTATIONS``,
-  so the in-container ``PreemptionWatch`` finds the file.
+  so the in-container ``PreemptionWatch`` finds the file;
+- a pod that asks for cards in a namespace a capacity queue governs
+  (``Config.quota_queues``) is held at creation: ``vtpu.dev/queue`` and
+  ``vtpu.dev/queue-state: held``, which Filter refuses until the admission
+  loop releases it.  A pod that already carries a queue state keeps it.
 
 A pod is refused with a 422 where its ``vtpu.dev/mesh`` could never place
 (the JAX package's messages: the shape parses, its volume is the pod's
 card count, its local mesh fits a fabric registered in the fleet), where
 it declares an elastic mesh range (``vtpu.dev/mesh-min``/``-max``, placed
 by the elastic slice, ROADMAP A.5), or where its ``vtpu.dev/qos`` class is
-unknown.  The JAX package's capacity-queue gate waits for the port's
-quota slice.  AdmissionReview v1 in, a JSONPatch out.
+unknown.  AdmissionReview v1 in, a JSONPatch out.
 """
 
 from __future__ import annotations
@@ -35,6 +38,8 @@ from ..util import trace
 from ..util.config import Config
 from ..util.resources import container_requests
 from ..placement.mesh import validate_mesh
+from ..quota.queues import (QUEUE_ANNOTATION, QUEUE_STATE_ANNOTATION,
+                            STATE_HELD, queue_for_namespace)
 from ..util.types import (
     ENV_TASK_PRIORITY,
     MESH_ANNOTATION,
@@ -66,9 +71,12 @@ def _append(patches: List[dict], path: str, exists: bool, entry) -> None:
 
 
 def mutate_pod(pod: dict, cfg: Config, trace_id: str = "",
-               info: Optional[dict] = None) -> List[dict]:
+               info: Optional[dict] = None,
+               namespace: str = "") -> List[dict]:
     """The JSONPatch ops for one pod (empty: no mutation).  ``info``, when
-    given, receives ``wants_gpu``: whether the pod asks for cards."""
+    given, receives ``wants_gpu``: whether the pod asks for cards.
+    ``namespace`` is the AdmissionReview's (a pod CREATE often omits
+    ``metadata.namespace``): the capacity queues' governance key."""
     containers = pod.get("spec", {}).get("containers", [])
     if any(_is_privileged(c) for c in containers):
         log.info("pod %s has a privileged container; not mutated",
@@ -114,18 +122,34 @@ def mutate_pod(pod: dict, cfg: Config, trace_id: str = "",
         patches.append({"op": "add", "path": "/spec/schedulerName",
                         "value": cfg.scheduler_name})
     anns = pod.get("metadata", {}).get("annotations")
+    new_anns: dict = {}
     if trace_id and (anns is None or trace.TRACE_ID_ANNOTATION not in anns):
-        if anns is None:
-            patches.append({"op": "add", "path": "/metadata/annotations",
-                            "value": {trace.TRACE_ID_ANNOTATION: trace_id}})
-        else:
+        new_anns[trace.TRACE_ID_ANNOTATION] = trace_id
+    q = _governing_queue(cfg, namespace or pod.get("metadata", {}).get(
+        "namespace", "default"))
+    if q is not None and (anns is None or QUEUE_STATE_ANNOTATION not in anns):
+        new_anns[QUEUE_ANNOTATION] = q
+        new_anns[QUEUE_STATE_ANNOTATION] = STATE_HELD
+    if new_anns and anns is None:
+        patches.append({"op": "add", "path": "/metadata/annotations",
+                        "value": new_anns})
+    else:
+        for k, v in new_anns.items():
             # The '/' of the key, escaped for the JSON pointer.
-            key = trace.TRACE_ID_ANNOTATION.replace("~", "~0").replace(
-                "/", "~1")
+            key = k.replace("~", "~0").replace("/", "~1")
             patches.append({"op": "add",
                             "path": f"/metadata/annotations/{key}",
-                            "value": trace_id})
+                            "value": v})
     return patches
+
+
+def _governing_queue(cfg: Config, namespace: str) -> Optional[str]:
+    """The name of the capacity queue governing ``namespace`` (None:
+    ungoverned, or no quota config)."""
+    if not cfg.quota_queues:
+        return None
+    q = queue_for_namespace(cfg.quota_queues, namespace)
+    return q.name if q is not None else None
 
 
 def _podinfo_patches(pod: dict, container_idxs: List[int],
@@ -240,7 +264,8 @@ def handle_admission_review(body: dict, cfg: Config,
         trace_id = trace.trace_id_of(pod) or trace.new_trace_id()
         info: dict = {}
         sp = trace.Span("webhook", trace_id)
-        patches = mutate_pod(pod, cfg, trace_id=trace_id, info=info)
+        patches = mutate_pod(pod, cfg, trace_id=trace_id, info=info,
+                             namespace=req.get("namespace", ""))
         if info.get("wants_gpu"):
             meta = pod.get("metadata", {})
             sp.set("pod", meta.get("name", "?"))

@@ -81,6 +81,19 @@ class Config:
     # Candidate selection adds a bounded bonus (at most one card's worth
     # of the spread score) for nodes whose MEASURED utilization is low.
     score_by_actual: bool = False
+    # Capacity queues (quota/): the --quota-config file's "queues" list as
+    # a tuple of dicts (empty: the admission layer is off and every
+    # namespace bypasses it), the admission loop's period, how long a
+    # released pod may sit unplaced before its under-nominal queue
+    # reclaims borrowed grants, reclaim on or off (--no-reclaim), the
+    # release throttle's multiplier over registered cards, and whether
+    # measured grant efficiency demotes idle tenants' weights.
+    quota_queues: tuple = ()
+    admission_interval_s: float = 2.0
+    queue_reclaim_grace_s: float = 15.0
+    enable_reclaim: bool = True
+    queue_fleet_headroom: float = 1.0
+    fair_share_usage_informed: bool = False
     # The extender's /debug endpoints (stacks, profile, vars, tracez,
     # events); unauthenticated, so off unless asked for.
     enable_debug: bool = False

@@ -182,6 +182,57 @@ def test_each_daemon_argv_parses_under_its_own_parse_args(rendered, name):
             .usage_from.rpartition(":")[2])
 
 
+QUOTA = {"queues": [{"name": "team-a", "namespaces": ["team-a"],
+                     "cohort": "research", "weight": 3,
+                     "quota": {"chips": 6}, "borrow_limit_chips": 2},
+                    {"name": "team-b", "namespaces": ["team-b"],
+                     "cohort": "research", "quota": {"chips": 2}}],
+         "usageInformedFairShare": True}
+
+
+def test_the_quota_values_render_into_the_extender(tmp_path):
+    """The JAX chart's quota values: the config map's quota.yaml, mounted
+    at /config, is what the extender's --quota-config loads, and its argv
+    parses into the port's Config."""
+    import jsonschema
+
+    vals = values()
+    vals["scheduler"]["quota"] = QUOTA
+    jsonschema.validate(vals, schema())
+    out = render({"scheduler": {"quota": QUOTA}})
+    ext = containers(out)["vgpu-extender"]
+    argv = [str(a) for a in ext["command"][3:]]
+    assert "--quota-config=/config/quota.yaml" in argv
+    assert "--fair-share-usage-informed" in argv
+    assert {"name": "scheduler-config", "mountPath": "/config"} in \
+        ext["volumeMounts"]
+    cm = [d for _, d in docs(out) if d["kind"] == "ConfigMap"
+          and "config.yaml" in d["data"]][0]
+    (tmp_path / "quota.yaml").write_text(cm["data"]["quota.yaml"])
+    argv = [a.replace("/config/", f"{tmp_path}/") for a in argv]
+    cfg = scheduler.build_config(scheduler.parse_args(argv))
+    assert cfg.quota_queues == tuple(QUOTA["queues"])
+    assert cfg.fair_share_usage_informed
+    base = containers(render())["vgpu-extender"]
+    assert not any("quota" in str(a) for a in base["command"])
+    assert all(m["name"] != "scheduler-config" for m in base["volumeMounts"])
+
+
+@pytest.mark.parametrize("bad", [
+    {"queues": [{"name": "a"}]},
+    {"queues": [{"name": "a", "namespaces": [], "weight": 0}]},
+    {"queues": [{"name": "a", "namespaces": [], "quota": {"gpus": 1}}]},
+    {"queues": [], "backfill": False},
+], ids=["no_namespaces", "zero_weight", "unknown_quota_key", "unknown_key"])
+def test_the_schema_refuses_bad_quota_values(bad):
+    import jsonschema
+
+    broken = values()
+    broken["scheduler"]["quota"] = bad
+    with pytest.raises(jsonschema.ValidationError):
+        jsonschema.validate(broken, schema())
+
+
 @pytest.mark.parametrize("values_override", [
     {"scheduler": {"enablePreemption": True, "scoreByActual": True,
                    "topologyPolicy": "guaranteed"}},
@@ -338,7 +389,7 @@ def test_every_object_of_the_schema_refuses_unknown_keys():
 
 
 #: Values of the JAX chart whose subsystems wait for ROADMAP A.5.
-A5_VALUES = [("scheduler", "quota", {"queues": []}),
+A5_VALUES = [("scheduler", "defragCheckpointGrace", 120),
              ("scheduler", "slo", {"objectives": []}),
              ("scheduler", "filterBatch", True),
              ("scheduler", "batchTickMs", 2),
@@ -488,7 +539,7 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
             if not a5(t["expr"] for t in p["targets"])]
     assert [[t["expr"] for t in p["targets"]]
             for p in ours["panels"]] == want
-    assert len(want) == 27 and ours["uid"] == "vgpu-overview"
+    assert len(want) == 32 and ours["uid"] == "vgpu-overview"
     for p in ours["panels"]:
         assert "TPU" not in p["title"] + p.get("description", "")
     alerts = yaml.safe_load((CHART / "dashboards" / "vgpu-alerts.yaml")
@@ -503,7 +554,7 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
     assert [r["expr"] for r in ours_rules] == [
         r["expr"].replace('job="vtpu-monitor"', 'job="vgpu-monitor"')
         for r in want_rules]
-    assert len(ours_rules) == 15
+    assert len(ours_rules) == 16
     for r in ours_rules:
         assert r["annotations"]["summary"]
         assert "TPU" not in r["annotations"]["summary"]

@@ -429,9 +429,6 @@ A5_ITEMS = {
     "multicore solve workers": ["vtpu_solve_workers",
                                 "vtpu_solve_worker_restarts",
                                 "vtpu_solve_worker_eval_seconds"],
-    "capacity queues (quota)": ["vtpu_queue_pending", "vtpu_queue_admitted",
-                                "vtpu_queue_fair_share",
-                                "vtpu_borrowed_chips", "vtpu_reclaims"],
     "slice reservations": ["vtpu_reserved_chips"],
     "defragmenter": ["vtpu_defrag_plans", "vtpu_defrag_migrations",
                      "vtpu_defrag_completed", "vtpu_defrag_aborted"],

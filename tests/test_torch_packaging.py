@@ -66,6 +66,14 @@ def test_the_build_stage_runs_the_kernels_main_and_nothing_else():
     assert len(runs) == 2
 
 
+def test_the_runtime_stage_can_read_the_charts_quota_yaml():
+    """The chart renders the capacity queues as YAML: the runtime stage
+    installs PyYAML beside grpcio and protobuf."""
+    _, run = stages()[1]
+    installs = " ".join(i for i in run if i.startswith("RUN "))
+    assert re.search(r"\bgrpcio protobuf pyyaml\b", installs)
+
+
 def test_the_runtime_stage_carries_the_built_package_and_no_toolchain():
     _, run = stages()[1]
     assert ("COPY --from=build /src/k8s_vgpu_scheduler_tpu_torch "

@@ -8,10 +8,9 @@ expectations (``PKGS``).  The port's webhook, Filter and Bind run on its
 own GPU pods; the JAX shim's ``publish_trace_id`` has no counterpart to
 mirror (the port's Allocate drops the id next to the region, pinned in
 ``tests/test_torch_deviceplugin.py``).  Of the JAX extender's debug and
-export endpoints the port serves ``/usagez``, ``/fleetz`` and
-``/debug/*``; the rest (``/perfz``, ``/capacityz``, ``/queuez``,
-``/auditz``, ``/explainz``, ``/sloz``) wait for ROADMAP A.5 and answer a
-JSON 404."""
+export endpoints the port serves ``/usagez``, ``/fleetz``, ``/queuez``
+and ``/debug/*``; the rest (``/perfz``, ``/capacityz``, ``/auditz``,
+``/explainz``, ``/sloz``) wait for ROADMAP A.5 and answer a JSON 404."""
 
 import json
 import urllib.error
@@ -448,6 +447,7 @@ ENDPOINTS = [
     ("debug-vars", "/debug/vars", {200}, None),
     ("debug-tracez", "/debug/tracez?format=json", {200}, None),
     ("fleetz", "/fleetz", {200}, None),
+    ("queuez", "/queuez", {200}, None),
 ]
 
 
@@ -472,8 +472,8 @@ def test_bad_params_return_400_json(server, name, good, statuses, bad):
     json.dumps(doc, allow_nan=False)
 
 
-@pytest.mark.parametrize("path", ["/perfz", "/capacityz", "/queuez",
-                                  "/auditz", "/explainz?pod=a/b", "/sloz"])
+@pytest.mark.parametrize("path", ["/perfz", "/capacityz", "/auditz",
+                                  "/explainz?pod=a/b", "/sloz"])
 def test_a5_endpoints_answer_a_json_404(server, path):
     base, _ = server
     code, body = _get(base, path)
