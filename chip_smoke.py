@@ -296,9 +296,10 @@ CORES_SOLO_S = 3.0     # T alone before S's first launch (F1's window)
 CORES_BURST_S = 10.0   # waves back to back
 CORES_IDLE_S = 8.0     # S idle between its two bursts
 CORES_TAIL_S = 4.0     # T alone after S's last launch
-CORES_TIERED_S = 20.0  # S's waves in the tiered leg
-CORES_ALONE_S = 8.0    # S's waves alone, in each of 2 pairs without and
-#                        with the interposer, in turn
+CORES_TIERED_S = 16.0  # S's waves in the tiered leg (20 before PR 19)
+CORES_ALONE_S = 4.0    # S's waves alone, in each of 2 pairs without and
+#                        with the interposer, in turn (8 before PR 19:
+#                        the cut that pays for the gang leg)
 ALONE = tuple(f"uidA{i}_serve" for i in range(4))  # odd: preloaded
 # The device-plugin phase (phase_device_plugin): the port's node agent in a
 # child that never imports torch (--enforce-child node_agent) lists the
@@ -471,7 +472,8 @@ PREEMPT_STEPS = 5
 PREEMPT_AFTER = 3
 # phase_preempt's quota leg (quota_leg): the control plane's capacity
 # queues, two in one cohort: team-a with no nominal (all it holds is
-# borrowed), team-b entitled to one card.  R, V, H and V' stay in the
+# borrowed), team-b entitled to one card (team-g, the gang leg's, is in a
+# cohort of its own).  R, V, H and V' stay in the
 # ungoverned "default".  B (team-a) and E (team-b) ask for QUOTA_MIB
 # each: both fit beside V''s grant, not together.  The admission loop is
 # ticked through the control plane's stdin; its reclaim grace is
@@ -481,13 +483,30 @@ PREEMPT_AFTER = 3
 QUOTA_QUEUES = [{"name": "team-a", "namespaces": ["team-a"], "cohort": "lab",
                  "quota": {"chips": 0}, "borrow_limit_chips": 1},
                 {"name": "team-b", "namespaces": ["team-b"], "cohort": "lab",
-                 "quota": {"chips": 1}}]
+                 "quota": {"chips": 1}},
+                {"name": "team-g", "namespaces": ["team-g"],
+                 "cohort": "gang", "quota": {"chips": 2}}]
 QUOTA_PODS = {"B": ("borrower", "uidQB", "team-a"),
               "E": ("entitled", "uidQE", "team-b")}
 QUOTA_MIB = 24000
 QUOTA_GRACE_S = 2.0
 QUOTA_HEADROOM = 10.0
 QUOTA_POD_S = 120.0
+# phase_preempt's gang leg (GangLeg, inside quota_leg): the two members of
+# pod group GANG_GROUP in team-g (a queue of its own cohort, nominal 2),
+# each asking for GANG_MIB of the card: one fits beside E's and V''s
+# grants (64,000 of 81,079 MiB), two do not, and both fit once E is gone.
+# GANG_MIB is checked against the remainder /fleetz shows, and taken as
+# two thirds of it where it does not fit that moment.  Each member joins a
+# gloo group from its Allocate env (its rendezvous and collectives bounded
+# by GANG_TIMEOUT_S), runs the flash forward kernel in bf16 at GANG_SHAPE,
+# causal, seeded by its rank, and all-reduces its error and checksum.
+GANG_NS = "team-g"
+GANG_GROUP = "ring"
+GANG_PODS = (("ring-0", "uidG0"), ("ring-1", "uidG1"))
+GANG_MIB = 12000
+GANG_SHAPE = (1, 2048, 32, 128)
+GANG_TIMEOUT_S = 60.0
 # The capacity simulator's legs of phase_preempt (FleetView): the scale
 # leg replays SIM_FLEET (968 pods) on SIM_SCALE, 128 nodes of eight H100s
 # at the card's advertised MiB, starting with the phase so that it runs
@@ -2532,6 +2551,60 @@ def child_quota_pod(torch):
                 interposer=interposer_stats(), exit_t=time.monotonic())
 
 
+def child_gang_member(torch):
+    """One member of phase_preempt's gang (GangLeg), under the env of its
+    Allocate answer (the interposer preloaded): it joins the gang's
+    process group from that env alone (``multihost.initialize_from_env``;
+    gloo over CPU tensors: NCCL refuses two ranks on one card, and a real
+    multi-card gang passes "nccl"), launches the flash forward kernel in
+    bf16 at GANG_SHAPE, causal, on inputs seeded by its rank, holds the
+    output to the plain version under the bf16 limits, and all-reduces its
+    relative error (MAX) and its output's checksum (SUM) over the group."""
+    import torch.distributed as dist
+
+    _, _, _, fa, _, _ = enforce_port()
+    from k8s_vgpu_scheduler_tpu_torch.parallel import multihost
+
+    t0 = time.monotonic()
+    check(multihost.initialize_from_env("gloo", timeout_s=GANG_TIMEOUT_S),
+          "no gang env in the member's Allocate answer")
+    joined = time.monotonic()
+    rank, size = dist.get_rank(), dist.get_world_size()
+    check(rank == int(os.environ["VTPU_GANG_RANK"]),
+          f"rank {rank} is not VTPU_GANG_RANK")
+    B, T, H, d = GANG_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 19 + rank)
+    q, k, v = (torch.randn(B, T, H, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    fa.flash_attention.launches = 0
+    got = fa.flash_attention(q, k, v, causal=True)
+    launches = fa.flash_attention.launches
+    want = fa._reference(q, k, v, d ** -0.5, True)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got.float()).all()), "the output is not finite")
+    row = grad_errors(torch, got, want, False)
+    row.update(tol_rel_max=2 ** -7 + 2 ** -8 * v.float().abs().max().item()
+               / row["max_abs_want"], tol_rel_rms=TOL_O_BF16_RMS,
+               tol_tile_rel_rms=TOL_O_BF16_TILE)
+    check(row["rel_max_err"] <= row["tol_rel_max"]
+          and row["rel_rms_err"] <= TOL_O_BF16_RMS
+          and row["tile_rel_rms_err"] <= TOL_O_BF16_TILE,
+          f"rank {rank}: the kernel disagrees with its plain version {row}")
+    checksum = got.double().sum().item()
+    err = torch.tensor([row["rel_max_err"]], dtype=torch.float64)
+    total = torch.tensor([checksum], dtype=torch.float64)
+    dist.all_reduce(err, op=dist.ReduceOp.MAX)
+    dist.all_reduce(total, op=dist.ReduceOp.SUM)
+    reduced = time.monotonic()
+    dist.destroy_process_group()
+    return dict(rank=rank, size=size, launches=launches, errors=row,
+                checksum=checksum, max_rel_err_all=err.item(),
+                checksum_all=total.item(), rendezvous_s=joined - t0,
+                joined_t=joined, reduced_t=reduced,
+                peak_allocated=torch.cuda.max_memory_allocated(),
+                interposer=interposer_stats(), grant_env=grant_env())
+
+
 def workload_build(torch, name: str, refs: Path, bare: bool) -> tuple:
     """One case of models/workloads.py on the card, built from
     WORKLOAD_SEED, and the f32 path of its weights: its logits (in
@@ -2661,6 +2734,7 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "cores_serve": child_cores_serve,
                     "preempt": child_preempt,
                     "quota_pod": child_quota_pod,
+                    "gang_member": child_gang_member,
                     "workloads_bare": child_workloads_bare}
 
 
@@ -4793,7 +4867,9 @@ def control_plane() -> int:
     apiserver), ``grants`` (the scheduler's registry), ``tick`` (one pass
     of the capacity queues' admission loop, its actions; the queues are
     ``$QUOTA_CONFIG``'s, read by ``vgpu-scheduler``'s loader, with
-    QUOTA_GRACE_S and QUOTA_HEADROOM), and ``end``: the register stream closes, the
+    QUOTA_GRACE_S and QUOTA_HEADROOM), ``blocked`` (the last tick's blocked
+    heads and reasons), ``gangs`` (the gang registry: each group's
+    members, placed members and ranks), and ``end``: the register stream closes, the
     lease clock moves into the Suspect window for one rescue sweep and
     past the Dead deadline for another, and the answer holds both sweeps'
     actions and the annotations of every pod that held a grant.  Its
@@ -4904,7 +4980,14 @@ def control_plane() -> int:
                    cmd.get("namespace", "default"), cmd["name"]),
                "delete": delete, "allocate": allocate,
                "requested": lambda _: requested, "grants": grants,
-               "tick": lambda _: sched.admission.tick(), "end": end}
+               "tick": lambda _: sched.admission.tick(),
+               "blocked": lambda _: sched.admission.blocked,
+               "gangs": lambda _: {
+                   key: {"members": sorted(g.members),
+                         "placements": sorted(g.placements),
+                         "ranks": g.ranks}
+                   for key, g in sched.gangs.groups().items()},
+               "end": end}
         chip = cache.inventory.chips[0]
         print(json.dumps({"base": plane.base, "uuid": chip.uuid,
                           "metrics": f"http://127.0.0.1:{metrics.port}"
@@ -6411,8 +6494,8 @@ def queue_view(plane) -> dict:
     return dict(queuez=doc, rows=rows, report_rows=columns)
 
 
-def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list
-              ) -> dict:
+def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list,
+              gang=None) -> dict:
     """The capacity queues on the card, after V' and before the rescuer's
     sweeps.  B (team-a, all borrowed) goes through the webhook (queue and
     held state stamped) and is held by Filter; a tick of the admission
@@ -6424,7 +6507,9 @@ def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list
     on B, which this process mirrors into B's downward-API file as kubelet
     does.  B exits 0, its pod is deleted and its grant frees; the next
     tick releases E, which is placed with its own MiB.  At each step
-    /queuez, /metrics and vgpu-report agree (queue_view)."""
+    /queuez, /metrics and vgpu-report agree (queue_view).  ``gang`` (a
+    GangLeg) runs its first half while E and V' hold their grants, and
+    its second once E is deleted."""
     from k8s_vgpu_scheduler_tpu_torch.quota.queues import (
         QUEUE_ANNOTATION, QUEUE_POSITION_ANNOTATION, QUEUE_STATE_ANNOTATION)
     from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
@@ -6526,7 +6611,11 @@ def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list
     e = place("E")
     views["e_placed"] = queue_view(plane)
     requested = plane.call("requested")
+    if gang is not None:
+        gang.hold()
     plane.call("delete", name=QUOTA_PODS["E"][0], namespace="team-b")
+    if gang is not None:
+        gang.place_and_run()
 
     b_uid, e_uid = QUOTA_PODS["B"][1], QUOTA_PODS["E"][1]
     [recl] = out["reclaim"] or [None]
@@ -6572,6 +6661,243 @@ def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list
                     for k in hs},
         "queuez": {k: v["queuez"] for k, v in views.items()},
         "seconds": time.monotonic() - t_leg}
+
+
+class GangLeg:
+    """A pod group on the card, inside quota_leg (no phase of its own):
+    ring-0 and ring-1 of GANG_GROUP, total 2, in team-g, with a
+    coordinator on a free local port.
+
+    ``hold``, while E and V' hold their grants (the card's remainder, read
+    from /fleetz, fits one member and not two): each member goes through
+    the webhook (queue and held state stamped) and Filter holds it; a tick
+    with one member holds it (blocked: ``gang ring accumulating (1/2)``),
+    a tick with both releases both (``gang: ring``).  Then Filter answers
+    ring-0 ``gang ring waiting (1/2)`` and ring-1 ``gang ring: no atomic
+    placement for 2 members``, and /fleetz shows neither uid and no more
+    MiB granted.
+
+    ``place_and_run``, after E's delete: ring-0's Filter places both
+    members on the card (both grants recorded at once), each with its
+    MiB and its rank annotation (0, 1); each Bind ends ``success`` with
+    the lock released and each Allocate answer carries the gang env.
+    Both members start together under their answers' env
+    (``child_gang_member``): one gloo group, the flash kernel held to the
+    plain version, the same reduced values on both ranks, no refusal, the
+    interposer's charge within the grant.  Both are deleted: their grants
+    leave /fleetz, the gang registry is empty, /queuez holds no gang
+    entry.  /queuez, /metrics and vgpu-report agree after the release,
+    the placement and the deletes (queue_view)."""
+
+    def __init__(self, plane, uuid: str, volumes: Path, tmp: Path,
+                 children: list, record: dict) -> None:
+        self.plane, self.uuid, self.volumes, self.tmp = (plane, uuid,
+                                                         volumes, tmp)
+        self.children, self.record = children, record
+        self.t, self.out, self.views, self.hs = {}, {}, {}, {}
+        self.t0 = None
+
+    def fleet(self) -> tuple:
+        """The card's MiB less its grants, and the granted uids, as
+        /fleetz shows them."""
+        t0 = time.monotonic()
+        status, doc = http(f"{self.plane.base}/fleetz", timeout=30)
+        self.out.setdefault("fleetz_s", []).append(time.monotonic() - t0)
+        check(status == 200, f"/fleetz answered {status} {doc}")
+        [card] = [c for n in doc["nodes"] for c in n["chips"]
+                  if c["id"] == self.uuid]
+        granted = sum(d["usedmem"] for p in doc["pods"]
+                      for ctr in p["devices"] for d in ctr
+                      if d["uuid"] == self.uuid)
+        return card["devmem"] - granted, {p["uid"] for p in doc["pods"]}
+
+    def filter(self, name: str) -> dict:
+        reply, sec = filter_pod(self.plane.base,
+                                self.plane.get_pod(name, GANG_NS),
+                                PLUGIN_NODE)
+        self.out.setdefault("filter_s", {}).setdefault(name, []).append(sec)
+        return reply
+
+    def tick(self, key: str) -> list:
+        t0 = time.monotonic()
+        acts = self.plane.call("tick")
+        self.t[key] = time.monotonic()
+        self.out.setdefault("tick_s", {})[key] = self.t[key] - t0
+        self.out.setdefault("ticks", []).append(acts)
+        return acts
+
+    def hold(self) -> None:
+        from k8s_vgpu_scheduler_tpu_torch.quota.queues import (
+            QUEUE_ANNOTATION, QUEUE_STATE_ANNOTATION)
+        from k8s_vgpu_scheduler_tpu_torch.util.types import (
+            GANG_COORDINATOR_ANNOTATION, GANG_GROUP_ANNOTATION,
+            GANG_TOTAL_ANNOTATION)
+
+        self.t0 = time.monotonic()
+        remaining, uids = self.fleet()
+        mib = GANG_MIB if GANG_MIB <= remaining < 2 * GANG_MIB \
+            else remaining * 2 // 3
+        check(0 < mib <= remaining < 2 * mib
+              and 2 * mib <= remaining + QUOTA_MIB,
+              f"{mib} MiB a member against the card's remaining "
+              f"{remaining} MiB (E's {QUOTA_MIB} MiB to come back)")
+        self.mib, self.remaining = mib, remaining
+        self.coordinator = f"127.0.0.1:{free_port()}"
+        anns = {GANG_GROUP_ANNOTATION: GANG_GROUP,
+                GANG_TOTAL_ANNOTATION: str(len(GANG_PODS)),
+                GANG_COORDINATOR_ANNOTATION: self.coordinator}
+        admitted = []
+        for i, (name, uid) in enumerate(GANG_PODS):
+            created, self.hs[name] = admit_pod(
+                self.plane.base, self.plane, user_pod(
+                    name, uid, mib, 1, annotations=anns,
+                    namespace=GANG_NS))
+            got = created["metadata"]["annotations"]
+            check(got.get(QUEUE_ANNOTATION) == GANG_NS
+                  and got.get(QUEUE_STATE_ANNOTATION) == "held",
+                  f"{name}: the webhook's queue annotations {got}")
+            reply = self.filter(name)
+            check(reply["NodeNames"] == [] and reply["Error"].startswith(
+                f"held in capacity queue {GANG_NS} (position {i + 1}/"
+                f"{i + 1}"), f"{name}: Filter answered {reply}")
+            acts = self.tick(f"tick_{i + 1}")
+            admitted = [a for a in acts if a["kind"] == "admit"]
+            if i == 0:
+                blocked = self.plane.call("blocked")
+                self.out["blocked"] = blocked
+                check(admitted == [] and blocked.get(GANG_NS) == [
+                    uid, f"gang {GANG_GROUP} accumulating (1/2)"],
+                      f"the tick with one member: {acts}, blocked "
+                      f"{blocked}")
+        check(sorted(a["pod"] for a in admitted)
+              == [f"{GANG_NS}/{n}" for n, _ in GANG_PODS]
+              and all(a["gang"] == GANG_GROUP for a in admitted),
+              f"the tick with both members: {self.out['ticks'][-1]}")
+        self.views["released"] = queue_view(self.plane)
+        g = self.views["released"]["rows"][GANG_NS]
+        check((g["pending"], g["admitted_total"]) == (0, 2),
+              f"team-g with the gang released: {g}")
+        first = self.filter(GANG_PODS[0][0])
+        second = self.filter(GANG_PODS[1][0])
+        self.out["waiting"], self.out["no_fit"] = first, second
+        check(first["NodeNames"] == [] and first["Error"]
+              == f"gang {GANG_GROUP} waiting (1/2)",
+              f"ring-0's Filter beside E: {first}")
+        check(second["NodeNames"] == [] and second["Error"]
+              == f"gang {GANG_GROUP}: no atomic placement for 2 members",
+              f"ring-1's Filter beside E: {second}")
+        left, uids_after = self.fleet()
+        check(left == remaining and not uids_after
+              & {u for _, u in GANG_PODS},
+              f"/fleetz after the refused placement: {left} of {remaining} "
+              f"MiB left, uids {sorted(uids_after)}")
+        self.t["held_done"] = time.monotonic()
+
+    def place_and_run(self) -> None:
+        from k8s_vgpu_scheduler_tpu_torch.util.types import \
+            GANG_RANK_ANNOTATION
+
+        t_release = time.monotonic()
+        pods = {}
+        for i, (name, uid) in enumerate(GANG_PODS):
+            hs = self.hs[name]
+            place_pod(self.plane.base, self.plane.get_pod(name, GANG_NS),
+                      PLUGIN_NODE, hs)
+            self.out.setdefault("filter_s", {}).setdefault(name, []).append(
+                hs["filter_s"])
+            if i == 0:
+                self.t["placed"] = time.monotonic()
+                grants = {u for u, _ in self.plane.call("grants")}
+                check({u for _, u in GANG_PODS} <= grants,
+                      f"ring-0's Filter placed {sorted(grants)}")
+            got = self.plane.call("allocate")
+            hs["allocate_s"] = got["allocate_s"]
+            pod = dict(key=f"{uid}_{name}", grant_mib=self.mib, priority=1,
+                       pod=self.plane.get_pod(name, GANG_NS), handshake=hs,
+                       response=got["response"], locked=got["locked"])
+            anns = pod["pod"]["metadata"]["annotations"]
+            check(anns["vtpu.dev/bind-phase"] == "success"
+                  and not pod["locked"], f"{name}: bind phase, lock "
+                  f"{pod['locked']}")
+            check(anns.get(GANG_RANK_ANNOTATION) == str(i),
+                  f"{name}: rank annotation {anns.get(GANG_RANK_ANNOTATION)}")
+            placed(name, pod, self.uuid, cores=0)
+            envs = pod["response"]["envs"]
+            check(envs.get("VTPU_GANG_RANK") == str(i)
+                  and envs.get("VTPU_GANG_SIZE") == str(len(GANG_PODS))
+                  and envs.get("VTPU_GANG_GROUP") == GANG_GROUP
+                  and envs.get("VTPU_GANG_COORDINATOR") == self.coordinator,
+                  f"{name}: Allocate's gang env {envs}")
+            pod["env"] = kubelet_env(pod["pod"], pod["response"],
+                                     self.volumes)
+            pods[name] = pod
+        self.views["placed"] = queue_view(self.plane)
+        members = []
+        for name, pod in pods.items():
+            grant = dict(pod["env"])
+            # The members run on one host: the loopback is their network.
+            grant["GLOO_SOCKET_IFNAME"] = "lo"
+            child = EnforceChild(
+                "gang_member", self.tmp, label=f"gang_{name}",
+                region=grant.pop("CUDA_DEVICE_MEMORY_SHARED_CACHE"), **grant)
+            self.children.append(child)
+            members.append(child)
+        t_start = time.monotonic()
+        with ThreadPoolExecutor(len(members)) as pool:
+            futs = [pool.submit(c.run, self.record, "gang") for c in members]
+            runs = [f.result() for f in futs]
+        self.t["members_done"] = time.monotonic()
+        for run in runs:
+            check(run["size"] == len(GANG_PODS) and run["launches"] == 1,
+                  f"rank {run['rank']}: size {run['size']}, "
+                  f"{run['launches']} launches")
+            stats = run["interposer"]
+            check(stats["refusals"] == 0 and stats["context_bytes"]
+                  + stats["alloc_bytes"] <= self.mib * MIB,
+                  f"rank {run['rank']}: the interposer's counters {stats} "
+                  f"past a {self.mib} MiB grant")
+        check(sorted(r["rank"] for r in runs) == list(range(len(GANG_PODS))),
+              f"ranks {[r['rank'] for r in runs]}")
+        check(len({(r["max_rel_err_all"], r["checksum_all"])
+                   for r in runs}) == 1
+              and runs[0]["max_rel_err_all"] == max(
+                  r["errors"]["rel_max_err"] for r in runs),
+              f"the reduced values differ: "
+              f"{[(r['max_rel_err_all'], r['checksum_all']) for r in runs]}")
+        for name, _ in GANG_PODS:
+            self.plane.call("delete", name=name, namespace=GANG_NS)
+        _, uids = self.fleet()
+        gangs = self.plane.call("gangs")
+        self.views["deleted"] = queue_view(self.plane)
+        check(not uids & {u for _, u in GANG_PODS} and gangs == {},
+              f"after the deletes: /fleetz uids {sorted(uids)}, gangs "
+              f"{gangs}")
+        check(not any(p.get("gang") for q in
+                      self.views["deleted"]["queuez"]["queues"]
+                      for p in q["pending_pods"]),
+              f"/queuez after the deletes {self.views['deleted']['queuez']}")
+        self.summary = {
+            "mib": self.mib, "card_remaining_mib": self.remaining,
+            "coordinator": self.coordinator,
+            "blocked": self.out["blocked"],
+            "waiting": self.out["waiting"]["Error"],
+            "no_fit": self.out["no_fit"]["Error"],
+            "filter_s": self.out["filter_s"], "tick_s": self.out["tick_s"],
+            "fleetz_s": self.out["fleetz_s"],
+            "calls_s": {n: {c: self.hs[n][f"{c}_s"] for c in (
+                "webhook", "filter", "bind", "allocate")}
+                for n, _ in GANG_PODS},
+            "release_to_placed_s": self.t["placed"] - t_release,
+            "start_to_rendezvous_s": [r["joined_t"] - t_start
+                                      for r in runs],
+            "rendezvous_s": [r["rendezvous_s"] for r in runs],
+            "members_s": self.t["members_done"] - t_start,
+            "max_rel_err_all": runs[0]["max_rel_err_all"],
+            "checksum_all": runs[0]["checksum_all"],
+            "errors": [r["errors"] for r in runs],
+            "interposer": [r["interposer"] for r in runs],
+            "queuez": {k: v["queuez"] for k, v in self.views.items()},
+            "seconds": time.monotonic() - self.t0}
 
 
 def phase_preempt(torch, record, vgpu: Path, interposer: Path):
@@ -6760,7 +7086,9 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
             check(observed["v2_efficiency"] is not None
                   and 0 < observed["v2_efficiency"] <= 1,
                   f"V''s efficiency {observed['v2_efficiency']}")
-            quota = quota_leg(plane, uuid, volumes, tmp, children)
+            gang = GangLeg(plane, uuid, volumes, tmp, children, record)
+            quota = quota_leg(plane, uuid, volumes, tmp, children,
+                              gang=gang)
             smi_end = [smi_card_mib()]
             ended = plane.call("end")
             smi_end.append(smi_card_mib())
@@ -6883,12 +7211,16 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
         "smi_through_sweeps_mib": smi_end,
         "sweeps": {k: ended[k] for k in ("suspect", "dead")},
         "losses": ref["losses"], "fleet_view": observed, "quota": quota,
+        "gang": gang.summary,
         "peak_allocated_bytes": [run["peak_allocated"]
                                  for run in (ref, victim, resumed)],
         "child_s": {run: record["preempt"][run]["child_s"]
                     for run in record["preempt"]}}
     log(json.dumps(summary))
+    members = record["gang"].values()
     return [sum(run["launches"][n] for run in (ref, victim, swap, resumed))
+            + (sum(m["launches"] for m in members) if n == "flash_fwd"
+               else 0)
             for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")]
 
 

@@ -14,7 +14,8 @@ and ``--idle-grant-grace`` (the usage ledger's join), ``--debug`` (the
 extender's ``/debug`` endpoints) and the capacity queues:
 ``--quota-config`` (JSON; YAML where PyYAML is installed),
 ``--fair-share-usage-informed``, ``--admission-interval``,
-``--queue-reclaim-grace``, ``--queue-fleet-headroom`` and ``--no-reclaim``.
+``--queue-reclaim-grace``, ``--queue-fleet-headroom``,
+``--no-queue-backfill`` and ``--no-reclaim``.
 Boot order: list the pods and reconcile the grants before anything serves
 (a restarted scheduler that filtered against an empty registry would book
 cards twice), then the watch thread, the rescue thread, the admission
@@ -141,6 +142,9 @@ def parse_args(argv=None):
                    help="release-throttle multiplier over registered "
                         "cards; raise above 1.0 on fleets whose split-"
                         "count sharing packs many grants on a card")
+    p.add_argument("--no-queue-backfill", action="store_true",
+                   help="disable gang-aware backfill (small pods "
+                        "admitted ahead of an accumulating gang)")
     p.add_argument("--no-reclaim", action="store_true",
                    help="never reclaim borrowed grants for starved "
                         "in-quota tenants (fair-share ordering and "
@@ -186,6 +190,7 @@ def build_config(args) -> Config:
         admission_interval_s=args.admission_interval,
         queue_reclaim_grace_s=args.queue_reclaim_grace,
         queue_fleet_headroom=args.queue_fleet_headroom,
+        enable_queue_backfill=not args.no_queue_backfill,
         enable_reclaim=not args.no_reclaim)
 
 

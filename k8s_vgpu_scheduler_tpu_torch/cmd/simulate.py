@@ -21,9 +21,10 @@ Workload spec (JSON), in the port's resource names:
 
 ``gpu``, ``gpumem``, ``gpumem-percentage``, ``gpucores`` and ``priority``
 become the pod's ``nvidia.com/*`` limits, ``mesh`` its ``vtpu.dev/mesh``.
-A ``gang`` entry is written as the pod group it declares and reaches
-Filter, which refuses pod groups by name (ROADMAP A.5): its pods pend
-with that reason, as a live extender would answer them.
+A ``gang`` entry is written as the pod group it declares (total: its
+count): its members are placed all or none by the scheduler's gang
+manager, so every pod is created before Filter is replayed, with one
+retry pass, as kube-scheduler re-queues an unschedulable pod.
 
 A workload may also carry an ``accounting`` section — after placement,
 the port's metering pipeline (``accounting/sampler.py`` over synthetic
@@ -54,10 +55,27 @@ A ``serving`` section is the flat-vs-tiered QoS A/B on ``shim/simlab.py``
 (copies of ``libvgpu_torch.so`` on virtual clocks under the port's
 monitor loop); no fleet is involved.
 
-The JAX simulator's other sections (``queueing``, ``fragmentation``,
-``elastic``, ``capacity``, ``audit``, ``slo``, ``ha``) replay subsystems
-the port does not have yet (ROADMAP A.5): such a workload is refused by
-name, and the command exits 2.
+A ``queueing`` section is a contended multi-tenant scenario replayed
+through the port's capacity queues (``quota/``) on a virtual clock, A/B
+against FIFO with the admission layer off.  Arrivals create pods over
+time, placed pods run for their declared runtime and exit, reclaim
+victims checkpoint and exit after a delay, and the report answers the
+fairness question: do admitted GPU-seconds converge to the configured
+weights, does backfill keep utilization at the FIFO level, and did
+reclaim ever touch an in-quota grant:
+
+    {"queueing": {
+       "queues": [{"name": "tenant-a", "namespaces": ["tenant-a"],
+                   "cohort": "main", "weight": 3,
+                   "quota": {"chips": 6}, "borrow_limit_chips": 2}, ...],
+       "arrivals": [{"name": "a", "namespace": "tenant-a", "gpu": 2,
+                     "count": 40, "at_s": 0, "runtime_s": 40}, ...],
+       "horizon_s": 600, "tick_s": 5, "measure_from_s": 180}}
+
+The JAX simulator's other sections (``fragmentation``, ``elastic``,
+``capacity``, ``audit``, ``slo``, ``ha``) replay subsystems the port does
+not have yet (ROADMAP A.5): such a workload is refused by name, and the
+command exits 2.
 
 Usage:
     vgpu-simulate --nodes 4 --chips 8 --hbm 81079 --mesh 8 \\
@@ -87,8 +105,16 @@ from ..accounting import efficiency as eff_mod
 from ..accounting.sampler import UsageSampler
 from ..health.faults import FaultEvent, FaultInjector, SimClock
 from ..k8s import FakeKube
+from ..quota.queues import (
+    QUEUE_ANNOTATION,
+    QUEUE_STATE_ANNOTATION,
+    RUNTIME_ESTIMATE_ANNOTATION,
+    STATE_HELD,
+    queue_for_namespace,
+)
 from ..scheduler import DeviceInfo, NodeInfo, Scheduler
 from ..scheduler.pods import PodInfo
+from ..scheduler.preempt import PREEMPT_ANNOTATION
 from ..tpulib.types import TopologyDesc
 from ..util import nodelock
 from ..util.config import Config, ResourceNames
@@ -100,8 +126,9 @@ from ..util.types import (
 )
 
 #: The JAX simulator's self-contained sections, in the order it tries
-#: them: ``serving`` runs here, the others wait for ROADMAP A.5.  True: a
-#: section is requested when present; False: when it is not empty.
+#: them: ``serving`` and ``queueing`` run here, the others wait for
+#: ROADMAP A.5.  True: a section is requested when present; False: when
+#: it is not empty.
 SECTIONS = (("fragmentation", False), ("elastic", True), ("capacity", True),
             ("serving", True), ("audit", True), ("slo", True),
             ("ha", False), ("queueing", False))
@@ -222,21 +249,28 @@ def run_simulation(workload: dict, *, nodes: int = 0, chips: int = 0,
     for key, when_present in SECTIONS:
         if not _requested(workload, key, when_present):
             continue
-        if key != "serving":
+        if key == "serving":
+            # A self-contained flat-vs-tiered QoS A/B through the native
+            # limiters and the monitor loop on virtual clocks; no fleet.
+            result = run_serving_phase(workload["serving"])
+        elif key == "queueing":
+            # A self-contained time-stepped A/B: its own fair and FIFO
+            # schedulers on the virtual clock (the plain replay below
+            # would place its pods twice).
+            result = run_queueing_phase(
+                workload["queueing"], nodes=nodes, chips=chips, hbm=hbm,
+                mesh=mesh, generation=generation, policy=policy)
+        else:
             raise SectionRefused(
                 f"the {key!r} section is not simulated by this port: its "
                 f"subsystem comes with ROADMAP A.5")
-        # A serving scenario is a self-contained flat-vs-tiered QoS A/B
-        # through the native limiters and the monitor loop on virtual
-        # clocks; no fleet is involved.
-        result = run_serving_phase(workload["serving"])
         return {
             "fleet": {"nodes": nodes, "chips_per_node": chips,
                       "hbm_mib": hbm, "mesh": list(mesh), "policy": policy},
             "placed": [], "pending": [], "chips": {},
             "hbm_allocated_fraction": 0.0,
             "fits": bool(result["verdict"]["ok"]),
-            "serving": result,
+            key: result,
         }
 
     chaos = workload.get("chaos")
@@ -260,8 +294,10 @@ def run_simulation(workload: dict, *, nodes: int = 0, chips: int = 0,
         for i in range(int(entry.get("count", 1))):
             pods.append((entry, spec_pod(entry, i)))
 
-    # Create every pod up front, then replay Filter with one retry pass —
-    # the way kube-scheduler re-queues unschedulable pods.
+    # Create every pod up front (a gang member must stay registered while
+    # its peers arrive), then replay Filter with one retry pass, as
+    # kube-scheduler re-queues unschedulable pods: the second resolves the
+    # members whose gang reached its quorum in the first.
     for _, pod in pods:
         kube.create_pod(pod)
     queue = [(e, p, "") for e, p in pods]
@@ -642,6 +678,263 @@ def run_chaos_phase(s: Scheduler, kube: FakeKube, names: List[str],
     }
 
 
+# -- the capacity-queue A/B (quota/) -------------------------------------------
+
+def _arrival_schedule(spec: dict) -> List[dict]:
+    """The arrivals as one record a pod, in arrival order (name
+    tie-break: the replay is deterministic)."""
+    out = []
+    for entry in spec.get("arrivals", []):
+        count = int(entry.get("count", 1))
+        at = float(entry.get("at_s", 0.0))
+        every = float(entry.get("every_s", 0.0))
+        for i in range(count):
+            out.append({
+                "entry": entry,
+                "idx": i,
+                "name": f"{entry['name']}-{i}",
+                "namespace": entry.get("namespace", "sim"),
+                "at_s": at + i * every,
+                "runtime_s": float(entry.get("runtime_s", 60.0)),
+            })
+    out.sort(key=lambda a: (a["at_s"], a["name"]))
+    return out
+
+
+def _queue_spec_pod(arrival: dict, governed_queue: Optional[str]) -> dict:
+    """One arrival's pod, with the webhook's annotations written by hand
+    (no webhook in this path): the queue and its held state where
+    governed, and the runtime estimate the backfill rule reads where the
+    entry declares it."""
+    entry = arrival["entry"]
+    pod = spec_pod(entry, arrival["idx"])
+    pod["metadata"]["namespace"] = arrival["namespace"]
+    pod["metadata"]["uid"] = f"uid-{arrival['namespace']}-{arrival['name']}"
+    anns = pod["metadata"]["annotations"]
+    if governed_queue is not None:
+        anns[QUEUE_ANNOTATION] = governed_queue
+        anns[QUEUE_STATE_ANNOTATION] = STATE_HELD
+    if entry.get("declare_runtime"):
+        anns[RUNTIME_ESTIMATE_ANNOTATION] = str(arrival["runtime_s"])
+    return pod
+
+
+def _run_queue_sim(spec: dict, quota_on: bool, *, nodes: int, chips: int,
+                   hbm: int, mesh, generation: str, policy: str) -> dict:
+    """One time-stepped replay (fair, or FIFO without the queues) through
+    the Scheduler and its admission loop on a SimClock.  Placed pods run
+    for their runtime and exit; reclaim victims checkpoint (are deleted)
+    ``checkpoint_delay_s`` after their request, the in-container watch's
+    part, played here."""
+    horizon = float(spec.get("horizon_s", 600.0))
+    tick = float(spec.get("tick_s", 5.0))
+    measure_from = float(spec.get("measure_from_s", horizon / 3))
+    checkpoint_delay = float(spec.get("checkpoint_delay_s", tick))
+    queues = tuple(spec.get("queues", ())) if quota_on else ()
+
+    clock = SimClock()
+    kube = FakeKube()
+    cfg = Config(node_scheduler_policy=policy, quota_queues=queues,
+                 queue_reclaim_grace_s=float(
+                     spec.get("reclaim_grace_s", 2 * tick)),
+                 fair_share_usage_informed=bool(
+                     spec.get("usage_informed", False)))
+    s = Scheduler(kube, cfg, clock=clock)
+    names = build_fleet(s, kube, nodes, chips, hbm, mesh, generation)
+    fleet_chips = nodes * chips
+    kube.watch_pods(s.on_pod_event)
+
+    schedule = _arrival_schedule(spec)
+    ns_queue = {}
+    for a in schedule:
+        q = queue_for_namespace(queues, a["namespace"]) if quota_on else None
+        ns_queue[a["namespace"]] = q.name if q else None
+    next_arrival = 0
+    live: Dict[str, dict] = {}       # name -> arrival record
+    placed_at: Dict[str, float] = {}
+    preempt_seen: Dict[str, float] = {}
+    chip_seconds: Dict[str, float] = {}   # namespace -> measured window
+    busy_seconds = 0.0                     # the fleet, measured window
+    admit_actions: List[dict] = []
+    reclaim_actions: List[dict] = []
+    reclaim_victims_borrowed = True
+    overbooked: List[str] = []
+
+    steps = int(round(horizon / tick))
+    start = clock()
+    for _step in range(steps):
+        now = clock() - start
+        # 1. Arrivals.
+        while next_arrival < len(schedule) \
+                and schedule[next_arrival]["at_s"] <= now:
+            a = schedule[next_arrival]
+            next_arrival += 1
+            kube.create_pod(_queue_spec_pod(a, ns_queue[a["namespace"]]))
+            live[a["name"]] = a
+        # 2. Completions.
+        for name in [n for n, t in placed_at.items()
+                     if t + live[n]["runtime_s"] <= now]:
+            a = live.pop(name)
+            placed_at.pop(name)
+            kube.delete_pod(a["namespace"], name)
+        # 3. Reclaim victims exit the delay after their request.
+        for pod in kube.list_pods():
+            anns = pod.get("metadata", {}).get("annotations", {})
+            name = pod["metadata"]["name"]
+            if anns.get(PREEMPT_ANNOTATION):
+                first = preempt_seen.setdefault(name, now)
+                if now - first >= checkpoint_delay and name in live:
+                    a = live.pop(name)
+                    placed_at.pop(name, None)
+                    kube.delete_pod(a["namespace"], name)
+            else:
+                preempt_seen.pop(name, None)
+        # 4. Admission.  Every reclaim victim must come out of cards its
+        # donor queue held over nominal at plan time: the loop records
+        # that amount a victim, the verdict holds it.
+        if quota_on:
+            for act in s.admission.tick():
+                if act["kind"] == "admit":
+                    admit_actions.append(dict(act, at_s=now))
+                elif act["kind"] == "reclaim":
+                    reclaim_actions.append(dict(act, at_s=now))
+                    for v in act["victims"]:
+                        if v.get("donor_borrowed", 0) < v["chips"]:
+                            reclaim_victims_borrowed = False
+        # 5. One Filter pass over the unplaced pods (kube-scheduler's
+        # retry of unschedulable pods).
+        for name, a in sorted(live.items()):
+            if name in placed_at:
+                continue
+            try:
+                pod = kube.get_pod(a["namespace"], name)
+            except Exception:  # noqa: BLE001 — deleted this tick
+                continue
+            r = s.filter(pod, names)
+            if r.node:
+                s.bind(a["namespace"], name, pod["metadata"]["uid"],
+                       r.node)
+                nodelock.release_node(kube, r.node)
+                placed_at[name] = now
+        # 6. Admitted GPU-seconds, and the double-booking invariant.
+        if now >= measure_from:
+            busy = 0
+            for p in s.pods.list_pods():
+                n_chips = sum(len(c) for c in p.devices)
+                busy += n_chips
+                chip_seconds[p.namespace] = \
+                    chip_seconds.get(p.namespace, 0.0) + n_chips * tick
+            busy_seconds += busy * tick
+        bad = overbooked_chips(s)
+        if bad:
+            overbooked = sorted(set(overbooked) | set(bad))
+        clock.advance(tick)
+
+    measured_window = max(tick, horizon - measure_from)
+    util = busy_seconds / (fleet_chips * measured_window) \
+        if fleet_chips else 0.0
+    return {
+        "chip_seconds_by_namespace": {
+            ns: round(v, 1) for ns, v in sorted(chip_seconds.items())},
+        "utilization": round(util, 4),
+        "admitted": len(admit_actions),
+        "backfilled": sum(1 for a in admit_actions if a.get("backfilled")),
+        "reclaims": reclaim_actions,
+        "reclaim_only_borrowed": reclaim_victims_borrowed,
+        "overbooked_chips": overbooked,
+        "still_pending": sorted(n for n in live if n not in placed_at),
+        "queues": (s.quota.stats(s.pods.list_pods())["queues"]
+                   if quota_on else []),
+    }
+
+
+def run_queueing_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
+                       mesh, generation: str, policy: str) -> dict:
+    """Fair share against FIFO on the same contended arrivals.  The
+    verdict: admitted GPU-seconds within ``weight_tolerance_pct`` of the
+    weights' proportions, utilization at least FIFO's (less one tick's
+    noise, 0.02), reclaim victims always borrowed, no card overbooked."""
+    fair = _run_queue_sim(spec, True, nodes=nodes, chips=chips, hbm=hbm,
+                          mesh=mesh, generation=generation, policy=policy)
+    fifo = _run_queue_sim(spec, False, nodes=nodes, chips=chips, hbm=hbm,
+                          mesh=mesh, generation=generation, policy=policy)
+
+    queues = spec.get("queues", [])
+    weight_total = sum(float(q.get("weight", 1.0)) for q in queues) or 1.0
+    measured_total = sum(
+        fair["chip_seconds_by_namespace"].get(ns, 0.0)
+        for q in queues for ns in q.get("namespaces", ()))
+    tol = float(spec.get("weight_tolerance_pct", 10.0)) / 100.0
+    shares = []
+    converged = measured_total > 0
+    for q in queues:
+        got = sum(fair["chip_seconds_by_namespace"].get(ns, 0.0)
+                  for ns in q.get("namespaces", ()))
+        share = got / measured_total if measured_total else 0.0
+        target = float(q.get("weight", 1.0)) / weight_total
+        ok = abs(share - target) <= tol
+        converged = converged and ok
+        shares.append({"queue": q["name"], "weight": q.get("weight", 1.0),
+                       "target_share": round(target, 4),
+                       "admitted_share": round(share, 4),
+                       "admitted_chip_seconds": round(got, 1),
+                       "within_tolerance": ok})
+    verdict = {
+        "converged": converged,
+        "tolerance_pct": float(spec.get("weight_tolerance_pct", 10.0)),
+        "utilization_ok": fair["utilization"] >= fifo["utilization"] - 0.02,
+        "reclaim_only_borrowed": fair["reclaim_only_borrowed"],
+        "no_overbooking": not (fair["overbooked_chips"]
+                               or fifo["overbooked_chips"]),
+    }
+    verdict["ok"] = all(verdict[k] for k in
+                        ("converged", "utilization_ok",
+                         "reclaim_only_borrowed", "no_overbooking"))
+    horizon = float(spec.get("horizon_s", 600.0))
+    return {
+        "horizon_s": horizon,
+        "tick_s": float(spec.get("tick_s", 5.0)),
+        "measure_from_s": float(spec.get("measure_from_s", horizon / 3)),
+        "shares": shares,
+        "fair": fair,
+        "fifo": {"chip_seconds_by_namespace":
+                 fifo["chip_seconds_by_namespace"],
+                 "utilization": fifo["utilization"],
+                 "overbooked_chips": fifo["overbooked_chips"]},
+        "verdict": verdict,
+    }
+
+
+def format_queueing(qr: dict) -> str:
+    v = qr["verdict"]
+    lines = [
+        "capacity-queue A/B over {:.0f}s (measured from {:.0f}s):"
+        .format(qr["horizon_s"], qr["measure_from_s"]),
+        "  fair-share utilization {:.1%} vs FIFO {:.1%} ({})".format(
+            qr["fair"]["utilization"], qr["fifo"]["utilization"],
+            "OK" if v["utilization_ok"] else "REGRESSED"),
+    ]
+    for row in qr["shares"]:
+        lines.append(
+            "  {:<12s} weight {:>4.1f}: admitted share {:>5.1%} "
+            "(target {:>5.1%}) {}".format(
+                row["queue"], row["weight"], row["admitted_share"],
+                row["target_share"],
+                "✓" if row["within_tolerance"] else "OFF-TARGET"))
+    lines.append(
+        "  {} reclaim plan(s), victims {}; admissions {} "
+        "({} backfilled)".format(
+            len(qr["fair"]["reclaims"]),
+            "all borrowed" if v["reclaim_only_borrowed"]
+            else "TOUCHED IN-QUOTA GRANTS",
+            qr["fair"]["admitted"], qr["fair"]["backfilled"]))
+    if qr["fair"]["overbooked_chips"]:
+        lines.append("  OVERBOOKED: "
+                     + ", ".join(qr["fair"]["overbooked_chips"]))
+    lines.append("  verdict: " + ("PASS" if v["ok"] else "FAIL"))
+    return "\n".join(lines)
+
+
 def format_serving(sv: dict) -> str:
     v = sv["verdict"]
     lines = ["serving QoS A/B (flat duty limiter vs SLO tiers):"]
@@ -674,6 +967,9 @@ def format_report(result: dict) -> str:
     sv = result.get("serving")
     if sv:
         return format_serving(sv)
+    qr = result.get("queueing")
+    if qr:
+        return format_queueing(qr)
     f = result["fleet"]
     if "source" in f:
         head = ("fleet: {nodes} node(s) from {source}, "

@@ -24,11 +24,10 @@ Rescission reuses what exists:
 
 Chronically idle oversubscribed grants (``grant_efficiency``, from the
 usage ledger) are flagged, never rescinded: a sweep action, a journal
-event and ``vtpu_idle_grants``.  What the JAX rescuer does beyond this
-waits for the slices that bring its parts: dropping a rescued pod from
-its gang (``gangs.drop_member``) and the ownership gate of a sharded
-control plane (``shards``) come with the gang and shard slice (ROADMAP
-A.5).  The JAX
+event and ``vtpu_idle_grants``.  A rescued pod leaves its gang
+(``gangs.drop_member``, without a tombstone: the pod reschedules under
+its own uid and may join its group again).  The ownership gate of a sharded control plane
+(``shards``) waits for the shard slice (ROADMAP A.5).  The JAX
 rescuer's provenance records go to the port's tracer (``util/trace``)
 under the same event names until the provenance slice (A.5).
 
@@ -263,8 +262,9 @@ class Rescuer:
                             item.namespace, item.name, e)
                 return None
         if pod is None or is_pod_terminated(pod):
-            # Gone or done: its delete frees the grant; drop the entry in
-            # case no watch runs.
+            # Gone or done: its delete frees the grant; drop the entry
+            # (and its gang seat) in case no watch runs.
+            self.s.gangs.drop_member(item.uid, tombstone=False)
             self.s.pods.del_pod(item.uid)
             self._done(item)
             return {"kind": "rescued", "pod": item.name, "uid": item.uid,
@@ -339,6 +339,7 @@ class Rescuer:
                             "(%s); retrying next sweep", item.namespace,
                             item.name, e)
                 return False
+        self.s.gangs.drop_member(item.uid, tombstone=False)
         self.s.pods.del_pod(item.uid)
         self._done(item)
         log.warning("rescued %s/%s off %s (%s): grant rescinded, pod "

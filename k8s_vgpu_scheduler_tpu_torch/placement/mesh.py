@@ -16,8 +16,8 @@ outermost, the data axis).  Two scopes:
   must land on one axis-realizing box of one node's fabric;
 - **gang member** (``vtpu.dev/pod-group``): mesh volume == the gang's
   total cards; axis 0 divides across the members and each member's local
-  mesh must land inside one node's fabric.  The port refuses gangs until
-  its gang slice (ROADMAP A.5), so its webhook validates with a gang of 1.
+  mesh must land inside one node's fabric (the webhook passes the gang's
+  total, Filter places each member's local mesh).
 
 Everything here is pure math over coordinates: no scheduler state, no
 locks, no torch, grpc or protobuf.  Filter and the webhook call the same

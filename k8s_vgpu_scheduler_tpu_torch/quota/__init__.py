@@ -6,10 +6,11 @@ Pods in governed namespaces are *held* at creation (``vtpu.dev/queue`` +
 weighted dominant-resource fair-share order against per-tenant nominal
 quotas with cohort borrowing, and a starved in-quota tenant reclaims
 *borrowed* grants through the scheduler's checkpoint-first preemption
-requests.  Ungoverned namespaces bypass the layer entirely.  Pod groups
-are refused at Filter until the gang slice (ROADMAP A.5), so no queue
-entry is ever a gang member: the JAX loop's gang release, gang backfill
-and gang reclaim are left out, and so is the elastic shrink pass.
+requests.  Ungoverned namespaces bypass the layer entirely.  A ready pod
+group is released all at once; while one accumulates members, smaller
+pods are backfilled around its footprint, and a gang reclaims only once
+it has all its members, for its whole footprint.  The elastic shrink pass
+waits for the elastic slice (ROADMAP A.5).
 """
 
 from .admission import AdmissionConfig, AdmissionLoop

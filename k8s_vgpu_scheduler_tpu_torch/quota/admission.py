@@ -10,7 +10,12 @@ runs it in the daemon's thread, as the rescuer runs):
    the fleet would only move the waiting line into Filter, where fairness
    no longer orders it);
 3. release admissible pods, the lowest weighted dominant share first,
-   re-sorted after every release;
+   re-sorted after every release; a ready gang releases all its members
+   at once, and while a gang accumulates members the backfill rule may
+   release smaller pods ahead of it: those that fit outside the gang's
+   estimated footprint, or that declare a runtime ending inside the
+   gang's reservation window (``scheduler/gang.py``'s expiry), so the
+   gang is never starved by its own queue;
 4. reclaim for starved in-quota queues (``reclaim.py``) through the
    scheduler's checkpoint-first preemption requests;
 5. publish ``vtpu.dev/queue-position`` and events, so ``kubectl describe
@@ -19,9 +24,9 @@ runs it in the daemon's thread, as the rescuer runs):
 Apiserver writes happen with no scheduler lock held; the release in
 memory is the gate's truth, and a failed patch is retried next tick.
 
-Left out until their slices of ROADMAP A.5: the gang release and the gang
-backfill (``_release_gang``; Filter refuses pod groups, so no entry is a
-gang member), the elastic shrink pass, and the provenance records.
+Left out until their slices of ROADMAP A.5: the elastic shrink pass and
+the provenance records.  The last tick's blocked heads stay readable
+(``blocked``): the queue, the head's uid and the reason.
 """
 
 from __future__ import annotations
@@ -58,6 +63,8 @@ class AdmissionConfig:
     #: Fold measured grant efficiency into the weights
     #: (--fair-share-usage-informed).
     usage_informed: bool = False
+    #: Gang-aware backfill on or off (--no-queue-backfill).
+    backfill: bool = True
     #: Reclaim on or off (--no-reclaim).
     reclaim: bool = True
     #: The release throttle's multiplier over registered cards; above 1.0
@@ -73,6 +80,8 @@ class AdmissionLoop:
         self._clock = clock or time.monotonic
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        #: The last tick's blocked heads: queue -> (uid, reason).
+        self.blocked: Dict[str, Tuple[str, str]] = {}
         #: queue name -> clock time of its last reclaim plan.
         self._last_reclaim: Dict[str, float] = {}
 
@@ -126,8 +135,10 @@ class AdmissionLoop:
             order = fair_share_order(mgr.queues, usage, effs,
                                      self.cfg.usage_informed)
             if not self._release_next(order, held_by_queue, usage,
-                                      fleet_cap, state, blocked, actions):
+                                      fleet_cap, state, blocked, actions,
+                                      now):
                 break
+        self.blocked = {q: (e.uid, why) for q, (e, why) in blocked.items()}
 
         if self.cfg.reclaim:
             self._reclaim_pass(usage, blocked, actions, now)
@@ -148,9 +159,34 @@ class AdmissionLoop:
         return fleet_cap is None or \
             state["outstanding"] + chips <= fleet_cap
 
+    # -- the backfill's QoS interlock ------------------------------------------
+    def _measured_idle_chips(self) -> Optional[float]:
+        """Cards of the fleet with no dispatching container, from the
+        usage ledger's fresh reports (``node_busy_chips``); None where no
+        node was measured (an unmonitored fleet: the interlock stands
+        down)."""
+        idle: Optional[float] = None
+        for name, info in self.s.nodes.list_nodes().items():
+            busy = self.s.ledger.node_busy_chips(name)
+            if busy is None:
+                continue
+            idle = (idle or 0.0) + max(0.0, len(info.devices) - busy)
+        return idle
+
+    def _backfill_idle_ok(self, entry: QueueEntry, state: dict) -> bool:
+        """A best-effort backfill lands next to running pods at once, so
+        it must fit in the measured idle cards; other classes, and an
+        unmeasured fleet, pass."""
+        if entry.qos != "best-effort":
+            return True
+        if "qos_idle" not in state:
+            state["qos_idle"] = self._measured_idle_chips()
+        idle = state["qos_idle"]
+        return idle is None or idle >= entry.chips
+
     # -- release ---------------------------------------------------------------
     def _release_next(self, order, held_by_queue, usage, fleet_cap, state,
-                      blocked, actions) -> bool:
+                      blocked, actions, now: float) -> bool:
         mgr = self.s.quota
         for _share, qname in order:
             q = mgr.queues[qname]
@@ -158,6 +194,11 @@ class AdmissionLoop:
             if not held:
                 continue
             head = held[0]
+            if head.gang is not None:
+                if self._release_gang(q, head, held, usage, fleet_cap,
+                                      state, blocked, actions, now):
+                    return True
+                continue
             ok, why = mgr.fits_quota(q, usage, head.chips, head.mem_mib)
             if ok and not self._fits_fleet(head.chips, fleet_cap, state):
                 ok, why = False, "fleet capacity exhausted"
@@ -168,8 +209,67 @@ class AdmissionLoop:
             return True
         return False
 
+    def _release_gang(self, q, head: QueueEntry, held: List[QueueEntry],
+                      usage, fleet_cap, state, blocked, actions,
+                      now: float) -> bool:
+        """The queue's head is a gang member.  A ready gang (every member
+        held) releases all its members at once; an accumulating gang holds
+        the head, and the backfill rule tries the entries behind it."""
+        # Deferred: the scheduler package imports the queues.
+        from ..scheduler.gang import GANG_EXPIRE_SECONDS
+
+        mgr = self.s.quota
+        members = [e for e in held if e.gang == head.gang]
+        if len(members) >= head.gang_total > 0:
+            members = members[:head.gang_total]
+            chips = sum(e.chips for e in members)
+            mem = sum(e.mem_mib for e in members)
+            ok, why = mgr.fits_quota(q, usage, chips, mem)
+            if ok and not self._fits_fleet(chips, fleet_cap, state):
+                ok, why = False, "fleet capacity exhausted"
+            if not ok:
+                blocked.setdefault(q.name, (head, why))
+                return False
+            for e in members:
+                self._release_one(q, e, held, usage, state, actions,
+                                  gang=head.gang)
+            return True
+        accumulating = (f"gang {head.gang} accumulating "
+                        f"({len(members)}/{head.gang_total})")
+        if not self.cfg.backfill:
+            blocked.setdefault(q.name, (head, accumulating))
+            return False
+        # The gang's eventual footprint from the members seen so far.
+        known = sum(e.chips for e in members)
+        avg = known / max(1, len(members))
+        footprint = known + avg * max(0, head.gang_total - len(members))
+        window_left = head.enqueued_at + GANG_EXPIRE_SECONDS - now
+        gang_uids = {e.uid for e in members}
+        for e in held:
+            if e.uid in gang_uids or e.gang is not None:
+                continue
+            ok, _why = mgr.fits_quota(q, usage, e.chips, e.mem_mib)
+            if not ok:
+                continue
+            fits_hole = (
+                fleet_cap is not None
+                and state["outstanding"] + footprint + e.chips <= fleet_cap)
+            short_lived = 0.0 < e.runtime_estimate_s <= window_left
+            if (fits_hole or short_lived) and \
+                    self._fits_fleet(e.chips, fleet_cap, state) and \
+                    self._backfill_idle_ok(e, state):
+                self._release_one(q, e, held, usage, state, actions,
+                                  backfilled=True)
+                if e.qos == "best-effort" and state.get("qos_idle") \
+                        is not None:
+                    state["qos_idle"] -= e.chips
+                return True
+        blocked.setdefault(q.name, (head, accumulating))
+        return False
+
     def _release_one(self, q, entry: QueueEntry, held: List[QueueEntry],
-                     usage, state, actions) -> None:
+                     usage, state, actions, gang: Optional[str] = None,
+                     backfilled: bool = False) -> None:
         mgr = self.s.quota
         released = mgr.release(entry.uid)
         if released is None:
@@ -180,16 +280,16 @@ class AdmissionLoop:
         usage[q.name].mem_mib += entry.mem_mib
         state["outstanding"] += entry.chips
         borrowed = usage[q.name].borrowed_chips(q)
-        # "gang" and "backfilled" keep the JAX record's keys: no entry is
-        # a gang member, so neither is ever set.
         actions.append({"kind": "admit", "queue": q.name,
                         "pod": f"{entry.namespace}/{entry.name}",
                         "uid": entry.uid, "chips": entry.chips,
-                        "gang": None, "backfilled": False,
+                        "gang": gang, "backfilled": backfilled,
                         "borrowed_after": borrowed})
-        log.info("queue %s: admitted %s/%s (%d card(s); queue now holds "
-                 "%d, %d borrowed)", q.name, entry.namespace, entry.name,
-                 entry.chips, usage[q.name].chips, borrowed)
+        log.info("queue %s: admitted %s/%s (%d card(s)%s%s; queue now "
+                 "holds %d, %d borrowed)", q.name, entry.namespace,
+                 entry.name, entry.chips, f", gang {gang}" if gang else "",
+                 ", backfilled" if backfilled else "",
+                 usage[q.name].chips, borrowed)
         self._write_release(mgr, released)
 
     def _write_release(self, mgr, entry: QueueEntry) -> None:
@@ -249,6 +349,19 @@ class AdmissionLoop:
             if entry is None:
                 continue
             demand = entry.chips
+            if entry.gang is not None:
+                # A gang reclaims only once it has all its members (an
+                # incomplete one is the backfill's business: evicting for
+                # members that may never come wastes checkpoints), and for
+                # its whole footprint.
+                members = sorted(
+                    (e for e in mgr.entries()
+                     if e.gang == entry.gang and e.queue == qname
+                     and e.state == STATE_HELD),
+                    key=lambda e: (e.enqueued_at, e.uid))
+                if len(members) < entry.gang_total:
+                    continue
+                demand = sum(e.chips for e in members[:entry.gang_total])
             # The entitlement check leaves out the trigger's own
             # reservation: a released entry is already in the usage.
             held_excl = u.chips
@@ -258,10 +371,13 @@ class AdmissionLoop:
                 continue  # the pod itself would borrow: no reclaim
             if pods is None:
                 pods = self.s.pods.list_pods()
-            # Never evict twice: victims the rescuer holds, or with an
-            # eviction request in flight, are off the table, and the cards
-            # on their way back count against the demand.
-            protected = set(self.s.rescuer.pending())
+            # Gang members are never victims.  Never evict twice: victims
+            # the rescuer holds, or with an eviction request in flight,
+            # are off the table, and the cards on their way back count
+            # against the demand.
+            protected = {uid for g in self.s.gangs.groups().values()
+                         for uid in (*g.members, *g.placements)}
+            protected |= set(self.s.rescuer.pending())
             with self.s._preempt_lock:
                 in_flight = set(self.s._preempt_requested)
             protected |= in_flight
@@ -320,12 +436,13 @@ class AdmissionLoop:
 
     def _reclaim_trigger(self, mgr, qname: str, blocked,
                          now: float) -> Optional[QueueEntry]:
-        """The queue's blocked head, else its oldest released entry left
-        unplaced past the grace, else None."""
+        """The queue's blocked head, else its oldest released entry (not a
+        gang member) left unplaced past the grace, else None."""
         if qname in blocked:
             return blocked[qname][0]
         for e in sorted((e for e in mgr.entries()
-                         if e.queue == qname and e.state == STATE_ADMITTED),
+                         if e.queue == qname and e.state == STATE_ADMITTED
+                         and e.gang is None),
                         key=lambda e: (e.released_at or 0.0, e.uid)):
             if e.released_at is not None and \
                     now - e.released_at > self.cfg.reclaim_grace_s:

@@ -19,7 +19,7 @@ import time
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 from ..k8s.client import pod_annotations, pod_name, pod_namespace, pod_uid
-from ..util.types import ASSIGNED_NODE_ANNOTATION, GANG_GROUP_ANNOTATION
+from ..util.types import ASSIGNED_NODE_ANNOTATION, QOS_ANNOTATION
 
 #: Written by the webhook on governed pods: the capacity queue's name.
 QUEUE_ANNOTATION = "vtpu.dev/queue"
@@ -27,8 +27,9 @@ QUEUE_ANNOTATION = "vtpu.dev/queue"
 QUEUE_STATE_ANNOTATION = "vtpu.dev/queue-state"
 #: Published by the admission loop while held ("position/total").
 QUEUE_POSITION_ANNOTATION = "vtpu.dev/queue-position"
-#: A user's hint of a pod's runtime, for the gang backfill rule (which
-#: comes with the gang slice).
+#: A user's hint of a pod's runtime, for the gang backfill rule: a held pod
+#: declaring a runtime shorter than a waiting gang's reservation window
+#: may be released ahead of the gang, into cards the gang will need.
 RUNTIME_ESTIMATE_ANNOTATION = "vtpu.dev/estimated-runtime-seconds"
 
 STATE_HELD = "held"
@@ -105,8 +106,7 @@ def queue_for_namespace(queues: Iterable[Mapping or QueueConfig],
 
 @dataclasses.dataclass
 class QueueEntry:
-    """One held or released pod of a queue (never a pod group: Filter
-    refuses those)."""
+    """One held or released pod of a queue."""
 
     uid: str
     name: str
@@ -114,6 +114,13 @@ class QueueEntry:
     queue: str
     chips: int
     mem_mib: int
+    #: The pod group and its total (gang members release together).
+    gang: Optional[str] = None
+    gang_total: int = 0
+    runtime_estimate_s: float = 0.0
+    #: ``vtpu.dev/qos`` ("": unclassed).  A best-effort backfill also needs
+    #: the fleet's measured idle cards (admission.py).
+    qos: str = ""
     enqueued_at: float = 0.0
     last_seen: float = 0.0
     state: str = STATE_HELD
@@ -225,11 +232,25 @@ class QuotaManager:
     @staticmethod
     def _make_entry(pod: dict, q: QueueConfig, requests,
                     now: float) -> QueueEntry:
+        # Deferred: the scheduler package imports the queues.
+        from ..scheduler.gang import gang_of
+
         chips, mem = demand_of(requests)
+        gang = gang_of(pod)
+        anns = pod_annotations(pod)
+        try:
+            runtime = float(anns.get(RUNTIME_ESTIMATE_ANNOTATION, "0"))
+        except ValueError:
+            runtime = 0.0
         return QueueEntry(
             uid=pod_uid(pod), name=pod_name(pod),
             namespace=pod_namespace(pod), queue=q.name,
-            chips=chips, mem_mib=mem, enqueued_at=now, last_seen=now)
+            chips=chips, mem_mib=mem,
+            gang=gang[0] if gang else None,
+            gang_total=gang[1] if gang else 0,
+            runtime_estimate_s=max(0.0, runtime),
+            qos=anns.get(QOS_ANNOTATION, "") or "",
+            enqueued_at=now, last_seen=now)
 
     def _position_locked(self, e: QueueEntry) -> Tuple[int, int]:
         """(1-based position among e's queue's held entries, total held),
@@ -247,8 +268,7 @@ class QuotaManager:
     def observe_pod(self, event: str, pod: dict, requests_fn=None) -> None:
         """Keep the entries in step with the informer: a deleted or placed
         pod leaves its queue; a listed held or admitted pod never seen
-        (after a restart) is learned from its annotations.  A pod group is
-        never learned: Filter refuses it (the gang slice places them)."""
+        (after a restart) is learned from its annotations."""
         if not self.queues:
             return
         uid = pod_uid(pod)
@@ -266,8 +286,7 @@ class QuotaManager:
             self.forget(uid)
             return
         state = anns.get(QUEUE_STATE_ANNOTATION)
-        if state not in (STATE_HELD, STATE_ADMITTED) \
-                or anns.get(GANG_GROUP_ANNOTATION):
+        if state not in (STATE_HELD, STATE_ADMITTED):
             return
         now = self._clock()
         with self._lock:
@@ -456,7 +475,7 @@ class QuotaManager:
                 "namespaces": list(q.namespaces),
                 "pending_pods": [
                     {"pod": f"{e.namespace}/{e.name}", "position": i + 1,
-                     "chips": e.chips, "gang": None}
+                     "chips": e.chips, "gang": e.gang}
                     for i, e in enumerate(held)],
             })
         return {"queues": rows, "reclaims_total": self.reclaims_total}

@@ -30,10 +30,13 @@ terminal bind phase the informer sees.  A
 node's fabric (the ``TopologyDesc`` and card coordinates its agent
 registers) places multi-card requests by the slice engine under the pod's
 topology policy, and ``vtpu.dev/mesh`` pods by ``placement/mesh.py``.  A
-pod that declares a gang (``vtpu.dev/pod-group``) or an elastic mesh range
-(``vtpu.dev/mesh-min``/``-max``) is refused with an error that names the
-slice that places it: it is never placed as though it declared neither.
-This
+pod group (``vtpu.dev/pod-group``) is placed all or none by ``gang.py``:
+its members wait for their quorum, are placed at once on one snapshot
+with a rank each (``vtpu.dev/pod-group-rank``), keep their grants until
+deletion, and are never preemption victims.  A pod that declares an
+elastic mesh range (``vtpu.dev/mesh-min``/``-max``) is refused with an
+error that names the slice that places it: it is never placed as though
+it declared none.  This
 module imports neither grpc nor protobuf: the register stream's messages
 are read through their attributes, and only ``cmd/scheduler.py`` converts
 at the gRPC edge.
@@ -78,14 +81,22 @@ from ..util.types import (
     BIND_PHASE_ANNOTATION,
     BIND_SUCCESS,
     BIND_TIME_ANNOTATION,
-    GANG_GROUP_ANNOTATION,
+    GANG_RANK_ANNOTATION,
     MESH_MAX_ANNOTATION,
     MESH_MIN_ANNOTATION,
+    QOS_ANNOTATION,
     QOS_BEST_EFFORT,
     QOS_DUTY_SPLIT_ANNOTATION,
     TO_ALLOCATE_ANNOTATION,
 )
 from . import score as score_mod
+from .gang import (
+    GangConflictError,
+    GangManager,
+    GangMember,
+    gang_of,
+    place_gang,
+)
 from .nodes import DeviceInfo, NodeInfo, NodeManager
 from .pods import PodInfo, PodManager
 from .preempt import PREEMPT_ANNOTATION, PreemptionPlan, plan_preemption
@@ -95,8 +106,6 @@ log = logging.getLogger(__name__)
 #: Annotations this scheduler refuses to place without, by the slice of
 #: the port that places them.
 UNPLACED_ANNOTATIONS = {
-    GANG_GROUP_ANNOTATION: "pod groups are placed by the gang slice "
-                           "(ROADMAP A.5)",
     MESH_MIN_ANNOTATION: "elastic mesh ranges are placed by the elastic "
                          "slice (ROADMAP A.5)",
     MESH_MAX_ANNOTATION: "elastic mesh ranges are placed by the elastic "
@@ -144,6 +153,9 @@ class Scheduler:
         self._clock = clock or time.monotonic
         self.nodes = NodeManager()
         self.pods = PodManager()
+        # Pod groups on wall time (GangManager's own clock, as in the JAX
+        # scheduler); tests set ``gangs._now``.
+        self.gangs = GangManager()
         # ``clock`` (time.monotonic by default) drives the leases, the
         # quarantine and the rescuer, so tests age them without sleeping.
         self.leases = LeaseTracker(
@@ -175,6 +187,7 @@ class Scheduler:
                 interval_s=self.cfg.admission_interval_s,
                 reclaim_grace_s=self.cfg.queue_reclaim_grace_s,
                 usage_informed=self.cfg.fair_share_usage_informed,
+                backfill=self.cfg.enable_queue_backfill,
                 reclaim=self.cfg.enable_reclaim,
                 fleet_headroom=self.cfg.queue_fleet_headroom),
             clock=clock)
@@ -295,6 +308,7 @@ class Scheduler:
             # The node agent's half of the two-phase commit completed.
             self._trace_allocate(uid, pod, anns, phase)
         if event == "DELETED" or is_pod_terminated(pod):
+            self.gangs.drop_member(uid)
             if self.pods.get(uid) is not None and not self._deleted(uid):
                 trace.tracer().event(uid, "deleted", trace_id=anns.get(
                     trace.TRACE_ID_ANNOTATION, ""), pod=pod_name(pod),
@@ -306,7 +320,11 @@ class Scheduler:
             self.pods.del_pod(uid)
             return
         if not node:
-            self.pods.del_pod(uid)
+            # A gang member between its admission and its own decision
+            # write holds a grant without ``assigned-node``: an event or a
+            # resync must not free it, or other pods take the gang's cards.
+            if not self.gangs.is_reserved(uid):
+                self.pods.del_pod(uid)
             return
         if event == "ADDED" and self._deleted(uid):
             return
@@ -404,6 +422,8 @@ class Scheduler:
                     pass
                 except Exception:  # noqa: BLE001 — kept; the next pass retries
                     continue
+            # No tombstone: the list may only be stale about a live pod.
+            self.gangs.drop_member(info.uid, tombstone=False)
             self.pods.del_pod(info.uid)
         self._reconcile_preemptions(pods)
         return rv
@@ -581,6 +601,10 @@ class Scheduler:
         is the ``filter`` span, the write the ``decision-write`` span."""
         tid = trace.trace_id_of(pod)
         tr = trace.tracer()
+        # The expiry sweep first, outside the lock (it reads the
+        # apiserver).
+        if self.gangs.groups():
+            self._release_expired_gangs()
         with tr.span("filter", trace_id=tid, pod=pod_name(pod),
                      candidates=len(node_names), qos=pod_qos(pod)) as sp:
             result = self._decide(pod, node_names)
@@ -642,6 +666,11 @@ class Scheduler:
         hold = self.quota.gate(pod, requests)
         if hold is not None:
             return FilterResult(error=hold)
+        gang = gang_of(pod)
+        if gang is not None:
+            with self._lock:
+                return self._decide_gang_locked(pod, requests, node_names,
+                                                gang)
         with self._lock:
             result = self._decide_locked(pod, requests, node_names, anns)
         if result.node is None and result.error == NO_FIT:
@@ -658,6 +687,10 @@ class Scheduler:
         no use to the pod."""
         if not self.cfg.enable_preemption:
             return None
+        # Gang members are never victims: evicting one hangs the rest of
+        # its collective and frees a fraction of the gang's cards.
+        gang_uids = {u for g in self.gangs.groups().values()
+                     for u in (*g.members, *g.placements)}
         offered = set(node_names)
         entries = {name: (info, None)
                    for name, info in self.nodes.list_nodes().items()
@@ -666,6 +699,7 @@ class Scheduler:
         return plan_preemption(
             requests, pod_priority(pod, self.cfg), entries,
             self._pods_by_node(), anns, self.cfg.topology_policy,
+            protected_uids=gang_uids,
             node_policy=self.cfg.node_scheduler_policy)
 
     def _request_preemptions(self, pod: dict, plan: PreemptionPlan) -> None:
@@ -781,6 +815,113 @@ class Scheduler:
             trace_id=trace.trace_id_of(pod), qos=pod_qos(pod)))
         return FilterResult(node=node, failed=failed)
 
+    # -- gangs (gang.py) ---------------------------------------------------------
+    def _decide_gang_locked(self, pod: dict, requests, node_names: List[str],
+                            gang_key: Tuple[str, int]) -> FilterResult:
+        """A member's Filter: registered with its group; refused while the
+        group waits for its quorum; the quorum's member places the whole
+        group atomically over the offered nodes whose leases are healthy
+        and charges every member's grant at once; an admitted member gets
+        its reserved node back."""
+        group, total = gang_key
+        uid = pod_uid(pod)
+        try:
+            g = self.gangs.observe(
+                pod_namespace(pod), group, total,
+                GangMember(uid=uid, name=pod_name(pod),
+                           namespace=pod_namespace(pod), requests=requests,
+                           annotations=pod.get("metadata", {}).get(
+                               "annotations") or {}))
+        except GangConflictError as e:
+            # The admitted members' placements stay as they are.
+            return FilterResult(error=str(e))
+
+        if uid in g.placements:
+            node, devices = g.placements[uid]
+            if node_names and node not in node_names:
+                return FilterResult(
+                    error=f"gang {group}: reserved node {node} not offered")
+            if self.pods.get(uid) is None:
+                # The grant was lost (a failed decision write rolled it
+                # back): restore it from the placement.
+                self.pods.add_pod(PodInfo(
+                    uid=uid, name=pod_name(pod),
+                    namespace=pod_namespace(pod), node=node,
+                    devices=devices, priority=pod_priority(pod, self.cfg),
+                    trace_id=trace.trace_id_of(pod), qos=pod_qos(pod)))
+            return FilterResult(node=node)
+
+        if len(g.members) < g.total:
+            # The barrier: kube-scheduler retries the early members.
+            return FilterResult(
+                error=f"gang {group} waiting ({len(g.members)}/{g.total})")
+
+        offered = set(node_names) if node_names else None
+        usage = {name: (info, self._usage(name, info))
+                 for name, info in self.nodes.list_nodes().items()
+                 if (offered is None or name in offered)
+                 and self.leases.reject_reason(name) is None}
+        # An admitted gang at its quorum again has replacements in freed
+        # slots: only they are placed (the peers' grants are charged, and
+        # a bound member's node never changes).
+        missing = ([u for u in sorted(g.members) if u not in g.placements]
+                   if g.placements else None)
+        placements = place_gang(
+            g, usage, score_mod.fit_pod,
+            lambda u: score_mod.node_score(u, self.cfg.node_scheduler_policy),
+            self.cfg.topology_policy, only_uids=missing)
+        if placements is None:
+            return FilterResult(
+                error=f"gang {group}: no atomic placement for "
+                      f"{g.total} members")
+        g.placements.update(placements)
+        g.assign_ranks(placements)
+        # Every member's grant now, so no other Filter takes the reserved
+        # cards while the members' retries come in.  The priority stays
+        # PodInfo's default (the member's spec is not at hand): gang uids
+        # are never preemption victims anyway.
+        for member_uid, (node, devices) in placements.items():
+            m = g.members[member_uid]
+            self.pods.add_pod(PodInfo(
+                uid=member_uid, name=m.name, namespace=m.namespace,
+                node=node, devices=devices,
+                trace_id=m.annotations.get(trace.TRACE_ID_ANNOTATION, ""),
+                qos=m.annotations.get(QOS_ANNOTATION, "") or ""))
+        log.info("gang %s admitted: %s", group,
+                 {u: n for u, (n, _) in placements.items()})
+        node, _ = g.placements[uid]
+        return FilterResult(node=node)
+
+    def _release_expired_gangs(self) -> None:
+        """Free the tentative grants of groups without progress, but never
+        a member's that already bound (its pod carries a bind phase).
+        Outside the decision lock: each member is read from the
+        apiserver, and a transient error keeps its grant and the group for
+        the next sweep."""
+        for g in self.gangs.expired():
+            unresolved = False
+            for member_uid in list(g.placements):
+                if self.pods.get(member_uid) is None:
+                    continue
+                m = g.members[member_uid]
+                try:
+                    p = self.client.get_pod(m.namespace, m.name)
+                    anns = p.get("metadata", {}).get("annotations") or {}
+                    release = not anns.get(BIND_PHASE_ANNOTATION)
+                except NotFound:
+                    release = True
+                except Exception as e:  # noqa: BLE001 — kept; the next sweep retries
+                    log.warning("gang expiry: cannot check %s (%s); keeping",
+                                member_uid, e)
+                    unresolved = True
+                    continue
+                if release:
+                    self.pods.del_pod(member_uid)
+                    log.warning("gang %s expired; released %s", g.key,
+                                member_uid)
+            if not unresolved:
+                self.gangs.forget(g.key)
+
     def _write_decision(self, pod: dict, result: FilterResult
                         ) -> Optional[str]:
         """The decision as one annotation patch; the error, or None."""
@@ -795,6 +936,11 @@ class Scheduler:
         if pod_qos(pod):
             patch[QOS_DUTY_SPLIT_ANNOTATION] = self._qos_duty_split(
                 result.node)
+        rank = self.gangs.rank_of(pod_uid(pod))
+        if rank is not None:
+            # The member's process rank, stable across replacements: the
+            # node agent passes it on as VTPU_GANG_RANK.
+            patch[GANG_RANK_ANNOTATION] = str(rank)
         with trace.tracer().span("decision-write",
                                  trace_id=trace.trace_id_of(pod),
                                  pod=pod_name(pod), node=result.node,

@@ -101,6 +101,49 @@ def build_usage(node: NodeInfo, pods_on_node: List[PodInfo]
     return usage
 
 
+def clone_usage(u: DeviceUsage) -> DeviceUsage:
+    return DeviceUsage(u.id, u.type, u.health, u.coords, u.total_slots,
+                       u.used_slots, u.total_mem, u.used_mem,
+                       u.total_cores, u.used_cores)
+
+
+class CowUsage:
+    """Copy-on-write view over a usage mapping that is never written.
+
+    ``fit_container`` clones a card through :meth:`own` only where a
+    tentative placement changes it; reads merge the private overlay over
+    the base, so a later container sees an earlier one's grant.  Views
+    stack: gang placement (``gang.place_gang``) lays a trial view for
+    each attempt and a probe view for each member and node on top."""
+
+    __slots__ = ("_base", "_own")
+
+    def __init__(self, base) -> None:
+        self._base = base
+        self._own: Dict[str, DeviceUsage] = {}
+
+    def own(self, chip_id: str) -> DeviceUsage:
+        """A private, mutable copy of one card (cloned once a view)."""
+        u = self._own.get(chip_id)
+        if u is None:
+            u = clone_usage(self._base[chip_id])
+            self._own[chip_id] = u
+        return u
+
+    def __getitem__(self, chip_id: str) -> DeviceUsage:
+        got = self._own.get(chip_id)
+        return got if got is not None else self._base[chip_id]
+
+    def __len__(self) -> int:
+        return len(self._base)
+
+    def values(self):
+        if not self._own:
+            return self._base.values()
+        own = self._own
+        return [own.get(u.id) or u for u in self._base.values()]
+
+
 def parse_affinity(annotations: Dict[str, str]) -> Affinity:
     """The type white/blacklist tokens.  The whitelist is None when the
     annotation is absent: a present one without tokens (" ", ",,") matches
@@ -187,8 +230,9 @@ def fit_container(req: ContainerDeviceRequest, usage: Dict[str, DeviceUsage],
                   policy: str = BEST_EFFORT,
                   reasons: Optional[Dict[str, str]] = None
                   ) -> Optional[ContainerDevices]:
-    """Place one container's request, mutating ``usage`` on success.  On
-    failure, ``reasons["reason"]`` (when given) says why."""
+    """Place one container's request, mutating ``usage`` (or, for a
+    :class:`CowUsage`, its overlay) on success.  On failure,
+    ``reasons["reason"]`` (when given) says why."""
     if req.nums <= 0:
         return []
     affinity = parse_affinity(annotations)
@@ -234,8 +278,13 @@ def fit_container(req: ContainerDeviceRequest, usage: Dict[str, DeviceUsage],
         chosen = sorted(eligible, key=lambda u: (u.used_slots, u.used_mem),
                         reverse=True)[:req.nums]
     grants: ContainerDevices = []
+    # Against a CowUsage view, clone only the cards this grant changes; a
+    # plain dict (a copy the caller owns) is changed in place.
+    own = getattr(usage, "own", None)
     for chip in chosen:
         mem = _resolve_mem(req, chip)
+        if own is not None:
+            chip = own(chip.id)
         chip.used_slots += 1
         chip.used_mem += mem
         chip.used_cores += req.coresreq

@@ -20,7 +20,8 @@ Reference: pkg/scheduler/webhook.go:170–247.  On pod CREATE:
 
 A pod is refused with a 422 where its ``vtpu.dev/mesh`` could never place
 (the JAX package's messages: the shape parses, its volume is the pod's
-card count, its local mesh fits a fabric registered in the fleet), where
+card count, times the members of its gang, its local mesh fits a fabric
+registered in the fleet), where
 it declares an elastic mesh range (``vtpu.dev/mesh-min``/``-max``, placed
 by the elastic slice, ROADMAP A.5), or where its ``vtpu.dev/qos`` class is
 unknown.  AdmissionReview v1 in, a JSONPatch out.
@@ -38,6 +39,7 @@ from ..util import trace
 from ..util.config import Config
 from ..util.resources import container_requests
 from ..placement.mesh import validate_mesh
+from .gang import gang_of
 from ..quota.queues import (QUEUE_ANNOTATION, QUEUE_STATE_ANNOTATION,
                             STATE_HELD, queue_for_namespace)
 from ..util.types import (
@@ -190,13 +192,13 @@ def _podinfo_patches(pod: dict, container_idxs: List[int],
 def validate_pod_mesh(pod: dict, cfg: Config,
                       topologies=None) -> Optional[str]:
     """Admission-time ``vtpu.dev/mesh`` validation: the shape parses, its
-    volume is the pod's card count, and its local mesh is realizable on at
-    least one fabric in the fleet.  The user-facing refusal, or None.
+    volume is the pod's card count times its gang's members (axis 0
+    dividing across them), and its local mesh is realizable on at least
+    one fabric in the fleet.  The user-facing refusal, or None.
     ``topologies`` is an iterable of TopologyDesc or a callable giving one
     (the extender passes ``Scheduler.known_topologies``); none skips the
     fleet check, so the first pod of a cluster whose agents have not
-    registered yet is not refused.  A gang counts one member: the port
-    refuses pod groups (ROADMAP A.5)."""
+    registered yet is not refused."""
     anns = pod.get("metadata", {}).get("annotations") or {}
     mesh_value = anns.get(MESH_ANNOTATION, "")
     if not mesh_value:
@@ -207,9 +209,11 @@ def validate_pod_mesh(pod: dict, cfg: Config,
         return (f"{MESH_ANNOTATION} {mesh_value!r}: cannot validate "
                 f"against unparseable resources: {e}")
     nums = max((r.nums for r in requests), default=0)
+    gang = gang_of(pod)
+    gang_total = gang[1] if gang is not None else 1
     topos = list(topologies() if callable(topologies)
                  else (topologies or ()))
-    why = validate_mesh(mesh_value, nums, 1, topos)
+    why = validate_mesh(mesh_value, nums, gang_total, topos)
     if why is None:
         return None
     return f"{MESH_ANNOTATION}: {why}"

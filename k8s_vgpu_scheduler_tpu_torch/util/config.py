@@ -85,12 +85,14 @@ class Config:
     # a tuple of dicts (empty: the admission layer is off and every
     # namespace bypasses it), the admission loop's period, how long a
     # released pod may sit unplaced before its under-nominal queue
-    # reclaims borrowed grants, reclaim on or off (--no-reclaim), the
+    # reclaims borrowed grants, gang-aware backfill on or off
+    # (--no-queue-backfill), reclaim on or off (--no-reclaim), the
     # release throttle's multiplier over registered cards, and whether
     # measured grant efficiency demotes idle tenants' weights.
     quota_queues: tuple = ()
     admission_interval_s: float = 2.0
     queue_reclaim_grace_s: float = 15.0
+    enable_queue_backfill: bool = True
     enable_reclaim: bool = True
     queue_fleet_headroom: float = 1.0
     fair_share_usage_informed: bool = False

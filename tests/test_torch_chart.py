@@ -218,11 +218,36 @@ def test_the_quota_values_render_into_the_extender(tmp_path):
     assert all(m["name"] != "scheduler-config" for m in base["volumeMounts"])
 
 
+def test_the_backfill_value_renders_no_queue_backfill():
+    """``scheduler.quota.backfill`` (default true, in the schema): false
+    renders ``--no-queue-backfill``, which the port's ``parse_args``
+    reads into ``Config.enable_queue_backfill``."""
+    import jsonschema
+
+    base = containers(render())["vgpu-extender"]
+    argv = [str(a) for a in base["command"][3:]]
+    assert "--no-queue-backfill" not in argv
+    assert scheduler.build_config(scheduler.parse_args(argv)) \
+        .enable_queue_backfill
+    vals = values()
+    assert vals["scheduler"]["quota"]["backfill"] is True
+    vals["scheduler"]["quota"]["backfill"] = False
+    jsonschema.validate(vals, schema())
+    out = containers(render({"scheduler": {"quota": {"backfill": False}}}))
+    argv = [str(a) for a in out["vgpu-extender"]["command"][3:]]
+    assert "--no-queue-backfill" in argv
+    cfg = scheduler.build_config(scheduler.parse_args(argv))
+    assert not cfg.enable_queue_backfill
+    vals["scheduler"]["quota"]["backfill"] = "no"
+    with pytest.raises(jsonschema.ValidationError):
+        jsonschema.validate(vals, schema())
+
+
 @pytest.mark.parametrize("bad", [
     {"queues": [{"name": "a"}]},
     {"queues": [{"name": "a", "namespaces": [], "weight": 0}]},
     {"queues": [{"name": "a", "namespaces": [], "quota": {"gpus": 1}}]},
-    {"queues": [], "backfill": False},
+    {"queues": [], "shrink": False},
 ], ids=["no_namespaces", "zero_weight", "unknown_quota_key", "unknown_key"])
 def test_the_schema_refuses_bad_quota_values(bad):
     import jsonschema

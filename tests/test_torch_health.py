@@ -422,3 +422,49 @@ def test_the_seeded_plans_differ_by_seed_and_repeat_by_seed():
         [rec] = health_run(FAULT_FLEET, {}, script, port=True)
         plans.setdefault(seed, []).append(rec[2]["plan"])
     assert plans[7][0] == plans[7][1] != plans[8][0]
+
+
+def test_a_rescued_member_leaves_its_gang():
+    """A gang member whose card vanished from its node's re-registration
+    is rescued (its decision rescinded) and leaves its group without a
+    tombstone, on both packages: the sweep's actions, the group registry
+    (its placement and rank freed, the peer's kept) and the grants are
+    equal; the member's next Filter joins the group again and is placed
+    alone, with the freed rank."""
+    from k8s_vgpu_scheduler_tpu_torch.util import types as t
+    from tests.test_torch_gang import (NODES, TDevice, TNode, TTopo,
+                                       JDevice, JNode, JTopo, gang_pod,
+                                       run_both)
+
+    def script(side):
+        pods = [gang_pod(f"w{i}", f"gu{i}", group="ring", total=2)
+                for i in range(2)]
+        for p in pods:
+            side.kube.create_pod(p)
+        for p in pods + pods:
+            side.filter(p)
+        node = side.s.pods.get("gu0").node
+        Dev, Node, Topo = ((TDevice, TNode, TTopo) if side.port
+                           else (JDevice, JNode, JTopo))
+        devs = [Dev(id=f"{node}-gpu-{i}", count=10, devmem=16384,
+                    type="NVIDIA-h100", health=True, coords=(i, 0))
+                for i in range(1, 4)]
+        side.s.nodes.add_node(node, Node(name=node, devices=devs,
+                                         topology=Topo(generation="h100",
+                                                       mesh=(4, 1))))
+        rec = {"node": node, "placed": side.state("w0", "w1"),
+               "sweep": side.s.rescuer.sweep()}
+        rec["after"] = side.state()
+        rec["retry"] = side.filter(side.kube.get_pod("default", "w0"),
+                                   [n for n in NODES if n != node])
+        return {**rec, **side.state("w0", "w1")}
+
+    rec, _ = run_both(script)
+    rescued = [a for a in rec["sweep"] if a["kind"] == "rescued"]
+    assert [a["uid"] for a in rescued] == ["gu0"]
+    [gang] = rec["after"]["gangs"].values()
+    assert gang["members"] == ["gu1"] and list(gang["ranks"]) == ["gu1"]
+    assert "gu0" not in rec["after"]["grants"]
+    assert rec["retry"]["node"] not in (None, rec["node"])
+    ranks = {a[t.GANG_RANK_ANNOTATION] for a in rec["anns"].values()}
+    assert ranks == {"0", "1"}

@@ -120,7 +120,8 @@ def test_new_modules_are_under_the_import_rules():
                 "accounting/efficiency.py", "monitor/metrics.py",
                 "monitor/noderpc.py", "api/noderpc_pb2.py",
                 "scheduler/metrics.py", "cmd/vgpu_smi.py",
-                "cmd/vgpu_report.py", "cmd/simulate.py"):
+                "cmd/vgpu_report.py", "cmd/simulate.py",
+                "scheduler/gang.py", "parallel/multihost.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -578,6 +579,57 @@ def test_scheduler_core_runs_without_grpc_protobuf_or_torch():
         "assert not {m for m in loaded if m.split('.')[0] in\n"
         "            ('grpc', 'torch') or m.startswith('google.protobuf')}\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_gangs_run_without_grpc_protobuf_or_torch():
+    """A pod group through the extender's core with grpc, protobuf and
+    torch blocked: the barrier, the atomic placement, the ranks; and the
+    gang env read by ``parallel/multihost.py``, which imports torch only
+    inside ``initialize_from_env``."""
+    code = (
+        "import sys\n"
+        "for name in ('grpc', 'google.protobuf', 'torch'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube\n"
+        "from k8s_vgpu_scheduler_tpu_torch.parallel import multihost\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler.nodes import (\n"
+        "    DeviceInfo, NodeInfo)\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util.config import Config\n"
+        "kube = FakeKube()\n"
+        "s = Scheduler(kube, Config())\n"
+        "for n in ('a', 'b'):\n"
+        "    kube.add_node({'metadata': {'name': n, 'annotations': {}}})\n"
+        "    s.nodes.add_node(n, NodeInfo(name=n, devices=[DeviceInfo(\n"
+        "        id=f'{n}-0', count=10, devmem=81079, type='NVIDIA-H100',\n"
+        "        health=True)]))\n"
+        "kube.watch_pods(s.on_pod_event)\n"
+        "pods = [{'metadata': {'name': f'ring-{i}', 'namespace': 'default',\n"
+        "         'uid': f'u{i}', 'annotations': {\n"
+        "             'vtpu.dev/pod-group': 'ring',\n"
+        "             'vtpu.dev/pod-group-total': '2'}},\n"
+        "         'spec': {'containers': [{'name': 'c', 'resources': {\n"
+        "             'limits': {'nvidia.com/gpu': '1',\n"
+        "                        'nvidia.com/gpumem': '81079'}}}]}}\n"
+        "        for i in range(2)]\n"
+        "for p in pods:\n"
+        "    kube.create_pod(p)\n"
+        "assert 'waiting (1/2)' in s.filter(pods[0], ['a', 'b']).error\n"
+        "assert s.filter(pods[1], ['a', 'b']).node\n"
+        "assert s.filter(pods[0], ['a', 'b']).node\n"
+        "ranks = sorted(kube.get_pod('default', p['metadata']['name'])[\n"
+        "    'metadata']['annotations']['vtpu.dev/pod-group-rank']\n"
+        "    for p in pods)\n"
+        "assert ranks == ['0', '1'], ranks\n"
+        "assert multihost.gang_env() is None\n"
+        "loaded = {m for m, v in sys.modules.items() if v is not None}\n"
+        "assert not {m for m in loaded if m.split('.')[0] in\n"
+        "            ('grpc', 'torch') or m.startswith('google.protobuf')}\n")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("VTPU_GANG_")}
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
 

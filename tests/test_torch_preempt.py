@@ -15,11 +15,11 @@ included), the requester -> victims ledger and the victims asked, the
 count of requests written, and the cards' usage.  Every comparison is
 equality.
 
-Left out, and why: tests/test_preempt.py's gang case (the port refuses a
-pod group by name until the gang slice, ROADMAP A.5), and its trajectory
-and watch cases (the
-port's run_preemptible and watch are held in tests/test_torch_checkpoint.py;
-the watch's reading of a rescue value is held below).
+tests/test_preempt.py's gang case runs on both packages too, on that
+case's one node of two cards (``tests/test_torch_gang.py``'s ``Side``).
+Left out, and why: its trajectory and watch cases (the port's
+run_preemptible and watch are held in tests/test_torch_checkpoint.py; the
+watch's reading of a rescue value is held below).
 """
 
 import json
@@ -363,3 +363,39 @@ def test_the_eviction_request_is_written_once_per_victim():
     [ledger] = [rec[1] for rec in got if rec[0] == "ledger"]
     assert ledger["written"] == 2 and ledger["asked"] == ["uid-lp1",
                                                           "uid-lp2"]
+
+
+def test_gang_members_are_never_victims():
+    """tests/test_preempt.py's gang case on both packages: two members of
+    ``job1`` at low priority fill a two-card node; a pod that outranks
+    them fits nowhere and gets no plan (gang uids are never victims), and
+    no member is asked to leave."""
+    from tests.test_torch_gang import gang_pod, run_both
+
+    def script(side):
+        members = []
+        for i in range(2):
+            m = gang_pod(f"g{i}", f"u-g{i}", total=2, nums="1",
+                         mem="16000")
+            m["spec"]["containers"][0]["resources"]["limits"][
+                "nvidia.com/priority"] = "2"
+            members.append(m)
+            side.kube.create_pod(m)
+        rec = {"wait": side.filter(members[0], ["node-a"]),
+               "g1": side.filter(members[1], ["node-a"]),
+               "g0": side.filter(members[0], ["node-a"])}
+        hp = gang_pod("hp", "u-hp", nums="1", mem="16000")
+        hp["metadata"]["annotations"] = {}
+        side.kube.create_pod(hp)
+        res = side.s.filter(hp, ["node-a"])
+        rec["hp"] = [res.node, res.preempt is None,
+                     res.error.replace("TPU", "GPU")]
+        rec["asked"] = [side.kube.get_pod("default", f"g{i}")["metadata"][
+            "annotations"].get(PREEMPT_ANNOTATION) for i in range(2)]
+        return {**rec, **side.state("g0", "g1")}
+
+    rec, _ = run_both(script, nodes=["node-a"], chips=2,
+                      enable_preemption=True)
+    assert rec["g1"]["node"] == "node-a" and rec["g0"]["node"] == "node-a"
+    assert rec["hp"][:2] == [None, True]
+    assert rec["asked"] == [None, None]

@@ -1,9 +1,8 @@
 """The port's capacity queues (``quota/`` and their hooks in the extender)
 against the JAX package's, on the CPU.
 
-Every case of ``tests/test_quota.py`` but the gang backfill
-(``TestBackfill``: pod groups wait for the gang slice) and the pending
-table's ``/explainz`` join (provenance) runs here on both packages: the
+Every case of ``tests/test_quota.py`` but the pending table's
+``/explainz`` join (provenance) runs here on both packages: the
 same fleet (two nodes of four cards, a (4, 1) fabric each), the same pods,
 the same script of creates, Filters, Binds, deletes and admission ticks,
 each side on its own SimClock.  What each side shows is held equal: the
@@ -481,21 +480,29 @@ class TestGate:
                 "value": "a"} in ops
 
     def test_pod_group_is_refused_and_never_queued(self):
-        """Filter refuses a pod group (the gang slice places them) before
-        the gate, and the informer never enqueues one."""
-        side = Side(True)
-        try:
-            pod = mkpod("g0", "team-a", queue="a",
-                        extra_anns={"vtpu.dev/pod-group": "ring",
-                                    "vtpu.dev/pod-group-total": "2"})
-            side.kube.create_pod(pod)
+        """A governed pod group's lone member, as the JAX package answers
+        it: Filter holds it in its queue (the gate comes before the gang
+        barrier), the informer queues it as a gang member, and a tick
+        leaves it held while its group accumulates (TestBackfill places
+        whole groups)."""
+        def script(side):
+            [pod] = side.create(mkpod(
+                "g0", "team-a", queue="a",
+                extra_anns={"vtpu.dev/pod-group": "ring",
+                            "vtpu.dev/pod-group-total": "2"}))
             r = side.s.filter(pod, side.names)
-            assert r.node is None and "pod groups are placed by the gang " \
-                "slice" in r.error
-            assert side.s.quota.entries() == []
-            assert side.s.admission.tick() == []
-        finally:
-            side.close()
+            return {"filter": [r.node, r.error],
+                    "entries": [[e.uid, e.gang, e.gang_total, e.state]
+                                for e in side.s.quota.entries()],
+                    "acts": side.s.admission.tick(), **observed(side)}
+
+        rec, _ = run_both(script)
+        assert rec["filter"][0] is None and rec["filter"][1].startswith(
+            "held in capacity queue a (position 1/1")
+        assert rec["entries"] == [["uid-g0", "ring", 2, "held"]]
+        assert rec["acts"] == []
+        assert rec["queuez"]["queues"][0]["pending_pods"][0]["gang"] == \
+            "ring"
 
 
 # ---------------------------------------------------------------------------
@@ -794,6 +801,187 @@ class TestBorrowReclaim:
 # ---------------------------------------------------------------------------
 # interplay: reclaim vs rescuer (no double eviction)
 # ---------------------------------------------------------------------------
+
+GANG_ANNS = {"vtpu.dev/pod-group": "ring", "vtpu.dev/pod-group-total": "2"}
+
+
+class TestBackfill:
+    """tests/test_quota.py's gang-aware backfill: a short-runtime pod and
+    one in the footprint's hole released ahead of an accumulating gang,
+    and the complete gang released atomically, then placed."""
+
+    def test_short_runtime_pod_admits_ahead_of_accumulating_gang(self):
+        def script(side):
+            side.create(mkpod("ring-0", "team-a", queue="a",
+                              extra_anns=GANG_ANNS))
+            side.clock.advance(1)
+            side.create(mkpod(
+                "quick", "team-a", chips=1, queue="a",
+                extra_anns={"vtpu.dev/estimated-runtime-seconds": "30"}))
+            side.create(mkpod("slow", "team-a", chips=1, queue="a"))
+            return {"acts": side.s.admission.tick(), **observed(side)}
+
+        rec, side = run_both(script, queues=(dict(QA, quota={"chips": 4}),),
+                             nodes=1, chips=4)
+        admitted = [a["pod"] for a in rec["acts"] if a["kind"] == "admit"]
+        assert admitted == ["team-a/quick"]
+        assert all(a.get("backfilled") for a in rec["acts"]
+                   if a["kind"] == "admit")
+        # The port keeps the tick's blocked heads (the card leg reads it).
+        assert side.s.admission.blocked == {
+            "a": ("uid-ring-0", "gang ring accumulating (1/2)")}
+
+    def test_backfill_uses_footprint_hole_when_fleet_has_room(self):
+        def script(side):
+            side.create(mkpod("ring-0", "team-a", queue="a",
+                              extra_anns=GANG_ANNS))
+            side.clock.advance(1)
+            side.create(mkpod("filler", "team-a", chips=2, queue="a"))
+            return {"acts": side.s.admission.tick(), **observed(side)}
+
+        rec, _ = run_both(script, queues=(dict(QA, quota={"chips": 8}),),
+                          nodes=2, chips=4)
+        assert [a["pod"] for a in rec["acts"] if a["kind"] == "admit"] == \
+            ["team-a/filler"]
+
+    def test_gang_admits_atomically_once_complete_never_starved(self):
+        def script(side):
+            [m0] = side.create(mkpod("ring-0", "team-a", queue="a",
+                                     extra_anns=GANG_ANNS))
+            side.clock.advance(1)
+            [quick] = side.create(mkpod(
+                "quick", "team-a", chips=1, queue="a",
+                extra_anns={"vtpu.dev/estimated-runtime-seconds": "30"}))
+            rec = {"first": side.s.admission.tick()}
+            rec["quick"] = side.place(quick)
+            [m1] = side.create(mkpod("ring-1", "team-a", queue="a",
+                                     extra_anns=GANG_ANNS))
+            rec["blocked_tick"] = side.s.admission.tick()
+            side.kube.delete_pod("team-a", "quick")
+            rec["release"] = side.s.admission.tick()
+            r0 = side.s.filter(m0, side.names)
+            r1 = side.s.filter(m1, side.names)
+            r0b = side.s.filter(m0, side.names)
+            rec["filters"] = [[r.node, r.error] for r in (r0, r1, r0b)]
+            rec["ranks"] = {n: side.kube.get_pod("team-a", n)["metadata"][
+                "annotations"].get("vtpu.dev/pod-group-rank")
+                for n in ("ring-0", "ring-1")}
+            return {**rec, **observed(side)}
+
+        rec, _ = run_both(script, queues=(dict(QA, quota={"chips": 4}),),
+                          nodes=1, chips=4)
+        assert not [a for a in rec["blocked_tick"] if a["kind"] == "admit"]
+        assert sorted(a["pod"] for a in rec["release"]
+                      if a["kind"] == "admit") == \
+            ["team-a/ring-0", "team-a/ring-1"]
+        assert all(a["gang"] == "ring" for a in rec["release"])
+        assert "waiting" in rec["filters"][0][1]
+        assert rec["filters"][1][0] and rec["filters"][2][0]
+        assert rec["ranks"] == {"ring-0": "0", "ring-1": "1"}
+
+    def test_no_queue_backfill_holds_everything_behind_the_gang(self):
+        """--no-queue-backfill: the short-runtime pod waits behind the
+        accumulating gang too, as in the JAX loop."""
+        def script(side):
+            side.create(mkpod("ring-0", "team-a", queue="a",
+                              extra_anns=GANG_ANNS))
+            side.clock.advance(1)
+            side.create(mkpod(
+                "quick", "team-a", chips=1, queue="a",
+                extra_anns={"vtpu.dev/estimated-runtime-seconds": "30"}))
+            return {"acts": side.s.admission.tick(), **observed(side)}
+
+        rec, side = run_both(script, queues=(dict(QA, quota={"chips": 4}),),
+                             nodes=1, chips=4, enable_queue_backfill=False)
+        assert rec["acts"] == [] and not side.s.admission.cfg.backfill
+
+    def test_the_report_shows_a_held_member_with_its_gang(self):
+        """vgpu-report's pending table from each side's own /queuez: a
+        held gang member's row names its gang, as the JAX report's does
+        (its /explainz reason '-' on both: provenance is A.5's)."""
+        def script(side):
+            side.create(mkpod("ring-0", "team-a", queue="a",
+                              extra_anns=GANG_ANNS))
+            side.s.admission.tick()
+            rep = treport if side.port else jreport
+            export = rep.join_quota(side.s.export_usage(), side.queues())
+            export = rep.join_pending_reasons(export, "http://unused",
+                                              fetch=lambda c, r: None)
+            # The commands' names differ (vgpu-explain, vtpu-explain).
+            return {"rows": export["pending_pods"],
+                    "text": rep.format_report(export).replace("vtpu-",
+                                                              "vgpu-")}
+
+        rec, _ = run_both(script)
+        assert rec["rows"] == [{"pod": "team-a/ring-0", "queue": "a",
+                                "position": 1, "chips": 2, "gang": "ring",
+                                "dominant_rejection": "-"}]
+
+    def test_a_complete_gang_reclaims_its_whole_footprint(self):
+        """A gang in an under-nominal queue reclaims only once all its
+        members are held, for their cards together; borrowed grants go,
+        and gang members are never victims."""
+        def script(side):
+            borrowed_fleet(side)
+            side.create(mkpod("g-0", "team-b", chips=1, queue="b",
+                              extra_anns=GANG_ANNS))
+            side.clock.advance(1)
+            rec = {"accumulating": side.s.admission.tick()}
+            side.create(mkpod("g-1", "team-b", chips=1, queue="b",
+                              extra_anns=GANG_ANNS))
+            side.clock.advance(1)
+            rec["complete"] = side.s.admission.tick()
+            return {**rec, **observed(side)}
+
+        rec, _ = run_both(script)
+        assert not [a for a in rec["accumulating"] if a["kind"] == "reclaim"]
+        [plan] = [a for a in rec["complete"] if a["kind"] == "reclaim"]
+        assert plan["chips"] == 2 and plan["victims"]
+        assert all(v["donor_borrowed"] >= v["chips"]
+                   for v in plan["victims"])
+
+
+def seed_busy(side, node, chips, uid):
+    """tests/test_qos.py's ledger report: ``chips`` dispatching cards on
+    ``node``."""
+    side.s.ledger.record(node, [{
+        "ctrkey": f"{uid}_{uid}", "chips": chips, "active": True,
+        "oversubscribe": False, "chip_seconds": 1.0,
+        "hbm_byte_seconds": 0.0, "throttled_seconds": 0.0,
+        "oversub_spill_seconds": 0.0, "window_s": 2.0}])
+
+
+class TestBackfillIdleInterlock:
+    """tests/test_qos.py's quota backfill against measured idle duty: a
+    best-effort backfill waits for idle cards the usage ledger reports;
+    an unmeasured fleet, and other classes, pass."""
+
+    @pytest.mark.parametrize("qos,busy,want", [
+        ("best-effort", [(("n0", 4, "t0"), ("n1", 4, "t1")),
+                         (("n1", 1, "t1"),)], [[], ["team-a/filler"]]),
+        ("best-effort", [()], [["team-a/filler"]]),
+        (None, [(("n0", 4, "t0"), ("n1", 4, "t1"))], [["team-a/filler"]]),
+    ], ids=["needs_measured_idle", "unmeasured_fleet", "not_best_effort"])
+    def test_the_interlock_matches_jax(self, qos, busy, want):
+        def script(side):
+            side.create(mkpod("ring-0", "team-a", queue="a",
+                              extra_anns=GANG_ANNS))
+            side.clock.advance(1)
+            side.create(mkpod("filler", "team-a", chips=2, queue="a",
+                              extra_anns={"vtpu.dev/qos": qos}
+                              if qos else None))
+            admitted = []
+            for reports in busy:
+                for node, chips, uid in reports:
+                    seed_busy(side, node, chips, uid)
+                admitted.append([a["pod"] for a in side.s.admission.tick()
+                                 if a["kind"] == "admit"])
+            return {"admitted": admitted, **observed(side)}
+
+        rec, _ = run_both(script, queues=(dict(QA, quota={"chips": 8}),),
+                          nodes=2, chips=4)
+        assert rec["admitted"] == want
+
 
 class TestReclaimRescuerInterplay:
     def test_reclaim_skips_victims_already_being_rescued(self):

@@ -30,9 +30,9 @@ in the port's.  Every reason token is the same.
 
 The decision annotations are compared whole, ``vtpu.dev/assigned-time``
 as "present and an integer".  Keys the JAX scheduler writes at defaults
-that none of these pods makes it write, and why none is in the port:
-``vtpu.dev/pod-group-rank`` (gang members: the port refuses gangs,
-ROADMAP A.5), ``vtpu.dev/preempt-requested`` (preemption is off by
+that none of these pods makes it write: ``vtpu.dev/pod-group-rank`` (a
+gang member's; ``tests/test_torch_gang.py`` compares it), and, with why
+none is in the port, ``vtpu.dev/preempt-requested`` (preemption is off by
 default; ROADMAP A.3b), ``vtpu.dev/queue``/``queue-state`` (capacity
 queues are off without a quota config; A.5), the shard owner (the shard
 layer is off without a replica name; A.5) and ``vtpu.dev/mesh-assigned``
@@ -621,20 +621,31 @@ def test_scenarios_reach_every_rejection_token():
     {t.MESH_MAX_ANNOTATION: "2x4"},
 ], ids=["pod_group", "mesh+pod_group", "mesh_range", "mesh_max"])
 def test_a_mesh_or_gang_pod_is_refused_never_placed(anns):
-    """A gang (with or without a mesh) and an elastic mesh range are
-    refused by name until their slice (ROADMAP A.5); a plain mesh pod is
-    placed (test_the_port_places_on_a_fabric_as_the_jax_scheduler)."""
-    side = Side(True)
-    p = pod("m", limits(nums=8, mem=1000),
-            anns={**anns, t.GANG_TOTAL_ANNOTATION: "2"})
-    side.create(p)
-    rec = side.filter("m")
+    """A lone member of a pod group (with or without a mesh) is refused as
+    the JAX scheduler refuses it: its group waits for its second member
+    and nothing is granted (``tests/test_torch_gang.py`` places whole
+    groups).  An elastic mesh range is refused by name until its slice
+    (ROADMAP A.5); a plain mesh pod is placed
+    (test_the_port_places_on_a_fabric_as_the_jax_scheduler)."""
+    got = {}
+    for port in (True, False):
+        side = Side(port)
+        p = pod("m", limits(nums=8, mem=1000),
+                anns={**anns, t.GANG_TOTAL_ANNOTATION: "2"})
+        side.create(p)
+        got[port] = (json.loads(json.dumps(side.filter("m"))),
+                     side.s.pods.list_pods())
+    rec, granted = got[True]
     assert rec["node"] is None and rec["failed"] == {}
+    assert t.ASSIGNED_NODE_ANNOTATION not in rec["annotations"]
+    assert granted == []
+    if t.GANG_GROUP_ANNOTATION in anns:
+        assert rec == as_port(got[False][0])
+        assert rec["error"] == "gang job-1 waiting (1/2)"
+        return
     key = rec["error"].split(" ")[0]
     assert key in anns and key != t.MESH_ANNOTATION, rec["error"]
     assert "A.5" in rec["error"], rec["error"]
-    assert t.ASSIGNED_NODE_ANNOTATION not in rec["annotations"]
-    assert side.s.pods.list_pods() == []
 
 
 @pytest.mark.parametrize("spec", [
