@@ -41,8 +41,11 @@ training pod as a scheduler bound them; it reads the card's fabric from
 NVML's NVLink P2P matrix, answers kubelet's GetPreferredAllocation, and
 two agents on the mock NVML (``--enforce-child mock_agent``) add an
 eight-card NVSwitch node on which the scheduler places slice and mesh
-pods on ring-adjacent cards, and a four-card PCIe node on which it
-refuses guaranteed and mesh pods; the card's MIG mode is read from NVML
+pods on ring-adjacent cards (the 3-card pod that fragmentation blocks
+placed by the port's defragmenter: a one-card pod whose process is a
+preemptible trainer on the card checkpoints on the compaction's request
+and resumes bit for bit), and a four-card PCIe node on which it refuses
+guaranteed and mesh pods; the card's MIG mode is read from NVML
 beside nvidia-smi's (never changed), and a mock MIG node runs the agent's
 entry point under ``--partition-strategy mixed``, serving its MIG devices
 to this script as kubelet; the port's chart, charts/vgpu, is rendered and
@@ -247,10 +250,10 @@ TOL_CONTEXT_MIB = 64
 AB_PAIRS = 2
 NULL_LAUNCHES = 20000
 COTENANT_BLOCK = 1024 * MIB
-# The main path's serving traffic: 6 requests of these prompt lengths, 32
-# new tokens each, on a 4-slot engine.
+# The main path's serving traffic: 6 requests of these prompt lengths,
+# SERVE_NEW new tokens each, on a 4-slot engine.
 SERVE_LENS = (64, 128, 200, 333, 512, 96)
-SERVE_NEW = 32
+SERVE_NEW = 10  # >= 9: the 8 traced decode dispatches fill all 4 slots
 SERVE_SLOTS = 4
 # Speculative decoding (models/generate.py speculative_generate), k draft
 # tokens a round: in f32 on the 2-layer model, a 1-layer early-exit draft
@@ -293,10 +296,11 @@ SWITCH_OFF_TICKS = 5
 # active for up to 3 ticks past its last launch.
 CENSUS_TICKS = 3
 CORES_SOLO_S = 3.0     # T alone before S's first launch (F1's window)
-CORES_BURST_S = 10.0   # waves back to back
-CORES_IDLE_S = 8.0     # S idle between its two bursts
+CORES_BURST_S = 6.0    # waves back to back
+CORES_IDLE_S = 6.0     # S idle between its two bursts (F4 reads the
+#                        gap's second half: past SWITCH_OFF_TICKS)
 CORES_TAIL_S = 4.0     # T alone after S's last launch
-CORES_TIERED_S = 16.0  # S's waves in the tiered leg (20 before PR 19)
+CORES_TIERED_S = 12.0  # S's waves in the tiered leg
 CORES_ALONE_S = 4.0    # S's waves alone, in each of 2 pairs without and
 #                        with the interposer, in turn (8 before PR 19:
 #                        the cut that pays for the gang leg)
@@ -318,6 +322,7 @@ PLUGIN_PODS = (("serve", "uidDS", CORES_SERVE_MIB, 0),
                ("train", "uidDT", CORES_TRAIN_MIB, 1))
 NODE_AGENT_POLLS = 4
 NODE_AGENT_SMI_S = 0.1
+NODE_AGENT_S = 300
 REGISTER_WAIT_S = 30.0
 # The fabric, in the same child.  The real node: NVML's NVLink P2P matrix
 # (one card: the card with itself, nothing between cards) is recorded and
@@ -347,10 +352,37 @@ HGX_FIXTURE = {"generation": "h100", "mesh": [8], "hbm_mib": 81079,
                "fabric": "nvswitch"}
 HGX_MIB = 1000
 GUARANTEED = {"vtpu.dev/topology-policy": "guaranteed"}
-HGX_PODS = (("ring4", "uidX4", 4, GUARANTEED),
-            ("mesh2", "uidXM", 2, {"vtpu.dev/mesh": "2"}),
-            ("pin", "uidXP", 1, {}),
-            ("arc3", "uidX3", 3, GUARANTEED))
+# name, uid, cards, annotations, priority.  Only "pin" is movable by the
+# defragmenter (priority 1; defrag_min_victim_priority is 1): it is the
+# compaction's one victim, and its process is a real trainer (DEFRAG_*).
+HGX_PODS = (("ring4", "uidX4", 4, GUARANTEED, 0),
+            ("mesh2", "uidXM", 2, {"vtpu.dev/mesh": "2"}, 0),
+            ("pin", "uidXP", 1, {}, 1),
+            ("arc3", "uidX3", 3, GUARANTEED, 0))
+# The compaction in hgx_leg, once arc3 is refused (ring4 on cards 0-3,
+# pin on 6, mesh2 gone: 4, 5 and 7 free, no three in a row).  The
+# extender runs with enable_defrag and its loop is not started: the leg
+# ticks it.  One tick must plan HGX_PLAN (the JAX planner's answer on
+# the same fleet, pinned on the CPU by tests/test_torch_defrag.py):
+# migrate pin, reserve cards 4-6 for arc3.  A bystander (one card,
+# priority 1) Filtered while the plan is in flight must get no card of
+# the box (it gets 7; then it is deleted), and arc3 is refused until the
+# victim has exited and the plan completed; then arc3 lands on the box
+# and the victim's replacement (a new uid) takes the remaining card.  The victim's process is child_preempt at DEFRAG_LAYERS layers
+# under a DEFRAG_MIB grant of its own on the real card (its pod sits on
+# a mock card), its checkpoints in SHM: it holds at the boundary after
+# step PREEMPT_AFTER until its eviction request is mirrored into its
+# downward-API file (DEFRAG_WAIT_S at most), checkpoints and exits; the
+# replacement's process resumes from that checkpoint and finishes, and
+# losses and final checkpoint must equal an uninterrupted run's (the
+# same trainer, run first in the leg) bit for bit.  The trainers' window
+# on the card is left out of the node agent's no-context check.
+HGX_PLAN = {"node": "hgx-node", "box": [4, 5, 6], "victims": ["uidXP"]}
+DEFRAG_BYSTANDER = ("bystander", "uidXY", HGX_MIB)
+DEFRAG_REPLACEMENT = ("pin-2", "uidXP2", HGX_MIB)
+DEFRAG_LAYERS = 1
+DEFRAG_MIB = 16000
+DEFRAG_WAIT_S = 60.0
 # The PCIe node beside it (PCIE_FIXTURE: four cards, no pair NVLink OK),
 # so no fabric: its cards register without coordinates, it adds no mesh
 # to the fleet's fabrics, and PCIE_PODS, offered it alone, get Filter's
@@ -2451,21 +2483,38 @@ def child_cores_serve(torch):
                 mem_total=mem_total, grant_env=grant_env())
 
 
-def child_preempt(torch):
-    """One pod of phase_preempt: the PREEMPT_LAYERS-layer bf16 train step
-    (f32 master) through the interposer under PREEMPT_MIB, driven by
-    run_preemptible for PREEMPT_STEPS on one batch, with a CheckpointManager on
-    PREEMPT_DIR, stopping on a PreemptionWatch of its own annotations file
-    (VTPU_PODINFO_ANNOTATIONS).  Prints ``STEP <n>`` once step n has
-    finished on the card (its loss read back)."""
-    llama, _, train, fa, core, _ = enforce_port()
+def preempt_train_state(torch) -> tuple:
+    """child_preempt's shim check, model, train state and step (the env's
+    PREEMPT_LAYERS where set), on the card: what a pod builds before its
+    first step."""
+    llama, _, train, _, core, _ = enforce_port()
+    stood_down(core)
+    layers = int(os.environ.get("PREEMPT_LAYERS", PREEMPT_LAYERS))
+    return enforce_train_state(torch, llama, train, layers)
+
+
+def child_preempt(torch, prepared=None):
+    """One pod of phase_preempt (or of hgx_leg's compaction): the
+    PREEMPT_LAYERS-layer bf16 train step (f32 master; the env's
+    PREEMPT_LAYERS where set) through the interposer under the pod's
+    grant, driven by run_preemptible for PREEMPT_STEPS on one batch, with
+    a CheckpointManager on PREEMPT_DIR, stopping on a PreemptionWatch of
+    its own annotations file (VTPU_PODINFO_ANNOTATIONS).  Prints ``STEP
+    <n>`` once step n has finished on the card (its loss read back).
+    ``prepared``: preempt_train_state's answer, built before the go (the
+    child's ``prepare``).  With PREEMPT_WAIT_AT=k it holds at the boundary
+    after its k-th step until the request is in its file (DEFRAG_WAIT_S
+    at most); with PREEMPT_SAME_AS=<state.pt> its final checkpoint is
+    held to that one, tensor for tensor (same_checkpoints)."""
+    _, _, train, fa, _, _ = enforce_port()
     from k8s_vgpu_scheduler_tpu_torch.models.checkpoint import (
         CheckpointManager)
     from k8s_vgpu_scheduler_tpu_torch.shim.preempt import PreemptionWatch
 
-    stood_down(core)
-    cfg, tokens, model, state, step = enforce_train_state(
-        torch, llama, train, PREEMPT_LAYERS)
+    wait_at = os.environ.get("PREEMPT_WAIT_AT")
+    wait_at = int(wait_at) if wait_at else None
+    cfg, tokens, model, state, step = prepared or preempt_train_state(torch)
+    layers = cfg.n_layers
     counters = (fa.flash_attention, fa.flash_bwd_dq, fa.flash_bwd_dkv)
     for f in counters:
         f.launches = 0
@@ -2489,9 +2538,17 @@ def child_preempt(torch):
             return out
 
     watch = PreemptionWatch()
-    seen = []
+    seen, held = [], []
 
     def should_stop() -> bool:
+        if wait_at is not None and len(losses) == wait_at and not held:
+            t_hold = time.monotonic()
+            while not watch.requested():
+                check(time.monotonic() - t_hold < DEFRAG_WAIT_S,
+                      f"no eviction request within {DEFRAG_WAIT_S} s of "
+                      f"step {wait_at}")
+                time.sleep(0.005)
+            held.append(time.monotonic() - t_hold)
         if not watch.requested():
             return False
         seen.append(time.monotonic())
@@ -2514,7 +2571,14 @@ def child_preempt(torch):
     check(all(map(math.isfinite, losses)), f"losses {losses}")
     check(launches == [cfg.n_layers * len(losses)] * 3,
           f"flash launches {launches} in {len(losses)} steps")
-    return dict(done=done, preempted=preempted,
+    same_as = None
+    if os.environ.get("PREEMPT_SAME_AS"):
+        t_cmp = time.monotonic()
+        same_as = same_checkpoints(torch, Path(os.environ["PREEMPT_SAME_AS"]),
+                                   Path(mgr.path(done)), mmap=False)
+        same_as["compare_s"] = time.monotonic() - t_cmp
+    return dict(done=done, preempted=preempted, layers=layers,
+                held_s=held[0] if held else None, same_as=same_as,
                 first_step=done - len(losses) + 1, losses=losses,
                 requester=watch.requester(),
                 stop_seen_t=seen[0] if seen else None,
@@ -2747,7 +2811,23 @@ def enforce_child(name: str) -> int:
     if name not in ("plain_torch", "cotenant", "oci_pod"):  # torch alone
         enforce_port()
     print("READY", flush=True)
-    if sys.stdin.readline() != "go\n":
+    line, prepared = sys.stdin.readline(), None
+    if line == "prepare\n" and name == "preempt":
+        # A pod that builds its model before its go (EnforceChild.prepare):
+        # the card is this process's from now on.
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device is available", file=sys.stderr)
+            return 2
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        try:
+            prepared = preempt_train_state(torch)
+        except Fail as exc:
+            print(f"chip_smoke: FAIL: {name}: {exc}", file=sys.stderr)
+            return 1
+        print("PREPARED", flush=True)
+        line = sys.stdin.readline()
+    if line != "go\n":
         return 3  # the parent is gone: leave the card alone
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2758,6 +2838,8 @@ def enforce_child(name: str) -> int:
     try:
         if name.startswith("workload:"):
             out = child_workload_pod(torch, name.split(":", 1)[1])
+        elif prepared is not None:
+            out = child_preempt(torch, prepared)
         else:
             out = ENFORCE_CHILDREN[name](torch)
     except Fail as exc:
@@ -2835,6 +2917,12 @@ class EnforceChild:
         reading["pid"] = self.proc.pid
         record.setdefault(section, {})[self.label] = reading
         return reading
+
+    def prepare(self) -> None:
+        """Let a ``preempt`` child build its model on the card now, ahead
+        of its go (its ``PREPARED`` line comes among its output)."""
+        self.proc.stdin.write("prepare\n")
+        self.proc.stdin.flush()
 
     def wait_ready(self) -> None:
         """Wait until it has imported what it needs (its READY line)."""
@@ -3797,14 +3885,19 @@ def node_agent() -> int:
         print(f"chip_smoke: FAIL: node_agent: detect() gave "
               f"{type(backend).__name__}, not NVML", file=sys.stderr)
         return 1
-    plane = None
+    plane = trainers = None
     try:
         cards = backend.cards()
+        # The compaction's trainers (hgx_leg): started first, so their
+        # imports overlap this agent's work up to the leg.
+        trainers = DefragTrainers(tmp, cards[0]["uuid"])
         cache = DeviceCache(backend, heartbeat_seconds=0)
         polls = [cache.poll_once()]
         inv = cache.inventory
+        # The defragmenter on, its loop not started: hgx_leg ticks it.
         cfg = Config(node_name=PLUGIN_NODE, shim_host_dir=str(tmp / "shim"),
-                     cache_host_dir=str(tmp / "containers"))
+                     cache_host_dir=str(tmp / "containers"),
+                     enable_defrag=True)
         kube = FakeKube()
         kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
         plane = ControlPlane(kube, backend, cfg, tmp / "scheduler.sock")
@@ -3827,7 +3920,7 @@ def node_agent() -> int:
                 locked=nodelock.is_locked(kube, PLUGIN_NODE))
         fabric = fabric_checks(backend, plane, plugin, kube, inv)
         mig_real = real_mig_checks(kube, inv, cfg, cards, tmp)
-        hgx = hgx_leg(plane, kube, tmp)
+        hgx = hgx_leg(plane, kube, tmp, trainers)
         mig = mig_leg(plane, kube, tmp)
         chart = chart_leg(tmp, {c["uuid"]: (c["memory_v2"]["total"]
                                             - c["memory_v2"]["reserved"]) >> 20
@@ -3857,6 +3950,8 @@ def node_agent() -> int:
         print(f"chip_smoke: FAIL: node_agent: {exc}", file=sys.stderr)
         return 1
     finally:
+        if trainers is not None:
+            trainers.stop()
         if plane is not None:
             plane.close()
         backend.close()
@@ -4240,16 +4335,402 @@ def stop_mock_agent(agent, node: str) -> dict:
     return out
 
 
-def hgx_leg(plane, kube, tmp: Path) -> dict:
+#: The extender's fragmentation gauges and placement counters, as
+#: hgx_leg reads them from /metrics.
+SLICE_GAUGES = ("slice_availability", "max_free_box")
+PLACEMENT_COUNTERS = ("vtpu_reserved_chips", "vtpu_defrag_plans_total",
+                      "vtpu_defrag_migrations_total",
+                      "vtpu_defrag_completed_total",
+                      "vtpu_defrag_aborted_total")
+
+
+def placement_metrics(url: str) -> dict:
+    """The extender's placement families as its ``/metrics`` serves them:
+    ``vtpu_slice_availability`` by shape, ``vtpu_fleet_max_free_box``
+    and PLACEMENT_COUNTERS."""
+    from k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_smi import parse_prom
+
+    status, text = http(url, timeout=30)
+    check(status == 200, f"/metrics answered {status}")
+    fams = parse_prom(text)
+    return {"slice_availability": {
+        labels["shape"]: value
+        for labels, value in fams["vtpu_slice_availability"]},
+        "max_free_box": fams["vtpu_fleet_max_free_box"][0][1],
+        **{name: fams[name][0][1] for name in PLACEMENT_COUNTERS}}
+
+
+class StandinTrainer:
+    """A trainer process's stand-in for the leg's CPU rehearsal (the node
+    agent child with ``DEFRAG_TRAINER=standin``, which only the tests set;
+    phase_device_plugin drops the variable and checks that the card's
+    trainers ran): run_preemptible's contract, in this process, over a
+    JSON state whose step is a fixed function of the last, checkpointed
+    under PREEMPT_DIR, with child_preempt's hold and final comparison and
+    the reading it returns (no kernel, no interposer)."""
+
+    def __init__(self, name, tmp: Path, label=None, region=None,
+                 **grant) -> None:
+        self.label = label or name
+        self.env = {k: str(v) for k, v in grant.items()}
+        self.proc = None
+
+    def run(self, record, section: str = "enforce",
+            on_line=lambda line: None) -> dict:
+        from k8s_vgpu_scheduler_tpu_torch.shim.preempt import PreemptionWatch
+
+        env, t0 = self.env, time.monotonic()
+        root = Path(env["PREEMPT_DIR"])
+        watch = PreemptionWatch(env["VTPU_PODINFO_ANNOTATIONS"])
+        wait_at = int(env["PREEMPT_WAIT_AT"]) if env.get(
+            "PREEMPT_WAIT_AT") else None
+        steps = sorted(int(p.name) for p in root.glob("[0-9]*")) \
+            if root.is_dir() else []
+        saved = steps[-1] if steps else -1
+        state = (json.loads((root / str(saved) / "state.pt").read_text())
+                 if steps else {"w": 1.0, "step": 0})
+        io = {"saves": [], "restores": [{"step": saved, "s": 0.0}]
+              if steps else []}
+        losses, held, preempted = [], [], False
+        while state["step"] < PREEMPT_STEPS:
+            if wait_at is not None and len(losses) == wait_at and not held:
+                t_hold = time.monotonic()
+                while not watch.requested():
+                    check(time.monotonic() - t_hold < DEFRAG_WAIT_S,
+                          f"no eviction request within {DEFRAG_WAIT_S} s")
+                    time.sleep(0.005)
+                held.append(time.monotonic() - t_hold)
+            if watch.requested():
+                preempted = True
+                break
+            state = {"w": state["w"] * 0.75 + 1.0 / (state["step"] + 1),
+                     "step": state["step"] + 1}
+            losses.append(state["w"])
+            on_line(f"STEP {state['step']}")
+        done = state["step"]
+        if done > saved:
+            (root / str(done)).mkdir(parents=True, exist_ok=True)
+            (root / str(done) / "state.pt").write_text(json.dumps(state))
+            io["saves"].append({"step": done, "s": 0.0})
+        same_as = None
+        if env.get("PREEMPT_SAME_AS"):
+            same_as = {"equal": {"state": Path(env["PREEMPT_SAME_AS"])
+                                 .read_bytes() == (root / str(done) /
+                                                   "state.pt").read_bytes()},
+                       "compare_s": 0.0}
+        reading = dict(
+            done=done, preempted=preempted, layers=0,
+            first_step=done - len(losses) + 1, losses=losses,
+            requester=watch.requester(), held_s=held[0] if held else None,
+            same_as=same_as, io=io, exit_t=time.monotonic(),
+            interposer={"refusals": 0, "context_bytes": 0, "alloc_bytes": 0},
+            launches=dict.fromkeys(("flash_fwd", "flash_bwd_dq",
+                                    "flash_bwd_dkv"), 0),
+            run_s=time.monotonic() - t0, pid=os.getpid())
+        record.setdefault(section, {})[self.label] = reading
+        return reading
+
+    def prepare(self) -> None:
+        pass
+
+    def stop(self) -> None:
+        pass
+
+
+class DefragTrainers:
+    """The compaction's three trainer processes, started at once so their
+    imports overlap the leg: R, the uninterrupted run; V, the victim pin's
+    process; V2, its replacement's, resuming V's checkpoint.  Each is
+    child_preempt at DEFRAG_LAYERS layers through the interposer the node
+    agent installed (``<tmp>/shim``), under a DEFRAG_MIB grant of its own
+    on the real card (the pods sit on a mock card, as R's in
+    phase_preempt has none), with its checkpoints in SHM and a
+    downward-API annotations file of its own.  V holds after step
+    PREEMPT_AFTER until its request is mirrored; V2 holds its final
+    checkpoint to R's."""
+
+    def __init__(self, tmp: Path, uuid: str) -> None:
+        standin = os.environ.get("DEFRAG_TRAINER") == "standin"
+        self.kind = "standin" if standin else "card"
+        make = StandinTrainer if standin else EnforceChild
+        self.shm = Path(tempfile.mkdtemp(
+            prefix="defrag-", dir=SHM if SHM.is_dir() else tmp))
+        self.files = {}
+        self.children = {}
+        grant = dict(LD_PRELOAD=tmp / "shim" / "libvgpu_cuda.so",
+                     NVIDIA_VISIBLE_DEVICES=uuid,
+                     CUDA_DEVICE_MEMORY_LIMIT_0=f"{DEFRAG_MIB}m",
+                     PREEMPT_LAYERS=DEFRAG_LAYERS)
+        extra = {"R": {}, "V": {"PREEMPT_WAIT_AT": PREEMPT_AFTER},
+                 "V2": {"PREEMPT_SAME_AS": self.shm / "R" /
+                        str(PREEMPT_STEPS) / "state.pt"}}
+        try:
+            for key, more in extra.items():
+                label = f"defrag_{key}"
+                (tmp / label).mkdir(exist_ok=True)
+                f = self.files[key] = tmp / label / "annotations"
+                f.write_text('kubernetes.io/config.seen="2026"\n')
+                self.children[key] = make(
+                    "preempt", tmp, label=label,
+                    PREEMPT_DIR=self.shm / ("R" if key == "R" else "V"),
+                    VTPU_PODINFO_ANNOTATIONS=f, **grant, **more)
+        except BaseException:
+            self.stop()
+            raise
+
+    def start_reference(self) -> None:
+        """R's uninterrupted run, in a thread from now on (the card's
+        memory read first: the trainers' window opens).  Once R's first
+        step is done V builds its model beside R's other steps; V may go
+        once R's last step is done (``trained``), while R writes its
+        checkpoint."""
+        self.base_mib = smi_card_mib()
+        self.window = [time.monotonic(), None]
+        self.runs: dict = {}
+        self._ref: dict = {}
+        self._trained = threading.Event()
+
+        def on_line(line: str) -> None:
+            if line == "STEP 1":
+                self.children["V"].prepare()
+            if line == f"STEP {PREEMPT_STEPS}":
+                self._trained.set()
+
+        def run() -> None:
+            try:
+                self._ref["reading"] = self.children["R"].run(
+                    self.runs, "defrag", on_line)
+            except BaseException as e:  # noqa: BLE001 — raised in reference()
+                self._ref["error"] = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def trained(self) -> None:
+        """Wait until R's last step is done (or R has ended: its error)."""
+        while not self._trained.wait(0.05):
+            if not self._thread.is_alive():
+                self.reference()
+                return
+
+    def reference(self) -> dict:
+        """R's reading, once it has exited."""
+        self._thread.join()
+        if "error" in self._ref:
+            raise self._ref["error"]
+        return self._ref["reading"]
+
+    def mirror(self, key: str, annotations: dict) -> None:
+        """The pod's annotations, as the apiserver holds them, into the
+        process's downward-API file, as kubelet writes it (os.replace)."""
+        mirror_podinfo(self.files[key], annotations)
+
+    def stop(self) -> None:
+        for child in self.children.values():
+            proc = child.proc
+            if isinstance(proc, subprocess.Popen) and proc.poll() is None:
+                proc.kill()  # its stdin may be closed already: no communicate
+                proc.wait()
+        shutil.rmtree(self.shm, ignore_errors=True)
+
+
+def defrag_leg(plane, kube, arc3: dict, trainers: DefragTrainers,
+               scrape: str, coord_of: dict, topo, offer: list, freed,
+               granted) -> dict:
+    """The compaction on the card, in hgx_leg once ``arc3`` (created) is
+    refused: its 3-card demand recorded; R's uninterrupted run; V started
+    as pin's process; at V's STEP PREEMPT_AFTER one tick must plan
+    HGX_PLAN, /metrics show the box reserved and one plan, a bystander get
+    no card of the box (then deleted), arc3 be refused again, and pin's
+    pod carry the request, which goes into V's file; V checkpoints and
+    exits 0; pin's pod deleted, the next tick completes the plan and
+    arc3's Filter places it on three contiguous cards of the box; the
+    replacement pod takes a remaining card and V2 resumes and finishes,
+    bit for bit R's run; the card's memory back where it was.  Returns the
+    readings, each tick's ms, the intervals and the card window (the
+    trainers' time on the card)."""
+    from k8s_vgpu_scheduler_tpu_torch.placement import DEFRAG_REQUESTER_PREFIX
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
+        PREEMPT_ANNOTATION
+    from k8s_vgpu_scheduler_tpu_torch.topology import is_contiguous
+    from k8s_vgpu_scheduler_tpu_torch.util import nodelock
+
+    sched = plane.scheduler
+    t_leg = time.monotonic()
+    arc3_uid = arc3["metadata"]["uid"]
+    out = {"trainer": trainers.kind, "ticks_ms": [], "filter_s": []}
+    want = f"{DEFRAG_REQUESTER_PREFIX}{arc3_uid}"
+    box_ids = {u for u, c in coord_of.items() if c[0] in HGX_PLAN["box"]}
+    demand = [(d.key, d.chips, d.count) for d in
+              sched.defrag.pending_demand()]
+    out["demand"] = demand
+    check((arc3_uid, 3, 1) in demand, f"the demand registry {demand}")
+
+    def tick() -> list:
+        t0 = time.monotonic()
+        actions = sched.defrag.tick()
+        out["ticks_ms"].append((time.monotonic() - t0) * 1e3)
+        return actions
+
+    def hgx_filter(pod: dict) -> dict:
+        reply, seconds = filter_pod(plane.base, pod, HGX_NODE, offer)
+        out["filter_s"].append(seconds)
+        return reply
+
+    runs = trainers.runs
+    trainers.trained()
+    out["card_window"] = trainers.window
+    events: dict = {}
+
+    def kubelet(line: str) -> None:
+        """Once V's first step is done, V2 builds its model beside V's
+        other work; at V's hold: the plan, the checks while it is in
+        flight, and the request mirrored into V's file."""
+        if line == "STEP 1":
+            trainers.children["V2"].prepare()
+        if line != f"STEP {PREEMPT_AFTER}" or events:
+            return
+        events["step_t"] = time.monotonic()
+        actions = tick()
+        events["plan_t"] = time.monotonic()
+        [plan] = actions if len(actions) == 1 else [None]
+        out["plan"] = actions
+        check(plan is not None and plan["kind"] == "defrag-plan"
+              and plan["node"] == HGX_PLAN["node"]
+              and plan["victims"] == HGX_PLAN["victims"]
+              and plan["for"] == arc3_uid, f"the tick answered {actions}")
+        [res] = sched.reservations.active()
+        out["box"] = sorted(coord_of[c][0] for c in res.chips)
+        check(out["box"] == HGX_PLAN["box"] and res.for_key == arc3_uid,
+              f"reserved {out['box']} for {res.for_key}")
+        counters = out["in_flight_metrics"] = placement_metrics(scrape)
+        check(counters["vtpu_reserved_chips"] == len(HGX_PLAN["box"])
+              and counters["vtpu_defrag_plans_total"] == 1,
+              f"/metrics while the plan is in flight: {counters}")
+        name, uid, mib = DEFRAG_BYSTANDER
+        created, rec = admit_pod(plane.base, kube, user_pod(
+            name, uid, mib, 1, cores=100))
+        place_pod(plane.base, created, HGX_NODE, rec, offer)
+        nodelock.release_node(kube, HGX_NODE)
+        out["filter_s"].append(rec["filter_s"])
+        got = set(granted(name))
+        out["bystander"] = sorted(coord_of[u][0] for u in got)
+        check(not got & box_ids, f"the bystander got cards {got} of the "
+              f"reserved box")
+        kube.delete_pod("default", name)
+        freed([uid])
+        again = out["arc3_in_flight"] = hgx_filter(arc3)
+        check(not again["NodeNames"] and sched.reservations.total_chips()
+              == len(HGX_PLAN["box"]),
+              f"arc3 mid-compaction: {again}, reserved "
+              f"{sched.reservations.total_chips()}")
+        annotations = kube.get_pod("default", "pin")["metadata"][
+            "annotations"]
+        out["pin_request"] = annotations.get(PREEMPT_ANNOTATION)
+        check(out["pin_request"] == want,
+              f"pin's eviction request {out['pin_request']}")
+        trainers.mirror("V", annotations)
+        events["mirrored_t"] = time.monotonic()
+
+    victim = trainers.children["V"].run(runs, "defrag", kubelet)
+    check(bool(events), f"V never printed STEP {PREEMPT_AFTER}")
+    kube.delete_pod("default", "pin")
+    freed(["uidXP"])
+    actions = out["complete"] = tick()
+    complete_t = time.monotonic()
+    check([a["kind"] for a in actions] == ["defrag-complete"]
+          and actions[0]["for"] == arc3_uid, f"the tick answered {actions}")
+    counters = out["complete_metrics"] = placement_metrics(scrape)
+    check(counters["vtpu_defrag_completed_total"] == 1
+          and counters["vtpu_defrag_aborted_total"] == 0,
+          f"/metrics after the victim's exit: {counters}")
+    rec = out["arc3"] = {}
+    place_pod(plane.base, arc3, HGX_NODE, rec, offer)
+    placed_t = time.monotonic()
+    nodelock.release_node(kube, HGX_NODE)
+    out["filter_s"].append(rec["filter_s"])
+    cards = [coord_of[u] for u in granted("arc3")]
+    out["arc3_cards"] = sorted(c[0] for c in cards)
+    check(len(set(cards)) == 3 and is_contiguous(cards, topo)
+          and {c[0] for c in cards} <= set(HGX_PLAN["box"]),
+          f"arc3 got cards {out['arc3_cards']}")
+    counters = out["placed_metrics"] = placement_metrics(scrape)
+    check(counters["vtpu_reserved_chips"] == 0
+          and sched.defrag.pending_demand() == [],
+          f"/metrics after arc3's placement: {counters}")
+    name, uid, mib = DEFRAG_REPLACEMENT
+    created, rec = admit_pod(plane.base, kube, user_pod(name, uid, mib, 1,
+                                                        cores=100))
+    place_pod(plane.base, created, HGX_NODE, rec, offer)
+    nodelock.release_node(kube, HGX_NODE)
+    out["filter_s"].append(rec["filter_s"])
+    out["replacement_cards"] = sorted(coord_of[u][0] for u in granted(name))
+    check(not set(granted(name)) & set(granted("arc3")),
+          f"the replacement got {out['replacement_cards']}")
+    ref = trainers.reference()  # R's checkpoint is written
+    resumed = trainers.children["V2"].run(runs, "defrag")
+    t0, back = time.monotonic(), None
+    while back is None and time.monotonic() - t0 < RETURN_S:
+        if smi_card_mib() <= trainers.base_mib + TOL_RETURN_MIB:
+            back = time.monotonic()
+    out["card_window"][1] = back or time.monotonic()
+    check(back is not None, f"the card did not come back to "
+          f"{trainers.base_mib} MiB within {RETURN_S} s of V2's exit")
+    k = victim["done"]
+    check(ref["done"] == PREEMPT_STEPS and not ref["preempted"],
+          f"R: {ref['done']} steps, preempted {ref['preempted']}")
+    check(victim["preempted"] and k == PREEMPT_AFTER
+          and victim["requester"] == want
+          and [x["step"] for x in victim["io"]["saves"]] == [k],
+          f"V: preempted {victim['preempted']} at {k}, requester "
+          f"{victim['requester']}, saves {victim['io']['saves']}")
+    check(resumed["done"] == PREEMPT_STEPS and not resumed["preempted"]
+          and resumed["first_step"] == k + 1
+          and [x["step"] for x in resumed["io"]["restores"]] == [k],
+          f"V2: from {resumed['first_step']} to {resumed['done']}, "
+          f"restores {resumed['io']['restores']}")
+    check(victim["losses"] + resumed["losses"] == ref["losses"],
+          f"losses: R {ref['losses']}, V {victim['losses']}, V2 "
+          f"{resumed['losses']}")
+    check(all(resumed["same_as"]["equal"].values()),
+          f"V2's final checkpoint is not R's: {resumed['same_as']}")
+    for key, r in (("R", ref), ("V", victim), ("V2", resumed)):
+        i = r["interposer"]
+        check(i["refusals"] == 0 and i["context_bytes"] + i["alloc_bytes"]
+              <= DEFRAG_MIB * MIB,
+              f"{key}: the interposer's counters {i} past its grant")
+    out.update(
+        runs={k: {f: r.get(f) for f in (
+            "done", "preempted", "layers", "first_step", "losses",
+            "held_s", "io", "launches", "interposer", "run_s", "child_s",
+            "life_s", "same_as")} for k, r in runs["defrag"].items()},
+        launches=[sum(r["launches"][n] for r in (ref, victim, resumed))
+                  for n in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")],
+        plan_tick_ms=out["ticks_ms"][0],
+        plan_to_exit_s=victim["exit_t"] - events["plan_t"],
+        exit_to_complete_s=complete_t - victim["exit_t"],
+        complete_to_placed_s=placed_t - complete_t,
+        save_s=[x["s"] for r in (ref, victim, resumed)
+                for x in r["io"]["saves"]],
+        restore_s=[x["s"] for x in resumed["io"]["restores"]],
+        leg_s=time.monotonic() - t_leg)
+    return out
+
+
+def hgx_leg(plane, kube, tmp: Path, trainers) -> dict:
     """The mock nodes beside the real one, in node_agent once S and T
     are bound: two node agents (mock_agent) on the mock NVML stream
     HGX_FIXTURE's eight NVSwitch cards and PCIE_FIXTURE's four PCIe cards
     to the same scheduler; then HGX_PODS through the webhook, Filter
     (offered the real and the HGX node) and Bind, the mesh pod deleted
-    before the 3-card pod, a malformed mesh through the webhook, and
-    PCIE_PODS offered the PCIe node alone; then every pod deleted, and
-    their grants must be freed."""
+    before the 3-card pod; the compaction that places the 3-card pod
+    (defrag_leg, with ``trainers``, a DefragTrainers); a malformed mesh
+    through the webhook, and PCIE_PODS offered the PCIe node alone; then
+    every pod deleted, and their grants must be freed, the slice gauges
+    back where they stood before the HGX pods."""
     from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.metrics import \
+        start_metrics_server
     from k8s_vgpu_scheduler_tpu_torch.topology import is_contiguous
     from k8s_vgpu_scheduler_tpu_torch.util import codec, nodelock
 
@@ -4257,8 +4738,22 @@ def hgx_leg(plane, kube, tmp: Path) -> dict:
     agents = {node: start_mock_agent(kube, node, fx, lib, tmp)
               for node, fx in ((HGX_NODE, HGX_FIXTURE),
                                (PCIE_NODE, PCIE_FIXTURE))}
+    metrics = start_metrics_server(plane.scheduler, port=0, host="127.0.0.1")
     out: dict = {}
     sched = plane.scheduler
+    # The real node's lease beats (the mock agents beat their own): the
+    # leg outlasts the lease's TTL.
+    beating = threading.Event()
+
+    def beat() -> None:
+        while not beating.wait(REGISTER_BEAT_S):
+            plane.register.push_update(plane.register.backend.inventory())
+
+    beater = threading.Thread(target=beat, daemon=True)
+    beater.start()
+    # R's uninterrupted run overlaps the registrations and placements (its
+    # steps end before V's start).
+    trainers.start_reference()
 
     def freed(uids) -> None:
         t0 = time.monotonic()
@@ -4285,13 +4780,17 @@ def hgx_leg(plane, kube, tmp: Path) -> dict:
               and reg["devmem"] == [HGX_FIXTURE["hbm_mib"]],
               f"the HGX node registered {reg}")
         offer = [PLUGIN_NODE, HGX_NODE]
+        scrape = f"http://127.0.0.1:{metrics.port}/metrics"
+        gauges = out["slice_gauges"] = {"before": {
+            k: v for k, v in placement_metrics(scrape).items()
+            if k in SLICE_GAUGES}}
         pods = out["pods"] = {}
-        for name, uid, cards, anns in HGX_PODS:
+        for name, uid, cards, anns, priority in HGX_PODS:
             if name == "arc3":
                 kube.delete_pod("default", "mesh2")
                 freed(["uidXM"])
             created, rec = admit_pod(plane.base, kube, user_pod(
-                name, uid, HGX_MIB, 1, cores=100, annotations=anns,
+                name, uid, HGX_MIB, priority, cores=100, annotations=anns,
                 cards=cards))
             pods[name] = rec
             if name == "arc3":
@@ -4301,6 +4800,9 @@ def hgx_leg(plane, kube, tmp: Path) -> dict:
                 check(not rec["filter"]["NodeNames"]
                       and why.startswith("no-ici-slice:"),
                       f"arc3: Filter answered {rec['filter']}")
+                out["defrag"] = defrag_leg(plane, kube, created, trainers,
+                                           scrape, coord_of, topo, offer,
+                                           freed, granted)
                 continue
             place_pod(plane.base, created, HGX_NODE, rec, offer)
             nodelock.release_node(kube, HGX_NODE)  # the node's Allocate
@@ -4350,17 +4852,26 @@ def hgx_leg(plane, kube, tmp: Path) -> dict:
             rec["cards"] = len(set(got))
             check(len(set(got)) == cards and set(got) <= uuids,
                   f"{name}: Filter granted {got}")
-        for name in ("ring4", "pin", "arc3") + tuple(
+        for name in ("ring4", "arc3", DEFRAG_REPLACEMENT[0]) + tuple(
                 p[0] for p in PCIE_PODS):
             kube.delete_pod("default", name)
-        freed([uid for _, uid, _, _ in HGX_PODS]
-              + [p[1] for p in PCIE_PODS])
+        freed([uid for _, uid, _, _, _ in HGX_PODS]
+              + [DEFRAG_REPLACEMENT[1]] + [p[1] for p in PCIE_PODS])
         for node in agents:
             usage = sched.get_nodes_usage([node])[node][1]
             check(not any(u.used_slots or u.used_mem or u.used_cores
                           for u in usage.values()),
                   f"the cards of {node} are still granted")
+        gauges["after"] = {k: v for k, v in placement_metrics(scrape).items()
+                           if k in SLICE_GAUGES}
+        check(gauges["after"] == gauges["before"],
+              f"the slice gauges read {gauges['after']} after the leg, "
+              f"{gauges['before']} before it")
     finally:
+        trainers.stop()
+        metrics.stop()
+        beating.set()
+        beater.join()
         ends = {}
         for node, agent in agents.items():  # stops every agent
             try:
@@ -4789,7 +5300,8 @@ def mock_agent() -> int:
     sys.path.insert(0, str(ROOT))
     if os.environ.get("MOCK_AGENT_ARGS"):
         return mock_entry_point(json.loads(os.environ["MOCK_AGENT_ARGS"]))
-    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import DeviceRegister
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (DeviceCache,
+                                                           DeviceRegister)
     from k8s_vgpu_scheduler_tpu_torch.tpulib import NvmlBackend
     from k8s_vgpu_scheduler_tpu_torch.util.config import Config
 
@@ -4800,8 +5312,15 @@ def mock_agent() -> int:
         register = DeviceRegister(
             backend, Config(node_name=os.environ["MOCK_NODE"]),
             endpoint=f"unix:{sock}")
+        # The lease beats, as the daemon's cache sends them: a leg longer
+        # than the lease's TTL must not see the node go Suspect.
+        cache = DeviceCache(backend, poll_seconds=1.0,
+                            heartbeat_seconds=REGISTER_BEAT_S)
+        cache.subscribe("register", register.push_update, heartbeat=True)
         register.start()
+        cache.start()
         sys.stdin.read()  # the parent closes it when it is done
+        cache.stop()
         register.stop()
         register._thread.join(timeout=10)
         out = dict(fabric=backend.last_fabric,
@@ -5101,6 +5620,15 @@ def podinfo_text(annotations: dict) -> str:
                    for k, v in sorted(annotations.items()))
 
 
+def mirror_podinfo(path: Path, annotations: dict) -> None:
+    """A pod's annotations, as the apiserver holds them, into its
+    downward-API file, as kubelet updates the mount: written beside it and
+    moved over it (``os.replace``)."""
+    staged = path.with_name(".annotations")
+    staged.write_text(podinfo_text(annotations))
+    os.replace(staged, path)
+
+
 def kubelet_env(pod: dict, resp: dict, volumes: Path) -> dict:
     """What a kubelet gives a pod's first container from the pod's spec and
     the device plugin's answer, and nothing else: the spec's env, the
@@ -5173,7 +5701,8 @@ def phase_device_plugin(torch, record, vgpu: Path):
     scheduler registration and single's refusals.  (c) The runtime
     wrapper (oci_leg): a pod started from a bundle that vgpu-oci-runtime
     injected, held to its grant with the bundle's PYTHONPATH kept, and
-    delete with a broken config.  Returns T's kernel launches."""
+    delete with a broken config.  Returns T's kernel launches and those
+    of the compaction's trainers (hgx_leg)."""
     from k8s_vgpu_scheduler_tpu_torch.accounting import UsageSampler
     from k8s_vgpu_scheduler_tpu_torch.cmd import monitor
     from k8s_vgpu_scheduler_tpu_torch.monitor import FeedbackLoop, RegionReader
@@ -5197,14 +5726,19 @@ def phase_device_plugin(torch, record, vgpu: Path):
         # (a) The node agent, alone with this idle process on the card.
         base = smi_card_mib()
         t0 = time.monotonic()
+        # DEFRAG_TRAINER is the CPU rehearsal's: on the card the
+        # compaction's trainers are real processes.
+        agent_env = {k: v for k, v in env.items() if k != "DEFRAG_TRAINER"}
         agent = subprocess.Popen(
             [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
-             "node_agent"], env={**env, "PLUGIN_DIR": str(tmp)}, cwd=ROOT,
-            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             "node_agent"], env={**agent_env, "PLUGIN_DIR": str(tmp)},
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True)
         life = []
         try:
             while agent.poll() is None:
-                check(time.monotonic() - t0 < 120, "the node agent hung")
+                check(time.monotonic() - t0 < NODE_AGENT_S,
+                      "the node agent hung")
                 life.append((time.monotonic() - t0, smi_card_mib(),
                              [r[0] for r in smi_rows(
                                  "--query-compute-apps=pid")]))
@@ -5271,10 +5805,22 @@ def phase_device_plugin(torch, record, vgpu: Path):
               f"the node agent's polls {na['polls']}, healthy "
               f"{chip['healthy']}")
         check(not na["torch_loaded"], "the node agent loaded torch")
-        rise = max(m for _, m, _ in life) - base if life else None
-        check(len(life) >= 5 and rise <= TOL_CONTEXT_MIB,
+        # The agent holds no context; the compaction's trainers (its
+        # children, real pods' processes) hold the card inside their
+        # window, which the agent closes once the card is back.
+        defrag = na["hgx"]["defrag"]
+        check(defrag["trainer"] == "card",
+              f"the compaction ran on a {defrag['trainer']} trainer")
+        lo, hi = (w - t0 for w in defrag["card_window"])
+        agent_life = [x for x in life
+                      if not lo - 1.0 <= x[0] <= hi]
+        rise = max(m for _, m, _ in agent_life) - base if agent_life \
+            else None
+        check(len(agent_life) >= 5 and rise <= TOL_CONTEXT_MIB,
               f"the card's memory rose {rise} MiB in the node agent's life "
-              f"({len(life)} samples)")
+              f"outside the trainers' window ({len(agent_life)} samples)")
+        defrag["card_peak_mib"] = max(
+            (m - base for t, m, _ in life if lo <= t <= hi), default=None)
         check(not any(str(agent.pid) in pids for _, _, pids in life),
               "the node agent is a compute process")
         check([(d["id"], d["devmem"], d["count"], d["health"])
@@ -5382,8 +5928,9 @@ def phase_device_plugin(torch, record, vgpu: Path):
     summary["oci"] = oci
     log(json.dumps(summary))
     t = legs["train"]
-    return [t["launches"][n] for n in ("flash_fwd", "flash_bwd_dq",
-                                       "flash_bwd_dkv")]
+    return [t["launches"][n] + d for n, d in zip(
+        ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+        na["hgx"]["defrag"]["launches"])]
 
 
 # The stand-in OCI runtime oci_leg writes (the machine has no root for
@@ -5531,6 +6078,22 @@ def oci_leg(tmp: Path, uuid: str) -> dict:
                     "region_used_at_refusal", "pythonpath", "run_s")})
 
 
+def defrag_summary(d: dict) -> dict:
+    """The compaction's record as the phase's line prints it (checked in
+    defrag_leg): where it planned, placed and reserved, each tick's and
+    Filter's time, the intervals from the plan to the victim's exit, to
+    the plan's completion and to arc3's placement, the checkpoints'
+    seconds, the trainers' losses and the leg's seconds."""
+    keys = ("trainer", "demand", "box", "bystander", "arc3_cards",
+            "replacement_cards", "ticks_ms", "filter_s", "plan_to_exit_s",
+            "exit_to_complete_s", "complete_to_placed_s", "save_s",
+            "restore_s", "launches", "card_peak_mib", "leg_s")
+    out = {k: d.get(k) for k in keys}
+    out["losses"] = {k: r["losses"] for k, r in d["runs"].items()}
+    out["held_s"] = d["runs"]["defrag_V"]["held_s"]
+    return out
+
+
 def fabric_summary(na: dict) -> dict:
     """The node agent's fabric record (checked in the child by
     fabric_checks and hgx_leg), cut to what the phase's line prints:
@@ -5555,6 +6118,8 @@ def fabric_summary(na: dict) -> dict:
                                 for k in ("register_s", "topology",
                                           "coords")},
             "pcie_agent_fabric": hgx["pcie_agent"]["fabric"]["kind"],
+            "defrag": defrag_summary(hgx["defrag"]),
+            "slice_gauges": hgx["slice_gauges"],
             "known_topologies": hgx["known_topologies"],
             **{name: {
                 "cards": rec.get("cards"),
@@ -6064,11 +6629,13 @@ def plugin_checks(record, na, sizes, envs, regions, legs, tl, seen,
     }
 
 
-def same_checkpoints(torch, a: Path, b: Path) -> dict:
-    """Two train-state checkpoints, mapped from disk, tensor for tensor:
-    the master copy, mu, nu, the counts and the step."""
-    x = torch.load(a, map_location="cpu", mmap=True, weights_only=True)
-    y = torch.load(b, map_location="cpu", mmap=True, weights_only=True)
+def same_checkpoints(torch, a: Path, b: Path, mmap: bool = True) -> dict:
+    """Two train-state checkpoints, mapped from disk (or read whole, with
+    ``mmap`` False: faster where a page fault is dear, as on a tmpfs in
+    the card's sandbox), tensor for tensor: the master copy, mu, nu, the
+    counts and the step."""
+    x = torch.load(a, map_location="cpu", mmap=mmap, weights_only=True)
+    y = torch.load(b, map_location="cpu", mmap=mmap, weights_only=True)
     ox, oy = x["opt_state"], y["opt_state"]
     pairs = {"params": (x["params"], y["params"]),
              "mu": (ox["mu"], oy["mu"]), "nu": (ox["nu"], oy["nu"]),
@@ -6595,10 +7162,7 @@ def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list,
         out["e_position"] = plane.get_pod(
             QUOTA_PODS["E"][0], "team-b")["metadata"]["annotations"].get(
                 QUEUE_POSITION_ANNOTATION)
-        path = Path(b["env"]["VTPU_PODINFO_ANNOTATIONS"])
-        staged = path.with_name(".annotations")
-        staged.write_text(podinfo_text(anns))
-        os.replace(staged, path)
+        mirror_podinfo(Path(b["env"]["VTPU_PODINFO_ANNOTATIONS"]), anns)
         t["mirrored"] = time.monotonic()
 
     ran = child.run({}, "quota", kubelet)
@@ -7027,10 +7591,8 @@ def phase_preempt(torch, record, vgpu: Path, interposer: Path):
             events["h"] = hs
             annotations = plane.get_pod(names["V"])["metadata"][
                 "annotations"]
-            path = Path(pods["V"]["env"]["VTPU_PODINFO_ANNOTATIONS"])
-            staged = path.with_name(".annotations")
-            staged.write_text(podinfo_text(annotations))
-            os.replace(staged, path)
+            mirror_podinfo(Path(pods["V"]["env"]["VTPU_PODINFO_ANNOTATIONS"]),
+                           annotations)
             events["mirrored"] = time.monotonic()
             events["v_annotations"] = annotations
 

@@ -15,12 +15,15 @@ extender's ``/debug`` endpoints) and the capacity queues:
 ``--quota-config`` (JSON; YAML where PyYAML is installed),
 ``--fair-share-usage-informed``, ``--admission-interval``,
 ``--queue-reclaim-grace``, ``--queue-fleet-headroom``,
-``--no-queue-backfill`` and ``--no-reclaim``.
+``--no-queue-backfill`` and ``--no-reclaim``; and the defragmenter:
+``--enable-defrag``, ``--defrag-interval``, ``--defrag-checkpoint-grace``,
+``--defrag-reservation-ttl`` and ``--defrag-max-victims``.
 Boot order: list the pods and reconcile the grants before anything serves
 (a restarted scheduler that filtered against an empty registry would book
 cards twice), then the watch thread, the rescue thread, the admission
-thread (with a quota config), the register service, the exporter and the
-HTTP extender.  This module is the gRPC edge: the core imports neither grpc nor
+thread (with a quota config), the defrag thread (with
+``--enable-defrag``), the register service, the exporter and the HTTP
+extender.  This module is the gRPC edge: the core imports neither grpc nor
 protobuf.
 """
 
@@ -149,6 +152,21 @@ def parse_args(argv=None):
                    help="never reclaim borrowed grants for starved "
                         "in-quota tenants (fair-share ordering and "
                         "borrowing stay on)")
+    p.add_argument("--enable-defrag", action="store_true",
+                   help="background fleet defragmentation: compact "
+                        "fragmented nodes by checkpoint-migrating "
+                        "movable pods so blocked large slice/mesh "
+                        "demands can admit")
+    p.add_argument("--defrag-interval", type=float, default=10.0,
+                   help="defrag loop period, seconds")
+    p.add_argument("--defrag-checkpoint-grace", type=float, default=120.0,
+                   help="seconds an asked migration victim gets to "
+                        "checkpoint and exit before the plan aborts")
+    p.add_argument("--defrag-reservation-ttl", type=float, default=300.0,
+                   help="seconds an assembled (reserved) slice waits "
+                        "for its beneficiary before returning to the pool")
+    p.add_argument("--defrag-max-victims", type=int, default=8,
+                   help="largest victim set a compaction plan may ask")
     p.add_argument("--resync-seconds", type=float, default=None,
                    help="full re-list period; default 300 with the watch, "
                         "30 without")
@@ -191,7 +209,12 @@ def build_config(args) -> Config:
         queue_reclaim_grace_s=args.queue_reclaim_grace,
         queue_fleet_headroom=args.queue_fleet_headroom,
         enable_queue_backfill=not args.no_queue_backfill,
-        enable_reclaim=not args.no_reclaim)
+        enable_reclaim=not args.no_reclaim,
+        enable_defrag=args.enable_defrag,
+        defrag_interval_s=args.defrag_interval,
+        defrag_checkpoint_grace_s=args.defrag_checkpoint_grace,
+        defrag_reservation_ttl_s=args.defrag_reservation_ttl,
+        defrag_max_victims=args.defrag_max_victims)
 
 
 def load_quota_config(path: str) -> tuple:
@@ -312,6 +335,10 @@ def main(argv=None):
     # After the boot reconcile, so held and admitted pods are known; a
     # no-op without a quota config.
     scheduler.admission.start()
+    # The compaction loop, when asked for (embedders and tests call
+    # defrag.tick() themselves).
+    if scheduler.cfg.enable_defrag:
+        scheduler.defrag.start()
     grpc_server = start_register_service(scheduler, args.grpc_bind)
     metrics_server = start_metrics_server(scheduler, args.metrics_port)
     host, _, port = args.http_bind.rpartition(":")
@@ -339,6 +366,7 @@ def main(argv=None):
         stop.set()
         scheduler.rescuer.stop()
         scheduler.admission.stop()
+        scheduler.defrag.stop()
         http_server.stop()
         metrics_server.stop()
         grpc_server.stop(grace=2)

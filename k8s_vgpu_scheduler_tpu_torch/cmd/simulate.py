@@ -72,10 +72,24 @@ reclaim ever touch an in-quota grant:
                      "count": 40, "at_s": 0, "runtime_s": 40}, ...],
        "horizon_s": 600, "tick_s": 5, "measure_from_s": 180}}
 
-The JAX simulator's other sections (``fragmentation``, ``elastic``,
-``capacity``, ``audit``, ``slo``, ``ha``) replay subsystems the port does
-not have yet (ROADMAP A.5): such a workload is refused by name, and the
-command exits 2.
+A ``fragmentation`` section is a defrag-on vs defrag-off A/B on the
+virtual clock through the port's placement subsystem (``placement/``):
+exclusive churn singles fill the fleet, a patterned subset exits
+(scattered free cards, no contiguous box), a mesh-declared gang arrives
+and blocks, and the defragmenter compacts by checkpoint-migrating
+victims until the gang admits:
+
+    {"fragmentation": {
+       "churn": {"name": "churn", "gpu": 1, "gpumem": 4000,
+                 "gpucores": 100, "priority": 1},
+       "release_pattern": "checkerboard",
+       "gang": {"name": "big", "count": 2, "gpu": 4, "gpumem": 4000,
+                "gpucores": 100, "gang": "big", "mesh": "2x4"},
+       "horizon_s": 300, "tick_s": 5, "checkpoint_delay_s": 5}}
+
+The JAX simulator's other sections (``elastic``, ``capacity``, ``audit``,
+``slo``, ``ha``) replay subsystems the port does not have yet (ROADMAP
+A.5): such a workload is refused by name, and the command exits 2.
 
 Usage:
     vgpu-simulate --nodes 4 --chips 8 --hbm 81079 --mesh 8 \\
@@ -126,9 +140,9 @@ from ..util.types import (
 )
 
 #: The JAX simulator's self-contained sections, in the order it tries
-#: them: ``serving`` and ``queueing`` run here, the others wait for
-#: ROADMAP A.5.  True: a section is requested when present; False: when
-#: it is not empty.
+#: them: ``fragmentation``, ``serving`` and ``queueing`` run here, the
+#: others are refused until ROADMAP A.5 brings them.  True: a section is
+#: requested when present; False: when it is not empty.
 SECTIONS = (("fragmentation", False), ("elastic", True), ("capacity", True),
             ("serving", True), ("audit", True), ("slo", True),
             ("ha", False), ("queueing", False))
@@ -253,6 +267,13 @@ def run_simulation(workload: dict, *, nodes: int = 0, chips: int = 0,
             # A self-contained flat-vs-tiered QoS A/B through the native
             # limiters and the monitor loop on virtual clocks; no fleet.
             result = run_serving_phase(workload["serving"])
+        elif key == "fragmentation":
+            # A self-contained defrag-on/off A/B on the virtual clock:
+            # churn fragments the fleet, a large slice/mesh gang arrives
+            # and blocks, the defragmenter compacts, the gang admits.
+            result = run_fragmentation_phase(
+                workload["fragmentation"], nodes=nodes, chips=chips,
+                hbm=hbm, mesh=mesh, generation=generation, policy=policy)
         elif key == "queueing":
             # A self-contained time-stepped A/B: its own fair and FIFO
             # schedulers on the virtual clock (the plain replay below
@@ -680,6 +701,286 @@ def run_chaos_phase(s: Scheduler, kube: FakeKube, names: List[str],
 
 # -- the capacity-queue A/B (quota/) -------------------------------------------
 
+# --- fragmentation / defrag A/B (placement/) ---------------------------------
+
+def _run_frag_sim(spec: dict, defrag_on: bool, *, nodes: int, chips: int,
+                  hbm: int, mesh, generation: str, policy: str) -> dict:
+    """One time-stepped fragmentation replay through the port's scheduler
+    and defrag loop on a SimClock.  Churn pods (exclusive singles at
+    preemptible priority) fill the fleet; a seeded/patterned subset
+    exits, leaving scattered free cards; a mesh-declared gang arrives
+    and is re-filtered every tick (kube-scheduler's retry of
+    unschedulable pods).  With defrag on, the loop ticks alongside:
+    victims get checkpoint requests, the harness plays the in-container
+    watch (delete after ``checkpoint_delay_s``), their controllers
+    recreate them, and the gang lands on the assembled boxes."""
+    from ..placement import frag as frag_mod
+
+    horizon = float(spec.get("horizon_s", 300.0))
+    tick = float(spec.get("tick_s", 5.0))
+    checkpoint_delay = float(spec.get("checkpoint_delay_s", tick))
+
+    clock = SimClock()
+    kube = FakeKube()
+    cfg = Config(node_scheduler_policy=policy,
+                 enable_defrag=defrag_on,
+                 defrag_interval_s=tick,
+                 defrag_demand_fresh_s=max(60.0, 6 * tick),
+                 defrag_checkpoint_grace_s=float(
+                     spec.get("checkpoint_grace_s",
+                              4 * checkpoint_delay + 2 * tick)),
+                 defrag_reservation_ttl_s=horizon)
+    s = Scheduler(kube, cfg, clock=clock)
+    names = build_fleet(s, kube, nodes, chips, hbm, mesh, generation)
+    kube.watch_pods(s.on_pod_event)
+
+    def place(pod) -> Optional[str]:
+        r = s.filter(pod, names)
+        if r.node:
+            name = pod["metadata"]["name"]
+            ns = pod["metadata"]["namespace"]
+            s.bind(ns, name, pod["metadata"]["uid"], r.node)
+            nodelock.release_node(kube, r.node)
+        return r.node
+
+    # 1. Churn fill: one exclusive, preemptible single per card.
+    churn_entry = dict(spec.get("churn") or {})
+    churn_entry.setdefault("name", "churn")
+    churn_entry.setdefault("gpu", 1)
+    churn_entry.setdefault("gpucores", 100)
+    churn_entry.setdefault("priority", 1)
+    total_chips = nodes * chips
+    churn_pods = []
+    for i in range(total_chips):
+        p = spec_pod(churn_entry, i)
+        kube.create_pod(p)
+        if place(p) is not None:
+            churn_pods.append(p)
+
+    # 2. Fragment: the patterned subset exits.  "checkerboard" frees
+    # every card whose coord parity is even — scattered singles, no
+    # contiguous box anywhere; an explicit index list is also accepted.
+    pattern = spec.get("release_pattern", "checkerboard")
+    released = 0
+    if isinstance(pattern, list):
+        victims = {int(i) for i in pattern}
+        for i, p in enumerate(churn_pods):
+            if i in victims:
+                kube.delete_pod(p["metadata"]["namespace"],
+                                p["metadata"]["name"])
+                released += 1
+    else:
+        for p in churn_pods:
+            info = s.pods.get(p["metadata"]["uid"])
+            if info is None:
+                continue
+            chip_ids = {d.uuid for c in info.devices for d in c}
+            node_info = s.nodes.get_node(info.node)
+            coords = [tuple(d.coords) for d in node_info.devices
+                      if d.id in chip_ids]
+            if coords and sum(coords[0]) % 2 == 0:
+                kube.delete_pod(p["metadata"]["namespace"],
+                                p["metadata"]["name"])
+                released += 1
+
+    views = frag_mod.fleet_views(s.snapshot())
+    gang_entry = dict(spec.get("gang") or {})
+    gang_entry.setdefault("name", "big")
+    gang_entry.setdefault("gang", gang_entry["name"])
+    gang_entry.setdefault("count", 1)
+    gang_entry.setdefault("gpucores", 100)
+    gang_chips = int(gang_entry.get("gpu", 4))
+    before = {
+        "slice_availability": frag_mod.slice_availability(
+            views, [gang_chips]),
+        "max_free_box": frag_mod.largest_free_box(views),
+    }
+
+    # 3. The blocked arrival: a mesh-declared gang.
+    members = [spec_pod(gang_entry, i)
+               for i in range(int(gang_entry["count"]))]
+    for p in members:
+        kube.create_pod(p)
+
+    placed_at: Dict[str, float] = {}
+    admitted_at: Optional[float] = None
+    preempt_seen: Dict[str, float] = {}
+    checkpoint_first: List[str] = []
+    recreated: List[dict] = []
+    victims_migrated: List[str] = []
+    # uids the defrag loop's PLANS asked to migrate, vs uids observed
+    # carrying the eviction flag before their exit: the verdict's
+    # checkpoint-first proof compares the two.
+    asked_uids: set = set()
+    flagged_exited_uids: set = set()
+    overbooked: List[str] = []
+    t0 = clock()
+    steps = int(round(horizon / tick))
+    for _step in range(steps):
+        now = clock() - t0
+        # Gang members retry first (the pending queue the compaction
+        # serves), then any recreated victims.
+        for p in members + recreated:
+            name = p["metadata"]["name"]
+            if name in placed_at:
+                continue
+            try:
+                kube.get_pod(p["metadata"]["namespace"], name)
+            except Exception:  # noqa: BLE001 — deleted this tick
+                continue
+            if place(p) is not None:
+                placed_at[name] = now
+        if admitted_at is None and all(
+                m["metadata"]["name"] in placed_at for m in members):
+            admitted_at = now
+        if defrag_on:
+            for act in s.defrag.tick():
+                if act["kind"] == "defrag-plan":
+                    asked_uids.update(act["victims"])
+        # The in-container watch's role: a flagged victim checkpoints
+        # and exits after the delay; its controller recreates it.
+        for pod in list(kube.list_pods()):
+            anns = pod.get("metadata", {}).get("annotations", {})
+            name = pod["metadata"]["name"]
+            flag = anns.get(PREEMPT_ANNOTATION, "")
+            if flag.startswith("rescue:defrag:"):
+                first = preempt_seen.setdefault(name, now)
+                if now - first >= checkpoint_delay:
+                    checkpoint_first.append(name)
+                    victims_migrated.append(name)
+                    flagged_exited_uids.add(pod["metadata"]["uid"])
+                    kube.delete_pod(pod["metadata"]["namespace"], name)
+                    preempt_seen.pop(name, None)
+                    replacement = {
+                        "metadata": {
+                            "name": f"{name}-r",
+                            "namespace": pod["metadata"]["namespace"],
+                            "uid": f"uid-{name}-r", "annotations": {}},
+                        "spec": pod["spec"],
+                    }
+                    kube.create_pod(replacement)
+                    recreated.append(replacement)
+            elif not flag:
+                preempt_seen.pop(name, None)
+        bad = overbooked_chips(s)
+        if bad:
+            overbooked = sorted(set(overbooked) | set(bad))
+        clock.advance(tick)
+
+    views = frag_mod.fleet_views(s.snapshot())
+    after = {
+        "slice_availability": frag_mod.slice_availability(
+            views, [gang_chips]),
+        "max_free_box": frag_mod.largest_free_box(views),
+    }
+    replaced = sorted(n for n in placed_at
+                      if n.endswith("-r"))
+    return {
+        "defrag": defrag_on,
+        "released_for_fragmentation": released,
+        "gang_members": len(members),
+        "gang_chips_per_member": gang_chips,
+        "admitted": admitted_at is not None,
+        "admission_latency_s": admitted_at,
+        "migrations": s.defrag.migrations_total,
+        "plans": s.defrag.plans_total,
+        "victims_migrated": sorted(set(victims_migrated)),
+        "victims_checkpoint_first": sorted(set(checkpoint_first)),
+        "victims_asked_uids": sorted(asked_uids),
+        "victims_flagged_exited_uids": sorted(flagged_exited_uids),
+        "victims_replaced": replaced,
+        "availability_before": before,
+        "availability_after": after,
+        "overbooked_chips": overbooked,
+    }
+
+
+def run_fragmentation_phase(spec: dict, *, nodes: int, chips: int,
+                            hbm: int, mesh, generation: str,
+                            policy: str) -> dict:
+    """Defrag-on vs defrag-off A/B on the same fragmented fleet and gang
+    arrival.  The verdict: with defrag on the gang admits (and strictly
+    sooner than off, which typically never admits), contiguous-slice
+    availability at the gang's size is strictly better, every migrated
+    victim was asked to checkpoint BEFORE its exit and was re-placed,
+    and no card was ever double-booked in either run."""
+    on = _run_frag_sim(spec, True, nodes=nodes, chips=chips, hbm=hbm,
+                       mesh=mesh, generation=generation, policy=policy)
+    off = _run_frag_sim(spec, False, nodes=nodes, chips=chips, hbm=hbm,
+                        mesh=mesh, generation=generation, policy=policy)
+    size = on["gang_chips_per_member"]
+    avail_on = on["availability_after"]["slice_availability"].get(size, 0)
+    avail_off = off["availability_after"]["slice_availability"].get(
+        size, 0)
+    # The availability comparison counts the gang's own landed boxes:
+    # cards DELIVERED to the blocked gang are the point of compaction.
+    delivered_on = on["gang_members"] if on["admitted"] else 0
+    delivered_off = off["gang_members"] if off["admitted"] else 0
+    latency_better = on["admitted"] and (
+        not off["admitted"]
+        or (on["admission_latency_s"] or 0.0)
+        < (off["admission_latency_s"] or 0.0))
+    verdict = {
+        "gang_admitted_with_defrag": on["admitted"],
+        "admission_latency_better": latency_better,
+        "availability_better": (avail_on + delivered_on)
+        > (avail_off + delivered_off),
+        # Checkpoint-first proof: every victim a PLAN asked for was
+        # observed carrying the eviction flag before its exit, and
+        # nothing exited flagged that no plan asked for.
+        "victims_checkpoint_first": (
+            bool(on["victims_asked_uids"])
+            and on["victims_asked_uids"]
+            == on["victims_flagged_exited_uids"]),
+        "victims_replaced": (
+            len(on["victims_replaced"]) == len(on["victims_migrated"])),
+        "no_overbooking": not (on["overbooked_chips"]
+                               or off["overbooked_chips"]),
+    }
+    verdict["ok"] = all(verdict.values())
+    return {
+        "horizon_s": float(spec.get("horizon_s", 300.0)),
+        "tick_s": float(spec.get("tick_s", 5.0)),
+        "defrag_on": on,
+        "defrag_off": off,
+        "verdict": verdict,
+    }
+
+
+def format_fragmentation(fr: dict) -> str:
+    v = fr["verdict"]
+    on, off = fr["defrag_on"], fr["defrag_off"]
+
+    def leg(r):
+        adm = (f"admitted at {r['admission_latency_s']:.0f}s"
+               if r["admitted"] else "NEVER admitted")
+        return (f"{adm}; max free box "
+                f"{r['availability_before']['max_free_box']} → "
+                f"{r['availability_after']['max_free_box']} cards; "
+                f"{r['plans']} plan(s), {r['migrations']} "
+                f"migration(s)")
+
+    lines = [
+        "fragmentation A/B over {:.0f}s ({} gang member(s) × {} "
+        "cards, {} churn pod(s) released):".format(
+            fr["horizon_s"], on["gang_members"],
+            on["gang_chips_per_member"],
+            on["released_for_fragmentation"]),
+        f"  defrag ON : {leg(on)}",
+        f"  defrag OFF: {leg(off)}",
+        "  victims: {} migrated, {} checkpoint-first, {} re-placed"
+        .format(len(on["victims_migrated"]),
+                len(on["victims_checkpoint_first"]),
+                len(on["victims_replaced"])),
+    ]
+    if on["overbooked_chips"] or off["overbooked_chips"]:
+        lines.append("  OVERBOOKED: "
+                     + ", ".join(on["overbooked_chips"]
+                                 + off["overbooked_chips"]))
+    lines.append("  verdict: " + ("PASS" if v["ok"] else f"FAIL {v}"))
+    return "\n".join(lines)
+
+
 def _arrival_schedule(spec: dict) -> List[dict]:
     """The arrivals as one record a pod, in arrival order (name
     tie-break: the replay is deterministic)."""
@@ -964,6 +1265,9 @@ def format_serving(sv: dict) -> str:
 
 
 def format_report(result: dict) -> str:
+    fr = result.get("fragmentation")
+    if fr:
+        return format_fragmentation(fr)
     sv = result.get("serving")
     if sv:
         return format_serving(sv)

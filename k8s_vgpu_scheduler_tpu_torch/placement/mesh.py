@@ -21,8 +21,8 @@ outermost, the data axis).  Two scopes:
 
 Everything here is pure math over coordinates: no scheduler state, no
 locks, no torch, grpc or protobuf.  Filter and the webhook call the same
-functions.  The JAX module's shaped-box availability helpers serve its
-defragmenter and wait with it (ROADMAP A.5).
+functions, and the defragmenter (``defrag.py``) counts shaped boxes with
+``shaped_box_availability``.
 """
 
 from __future__ import annotations
@@ -262,6 +262,29 @@ def _first_shaped_box(topo: TopologyDesc, free: Iterable[Coord],
             if cells is not None and freeset.issuperset(cells):
                 return cells
     return None
+
+
+def exists_realizing_box(topo: TopologyDesc, free: Iterable[Coord],
+                         shapes: Sequence[Tuple[int, ...]]) -> bool:
+    """Existence-only: does ANY box of one of ``shapes`` fit in
+    ``free``?  The mesh-aware replacement for a bare volume check —
+    a 4x1 strip has the volume of a 2x2 mesh but cannot realize it."""
+    return _first_shaped_box(topo, free, shapes) is not None
+
+
+def shaped_box_availability(topo: TopologyDesc, free: Iterable[Coord],
+                            shapes: Sequence[Tuple[int, ...]]) -> int:
+    """Greedy count of DISJOINT boxes drawn from ``shapes`` — how many
+    such grants could be admitted back to back right now."""
+    remaining = set(free)
+    count = 0
+    while remaining:
+        got = _first_shaped_box(topo, remaining, shapes)
+        if got is None:
+            break
+        count += 1
+        remaining -= set(got)
+    return count
 
 
 def validate_mesh(value: str, nums: int, gang_total: int,

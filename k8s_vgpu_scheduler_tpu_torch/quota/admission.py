@@ -6,9 +6,9 @@ runs it in the daemon's thread, as the rescuer runs):
 
 1. prune the entries whose pod placed or vanished;
 2. per-queue usage (granted plus released-unplaced) and the fleet release
-   throttle (cards registered less cards outstanding: releasing far past
-   the fleet would only move the waiting line into Filter, where fairness
-   no longer orders it);
+   throttle (cards registered, less the cards slice reservations hold,
+   less cards outstanding: releasing far past the fleet would only move
+   the waiting line into Filter, where fairness no longer orders it);
 3. release admissible pods, the lowest weighted dominant share first,
    re-sorted after every release; a ready gang releases all its members
    at once, and while a gang accumulates members the backfill rule may
@@ -147,11 +147,19 @@ class AdmissionLoop:
 
     # -- fleet throttle --------------------------------------------------------
     def _fleet_chip_cap(self) -> Optional[float]:
-        """Cards registered fleet-wide times the headroom (None: no
-        inventory yet, so a cold control plane gates on quota alone)."""
+        """Cards registered fleet-wide times the headroom, less the cards
+        a defrag compaction holds in reservation (None: no inventory yet,
+        so a cold control plane gates on quota alone).  Reserved cards are
+        real capacity nobody but the beneficiary can use: releasing (or
+        backfilling) against them would only move pods into Filter to
+        bounce off the stripped usage, and, for the backfill rule, fill
+        the very hole compaction opened."""
         if self.s.nodes.count() == 0:
             return None
-        return max(0.0, self.s.nodes.total_chips() * self.cfg.fleet_headroom)
+        chips = self.s.nodes.total_chips()
+        reservations = getattr(self.s, "reservations", None)
+        reserved = reservations.total_chips() if reservations else 0
+        return max(0.0, chips * self.cfg.fleet_headroom - reserved)
 
     @staticmethod
     def _fits_fleet(chips: int, fleet_cap: Optional[float],

@@ -36,7 +36,15 @@ with a rank each (``vtpu.dev/pod-group-rank``), keep their grants until
 deletion, and are never preemption victims.  A pod that declares an
 elastic mesh range (``vtpu.dev/mesh-min``/``-max``) is refused with an
 error that names the slice that places it: it is never placed as though
-it declared none.  This
+it declared none.  Placement (``placement/``): a multi-card pod that
+fits nowhere because no contiguous box is free records a demand with the
+defragmenter (``placement/defrag.py``); with ``Config.enable_defrag`` its
+tick plans the cheapest compaction, reserves the box
+(``placement/reserve.py``: the reserved cards leave every usage a fit
+reads, beside the quarantined ones) and asks the victims to checkpoint
+through the same eviction requests, and the beneficiary's next Filter
+releases the box and lands on it.  ``snapshot()`` is the fleet's usage as
+the defragmenter and the fragmentation views read it.  This
 module imports neither grpc nor protobuf: the register stream's messages
 are read through their attributes, and only ``cmd/scheduler.py`` converts
 at the gRPC edge.
@@ -47,7 +55,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from ..accounting import efficiency as eff_mod
 from ..accounting.ledger import UsageLedger, decode_usage
@@ -64,6 +72,9 @@ from ..k8s.client import (
     pod_qos,
     pod_uid,
 )
+from ..placement.defrag import DefragConfig, Defragmenter
+from ..placement.mesh import MESH_ANNOTATION, local_mesh_for, parse_mesh
+from ..placement.reserve import SliceReservations
 from ..quota.admission import AdmissionConfig, AdmissionLoop
 from ..quota.queues import QuotaManager
 from ..tpulib.types import TopologyDesc
@@ -129,6 +140,20 @@ class FilterResult:
         self.preempt = preempt
 
 
+class SnapEntry(NamedTuple):
+    """One node's slice of the fleet's usage snapshot (the JAX
+    scheduler's ``SnapEntry``): its inventory and its card usage, as a
+    fit reads them.  ``key`` is the JAX scheduler's (pod rev, inventory
+    rev) generation, which its optimistic commit validates against;
+    the port has no revision cache and no optimistic commit (each
+    decision rebuilds usage under the decision lock), so the key has no
+    counterpart here and is always (0, 0)."""
+
+    key: Tuple[int, int]
+    info: NodeInfo
+    usage: Dict[str, score_mod.DeviceUsage]
+
+
 def decode_register_request(req) -> NodeInfo:
     """A RegisterRequest (any object with its fields) → NodeInfo, each
     card's fabric coordinates and the node's topology with it (an empty
@@ -190,6 +215,24 @@ class Scheduler:
                 backfill=self.cfg.enable_queue_backfill,
                 reclaim=self.cfg.enable_reclaim,
                 fleet_headroom=self.cfg.queue_fleet_headroom),
+            clock=clock)
+        # Placement: slice reservations on the scheduler's clock, stripped
+        # from every usage a fit reads (``_usage``); the defragmenter is
+        # inert unless ``enable_defrag`` (its demand registry and the
+        # availability metrics still work).  vgpu-scheduler starts its
+        # thread; embedders and tests call defrag.tick() themselves.
+        self.reservations = SliceReservations(
+            clock=clock, ttl_s=self.cfg.defrag_reservation_ttl_s)
+        self.defrag = Defragmenter(
+            self,
+            DefragConfig(
+                enabled=self.cfg.enable_defrag,
+                interval_s=self.cfg.defrag_interval_s,
+                demand_fresh_s=self.cfg.defrag_demand_fresh_s,
+                checkpoint_grace_s=self.cfg.defrag_checkpoint_grace_s,
+                reservation_ttl_s=self.cfg.defrag_reservation_ttl_s,
+                min_victim_priority=self.cfg.defrag_min_victim_priority,
+                max_victims_per_plan=self.cfg.defrag_max_victims),
             clock=clock)
         # Held for a whole decision: candidate evaluation and the
         # tentative grant, never across apiserver I/O.
@@ -467,14 +510,27 @@ class Scheduler:
     def _usage(self, name: str, info: NodeInfo
                ) -> Dict[str, score_mod.DeviceUsage]:
         """``name``'s inventory less its grants, built fresh, with its
-        quarantined cards left out: no fit can place on a card it cannot
-        see."""
+        quarantined cards and its reserved cards (a compaction's assembled
+        box) left out: no fit can place on a card it cannot see."""
         usage = score_mod.build_usage(info, self.pods.pods_on_node(name))
         quarantined = self.quarantine.quarantined_on(name)
         if quarantined:
             usage = {cid: u for cid, u in usage.items()
                      if cid not in quarantined}
+        reserved = self.reservations.reserved_on(name)
+        if reserved:
+            usage = {cid: u for cid, u in usage.items()
+                     if cid not in reserved}
         return usage
+
+    def snapshot(self) -> Dict[str, SnapEntry]:
+        """The whole fleet's usage as every fit reads it (``_usage``:
+        quarantined and reserved cards left out), one entry a registered
+        node in the registry's order.  The JAX scheduler keeps this
+        incrementally behind revision keys; the port builds it afresh on
+        each call, off the decision lock, as ``get_nodes_usage``."""
+        return {name: SnapEntry((0, 0), info, usage)
+                for name, (info, usage) in self.get_nodes_usage().items()}
 
     def get_nodes_usage(self, node_names: Optional[List[str]] = None
                         ) -> Dict[str, Tuple[NodeInfo,
@@ -627,6 +683,7 @@ class Scheduler:
                 tr.event(uid, "filter-rejected", trace_id=tid,
                          pod=pod_name(pod), error=result.error,
                          preempting=result.preempt is not None)
+            self._note_slice_rejection(pod, result)
             if result.failed:
                 # A released governed pod that found no seat: the reclaim
                 # trigger's signal (borrowers may hold its cards).
@@ -636,6 +693,9 @@ class Scheduler:
             return result
         tr.event(uid, "filter-assigned", trace_id=tid, pod=pod_name(pod),
                  node=result.node)
+        # A placement settles any slice demand this pod (or its gang) had
+        # recorded: the defragmenter must not compact for it.
+        self.defrag.demand_satisfied(self._reservation_key(pod))
         if self._preempt_by_requester.get(uid):
             # Placed after all (room freed elsewhere): its eviction
             # requests are pointless now.
@@ -666,6 +726,10 @@ class Scheduler:
         hold = self.quota.gate(pod, requests)
         if hold is not None:
             return FilterResult(error=hold)
+        # A compaction's beneficiary: the cards the defragmenter assembled
+        # for this pod or gang rejoin the usage before the decision, so
+        # the slice-aware fit lands on the freed box.
+        self._release_reservation_for(pod)
         gang = gang_of(pod)
         if gang is not None:
             with self._lock:
@@ -921,6 +985,91 @@ class Scheduler:
                                 member_uid)
             if not unresolved:
                 self.gangs.forget(g.key)
+
+    # -- placement hooks (placement/) ------------------------------------------
+    @staticmethod
+    def _reservation_key(pod: dict) -> str:
+        """Identity a slice demand / reservation is recorded under: the
+        gang key for gang members (any member's arrival delivers the
+        whole gang's box), else the pod uid."""
+        g = gang_of(pod)
+        if g is not None:
+            return f"{pod_namespace(pod)}/{g[0]}"
+        return pod_uid(pod)
+
+    def _release_reservation_for(self, pod: dict) -> None:
+        """If the defragmenter assembled a box for this pod or gang,
+        return its cards to the usage before deciding."""
+        key = self._reservation_key(pod)
+        if self.reservations.holds_for(key):
+            if not self.defrag.ready_for(key):
+                # Mid-compaction (or a gang still short of boxes):
+                # releasing now would let bystanders squat in the
+                # partially-assembled hole.  The pod fails this Filter
+                # and retries; the defrag loop keeps assembling.
+                return
+            released = self.reservations.release_for(key)
+            log.info("placement: released reserved slice on %s for %s",
+                     ",".join(sorted({r.node for r in released})), key)
+            trace.tracer().event(pod_uid(pod), "slice-reservation-released",
+                                 trace_id=trace.trace_id_of(pod),
+                                 pod=pod_name(pod),
+                                 chips=sum(len(r.chips) for r in released))
+
+    def _note_slice_rejection(self, pod: dict, result: FilterResult) -> None:
+        """Feed the defragmenter's demand registry: a multi-card pod that
+        fit nowhere because no contiguous box exists (per-node
+        ``no-ici-slice``/``no-mesh-slice`` reasons, or a gang whose atomic
+        placement failed on a fleet with a fabric) is exactly the blocked
+        demand compaction can unblock.  (The JAX scheduler then feeds its
+        resize controller; the port has none yet.)"""
+        try:
+            requests = container_requests(pod, self.cfg)
+        except ValueError:
+            return
+        chips = max((r.nums for r in requests), default=0)
+        if chips <= 1:
+            return
+        gang = gang_of(pod)
+        slice_blocked = False
+        if result.failed:
+            # Explicit slice tokens are certain fragmentation; card-
+            # availability tokens are how fragmentation presents when
+            # eligible whole cards run short.  Resource-shaped tokens
+            # (insufficient-hbm/-cores, type-mismatch, unhealthy) are NOT
+            # demand: compaction assembles free cards, it cannot mint
+            # memory or card types.
+            frag_tokens = ("no-ici-slice", "no-mesh-slice",
+                           "too-few-chips", "exclusive-chip-busy",
+                           "slots-exhausted", "cores-exhausted")
+            slice_blocked = any(
+                r.startswith(frag_tokens)
+                for r in result.failed.values())
+        elif gang is not None and result.error \
+                and "no atomic placement" in result.error:
+            # Gang admission reports no per-node reasons; quota holds and
+            # waiting gangs carry neither a failed map nor this error.
+            slice_blocked = any(
+                e.info.topology is not None
+                for e in self.snapshot().values())
+        if not slice_blocked:
+            return
+        # A declared mesh travels with the demand: the defragmenter must
+        # assemble a box REALIZING its axes, not just its volume.
+        mesh_local = None
+        mesh_value = pod.get("metadata", {}).get(
+            "annotations", {}).get(MESH_ANNOTATION, "")
+        if mesh_value:
+            try:
+                mesh_local, _why = local_mesh_for(
+                    parse_mesh(mesh_value), chips)
+            except ValueError:
+                mesh_local = None
+        self.defrag.observe_rejection(
+            self._reservation_key(pod), pod_namespace(pod),
+            pod_name(pod), chips,
+            count=gang[1] if gang is not None else 1,
+            mesh=mesh_local)
 
     def _write_decision(self, pod: dict, result: FilterResult
                         ) -> Optional[str]:

@@ -11,8 +11,11 @@ Families whose source the port has carry values: grants per card and per
 pod, ``node_tpu_memory_percentage``, preemption requests, leases,
 quarantine, rescue, usage and efficiency from the ledger, idle grants,
 the capacity queues (pending, admitted, fair share, borrowed cards,
-reclaims), slice availability and the largest free box, QoS wait and
-weights, and the phase latency and rejections from the tracer.  Families whose
+reclaims), slice availability and the largest free box (over
+``placement/frag.py``'s views of the scheduler's snapshot), the cards
+held in slice reservations and the defragmenter's plans, migrations,
+completions and aborts, QoS wait and weights, and the phase latency and
+rejections from the tracer.  Families whose
 subsystem waits for ROADMAP A.5 are emitted as the JAX collector emits
 them with that subsystem off, zero-valued or empty, so no series a
 dashboard names ever vanishes: see :data:`A5_FAMILIES`.  Standard library
@@ -21,10 +24,10 @@ only.
 
 from __future__ import annotations
 
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable
 
 from ..monitor.metrics import _fold_hist, qos_wait_family
-from ..placement.mesh import box_availability, max_free_box_volume
+from ..placement import frag as frag_mod
 from ..util import trace
 from ..util.exposition import (
     CounterMetricFamily,
@@ -57,11 +60,6 @@ A5_FAMILIES = {
     "vtpu_solve_workers": "multicore solve workers",
     "vtpu_solve_worker_restarts": "multicore solve workers",
     "vtpu_solve_worker_eval_seconds": "multicore solve workers",
-    "vtpu_reserved_chips": "slice reservations",
-    "vtpu_defrag_plans": "defragmenter",
-    "vtpu_defrag_migrations": "defragmenter",
-    "vtpu_defrag_completed": "defragmenter",
-    "vtpu_defrag_aborted": "defragmenter",
     "vtpu_resizes": "elastic meshes",
     "vtpu_elastic_pods": "elastic meshes",
     "vtpu_resize_thrash": "elastic meshes",
@@ -87,33 +85,6 @@ A5_FAMILIES = {
     "vtpu_slo_burn_alerts": "SLO engine",
     "vtpu_decision_write_failures": "decision writer",
 }
-
-#: Slice sizes the availability gauge reports: a fixed label set, so its
-#: series never vanish as fleets grow and shrink (the JAX package's
-#: ``placement/frag.py``).
-CANONICAL_SIZES = (2, 4, 8, 16, 32, 64)
-
-
-def node_free_stats(info, usage) -> Optional[tuple]:
-    """One node's (largest free box, {size: disjoint free boxes}) over its
-    whole free cards (healthy, nothing granted), or None where the node
-    has no fabric or a card lacks coordinates (the JAX ``frag`` rule)."""
-    topo = info.topology
-    if topo is None:
-        return None
-    free = set()
-    seen = set()
-    for u in usage.values():
-        if not u.coords or u.coords in seen:
-            return None
-        seen.add(u.coords)
-        if u.health and u.used_slots == 0 and u.used_mem == 0 \
-                and u.used_cores == 0:
-            free.add(u.coords)
-    free = frozenset(free)
-    return (max_free_box_volume(topo, free),
-            box_availability(topo, free, CANONICAL_SIZES))
-
 
 class ClusterCollector:
     def __init__(self, scheduler: Scheduler) -> None:
@@ -358,8 +329,8 @@ class ClusterCollector:
             q_reclaims.add_metric([], 0)
 
         # Placement: slice availability and the largest free box from
-        # each node's whole free cards; reservations and the
-        # defragmenter (A.5) at 0.
+        # each node's whole free cards, the reservations and the
+        # defragmenter's counters.
         slice_avail = GaugeMetricFamily(
             "vtpu_slice_availability",
             "Disjoint contiguous free boxes of one slice size (chips) "
@@ -399,23 +370,27 @@ class ClusterCollector:
             "Compaction plans aborted (a victim missed the checkpoint "
             "grace; requests rescinded, reservation returned)",
         )
-        totals = {n: 0 for n in CANONICAL_SIZES}
-        biggest = 0
-        nodes_usage = self.scheduler.get_nodes_usage()
-        for name in sorted(nodes_usage):
-            stats = node_free_stats(*nodes_usage[name])
-            if stats is not None:
-                biggest = max(biggest, stats[0])
-                for size, count in stats[1].items():
-                    totals[size] += count
-        for size, count in sorted(totals.items()):
-            slice_avail.add_metric([str(size)], count)
-        max_box.add_metric([], biggest)
-        reserved.add_metric([], 0)
-        defrag_plans.add_metric([], 0)
-        defrag_migrations.add_metric([], 0)
-        defrag_completed.add_metric([], 0)
-        defrag_aborted.add_metric([], 0)
+        snap_fn = getattr(self.scheduler, "snapshot", None)
+        if snap_fn is not None:
+            views = frag_mod.fleet_views(snap_fn())
+            for size, count in sorted(frag_mod.slice_availability(
+                    views).items()):
+                slice_avail.add_metric([str(size)], count)
+            max_box.add_metric([], frag_mod.largest_free_box(views))
+        # getattr: a collector stub without the placement surface reads
+        # as the JAX collector reads it, zero.
+        reservations = getattr(self.scheduler, "reservations", None)
+        reserved.add_metric(
+            [], reservations.total_chips() if reservations else 0)
+        defrag = getattr(self.scheduler, "defrag", None)
+        defrag_plans.add_metric(
+            [], defrag.plans_total if defrag else 0)
+        defrag_migrations.add_metric(
+            [], defrag.migrations_total if defrag else 0)
+        defrag_completed.add_metric(
+            [], defrag.completed_total if defrag else 0)
+        defrag_aborted.add_metric(
+            [], defrag.aborted_total if defrag else 0)
 
         # Elastic meshes (A.5): the fixed label sets, zero-valued.
         resizes = CounterMetricFamily(

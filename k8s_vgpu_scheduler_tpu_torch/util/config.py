@@ -96,6 +96,25 @@ class Config:
     enable_reclaim: bool = True
     queue_fleet_headroom: float = 1.0
     fair_share_usage_informed: bool = False
+    # Placement (placement/).  The defragmenter compacts fragmented nodes
+    # by checkpoint-migrating movable pods so blocked large slice/mesh
+    # demands can admit.  Off by default — migration imposes
+    # checkpoint/restore cycles, so the operator opts in
+    # (--enable-defrag); the mesh-aware fit, the demand registry and the
+    # slice-availability metrics are always on.  Then: the loop's period;
+    # how long a demand without a fresh slice rejection is remembered;
+    # how long an asked victim gets to checkpoint and exit before the plan
+    # aborts and its reservation returns; how long an assembled
+    # (reserved) slice waits for its beneficiary; the priority from which
+    # (numerically >=) a pod is movable (1: the preemptible tier); and
+    # the largest victim set a plan may ask.
+    enable_defrag: bool = False
+    defrag_interval_s: float = 10.0
+    defrag_demand_fresh_s: float = 120.0
+    defrag_checkpoint_grace_s: float = 120.0
+    defrag_reservation_ttl_s: float = 300.0
+    defrag_min_victim_priority: int = 1
+    defrag_max_victims: int = 8
     # The extender's /debug endpoints (stacks, profile, vars, tracez,
     # events); unauthenticated, so off unless asked for.
     enable_debug: bool = False

@@ -243,6 +243,43 @@ def test_the_backfill_value_renders_no_queue_backfill():
         jsonschema.validate(vals, schema())
 
 
+def test_the_defrag_values_render_into_the_extender():
+    """``scheduler.defrag`` (off by default, in the schema): enabled
+    renders ``--enable-defrag`` with the grace, the reservation TTL and
+    the victim cap, which the port's ``parse_args`` reads into the
+    defragmenter's config fields."""
+    import jsonschema
+
+    base = containers(render())["vgpu-extender"]
+    argv = [str(a) for a in base["command"][3:]]
+    assert not any("defrag" in a for a in argv)
+    assert not scheduler.build_config(scheduler.parse_args(argv)) \
+        .enable_defrag
+    vals = values()
+    assert vals["scheduler"]["defrag"] == {
+        "enabled": False, "checkpointGrace": 120, "reservationTtl": 300,
+        "maxVictims": 8}
+    over = {"enabled": True, "checkpointGrace": 45, "reservationTtl": 90,
+            "maxVictims": 3}
+    vals["scheduler"]["defrag"] = over
+    jsonschema.validate(vals, schema())
+    out = containers(render({"scheduler": {"defrag": over}}))
+    argv = [str(a) for a in out["vgpu-extender"]["command"][3:]]
+    assert [a for a in argv if "defrag" in a] == [
+        "--enable-defrag", "--defrag-checkpoint-grace=45",
+        "--defrag-reservation-ttl=90", "--defrag-max-victims=3"]
+    cfg = scheduler.build_config(scheduler.parse_args(argv))
+    assert (cfg.enable_defrag, cfg.defrag_checkpoint_grace_s,
+            cfg.defrag_reservation_ttl_s, cfg.defrag_max_victims) == (
+        True, 45.0, 90.0, 3)
+    for key, bad in (("maxVictims", 0), ("checkpointGrace", 0),
+                     ("enabled", "yes"), ("interval", 5)):
+        broken = values()
+        broken["scheduler"]["defrag"][key] = bad
+        with pytest.raises(jsonschema.ValidationError):
+            jsonschema.validate(broken, schema())
+
+
 @pytest.mark.parametrize("bad", [
     {"queues": [{"name": "a"}]},
     {"queues": [{"name": "a", "namespaces": [], "weight": 0}]},
@@ -413,7 +450,10 @@ def test_every_object_of_the_schema_refuses_unknown_keys():
     walk(schema(), "")
 
 
-#: Values of the JAX chart whose subsystems wait for ROADMAP A.5.
+#: Values of the JAX chart the port's schema refuses: those whose
+#: subsystems wait for ROADMAP A.5, and its flat defrag keys (the port's
+#: are ``scheduler.defrag.*``, test_the_defrag_values_render_into_the_
+#: extender).
 A5_VALUES = [("scheduler", "defragCheckpointGrace", 120),
              ("scheduler", "slo", {"objectives": []}),
              ("scheduler", "filterBatch", True),
@@ -506,8 +546,6 @@ DASHBOARD_EXEMPT = {
     "vtpu_serve_prefills_total": "serving internals",
     "vtpu_capacity_node_busy_chips_forecast": "its panel also plots A.5's "
     "forecast drift; it comes back with the capacity forecast",
-    "vtpu_fleet_max_free_box": "its panel also plots A.5's slice "
-    "reservations; it comes back with them",
 }
 
 
@@ -564,7 +602,9 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
             if not a5(t["expr"] for t in p["targets"])]
     assert [[t["expr"] for t in p["targets"]]
             for p in ours["panels"]] == want
-    assert len(want) == 32 and ours["uid"] == "vgpu-overview"
+    # 34 since the placement families (reserved cards, defrag counters)
+    # left A5_FAMILIES: the max-free-box and compaction panels came back.
+    assert len(want) == 34 and ours["uid"] == "vgpu-overview"
     for p in ours["panels"]:
         assert "TPU" not in p["title"] + p.get("description", "")
     alerts = yaml.safe_load((CHART / "dashboards" / "vgpu-alerts.yaml")
@@ -579,7 +619,7 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
     assert [r["expr"] for r in ours_rules] == [
         r["expr"].replace('job="vtpu-monitor"', 'job="vgpu-monitor"')
         for r in want_rules]
-    assert len(ours_rules) == 16
+    assert len(ours_rules) == 17     # VtpuDefragAbortStorm came back
     for r in ours_rules:
         assert r["annotations"]["summary"]
         assert "TPU" not in r["annotations"]["summary"]

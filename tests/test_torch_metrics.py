@@ -15,7 +15,9 @@
   bounds and counts) and the families of ``A5_FAMILIES``, which the port
   emits zero-valued or empty, as the JAX collector does with the
   subsystem off; the rejection reasons read "GPU" for "TPU" (the name
-  table of ``tests/test_torch_scheduler.py``).
+  table of ``tests/test_torch_scheduler.py``).  The placement families
+  (reserved cards, the defragmenter's counters) are compared by value,
+  with the defragmenter off and with a plan in flight.
 - **Writer.**  ``util/exposition.py`` writes what ``generate_latest``
   writes, escapes included.
 - **vgpu-smi.**  ``tests/test_vtpu_cluster.py``'s ``cluster_info``,
@@ -429,9 +431,6 @@ A5_ITEMS = {
     "multicore solve workers": ["vtpu_solve_workers",
                                 "vtpu_solve_worker_restarts",
                                 "vtpu_solve_worker_eval_seconds"],
-    "slice reservations": ["vtpu_reserved_chips"],
-    "defragmenter": ["vtpu_defrag_plans", "vtpu_defrag_migrations",
-                     "vtpu_defrag_completed", "vtpu_defrag_aborted"],
     "elastic meshes": ["vtpu_resizes", "vtpu_elastic_pods",
                        "vtpu_resize_thrash"],
     "sharded control plane": ["vtpu_shard_epoch", "vtpu_shards_owned",
@@ -453,6 +452,57 @@ A5_ITEMS = {
                    "vtpu_slo_burn_rate", "vtpu_slo_burn_alerts"],
     "decision writer": ["vtpu_decision_write_failures"],
 }
+
+
+#: The placement families (ROADMAP A.5 placement): filled since the
+#: reservations and the defragmenter came, read as the JAX collector reads
+#: them.
+PLACEMENT_FAMILIES = ("vtpu_reserved_chips", "vtpu_defrag_plans",
+                      "vtpu_defrag_migrations", "vtpu_defrag_completed",
+                      "vtpu_defrag_aborted")
+
+
+@pytest.mark.parametrize("case", ["defrag_off", "plan_in_flight"])
+def test_the_placement_families_read_as_the_jax_collector(case,
+                                                          monkeypatch):
+    """tests/test_torch_defrag.py's fragmented node and blocked 4-card
+    pod, one tick, then both collectors: every family equal (the A.5 ones
+    zero), the five placement families by value.  With the defragmenter
+    off nothing is planned or reserved; with it on, the plan is in flight
+    (4 cards reserved, one plan, its victims asked, none completed)."""
+    from tests.test_torch_defrag import Side as DefragSide
+    from tests.test_torch_defrag import exclusive_pod, fragment
+
+    texts = {}
+    for port in (True, False):
+        fresh_tracers(monkeypatch)
+        side = DefragSide(port, enable_defrag=case == "plan_in_flight")
+        try:
+            fragment(side, side.names[0])
+            big = exclusive_pod("big", "ubig", gpu=4)
+            side.create(big)
+            assert side.filter(big)["node"] is None
+            side.tick()
+            texts[port] = (expo.render(
+                tcluster.ClusterCollector(side.s).collect()) if port
+                else jax_text(jcluster.ClusterCollector(side.s)))
+        finally:
+            side.close()
+    got = same_families(texts[True], texts[False],
+                        wall={"vtpu_scheduling_phase_latency_seconds"},
+                        a5=set(tcluster.A5_FAMILIES),
+                        rename={"vtpu_filter_rejections": gpu_reasons})
+    values = {name: got[name].samples[0].value
+              for name in PLACEMENT_FAMILIES}
+    if case == "defrag_off":
+        assert set(values.values()) == {0}
+    else:
+        assert values["vtpu_reserved_chips"] == 4
+        assert values["vtpu_defrag_plans"] == 1
+        assert values["vtpu_defrag_migrations"] >= 1
+        assert values["vtpu_defrag_completed"] == 0
+        assert values["vtpu_defrag_aborted"] == 0
+    assert not set(PLACEMENT_FAMILIES) & set(tcluster.A5_FAMILIES)
 
 
 def test_every_a5_family_is_listed_with_the_item_that_fills_it(monkeypatch):

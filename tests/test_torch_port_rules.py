@@ -121,7 +121,9 @@ def test_new_modules_are_under_the_import_rules():
                 "monitor/noderpc.py", "api/noderpc_pb2.py",
                 "scheduler/metrics.py", "cmd/vgpu_smi.py",
                 "cmd/vgpu_report.py", "cmd/simulate.py",
-                "scheduler/gang.py", "parallel/multihost.py"):
+                "scheduler/gang.py", "parallel/multihost.py",
+                "placement/frag.py", "placement/reserve.py",
+                "placement/defrag.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -666,15 +668,31 @@ def test_slice_engine_runs_without_grpc_protobuf_or_torch():
 
 
 def test_placement_imports_nothing_but_its_mesh_module():
-    """The JAX package's placement/__init__ imports its defragmenter,
-    reservations and fragmentation views; the port's waits for them
-    (ROADMAP A.5) and imports its mesh module alone."""
+    """The placement package imports its own four modules, as the JAX
+    package's placement/__init__ does (since ROADMAP A.5 placement; before
+    it, the mesh module alone), and nothing else: the mesh math imports
+    none of the others, and none of them reaches torch, grpc, protobuf or
+    the scheduler at import (the defragmenter reads the scheduler it is
+    given)."""
     tree = ast.parse((PORT / "placement" / "__init__.py").read_text())
     rel = {(n.level, n.module) for n in ast.walk(tree)
            if isinstance(n, ast.ImportFrom)}
-    assert rel == {(1, "mesh")}
+    assert rel == {(1, "mesh"), (1, "frag"), (1, "reserve"), (1, "defrag")}
     assert not {"reserve", "defrag", "frag"} & set(_imported_roots(
         PORT / "placement" / "mesh.py"))
+    code = (
+        "import sys\n"
+        "for name in ('grpc', 'google.protobuf', 'torch', 'numpy'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "import k8s_vgpu_scheduler_tpu_torch.placement as p\n"
+        "assert 'k8s_vgpu_scheduler_tpu_torch.scheduler.core' not in "
+        "sys.modules\n"
+        "r = p.SliceReservations(ttl_s=5.0)\n"
+        "r.reserve('n', {'a', 'b'}, 'k')\n"
+        "assert r.total_chips() == 2\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_device_plugin_raises_without_nvml_or_the_mock(tmp_path):

@@ -550,6 +550,29 @@ class TestAdmission:
         assert u["a"] + u["b"] <= 8
         assert u["b"] == 2
 
+    def test_a_reservation_lowers_the_fleet_cap(self):
+        """A defrag compaction's reserved cards leave the release
+        throttle (JAX ``_fleet_chip_cap``): with 3 of the 8 cards
+        reserved, the same demand releases into 5, where the whole fleet
+        released 8; the cap returns with the reservation."""
+        def script(side):
+            res = side.s.reservations.reserve(
+                "n0", {"n0-c0", "n0-c1", "n0-c2"}, "beneficiary")
+            rec = {"cap": side.s.admission._fleet_chip_cap()}
+            list(side.create(*(mkpod(f"a{i}", "team-a", queue="a")
+                               for i in range(6))))
+            list(side.create(*(mkpod(f"b{i}", "team-b", queue="b")
+                               for i in range(2))))
+            rec["acts"] = side.s.admission.tick()
+            rec["held"] = side.held_usage()
+            side.s.reservations.release(res)
+            rec["cap_after"] = side.s.admission._fleet_chip_cap()
+            return {**rec, **observed(side)}
+
+        rec, _ = run_both(script)
+        assert rec["cap"] == 5.0 and rec["cap_after"] == 8.0
+        assert 0 < rec["held"]["a"] + rec["held"]["b"] <= 5
+
     def test_fair_share_order_equalizes_weighted_shares(self):
         qa = dict(QA, quota={"chips": 4}, borrow_limit_chips=0)
         qb = dict(QB, quota={"chips": 4}, borrow_limit_chips=0)

@@ -478,8 +478,10 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
                                    "hbm_mib": 81079}))
     env = {k: v for k, v in os.environ.items()
            if k not in ("VTPU_MOCK_JSON", "MOCK_NVML_NOT_SUPPORTED")}
+    # No card: the compaction's trainers are stood in for (the card run
+    # drops DEFRAG_TRAINER and checks that real ones ran).
     env.update(LD_LIBRARY_PATH=str(lib.parent), MOCK_NVML_JSON=str(fixture),
-               PLUGIN_DIR=str(tmp_path))
+               PLUGIN_DIR=str(tmp_path), DEFRAG_TRAINER="standin")
     res = subprocess.run(
         [sys.executable, str(ROOT / "chip_smoke.py"), "--enforce-child",
          "node_agent"], cwd=ROOT, env=env, capture_output=True, text=True,
@@ -520,6 +522,16 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
     assert [hgx[n]["cards"] for n in ("ring4", "mesh2", "pin", "arc3")] \
         == [[0, 1, 2, 3], [4, 5], [6], None]
     assert hgx["arc3"]["failed"]["hgx-node"].startswith("no-ici-slice:")
+    # The compaction (checked in the child): pin migrated, arc3 on the
+    # reserved box, the replacement beside it, the gauges back.
+    d = hgx["defrag"]
+    assert d["trainer"] == "standin" and d["box"] == [4, 5, 6]
+    assert d["arc3_cards"] == [4, 5, 6] and d["bystander"] == [7]
+    assert d["replacement_cards"] == [7]
+    assert d["losses"]["defrag_R"] == (d["losses"]["defrag_V"]
+                                       + d["losses"]["defrag_V2"])
+    assert len(d["ticks_ms"]) == 2 and d["launches"] == [0, 0, 0]
+    assert hgx["slice_gauges"]["after"] == hgx["slice_gauges"]["before"]
     assert hgx["bad_mesh"]["status"]["message"] == \
         chip_smoke.BAD_MESH_MESSAGE
     # MIG: the mock's card has MIG off; the mock MIG node serves its

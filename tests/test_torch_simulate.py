@@ -33,13 +33,14 @@ Every other key and value is the JAX simulator's (``chips``,
 ``hbm_mib`` and ``hbm_allocated_fraction`` among them: an H100's memory
 is HBM too).
 
-A ``gang`` entry is placed by both gang managers, and a ``queueing``
-section replayed by both capacity queues, with equal answers.
+A ``gang`` entry is placed by both gang managers, a ``queueing`` section
+replayed by both capacity queues and a ``fragmentation`` section by both
+defragmenters, with equal answers.
 
-The stated departure, pinned below with both answers: a workload with a
-``fragmentation``, ``elastic``, ``capacity``, ``audit``, ``slo`` or ``ha``
-section, which the JAX simulator replays, is refused by name (ROADMAP
-A.5) and ``vgpu-simulate`` exits 2.
+The stated departure, pinned below with both answers: a workload with an
+``elastic``, ``capacity``, ``audit``, ``slo`` or ``ha`` section, which the
+JAX simulator replays, is refused by name (ROADMAP A.5) and
+``vgpu-simulate`` exits 2.
 """
 
 import copy
@@ -95,6 +96,11 @@ def jax_workload(workload: dict) -> dict:
     out = copy.deepcopy(workload)
     out["pods"] = [{KEYS.get(k, k): v for k, v in p.items()}
                    for p in out.get("pods", [])]
+    for key in ("churn", "gang"):
+        entry = (out.get("fragmentation") or {}).get(key)
+        if entry:
+            out["fragmentation"][key] = {KEYS.get(k, k): v
+                                         for k, v in entry.items()}
     if out.get("queueing"):
         out["queueing"]["arrivals"] = [
             {KEYS.get(k, k): v for k, v in a.items()}
@@ -612,6 +618,28 @@ def test_a5_sections_are_refused_by_name(serial, monkeypatch, tmp_path,
     key); the port refuses it by name and ``vgpu-simulate`` exits 2."""
     workload = json.loads((EXAMPLES / f"workload-{section}.json")
                           .read_text())
+    if section == "fragmentation":
+        # No longer refused (ROADMAP A.5 placement): the port replays the
+        # JAX example (its keys under the name map) as the JAX simulator
+        # does, and the command exits 0 on its passing verdict.
+        back = {v: k for k, v in KEYS.items()}
+        for key in ("churn", "gang"):
+            workload["fragmentation"][key] = {
+                back.get(k, k): v
+                for k, v in workload["fragmentation"][key].items()}
+        port, ref = both(workload, nodes=2, chips=8, hbm=16384,
+                         mesh=(4, 2))
+        # As JSON on both sides: the availability maps key by size.
+        port = json.loads(json.dumps(port))
+        assert port == ref and port["fragmentation"]["verdict"]["ok"]
+        wl = tmp_path / "wl.json"
+        wl.write_text(json.dumps(workload))
+        assert tsim.main(["--workload", str(wl), "--nodes", "2", "--chips",
+                          "8", "--hbm", "16384", "--mesh", "4x2",
+                          "--generation", "h100"]) == 0
+        out = capsys.readouterr().out
+        assert "fragmentation A/B" in out and "verdict: PASS" in out
+        return
     if section == "queueing":
         # No longer refused: the port replays the JAX example (its keys
         # under the name map) as the JAX simulator does, and the command
@@ -775,3 +803,50 @@ def test_queueing_report_lines_equal_the_jax_simulators(serial):
     jref = jsim.run_simulation(jax_workload(QUEUEING), nodes=2, chips=4,
                                hbm=16384, mesh=(4, 1), generation="h100")
     assert tsim.format_report(port) == jsim.format_report(jref)
+
+
+# -- the fragmentation section (tests/test_simulate.py) -----------------------
+
+FRAGMENTATION = {"fragmentation": {
+    "churn": {"name": "churn", "gpu": 1, "gpumem": 4000,
+              "gpucores": 100, "priority": 1},
+    "release_pattern": "checkerboard",
+    "gang": {"name": "big", "count": 2, "gpu": 4, "gpumem": 4000,
+             "gpucores": 100, "gang": "big", "mesh": "2x4"},
+    "horizon_s": 150, "tick_s": 5, "checkpoint_delay_s": 5,
+}}
+
+
+def test_fragmentation_ab_defrag_unblocks_gang(serial):
+    """On the virtual clock, both simulators: contiguous-slice
+    availability and the gang's admission latency strictly better with
+    defrag on than off, no card double-booked, every migrated victim
+    checkpoint-first and re-placed; the two results equal."""
+    port, ref = both(FRAGMENTATION, nodes=2, chips=8, hbm=16384,
+                     mesh=(4, 2))
+    # As JSON on both sides: the availability maps key by size.
+    port = json.loads(json.dumps(port))
+    assert port == ref
+    r = port["fragmentation"]
+    v = r["verdict"]
+    on, off = r["defrag_on"], r["defrag_off"]
+    assert on["admitted"] and not off["admitted"]
+    assert v["admission_latency_better"] and v["availability_better"]
+    assert v["no_overbooking"] and v["ok"]
+    assert on["victims_migrated"] == on["victims_checkpoint_first"]
+    assert len(on["victims_replaced"]) == len(on["victims_migrated"])
+    assert on["migrations"] > 0
+    # The fragmented fleet really had no contiguous home before.
+    assert on["availability_before"]["max_free_box"] < 4
+    assert port["fits"] is True
+
+
+def test_fragmentation_replay_is_deterministic(serial):
+    a = tsim.run_simulation(copy.deepcopy(FRAGMENTATION), nodes=2, chips=8,
+                            hbm=16384, mesh=(4, 2))
+    b = tsim.run_simulation(copy.deepcopy(FRAGMENTATION), nodes=2, chips=8,
+                            hbm=16384, mesh=(4, 2))
+    assert json.dumps(a, sort_keys=True) == json.dumps(b, sort_keys=True)
+    ref = jsim.run_simulation(jax_workload(FRAGMENTATION), nodes=2,
+                              chips=8, hbm=16384, mesh=(4, 2))
+    assert json.loads(json.dumps(a)) == as_port(json.loads(json.dumps(ref)))

@@ -186,8 +186,8 @@ def test_validate_mesh_messages_equal_the_jax_ones(fleet):
 def test_the_packages_export_what_the_jax_ones_do():
     from k8s_vgpu_scheduler_tpu import topology as jtopology
     assert topology.__all__ == jtopology.__all__
-    assert set(placement.__all__) == {
-        "MESH_ANNOTATION", "box_availability", "find_mesh_slice",
-        "local_mesh_for", "max_free_box_volume", "mesh_fits_topology",
-        "parse_mesh", "validate_mesh"}
+    # The whole placement package since its reservations, defragmenter
+    # and fragmentation views came (ROADMAP A.5 placement).
+    from k8s_vgpu_scheduler_tpu import placement as jplacement
+    assert placement.__all__ == jplacement.__all__
     assert placement.MESH_ANNOTATION == jmesh.MESH_ANNOTATION
