@@ -383,6 +383,39 @@ DEFRAG_REPLACEMENT = ("pin-2", "uidXP2", HGX_MIB)
 DEFRAG_LAYERS = 1
 DEFRAG_MIB = 16000
 DEFRAG_WAIT_S = 60.0
+# The elastic leg in hgx_leg, after the compaction (elastic_leg): arc3
+# deleted, so ring4 (cards 0-3) and the replacement (7) are bystanders and
+# 4-6 are free.  The gang ELASTIC_GROUP of 2-card members declares mesh
+# (4,) with range (2,)-(4,) (ELASTIC_RANGE; 2 members), admitted by the
+# webhook (ELASTIC_BAD_RANGE, a bound without its pair, is a 422 with the
+# JAX package's message); Filter finds no atomic placement (one free pair
+# of cards, two members), and after ELASTIC_DOWNGRADE_S one tick of the
+# resize controller downgrades it to (2,) (one member).  The leg plays
+# the workload controller: it recreates the gang at the rung assigned,
+# whose member runs ELASTIC_ITEMS flash forwards in bf16 at GANG_SHAPE
+# (seeded inputs, a hash chain over the outputs' digests in item order)
+# and holds after ELASTIC_WAIT_AT items; ring4 deleted, a tick inside the
+# ELASTIC_HYSTERESIS_S window counts thrash once; after it a tick grows
+# the gang back to (4,): the member checkpoints its chain (the port's
+# CheckpointManager, in SHM) and exits 0, the resize completes, and two
+# members at (4,) restore it in one gloo group and split the rest of the
+# items by rank.  The final chain must be the chain of the same items
+# computed in one run in the script's own process.  Each member's
+# process runs on the real card under an ELASTIC_MIB grant through the
+# interposer, as the compaction's trainers do.
+ELASTIC_GROUP = "ering"
+ELASTIC_CARDS = 2
+ELASTIC_RANGE = {"vtpu.dev/mesh-min": "2", "vtpu.dev/mesh-max": "4"}
+ELASTIC_RUNGS = ("4", "2")
+ELASTIC_BAD_RANGE = {"vtpu.dev/mesh-max": "4"}
+ELASTIC_BAD_RANGE_MESSAGE = ("vtpu.dev/mesh-max declared without "
+                             "vtpu.dev/mesh-min: an elastic range needs both "
+                             "bounds")
+ELASTIC_ITEMS = 8
+ELASTIC_WAIT_AT = 4
+ELASTIC_MIB = 4000
+ELASTIC_DOWNGRADE_S = 1.0
+ELASTIC_HYSTERESIS_S = 3.0
 # The PCIe node beside it (PCIE_FIXTURE: four cards, no pair NVLink OK),
 # so no fabric: its cards register without coordinates, it adds no mesh
 # to the fleet's fabrics, and PCIE_PODS, offered it alone, get Filter's
@@ -2669,6 +2702,163 @@ def child_gang_member(torch):
                 interposer=interposer_stats(), grant_env=grant_env())
 
 
+def elastic_chain_seed() -> bytes:
+    """The elastic gang's hash chain before its first item."""
+    import hashlib
+
+    return hashlib.sha256(f"elastic:{ELASTIC_GROUP}".encode()).digest()
+
+
+def elastic_chain(chain: bytes, digests) -> bytes:
+    """``chain`` extended by each item digest of ``digests``, in order."""
+    import hashlib
+
+    for d in digests:
+        chain = hashlib.sha256(chain + d).digest()
+    return chain
+
+
+def elastic_item(torch, fa, item: int) -> tuple:
+    """Item ``item`` of the elastic gang's work: the flash forward in bf16
+    at GANG_SHAPE, causal, on inputs drawn from a CUDA generator seeded by
+    the item; its output's sha256 digest, the output and the inputs."""
+    import hashlib
+
+    B, T, H, d = GANG_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29 + item)
+    q, k, v = (torch.randn(B, T, H, d, device="cuda", generator=gen)
+               .to(torch.bfloat16) for _ in range(3))
+    out = fa.flash_attention(q, k, v, causal=True)
+    raw = out.contiguous().view(torch.uint8).cpu().numpy().tobytes()
+    return hashlib.sha256(raw).digest(), out, (q, k, v)
+
+
+def elastic_reference(torch, fa) -> str:
+    """The chain of all ELASTIC_ITEMS items computed in one run, in this
+    process: what the resized gang's final chain must be."""
+    return elastic_chain(elastic_chain_seed(), [
+        elastic_item(torch, fa, i)[0] for i in range(ELASTIC_ITEMS)]).hex()
+
+
+def child_elastic_member(torch):
+    """One member of the elastic gang (hgx_leg's elastic_leg), under its
+    grant on the card through the interposer.  At its go it reads the gang
+    env of its Allocate answer from $ELASTIC_ENV_FILE (the process starts
+    before its pod is placed, so that its imports overlap the leg) and
+    joins the gang's gloo group from it (``initialize_from_env``, as
+    child_gang_member; a gang of one is a group of one).  It restores the
+    gang's checkpoint from $ELASTIC_DIR where one is saved (the chain and
+    the next item, a small module's buffers on the card) and takes the
+    items left by rank (item i to rank (i - next) mod size); each is one
+    bf16 flash forward (elastic_item; the first held to the plain version
+    under the bf16 limits), printed ``ITEM <i>``.  With $ELASTIC_WAIT_AT=k
+    it prints ``HOLD`` after k items and holds until its eviction request
+    is in its annotations file (DEFRAG_WAIT_S at most); a member that sees
+    the request checkpoints the chain so far (CheckpointManager) and
+    stops.  The digests of every rank are all-gathered and the chain
+    extended in item order."""
+    import torch.distributed as dist
+
+    _, _, _, fa, _, _ = enforce_port()
+    from k8s_vgpu_scheduler_tpu_torch.models.checkpoint import (
+        CheckpointManager)
+    from k8s_vgpu_scheduler_tpu_torch.parallel import multihost
+    from k8s_vgpu_scheduler_tpu_torch.shim.preempt import PreemptionWatch
+
+    class ChainState(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.register_buffer("chain", torch.zeros(32, dtype=torch.uint8,
+                                                      device="cuda"))
+            self.register_buffer("next_item", torch.zeros(
+                (), dtype=torch.int64, device="cuda"))
+
+    t0 = time.monotonic()
+    os.environ.update(json.loads(Path(os.environ["ELASTIC_ENV_FILE"])
+                                 .read_text()))
+    check(multihost.initialize_from_env("gloo", timeout_s=GANG_TIMEOUT_S),
+          "no gang env in the member's Allocate answer")
+    joined = time.monotonic()
+    rank, size = dist.get_rank(), dist.get_world_size()
+    check(rank == int(os.environ["VTPU_GANG_RANK"]),
+          f"rank {rank} is not VTPU_GANG_RANK")
+    mgr = CheckpointManager(os.environ["ELASTIC_DIR"], keep=1)
+    state = ChainState()
+    io = {"saves": [], "restores": []}
+    if mgr.latest_step() is not None:
+        t_io = time.monotonic()
+        mgr.restore(state)
+        torch.cuda.synchronize()
+        io["restores"].append(dict(step=mgr.latest_step(),
+                                   s=time.monotonic() - t_io))
+        chain = bytes(state.chain.cpu().numpy().tobytes())
+        start = int(state.next_item.item())
+    else:
+        chain, start = elastic_chain_seed(), 0
+    watch = PreemptionWatch()
+    wait_at = os.environ.get("ELASTIC_WAIT_AT")
+    wait_at = int(wait_at) if wait_at else None
+    mine = [i for i in range(start, ELASTIC_ITEMS)
+            if (i - start) % size == rank]
+    fa.flash_attention.launches = 0
+    digests, held, errors = {}, [], None
+    preempted = False
+    for n, i in enumerate(mine):
+        if wait_at is not None and n == wait_at and not held:
+            print("HOLD", flush=True)
+            t_hold = time.monotonic()
+            while not watch.requested():
+                check(time.monotonic() - t_hold < DEFRAG_WAIT_S,
+                      f"no eviction request within {DEFRAG_WAIT_S} s of "
+                      f"item {i}")
+                time.sleep(0.005)
+            held.append(time.monotonic() - t_hold)
+        if watch.requested():
+            preempted = True
+            break
+        digest, out, (q, k, v) = elastic_item(torch, fa, i)
+        if errors is None:
+            d = q.shape[-1]
+            want = fa._reference(q, k, v, d ** -0.5, True)
+            row = errors = grad_errors(torch, out, want, False)
+            row.update(tol_rel_max=2 ** -7 + 2 ** -8
+                       * v.float().abs().max().item() / row["max_abs_want"],
+                       tol_rel_rms=TOL_O_BF16_RMS,
+                       tol_tile_rel_rms=TOL_O_BF16_TILE)
+            check(row["rel_max_err"] <= row["tol_rel_max"]
+                  and row["rel_rms_err"] <= TOL_O_BF16_RMS
+                  and row["tile_rel_rms_err"] <= TOL_O_BF16_TILE,
+                  f"rank {rank}: the kernel disagrees with its plain "
+                  f"version {row}")
+        digests[i] = digest.hex()
+        print(f"ITEM {i}", flush=True)
+    launches = fa.flash_attention.launches
+    gathered = [None] * size
+    dist.all_gather_object(gathered, digests)
+    merged = {int(i): bytes.fromhex(h) for part in gathered
+              for i, h in part.items()}
+    done = start + len(merged)
+    check(sorted(merged) == list(range(start, done)),
+          f"the gang's items {sorted(merged)} from {start}")
+    chain = elastic_chain(chain, [merged[i] for i in range(start, done)])
+    if preempted:
+        state.chain.copy_(torch.frombuffer(bytearray(chain),
+                                           dtype=torch.uint8))
+        state.next_item.fill_(done)
+        t_io = time.monotonic()
+        mgr.save(done, state)
+        io["saves"].append(dict(step=done, s=time.monotonic() - t_io))
+    dist.destroy_process_group()
+    return dict(rank=rank, size=size, start=start, done=done,
+                items=sorted(int(i) for i in digests), chain=chain.hex(),
+                preempted=preempted, requester=watch.requester(),
+                held_s=held[0] if held else None, launches=launches,
+                errors=errors, io=io, rendezvous_s=joined - t0,
+                joined_t=joined, exit_t=time.monotonic(),
+                peak_allocated=torch.cuda.max_memory_allocated(),
+                interposer=interposer_stats(), grant_env=grant_env())
+
+
 def workload_build(torch, name: str, refs: Path, bare: bool) -> tuple:
     """One case of models/workloads.py on the card, built from
     WORKLOAD_SEED, and the f32 path of its weights: its logits (in
@@ -2799,6 +2989,7 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "preempt": child_preempt,
                     "quota_pod": child_quota_pod,
                     "gang_member": child_gang_member,
+                    "elastic_member": child_elastic_member,
                     "workloads_bare": child_workloads_bare}
 
 
@@ -3885,19 +4076,24 @@ def node_agent() -> int:
         print(f"chip_smoke: FAIL: node_agent: detect() gave "
               f"{type(backend).__name__}, not NVML", file=sys.stderr)
         return 1
-    plane = trainers = None
+    plane = trainers = members = None
     try:
         cards = backend.cards()
-        # The compaction's trainers (hgx_leg): started first, so their
-        # imports overlap this agent's work up to the leg.
+        # The compaction's trainers and the elastic gang's members
+        # (hgx_leg): started first, so their imports overlap this agent's
+        # work up to the legs.
         trainers = DefragTrainers(tmp, cards[0]["uuid"])
+        members = ElasticMembers(tmp, cards[0]["uuid"])
         cache = DeviceCache(backend, heartbeat_seconds=0)
         polls = [cache.poll_once()]
         inv = cache.inventory
-        # The defragmenter on, its loop not started: hgx_leg ticks it.
+        # The defragmenter and the resize controller on, their loops not
+        # started: hgx_leg ticks them.
         cfg = Config(node_name=PLUGIN_NODE, shim_host_dir=str(tmp / "shim"),
                      cache_host_dir=str(tmp / "containers"),
-                     enable_defrag=True)
+                     enable_defrag=True, enable_elastic=True,
+                     resize_hysteresis_s=ELASTIC_HYSTERESIS_S,
+                     elastic_downgrade_after_s=ELASTIC_DOWNGRADE_S)
         kube = FakeKube()
         kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
         plane = ControlPlane(kube, backend, cfg, tmp / "scheduler.sock")
@@ -3920,7 +4116,7 @@ def node_agent() -> int:
                 locked=nodelock.is_locked(kube, PLUGIN_NODE))
         fabric = fabric_checks(backend, plane, plugin, kube, inv)
         mig_real = real_mig_checks(kube, inv, cfg, cards, tmp)
-        hgx = hgx_leg(plane, kube, tmp, trainers)
+        hgx = hgx_leg(plane, kube, tmp, trainers, members)
         mig = mig_leg(plane, kube, tmp)
         chart = chart_leg(tmp, {c["uuid"]: (c["memory_v2"]["total"]
                                             - c["memory_v2"]["reserved"]) >> 20
@@ -3952,6 +4148,8 @@ def node_agent() -> int:
     finally:
         if trainers is not None:
             trainers.stop()
+        if members is not None:
+            members.stop()
         if plane is not None:
             plane.close()
         backend.close()
@@ -4717,17 +4915,464 @@ def defrag_leg(plane, kube, arc3: dict, trainers: DefragTrainers,
     return out
 
 
-def hgx_leg(plane, kube, tmp: Path, trainers) -> dict:
+def elastic_standin_digest(item: int) -> bytes:
+    """A stand-in member's digest of item ``item`` (no kernel)."""
+    import hashlib
+
+    return hashlib.sha256(f"standin:{item}".encode()).digest()
+
+
+class ElasticStandin:
+    """An elastic member's stand-in for the leg's CPU rehearsal (the node
+    agent child with ``DEFRAG_TRAINER=standin``, as StandinTrainer):
+    child_elastic_member's protocol in this process, with no kernel and no
+    group: its gang env read from $ELASTIC_ENV_FILE at its go, the chain
+    and the next item checkpointed as JSON under $ELASTIC_DIR, the items
+    ``elastic_standin_digest``s, the HOLD and the request as there; a
+    member of a gang of several computes every rank's items (standing in
+    for the all-gather), so each ends on the same chain."""
+
+    def __init__(self, name, tmp: Path, label=None, region=None,
+                 **grant) -> None:
+        self.label = label or name
+        self.env = {k: str(v) for k, v in grant.items()}
+        self.proc = None
+
+    def run(self, record, section: str = "elastic",
+            on_line=lambda line: None) -> dict:
+        from k8s_vgpu_scheduler_tpu_torch.shim.preempt import PreemptionWatch
+
+        env, t0 = self.env, time.monotonic()
+        gang = json.loads(Path(env["ELASTIC_ENV_FILE"]).read_text())
+        rank, size = int(gang["VTPU_GANG_RANK"]), int(gang["VTPU_GANG_SIZE"])
+        root = Path(env["ELASTIC_DIR"])
+        saved = sorted(int(p.name) for p in root.glob("[0-9]*")) \
+            if root.is_dir() else []
+        io = {"saves": [], "restores": []}
+        if saved:
+            st = json.loads((root / str(saved[-1]) / "state.pt").read_text())
+            chain, start = bytes.fromhex(st["chain"]), st["next_item"]
+            io["restores"].append({"step": saved[-1], "s": 0.0})
+        else:
+            chain, start = elastic_chain_seed(), 0
+        watch = PreemptionWatch(env["VTPU_PODINFO_ANNOTATIONS"])
+        wait_at = int(env["ELASTIC_WAIT_AT"]) if env.get("ELASTIC_WAIT_AT") \
+            else None
+        held, done, preempted = [], start, False
+        for n, i in enumerate(range(start, ELASTIC_ITEMS)):
+            if wait_at is not None and n == wait_at and not held:
+                on_line("HOLD")
+                t_hold = time.monotonic()
+                while not watch.requested():
+                    check(time.monotonic() - t_hold < DEFRAG_WAIT_S,
+                          f"no eviction request within {DEFRAG_WAIT_S} s")
+                    time.sleep(0.005)
+                held.append(time.monotonic() - t_hold)
+            if watch.requested():
+                preempted = True
+                break
+            chain = elastic_chain(chain, [elastic_standin_digest(i)])
+            done = i + 1
+            on_line(f"ITEM {i}")
+        if preempted:
+            (root / str(done)).mkdir(parents=True, exist_ok=True)
+            (root / str(done) / "state.pt").write_text(json.dumps(
+                {"chain": chain.hex(), "next_item": done}))
+            io["saves"].append({"step": done, "s": 0.0})
+        reading = dict(
+            rank=rank, size=size, start=start, done=done,
+            items=[i for i in range(start, done)
+                   if (i - start) % size == rank], chain=chain.hex(),
+            preempted=preempted, requester=watch.requester(),
+            held_s=held[0] if held else None, launches=0, errors=None,
+            io=io, rendezvous_s=0.0, joined_t=t0, exit_t=time.monotonic(),
+            interposer={"refusals": 0, "context_bytes": 0, "alloc_bytes": 0},
+            run_s=time.monotonic() - t0, pid=os.getpid())
+        record.setdefault(section, {})[self.label] = reading
+        return reading
+
+    def stop(self) -> None:
+        pass
+
+
+class ElasticMembers:
+    """The elastic gang's three member processes, started at once so their
+    imports overlap the leg: ``g1`` (the one member at (2,), holding after
+    ELASTIC_WAIT_AT items) and ``g2r0``, ``g2r1`` (the two at (4,)).  Each
+    is child_elastic_member through the interposer the node agent
+    installed, under an ELASTIC_MIB grant of its own on the real card (the
+    pods sit on the mock HGX node), with a downward-API annotations file
+    of its own, the gang's checkpoint directory in SHM, and the file its
+    Allocate answer's gang env goes into (``gang_env``)."""
+
+    def __init__(self, tmp: Path, uuid: str) -> None:
+        standin = os.environ.get("DEFRAG_TRAINER") == "standin"
+        self.kind = "standin" if standin else "card"
+        make = ElasticStandin if standin else EnforceChild
+        self.shm = Path(tempfile.mkdtemp(
+            prefix="elastic-", dir=SHM if SHM.is_dir() else tmp))
+        self.files, self.envs, self.children = {}, {}, {}
+        grant = dict(LD_PRELOAD=tmp / "shim" / "libvgpu_cuda.so",
+                     NVIDIA_VISIBLE_DEVICES=uuid,
+                     CUDA_DEVICE_MEMORY_LIMIT_0=f"{ELASTIC_MIB}m",
+                     ELASTIC_DIR=self.shm, GLOO_SOCKET_IFNAME="lo")
+        try:
+            for key in ("g1", "g2r0", "g2r1"):
+                label = f"elastic_{key}"
+                (tmp / label).mkdir(exist_ok=True)
+                f = self.files[key] = tmp / label / "annotations"
+                f.write_text('kubernetes.io/config.seen="2026"\n')
+                self.envs[key] = tmp / label / "gang_env.json"
+                more = {"ELASTIC_WAIT_AT": ELASTIC_WAIT_AT} \
+                    if key == "g1" else {}
+                self.children[key] = make(
+                    "elastic_member", tmp, label=label,
+                    VTPU_PODINFO_ANNOTATIONS=f,
+                    ELASTIC_ENV_FILE=self.envs[key], **grant, **more)
+        except BaseException:
+            self.stop()
+            raise
+
+    def gang_env(self, key: str, envs: dict) -> dict:
+        """The VTPU_GANG_* of an Allocate answer's ``envs``, into the
+        member's file."""
+        gang = {k: v for k, v in envs.items() if k.startswith("VTPU_GANG_")}
+        self.envs[key].write_text(json.dumps(gang))
+        return gang
+
+    def mirror(self, key: str, annotations: dict) -> None:
+        mirror_podinfo(self.files[key], annotations)
+
+    def stop(self) -> None:
+        for child in self.children.values():
+            proc = child.proc
+            if isinstance(proc, subprocess.Popen) and proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        shutil.rmtree(self.shm, ignore_errors=True)
+
+
+#: The extender's elastic families as elastic_leg reads them.
+ELASTIC_STATES = ("at-max", "shrunk", "resizing", "pending")
+
+
+def elastic_metrics(url: str) -> dict:
+    """``vtpu_resizes`` by direction/requester (nonzero ones),
+    ``vtpu_elastic_pods`` by state and ``vtpu_resize_thrash``, as the
+    extender's ``/metrics`` serves them."""
+    from k8s_vgpu_scheduler_tpu_torch.cmd.vgpu_smi import parse_prom
+
+    status, text = http(url, timeout=30)
+    check(status == 200, f"/metrics answered {status}")
+    fams = parse_prom(text)
+    return {"resizes": {f"{lab['direction']}/{lab['requester']}": v
+                        for lab, v in fams["vtpu_resizes_total"] if v},
+            "pods": {lab["state"]: v for lab, v in fams["vtpu_elastic_pods"]},
+            "thrash": fams["vtpu_resize_thrash_total"][0][1]}
+
+
+def elastic_leg(plane, kube, members: ElasticMembers, scrape: str,
+                coord_of: dict, topo, offer: list, freed, granted) -> dict:
+    """The elastic gang on the mock HGX ring (ELASTIC_*), in hgx_leg after
+    the compaction, with the extender's resize controller on and its loop
+    not started: the leg ticks it and plays the workload controller.
+    Returns each step's readings and seconds; every check is made here but
+    the final chain's against the uninterrupted one (the phase's, in a
+    process with the card)."""
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import GpuDevicePlugin
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.preempt import \
+        PREEMPT_ANNOTATION
+    from k8s_vgpu_scheduler_tpu_torch.tpulib.types import (ChipInfo,
+                                                            NodeInventory)
+    from k8s_vgpu_scheduler_tpu_torch.topology import is_contiguous
+    from k8s_vgpu_scheduler_tpu_torch.util import protocol
+    from k8s_vgpu_scheduler_tpu_torch.util.types import (
+        GANG_COORDINATOR_ANNOTATION, GANG_GROUP_ANNOTATION,
+        GANG_RANK_ANNOTATION, GANG_TOTAL_ANNOTATION,
+        MESH_ANNOTATION, MESH_ASSIGNED_ANNOTATION, NVIDIA_DEVICE)
+
+    sched = plane.scheduler
+    el = sched.elastic
+    key = f"default/{ELASTIC_GROUP}"
+    t_leg = time.monotonic()
+    out: dict = {"kind": members.kind, "ticks": [], "ticks_ms": [],
+                 "filter_s": [], "metrics": {}}
+    # The HGX node's Allocate, as its agent answers it (the members run
+    # on the real card under grants of their own; their gang env is the
+    # answer's), its regions kept apart from the real node's.
+    info = sched.nodes.get_node(HGX_NODE)
+    inv = NodeInventory(chips=[ChipInfo(
+        index=i, uuid=d.id, type=d.type, hbm_mib=d.devmem, coords=d.coords)
+        for i, d in enumerate(info.devices)], topology=info.topology)
+    plugin = GpuDevicePlugin(kube, inv, dataclasses.replace(
+        sched.cfg, node_name=HGX_NODE,
+        cache_host_dir=str(members.shm / "containers")))
+
+    def tick() -> list:
+        t0 = time.monotonic()
+        acts = el.tick()
+        out["ticks_ms"].append((time.monotonic() - t0) * 1e3)
+        out["ticks"].append(acts)
+        return acts
+
+    def metrics(step: str) -> dict:
+        """/metrics against the controller's own counters, now."""
+        got = out["metrics"][step] = elastic_metrics(scrape)
+        want = {"resizes": {f"{d}/{lab}": float(n) for (d, lab), n in
+                            el.resizes_total.items() if n},
+                "pods": {s: float(n) for s, n in el.pod_states().items()},
+                "thrash": float(el.thrash_total)}
+        check(got == want, f"/metrics at {step}: {got}, the controller's "
+              f"{want}")
+        return got
+
+    def gang_pod(gen: int, i: int, rung: str, total: int, anns=None):
+        name = f"{ELASTIC_GROUP}-g{gen}-{i}"
+        return user_pod(name, f"uidE{gen}{i}", HGX_MIB, 0, cores=100,
+                        cards=ELASTIC_CARDS, annotations={
+                            MESH_ANNOTATION: rung, **ELASTIC_RANGE,
+                            GANG_GROUP_ANNOTATION: ELASTIC_GROUP,
+                            GANG_TOTAL_ANNOTATION: str(total),
+                            **(anns or {})})
+
+    def hgx_filter(pod: dict) -> dict:
+        reply, seconds = filter_pod(plane.base, pod, HGX_NODE, offer)
+        out["filter_s"].append(seconds)
+        return reply
+
+    def place(pod: dict) -> dict:
+        """Filter (which must place it on the HGX node), Bind, and the
+        node's Allocate for this pod (the leg's other HGX pods were never
+        allocated, so the node holds several bound pods and the pending
+        one is named, not looked up): the answer's env, the cards, the
+        rank."""
+        rec: dict = {}
+        place_pod(plane.base, pod, HGX_NODE, rec, offer)
+        out["filter_s"].append(rec["filter_s"])
+        name = pod["metadata"]["name"]
+        bound = kube.get_pod("default", name)
+        grant = protocol.get_next_device_request(NVIDIA_DEVICE, bound)
+        protocol.erase_next_device_type(kube, NVIDIA_DEVICE, bound)
+        resp = plugin.build_container_response(bound, grant)
+        protocol.pod_allocation_try_success(kube, bound)
+        anns = kube.get_pod("default", name)["metadata"]["annotations"]
+        check(anns["vtpu.dev/bind-phase"] == "success",
+              f"{name}: bind phase {anns['vtpu.dev/bind-phase']}")
+        coords = [coord_of[u] for u in granted(name)]
+        check(len(set(coords)) == ELASTIC_CARDS
+              and is_contiguous(coords, topo),
+              f"{name}: granted cards {[c[0] for c in coords]}")
+        return dict(envs=resp.envs, cards=sorted(c[0] for c in coords),
+                    rank=anns.get(GANG_RANK_ANNOTATION),
+                    bind_s=rec["bind_s"])
+
+    # 1. The webhook: a malformed range refused, both members admitted.
+    status, review, seconds = review_pod(plane.base, user_pod(
+        "ering-bad", "uidEB", HGX_MIB, 0, cores=100, cards=ELASTIC_CARDS,
+        annotations={MESH_ANNOTATION: ELASTIC_RUNGS[0], **ELASTIC_BAD_RANGE,
+                     GANG_GROUP_ANNOTATION: ELASTIC_GROUP,
+                     GANG_TOTAL_ANNOTATION: "2"}))
+    resp = review["response"]
+    out["bad_range"] = dict(status=resp.get("status"), webhook_s=seconds)
+    check(status == 200 and not resp["allowed"]
+          and resp["status"]["code"] == 422
+          and resp["status"]["message"] == ELASTIC_BAD_RANGE_MESSAGE,
+          f"the webhook answered the malformed range {review}")
+    kube.delete_pod("default", "arc3")
+    freed(["uidX3"])
+    gen0 = [admit_pod(plane.base, kube, gang_pod(0, i, ELASTIC_RUNGS[0],
+                                                 2))[0] for i in range(2)]
+    # 2. Downgrade at admission: one free pair of cards for two members.
+    replies = [hgx_filter(p) for p in gen0 + gen0[:1]]
+    out["gen0_filters"] = [r["Error"] for r in replies]
+    check(all(not r["NodeNames"] for r in replies)
+          and replies[1]["Error"] == replies[2]["Error"]
+          == f"gang {ELASTIC_GROUP}: no atomic placement for 2 members",
+          f"gen 0's Filters: {replies}")
+    t_rejected = time.monotonic()
+    metrics("pending")
+    check(out["metrics"]["pending"]["pods"]["pending"] == 2,
+          f"vtpu_elastic_pods before the downgrade: {out['metrics']}")
+    time.sleep(max(0.0, t_rejected + ELASTIC_DOWNGRADE_S + 0.05
+                   - time.monotonic()))
+    acts = tick()
+    t_down = time.monotonic()
+    check([a["kind"] for a in acts] == ["resize-downgrade"]
+          and (acts[0]["from"], acts[0]["to"]) == ELASTIC_RUNGS,
+          f"the downgrade tick answered {acts}")
+    for p in gen0:
+        anns = kube.get_pod("default", p["metadata"]["name"])["metadata"][
+            "annotations"]
+        check(anns.get(MESH_ASSIGNED_ANNOTATION) == ELASTIC_RUNGS[1],
+              f"{p['metadata']['name']}: mesh-assigned "
+              f"{anns.get(MESH_ASSIGNED_ANNOTATION)}")
+    metrics("downgraded")
+    # 3. The first generation, recreated at the assigned rung: one member.
+    for p in gen0:
+        kube.delete_pod("default", p["metadata"]["name"])
+    coordinator = {GANG_COORDINATOR_ANNOTATION: f"127.0.0.1:{free_port()}"}
+    g1, _ = admit_pod(plane.base, kube, gang_pod(1, 0, ELASTIC_RUNGS[1], 1,
+                                                 coordinator))
+    out["g1"] = place(g1)
+    check(out["g1"]["rank"] == "0", f"gen 1's rank {out['g1']['rank']}")
+    members.gang_env("g1", out["g1"]["envs"])
+    # 4. The bystander ring4 leaves; inside the window the grow is thrash
+    # (once the downgrade's back-off, ELASTIC_DOWNGRADE_S, has passed).
+    kube.delete_pod("default", "ring4")
+    freed(["uidX4"])
+    time.sleep(max(0.0, t_down + ELASTIC_DOWNGRADE_S + 0.05
+                   - time.monotonic()))
+    in_window = time.monotonic() - t_down
+    acts = tick()
+    check(in_window < ELASTIC_HYSTERESIS_S and acts == []
+          and el.thrash_total == 1,
+          f"the tick {in_window:.2f} s after the downgrade answered {acts}, "
+          f"thrash {el.thrash_total}")
+    acts = tick()
+    check(acts == [] and el.thrash_total == 1,
+          f"a second tick in the window answered {acts}, thrash "
+          f"{el.thrash_total}")
+    metrics("thrash")
+    # 5. The grow, once the member holds after ELASTIC_WAIT_AT items.
+    runs: dict = {}
+    events: dict = {}
+    g1_name = g1["metadata"]["name"]
+
+    def kubelet(line: str) -> None:
+        if line != "HOLD" or events:
+            return
+        events["hold_t"] = time.monotonic()
+        time.sleep(max(0.0, t_down + ELASTIC_HYSTERESIS_S + 0.05
+                       - time.monotonic()))
+        acts = tick()
+        events["grow_t"] = time.monotonic()
+        check([a["kind"] for a in acts] == ["resize-grow"]
+              and (acts[0]["from"], acts[0]["to"]) == ELASTIC_RUNGS[::-1],
+              f"the grow tick answered {acts}")
+        anns = kube.get_pod("default", g1_name)["metadata"]["annotations"]
+        out["grow_request"] = anns.get(PREEMPT_ANNOTATION)
+        check(anns.get(MESH_ASSIGNED_ANNOTATION) == ELASTIC_RUNGS[0]
+              and (out["grow_request"] or "").startswith("elastic:grow:"),
+              f"{g1_name} after the grow: {anns}")
+        check(metrics("resizing")["pods"]["resizing"] == 1,
+              f"vtpu_elastic_pods after the grow: {out['metrics']}")
+        members.mirror("g1", anns)
+
+    t_go = time.monotonic()
+    out["card_window"] = [t_go, None]
+    base_mib = smi_card_mib()
+    first = members.children["g1"].run(runs, "elastic", kubelet)
+    check(bool(events), "gen 1's member never held")
+    check(first["preempted"] and first["done"] == ELASTIC_WAIT_AT
+          and first["requester"] == out["grow_request"]
+          and [x["step"] for x in first["io"]["saves"]] == [ELASTIC_WAIT_AT],
+          f"gen 1: preempted {first['preempted']} after {first['done']} "
+          f"items, requester {first['requester']}, saves "
+          f"{first['io']['saves']}")
+    kube.delete_pod("default", g1_name)
+    freed(["uidE10"])
+    acts = tick()
+    check([a["kind"] for a in acts] == ["resize-complete"]
+          and acts[0]["to"] == ELASTIC_RUNGS[0],
+          f"the tick after gen 1's exit answered {acts}")
+    with sched._preempt_lock:
+        ledger = (dict(sched._preempt_requested),
+                  dict(sched._preempt_by_requester))
+    check(ledger == ({}, {}), f"the preemption ledger after the resize "
+          f"{ledger}")
+    t_complete = time.monotonic()
+    # 6. The second generation at (4,): two members, one gloo group.
+    coordinator = {GANG_COORDINATOR_ANNOTATION: f"127.0.0.1:{free_port()}"}
+    gen2 = [admit_pod(plane.base, kube, gang_pod(2, i, ELASTIC_RUNGS[0], 2,
+                                                 coordinator))[0]
+            for i in range(2)]
+    waiting = hgx_filter(gen2[0])
+    check(waiting["Error"] == f"gang {ELASTIC_GROUP} waiting (1/2)",
+          f"gen 2's first Filter: {waiting}")
+    placed2 = {}
+    for i in (1, 0):
+        placed2[i] = place(gen2[i])
+        check(placed2[i]["rank"] == str(i)
+              and placed2[i]["envs"].get("VTPU_GANG_RANK") == str(i)
+              and placed2[i]["envs"].get("VTPU_GANG_SIZE") == "2",
+              f"gen 2's member {i}: rank {placed2[i]['rank']}, env "
+              f"{placed2[i]['envs']}")
+        members.gang_env(f"g2r{i}", placed2[i]["envs"])
+    out["g2"] = [placed2[0], placed2[1]]
+    check(not set(placed2[0]["cards"]) & set(placed2[1]["cards"]),
+          f"gen 2's cards {placed2[0]['cards']}, {placed2[1]['cards']}")
+    metrics("regrown")
+    t_start = time.monotonic()
+    with ThreadPoolExecutor(2) as pool:
+        futs = [pool.submit(members.children[k].run, runs, "elastic")
+                for k in ("g2r0", "g2r1")]
+        second = [f.result() for f in futs]
+    t_done = time.monotonic()
+    back = None
+    while back is None and time.monotonic() - t_done < RETURN_S:
+        if smi_card_mib() <= base_mib + TOL_RETURN_MIB:
+            back = time.monotonic()
+    out["card_window"][1] = back or time.monotonic()
+    check(back is not None, f"the card did not come back to {base_mib} MiB "
+          f"within {RETURN_S} s of gen 2's exit")
+    for r in second:
+        check(r["size"] == 2 and r["start"] == ELASTIC_WAIT_AT
+              and r["done"] == ELASTIC_ITEMS and not r["preempted"]
+              and [x["step"] for x in r["io"]["restores"]]
+              == [ELASTIC_WAIT_AT],
+              f"gen 2's rank {r['rank']}: {r['start']}..{r['done']}, "
+              f"restores {r['io']['restores']}")
+    check(sorted(r["rank"] for r in second) == [0, 1]
+          and second[0]["chain"] == second[1]["chain"],
+          f"gen 2's ranks and chains: "
+          f"{[(r['rank'], r['chain']) for r in second]}")
+    for label, r in runs["elastic"].items():
+        i = r["interposer"]
+        check(i["refusals"] == 0 and i["context_bytes"] + i["alloc_bytes"]
+              <= ELASTIC_MIB * MIB,
+              f"{label}: the interposer's counters {i} past its grant")
+    # 7. The gang leaves: every grant freed.
+    for p in gen2:
+        kube.delete_pod("default", p["metadata"]["name"])
+    freed([p["metadata"]["uid"] for p in gen2])
+    left = sorted(p.name for p in sched.pods.pods_on_node(HGX_NODE))
+    check(left == [DEFRAG_REPLACEMENT[0]] and el.elastic_gangs() == [],
+          f"after the gang's delete: {left} on the HGX node, gangs "
+          f"{el.elastic_gangs()}")
+    metrics("deleted")
+    out.update(
+        runs={k: {f: r.get(f) for f in (
+            "rank", "size", "start", "done", "items", "chain", "preempted",
+            "held_s", "launches", "errors", "io", "rendezvous_s",
+            "interposer", "run_s", "child_s", "life_s")}
+            for k, r in runs["elastic"].items()},
+        final_chain=second[0]["chain"],
+        launches=sum(r["launches"] for r in runs["elastic"].values()),
+        downgrade_to_thrash_s=in_window,
+        hold_to_grow_s=events["grow_t"] - events["hold_t"],
+        grow_to_exit_s=first["exit_t"] - events["grow_t"],
+        exit_to_complete_s=t_complete - first["exit_t"],
+        start_to_rendezvous_s=[r["joined_t"] - t_start for r in second],
+        gen2_s=t_done - t_start,
+        save_s=[x["s"] for x in first["io"]["saves"]],
+        restore_s=[x["s"] for r in second for x in r["io"]["restores"]],
+        leg_s=time.monotonic() - t_leg)
+    return out
+
+
+def hgx_leg(plane, kube, tmp: Path, trainers, members) -> dict:
     """The mock nodes beside the real one, in node_agent once S and T
     are bound: two node agents (mock_agent) on the mock NVML stream
     HGX_FIXTURE's eight NVSwitch cards and PCIE_FIXTURE's four PCIe cards
     to the same scheduler; then HGX_PODS through the webhook, Filter
     (offered the real and the HGX node) and Bind, the mesh pod deleted
     before the 3-card pod; the compaction that places the 3-card pod
-    (defrag_leg, with ``trainers``, a DefragTrainers); a malformed mesh
-    through the webhook, and PCIE_PODS offered the PCIe node alone; then
-    every pod deleted, and their grants must be freed, the slice gauges
-    back where they stood before the HGX pods."""
+    (defrag_leg, with ``trainers``, a DefragTrainers); the elastic gang
+    resized on the ring (elastic_leg, with ``members``, an
+    ElasticMembers; it deletes arc3 and ring4); a malformed mesh through
+    the webhook, and PCIE_PODS offered the PCIe node alone; then every
+    pod deleted, and their grants must be freed, the slice gauges back
+    where they stood before the HGX pods."""
     from k8s_vgpu_scheduler_tpu_torch.ops import _kernels
     from k8s_vgpu_scheduler_tpu_torch.scheduler.metrics import \
         start_metrics_server
@@ -4803,6 +5448,9 @@ def hgx_leg(plane, kube, tmp: Path, trainers) -> dict:
                 out["defrag"] = defrag_leg(plane, kube, created, trainers,
                                            scrape, coord_of, topo, offer,
                                            freed, granted)
+                out["elastic"] = elastic_leg(plane, kube, members, scrape,
+                                             coord_of, topo, offer, freed,
+                                             granted)
                 continue
             place_pod(plane.base, created, HGX_NODE, rec, offer)
             nodelock.release_node(kube, HGX_NODE)  # the node's Allocate
@@ -4852,7 +5500,8 @@ def hgx_leg(plane, kube, tmp: Path, trainers) -> dict:
             rec["cards"] = len(set(got))
             check(len(set(got)) == cards and set(got) <= uuids,
                   f"{name}: Filter granted {got}")
-        for name in ("ring4", "arc3", DEFRAG_REPLACEMENT[0]) + tuple(
+        # ring4 and arc3 left in the elastic leg.
+        for name in (DEFRAG_REPLACEMENT[0],) + tuple(
                 p[0] for p in PCIE_PODS):
             kube.delete_pod("default", name)
         freed([uid for _, uid, _, _, _ in HGX_PODS]
@@ -4869,6 +5518,7 @@ def hgx_leg(plane, kube, tmp: Path, trainers) -> dict:
               f"{gauges['before']} before it")
     finally:
         trainers.stop()
+        members.stop()
         metrics.stop()
         beating.set()
         beater.join()
@@ -5701,8 +6351,10 @@ def phase_device_plugin(torch, record, vgpu: Path):
     scheduler registration and single's refusals.  (c) The runtime
     wrapper (oci_leg): a pod started from a bundle that vgpu-oci-runtime
     injected, held to its grant with the bundle's PYTHONPATH kept, and
-    delete with a broken config.  Returns T's kernel launches and those
-    of the compaction's trainers (hgx_leg)."""
+    delete with a broken config.  The elastic gang's final chain (hgx_leg's
+    elastic_leg) is held to the same items run once in this process.
+    Returns T's kernel launches and those of the compaction's trainers and
+    of the elastic gang's members (hgx_leg)."""
     from k8s_vgpu_scheduler_tpu_torch.accounting import UsageSampler
     from k8s_vgpu_scheduler_tpu_torch.cmd import monitor
     from k8s_vgpu_scheduler_tpu_torch.monitor import FeedbackLoop, RegionReader
@@ -5812,8 +6464,13 @@ def phase_device_plugin(torch, record, vgpu: Path):
         check(defrag["trainer"] == "card",
               f"the compaction ran on a {defrag['trainer']} trainer")
         lo, hi = (w - t0 for w in defrag["card_window"])
+        elastic = na["hgx"]["elastic"]
+        check(elastic["kind"] == "card",
+              f"the elastic gang ran on {elastic['kind']} members")
+        e_lo, e_hi = (w - t0 for w in elastic["card_window"])
         agent_life = [x for x in life
-                      if not lo - 1.0 <= x[0] <= hi]
+                      if not lo - 1.0 <= x[0] <= hi
+                      and not e_lo - 1.0 <= x[0] <= e_hi]
         rise = max(m for _, m, _ in agent_life) - base if agent_life \
             else None
         check(len(agent_life) >= 5 and rise <= TOL_CONTEXT_MIB,
@@ -5821,6 +6478,18 @@ def phase_device_plugin(torch, record, vgpu: Path):
               f"outside the trainers' window ({len(agent_life)} samples)")
         defrag["card_peak_mib"] = max(
             (m - base for t, m, _ in life if lo <= t <= hi), default=None)
+        elastic["card_peak_mib"] = max(
+            (m - base for t, m, _ in life if e_lo <= t <= e_hi),
+            default=None)
+        # The resized gang's chain against the same items run once, here.
+        t_ref = time.monotonic()
+        _, _, _, fa, _, _ = enforce_port()
+        elastic["reference_chain"] = elastic_reference(torch, fa)
+        elastic["reference_s"] = time.monotonic() - t_ref
+        check(elastic["final_chain"] == elastic["reference_chain"],
+              f"the resized gang's chain {elastic['final_chain']} is not "
+              f"the uninterrupted one {elastic['reference_chain']}")
+        log("elastic leg:", json.dumps(elastic_summary(elastic)))
         check(not any(str(agent.pid) in pids for _, _, pids in life),
               "the node agent is a compute process")
         check([(d["id"], d["devmem"], d["count"], d["health"])
@@ -5928,9 +6597,10 @@ def phase_device_plugin(torch, record, vgpu: Path):
     summary["oci"] = oci
     log(json.dumps(summary))
     t = legs["train"]
-    return [t["launches"][n] + d for n, d in zip(
+    return [t["launches"][n] + d + e for n, d, e in zip(
         ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-        na["hgx"]["defrag"]["launches"])]
+        na["hgx"]["defrag"]["launches"],
+        (na["hgx"]["elastic"]["launches"], 0, 0))]
 
 
 # The stand-in OCI runtime oci_leg writes (the machine has no root for
@@ -6094,6 +6764,25 @@ def defrag_summary(d: dict) -> dict:
     return out
 
 
+def elastic_summary(e: dict) -> dict:
+    """The elastic leg's record as the phase prints it (checked in
+    elastic_leg and against the reference chain): each tick's and
+    Filter's time, the intervals, the members' cards, items, saves and
+    restores, /metrics at each step, the chains and the leg's seconds."""
+    keys = ("kind", "gen0_filters", "ticks_ms", "filter_s",
+            "downgrade_to_thrash_s", "hold_to_grow_s", "grow_to_exit_s",
+            "exit_to_complete_s", "start_to_rendezvous_s", "gen2_s",
+            "save_s", "restore_s", "launches", "final_chain",
+            "reference_chain", "reference_s", "card_peak_mib", "leg_s")
+    out = {k: e.get(k) for k in keys}
+    out["cards"] = [e["g1"]["cards"]] + [g["cards"] for g in e["g2"]]
+    out["metrics"] = e["metrics"]
+    out["runs"] = {k: {f: r[f] for f in ("rank", "size", "items", "held_s",
+                                         "rendezvous_s", "run_s")}
+                   for k, r in e["runs"].items()}
+    return out
+
+
 def fabric_summary(na: dict) -> dict:
     """The node agent's fabric record (checked in the child by
     fabric_checks and hgx_leg), cut to what the phase's line prints:
@@ -6119,6 +6808,7 @@ def fabric_summary(na: dict) -> dict:
                                           "coords")},
             "pcie_agent_fabric": hgx["pcie_agent"]["fabric"]["kind"],
             "defrag": defrag_summary(hgx["defrag"]),
+            "elastic_s": hgx["elastic"]["leg_s"],
             "slice_gauges": hgx["slice_gauges"],
             "known_topologies": hgx["known_topologies"],
             **{name: {
@@ -8398,6 +9088,25 @@ def kernel_row(name, source, replaces, launches, max_abs_err, ms, plain_ms,
                 library_ms=library_ms, **extra)
 
 
+def bytecode_cache() -> str:
+    """Give this process and every process it starts one bytecode cache,
+    in a temporary directory removed at exit.  Where Python runs with
+    PYTHONDONTWRITEBYTECODE over packages that ship no ``__pycache__``,
+    each process compiles torch from source again (on the H100 host 8 s
+    for ``import torch`` and 10 more for what torch.profiler imports at
+    its first trace); with the cache only the first one does.  Returns
+    the directory."""
+    import atexit
+
+    cache = tempfile.mkdtemp(prefix="chip_smoke-pyc-")
+    atexit.register(shutil.rmtree, cache, True)
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    os.environ["PYTHONPYCACHEPREFIX"] = cache
+    sys.dont_write_bytecode = False
+    sys.pycache_prefix = cache
+    return cache
+
+
 def main() -> int:
     if len(sys.argv) == 3 and sys.argv[1] == "--enforce-child":
         if sys.argv[2] == "node_agent":  # before torch is imported
@@ -8408,6 +9117,7 @@ def main() -> int:
             return mock_agent()
         return enforce_child(sys.argv[2])
     t_script = time.monotonic()
+    bytecode_cache()
     import torch
 
     if not torch.cuda.is_available():

@@ -17,13 +17,16 @@ extender's ``/debug`` endpoints) and the capacity queues:
 ``--queue-reclaim-grace``, ``--queue-fleet-headroom``,
 ``--no-queue-backfill`` and ``--no-reclaim``; and the defragmenter:
 ``--enable-defrag``, ``--defrag-interval``, ``--defrag-checkpoint-grace``,
-``--defrag-reservation-ttl`` and ``--defrag-max-victims``.
+``--defrag-reservation-ttl`` and ``--defrag-max-victims``; and elastic
+mesh resizing: ``--enable-elastic``, ``--elastic-interval``,
+``--resize-hysteresis``, ``--resize-checkpoint-grace`` and
+``--elastic-downgrade-after``.
 Boot order: list the pods and reconcile the grants before anything serves
 (a restarted scheduler that filtered against an empty registry would book
 cards twice), then the watch thread, the rescue thread, the admission
 thread (with a quota config), the defrag thread (with
-``--enable-defrag``), the register service, the exporter and the HTTP
-extender.  This module is the gRPC edge: the core imports neither grpc nor
+``--enable-defrag``), the resize thread (with ``--enable-elastic``), the
+register service, the exporter and the HTTP extender.  This module is the gRPC edge: the core imports neither grpc nor
 protobuf.
 """
 
@@ -167,6 +170,24 @@ def parse_args(argv=None):
                         "for its beneficiary before returning to the pool")
     p.add_argument("--defrag-max-victims", type=int, default=8,
                    help="largest victim set a compaction plan may ask")
+    p.add_argument("--enable-elastic", action="store_true",
+                   help="elastic mesh resizing: gangs declaring a "
+                        "vtpu.dev/mesh-min..mesh-max range shrink one "
+                        "rung (checkpoint-restart) instead of dying "
+                        "under reclaim/defrag pressure and grow back "
+                        "when capacity frees")
+    p.add_argument("--elastic-interval", type=float, default=10.0,
+                   help="resize controller loop period, seconds")
+    p.add_argument("--resize-hysteresis", type=float, default=300.0,
+                   help="seconds after any resize before the same gang "
+                        "may grow again (thrash guard)")
+    p.add_argument("--resize-checkpoint-grace", type=float, default=120.0,
+                   help="seconds resize victims get to checkpoint and "
+                        "exit before the resize aborts and rolls back")
+    p.add_argument("--elastic-downgrade-after", type=float, default=30.0,
+                   help="seconds a pending elastic gang must sit "
+                        "Filter-rejected before admission retries it "
+                        "one rung down")
     p.add_argument("--resync-seconds", type=float, default=None,
                    help="full re-list period; default 300 with the watch, "
                         "30 without")
@@ -214,7 +235,12 @@ def build_config(args) -> Config:
         defrag_interval_s=args.defrag_interval,
         defrag_checkpoint_grace_s=args.defrag_checkpoint_grace,
         defrag_reservation_ttl_s=args.defrag_reservation_ttl,
-        defrag_max_victims=args.defrag_max_victims)
+        defrag_max_victims=args.defrag_max_victims,
+        enable_elastic=args.enable_elastic,
+        elastic_interval_s=args.elastic_interval,
+        resize_hysteresis_s=args.resize_hysteresis,
+        resize_checkpoint_grace_s=args.resize_checkpoint_grace,
+        elastic_downgrade_after_s=args.elastic_downgrade_after)
 
 
 def load_quota_config(path: str) -> tuple:
@@ -339,6 +365,10 @@ def main(argv=None):
     # defrag.tick() themselves).
     if scheduler.cfg.enable_defrag:
         scheduler.defrag.start()
+    # The grow and downgrade loop, when asked for (shrinks are started by
+    # reclaim and defrag themselves).
+    if scheduler.cfg.enable_elastic:
+        scheduler.elastic.start()
     grpc_server = start_register_service(scheduler, args.grpc_bind)
     metrics_server = start_metrics_server(scheduler, args.metrics_port)
     host, _, port = args.http_bind.rpartition(":")
@@ -367,6 +397,7 @@ def main(argv=None):
         scheduler.rescuer.stop()
         scheduler.admission.stop()
         scheduler.defrag.stop()
+        scheduler.elastic.stop()
         http_server.stop()
         metrics_server.stop()
         grpc_server.stop(grace=2)

@@ -87,9 +87,26 @@ victims until the gang admits:
                 "gpucores": 100, "gang": "big", "mesh": "2x4"},
        "horizon_s": 300, "tick_s": 5, "checkpoint_delay_s": 5}}
 
-The JAX simulator's other sections (``elastic``, ``capacity``, ``audit``,
-``slo``, ``ha``) replay subsystems the port does not have yet (ROADMAP
-A.5): such a workload is refused by name, and the command exits 2.
+An ``elastic`` section is an elastic-on vs elastic-off A/B on the
+virtual clock through the port's admission, reclaim and resize loops
+(``quota/``, ``elastic/``): an elastic gang borrows cards, a latency
+burst of the entitled queue takes them back, by a rung shrink with
+elastic on and by killing borrowers with it off, and the gang grows back
+after the burst; its training trajectory is a hash chain that must
+resume bit for bit at every resize (``examples/vgpu-workload-elastic.json``,
+the JAX example in the port's names):
+
+    {"elastic": {
+       "queues": [...], "reclaim_grace_s": 30, "hysteresis_s": 60,
+       "gang": {"name": "train", "namespace": "team-batch", "gpu": 4,
+                "gpucores": 100, "mesh": "4x4", "mesh_min": "2x2",
+                "mesh_max": "4x4", "at_s": 0},
+       "arrivals": [...], "horizon_s": 720, "tick_s": 5,
+       "checkpoint_delay_s": 5}}
+
+The JAX simulator's other sections (``capacity``, ``audit``, ``slo``,
+``ha``) replay subsystems the port does not have yet (ROADMAP A.5): such
+a workload is refused by name, and the command exits 2.
 
 Usage:
     vgpu-simulate --nodes 4 --chips 8 --hbm 81079 --mesh 8 \\
@@ -110,6 +127,7 @@ imports ``shim/simlab.py`` inside its function.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import sys
 import threading
@@ -118,7 +136,13 @@ from typing import Dict, List, Optional
 from ..accounting import efficiency as eff_mod
 from ..accounting.sampler import UsageSampler
 from ..health.faults import FaultEvent, FaultInjector, SimClock
+from ..elastic.ranges import (
+    MESH_ASSIGNED_ANNOTATION,
+    MESH_MAX_ANNOTATION,
+    MESH_MIN_ANNOTATION,
+)
 from ..k8s import FakeKube
+from ..placement.mesh import mesh_volume, parse_mesh
 from ..quota.queues import (
     QUEUE_ANNOTATION,
     QUEUE_STATE_ANNOTATION,
@@ -140,8 +164,8 @@ from ..util.types import (
 )
 
 #: The JAX simulator's self-contained sections, in the order it tries
-#: them: ``fragmentation``, ``serving`` and ``queueing`` run here, the
-#: others are refused until ROADMAP A.5 brings them.  True: a section is
+#: them: ``fragmentation``, ``elastic``, ``serving`` and ``queueing`` run
+#: here, the others are refused until ROADMAP A.5 brings them.  True: a section is
 #: requested when present; False: when it is not empty.
 SECTIONS = (("fragmentation", False), ("elastic", True), ("capacity", True),
             ("serving", True), ("audit", True), ("slo", True),
@@ -274,6 +298,13 @@ def run_simulation(workload: dict, *, nodes: int = 0, chips: int = 0,
             result = run_fragmentation_phase(
                 workload["fragmentation"], nodes=nodes, chips=chips,
                 hbm=hbm, mesh=mesh, generation=generation, policy=policy)
+        elif key == "elastic":
+            # A self-contained elastic-on/off A/B on the virtual clock: an
+            # elastic gang shrinks for a latency burst instead of dying,
+            # then grows back on the freed surplus.
+            result = run_elastic_phase(
+                workload["elastic"], nodes=nodes, chips=chips, hbm=hbm,
+                mesh=mesh, generation=generation, policy=policy)
         elif key == "queueing":
             # A self-contained time-stepped A/B: its own fair and FIFO
             # schedulers on the virtual clock (the plain replay below
@@ -1206,6 +1237,436 @@ def run_queueing_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
     }
 
 
+# --- elastic mesh resizing A/B (elastic/) -------------------------------------
+
+def _elastic_gang_generation(gang_spec: dict, mesh_str: str, gen: int,
+                             nums: int, governed_queue: Optional[str]
+                             ) -> List[dict]:
+    """One generation of the elastic gang at rung ``mesh_str``: the
+    member count is ``volume // nums`` (per-member cards never change),
+    every member carries the range annotations plus the webhook's
+    mutations written by hand (queue and held state), and names and uids
+    embed the generation so recreations never collide in the fake
+    apiserver."""
+    total = mesh_volume(parse_mesh(mesh_str)) // nums
+    ns = gang_spec["namespace"]
+    out = []
+    for i in range(total):
+        name = f"{gang_spec['name']}-g{gen}-{i}"
+        limits = {_NAMES.count: str(nums),
+                  _NAMES.cores: str(gang_spec["gpucores"])}
+        anns = {
+            MESH_ANNOTATION: mesh_str,
+            MESH_MIN_ANNOTATION: str(gang_spec["mesh_min"]),
+            MESH_MAX_ANNOTATION: str(gang_spec["mesh_max"]),
+            GANG_GROUP_ANNOTATION: gang_spec["gang"],
+            GANG_TOTAL_ANNOTATION: str(total),
+        }
+        if governed_queue is not None:
+            anns[QUEUE_ANNOTATION] = governed_queue
+            anns[QUEUE_STATE_ANNOTATION] = STATE_HELD
+        out.append({
+            "metadata": {"name": name, "namespace": ns,
+                         "uid": f"uid-{ns}-{name}", "annotations": anns},
+            "spec": {"containers": [{
+                "name": "main", "resources": {"limits": limits}}]},
+        })
+    return out
+
+
+def _run_elastic_sim(spec: dict, elastic_on: bool, *, nodes: int,
+                     chips: int, hbm: int, mesh, generation: str,
+                     policy: str) -> dict:
+    """One time-stepped elastic replay through the port's REAL admission,
+    reclaim and resize loops on a SimClock.  An elastic gang (mesh range
+    declared) holds borrowed capacity; a latency burst arrives and the
+    entitled queue takes cards back: with elastic ON by rung shrinks
+    (``quota/admission.py``'s shrink pass → ``elastic.begin_shrink``),
+    with it OFF by plain reclaim kills.  The harness plays the
+    in-container watch AND the workload controller: flagged members
+    checkpoint and exit after ``checkpoint_delay_s``; a generation whose
+    members carry ``vtpu.dev/mesh-assigned`` is recreated whole at the
+    assigned rung (same group, new total, fresh uids) and re-admits
+    through the ordinary held-gang path.
+
+    The gang's training trajectory is a sha256 hash chain stepped once
+    per fully placed tick; each resize records (steps, state) at the
+    checkpoint and the recreated generation RESUMES the chain: the final
+    state must equal H^steps(seed), the bit-identical resume proof.
+    """
+    horizon = float(spec.get("horizon_s", 720.0))
+    tick = float(spec.get("tick_s", 5.0))
+    checkpoint_delay = float(spec.get("checkpoint_delay_s", tick))
+    queues = tuple(spec.get("queues", ()))
+
+    clock = SimClock()
+    kube = FakeKube()
+    cfg = Config(
+        node_scheduler_policy=policy,
+        quota_queues=queues,
+        queue_reclaim_grace_s=float(spec.get("reclaim_grace_s", 6 * tick)),
+        enable_elastic=elastic_on,
+        elastic_interval_s=tick,
+        resize_hysteresis_s=float(spec.get("hysteresis_s", 60.0)),
+        resize_checkpoint_grace_s=float(
+            spec.get("checkpoint_grace_s",
+                     4 * checkpoint_delay + 2 * tick)),
+        elastic_downgrade_after_s=float(
+            spec.get("downgrade_after_s", 6 * tick)))
+    s = Scheduler(kube, cfg, clock=clock)
+    names = build_fleet(s, kube, nodes, chips, hbm, mesh, generation)
+    fleet_chips = nodes * chips
+    kube.watch_pods(s.on_pod_event)
+
+    gang_spec = dict(spec.get("gang") or {})
+    gang_spec.setdefault("name", "train")
+    gang_spec.setdefault("gang", gang_spec["name"])
+    gang_spec.setdefault("namespace", "sim")
+    gang_spec.setdefault("gpu", 4)
+    gang_spec.setdefault("gpucores", 100)
+    gang_spec.setdefault("mesh", "4x4")
+    gang_spec.setdefault("mesh_min", "2x2")
+    gang_spec.setdefault("mesh_max", gang_spec["mesh"])
+    nums = int(gang_spec["gpu"])
+    gang_at = float(gang_spec.get("at_s", 0.0))
+    gang_ns = gang_spec["namespace"]
+
+    def governed(ns: str) -> Optional[str]:
+        q = queue_for_namespace(queues, ns) if queues else None
+        return q.name if q is not None else None
+
+    schedule = _arrival_schedule(spec)
+    ns_queue = {a["namespace"]: governed(a["namespace"])
+                for a in schedule}
+
+    # Gang state: the current generation's manifests and rung, and the
+    # hash-chain trajectory carried ACROSS generations.
+    current_mesh = str(gang_spec["mesh"])
+    gen_idx = 0
+    gen_pods: List[dict] = []
+    gang_placed: set = set()
+    gang_flagged_at: Optional[float] = None
+    gang_assigned = ""
+    seed = hashlib.sha256(
+        f"elastic:{gang_ns}/{gang_spec['gang']}".encode()).digest()
+    traj_steps = 0
+    traj_state = seed
+    resize_points: List[dict] = []
+
+    next_arrival = 0
+    live: Dict[str, dict] = {}
+    placed_at: Dict[str, float] = {}
+    first_placed: Dict[str, float] = {}
+    completed_at: Dict[str, float] = {}
+    preempt_seen: Dict[str, float] = {}
+    kills: List[dict] = []
+    killed_uids: set = set()
+    accrued: Dict[str, float] = {}     # uid -> GPU-seconds
+    uid_of: Dict[str, str] = {}        # arrival name -> uid
+    resizes: List[dict] = []
+    admits = 0
+    reclaim_plans: List[dict] = []
+    busy_seconds = 0.0
+    overbooked: List[str] = []
+
+    def place(pod) -> Optional[str]:
+        r = s.filter(pod, names)
+        if r.node:
+            s.bind(pod["metadata"]["namespace"], pod["metadata"]["name"],
+                   pod["metadata"]["uid"], r.node)
+            nodelock.release_node(kube, r.node)
+        return r.node
+
+    steps = int(round(horizon / tick))
+    t0 = clock()
+    for _step in range(steps):
+        now = clock() - t0
+        # 1. Arrivals: the gang's first generation, then the singles.
+        if not gen_pods and gen_idx == 0 and now >= gang_at:
+            gen_pods = _elastic_gang_generation(
+                gang_spec, current_mesh, 0, nums, governed(gang_ns))
+            for p in gen_pods:
+                kube.create_pod(p)
+        while next_arrival < len(schedule) \
+                and schedule[next_arrival]["at_s"] <= now:
+            a = schedule[next_arrival]
+            next_arrival += 1
+            pod = _queue_spec_pod(a, ns_queue[a["namespace"]])
+            uid_of[a["name"]] = pod["metadata"]["uid"]
+            kube.create_pod(pod)
+            live[a["name"]] = a
+        # 2. Completions (runtime elapsed); the gang never completes.
+        for name in [n for n, t in placed_at.items()
+                     if t + live[n]["runtime_s"] <= now]:
+            a = live.pop(name)
+            placed_at.pop(name)
+            completed_at[name] = now
+            kube.delete_pod(a["namespace"], name)
+        # 3a. The workload controller: a generation whose members carry
+        # mesh-assigned and the eviction request checkpoints, exits after
+        # the delay, and is recreated WHOLE at the assigned rung.
+        flagged = False
+        for p in gen_pods:
+            try:
+                cur = kube.get_pod(gang_ns, p["metadata"]["name"])
+            except Exception:  # noqa: BLE001 — mid-churn
+                continue
+            anns = cur.get("metadata", {}).get("annotations", {})
+            if anns.get(PREEMPT_ANNOTATION) \
+                    and anns.get(MESH_ASSIGNED_ANNOTATION):
+                flagged = True
+                gang_assigned = anns[MESH_ASSIGNED_ANNOTATION]
+        if flagged and gang_flagged_at is None:
+            gang_flagged_at = now
+        if gang_flagged_at is not None \
+                and now - gang_flagged_at >= checkpoint_delay:
+            resize_points.append({
+                "at_s": now, "from": current_mesh, "to": gang_assigned,
+                "steps": traj_steps, "state": traj_state.hex()})
+            for p in gen_pods:
+                try:
+                    kube.delete_pod(gang_ns, p["metadata"]["name"])
+                except Exception:  # noqa: BLE001 — already gone
+                    pass
+            gen_idx += 1
+            current_mesh = gang_assigned
+            gen_pods = _elastic_gang_generation(
+                gang_spec, current_mesh, gen_idx, nums,
+                governed(gang_ns))
+            gang_placed = set()
+            gang_flagged_at = None
+            for p in gen_pods:
+                kube.create_pod(p)
+        # 3b. The in-container watch of PLAIN victims (reclaim kills,
+        # elastic off): checkpoint and exit; nothing recreates them, the
+        # sunk work is the kill's cost.
+        for pod in kube.list_pods():
+            name = pod["metadata"]["name"]
+            if name not in live:
+                continue
+            anns = pod.get("metadata", {}).get("annotations", {})
+            flag = anns.get(PREEMPT_ANNOTATION, "")
+            if flag and not anns.get(MESH_ASSIGNED_ANNOTATION):
+                first = preempt_seen.setdefault(name, now)
+                if now - first >= checkpoint_delay:
+                    a = live.pop(name)
+                    placed_at.pop(name, None)
+                    preempt_seen.pop(name, None)
+                    kube.delete_pod(a["namespace"], name)
+                    kills.append({"pod": name, "at_s": now})
+                    killed_uids.add(uid_of[name])
+            elif not flag:
+                preempt_seen.pop(name, None)
+        # 4. The REAL admission loop (quota gate, fair-share release,
+        # reclaim, which shrinks first through the resize controller).
+        for act in s.admission.tick():
+            kind = act.get("kind")
+            if kind == "admit":
+                admits += 1
+            elif kind == "reclaim":
+                reclaim_plans.append(dict(act, at_s=now))
+            elif kind.startswith("resize"):
+                resizes.append(dict(act, at_s=now))
+        # 5. The REAL resize controller (grow on surplus, hysteresis,
+        # in-flight progress).  Not ticked when elastic is off: the off
+        # leg must run no elastic code, as in production.
+        if elastic_on:
+            for act in s.elastic.tick():
+                if act["kind"] in ("resize-shrink", "resize-grow",
+                                   "resize-downgrade", "resize-abort"):
+                    resizes.append(dict(act, at_s=now))
+        # 6. Filter over the unplaced pods (kube-scheduler's retry).
+        for name, a in sorted(live.items()):
+            if name in placed_at:
+                continue
+            try:
+                pod = kube.get_pod(a["namespace"], name)
+            except Exception:  # noqa: BLE001 — deleted this tick
+                continue
+            if place(pod) is not None:
+                placed_at[name] = now
+                first_placed.setdefault(name, now)
+        for p in gen_pods:
+            name = p["metadata"]["name"]
+            if name in gang_placed:
+                continue
+            try:
+                pod = kube.get_pod(gang_ns, name)
+            except Exception:  # noqa: BLE001 — deleted this tick
+                continue
+            if place(pod) is not None:
+                gang_placed.add(name)
+        # 7. Trajectory: the gang trains one step a tick while fully
+        # placed and not checkpointing: the chain the resume must
+        # continue bit for bit.
+        if gen_pods and gang_flagged_at is None and not flagged \
+                and all(p["metadata"]["name"] in gang_placed
+                        for p in gen_pods):
+            traj_steps += 1
+            traj_state = hashlib.sha256(traj_state).digest()
+        # 8. Accrual and the double-booking invariant.
+        busy = 0
+        for p in s.pods.list_pods():
+            n_chips = sum(len(c) for c in p.devices)
+            busy += n_chips
+            accrued[p.uid] = accrued.get(p.uid, 0.0) + n_chips * tick
+        busy_seconds += busy * tick
+        bad = overbooked_chips(s)
+        if bad:
+            overbooked = sorted(set(overbooked) | set(bad))
+        clock.advance(tick)
+
+    # Trajectory proof: replay the chain from the seed alone and check
+    # every recorded resize point AND the final state land on it.
+    chain = [seed]
+    for _ in range(traj_steps):
+        chain.append(hashlib.sha256(chain[-1]).digest())
+    traj_ok = traj_state == chain[traj_steps] and all(
+        rp["steps"] <= traj_steps
+        and rp["state"] == chain[rp["steps"]].hex()
+        for rp in resize_points)
+
+    # Goodput is exclusion-based: a saturated fleet conserves raw
+    # GPU-seconds whoever holds them, so the discriminator is what the
+    # accrual was WORTH: killed pods' sunk work (no checkpoint-resume
+    # lineage) and deadline-missed latency runs count as waste, resized
+    # gang generations keep every pre-resize second.
+    total_accrued = sum(accrued.values())
+    slo_met = slo_missed = 0
+    jcts: List[float] = []
+    wasted = sum(accrued.get(u, 0.0) for u in killed_uids)
+    for a in schedule:
+        deadline = a["entry"].get("deadline_s")
+        if deadline is None:
+            continue
+        name = a["name"]
+        jcts.append(completed_at.get(name, horizon) - a["at_s"])
+        started = first_placed.get(name)
+        if started is not None and started - a["at_s"] <= float(deadline):
+            slo_met += 1
+        else:
+            slo_missed += 1
+            if uid_of[name] not in killed_uids:  # never double-count
+                wasted += accrued.get(uid_of[name], 0.0)
+    mean_jct = sum(jcts) / len(jcts) if jcts else 0.0
+
+    result = {
+        "elastic": elastic_on,
+        "total_chip_seconds": round(total_accrued, 1),
+        "goodput_chip_seconds": round(total_accrued - wasted, 1),
+        "wasted_chip_seconds": round(wasted, 1),
+        "utilization": round(busy_seconds / (fleet_chips * horizon), 4)
+        if fleet_chips else 0.0,
+        "mean_latency_jct_s": round(mean_jct, 1),
+        "slo_met": slo_met,
+        "slo_missed": slo_missed,
+        "kills": kills,
+        "admitted": admits,
+        "reclaim_plans": len(reclaim_plans),
+        "resizes": resizes,
+        "shrinks": sum(1 for r in resizes
+                       if r["kind"] == "resize-shrink"),
+        "grows": sum(1 for r in resizes if r["kind"] == "resize-grow"),
+        "resizes_by_requester": {
+            f"{d}/{lab}": n
+            for (d, lab), n in sorted(s.elastic.resizes_total.items())},
+        "thrash": s.elastic.thrash_total,
+        "aborted_resizes": s.elastic.aborted_total,
+        "gang": {
+            "final_mesh": current_mesh,
+            "generations": gen_idx + 1,
+            "trajectory_steps": traj_steps,
+            "resize_points": resize_points,
+            "trajectory_ok": traj_ok,
+        },
+        "overbooked_chips": overbooked,
+        "still_pending": sorted(n for n in live if n not in placed_at),
+    }
+    s.close()
+    return result
+
+
+def run_elastic_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
+                      mesh, generation: str, policy: str) -> dict:
+    """Elastic on against elastic off on the same gang and burst.  The
+    verdict: goodput and burst JCT strictly better with elastic on, the
+    on leg resolves the crunch with ZERO kills (shrinks instead) while
+    the off leg kills, the gang both shrinks and grows back, no thrash,
+    the hash-chain trajectory resumes bit for bit at every resize point,
+    no card overbooked in either leg, and the off leg runs no elastic
+    code path (no resizes of any kind)."""
+    on = _run_elastic_sim(spec, True, nodes=nodes, chips=chips, hbm=hbm,
+                          mesh=mesh, generation=generation, policy=policy)
+    off = _run_elastic_sim(spec, False, nodes=nodes, chips=chips,
+                           hbm=hbm, mesh=mesh, generation=generation,
+                           policy=policy)
+    verdict = {
+        "goodput_better": on["goodput_chip_seconds"]
+        > off["goodput_chip_seconds"],
+        "jct_better": on["mean_latency_jct_s"]
+        < off["mean_latency_jct_s"],
+        "no_kills_with_elastic": len(on["kills"]) == 0,
+        "kills_without_elastic": len(off["kills"]) > 0,
+        "shrank_and_regrew": on["shrinks"] >= 1 and on["grows"] >= 1,
+        "no_thrash": on["thrash"] == 0,
+        "trajectory_bit_identical": (on["gang"]["trajectory_ok"]
+                                     and off["gang"]["trajectory_ok"]),
+        "elastic_off_inert": not off["resizes"] and off["thrash"] == 0,
+        "no_overbooking": not (on["overbooked_chips"]
+                               or off["overbooked_chips"]),
+    }
+    verdict["ok"] = all(verdict.values())
+    return {
+        "horizon_s": float(spec.get("horizon_s", 720.0)),
+        "tick_s": float(spec.get("tick_s", 5.0)),
+        "elastic_on": on,
+        "elastic_off": off,
+        "verdict": verdict,
+    }
+
+
+def format_elastic(el: dict) -> str:
+    v = el["verdict"]
+    on, off = el["elastic_on"], el["elastic_off"]
+
+    def leg(r):
+        return ("goodput {:>9.1f} chip-s (waste {:>7.1f}); burst JCT "
+                "{:>6.1f}s, SLO {}/{}; {} kill(s)".format(
+                    r["goodput_chip_seconds"], r["wasted_chip_seconds"],
+                    r["mean_latency_jct_s"], r["slo_met"],
+                    r["slo_met"] + r["slo_missed"], len(r["kills"])))
+
+    lines = [
+        "elastic mesh A/B over {:.0f}s (resize instead of kill):".format(
+            el["horizon_s"]),
+        f"  elastic ON : {leg(on)}",
+        f"  elastic OFF: {leg(off)}",
+    ]
+    for r in on["resizes"]:
+        if r["kind"] in ("resize-shrink", "resize-grow"):
+            lines.append(
+                "  {:>5.0f}s {:<13s} {} -> {:<5s} ({})".format(
+                    r["at_s"], r["kind"], r["from"], r["to"],
+                    r.get("requester", "")))
+    g = on["gang"]
+    lines.append(
+        "  trajectory: {} step(s) across {} generation(s), {} resize "
+        "point(s) — {}".format(
+            g["trajectory_steps"], g["generations"],
+            len(g["resize_points"]),
+            "bit-identical resume" if g["trajectory_ok"]
+            else "DIVERGED"))
+    lines.append(
+        "  final mesh {} (thrash {}, aborted {})".format(
+            g["final_mesh"], on["thrash"], on["aborted_resizes"]))
+    if on["overbooked_chips"] or off["overbooked_chips"]:
+        lines.append("  OVERBOOKED: "
+                     + ", ".join(on["overbooked_chips"]
+                                 + off["overbooked_chips"]))
+    lines.append("  verdict: " + ("PASS" if v["ok"] else f"FAIL {v}"))
+    return "\n".join(lines)
+
+
 def format_queueing(qr: dict) -> str:
     v = qr["verdict"]
     lines = [
@@ -1274,6 +1735,9 @@ def format_report(result: dict) -> str:
     qr = result.get("queueing")
     if qr:
         return format_queueing(qr)
+    el = result.get("elastic")
+    if el:
+        return format_elastic(el)
     f = result["fleet"]
     if "source" in f:
         head = ("fleet: {nodes} node(s) from {source}, "

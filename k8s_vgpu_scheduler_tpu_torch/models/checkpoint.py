@@ -14,10 +14,21 @@ this one writes with ``torch.save`` and keeps orbax's protocol:
 It holds a :class:`~.train.TrainState` (the f32 master copy, the
 optimizer state and the step) or a module's weights (its ``state_dict``:
 a :class:`~.llama.Llama` for the serving pod).  :meth:`restore` writes in
-place into the live target, on the target's own devices: the file is
-mapped to the host (``torch.load(mmap=True)``) and each tensor copied into
-its counterpart, so a master copy that *is* an f32 parameter stays that
-parameter, and an optimizer state in pinned host memory stays there.
+place into the live target, on the target's own devices: the file is read
+to the host and each tensor copied into its counterpart, so a master copy
+that *is* an f32 parameter stays that parameter, and an optimizer state in
+pinned host memory stays there.
+
+The file is ``torch.save``'s zip format, which ``torch.load(mmap=True,
+weights_only=True)`` maps as well.  A save first stages every card
+tensor into pinned host memory (asynchronous copies, one sync; the
+caching host allocator keeps the buffers for the next save) and writes
+the records without their CRC-32 where the running torch has that switch
+(``torch.serialization.set_crc32_options``): nothing in the format needs
+it, and on a 5.27 GB train state on an H100 host the per-tensor pageable
+copies and the CRC were more than half of the save (``tools/checkpoint_io.py``
+times each part).  A restore reads the file whole rather than mapping it:
+there, faulting in the mapped pages cost more than reading them.
 """
 
 from __future__ import annotations
@@ -46,6 +57,57 @@ def _tree(state: Any) -> Dict[str, Any]:
         return {"weights": state.state_dict()}
     raise TypeError(f"cannot checkpoint a {type(state).__name__}: a "
                     "TrainState or an nn.Module")
+
+
+def _map_tensors(tree: Any, fn) -> Any:
+    """``tree`` with ``fn`` applied to every tensor in it (dicts, lists and
+    tuples rebuilt with their own types; other leaves kept)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return type(tree)((k, _map_tensors(v, fn)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tensors(v, fn) for v in tree)
+    return tree
+
+
+def _staged(tree: Any) -> Any:
+    """``tree`` with every card tensor copied to pinned host memory: the
+    copies are queued on each device's current stream and awaited once, so
+    the save serializes host memory only.  Host tensors are kept as they
+    are (a state on the CPU is saved from where it lies)."""
+    devices = set()
+
+    def stage(t: torch.Tensor) -> torch.Tensor:
+        if t.device.type != "cuda":
+            return t
+        devices.add(t.device)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
+
+    out = _map_tensors(tree, stage)
+    for dev in devices:
+        torch.cuda.current_stream(dev).synchronize()
+    return out
+
+
+def _write(path: str, tree: Any) -> None:
+    """``torch.save`` of ``tree`` into ``path`` through an unbuffered file,
+    flushed to disk; the records' CRC-32 is left out where this torch can
+    (the setting is process-wide and put back at once)."""
+    ser = torch.serialization
+    crc = ser.get_crc32_options() if hasattr(ser, "get_crc32_options") \
+        else None
+    if crc is not None:
+        ser.set_crc32_options(False)
+    try:
+        with open(path, "wb", buffering=0) as f:
+            torch.save(tree, f)
+            os.fsync(f.fileno())
+    finally:
+        if crc is not None:
+            ser.set_crc32_options(crc)
 
 
 def _copy_into(dst: torch.Tensor, src: torch.Tensor, what: str) -> None:
@@ -138,10 +200,7 @@ class CheckpointManager:
                            f"{_TMP_PREFIX}{step}-{os.getpid()}")
         os.makedirs(tmp)
         try:
-            with open(os.path.join(tmp, STATE_FILE), "wb") as f:
-                torch.save(_tree(state), f)
-                f.flush()
-                os.fsync(f.fileno())
+            _write(os.path.join(tmp, STATE_FILE), _staged(_tree(state)))
             os.rename(tmp, final)
         except BaseException:
             shutil.rmtree(tmp, ignore_errors=True)
@@ -151,14 +210,14 @@ class CheckpointManager:
                           ignore_errors=True)
 
     def restore(self, state_like: Any, step: Optional[int] = None) -> Any:
-        """Write the checkpoint of ``step`` (the latest by default), mapped
-        from its file on the host, into ``state_like`` in place and return
+        """Write the checkpoint of ``step`` (the latest by default), read
+        from its file to the host, into ``state_like`` in place and return
         it."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoint under {self.directory}")
         _restore_into(state_like, torch.load(
-            self.path(step), map_location="cpu", mmap=True,
+            self.path(step), map_location="cpu", mmap=False,
             weights_only=True))
         return state_like
 

@@ -139,10 +139,25 @@ def _cached_attention(q, k_all, v_all, q_pos, key_pos, window: int = 0):
     return out.reshape(B, T, H, D)
 
 
+class _EmptyLinear(nn.Linear):
+    """An ``nn.Linear`` left uninitialized: its weights come from
+    convert.from_flax / init_weights.  (``torch.nn.utils.skip_init`` would
+    do the same through the meta device, whose first use imports torch's
+    fake-tensor and compiler stacks: seconds in every new process.)"""
+
+    def reset_parameters(self) -> None:
+        pass
+
+
+class _EmptyEmbedding(nn.Embedding):
+    """An ``nn.Embedding`` left uninitialized, as :class:`_EmptyLinear`."""
+
+    def reset_parameters(self) -> None:
+        pass
+
+
 def _linear(n_in: int, n_out: int, device, dtype) -> nn.Linear:
-    # Uninitialized: weights come from convert.from_flax / init_weights.
-    return torch.nn.utils.skip_init(nn.Linear, n_in, n_out, bias=False,
-                                    device=device, dtype=dtype)
+    return _EmptyLinear(n_in, n_out, bias=False, device=device, dtype=dtype)
 
 
 def _proj(cfg: LlamaConfig, n_in: int, n_out: int, device, dtype):
@@ -265,8 +280,8 @@ class Llama(nn.Module):
         dev = resolve_device(device)
         dtype = torch_dtype(cfg)
         self.cfg = cfg
-        self.embed = torch.nn.utils.skip_init(
-            nn.Embedding, cfg.vocab, cfg.dim, device=dev, dtype=dtype)
+        self.embed = _EmptyEmbedding(cfg.vocab, cfg.dim, device=dev,
+                                     dtype=dtype)
         self.layers = nn.ModuleList(
             Block(cfg, dev, dtype) for _ in range(cfg.n_layers))
         self.final_norm = RMSNorm(cfg.dim, cfg.norm_eps, dev)

@@ -47,12 +47,16 @@ shape):
    plan: requests rescinded, reservation dropped — a wedged victim must
    not strand reserved capacity.
 
-Where the port departs from the JAX module, each place says so: the
-elastic shrink set is read through ``getattr(scheduler, "elastic")``
-(the port has no resize controller yet, so the set is empty, the JAX
-answer with ``--enable-elastic`` off), ``tick`` runs without the JAX
-``defrag-tick`` perf timer (the port has no ``util/perf.py``), and the
-pods are grouped by node through the scheduler's ``_pods_by_node``.
+Elastic gangs (``elastic/``) are the one exception to gang protection:
+the members the resize controller can step down a rung are movable, and
+a plan that needs them asks the controller for a shrink instead of an
+eviction.  With ``--enable-elastic`` off the shrink set is empty and the
+plans are those of a build without the controller.
+
+Where the port departs from the JAX module, each place says so: ``tick``
+runs without the JAX ``defrag-tick`` perf timer (the port has no
+``util/perf.py``), and the pods are grouped by node through the
+scheduler's ``_pods_by_node``.
 """
 
 from __future__ import annotations
@@ -528,7 +532,7 @@ class Defragmenter:
         # rung are the one exception to gang protection: they don't die,
         # they come back one rung smaller.  Empty dict (and therefore
         # byte-identical plans) whenever --enable-elastic is off.
-        shrink_map = self._shrinkable()
+        shrink_map = self.s.elastic.shrinkable_uids()
         protected -= set(shrink_map)
 
         def chip_seconds_of(uid: str) -> float:
@@ -547,15 +551,6 @@ class Defragmenter:
         if plan is not None:
             plan.demand_key = demand.key
         return plan
-
-    def _shrinkable(self) -> Dict[str, str]:
-        """Elastic gang members the resize controller may step down a rung
-        (uid -> gang key).  Departure: the port has no resize controller
-        yet (ROADMAP A.5 elastic), so without ``scheduler.elastic`` the
-        map is empty — the JAX controller's own answer with
-        ``--enable-elastic`` off."""
-        elastic = getattr(self.s, "elastic", None)
-        return elastic.shrinkable_uids() if elastic is not None else {}
 
     def _execute(self, plan: DefragPlan, demand: Demand, now: float,
                  actions: List[dict]) -> None:
@@ -589,12 +584,12 @@ class Defragmenter:
         # annotations mid-checkpoint.  begin_shrink re-checks its own
         # guards; if any gang refuses (raced into another resize), the
         # box can't fully free, so abort this plan and replan next tick.
-        shrink_map = self._shrinkable()
+        shrink_map = self.s.elastic.shrinkable_uids()
         gang_keys = sorted({shrink_map[v.uid] for v in victims
                             if v.uid in shrink_map})
         shrunk = []
         for gk in gang_keys:
-            act = self.s.elastic.begin_shrink(  # only with a resize controller
+            act = self.s.elastic.begin_shrink(
                 gk, f"{requester_key}/{gk}",
                 reason=f"defrag for {demand.key}")
             if act is None:

@@ -9,8 +9,9 @@ quotas with cohort borrowing, and a starved in-quota tenant reclaims
 requests.  Ungoverned namespaces bypass the layer entirely.  A ready pod
 group is released all at once; while one accumulates members, smaller
 pods are backfilled around its footprint, and a gang reclaims only once
-it has all its members, for its whole footprint.  The elastic shrink pass
-waits for the elastic slice (ROADMAP A.5).
+it has all its members, for its whole footprint.  Before it evicts, the
+reclaim steps cohort borrowers that are elastic gangs down a rung
+(``plan_shrinks``, executed by the resize controller of ``elastic/``).
 """
 
 from .admission import AdmissionConfig, AdmissionLoop
@@ -32,7 +33,7 @@ from .queues import (
     parse_quota_config,
     queue_for_namespace,
 )
-from .reclaim import plan_reclaim
+from .reclaim import ShrinkCandidate, plan_reclaim, plan_shrinks
 
 __all__ = [
     "AdmissionConfig",
@@ -47,6 +48,7 @@ __all__ = [
     "QueueEntry",
     "QueueUsage",
     "QuotaManager",
+    "ShrinkCandidate",
     "demand_of",
     "dominant_share",
     "effective_weight",
@@ -54,6 +56,7 @@ __all__ = [
     "grant_chips",
     "parse_quota_config",
     "plan_reclaim",
+    "plan_shrinks",
     "queue_efficiencies",
     "queue_for_namespace",
 ]

@@ -16,16 +16,19 @@ runs it in the daemon's thread, as the rescuer runs):
    estimated footprint, or that declare a runtime ending inside the
    gang's reservation window (``scheduler/gang.py``'s expiry), so the
    gang is never starved by its own queue;
-4. reclaim for starved in-quota queues (``reclaim.py``) through the
-   scheduler's checkpoint-first preemption requests;
+4. reclaim for starved in-quota queues: first shrink the cohort
+   borrowers that are elastic gangs a rung (``reclaim.py``'s
+   ``plan_shrinks``, executed by the resize controller, ``elastic/``),
+   then evict for what the shrinks do not free (``plan_reclaim``), all
+   through the scheduler's checkpoint-first preemption requests;
 5. publish ``vtpu.dev/queue-position`` and events, so ``kubectl describe
    pod`` explains the wait.
 
 Apiserver writes happen with no scheduler lock held; the release in
 memory is the gate's truth, and a failed patch is retried next tick.
 
-Left out until their slices of ROADMAP A.5: the elastic shrink pass and
-the provenance records.  The last tick's blocked heads stay readable
+Left out until its slice of ROADMAP A.5: the provenance records.  The
+last tick's blocked heads stay readable
 (``blocked``): the queue, the head's uid and the reason.
 """
 
@@ -47,7 +50,10 @@ from .queues import (
     QueueUsage,
     grant_chips,
 )
-from .reclaim import plan_reclaim
+from ..elastic.controller import RECLAIM_SHRINK_PREFIX
+from ..elastic.ranges import next_smaller
+from ..placement.mesh import mesh_volume
+from .reclaim import ShrinkCandidate, plan_reclaim, plan_shrinks
 
 log = logging.getLogger(__name__)
 
@@ -397,7 +403,18 @@ class AdmissionLoop:
                 and mgr.governed(p.namespace).name in cohort_names)
             if pending_free >= demand:
                 continue
-            plan = plan_reclaim(demand - pending_free, q, mgr.queues,
+            remaining = demand - pending_free
+            # The CHEAPER action first: cohort borrowers that are elastic
+            # gangs step down a rung instead of dying; evictions cover
+            # only what the shrinks do not free.
+            shrunk = self._shrink_pass(mgr, q, qname, usage, entry,
+                                       remaining, actions)
+            if shrunk > 0:
+                self._last_reclaim[qname] = now
+                remaining -= shrunk
+            if remaining <= 0:
+                continue
+            plan = plan_reclaim(remaining, q, mgr.queues,
                                 usage, pods, protected_uids=protected)
             if plan is None:
                 continue
@@ -441,6 +458,74 @@ class AdmissionLoop:
                     "BorrowedGrantReclaimed",
                     "checkpoint requested: this grant is borrowed "
                     f"capacity reclaimed for queue {qname}")
+
+    def _shrink_pass(self, mgr, q, qname: str, usage, entry,
+                     need: int, actions) -> int:
+        """Shrink cohort-borrowing elastic gangs toward ``need`` cards
+        (selection: ``reclaim.plan_shrinks``; execution: the resize
+        controller, so the members land in the shared preemption ledger
+        under a ``rescue:reclaim:`` requester key and nothing can stack a
+        second eviction on them).  Returns the net cards the started
+        shrinks will free."""
+        elastic = self.s.elastic
+        if not elastic.cfg.enabled or need <= 0:
+            return 0
+        by_gang: Dict[str, List[str]] = {}
+        for uid, gkey in elastic.shrinkable_uids().items():
+            by_gang.setdefault(gkey, []).append(uid)
+        if not by_gang:
+            return 0
+        candidates = []
+        gangs = {}
+        for gkey in sorted(by_gang):
+            g = elastic.gang(gkey)
+            if g is None:
+                continue
+            target = next_smaller(g.ladder, g.current)
+            if target is None:
+                continue
+            sunk = 0.0
+            for uid in g.member_uids:
+                acct = self.s.ledger.get(uid)
+                if acct is not None:
+                    sunk += acct.chip_seconds
+            gangs[gkey] = g
+            candidates.append(ShrinkCandidate(
+                gang_key=gkey, namespace=g.namespace,
+                freed_chips=mesh_volume(g.current) - mesh_volume(target),
+                sunk_chip_seconds=sunk))
+        freed = 0
+        for c in plan_shrinks(need, q, mgr.queues, usage, candidates):
+            requester_key = (f"{RECLAIM_SHRINK_PREFIX}{entry.uid}"
+                             f"/{c.gang_key}")
+            act = elastic.begin_shrink(
+                c.gang_key, requester_key,
+                reason=f"queue {qname} reclaim")
+            if act is None:
+                continue
+            freed += act["freed_chips"]
+            vq = mgr.governed(gangs[c.gang_key].namespace)
+            act = dict(act)
+            act.update({
+                "queue": qname,
+                "for": f"{entry.namespace}/{entry.name}",
+                "donor_queue": vq.name if vq else None,
+                "donor_borrowed": (
+                    usage.get(vq.name, QueueUsage()).borrowed_chips(vq)
+                    if vq else 0),
+            })
+            actions.append(act)
+            mgr.reclaims_total += 1
+            log.warning(
+                "queue %s under nominal with %s waiting: shrinking "
+                "elastic gang %s %s -> %s (net %d card(s)) instead of "
+                "evicting", qname, f"{entry.namespace}/{entry.name}",
+                c.gang_key, act["from"], act["to"], act["freed_chips"])
+            self._event(entry.namespace, entry, "QuotaReclaim",
+                        f"shrinking elastic gang {c.gang_key} to "
+                        f"{act['to']} reclaims {act['freed_chips']} "
+                        f"borrowed chip(s) for queue {qname}")
+        return freed
 
     def _reclaim_trigger(self, mgr, qname: str, blocked,
                          now: float) -> Optional[QueueEntry]:

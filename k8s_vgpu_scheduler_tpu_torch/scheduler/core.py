@@ -33,11 +33,16 @@ topology policy, and ``vtpu.dev/mesh`` pods by ``placement/mesh.py``.  A
 pod group (``vtpu.dev/pod-group``) is placed all or none by ``gang.py``:
 its members wait for their quorum, are placed at once on one snapshot
 with a rank each (``vtpu.dev/pod-group-rank``), keep their grants until
-deletion, and are never preemption victims.  A pod that declares an
-elastic mesh range (``vtpu.dev/mesh-min``/``-max``) is refused with an
-error that names the slice that places it: it is never placed as though
-it declared none.  Placement (``placement/``): a multi-card pod that
-fits nowhere because no contiguous box is free records a demand with the
+deletion, and are never preemption victims.  A gang that declares an
+elastic mesh range (``vtpu.dev/mesh-min``/``-max``) is placed at its
+current ``vtpu.dev/mesh`` like any gang; with ``Config.enable_elastic``
+the resize controller (``elastic/``) steps it between the range's rungs:
+quota reclaim and the defragmenter shrink it instead of evicting it, its
+tick grows it back after a hysteresis window, and a pending gang that
+Filter keeps rejecting is downgraded, each a whole-gang
+checkpoint-restart through the same eviction requests.  Placement
+(``placement/``): a multi-card pod that fits nowhere because no
+contiguous box is free records a demand with the
 defragmenter (``placement/defrag.py``); with ``Config.enable_defrag`` its
 tick plans the cheapest compaction, reserves the box
 (``placement/reserve.py``: the reserved cards leave every usage a fit
@@ -59,6 +64,11 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from ..accounting import efficiency as eff_mod
 from ..accounting.ledger import UsageLedger, decode_usage
+from ..elastic.controller import (
+    ELASTIC_VALUE_PREFIX,
+    ElasticConfig,
+    ResizeController,
+)
 from ..health.lease import LeaseConfig, LeaseState, LeaseTracker
 from ..health.quarantine import ChipQuarantine, QuarantineConfig
 from ..health.rescuer import RESCUE_VALUE_PREFIX, RescueConfig, Rescuer
@@ -93,8 +103,6 @@ from ..util.types import (
     BIND_SUCCESS,
     BIND_TIME_ANNOTATION,
     GANG_RANK_ANNOTATION,
-    MESH_MAX_ANNOTATION,
-    MESH_MIN_ANNOTATION,
     QOS_ANNOTATION,
     QOS_BEST_EFFORT,
     QOS_DUTY_SPLIT_ANNOTATION,
@@ -113,15 +121,6 @@ from .pods import PodInfo, PodManager
 from .preempt import PREEMPT_ANNOTATION, PreemptionPlan, plan_preemption
 
 log = logging.getLogger(__name__)
-
-#: Annotations this scheduler refuses to place without, by the slice of
-#: the port that places them.
-UNPLACED_ANNOTATIONS = {
-    MESH_MIN_ANNOTATION: "elastic mesh ranges are placed by the elastic "
-                         "slice (ROADMAP A.5)",
-    MESH_MAX_ANNOTATION: "elastic mesh ranges are placed by the elastic "
-                         "slice (ROADMAP A.5)",
-}
 
 #: Filter's error when no candidate fits: the case preemption plans for.
 NO_FIT = "no node fits GPU request"
@@ -233,6 +232,19 @@ class Scheduler:
                 reservation_ttl_s=self.cfg.defrag_reservation_ttl_s,
                 min_victim_priority=self.cfg.defrag_min_victim_priority,
                 max_victims_per_plan=self.cfg.defrag_max_victims),
+            clock=clock)
+        # Elastic mesh resizing: inert unless ``enable_elastic`` (shrink
+        # offers empty, the tick never plans, every other path
+        # byte-identical).  vgpu-scheduler starts its thread; embedders
+        # and tests call elastic.tick() themselves.
+        self.elastic = ResizeController(
+            self,
+            ElasticConfig(
+                enabled=self.cfg.enable_elastic,
+                interval_s=self.cfg.elastic_interval_s,
+                hysteresis_s=self.cfg.resize_hysteresis_s,
+                checkpoint_grace_s=self.cfg.resize_checkpoint_grace_s,
+                downgrade_after_s=self.cfg.elastic_downgrade_after_s),
             clock=clock)
         # Held for a whole decision: candidate evaluation and the
         # tentative grant, never across apiserver I/O.
@@ -480,9 +492,11 @@ class Scheduler:
         for pod in pods:
             anns = pod.get("metadata", {}).get("annotations", {}) or {}
             requester = anns.get(PREEMPT_ANNOTATION)
-            if not requester or requester.startswith(RESCUE_VALUE_PREFIX):
+            if not requester or requester.startswith(
+                    (RESCUE_VALUE_PREFIX, ELASTIC_VALUE_PREFIX)):
                 # A rescue request's grace and rescission are the
-                # rescuer's.
+                # rescuer's, a resize restart's the resize controller's:
+                # clearing one here would stop a checkpoint midway.
                 continue
             req_pod = by_uid.get(requester)
             still_pending = (
@@ -696,6 +710,7 @@ class Scheduler:
         # A placement settles any slice demand this pod (or its gang) had
         # recorded: the defragmenter must not compact for it.
         self.defrag.demand_satisfied(self._reservation_key(pod))
+        self.elastic.demand_satisfied(self._reservation_key(pod))
         if self._preempt_by_requester.get(uid):
             # Placed after all (room freed elsewhere): its eviction
             # requests are pointless now.
@@ -717,10 +732,6 @@ class Scheduler:
             # decides).
             return FilterResult()
         anns = pod.get("metadata", {}).get("annotations", {}) or {}
-        for key, why in UNPLACED_ANNOTATIONS.items():
-            if anns.get(key):
-                return FilterResult(
-                    error=f"{key} is not placed by this scheduler: {why}")
         # The capacity-queue gate, before any fit: a governed pod stays
         # held until the admission loop releases it.
         hold = self.quota.gate(pod, requests)
@@ -1021,8 +1032,8 @@ class Scheduler:
         fit nowhere because no contiguous box exists (per-node
         ``no-ici-slice``/``no-mesh-slice`` reasons, or a gang whose atomic
         placement failed on a fleet with a fabric) is exactly the blocked
-        demand compaction can unblock.  (The JAX scheduler then feeds its
-        resize controller; the port has none yet.)"""
+        demand compaction can unblock; a gang's rejection also feeds the
+        resize controller's admission downgrade."""
         try:
             requests = container_requests(pod, self.cfg)
         except ValueError:
@@ -1070,6 +1081,11 @@ class Scheduler:
             pod_name(pod), chips,
             count=gang[1] if gang is not None else 1,
             mesh=mesh_local)
+        if gang is not None:
+            # A blocked PENDING elastic gang is stepped down a rung once
+            # the defragmenter has had its shot (a no-op for other gangs
+            # and with enable_elastic off).
+            self.elastic.observe_rejection(self._reservation_key(pod))
 
     def _write_decision(self, pod: dict, result: FilterResult
                         ) -> Optional[str]:
@@ -1114,6 +1130,15 @@ class Scheduler:
             cores = sum(d.usedcores for ctr in info.devices for d in ctr)
             split[cls] = split.get(cls, 0) + cores
         return ",".join(f"{cls}={split[cls]}" for cls in sorted(split))
+
+    def close(self) -> None:
+        """Stop the background loops (idempotent).  The daemon never needs
+        this; embedders and tests that build and discard schedulers call
+        it so no loop outlives its scheduler."""
+        self.rescuer.stop()
+        self.admission.stop()
+        self.defrag.stop()
+        self.elastic.stop()
 
     # -- Bind ------------------------------------------------------------------
     def bind(self, namespace: str, name: str, uid: str, node: str

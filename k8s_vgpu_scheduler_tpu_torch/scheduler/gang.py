@@ -79,6 +79,11 @@ class Gang:
     ranks: Dict[str, int] = dataclasses.field(default_factory=dict)
     last_seen: float = 0.0
 
+    @property
+    def admitted(self) -> bool:
+        """True once the group was placed (its members hold grants)."""
+        return bool(self.placements)
+
     def assign_ranks(self, uids) -> None:
         """Rank the members of ``uids`` that have none.  Rank 0 must be
         the pod the user's ``pod-group-coordinator`` address names, so a

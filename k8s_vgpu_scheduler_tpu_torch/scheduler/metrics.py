@@ -60,9 +60,6 @@ A5_FAMILIES = {
     "vtpu_solve_workers": "multicore solve workers",
     "vtpu_solve_worker_restarts": "multicore solve workers",
     "vtpu_solve_worker_eval_seconds": "multicore solve workers",
-    "vtpu_resizes": "elastic meshes",
-    "vtpu_elastic_pods": "elastic meshes",
-    "vtpu_resize_thrash": "elastic meshes",
     "vtpu_shard_epoch": "sharded control plane",
     "vtpu_shards_owned": "sharded control plane",
     "vtpu_shards_orphaned": "sharded control plane",
@@ -392,7 +389,9 @@ class ClusterCollector:
         defrag_aborted.add_metric(
             [], defrag.aborted_total if defrag else 0)
 
-        # Elastic meshes (A.5): the fixed label sets, zero-valued.
+        # Elastic mesh resizing (elastic/): always emitted, zero-valued
+        # with --enable-elastic off or no elastic gang, over the bounded
+        # requester and state vocabularies, never raw requester keys.
         resizes = CounterMetricFamily(
             "vtpu_resizes",
             "Gang mesh resizes begun (checkpoint-restart at a new "
@@ -414,12 +413,18 @@ class ClusterCollector:
             "capacity is oscillating and --resize-hysteresis is "
             "absorbing shrink/grow ping-pong (VtpuResizeThrash)",
         )
+        elastic = getattr(self.scheduler, "elastic", None)
         for direction in ("shrink", "grow"):
             for req in ("reclaim", "defrag", "grow", "admission"):
-                resizes.add_metric([direction, req], 0)
+                resizes.add_metric(
+                    [direction, req],
+                    elastic.resizes_total.get((direction, req), 0)
+                    if elastic else 0)
+        states = elastic.pod_states() if elastic else {}
         for state in ("at-max", "shrunk", "resizing", "pending"):
-            elastic_pods.add_metric([state], 0)
-        resize_thrash.add_metric([], 0)
+            elastic_pods.add_metric([state], states.get(state, 0))
+        resize_thrash.add_metric(
+            [], elastic.thrash_total if elastic else 0)
 
         # Sharded control plane (A.5): empty, as with the layer absent.
         shard_epoch = GaugeMetricFamily(

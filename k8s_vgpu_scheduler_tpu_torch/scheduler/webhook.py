@@ -21,10 +21,14 @@ Reference: pkg/scheduler/webhook.go:170–247.  On pod CREATE:
 A pod is refused with a 422 where its ``vtpu.dev/mesh`` could never place
 (the JAX package's messages: the shape parses, its volume is the pod's
 card count, times the members of its gang, its local mesh fits a fabric
-registered in the fleet), where
-it declares an elastic mesh range (``vtpu.dev/mesh-min``/``-max``, placed
-by the elastic slice, ROADMAP A.5), or where its ``vtpu.dev/qos`` class is
-unknown.  AdmissionReview v1 in, a JSONPatch out.
+registered in the fleet), where its elastic mesh range
+(``vtpu.dev/mesh-min``/``-max``, ``elastic/ranges.py``) is malformed, or
+where its ``vtpu.dev/qos`` class is unknown.  A valid range passes
+through unchanged (the resize controller reads it from the gang's
+members); a mesh without a range is validated as before.  The JAX
+webhook also stamps the pod's first provenance record (its mesh, range
+and queue); the port has no provenance store yet (ROADMAP A.5).
+AdmissionReview v1 in, a JSONPatch out.
 """
 
 from __future__ import annotations
@@ -42,11 +46,10 @@ from ..placement.mesh import validate_mesh
 from .gang import gang_of
 from ..quota.queues import (QUEUE_ANNOTATION, QUEUE_STATE_ANNOTATION,
                             STATE_HELD, queue_for_namespace)
+from ..elastic.ranges import elastic_range_of, validate_mesh_range
 from ..util.types import (
     ENV_TASK_PRIORITY,
     MESH_ANNOTATION,
-    MESH_MAX_ANNOTATION,
-    MESH_MIN_ANNOTATION,
     QOS_ANNOTATION,
     QOS_CLASSES,
 )
@@ -219,15 +222,33 @@ def validate_pod_mesh(pod: dict, cfg: Config,
     return f"{MESH_ANNOTATION}: {why}"
 
 
-def validate_pod_mesh_range(pod: dict) -> Optional[str]:
-    """The refusal of a pod that declares an elastic mesh range, or None:
-    the port places no elastic mesh yet."""
+def validate_pod_mesh_range(pod: dict, cfg: Config,
+                            topologies=None) -> Optional[str]:
+    """Admission-time elastic mesh-range validation (``elastic/ranges.py``):
+    both bounds present and parseable, gang-scoped, min <= max, at least
+    one valid rung folds onto a known fabric, and the declared
+    ``vtpu.dev/mesh`` IS one of the rungs.  A pod without range
+    annotations never reaches the validator.  The user-facing refusal,
+    or None; ``topologies`` as for :func:`validate_pod_mesh`."""
     anns = pod.get("metadata", {}).get("annotations") or {}
-    if not (anns.get(MESH_MIN_ANNOTATION) or anns.get(MESH_MAX_ANNOTATION)):
+    rng = elastic_range_of(anns)
+    if rng is None:
         return None
-    return (f"{MESH_MIN_ANNOTATION}/{MESH_MAX_ANNOTATION}: elastic mesh "
-            "ranges are not placed by this scheduler: they are placed by "
-            "the elastic slice (ROADMAP A.5)")
+    try:
+        requests = container_requests(pod, cfg)
+    except ValueError as e:
+        return (f"elastic mesh range: cannot validate against "
+                f"unparseable resources: {e}")
+    nums = max((r.nums for r in requests), default=0)
+    gang = gang_of(pod)
+    # 0 = no gang membership at all (the non-gang 422); a declared total
+    # of 1 is a legitimate fully-shrunk generation.
+    gang_total = gang[1] if gang is not None else 0
+    topos = list(topologies() if callable(topologies)
+                 else (topologies or ()))
+    return validate_mesh_range(rng[0], rng[1],
+                               anns.get(MESH_ANNOTATION, ""),
+                               nums, gang_total, topos)
 
 
 def validate_pod_qos(pod: dict) -> Optional[str]:
@@ -254,7 +275,8 @@ def handle_admission_review(body: dict, cfg: Config,
     pod = req.get("object")
     if isinstance(pod, dict) and req.get("operation", "CREATE") == "CREATE":
         why = validate_pod_mesh(pod, cfg, topologies) \
-            or validate_pod_mesh_range(pod) or validate_pod_qos(pod)
+            or validate_pod_mesh_range(pod, cfg, topologies) \
+            or validate_pod_qos(pod)
         if why is not None:
             log.warning("webhook: refusing pod %s: %s",
                         pod.get("metadata", {}).get("name", "?"), why)

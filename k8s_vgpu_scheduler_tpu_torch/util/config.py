@@ -115,6 +115,24 @@ class Config:
     defrag_reservation_ttl_s: float = 300.0
     defrag_min_victim_priority: int = 1
     defrag_max_victims: int = 8
+    # Elastic mesh resizing (elastic/).  Gangs that declare a
+    # vtpu.dev/mesh-min/-max range may be stepped between the range's
+    # rungs: quota reclaim and defrag SHRINK them instead of evicting, the
+    # resize controller GROWS them back when capacity frees, and blocked
+    # pending gangs are downgraded until they fit.  Off by default —
+    # resizing imposes checkpoint-restart cycles, so the operator opts in
+    # (--enable-elastic); with it off every existing path is
+    # byte-identical.  Then: the loop's period; the quiet window after a
+    # resize before the same gang may grow (a grow attempt inside it right
+    # after a shrink is thrash: suppressed and counted); how long resized
+    # members get to checkpoint and exit before the resize aborts and
+    # vtpu.dev/mesh-assigned rolls back; and how long a pending elastic
+    # gang must stay Filter-rejected before it is stepped down a rung.
+    enable_elastic: bool = False
+    elastic_interval_s: float = 10.0
+    resize_hysteresis_s: float = 300.0
+    resize_checkpoint_grace_s: float = 120.0
+    elastic_downgrade_after_s: float = 30.0
     # The extender's /debug endpoints (stacks, profile, vars, tracez,
     # events); unauthenticated, so off unless asked for.
     enable_debug: bool = False

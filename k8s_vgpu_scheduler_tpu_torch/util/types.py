@@ -49,12 +49,13 @@ GANG_TOTAL_ANNOTATION = "vtpu.dev/pod-group-total"
 GANG_RANK_ANNOTATION = "vtpu.dev/pod-group-rank"
 GANG_COORDINATOR_ANNOTATION = "vtpu.dev/pod-group-coordinator"
 
-# A pod's declared device mesh (placement/mesh.py), and the bounds of an
-# elastic mesh range (the JAX package's elastic/ranges.py keys; the port
-# places no elastic mesh yet).
+# A pod's declared device mesh (placement/mesh.py), the bounds of an
+# elastic mesh range, and the rung the resize controller assigns
+# (elastic/ranges.py).
 MESH_ANNOTATION = "vtpu.dev/mesh"
 MESH_MIN_ANNOTATION = "vtpu.dev/mesh-min"
 MESH_MAX_ANNOTATION = "vtpu.dev/mesh-max"
+MESH_ASSIGNED_ANNOTATION = "vtpu.dev/mesh-assigned"
 
 # Node annotation used as a cluster-wide mutex for the bind/allocate two-phase
 # commit (reference: 4pd.io/mutex.lock, types.go:57; nodelock.go:144–230).

@@ -603,8 +603,9 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
     assert [[t["expr"] for t in p["targets"]]
             for p in ours["panels"]] == want
     # 34 since the placement families (reserved cards, defrag counters)
-    # left A5_FAMILIES: the max-free-box and compaction panels came back.
-    assert len(want) == 34 and ours["uid"] == "vgpu-overview"
+    # left A5_FAMILIES: the max-free-box and compaction panels came back;
+    # 36 since the elastic families left: the resize and state panels.
+    assert len(want) == 36 and ours["uid"] == "vgpu-overview"
     for p in ours["panels"]:
         assert "TPU" not in p["title"] + p.get("description", "")
     alerts = yaml.safe_load((CHART / "dashboards" / "vgpu-alerts.yaml")
@@ -619,7 +620,9 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
     assert [r["expr"] for r in ours_rules] == [
         r["expr"].replace('job="vtpu-monitor"', 'job="vgpu-monitor"')
         for r in want_rules]
-    assert len(ours_rules) == 17     # VtpuDefragAbortStorm came back
+    # VtpuDefragAbortStorm came back with placement, VtpuResizeThrash
+    # with elastic meshes.
+    assert len(ours_rules) == 18
     for r in ours_rules:
         assert r["annotations"]["summary"]
         assert "TPU" not in r["annotations"]["summary"]

@@ -15,6 +15,10 @@ the JAX package's, on the CPU.
   held to JAX ``run_preemptible`` (its orbax manager) on the same weights
   and tokens, preempted and resumed the same way, at test_torch_train.py's
   LOSS_TOL (losses, relative) and GRAD_TOL (params).
+- The save's file and staging: the file maps through ``torch.load(mmap=
+  True, weights_only=True)`` and resumes bit for bit; staging leaves host
+  tensors as they are; a save that fails at its flush leaves no partial
+  step; the CRC setting is the process's again after each save.
 """
 
 import dataclasses
@@ -367,3 +371,90 @@ def test_resumed_trajectory_matches_jax_run_preemptible(params, tmp_path):
     for got, w in zip(res.params, want.parameters()):
         np.testing.assert_allclose(got.numpy(), w.detach().numpy(),
                                    rtol=GRAD_TOL, atol=GRAD_TOL)
+
+
+# -- the save's staging and its file ------------------------------------------
+
+def test_a_saved_file_maps_and_resumes_bitwise(params, uninterrupted,
+                                               tmp_path):
+    """The file a save writes (records without their CRC-32 where this
+    torch can leave it out) loads through ``torch.load(mmap=True,
+    weights_only=True)``, the read the restore used before its whole-file
+    read and the one ``chip_smoke.py``'s ``same_checkpoints`` makes; the
+    state it maps, copied into a fresh one by the restore's own copy,
+    finishes the run bit for bit as the uninterrupted one.  The CRC
+    setting is the process's again after the save."""
+    import zipfile
+
+    ser = torch.serialization
+    crc = ser.get_crc32_options() if hasattr(ser, "get_crc32_options") \
+        else None
+    state, done, preempted, first = port_run(params, tmp_path / "run",
+                                             preempt_at(3))
+    assert (done, preempted) == (3, True)
+    mgr = tckpt.CheckpointManager(str(tmp_path / "run"))
+    path = mgr.path(3)
+    if crc is not None:
+        assert ser.get_crc32_options() == crc
+        data = [i for i in zipfile.ZipFile(path).infolist()
+                if "/data/" in i.filename]
+        assert data and all(i.CRC == 0 for i in data)
+    mapped = torch.load(path, map_location="cpu", mmap=True,
+                        weights_only=True)
+    assert mapped["step"] == 3
+    _, step, target = fresh(params)
+    tckpt._restore_into(target, mapped)
+    assert_states_equal(state, target)
+    rest = []
+    mgr2 = tckpt.CheckpointManager(str(tmp_path / "rest"))
+    target, done, preempted = ttrain.run_preemptible(
+        recording(step, rest), target, torch.from_numpy(batch()), N_STEPS,
+        mgr2, lambda: False)
+    ref_state, _, _, ref_losses = uninterrupted
+    assert (done, preempted) == (N_STEPS, False)
+    assert first + rest == ref_losses
+    assert_states_equal(target, ref_state)
+
+
+def test_staging_leaves_host_tensors_and_the_tree_as_they_are(params):
+    """On the host the staging is the tree itself: the same tensors (a
+    state on the CPU is saved from where it lies), in dicts, lists and
+    tuples of their own types; card tensors are the only ones copied."""
+    _, _, state = fresh(params)
+    tree = tckpt._tree(state)
+    staged = tckpt._staged(tree)
+    assert staged["step"] == tree["step"]
+    assert all(a is b for a, b in zip(staged["params"], tree["params"]))
+    assert all(a is b for a, b in zip(staged["opt_state"]["mu"],
+                                      tree["opt_state"]["mu"]))
+    nested = {"a": (torch.ones(2), [torch.zeros(1)]), "n": 3}
+    out = tckpt._staged(nested)
+    assert type(out["a"]) is tuple and type(out["a"][1]) is list
+    assert out["a"][0] is nested["a"][0] and out["n"] == 3
+
+
+def test_a_save_that_fails_at_its_flush_leaves_no_partial_step(
+        params, tmp_path, monkeypatch):
+    """Tmp plus rename around the unbuffered write: a save whose bytes
+    reached the disk but whose flush failed leaves neither its step nor
+    its temporary directory, the previous step stays the latest, and the
+    CRC setting is the process's again."""
+    ser = torch.serialization
+    crc = ser.get_crc32_options() if hasattr(ser, "get_crc32_options") \
+        else None
+    _, _, state = fresh(params)
+    mgr = tckpt.CheckpointManager(str(tmp_path))
+    mgr.save(1, state)
+
+    def failing_fsync(fd):
+        assert os.fstat(fd).st_size > 0   # the bytes were written
+        raise OSError("flush failed")
+
+    monkeypatch.setattr(tckpt.os, "fsync", failing_fsync)
+    with pytest.raises(OSError, match="flush failed"):
+        mgr.save(2, state)
+    monkeypatch.undo()
+    assert mgr.latest_step() == 1
+    assert sorted(os.listdir(tmp_path)) == ["1"]
+    if crc is not None:
+        assert ser.get_crc32_options() == crc

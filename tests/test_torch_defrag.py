@@ -35,10 +35,9 @@ decide the migration alike, and the victim, the port's
 ``run_preemptible`` in f32 on the CPU, checkpoints when the compaction
 asks and resumes bit for bit against an uninterrupted run.
 
-Where the port departs (no resize controller: the shrink set is empty;
-no perf timer around ``tick``; no revision key in ``SnapEntry``) both
-answers are the JAX answer with elastic off; ``test_the_ports_departures``
-states them.
+Where the port departs (no perf timer around ``tick``; no revision key
+in ``SnapEntry``) ``test_the_ports_departures`` states both answers; the
+elastic shrink set is empty on both with elastic off.
 """
 
 import copy
@@ -912,16 +911,18 @@ def test_the_migrated_victim_resumes_bit_for_bit(params, tmp_path):
 
 
 def test_the_ports_departures():
-    """Where the port's defragmenter departs, both answers: the shrink set
-    (JAX: its resize controller's, empty with elastic off; the port: no
-    controller, empty), the tick (JAX: inside its ``defrag-tick`` perf
-    timer; the port: untimed, the same actions) and the snapshot's key
-    (JAX: the (pod rev, inventory rev) generation; the port: (0, 0))."""
+    """Where the port's defragmenter departs, both answers: the tick
+    (JAX: inside its ``defrag-tick`` perf timer; the port: untimed, the
+    same actions) and the snapshot's key (JAX: the (pod rev, inventory
+    rev) generation; the port: (0, 0)).  The shrink set, a departure
+    until the port's resize controller came, is now each controller's
+    own: empty on both with elastic off (``tests/test_torch_elastic.py``
+    holds it with elastic on)."""
     sides = {port: Side(port) for port in (True, False)}
     try:
         j, t = sides[False].s, sides[True].s
         assert j.elastic.shrinkable_uids() == {}
-        assert not hasattr(t, "elastic") and t.defrag._shrinkable() == {}
+        assert t.elastic.shrinkable_uids() == {}
         assert j.defrag.tick() == t.defrag.tick() == []
         jsnap, tsnap = j.snapshot(), t.snapshot()
         assert list(tsnap) == list(jsnap) == ["node-0"]

@@ -431,8 +431,6 @@ A5_ITEMS = {
     "multicore solve workers": ["vtpu_solve_workers",
                                 "vtpu_solve_worker_restarts",
                                 "vtpu_solve_worker_eval_seconds"],
-    "elastic meshes": ["vtpu_resizes", "vtpu_elastic_pods",
-                       "vtpu_resize_thrash"],
     "sharded control plane": ["vtpu_shard_epoch", "vtpu_shards_owned",
                               "vtpu_shards_orphaned",
                               "vtpu_shard_rebalances",

@@ -123,7 +123,8 @@ def test_new_modules_are_under_the_import_rules():
                 "cmd/vgpu_report.py", "cmd/simulate.py",
                 "scheduler/gang.py", "parallel/multihost.py",
                 "placement/frag.py", "placement/reserve.py",
-                "placement/defrag.py"):
+                "placement/defrag.py", "elastic/__init__.py",
+                "elastic/ranges.py", "elastic/controller.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -690,6 +691,68 @@ def test_placement_imports_nothing_but_its_mesh_module():
         "r = p.SliceReservations(ttl_s=5.0)\n"
         "r.reserve('n', {'a', 'b'}, 'k')\n"
         "assert r.total_chips() == 2\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_elastic_resizes_without_grpc_protobuf_or_torch():
+    """The resize controller on the extender's core with grpc, protobuf,
+    torch and numpy blocked: an elastic gang placed, shrunk through the
+    preemption ledger, its resize completed; the quota and defrag hooks
+    and the simulator's elastic section imported.  The elastic package
+    imports nothing of the scheduler at import (the controller reads the
+    scheduler it is given)."""
+    code = (
+        "import sys\n"
+        "for name in ('grpc', 'google.protobuf', 'torch', 'numpy'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "import k8s_vgpu_scheduler_tpu_torch.elastic as el\n"
+        "assert 'k8s_vgpu_scheduler_tpu_torch.scheduler.core' not in "
+        "sys.modules\n"
+        "from k8s_vgpu_scheduler_tpu_torch.cmd import simulate\n"
+        "from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube\n"
+        "from k8s_vgpu_scheduler_tpu_torch.quota import plan_shrinks\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler.nodes import (\n"
+        "    DeviceInfo, NodeInfo)\n"
+        "from k8s_vgpu_scheduler_tpu_torch.tpulib.types import "
+        "TopologyDesc\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util.config import Config\n"
+        "kube = FakeKube()\n"
+        "s = Scheduler(kube, Config(enable_elastic=True))\n"
+        "kube.add_node({'metadata': {'name': 'n', 'annotations': {}}})\n"
+        "s.nodes.add_node('n', NodeInfo(name='n', devices=[DeviceInfo(\n"
+        "    id=f'c{i}', count=1, devmem=81079, type='NVIDIA-H100',\n"
+        "    health=True, coords=(i,)) for i in range(4)],\n"
+        "    topology=TopologyDesc(generation='h100', mesh=(4,))))\n"
+        "kube.watch_pods(s.on_pod_event)\n"
+        "pods = [{'metadata': {'name': f'e-{i}', 'namespace': 'default',\n"
+        "         'uid': f'u{i}', 'annotations': {\n"
+        "             'vtpu.dev/pod-group': 'e',\n"
+        "             'vtpu.dev/pod-group-total': '2',\n"
+        "             'vtpu.dev/mesh': '4', 'vtpu.dev/mesh-min': '2',\n"
+        "             'vtpu.dev/mesh-max': '4'}},\n"
+        "         'spec': {'containers': [{'name': 'c', 'resources': {\n"
+        "             'limits': {'nvidia.com/gpu': '2',\n"
+        "                        'nvidia.com/gpumem': '1000'}}}]}}\n"
+        "        for i in range(2)]\n"
+        "for p in pods:\n"
+        "    kube.create_pod(p)\n"
+        "s.filter(pods[0], ['n'])\n"
+        "assert s.filter(pods[1], ['n']).node\n"
+        "assert s.filter(pods[0], ['n']).node\n"
+        "act = s.elastic.begin_shrink('default/e', 'rescue:reclaim:x')\n"
+        "assert act['to'] == '2', act\n"
+        "for p in pods:\n"
+        "    kube.delete_pod('default', p['metadata']['name'])\n"
+        "assert [a['kind'] for a in s.elastic.tick()] == "
+        "['resize-complete']\n"
+        "s.close()\n"
+        "loaded = {m for m, v in sys.modules.items() if v is not None}\n"
+        "assert not {m for m in loaded if m.split('.')[0] in\n"
+        "            ('grpc', 'torch', 'numpy')\n"
+        "            or m.startswith('google.protobuf')}\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr

@@ -36,7 +36,8 @@ none is in the port, ``vtpu.dev/preempt-requested`` (preemption is off by
 default; ROADMAP A.3b), ``vtpu.dev/queue``/``queue-state`` (capacity
 queues are off without a quota config; A.5), the shard owner (the shard
 layer is off without a replica name; A.5) and ``vtpu.dev/mesh-assigned``
-(elastic meshes are off by default; A.5).
+(the resize controller's, off by default; ``tests/test_torch_elastic.py``
+compares it).
 """
 
 import copy
@@ -624,8 +625,12 @@ def test_a_mesh_or_gang_pod_is_refused_never_placed(anns):
     """A lone member of a pod group (with or without a mesh) is refused as
     the JAX scheduler refuses it: its group waits for its second member
     and nothing is granted (``tests/test_torch_gang.py`` places whole
-    groups).  An elastic mesh range is refused by name until its slice
-    (ROADMAP A.5); a plain mesh pod is placed
+    groups).  A pod with an elastic mesh range bound but no group (the
+    webhook refuses it; Filter sees it only where the webhook was not
+    in the path) gets the JAX scheduler's answer: the range annotations
+    are read by the resize controller alone, so Filter decides as for
+    the pod without them.  Until the port's resize controller came,
+    Filter refused such a pod by name; a plain mesh pod is placed
     (test_the_port_places_on_a_fabric_as_the_jax_scheduler)."""
     got = {}
     for port in (True, False):
@@ -634,18 +639,17 @@ def test_a_mesh_or_gang_pod_is_refused_never_placed(anns):
                 anns={**anns, t.GANG_TOTAL_ANNOTATION: "2"})
         side.create(p)
         got[port] = (json.loads(json.dumps(side.filter("m"))),
-                     side.s.pods.list_pods())
+                     sorted((g.uid, g.node) for g in side.s.pods.list_pods()))
     rec, granted = got[True]
-    assert rec["node"] is None and rec["failed"] == {}
-    assert t.ASSIGNED_NODE_ANNOTATION not in rec["annotations"]
-    assert granted == []
+    assert rec == as_port(got[False][0])
+    assert granted == got[False][1]
     if t.GANG_GROUP_ANNOTATION in anns:
-        assert rec == as_port(got[False][0])
+        assert rec["node"] is None and rec["failed"] == {}
+        assert t.ASSIGNED_NODE_ANNOTATION not in rec["annotations"]
+        assert granted == []
         assert rec["error"] == "gang job-1 waiting (1/2)"
         return
-    key = rec["error"].split(" ")[0]
-    assert key in anns and key != t.MESH_ANNOTATION, rec["error"]
-    assert "A.5" in rec["error"], rec["error"]
+    assert "A.5" not in rec["error"], rec["error"]
 
 
 @pytest.mark.parametrize("spec", [

@@ -212,13 +212,22 @@ def test_mesh_admission_matches_jax(name, fleet):
      t.MESH_ANNOTATION: "2x4"},
     {"vtpu.dev/mesh-max": "2x4"}], ids=["range", "max_only"])
 def test_an_elastic_mesh_range_is_refused_by_name(anns):
-    reply = twebhook.handle_admission_review(
-        review(pod("e", limits(nums=8, mem=1000), anns=anns)), TCFG,
-        Side(True, fleet=TOPO_FLEET).s.known_topologies)
-    resp = reply["response"]
+    """A malformed elastic range (here on a pod of no gang, and a bound
+    without its pair) is a 422 with the JAX webhook's message, which
+    names the range's annotations (until the port's resize controller
+    came, the port refused every range by name; tests/test_torch_elastic.py
+    holds each of the JAX webhook's range cases)."""
+    p = pod("e", limits(nums=8, mem=1000), anns=anns)
+    topos = {port: Side(port, fleet=TOPO_FLEET).s.known_topologies
+             for port in (False, True)}
+    jr = decoded(jwebhook.handle_admission_review(as_jax(review(p)), JCFG,
+                                                  topos[False]))
+    tr = decoded(twebhook.handle_admission_review(review(p), TCFG,
+                                                  topos[True]))
+    assert tr == json.loads(json.dumps(jr).replace("TPU", "GPU"))
+    resp = tr["response"]
     assert not resp["allowed"] and resp["status"]["code"] == 422
-    assert "vtpu.dev/mesh-min" in resp["status"]["message"]
-    assert "A.5" in resp["status"]["message"]
+    assert "vtpu.dev/mesh-m" in resp["status"]["message"]
 
 
 def test_the_extender_checks_a_mesh_against_its_fleet(servers):
@@ -531,6 +540,9 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
     assert d["losses"]["defrag_R"] == (d["losses"]["defrag_V"]
                                        + d["losses"]["defrag_V2"])
     assert len(d["ticks_ms"]) == 2 and d["launches"] == [0, 0, 0]
+    # The elastic gang (checked in the child; tests/test_torch_elastic.py
+    # holds its chain to the stand-ins' uninterrupted one).
+    assert hgx["elastic_s"] > 0
     assert hgx["slice_gauges"]["after"] == hgx["slice_gauges"]["before"]
     assert hgx["bad_mesh"]["status"]["message"] == \
         chip_smoke.BAD_MESH_MESSAGE

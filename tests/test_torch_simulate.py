@@ -34,13 +34,14 @@ Every other key and value is the JAX simulator's (``chips``,
 is HBM too).
 
 A ``gang`` entry is placed by both gang managers, a ``queueing`` section
-replayed by both capacity queues and a ``fragmentation`` section by both
-defragmenters, with equal answers.
+replayed by both capacity queues, a ``fragmentation`` section by both
+defragmenters and an ``elastic`` section by both resize controllers, with
+equal answers.
 
-The stated departure, pinned below with both answers: a workload with an
-``elastic``, ``capacity``, ``audit``, ``slo`` or ``ha`` section, which the
-JAX simulator replays, is refused by name (ROADMAP A.5) and
-``vgpu-simulate`` exits 2.
+The stated departure, pinned below with both answers: a workload with a
+``capacity``, ``audit``, ``slo`` or ``ha`` section, which the JAX
+simulator replays, is refused by name (ROADMAP A.5) and ``vgpu-simulate``
+exits 2.
 """
 
 import copy
@@ -101,10 +102,14 @@ def jax_workload(workload: dict) -> dict:
         if entry:
             out["fragmentation"][key] = {KEYS.get(k, k): v
                                          for k, v in entry.items()}
-    if out.get("queueing"):
-        out["queueing"]["arrivals"] = [
-            {KEYS.get(k, k): v for k, v in a.items()}
-            for a in out["queueing"].get("arrivals", [])]
+    for section in ("queueing", "elastic"):
+        if out.get(section):
+            out[section]["arrivals"] = [
+                {KEYS.get(k, k): v for k, v in a.items()}
+                for a in out[section].get("arrivals", [])]
+    if (out.get("elastic") or {}).get("gang"):
+        out["elastic"]["gang"] = {KEYS.get(k, k): v
+                                  for k, v in out["elastic"]["gang"].items()}
     for ev in (out.get("chaos") or {}).get("events", []):
         if ev.get("chip"):
             ev["chip"] = ev["chip"].replace("-gpu-", "-chip-")
@@ -658,6 +663,29 @@ def test_a5_sections_are_refused_by_name(serial, monkeypatch, tmp_path,
                           "4", "--hbm", "16384", "--mesh", "4x1",
                           "--generation", "h100"]) == 0
         assert "verdict: PASS" in capsys.readouterr().out
+        return
+    if section == "elastic":
+        # No longer refused: the port replays the JAX example (its keys
+        # under the name map, examples/vgpu-workload-elastic.json) as the
+        # JAX simulator does (tests/test_torch_elastic.py holds the A/B
+        # case by case), and the command exits 0 on its passing verdict.
+        back = {v: k for k, v in KEYS.items()}
+        workload["elastic"]["gang"] = {
+            back.get(k, k): v for k, v in workload["elastic"]["gang"].items()}
+        workload["elastic"]["arrivals"] = [
+            {back.get(k, k): v for k, v in a.items()}
+            for a in workload["elastic"]["arrivals"]]
+        assert workload == json.loads(
+            (EXAMPLES / "vgpu-workload-elastic.json").read_text())
+        port, ref = both(workload, nodes=2, chips=16, hbm=16384,
+                         mesh=(4, 4))
+        assert port == ref and port["elastic"]["verdict"]["ok"]
+        assert tsim.main(["--workload",
+                          str(EXAMPLES / "vgpu-workload-elastic.json"),
+                          "--nodes", "2", "--chips", "16", "--hbm", "16384",
+                          "--mesh", "4x4", "--generation", "h100"]) == 0
+        out = capsys.readouterr().out
+        assert "elastic mesh A/B" in out and "verdict: PASS" in out
         return
     seen = []
 
