@@ -79,7 +79,12 @@ its exporter, ``/usagez``, ``/debug/tracez``, ``vgpu-report`` and
 while the capacity simulator ``vgpu-simulate`` replays the extender's
 ``/fleetz`` (a pod of the card's remaining MiB fits, one of a MiB more
 pends) and a 968-pod job mix on 128 nodes of eight H100s (no card
-overbooked, metering within 5%, the idle pods named);
+overbooked, metering within 5%, the idle pods named), and its capacity
+section replays the three named arrival scenarios and the example (each
+report's sha256 the CPU's, the replica_loss what-if refused); in the
+quota leg the extender's capacity forecast (``/capacityz``, the seven
+``vtpu_capacity_*`` families, vgpu-report's section) is held to the
+capacity queues at each step;
 then the node's lease expires and the
 rescuer rescinds what is left on it; and the serving
 pod's own entry point (phase_quant_serve, ``python -m
@@ -104,7 +109,8 @@ and ``node_view``: each reading's scrape and RPC seconds, bytes,
 families and samples, the switches, vgpu-smi's view and seconds),
 the ``{"phase": "preempt", ...}`` (with ``fleet_view``: both scrapes,
 the ledger's rows, the phase counts, V's trace, each command's seconds,
-``/fleetz`` and the simulator's replays)
+``/fleetz`` and the simulator's replays; ``quota``: the queues' and
+the capacity forecast's steps, ``/capacityz``'s milliseconds)
 and ``{"phase": "quant_serve", ...}`` lines, the ``{"phase": "workloads", ...}`` line and a ``{"workloads":
 [...]}`` line (one row a case: images/s in both legs and their ratio, the
 grant and peaks, MFU, the bf16 error), each phase's seconds, a
@@ -119,6 +125,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import os
@@ -557,6 +564,18 @@ QUOTA_MIB = 24000
 QUOTA_GRACE_S = 2.0
 QUOTA_HEADROOM = 10.0
 QUOTA_POD_S = 120.0
+# The capacity forecast of phase_preempt's control plane: buckets that
+# close within the quota leg (1 s, no season, a 10 s horizon, a pod
+# starving after 5 s unplaced; the sampling thread every 0.4 s, as
+# vgpu-scheduler's --capacity-interval runs it).  queue_view reads
+# /capacityz and the seven families at each of the leg's steps (again,
+# up to CAPACITY_READ_TRIES times, while a bucket closed between the two
+# reads); the leg's end reads the clamp at CAPACITY_CLAMP_HORIZON_S.
+CAPACITY_CFG = dict(capacity_interval_s=0.4, capacity_bucket_s=1.0,
+                    capacity_season_buckets=1, capacity_horizon_s=10.0,
+                    capacity_starve_after_s=5.0)
+CAPACITY_READ_TRIES = 5
+CAPACITY_CLAMP_HORIZON_S = 86400
 # phase_preempt's gang leg (GangLeg, inside quota_leg): the two members of
 # pod group GANG_GROUP in team-g (a queue of its own cohort, nominal 2),
 # each asking for GANG_MIB of the card: one fits beside E's and V''s
@@ -581,6 +600,25 @@ SIM_FLEET = ROOT / "examples" / "vgpu-simulate-fleet.json"
 SIM_SCALE = ("--nodes", "128", "--chips", "8", "--hbm", "81079", "--mesh",
              "8", "--policy", "binpack")
 SIM_TIMEOUT_S = 300.0
+# The simulator's capacity section beside the same pods: the three named
+# arrival scenarios (CAPACITY_SCENARIOS: the JAX package's
+# benchmarks/scenarios.py ARRIVAL_SCENARIOS, by name, in the port's names)
+# and CAPACITY_EXAMPLE on their fleet, each `vgpu-simulate --json` output
+# held to the sha256 tests/test_torch_capacity.py pins on the CPU (the
+# replay has no RNG and no clock), and the example with its replica_loss
+# what-if, which the port refuses (exit 2).
+CAPACITY_SCENARIOS = ROOT / "examples" / "vgpu-capacity-scenarios.json"
+CAPACITY_EXAMPLE = ROOT / "examples" / "vgpu-workload-capacity.json"
+CAPACITY_SHA256 = {
+    "bursty":
+        "84154d7e6f8e19b001c5d6a506b13f5180050bcc4a3807338228d427d2b253d0",
+    "diurnal":
+        "e0d7e13b8091c85cbd219d3605526f21b2c4175bbdc0c2922c92af55a2ba10a1",
+    "flash-crowd":
+        "af75b55addf62ab8bafa0331d7361a48016ed23938859f8d90e4f2fba9a10ca3",
+    "example":
+        "af75b55addf62ab8bafa0331d7361a48016ed23938859f8d90e4f2fba9a10ca3",
+}
 PLANE_CALL_S = 120.0
 RETURN_S = 5.0
 TOL_RETURN_MIB = 64
@@ -3690,9 +3728,15 @@ def flat_leg(tl: Timeline, t, s) -> dict:
     """T alone (F1's window, then 3 traced steps for its device time a
     step); S loads and warms up; once T's switch has fallen, S's two
     bursts (T's second traced window 3 s into the second); T alone again
-    for CORES_TAIL_S; both exit, and the monitor must clear their slots."""
+    for CORES_TAIL_S; both exit, and the monitor must clear their slots.
+
+    T's region exists from its start, so the alone pods' launches turn its
+    switch on; it falls some 4 ticks after their last launch (recent_kernel
+    ages from 3), which T's warm-up may not outlast.  F1's window opens
+    once it has fallen."""
     ft = t.go()
     await_file(t.ctl / "train_ready", [ft], "T ready")
+    await_switch(tl, t.label, 0, time.monotonic(), "T after the alone pods")
     solo = [time.monotonic()]
     time.sleep(CORES_SOLO_S)
     solo.append(time.monotonic())
@@ -3751,7 +3795,8 @@ def coresidency_checks(record, tl: Timeline, legs: dict, rows: dict,
     # F1: a priority-1 pod borrows an idle card.
     f1 = duty_over(ft["steps"], [meta["solo"]], solo_ms)
     first = tl.of(T, *meta["solo"])
-    check(first and not any(x[SWITCH] for x in first),
+    check(first, f"F1: no sample of T's region in {meta['solo']}")
+    check(not any(x[SWITCH] for x in first),
           "F1: T's switch on before S's first launch")
     check(f1["solo"] > MIN_UNCAPPED_DUTY, f"F1: T's duty alone {f1}")
     # F2, F4: the switch follows S's bursts.
@@ -6048,7 +6093,8 @@ def control_plane() -> int:
     also serves the scheduler's exporter (the ready line's ``metrics``)
     and ``/debug`` (``enable_debug``)."""
     sys.path.insert(0, str(ROOT))
-    from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import load_quota_config
+    from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import (
+        capacity_loop, load_quota_config)
     from k8s_vgpu_scheduler_tpu_torch.deviceplugin import (
         DeviceCache, GpuDevicePlugin)
     from k8s_vgpu_scheduler_tpu_torch.deviceplugin.register import \
@@ -6082,7 +6128,7 @@ def control_plane() -> int:
                  quota_queues=load_quota_config(
                      os.environ.get("QUOTA_CONFIG", "")),
                  queue_reclaim_grace_s=QUOTA_GRACE_S,
-                 queue_fleet_headroom=QUOTA_HEADROOM)
+                 queue_fleet_headroom=QUOTA_HEADROOM, **CAPACITY_CFG)
     kube = FakeKube()
     kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
     requested = {}
@@ -6095,6 +6141,7 @@ def control_plane() -> int:
 
     kube.watch_pods(on_event)
     plane = metrics = None
+    sampling = threading.Event()
     try:
         usage_from = os.environ.get("USAGE_FROM")
         plane = ControlPlane(kube, backend, cfg, tmp / "scheduler.sock",
@@ -6106,6 +6153,9 @@ def control_plane() -> int:
                         heartbeat=True)
         cache.start()
         sched = plane.scheduler
+        # vgpu-scheduler's demand sampling into the capacity forecaster.
+        threading.Thread(target=capacity_loop, args=(sched, sampling),
+                         name="capacity-observe", daemon=True).start()
         # The node agent shares this process, so its own `allocate` span
         # lands in the extender's tracer beside the scheduler's (the
         # checks after V' tell them apart).
@@ -6127,6 +6177,7 @@ def control_plane() -> int:
 
         def end(_):
             held = grants()
+            sampling.set()
             cache.stop()
             plane.close()  # the stream ends: the inventory goes, the lease stays
             leases = sched.leases
@@ -6180,6 +6231,7 @@ def control_plane() -> int:
         print(f"chip_smoke: FAIL: control_plane: {exc}", file=sys.stderr)
         return 1
     finally:
+        sampling.set()
         cache.stop()
         if metrics is not None:
             metrics.stop()
@@ -7424,6 +7476,104 @@ def simulate_scale_checks(result: dict, workload: dict) -> dict:
                 fleet_efficiency=acct["fleet_efficiency"])
 
 
+class CapacitySims:
+    """The simulator's capacity section, host-only, beside phase_preempt's
+    pods (started with FleetView, joined in its ``read``): ``vgpu-simulate
+    --json`` on each named arrival scenario of CAPACITY_SCENARIOS and on
+    CAPACITY_EXAMPLE, one process after another on the scenarios' fleet,
+    then the example with the JAX example's replica_loss what-if.  Each
+    workload is written to ``workdir``; stderr goes to
+    chiprun_out/vgpu_simulate_capacity.log."""
+
+    def __init__(self, workdir: Path, env: dict) -> None:
+        doc = json.loads(CAPACITY_SCENARIOS.read_text())
+        fleet = doc["fleet"]
+        self.argv = ["--nodes", str(fleet["nodes"]), "--chips",
+                     str(fleet["chips"]), "--hbm", str(fleet["hbm"]),
+                     "--mesh", "x".join(str(d) for d in fleet["mesh"]),
+                     "--json"]
+        example = json.loads(CAPACITY_EXAMPLE.read_text())
+        refused = json.loads(json.dumps(example))
+        refused["capacity"]["replica_loss"] = {"replicas": 3,
+                                               "kill_after": 8}
+        self.cases = {**{name: {"capacity": spec}
+                         for name, spec in doc["scenarios"].items()},
+                      "example": example, "replica_loss": refused}
+        self.workdir, self.env = workdir, env
+        self.runs, self.error, self.proc = {}, None, None
+        self.stopped = threading.Event()
+        out = ROOT / "chiprun_out"
+        out.mkdir(exist_ok=True)
+        self.log = open(out / "vgpu_simulate_capacity.log", "w")
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        try:
+            for name, workload in self.cases.items():
+                if self.stopped.is_set():
+                    return
+                path = self.workdir / f"capacity_{name}.json"
+                path.write_text(json.dumps(workload))
+                t0 = time.monotonic()
+                self.proc = subprocess.Popen(
+                    [sys.executable, "-m",
+                     "k8s_vgpu_scheduler_tpu_torch.cmd.simulate",
+                     "--workload", str(path), *self.argv], env=self.env,
+                    cwd=ROOT, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True)
+                out, err = self.proc.communicate(timeout=SIM_TIMEOUT_S)
+                self.log.write(f"== {name}: exit {self.proc.returncode}\n"
+                               f"{err}")
+                self.runs[name] = dict(rc=self.proc.returncode, stdout=out,
+                                       stderr=err,
+                                       s=time.monotonic() - t0)
+        except BaseException as exc:  # noqa: BLE001 — result() reports it
+            self.error = exc
+
+    def result(self) -> dict:
+        """Every run's checks: exit 0, a passing verdict and the pinned
+        sha256 of its JSON; the replica_loss spec exit 2, naming the
+        missing subsystem.  Each run's seconds."""
+        self.thread.join(SIM_TIMEOUT_S * len(self.cases))
+        check(not self.thread.is_alive(), "the capacity simulations ran past "
+              f"{SIM_TIMEOUT_S * len(self.cases)} s")
+        self.log.close()
+        check(self.error is None, f"the capacity simulations: {self.error!r}")
+        out = {}
+        for name, want in CAPACITY_SHA256.items():
+            run = self.runs.get(name)
+            check(run is not None and run["rc"] == 0,
+                  f"vgpu-simulate {name} exited "
+                  f"{run and run['rc']} (chiprun_out/"
+                  "vgpu_simulate_capacity.log)")
+            digest = hashlib.sha256(run["stdout"].encode()).hexdigest()
+            cp = json.loads(run["stdout"])["capacity"]
+            check(cp["verdict"]["ok"] and digest == want,
+                  f"vgpu-simulate {name}: verdict {cp['verdict']}, sha256 "
+                  f"{digest}, pinned {want}")
+            out[name] = dict(s=run["s"], sha256=digest,
+                             verdict_ok=cp["verdict"]["ok"],
+                             forecast_error_ratio=cp["forecast_error_ratio"])
+        run = self.runs.get("replica_loss")
+        check(run is not None and run["rc"] == 2 and "replica_loss"
+              in run["stderr"] and "shard/" in run["stderr"],
+              f"vgpu-simulate with replica_loss: "
+              f"{run and (run['rc'], run['stderr'][-500:])}")
+        out["replica_loss"] = dict(s=run["s"], rc=run["rc"])
+        return out
+
+    def stop(self) -> None:
+        self.stopped.set()
+        proc = self.proc
+        if proc is not None and proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        self.thread.join(30)
+        if not self.log.closed:
+            self.log.close()
+
+
 class FleetView:
     """Leg (b) of the observability surface: ``vgpu-monitor`` itself, as a
     process through its module, over phase_preempt's containers dir (the
@@ -7432,12 +7582,13 @@ class FleetView:
     (``grpc``: the endpoint the control plane's ``--usage-from`` reads).
     Its log goes to chiprun_out/vgpu_monitor.log.  The capacity
     simulator's scale leg (``vgpu-simulate`` on SIM_FLEET at SIM_SCALE)
-    starts with it, so that its CPU time runs beside the phase's pods;
-    ``read`` joins it (stderr in chiprun_out/vgpu_simulate.log)."""
+    and its capacity runs (CapacitySims) start with it, so that their CPU
+    time runs beside the phase's pods; ``read`` joins them (stderr in
+    chiprun_out/vgpu_simulate.log and vgpu_simulate_capacity.log)."""
 
     def __init__(self, root: Path, vgpu: Path, env: dict) -> None:
         self.root = root
-        self.sim, self.sim_files = None, []
+        self.sim, self.sim_files, self.capacity = None, [], None
         ports = [free_port() for _ in range(3)]
         self.url = f"http://127.0.0.1:{ports[0]}/metrics"
         self.grpc = f"127.0.0.1:{ports[1]}"
@@ -7478,6 +7629,7 @@ class FleetView:
             self.sim_waiter = threading.Thread(target=self._sim_wait,
                                                daemon=True)
             self.sim_waiter.start()
+            self.capacity = CapacitySims(root.parent, env)
         except BaseException:
             self.stop()
             raise
@@ -7506,6 +7658,8 @@ class FleetView:
                     exit_code=self.sim.returncode)
 
     def stop(self) -> None:
+        if self.capacity is not None:
+            self.capacity.stop()
         for proc in (self.proc, self.sim):
             if proc is None or proc.poll() is not None:
                 continue
@@ -7669,6 +7823,9 @@ class FleetView:
             (fit, fit_s), (over, over_s) = (sims["fit"].result(),
                                             sims["over"].result())
             scaled = scale.result()
+        t0 = time.monotonic()
+        capacity = self.capacity.result()
+        capacity_waited_s = time.monotonic() - t0
         simulated = simulate_live_checks(fit, over, plane.ready,
                                          fleetz["granted_mib"], len(held))
         stable = ("uid", "pod", "namespace", "node", "chip_seconds",
@@ -7699,16 +7856,84 @@ class FleetView:
             vgpu_report_s=report_s, vgpu_smi_top_s=top_s, top_v2=trow,
             fleetz=dict(fleetz, s=fleetz_s),
             simulate_live=dict(simulated, fit_s=fit_s, over_s=over_s),
-            simulate_scale=scaled)
+            simulate_scale=scaled,
+            simulate_capacity=dict(capacity, read_waited_s=capacity_waited_s))
         log("fleet view: " + json.dumps(out))
         return out
+
+
+def capacity_read(plane, query: str = "") -> tuple:
+    """``GET /capacityz`` and then the extender's /metrics, read again
+    while a forecaster bucket closed between the two (each samples the
+    demand, and a closed bucket moves the forecasts): the child's clock
+    at the scrape is at most the document's ``generated_at`` plus the
+    seconds both reads took.  (the document, its milliseconds, the
+    scrape's metrics, the tries)."""
+    for tries in range(1, CAPACITY_READ_TRIES + 1):
+        t0 = time.monotonic()
+        status, doc = http(f"{plane.base}/capacityz{query}", timeout=30)
+        ms = 1e3 * (time.monotonic() - t0)
+        check(status == 200, f"/capacityz{query} answered {status} {doc}")
+        metrics = scrape(plane.metrics)[0]
+        spent = time.monotonic() - t0
+        at, bucket = doc["generated_at"], doc["bucket_s"]
+        # generated_at is rounded to the millisecond.
+        if math.floor((at - 1e-3) / bucket) == \
+                math.floor((at + spent + 1e-3) / bucket):
+            return doc, ms, metrics, tries
+    check(False, f"a forecast bucket closed between /capacityz and /metrics "
+          f"in each of {CAPACITY_READ_TRIES} tries")
+
+
+def capacity_checks(doc: dict, metrics: dict, queuez: dict,
+                    nodes: int) -> dict:
+    """One step's /capacityz held to the same step's /queuez and to the
+    seven families of the scrape read with it: each governed queue's
+    demand is its held plus pending cards, the fleet its registered
+    nodes, a starvation ETA 0 exactly where the demand exceeds what the
+    queue can admit, and each family the document's field
+    (``CAPACITY_FIELD_METRICS``; +Inf for a clear horizon, no sample for
+    an unscored drift)."""
+    from k8s_vgpu_scheduler_tpu_torch.accounting.planner import (
+        CAPACITY_FIELD_METRICS, CAPACITY_ROOT_FIELDS)
+
+    rows = {r["queue"]: r for r in doc["queues"]}
+    want = {q["queue"]: q["held_chips"] + sum(p["chips"]
+                                              for p in q["pending_pods"])
+            for q in queuez["queues"]}
+    check({k: r["demand_chips"] for k, r in rows.items()} == want,
+          f"/capacityz's demand {rows}, /queuez's held + pending {want}")
+    check(doc["nodes_current"] == nodes == doc["fleet"]["nodes"],
+          f"/capacityz's nodes {doc['nodes_current']}, registered {nodes}")
+    for name, r in rows.items():
+        check((r["starvation_eta_s"] == 0)
+              == (r["demand_chips"] > r["admissible_chips"]),
+              f"{name}: starvation ETA {r['starvation_eta_s']} with demand "
+              f"{r['demand_chips']} of {r['admissible_chips']} admissible")
+    for field, family in CAPACITY_FIELD_METRICS.items():
+        if field in CAPACITY_ROOT_FIELDS:
+            pairs = [(metric(metrics, family), doc[field])]
+        else:
+            pairs = [(metric(metrics, family, queue=name),
+                      math.inf if field == "starvation_eta_s"
+                      and r[field] is None else r[field])
+                     for name, r in rows.items()]
+        for got, value in pairs:
+            check(got == value, f"{family} {got}, /capacityz's {field} "
+                  f"{value}")
+    return dict(demand={k: r["demand_chips"] for k, r in rows.items()},
+                eta_s={k: r["starvation_eta_s"] for k, r in rows.items()},
+                nodes_recommended=doc["nodes_recommended"])
 
 
 def queue_view(plane) -> dict:
     """The capacity queues as the extender's /queuez, its /metrics queue
     families and vgpu-report (in this process, --json) show them, held to
-    one another; the /queuez document, its rows by queue name, and the
-    report's governed namespace rows."""
+    one another, and the capacity forecast as /capacityz, the seven
+    vtpu_capacity_* families and the report's capacity section show it,
+    held to the queues (capacity_checks); the /queuez document, its rows
+    by queue name, the report's governed namespace rows, the /capacityz
+    document and its milliseconds."""
     import contextlib
     import io
 
@@ -7717,11 +7942,14 @@ def queue_view(plane) -> dict:
     status, doc = http(f"{plane.base}/queuez", timeout=30)
     check(status == 200 and doc["enabled"], f"/queuez answered {status} "
           f"{doc}")
-    metrics = scrape(plane.metrics)[0]
+    cap, cap_ms, metrics, tries = capacity_read(plane)
+    status, fleet = http(f"{plane.base}/fleetz", timeout=30)
+    check(status == 200, f"/fleetz answered {status}")
+    capacity = capacity_checks(cap, metrics, doc, len(fleet["nodes"]))
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
         code = vgpu_report.main(["--cluster", plane.base, "--json",
-                                 "--no-capacity", "--no-audit", "--no-slo"])
+                                 "--no-audit", "--no-slo"])
     check(code == 0, f"vgpu-report exited {code}")
     report = json.loads(out.getvalue())
     rows = {r["queue"]: r for r in doc["queues"]}
@@ -7738,6 +7966,11 @@ def queue_view(plane) -> dict:
           f"/queuez {doc['reclaims_total']}")
     check(report["queues"] == doc["queues"],
           f"vgpu-report's queues {report['queues']}, /queuez {doc}")
+    shown = {r["queue"]: r["demand_chips"]
+             for r in (report.get("capacity") or {}).get("queues", [])}
+    check(shown == capacity["demand"],
+          f"vgpu-report's capacity rows {shown}, /capacityz's "
+          f"{capacity['demand']}")
     columns = {r["namespace"]: r for r in report["namespaces"]
                if "queue" in r}
     for ns, r in columns.items():
@@ -7748,7 +7981,79 @@ def queue_view(plane) -> dict:
               f"vgpu-report's row {r}, /queuez {q}")
     check(not any("default" in q["namespaces"] for q in doc["queues"]),
           f"a queue governs the default namespace: {doc}")
-    return dict(queuez=doc, rows=rows, report_rows=columns)
+    return dict(queuez=doc, rows=rows, report_rows=columns, capacityz=cap,
+                capacity=dict(capacity, ms=cap_ms, tries=tries))
+
+
+def capacity_leg_checks(plane, last: dict) -> dict:
+    """Once in the quota leg, after its steps: ``?horizon=`` past the
+    bucket cap is clamped to MAX_HORIZON_BUCKETS, a non-finite or
+    non-positive one answers 400, the milliseconds of /capacityz at the
+    default horizon and at the clamp; and the last step's document
+    (``last``, with its series) goes through ``scenario_from_capacityz``
+    into the simulator, whose replay overbooks no card."""
+    from k8s_vgpu_scheduler_tpu_torch.accounting.planner import (
+        MAX_HORIZON_BUCKETS, scenario_from_capacityz)
+    from k8s_vgpu_scheduler_tpu_torch.cmd.simulate import run_simulation
+
+    t0 = time.monotonic()
+    status, base = http(f"{plane.base}/capacityz", timeout=30)
+    default_ms = 1e3 * (time.monotonic() - t0)
+    check(status == 200 and base["horizon_s"]
+          == CAPACITY_CFG["capacity_horizon_s"],
+          f"/capacityz answered {status}, horizon {base.get('horizon_s')}")
+    t0 = time.monotonic()
+    status, clamped = http(f"{plane.base}/capacityz?horizon="
+                           f"{CAPACITY_CLAMP_HORIZON_S}", timeout=30)
+    clamp_ms = 1e3 * (time.monotonic() - t0)
+    check(status == 200 and clamped["horizon_s"]
+          == MAX_HORIZON_BUCKETS * clamped["bucket_s"]
+          and all(len(r["forecast"]) == MAX_HORIZON_BUCKETS
+                  for r in clamped["queues"]),
+          f"?horizon={CAPACITY_CLAMP_HORIZON_S} answered {status}, horizon "
+          f"{clamped.get('horizon_s')}")
+    refused = {}
+    for bad in ("nan", "0"):
+        status, body = http(f"{plane.base}/capacityz?horizon={bad}",
+                            timeout=30)
+        refused[bad] = status
+        check(status == 400 and json.loads(body)["error"].startswith(
+            "bad horizon"), f"?horizon={bad} answered {status} {body}")
+    source = "the last step"
+    if not any(r["series"] for r in last["queues"]):
+        # A leg shorter than a bucket (the CPU rehearsal's) has closed
+        # none yet: the sampling thread closes one within two.
+        time.sleep(2 * last["bucket_s"])
+        status, last = http(f"{plane.base}/capacityz", timeout=30)
+        check(status == 200, f"/capacityz answered {status} {last}")
+        source = "two buckets after the last step"
+    fleet = last["fleet"]
+    spec = scenario_from_capacityz(last)
+    t0 = time.monotonic()
+    sim = run_simulation(spec, nodes=fleet["nodes"],
+                         chips=fleet["chips_per_node"],
+                         hbm=plane.ready["hbm_mib"],
+                         mesh=(fleet["chips_per_node"],))
+    sim_s = time.monotonic() - t0
+    cp = sim["capacity"]
+    check(bool(spec["capacity"]["streams"])
+          and cp["verdict"]["no_overbooking"],
+          f"the captured replay: streams "
+          f"{[s['name'] for s in spec['capacity']['streams']]}, verdict "
+          f"{cp['verdict']}")
+    return dict(default_ms=default_ms, clamp_ms=clamp_ms,
+                clamp_horizon_s=clamped["horizon_s"], refused=refused,
+                bytes=len(json.dumps(base)),
+                clamp_bytes=len(json.dumps(clamped)),
+                replay=dict(s=sim_s, source=source,
+                            streams=len(spec["capacity"]["streams"]),
+                            history_buckets=spec["capacity"][
+                                "history_buckets"],
+                            horizon_buckets=spec["capacity"][
+                                "horizon_buckets"],
+                            arrived=cp["actual"]["arrived"],
+                            placed=cp["actual"]["placed"],
+                            verdict=cp["verdict"]))
 
 
 def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list,
@@ -7870,6 +8175,11 @@ def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list,
     plane.call("delete", name=QUOTA_PODS["E"][0], namespace="team-b")
     if gang is not None:
         gang.place_and_run()
+    last = (gang.views["deleted"] if gang is not None
+            else views["e_placed"])["capacityz"]
+    capacity = capacity_leg_checks(plane, last)
+    steps = dict(views, **{f"gang_{k}": v for k, v in (
+        gang.views if gang is not None else {}).items()})
 
     b_uid, e_uid = QUOTA_PODS["B"][1], QUOTA_PODS["E"][1]
     [recl] = out["reclaim"] or [None]
@@ -7914,6 +8224,9 @@ def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list,
                                                      "bind")}
                     for k in hs},
         "queuez": {k: v["queuez"] for k, v in views.items()},
+        "capacity_settings": CAPACITY_CFG,
+        "capacity_steps": {k: v["capacity"] for k, v in steps.items()},
+        "capacity": capacity,
         "seconds": time.monotonic() - t_leg}
 
 

@@ -2,17 +2,27 @@
 ``accounting/``): the monitor's per-container counters (``sampler``), the
 scheduler's per-pod ledger built from the counters the register stream
 carries (``ledger``), the granted-vs-actual join behind ``/usagez`` and
-``--score-by-actual`` (``efficiency``), and the series forecaster the node
-exporter reads (``forecast``).  Standard library only."""
+``--score-by-actual`` (``efficiency``), the demand forecasters the node
+exporter and the capacity planner read (``forecast``), and capacity
+planning on the forecasts (``planner``: the ``/capacityz`` assessment, the
+named arrival patterns the simulator's what-if replays use, and live-trace
+capture into replayable scenarios).  Standard library only."""
 
 from .efficiency import EfficiencyConfig, FleetEfficiency, PodEfficiency
-from .forecast import ForecastConfig, ForecastPoint, SeriesForecaster
+from .forecast import (
+    DemandForecaster,
+    ForecastConfig,
+    ForecastPoint,
+    SeriesForecaster,
+)
 from .ledger import PodAccount, UsageLedger
+from .planner import CapacityTracker
 from .sampler import USAGE_FIELDS, UsageSampler
 
 __all__ = [
+    "CapacityTracker",
+    "DemandForecaster",
     "EfficiencyConfig",
-    "FleetEfficiency",
     "ForecastConfig",
     "ForecastPoint",
     "PodAccount",

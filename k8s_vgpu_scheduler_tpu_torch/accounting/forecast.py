@@ -1,18 +1,21 @@
-"""Demand forecasting over bucketed series (the port's copy of the
-``ForecastConfig``, ``ForecastPoint`` and ``SeriesForecaster`` of the JAX
+"""Demand forecasting over bucketed series (the port's copy of the JAX
 package's ``accounting/forecast.py``).
 
 A windowed EWMA level with additive seasonality (Holt-Winters additive,
 damped trend) over bucketed demand samples, emitting horizon-bucketed
 forecasts with confidence bands and tracking its own one-bucket-ahead
-error.  The node exporter forecasts its busy-GPU count with it
-(``monitor/metrics.py``); the per-queue ``DemandForecaster`` waits for the
-capacity planner (ROADMAP A.5).
+error, so the observability surface can report forecast-vs-actual drift
+(``vtpu_capacity_forecast_error_ratio``) instead of asking operators to
+trust the model blindly.  The node exporter forecasts its busy-GPU count
+with it (``monitor/metrics.py``); the capacity planner (``planner.py``)
+forecasts each queue's demand through :class:`DemandForecaster`.
 
 - **Deterministic.**  Pure float arithmetic over the observations fed in;
-  no wall clock, no RNG.
+  no wall clock, no RNG.  The simulator's capacity section replays its
+  scenarios bit-identically.
 - **Bounded.**  State per series is O(season buckets) floats plus a small
-  ring of recent bucket totals.
+  ring of recent bucket totals, kept so a live window can be snapshotted
+  into a replayable scenario (``planner.scenario_from_capacityz``).
 - **Non-negative.**  Demand is a count of cards; a forecast below zero is
   noise, clamped at emission (never inside the state update, which would
   bias the level upward).
@@ -23,7 +26,7 @@ from __future__ import annotations
 import dataclasses
 import math
 from collections import deque
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +52,8 @@ class ForecastConfig:
     #: Band half-width in residual-scale units (~"sigmas" of the EWMA
     #: absolute one-step error).
     band_k: float = 2.0
-    #: How many recent (bucket_start_s, demand) samples to retain.
+    #: How many recent (bucket_start_s, demand) samples to retain for
+    #: snapshot/replay (planner.scenario_from_capacityz).
     history_len: int = 96
 
 
@@ -203,7 +207,7 @@ class SeriesForecaster:
         """Forecast-vs-actual drift: EWMA |one-bucket-ahead error| over
         EWMA |actual|.  None until one prediction has been scored.
         ~0 = the model tracks the series; > ~0.5 = forecasts are mostly
-        noise."""
+        noise (the VtpuCapacityForecastDrift alert's signal)."""
         if self._err_ewma is None or self._abs_ewma is None:
             return None
         if self._abs_ewma <= 1e-9:
@@ -211,5 +215,31 @@ class SeriesForecaster:
         return self._err_ewma / self._abs_ewma
 
     def history_rows(self) -> List[List[float]]:
-        """Closed-bucket history as ``[bucket_start_s, demand]`` rows."""
+        """Closed-bucket history as ``[bucket_start_s, demand]`` rows —
+        the replayable trace ``planner.scenario_from_capacityz`` captures."""
         return [[round(t, 3), round(v, 4)] for t, v in self.history]
+
+
+class DemandForecaster:
+    """Per-key (tenant / queue) demand forecasting — a keyed family of
+    :class:`SeriesForecaster` sharing one config."""
+
+    def __init__(self, cfg: Optional[ForecastConfig] = None) -> None:
+        self.cfg = cfg or ForecastConfig()
+        self.series: Dict[str, SeriesForecaster] = {}
+
+    def observe(self, key: str, t: float, value: float) -> None:
+        f = self.series.get(key)
+        if f is None:
+            f = self.series[key] = SeriesForecaster(self.cfg)
+        f.observe(t, value)
+
+    def forecast(self, key: str,
+                 horizon_buckets: int) -> List[ForecastPoint]:
+        f = self.series.get(key)
+        if f is None:
+            f = SeriesForecaster(self.cfg)
+        return f.forecast(horizon_buckets)
+
+    def keys(self) -> List[str]:
+        return sorted(self.series)

@@ -20,12 +20,16 @@ extender's ``/debug`` endpoints) and the capacity queues:
 ``--defrag-reservation-ttl`` and ``--defrag-max-victims``; and elastic
 mesh resizing: ``--enable-elastic``, ``--elastic-interval``,
 ``--resize-hysteresis``, ``--resize-checkpoint-grace`` and
-``--elastic-downgrade-after``.
+``--elastic-downgrade-after``; and the capacity forecast:
+``--capacity-interval``, ``--capacity-bucket``,
+``--capacity-season-buckets``, ``--capacity-horizon`` and
+``--capacity-starve-after``.
 Boot order: list the pods and reconcile the grants before anything serves
 (a restarted scheduler that filtered against an empty registry would book
 cards twice), then the watch thread, the rescue thread, the admission
 thread (with a quota config), the defrag thread (with
 ``--enable-defrag``), the resize thread (with ``--enable-elastic``), the
+capacity-observe thread (unless ``--capacity-interval 0``), the
 register service, the exporter and the HTTP extender.  This module is the gRPC edge: the core imports neither grpc nor
 protobuf.
 """
@@ -123,6 +127,27 @@ def parse_args(argv=None):
                    help="seconds a grant must accrue ~no GPU-seconds "
                         "before it is surfaced as an idle grant "
                         "(vtpu_idle_grants; flagged, never evicted)")
+    # Predictive capacity (accounting/forecast.py + planner.py).
+    p.add_argument("--capacity-interval", type=float, default=30.0,
+                   help="demand-sampling period (seconds) for the "
+                        "capacity forecaster behind GET /capacityz and "
+                        "the vtpu_capacity_* gauges; 0 disables the "
+                        "sampling thread (the endpoint still samples "
+                        "on each export)")
+    p.add_argument("--capacity-bucket", type=float, default=60.0,
+                   help="forecast bucket size in seconds (demand is "
+                        "aggregated and predicted per bucket)")
+    p.add_argument("--capacity-season-buckets", type=int, default=24,
+                   help="buckets per seasonal cycle of the demand "
+                        "forecaster (1 = no seasonality; 24 x 3600s "
+                        "buckets = diurnal)")
+    p.add_argument("--capacity-horizon", type=float, default=1800.0,
+                   help="default forecast horizon (seconds) for "
+                        "/capacityz (?horizon= overrides per request)")
+    p.add_argument("--capacity-starve-after", type=float, default=300.0,
+                   help="a queue counts as starving once a pod has "
+                        "waited this long unplaced — the ETA the "
+                        "starvation forecast predicts toward")
     p.add_argument("--debug", action="store_true",
                    help="enable the /debug endpoints (stacks, wall-clock "
                         "profile, vars, tracez, events); unauthenticated — "
@@ -223,6 +248,11 @@ def build_config(args) -> Config:
         score_by_actual=args.score_by_actual,
         efficiency_window_s=args.efficiency_window,
         idle_grant_grace_s=args.idle_grant_grace,
+        capacity_interval_s=args.capacity_interval,
+        capacity_bucket_s=args.capacity_bucket,
+        capacity_season_buckets=args.capacity_season_buckets,
+        capacity_horizon_s=args.capacity_horizon,
+        capacity_starve_after_s=args.capacity_starve_after,
         enable_debug=args.debug,
         quota_queues=load_quota_config(args.quota_config),
         fair_share_usage_informed=args.fair_share_usage_informed,
@@ -338,6 +368,16 @@ def start_register_service(scheduler: Scheduler, bind: str,
     return server
 
 
+def capacity_loop(scheduler: Scheduler, stop: threading.Event) -> None:
+    """Sample each queue's demand every ``capacity_interval_s`` until
+    ``stop``; a failed sample is logged, and the loop goes on."""
+    while not stop.wait(scheduler.cfg.capacity_interval_s):
+        try:
+            scheduler.observe_capacity()
+        except Exception:  # noqa: BLE001 — sampling never dies
+            log.exception("capacity demand sample failed")
+
+
 def main(argv=None):
     args = parse_args(argv)
     logging.basicConfig(
@@ -369,6 +409,12 @@ def main(argv=None):
     # reclaim and defrag themselves).
     if scheduler.cfg.enable_elastic:
         scheduler.elastic.start()
+    # Periodic demand samples into the capacity forecaster (/capacityz
+    # also samples on each export, so the thread only densifies the
+    # series).
+    if scheduler.cfg.capacity_interval_s > 0:
+        threading.Thread(target=capacity_loop, args=(scheduler, stop),
+                         name="capacity-observe", daemon=True).start()
     grpc_server = start_register_service(scheduler, args.grpc_bind)
     metrics_server = start_metrics_server(scheduler, args.metrics_port)
     host, _, port = args.http_bind.rpartition(":")

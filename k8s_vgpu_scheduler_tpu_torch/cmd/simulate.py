@@ -104,9 +104,41 @@ the JAX example in the port's names):
        "arrivals": [...], "horizon_s": 720, "tick_s": 5,
        "checkpoint_delay_s": 5}}
 
-The JAX simulator's other sections (``capacity``, ``audit``, ``slo``,
-``ha``) replay subsystems the port does not have yet (ROADMAP A.5): such
-a workload is refused by name, and the command exits 2.
+A ``capacity`` section is predictive capacity planning
+(``accounting/forecast.py`` + ``planner.py``): a named deterministic
+arrival pattern (bursty / diurnal / flash-crowd;
+``examples/vgpu-capacity-scenarios.json`` holds full scenarios on them) or
+an explicit captured demand trace is split into history + horizon; the
+forecaster learns the history, and both the forecast and the actual
+horizon arrivals replay through the port's admission loop (quota gate,
+Filter per pod, the defragmenter's tick) on the virtual clock.  The report
+answers "when does queue X starve?" (predicted against actual, within one
+forecast bucket), "how many nodes does this demand need?" (a node sweep
+replayed until the critical queue stays unstarved with no card
+overbooked) and, with ``elastic_whatif`` (an ``elastic`` section's spec),
+"shrink the elastic jobs or buy nodes?" (``examples/vgpu-workload-
+capacity.json``, the JAX example in the port's names):
+
+    {"capacity": {
+       "pattern": "bursty", "pattern_params": {"burst_chips": 4},
+       "streams": [{"name": "train", "namespace": "tenant-a", "gpu": 1,
+                    "runtime_s": 100000}],
+       "queues": [{"name": "tenant-a", "namespaces": ["tenant-a"],
+                   "quota": {"chips": 8}}],
+       "bucket_s": 30, "history_buckets": 48, "horizon_buckets": 16,
+       "tick_s": 5, "starve_after_s": 60,
+       "require_starvation": ["tenant-a"],
+       "recommend": false}}
+
+The JAX simulator's drain there is its batched ``filter_many``; the port
+has no batched cycles yet (ROADMAP A.5), so each unplaced pod is
+Filtered on its own, in the same sorted order.  A capacity spec's
+``replica_loss`` what-if replays the sharded control plane, which the
+port does not have: such a spec is refused by name.
+
+The JAX simulator's other sections (``audit``, ``slo``, ``ha``) replay
+subsystems the port does not have yet (ROADMAP A.5): such a workload is
+refused by name, and the command exits 2.
 
 Usage:
     vgpu-simulate --nodes 4 --chips 8 --hbm 81079 --mesh 8 \\
@@ -134,6 +166,8 @@ import threading
 from typing import Dict, List, Optional
 
 from ..accounting import efficiency as eff_mod
+from ..accounting import planner as planner_mod
+from ..accounting.forecast import ForecastConfig, SeriesForecaster
 from ..accounting.sampler import UsageSampler
 from ..health.faults import FaultEvent, FaultInjector, SimClock
 from ..elastic.ranges import (
@@ -164,9 +198,10 @@ from ..util.types import (
 )
 
 #: The JAX simulator's self-contained sections, in the order it tries
-#: them: ``fragmentation``, ``elastic``, ``serving`` and ``queueing`` run
-#: here, the others are refused until ROADMAP A.5 brings them.  True: a section is
-#: requested when present; False: when it is not empty.
+#: them: ``fragmentation``, ``elastic``, ``capacity``, ``serving`` and
+#: ``queueing`` run here, the others are refused until ROADMAP A.5 brings
+#: them.  True: a section is requested when present; False: when it is
+#: not empty.
 SECTIONS = (("fragmentation", False), ("elastic", True), ("capacity", True),
             ("serving", True), ("audit", True), ("slo", True),
             ("ha", False), ("queueing", False))
@@ -304,6 +339,12 @@ def run_simulation(workload: dict, *, nodes: int = 0, chips: int = 0,
             # then grows back on the freed surplus.
             result = run_elastic_phase(
                 workload["elastic"], nodes=nodes, chips=chips, hbm=hbm,
+                mesh=mesh, generation=generation, policy=policy)
+        elif key == "capacity":
+            # A self-contained forecast-vs-actual replay on the virtual
+            # clock; it builds its own schedulers per replay leg.
+            result = run_capacity_phase(
+                workload["capacity"], nodes=nodes, chips=chips, hbm=hbm,
                 mesh=mesh, generation=generation, policy=policy)
         elif key == "queueing":
             # A self-contained time-stepped A/B: its own fair and FIFO
@@ -1625,6 +1666,383 @@ def run_elastic_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
     }
 
 
+# -- predictive capacity planning (accounting/forecast.py + planner.py) -------
+
+def _capacity_demand_series(spec: dict, stream: dict,
+                            total_buckets: int,
+                            bucket_s: float) -> List[float]:
+    """One stream's cards of new demand per bucket over history+horizon:
+    an explicit captured trace (``series`` rows, resampled into buckets)
+    or a named deterministic pattern (accounting/planner.py)."""
+    rows = stream.get("series")
+    if rows:
+        sums = [0.0] * total_buckets
+        ns = [0] * total_buckets
+        for t, v in rows:
+            b = int(t // bucket_s)
+            if 0 <= b < total_buckets:
+                sums[b] += float(v)
+                ns[b] += 1
+        return [sums[b] / ns[b] if ns[b] else 0.0
+                for b in range(total_buckets)]
+    pattern = stream.get("pattern") or spec.get("pattern")
+    params = dict(spec.get("pattern_params") or {})
+    params.update(stream.get("pattern_params") or {})
+    return planner_mod.synth_demand(pattern, params, total_buckets)
+
+
+def _run_capacity_sim(arrivals: List[dict], queues: tuple, *,
+                      nodes: int, chips: int, hbm: int, mesh,
+                      generation: str, policy: str, horizon_s: float,
+                      tick_s: float, starve_after_s: float) -> dict:
+    """One time-stepped replay of an arrival schedule through the port's
+    admission loop on a SimClock: the quota gate and fair-share release,
+    a Filter of every unplaced pod each tick (in name order, as
+    kube-scheduler re-queues unschedulable pods; the JAX replay decides
+    the same pods in its batched ``filter_many``) and the defrag loop
+    ticking alongside.  Starvation is per queue: the first moment any of
+    its pods has waited ``starve_after_s`` unplaced.  Reclaim and defrag
+    victims checkpoint and exit after one tick (the in-container watch's
+    part, played here, as in the queueing phase)."""
+    clock = SimClock()
+    kube = FakeKube()
+    cfg = Config(node_scheduler_policy=policy,
+                 quota_queues=queues,
+                 enable_defrag=True,
+                 defrag_interval_s=tick_s,
+                 queue_reclaim_grace_s=2 * tick_s)
+    s = Scheduler(kube, cfg, clock=clock)
+    names = build_fleet(s, kube, nodes, chips, hbm, mesh, generation)
+    fleet_chips = nodes * chips
+    kube.watch_pods(s.on_pod_event)
+
+    schedule = _arrival_schedule({"arrivals": arrivals})
+    ns_queue = {}
+    for a in schedule:
+        ns = a["namespace"]
+        if ns not in ns_queue:
+            q = queue_for_namespace(queues, ns) if queues else None
+            ns_queue[ns] = q.name if q is not None else None
+
+    next_arrival = 0
+    live: Dict[str, dict] = {}
+    created_at: Dict[str, float] = {}
+    placed_at: Dict[str, float] = {}
+    preempt_seen: Dict[str, float] = {}
+    starved_at: Dict[str, float] = {}
+    busy_seconds = 0.0
+    overbooked: List[str] = []
+    steps = int(round(horizon_s / tick_s))
+    t0 = clock()
+    for _step in range(steps):
+        now = clock() - t0
+        while next_arrival < len(schedule) \
+                and schedule[next_arrival]["at_s"] <= now:
+            a = schedule[next_arrival]
+            next_arrival += 1
+            kube.create_pod(_queue_spec_pod(a, ns_queue[a["namespace"]]))
+            live[a["name"]] = a
+            created_at[a["name"]] = now
+        for name in [n for n, t in placed_at.items()
+                     if t + live[n]["runtime_s"] <= now]:
+            a = live.pop(name)
+            placed_at.pop(name)
+            kube.delete_pod(a["namespace"], name)
+        # Reclaim/defrag victims checkpoint and exit after the delay.
+        for pod in kube.list_pods():
+            anns = pod.get("metadata", {}).get("annotations", {})
+            name = pod["metadata"]["name"]
+            if anns.get(PREEMPT_ANNOTATION):
+                first = preempt_seen.setdefault(name, now)
+                if now - first >= tick_s and name in live:
+                    a = live.pop(name)
+                    placed_at.pop(name, None)
+                    kube.delete_pod(a["namespace"], name)
+            else:
+                preempt_seen.pop(name, None)
+        if queues:
+            s.admission.tick()
+        s.defrag.tick()
+        # Every unplaced pod retries through Filter, once a tick.
+        for name, a in sorted(live.items()):
+            if name in placed_at:
+                continue
+            try:
+                pod = kube.get_pod(a["namespace"], name)
+            except Exception:  # noqa: BLE001 — deleted this tick
+                continue
+            r = s.filter(pod, names)
+            if r.node:
+                s.bind(a["namespace"], name, pod["metadata"]["uid"],
+                       r.node)
+                nodelock.release_node(kube, r.node)
+                placed_at[name] = now
+        # Starvation census: a queue starves the instant one of its pods
+        # has waited starve_after_s unplaced (held in the queue or
+        # released but unplaceable both count: the tenant cannot tell
+        # the difference).
+        for name, a in sorted(live.items()):
+            if name in placed_at:
+                continue
+            waited = now - created_at[name]
+            if waited >= starve_after_s:
+                q = ns_queue[a["namespace"]] or a["namespace"]
+                starved_at.setdefault(
+                    q, created_at[name] + starve_after_s)
+        busy_seconds += sum(
+            sum(len(c) for c in p.devices)
+            for p in s.pods.list_pods()) * tick_s
+        bad = overbooked_chips(s)
+        if bad:
+            overbooked = sorted(set(overbooked) | set(bad))
+        clock.advance(tick_s)
+    still_pending = sorted(n for n in live if n not in placed_at)
+    s.close()
+    return {
+        "nodes": nodes,
+        "placed": len(placed_at) + sum(
+            1 for n in created_at if n not in live and n not in placed_at),
+        "arrived": len(created_at),
+        "still_pending": still_pending,
+        "starved_at": {q: round(t, 3)
+                       for q, t in sorted(starved_at.items())},
+        "utilization": round(
+            busy_seconds / (fleet_chips * horizon_s), 4)
+        if fleet_chips and horizon_s else 0.0,
+        "overbooked_chips": overbooked,
+    }
+
+
+def run_capacity_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
+                       mesh, generation: str, policy: str) -> dict:
+    """Forecast-vs-actual capacity planning:
+
+    1. each stream's demand trace is split into history + horizon;
+    2. the forecaster learns the history and projects the horizon;
+    3. the FORECAST arrivals replay through the admission loop →
+       predicted starvation ETA per queue;
+    4. the ACTUAL horizon arrivals replay identically → actual
+       starvation;
+    5. verdict: predicted within one forecast bucket of actual for every
+       queue the scenario requires to starve, forecast error reported, no
+       card overbooked in any replay — and, when the scenario asks for a
+       scale recommendation, a node sweep over the forecast until the
+       critical queue stays unstarved, then verified against the ACTUAL
+       arrivals at the recommended size.
+
+    Raises :class:`SectionRefused` for a ``replica_loss`` what-if (the
+    sharded control plane, ROADMAP A.5)."""
+    if spec.get("replica_loss"):
+        raise SectionRefused(
+            "the capacity section's 'replica_loss' what-if is not "
+            "simulated by this port: it replays the sharded control plane "
+            "(shard/), which comes with ROADMAP A.5")
+    bucket_s = float(spec.get("bucket_s", 30.0))
+    history_buckets = int(spec.get("history_buckets", 48))
+    horizon_buckets = int(spec.get("horizon_buckets", 16))
+    tick_s = float(spec.get("tick_s", 5.0))
+    starve_after_s = float(spec.get("starve_after_s", 60.0))
+    horizon_s = horizon_buckets * bucket_s
+    total = history_buckets + horizon_buckets
+    queues = tuple(spec.get("queues", ()))
+    fcfg = ForecastConfig(
+        bucket_s=bucket_s,
+        season_buckets=int(spec.get("season_buckets", 8)),
+        alpha=float(spec.get("alpha", 0.1)),
+        beta=float(spec.get("beta", 0.05)),
+        gamma=float(spec.get("gamma", 0.5)))
+
+    streams = spec.get("streams") or []
+    per_stream = []
+    err_num = err_den = 0.0
+    for stream in streams:
+        series = _capacity_demand_series(spec, stream, total, bucket_s)
+        fc = SeriesForecaster(fcfg)
+        for b in range(history_buckets):
+            fc.observe(b * bucket_s, series[b])
+        fc.observe(history_buckets * bucket_s, 0.0)  # close the last one
+        points = fc.forecast(horizon_buckets)
+        actual = series[history_buckets:total]
+        predicted = [p.mean for p in points]
+        err_num += sum(abs(p - a) for p, a in zip(predicted, actual))
+        err_den += sum(abs(a) for a in actual)
+        per_stream.append({
+            "stream": stream, "actual": actual, "predicted": predicted,
+            "upper": [p.upper for p in points],
+            "error_ratio": (round(fc.error_ratio(), 4)
+                            if fc.error_ratio() is not None else None),
+        })
+    forecast_error_ratio = round(err_num / err_den, 4) if err_den else 0.0
+
+    def entries_of(kind: str) -> List[dict]:
+        out = []
+        for ps in per_stream:
+            out.extend(planner_mod.arrival_entries(
+                ps["stream"], ps[kind], bucket_s))
+        return out
+
+    sim_kw = dict(chips=chips, hbm=hbm, mesh=mesh,
+                  generation=generation, policy=policy,
+                  horizon_s=horizon_s, tick_s=tick_s,
+                  starve_after_s=starve_after_s)
+    predicted_run = _run_capacity_sim(entries_of("predicted"), queues,
+                                      nodes=nodes, **sim_kw)
+    actual_run = _run_capacity_sim(entries_of("actual"), queues,
+                                   nodes=nodes, **sim_kw)
+
+    require = list(spec.get("require_starvation", ()))
+    eta_rows = []
+    eta_ok = True
+    starvation_observed = True
+    for q in sorted(set(predicted_run["starved_at"])
+                    | set(actual_run["starved_at"]) | set(require)):
+        pred = predicted_run["starved_at"].get(q)
+        act = actual_run["starved_at"].get(q)
+        within = (pred is not None and act is not None
+                  and abs(pred - act) <= bucket_s)
+        eta_rows.append({"queue": q, "predicted_eta_s": pred,
+                         "actual_eta_s": act,
+                         "within_one_bucket": within})
+        if q in require:
+            starvation_observed = starvation_observed and act is not None
+            eta_ok = eta_ok and within
+
+    recommendation = None
+    rec_ok = True
+    if spec.get("recommend"):
+        critical = spec.get("critical_queue", "")
+        max_extra = int(spec.get("max_extra_nodes", 8))
+        chosen = None
+        sweep = []
+        for extra in range(max_extra + 1):
+            leg = _run_capacity_sim(entries_of("predicted"), queues,
+                                    nodes=nodes + extra, **sim_kw)
+            starved = critical in leg["starved_at"] if critical \
+                else bool(leg["starved_at"])
+            sweep.append({"nodes": nodes + extra,
+                          "critical_starved": starved,
+                          "overbooked": bool(leg["overbooked_chips"])})
+            if not starved and not leg["overbooked_chips"]:
+                chosen = nodes + extra
+                break
+        applied = None
+        if chosen is not None:
+            applied = _run_capacity_sim(entries_of("actual"), queues,
+                                        nodes=chosen, **sim_kw)
+        recommendation = {
+            "critical_queue": critical,
+            "nodes_current": nodes,
+            "nodes_recommended": chosen,
+            "nodes_to_add": (chosen - nodes)
+            if chosen is not None else None,
+            "sweep": sweep,
+            "applied": applied,
+        }
+        rec_ok = (chosen is not None and applied is not None
+                  and critical not in applied["starved_at"]
+                  and not applied["overbooked_chips"])
+
+    elastic_whatif = None
+    if spec.get("elastic_whatif"):
+        # "Shrink tenant A's elastic jobs, or buy nodes?" — the elastic
+        # A/B (run_elastic_phase) on THIS fleet prices the shrink side of
+        # the tradeoff the node sweep above prices in hardware: the
+        # goodput delta of resize-instead-of-kill against the extra nodes
+        # the recommendation says would absorb the same crunch.
+        ew = run_elastic_phase(
+            dict(spec["elastic_whatif"]), nodes=nodes, chips=chips,
+            hbm=hbm, mesh=mesh, generation=generation, policy=policy)
+        on_leg, off_leg = ew["elastic_on"], ew["elastic_off"]
+        elastic_whatif = {
+            "goodput_delta_chip_seconds": round(
+                on_leg["goodput_chip_seconds"]
+                - off_leg["goodput_chip_seconds"], 1),
+            "kills_avoided": len(off_leg["kills"]),
+            "slo_misses_avoided": (off_leg["slo_missed"]
+                                   - on_leg["slo_missed"]),
+            "nodes_to_add_instead": (recommendation or {}).get(
+                "nodes_to_add"),
+            "choice": ("shrink-elastic" if ew["verdict"]["ok"]
+                       else "buy-nodes"),
+            "ab": ew,
+        }
+
+    verdict = {
+        "starvation_observed": starvation_observed,
+        "eta_within_one_bucket": eta_ok,
+        "forecast_error_reported": forecast_error_ratio is not None,
+        "recommendation_protects_critical": rec_ok,
+        "no_overbooking": not (predicted_run["overbooked_chips"]
+                               or actual_run["overbooked_chips"]),
+    }
+    if elastic_whatif is not None:
+        verdict["elastic_whatif_resolved"] = \
+            elastic_whatif["ab"]["verdict"]["no_overbooking"]
+    verdict["ok"] = all(verdict.values())
+    return {
+        "bucket_s": bucket_s,
+        "history_buckets": history_buckets,
+        "horizon_buckets": horizon_buckets,
+        "tick_s": tick_s,
+        "starve_after_s": starve_after_s,
+        "pattern": spec.get("pattern"),
+        "forecast_error_ratio": forecast_error_ratio,
+        "stream_error_ratios": {
+            ps["stream"]["name"]: ps["error_ratio"]
+            for ps in per_stream},
+        "predicted": predicted_run,
+        "actual": actual_run,
+        "starvation": eta_rows,
+        "recommendation": recommendation,
+        "replica_loss": None,
+        "elastic_whatif": elastic_whatif,
+        "verdict": verdict,
+    }
+
+
+def format_capacity(cp: dict) -> str:
+    v = cp["verdict"]
+    lines = [
+        "capacity planning ({} pattern; {} history + {} horizon buckets "
+        "of {:.0f}s):".format(cp.get("pattern") or "captured trace",
+                              cp["history_buckets"],
+                              cp["horizon_buckets"], cp["bucket_s"]),
+        f"  forecast-vs-actual error: {cp['forecast_error_ratio']:.1%} "
+        "of demand",
+    ]
+    for row in cp["starvation"]:
+        def eta(x):
+            return f"{x:.0f}s" if x is not None else "never"
+        lines.append(
+            "  queue {:<14s} starves: predicted {:<7s} actual {:<7s} {}"
+            .format(row["queue"], eta(row["predicted_eta_s"]),
+                    eta(row["actual_eta_s"]),
+                    "✓" if row["within_one_bucket"] else
+                    ("-" if row["actual_eta_s"] is None else "OFF")))
+    rec = cp.get("recommendation")
+    if rec:
+        lines.append(
+            "  scale recommendation: {} → {} node(s) to keep '{}' "
+            "unstarved{}".format(
+                rec["nodes_current"], rec["nodes_recommended"],
+                rec["critical_queue"],
+                "" if rec["applied"] is None else
+                " (verified against the actual trace)"))
+    ew = cp.get("elastic_whatif")
+    if ew:
+        buy = ("buy {} node(s)".format(ew["nodes_to_add_instead"])
+               if ew["nodes_to_add_instead"] is not None
+               else "buy nodes (no sweep result)")
+        lines.append(
+            "  shrink elastic jobs vs {}: resize wins {:+.1f} chip-s "
+            "goodput, avoids {} kill(s) + {} SLO miss(es) → {}".format(
+                buy, ew["goodput_delta_chip_seconds"],
+                ew["kills_avoided"], ew["slo_misses_avoided"],
+                ew["choice"]))
+    lines.append("  verdict: " + ("PASS" if v["ok"] else f"FAIL {v}"))
+    return "\n".join(lines)
+
+
 def format_elastic(el: dict) -> str:
     v = el["verdict"]
     on, off = el["elastic_on"], el["elastic_off"]
@@ -1726,6 +2144,9 @@ def format_serving(sv: dict) -> str:
 
 
 def format_report(result: dict) -> str:
+    cp = result.get("capacity")
+    if cp:
+        return format_capacity(cp)
     fr = result.get("fragmentation")
     if fr:
         return format_fragmentation(fr)

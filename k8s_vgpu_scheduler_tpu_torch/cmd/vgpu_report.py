@@ -9,11 +9,13 @@ a pod.  JSON for pipelines, CSV for spreadsheets, text for people.
 
 ``GET /queuez`` (the capacity queues) is joined in: each governed
 namespace's row gets its queue, nominal, held and borrowed cards, and the
-text adds the queue table and the pending pods.  The JAX report also joins
-``/capacityz``, ``/auditz``, ``/sloz`` and ``/explainz``; the port's
-extender serves none of them until ROADMAP A.5, and the report degrades
-exactly as the JAX report does where they are absent (no capacity
-section, the audit and slo lines as '-', every pending pod's reason '-').
+text adds the queue table and the pending pods.  ``GET /capacityz`` (the
+capacity forecast) adds the capacity section: the scale recommendation
+and each queue's demand, forecast, upper band, starvation ETA and drift.
+The JAX report also joins ``/auditz``, ``/sloz`` and ``/explainz``; the
+port's extender serves none of them until ROADMAP A.5, and the report
+degrades exactly as the JAX report does where they are absent (the audit
+and slo lines as '-', every pending pod's reason '-').
 ``--explain`` renders decision provenance, which is A.5's: it exits 2 and
 says so.  Standard library only.
 

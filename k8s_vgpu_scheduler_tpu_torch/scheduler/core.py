@@ -26,7 +26,11 @@ register-stream message's usage counters go into the usage ledger
 (``grant_efficiency``, ``export_usage`` behind ``/usagez``), the
 exporter, the rescuer's idle-grant flag and ``Config.score_by_actual``
 read; the ``allocate`` span is rebuilt from the bind time and the
-terminal bind phase the informer sees.  A
+terminal bind phase the informer sees.  The capacity planner
+(``accounting/planner.py``) forecasts each queue's demand (held plus
+pending cards; granted cards per namespace without a quota config) from
+the samples ``observe_capacity`` takes, and ``export_capacity`` turns
+them into ``/capacityz``.  A
 node's fabric (the ``TopologyDesc`` and card coordinates its agent
 registers) places multi-card requests by the slice engine under the pod's
 topology policy, and ``vtpu.dev/mesh`` pods by ``placement/mesh.py``.  A
@@ -63,7 +67,10 @@ import time
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from ..accounting import efficiency as eff_mod
+from ..accounting import planner as planner_mod
+from ..accounting.forecast import ForecastConfig
 from ..accounting.ledger import UsageLedger, decode_usage
+from ..accounting.planner import CapacityTracker
 from ..elastic.controller import (
     ELASTIC_VALUE_PREFIX,
     ElasticConfig,
@@ -277,6 +284,16 @@ class Scheduler:
         self.efficiency_cfg = eff_mod.EfficiencyConfig(
             window_s=self.cfg.efficiency_window_s,
             idle_grace_s=self.cfg.idle_grant_grace_s)
+        # Predictive capacity (accounting/forecast.py + planner.py):
+        # per-queue demand forecasting behind /capacityz and the
+        # vtpu_capacity_* gauges, fed by observe_capacity().
+        # vgpu-scheduler samples on a thread; embedders, tests and the
+        # simulator call it on their own clocks.
+        self.capacity = CapacityTracker(
+            ForecastConfig(
+                bucket_s=self.cfg.capacity_bucket_s,
+                season_buckets=self.cfg.capacity_season_buckets),
+            starve_after_s=self.cfg.capacity_starve_after_s)
         # uids whose allocate span was recorded (once each).
         self._alloc_traced: set = set()
         self._alloc_traced_lock = threading.Lock()
@@ -592,6 +609,75 @@ class Scheduler:
         ]
         stats["enabled"] = self.quota.enabled
         return stats
+
+    def observe_capacity(self, now: Optional[float] = None,
+                         quota_stats: Optional[dict] = None
+                         ) -> Dict[str, float]:
+        """One demand sample per queue into the capacity forecaster:
+        cards the tenant wants right now — held (placed) plus pending
+        (queued or unplaced requests).  Ungoverned fleets sample granted
+        cards per namespace instead (no quota layer, no pending side: the
+        forecast then tracks standing usage).  Off every scheduler lock
+        (the registry's list and the quota manager's own).
+        ``quota_stats`` lets export_capacity share one stats snapshot
+        instead of walking the registry twice per export.  (The JAX
+        scheduler also records a ``capacity-tick`` phase in its
+        performance observatory, which the port does not have yet.)"""
+        now = self._clock() if now is None else now
+        samples: Dict[str, float] = {}
+        if self.quota.enabled:
+            if quota_stats is None:
+                quota_stats = self.quota.stats(self.pods.list_pods())
+            for row in quota_stats["queues"]:
+                pending = sum(p["chips"] for p in row["pending_pods"])
+                samples[row["queue"]] = float(row["held_chips"] + pending)
+        else:
+            for p in self.pods.list_pods():
+                chips = sum(len(c) for c in p.devices)
+                if chips:
+                    samples[p.namespace] = \
+                        samples.get(p.namespace, 0.0) + chips
+        self.capacity.observe_queues(samples, now)
+        return samples
+
+    def export_capacity(self, horizon_s: Optional[float] = None,
+                        quota_stats: Optional[dict] = None,
+                        detail: bool = True) -> dict:
+        """The predictive-capacity assessment (``GET /capacityz`` →
+        ``vgpu-report`` and the vtpu_capacity_* gauges): per-queue demand
+        forecasts with bands, starvation ETAs against admissible
+        capacity, a fleet scale recommendation and forecast-vs-actual
+        drift.  Analytic: the replay-verified answers come from
+        ``vgpu-simulate``'s capacity section.  ``quota_stats`` lets the
+        metrics collector, which computed the same snapshot for the queue
+        gauges, avoid a second registry walk per scrape."""
+        now = self._clock()
+        stats = quota_stats if quota_stats is not None else (
+            self.quota.stats(self.pods.list_pods())
+            if self.quota.enabled else None)
+        self.observe_capacity(now, quota_stats=stats)
+        snap = self.snapshot()
+        fleet_chips = sum(len(e.usage) for e in snap.values())
+        free_chips = sum(1 for e in snap.values()
+                         for u in e.usage.values()
+                         if u.used_slots == 0)
+        chips_per_node = max((len(e.usage) for e in snap.values()),
+                             default=1)
+        rows = []
+        if stats is not None:
+            # The snapshot the demand sample above read: sampled demand
+            # and reported entitlements stay consistent.
+            rows = [{"queue": r["queue"],
+                     "nominal_chips": r["nominal_chips"],
+                     "borrow_limit_chips": r["borrow_limit_chips"]}
+                    for r in stats["queues"]]
+        return planner_mod.assess(
+            self.capacity, fleet_chips=fleet_chips,
+            free_chips=free_chips, chips_per_node=chips_per_node,
+            nodes_current=len(snap), queue_rows=rows, now=now,
+            horizon_s=horizon_s
+            if horizon_s is not None else self.cfg.capacity_horizon_s,
+            detail=detail)
 
     def known_topologies(self) -> List[TopologyDesc]:
         """The distinct fabrics registered in the fleet, one per shape and

@@ -14,8 +14,10 @@ the capacity queues (pending, admitted, fair share, borrowed cards,
 reclaims), slice availability and the largest free box (over
 ``placement/frag.py``'s views of the scheduler's snapshot), the cards
 held in slice reservations and the defragmenter's plans, migrations,
-completions and aborts, QoS wait and weights, and the phase latency and
-rejections from the tracer.  Families whose
+completions and aborts, the capacity forecast (each queue's demand,
+forecast, upper band, starvation ETA and drift, and the current and
+recommended node counts, from ``export_capacity``), QoS wait and weights,
+and the phase latency and rejections from the tracer.  Families whose
 subsystem waits for ROADMAP A.5 are emitted as the JAX collector emits
 them with that subsystem off, zero-valued or empty, so no series a
 dashboard names ever vanishes: see :data:`A5_FAMILIES`.  Standard library
@@ -65,13 +67,6 @@ A5_FAMILIES = {
     "vtpu_shards_orphaned": "sharded control plane",
     "vtpu_shard_rebalances": "sharded control plane",
     "vtpu_commit_cas_failures": "sharded control plane",
-    "vtpu_capacity_queue_demand_chips": "capacity forecast",
-    "vtpu_capacity_forecast_demand_chips": "capacity forecast",
-    "vtpu_capacity_forecast_upper_chips": "capacity forecast",
-    "vtpu_capacity_queue_starvation_eta_seconds": "capacity forecast",
-    "vtpu_capacity_forecast_error_ratio": "capacity forecast",
-    "vtpu_capacity_nodes_current": "capacity forecast",
-    "vtpu_capacity_nodes_recommended": "capacity forecast",
     "vtpu_audit_findings": "fleet audit",
     "vtpu_audit_sweeps": "fleet audit",
     "vtpu_audit_sweep_seconds": "fleet audit",
@@ -312,8 +307,10 @@ class ClusterCollector:
         # getattr: a collector stub without the quota surface reads as
         # quota off, as in the JAX collector.
         quota = getattr(self.scheduler, "quota", None)
+        quota_stats = None
         if quota is not None and quota.enabled:
-            stats = quota.stats(self.scheduler.pods.list_pods())
+            quota_stats = stats = quota.stats(
+                self.scheduler.pods.list_pods())
             for row in stats["queues"]:
                 q_pending.add_metric([row["queue"]], row["pending"])
                 q_admitted.add_metric([row["queue"]],
@@ -567,7 +564,12 @@ class ClusterCollector:
             labels=["podnamespace", "podname", "class"],
         )
 
-        # Capacity forecast (A.5): empty.
+        # Predictive capacity (accounting/planner.py): the names come
+        # from planner.CAPACITY_FIELD_METRICS, the one mapping the
+        # /capacityz JSON, this exporter and the dashboard's "Capacity"
+        # row share.  Emitted always (empty without observations);
+        # getattr: a collector stub without the capacity surface emits
+        # them empty.
         cap_demand = GaugeMetricFamily(
             "vtpu_capacity_queue_demand_chips",
             "Chips one capacity queue (or namespace, when ungoverned) "
@@ -618,6 +620,25 @@ class ClusterCollector:
             "(analytic; verify with a vtpu-simulate capacity replay "
             "before buying hardware — docs/observability.md)",
         )
+        cap_fn = getattr(self.scheduler, "export_capacity", None)
+        if cap_fn is not None:
+            # The quota-stats snapshot the queue gauges read (one registry
+            # walk a scrape), and no per-bucket curves (detail=False: they
+            # would be built each scrape under the tracker's lock).
+            doc = cap_fn(quota_stats=quota_stats, detail=False)
+            for row in doc["queues"]:
+                q = [row["queue"]]
+                cap_demand.add_metric(q, row["demand_chips"])
+                cap_forecast.add_metric(q, row["forecast_demand_chips"])
+                cap_upper.add_metric(q, row["forecast_upper_chips"])
+                cap_eta.add_metric(
+                    q, row["starvation_eta_s"]
+                    if row["starvation_eta_s"] is not None
+                    else float("inf"))
+                if row["forecast_error_ratio"] is not None:
+                    cap_err.add_metric(q, row["forecast_error_ratio"])
+            cap_nodes_cur.add_metric([], doc["nodes_current"])
+            cap_nodes_rec.add_metric([], doc["nodes_recommended"])
 
         # Usage-series freshness: age of each pod's newest ledger sample
         # (the vgpu-report / vgpu-smi staleness guard reads it).

@@ -20,13 +20,18 @@ Reference: pkg/scheduler/routes/route.go (PredicateRoute 41–77, Bind
 - ``GET  /usagez``  per-namespace showback over a trailing window
                     (``?window=<seconds>``, a positive finite number, else
                     400; an export error answers 500) for ``vgpu-report``
+- ``GET  /capacityz`` the predictive-capacity assessment: per-queue
+                    demand forecasts, starvation ETAs, the scale
+                    recommendation and forecast drift (``?horizon=<seconds>``,
+                    a positive finite number, else 400; an export error
+                    answers 500) for ``vgpu-report``
 - ``GET  /debug/*`` stacks, profile, vars, tracez, events
                     (``util/debugz.py``), with ``Config.enable_debug``
 
 ``/metrics`` is served on its own port (``scheduler/metrics.py``, as the
-JAX daemon does).  The JAX package's other export endpoints
-(``/capacityz``, ``/auditz``, ``/sloz``, ``/explainz``, ``/perfz``) wait
-for ROADMAP A.5; ``vgpu-report`` degrades without them.
+JAX daemon does).  The JAX package's other export endpoints (``/auditz``,
+``/sloz``, ``/explainz``, ``/perfz``) wait for ROADMAP A.5; ``vgpu-report``
+degrades without them.
 """
 
 from __future__ import annotations
@@ -112,24 +117,27 @@ class _Handler(BaseHTTPRequestHandler):
             except Exception as e:  # noqa: BLE001 — a 500, not a hangup
                 log.exception("%s export failed", self.path)
                 self._reply(500, {"error": f"{type(e).__name__}: {e}"})
-        elif parts.path == "/usagez":
+        elif parts.path in ("/usagez", "/capacityz"):
+            name, export = (
+                ("window", self.scheduler.export_usage)
+                if parts.path == "/usagez"
+                else ("horizon", self.scheduler.export_capacity))
             query = dict(parse_qsl(parts.query))
             try:
-                window = (float(query["window"])
-                          if "window" in query else None)
+                value = float(query[name]) if name in query else None
                 # float() takes nan and inf, which would flow into the
-                # showback and break the body's strict JSON.
-                if window is not None and (
-                        not math.isfinite(window) or window <= 0):
+                # export and break the body's strict JSON.
+                if value is not None and (
+                        not math.isfinite(value) or value <= 0):
                     raise ValueError(f"not a positive finite number: "
-                                     f"{query['window']!r}")
+                                     f"{query[name]!r}")
             except (ValueError, TypeError) as e:
-                self._reply(400, {"error": f"bad window: {e}"})
+                self._reply(400, {"error": f"bad {name}: {e}"})
                 return
             try:
-                self._reply(200, self.scheduler.export_usage(window))
+                self._reply(200, export(value))
             except Exception as e:  # noqa: BLE001 — a 500, not a hangup
-                log.exception("usagez export failed")
+                log.exception("%s export failed", parts.path)
                 self._reply(500, {"error": f"{type(e).__name__}: {e}"})
         elif self.path.startswith("/debug/") and self.cfg.enable_debug:
             from ..util import debugz

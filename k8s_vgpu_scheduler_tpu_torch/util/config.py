@@ -81,6 +81,19 @@ class Config:
     # Candidate selection adds a bounded bonus (at most one card's worth
     # of the spread score) for nodes whose MEASURED utilization is low.
     score_by_actual: bool = False
+    # Predictive capacity (accounting/forecast.py + planner.py).  Demand
+    # per queue (or per namespace when ungoverned) is sampled every
+    # capacity_interval_s, bucketed for the Holt-Winters forecaster, and
+    # served on GET /capacityz and the vtpu_capacity_* gauges.  Buckets
+    # per seasonal cycle: 24 x 60 s is hourly seasonality (3600 s buckets
+    # make it diurnal).  The default forecast horizon of /capacityz
+    # (``?horizon=`` overrides), and how long a pod must wait unplaced
+    # before its queue starves (the ETA the forecast predicts toward).
+    capacity_interval_s: float = 30.0
+    capacity_bucket_s: float = 60.0
+    capacity_season_buckets: int = 24
+    capacity_horizon_s: float = 1800.0
+    capacity_starve_after_s: float = 300.0
     # Capacity queues (quota/): the --quota-config file's "queues" list as
     # a tuple of dicts (empty: the admission layer is off and every
     # namespace bypasses it), the admission loop's period, how long a

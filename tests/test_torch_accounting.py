@@ -932,12 +932,20 @@ def test_usagez_endpoint_and_the_report_command(capsys):
         doc = json.loads(capsys.readouterr().out)
         assert doc["pods"] == export["pods"]
         assert doc["audit"] is None and doc["slo"] is None
-        assert "capacity" not in doc and "queues" not in doc
+        assert "queues" not in doc
+        # The capacity section since the extender serves /capacityz: an
+        # ungoverned fleet's demand by namespace.
+        assert doc["capacity"]["method"] == "analytic"
+        shown = {r["queue"] for r in doc["capacity"]["queues"]}
+        assert shown and shown == {r["queue"] for r in
+                                   s.export_capacity()["queues"]}
+        assert shown <= {row["namespace"] for row in export["namespaces"]}
         assert vgpu_report.main(["--cluster", base, "--csv"]) == 0
         assert capsys.readouterr().out.startswith("namespace,pods,")
         assert vgpu_report.main(["--cluster", base]) == 0
         text = capsys.readouterr().out
         assert "fleet efficiency" in text and "+ slo: -" in text
+        assert "+ capacity (analytic" in text
     finally:
         server.stop()
 

@@ -280,6 +280,49 @@ def test_the_defrag_values_render_into_the_extender():
             jsonschema.validate(broken, schema())
 
 
+def test_the_capacity_values_render_into_the_extender():
+    """``scheduler.capacity`` (in the schema since the capacity forecast
+    came to the port) renders the five ``--capacity-*`` flags at the JAX
+    defaults, which the port's ``parse_args`` reads into the forecaster's
+    config fields; an override changes them, and bad values are
+    refused."""
+    import jsonschema
+
+    vals = values()
+    assert vals["scheduler"]["capacity"] == {
+        "interval": 30, "bucket": 60, "seasonBuckets": 24, "horizon": 1800,
+        "starveAfter": 300}
+    base = containers(render())["vgpu-extender"]
+    argv = [str(a) for a in base["command"][3:]]
+    assert [a for a in argv if a.startswith("--capacity")] == [
+        "--capacity-interval=30", "--capacity-bucket=60",
+        "--capacity-season-buckets=24", "--capacity-horizon=1800",
+        "--capacity-starve-after=300"]
+    cfg = scheduler.build_config(scheduler.parse_args(argv))
+    default = scheduler.build_config(scheduler.parse_args([]))
+    fields = ("capacity_interval_s", "capacity_bucket_s",
+              "capacity_season_buckets", "capacity_horizon_s",
+              "capacity_starve_after_s")
+    assert [getattr(cfg, f) for f in fields] == \
+        [getattr(default, f) for f in fields] == [30.0, 60.0, 24, 1800.0,
+                                                   300.0]
+    over = {"interval": 0, "bucket": 3600, "seasonBuckets": 24,
+            "horizon": 86400, "starveAfter": 120}
+    vals["scheduler"]["capacity"] = over
+    jsonschema.validate(vals, schema())
+    out = containers(render({"scheduler": {"capacity": over}}))
+    argv = [str(a) for a in out["vgpu-extender"]["command"][3:]]
+    cfg = scheduler.build_config(scheduler.parse_args(argv))
+    assert [getattr(cfg, f) for f in fields] == [0.0, 3600.0, 24, 86400.0,
+                                                 120.0]
+    for key, bad in (("bucket", 0), ("seasonBuckets", 0),
+                     ("interval", -1), ("horizon", "1h"), ("window", 5)):
+        broken = values()
+        broken["scheduler"]["capacity"][key] = bad
+        with pytest.raises(jsonschema.ValidationError):
+            jsonschema.validate(broken, schema())
+
+
 @pytest.mark.parametrize("bad", [
     {"queues": [{"name": "a"}]},
     {"queues": [{"name": "a", "namespaces": [], "weight": 0}]},
@@ -544,8 +587,6 @@ DASHBOARD_EXEMPT = {
     "vtpu_serve_per_token_seconds_p50": "serving internals",
     "vtpu_serve_pool_hbm_bytes": "serving internals",
     "vtpu_serve_prefills_total": "serving internals",
-    "vtpu_capacity_node_busy_chips_forecast": "its panel also plots A.5's "
-    "forecast drift; it comes back with the capacity forecast",
 }
 
 
@@ -604,8 +645,9 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
             for p in ours["panels"]] == want
     # 34 since the placement families (reserved cards, defrag counters)
     # left A5_FAMILIES: the max-free-box and compaction panels came back;
-    # 36 since the elastic families left: the resize and state panels.
-    assert len(want) == 36 and ours["uid"] == "vgpu-overview"
+    # 36 since the elastic families left: the resize and state panels; 39
+    # since the capacity forecast's: the three "Capacity" panels.
+    assert len(want) == 39 and ours["uid"] == "vgpu-overview"
     for p in ours["panels"]:
         assert "TPU" not in p["title"] + p.get("description", "")
     alerts = yaml.safe_load((CHART / "dashboards" / "vgpu-alerts.yaml")
@@ -621,8 +663,9 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
         r["expr"].replace('job="vtpu-monitor"', 'job="vgpu-monitor"')
         for r in want_rules]
     # VtpuDefragAbortStorm came back with placement, VtpuResizeThrash
-    # with elastic meshes.
-    assert len(ours_rules) == 18
+    # with elastic meshes, VtpuQueueStarvationForecast and
+    # VtpuCapacityForecastDrift with the capacity forecast.
+    assert len(ours_rules) == 20
     for r in ours_rules:
         assert r["annotations"]["summary"]
         assert "TPU" not in r["annotations"]["summary"]

@@ -435,13 +435,6 @@ A5_ITEMS = {
                               "vtpu_shards_orphaned",
                               "vtpu_shard_rebalances",
                               "vtpu_commit_cas_failures"],
-    "capacity forecast": ["vtpu_capacity_queue_demand_chips",
-                          "vtpu_capacity_forecast_demand_chips",
-                          "vtpu_capacity_forecast_upper_chips",
-                          "vtpu_capacity_queue_starvation_eta_seconds",
-                          "vtpu_capacity_forecast_error_ratio",
-                          "vtpu_capacity_nodes_current",
-                          "vtpu_capacity_nodes_recommended"],
     "fleet audit": ["vtpu_audit_findings", "vtpu_audit_sweeps",
                     "vtpu_audit_sweep_seconds",
                     "vtpu_audit_last_clean_timestamp"],

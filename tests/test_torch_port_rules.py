@@ -32,6 +32,7 @@
 import ast
 import ctypes
 import hashlib
+import json
 import os
 import re
 import subprocess
@@ -124,7 +125,8 @@ def test_new_modules_are_under_the_import_rules():
                 "scheduler/gang.py", "parallel/multihost.py",
                 "placement/frag.py", "placement/reserve.py",
                 "placement/defrag.py", "elastic/__init__.py",
-                "elastic/ranges.py", "elastic/controller.py"):
+                "elastic/ranges.py", "elastic/controller.py",
+                "accounting/planner.py"):
         assert PORT / rel in SOURCES, rel
 
 
@@ -756,6 +758,75 @@ def test_elastic_resizes_without_grpc_protobuf_or_torch():
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+def test_capacity_planning_runs_without_grpc_protobuf_or_torch():
+    """The capacity planner on the extender's core with grpc, protobuf,
+    torch and numpy blocked: a held pod's demand sampled, /capacityz's
+    document built, and the simulator's capacity section replayed on the
+    bursty scenario of examples/vgpu-capacity-scenarios.json."""
+    code = (
+        "import json, sys\n"
+        "for name in ('grpc', 'google.protobuf', 'torch', 'numpy'):\n"
+        "    sys.modules[name] = None  # importing it raises\n"
+        "from k8s_vgpu_scheduler_tpu_torch.accounting import planner\n"
+        "from k8s_vgpu_scheduler_tpu_torch.cmd import simulate\n"
+        "from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube\n"
+        "from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler\n"
+        "from k8s_vgpu_scheduler_tpu_torch.util.config import Config\n"
+        "kube = FakeKube()\n"
+        "s = Scheduler(kube, Config(quota_queues=({'name': 'a',\n"
+        "    'namespaces': ['a'], 'quota': {'chips': 2}},)))\n"
+        "simulate.build_fleet(s, kube, 1, 2, 16384, (2,), 'h100')\n"
+        "kube.watch_pods(s.on_pod_event)\n"
+        "kube.create_pod({'metadata': {'name': 'p', 'namespace': 'a',\n"
+        "    'uid': 'u', 'annotations': {'vtpu.dev/queue': 'a',\n"
+        "    'vtpu.dev/queue-state': 'held'}}, 'spec': {'containers': [\n"
+        "    {'name': 'c', 'resources': {'limits': {\n"
+        "        'nvidia.com/gpu': '1'}}}]}})\n"
+        "assert s.observe_capacity() == {'a': 1.0}\n"
+        "doc = s.export_capacity()\n"
+        "assert doc['queues'][0]['demand_chips'] == 1.0, doc\n"
+        "assert set(planner.CAPACITY_ROOT_FIELDS) <= set(doc)\n"
+        "s.close()\n"
+        "spec = json.load(open(sys.argv[1]))['scenarios']['bursty']\n"
+        "r = simulate.run_simulation({'capacity': spec}, nodes=2,\n"
+        "                            chips=4, hbm=16384, mesh=(4, 1))\n"
+        "assert r['capacity']['verdict']['ok'], r['capacity']['verdict']\n"
+        "loaded = {m for m, v in sys.modules.items() if v is not None}\n"
+        "assert not {m for m in loaded if m.split('.')[0] in\n"
+        "            ('grpc', 'torch', 'numpy')\n"
+        "            or m.startswith('google.protobuf')}\n")
+    res = subprocess.run(
+        [sys.executable, "-c", code,
+         str(ROOT / "examples" / "vgpu-capacity-scenarios.json")],
+        cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+PORT_EXAMPLES = sorted((ROOT / "examples").glob("vgpu-*.json"))
+
+
+@pytest.mark.parametrize("path", PORT_EXAMPLES,
+                         ids=[p.name for p in PORT_EXAMPLES])
+def test_the_port_examples_use_the_ports_names(path):
+    """The port's example workloads name no ``vtpu/`` path and no JAX
+    workload key (``tpu``, ``tpumem``, ``tpucores``) or resource
+    (``google.com/``)."""
+    text = path.read_text()
+    assert "vtpu/" not in text and "google.com/" not in text
+
+    def keys(node):
+        if isinstance(node, dict):
+            for k, v in node.items():
+                yield k
+                yield from keys(v)
+        elif isinstance(node, list):
+            for v in node:
+                yield from keys(v)
+
+    assert not set(keys(json.loads(text))) & {"tpu", "tpumem", "tpucores",
+                                              "tpumem-percentage"}
 
 
 def test_device_plugin_raises_without_nvml_or_the_mock(tmp_path):

@@ -1308,7 +1308,9 @@ def test_the_card_quota_leg_on_the_mock_nvml(tmp_path, monkeypatch):
     downward-API file once after its first loop.  Every check of the leg
     runs (the queues, /metrics and vgpu-report agreeing at each step,
     the reclaim on B, E placed with its own MiB), and the sweeps of
-    ``end`` find V' alone."""
+    ``end`` find V' alone.  The capacity view runs with it: /capacityz
+    held to /queuez, /metrics and vgpu-report at each step, then the
+    horizon clamp, the 400s and the captured replay."""
     import os
     import time
 
@@ -1364,4 +1366,15 @@ def test_the_card_quota_leg_on_the_mock_nvml(tmp_path, monkeypatch):
     assert set(leg["queuez"]) == {"b_held", "b_placed", "reclaim",
                                   "e_released", "e_placed"}
     assert leg["queuez"]["e_placed"]["reclaims_total"] == 1
+    # The capacity view at each step (queue_view) and once at the end.
+    assert set(leg["capacity_steps"]) == set(leg["queuez"])
+    assert leg["capacity_steps"]["b_held"]["demand"] == {
+        "team-a": 1.0, "team-b": 0.0, "team-g": 0.0}
+    assert leg["capacity_steps"]["reclaim"]["demand"] == {
+        "team-a": 1.0, "team-b": 1.0, "team-g": 0.0}
+    cap = leg["capacity"]
+    assert cap["clamp_horizon_s"] == 1440.0
+    assert cap["refused"] == {"nan": 400, "0": 400}
+    assert cap["replay"]["streams"] == 3
+    assert cap["replay"]["verdict"]["no_overbooking"]
     assert ended["held"] == [["uidPV2", "trainer-2"]]

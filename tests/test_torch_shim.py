@@ -19,6 +19,9 @@ is an integer or a byte.
   arithmetic, with a pod's other processes in the region.
 """
 
+import contextlib
+import ctypes
+import ctypes.util
 import dataclasses
 import json
 import os
@@ -724,6 +727,29 @@ def always_over(store):
         sample=lambda: [(torch.device("cpu"), 1 << 40, 1)])
 
 
+@contextlib.contextmanager
+def pinned_cpu_math():
+    """One thread, rounding to nearest, denormals kept: the CPU's
+    floating-point state for a bitwise comparison of two train runs,
+    whatever an earlier test in the same worker process left.  With more
+    than one thread, OpenMP's worker threads compute a share of each op,
+    and a worker keeps the floating-point environment (the MXCSR rounding
+    mode) of the thread that started it: a team started while the
+    rounding mode was not to-nearest moves plain_train's losses in their
+    last bits (6.1967148, 6.1967168 or 6.1967139 against 6.1967158 at
+    step 0) for the rest of the process."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    threads, mode = torch.get_num_threads(), libm.fegetround()
+    torch.set_num_threads(1)
+    libm.fesetround(0)  # FE_TONEAREST
+    torch.set_flush_denormal(False)
+    try:
+        yield
+    finally:
+        libm.fesetround(mode)
+        torch.set_num_threads(threads)
+
+
 def plain_train(steps=3):
     """Losses and final AdamW state of ``steps`` ungated train steps."""
     model = tiny_model()
@@ -783,13 +809,16 @@ def test_a_dispatch_brings_its_spilled_state_back(monkeypatch):
     """A dispatch that does not hold the state spills it; the next step's
     gate brings it back before the step runs: the same losses and state,
     bit for bit, as steps that were never spilled."""
-    want_losses, want_state = plain_train()
-    state, store, held_step, suspends = swapped_train(monkeypatch)
-    losses = []
-    for seed in range(3):
-        losses.append(core.gate(held_step, state, tokens(16, seed))[1].item())
-        core.gate(lambda: None)  # holds nothing: spills the state
-        assert not store._entries["adamw"].on_device
+    monkeypatch.setattr(core, "_GATE", None)  # the reference: no gate
+    with pinned_cpu_math():
+        want_losses, want_state = plain_train()
+        state, store, held_step, suspends = swapped_train(monkeypatch)
+        losses = []
+        for seed in range(3):
+            losses.append(core.gate(held_step, state,
+                                    tokens(16, seed))[1].item())
+            core.gate(lambda: None)  # holds nothing: spills the state
+            assert not store._entries["adamw"].on_device
     assert suspends == [False] * 3
     store.resume_all()
     assert losses == want_losses
@@ -805,15 +834,18 @@ def test_the_interposed_gate_spills_and_restores_without_the_limiter(
     for bit; the limiter is never called and nothing is charged."""
     monkeypatch.setenv("CUDA_OVERSUBSCRIBE", "true")
     monkeypatch.setattr(core, "interposer_active", lambda: True)
-    want_losses, want_state = plain_train()
-    state, store, held_step, suspends = swapped_train(monkeypatch)
-    shim = core._GATE
-    assert shim.interposed
-    losses = []
-    for seed in range(3):
-        losses.append(core.gate(held_step, state, tokens(16, seed))[1].item())
-        core.gate(lambda: None)
-        assert not store._entries["adamw"].on_device
+    monkeypatch.setattr(core, "_GATE", None)  # the reference: no gate
+    with pinned_cpu_math():
+        want_losses, want_state = plain_train()
+        state, store, held_step, suspends = swapped_train(monkeypatch)
+        shim = core._GATE
+        assert shim.interposed
+        losses = []
+        for seed in range(3):
+            losses.append(core.gate(held_step, state,
+                                    tokens(16, seed))[1].item())
+            core.gate(lambda: None)
+            assert not store._entries["adamw"].on_device
     assert suspends == [False] * 3
     store.resume_all()
     assert losses == want_losses

@@ -35,13 +35,13 @@ is HBM too).
 
 A ``gang`` entry is placed by both gang managers, a ``queueing`` section
 replayed by both capacity queues, a ``fragmentation`` section by both
-defragmenters and an ``elastic`` section by both resize controllers, with
-equal answers.
+defragmenters, an ``elastic`` section by both resize controllers and a
+``capacity`` section by both capacity planners (case by case in
+``tests/test_torch_capacity.py``), with equal answers.
 
-The stated departure, pinned below with both answers: a workload with a
-``capacity``, ``audit``, ``slo`` or ``ha`` section, which the JAX
-simulator replays, is refused by name (ROADMAP A.5) and ``vgpu-simulate``
-exits 2.
+The stated departure, pinned below with both answers: a workload with an
+``audit``, ``slo`` or ``ha`` section, which the JAX simulator replays, is
+refused by name (ROADMAP A.5) and ``vgpu-simulate`` exits 2.
 """
 
 import copy
@@ -687,6 +687,36 @@ def test_a5_sections_are_refused_by_name(serial, monkeypatch, tmp_path,
         out = capsys.readouterr().out
         assert "elastic mesh A/B" in out and "verdict: PASS" in out
         return
+    if section == "capacity":
+        # No longer refused (ROADMAP A.5 accounting): the port replays the
+        # JAX example (its keys under the name map) less its replica_loss
+        # what-if (examples/vgpu-workload-capacity.json) as the JAX
+        # simulator does, and the command exits 0 on its passing verdict;
+        # the what-if itself is refused (tests/test_torch_capacity.py).
+        back = {v: k for k, v in KEYS.items()}
+        workload["capacity"].pop("replica_loss")
+        workload["capacity"]["streams"] = [
+            {back.get(k, k): v for k, v in st.items()}
+            for st in workload["capacity"]["streams"]]
+        assert workload == json.loads(
+            (EXAMPLES / "vgpu-workload-capacity.json").read_text())
+        port = tsim.run_simulation(copy.deepcopy(workload), nodes=2,
+                                   chips=4, hbm=16384, mesh=(4, 1))
+        jwl = copy.deepcopy(workload)
+        jwl["capacity"]["streams"] = [
+            {KEYS.get(k, k): v for k, v in st.items()}
+            for st in jwl["capacity"]["streams"]]
+        ref = as_port(json.loads(json.dumps(jsim.run_simulation(
+            jwl, nodes=2, chips=4, hbm=16384, mesh=(4, 1),
+            generation="h100"))))
+        assert port == ref and port["capacity"]["verdict"]["ok"]
+        assert tsim.main(["--workload",
+                          str(EXAMPLES / "vgpu-workload-capacity.json"),
+                          "--nodes", "2", "--chips", "4", "--hbm", "16384",
+                          "--mesh", "4x1", "--generation", "h100"]) == 0
+        out = capsys.readouterr().out
+        assert "capacity planning" in out and "verdict: PASS" in out
+        return
     seen = []
 
     def phase(spec, **kw):
@@ -716,19 +746,20 @@ def test_a5_sections_are_refused_by_name(serial, monkeypatch, tmp_path,
 ], ids=["empty_ha", "null_queueing", "empty_capacity"])
 def test_a_section_is_refused_where_the_jax_simulator_runs_it(
         serial, monkeypatch, workload, runs):
-    """Refused exactly where the JAX simulator would replay the section:
-    an empty ``ha`` or ``queueing`` is none there (the plain placement
-    runs), an empty ``capacity`` is one."""
+    """Requested exactly where the JAX simulator would replay the
+    section: an empty ``ha`` or ``queueing`` is none there (the plain
+    placement runs), an empty ``capacity`` is one, and the port replays
+    it too (no streams: nothing arrives, and the verdict passes)."""
     section = next(k for k in workload if k != "pods")
-    monkeypatch.setattr(jsim, f"run_{section}_phase",
-                        lambda spec, **kw: {"verdict": {"ok": True}})
     ref = jsim.run_simulation(jax_workload(workload), nodes=1, chips=2,
                               hbm=16384, mesh=(2, 1))
     assert (section in ref) is runs
     if runs:
-        with pytest.raises(tsim.SectionRefused):
-            tsim.run_simulation(workload, nodes=1, chips=2, hbm=16384,
-                                mesh=(2, 1))
+        port = tsim.run_simulation(workload, nodes=1, chips=2, hbm=16384,
+                                   mesh=(2, 1))
+        assert port == as_port(json.loads(json.dumps(ref)))
+        assert port[section]["verdict"]["ok"]
+        assert port[section]["predicted"]["arrived"] == 0
     else:
         port = tsim.run_simulation(workload, nodes=1, chips=2, hbm=16384,
                                    mesh=(2, 1))

@@ -8,8 +8,8 @@ expectations (``PKGS``).  The port's webhook, Filter and Bind run on its
 own GPU pods; the JAX shim's ``publish_trace_id`` has no counterpart to
 mirror (the port's Allocate drops the id next to the region, pinned in
 ``tests/test_torch_deviceplugin.py``).  Of the JAX extender's debug and
-export endpoints the port serves ``/usagez``, ``/fleetz``, ``/queuez``
-and ``/debug/*``; the rest (``/perfz``, ``/capacityz``, ``/auditz``,
+export endpoints the port serves ``/usagez``, ``/fleetz``, ``/queuez``,
+``/capacityz`` and ``/debug/*``; the rest (``/perfz``, ``/auditz``,
 ``/explainz``, ``/sloz``) wait for ROADMAP A.5 and answer a JSON 404."""
 
 import json
@@ -448,6 +448,8 @@ ENDPOINTS = [
     ("debug-tracez", "/debug/tracez?format=json", {200}, None),
     ("fleetz", "/fleetz", {200}, None),
     ("queuez", "/queuez", {200}, None),
+    ("capacityz", "/capacityz", {200}, "/capacityz?horizon=nan"),
+    ("capacityz-neg", "/capacityz", {200}, "/capacityz?horizon=-5"),
 ]
 
 
@@ -477,6 +479,13 @@ def test_bad_params_return_400_json(server, name, good, statuses, bad):
 def test_a5_endpoints_answer_a_json_404(server, path):
     base, _ = server
     code, body = _get(base, path)
+    if path == "/capacityz":
+        # Served since the capacity forecast came to the port (ROADMAP A.5
+        # accounting): the analytic assessment, as strict JSON.
+        doc = json.loads(body)
+        assert code == 200 and doc["method"] == "analytic"
+        json.dumps(doc, allow_nan=False)
+        return
     assert code == 404 and json.loads(body) == {"error": "not found"}
 
 
