@@ -327,6 +327,23 @@ ALONE = tuple(f"uidA{i}_serve" for i in range(4))  # odd: preloaded
 PLUGIN_NODE = "h100-node"
 PLUGIN_PODS = (("serve", "uidDS", CORES_SERVE_MIB, 0),
                ("train", "uidDT", CORES_TRAIN_MIB, 1))
+# S and T are placed by the optimistic Filter: each pod's trace holds its
+# `commit` span, and its decision write went through the group-commit
+# batcher.  Before them (S and T hold all of the card's cores), RACE_PODS,
+# two 1-card pods each asking RACE_OVER_MIB past
+# half of the card's remaining MiB as /fleetz shows it, race through
+# POST /filter from two threads onto the real card: exactly one is placed,
+# the other refused with RACE_REASON on the card, and /fleetz never shows
+# the card over its total.  The winner is bound and allocated, and runs a
+# bf16 forward of RACE_LAYERS (RACE_TOKENS, RACE_WIDTH) layers under its
+# grant through the interposer (child_race_winner), which must report the
+# grant as the card's total; it exits 0, and both pods are deleted.
+RACE_PODS = (("race-a", "uidRA"), ("race-b", "uidRB"))
+RACE_OVER_MIB = 1024
+RACE_REASON = "insufficient-hbm"
+RACE_LAYERS = 4
+RACE_TOKENS = 512
+RACE_WIDTH = 4096
 NODE_AGENT_POLLS = 4
 NODE_AGENT_SMI_S = 0.1
 NODE_AGENT_S = 300
@@ -619,6 +636,42 @@ CAPACITY_SHA256 = {
     "example":
         "af75b55addf62ab8bafa0331d7361a48016ed23938859f8d90e4f2fba9a10ca3",
 }
+# The same reports on the default (optimistic) decision path, which the
+# card's run takes; CAPACITY_SHA256 pins the serial path
+# (--serial-filter's).  The optimistic path picks among near-equal nodes by
+# a process-stable digest, so its bytes are pinned as well.
+CAPACITY_SHA256_OPTIMISTIC = {
+    "bursty":
+        "84154d7e6f8e19b001c5d6a506b13f5180050bcc4a3807338228d427d2b253d0",
+    "diurnal":
+        "e0d7e13b8091c85cbd219d3605526f21b2c4175bbdc0c2922c92af55a2ba10a1",
+    "flash-crowd":
+        "af75b55addf62ab8bafa0331d7361a48016ed23938859f8d90e4f2fba9a10ca3",
+    "example":
+        "af75b55addf62ab8bafa0331d7361a48016ed23938859f8d90e4f2fba9a10ca3",
+}
+# The Filter storm, beside phase_preempt's pods (FleetView starts it with
+# the scale leg): --enforce-child filter_storm, the port's extender over
+# HTTP on a FakeKube holding SIM_SCALE's fleet (128 nodes of eight H100s
+# at 81,079 MiB, mesh 8, binpack) and SIM_FLEET's 968 pods, Filtered and
+# Bound by STORM_SUBMITTERS threads in STORM_WAVES waves, while a churn
+# thread deletes every STORM_CHURN_EVERY-th bound pod and resubmits it;
+# once with --serial-filter and once with the default.  Hard, in both
+# modes: no card's slots, MiB or cores over its total at any wave's end
+# or at the end, every placed pod's decision annotations written, every
+# pod placed or refused with a reason; in the optimistic mode also
+# vtpu_filter_commit_conflicts equal to /perfz's commit_conflicts.  The
+# leg's child ends within STORM_LIMIT_S.
+# The CPU rehearsal (FILTER_STORM=rehearsal in the child's env, which only
+# the tests set) storms STORM_REHEARSAL_NODES nodes with every
+# STORM_REHEARSAL_EVERY-th pod.
+STORM_REHEARSAL_NODES = 16
+STORM_REHEARSAL_EVERY = 8
+STORM_SUBMITTERS = 8
+STORM_WAVES = 4
+STORM_CHURN_EVERY = 10
+STORM_BIND_TRIES = 200
+STORM_LIMIT_S = 60.0
 PLANE_CALL_S = 120.0
 RETURN_S = 5.0
 TOL_RETURN_MIB = 64
@@ -2686,6 +2739,31 @@ def child_quota_pod(torch):
                 interposer=interposer_stats(), exit_t=time.monotonic())
 
 
+def child_race_winner(torch):
+    """The racing pair's winner (node_agent's race_leg), under the env of
+    its Allocate answer (the interposer preloaded): a bf16 forward of
+    RACE_LAYERS GELU layers of (RACE_TOKENS, RACE_WIDTH), finite, with the
+    interposer reporting the grant as the card's total."""
+    grant = int(os.environ["CUDA_DEVICE_MEMORY_LIMIT_0"].rstrip("m"))
+    free, total = torch.cuda.mem_get_info(0)
+    check(total == grant * MIB, f"mem_get_info's total {total} under a "
+          f"{grant} MiB grant")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 29)
+    x = torch.randn(RACE_TOKENS, RACE_WIDTH, device="cuda",
+                    dtype=torch.bfloat16, generator=gen)
+    t0 = time.monotonic()
+    for _ in range(RACE_LAYERS):
+        w = torch.randn(RACE_WIDTH, RACE_WIDTH, device="cuda",
+                        dtype=torch.bfloat16, generator=gen)
+        x = torch.nn.functional.gelu(x @ w / RACE_WIDTH ** 0.5)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(x).all()), "the winner's forward is not "
+          "finite")
+    return dict(grant_mib=grant, mem_get_info_total=total,
+                mem_get_info_free=free, forward_s=time.monotonic() - t0,
+                interposer=interposer_stats())
+
+
 def child_gang_member(torch):
     """One member of phase_preempt's gang (GangLeg), under the env of its
     Allocate answer (the interposer preloaded): it joins the gang's
@@ -3026,6 +3104,7 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "cores_serve": child_cores_serve,
                     "preempt": child_preempt,
                     "quota_pod": child_quota_pod,
+                    "race_winner": child_race_winner,
                     "gang_member": child_gang_member,
                     "elastic_member": child_elastic_member,
                     "workloads_bare": child_workloads_bare}
@@ -3162,7 +3241,9 @@ class EnforceChild:
     def stop(self) -> None:
         if self.proc.poll() is None:
             self.proc.kill()
-            self.proc.communicate()
+            # wait, not communicate: its stdin may be closed already (a
+            # flush would raise and leave the other children running).
+            self.proc.wait()
 
 
 def phase_enforce(torch, record, interposer: Path, driver: Path):
@@ -3750,11 +3831,21 @@ def flat_leg(tl: Timeline, t, s) -> dict:
     await_file(s.ctl / f"{s.name}_burst1", [ft, fs], "S's second burst")
     time.sleep(3.0)
     (t.ctl / "trace_shared").touch()
-    await_file(t.ctl / "traced_shared", [ft, fs], "T's shared trace")
+    # S may end its last burst while T's profiler still reads the trace's
+    # events: only T must not end first here (S's failure, if any, is
+    # raised by its result); T's traced steps must start inside S's last
+    # burst.
+    await_file(t.ctl / "traced_shared", [ft], "T's shared trace")
     serve = fs.result()
     time.sleep(CORES_TAIL_S)
     (t.ctl / "train_stop").touch()
     trainer = ft.result()
+    traced = [st["start"] for st in trainer["steps"]
+              if st["traced"] == "shared"]
+    last = serve["bursts"][-1]
+    check(bool(traced) and last["start"] <= traced[0] <= last["end"],
+          f"T's shared trace began at {traced[:1]}, outside S's last burst "
+          f"({last['start']}, {last['end']})")
     await_gc(tl, (t.label, s.label), "flat leg")
     return {t.label: trainer, s.label: serve, "flat": dict(solo=solo)}
 
@@ -4035,6 +4126,135 @@ def admit_pod(base: str, kube, pod: dict) -> tuple:
     return kube.create_pod(apply_json_patch(pod, out["patch"])), out
 
 
+def optimistic_checks(plane, pods: dict) -> dict:
+    """S and T were placed by the optimistic Filter: each pod's trace holds
+    a ``commit`` span inside its ``filter`` span, before its
+    ``decision-write``, and the decision writes went through the
+    group-commit batcher (its writes count them)."""
+    from k8s_vgpu_scheduler_tpu_torch.util import trace
+
+    sched = plane.scheduler
+    check(sched.cfg.optimistic_commit, "the extender decides serially")
+    spans = {}
+    for name, rec in pods.items():
+        tid = rec["pod"]["metadata"]["annotations"][trace.TRACE_ID_ANNOTATION]
+        spans[name] = [x.name for x in sorted(trace.tracer().spans(tid),
+                                              key=lambda x: x.start)]
+        decided = [x for x in spans[name]
+                   if x in ("filter", "commit", "decision-write")]
+        check(decided == ["filter", "commit", "decision-write"],
+              f"{name}'s spans {spans[name]}")
+    writer = sched._decisions
+    check(writer.writes >= len(pods) and writer.batches >= 1,
+          f"the decision writer's writes {writer.writes}, batches "
+          f"{writer.batches}")
+    return dict(spans=spans, writes=writer.writes, batches=writer.batches,
+                commit_conflicts=sched.commit_conflicts)
+
+
+def fleetz_card(base: str, uuid: str) -> dict:
+    """The card ``uuid`` as /fleetz shows it: its totals and what its
+    grants hold (slots, MiB, cores)."""
+    status, fleet = http(f"{base}/fleetz", timeout=30)
+    check(status == 200, f"/fleetz answered {status}")
+    [chip] = [c for n in fleet["nodes"] for c in n["chips"]
+              if c["id"] == uuid]
+    grants = [d for p in fleet["pods"] for ctr in p["devices"] for d in ctr
+              if d["uuid"] == uuid]
+    return dict(devmem=chip["devmem"], count=chip["count"],
+                cores=chip["cores"], used_mib=sum(d["usedmem"] for d in grants),
+                slots=len(grants), used_cores=sum(d["usedcores"]
+                                                  for d in grants))
+
+
+def race_leg(plane, kube, plugin, tmp: Path, uuid: str) -> dict:
+    """RACE_PODS through POST /filter from two threads at once onto the
+    real card, each asking RACE_OVER_MIB past half of what /fleetz leaves
+    on it: one placed, the other refused with RACE_REASON, the card never
+    over its totals; the winner bound, allocated and run
+    (child_race_winner) under its grant, then both pods deleted.  The
+    winner's process window goes into ``card_window``."""
+    t_leg = time.monotonic()
+    base_mib = smi_card_mib()
+    before = fleetz_card(plane.base, uuid)
+    mib = (before["devmem"] - before["used_mib"]) // 2 + RACE_OVER_MIB
+    created = {}
+    for name, uid in RACE_PODS:
+        created[name], _ = admit_pod(plane.base, kube,
+                                     user_pod(name, uid, mib, 0))
+    barrier = threading.Barrier(len(created))
+    replies = {}
+
+    def race(name: str) -> None:
+        barrier.wait()
+        replies[name] = filter_pod(plane.base, created[name], PLUGIN_NODE)
+
+    threads = [threading.Thread(target=race, args=(name,))
+               for name in created]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=60)
+    check(len(replies) == len(created), f"the race's replies {replies}")
+    won = [n for n, (r, _) in replies.items()
+           if r["NodeNames"] == [PLUGIN_NODE] and not r["Error"]]
+    check(len(won) == 1, f"the racing pair's replies {replies}")
+    [winner] = won
+    [loser] = [n for n in replies if n != winner]
+    refused = replies[loser][0]
+    reason = refused["FailedNodes"].get(PLUGIN_NODE, "")
+    check(refused["NodeNames"] == [] and refused["Error"]
+          == "no node fits GPU request" and reason.startswith(RACE_REASON),
+          f"the race's loser {loser} answered {refused}")
+    after = fleetz_card(plane.base, uuid)
+    check(after["used_mib"] <= after["devmem"]
+          and after["slots"] <= after["count"]
+          and after["used_cores"] <= after["cores"]
+          and after["used_mib"] == before["used_mib"] + mib,
+          f"/fleetz's card after the race {after}, before {before}")
+    pod = created[winner]
+    meta = pod["metadata"]
+    status, bound = http(f"{plane.base}/bind", {
+        "PodName": meta["name"], "PodNamespace": meta["namespace"],
+        "PodUID": meta["uid"], "Node": PLUGIN_NODE})
+    check(status == 200 and bound == {"Error": ""},
+          f"{winner}: Bind answered {status} {bound}")
+    [resp] = plugin.allocate(1)
+    window = [time.monotonic(), None]
+    if os.environ.get("DEFRAG_TRAINER") == "standin":
+        # The CPU rehearsal (as StandinTrainer): no process on a card.
+        reading = dict(kind="standin", grant_mib=int(
+            resp.envs["CUDA_DEVICE_MEMORY_LIMIT_0"].rstrip("m")))
+    else:
+        env = kubelet_env(kube.get_pod("default", winner),
+                          dataclasses.asdict(resp), tmp / "race_volumes")
+        region = env.pop("CUDA_DEVICE_MEMORY_SHARED_CACHE", None)
+        child = EnforceChild("race_winner", tmp, label="race_winner",
+                             region=region, **env)
+        try:
+            reading = dict(child.run({}), kind="card")
+        finally:
+            if child.proc.poll() is None:
+                child.proc.kill()
+                child.proc.wait()
+    t0, back = time.monotonic(), None
+    while back is None and time.monotonic() - t0 < RETURN_S:
+        if smi_card_mib() <= base_mib + TOL_RETURN_MIB:
+            back = time.monotonic()
+    window[1] = back or time.monotonic()
+    check(back is not None, f"the card did not come back to {base_mib} MiB "
+          f"within {RETURN_S} s of the race winner's exit")
+    check(reading["grant_mib"] == mib, f"the winner ran under "
+          f"{reading['grant_mib']} MiB, granted {mib}")
+    for name in created:
+        kube.delete_pod("default", name)
+    return dict(mib=mib, before=before, after=after, winner=winner,
+                loser=loser, refused=refused,
+                filter_s={n: r[1] for n, r in replies.items()},
+                winner_run=reading, card_window=window,
+                s=time.monotonic() - t_leg)
+
+
 class ControlPlane:
     """The port's scheduler extender and a node agent's register stream,
     in this process, on ``kube``: a Scheduler (its informer on ``kube``'s
@@ -4086,6 +4306,7 @@ class ControlPlane:
         self.grpc.stop(grace=1).wait()
         if self.register._thread is not None:
             self.register._thread.join(timeout=10)
+        self.scheduler.close()
 
 
 def node_agent() -> int:
@@ -4147,6 +4368,8 @@ def node_agent() -> int:
         plugin = GpuDevicePlugin(
             kube, inv, dataclasses.replace(cfg, topology_policy=PLUGIN_POLICY),
             socket_dir=str(tmp))
+        # The racing pair first: S and T hold all of the card's cores.
+        race = race_leg(plane, kube, plugin, tmp, cards[0]["uuid"])
         pods = {}
         for name, uid, mib, priority in PLUGIN_PODS:
             spec = user_pod(name, uid, mib, priority, cores=CORES_SM_LIMIT)
@@ -4159,6 +4382,7 @@ def node_agent() -> int:
                 pod=kube.get_pod("default", name), handshake=handshake,
                 response=dataclasses.asdict(resp),
                 locked=nodelock.is_locked(kube, PLUGIN_NODE))
+        optimistic = optimistic_checks(plane, pods)
         fabric = fabric_checks(backend, plane, plugin, kube, inv)
         mig_real = real_mig_checks(kube, inv, cfg, cards, tmp)
         hgx = hgx_leg(plane, kube, tmp, trainers, members)
@@ -4181,7 +4405,8 @@ def node_agent() -> int:
             events_registered=events.registered if events else None,
             events_unsupported=events.unsupported if events else None,
             events_error=backend.events_error, pods=pods, fabric=fabric,
-            hgx=hgx, mig_real=mig_real, mig=mig, chart=chart, packages={})
+            hgx=hgx, mig_real=mig_real, mig=mig, chart=chart,
+            optimistic=optimistic, race=race, packages={})
         for dist in ("grpcio", "protobuf"):
             try:
                 out["packages"][dist] = importlib.metadata.version(dist)
@@ -6201,6 +6426,14 @@ def control_plane() -> int:
                "delete": delete, "allocate": allocate,
                "requested": lambda _: requested, "grants": grants,
                "tick": lambda _: sched.admission.tick(),
+               "throughput": lambda _: dict(
+                   optimistic=sched.cfg.optimistic_commit,
+                   commit_conflicts=sched.commit_conflicts,
+                   worker_pool_size=sched.worker_pool_size,
+                   workers_busy_peak=sched.workers_busy_peak,
+                   decision_write_failures=dict(
+                       sched.decision_write_failures),
+                   decision_writes_total=sched.decision_writes_total),
                "blocked": lambda _: sched.admission.blocked,
                "gangs": lambda _: {
                    key: {"members": sorted(g.members),
@@ -6520,9 +6753,15 @@ def phase_device_plugin(torch, record, vgpu: Path):
         check(elastic["kind"] == "card",
               f"the elastic gang ran on {elastic['kind']} members")
         e_lo, e_hi = (w - t0 for w in elastic["card_window"])
+        # The racing pair's winner, a pod's process, holds the card too.
+        race = na["race"]
+        check(race["winner_run"]["kind"] == "card",
+              f"the race's winner ran as a {race['winner_run']['kind']}")
+        r_lo, r_hi = (w - t0 for w in race["card_window"])
         agent_life = [x for x in life
                       if not lo - 1.0 <= x[0] <= hi
-                      and not e_lo - 1.0 <= x[0] <= e_hi]
+                      and not e_lo - 1.0 <= x[0] <= e_hi
+                      and not r_lo - 1.0 <= x[0] <= r_hi]
         rise = max(m for _, m, _ in agent_life) - base if agent_life \
             else None
         check(len(agent_life) >= 5 and rise <= TOL_CONTEXT_MIB,
@@ -6530,6 +6769,17 @@ def phase_device_plugin(torch, record, vgpu: Path):
               f"outside the trainers' window ({len(agent_life)} samples)")
         defrag["card_peak_mib"] = max(
             (m - base for t, m, _ in life if lo <= t <= hi), default=None)
+        race["card_peak_mib"] = max(
+            (m - base for t, m, _ in life if r_lo <= t <= r_hi),
+            default=None)
+        log("optimistic Filter on the real node:",
+            json.dumps(na["optimistic"]))
+        log("racing pair:", json.dumps({k: race[k] for k in (
+            "mib", "winner", "loser", "before", "after", "filter_s",
+            "card_peak_mib", "s")}, default=str),
+            "winner:", json.dumps({k: race["winner_run"].get(k) for k in (
+                "grant_mib", "mem_get_info_total", "forward_s",
+                "child_s")}))
         elastic["card_peak_mib"] = max(
             (m - base for t, m, _ in life if e_lo <= t <= e_hi),
             default=None)
@@ -7541,7 +7791,7 @@ class CapacitySims:
         self.log.close()
         check(self.error is None, f"the capacity simulations: {self.error!r}")
         out = {}
-        for name, want in CAPACITY_SHA256.items():
+        for name, want in CAPACITY_SHA256_OPTIMISTIC.items():
             run = self.runs.get(name)
             check(run is not None and run["rc"] == 0,
                   f"vgpu-simulate {name} exited "
@@ -7574,6 +7824,288 @@ class CapacitySims:
             self.log.close()
 
 
+def storm_pods(workload: dict) -> list:
+    """SIM_FLEET's pods, as ``vgpu-simulate`` makes them."""
+    from k8s_vgpu_scheduler_tpu_torch.cmd.simulate import spec_pod
+
+    return [spec_pod(entry, i) for entry in workload["pods"]
+            for i in range(int(entry.get("count", 1)))]
+
+
+def storm_overbooked(base: str) -> list:
+    """The cards /fleetz shows past a total (slots, MiB or cores)."""
+    status, fleet = http(f"{base}/fleetz", timeout=60)
+    check(status == 200, f"/fleetz answered {status}")
+    held = {}
+    for p in fleet["pods"]:
+        for ctr in p["devices"]:
+            for d in ctr:
+                h = held.setdefault(d["uuid"], [0, 0, 0])
+                h[0] += 1
+                h[1] += d["usedmem"]
+                h[2] += d["usedcores"]
+    return sorted(c["id"] for n in fleet["nodes"] for c in n["chips"]
+                  if c["id"] in held and (
+                      held[c["id"]][0] > c["count"]
+                      or held[c["id"]][1] > c["devmem"]
+                      or held[c["id"]][2] > c["cores"]))
+
+
+def storm_run(mode: str, flags: list) -> dict:
+    """One mode of the Filter storm (see STORM_SUBMITTERS): the port's
+    extender with ``vgpu-scheduler``'s flags ``flags`` over HTTP on a
+    FakeKube holding SIM_SCALE's fleet; SIM_FLEET's pods in STORM_WAVES
+    waves, each taken by STORM_SUBMITTERS threads through /filter and
+    /bind (the node lock released as the node agent's Allocate would,
+    a locked node retried), every STORM_CHURN_EVERY-th bound pod deleted
+    and resubmitted under a new name by the churn thread.  The hard
+    checks, and what the mode measured."""
+    import queue
+
+    from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import (build_config,
+                                                           parse_args)
+    from k8s_vgpu_scheduler_tpu_torch.cmd.simulate import build_fleet
+    from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube
+    from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.metrics import \
+        start_metrics_server
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.routes import ExtenderServer
+    from k8s_vgpu_scheduler_tpu_torch.util import nodelock, perf
+    from k8s_vgpu_scheduler_tpu_torch.util.types import (
+        ASSIGNED_IDS_ANNOTATION, ASSIGNED_NODE_ANNOTATION)
+
+    scale = dict(zip(SIM_SCALE[::2], SIM_SCALE[1::2]))
+    rehearsal = os.environ.get("FILTER_STORM") == "rehearsal"
+    if rehearsal:
+        scale["--nodes"] = str(STORM_REHEARSAL_NODES)
+    perf.registry().reset()
+    cfg = build_config(parse_args(["--node-scheduler-policy",
+                                   scale["--policy"], *flags]))
+    check(cfg.optimistic_commit == (mode == "optimistic"),
+          f"{mode}: optimistic_commit {cfg.optimistic_commit}")
+    kube = FakeKube()
+    sched = Scheduler(kube, cfg)
+    names = build_fleet(sched, kube, int(scale["--nodes"]),
+                        int(scale["--chips"]), int(scale["--hbm"]),
+                        (int(scale["--mesh"]),), "h100")
+    kube.watch_pods(sched.on_pod_event)
+    serial_calls = [0]
+    serial = sched._decide_serial_locked
+
+    def counted_serial(*a, **kw):
+        serial_calls[0] += 1
+        return serial(*a, **kw)
+
+    sched._decide_serial_locked = counted_serial
+    server = ExtenderServer(sched, cfg, host="127.0.0.1", port=0)
+    server.start()
+    metrics = start_metrics_server(sched, port=0, host="127.0.0.1")
+    base = f"http://127.0.0.1:{server.port}"
+    pods = storm_pods(json.loads(SIM_FLEET.read_text()))
+    if rehearsal:
+        pods = pods[::STORM_REHEARSAL_EVERY]
+    results, lock = {}, threading.Lock()
+    counts = dict(filters=0, binds=0, bind_retries=0, churned=0)
+    waves = []
+    try:
+        t0 = time.monotonic()
+        per = -(-len(pods) // STORM_WAVES)
+        for w in range(STORM_WAVES):
+            work, churn = queue.Queue(), queue.Queue()
+            for pod in pods[w * per:(w + 1) * per]:
+                work.put(pod)
+            bound = [0]
+
+            def submit() -> None:
+                while True:
+                    pod = work.get()
+                    if pod is None:
+                        work.task_done()
+                        return
+                    try:
+                        storm_one(base, kube, pod, names, results, counts,
+                                  lock, bound, churn, nodelock)
+                    except BaseException as exc:  # noqa: BLE001
+                        with lock:
+                            results[pod["metadata"]["name"]] = dict(
+                                error=f"{type(exc).__name__}: {exc}",
+                                harness=True)
+                    finally:
+                        work.task_done()
+
+            def churner() -> None:
+                while True:
+                    item = churn.get()
+                    if item is None:
+                        churn.task_done()
+                        return
+                    pod = item
+                    meta = pod["metadata"]
+                    kube.delete_pod(meta["namespace"], meta["name"])
+                    again = json.loads(json.dumps(pod))
+                    n = again["metadata"]
+                    n["name"] += "-r"
+                    n["uid"] += "-r"
+                    n["annotations"] = {}
+                    with lock:
+                        counts["churned"] += 1
+                        results[meta["name"]]["deleted"] = True
+                    work.put(again)
+                    churn.task_done()
+
+            threads = [threading.Thread(target=submit, daemon=True)
+                       for _ in range(STORM_SUBMITTERS)]
+            ct = threading.Thread(target=churner, daemon=True)
+            for th in [*threads, ct]:
+                th.start()
+            while True:
+                work.join()
+                churn.join()
+                if work.unfinished_tasks == 0:
+                    break
+            for _ in threads:
+                work.put(None)
+            churn.put(None)
+            for th in [*threads, ct]:
+                th.join(timeout=30)
+            bad = storm_overbooked(base)
+            check(not bad, f"{mode}: wave {w}: cards over their totals "
+                  f"{bad[:8]}")
+            waves.append(dict(s=time.monotonic() - t0, bound=bound[0]))
+        wall = time.monotonic() - t0
+        harness = {k: r for k, r in results.items() if r.get("harness")}
+        check(not harness, f"{mode}: the harness failed on "
+              f"{list(harness.items())[:3]}")
+        placed = {k: r for k, r in results.items()
+                  if r.get("node") and not r.get("deleted")}
+        refused = {k: r for k, r in results.items() if not r.get("node")}
+        check(all(r["error"] and r["reasons"] for r in refused.values()),
+              f"{mode}: refusals without a reason "
+              f"{[k for k, r in refused.items() if not r['error']][:8]}")
+        unwritten = []
+        for name, r in placed.items():
+            anns = kube.get_pod("sim", name)["metadata"]["annotations"]
+            if anns.get(ASSIGNED_NODE_ANNOTATION) != r["node"] \
+                    or not anns.get(ASSIGNED_IDS_ANNOTATION):
+                unwritten.append(name)
+        check(not unwritten, f"{mode}: placed pods without their decision "
+              f"annotations {unwritten[:8]}")
+        bad = storm_overbooked(base)
+        check(not bad, f"{mode}: cards over their totals at the end "
+              f"{bad[:8]}")
+        t1 = time.monotonic()
+        status, body = http(f"{base}/perfz", timeout=60)
+        perfz_ms = 1e3 * (time.monotonic() - t1)
+        check(status == 200, f"{mode}: /perfz answered {status}")
+        perfz_bytes = len(json.dumps(body).encode())
+        scraped = scrape(f"http://127.0.0.1:{metrics.port}/metrics")[0]
+        conflicts = metric(scraped, "vtpu_filter_commit_conflicts_total")
+        check(conflicts == body["counters"]["commit_conflicts"]
+              == sched.commit_conflicts,
+              f"{mode}: vtpu_filter_commit_conflicts {conflicts}, /perfz "
+              f"{body['counters']['commit_conflicts']}")
+
+        def window(ring: dict) -> dict:
+            return {k: ring[k] for k in ("n", "p50_s", "p99_s", "max_s")}
+
+        phases = body["phases"]
+        commit = body["locks"].get("commit", {})
+        return dict(
+            mode=mode, nodes=len(names), pods=len(pods), wall_s=wall,
+            waves=waves, **counts,
+            decisions_per_s=counts["filters"] / wall,
+            placed=len(placed), refused=len(refused),
+            refusal_errors=sorted({r["error"] for r in refused.values()}),
+            commit_conflicts=sched.commit_conflicts,
+            serial_fallbacks=serial_calls[0] if mode == "optimistic"
+            else None,
+            decision_writer=body["decision_writer"],
+            opt_evaluate=window(phases["opt-evaluate"]["window"])
+            if "opt-evaluate" in phases else None,
+            opt_commit=window(phases["opt-commit"]["window"])
+            if "opt-commit" in phases else None,
+            commit_lock=dict(acquires=commit.get("acquires"),
+                             contended=commit.get("contended"),
+                             contention_ratio=commit.get("contention_ratio"),
+                             wait=window(commit["wait"]) if commit else None),
+            worker_pool_size=sched.worker_pool_size,
+            workers_busy_peak=sched.workers_busy_peak,
+            usage_rebuilds=sched.usage_rebuilds,
+            usage_writethroughs=sched.usage_writethroughs,
+            perfz_ms=perfz_ms, perfz_bytes=perfz_bytes)
+    finally:
+        metrics.stop()
+        server.stop()
+        sched.close()
+
+
+def storm_one(base, kube, pod, names, results, counts, lock, bound, churn,
+              nodelock) -> None:
+    """One pod of the storm: created, Filtered over the whole fleet and,
+    where placed, Bound (a locked node retried; the lock then released as
+    the node agent's Allocate would); every STORM_CHURN_EVERY-th bound pod
+    goes to the churn thread."""
+    meta = pod["metadata"]
+    kube.create_pod(pod)
+    status, reply = http(f"{base}/filter", {"Pod": pod, "NodeNames": names},
+                         timeout=120)
+    check(status == 200, f"{meta['name']}: Filter answered {status} {reply}")
+    with lock:
+        counts["filters"] += 1
+    if not reply["NodeNames"]:
+        with lock:
+            results[meta["name"]] = dict(node=None, error=reply["Error"],
+                                         reasons=sorted(set(
+                                             reply["FailedNodes"].values())))
+        return
+    [node] = reply["NodeNames"]
+    for tries in range(1, STORM_BIND_TRIES + 1):
+        status, bound_reply = http(f"{base}/bind", {
+            "PodName": meta["name"], "PodNamespace": meta["namespace"],
+            "PodUID": meta["uid"], "Node": node}, timeout=120)
+        check(status == 200, f"{meta['name']}: Bind answered {status}")
+        if not bound_reply["Error"]:
+            break
+        time.sleep(0.002)
+    else:
+        check(False, f"{meta['name']}: Bind still refused after "
+              f"{STORM_BIND_TRIES} tries: {bound_reply}")
+    nodelock.release_node(kube, node)
+    with lock:
+        counts["binds"] += 1
+        counts["bind_retries"] += tries - 1
+        results[meta["name"]] = dict(node=node)
+        bound[0] += 1
+        send = bound[0] % STORM_CHURN_EVERY == 0 \
+            and not meta["name"].endswith("-r")
+    if send:
+        churn.put(pod)
+
+
+def filter_storm() -> int:
+    """The Filter storm (``--enforce-child filter_storm``), in a process
+    that never imports torch: storm_run with ``--serial-filter`` and then
+    with the default, one ENFORCE line with both modes' readings; the
+    child ends within STORM_LIMIT_S."""
+    sys.path.insert(0, str(ROOT))
+    t0 = time.monotonic()
+    try:
+        modes = {}
+        for mode, flags in (("serial", ["--serial-filter"]),
+                            ("optimistic", [])):
+            modes[mode] = storm_run(mode, flags)
+        out = dict(modes=modes, s=time.monotonic() - t0,
+                   speedup=modes["optimistic"]["decisions_per_s"]
+                   / modes["serial"]["decisions_per_s"])
+        check(out["s"] <= STORM_LIMIT_S, f"the storm took {out['s']:.1f} s, "
+              f"past {STORM_LIMIT_S} s")
+    except Fail as exc:
+        print(f"chip_smoke: FAIL: filter_storm: {exc}", file=sys.stderr)
+        return 1
+    print("ENFORCE " + json.dumps(out), flush=True)
+    return 0
+
+
 class FleetView:
     """Leg (b) of the observability surface: ``vgpu-monitor`` itself, as a
     process through its module, over phase_preempt's containers dir (the
@@ -7589,6 +8121,7 @@ class FleetView:
     def __init__(self, root: Path, vgpu: Path, env: dict) -> None:
         self.root = root
         self.sim, self.sim_files, self.capacity = None, [], None
+        self.storm, self.storm_files = None, []
         ports = [free_port() for _ in range(3)]
         self.url = f"http://127.0.0.1:{ports[0]}/metrics"
         self.grpc = f"127.0.0.1:{ports[1]}"
@@ -7630,6 +8163,15 @@ class FleetView:
                                                daemon=True)
             self.sim_waiter.start()
             self.capacity = CapacitySims(root.parent, env)
+            # The Filter storm, beside the same pods.
+            self.storm_out = root.parent / "filter_storm.out"
+            self.storm_files = [open(self.storm_out, "w"),
+                                open(out / "filter_storm.log", "w")]
+            self.storm_t0 = time.monotonic()
+            self.storm = subprocess.Popen(
+                [sys.executable, str(ROOT / "chip_smoke.py"),
+                 "--enforce-child", "filter_storm"], env=env, cwd=ROOT,
+                stdout=self.storm_files[0], stderr=self.storm_files[1])
         except BaseException:
             self.stop()
             raise
@@ -7657,10 +8199,31 @@ class FleetView:
         return dict(out, s=self.sim_s, read_waited_s=waited,
                     exit_code=self.sim.returncode)
 
+    def storm_leg(self) -> dict:
+        """The Filter storm's readings, once its child has ended (within
+        STORM_LIMIT_S of its start, plus the process's start-up)."""
+        t0 = time.monotonic()
+        try:
+            self.storm.wait(timeout=max(
+                0.0, STORM_LIMIT_S + 30.0 - (t0 - self.storm_t0)))
+        except subprocess.TimeoutExpired:
+            check(False, f"the Filter storm ran past {STORM_LIMIT_S} s")
+        waited = time.monotonic() - t0
+        for f in self.storm_files:
+            f.close()
+        check(self.storm.returncode == 0, f"the Filter storm exited "
+              f"{self.storm.returncode} (chiprun_out/filter_storm.log)")
+        line = [x for x in self.storm_out.read_text().splitlines()
+                if x.startswith("ENFORCE ")]
+        check(len(line) == 1, "the Filter storm printed no result")
+        out = json.loads(line[0][len("ENFORCE "):])
+        return dict(out, read_waited_s=waited,
+                    life_s=time.monotonic() - self.storm_t0)
+
     def stop(self) -> None:
         if self.capacity is not None:
             self.capacity.stop()
-        for proc in (self.proc, self.sim):
+        for proc in (self.proc, self.sim, self.storm):
             if proc is None or proc.poll() is not None:
                 continue
             proc.terminate()
@@ -7669,7 +8232,7 @@ class FleetView:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait()
-        for f in [self.log, *self.sim_files]:
+        for f in [self.log, *self.sim_files, *self.storm_files]:
             if not f.closed:
                 f.close()
 
@@ -7788,8 +8351,9 @@ class FleetView:
         trail = [x["name"] for x in sorted(
             spans, key=lambda x: int(x["startTimeUnixNano"]))
             if x not in agent]
-        check(trail == ["webhook", "filter", "decision-write", "bind",
-                        "allocate"] and len(agent) == 1,
+        # The optimistic decision's `commit` span sits inside `filter`.
+        check(trail == ["webhook", "filter", "commit", "decision-write",
+                        "bind", "allocate"] and len(agent) == 1,
               f"V's trace {trail}, the agent's allocate spans {len(agent)}")
         window = 86400
         t2 = time.monotonic()
@@ -7808,7 +8372,7 @@ class FleetView:
                   f"{res.returncode}: {res.stderr.strip()[-2000:]}")
             return json.loads(res.stdout), time.monotonic() - t0
 
-        with ThreadPoolExecutor(5) as pool:
+        with ThreadPoolExecutor(6) as pool:
             rep = pool.submit(command, "vgpu_report", "--cluster", plane.base,
                               "--json", "--pods", "--window", str(window))
             top = pool.submit(command, "vgpu_smi", "top", "--cluster",
@@ -7819,10 +8383,12 @@ class FleetView:
                 ok=0 if name == "fit" else 1)
                 for name, path in live_specs.items()}
             scale = pool.submit(self.scale_leg)
+            storm = pool.submit(self.storm_leg)
             (report, report_s), (topv, top_s) = rep.result(), top.result()
             (fit, fit_s), (over, over_s) = (sims["fit"].result(),
                                             sims["over"].result())
             scaled = scale.result()
+            stormed = storm.result()
         t0 = time.monotonic()
         capacity = self.capacity.result()
         capacity_waited_s = time.monotonic() - t0
@@ -7856,7 +8422,7 @@ class FleetView:
             vgpu_report_s=report_s, vgpu_smi_top_s=top_s, top_v2=trow,
             fleetz=dict(fleetz, s=fleetz_s),
             simulate_live=dict(simulated, fit_s=fit_s, over_s=over_s),
-            simulate_scale=scaled,
+            simulate_scale=scaled, filter_storm=stormed,
             simulate_capacity=dict(capacity, read_waited_s=capacity_waited_s))
         log("fleet view: " + json.dumps(out))
         return out
@@ -7926,6 +8492,118 @@ def capacity_checks(doc: dict, metrics: dict, queuez: dict,
                 nodes_recommended=doc["nodes_recommended"])
 
 
+PERF_PHASES = ("register-apply", "informer-apply", "opt-evaluate",
+               "opt-commit", "decision-flush", "quota-tick", "capacity-tick")
+PERF_READ_TRIES = 8
+
+
+def perf_quiet(a: dict, b: dict) -> bool:
+    """Whether nothing moved between two /perfz documents but what a
+    /metrics scrape moves itself (the capacity sample it takes, the locks
+    its reads take, the GC its allocations run)."""
+    def still(doc):
+        return (
+            {n: p["count"] for n, p in doc["phases"].items()
+             if n not in ("capacity-tick", "gc-pause")},
+            doc["locks"].get("commit", {}).get("acquires"),
+            doc["counters"], doc["decision_writer"],
+            doc["informer"]["lag_s"], doc["informer"]["resync_last_s"])
+    return still(a) == still(b)
+
+
+def perf_view(plane) -> dict:
+    """The performance observatory of phase_preempt's extender at one
+    quota-leg step: /perfz, the exporter's /metrics, /perfz again, read
+    again until the two /perfz documents agree on all the scrape does not
+    move itself (perf_quiet).  Each of PERF_PHASES has a record; the
+    twelve families of the throughput machinery read as /perfz: each
+    phase's record count (but the capacity tick, which the scrape itself
+    samples) and the phase and lock names, the commit lock's acquires and
+    sampled acquires, the commit conflicts, the GC collections, the
+    informer lag and resync cost; the evaluation pool's gauges and the
+    failed decision writes as the scheduler's counters (the control
+    plane's ``throughput``).  (/perfz's milliseconds and bytes, the
+    tries.)"""
+    import urllib.request
+
+    for tries in range(1, PERF_READ_TRIES + 1):
+        t0 = time.monotonic()
+        with urllib.request.urlopen(f"{plane.base}/perfz", timeout=30) as r:
+            check(r.status == 200, f"/perfz answered {r.status}")
+            raw = r.read()
+        ms = 1e3 * (time.monotonic() - t0)
+        a = json.loads(raw)
+        metrics = scrape(plane.metrics)[0]
+        status, b = http(f"{plane.base}/perfz", timeout=30)
+        check(status == 200, f"/perfz answered {status}")
+        if perf_quiet(a, b):
+            break
+    else:
+        check(False, f"the observatory moved between /perfz and /metrics "
+              f"in each of {PERF_READ_TRIES} tries")
+    counts = {n: p["count"] for n, p in a["phases"].items()}
+    check(all(counts.get(n, 0) > 0 for n in PERF_PHASES),
+          f"/perfz's phase records {counts}")
+    fam = "vtpu_cycle_phase_seconds_count"
+    shown = {x["phase"]: v for x, v in metrics.get(fam, [])}
+    check(set(shown) == set(counts), f"{fam}'s phases {sorted(shown)}, "
+          f"/perfz's {sorted(counts)}")
+    check(all(shown[n] == c for n, c in counts.items()
+              if n not in ("capacity-tick", "gc-pause")),
+          f"{fam} {shown}, /perfz's {counts}")
+    locks = {x["lock"]: v for x, v in
+             metrics.get("vtpu_lock_acquires_total", [])}
+    check(set(locks) == set(a["locks"]), f"the locks {sorted(locks)}, "
+          f"/perfz's {sorted(a['locks'])}")
+    commit = a["locks"]["commit"]
+    sampled = -(-commit["acquires"] // commit["sampled_1_in"])
+    check(locks["commit"] == commit["acquires"] and metric(
+        metrics, "vtpu_lock_sampled_acquires_total", lock="commit")
+        == sampled, f"the commit lock's acquires {locks['commit']}, "
+        f"/perfz's {commit}")
+    for name, family in (("lock wait", "vtpu_lock_wait_seconds_count"),
+                         ("lock hold", "vtpu_lock_hold_seconds_count")):
+        got = {x["lock"] for x, _ in metrics.get(family, [])}
+        check(got == set(a["locks"]), f"{name}'s locks {sorted(got)}")
+    check(metric(metrics, "vtpu_filter_commit_conflicts_total")
+          == a["counters"]["commit_conflicts"],
+          f"vtpu_filter_commit_conflicts, /perfz's {a['counters']}")
+    # The scrape's own allocations collect: its reading lies between the
+    # two documents'.
+    gc_got = [metric(metrics, "vtpu_gc_collections_total", generation=str(g))
+              for g in range(3)]
+    check(all(x <= y <= z for x, y, z in zip(
+        a["gc"]["collections"], gc_got, b["gc"]["collections"])),
+          f"vtpu_gc_collections {gc_got}, /perfz's {a['gc']['collections']} "
+          f"and {b['gc']['collections']}")
+    lag = metric(metrics, "vtpu_informer_lag_seconds")
+    resync = metric(metrics, "vtpu_informer_resync_seconds")
+    check(round(lag, 9) == a["informer"]["lag_s"]
+          and round(resync, 6) == a["informer"]["resync_last_s"],
+          f"the informer's lag {lag} and resync {resync}, /perfz's "
+          f"{a['informer']}")
+    own = plane.call("throughput")
+    check(own["optimistic"], "the extender decides serially")
+    check(metric(metrics, "vtpu_filter_worker_pool_size")
+          == own["worker_pool_size"]
+          and metric(metrics, "vtpu_filter_workers_busy_peak")
+          == own["workers_busy_peak"]
+          and metric(metrics, "vtpu_decision_write_failures_total",
+                     reason="transport")
+          == own["decision_write_failures"].get("transport", 0),
+          f"the pool and write-failure families against the scheduler's "
+          f"{own}")
+    return dict(perfz_ms=ms, perfz_bytes=len(raw), tries=tries,
+                phases={n: counts[n] for n in PERF_PHASES},
+                commit_conflicts=a["counters"]["commit_conflicts"],
+                decision_writer=a["decision_writer"],
+                commit_lock={k: commit[k] for k in (
+                    "acquires", "contended", "contention_ratio")},
+                opt_evaluate_p99_s=a["phases"]["opt-evaluate"]["window"][
+                    "p99_s"],
+                throughput=own)
+
+
 def queue_view(plane) -> dict:
     """The capacity queues as the extender's /queuez, its /metrics queue
     families and vgpu-report (in this process, --json) show them, held to
@@ -7982,7 +8660,8 @@ def queue_view(plane) -> dict:
     check(not any("default" in q["namespaces"] for q in doc["queues"]),
           f"a queue governs the default namespace: {doc}")
     return dict(queuez=doc, rows=rows, report_rows=columns, capacityz=cap,
-                capacity=dict(capacity, ms=cap_ms, tries=tries))
+                capacity=dict(capacity, ms=cap_ms, tries=tries),
+                perf=perf_view(plane))
 
 
 def capacity_leg_checks(plane, last: dict) -> dict:
@@ -8121,6 +8800,9 @@ def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list,
     def admits(acts) -> list:
         return [a["pod"] for a in acts if a["kind"] == "admit"]
 
+    # One tick with nothing pending first, so the observatory's quota-tick
+    # phase has a record at every step (perf_view).
+    check(tick("start") == [], f"the first tick: {out['ticks'][-1]}")
     admit("B")
     views["b_held"] = queue_view(plane)
     a = views["b_held"]["rows"]["team-a"]
@@ -8226,6 +8908,7 @@ def quota_leg(plane, uuid: str, volumes: Path, tmp: Path, children: list,
         "queuez": {k: v["queuez"] for k, v in views.items()},
         "capacity_settings": CAPACITY_CFG,
         "capacity_steps": {k: v["capacity"] for k, v in steps.items()},
+        "perf_steps": {k: v["perf"] for k, v in steps.items()},
         "capacity": capacity,
         "seconds": time.monotonic() - t_leg}
 
@@ -9428,6 +10111,8 @@ def main() -> int:
             return control_plane()
         if sys.argv[2] == "mock_agent":
             return mock_agent()
+        if sys.argv[2] == "filter_storm":
+            return filter_storm()
         return enforce_child(sys.argv[2])
     t_script = time.monotonic()
     bytecode_cache()

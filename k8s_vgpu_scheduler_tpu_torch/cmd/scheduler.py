@@ -23,7 +23,9 @@ mesh resizing: ``--enable-elastic``, ``--elastic-interval``,
 ``--elastic-downgrade-after``; and the capacity forecast:
 ``--capacity-interval``, ``--capacity-bucket``,
 ``--capacity-season-buckets``, ``--capacity-horizon`` and
-``--capacity-starve-after``.
+``--capacity-starve-after``; and the optimistic Filter and the
+performance observatory: ``--filter-workers``, ``--serial-filter``,
+``--commit-retries``, ``--no-perf`` and ``--perf-tracemalloc``.
 Boot order: list the pods and reconcile the grants before anything serves
 (a restarted scheduler that filtered against an empty registry would book
 cards twice), then the watch thread, the rescue thread, the admission
@@ -83,6 +85,18 @@ def parse_args(argv=None):
                    choices=("spread", "binpack"),
                    help="among fitting nodes: spread = the most free "
                         "capacity wins; binpack = the fullest wins")
+    p.add_argument("--filter-workers", type=int, default=0,
+                   help="candidate-evaluation worker pool size; 0 = auto "
+                        "(min(8, cpu count)), 1 = evaluate in the calling "
+                        "thread")
+    p.add_argument("--serial-filter", action="store_true",
+                   help="disable the optimistic snapshot/commit Filter and "
+                        "decide serially under one lock (A/B baseline and "
+                        "operational escape hatch)")
+    p.add_argument("--commit-retries", type=int, default=4,
+                   help="optimistic commits that lose their revision race "
+                        "re-evaluate at most this many times before one "
+                        "fully-locked decision")
     p.add_argument("--enable-preemption", action="store_true",
                    help="let a pod that fits nowhere ask strictly lower-"
                         "priority pods to checkpoint and leave (the "
@@ -148,6 +162,18 @@ def parse_args(argv=None):
                    help="a queue counts as starving once a pod has "
                         "waited this long unplaced — the ETA the "
                         "starvation forecast predicts toward")
+    p.add_argument("--no-perf", action="store_true",
+                   help="disable the control-plane performance "
+                        "observatory (phase rings, lock wait/hold "
+                        "telemetry, /perfz quantiles; the instrumented "
+                        "overhead budget is <=2%% on bench_batch_cycle "
+                        "— this is the escape hatch and the overhead "
+                        "A/B's baseline)")
+    p.add_argument("--perf-tracemalloc", action="store_true",
+                   help="opt-in tracemalloc allocation tracking: "
+                        "/perfz then carries the top allocation sites "
+                        "(costs memory + CPU on every allocation — a "
+                        "diagnosis tool, not an always-on default)")
     p.add_argument("--debug", action="store_true",
                    help="enable the /debug endpoints (stacks, wall-clock "
                         "profile, vars, tracez, events); unauthenticated — "
@@ -236,6 +262,9 @@ def build_config(args) -> Config:
         default_cores=args.default_cores,
         topology_policy=args.topology_policy,
         node_scheduler_policy=args.node_scheduler_policy,
+        optimistic_commit=not args.serial_filter,
+        filter_workers=args.filter_workers,
+        commit_retries=args.commit_retries,
         enable_preemption=args.enable_preemption,
         lease_ttl_s=args.lease_ttl, lease_grace_beats=args.lease_grace_beats,
         quarantine_flap_threshold=args.quarantine_flap_threshold,
@@ -254,6 +283,8 @@ def build_config(args) -> Config:
         capacity_horizon_s=args.capacity_horizon,
         capacity_starve_after_s=args.capacity_starve_after,
         enable_debug=args.debug,
+        perf_enabled=not args.no_perf,
+        perf_tracemalloc=args.perf_tracemalloc,
         quota_queues=load_quota_config(args.quota_config),
         fair_share_usage_informed=args.fair_share_usage_informed,
         admission_interval_s=args.admission_interval,
@@ -440,10 +471,7 @@ def main(argv=None):
         pass
     finally:
         stop.set()
-        scheduler.rescuer.stop()
-        scheduler.admission.stop()
-        scheduler.defrag.stop()
-        scheduler.elastic.stop()
+        scheduler.close()
         http_server.stop()
         metrics_server.stop()
         grpc_server.stop(grace=2)

@@ -439,6 +439,7 @@ def run_simulation(workload: dict, *, nodes: int = 0, chips: int = 0,
             }
             total_mem += u.total_mem
             used_mem += u.used_mem
+    s.close()
     result = {
         "fleet": (
             {"nodes": len(names), "source": "live /fleetz snapshot",
@@ -945,6 +946,7 @@ def _run_frag_sim(spec: dict, defrag_on: bool, *, nodes: int, chips: int,
             views, [gang_chips]),
         "max_free_box": frag_mod.largest_free_box(views),
     }
+    s.close()
     replaced = sorted(n for n in placed_at
                       if n.endswith("-r"))
     return {
@@ -1202,6 +1204,7 @@ def _run_queue_sim(spec: dict, quota_on: bool, *, nodes: int, chips: int,
         if bad:
             overbooked = sorted(set(overbooked) | set(bad))
         clock.advance(tick)
+    s.close()
 
     measured_window = max(tick, horizon - measure_from)
     util = busy_seconds / (fleet_chips * measured_window) \

@@ -42,11 +42,9 @@ Where the port departs from the JAX module, each place says so: the
 resize records the JAX controller sends to its provenance store
 (``resize-shrink``/``-grow`` on every member) are left out until the
 provenance slice (ROADMAP A.5), as the rescuer's and the admission
-loop's are; ``tick`` runs without the JAX ``elastic-tick`` perf timer
-(the port has no ``util/perf.py``, as ``placement/defrag.py`` says); and
-the one-planner gate of a sharded control plane (``shards.leads``) waits
-for the shard slice: the port's single replica always plans.  This
-module imports no torch, grpc or protobuf.
+loop's are; and the one-planner gate of a sharded control plane
+(``shards.leads``) waits for the shard slice: the port's single replica
+always plans.  This module imports no torch, grpc or protobuf.
 """
 
 from __future__ import annotations
@@ -58,6 +56,7 @@ import time
 from typing import Dict, List, Optional, Tuple
 
 from ..placement.frag import fleet_views
+from ..util import perf
 from ..placement.mesh import (
     MESH_ANNOTATION,
     local_mesh_for,
@@ -461,8 +460,12 @@ class ResizeController:
     def tick(self) -> List[dict]:
         """One elastic pass: progress in-flight resizes, downgrade
         blocked pending gangs, then plan at most ONE grow.  Returns the
-        actions taken (tests, the simulator report).  The JAX tick runs
-        under its ``elastic-tick`` perf timer; the port has none."""
+        actions taken (tests, the simulator report).  Timed into the
+        ``elastic-tick`` phase of the performance observatory."""
+        with perf.phase_timer("elastic-tick"):
+            return self._tick()
+
+    def _tick(self) -> List[dict]:
         now = self._clock()
         actions: List[dict] = []
         self._progress_in_flight(now, actions)

@@ -23,9 +23,10 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-import threading
 import time
 from typing import Callable, Dict, List, Optional, Tuple
+
+from ..util import perf
 
 
 class LeaseState(enum.IntEnum):
@@ -66,7 +67,10 @@ class LeaseTracker:
                  clock: Optional[Callable[[], float]] = None) -> None:
         self.cfg = cfg or LeaseConfig()
         self._clock = clock or time.monotonic
-        self._lock = threading.Lock()
+        # Wait/hold telemetry under lock="leases" on /perfz; every
+        # register message and every candidate's gate take it, so hold
+        # samples are 1-in-64.
+        self._lock = perf.TimedLock("leases", sample_shift=6)
         self._leases: Dict[str, NodeLease] = {}
         # The state sweep() last reported for each node: the edge
         # detector.  Between sweeps a node may already be Dead (state_of

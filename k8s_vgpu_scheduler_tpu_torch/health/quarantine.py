@@ -10,7 +10,7 @@ quarantine adds hysteresis on top of the bit:
     QUARANTINED ── continuously healthy for probation_s ──▶ ACTIVE
 
 A quarantined card is stripped from the usage every Filter fits against
-(``Scheduler._usage``), so no fit can see it, and grants that hold it
+(``Scheduler._refresh_entry_locked``), so no fit can see it, and grants that hold it
 become rescuable (``health/rescuer.py``).  Release needs a sustained
 healthy probation: an unhealthy reading during it restarts the clock.
 
@@ -19,9 +19,10 @@ health poll re-registers on every flip, ``deviceplugin/cache.py``).
 Agents may also report per-card error counter deltas; ``error_threshold``
 errors inside the flap window quarantine a card whose bit never flipped.
 
-Every quarantine and release calls ``on_change(node)``, outside the lock.
-The port's scheduler builds each decision's usage afresh, so it needs no
-callback; the hook stays for embedders that cache usage.
+Every quarantine and release calls ``on_change(node)``, outside the lock:
+the scheduler passes ``NodeManager.touch``, so the node's inventory rev
+moves, its cached usage rebuilds and an optimistic commit validated
+before the change fails, as in the JAX scheduler.
 """
 
 from __future__ import annotations

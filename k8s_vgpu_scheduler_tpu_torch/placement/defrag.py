@@ -53,10 +53,9 @@ a plan that needs them asks the controller for a shrink instead of an
 eviction.  With ``--enable-elastic`` off the shrink set is empty and the
 plans are those of a build without the controller.
 
-Where the port departs from the JAX module, each place says so: ``tick``
-runs without the JAX ``defrag-tick`` perf timer (the port has no
-``util/perf.py``), and the pods are grouped by node through the
-scheduler's ``_pods_by_node``.
+The pods are grouped by node through the scheduler's pod registry
+(``pods.by_node``), where the JAX module calls the scheduler's
+``_pods_by_node`` wrapper of it.
 """
 
 from __future__ import annotations
@@ -69,6 +68,7 @@ from typing import Dict, FrozenSet, List, Optional, Set, Tuple
 
 from ..topology.torus import box_coords, box_coords_origins, factor_shapes
 from ..tpulib.types import Coord, TopologyDesc
+from ..util import perf
 from .frag import fleet_views, node_free_view
 from .mesh import (
     max_free_box_volume,
@@ -436,10 +436,10 @@ class Defragmenter:
         """One defrag pass: expire reservations, progress in-flight
         plans, then plan at most ONE new compaction (single-writer over
         the fleet's movable set keeps plans from fighting each other).
-        Returns the actions taken (tests, the simulator report).  The
-        JAX tick runs inside its ``defrag-tick`` perf timer; the port has
-        no perf observatory yet, so the tick is untimed here."""
-        return self._tick()
+        Returns the actions taken (tests, the simulator report).  Timed
+        into the ``defrag-tick`` phase of the performance observatory."""
+        with perf.phase_timer("defrag-tick"):
+            return self._tick()
 
     def _tick(self) -> List[dict]:
         now = self._clock()
@@ -520,7 +520,7 @@ class Defragmenter:
 
     def _plan_locked_out(self, demand: Demand) -> Optional[DefragPlan]:
         snapshot = self.s.snapshot()
-        pods_by_node = self.s._pods_by_node()
+        pods_by_node = self.s.pods.by_node()
         protected = {
             uid for g in self.s.gangs.groups().values()
             for uid in (*g.members, *g.placements)

@@ -6,16 +6,15 @@ freed cards must reach the pod (or gang) that was blocked — not the next
 best-effort single that happens to Filter first, or the compaction
 bought nothing.  A reservation takes the box's cards out of the
 schedulable set the same way quarantine does: stripped from the usage
-the scheduler builds for a decision (``core.Scheduler._usage``), which
+the scheduler caches for its snapshot
+(``core.Scheduler._refresh_entry_locked``), which
 every fit path — per-pod, gang, the defragmenter's views — reads, so
 nothing can place on a reserved card.
 
-The port has no revision protocol (the JAX scheduler's
-``NodeManager.touch`` bumps a node's inventory rev so an optimistic
-commit computed before a reservation change fails its validation): each
-of the port's decisions rebuilds usage under the decision lock, so a
-reservation is seen by the next decision, and ``on_change`` is None
-there.  It stays a hook for an embedder that caches usage.
+Every reservation change calls ``on_change(node)``: the scheduler passes
+``NodeManager.touch``, so the node's inventory rev moves, its cached
+usage rebuilds, and an optimistic commit computed before the change
+fails its revision validation.
 
 When the beneficiary's own Filter arrives, the scheduler releases the
 reservation first (release_for) — the cards return to the usage and the

@@ -53,6 +53,7 @@ from .queues import (
 from ..elastic.controller import RECLAIM_SHRINK_PREFIX
 from ..elastic.ranges import next_smaller
 from ..placement.mesh import mesh_volume
+from ..util import perf
 from .reclaim import ShrinkCandidate, plan_reclaim, plan_shrinks
 
 log = logging.getLogger(__name__)
@@ -94,7 +95,12 @@ class AdmissionLoop:
     # -- one tick --------------------------------------------------------------
     def tick(self, now: Optional[float] = None) -> List[dict]:
         """One admission pass; returns the actions taken (``admit`` and
-        ``reclaim`` records, the loop's observable log)."""
+        ``reclaim`` records, the loop's observable log).  Timed into the
+        ``quota-tick`` phase of the performance observatory."""
+        with perf.phase_timer("quota-tick"):
+            return self._tick(now)
+
+    def _tick(self, now: Optional[float] = None) -> List[dict]:
         mgr = self.s.quota
         if not mgr.enabled:
             return []

@@ -14,11 +14,11 @@ registry.  A restarted scheduler re-learns held and admitted pods from the
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from typing import Dict, Iterable, List, Mapping, Optional, Tuple
 
 from ..k8s.client import pod_annotations, pod_name, pod_namespace, pod_uid
+from ..util import perf
 from ..util.types import ASSIGNED_NODE_ANNOTATION, QOS_ANNOTATION
 
 #: Written by the webhook on governed pods: the capacity queue's name.
@@ -178,7 +178,8 @@ class QuotaManager:
             for ns in q.namespaces:
                 self._by_ns[ns] = q
         self._clock = clock or time.monotonic
-        self._lock = threading.Lock()
+        # Wait/hold telemetry under lock="quota" on /perfz.
+        self._lock = perf.TimedLock("quota")
         self._entries: Dict[str, QueueEntry] = {}
         #: Released pods over the lifetime, per queue
         #: (vtpu_queue_admitted_total).

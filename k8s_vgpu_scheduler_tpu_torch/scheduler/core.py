@@ -9,8 +9,21 @@ returns that node alone.  Bind takes the node lock, marks the allocating
 phase and posts the Binding; the node agent's Allocate completes the
 two-phase commit and releases the lock.
 
-Each decision runs whole under one lock, as the JAX package's serial path
-does (``Config.optimistic_commit=False``).  Of the JAX scheduler's
+A decision is optimistic by default, as in the JAX package
+(``Config.optimistic_commit``): candidates are fitted without a lock on
+an immutable snapshot of the fleet's usage, each node's entry keyed by
+its (pod rev, inventory rev) and kept incrementally (a grant's delta is
+published under the rev it produced; only the nodes the registries mark
+dirty rebuild).  A worker pool fits the candidates a generation-keyed fit
+cache misses; the winner is picked among the nodes within 1% of the best
+score by a process-stable digest of (pod, node).  The commit lock is held
+only to re-check the winner's revisions and record the grant; a lost race
+refits on the node's live usage, then retries on a fresh snapshot, and
+the last retry decides serially.  Gangs, and every pod with
+``optimistic_commit=False``, decide whole under the commit lock.  Decision
+writes go through a group-commit batcher (``util/decisionwriter.py``), and
+every phase and lock is timed into the performance observatory
+(``util/perf.py``) behind ``GET /perfz``.  Of the JAX scheduler's
 subsystems this one carries fleet health (``health/``: the node leases
 Filter gates on, the card quarantine stripped from every usage, the
 rescuer) and priority preemption (``preempt.py``): with
@@ -62,8 +75,12 @@ at the gRPC edge.
 from __future__ import annotations
 
 import logging
+import os
 import threading
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import nullcontext
 from typing import Dict, List, NamedTuple, Optional, Tuple
 
 from ..accounting import efficiency as eff_mod
@@ -95,8 +112,9 @@ from ..placement.reserve import SliceReservations
 from ..quota.admission import AdmissionConfig, AdmissionLoop
 from ..quota.queues import QuotaManager
 from ..tpulib.types import TopologyDesc
-from ..util import codec, trace
+from ..util import codec, perf, trace
 from ..util.config import Config
+from ..util.decisionwriter import DecisionBatcher
 from ..util.nodelock import NodeLockError, lock_node, release_node
 from ..util.protocol import bind_timestamp
 from ..util.resources import container_requests, pod_priority
@@ -114,6 +132,7 @@ from ..util.types import (
     QOS_BEST_EFFORT,
     QOS_DUTY_SPLIT_ANNOTATION,
     TO_ALLOCATE_ANNOTATION,
+    ContainerDevice,
 )
 from . import score as score_mod
 from .gang import (
@@ -147,13 +166,13 @@ class FilterResult:
 
 
 class SnapEntry(NamedTuple):
-    """One node's slice of the fleet's usage snapshot (the JAX
-    scheduler's ``SnapEntry``): its inventory and its card usage, as a
-    fit reads them.  ``key`` is the JAX scheduler's (pod rev, inventory
-    rev) generation, which its optimistic commit validates against;
-    the port has no revision cache and no optimistic commit (each
-    decision rebuilds usage under the decision lock), so the key has no
-    counterpart here and is always (0, 0)."""
+    """One node's slice of the fleet's immutable usage snapshot: its
+    inventory and its card usage, as a fit reads them.  ``usage`` is the
+    shared cached map, read-only by contract (a fit that simulates a
+    placement lays a ``CowUsage`` view over it).  ``key`` is the (pod
+    rev, inventory rev) generation the map was built at: an optimistic
+    commit re-reads the winner's live revs and commits only on equality,
+    so a decision computed on a superseded snapshot never books cards."""
 
     key: Tuple[int, int]
     info: NodeInfo
@@ -181,6 +200,11 @@ class Scheduler:
                  clock=None) -> None:
         self.client = client
         self.cfg = cfg or Config()
+        # The performance observatory is process-global, like the tracer;
+        # --no-perf switches it off.
+        perf.registry().enabled = self.cfg.perf_enabled
+        if self.cfg.perf_tracemalloc:
+            perf.registry().enable_tracemalloc()
         self._clock = clock or time.monotonic
         self.nodes = NodeManager()
         self.pods = PodManager()
@@ -198,7 +222,10 @@ class Scheduler:
                 flap_threshold=self.cfg.quarantine_flap_threshold,
                 flap_window_s=self.cfg.quarantine_flap_window_s,
                 probation_s=self.cfg.quarantine_probation_s),
-            clock=clock)
+            # A quarantine or release bumps the node's inventory rev: its
+            # cached usage rebuilds, and a commit validated before the
+            # flip fails.
+            clock=clock, on_change=self.nodes.touch)
         # vgpu-scheduler starts the rescue thread; embedders and tests
         # call rescuer.sweep() themselves.
         self.rescuer = Rescuer(
@@ -223,12 +250,14 @@ class Scheduler:
                 fleet_headroom=self.cfg.queue_fleet_headroom),
             clock=clock)
         # Placement: slice reservations on the scheduler's clock, stripped
-        # from every usage a fit reads (``_usage``); the defragmenter is
+        # from every usage a fit reads (``_refresh_entry_locked``), each
+        # change bumping the node's inventory rev; the defragmenter is
         # inert unless ``enable_defrag`` (its demand registry and the
         # availability metrics still work).  vgpu-scheduler starts its
         # thread; embedders and tests call defrag.tick() themselves.
         self.reservations = SliceReservations(
-            clock=clock, ttl_s=self.cfg.defrag_reservation_ttl_s)
+            clock=clock, on_change=self.nodes.touch,
+            ttl_s=self.cfg.defrag_reservation_ttl_s)
         self.defrag = Defragmenter(
             self,
             DefragConfig(
@@ -253,9 +282,47 @@ class Scheduler:
                 checkpoint_grace_s=self.cfg.resize_checkpoint_grace_s,
                 downgrade_after_s=self.cfg.elastic_downgrade_after_s),
             clock=clock)
-        # Held for a whole decision: candidate evaluation and the
-        # tentative grant, never across apiserver I/O.
-        self._lock = threading.Lock()
+        # The commit lock: held to re-check a winner's revisions and
+        # record its grant, and for gang and serial decisions whole; never
+        # across apiserver I/O.  1-in-8 sampled (one acquire a decision).
+        self._commit_lock = perf.TimedLock("commit", sample_shift=3)
+        # Each node's cached usage, (key, map), keyed on (pod rev,
+        # inventory rev), and the published snapshot built from it.  The
+        # maps and the dict are never mutated once published: refreshes
+        # replace them, so snapshot() hands them out without a lock.
+        self._usage_cache_lock = perf.TimedLock("snapshot-cache",
+                                                sample_shift=3)
+        self._usage_cache: Dict[str, tuple] = {}
+        self._snap: Dict[str, SnapEntry] = {}
+        # The fit cache: (node, request fingerprint) -> (snapshot key, fit
+        # outcome); a hit counts only at the node's current key, so any
+        # grant, delete or re-registration on the node invalidates it.
+        self._fit_cache_lock = threading.Lock()
+        self._fit_cache: Dict[tuple, tuple] = {}
+        # The candidate-evaluation pool (made on first need, _eval_pool)
+        # and its busy high-water mark.
+        self._pool: Optional[ThreadPoolExecutor] = None
+        self._pool_lock = threading.Lock()
+        self._pool_unavailable = False
+        self.worker_pool_size = 0
+        self.workers_busy_peak = 0
+        self._busy = 0
+        self._busy_lock = threading.Lock()
+        #: Optimistic commits that lost their revision race.
+        self.commit_conflicts = 0
+        # Group commit of the decision writes.
+        self._decisions = DecisionBatcher(client)
+        # on_pod_event's counter, for the 1-in-8 informer-apply sample.
+        self._informer_events = 0
+        #: Full per-node usage rebuilds, and grant deltas written through
+        #: to the cache instead.
+        self.usage_rebuilds = 0
+        self.usage_writethroughs = 0
+        #: Decision writes that failed (the grant rolled back), by reason,
+        #: and every decision write attempted.
+        self.decision_write_failures: Dict[str, int] = {}
+        self.decision_writes_total = 0
+        self._dwf_lock = threading.Lock()
         # uid -> monotonic time of its DELETE.  A uid never returns, so a
         # replayed ADDED of one (a resync list older than the delete) is
         # ignored, or it would book a dead pod's cards again.
@@ -311,7 +378,8 @@ class Scheduler:
         """One register-stream message: a lease beat, a health reading of
         each card for the quarantine, the usage counters it carries
         (USAGE_FIELDS rows) for the ledger, and the inventory where it
-        changed."""
+        changed.  Timed into the ``register-apply`` phase."""
+        t0 = time.monotonic()
         self.leases.beat(node_name)
         self.quarantine.observe_node(
             node_name, {d.id: d.health for d in info.devices})
@@ -321,6 +389,7 @@ class Scheduler:
             self.nodes.add_node(node_name, info)
             log.info("registered node %s with %d cards", node_name,
                      len(info.devices))
+        perf.registry().record("register-apply", time.monotonic() - t0)
 
     def handle_register_stream(self, request_iterator, context=None) -> str:
         """Consume one node agent's stream; when it ends, drop the node
@@ -342,6 +411,14 @@ class Scheduler:
         return node_name
 
     # -- pod informer ----------------------------------------------------------
+    def _del_pod_wt(self, uid: str) -> None:
+        """Drop a grant and write its release through to the node's cached
+        usage (a broken rev chain leaves the node's dirty rebuild to it)."""
+        dropped = self.pods.del_pod(uid)
+        if dropped is not None:
+            info, rev = dropped
+            self._write_through(info.node, info.devices, rev, -1)
+
     def _note_deleted(self, uid: str) -> None:
         """Tombstone a deleted uid.  Tombstones past the horizon are pruned
         at most once a minute: a scan on every DELETE would make a
@@ -363,7 +440,23 @@ class Scheduler:
     def on_pod_event(self, event: str, pod: dict) -> None:
         """Rebuild the grants from the pods' ``assigned-ids`` (reference
         onAddPod, scheduler.go:66–86): free a deleted or finished pod's,
-        and ignore an ADDED replayed after its DELETE."""
+        and ignore an ADDED replayed after its DELETE.  One event in
+        ``perf.INFORMER_SAMPLE_EVERY`` is timed into the
+        ``informer-apply`` phase, whose recent p99 is the exported
+        informer lag."""
+        n = self._informer_events
+        self._informer_events = n + 1
+        reg = perf.registry()
+        if not reg.enabled or n & (perf.INFORMER_SAMPLE_EVERY - 1):
+            self._apply_pod_event(event, pod)
+            return
+        t0 = time.monotonic()
+        try:
+            self._apply_pod_event(event, pod)
+        finally:
+            reg.record("informer-apply", time.monotonic() - t0)
+
+    def _apply_pod_event(self, event: str, pod: dict) -> None:
         uid = pod_uid(pod)
         if not uid:
             return
@@ -389,14 +482,14 @@ class Scheduler:
             # A deleted requester's victims need not checkpoint.
             if self._preempt_by_requester.get(uid):
                 self._rescind_preemptions(uid)
-            self.pods.del_pod(uid)
+            self._del_pod_wt(uid)
             return
         if not node:
             # A gang member between its admission and its own decision
             # write holds a grant without ``assigned-node``: an event or a
             # resync must not free it, or other pods take the gang's cards.
             if not self.gangs.is_reserved(uid):
-                self.pods.del_pod(uid)
+                self._del_pod_wt(uid)
             return
         if event == "ADDED" and self._deleted(uid):
             return
@@ -430,9 +523,12 @@ class Scheduler:
                        devices=devices, priority=prio,
                        trace_id=anns.get(trace.TRACE_ID_ANNOTATION, ""),
                        qos=pod_qos(pod))
-        # Usually the echo of this scheduler's own decision write.
-        if not self.pods.refresh_if_unchanged(info):
-            self.pods.add_pod(info)
+        # Usually the echo of this scheduler's own decision write, which
+        # refreshes in place; a grant new to the registry writes its delta
+        # through to the node's cached usage.
+        new_rev = self.pods.upsert(info)
+        if new_rev is not None:
+            self._write_through(node, devices, new_rev, 1)
         if event == "ADDED" and self._deleted(uid):
             # A DELETE that landed between the check above and the add.
             self.pods.del_pod(uid)
@@ -473,7 +569,17 @@ class Scheduler:
         pods no longer listed.  Returns the list's resourceVersion, where
         :func:`run_watch_loop` resumes.  A grant recorded after the list
         began is kept unless a point read says its pod is gone (the list
-        may simply predate it)."""
+        may simply predate it).  Timed into the ``informer-resync``
+        phase, its last cost kept as a gauge."""
+        t0 = time.monotonic()
+        try:
+            return self._resync_from_apiserver()
+        finally:
+            cost = time.monotonic() - t0
+            perf.registry().record("informer-resync", cost)
+            perf.registry().set_gauge("informer_resync_last_s", cost)
+
+    def _resync_from_apiserver(self) -> str:
         list_started = time.monotonic()
         try:
             pods, rv = self.client.list_pods_with_rv()
@@ -537,49 +643,162 @@ class Scheduler:
                 log.info("resync: stale-preemption rescission for %s not "
                          "written (%s)", pod_name(pod), e)
 
-    # -- usage -----------------------------------------------------------------
-    def _usage(self, name: str, info: NodeInfo
-               ) -> Dict[str, score_mod.DeviceUsage]:
-        """``name``'s inventory less its grants, built fresh, with its
-        quarantined cards and its reserved cards (a compaction's assembled
-        box) left out: no fit can place on a card it cannot see."""
-        usage = score_mod.build_usage(info, self.pods.pods_on_node(name))
-        quarantined = self.quarantine.quarantined_on(name)
-        if quarantined:
-            usage = {cid: u for cid, u in usage.items()
-                     if cid not in quarantined}
-        reserved = self.reservations.reserved_on(name)
-        if reserved:
-            usage = {cid: u for cid, u in usage.items()
-                     if cid not in reserved}
-        return usage
+    # -- usage snapshot --------------------------------------------------------
+    def _write_through(self, node: str, devices, new_rev: int,
+                       sign: int) -> None:
+        """Publish one pod's grant delta (``sign`` +1 add, -1 release) into
+        ``node``'s cached usage at generation ``new_rev``.  Only on an
+        unbroken rev chain: the cache must hold exactly ``new_rev - 1``;
+        anything else means an unobserved change interleaved, and the
+        node's pending dirty mark rebuilds it instead."""
+        published = False
+        with self._usage_cache_lock:
+            cached = self._usage_cache.get(node)
+            if cached is not None:
+                (k0, k1), usage = cached
+                if new_rev == k0 + 1:
+                    new_usage = self._delta_usage(usage, devices, sign)
+                    if new_usage is not None:
+                        self._usage_cache[node] = ((new_rev, k1),
+                                                   new_usage)
+                        published = True
+        if published:
+            self.usage_writethroughs += 1
+
+    @staticmethod
+    def _delta_usage(usage: dict, devices, sign: int):
+        """``usage`` plus or minus one pod's devices as a fresh map (the
+        published maps are never mutated), or None where a card is unknown
+        or a release would go below zero: the dirty rebuild recomputes
+        from scratch then."""
+        touched: Dict[str, score_mod.DeviceUsage] = {}
+        for container in devices:
+            for d in container:
+                u = touched.get(d.uuid)
+                if u is None:
+                    base = usage.get(d.uuid)
+                    if base is None:
+                        return None
+                    u = touched[d.uuid] = score_mod.clone_usage(base)
+                u.used_slots += sign
+                u.used_mem += sign * d.usedmem
+                u.used_cores += sign * d.usedcores
+                if sign < 0 and (u.used_slots < 0 or u.used_mem < 0
+                                 or u.used_cores < 0):
+                    return None
+        new_usage = dict(usage)
+        new_usage.update(touched)
+        return new_usage
 
     def snapshot(self) -> Dict[str, SnapEntry]:
-        """The whole fleet's usage as every fit reads it (``_usage``:
-        quarantined and reserved cards left out), one entry a registered
-        node in the registry's order.  The JAX scheduler keeps this
-        incrementally behind revision keys; the port builds it afresh on
-        each call, off the decision lock, as ``get_nodes_usage``."""
-        return {name: SnapEntry((0, 0), info, usage)
-                for name, (info, usage) in self.get_nodes_usage().items()}
+        """The whole fleet's usage as every fit reads it, one entry a
+        registered node in the registry's order: its inventory less its
+        grants, its quarantined and reserved cards left out.  Kept
+        incrementally: the registries name the nodes changed since the
+        last call (``drain_dirty``) and only those entries refresh, so an
+        unchanged fleet returns the published dict as it is.  The dict and
+        its maps are immutable once published."""
+        with self._usage_cache_lock:
+            return self._snapshot_locked()
+
+    def _snapshot_locked(self) -> Dict[str, SnapEntry]:
+        dirty = self.pods.drain_dirty()
+        dirty |= self.nodes.drain_dirty()
+        if not dirty:
+            return self._snap
+        reg = perf.registry()
+        rebuilds_before = self.usage_rebuilds
+        t0 = time.monotonic()
+        try:
+            snap = dict(self._snap)
+            t_copy = time.monotonic()
+            resized = False
+            for name in dirty:
+                entry = self._refresh_entry_locked(name)
+                if entry is None:
+                    resized |= snap.pop(name, None) is not None
+                else:
+                    resized |= name not in snap
+                    snap[name] = entry
+            if resized:
+                # Registry order, whatever order the dirty set iterates in
+                # (the JAX snapshot's order follows a set of names).
+                snap = {name: snap[name] for name in self.nodes.names()
+                        if name in snap}
+            self._snap = snap
+            if reg.enabled:
+                now = time.monotonic()
+                reg.record("snapshot-publish", t_copy - t0)
+                reg.record("snapshot-refresh", now - t_copy)
+                reg.set_gauge("snapshot_dirty_nodes", len(dirty))
+                reg.set_gauge("snapshot_nodes_rebuilt",
+                              self.usage_rebuilds - rebuilds_before)
+            return snap
+        except BaseException:
+            # The drain was destructive: hand the names back, or the
+            # published view goes stale.
+            self.pods.mark_dirty(dirty)
+            self.nodes.mark_dirty(dirty)
+            raise
+
+    def _refresh_entry_locked(self, name: str) -> Optional[SnapEntry]:
+        """One node's entry at its live revs, from the cache or rebuilt
+        (the usage-cache lock held); None where the node is gone.  A
+        rebuild keys its map on the pod rev read with the pods in one
+        acquire (``PodManager.node_view``): the write-through moves a map
+        keyed ``k`` to ``k + 1`` by one event's delta, so the map must
+        hold exactly rev ``k``'s pods.  (The JAX scheduler reads the rev
+        and the pods in two acquires, and an event landing between them
+        is counted twice; ``tests/test_torch_concurrency.py`` pins both
+        answers.)  The inventory half is read before the node and its
+        quarantined and reserved cards: a change landing between those
+        reads leaves the node's dirty mark pending, so it can only force a
+        needless rebuild, and no write-through moves that half."""
+        inv_rev = self.nodes.rev_of(name)
+        info = self.nodes.get_node(name)
+        if info is None:
+            self._usage_cache.pop(name, None)
+            return None
+        cached = self._usage_cache.get(name)
+        if cached is None or cached[0] != (self.pods.rev_of(name), inv_rev):
+            self.usage_rebuilds += 1
+            pod_rev, granted = self.pods.node_view(name)
+            usage = score_mod.build_usage(info, granted)
+            # Quarantined cards, and reserved ones (a compaction's
+            # assembled box), leave the usage outright: no fit can place on
+            # a card it cannot see.  Each quarantine and reservation change
+            # bumped the node's rev, so the key reflects the current sets.
+            quarantined = self.quarantine.quarantined_on(name)
+            if quarantined:
+                usage = {cid: u for cid, u in usage.items()
+                         if cid not in quarantined}
+            reserved = self.reservations.reserved_on(name)
+            if reserved:
+                usage = {cid: u for cid, u in usage.items()
+                         if cid not in reserved}
+            cached = ((pod_rev, inv_rev), usage)
+            self._usage_cache[name] = cached
+        return SnapEntry(cached[0], info, cached[1])
 
     def get_nodes_usage(self, node_names: Optional[List[str]] = None
                         ) -> Dict[str, Tuple[NodeInfo,
                                              Dict[str, score_mod.DeviceUsage]]]:
         """Each registered node's inventory less its grants and its
-        quarantined cards (reference getNodesUsage), built fresh: the
-        caller owns the maps."""
+        quarantined and reserved cards (reference getNodesUsage), as
+        copies of the snapshot's maps: the caller owns them."""
+        clone = score_mod.clone_usage
         allow = None if node_names is None else set(node_names)
-        return {name: (info, self._usage(name, info))
-                for name, info in self.nodes.list_nodes().items()
+        return {name: (e.info, {cid: clone(u) for cid, u in e.usage.items()})
+                for name, e in self.snapshot().items()
                 if allow is None or name in allow}
 
     def inspect_all_nodes_usage(self) -> Dict[str, Dict[str,
                                                       score_mod.DeviceUsage]]:
-        """For the metrics collector: each registered node's card usage,
-        built fresh (the caller owns the maps), off the decision lock."""
-        return {name: usage
-                for name, (_, usage) in self.get_nodes_usage().items()}
+        """For the metrics collector: each node's card usage from the
+        immutable snapshot, off the commit lock (a scrape never blocks a
+        decision).  The maps are shallow copies whose entries are shared:
+        read them only."""
+        return {n: dict(e.usage) for n, e in self.snapshot().items()}
 
     def grant_efficiency(self, now: Optional[float] = None
                          ) -> "eff_mod.FleetEfficiency":
@@ -620,9 +839,9 @@ class Scheduler:
         forecast then tracks standing usage).  Off every scheduler lock
         (the registry's list and the quota manager's own).
         ``quota_stats`` lets export_capacity share one stats snapshot
-        instead of walking the registry twice per export.  (The JAX
-        scheduler also records a ``capacity-tick`` phase in its
-        performance observatory, which the port does not have yet.)"""
+        instead of walking the registry twice per export.  Timed into the
+        ``capacity-tick`` phase."""
+        tick_t0 = time.monotonic()
         now = self._clock() if now is None else now
         samples: Dict[str, float] = {}
         if self.quota.enabled:
@@ -638,6 +857,8 @@ class Scheduler:
                     samples[p.namespace] = \
                         samples.get(p.namespace, 0.0) + chips
         self.capacity.observe_queues(samples, now)
+        perf.registry().record("capacity-tick",
+                               time.monotonic() - tick_t0)
         return samples
 
     def export_capacity(self, horizon_s: Optional[float] = None,
@@ -679,6 +900,43 @@ class Scheduler:
             if horizon_s is not None else self.cfg.capacity_horizon_s,
             detail=detail)
 
+    def export_perf(self, top_ticks: int = 8) -> dict:
+        """The performance observatory (``GET /perfz``): each phase's
+        p50/p99/max over its recent window, the lock wait/hold table,
+        informer lag and resync cost, GC pressure, the decision writer's
+        amortization and the slowest recent ticks.  Reads the process's
+        registry and this scheduler's counters, never a scheduler lock.
+        The batch-cycle counters and the solve-worker section read as the
+        JAX scheduler's do before any batched cycle has run (the port has
+        no batched cycles yet)."""
+        doc = perf.registry().export(top_ticks=top_ticks)
+        batcher = self._decisions
+        doc["decision_writer"] = {
+            "batches": batcher.batches,
+            "writes": batcher.writes,
+            "amortization": round(batcher.writes / batcher.batches, 3)
+            if batcher.batches else 0.0,
+        }
+        doc["queue"]["pending_depth"] = 0
+        doc["counters"] = {
+            "commit_conflicts": self.commit_conflicts,
+            "batch_cycles": 0,
+            "batch_fallbacks": 0,
+            "columnar_full_rebuilds": 0,
+            "columnar_rows_reloaded": 0,
+            "columnar_rows_patched": 0,
+            "class_evals_full": 0,
+            "class_rows_patched": 0,
+            "class_evals_offloaded": 0,
+            "snapshot_usage_rebuilds": self.usage_rebuilds,
+            "snapshot_usage_writethroughs": self.usage_writethroughs,
+        }
+        doc["solve_workers"] = {
+            "configured": 0, "workers": 0, "restarts_total": 0,
+            "evals_offloaded": 0, "eval_fallbacks": 0, "per_worker": [],
+        }
+        return doc
+
     def known_topologies(self) -> List[TopologyDesc]:
         """The distinct fabrics registered in the fleet, one per shape and
         wraparound: the webhook's mesh-feasibility check reads them.  A
@@ -697,11 +955,11 @@ class Scheduler:
         """Read-only fleet snapshot for capacity tooling (``GET /fleetz``
         → ``vgpu-simulate --from-cluster``): the node inventory with its
         fabric and every live grant, one consistent copy under the
-        decision lock (no grant is recorded while the lists are taken) —
+        commit lock (no grant is recorded while the lists are taken) —
         enough to rebuild this scheduler's placement state elsewhere.  A
         node without a fabric goes out as it registered, ``mesh (n,)``
         with no card coordinates; a node with no topology as None."""
-        with self._lock:
+        with self._commit_lock:
             nodes = [
                 {
                     "name": name,
@@ -744,26 +1002,20 @@ class Scheduler:
             },
         }
 
-    def _pods_by_node(self) -> Dict[str, List[PodInfo]]:
-        out: Dict[str, List[PodInfo]] = {}
-        for info in self.pods.list_pods():
-            out.setdefault(info.node, []).append(info)
-        return out
-
     # -- Filter ----------------------------------------------------------------
     def filter(self, pod: dict, node_names: List[str]) -> FilterResult:
-        """Decide under the lock, then write the decision outside it; the
-        tentative grant is rolled back if the write fails.  The decision
-        is the ``filter`` span, the write the ``decision-write`` span."""
+        """Decide (the ``filter`` span), then write the decision (the
+        ``decision-write`` span) with no scheduler lock held; the tentative
+        grant is rolled back if the write fails."""
         tid = trace.trace_id_of(pod)
         tr = trace.tracer()
-        # The expiry sweep first, outside the lock (it reads the
+        # The expiry sweep first, outside every lock (it reads the
         # apiserver).
         if self.gangs.groups():
             self._release_expired_gangs()
         with tr.span("filter", trace_id=tid, pod=pod_name(pod),
                      candidates=len(node_names), qos=pod_qos(pod)) as sp:
-            result = self._decide(pod, node_names)
+            result = self._decide(pod, node_names, sp)
             if result.failed:
                 # Each rejected node counts under its dominant token (the
                 # reason's leading word keeps the label set bounded).
@@ -777,7 +1029,25 @@ class Scheduler:
                 sp.set("error", result.error)
             if result.node is not None:
                 sp.set("node", result.node)
+        return self._finish_decision(pod, result)
+
+    def _finish_decision(self, pod: dict,
+                         result: FilterResult) -> FilterResult:
+        """Everything after the in-memory decision: the rejection's events
+        and signals, or the decision write (rolled back on failure)."""
+        patch = self._prepare_decision(pod, result)
+        if patch is None:
+            return result
+        err = self._write_decision_single(pod, result, patch)
+        return self._conclude_decision(pod, result, err)
+
+    def _prepare_decision(self, pod: dict,
+                          result: FilterResult) -> Optional[dict]:
+        """A rejection's side effects (returns None: nothing to write), or
+        the placement's decision patch."""
         uid = pod_uid(pod)
+        tid = trace.trace_id_of(pod)
+        tr = trace.tracer()
         if result.node is None:
             if result.error or result.failed:
                 tr.event(uid, "filter-rejected", trace_id=tid,
@@ -790,7 +1060,7 @@ class Scheduler:
                 self.quota.note_unplaced(uid)
             if result.preempt is not None:
                 self._request_preemptions(pod, result.preempt)
-            return result
+            return None
         tr.event(uid, "filter-assigned", trace_id=tid, pod=pod_name(pod),
                  node=result.node)
         # A placement settles any slice demand this pod (or its gang) had
@@ -801,14 +1071,75 @@ class Scheduler:
             # Placed after all (room freed elsewhere): its eviction
             # requests are pointless now.
             self._rescind_preemptions(uid)
-        err = self._write_decision(pod, result)
+        encoded = codec.encode_pod_devices(self.pods.get(uid).devices)
+        patch = {
+            ASSIGNED_NODE_ANNOTATION: result.node,
+            ASSIGNED_IDS_ANNOTATION: encoded,
+            TO_ALLOCATE_ANNOTATION: encoded,
+            ASSIGNED_TIME_ANNOTATION: str(int(time.time())),
+        }
+        if pod_qos(pod):
+            patch[QOS_DUTY_SPLIT_ANNOTATION] = self._qos_duty_split(
+                result.node)
+        rank = self.gangs.rank_of(uid)
+        if rank is not None:
+            # The member's process rank, stable across replacements: the
+            # node agent passes it on as VTPU_GANG_RANK.
+            patch[GANG_RANK_ANNOTATION] = str(rank)
+        return patch
+
+    def _write_decision_single(self, pod: dict, result: FilterResult,
+                               patch: dict) -> Optional[str]:
+        """One pod's decision write through the group-commit batcher; the
+        error, or None.  One write in four is timed into the
+        ``decision-write`` phase (the span records every one)."""
+        tid = trace.trace_id_of(pod)
+        reg = perf.registry()
+        write_rec = reg.enabled and (self._decisions.writes & 3) == 0
+        if write_rec:
+            write_t0 = time.monotonic()
+        err: Optional[str] = None
+        with trace.tracer().span("decision-write", trace_id=tid,
+                                 pod=pod_name(pod), node=result.node,
+                                 qos=pod_qos(pod)) as wsp:
+            try:
+                batched = self._decisions.write(
+                    pod_namespace(pod), pod_name(pod), patch)
+                if batched > 1:
+                    # Rode a group commit with batched - 1 other decisions.
+                    wsp.set("batch_size", batched)
+            except Exception as e:  # noqa: BLE001 — no grant outlives a failed write
+                err = f"writing decision failed: {e}"
+                log.error("failed to write the decision for %s: %s",
+                          pod_name(pod), e)
+                wsp.set("error", str(e))
+            if write_rec:
+                reg.record("decision-write", time.monotonic() - write_t0)
+        return err
+
+    def _conclude_decision(self, pod: dict, result: FilterResult,
+                           err: Optional[str]) -> FilterResult:
+        """After the write: count it, and on a failure roll the grant back
+        and count the failure by reason (the port has no shard commit, so
+        every failure is a transport one)."""
+        uid = pod_uid(pod)
+        with self._dwf_lock:
+            self.decision_writes_total += 1
         if err is None:
             return result
-        self.pods.del_pod(uid)
-        tr.event(uid, "decision-write-failed", trace_id=tid, error=err)
+        self._del_pod_wt(uid)
+        trace.tracer().event(uid, "decision-write-failed",
+                             trace_id=trace.trace_id_of(pod), error=err)
+        with self._dwf_lock:
+            self.decision_write_failures["transport"] = \
+                self.decision_write_failures.get("transport", 0) + 1
         return FilterResult(error=err)
 
-    def _decide(self, pod: dict, node_names: List[str]) -> FilterResult:
+    def _decide(self, pod: dict, node_names: List[str],
+                sp: "trace.Span") -> FilterResult:
+        """Parse and dispatch: gang admissions and the serial path decide
+        under the commit lock; the default is the optimistic
+        snapshot-and-commit protocol."""
         try:
             requests = container_requests(pod, self.cfg)
         except ValueError as e:
@@ -817,7 +1148,6 @@ class Scheduler:
             # Not ours: every candidate passes (the default scheduler
             # decides).
             return FilterResult()
-        anns = pod.get("metadata", {}).get("annotations", {}) or {}
         # The capacity-queue gate, before any fit: a governed pod stays
         # held until the admission loop releases it.
         hold = self.quota.gate(pod, requests)
@@ -829,23 +1159,344 @@ class Scheduler:
         self._release_reservation_for(pod)
         gang = gang_of(pod)
         if gang is not None:
-            with self._lock:
+            # A gang admission changes several nodes at once: it keeps the
+            # lock, and its grants bump every placed node's rev, so racing
+            # optimistic singles conflict and retry.
+            with self._commit_lock:
                 return self._decide_gang_locked(pod, requests, node_names,
                                                 gang)
-        with self._lock:
-            result = self._decide_locked(pod, requests, node_names, anns)
-        if result.node is None and result.error == NO_FIT:
-            result.preempt = self._plan_preemption(pod, requests, anns,
-                                                   node_names)
-        return result
+        if not self.cfg.optimistic_commit:
+            with self._commit_lock:
+                return self._decide_serial_locked(pod, requests, node_names)
+        return self._decide_optimistic(pod, requests, node_names, sp)
+
+    def _decide_optimistic(self, pod: dict, requests,
+                           node_names: List[str],
+                           sp: "trace.Span") -> FilterResult:
+        """Evaluation without a lock, then a short validated commit.  Each
+        attempt takes the immutable snapshot, fits the candidates (the
+        pool and the fit cache), and under the commit lock re-checks that
+        the winner's (pod rev, inventory rev) is the one it was fitted at.
+        A lost race refits on the winner's live usage; failing that it
+        retries on a fresh snapshot (the ``conflict-retry`` span), and
+        after ``commit_retries`` losses decides serially, so a conflict
+        storm degrades to the serial path instead of livelocking."""
+        uid = pod_uid(pod)
+        anns = pod.get("metadata", {}).get("annotations", {}) or {}
+        tid = trace.trace_id_of(pod)
+        tr = trace.tracer()
+        # A retried Filter replaces its grant (reference Filter deletes
+        # first, scheduler.go:284).
+        self._del_pod_wt(uid)
+        retries = max(0, self.cfg.commit_retries)
+        attempt = 0
+        while True:
+            retry_span = (tr.span("conflict-retry", trace_id=tid,
+                                  pod=pod_name(pod), attempt=attempt)
+                          if attempt else nullcontext())
+            with retry_span:
+                eval_t0 = time.monotonic()
+                snap = self.snapshot()
+                best, failed = self._evaluate_candidates(
+                    uid, requests, anns, node_names, snap)
+                perf.registry().record("opt-evaluate",
+                                       time.monotonic() - eval_t0)
+            if best is None:
+                plan = self._plan_preemption(pod, requests, anns,
+                                             node_names, snap)
+                return FilterResult(error=NO_FIT, failed=failed,
+                                    preempt=plan)
+            _, node, placement = best
+            commit_t0 = time.monotonic()
+            with tr.span("commit", trace_id=tid, pod=pod_name(pod),
+                         node=node, attempt=attempt):
+                with self._commit_lock:
+                    entry = snap[node]
+                    live = (self.pods.rev_of(node), self.nodes.rev_of(node))
+                    conflicted = live != entry.key
+                    if conflicted:
+                        # Lost the race, most often to one grant on this
+                        # node: refit on its live usage (one node's fit
+                        # under the lock) before a whole new sweep.
+                        entry, placement = self._commit_refit(
+                            node, requests, anns, sp)
+                    committed = False
+                    while entry is not None:
+                        pod_rev = self.pods.add_pod(PodInfo(
+                            uid=uid, name=pod_name(pod),
+                            namespace=pod_namespace(pod), node=node,
+                            devices=placement,
+                            priority=pod_priority(pod, self.cfg),
+                            trace_id=tid, qos=pod_qos(pod)))
+                        if pod_rev == entry.key[0] + 1:
+                            self._publish_grants(node, entry,
+                                                 [placement], pod_rev)
+                            committed = True
+                            break
+                        # An informer event (the commit lock does not
+                        # exclude the watch thread) landed between the rev
+                        # read and the insert: the placement was fitted
+                        # blind to it.  Undo and refit on the live view,
+                        # which includes it.  Each pass needs another
+                        # interleave inside the held lock, and a failed
+                        # refit leaves for the outer retry.
+                        self.pods.del_pod(uid)
+                        conflicted = True
+                        entry, placement = self._commit_refit(
+                            node, requests, anns, sp)
+            perf.registry().record("opt-commit",
+                                   time.monotonic() - commit_t0)
+            if conflicted:
+                with self._busy_lock:
+                    self.commit_conflicts += 1
+                tr.event(uid, "commit-conflict", trace_id=tid, node=node,
+                         attempt=attempt, refit=committed)
+            if committed:
+                if attempt:
+                    sp.set("commit_retries", attempt)
+                return FilterResult(node=node, failed=failed)
+            attempt += 1
+            if attempt > retries:
+                sp.set("commit_fallback", True)
+                with self._commit_lock:
+                    return self._decide_serial_locked(
+                        pod, requests, node_names)
+
+    def _commit_refit(self, node: str, requests, anns: Dict[str, str],
+                      sp: "trace.Span"):
+        """:meth:`_refit_live_locked` for the commit section: ``(entry,
+        placement)`` or ``(None, None)``, the span stamped on a refit."""
+        got = self._refit_live_locked(node, requests, anns)
+        if got is None:
+            return None, None
+        sp.set("commit_refit", True)
+        return got
+
+    def _refit_live_locked(self, node: str, requests,
+                           anns: Dict[str, str]):
+        """The commit lock's holder lost the race on ``node``: fit the pod
+        on the node's live usage (from the cache at the current revs, or
+        rebuilt) instead of dropping the decision.  ``(entry, placement)``,
+        or None where the node's lease no longer takes placements, the
+        node is gone or the pod no longer fits (the caller retries on a
+        fresh snapshot)."""
+        if self.leases.reject_reason(node) is not None:
+            return None
+        with self._usage_cache_lock:
+            entry = self._refresh_entry_locked(node)
+        if entry is None:
+            return None
+        cow = score_mod.CowUsage(entry.usage)
+        placement = score_mod.fit_pod(requests, cow, entry.info.topology,
+                                      anns, self.cfg.topology_policy)
+        if placement is None:
+            return None
+        return entry, placement
+
+    def _publish_grants(self, node: str, entry: SnapEntry,
+                        placements: List, final_rev: int) -> None:
+        """After validated adds (commit lock held): publish the grants'
+        effect on ``entry.usage`` into the cache at the new generation, so
+        the next snapshot reuses it instead of rebuilding the node.  Only
+        where nothing else interleaved: the rev chain must be unbroken
+        (``final_rev`` is the validated rev plus the grants), and the
+        inventory half of the key stays the validated one, so a racing
+        re-registration's newer rev still forces a rebuild."""
+        if final_rev != entry.key[0] + len(placements):
+            return
+        new_usage = self._grants_delta(entry, placements)
+        if new_usage is None:
+            return
+        with self._usage_cache_lock:
+            self._publish_usage_locked(node, entry, final_rev, new_usage)
+
+    def _publish_usage_locked(self, node: str, entry: SnapEntry,
+                              final_rev: int, new_usage: dict) -> None:
+        cached = self._usage_cache.get(node)
+        # Only over the exact map the grants were computed on: a racing
+        # snapshot() that rebuilt it either has them already or still has
+        # the node's dirty mark pending.
+        if cached is not None and cached[1] is entry.usage:
+            self._usage_cache[node] = ((final_rev, entry.key[1]),
+                                       new_usage)
+
+    def _grants_delta(self, entry: SnapEntry, placements: List):
+        """The grants' combined delta over ``entry.usage`` as a fresh map,
+        or None where a card is unknown (the inventory shrank in flight;
+        the dirty rebuild recomputes)."""
+        return self._delta_usage(entry.usage, [
+            container for placement in placements
+            for container in placement], 1)
+
+    @staticmethod
+    def near_best_key(uid: str, node: str) -> int:
+        """The near-best scatter's key: a digest of (pod, node) that is the
+        same in every process.  The JAX scheduler keys on Python's
+        ``hash((uid, node))``, which is salted per process, so its pick
+        among near-equal nodes changes from run to run; the port's is
+        stable (a stated departure, ``tests/test_torch_concurrency.py``)."""
+        return zlib.crc32(f"{uid}\0{node}".encode())
+
+    def _evaluate_candidates(self, uid: str, requests, anns: Dict[str, str],
+                             node_names: List[str],
+                             snap: Dict[str, SnapEntry]):
+        """Score every candidate on the shared snapshot: ``(best, failed)``
+        with ``best = (score, node, placement)`` or None.  Three tiers a
+        candidate: the type prefilter (no copy, no scan), a fit-cache hit
+        at the node's generation, a full ``CowUsage`` fit; only the last
+        goes to the pool."""
+        affinity = score_mod.parse_affinity(anns)
+        policy = anns.get(score_mod.TOPOLOGY_POLICY_ANNOTATION,
+                          self.cfg.topology_policy)
+        failed: Dict[str, str] = {}
+        candidates: List[str] = []
+        for name in node_names:
+            entry = snap.get(name)
+            if entry is None:
+                failed[name] = "no GPU inventory registered"
+                continue
+            # The lease gate before any fit: a suspect or dead node takes
+            # no new placement.
+            why = self.leases.reject_reason(name)
+            if why is not None:
+                failed[name] = why
+                continue
+            # A type list that excludes every card of the node is decided
+            # on the shared snapshot: no copy, no fit.
+            why = score_mod.type_excluded(affinity, entry.usage)
+            if why is not None:
+                failed[name] = why
+                continue
+            candidates.append(name)
+
+        # Everything a fit reads off the pod: its requests, type lists,
+        # topology policy and declared mesh.  (The JAX fingerprint leaves
+        # the mesh out, so there a mesh pod's cached rejection is served
+        # to a plain pod of the same request: a stated departure,
+        # tests/test_torch_concurrency.py.)
+        fp = (tuple((r.nums, r.type, r.memreq, r.mem_percentage_req,
+                     r.coresreq) for r in requests),
+              None if affinity[0] is None else tuple(affinity[0]),
+              tuple(affinity[1]), policy, anns.get(MESH_ANNOTATION, ""))
+
+        outcomes: Dict[str, tuple] = {}
+        misses: List[str] = []
+        with self._fit_cache_lock:
+            for name in candidates:
+                hit = self._fit_cache.get((name, fp))
+                if hit is not None and hit[0] == snap[name].key:
+                    outcomes[name] = hit[1]
+                else:
+                    misses.append(name)
+
+        def eval_one(name: str) -> tuple:
+            entry = snap[name]
+            cow = score_mod.CowUsage(entry.usage)
+            why: Dict[str, str] = {}
+            placement = score_mod.fit_pod(
+                requests, cow, entry.info.topology, anns,
+                self.cfg.topology_policy, reasons=why)
+            if placement is None:
+                return ("reject", why.get("reason",
+                                          "insufficient GPU capacity"))
+            s = score_mod.node_score(cow, self.cfg.node_scheduler_policy)
+            return ("fit", s, placement)
+
+        pool = self._eval_pool() if len(misses) >= 4 else None
+        if pool is None:
+            computed = [eval_one(n) for n in misses]
+        else:
+            computed = list(pool.map(self._count_busy(eval_one), misses))
+        with self._fit_cache_lock:
+            if len(self._fit_cache) > 8192:
+                # Dropped whole at the cap: at worst a cold decision.
+                self._fit_cache.clear()
+            for name, outcome in zip(misses, computed):
+                self._fit_cache[(name, fp)] = (snap[name].key, outcome)
+                outcomes[name] = outcome
+
+        fits: List[Tuple[float, str, List]] = []
+        for name in candidates:
+            outcome = outcomes[name]
+            if outcome[0] == "reject":
+                failed[name] = outcome[1]
+                continue
+            _, s, placement = outcome
+            if self.cfg.score_by_actual:
+                # Added at selection, never cached with the fit: the
+                # ledger moves on its report cadence, not on the revs.
+                s += eff_mod.actual_idle_bonus(
+                    self.ledger, name, len(snap[name].usage))
+            fits.append((s, name, placement))
+        if not fits:
+            return None, failed
+        # The near-best scatter: a strict argmax sends every concurrent
+        # Filter to the same node, where all but one lose the commit race.
+        # Candidates within 1% of the best are taken as equal, and each pod
+        # picks among them by its (pod, node) digest, so concurrent Filters
+        # fan out; a node better by more than that always wins.
+        s_max = max(f[0] for f in fits)
+        eps = 0.01 * max(1.0, abs(s_max))
+        best = min((f for f in fits if f[0] >= s_max - eps),
+                   key=lambda f: self.near_best_key(uid, f[1]))
+        # Fresh grant objects for the winner: cached fit outcomes are
+        # shared across hits, and a grant must never alias them.
+        return (best[0], best[1], self._copy_placement(best[2])), failed
+
+    @staticmethod
+    def _copy_placement(placement: List) -> List:
+        return [[ContainerDevice(uuid=d.uuid, type=d.type,
+                                 usedmem=d.usedmem, usedcores=d.usedcores)
+                 for d in container] for container in placement]
+
+    def _count_busy(self, fn):
+        """Wrap a pool task with busy-worker accounting (the saturation
+        gauge is the high-water mark)."""
+        def wrapped(*a):
+            with self._busy_lock:
+                self._busy += 1
+                if self._busy > self.workers_busy_peak:
+                    self.workers_busy_peak = self._busy
+            try:
+                return fn(*a)
+            finally:
+                with self._busy_lock:
+                    self._busy -= 1
+        return wrapped
+
+    def _eval_pool(self) -> Optional[ThreadPoolExecutor]:
+        """The candidate-evaluation pool, made on first need; None fits in
+        the calling thread (``filter_workers`` 1, or auto on one core).
+        The fits are pure Python, so the threads overlap little under the
+        GIL: on an 8-core H100 host the Filter storm ran as fast with
+        ``filter_workers`` 1 (``tools/storm_workers.py``, PERF.md)."""
+        if self._pool_unavailable:
+            return None
+        pool = self._pool
+        if pool is None:
+            with self._pool_lock:
+                if self._pool is None and not self._pool_unavailable:
+                    n = self.cfg.filter_workers
+                    if n <= 0:
+                        n = min(8, os.cpu_count() or 1)
+                    if n <= 1:
+                        self._pool_unavailable = True
+                        return None
+                    self._pool = ThreadPoolExecutor(
+                        max_workers=n, thread_name_prefix="filter-eval")
+                    self.worker_pool_size = n
+                pool = self._pool
+        return pool
 
     def _plan_preemption(self, pod: dict, requests, anns: Dict[str, str],
-                         node_names: List[str]
+                         node_names: List[str],
+                         snap: Dict[str, SnapEntry]
                          ) -> Optional[PreemptionPlan]:
-        """The eviction plan for a pod that fits nowhere, off the lock
-        (the planner is pure and may scan every node's pods).  Only the
-        offered nodes that take placements count: room freed elsewhere is
-        no use to the pod."""
+        """The eviction plan for a pod that fits nowhere, on the decision's
+        snapshot (the planner is pure and may scan every node's pods; it
+        fits on usage it rebuilds from the registry).  Only the offered
+        nodes that take placements count: room freed elsewhere is no use to
+        the pod."""
         if not self.cfg.enable_preemption:
             return None
         # Gang members are never victims: evicting one hangs the rest of
@@ -853,13 +1504,12 @@ class Scheduler:
         gang_uids = {u for g in self.gangs.groups().values()
                      for u in (*g.members, *g.placements)}
         offered = set(node_names)
-        entries = {name: (info, None)
-                   for name, info in self.nodes.list_nodes().items()
+        entries = {name: (e.info, e.usage) for name, e in snap.items()
                    if name in offered
                    and self.leases.reject_reason(name) is None}
         return plan_preemption(
             requests, pod_priority(pod, self.cfg), entries,
-            self._pods_by_node(), anns, self.cfg.topology_policy,
+            self.pods.by_node(), anns, self.cfg.topology_policy,
             protected_uids=gang_uids,
             node_policy=self.cfg.node_scheduler_policy)
 
@@ -928,33 +1578,38 @@ class Scheduler:
             log.info("preemption rescinded for %s/%s (requester %s no "
                      "longer pending)", namespace, name, requester_uid)
 
-    def _decide_locked(self, pod: dict, requests, node_names: List[str],
-                       anns: Dict[str, str]) -> FilterResult:
-        """Every candidate fitted on a copy of its usage; the highest
-        score wins, the first of equals in the candidates' order."""
+    def _decide_serial_locked(self, pod: dict, requests,
+                              node_names: List[str]) -> FilterResult:
+        """The serial path (``optimistic_commit=False``, and the last resort
+        after the optimistic retries), under the commit lock: every
+        candidate fitted on a copy of its snapshot usage; the highest score
+        wins, the first of equals in the candidates' order."""
         uid = pod_uid(pod)
         self.pods.del_pod(uid)  # a retried Filter replaces its grant
+        anns = pod.get("metadata", {}).get("annotations", {}) or {}
         affinity = score_mod.parse_affinity(anns)
+        snap = self.snapshot()
+        clone = score_mod.clone_usage
         failed: Dict[str, str] = {}
         best: Optional[Tuple[float, str, list]] = None
         for name in node_names:
-            info = self.nodes.get_node(name)
-            if info is None:
+            entry = snap.get(name)
+            if entry is None:
                 failed[name] = "no GPU inventory registered"
                 continue
             why = self.leases.reject_reason(name)
             if why is not None:
                 failed[name] = why
                 continue
-            usage = self._usage(name, info)
-            why = score_mod.type_excluded(affinity, usage)
+            why = score_mod.type_excluded(affinity, entry.usage)
             if why is not None:
                 failed[name] = why
                 continue
+            usage = {cid: clone(u) for cid, u in entry.usage.items()}
             reasons: Dict[str, str] = {}
-            placement = score_mod.fit_pod(requests, usage, info.topology,
-                                          anns, self.cfg.topology_policy,
-                                          reasons)
+            placement = score_mod.fit_pod(requests, usage,
+                                          entry.info.topology, anns,
+                                          self.cfg.topology_policy, reasons)
             if placement is None:
                 failed[name] = reasons.get("reason",
                                            "insufficient GPU capacity")
@@ -962,11 +1617,14 @@ class Scheduler:
             s = score_mod.node_score(usage, self.cfg.node_scheduler_policy)
             if self.cfg.score_by_actual:
                 s += eff_mod.actual_idle_bonus(self.ledger, name,
-                                               len(usage))
+                                               len(entry.usage))
             if best is None or s > best[0]:
                 best = (s, name, placement)
         if best is None:
-            return FilterResult(error=NO_FIT, failed=failed)
+            return FilterResult(
+                error=NO_FIT, failed=failed,
+                preempt=self._plan_preemption(pod, requests, anns,
+                                              node_names, snap))
         _, node, placement = best
         # Recorded at once, so the next decision sees the grant.
         self.pods.add_pod(PodInfo(
@@ -1017,9 +1675,11 @@ class Scheduler:
             return FilterResult(
                 error=f"gang {group} waiting ({len(g.members)}/{g.total})")
 
+        # The immutable snapshot's entries: place_gang lays CowUsage views
+        # over them.
         offered = set(node_names) if node_names else None
-        usage = {name: (info, self._usage(name, info))
-                 for name, info in self.nodes.list_nodes().items()
+        usage = {name: (e.info, e.usage)
+                 for name, e in self.snapshot().items()
                  if (offered is None or name in offered)
                  and self.leases.reject_reason(name) is None}
         # An admitted gang at its quorum again has replacements in freed
@@ -1173,39 +1833,6 @@ class Scheduler:
             # and with enable_elastic off).
             self.elastic.observe_rejection(self._reservation_key(pod))
 
-    def _write_decision(self, pod: dict, result: FilterResult
-                        ) -> Optional[str]:
-        """The decision as one annotation patch; the error, or None."""
-        encoded = codec.encode_pod_devices(
-            self.pods.get(pod_uid(pod)).devices)
-        patch = {
-            ASSIGNED_NODE_ANNOTATION: result.node,
-            ASSIGNED_IDS_ANNOTATION: encoded,
-            TO_ALLOCATE_ANNOTATION: encoded,
-            ASSIGNED_TIME_ANNOTATION: str(int(time.time())),
-        }
-        if pod_qos(pod):
-            patch[QOS_DUTY_SPLIT_ANNOTATION] = self._qos_duty_split(
-                result.node)
-        rank = self.gangs.rank_of(pod_uid(pod))
-        if rank is not None:
-            # The member's process rank, stable across replacements: the
-            # node agent passes it on as VTPU_GANG_RANK.
-            patch[GANG_RANK_ANNOTATION] = str(rank)
-        with trace.tracer().span("decision-write",
-                                 trace_id=trace.trace_id_of(pod),
-                                 pod=pod_name(pod), node=result.node,
-                                 qos=pod_qos(pod)) as sp:
-            try:
-                self.client.patch_pod_annotations(
-                    pod_namespace(pod), pod_name(pod), patch)
-            except Exception as e:  # noqa: BLE001 — no grant outlives a failed write
-                log.error("failed to write the decision for %s: %s",
-                          pod_name(pod), e)
-                sp.set("error", str(e))
-                return f"writing decision failed: {e}"
-        return None
-
     def _qos_duty_split(self, node: str) -> str:
         """The granted cores of each QoS class on ``node`` as of this
         decision: ``best-effort=120,latency-critical=40`` (an unclassed
@@ -1218,13 +1845,19 @@ class Scheduler:
         return ",".join(f"{cls}={split[cls]}" for cls in sorted(split))
 
     def close(self) -> None:
-        """Stop the background loops (idempotent).  The daemon never needs
-        this; embedders and tests that build and discard schedulers call
-        it so no loop outlives its scheduler."""
+        """Stop the background loops and release the candidate-evaluation
+        pool (idempotent).  The daemon calls it on exit; embedders and
+        tests that build and discard schedulers call it so no loop or pool
+        thread outlives its scheduler."""
         self.rescuer.stop()
         self.admission.stop()
         self.defrag.stop()
         self.elastic.stop()
+        with self._pool_lock:
+            pool, self._pool = self._pool, None
+            self._pool_unavailable = False
+        if pool is not None:
+            pool.shutdown(wait=False)
 
     # -- Bind ------------------------------------------------------------------
     def bind(self, namespace: str, name: str, uid: str, node: str

@@ -147,8 +147,8 @@ class GangConflictError(ValueError):
 
 
 class GangManager:
-    """The group registry, under a lock of its own: Filter holds the
-    scheduler's decision lock, but the informer and the rescuer read it
+    """The group registry, under a lock of its own: a gang's Filter holds
+    the scheduler's commit lock, but the informer and the rescuer read it
     too.  ``now`` (wall time by default; ``_now`` afterwards) dates the
     groups' progress and the tombstones."""
 

@@ -17,7 +17,10 @@ held in slice reservations and the defragmenter's plans, migrations,
 completions and aborts, the capacity forecast (each queue's demand,
 forecast, upper band, starvation ETA and drift, and the current and
 recommended node counts, from ``export_capacity``), QoS wait and weights,
-and the phase latency and rejections from the tracer.  Families whose
+the phase latency and rejections from the tracer, the performance
+observatory's phases, locks, informer lag and GC collections
+(``util/perf.py``), the optimistic commit's conflicts, the evaluation
+pool's size and busy peak, and the failed decision writes.  Families whose
 subsystem waits for ROADMAP A.5 are emitted as the JAX collector emits
 them with that subsystem off, zero-valued or empty, so no series a
 dashboard names ever vanishes: see :data:`A5_FAMILIES`.  Standard library
@@ -30,7 +33,7 @@ from typing import Dict, Iterable
 
 from ..monitor.metrics import _fold_hist, qos_wait_family
 from ..placement import frag as frag_mod
-from ..util import trace
+from ..util import perf, trace
 from ..util.exposition import (
     CounterMetricFamily,
     GaugeMetricFamily,
@@ -44,21 +47,10 @@ from .core import Scheduler
 #: the subsystem off: zero-valued where the family has no labels (or a
 #: fixed label set), empty where its labels name live objects.
 A5_FAMILIES = {
-    "vtpu_filter_commit_conflicts": "optimistic commit",
     "vtpu_filter_batch_size": "batched scheduling cycles",
     "vtpu_filter_batch_cycle_seconds": "batched scheduling cycles",
     "vtpu_filter_batch_fallbacks": "batched scheduling cycles",
-    "vtpu_cycle_phase_seconds": "performance observatory",
-    "vtpu_lock_wait_seconds": "performance observatory",
-    "vtpu_lock_hold_seconds": "performance observatory",
-    "vtpu_lock_acquires": "performance observatory",
-    "vtpu_lock_sampled_acquires": "performance observatory",
-    "vtpu_informer_lag_seconds": "performance observatory",
-    "vtpu_informer_resync_seconds": "performance observatory",
     "vtpu_pending_queue_depth": "batched scheduling cycles",
-    "vtpu_gc_collections": "performance observatory",
-    "vtpu_filter_worker_pool_size": "candidate-evaluation worker pool",
-    "vtpu_filter_workers_busy_peak": "candidate-evaluation worker pool",
     "vtpu_solve_workers": "multicore solve workers",
     "vtpu_solve_worker_restarts": "multicore solve workers",
     "vtpu_solve_worker_eval_seconds": "multicore solve workers",
@@ -75,7 +67,6 @@ A5_FAMILIES = {
     "vtpu_slo_error_budget_remaining_ratio": "SLO engine",
     "vtpu_slo_burn_rate": "SLO engine",
     "vtpu_slo_burn_alerts": "SLO engine",
-    "vtpu_decision_write_failures": "decision writer",
 }
 
 class ClusterCollector:
@@ -150,7 +141,7 @@ class ClusterCollector:
             "concurrent Filters chase the same node — check node-policy "
             "spread and fleet headroom)",
         )
-        conflicts.add_metric([], 0)  # serial decisions: no commit race
+        conflicts.add_metric([], self.scheduler.commit_conflicts)
 
         # Batched scheduling cycles (A.5): the families, empty.
         batch_size = HistogramMetricFamily(
@@ -195,14 +186,14 @@ class ClusterCollector:
             "Candidate-evaluation worker pool size (0 until the pool is "
             "first used, or when evaluation is in-thread)",
         )
-        pool_size.add_metric([], 0)
+        pool_size.add_metric([], self.scheduler.worker_pool_size)
         busy_peak = GaugeMetricFamily(
             "vtpu_filter_workers_busy_peak",
             "High-water mark of concurrently busy candidate-evaluation "
             "workers (peak/size ~ 1 means the pool saturates and "
             "--filter-workers may be raised)",
         )
-        busy_peak.add_metric([], 0)
+        busy_peak.add_metric([], self.scheduler.workers_busy_peak)
 
         # Fleet health (health/): the leases, quarantine and rescuer keep
         # their own small locks, so a scrape never blocks a decision.
@@ -537,11 +528,24 @@ class ClusterCollector:
             "vtpu_cycle_phase_seconds)",
             labels=["generation"],
         )
-        informer_lag.add_metric([], 0.0)
-        informer_resync.add_metric([], 0.0)
-        pending_depth.add_metric([], 0)
-        for gen in range(3):
-            gc_collections.add_metric([str(gen)], 0)
+        reg = perf.registry()
+        for name, ring in sorted(reg.phase_rings().items()):
+            buckets, sum_s = ring.prom()
+            cycle_phase.add_metric([name], buckets, sum_s)
+        for name, st in sorted(reg.lock_tables().items()):
+            buckets, sum_s = st.wait.prom()
+            lock_wait.add_metric([name], buckets, sum_s)
+            buckets, sum_s = st.hold.prom()
+            lock_hold.add_metric([name], buckets, sum_s)
+            lock_acquires.add_metric([name], st.acquires)
+            lock_sampled.add_metric([name], st.sampled_acquires())
+        informer_lag.add_metric([], reg.informer_lag_s())
+        informer_resync.add_metric(
+            [], reg.gauge("informer_resync_last_s"))
+        # No batched cycles yet (A.5): no batch gate, so no queue.
+        pending_depth.add_metric([], reg.gauge("pending_queue_depth"))
+        for gen, n in enumerate(reg.gc.collections):
+            gc_collections.add_metric([str(gen)], n)
 
         batch_fallbacks = CounterMetricFamily(
             "vtpu_filter_batch_fallbacks",
@@ -724,8 +728,8 @@ class ClusterCollector:
         for severity in ("page", "ticket"):
             slo_alerts.add_metric([severity], 0)
 
-        # Decision-write failures (A.5's decision writer): the JAX
-        # reasons, zero-valued.
+        # Decision-write failures by reason (the port writes no shard
+        # commit yet, so the shard reasons stay zero).
         dwf = CounterMetricFamily(
             "vtpu_decision_write_failures",
             "Decision-annotation writes that failed after their path's "
@@ -735,8 +739,10 @@ class ClusterCollector:
             "rolled its tentative grant back and requeued the pod)",
             labels=["reason"],
         )
+        failures = dict(getattr(self.scheduler, "decision_write_failures",
+                                None) or {})
         for reason in ("shard-cas", "shard-fence", "transport"):
-            dwf.add_metric([reason], 0)
+            dwf.add_metric([reason], failures.get(reason, 0))
 
         fleet = self.scheduler.grant_efficiency()
         by_uid = {p.uid: p for p in fleet.pods}

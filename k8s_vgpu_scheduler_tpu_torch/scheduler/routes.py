@@ -25,13 +25,18 @@ Reference: pkg/scheduler/routes/route.go (PredicateRoute 41–77, Bind
                     recommendation and forecast drift (``?horizon=<seconds>``,
                     a positive finite number, else 400; an export error
                     answers 500) for ``vgpu-report``
+- ``GET  /perfz``   the performance observatory: phase timings, the lock
+                    table, informer lag, the decision writer's
+                    amortization, the slowest recent ticks
+                    (``?ticks=<n>``, an integer in [0, 64], else 400; an
+                    export error answers 500)
 - ``GET  /debug/*`` stacks, profile, vars, tracez, events
                     (``util/debugz.py``), with ``Config.enable_debug``
 
 ``/metrics`` is served on its own port (``scheduler/metrics.py``, as the
 JAX daemon does).  The JAX package's other export endpoints (``/auditz``,
-``/sloz``, ``/explainz``, ``/perfz``) wait for ROADMAP A.5; ``vgpu-report``
-degrades without them.
+``/sloz``, ``/explainz``) wait for ROADMAP A.5; ``vgpu-report`` degrades
+without them.
 """
 
 from __future__ import annotations
@@ -138,6 +143,20 @@ class _Handler(BaseHTTPRequestHandler):
                 self._reply(200, export(value))
             except Exception as e:  # noqa: BLE001 — a 500, not a hangup
                 log.exception("%s export failed", parts.path)
+                self._reply(500, {"error": f"{type(e).__name__}: {e}"})
+        elif parts.path == "/perfz":
+            query = dict(parse_qsl(parts.query))
+            try:
+                ticks = int(query.get("ticks", "8"))
+                if not 0 <= ticks <= 64:
+                    raise ValueError(f"out of range [0, 64]: {ticks}")
+            except (ValueError, TypeError) as e:
+                self._reply(400, {"error": f"bad ticks: {e}"})
+                return
+            try:
+                self._reply(200, self.scheduler.export_perf(ticks))
+            except Exception as e:  # noqa: BLE001 — a 500, not a hangup
+                log.exception("perfz export failed")
                 self._reply(500, {"error": f"{type(e).__name__}: {e}"})
         elif self.path.startswith("/debug/") and self.cfg.enable_debug:
             from ..util import debugz

@@ -44,6 +44,18 @@ class Config:
     # the reference's rule) or "binpack" (the fullest fitting node wins).
     node_scheduler_policy: str = "spread"
 
+    # The optimistic Filter (scheduler/core.py): candidates are fitted
+    # without a lock on an immutable snapshot, and the commit lock is held
+    # only to re-check the winner's revisions and record the grant.  False
+    # decides each pod whole under one lock (--serial-filter).
+    optimistic_commit: bool = True
+    # Candidate-evaluation worker pool: 0 = auto (min(8, cpu count)),
+    # 1 = evaluate in the calling thread, N > 1 = pool size.
+    filter_workers: int = 0
+    # Optimistic commits that lose their revision race re-evaluate on a
+    # fresh snapshot at most this many times, then decide serially.
+    commit_retries: int = 4
+
     # Priority preemption (scheduler/preempt.py): a pod that fits nowhere
     # may ask strictly lower-priority pods to checkpoint and leave.  Off
     # by default: eviction is the operator's choice (--enable-preemption).
@@ -149,6 +161,12 @@ class Config:
     # The extender's /debug endpoints (stacks, profile, vars, tracez,
     # events); unauthenticated, so off unless asked for.
     enable_debug: bool = False
+    # The performance observatory (util/perf.py: phase rings, lock
+    # wait/hold telemetry, /perfz); --no-perf switches it off.  Opt-in
+    # tracemalloc puts the top allocation sites on /perfz, at the cost of
+    # tracing every allocation.
+    perf_enabled: bool = True
+    perf_tracemalloc: bool = False
 
     # Node-agent knobs (reference pkg/device-plugin/config:528–537).
     device_split_count: int = 10

@@ -49,7 +49,7 @@ def side(name: str):
         from k8s_vgpu_scheduler_tpu_torch.util.config import Config
         from k8s_vgpu_scheduler_tpu_torch.util.types import ContainerDevice
         res = ("nvidia.com/gpu", "nvidia.com/gpumem")
-        serial = {}
+        serial = {"optimistic_commit": False}
     else:
         from k8s_vgpu_scheduler_tpu import accounting as acc
         from k8s_vgpu_scheduler_tpu.accounting import efficiency

@@ -27,6 +27,7 @@ The stated departures, each pinned below with both answers:
 """
 
 import copy
+import functools
 import hashlib
 import json
 import math
@@ -692,16 +693,25 @@ def cli_json(capsys, workload: dict, tmp_path, fleet=FLEET) -> str:
     return capsys.readouterr().out
 
 
+@pytest.mark.parametrize("path", ["serial", "optimistic"])
 @pytest.mark.parametrize("name", sorted(CASES))
-def test_the_capacity_report_is_bit_identical_and_pinned(name, tmp_path,
-                                                         capsys):
+def test_the_capacity_report_is_bit_identical_and_pinned(name, path,
+                                                         tmp_path, capsys,
+                                                         monkeypatch):
     """``vgpu-simulate --json`` twice: the same bytes (SimClock and closed
-    forms, no RNG), whose sha256 is the pin chip_smoke.py holds the card
-    machine's run to."""
+    forms, no RNG), whose sha256 is pinned for each decision path: the
+    serial one (``Config`` rebound to ``optimistic_commit=False``,
+    ``CAPACITY_SHA256``) and the default optimistic one
+    (``CAPACITY_SHA256_OPTIMISTIC``, which chip_smoke.py holds the card
+    machine's run to)."""
+    if path == "serial":
+        monkeypatch.setattr(tsim, "Config", functools.partial(
+            tsim.Config, optimistic_commit=False))
+    pins = (chip_smoke.CAPACITY_SHA256 if path == "serial"
+            else chip_smoke.CAPACITY_SHA256_OPTIMISTIC)
     first = cli_json(capsys, CASES[name], tmp_path)
     assert cli_json(capsys, CASES[name], tmp_path) == first
-    assert hashlib.sha256(first.encode()).hexdigest() == \
-        chip_smoke.CAPACITY_SHA256[name]
+    assert hashlib.sha256(first.encode()).hexdigest() == pins[name]
     assert json.loads(first)["capacity"]["verdict"]["ok"]
 
 

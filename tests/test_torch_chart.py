@@ -628,8 +628,10 @@ def test_every_emitted_family_is_dashboarded_exempt_or_a5():
 
 
 def test_the_dashboard_is_the_jax_ones_less_a5():
-    """The JAX dashboard's panels and alert rules less those on an A.5
-    family, in order, with their queries as they were; titles say GPU."""
+    """The JAX dashboard's panels with their queries on an A.5 family
+    left out (a panel left with none goes), and its alert rules less
+    those on an A.5 family, in order, with their queries as they were;
+    titles say GPU."""
     jax = json.loads((ROOT / "charts" / "vtpu" / "dashboards"
                       / "vtpu-overview.json").read_text())
     ours = json.loads((CHART / "dashboards" / "vgpu-overview.json")
@@ -639,15 +641,19 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
         return any(chip_smoke.family_of(n) in A5_FAMILIES
                    for e in exprs for n in re.findall(r"[a-z][a-z0-9_]+", e))
 
-    want = [[t["expr"] for t in p["targets"]] for p in jax["panels"]
-            if not a5(t["expr"] for t in p["targets"])]
+    want = [kept for kept in ([t["expr"] for t in p["targets"]
+                              if not a5([t["expr"]])]
+                             for p in jax["panels"]) if kept]
     assert [[t["expr"] for t in p["targets"]]
             for p in ours["panels"]] == want
     # 34 since the placement families (reserved cards, defrag counters)
     # left A5_FAMILIES: the max-free-box and compaction panels came back;
     # 36 since the elastic families left: the resize and state panels; 39
-    # since the capacity forecast's: the three "Capacity" panels.
-    assert len(want) == 39 and ours["uid"] == "vgpu-overview"
+    # since the capacity forecast's: the three "Capacity" panels; 46 since
+    # the throughput machinery's: commit conflicts, pool saturation, phase
+    # cost, lock wait and hold, decision-write failures, and the informer
+    # lag and GC panels less their batched-cycle queries.
+    assert len(want) == 46 and ours["uid"] == "vgpu-overview"
     for p in ours["panels"]:
         assert "TPU" not in p["title"] + p.get("description", "")
     alerts = yaml.safe_load((CHART / "dashboards" / "vgpu-alerts.yaml")
@@ -664,8 +670,10 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
         for r in want_rules]
     # VtpuDefragAbortStorm came back with placement, VtpuResizeThrash
     # with elastic meshes, VtpuQueueStarvationForecast and
-    # VtpuCapacityForecastDrift with the capacity forecast.
-    assert len(ours_rules) == 20
+    # VtpuCapacityForecastDrift with the capacity forecast,
+    # VtpuFilterCommitConflictStorm, VtpuSchedulerTickStall and
+    # VtpuDecisionWriteFailures with the throughput machinery.
+    assert len(ours_rules) == 23
     for r in ours_rules:
         assert r["annotations"]["summary"]
         assert "TPU" not in r["annotations"]["summary"]

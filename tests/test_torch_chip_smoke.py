@@ -276,7 +276,8 @@ def test_the_fleet_leg_runs_on_the_mock_nvml(tmp_path, v2_idle_s):
     root.mkdir()
     env = {k: v for k, v in os.environ.items()
            if k not in ("VTPU_MOCK_JSON", "MOCK_NVML_NOT_SUPPORTED")}
-    env.update(LD_LIBRARY_PATH=str(nvml.parent), MOCK_NVML_JSON=str(fixture))
+    env.update(LD_LIBRARY_PATH=str(nvml.parent), MOCK_NVML_JSON=str(fixture),
+               FILTER_STORM="rehearsal")
     fleet = chip_smoke.FleetView(root, vgpu, env)
     plane = None
     try:
@@ -320,14 +321,17 @@ def test_the_fleet_leg_runs_on_the_mock_nvml(tmp_path, v2_idle_s):
         chip_smoke.place_pod(plane.base, created, node, out)
         run("V2", idle_s=v2_idle_s)
         got = fleet.read(plane, pods, runs, nofit)
+        # The quota leg's observatory read (perf_view), after one tick.
+        plane.call("tick")
+        perf = chip_smoke.perf_view(plane)
         plane.call("end")
     finally:
         if plane is not None:
             plane.close()
         fleet.stop()
     assert set(got["ledger"]) == {"V", "H", "V2"}
-    assert got["trace"] == ["webhook", "filter", "decision-write", "bind",
-                            "allocate"]
+    assert got["trace"] == ["webhook", "filter", "commit", "decision-write",
+                            "bind", "allocate"]
     assert got["phase_counts"]["filter"] == 4
     bound = (chip_smoke.efficiency_skew_bound(got["v2_covered_s"])
              if v2_idle_s == 0 else 1)
@@ -342,6 +346,15 @@ def test_the_fleet_leg_runs_on_the_mock_nvml(tmp_path, v2_idle_s):
     assert (scaled["cards"], scaled["placed"] + scaled["pending"],
             scaled["idle_grants"], scaled["exit_code"]) == (1024, 968, 16, 1)
     assert fleet.sim.returncode == 1
+    # The Filter storm at its rehearsal size, both modes.
+    storm = got["filter_storm"]
+    assert set(storm["modes"]) == {"serial", "optimistic"}
+    for mode in storm["modes"].values():
+        assert mode["placed"] + mode["refused"] == mode["pods"]
+        assert mode["churned"] > 0 and mode["decisions_per_s"] > 0
+    assert storm["modes"]["optimistic"]["opt_evaluate"]["n"] > 0
+    assert all(n > 0 for n in perf["phases"].values())
+    assert perf["throughput"]["optimistic"]
 
 
 def test_the_node_leg_reads_live_regions(tmp_path, monkeypatch):

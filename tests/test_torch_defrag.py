@@ -35,9 +35,9 @@ decide the migration alike, and the victim, the port's
 ``run_preemptible`` in f32 on the CPU, checkpoints when the compaction
 asks and resumes bit for bit against an uninterrupted run.
 
-Where the port departs (no perf timer around ``tick``; no revision key
-in ``SnapEntry``) ``test_the_ports_departures`` states both answers; the
-elastic shrink set is empty on both with elastic off.
+Where the port once departed (no perf timer around ``tick``; no revision
+key in ``SnapEntry``) ``test_the_ports_departures`` now holds both alike;
+the elastic shrink set is empty on both with elastic off.
 """
 
 import copy
@@ -300,7 +300,7 @@ class Side:
         cfg.setdefault("enable_defrag", True)
         cfg.setdefault("topology_policy", "guaranteed")
         if port:
-            self.cfg = TConfig(**cfg)
+            self.cfg = TConfig(optimistic_commit=False, **cfg)
         else:
             self.cfg = JConfig(resources=JNames(**PORT_NAMES),
                                scheduler_name="vgpu-scheduler",
@@ -911,22 +911,27 @@ def test_the_migrated_victim_resumes_bit_for_bit(params, tmp_path):
 
 
 def test_the_ports_departures():
-    """Where the port's defragmenter departs, both answers: the tick
-    (JAX: inside its ``defrag-tick`` perf timer; the port: untimed, the
-    same actions) and the snapshot's key (JAX: the (pod rev, inventory
-    rev) generation; the port: (0, 0)).  The shrink set, a departure
-    until the port's resize controller came, is now each controller's
-    own: empty on both with elastic off (``tests/test_torch_elastic.py``
-    holds it with elastic on)."""
+    """What the port's defragmenter once departed in, now the same on
+    both: the tick (the same actions, each inside its ``defrag-tick``
+    perf timer) and the snapshot's key (the (pod rev, inventory rev)
+    generation).  The shrink set is each resize controller's own: empty
+    on both with elastic off (``tests/test_torch_elastic.py`` holds it
+    with elastic on)."""
     sides = {port: Side(port) for port in (True, False)}
     try:
         j, t = sides[False].s, sides[True].s
         assert j.elastic.shrinkable_uids() == {}
         assert t.elastic.shrinkable_uids() == {}
+        from k8s_vgpu_scheduler_tpu.util import perf as jperf
+        from k8s_vgpu_scheduler_tpu_torch.util import perf as tperf
+        ticks = [reg.registry().phase("defrag-tick").count
+                 for reg in (jperf, tperf)]
         assert j.defrag.tick() == t.defrag.tick() == []
+        assert [reg.registry().phase("defrag-tick").count
+                for reg in (jperf, tperf)] == [n + 1 for n in ticks]
         jsnap, tsnap = j.snapshot(), t.snapshot()
         assert list(tsnap) == list(jsnap) == ["node-0"]
-        assert tsnap["node-0"].key == (0, 0)
+        assert tsnap["node-0"].key == jsnap["node-0"].key
         assert {c: dataclasses.asdict(u) for c, u in
                 tsnap["node-0"].usage.items()} == \
             {c: dataclasses.asdict(u) for c, u in

@@ -238,7 +238,7 @@ class TestWebhookRangeValidation:
                             "namespace": "default", "object": pod}}
         got = {}
         for port in (True, False):
-            cfg = TConfig() if port else JCFG
+            cfg = TConfig(optimistic_commit=False) if port else JCFG
             got[port] = decoded(PKG[port]["webhook"].handle_admission_review(
                 copy.deepcopy(body), cfg, topologies=[topo(port)]))
         assert got[True] == as_port(got[False])
@@ -314,7 +314,8 @@ class Side:
         cfg_kw.setdefault("resize_checkpoint_grace_s", 50.0)
         cfg_kw.setdefault("elastic_downgrade_after_s", 5.0)
         if port:
-            cfg = TConfig(enable_elastic=enable_elastic, **cfg_kw)
+            cfg = TConfig(enable_elastic=enable_elastic,
+                          optimistic_commit=False, **cfg_kw)
         else:
             cfg = JConfig(resources=JNames(**PORT_NAMES),
                           scheduler_name="vgpu-scheduler",

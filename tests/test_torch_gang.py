@@ -74,7 +74,7 @@ class Side:
         self.port = port
         self.kube = TKube() if port else JKube()
         if port:
-            self.cfg = TConfig(**cfg)
+            self.cfg = TConfig(optimistic_commit=False, **cfg)
         else:
             self.cfg = JConfig(resources=JNames(**PORT_NAMES),
                                scheduler_name="vgpu-scheduler",
@@ -631,7 +631,7 @@ def test_gang_placed_atomically_across_two_registered_nodes():
     records, sides = {}, {}
     for port in (True, False):
         kube = TKube() if port else JKube()
-        cfg = (TConfig() if port else
+        cfg = (TConfig(optimistic_commit=False) if port else
                JConfig(resources=JNames(**PORT_NAMES),
                        scheduler_name="vgpu-scheduler",
                        optimistic_commit=False))

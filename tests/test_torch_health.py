@@ -16,9 +16,13 @@ Three levels, each compared by equality:
   seed on its own scheduler: the plan, the log of faults, every sweep's
   actions and the state they leave.
 
-Left out, and why: the JAX cases on the optimistic snapshot's revisions
-(the port decides serially on usage it builds afresh), the concurrency
-case of tests/test_health.py (the JAX optimistic path's), the device
+The JAX cases on the optimistic snapshot's revisions (a quarantine flip
+moves the node's inventory rev; a keepalive does not) and its
+concurrency case (Filters racing a node's death and the rescuer) run on
+both packages' default, optimistic path, the first two compared by
+their answers, the third each with its own invariant.
+
+Left out, and why: the device
 cache's (held in tests/test_torch_deviceplugin.py), the metrics
 collector's (the port's metrics slice, ROADMAP A.5), the simulator's
 chaos runs (held against the JAX simulator in
@@ -29,6 +33,7 @@ port's).
 
 import dataclasses
 import json
+import types
 
 import pytest
 
@@ -468,3 +473,135 @@ def test_a_rescued_member_leaves_its_gang():
     assert rec["retry"]["node"] not in (None, rec["node"])
     ranks = {a[t.GANG_RANK_ANNOTATION] for a in rec["anns"].values()}
     assert ranks == {"0", "1"}
+
+
+# -- the optimistic snapshot's revisions (tests/test_health.py) -----------------
+def optimistic_env(side, n_nodes=2, chips=4):
+    """tests/test_health.py's ``make_env``: the fleet registered through
+    the register stream (so the leases track it) on a SimClock, the watch
+    wired, the default (optimistic) Filter."""
+    from tests.test_torch_concurrency import PKGS
+
+    pkg = PKGS[side]
+    clock = (thealth if side == "port" else jhealth).faults.SimClock()
+    kube = pkg.FakeKube()
+    s = pkg.Scheduler(kube, pkg.Config(), clock=clock)
+    names = [f"node-{i}" for i in range(n_nodes)]
+
+    def info(n):
+        return pkg.NodeInfo(name=n, devices=[
+            pkg.DeviceInfo(id=f"{n}-chip-{i}", count=10, devmem=16384,
+                           type=pkg.ctype, health=True, coords=(i, 0))
+            for i in range(chips)],
+            topology=pkg.TopologyDesc(generation=pkg.gen, mesh=(chips, 1)))
+
+    for n in names:
+        kube.add_node({"metadata": {"name": n, "annotations": {}}})
+        s.observe_registration(n, info(n))
+    kube.watch_pods(s.on_pod_event)
+    return types.SimpleNamespace(pkg=pkg, kube=kube, s=s, names=names,
+                                 clock=clock, info=info)
+
+
+def quarantine_flip(side):
+    env = optimistic_env(side, n_nodes=1, chips=1)
+    try:
+        node = env.names[0]
+        key_before = env.s.snapshot()[node].key
+        env.s.quarantine.quarantine(node, f"{node}-chip-0", "test")
+        p = env.pkg.pod("p", "u", mem="1000")
+        env.kube.create_pod(p)
+        r = env.s.filter(p, env.names)
+        return dict(rev_step=env.s.nodes.rev_of(node) - key_before[1],
+                    key_moved=env.s.snapshot()[node].key != key_before,
+                    node=r.node, error=r.error.replace("TPU", "GPU"))
+    finally:
+        env.s.close()
+
+
+def test_quarantine_flip_invalidates_optimistic_snapshot():
+    """A quarantine after a snapshot bumps the node's inventory rev
+    (``NodeManager.touch``): the stale snapshot's key no longer matches,
+    and a Filter finds no card at all."""
+    got = {side: quarantine_flip(side) for side in ("port", "jax")}
+    assert got["port"] == got["jax"] == dict(
+        rev_step=1, key_moved=True, node=None,
+        error="no node fits GPU request")
+
+
+def keepalives(side):
+    env = optimistic_env(side, n_nodes=1)
+    try:
+        node = env.names[0]
+        env.s.snapshot()
+        rev = env.s.nodes.rev_of(node)
+        for _ in range(5):
+            env.clock.advance(5.0)
+            env.s.observe_registration(node, env.info(node))
+        return dict(rev_moved=env.s.nodes.rev_of(node) - rev,
+                    lease=env.s.leases.state_of(node).name)
+    finally:
+        env.s.close()
+
+
+def test_unchanged_reregistration_does_not_bump_rev():
+    """Keepalives (the same inventory) leave the snapshot valid."""
+    got = {side: keepalives(side) for side in ("port", "jax")}
+    assert got["port"] == got["jax"] == dict(rev_moved=0, lease="HEALTHY")
+
+
+@pytest.mark.parametrize("side", ["port", "jax"])
+def test_concurrent_filters_during_node_death_never_overbook(side):
+    """Four submitters race a node whose agent goes silent while the
+    rescuer sweeps: no card passes its totals at any step, the silent node
+    ends dead, and every surviving grant is on a live node."""
+    import threading
+    import time
+
+    from tests.test_torch_concurrency import overbooked
+
+    env = optimistic_env(side, n_nodes=4, chips=4)
+    s, names = env.s, env.names
+    errors = []
+    barrier = threading.Barrier(5)
+    deadline = time.monotonic() + 60.0
+
+    def submitter(t):
+        barrier.wait()
+        for i in range(20):
+            p = env.pkg.pod(f"t{t}p{i}", f"t{t}u{i}",
+                            mem=("4000", "8000", "2000")[i % 3])
+            try:
+                env.kube.create_pod(p)
+                s.filter(p, names)
+                assert not overbooked(s)
+            except Exception as e:  # noqa: BLE001 — raised on the main thread
+                errors.append(e)
+                return
+
+    def chaos():
+        barrier.wait()
+        try:
+            for _ in range(15):
+                env.clock.advance(5.0)
+                for n in names[1:]:
+                    s.observe_registration(n, env.info(n))
+                s.rescuer.sweep()
+                assert not overbooked(s)
+        except Exception as e:  # noqa: BLE001
+            errors.append(e)
+
+    threads = [threading.Thread(target=submitter, args=(t,))
+               for t in range(4)] + [threading.Thread(target=chaos)]
+    try:
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=max(0.0, deadline - time.monotonic()))
+            assert not th.is_alive()
+        assert not errors, errors[0]
+        assert s.leases.state_of(names[0]).name == "DEAD"
+        assert all(info.node != names[0] for info in s.pods.list_pods())
+        assert not overbooked(s)
+    finally:
+        s.close()

@@ -12,10 +12,14 @@
   preempt, quarantine, rescue and usage scripts of
   ``tests/test_torch_scheduler.py`` and ``tests/test_torch_preempt.py``.
   Exceptions: ``vtpu_scheduling_phase_latency_seconds`` (wall clock:
-  bounds and counts) and the families of ``A5_FAMILIES``, which the port
-  emits zero-valued or empty, as the JAX collector does with the
-  subsystem off; the rejection reasons read "GPU" for "TPU" (the name
-  table of ``tests/test_torch_scheduler.py``).  The placement families
+  bounds and counts); the performance observatory's timed families
+  (``OBSERVATORY_TIMED``: their samples' names and labels, not their
+  values) and its lock counters (equal but for the "nodes" lock, which
+  the JAX shard layer also takes), each side on a fresh registry; the
+  families of ``A5_FAMILIES``, which the port emits zero-valued or
+  empty, as the JAX collector does with the subsystem off; the rejection
+  reasons read "GPU" for "TPU" (the name table of
+  ``tests/test_torch_scheduler.py``).  The placement families
   (reserved cards, the defragmenter's counters) are compared by value,
   with the defragmenter off and with a plan in flight.
 - **Writer.**  ``util/exposition.py`` writes what ``generate_latest``
@@ -52,6 +56,7 @@ from k8s_vgpu_scheduler_tpu.health.faults import SimClock
 from k8s_vgpu_scheduler_tpu.monitor import metrics as jnode
 from k8s_vgpu_scheduler_tpu.scheduler import metrics as jcluster
 from k8s_vgpu_scheduler_tpu.tpulib import MockBackend as JMock
+from k8s_vgpu_scheduler_tpu.util import perf as jperf
 from k8s_vgpu_scheduler_tpu.util import trace as jtrace
 from k8s_vgpu_scheduler_tpu_torch.accounting.forecast import (
     ForecastConfig, SeriesForecaster)
@@ -61,6 +66,7 @@ from k8s_vgpu_scheduler_tpu_torch.scheduler import metrics as tcluster
 from k8s_vgpu_scheduler_tpu_torch.tpulib import MockBackend as TMock
 from k8s_vgpu_scheduler_tpu_torch.util import exposition as expo
 from k8s_vgpu_scheduler_tpu_torch.util import trace as ttrace
+from k8s_vgpu_scheduler_tpu_torch.util import perf as tperf
 from tests import test_torch_preempt as tp
 from tests import test_torch_scheduler as ts
 from tests.test_torch_monitor import (  # noqa: F401 — libs, workloads
@@ -106,11 +112,42 @@ def hist_shape(fam) -> list:
                   for s in fam.samples if not s.name.endswith("_sum"))
 
 
+#: The performance observatory's families whose values are timings: held
+#: by their samples' names and labels (phases, locks, bucket bounds), not
+#: by value.
+OBSERVATORY_TIMED = ("vtpu_cycle_phase_seconds", "vtpu_lock_wait_seconds",
+                     "vtpu_lock_hold_seconds", "vtpu_informer_lag_seconds",
+                     "vtpu_informer_resync_seconds")
+
+
+#: The lock counters: equal per lock but "nodes", which the JAX package's
+#: shard layer (not yet in the port) also takes: once a scrape for its
+#: ``vtpu_shards_owned`` gauge, and on each defrag tick.  There the JAX
+#: count is at least the port's.
+OBSERVATORY_LOCK_COUNTS = ("vtpu_lock_acquires", "vtpu_lock_sampled_acquires")
+
+
+def labels_shape(fam) -> list:
+    """A timing family's samples without their values."""
+    return sorted((s.name, tuple(sorted(s.labels.items())))
+                  for s in fam.samples)
+
+
+def same_lock_counts(mine, fam) -> None:
+    got = {s.labels["lock"]: s.value for s in mine.samples}
+    want = {s.labels["lock"]: s.value for s in fam.samples}
+    assert set(got) == set(want), (got, want)
+    assert {k: v for k, v in got.items() if k != "nodes"} == \
+        {k: v for k, v in want.items() if k != "nodes"}, (got, want)
+    assert want["nodes"] >= got["nodes"], (got, want)
+
+
 def same_families(port_text: str, jax_text_: str, wall=(), a5=(),
                   rename=None) -> dict:
     """Both texts hold the same families in the same order, with the
     same help and type; every family's samples equal, but the wall-clock
-    ones by ``hist_shape`` and the A.5 ones (port zero or empty)."""
+    ones by ``hist_shape``, the observatory's timings by
+    ``labels_shape`` and the A.5 ones (port zero or empty)."""
     got, want = families(port_text), families(jax_text_)
     assert list(got) == list(want)
     for name, fam in want.items():
@@ -122,6 +159,10 @@ def same_families(port_text: str, jax_text_: str, wall=(), a5=(),
                        and s.value == 0 for s in mine.samples), name
         elif name in wall:
             assert hist_shape(mine) == hist_shape(fam), name
+        elif name in OBSERVATORY_TIMED:
+            assert labels_shape(mine) == labels_shape(fam), name
+        elif name in OBSERVATORY_LOCK_COUNTS:
+            same_lock_counts(mine, fam)
         else:
             ren = (rename or {}).get(name, lambda labels: labels)
             assert samples(mine) == samples(fam, ren), name
@@ -390,8 +431,12 @@ def test_the_cluster_collector_reads_as_the_jax_one(name, monkeypatch):
 
 
 def fresh_tracers(monkeypatch):
+    """Fresh process-global tracers and performance registries, so each
+    side's text holds only its own run."""
     for mod in (ttrace, jtrace):
         monkeypatch.setattr(mod, "_GLOBAL", mod.Tracer())
+    for mod in (tperf, jperf):
+        monkeypatch.setattr(mod, "_GLOBAL", mod.PerfRegistry())
 
 
 def test_the_fabric_fleet_reads_slice_availability_as_jax(monkeypatch):
@@ -413,21 +458,10 @@ def test_the_fabric_fleet_reads_slice_availability_as_jax(monkeypatch):
 
 
 A5_ITEMS = {
-    "optimistic commit": ["vtpu_filter_commit_conflicts"],
     "batched scheduling cycles": ["vtpu_filter_batch_size",
                                   "vtpu_filter_batch_cycle_seconds",
                                   "vtpu_filter_batch_fallbacks",
                                   "vtpu_pending_queue_depth"],
-    "performance observatory": ["vtpu_cycle_phase_seconds",
-                                "vtpu_lock_wait_seconds",
-                                "vtpu_lock_hold_seconds",
-                                "vtpu_lock_acquires",
-                                "vtpu_lock_sampled_acquires",
-                                "vtpu_informer_lag_seconds",
-                                "vtpu_informer_resync_seconds",
-                                "vtpu_gc_collections"],
-    "candidate-evaluation worker pool": ["vtpu_filter_worker_pool_size",
-                                         "vtpu_filter_workers_busy_peak"],
     "multicore solve workers": ["vtpu_solve_workers",
                                 "vtpu_solve_worker_restarts",
                                 "vtpu_solve_worker_eval_seconds"],
@@ -441,8 +475,18 @@ A5_ITEMS = {
     "SLO engine": ["vtpu_slo_attainment_ratio",
                    "vtpu_slo_error_budget_remaining_ratio",
                    "vtpu_slo_burn_rate", "vtpu_slo_burn_alerts"],
-    "decision writer": ["vtpu_decision_write_failures"],
 }
+
+#: The families the extender's per-pod throughput machinery fills (ROADMAP
+#: A.5 throughput): the optimistic commit, the candidate-evaluation pool,
+#: the performance observatory and the decision writer.
+THROUGHPUT_FAMILIES = (
+    "vtpu_filter_commit_conflicts", "vtpu_filter_worker_pool_size",
+    "vtpu_filter_workers_busy_peak", "vtpu_cycle_phase_seconds",
+    "vtpu_lock_wait_seconds", "vtpu_lock_hold_seconds",
+    "vtpu_lock_acquires", "vtpu_lock_sampled_acquires",
+    "vtpu_informer_lag_seconds", "vtpu_informer_resync_seconds",
+    "vtpu_gc_collections", "vtpu_decision_write_failures")
 
 
 #: The placement families (ROADMAP A.5 placement): filled since the
@@ -505,6 +549,13 @@ def test_every_a5_family_is_listed_with_the_item_that_fills_it(monkeypatch):
     assert set(tcluster.A5_FAMILIES) <= set(fams)
     for name in tcluster.A5_FAMILIES:
         assert all(s.value == 0 for s in fams[name].samples), name
+    assert not set(THROUGHPUT_FAMILIES) & set(tcluster.A5_FAMILIES)
+    assert set(THROUGHPUT_FAMILIES) <= set(fams)
+    # Filled: the fleet's registrations and the scrape itself took the
+    # scheduler's locks.
+    acquired = {s.labels["lock"] for s in fams["vtpu_lock_acquires"].samples
+                if s.value > 0}
+    assert {"nodes", "leases"} <= acquired, acquired
     # The fixed label sets the JAX collector keeps with the subsystem off.
     labels = {name: sorted(tuple(sorted(s.labels.items()))
                            for s in fams[name].samples)
@@ -601,6 +652,9 @@ class SchedulerStub:
     """The JAX test's stub, on the port's components."""
 
     preemptions_requested = 3
+    commit_conflicts = 2
+    worker_pool_size = 8
+    workers_busy_peak = 5
 
     def __init__(self):
         from k8s_vgpu_scheduler_tpu_torch.accounting import (EfficiencyConfig,
@@ -696,8 +750,10 @@ def test_cluster_info_roundtrip():
 
 
 def test_cluster_top_and_format_equal_the_jax_cli_on_the_port_text():
-    metrics = vgpu_smi.parse_prom(exposition())
-    assert metrics == jsmi.parse_prom(exposition())
+    # One text for both parsers: each scrape moves the lock counters.
+    text = exposition()
+    metrics = vgpu_smi.parse_prom(text)
+    assert metrics == jsmi.parse_prom(text)
     for fn in ("cluster_info", "top_info"):
         assert getattr(vgpu_smi, fn)(metrics) == getattr(jsmi, fn)(metrics)
     assert vgpu_smi.format_top(vgpu_smi.top_info(metrics)) == \

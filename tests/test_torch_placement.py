@@ -7,11 +7,9 @@ reservations (``placement/reserve.py``) and shaped-box counts
 ``tests/test_placement.py``'s cases, each run on both packages with the
 answers held equal (the scheduler cases: the same fleet of 16,384 MiB
 cards on a (4, 2) fabric, the same pods in the port's resource names, the
-JAX side serial).  One stated departure: the JAX reservation bumps the
-node's inventory revision through ``NodeManager.touch`` (its optimistic
-commit validates against it); the port has no revisions and builds usage
-under the decision lock, so its reservations carry no ``on_change`` and
-the cards' return is what is held.
+JAX side serial).  A reservation and its release each bump the node's
+inventory revision on both (``NodeManager.touch``, which the optimistic
+commit validates against).
 """
 
 import itertools
@@ -148,27 +146,22 @@ class TestReservations:
         assert "node-0-gpu-0" not in got[2]
 
     def test_release_returns_chips_and_bumps_rev(self):
-        """The cards come back on both.  The JAX release also bumps the
-        node's inventory revision; the port has none (see the module
-        docstring), and its usage is rebuilt at each read."""
+        """The cards come back, and the reservation and its release each
+        bump the node's inventory revision, on both."""
         def answers(port):
             side = self.node_side(port)
             node = side.names[0]
             card = f"{node}-gpu-0"
-            revs = []
-            if not port:
-                revs.append(side.s.nodes.rev_of(node))
+            revs = [side.s.nodes.rev_of(node)]
             side.s.reservations.reserve(node, {card}, "who")
+            revs.append(side.s.nodes.rev_of(node))
             out = [card in side.s.snapshot()[node].usage]
             released = side.s.reservations.release_for("who")
             out += [[r.for_key for r in released],
                     card in side.s.snapshot()[node].usage,
                     side.s.reservations.total_chips()]
-            if not port:
-                revs.append(side.s.nodes.rev_of(node))
-                assert revs[1] > revs[0]
-            else:
-                assert side.s.reservations._on_change is None
+            revs.append(side.s.nodes.rev_of(node))
+            assert revs[0] < revs[1] < revs[2], revs
             side.close()
             return out
 

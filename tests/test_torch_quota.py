@@ -96,7 +96,7 @@ class Side:
         cfg_kw = dict(quota_queues=tuple(queues), queue_reclaim_grace_s=0.0,
                       **cfg_kw)
         if port:
-            self.cfg = TConfig(**cfg_kw)
+            self.cfg = TConfig(optimistic_commit=False, **cfg_kw)
         else:
             self.cfg = JConfig(resources=JNames(**PORT_NAMES),
                                scheduler_name="vgpu-scheduler",

@@ -12,10 +12,11 @@ What the JAX side is given, and why:
 
 - the port's resource names and scheduler name (``PORT_NAMES``), so both
   read the same pods;
-- ``optimistic_commit=False``: the port carries the JAX package's serial
-  decision.  The default optimistic path picks among nodes within 1% of
-  the best score by Python's salted ``hash()``, which changes from run to
-  run;
+- ``optimistic_commit=False``, on both sides: the serial decision.  The
+  default optimistic path picks among nodes within 1% of the best score by
+  a digest of (pod, node), Python's salted ``hash()`` in the JAX package,
+  which changes from run to run (tests/test_torch_concurrency.py holds the
+  optimistic paths);
 - the port's register request as it is, ``Topology`` message included:
   both sides place a multi-card request on a node with a fabric by the
   slice engine under the pod's topology policy, and a ``vtpu.dev/mesh``
@@ -171,7 +172,7 @@ class Side:
             self.kube.add_node({"metadata": {"name": name,
                                              "annotations": {}}})
         if port:
-            self.cfg = TConfig(**cfg)
+            self.cfg = TConfig(optimistic_commit=False, **cfg)
         else:
             self.cfg = JConfig(resources=JNames(**PORT_NAMES),
                                scheduler_name="vgpu-scheduler",

@@ -54,7 +54,7 @@ from tests.test_torch_scheduler import (FLEET, PORT_NAMES, TOPO_FLEET,
 ROOT = Path(__file__).resolve().parent.parent
 JCFG = JConfig(resources=JNames(**PORT_NAMES), scheduler_name="vgpu-scheduler",
                optimistic_commit=False)
-TCFG = TConfig()
+TCFG = TConfig(optimistic_commit=False)
 TRACE = "ab" * 16
 
 

@@ -8,13 +8,14 @@ each card's usage, ``hbm_allocated_fraction``, each pending pod's
 reason, the accounting rows (metered and simulated GPU-seconds, errors,
 idle grants, efficiencies), the chaos outcome and the serving A/B.
 
-The JAX side runs its serial decision: its ``run_simulation`` builds
+Both sides run their serial decision: each ``run_simulation`` builds
 ``Config(node_scheduler_policy=..., topology_policy=...)``, whose
 ``optimistic_commit`` defaults to True, and that path picks among nodes
-within 1% of the best score by Python's salted ``hash()``.  The fixture
-``serial`` rebinds the name ``Config`` in the JAX module's namespace to
-``functools.partial(Config, optimistic_commit=False)`` for the test; the
-JAX package is not changed.  Both sides place on the same mesh: a 2-D
+within 1% of the best score by a digest of (pod, node): Python's salted
+``hash()`` in the JAX package, a stable CRC-32 in the port.  The fixture
+``serial`` rebinds the name ``Config`` in each simulator module's
+namespace to ``functools.partial(Config, optimistic_commit=False)`` for
+the test; neither package is changed.  Both sides place on the same mesh: a 2-D
 mesh gives a card the same coordinates in both (the JAX simulator always
 gives two); the port's 1-D default is checked on its own.
 
@@ -62,6 +63,7 @@ from k8s_vgpu_scheduler_tpu_torch.cmd import simulate as tsim
 from k8s_vgpu_scheduler_tpu_torch.scheduler.core import NO_FIT
 from k8s_vgpu_scheduler_tpu_torch.scheduler.routes import \
     ExtenderServer as TServer
+from k8s_vgpu_scheduler_tpu_torch.util.config import Config as TConfig
 from tests.test_torch_scheduler import Side, fabric, fixture, limits, pod
 from tests.test_torch_shim import libs  # noqa: F401 — a fixture
 
@@ -89,6 +91,8 @@ class _OrderedScheduler(jsim.Scheduler):
 def serial(monkeypatch):
     monkeypatch.setattr(jsim, "Config",
                         functools.partial(JConfig, optimistic_commit=False))
+    monkeypatch.setattr(tsim, "Config",
+                        functools.partial(TConfig, optimistic_commit=False))
     monkeypatch.setattr(jsim, "Scheduler", _OrderedScheduler)
 
 

@@ -9,7 +9,7 @@ own GPU pods; the JAX shim's ``publish_trace_id`` has no counterpart to
 mirror (the port's Allocate drops the id next to the region, pinned in
 ``tests/test_torch_deviceplugin.py``).  Of the JAX extender's debug and
 export endpoints the port serves ``/usagez``, ``/fleetz``, ``/queuez``,
-``/capacityz`` and ``/debug/*``; the rest (``/perfz``, ``/auditz``,
+``/capacityz``, ``/perfz`` and ``/debug/*``; the rest (``/auditz``,
 ``/explainz``, ``/sloz``) wait for ROADMAP A.5 and answer a JSON 404."""
 
 import json
@@ -372,7 +372,9 @@ def test_filter_bind_and_allocate_share_the_pod_trace_id(fresh):
         t.BIND_PHASE_ANNOTATION: t.BIND_SUCCESS})
     names = [sp.name for sp in sorted(fresh.spans(tid),
                                       key=lambda x: x.start)]
-    assert names == ["filter", "decision-write", "bind", "allocate"]
+    # The optimistic decision's commit span opens inside the filter span.
+    assert names == ["filter", "commit", "decision-write", "bind",
+                     "allocate"]
     kinds = [e["event"] for e in fresh.events("u1")]
     assert {"filter-assigned", "bound", "allocate-success"} <= set(kinds)
     # Once a uid: a replayed success records no second span.
@@ -484,6 +486,14 @@ def test_a5_endpoints_answer_a_json_404(server, path):
         # accounting): the analytic assessment, as strict JSON.
         doc = json.loads(body)
         assert code == 200 and doc["method"] == "analytic"
+        json.dumps(doc, allow_nan=False)
+        return
+    if path == "/perfz":
+        # Served since the performance observatory came to the port
+        # (ROADMAP A.5 throughput): the /perfz document, as strict JSON.
+        doc = json.loads(body)
+        assert code == 200 and doc["enabled"] in (True, False)
+        assert "commit" in doc["locks"] and "counters" in doc
         json.dumps(doc, allow_nan=False)
         return
     assert code == 404 and json.loads(body) == {"error": "not found"}
