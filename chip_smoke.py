@@ -338,7 +338,14 @@ PLUGIN_PODS = (("serve", "uidDS", CORES_SERVE_MIB, 0),
 # bf16 forward of RACE_LAYERS (RACE_TOKENS, RACE_WIDTH) layers under its
 # grant through the interposer (child_race_winner), which must report the
 # grant as the card's total; it exits 0, and both pods are deleted.
+# Then the batched twin: RACE_BATCH_PODS, the same asks on
+# a fresh /fleetz reading, decided in one Scheduler.filter_many cycle (the
+# engine runs whatever --filter-batch says): exactly one placed by the
+# cycle, the other through the cycle's per-pod fallback and refused with
+# RACE_REASON; /perfz then shows one batch-cycle tick and a fallback;
+# the winner bound over /bind, allocated and run as the first was.
 RACE_PODS = (("race-a", "uidRA"), ("race-b", "uidRB"))
+RACE_BATCH_PODS = (("race-c", "uidRC"), ("race-d", "uidRD"))
 RACE_OVER_MIB = 1024
 RACE_REASON = "insufficient-hbm"
 RACE_LAYERS = 4
@@ -656,12 +663,22 @@ CAPACITY_SHA256_OPTIMISTIC = {
 # at 81,079 MiB, mesh 8, binpack) and SIM_FLEET's 968 pods, Filtered and
 # Bound by STORM_SUBMITTERS threads in STORM_WAVES waves, while a churn
 # thread deletes every STORM_CHURN_EVERY-th bound pod and resubmits it;
-# once with --serial-filter and once with the default.  Hard, in both
-# modes: no card's slots, MiB or cores over its total at any wave's end
-# or at the end, every placed pod's decision annotations written, every
-# pod placed or refused with a reason; in the optimistic mode also
-# vtpu_filter_commit_conflicts equal to /perfz's commit_conflicts.  The
-# leg's child ends within STORM_LIMIT_S.
+# once with --serial-filter and once with the default (STORM_LIMIT_S for
+# both), then batched: --filter-batch, and --filter-batch --solve-workers
+# STORM_SOLVE_WORKERS, and the same pods drained in-process through
+# Scheduler.filter_many in batch_max chunks without and with the workers
+# (BATCH_STORM_LIMIT_S for those four).  The child applies the
+# entry point's process settings (the GIL switch interval) first.  Hard,
+# in every mode: no card's slots, MiB or cores over its total at any
+# wave's end or at the end, every placed pod's decision annotations
+# written, every pod placed or refused with a reason,
+# vtpu_filter_commit_conflicts equal to /perfz's commit_conflicts; in the
+# batched modes vtpu_filter_batch_size's count equal to /perfz's
+# batch_cycles, the fallbacks by reason summing to its batch_fallbacks,
+# vtpu_pending_queue_depth 0 at the end; with the workers
+# vtpu_solve_workers equal to their number, no restart, evaluations
+# timed (or /perfz showing why none was dispatched), the pool closed and
+# its segments gone; each drain no card over its totals.
 # The CPU rehearsal (FILTER_STORM=rehearsal in the child's env, which only
 # the tests set) storms STORM_REHEARSAL_NODES nodes with every
 # STORM_REHEARSAL_EVERY-th pod.
@@ -672,6 +689,19 @@ STORM_WAVES = 4
 STORM_CHURN_EVERY = 10
 STORM_BIND_TRIES = 200
 STORM_LIMIT_S = 60.0
+STORM_SOLVE_WORKERS = 4
+STORM_REHEARSAL_WORKERS = 2
+BATCH_STORM_LIMIT_S = 60.0
+# Each mode: its vgpu-scheduler flags and the config they must give
+# (optimistic_commit, filter_batch, solve_workers; None = the worker count
+# of the run, STORM_SOLVE_WORKERS or, rehearsed, STORM_REHEARSAL_WORKERS).
+STORM_MODES = {
+    "serial": (["--serial-filter"], (False, False, 0)),
+    "optimistic": ([], (True, False, 0)),
+    "batched": (["--filter-batch"], (True, True, 0)),
+    "batched_workers": (["--filter-batch", "--solve-workers"],
+                        (True, True, None)),
+}
 PLANE_CALL_S = 120.0
 RETURN_S = 5.0
 TOL_RETURN_MIB = 64
@@ -4167,13 +4197,45 @@ def fleetz_card(base: str, uuid: str) -> dict:
                                                   for d in grants))
 
 
+class NodeBeats:
+    """The real node's lease beats every REGISTER_BEAT_S from a thread
+    (an inventory update on its register stream) until ``stop``: a leg
+    that outlasts the lease's TTL keeps the node placeable."""
+
+    def __init__(self, plane) -> None:
+        self._stop = threading.Event()
+
+        def beat() -> None:
+            while not self._stop.wait(REGISTER_BEAT_S):
+                plane.register.push_update(
+                    plane.register.backend.inventory())
+
+        self._thread = threading.Thread(target=beat, daemon=True)
+        self._thread.start()
+
+    def stop(self) -> None:
+        self._stop.set()
+        self._thread.join()
+
+
 def race_leg(plane, kube, plugin, tmp: Path, uuid: str) -> dict:
+    """Both racing pairs (``race_pair``, then ``batch_race``) with the
+    node's lease beating: the two winners' runs outlast its TTL."""
+    beats = NodeBeats(plane)
+    try:
+        return race_pair(plane, kube, plugin, tmp, uuid)
+    finally:
+        beats.stop()
+
+
+def race_pair(plane, kube, plugin, tmp: Path, uuid: str) -> dict:
     """RACE_PODS through POST /filter from two threads at once onto the
     real card, each asking RACE_OVER_MIB past half of what /fleetz leaves
     on it: one placed, the other refused with RACE_REASON, the card never
     over its totals; the winner bound, allocated and run
-    (child_race_winner) under its grant, then both pods deleted.  The
-    winner's process window goes into ``card_window``."""
+    (child_race_winner) under its grant, then both pods deleted; then the
+    batched twin (``batch_race``).  The winners' process window goes into
+    ``card_window``."""
     t_leg = time.monotonic()
     base_mib = smi_card_mib()
     before = fleetz_card(plane.base, uuid)
@@ -4212,7 +4274,30 @@ def race_leg(plane, kube, plugin, tmp: Path, uuid: str) -> dict:
           and after["used_cores"] <= after["cores"]
           and after["used_mib"] == before["used_mib"] + mib,
           f"/fleetz's card after the race {after}, before {before}")
-    pod = created[winner]
+    reading, window = race_winner_run(plane, kube, plugin, tmp, winner,
+                                      "race_winner", base_mib)
+    check(reading["grant_mib"] == mib, f"the winner ran under "
+          f"{reading['grant_mib']} MiB, granted {mib}")
+    for name in created:
+        kube.delete_pod("default", name)
+    batched = batch_race(plane, kube, plugin, tmp, uuid, base_mib)
+    # One window over both winners' processes (the agent's no-context
+    # check leaves it out).
+    window[1] = batched.pop("card_window")[1]
+    return dict(mib=mib, before=before, after=after, winner=winner,
+                loser=loser, refused=refused,
+                filter_s={n: r[1] for n, r in replies.items()},
+                winner_run=reading, card_window=window, batched=batched,
+                s=time.monotonic() - t_leg)
+
+
+def race_winner_run(plane, kube, plugin, tmp: Path, winner: str,
+                    label: str, base_mib: int):
+    """The race's winner bound over /bind, allocated by the node agent and
+    run under its grant (child_race_winner; a stand-in reading on the CPU
+    rehearsal); (its reading, its process window), the window closed once
+    the card is back at ``base_mib``."""
+    pod = kube.get_pod("default", winner)
     meta = pod["metadata"]
     status, bound = http(f"{plane.base}/bind", {
         "PodName": meta["name"], "PodNamespace": meta["namespace"],
@@ -4227,9 +4312,9 @@ def race_leg(plane, kube, plugin, tmp: Path, uuid: str) -> dict:
             resp.envs["CUDA_DEVICE_MEMORY_LIMIT_0"].rstrip("m")))
     else:
         env = kubelet_env(kube.get_pod("default", winner),
-                          dataclasses.asdict(resp), tmp / "race_volumes")
+                          dataclasses.asdict(resp), tmp / f"{label}_volumes")
         region = env.pop("CUDA_DEVICE_MEMORY_SHARED_CACHE", None)
-        child = EnforceChild("race_winner", tmp, label="race_winner",
+        child = EnforceChild("race_winner", tmp, label=label,
                              region=region, **env)
         try:
             reading = dict(child.run({}), kind="card")
@@ -4243,14 +4328,76 @@ def race_leg(plane, kube, plugin, tmp: Path, uuid: str) -> dict:
             back = time.monotonic()
     window[1] = back or time.monotonic()
     check(back is not None, f"the card did not come back to {base_mib} MiB "
-          f"within {RETURN_S} s of the race winner's exit")
-    check(reading["grant_mib"] == mib, f"the winner ran under "
+          f"within {RETURN_S} s of {winner}'s exit")
+    return reading, window
+
+
+def batch_race(plane, kube, plugin, tmp: Path, uuid: str,
+               base_mib: int) -> dict:
+    """RACE_BATCH_PODS, each asking RACE_OVER_MIB past half of what
+    /fleetz leaves on the card, decided together by one
+    ``Scheduler.filter_many`` cycle: one placed by the cycle, the other
+    refused with RACE_REASON through the cycle's per-pod fallback, the
+    card never over its totals, /perfz's one batch-cycle tick with its
+    fallback; the winner run under its grant; both pods deleted."""
+    t_leg = time.monotonic()
+    sched = plane.scheduler
+    before = fleetz_card(plane.base, uuid)
+    mib = (before["devmem"] - before["used_mib"]) // 2 + RACE_OVER_MIB
+    created = {}
+    for name, uid in RACE_BATCH_PODS:
+        created[name], _ = admit_pod(plane.base, kube,
+                                     user_pod(name, uid, mib, 0))
+    cycles0 = sched.batch.stats.cycles
+    fallbacks0 = sched.batch.stats.fallback_reason_counts()
+    t0 = time.monotonic()
+    results = sched.filter_many([(pod, [PLUGIN_NODE])
+                                 for pod in created.values()])
+    filter_s = time.monotonic() - t0
+    replies = dict(zip(created, results))
+    won = [n for n, r in replies.items() if r.node == PLUGIN_NODE]
+    check(len(won) == 1, "the batched pair's answers "
+          f"{[(n, r.node, r.error) for n, r in replies.items()]}")
+    [winner] = won
+    [loser] = [n for n in replies if n != winner]
+    refused = replies[loser]
+    reason = refused.failed.get(PLUGIN_NODE, "")
+    check(refused.node is None and refused.error
+          == "no node fits GPU request" and reason.startswith(RACE_REASON),
+          f"the batched race's loser {loser} answered {refused.error} "
+          f"{refused.failed}")
+    fallbacks = {k: v - fallbacks0.get(k, 0) for k, v in
+                 sched.batch.stats.fallback_reason_counts().items()
+                 if v != fallbacks0.get(k, 0)}
+    check(sched.batch.stats.cycles - cycles0 == 1
+          and fallbacks == {"no-fit": 1},
+          f"the batched race ran {sched.batch.stats.cycles - cycles0} "
+          f"cycles with fallbacks {fallbacks}")
+    after = fleetz_card(plane.base, uuid)
+    check(after["used_mib"] <= after["devmem"]
+          and after["slots"] <= after["count"]
+          and after["used_cores"] <= after["cores"]
+          and after["used_mib"] == before["used_mib"] + mib,
+          f"/fleetz's card after the batched race {after}, before {before}")
+    status, perfz = http(f"{plane.base}/perfz?ticks=64")
+    check(status == 200, f"/perfz answered {status}")
+    ticks = [t for t in perfz["slow_ticks"] if t["name"] == "batch-cycle"]
+    check(len(ticks) == 1 and ticks[0]["pods"] == 2
+          and ticks[0]["fallbacks"] == 1
+          and perfz["counters"]["batch_cycles"] == 1
+          and perfz["counters"]["batch_fallbacks"] >= 1,
+          f"/perfz's batch-cycle ticks {ticks}, counters "
+          f"{perfz['counters']}")
+    reading, window = race_winner_run(plane, kube, plugin, tmp, winner,
+                                      "batch_race_winner", base_mib)
+    check(reading["grant_mib"] == mib, f"the batched winner ran under "
           f"{reading['grant_mib']} MiB, granted {mib}")
     for name in created:
         kube.delete_pod("default", name)
     return dict(mib=mib, before=before, after=after, winner=winner,
-                loser=loser, refused=refused,
-                filter_s={n: r[1] for n, r in replies.items()},
+                loser=loser, reason=reason, filter_many_s=filter_s,
+                tick_ms=ticks[0]["total_ms"],
+                tick_phases_ms=ticks[0]["phases_ms"], fallbacks=fallbacks,
                 winner_run=reading, card_window=window,
                 s=time.monotonic() - t_leg)
 
@@ -5658,14 +5805,7 @@ def hgx_leg(plane, kube, tmp: Path, trainers, members) -> dict:
     sched = plane.scheduler
     # The real node's lease beats (the mock agents beat their own): the
     # leg outlasts the lease's TTL.
-    beating = threading.Event()
-
-    def beat() -> None:
-        while not beating.wait(REGISTER_BEAT_S):
-            plane.register.push_update(plane.register.backend.inventory())
-
-    beater = threading.Thread(target=beat, daemon=True)
-    beater.start()
+    beats = NodeBeats(plane)
     # R's uninterrupted run overlaps the registrations and placements (its
     # steps end before V's start).
     trainers.start_reference()
@@ -5790,8 +5930,7 @@ def hgx_leg(plane, kube, tmp: Path, trainers, members) -> dict:
         trainers.stop()
         members.stop()
         metrics.stop()
-        beating.set()
-        beater.join()
+        beats.stop()
         ends = {}
         for node, agent in agents.items():  # stops every agent
             try:
@@ -6778,6 +6917,16 @@ def phase_device_plugin(torch, record, vgpu: Path):
             "mib", "winner", "loser", "before", "after", "filter_s",
             "card_peak_mib", "s")}, default=str),
             "winner:", json.dumps({k: race["winner_run"].get(k) for k in (
+                "grant_mib", "mem_get_info_total", "forward_s",
+                "child_s")}))
+        batched = race["batched"]
+        check(batched["winner_run"]["kind"] == "card",
+              f"the batched race's winner ran as a "
+              f"{batched['winner_run']['kind']}")
+        log("batched racing pair:", json.dumps({k: batched[k] for k in (
+            "mib", "winner", "loser", "reason", "filter_many_s", "tick_ms",
+            "tick_phases_ms", "fallbacks", "s")}, default=str),
+            "winner:", json.dumps({k: batched["winner_run"].get(k) for k in (
                 "grant_mib", "mem_get_info_total", "forward_s",
                 "child_s")}))
         elastic["card_peak_mib"] = max(
@@ -7851,22 +8000,126 @@ def storm_overbooked(base: str) -> list:
                       or held[c["id"]][2] > c["cores"]))
 
 
-def storm_run(mode: str, flags: list) -> dict:
-    """One mode of the Filter storm (see STORM_SUBMITTERS): the port's
-    extender with ``vgpu-scheduler``'s flags ``flags`` over HTTP on a
-    FakeKube holding SIM_SCALE's fleet; SIM_FLEET's pods in STORM_WAVES
-    waves, each taken by STORM_SUBMITTERS threads through /filter and
-    /bind (the node lock released as the node agent's Allocate would,
-    a locked node retried), every STORM_CHURN_EVERY-th bound pod deleted
-    and resubmitted under a new name by the churn thread.  The hard
-    checks, and what the mode measured."""
-    import queue
+def storm_workers() -> int:
+    return (STORM_REHEARSAL_WORKERS
+            if os.environ.get("FILTER_STORM") == "rehearsal"
+            else STORM_SOLVE_WORKERS)
 
+
+def storm_config(mode: str):
+    """The mode's scheduler config from ``vgpu-scheduler``'s flags, held
+    to the optimistic_commit, filter_batch and solve_workers it names."""
     from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import (build_config,
                                                            parse_args)
+
+    flags, want = STORM_MODES[mode]
+    workers = storm_workers()
+    if flags[-1:] == ["--solve-workers"]:
+        flags = [*flags, str(workers)]
+    scale = dict(zip(SIM_SCALE[::2], SIM_SCALE[1::2]))
+    cfg = build_config(parse_args(["--node-scheduler-policy",
+                                   scale["--policy"], *flags]))
+    want = (*want[:2], workers if want[2] is None else want[2])
+    got = (cfg.optimistic_commit, cfg.filter_batch, cfg.solve_workers)
+    check(got == want, f"{mode}: (optimistic_commit, filter_batch, "
+          f"solve_workers) {got}, want {want}")
+    return cfg
+
+
+def storm_fleet(cfg):
+    """A Scheduler on a FakeKube holding SIM_SCALE's fleet (its node count
+    cut to STORM_REHEARSAL_NODES when rehearsed), its informer on."""
     from k8s_vgpu_scheduler_tpu_torch.cmd.simulate import build_fleet
     from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube
     from k8s_vgpu_scheduler_tpu_torch.scheduler import Scheduler
+
+    scale = dict(zip(SIM_SCALE[::2], SIM_SCALE[1::2]))
+    if os.environ.get("FILTER_STORM") == "rehearsal":
+        scale["--nodes"] = str(STORM_REHEARSAL_NODES)
+    kube = FakeKube()
+    sched = Scheduler(kube, cfg)
+    names = build_fleet(sched, kube, int(scale["--nodes"]),
+                        int(scale["--chips"]), int(scale["--hbm"]),
+                        (int(scale["--mesh"]),), "h100")
+    kube.watch_pods(sched.on_pod_event)
+    return kube, sched, names
+
+
+def storm_cycle_sizes(sched) -> list:
+    """Record each batched cycle's size (the list returned fills as the
+    engine decides)."""
+    sizes = []
+    decide = sched.batch.decide_many
+
+    def counted(jobs):
+        sizes.append(len(jobs))
+        return decide(jobs)
+
+    sched.batch.decide_many = counted
+    return sizes
+
+
+def storm_batch_reading(sched, sizes: list) -> dict:
+    """A batched run's cycles: their count and size p50/p99, each phase's
+    seconds in all (the cycle's split), the fallbacks by reason, the
+    solve workers' section."""
+    from k8s_vgpu_scheduler_tpu_torch.util import perf
+
+    reg = perf.registry()
+    rings = reg.phase_rings()
+    split = {name: rings[name].sum_s for name in (
+        "snapshot", "columnar-rebuild", "columnar-refresh", "slice-stage",
+        "vector-eval", "solve", "group-commit", "fallback", "cycle-total",
+        "drain", "decision-write") if name in rings}
+    ordered = sorted(sizes)
+
+    def pct(q: float):
+        return ordered[min(len(ordered) - 1, int(q * len(ordered)))] \
+            if ordered else None
+
+    stats = sched.batch.stats
+    return dict(cycles=len(sizes), size_p50=pct(0.5), size_p99=pct(0.99),
+                size_max=max(sizes, default=None),
+                phase_s=split,
+                fallback_reasons=stats.fallback_reason_counts(),
+                fallbacks=stats.fallbacks, conflicts=stats.conflicts,
+                solve_workers=sched.export_perf()["solve_workers"],
+                class_evals_full=sched.batch.fleet.class_evals_full,
+                class_evals_offloaded=sched.batch.fleet.class_evals_offloaded)
+
+
+def storm_pool_start(pool, workers: int):
+    """Start a run's solve workers before its clock (they spawn on first
+    use otherwise) and wait until each answers; their start's seconds, or
+    None without a pool."""
+    if pool is None:
+        return None
+    t0 = time.monotonic()
+    check(len(pool.ping()) == workers,
+          f"{workers} solve workers did not answer")
+    return time.monotonic() - t0
+
+
+def storm_pool_closed(sched, pool, prefix: str) -> None:
+    """After ``close``: the pool's workers gone and its segments
+    unlinked."""
+    left = [f for f in os.listdir("/dev/shm") if f.startswith(prefix + "-")]
+    check(sched.batch.pool is None and pool.alive_count() == 0 and not left,
+          f"the solve worker pool outlived its scheduler's close: "
+          f"{pool.alive_count()} workers, segments {left}")
+
+
+def storm_run(mode: str) -> dict:
+    """One mode of the Filter storm (see STORM_SUBMITTERS): the port's
+    extender with ``vgpu-scheduler``'s flags for ``mode`` (STORM_MODES)
+    over HTTP on a FakeKube holding SIM_SCALE's fleet; SIM_FLEET's pods in
+    STORM_WAVES waves, each taken by STORM_SUBMITTERS threads through
+    /filter and /bind (the node lock released as the node agent's
+    Allocate would, a locked node retried), every STORM_CHURN_EVERY-th
+    bound pod deleted and resubmitted under a new name by the churn
+    thread.  The hard checks, and what the mode measured."""
+    import queue
+
     from k8s_vgpu_scheduler_tpu_torch.scheduler.metrics import \
         start_metrics_server
     from k8s_vgpu_scheduler_tpu_torch.scheduler.routes import ExtenderServer
@@ -7874,21 +8127,13 @@ def storm_run(mode: str, flags: list) -> dict:
     from k8s_vgpu_scheduler_tpu_torch.util.types import (
         ASSIGNED_IDS_ANNOTATION, ASSIGNED_NODE_ANNOTATION)
 
-    scale = dict(zip(SIM_SCALE[::2], SIM_SCALE[1::2]))
     rehearsal = os.environ.get("FILTER_STORM") == "rehearsal"
-    if rehearsal:
-        scale["--nodes"] = str(STORM_REHEARSAL_NODES)
     perf.registry().reset()
-    cfg = build_config(parse_args(["--node-scheduler-policy",
-                                   scale["--policy"], *flags]))
-    check(cfg.optimistic_commit == (mode == "optimistic"),
-          f"{mode}: optimistic_commit {cfg.optimistic_commit}")
-    kube = FakeKube()
-    sched = Scheduler(kube, cfg)
-    names = build_fleet(sched, kube, int(scale["--nodes"]),
-                        int(scale["--chips"]), int(scale["--hbm"]),
-                        (int(scale["--mesh"]),), "h100")
-    kube.watch_pods(sched.on_pod_event)
+    cfg = storm_config(mode)
+    kube, sched, names = storm_fleet(cfg)
+    sizes = storm_cycle_sizes(sched) if cfg.filter_batch else None
+    pool = sched.batch.pool
+    prefix = sched.batch.fleet.store.prefix if pool is not None else None
     serial_calls = [0]
     serial = sched._decide_serial_locked
 
@@ -7908,6 +8153,7 @@ def storm_run(mode: str, flags: list) -> dict:
     counts = dict(filters=0, binds=0, bind_retries=0, churned=0)
     waves = []
     try:
+        pool_start_s = storm_pool_start(pool, cfg.solve_workers)
         t0 = time.monotonic()
         per = -(-len(pods) // STORM_WAVES)
         for w in range(STORM_WAVES):
@@ -8004,6 +8250,40 @@ def storm_run(mode: str, flags: list) -> dict:
               == sched.commit_conflicts,
               f"{mode}: vtpu_filter_commit_conflicts {conflicts}, /perfz "
               f"{body['counters']['commit_conflicts']}")
+        batched = None
+        if cfg.filter_batch:
+            cycles = metric(scraped, "vtpu_filter_batch_size_count")
+            check(cycles == body["counters"]["batch_cycles"] == len(sizes)
+                  and cycles > 0, f"{mode}: vtpu_filter_batch_size's count "
+                  f"{cycles}, /perfz's batch_cycles "
+                  f"{body['counters']['batch_cycles']}, cycles {len(sizes)}")
+            by_reason = {labels["reason"]: v for labels, v in scraped.get(
+                "vtpu_filter_batch_fallbacks_total", [])}
+            check(sum(by_reason.values())
+                  == body["counters"]["batch_fallbacks"]
+                  and by_reason == sched.batch.stats
+                  .fallback_reason_counts(),
+                  f"{mode}: fallbacks by reason {by_reason}, /perfz's "
+                  f"batch_fallbacks {body['counters']['batch_fallbacks']}")
+            depth = metric(scraped, "vtpu_pending_queue_depth")
+            check(depth == 0 == body["queue"]["pending_depth"],
+                  f"{mode}: vtpu_pending_queue_depth {depth} at the end")
+            batched = storm_batch_reading(sched, sizes)
+        if cfg.solve_workers:
+            live = metric(scraped, "vtpu_solve_workers")
+            restarts = metric(scraped, "vtpu_solve_worker_restarts_total")
+            check(live == cfg.solve_workers and restarts == 0,
+                  f"{mode}: vtpu_solve_workers {live}, restarts {restarts}")
+            evals = sum(v for _labels, v in scraped.get(
+                "vtpu_solve_worker_eval_seconds_count", []))
+            section = body["solve_workers"]
+            # None dispatched only where no class needed a whole-fleet
+            # pass or the fleet is below the pool's MIN_ROWS.
+            check(evals > 0 and section["evals_offloaded"] > 0
+                  or body["counters"]["class_evals_full"] == 0
+                  or sched.batch.fleet.N < pool.MIN_ROWS,
+                  f"{mode}: {evals} worker evaluations timed, /perfz's "
+                  f"solve_workers {section}")
 
         def window(ring: dict) -> dict:
             return {k: ring[k] for k in ("n", "p50_s", "p99_s", "max_s")}
@@ -8032,11 +8312,55 @@ def storm_run(mode: str, flags: list) -> dict:
             workers_busy_peak=sched.workers_busy_peak,
             usage_rebuilds=sched.usage_rebuilds,
             usage_writethroughs=sched.usage_writethroughs,
-            perfz_ms=perfz_ms, perfz_bytes=perfz_bytes)
+            perfz_ms=perfz_ms, perfz_bytes=perfz_bytes, batch=batched,
+            pool_start_s=pool_start_s)
     finally:
         metrics.stop()
         server.stop()
         sched.close()
+        if pool is not None:
+            storm_pool_closed(sched, pool, prefix)
+
+
+def storm_drain(workers: int) -> dict:
+    """The storm's pods drained in-process: created on SIM_SCALE's fleet,
+    then one ``Scheduler.filter_many`` over all of them (the engine's
+    cycles of ``batch_max``), with ``workers`` solve workers; no card over
+    its totals; decisions/s (the workers started before the clock,
+    ``storm_pool_start``) and the cycles' reading."""
+    from k8s_vgpu_scheduler_tpu_torch.cmd.simulate import overbooked_chips
+    from k8s_vgpu_scheduler_tpu_torch.util import perf
+
+    perf.registry().reset()
+    cfg = storm_config("batched_workers" if workers else "batched")
+    kube, sched, names = storm_fleet(cfg)
+    sizes = storm_cycle_sizes(sched)
+    pool = sched.batch.pool
+    prefix = sched.batch.fleet.store.prefix if pool is not None else None
+    try:
+        pods = storm_pods(json.loads(SIM_FLEET.read_text()))
+        if os.environ.get("FILTER_STORM") == "rehearsal":
+            pods = pods[::STORM_REHEARSAL_EVERY]
+        for pod in pods:
+            kube.create_pod(pod)
+        start_s = storm_pool_start(pool, workers)
+        t0 = time.monotonic()
+        results = sched.filter_many([(pod, names) for pod in pods])
+        wall = time.monotonic() - t0
+        bad = overbooked_chips(sched)
+        check(not bad, f"drain ({workers} workers): cards over their "
+              f"totals {bad[:8]}")
+        refused = [r for r in results if r.node is None]
+        check(all(r.error and r.failed for r in refused),
+              f"drain ({workers} workers): refusals without a reason")
+        return dict(workers=workers, pods=len(pods), wall_s=wall,
+                    pool_start_s=start_s, decisions_per_s=len(pods) / wall,
+                    placed=len(pods) - len(refused), refused=len(refused),
+                    batch=storm_batch_reading(sched, sizes))
+    finally:
+        sched.close()
+        if pool is not None:
+            storm_pool_closed(sched, pool, prefix)
 
 
 def storm_one(base, kube, pod, names, results, counts, lock, bound, churn,
@@ -8084,21 +8408,44 @@ def storm_one(base, kube, pod, names, results, counts, lock, bound, churn,
 
 def filter_storm() -> int:
     """The Filter storm (``--enforce-child filter_storm``), in a process
-    that never imports torch: storm_run with ``--serial-filter`` and then
-    with the default, one ENFORCE line with both modes' readings; the
-    child ends within STORM_LIMIT_S."""
+    that never imports torch, under ``vgpu-scheduler``'s process settings
+    (``apply_process_settings`` at its defaults): storm_run in the serial
+    and optimistic modes (within STORM_LIMIT_S), then the batched ones and
+    the two in-process drains (within BATCH_STORM_LIMIT_S); one ENFORCE
+    line with every reading."""
     sys.path.insert(0, str(ROOT))
+    from k8s_vgpu_scheduler_tpu_torch.cmd.scheduler import (
+        apply_process_settings, parse_args)
+
+    defaults = parse_args([])
+    apply_process_settings(defaults.gil_switch_interval,
+                           defaults.gc_threshold0)
     t0 = time.monotonic()
     try:
         modes = {}
-        for mode, flags in (("serial", ["--serial-filter"]),
-                            ("optimistic", [])):
-            modes[mode] = storm_run(mode, flags)
-        out = dict(modes=modes, s=time.monotonic() - t0,
-                   speedup=modes["optimistic"]["decisions_per_s"]
-                   / modes["serial"]["decisions_per_s"])
-        check(out["s"] <= STORM_LIMIT_S, f"the storm took {out['s']:.1f} s, "
-              f"past {STORM_LIMIT_S} s")
+        for mode in ("serial", "optimistic"):
+            modes[mode] = storm_run(mode)
+        per_pod_s = time.monotonic() - t0
+        check(per_pod_s <= STORM_LIMIT_S, f"the serial and optimistic "
+              f"storms took {per_pod_s:.1f} s, past {STORM_LIMIT_S} s")
+        t1 = time.monotonic()
+        for mode in ("batched", "batched_workers"):
+            modes[mode] = storm_run(mode)
+        drains = [storm_drain(0), storm_drain(storm_workers())]
+        batched_s = time.monotonic() - t1
+        check(batched_s <= BATCH_STORM_LIMIT_S, f"the batched storms and "
+              f"drains took {batched_s:.1f} s, past {BATCH_STORM_LIMIT_S} s")
+        rate = {m: r["decisions_per_s"] for m, r in modes.items()}
+        out = dict(modes=modes, drains=drains, s=time.monotonic() - t0,
+                   per_pod_s=per_pod_s, batched_s=batched_s,
+                   switch_interval_s=sys.getswitchinterval(),
+                   speedup=rate["optimistic"] / rate["serial"],
+                   batched_over_optimistic=rate["batched"]
+                   / rate["optimistic"],
+                   workers_over_batched=rate["batched_workers"]
+                   / rate["batched"],
+                   drain_over_serial=drains[0]["decisions_per_s"]
+                   / rate["serial"])
     except Fail as exc:
         print(f"chip_smoke: FAIL: filter_storm: {exc}", file=sys.stderr)
         return 1
@@ -8201,13 +8548,16 @@ class FleetView:
 
     def storm_leg(self) -> dict:
         """The Filter storm's readings, once its child has ended (within
-        STORM_LIMIT_S of its start, plus the process's start-up)."""
+        STORM_LIMIT_S + BATCH_STORM_LIMIT_S of its start, plus the
+        process's start-up), its solve workers' segments gone."""
         t0 = time.monotonic()
         try:
             self.storm.wait(timeout=max(
-                0.0, STORM_LIMIT_S + 30.0 - (t0 - self.storm_t0)))
+                0.0, STORM_LIMIT_S + BATCH_STORM_LIMIT_S + 30.0
+                - (t0 - self.storm_t0)))
         except subprocess.TimeoutExpired:
-            check(False, f"the Filter storm ran past {STORM_LIMIT_S} s")
+            check(False, f"the Filter storm ran past {STORM_LIMIT_S} + "
+                  f"{BATCH_STORM_LIMIT_S} s")
         waited = time.monotonic() - t0
         for f in self.storm_files:
             f.close()
@@ -8217,6 +8567,9 @@ class FleetView:
                 if x.startswith("ENFORCE ")]
         check(len(line) == 1, "the Filter storm printed no result")
         out = json.loads(line[0][len("ENFORCE "):])
+        left = [f for f in os.listdir("/dev/shm")
+                if f.startswith(f"vgpu{self.storm.pid}x")]
+        check(not left, f"the Filter storm left segments {left}")
         return dict(out, read_waited_s=waited,
                     life_s=time.monotonic() - self.storm_t0)
 

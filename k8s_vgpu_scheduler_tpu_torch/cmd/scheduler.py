@@ -25,7 +25,12 @@ mesh resizing: ``--enable-elastic``, ``--elastic-interval``,
 ``--capacity-season-buckets``, ``--capacity-horizon`` and
 ``--capacity-starve-after``; and the optimistic Filter and the
 performance observatory: ``--filter-workers``, ``--serial-filter``,
-``--commit-retries``, ``--no-perf`` and ``--perf-tracemalloc``.
+``--commit-retries``, ``--no-perf`` and ``--perf-tracemalloc``; and the
+batched cycles and their solve workers: ``--filter-batch``,
+``--batch-tick-ms``, ``--batch-max``, ``--batch-solver`` and
+``--solve-workers``; and the process's settings: ``--gil-switch-interval``
+and ``--gc-threshold0`` (``apply_process_settings``) and
+``--trace-capacity``.
 Boot order: list the pods and reconcile the grants before anything serves
 (a restarted scheduler that filtered against an empty registry would book
 cards twice), then the watch thread, the rescue thread, the admission
@@ -97,6 +102,38 @@ def parse_args(argv=None):
                    help="optimistic commits that lose their revision race "
                         "re-evaluate at most this many times before one "
                         "fully-locked decision")
+    p.add_argument("--filter-batch", action="store_true",
+                   help="batched scheduling cycles: concurrent Filters "
+                        "collapse into one snapshot + vectorized "
+                        "pods×cards evaluation + per-node group commit")
+    p.add_argument("--batch-tick-ms", type=float, default=2.0,
+                   help="how long the first Filter into an idle batch "
+                        "gate waits for concurrent Filters to join its "
+                        "cycle; 0 = no wait")
+    p.add_argument("--batch-max", type=int, default=256,
+                   help="pods per batch cycle cap (bounds per-cycle "
+                        "latency; a deeper backlog drains over "
+                        "successive cycles)")
+    p.add_argument("--batch-solver", default="regret",
+                   choices=("regret", "fifo"),
+                   help="joint-placement solver: regret = greedy-with-"
+                        "regret over the score matrix (a pod with one "
+                        "feasible node is served before a flexible pod "
+                        "takes it); fifo = sequential argmax in fair-"
+                        "share order (serial-path decision parity)")
+    p.add_argument("--solve-workers", type=int, default=0,
+                   help="solve worker processes that map the columnar "
+                        "fleet's shared-memory segments read-only and "
+                        "run the vectorized class evaluations in true "
+                        "parallel; 0 = evaluate in-process (default — "
+                        "decisions are bit-identical either way)")
+    p.add_argument("--gil-switch-interval", type=float, default=0.05,
+                   help="sys.setswitchinterval for this process (seconds); "
+                        "concurrent Filters are short CPU-bound bursts and "
+                        "the CPython default of 5 ms makes 8 submitter "
+                        "threads convoy on GIL handoffs — 50 ms lets each "
+                        "decision run to its next I/O point uninterrupted. "
+                        "0 = leave the interpreter default")
     p.add_argument("--enable-preemption", action="store_true",
                    help="let a pod that fits nowhere ask strictly lower-"
                         "priority pods to checkpoint and leave (the "
@@ -178,6 +215,9 @@ def parse_args(argv=None):
                    help="enable the /debug endpoints (stacks, wall-clock "
                         "profile, vars, tracez, events); unauthenticated — "
                         "keep off unless the port is restricted")
+    p.add_argument("--trace-capacity", type=int, default=2048,
+                   help="spans kept in the in-memory /debug/tracez ring "
+                        "(the pod-lifecycle event journal keeps 2x this)")
     p.add_argument("--quota-config", default="",
                    help="path to the capacity-queue config ({'queues': "
                         "[{'name', 'namespaces', 'cohort', 'weight', "
@@ -244,6 +284,13 @@ def parse_args(argv=None):
                         "30 without")
     p.add_argument("--no-watch", action="store_true",
                    help="no pod watch: the resync alone frees grants")
+    p.add_argument("--gc-threshold0", type=int, default=0,
+                   help="raise Python's gen-0 GC threshold for this "
+                        "long-running process (0 = interpreter default "
+                        "700).  At fleet scale the default walks a "
+                        "large, mostly-immortal heap thousands of "
+                        "times per minute; the gc-pause phase on "
+                        "GET /perfz shows what your fleet pays")
     p.add_argument("--fake-kube", action="store_true",
                    help="an in-memory apiserver (a dry run)")
     p.add_argument("--kube-url", default="",
@@ -265,6 +312,11 @@ def build_config(args) -> Config:
         optimistic_commit=not args.serial_filter,
         filter_workers=args.filter_workers,
         commit_retries=args.commit_retries,
+        filter_batch=args.filter_batch,
+        batch_tick_ms=args.batch_tick_ms,
+        batch_max=args.batch_max,
+        batch_solver=args.batch_solver,
+        solve_workers=args.solve_workers,
         enable_preemption=args.enable_preemption,
         lease_ttl_s=args.lease_ttl, lease_grace_beats=args.lease_grace_beats,
         quarantine_flap_threshold=args.quarantine_flap_threshold,
@@ -409,12 +461,31 @@ def capacity_loop(scheduler: Scheduler, stop: threading.Event) -> None:
             log.exception("capacity demand sample failed")
 
 
+def apply_process_settings(gil_switch_interval: float,
+                           gc_threshold0: int) -> None:
+    """The interpreter settings a scheduler process runs under, as the
+    JAX entry point sets them: the GIL switch interval (concurrent Filters
+    are short CPU-bound bursts, and at CPython's 5 ms default eight
+    submitters convoy on GIL hand-offs, below one thread's rate) and
+    Python's gen-0 collection threshold.  0 leaves either as the
+    interpreter has it."""
+    if gil_switch_interval > 0:
+        import sys
+        sys.setswitchinterval(gil_switch_interval)
+    if gc_threshold0 > 0:
+        import gc
+        gc.set_threshold(gc_threshold0)
+
+
 def main(argv=None):
     args = parse_args(argv)
+    apply_process_settings(args.gil_switch_interval, args.gc_threshold0)
     logging.basicConfig(
         level=logging.DEBUG if args.verbose else logging.INFO,
         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
-    trace.configure(service="vgpu-scheduler")
+    trace.configure(service="vgpu-scheduler",
+                    capacity=args.trace_capacity,
+                    event_capacity=2 * args.trace_capacity)
     client = DryRunKube() if args.fake_kube else \
         make_client(kube_url=args.kube_url)
     scheduler = Scheduler(client, build_config(args))
@@ -471,6 +542,8 @@ def main(argv=None):
         pass
     finally:
         stop.set()
+        # Drains the solve workers and unlinks their shared-memory
+        # segments (a no-op with --solve-workers 0).
         scheduler.close()
         http_server.stop()
         metrics_server.stop()

@@ -111,7 +111,8 @@ arrival pattern (bursty / diurnal / flash-crowd;
 an explicit captured demand trace is split into history + horizon; the
 forecaster learns the history, and both the forecast and the actual
 horizon arrivals replay through the port's admission loop (quota gate,
-Filter per pod, the defragmenter's tick) on the virtual clock.  The report
+a batched ``filter_many`` drain a tick, the defragmenter's tick) on the
+virtual clock.  The report
 answers "when does queue X starve?" (predicted against actual, within one
 forecast bucket), "how many nodes does this demand need?" (a node sweep
 replayed until the critical queue stays unstarved with no card
@@ -130,9 +131,8 @@ capacity.json``, the JAX example in the port's names):
        "require_starvation": ["tenant-a"],
        "recommend": false}}
 
-The JAX simulator's drain there is its batched ``filter_many``; the port
-has no batched cycles yet (ROADMAP A.5), so each unplaced pod is
-Filtered on its own, in the same sorted order.  A capacity spec's
+Each tick every unplaced pod is drained, in name order, through one
+batched ``filter_many``, as in the JAX simulator.  A capacity spec's
 ``replica_loss`` what-if replays the sharded control plane, which the
 port does not have: such a spec is refused by name.
 
@@ -1700,10 +1700,9 @@ def _run_capacity_sim(arrivals: List[dict], queues: tuple, *,
                       tick_s: float, starve_after_s: float) -> dict:
     """One time-stepped replay of an arrival schedule through the port's
     admission loop on a SimClock: the quota gate and fair-share release,
-    a Filter of every unplaced pod each tick (in name order, as
-    kube-scheduler re-queues unschedulable pods; the JAX replay decides
-    the same pods in its batched ``filter_many``) and the defrag loop
-    ticking alongside.  Starvation is per queue: the first moment any of
+    a batched ``filter_many`` of every unplaced pod each tick (in name
+    order, as kube-scheduler re-queues unschedulable pods) and the defrag
+    loop ticking alongside.  Starvation is per queue: the first moment any of
     its pods has waited ``starve_after_s`` unplaced.  Reclaim and defrag
     victims checkpoint and exit after one tick (the in-container watch's
     part, played here, as in the queueing phase)."""
@@ -1766,7 +1765,11 @@ def _run_capacity_sim(arrivals: List[dict], queues: tuple, *,
         if queues:
             s.admission.tick()
         s.defrag.tick()
-        # Every unplaced pod retries through Filter, once a tick.
+        # The batched drain: every unplaced pod retries through one
+        # filter_many a tick (scheduler/batch.py), as kube-scheduler
+        # re-queues unschedulable pods.
+        items = []
+        order = []
         for name, a in sorted(live.items()):
             if name in placed_at:
                 continue
@@ -1774,12 +1777,16 @@ def _run_capacity_sim(arrivals: List[dict], queues: tuple, *,
                 pod = kube.get_pod(a["namespace"], name)
             except Exception:  # noqa: BLE001 — deleted this tick
                 continue
-            r = s.filter(pod, names)
-            if r.node:
-                s.bind(a["namespace"], name, pod["metadata"]["uid"],
-                       r.node)
-                nodelock.release_node(kube, r.node)
-                placed_at[name] = now
+            items.append((pod, names))
+            order.append((name, a, pod))
+        if items:
+            results = s.filter_many(items)
+            for (name, a, pod), r in zip(order, results):
+                if r.node:
+                    s.bind(a["namespace"], name, pod["metadata"]["uid"],
+                           r.node)
+                    nodelock.release_node(kube, r.node)
+                    placed_at[name] = now
         # Starvation census: a queue starves the instant one of its pods
         # has waited starve_after_s unplaced (held in the queue or
         # released but unplaceable both count: the tenant cannot tell

@@ -125,6 +125,11 @@ class QueueEntry:
     last_seen: float = 0.0
     state: str = STATE_HELD
     released_at: Optional[float] = None
+    #: The release ordinal ``release`` stamps: the fair-share order the
+    #: admission loop let the pod through in.  A batched Filter cycle
+    #: orders governed pods by it (clock readings tie on a simulated
+    #: clock; the ordinal cannot).
+    release_seq: Optional[int] = None
     #: The last published position ("pos/total", so a changed
     #: denominator is patched too).
     published_position: Optional[str] = None
@@ -190,6 +195,8 @@ class QuotaManager:
         #: Released entries whose admitted-state patch failed: retried
         #: next tick (the release in memory stands).
         self._release_unwritten: set = set()
+        #: The source of QueueEntry.release_seq.
+        self._release_counter = 0
 
     @property
     def enabled(self) -> bool:
@@ -332,6 +339,8 @@ class QuotaManager:
                 return None
             e.state = STATE_ADMITTED
             e.released_at = self._clock()
+            self._release_counter += 1
+            e.release_seq = self._release_counter
             self.admitted_total[e.queue] = \
                 self.admitted_total.get(e.queue, 0) + 1
             return dataclasses.replace(e)
@@ -339,6 +348,14 @@ class QuotaManager:
     def entries(self) -> List[QueueEntry]:
         with self._lock:
             return [dataclasses.replace(e) for e in self._entries.values()]
+
+    def release_seq_of(self, uid: str) -> Optional[int]:
+        """The release ordinal of an admitted pod (None for an ungoverned,
+        held or unknown uid): a batched cycle's order among governed
+        pods."""
+        with self._lock:
+            e = self._entries.get(uid)
+            return e.release_seq if e is not None else None
 
     def entry(self, uid: str) -> Optional[QueueEntry]:
         with self._lock:

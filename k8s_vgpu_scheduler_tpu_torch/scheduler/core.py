@@ -20,10 +20,19 @@ score by a process-stable digest of (pod, node).  The commit lock is held
 only to re-check the winner's revisions and record the grant; a lost race
 refits on the node's live usage, then retries on a fresh snapshot, and
 the last retry decides serially.  Gangs, and every pod with
-``optimistic_commit=False``, decide whole under the commit lock.  Decision
-writes go through a group-commit batcher (``util/decisionwriter.py``), and
-every phase and lock is timed into the performance observatory
-(``util/perf.py``) behind ``GET /perfz``.  Of the JAX scheduler's
+``optimistic_commit=False``, decide whole under the commit lock.  Batched
+scheduling cycles (``batch.py``): ``filter_many`` decides a backlog
+together, and with ``Config.filter_batch`` concurrent Filters collapse
+into cycles at the batch gate, each one snapshot (``snapshot_for_batch``),
+a columnar evaluation a request class, a joint solve and a
+revision-validated group commit a node (``PodManager.add_pods_group``,
+``_publish_grants_many``), its decisions written in bulk
+(``_finish_decisions_bulk``); what a cycle cannot place goes through the
+per-pod path; ``Config.solve_workers`` runs the class evaluations in
+worker processes (``parallelcp/``).  Decision writes go through a
+group-commit batcher (``util/decisionwriter.py``), and every phase and
+lock is timed into the performance observatory (``util/perf.py``) behind
+``GET /perfz``.  Of the JAX scheduler's
 subsystems this one carries fleet health (``health/``: the node leases
 Filter gates on, the card quarantine stripped from every usage, the
 rescuer) and priority preemption (``preempt.py``): with
@@ -81,7 +90,7 @@ import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import nullcontext
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Set, Tuple
 
 from ..accounting import efficiency as eff_mod
 from ..accounting import planner as planner_mod
@@ -135,6 +144,7 @@ from ..util.types import (
     ContainerDevice,
 )
 from . import score as score_mod
+from .batch import BatchEngine, BatchJob
 from .gang import (
     GangConflictError,
     GangManager,
@@ -294,6 +304,10 @@ class Scheduler:
                                                 sample_shift=3)
         self._usage_cache: Dict[str, tuple] = {}
         self._snap: Dict[str, SnapEntry] = {}
+        # Names whose snapshot entry was replaced since the batch engine's
+        # last refresh (kept under the usage-cache lock): the columnar
+        # refresh walks these instead of scanning the whole fleet.
+        self._changed_for_batch: Set[str] = set()
         # The fit cache: (node, request fingerprint) -> (snapshot key, fit
         # outcome); a hit counts only at the node's current key, so any
         # grant, delete or re-registration on the node invalidates it.
@@ -312,6 +326,11 @@ class Scheduler:
         self.commit_conflicts = 0
         # Group commit of the decision writes.
         self._decisions = DecisionBatcher(client)
+        # Batched scheduling cycles (batch.py): the columnar fleet, the
+        # class evaluator, the joint solver and the per-node group commit.
+        # Always built (filter_many drives it whatever the flag says);
+        # Filter goes through its gate only with Config.filter_batch.
+        self.batch = BatchEngine(self)
         # on_pod_event's counter, for the 1-in-8 informer-apply sample.
         self._informer_events = 0
         #: Full per-node usage rebuilds, and grant deltas written through
@@ -650,8 +669,9 @@ class Scheduler:
         ``node``'s cached usage at generation ``new_rev``.  Only on an
         unbroken rev chain: the cache must hold exactly ``new_rev - 1``;
         anything else means an unobserved change interleaved, and the
-        node's pending dirty mark rebuilds it instead."""
-        published = False
+        node's pending dirty mark rebuilds it instead.  A published delta
+        is queued for the batch engine's columnar fleet too."""
+        published = None
         with self._usage_cache_lock:
             cached = self._usage_cache.get(node)
             if cached is not None:
@@ -661,9 +681,12 @@ class Scheduler:
                     if new_usage is not None:
                         self._usage_cache[node] = ((new_rev, k1),
                                                    new_usage)
-                        published = True
-        if published:
+                        published = (new_rev, k1)
+        if published is not None:
             self.usage_writethroughs += 1
+            # The same delta for the columnar fleet: the next cycle patches
+            # the node's row in place instead of reloading it.
+            self.batch.note_delta(node, devices, sign, published)
 
     @staticmethod
     def _delta_usage(usage: dict, devices, sign: int):
@@ -726,6 +749,7 @@ class Scheduler:
                 snap = {name: snap[name] for name in self.nodes.names()
                         if name in snap}
             self._snap = snap
+            self._changed_for_batch |= dirty
             if reg.enabled:
                 now = time.monotonic()
                 reg.record("snapshot-publish", t_copy - t0)
@@ -740,6 +764,20 @@ class Scheduler:
             self.pods.mark_dirty(dirty)
             self.nodes.mark_dirty(dirty)
             raise
+
+    def snapshot_for_batch(self
+                           ) -> Tuple[Dict[str, SnapEntry], Set[str]]:
+        """The batch engine's read: the published snapshot and the names
+        whose entries were replaced since the previous call, refreshed and
+        drained under one acquire (with two, a per-pod snapshot() between
+        them could publish a newer entry whose change this drain would
+        consume against the older dict, and the row would never hear of
+        it)."""
+        with self._usage_cache_lock:
+            snap = self._snapshot_locked()
+            changed, self._changed_for_batch = \
+                self._changed_for_batch, set()
+        return snap, changed
 
     def _refresh_entry_locked(self, name: str) -> Optional[SnapEntry]:
         """One node's entry at its live revs, from the cache or rebuilt
@@ -903,12 +941,11 @@ class Scheduler:
     def export_perf(self, top_ticks: int = 8) -> dict:
         """The performance observatory (``GET /perfz``): each phase's
         p50/p99/max over its recent window, the lock wait/hold table,
-        informer lag and resync cost, GC pressure, the decision writer's
-        amortization and the slowest recent ticks.  Reads the process's
-        registry and this scheduler's counters, never a scheduler lock.
-        The batch-cycle counters and the solve-worker section read as the
-        JAX scheduler's do before any batched cycle has run (the port has
-        no batched cycles yet)."""
+        informer lag and resync cost, the batch gate's queue, GC pressure,
+        the decision writer's amortization, the batch engine's counters,
+        the solve workers and the slowest recent ticks.  Reads the
+        process's registry and this scheduler's counters, never a
+        scheduler lock."""
         doc = perf.registry().export(top_ticks=top_ticks)
         batcher = self._decisions
         doc["decision_writer"] = {
@@ -917,24 +954,33 @@ class Scheduler:
             "amortization": round(batcher.writes / batcher.batches, 3)
             if batcher.batches else 0.0,
         }
-        doc["queue"]["pending_depth"] = 0
+        doc["queue"]["pending_depth"] = len(self.batch._queue)
+        fleet = self.batch.fleet
         doc["counters"] = {
             "commit_conflicts": self.commit_conflicts,
-            "batch_cycles": 0,
-            "batch_fallbacks": 0,
-            "columnar_full_rebuilds": 0,
-            "columnar_rows_reloaded": 0,
-            "columnar_rows_patched": 0,
-            "class_evals_full": 0,
-            "class_rows_patched": 0,
-            "class_evals_offloaded": 0,
+            "batch_cycles": self.batch.stats.cycles,
+            "batch_fallbacks": self.batch.stats.fallbacks,
+            # A steady state keeps the rebuild counters flat and carries
+            # its churn on the patched and write-through ones.
+            "columnar_full_rebuilds": fleet.rebuilds,
+            "columnar_rows_reloaded": fleet.rows_reloaded_total,
+            "columnar_rows_patched": fleet.rows_patched_total,
+            "class_evals_full": fleet.class_evals_full,
+            "class_rows_patched": fleet.class_rows_patched,
+            "class_evals_offloaded": fleet.class_evals_offloaded,
             "snapshot_usage_rebuilds": self.usage_rebuilds,
             "snapshot_usage_writethroughs": self.usage_writethroughs,
         }
-        doc["solve_workers"] = {
-            "configured": 0, "workers": 0, "restarts_total": 0,
-            "evals_offloaded": 0, "eval_fallbacks": 0, "per_worker": [],
-        }
+        # The solve workers (parallelcp/), present with the pool off too.
+        pool = self.batch.pool
+        if pool is not None:
+            doc["solve_workers"] = pool.export()
+        else:
+            doc["solve_workers"] = {
+                "configured": 0, "workers": 0, "restarts_total": 0,
+                "evals_offloaded": 0, "eval_fallbacks": 0,
+                "per_worker": [],
+            }
         return doc
 
     def known_topologies(self) -> List[TopologyDesc]:
@@ -1031,6 +1077,118 @@ class Scheduler:
                 sp.set("node", result.node)
         return self._finish_decision(pod, result)
 
+    def filter_many(self, items: List[Tuple[dict, List[str]]]
+                    ) -> List[FilterResult]:
+        """Filter a backlog of pods through batched scheduling cycles: the
+        answers of :meth:`filter` a pod, but the batchable pods are decided
+        together (one snapshot, one columnar evaluation a request class,
+        one revision-validated group commit a node) in chunks of
+        ``batch_max``, whatever ``filter_batch`` says.  Gang members,
+        multi-container pods, held pods and every pod under
+        ``optimistic_commit=False`` go through :meth:`filter` as they
+        are."""
+        if self.gangs.groups():
+            self._release_expired_gangs()
+        results: List[Optional[FilterResult]] = [None] * len(items)
+        batched: List[Tuple[int, BatchJob]] = []
+        # The routed pods' stale grants drop in one acquire, but always
+        # before the next decision that could read them: ahead of every
+        # inline per-pod filter of the drain (a later pod must not see an
+        # earlier routed pod's stale grant still charged), and once after
+        # the routing.
+        stale_uids: List[str] = []
+        drain_t0 = time.monotonic()
+        inline_s = 0.0
+        for i, (pod, node_names) in enumerate(items):
+            routed = self._route_batch(pod, node_names)
+            if isinstance(routed, FilterResult):
+                results[i] = self._finish_decision(pod, routed)
+            elif routed is None:
+                if stale_uids:
+                    self._del_pods_wt(stale_uids)
+                    stale_uids.clear()
+                inline_t0 = time.monotonic()
+                results[i] = self.filter(pod, node_names)
+                # An inline decision records its own phases: left out of
+                # the drain, so /perfz's phases sum to the wall time.
+                inline_s += time.monotonic() - inline_t0
+            else:
+                batched.append((i, routed))
+                stale_uids.append(routed.uid)
+        if stale_uids:
+            self._del_pods_wt(stale_uids)
+        # The drain phase: parsing and routing the backlog into jobs.
+        perf.registry().record(
+            "drain", max(0.0, time.monotonic() - drain_t0 - inline_s))
+        step = max(1, self.cfg.batch_max)
+        for at in range(0, len(batched), step):
+            chunk = batched[at:at + step]
+            decided = self.batch.decide_many([j for _i, j in chunk])
+            finished = self._finish_decisions_bulk(
+                [(job.pod, res) for (_i, job), res in zip(chunk, decided)])
+            for (i, _job), fr in zip(chunk, finished):
+                results[i] = fr
+        if batched:
+            # Every job of the backlog is decided: the drain age (a
+            # current wait) is zero again.
+            perf.registry().set_gauge("drain_age_s", 0.0)
+        return results
+
+    def _del_pods_wt(self, uids: List[str]) -> None:
+        """Drop many stale grants in one acquire, each release written
+        through (so a re-placed pod's old row patches instead of
+        reloading)."""
+        for info, rev in self.pods.del_pods(uids):
+            self._write_through(info.node, info.devices, rev, -1)
+
+    def _route_batch(self, pod: dict, node_names: List[str]):
+        """filter_many's router, :meth:`_decide`'s checks in its order: a
+        FilterResult where the pod is decided already (a bad request, not
+        ours, held in a queue), a BatchJob where it is batchable, None
+        where it needs the per-pod path."""
+        try:
+            requests = container_requests(pod, self.cfg)
+        except ValueError as e:
+            return FilterResult(error=f"bad resource request: {e}")
+        if not any(r.nums > 0 for r in requests):
+            return FilterResult()
+        hold = self.quota.gate(pod, requests)
+        if hold is not None:
+            return FilterResult(error=hold)
+        self._release_reservation_for(pod)
+        if gang_of(pod) is not None or not self.cfg.optimistic_commit \
+                or not self._batchable(requests):
+            return None
+        return self._make_batch_job(pod, requests, node_names,
+                                    del_stale=False)
+
+    @staticmethod
+    def _batchable(requests) -> bool:
+        """Exactly one container asks for cards: a multi-container pod
+        keeps the per-pod path (its containers place against each other's
+        tentative grants)."""
+        return len(requests) == 1 and requests[0].nums >= 1
+
+    def _make_batch_job(self, pod: dict, requests, node_names: List[str],
+                        del_stale: bool = True) -> Optional[BatchJob]:
+        """The pod's BatchJob, or None where its priority cannot be read
+        (the per-pod path decides it).  ``del_stale`` drops a retried
+        Filter's grant first, as the per-pod paths do; filter_many drops
+        its backlog's in one acquire instead."""
+        try:
+            priority = pod_priority(pod, self.cfg)
+        except Exception:  # noqa: BLE001 — the per-pod path decides
+            return None
+        if del_stale:
+            self._del_pod_wt(pod_uid(pod))
+        return BatchJob(
+            pod=pod, uid=pod_uid(pod), name=pod_name(pod),
+            namespace=pod_namespace(pod), trace_id=trace.trace_id_of(pod),
+            requests=requests,
+            anns=pod.get("metadata", {}).get("annotations", {}) or {},
+            node_names=node_names, priority=priority,
+            enqueued_at=time.monotonic())
+
     def _finish_decision(self, pod: dict,
                          result: FilterResult) -> FilterResult:
         """Everything after the in-memory decision: the rejection's events
@@ -1040,6 +1198,45 @@ class Scheduler:
             return result
         err = self._write_decision_single(pod, result, patch)
         return self._conclude_decision(pod, result, err)
+
+    def _finish_decisions_bulk(self, pairs: List[Tuple[dict, FilterResult]]
+                               ) -> List[FilterResult]:
+        """A batched cycle's epilogue: every decision prepared, then the
+        patches written in chunks the decision writer's adaptive sizer
+        steers, one ``write_many`` call a chunk.  A failed entry rolls
+        back only its own grant.  (The JAX epilogue also has a fenced
+        compare-and-swap branch for its sharded control plane, which waits
+        for ROADMAP A.5 shard.)"""
+        out: List[Optional[FilterResult]] = [None] * len(pairs)
+        writes: List[tuple] = []   # (index, pod, result, patch)
+        for i, (pod, result) in enumerate(pairs):
+            patch = self._prepare_decision(pod, result)
+            if patch is None:
+                out[i] = result
+            else:
+                writes.append((i, pod, result, patch))
+        reg = perf.registry()
+        sizer = self._decisions.sizer
+        at = 0
+        while at < len(writes):
+            chunk = writes[at:at + sizer.size()]
+            at += len(chunk)
+            write_t0 = time.monotonic()
+            outcomes = self._decisions.write_many(
+                [(pod_namespace(pod), pod_name(pod), patch)
+                 for _i, pod, _result, patch in chunk])
+            seconds = time.monotonic() - write_t0
+            if reg.enabled:
+                # One sample a flush, the amortized unit.
+                reg.record("decision-write", seconds)
+                reg.set_gauge("decision_write_chunk", len(chunk))
+            for (i, pod, result, _patch), e in zip(chunk, outcomes):
+                err = None if e is None else f"writing decision failed: {e}"
+                if err is not None:
+                    log.error("failed to write the decision for %s: %s",
+                              pod_name(pod), e)
+                out[i] = self._conclude_decision(pod, result, err)
+        return out
 
     def _prepare_decision(self, pod: dict,
                           result: FilterResult) -> Optional[dict]:
@@ -1138,7 +1335,8 @@ class Scheduler:
     def _decide(self, pod: dict, node_names: List[str],
                 sp: "trace.Span") -> FilterResult:
         """Parse and dispatch: gang admissions and the serial path decide
-        under the commit lock; the default is the optimistic
+        under the commit lock; with ``filter_batch`` a batchable pod goes
+        through the batch gate; the default is the optimistic
         snapshot-and-commit protocol."""
         try:
             requests = container_requests(pod, self.cfg)
@@ -1168,6 +1366,15 @@ class Scheduler:
         if not self.cfg.optimistic_commit:
             with self._commit_lock:
                 return self._decide_serial_locked(pod, requests, node_names)
+        if self.cfg.filter_batch and self._batchable(requests):
+            # The batch gate: concurrent Filters collapse into one cycle
+            # (batch.py); other shapes take the per-pod path below.
+            job = self._make_batch_job(pod, requests, node_names)
+            if job is not None:
+                result = self.batch.submit(job)
+                if result.node is not None:
+                    sp.set("batched", True)
+                return result
         return self._decide_optimistic(pod, requests, node_names, sp)
 
     def _decide_optimistic(self, pod: dict, requests,
@@ -1319,6 +1526,24 @@ class Scheduler:
         if cached is not None and cached[1] is entry.usage:
             self._usage_cache[node] = ((final_rev, entry.key[1]),
                                        new_usage)
+
+    def _publish_grants_many(self, publishes: List[Tuple]) -> None:
+        """A batched commit chunk's publish: every node group under one
+        usage-cache acquire.  Each item is ``(node, entry, placements,
+        final_rev)`` with :meth:`_publish_grants`' chain proof
+        (``add_pods_group`` makes ``final_rev`` the validated rev plus the
+        group); the deltas are computed outside the lock."""
+        staged = []
+        for node, entry, placements, final_rev in publishes:
+            new_usage = self._grants_delta(entry, placements)
+            if new_usage is not None:
+                staged.append((node, entry, final_rev, new_usage))
+        if not staged:
+            return
+        with self._usage_cache_lock:
+            for node, entry, final_rev, new_usage in staged:
+                self._publish_usage_locked(node, entry, final_rev,
+                                           new_usage)
 
     def _grants_delta(self, entry: SnapEntry, placements: List):
         """The grants' combined delta over ``entry.usage`` as a fresh map,
@@ -1845,7 +2070,8 @@ class Scheduler:
         return ",".join(f"{cls}={split[cls]}" for cls in sorted(split))
 
     def close(self) -> None:
-        """Stop the background loops and release the candidate-evaluation
+        """Stop the background loops, drain the solve workers (unlinking
+        their shared-memory segments) and release the candidate-evaluation
         pool (idempotent).  The daemon calls it on exit; embedders and
         tests that build and discard schedulers call it so no loop or pool
         thread outlives its scheduler."""
@@ -1853,6 +2079,7 @@ class Scheduler:
         self.admission.stop()
         self.defrag.stop()
         self.elastic.stop()
+        self.batch.close()
         with self._pool_lock:
             pool, self._pool = self._pool, None
             self._pool_unavailable = False

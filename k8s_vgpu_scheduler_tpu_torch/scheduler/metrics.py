@@ -20,7 +20,10 @@ recommended node counts, from ``export_capacity``), QoS wait and weights,
 the phase latency and rejections from the tracer, the performance
 observatory's phases, locks, informer lag and GC collections
 (``util/perf.py``), the optimistic commit's conflicts, the evaluation
-pool's size and busy peak, and the failed decision writes.  Families whose
+pool's size and busy peak, the failed decision writes, and the batched
+cycles (their sizes, latencies and fallbacks by cause, the batch gate's
+queue depth) and solve workers (live count, restarts, each worker's
+evaluation latency) from ``scheduler/batch.py``'s engine.  Families whose
 subsystem waits for ROADMAP A.5 are emitted as the JAX collector emits
 them with that subsystem off, zero-valued or empty, so no series a
 dashboard names ever vanishes: see :data:`A5_FAMILIES`.  Standard library
@@ -47,13 +50,6 @@ from .core import Scheduler
 #: the subsystem off: zero-valued where the family has no labels (or a
 #: fixed label set), empty where its labels name live objects.
 A5_FAMILIES = {
-    "vtpu_filter_batch_size": "batched scheduling cycles",
-    "vtpu_filter_batch_cycle_seconds": "batched scheduling cycles",
-    "vtpu_filter_batch_fallbacks": "batched scheduling cycles",
-    "vtpu_pending_queue_depth": "batched scheduling cycles",
-    "vtpu_solve_workers": "multicore solve workers",
-    "vtpu_solve_worker_restarts": "multicore solve workers",
-    "vtpu_solve_worker_eval_seconds": "multicore solve workers",
     "vtpu_shard_epoch": "sharded control plane",
     "vtpu_shards_owned": "sharded control plane",
     "vtpu_shards_orphaned": "sharded control plane",
@@ -143,7 +139,8 @@ class ClusterCollector:
         )
         conflicts.add_metric([], self.scheduler.commit_conflicts)
 
-        # Batched scheduling cycles (A.5): the families, empty.
+        # Batched scheduling cycles (batch.py), emitted with the gate off
+        # too (filter_many drives the engine whatever the flag says).
         batch_size = HistogramMetricFamily(
             "vtpu_filter_batch_size",
             "Pods decided per batched scheduling cycle (the drain size "
@@ -156,8 +153,14 @@ class ClusterCollector:
             "(snapshot refresh + vectorized evaluation + joint solve + "
             "group commit + per-pod fallbacks)",
         )
+        engine = getattr(self.scheduler, "batch", None)
+        if engine is not None:
+            buckets, total = engine.stats.size_histogram()
+            batch_size.add_metric([], buckets, total)
+            buckets, total = engine.stats.latency_histogram()
+            batch_lat.add_metric([], buckets, total)
 
-        # Multicore solve workers (A.5): zero-valued, empty histograms.
+        # Solve workers (parallelcp/): zero-valued with the pool off.
         solve_workers = GaugeMetricFamily(
             "vtpu_solve_workers",
             "Live solve worker processes mapping the shared-memory "
@@ -178,8 +181,16 @@ class ClusterCollector:
             "recorded by the parent at reply collection)",
             labels=["worker"],
         )
-        solve_workers.add_metric([], 0)
-        solve_restarts.add_metric([], 0)
+        solve_pool = getattr(engine, "pool", None)
+        if solve_pool is not None:
+            solve_workers.add_metric([], solve_pool.alive_count())
+            solve_restarts.add_metric([], solve_pool.restarts_total)
+            for i, ring in enumerate(solve_pool.latency):
+                buckets, total = ring.prom()
+                solve_eval.add_metric([str(i)], buckets, total)
+        else:
+            solve_workers.add_metric([], 0)
+            solve_restarts.add_metric([], 0)
 
         pool_size = GaugeMetricFamily(
             "vtpu_filter_worker_pool_size",
@@ -542,8 +553,9 @@ class ClusterCollector:
         informer_lag.add_metric([], reg.informer_lag_s())
         informer_resync.add_metric(
             [], reg.gauge("informer_resync_last_s"))
-        # No batched cycles yet (A.5): no batch gate, so no queue.
-        pending_depth.add_metric([], reg.gauge("pending_queue_depth"))
+        pending_depth.add_metric(
+            [], len(engine._queue) if engine is not None
+            else reg.gauge("pending_queue_depth"))
         for gen, n in enumerate(reg.gc.collections):
             gc_collections.add_metric([str(gen)], n)
 
@@ -556,6 +568,10 @@ class ClusterCollector:
             "internal failure)",
             labels=["reason"],
         )
+        if engine is not None:
+            for reason, n in sorted(
+                    engine.stats.fallback_reason_counts().items()):
+                batch_fallbacks.add_metric([reason], n)
 
         # Serving QoS: per-class dispatch-wait histograms and per-pod
         # duty weights, from the qos fields the usage reports carry.

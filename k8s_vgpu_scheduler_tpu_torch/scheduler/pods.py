@@ -99,6 +99,22 @@ class PodManager:
         with self._lock:
             return self._add_locked(info)
 
+    def add_pods_group(self, infos: List[PodInfo], node: str,
+                       expected_rev: int) -> Optional[int]:
+        """A batched cycle's group commit: one node's whole grant group
+        added under one acquire, the node's rev checked against
+        ``expected_rev`` inside the lock (the commit lock does not exclude
+        the informer, so an event between two single adds would break the
+        chain the publish relies on).  Returns the final rev
+        (``expected_rev + len(infos)``), or None with nothing added where
+        the rev moved."""
+        with self._lock:
+            if self._rev.get(node, 0) != expected_rev:
+                return None
+            for info in infos:
+                self._add_locked(info)
+            return self._rev[node]
+
     def _refresh_locked(self, info: PodInfo) -> bool:
         prev = self._pods.get(info.uid)
         if prev is None or prev.node != info.node \

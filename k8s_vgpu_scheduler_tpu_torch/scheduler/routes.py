@@ -25,9 +25,11 @@ Reference: pkg/scheduler/routes/route.go (PredicateRoute 41–77, Bind
                     recommendation and forecast drift (``?horizon=<seconds>``,
                     a positive finite number, else 400; an export error
                     answers 500) for ``vgpu-report``
-- ``GET  /perfz``   the performance observatory: phase timings, the lock
-                    table, informer lag, the decision writer's
-                    amortization, the slowest recent ticks
+- ``GET  /perfz``   the performance observatory: phase timings (the
+                    batched cycles' split among them), the lock table,
+                    informer lag, the batch gate's queue, the decision
+                    writer's amortization, the batch engine's counters and
+                    solve workers, the slowest recent ticks
                     (``?ticks=<n>``, an integer in [0, 64], else 400; an
                     export error answers 500)
 - ``GET  /debug/*`` stacks, profile, vars, tracez, events

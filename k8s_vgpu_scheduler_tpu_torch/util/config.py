@@ -55,6 +55,27 @@ class Config:
     # Optimistic commits that lose their revision race re-evaluate on a
     # fresh snapshot at most this many times, then decide serially.
     commit_retries: int = 4
+    # Batched scheduling cycles (scheduler/batch.py): concurrent Filters
+    # collapse into cycles (one snapshot, a vectorized pods x cards
+    # evaluation over a columnar fleet, a joint solve, one revision-
+    # validated group commit a node).  Off by default: the per-pod
+    # optimistic path decides until an operator opts in
+    # (--filter-batch); filter_many drives the engine either way.
+    filter_batch: bool = False
+    # How long the first Filter into an idle batch gate waits for others
+    # to join its cycle (ms); 0 = no wait.
+    batch_tick_ms: float = 2.0
+    # Pods a cycle at most: bounds a cycle's latency; a deeper backlog
+    # drains over successive cycles.
+    batch_max: int = 256
+    # The joint solver: "regret" (greedy with regret: a pod with one
+    # feasible node is served before a flexible pod takes it) or "fifo"
+    # (sequential argmax in fair-share order, the serial path's answer).
+    batch_solver: str = "regret"
+    # Solve worker processes (parallelcp/) that map the columnar fleet's
+    # shared-memory segments read-only and run the class evaluations
+    # row-sharded outside the GIL; 0 = in-process, with the same bits.
+    solve_workers: int = 0
 
     # Priority preemption (scheduler/preempt.py): a pod that fits nowhere
     # may ask strictly lower-priority pods to checkpoint and leave.  Off

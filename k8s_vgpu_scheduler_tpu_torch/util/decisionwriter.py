@@ -143,6 +143,31 @@ class DecisionBatcher:
             raise p.error
         return p.batch_size
 
+    def write_many(self, entries: List[tuple]) -> List[Optional[Exception]]:
+        """A whole batched cycle's patches in one
+        ``patch_pod_annotations_many`` call, with no queue (the caller is
+        the batch): one outcome an entry (None, or its failure; one
+        entry's failure never fails another), the flush timed and fed to
+        the sizer."""
+        reg = perf.registry()
+        reg.set_gauge("decision_flush_last_size", len(entries))
+        t0 = time.monotonic()
+        try:
+            results = self._client.patch_pod_annotations_many(entries)
+            if len(results) != len(entries):
+                raise RuntimeError(
+                    f"patch_pod_annotations_many returned {len(results)} "
+                    f"outcomes for {len(entries)} patches")
+        except Exception as e:  # noqa: BLE001 — wholesale transport failure
+            results = [e] * len(entries)
+        seconds = time.monotonic() - t0
+        reg.record("decision-flush", seconds)
+        self.sizer.observe(len(entries), seconds)
+        with self._lock:
+            self.batches += 1
+            self.writes += len(entries)
+        return results
+
     def _drain(self) -> None:
         batch: List[_Pending] = []
         try:

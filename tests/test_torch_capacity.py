@@ -15,15 +15,14 @@ simulator runs serially with its snapshot in registry order (the
 The name map: workload and arrival keys ``gpu``/``tpu``, ``gpumem``/
 ``tpumem``, ``gpucores``/``tpucores``; card ids ``-gpu-``/``-chip-``.
 
-The stated departures, each pinned below with both answers:
+Both replays drain each tick's unplaced pods through their batched
+``filter_many``; on every scenario here the section is also the one a
+per-pod drain gives (each package's ``filter_many`` rebound to a Filter a
+pod), so no joint decision differs from a sequential one.
 
-- the drain: the JAX replay decides each tick's unplaced pods in its
-  batched ``filter_many``, the port Filters them one by one in the same
-  order (the port has no batched cycles yet).  On every scenario here the
-  JAX section as it is, and the JAX section with ``filter_many`` rebound
-  to a per-pod loop, give the port's answer: no joint decision differs;
-- ``replica_loss`` (the sharded control plane's what-if) is refused by
-  name where the JAX simulator replays it.
+The stated departure, pinned below with both answers: ``replica_loss``
+(the sharded control plane's what-if) is refused by name where the JAX
+simulator replays it.
 """
 
 import copy
@@ -628,8 +627,8 @@ def fleet_kw(fleet=FLEET) -> dict:
 
 
 def per_pod_filter_many(self, items):
-    """The JAX ``filter_many`` as the port drains: ``filter`` per pod, in
-    the order given."""
+    """A ``filter_many`` that drains per pod: ``filter`` a pod, in the
+    order given."""
     return [self.filter(pod, names) for pod, names in items]
 
 
@@ -659,17 +658,20 @@ def test_the_named_scenarios_are_the_jax_ones_in_the_ports_names():
 def test_the_capacity_section_equals_the_jax_section(name, serial,
                                                      monkeypatch):
     """Each named scenario and the example on the 2 x 4 fleet: the port's
-    section equals the JAX section as it is (serial, batched drain) and
-    the JAX section with its drain rebound to a Filter per pod; the
-    verdict passes."""
+    section equals the JAX section (serial, both drained through
+    ``filter_many``), and each package's section with its drain rebound
+    to a Filter a pod equals it too; the verdict passes."""
     port = tsim.run_simulation(copy.deepcopy(CASES[name]), **fleet_kw())
     want = as_port(json.loads(json.dumps(jsim.run_simulation(
         jax_capacity(CASES[name]), generation="h100", **fleet_kw()))))
     assert port == want
     monkeypatch.setattr(jsim.Scheduler, "filter_many", per_pod_filter_many)
+    monkeypatch.setattr(tsim.Scheduler, "filter_many", per_pod_filter_many)
     per_pod = as_port(json.loads(json.dumps(jsim.run_simulation(
         jax_capacity(CASES[name]), generation="h100", **fleet_kw()))))
     assert per_pod == want
+    assert tsim.run_simulation(copy.deepcopy(CASES[name]),
+                               **fleet_kw()) == want
     cp = port["capacity"]
     assert cp["verdict"]["ok"] and port["fits"]
     assert cp["replica_loss"] is None and cp["elastic_whatif"] is None
@@ -680,6 +682,36 @@ def test_the_capacity_section_equals_the_jax_section(name, serial,
         rec = cp["recommendation"]
         assert rec["nodes_recommended"] > rec["nodes_current"]
         assert "serve" not in rec["applied"]["starved_at"]
+
+
+class _OrderedBatchScheduler(jsim.Scheduler):
+    """The JAX scheduler with both its snapshot reads in registry order
+    (the batch engine reads ``snapshot_for_batch``)."""
+
+    def _ordered(self, snap):
+        return {n: snap[n] for n in self.nodes.list_nodes() if n in snap}
+
+    def snapshot(self):
+        return self._ordered(super().snapshot())
+
+    def snapshot_for_batch(self):
+        snap, changed = super().snapshot_for_batch()
+        return self._ordered(snap), changed
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_the_default_path_capacity_section_equals_the_jax_one(name,
+                                                              monkeypatch):
+    """On the default (optimistic) path both replays decide each tick's
+    drain in batched cycles: with the JAX snapshot in registry order the
+    port's section equals the JAX section (what chip_smoke.py's
+    CAPACITY_SHA256_OPTIMISTIC pins on the card's host)."""
+    monkeypatch.setattr(jsim, "Scheduler", _OrderedBatchScheduler)
+    port = tsim.run_simulation(copy.deepcopy(CASES[name]), **fleet_kw())
+    want = as_port(json.loads(json.dumps(jsim.run_simulation(
+        jax_capacity(CASES[name]), generation="h100", **fleet_kw()))))
+    assert port == want
+    assert port["capacity"]["verdict"]["ok"]
 
 
 def cli_json(capsys, workload: dict, tmp_path, fleet=FLEET) -> str:

@@ -280,6 +280,47 @@ def test_the_defrag_values_render_into_the_extender():
             jsonschema.validate(broken, schema())
 
 
+BATCH_VALUES = {"filterBatch": (True, False), "batchTickMs": (5, 2),
+                "batchMax": (64, 256)}
+
+
+@pytest.mark.parametrize("key", sorted(BATCH_VALUES))
+def test_the_batch_values_render_into_the_extender(key):
+    """``scheduler.filterBatch``, ``batchTickMs`` and ``batchMax`` (in the
+    schema since the batched cycles came to the port, with the JAX chart's
+    defaults): off renders no batch flag; on renders ``--filter-batch``
+    with the tick and the cap, which the port's ``parse_args`` reads into
+    the batch engine's config fields; a bad value is refused."""
+    import jsonschema
+
+    value, default = BATCH_VALUES[key]
+    vals = values()
+    assert vals["scheduler"][key] == default
+    base = containers(render())["vgpu-extender"]
+    argv = [str(a) for a in base["command"][3:]]
+    assert not any("batch" in a for a in argv)
+    over = {"filterBatch": True, key: value}
+    vals["scheduler"].update(over)
+    jsonschema.validate(vals, schema())
+    out = containers(render({"scheduler": over}))
+    argv = [str(a) for a in out["vgpu-extender"]["command"][3:]]
+    cfg = scheduler.build_config(scheduler.parse_args(argv))
+    got = {"filterBatch": cfg.filter_batch,
+           "batchTickMs": cfg.batch_tick_ms, "batchMax": cfg.batch_max}
+    assert got == {**{k: d for k, (_v, d) in BATCH_VALUES.items()},
+                   "filterBatch": True, key: value}
+    tick = vals["scheduler"]["batchTickMs"]
+    assert [a for a in argv if "batch" in a] == [
+        "--filter-batch", f"--batch-tick-ms={tick}",
+        f"--batch-max={got['batchMax']}"]
+    broken = values()
+    broken["scheduler"][key] = "yes" if key == "filterBatch" else 0
+    if key == "batchTickMs":
+        broken["scheduler"][key] = -1
+    with pytest.raises(jsonschema.ValidationError):
+        jsonschema.validate(broken, schema())
+
+
 def test_the_capacity_values_render_into_the_extender():
     """``scheduler.capacity`` (in the schema since the capacity forecast
     came to the port) renders the five ``--capacity-*`` flags at the JAX
@@ -499,8 +540,6 @@ def test_every_object_of_the_schema_refuses_unknown_keys():
 #: extender).
 A5_VALUES = [("scheduler", "defragCheckpointGrace", 120),
              ("scheduler", "slo", {"objectives": []}),
-             ("scheduler", "filterBatch", True),
-             ("scheduler", "batchTickMs", 2),
              ("scheduler", "enableDefrag", True),
              ("scheduler", "replicas", 2),
              ("scheduler", "shardTtl", 15),
@@ -652,8 +691,11 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
     # since the capacity forecast's: the three "Capacity" panels; 46 since
     # the throughput machinery's: commit conflicts, pool saturation, phase
     # cost, lock wait and hold, decision-write failures, and the informer
-    # lag and GC panels less their batched-cycle queries.
-    assert len(want) == 46 and ours["uid"] == "vgpu-overview"
+    # lag and GC panels less their batched-cycle queries; 50 since the
+    # batched cycles' and the solve workers': batch size, cycle latency,
+    # fallbacks by cause and the solve-worker pool, and the pending queue
+    # depth and batch fallbacks back in the informer-lag and GC panels.
+    assert len(want) == 50 and ours["uid"] == "vgpu-overview"
     for p in ours["panels"]:
         assert "TPU" not in p["title"] + p.get("description", "")
     alerts = yaml.safe_load((CHART / "dashboards" / "vgpu-alerts.yaml")
@@ -672,8 +714,9 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
     # with elastic meshes, VtpuQueueStarvationForecast and
     # VtpuCapacityForecastDrift with the capacity forecast,
     # VtpuFilterCommitConflictStorm, VtpuSchedulerTickStall and
-    # VtpuDecisionWriteFailures with the throughput machinery.
-    assert len(ours_rules) == 23
+    # VtpuDecisionWriteFailures with the throughput machinery, and
+    # VtpuFilterBatchFallbackStorm with the batched cycles.
+    assert len(ours_rules) == 24
     for r in ours_rules:
         assert r["annotations"]["summary"]
         assert "TPU" not in r["annotations"]["summary"]

@@ -346,13 +346,27 @@ def test_the_fleet_leg_runs_on_the_mock_nvml(tmp_path, v2_idle_s):
     assert (scaled["cards"], scaled["placed"] + scaled["pending"],
             scaled["idle_grants"], scaled["exit_code"]) == (1024, 968, 16, 1)
     assert fleet.sim.returncode == 1
-    # The Filter storm at its rehearsal size, both modes.
+    # The Filter storm at its rehearsal size, its four modes and the two
+    # in-process drains.
     storm = got["filter_storm"]
-    assert set(storm["modes"]) == {"serial", "optimistic"}
+    assert set(storm["modes"]) == {"serial", "optimistic", "batched",
+                                   "batched_workers"}
     for mode in storm["modes"].values():
         assert mode["placed"] + mode["refused"] == mode["pods"]
         assert mode["churned"] > 0 and mode["decisions_per_s"] > 0
     assert storm["modes"]["optimistic"]["opt_evaluate"]["n"] > 0
+    for name in ("batched", "batched_workers"):
+        batch = storm["modes"][name]["batch"]
+        assert batch["cycles"] > 0 and batch["size_max"] >= 1
+        assert batch["phase_s"]["cycle-total"] > 0
+    workers = storm["modes"]["batched_workers"]["batch"]["solve_workers"]
+    assert workers["configured"] == chip_smoke.STORM_REHEARSAL_WORKERS
+    assert workers["restarts_total"] == 0 and workers["evals_offloaded"] > 0
+    assert [d["workers"] for d in storm["drains"]] == [
+        0, chip_smoke.STORM_REHEARSAL_WORKERS]
+    for drain in storm["drains"]:
+        assert drain["placed"] + drain["refused"] == drain["pods"]
+    assert storm["switch_interval_s"] == pytest.approx(0.05)
     assert all(n > 0 for n in perf["phases"].values())
     assert perf["throughput"]["optimistic"]
 

@@ -2,9 +2,12 @@
 snapshot cache, the optimistic commit, the fit cache, the worker pool) and
 its decision writer (``util/decisionwriter.py``) against the JAX
 package's, on the CPU: ``tests/test_scheduler_concurrency.py``'s cases,
-each run on both packages (``SIDES``), without the batched-cycle ones
-(``filter_many``, the batch group commit), which come with the port's
-batch engine.
+each run on both packages (``SIDES``), the batched-cycle ones with them:
+the interleaved add against the batch group commit, the stress and the
+churn again with every Filter through the batch gate (``STRESS_SIDES``,
+the JAX suite's ``VTPU_TEST_FILTER_BATCH`` rerun), and
+``DecisionBatcher.write_many`` with the bulk epilogue's rollback
+(tests/test_torch_batch.py holds the rest of the batch engine).
 
 - The stress and the churn are run on each package with its own
   invariant: through any interleaving no card's slots, MiB or cores pass
@@ -167,12 +170,25 @@ def join_all(threads, deadline):
 
 
 # -- the stress -----------------------------------------------------------------
-@pytest.mark.parametrize("side", SIDES)
+#: The stress and churn cases run on each package as they are, and again
+#: with every Filter through the batch gate (``filter_batch``: the JAX
+#: suite's VTPU_TEST_FILTER_BATCH rerun).
+STRESS_SIDES = (*SIDES, *(f"{side}-batched" for side in SIDES))
+
+
+def stress_env(side, built, **cfg):
+    name, _, batched = side.partition("-")
+    pkg = PKGS[name]
+    if batched:
+        cfg["filter_batch"] = True
+    return (pkg, *make_env(pkg, built, **cfg))
+
+
+@pytest.mark.parametrize("side", STRESS_SIDES)
 def test_racing_filters_binds_and_deletes_never_overbook(side, built):
     """8 threads x Filter/Bind/delete over 8 nodes, the invariant checked
     at every step of every thread and at the end, within its limit."""
-    pkg = PKGS[side]
-    kube, s, names = make_env(pkg, built)
+    pkg, kube, s, names = stress_env(side, built)
     n_threads, ops = 8, 30
     errors = []
     barrier = threading.Barrier(n_threads)
@@ -207,14 +223,16 @@ def test_racing_filters_binds_and_deletes_never_overbook(side, built):
     join_all(threads, deadline)
     assert not errors, errors[0]
     assert not overbooked(s)
+    if side.endswith("-batched"):
+        assert s.batch.stats.pods >= 1
+        assert s.export_perf()["queue"]["pending_depth"] == 0
 
 
-@pytest.mark.parametrize("side", SIDES)
+@pytest.mark.parametrize("side", STRESS_SIDES)
 def test_conflict_retry_converges_under_node_churn(side, built):
     """Filters racing re-registrations (every validation sees a moving
     inventory rev) still place and never overbook."""
-    pkg = PKGS[side]
-    kube, s, names = make_env(pkg, built, n_nodes=4)
+    pkg, kube, s, names = stress_env(side, built, n_nodes=4)
     stop = threading.Event()
     deadline = time.monotonic() + STRESS_LIMIT_S
 
@@ -359,6 +377,39 @@ def test_interleaved_watch_add_forces_refit(built):
     got = {side: interleaved(side, built) for side in SIDES}
     assert got["port"] == got["jax"] == dict(
         placed=True, conflicts=1, used=3000, overbooked=[])
+
+
+def interleaved_group(side, built):
+    pkg = PKGS[side]
+    kube, s, names = make_env(pkg, built, n_nodes=1, filter_batch=True)
+    real_group = s.pods.add_pods_group
+    fired = []
+
+    def group(infos, node, expected_rev):
+        if not fired:
+            fired.append(node)
+            rival(pkg, s, "watch-rival", node)
+        return real_group(infos, node, expected_rev)
+
+    s.pods.add_pods_group = group
+    p = pkg.pod("p", "u", mem="2000")
+    kube.create_pod(p)
+    r = s.filter_many([(p, names)])[0]
+    return dict(placed=r.node is not None, fired=len(fired),
+                fallbacks=s.batch.stats.fallback_reason_counts(),
+                conflicts=s.commit_conflicts, used=used_mem(s),
+                overbooked=overbooked(s))
+
+
+def test_interleaved_watch_add_conflicts_batch_group_commit(built):
+    """The batched twin: the group commit checks the node's rev inside
+    the registry lock, so an informer add between the cycle's snapshot and
+    its insert refuses the whole group (nothing added), the pod places
+    through the cycle's per-pod fallback, and both grants show."""
+    got = {side: interleaved_group(side, built) for side in SIDES}
+    assert got["port"] == got["jax"] == dict(
+        placed=True, fired=1, fallbacks={"commit-conflict": 1},
+        conflicts=1, used=3000, overbooked=[])
 
 
 def incremental(side, built, monkeypatch):
@@ -734,6 +785,87 @@ def test_leader_death_releases_inflight_followers():
     got = {side: leader_death(PKGS[side]) for side in SIDES}
     assert got["port"] == got["jax"] == dict(a=True, b=True,
                                              leader_active=False)
+
+
+def bulk_writes(pkg, mode):
+    """``DecisionBatcher.write_many`` on a cycle's three patches: the
+    outcomes an entry, the counters and the sizer's next size."""
+
+    class Kube(pkg.FakeKube):
+        def patch_pod_annotations(self, ns, name, anns, **kw):
+            if name == "bad":
+                raise RuntimeError("apiserver said no")
+            return super().patch_pod_annotations(ns, name, anns, **kw)
+
+        def patch_pod_annotations_many(self, patches):
+            if mode == "transport":
+                raise ConnectionError("apiserver gone")
+            if mode == "short":
+                return [None]
+            return super().patch_pod_annotations_many(patches)
+
+    kube = Kube()
+    for name in ("a", "bad", "c"):
+        kube.create_pod(pkg.pod(name, f"u{name}"))
+    b = pkg.DecisionBatcher(kube)
+    out = b.write_many([("default", n, {"k": n}) for n in ("a", "bad", "c")])
+    return dict(
+        outcomes=[None if e is None else type(e).__name__ for e in out],
+        written=[kube.get_pod("default", n)["metadata"]["annotations"].get(
+            "k") for n in ("a", "bad", "c")],
+        batches=b.batches, writes=b.writes, size=b.sizer.size())
+
+
+@pytest.mark.parametrize("mode", ["entries", "transport", "short"])
+def test_write_many_gives_one_outcome_an_entry(mode):
+    """A cycle's bulk write: a failed entry never fails another; a
+    transport failure, or an override that returns a short list, fails
+    every entry; each call is one batch of three writes either way."""
+    got = {side: bulk_writes(PKGS[side], mode) for side in SIDES}
+    assert got["port"] == got["jax"]
+    want = {"entries": [None, "RuntimeError", None],
+            "transport": ["ConnectionError"] * 3,
+            "short": ["RuntimeError"] * 3}[mode]
+    assert got["port"]["outcomes"] == want
+    assert (got["port"]["batches"], got["port"]["writes"]) == (1, 3)
+    if mode == "entries":
+        assert got["port"]["written"] == ["a", None, "c"]
+
+
+def bulk_rollback(pkg, built):
+    class Kube(pkg.FakeKube):
+        def patch_pod_annotations(self, ns, name, anns, **kw):
+            if name == "p1" and "vtpu.dev/assigned-node" in anns:
+                raise RuntimeError("apiserver said no")
+            return super().patch_pod_annotations(ns, name, anns, **kw)
+
+    kube = Kube()
+    s = pkg.Scheduler(kube, pkg.Config(filter_batch=True))
+    built.append(s)
+    names = ["node-a", "node-b"]
+    for n in names:
+        pkg.register_node(s, n)
+    kube.watch_pods(s.on_pod_event)
+    items = []
+    for i in range(3):
+        p = pkg.pod(f"p{i}", f"u{i}", mem="1000")
+        kube.create_pod(p)
+        items.append((p, names))
+    rs = s.filter_many(items)
+    return dict(nodes=[r.node is not None for r in rs],
+                errors=[r.error.split(":")[0] for r in rs],
+                grants=[s.pods.get(f"u{i}") is not None for i in range(3)],
+                failures=dict(s.decision_write_failures),
+                writes=s.decision_writes_total, cycles=s.batch.stats.cycles)
+
+
+def test_a_failed_bulk_write_rolls_back_only_its_own_grant(built):
+    got = {side: bulk_rollback(PKGS[side], built) for side in SIDES}
+    assert got["port"] == got["jax"] == dict(
+        nodes=[True, False, True],
+        errors=["", "writing decision failed", ""],
+        grants=[True, False, True], failures={"transport": 1}, writes=3,
+        cycles=1)
 
 
 def rollback(pkg, built):

@@ -458,13 +458,6 @@ def test_the_fabric_fleet_reads_slice_availability_as_jax(monkeypatch):
 
 
 A5_ITEMS = {
-    "batched scheduling cycles": ["vtpu_filter_batch_size",
-                                  "vtpu_filter_batch_cycle_seconds",
-                                  "vtpu_filter_batch_fallbacks",
-                                  "vtpu_pending_queue_depth"],
-    "multicore solve workers": ["vtpu_solve_workers",
-                                "vtpu_solve_worker_restarts",
-                                "vtpu_solve_worker_eval_seconds"],
     "sharded control plane": ["vtpu_shard_epoch", "vtpu_shards_owned",
                               "vtpu_shards_orphaned",
                               "vtpu_shard_rebalances",
@@ -538,6 +531,105 @@ def test_the_placement_families_read_as_the_jax_collector(case,
         assert values["vtpu_defrag_completed"] == 0
         assert values["vtpu_defrag_aborted"] == 0
     assert not set(PLACEMENT_FAMILIES) & set(tcluster.A5_FAMILIES)
+
+
+#: The batched cycles' and the solve workers' families (ROADMAP A.5
+#: throughput, its batch half): filled from the live batch engine.
+BATCH_FAMILIES = ("vtpu_filter_batch_size", "vtpu_filter_batch_cycle_seconds",
+                  "vtpu_filter_batch_fallbacks", "vtpu_pending_queue_depth",
+                  "vtpu_solve_workers", "vtpu_solve_worker_restarts",
+                  "vtpu_solve_worker_eval_seconds")
+
+
+def batch_texts(monkeypatch) -> dict:
+    """Each package's cluster text after real batched cycles: ten nodes,
+    one solve worker (ten rows pass the pool's MIN_ROWS), a drain of
+    twelve pods of two request classes and one pod of a third that fits
+    nowhere, in chunks of five (three cycles, three offloaded
+    evaluations), then one pod whose group commit loses to an informer
+    add."""
+    from tests.test_torch_batch import S, build_fleet
+
+    texts = {}
+    built = []
+    try:
+        for side in ("port", "jax"):
+            fresh_tracers(monkeypatch)
+            sd = S[side]
+            pkg = sd.pkg
+            kube, s, names = build_fleet(side, built, n_nodes=10,
+                                         filter_batch=True, batch_max=5,
+                                         solve_workers=1)
+            items = []
+            for i in range(12):
+                p = pkg.pod(f"p{i}", f"u{i}", mem=("1000", "2000")[i % 2])
+                kube.create_pod(p)
+                items.append((p, names))
+            fat = pkg.pod("fat", "ufat", mem="999999")
+            kube.create_pod(fat)
+            items.append((fat, names))
+            assert [r.node is not None for r in s.filter_many(items)] == \
+                [True] * 12 + [False]
+            real = s.pods.add_pods_group
+            fired = []
+
+            def group(infos, node, expected_rev, s=s, real=real,
+                      fired=fired, pkg=pkg, sd=sd):
+                if not fired:
+                    fired.append(node)
+                    s.pods.add_pod(pkg.PodInfo(
+                        uid="rival", name="rival", namespace="default",
+                        node=node, devices=[[pkg.ContainerDevice(
+                            uuid=f"{node}-chip-0", type=sd.types[0],
+                            usedmem=500, usedcores=0)]]))
+                return real(infos, node, expected_rev)
+
+            s.pods.add_pods_group = group
+            late = pkg.pod("late", "ulate", mem="1000")
+            kube.create_pod(late)
+            assert s.filter_many([(late, names)])[0].node
+            texts[side] = (expo.render(tcluster.ClusterCollector(s)
+                                       .collect()) if side == "port"
+                           else jax_text(jcluster.ClusterCollector(s)))
+    finally:
+        for s in built:
+            s.close()
+    return texts
+
+
+def test_the_batch_families_after_real_cycles(monkeypatch):
+    """The seven families after real cycles: each one's name, type and
+    help, and its samples' names and labels (the size and latency bucket
+    bounds, the fallback reasons, the worker label) equal JAX's; the
+    sizes, the fallbacks, the queue depth, the live workers and restarts
+    and each worker's evaluation count by value (the latencies are
+    timings)."""
+    texts = batch_texts(monkeypatch)
+    got, want = families(texts["port"]), families(texts["jax"])
+    for name in BATCH_FAMILIES:
+        assert (got[name].documentation, got[name].type) == \
+            (want[name].documentation, want[name].type), name
+        if name in ("vtpu_filter_batch_cycle_seconds",
+                    "vtpu_solve_worker_eval_seconds"):
+            assert hist_shape(got[name]) == hist_shape(want[name]), name
+        else:
+            assert samples(got[name]) == samples(want[name]), name
+    values = {(s.name, tuple(sorted(s.labels.items()))): s.value
+              for n in BATCH_FAMILIES for s in got[n].samples}
+    assert values[("vtpu_filter_batch_size_count", ())] == 4
+    assert values[("vtpu_filter_batch_size_sum", ())] == 14
+    assert values[("vtpu_filter_batch_size_bucket", (("le", "4.0"),))] == 2
+    assert values[("vtpu_filter_batch_cycle_seconds_count", ())] == 4
+    assert values[("vtpu_filter_batch_fallbacks_total",
+                   (("reason", "no-fit"),))] == 1
+    assert values[("vtpu_filter_batch_fallbacks_total",
+                   (("reason", "commit-conflict"),))] == 1
+    assert values[("vtpu_pending_queue_depth", ())] == 0
+    assert values[("vtpu_solve_workers", ())] == 1
+    assert values[("vtpu_solve_worker_restarts_total", ())] == 0
+    assert values[("vtpu_solve_worker_eval_seconds_count",
+                   (("worker", "0"),))] == 3
+    assert not set(BATCH_FAMILIES) & set(tcluster.A5_FAMILIES)
 
 
 def test_every_a5_family_is_listed_with_the_item_that_fills_it(monkeypatch):

@@ -11,11 +11,16 @@ duration.  The registry is process-global in each package: ``fresh`` gives
 each case a new registry on both (its GC watcher installed, and
 uninstalled at the end).
 
-Left out, and why: the batched-cycle cases (the cycle's phase
-decomposition, the columnar refresh, the drain age and the phases' sum)
-come with the port's batch engine; the debugz journal's pagination and
-the tombstone prune's threshold belong to ``util/debugz.py`` and the
-informer, not to the observatory.
+The batched-cycle cases are here too: a cycle's phase decomposition
+(snapshot, columnar-rebuild then columnar-refresh, vector-eval, solve,
+group-commit, fallback, cycle-total, the drain and the tick journal), the
+drain age's reset, the drain left disjoint from inline decisions, a
+cycle's phases summing to its total, and ``/perfz``'s batch counters and
+solve-worker section against the JAX document.
+
+Left out, and why: the debugz journal's pagination and the tombstone
+prune's threshold belong to ``util/debugz.py`` and the informer, not to
+the observatory.
 """
 
 import gc
@@ -595,3 +600,162 @@ def test_the_families_read_as_the_jax_collector(fresh, built, monkeypatch,
         if filters:
             assert 'vtpu_lock_hold_seconds_count{lock="pods"}' in text
     assert got["port"] == got["jax"]
+
+
+# -- the batched cycles --------------------------------------------------------------------------
+def batch_cycle(side, built, n=6):
+    pkg = PKGS[side]
+    kube, s, names = make_env(pkg, built, n_nodes=2, filter_batch=True)
+    items = []
+    for i in range(n):
+        p = pkg.pod(f"p{i}", f"u{i}", mem="500")
+        kube.create_pod(p)
+        items.append((p, names))
+    assert all(r.node for r in s.filter_many(items))
+    return s, names
+
+
+def cycle_phases(side, built):
+    s, names = batch_cycle(side, built)
+    doc = s.export_perf()
+    first = {n: doc["phases"][n]["count"] for n in (
+        "cycle-total", "snapshot", "columnar-rebuild", "vector-eval",
+        "solve", "group-commit", "drain")}
+    ticks = [t for t in doc["slow_ticks"] if t["name"] == "batch-cycle"]
+    pkg = PKGS[side]
+    p = pkg.pod("w", "wu", mem="500")
+    s.client.create_pod(p)
+    assert s.filter_many([(p, names)])[0].node
+    doc = s.export_perf()
+    return dict(
+        first=first, tick_pods=ticks[0]["pods"],
+        tick_phases=sorted(ticks[0]["phases_ms"]),
+        informer=doc["phases"]["informer-apply"]["count"] >= 1,
+        writes=doc["phases"]["decision-write"]["count"],
+        rebuilds=doc["phases"]["columnar-rebuild"]["count"],
+        refreshes=doc["phases"]["columnar-refresh"]["count"],
+        counters={k: doc["counters"][k] for k in (
+            "batch_cycles", "batch_fallbacks", "columnar_full_rebuilds",
+            "class_evals_full", "class_rows_patched")})
+
+
+def test_batch_cycle_phase_decomposition(fresh, built):
+    """Six pods in one cycle, then one more: each phase of the cycle
+    recorded once a cycle, the first a full columnar rebuild and the
+    second an incremental refresh, the tick journal holding the cycle's
+    split, one decision-write sample a flush; equal on both."""
+    got = both(lambda side: cycle_phases(side, built))
+    assert got["first"] == {"cycle-total": 1, "snapshot": 1,
+                            "columnar-rebuild": 1, "vector-eval": 1,
+                            "solve": 1, "group-commit": 1, "drain": 1}
+    assert got["tick_pods"] == 6
+    assert got["tick_phases"] == ["columnar-rebuild", "group-commit",
+                                  "snapshot", "solve", "vector-eval"]
+    assert got["informer"] and got["writes"] == 2
+    assert (got["rebuilds"], got["refreshes"]) == (1, 1)
+    assert got["counters"]["batch_cycles"] == 2
+    assert got["counters"]["columnar_full_rebuilds"] == 1
+
+
+def fallback_phase(side, built):
+    pkg = PKGS[side]
+    kube, s, names = make_env(pkg, built, n_nodes=1, filter_batch=True)
+    fat = pkg.pod("fat", "uf", mem="999999")
+    kube.create_pod(fat)
+    assert s.filter_many([(fat, names)])[0].node is None
+    doc = s.export_perf()
+    [tick] = [t for t in doc["slow_ticks"] if t["name"] == "batch-cycle"]
+    return dict(fallback=doc["phases"]["fallback"]["count"],
+                in_tick="fallback" in tick["phases_ms"],
+                tick_fallbacks=tick["fallbacks"],
+                counted=doc["counters"]["batch_fallbacks"])
+
+
+def test_the_fallback_phase_is_recorded(fresh, built):
+    assert both(lambda side: fallback_phase(side, built)) == dict(
+        fallback=1, in_tick=True, tick_fallbacks=1, counted=1)
+
+
+def drain_age(side, built):
+    pkg = PKGS[side]
+    kube, s, names = make_env(pkg, built, n_nodes=2, filter_batch=True)
+    reg = MODS[side].registry()
+    reg.set_gauge("drain_age_s", 4.2)
+    p = pkg.pod("da1", "dau1", mem="500")
+    kube.create_pod(p)
+    assert s.filter(p, names).node
+    gate = reg.gauge("drain_age_s")
+    reg.set_gauge("drain_age_s", 4.2)
+    p2 = pkg.pod("da2", "dau2", mem="500")
+    kube.create_pod(p2)
+    assert s.filter_many([(p2, names)])[0].node
+    return gate, reg.gauge("drain_age_s"), reg.gauge("pending_queue_depth")
+
+
+def test_drain_age_resets_when_queue_drains(fresh, built):
+    """The drain age is a current wait: the gate's leader zeroes it when
+    its queue drains, and filter_many once its backlog is decided."""
+    assert both(lambda side: drain_age(side, built)) == (0.0, 0.0, 0)
+
+
+def disjoint_drain(side, built):
+    pkg = PKGS[side]
+    res = pkg.res
+    kube, s, names = make_env(pkg, built, n_nodes=2, filter_batch=True)
+    multi = {"metadata": {"name": "mc", "namespace": "default",
+                          "uid": "mcu", "annotations": {}},
+             "spec": {"containers": [
+                 {"name": c, "resources": {"limits": {
+                     res: "1", f"{res}mem": "500"}}} for c in ("a", "b")]}}
+    single = pkg.pod("sg", "usg", mem="500")
+    for p in (multi, single):
+        kube.create_pod(p)
+    real = s.filter
+
+    def slow_filter(pod, node_names):
+        time.sleep(0.05)
+        return real(pod, node_names)
+
+    s.filter = slow_filter
+    assert all(r.node for r in s.filter_many([(multi, names),
+                                              (single, names)]))
+    drain = MODS[side].registry().phase("drain").window()
+    return drain["n"], drain["max_s"] < 0.05
+
+
+def test_drain_excludes_inline_per_pod_decisions(fresh, built):
+    """A multi-container pod decided inline in a drain records its own
+    phases: its (slowed) time stays out of the drain ring."""
+    assert both(lambda side: disjoint_drain(side, built)) == (1, True)
+
+
+def phase_sums(side, built):
+    s, _names = batch_cycle(side, built, n=12)
+    ticks = [t for t in MODS[side].registry().slow_ticks(top=16)
+             if t["name"] == "batch-cycle"]
+    return len(ticks), all(sum(t["phases_ms"].values())
+                           <= t["total_ms"] + 0.5 for t in ticks)
+
+
+def test_batch_cycle_phases_sum_to_total(fresh, built):
+    """A cycle's phase splits are disjoint: they sum to its total."""
+    assert both(lambda side: phase_sums(side, built)) == (1, True)
+
+
+def batch_perf_doc(side, built):
+    s, _names = batch_cycle(side, built, n=4)
+    doc = s.export_perf()
+    return dict(keys=sorted(doc), counters=doc["counters"],
+                workers=doc["solve_workers"],
+                pending=doc["queue"]["pending_depth"],
+                phases=sorted(n for n in doc["phases"] if n != "gc-pause"))
+
+
+def test_export_perf_batch_sections_are_the_jax_ones(fresh, built):
+    """``/perfz`` after one cycle: the batch counters from the live
+    engine and the solve-worker section (the pool off) equal JAX's."""
+    got = both(lambda side: batch_perf_doc(side, built))
+    assert got["counters"]["batch_cycles"] == 1
+    assert got["counters"]["class_evals_full"] == 1
+    assert got["pending"] == 0
+    assert got["workers"]["configured"] == 0

@@ -408,6 +408,22 @@ def test_enforcement_imports_torch_only_inside_functions(path):
         assert not inner & {"torch", "numpy", *FORBIDDEN}, sorted(inner)
 
 
+def test_a_solve_worker_imports_no_torch():
+    """A solve worker's import chain in a fresh interpreter (``spawn``
+    re-imports the parent's ``__main__`` and the worker module, which
+    imports the scheduler's batch module and the shared columns): no
+    torch and no jax in ``sys.modules``."""
+    code = ("import sys\n"
+            "import k8s_vgpu_scheduler_tpu_torch.parallelcp.workers\n"
+            "from k8s_vgpu_scheduler_tpu_torch.scheduler import batch\n"
+            "assert batch.ColumnarFleet().columns\n"
+            "assert 'torch' not in sys.modules, 'torch imported'\n"
+            "assert 'jax' not in sys.modules, 'jax imported'\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
 def test_enforcement_import_loads_no_torch():
     code = ("import sys\n"
             "import k8s_vgpu_scheduler_tpu_torch.shim\n"

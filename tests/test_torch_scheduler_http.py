@@ -395,6 +395,92 @@ def test_scheduler_flags_build_the_config():
     assert build_config(parse_args([])) == TConfig()
 
 
+BATCH_ARGVS = {
+    "defaults": [],
+    "batched": ["--filter-batch", "--batch-tick-ms", "7.5", "--batch-max",
+                "64", "--batch-solver", "fifo", "--solve-workers", "3"],
+    "settings": ["--gil-switch-interval", "0.02", "--gc-threshold0",
+                 "5000", "--trace-capacity", "128"],
+    "interpreter": ["--gil-switch-interval", "0", "--gc-threshold0", "0"],
+}
+BATCH_FLAGS = ("filter_batch", "batch_tick_ms", "batch_max", "batch_solver",
+               "solve_workers", "gil_switch_interval", "gc_threshold0",
+               "trace_capacity")
+
+
+@pytest.mark.parametrize("name", sorted(BATCH_ARGVS))
+def test_the_batch_flags_and_process_settings_parse_as_jax(name):
+    """The five batch flags and the three process settings: the port's
+    ``parse_args`` reads each argv as the JAX entry point's does, and its
+    config carries the batch fields as the JAX main builds them."""
+    from k8s_vgpu_scheduler_tpu.cmd import scheduler as jcmd
+
+    argv = BATCH_ARGVS[name]
+    mine, ref = parse_args(argv), jcmd.parse_args(argv)
+    assert {f: getattr(mine, f) for f in BATCH_FLAGS} == \
+        {f: getattr(ref, f) for f in BATCH_FLAGS}
+    cfg = build_config(mine)
+    assert (cfg.filter_batch, cfg.batch_tick_ms, cfg.batch_max,
+            cfg.batch_solver, cfg.solve_workers) == (
+        ref.filter_batch, ref.batch_tick_ms, ref.batch_max,
+        ref.batch_solver, ref.solve_workers)
+    if name == "defaults":
+        assert (cfg.filter_batch, cfg.batch_tick_ms, cfg.batch_max,
+                cfg.batch_solver, cfg.solve_workers) == \
+            (False, 2.0, 256, "regret", 0)
+        assert (mine.gil_switch_interval, mine.gc_threshold0,
+                mine.trace_capacity) == (0.05, 0, 2048)
+
+
+SETTINGS_PROBE = """
+import gc, json, sys
+import {module} as m
+from {package}.util import trace
+
+class Stop(Exception):
+    pass
+
+def stop(*a, **k):
+    raise Stop
+
+m.DryRunKube = stop
+try:
+    m.main({argv!r} + ["--fake-kube"])
+except Stop:
+    pass
+print(json.dumps([round(sys.getswitchinterval(), 6), gc.get_threshold()[0],
+                  trace._GLOBAL._spans.maxlen,
+                  trace._GLOBAL._events.maxlen]))
+"""
+
+
+@pytest.mark.parametrize("name", sorted(BATCH_ARGVS))
+def test_main_applies_the_process_settings_as_jax(name):
+    """Each entry point's ``main`` in a fresh interpreter, stopped where
+    it would make its apiserver client: the GIL switch interval, the gen-0
+    GC threshold and the tracer's rings are the same after both."""
+    got = {}
+    for module, package in (
+            ("k8s_vgpu_scheduler_tpu_torch.cmd.scheduler",
+             "k8s_vgpu_scheduler_tpu_torch"),
+            ("k8s_vgpu_scheduler_tpu.cmd.scheduler",
+             "k8s_vgpu_scheduler_tpu")):
+        code = SETTINGS_PROBE.format(module=module, package=package,
+                                     argv=BATCH_ARGVS[name])
+        res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                             capture_output=True, text=True, timeout=120,
+                             env={**os.environ, "JAX_PLATFORMS": "cpu"})
+        assert res.returncode == 0, res.stderr
+        got[package] = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["k8s_vgpu_scheduler_tpu_torch"] == \
+        got["k8s_vgpu_scheduler_tpu"]
+    want = {"defaults": [0.05, 700, 2048, 4096],
+            "batched": [0.05, 700, 2048, 4096],
+            "settings": [0.02, 5000, 128, 256],
+            "interpreter": [0.005, 700, 2048, 4096]}[name]
+    assert got["k8s_vgpu_scheduler_tpu_torch"] == want
+
+
 def test_the_scheduler_binary_serves_and_stops(tmp_path):
     """``vgpu-scheduler --fake-kube``: it lists before it serves, answers
     /healthz and a dry-run /filter, takes a register stream on its unix
@@ -512,6 +598,19 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
         assert h["bind"] == {"Error": ""} and h["filter"]["Error"] == ""
         assert all(h[k] > 0 for k in ("webhook_s", "filter_s", "bind_s",
                                       "allocate_s"))
+    # The racing pairs on the one card: over HTTP from two threads, then
+    # in one batched cycle whose loser went through the per-pod fallback.
+    race = na["race"]
+    assert race["winner_run"]["kind"] == "standin"
+    assert race["refused"]["FailedNodes"][chip_smoke.PLUGIN_NODE] \
+        .startswith(chip_smoke.RACE_REASON)
+    batched = race["batched"]
+    assert batched["reason"].startswith(chip_smoke.RACE_REASON)
+    assert batched["fallbacks"] == {"no-fit": 1}
+    assert batched["winner_run"]["grant_mib"] == batched["mib"]
+    assert {batched["winner"], batched["loser"]} == {
+        n for n, _ in chip_smoke.RACE_BATCH_PODS}
+    assert "group-commit" in batched["tick_phases_ms"]
     train = na["pods"]["train"]["pod"]["spec"]
     assert [v["name"] for v in train["volumes"]] == ["vtpu-podinfo"]
     assert "volumes" not in na["pods"]["serve"]["pod"]["spec"]
