@@ -80,8 +80,10 @@ while the capacity simulator ``vgpu-simulate`` replays the extender's
 ``/fleetz`` (a pod of the card's remaining MiB fits, one of a MiB more
 pends) and a 968-pod job mix on 128 nodes of eight H100s (no card
 overbooked, metering within 5%, the idle pods named), and its capacity
-section replays the three named arrival scenarios and the example (each
-report's sha256 the CPU's, the replica_loss what-if refused); in the
+section replays the three named arrival scenarios and the example, and
+the example with a replica_loss what-if, and its ha section the HA
+example (each report's sha256 the CPU's) and a replica kill on the 128
+nodes (its verdict passing); in the
 quota leg the extender's capacity forecast (``/capacityz``, the seven
 ``vtpu_capacity_*`` families, vgpu-report's section) is held to the
 capacity queues at each step;
@@ -351,6 +353,29 @@ RACE_REASON = "insufficient-hbm"
 RACE_LAYERS = 4
 RACE_TOKENS = 512
 RACE_WIDTH = 4096
+# The replica failover (ha_leg, in node_agent after race_leg): two of the
+# port's extenders, HA_REPLICAS, each a ControlPlane with its own register
+# stream from the card's NVML inventory, on one FakeKube, coordinating
+# through the shard map at the leg's timings (HA_TIMING: replica TTL 1 s,
+# 1 grace beat, a 0.25 s tick, a 0.5 s stale TTL, a 1.5 s adoption
+# grace; the flags' defaults stay the JAX package's; with no REST client
+# in the loop, the 30 s bound on a client's request that the defaults
+# keep above death detection plus the adoption grace does not apply).
+# The real node's lease beats on both (NodeBeats).  Pods A and B each ask
+# RACE_OVER_MIB past half of what /fleetz leaves, so the two never fit
+# together; C asks HA_PROBE_MIB (it probes the commit fence).  Each step
+# waits HA_WAIT_S at most; a pod's child holds its weights on the card
+# until its release, HA_HOLD_S at most; HA_CAS_WRITES decision writes
+# time the fenced CAS against the unfenced per-pod write.
+HA_REPLICAS = ("replica-0", "replica-1")
+HA_TIMING = dict(shard_ttl_s=1.0, shard_grace_beats=1, shard_tick_s=0.25,
+                 shard_stale_ttl_s=0.5, shard_adoption_grace_s=1.5)
+HA_PODS = {"A": ("ha-a", "uidHA"), "B": ("ha-b", "uidHB"),
+           "C": ("ha-c", "uidHC")}
+HA_PROBE_MIB = 1024
+HA_WAIT_S = 15.0
+HA_HOLD_S = 120.0
+HA_CAS_WRITES = 20
 NODE_AGENT_POLLS = 4
 NODE_AGENT_SMI_S = 0.1
 NODE_AGENT_S = 300
@@ -629,8 +654,8 @@ SIM_TIMEOUT_S = 300.0
 # benchmarks/scenarios.py ARRIVAL_SCENARIOS, by name, in the port's names)
 # and CAPACITY_EXAMPLE on their fleet, each `vgpu-simulate --json` output
 # held to the sha256 tests/test_torch_capacity.py pins on the CPU (the
-# replay has no RNG and no clock), and the example with its replica_loss
-# what-if, which the port refuses (exit 2).
+# replay has no RNG and no clock), and the example with the JAX example's
+# replica_loss what-if.
 CAPACITY_SCENARIOS = ROOT / "examples" / "vgpu-capacity-scenarios.json"
 CAPACITY_EXAMPLE = ROOT / "examples" / "vgpu-workload-capacity.json"
 CAPACITY_SHA256 = {
@@ -656,6 +681,29 @@ CAPACITY_SHA256_OPTIMISTIC = {
         "af75b55addf62ab8bafa0331d7361a48016ed23938859f8d90e4f2fba9a10ca3",
     "example":
         "af75b55addf62ab8bafa0331d7361a48016ed23938859f8d90e4f2fba9a10ca3",
+}
+# The active-replica runs of the simulator beside the same pods (shard/:
+# the ha section and the capacity section's replica_loss, on the virtual
+# clock): HA_EXAMPLE on HA_EXAMPLE_FLEET and the capacity example with
+# replica_loss, each `vgpu-simulate --json` held to the sha256
+# tests/test_torch_simulate.py and tests/test_torch_capacity.py pin on the
+# CPU (the default decision path, which the card's run takes); then
+# HA_SCALE on SIM_SCALE's fleet (128 nodes of eight H100s): three
+# replicas, a seeded kill mid-storm of whole-node pods, so that the pods
+# offered while the victim's nodes are orphaned pend; its verdict must
+# pass, and its seconds and sha256 are kept.
+HA_EXAMPLE = ROOT / "examples" / "vgpu-workload-ha.json"
+HA_EXAMPLE_FLEET = ("--nodes", "6", "--chips", "4", "--hbm", "16384",
+                    "--mesh", "4x1")
+HA_SCALE = {"ha": {"replicas": 3, "seed": 11, "kill_after": 64,
+                   "storm": {"name": "storm", "gpu": 8, "gpumem": 81079,
+                             "count": 128},
+                   "storm_interval_s": 0.25, "settle_s": 120}}
+HA_SHA256 = {
+    "example":
+        "e1ae301ff7f41bd35e51b6189caa9d7dfd6c85d94ebdfa8e052b5a652f795b5d",
+    "replica_loss":
+        "144d331505cffe9916d13db3a7f2150e152f52706c46622e9c13ce01de391720",
 }
 # The Filter storm, beside phase_preempt's pods (FleetView starts it with
 # the scale leg): --enforce-child filter_storm, the port's extender over
@@ -2794,6 +2842,30 @@ def child_race_winner(torch):
                 interposer=interposer_stats())
 
 
+def child_ha_pod(torch):
+    """A pod of the replica failover (node_agent's ha_leg), under the env of
+    its Allocate answer (the interposer preloaded): the race winner's bf16
+    forward, then its weights and output held on the card (a ``HELD``
+    line with its reading) until the file HA_RELEASE names exists."""
+    reading = child_race_winner(torch)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    held = [torch.randn(RACE_WIDTH, RACE_WIDTH, device="cuda",
+                        dtype=torch.bfloat16, generator=gen)
+            for _ in range(RACE_LAYERS)]
+    torch.cuda.synchronize()
+    reading["held_mib"] = torch.cuda.memory_allocated() // MIB
+    print("HELD " + json.dumps(reading), flush=True)
+    release = Path(os.environ["HA_RELEASE"])
+    t0 = time.monotonic()
+    while not release.exists():
+        check(time.monotonic() - t0 < HA_HOLD_S,
+              f"held {HA_HOLD_S} s without a release")
+        time.sleep(0.02)
+    reading["held_s"] = time.monotonic() - t0
+    del held
+    return reading
+
+
 def child_gang_member(torch):
     """One member of phase_preempt's gang (GangLeg), under the env of its
     Allocate answer (the interposer preloaded): it joins the gang's
@@ -3135,6 +3207,7 @@ ENFORCE_CHILDREN = {"memory_cap": child_memory_cap,
                     "preempt": child_preempt,
                     "quota_pod": child_quota_pod,
                     "race_winner": child_race_winner,
+                    "ha_pod": child_ha_pod,
                     "gang_member": child_gang_member,
                     "elastic_member": child_elastic_member,
                     "workloads_bare": child_workloads_bare}
@@ -4402,6 +4475,374 @@ def batch_race(plane, kube, plugin, tmp: Path, uuid: str,
                 s=time.monotonic() - t_leg)
 
 
+class HaPod:
+    """One pod of the replica failover on the card: bound over ``base``'s
+    /bind, allocated by ``plugin`` and run as child_ha_pod under its
+    Allocate answer, in a thread (its reading once it holds, ``held``);
+    ``release`` lets it exit and waits for it.  On the CPU rehearsal
+    (DEFRAG_TRAINER=standin) no process runs: a stand-in reading."""
+
+    def __init__(self, base: str, kube, plugin, tmp: Path, name: str,
+                 label: str) -> None:
+        self.label, self.name = label, name
+        pod = kube.get_pod("default", name)
+        meta = pod["metadata"]
+        status, bound = http(f"{base}/bind", {
+            "PodName": meta["name"], "PodNamespace": meta["namespace"],
+            "PodUID": meta["uid"], "Node": PLUGIN_NODE})
+        check(status == 200 and bound == {"Error": ""},
+              f"{name}: Bind answered {status} {bound}")
+        [resp] = plugin.allocate(1)
+        self.grant_mib = int(
+            resp.envs["CUDA_DEVICE_MEMORY_LIMIT_0"].rstrip("m"))
+        self.started = time.monotonic()
+        self.child, self.thread, self.reading = None, None, None
+        self.release_file = tmp / f"{label}.release"
+        self._held = threading.Event()
+        self._error = []
+        if os.environ.get("DEFRAG_TRAINER") == "standin":
+            self.reading = dict(kind="standin", grant_mib=self.grant_mib,
+                                forward_s=0.0)
+            self._held.set()
+            return
+        env = kubelet_env(kube.get_pod("default", name),
+                          dataclasses.asdict(resp), tmp / f"{label}_volumes")
+        region = env.pop("CUDA_DEVICE_MEMORY_SHARED_CACHE", None)
+        env["HA_RELEASE"] = str(self.release_file)
+        self.child = EnforceChild("ha_pod", tmp, label=label, region=region,
+                                  **env)
+
+        def on_line(line: str) -> None:
+            if line.startswith("HELD "):
+                self.reading = dict(json.loads(line[len("HELD "):]),
+                                    kind="card")
+                self._held.set()
+
+        def run() -> None:
+            try:
+                self.child.run({}, section="ha", on_line=on_line)
+            except BaseException as exc:  # noqa: BLE001 — held() reports it
+                self._error.append(exc)
+            finally:
+                self._held.set()
+
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+
+    def held(self) -> dict:
+        """Wait until its forward ran and it holds its weights."""
+        check(self._held.wait(HA_HOLD_S), f"{self.name} never held")
+        check(not self._error, f"{self.name}: {self._error}")
+        check(self.reading is not None
+              and self.reading["grant_mib"] == self.grant_mib,
+              f"{self.name} ran under {self.reading}, granted "
+              f"{self.grant_mib} MiB")
+        return self.reading
+
+    def release(self) -> None:
+        self.release_file.write_text("")
+        if self.thread is not None:
+            self.thread.join(HA_HOLD_S)
+            check(not self.thread.is_alive(), f"{self.name} never exited")
+            check(not self._error, f"{self.name}: {self._error}")
+            self.reading["child_s"] = time.monotonic() - self.started
+
+    def stop(self) -> None:
+        if self.child is not None:
+            self.child.stop()
+
+
+def ha_filter(base: str, pod: dict, replica: str, what: str, filters: list):
+    """/filter of ``pod`` on ``replica`` at ``base``, offering the real
+    node; its milliseconds go into ``filters``."""
+    reply, seconds = filter_pod(base, pod, PLUGIN_NODE)
+    filters.append(dict(replica=replica, pod=pod["metadata"]["name"],
+                        what=what, ms=seconds * 1e3))
+    return reply
+
+
+def ha_metrics(server) -> dict:
+    metrics, _, _, _ = scrape(f"http://127.0.0.1:{server.port}/metrics")
+    return metrics
+
+
+def ha_until(what: str, ok, every: float = 0.01) -> float:
+    """Poll ``ok`` until it holds (HA_WAIT_S at most): the time it did."""
+    t0 = time.monotonic()
+    while not ok():
+        check(time.monotonic() - t0 < HA_WAIT_S,
+              f"{what}: not within {HA_WAIT_S} s")
+        time.sleep(every)
+    return time.monotonic()
+
+
+def ha_leg(backend, inv, cfg, tmp: Path, uuid: str) -> dict:
+    """A replica failover under live pods (ROADMAP A.5 shard): two of the
+    port's extenders (HA_REPLICAS) on one FakeKube, each with its own
+    register stream from ``backend``, coordinate through the shard map at
+    HA_TIMING, as ``vgpu-scheduler --shard-replica`` runs them (a first
+    tick, then the tick thread).  In order:
+
+    1. both reach one epoch E >= 1; the real node is owned by one, O (S
+       the other), and /metrics reads vtpu_shards_owned 1 on O, 0 on S;
+    2. A offered to S is refused ``shard-not-owned: O owns <node> (epoch
+       E)``; offered to O it is placed, stamped with E and O, bound,
+       allocated, and its child (child_ha_pod) runs its forward under its
+       grant and holds its weights;
+    3. O's tick thread stops; past the stale TTL, C offered to O fails
+       closed (``shard-fence: stale-map``), nothing granted, and O's
+       /metrics counts the stale-map CAS failure and the shard-fence
+       write failure once each;
+    4. O is killed (its control plane closed): S bumps to E+1 and adopts
+       the node (S's vtpu_shards_orphaned sampled each tick); B offered
+       to S is refused ``shard-adopting`` during the grace, then
+       ``insufficient-hbm`` (A's grant survived the handoff);
+    5. A deleted and its child gone, B offered to S is placed, stamped
+       with E+1 and S, allocated and run; S reads vtpu_shard_rebalances
+       1.
+
+    The card's memory (smi_card_mib) never reads more than its total.
+    Records the adoption latency (from O's last beat, as S saw it, to the
+    node placeable on S), each Filter's ms on each replica, the fenced
+    CAS's ms against the group-commit writer's per-pod write, the
+    forwards' seconds and the leg's."""
+    from k8s_vgpu_scheduler_tpu_torch.deviceplugin import GpuDevicePlugin
+    from k8s_vgpu_scheduler_tpu_torch.k8s import FakeKube
+    from k8s_vgpu_scheduler_tpu_torch.scheduler.metrics import \
+        start_metrics_server
+    from k8s_vgpu_scheduler_tpu_torch.shard import commit as shard_commit
+
+    t_leg = time.monotonic()
+    root = tmp / "ha"
+    root.mkdir()
+    kube = FakeKube()
+    kube.add_node({"metadata": {"name": PLUGIN_NODE, "annotations": {}}})
+    [card] = [c for c in inv.chips if c.uuid == uuid]
+    total_mib = card.hbm_mib
+    base_mib = smi_card_mib()
+    card_mib = [base_mib]
+    planes, servers, beats, pods = {}, {}, {}, {}
+    filters: list = []
+    window = [None, None]
+    out = dict(replicas=list(HA_REPLICAS), timing=HA_TIMING,
+               card_total_mib=total_mib, base_mib=base_mib)
+    try:
+        for name in HA_REPLICAS:
+            rcfg = dataclasses.replace(cfg, shard_replica=name, **HA_TIMING)
+            plane = planes[name] = ControlPlane(kube, backend, rcfg,
+                                                root / f"{name}.sock")
+            shards = plane.scheduler.shards
+            shards.tick()
+            shards.start(rcfg.shard_tick_s)
+            check(shards.enabled and shards.active,
+                  f"{name}: shards enabled {shards.enabled}, active "
+                  f"{shards.active}")
+            servers[name] = start_metrics_server(plane.scheduler, port=0,
+                                                 host="127.0.0.1")
+            beats[name] = NodeBeats(plane)
+        plugin = GpuDevicePlugin(kube, inv, dataclasses.replace(
+            cfg, topology_policy=PLUGIN_POLICY), socket_dir=str(root))
+
+        # 1. Converge.
+        sh = {n: planes[n].scheduler.shards for n in HA_REPLICAS}
+
+        def converged() -> bool:
+            maps = [sh[n].map for n in HA_REPLICAS]
+            if not all(maps) or len({m.epoch for m in maps}) != 1 \
+                    or set(maps[0].replicas) != set(HA_REPLICAS):
+                return False
+            owner = maps[0].owner_of(PLUGIN_NODE)
+            return sh[owner].reject_reason(PLUGIN_NODE) is None
+
+        out["converge_s"] = ha_until("the shard map's convergence",
+                                     converged) - t_leg
+        epoch = sh[HA_REPLICAS[0]].epoch()
+        owner = sh[HA_REPLICAS[0]].map.owner_of(PLUGIN_NODE)
+        [survivor] = [n for n in HA_REPLICAS if n != owner]
+        O, S = planes[owner], planes[survivor]
+        check(epoch >= 1 and all(sh[n].active and sh[n].epoch() == epoch
+                                 for n in HA_REPLICAS),
+              f"epochs {[sh[n].epoch() for n in HA_REPLICAS]}")
+        for name, owned in ((owner, 1), (survivor, 0)):
+            m = ha_metrics(servers[name])
+            check(metric(m, "vtpu_shards_owned") == owned
+                  and metric(m, "vtpu_shard_epoch") == epoch,
+                  f"{name}'s /metrics: owned "
+                  f"{metric(m, 'vtpu_shards_owned')}, epoch "
+                  f"{metric(m, 'vtpu_shard_epoch')}; want {owned}, {epoch}")
+        out.update(epoch=epoch, owner=owner, survivor=survivor)
+
+        # 2. Gate and place A.
+        before = fleetz_card(O.base, uuid)
+        mib = (before["devmem"] - before["used_mib"]) // 2 + RACE_OVER_MIB
+        created = {}
+        for key, (name, uid) in HA_PODS.items():
+            created[key], _ = admit_pod(O.base, kube, user_pod(
+                name, uid, HA_PROBE_MIB if key == "C" else mib, 0))
+        refused = ha_filter(S.base, created["A"], survivor, "gate", filters)
+        want = (f"shard-not-owned: {owner} owns {PLUGIN_NODE} "
+                f"(epoch {epoch})")
+        check(refused["NodeNames"] == []
+              and refused["FailedNodes"] == {PLUGIN_NODE: want},
+              f"A on {survivor} answered {refused}")
+        placed = ha_filter(O.base, created["A"], owner, "place", filters)
+        check(placed["NodeNames"] == [PLUGIN_NODE] and not placed["Error"],
+              f"A on {owner} answered {placed}")
+        anns = kube.get_pod("default", HA_PODS["A"][0])["metadata"][
+            "annotations"]
+        check(anns.get(shard_commit.SHARD_EPOCH_ANNOTATION) == str(epoch)
+              and anns.get(shard_commit.SHARD_OWNER_ANNOTATION) == owner,
+              f"A's stamps {anns}")
+        window[0] = time.monotonic()
+        pods["A"] = HaPod(O.base, kube, plugin, root, HA_PODS["A"][0],
+                          "ha_a")
+        check(pods["A"].grant_mib == mib, f"A granted "
+              f"{pods['A'].grant_mib} MiB, asked {mib}")
+
+        # 3. The stale-map fence.
+        sh[owner].stop()
+        sh[owner]._thread.join(HA_WAIT_S)
+        check(not sh[owner]._thread.is_alive(), f"{owner}'s tick thread")
+        time.sleep(HA_TIMING["shard_stale_ttl_s"] + 0.1)
+        fenced = ha_filter(O.base, created["C"], owner, "fence", filters)
+        c_uid = HA_PODS["C"][1]
+        c_anns = kube.get_pod("default", HA_PODS["C"][0])["metadata"][
+            "annotations"]
+        check(fenced["NodeNames"] == []
+              and fenced["Error"].startswith("shard-fence: stale-map")
+              and O.scheduler.pods.get(c_uid) is None
+              and S.scheduler.pods.get(c_uid) is None
+              and not c_anns.get("vtpu.dev/assigned-node"),
+              f"C on the stale {owner} answered {fenced}")
+        m = ha_metrics(servers[owner])
+        cas = metric(m, "vtpu_commit_cas_failures_total", reason="stale-map")
+        dwf = metric(m, "vtpu_decision_write_failures_total",
+                     reason="shard-fence")
+        check(cas == 1 and dwf == 1, f"{owner}'s /metrics: stale-map CAS "
+              f"failures {cas}, shard-fence write failures {dwf}")
+        out["fence"] = dict(error=fenced["Error"], cas_failures=cas,
+                            write_failures=dwf)
+
+        # 4. Kill O.
+        age = sh[survivor].leases.age_of(owner)
+        check(age is not None, f"{survivor} never saw {owner}'s beats")
+        last_beat = time.monotonic() - age
+        beats.pop(owner).stop()
+        kube.unwatch_pods(O.scheduler.on_pod_event)
+        O.close()
+        servers.pop(owner).stop()
+        t_kill = time.monotonic()
+        orphaned, tick_at = [], 0.0
+        bump = adopting = None
+        while True:
+            now = time.monotonic()
+            check(now - t_kill < HA_WAIT_S,
+                  f"{survivor} did not adopt {PLUGIN_NODE} within "
+                  f"{HA_WAIT_S} s of {owner}'s kill")
+            if now - tick_at >= HA_TIMING["shard_tick_s"]:
+                tick_at = now
+                orphaned.append(metric(ha_metrics(servers[survivor]),
+                                       "vtpu_shards_orphaned"))
+            if bump is None and sh[survivor].epoch() == epoch + 1 \
+                    and sh[survivor].owns(PLUGIN_NODE):
+                bump = time.monotonic()
+                adopting = ha_filter(S.base, created["B"], survivor,
+                                     "adopting", filters)
+            if bump is not None and sh[survivor].placeable(PLUGIN_NODE):
+                placeable = time.monotonic()
+                break
+            time.sleep(0.01)
+        reason = adopting["FailedNodes"].get(PLUGIN_NODE, "")
+        check(adopting["NodeNames"] == []
+              and reason.startswith("shard-adopting: " + PLUGIN_NODE),
+              f"B on the adopting {survivor} answered {adopting}")
+        full = ha_filter(S.base, created["B"], survivor, "full", filters)
+        reason = full["FailedNodes"].get(PLUGIN_NODE, "")
+        check(full["NodeNames"] == [] and reason.startswith(RACE_REASON),
+              f"B beside A's surviving grant answered {full}")
+        check(sh[survivor].rebalancer.adopted_total == 1,
+              f"{survivor} adopted {sh[survivor].rebalancer.adopted_total}")
+        out["adoption"] = dict(
+            latency_s=placeable - last_beat,
+            bump_after_kill_s=bump - t_kill,
+            last_beat_before_kill_s=t_kill - last_beat,
+            grace_s=placeable - bump, orphaned_max=max(orphaned),
+            orphaned_samples=len(orphaned), adopting_reason=adopting[
+                "FailedNodes"][PLUGIN_NODE], full_reason=reason)
+        out["a_run"] = pods["A"].held()
+        card_mib.append(smi_card_mib())
+
+        # 5. Place B.
+        kube.delete_pod("default", HA_PODS["A"][0])
+        pods["A"].release()
+        back = ha_until("the card back after A", lambda: card_mib.append(
+            smi_card_mib()) or card_mib[-1] <= base_mib + TOL_RETURN_MIB)
+        out["a_back_s"] = back - t_kill
+        placed = ha_filter(S.base, created["B"], survivor, "place", filters)
+        check(placed["NodeNames"] == [PLUGIN_NODE] and not placed["Error"],
+              f"B on {survivor} answered {placed}")
+        anns = kube.get_pod("default", HA_PODS["B"][0])["metadata"][
+            "annotations"]
+        check(anns.get(shard_commit.SHARD_EPOCH_ANNOTATION)
+              == str(epoch + 1)
+              and anns.get(shard_commit.SHARD_OWNER_ANNOTATION) == survivor,
+              f"B's stamps {anns}")
+        pods["B"] = HaPod(S.base, kube, plugin, root, HA_PODS["B"][0],
+                          "ha_b")
+        out["b_run"] = pods["B"].held()
+        card_mib.append(smi_card_mib())
+        m = ha_metrics(servers[survivor])
+        check(metric(m, "vtpu_shard_rebalances_total") == 1
+              and metric(m, "vtpu_shard_epoch") == epoch + 1
+              and metric(m, "vtpu_shards_owned") == 1,
+              f"{survivor}'s /metrics: rebalances "
+              f"{metric(m, 'vtpu_shard_rebalances_total')}, epoch "
+              f"{metric(m, 'vtpu_shard_epoch')}, owned "
+              f"{metric(m, 'vtpu_shards_owned')}")
+        kube.delete_pod("default", HA_PODS["B"][0])
+        pods["B"].release()
+        window[1] = ha_until("the card back after B", lambda: card_mib.append(
+            smi_card_mib()) or card_mib[-1] <= base_mib + TOL_RETURN_MIB)
+        check(max(card_mib) <= total_mib, f"the card read {max(card_mib)} "
+              f"MiB, over its {total_mib}")
+
+        # The fenced CAS against the group-commit writer's per-pod write,
+        # on S (probe pods with no decision).
+        cas_ms, write_ms = [], []
+        for i in range(HA_CAS_WRITES):
+            for kind, times in (("cas", cas_ms), ("write", write_ms)):
+                name = f"ha-probe-{kind}-{i}"
+                pod = kube.create_pod(user_pod(name, f"uidHP{kind}{i}", 1, 0))
+                t0 = time.monotonic()
+                if kind == "cas":
+                    err = shard_commit.cas_commit(
+                        kube, sh[survivor], pod, PLUGIN_NODE,
+                        {"vtpu.dev/ha-probe": str(i)})
+                    check(err is None, f"the probe's CAS: {err}")
+                else:
+                    S.scheduler._decisions.write(
+                        "default", name, {"vtpu.dev/ha-probe": str(i)})
+                times.append((time.monotonic() - t0) * 1e3)
+                kube.delete_pod("default", name)
+        out["commit_ms"] = dict(
+            cas_p50=statistics.median(cas_ms), cas_max=max(cas_ms),
+            write_p50=statistics.median(write_ms),
+            write_max=max(write_ms), n=HA_CAS_WRITES)
+    finally:
+        for pod in pods.values():
+            pod.stop()
+        for b in beats.values():
+            b.stop()
+        for server in servers.values():
+            server.stop()
+        for plane in planes.values():
+            plane.close()
+    out.update(filters=filters, card_mib_max=max(card_mib),
+               card_window=[window[0], window[1] or time.monotonic()],
+               s=time.monotonic() - t_leg)
+    return out
+
+
 class ControlPlane:
     """The port's scheduler extender and a node agent's register stream,
     in this process, on ``kube``: a Scheduler (its informer on ``kube``'s
@@ -4471,7 +4912,9 @@ def node_agent() -> int:
     with the real node's fabric (fabric_checks) and MIG state
     (real_mig_checks), the mock HGX node's placements (hgx_leg), the
     mock MIG node's answers (mig_leg) and the daemons of charts/vgpu on
-    these cards (chart_leg), all made once S and T are bound."""
+    these cards (chart_leg), all made once S and T are bound; before them
+    the racing pairs (race_leg) and a failover of two extender replicas
+    under live pods (ha_leg)."""
     sys.path.insert(0, str(ROOT))
     import importlib.metadata
 
@@ -4517,6 +4960,13 @@ def node_agent() -> int:
             socket_dir=str(tmp))
         # The racing pair first: S and T hold all of the card's cores.
         race = race_leg(plane, kube, plugin, tmp, cards[0]["uuid"])
+        # The replica failover, on a FakeKube of its own; the real node
+        # keeps beating this plane's lease through it.
+        beats = NodeBeats(plane)
+        try:
+            ha = ha_leg(backend, inv, cfg, tmp, cards[0]["uuid"])
+        finally:
+            beats.stop()
         pods = {}
         for name, uid, mib, priority in PLUGIN_PODS:
             spec = user_pod(name, uid, mib, priority, cores=CORES_SM_LIMIT)
@@ -4553,7 +5003,7 @@ def node_agent() -> int:
             events_unsupported=events.unsupported if events else None,
             events_error=backend.events_error, pods=pods, fabric=fabric,
             hgx=hgx, mig_real=mig_real, mig=mig, chart=chart,
-            optimistic=optimistic, race=race, packages={})
+            optimistic=optimistic, race=race, ha=ha, packages={})
         for dist in ("grpcio", "protobuf"):
             try:
                 out["packages"][dist] = importlib.metadata.version(dist)
@@ -6897,10 +7347,17 @@ def phase_device_plugin(torch, record, vgpu: Path):
         check(race["winner_run"]["kind"] == "card",
               f"the race's winner ran as a {race['winner_run']['kind']}")
         r_lo, r_hi = (w - t0 for w in race["card_window"])
+        # So do the failover's two pods.
+        ha = na["ha"]
+        check(ha["a_run"]["kind"] == ha["b_run"]["kind"] == "card",
+              f"the failover's pods ran as {ha['a_run']['kind']}, "
+              f"{ha['b_run']['kind']}")
+        h_lo, h_hi = (w - t0 for w in ha["card_window"])
         agent_life = [x for x in life
                       if not lo - 1.0 <= x[0] <= hi
                       and not e_lo - 1.0 <= x[0] <= e_hi
-                      and not r_lo - 1.0 <= x[0] <= r_hi]
+                      and not r_lo - 1.0 <= x[0] <= r_hi
+                      and not h_lo - 1.0 <= x[0] <= h_hi]
         rise = max(m for _, m, _ in agent_life) - base if agent_life \
             else None
         check(len(agent_life) >= 5 and rise <= TOL_CONTEXT_MIB,
@@ -6911,6 +7368,21 @@ def phase_device_plugin(torch, record, vgpu: Path):
         race["card_peak_mib"] = max(
             (m - base for t, m, _ in life if r_lo <= t <= r_hi),
             default=None)
+        ha["card_peak_mib"] = max(
+            (m - base for t, m, _ in life if h_lo <= t <= h_hi),
+            default=None)
+        ha_max = max((m for t, m, _ in life if h_lo <= t <= h_hi),
+                     default=0)
+        check(ha_max <= ha["card_total_mib"] and ha["card_mib_max"]
+              <= ha["card_total_mib"], f"the card read {ha_max} MiB "
+              f"(the leg's own reads: {ha['card_mib_max']}) in the "
+              f"failover, over its {ha['card_total_mib']}")
+        log("replica failover:", json.dumps({k: ha[k] for k in (
+            "epoch", "owner", "survivor", "converge_s", "fence", "adoption",
+            "commit_ms", "filters", "card_peak_mib", "s")}, default=str),
+            "pods:", json.dumps({k: {f: ha[k].get(f) for f in (
+                "grant_mib", "mem_get_info_total", "forward_s", "held_mib",
+                "held_s", "child_s")} for k in ("a_run", "b_run")}))
         log("optimistic Filter on the real node:",
             json.dumps(na["optimistic"]))
         log("racing pair:", json.dumps({k: race[k] for k in (
@@ -7876,28 +8348,33 @@ def simulate_scale_checks(result: dict, workload: dict) -> dict:
 
 
 class CapacitySims:
-    """The simulator's capacity section, host-only, beside phase_preempt's
-    pods (started with FleetView, joined in its ``read``): ``vgpu-simulate
-    --json`` on each named arrival scenario of CAPACITY_SCENARIOS and on
-    CAPACITY_EXAMPLE, one process after another on the scenarios' fleet,
-    then the example with the JAX example's replica_loss what-if.  Each
-    workload is written to ``workdir``; stderr goes to
-    chiprun_out/vgpu_simulate_capacity.log."""
+    """The simulator's capacity and ha sections, host-only, beside
+    phase_preempt's pods (started with FleetView, joined in its ``read``):
+    ``vgpu-simulate --json`` on each named arrival scenario of
+    CAPACITY_SCENARIOS and on CAPACITY_EXAMPLE, one process after another
+    on the scenarios' fleet, then the example with the JAX example's
+    replica_loss what-if, HA_EXAMPLE on HA_EXAMPLE_FLEET and HA_SCALE on
+    SIM_SCALE's fleet.  Each workload is written to ``workdir``; stderr
+    goes to chiprun_out/vgpu_simulate_capacity.log."""
 
     def __init__(self, workdir: Path, env: dict) -> None:
         doc = json.loads(CAPACITY_SCENARIOS.read_text())
         fleet = doc["fleet"]
-        self.argv = ["--nodes", str(fleet["nodes"]), "--chips",
-                     str(fleet["chips"]), "--hbm", str(fleet["hbm"]),
-                     "--mesh", "x".join(str(d) for d in fleet["mesh"]),
-                     "--json"]
+        argv = ["--nodes", str(fleet["nodes"]), "--chips",
+                str(fleet["chips"]), "--hbm", str(fleet["hbm"]),
+                "--mesh", "x".join(str(d) for d in fleet["mesh"])]
         example = json.loads(CAPACITY_EXAMPLE.read_text())
-        refused = json.loads(json.dumps(example))
-        refused["capacity"]["replica_loss"] = {"replicas": 3,
-                                               "kill_after": 8}
-        self.cases = {**{name: {"capacity": spec}
+        replica_loss = json.loads(json.dumps(example))
+        replica_loss["capacity"]["replica_loss"] = {"replicas": 3,
+                                                    "kill_after": 8}
+        # (workload, the fleet's flags) a run.
+        self.cases = {**{name: ({"capacity": spec}, argv)
                          for name, spec in doc["scenarios"].items()},
-                      "example": example, "replica_loss": refused}
+                      "example": (example, argv),
+                      "replica_loss": (replica_loss, argv),
+                      "ha_example": (json.loads(HA_EXAMPLE.read_text()),
+                                     list(HA_EXAMPLE_FLEET)),
+                      "ha_scale": (HA_SCALE, list(SIM_SCALE))}
         self.workdir, self.env = workdir, env
         self.runs, self.error, self.proc = {}, None, None
         self.stopped = threading.Event()
@@ -7909,7 +8386,7 @@ class CapacitySims:
 
     def _run(self) -> None:
         try:
-            for name, workload in self.cases.items():
+            for name, (workload, argv) in self.cases.items():
                 if self.stopped.is_set():
                     return
                 path = self.workdir / f"capacity_{name}.json"
@@ -7918,7 +8395,8 @@ class CapacitySims:
                 self.proc = subprocess.Popen(
                     [sys.executable, "-m",
                      "k8s_vgpu_scheduler_tpu_torch.cmd.simulate",
-                     "--workload", str(path), *self.argv], env=self.env,
+                     "--workload", str(path), *argv, "--json"],
+                    env=self.env,
                     cwd=ROOT, stdout=subprocess.PIPE,
                     stderr=subprocess.PIPE, text=True)
                 out, err = self.proc.communicate(timeout=SIM_TIMEOUT_S)
@@ -7932,8 +8410,8 @@ class CapacitySims:
 
     def result(self) -> dict:
         """Every run's checks: exit 0, a passing verdict and the pinned
-        sha256 of its JSON; the replica_loss spec exit 2, naming the
-        missing subsystem.  Each run's seconds."""
+        sha256 of its JSON (CAPACITY_SHA256_OPTIMISTIC, HA_SHA256); the
+        scale ha run's verdict.  Each run's seconds."""
         self.thread.join(SIM_TIMEOUT_S * len(self.cases))
         check(not self.thread.is_alive(), "the capacity simulations ran past "
               f"{SIM_TIMEOUT_S * len(self.cases)} s")
@@ -7954,12 +8432,41 @@ class CapacitySims:
             out[name] = dict(s=run["s"], sha256=digest,
                              verdict_ok=cp["verdict"]["ok"],
                              forecast_error_ratio=cp["forecast_error_ratio"])
-        run = self.runs.get("replica_loss")
-        check(run is not None and run["rc"] == 2 and "replica_loss"
-              in run["stderr"] and "shard/" in run["stderr"],
-              f"vgpu-simulate with replica_loss: "
-              f"{run and (run['rc'], run['stderr'][-500:])}")
-        out["replica_loss"] = dict(s=run["s"], rc=run["rc"])
+        for name, want in HA_SHA256.items():
+            run = self.runs.get("ha_" + name if name == "example" else name)
+            check(run is not None and run["rc"] == 0,
+                  f"vgpu-simulate {name} exited {run and run['rc']} "
+                  "(chiprun_out/vgpu_simulate_capacity.log)")
+            digest = hashlib.sha256(run["stdout"].encode()).hexdigest()
+            doc = json.loads(run["stdout"])
+            section = (doc["ha"] if name == "example"
+                       else doc["capacity"]["replica_loss"])
+            ok = (section["verdict"]["ok"] if name == "example"
+                  else section["protocol_ok"])
+            check(ok and doc["fits"] and digest == want,
+                  f"vgpu-simulate {name}: {section}, sha256 {digest}, "
+                  f"pinned {want}")
+            out["ha_" + name] = dict(s=run["s"], sha256=digest)
+        run = self.runs.get("ha_scale")
+        check(run is not None and run["rc"] == 0,
+              f"vgpu-simulate's ha run at scale exited "
+              f"{run and run['rc']} (chiprun_out/"
+              "vgpu_simulate_capacity.log)")
+        ha = json.loads(run["stdout"])["ha"]
+        check(ha["verdict"]["ok"] and ha["pending_during_window"] > 0
+              and len(ha["replaced"]) == ha["pending_during_window"],
+              f"vgpu-simulate's ha run at scale: {ha['verdict']}, "
+              f"{ha['pending_during_window']} pended, "
+              f"{len(ha['replaced'])} re-placed")
+        out["ha_scale"] = dict(
+            s=run["s"], sha256=hashlib.sha256(
+                run["stdout"].encode()).hexdigest(),
+            verdict=ha["verdict"], killed=ha["killed"],
+            epochs=[ha["epoch_before"], ha["epoch_after"]],
+            placed_before_kill=ha["placed_before_kill"],
+            pended=ha["pending_during_window"],
+            shards_adopted=ha["shards_adopted"],
+            adoption_latency_s=ha["adoption_latency_s"])
         return out
 
     def stop(self) -> None:

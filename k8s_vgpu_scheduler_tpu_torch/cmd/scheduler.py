@@ -20,7 +20,10 @@ extender's ``/debug`` endpoints) and the capacity queues:
 ``--defrag-reservation-ttl`` and ``--defrag-max-victims``; and elastic
 mesh resizing: ``--enable-elastic``, ``--elastic-interval``,
 ``--resize-hysteresis``, ``--resize-checkpoint-grace`` and
-``--elastic-downgrade-after``; and the capacity forecast:
+``--elastic-downgrade-after``; and active replicas (``shard/``):
+``--shard-replica``, ``--shard-ttl``, ``--shard-grace-beats``,
+``--shard-tick``, ``--shard-stale-ttl``, ``--shard-adoption-grace`` and
+``--shard-coord-object``; and the capacity forecast:
 ``--capacity-interval``, ``--capacity-bucket``,
 ``--capacity-season-buckets``, ``--capacity-horizon`` and
 ``--capacity-starve-after``; and the optimistic Filter and the
@@ -36,7 +39,9 @@ Boot order: list the pods and reconcile the grants before anything serves
 cards twice), then the watch thread, the rescue thread, the admission
 thread (with a quota config), the defrag thread (with
 ``--enable-defrag``), the resize thread (with ``--enable-elastic``), the
-capacity-observe thread (unless ``--capacity-interval 0``), the
+capacity-observe thread (unless ``--capacity-interval 0``), with
+``--shard-replica`` a first coordination tick (the replica joins the shard
+map before it serves a Filter) and the coordination thread, the
 register service, the exporter and the HTTP extender.  This module is the gRPC edge: the core imports neither grpc nor
 protobuf.
 """
@@ -279,6 +284,33 @@ def parse_args(argv=None):
                    help="seconds a pending elastic gang must sit "
                         "Filter-rejected before admission retries it "
                         "one rung down")
+    p.add_argument("--shard-replica", default="",
+                   help="this replica's name among active extender "
+                        "replicas (the chart passes the pod name); "
+                        "empty: the shard layer is inert and this is a "
+                        "single-replica extender")
+    p.add_argument("--shard-ttl", type=float, default=15.0,
+                   help="seconds without a coordination beat before a "
+                        "peer replica is suspect (keeps its nodes)")
+    p.add_argument("--shard-grace-beats", type=int, default=2,
+                   help="more shard-ttl periods a suspect replica gets "
+                        "before it is dead and the survivors adopt its "
+                        "nodes (an epoch bump)")
+    p.add_argument("--shard-tick", type=float, default=3.0,
+                   help="coordination tick period: the beat, the shard "
+                        "map's read and the adoptions' progress")
+    p.add_argument("--shard-stale-ttl", type=float, default=10.0,
+                   help="a decision commit whose shard map was read more "
+                        "than this long ago fails closed")
+    p.add_argument("--shard-adoption-grace", type=float, default=12.0,
+                   help="seconds an adopted node stays unplaceable after "
+                        "an epoch bump while the previous owner's "
+                        "commits in flight drain into the staleness "
+                        "fence; at least --shard-stale-ttl")
+    p.add_argument("--shard-coord-object",
+                   default="vtpu-shard-coordination",
+                   help="the coordination Node the shard map is "
+                        "compare-and-swapped on (one a replica set)")
     p.add_argument("--resync-seconds", type=float, default=None,
                    help="full re-list period; default 300 with the watch, "
                         "30 without")
@@ -353,7 +385,14 @@ def build_config(args) -> Config:
         elastic_interval_s=args.elastic_interval,
         resize_hysteresis_s=args.resize_hysteresis,
         resize_checkpoint_grace_s=args.resize_checkpoint_grace,
-        elastic_downgrade_after_s=args.elastic_downgrade_after)
+        elastic_downgrade_after_s=args.elastic_downgrade_after,
+        shard_replica=args.shard_replica,
+        shard_ttl_s=args.shard_ttl,
+        shard_grace_beats=args.shard_grace_beats,
+        shard_tick_s=args.shard_tick,
+        shard_stale_ttl_s=args.shard_stale_ttl,
+        shard_adoption_grace_s=args.shard_adoption_grace,
+        shard_coord_object=args.shard_coord_object)
 
 
 def load_quota_config(path: str) -> tuple:
@@ -517,6 +556,12 @@ def main(argv=None):
     if scheduler.cfg.capacity_interval_s > 0:
         threading.Thread(target=capacity_loop, args=(scheduler, stop),
                          name="capacity-observe", daemon=True).start()
+    # Active replicas: join the shard map before anything serves (an
+    # unfenced replica answering /filter could place on nodes it does not
+    # own), then coordinate on the thread.  Inert without --shard-replica.
+    if scheduler.cfg.shard_replica:
+        scheduler.shards.tick()
+        scheduler.shards.start(scheduler.cfg.shard_tick_s)
     grpc_server = start_register_service(scheduler, args.grpc_bind)
     metrics_server = start_metrics_server(scheduler, args.metrics_port)
     host, _, port = args.http_bind.rpartition(":")
@@ -542,6 +587,7 @@ def main(argv=None):
         pass
     finally:
         stop.set()
+        scheduler.shards.stop()
         # Drains the solve workers and unlinks their shared-memory
         # segments (a no-op with --solve-workers 0).
         scheduler.close()

@@ -133,12 +133,30 @@ capacity.json``, the JAX example in the port's names):
 
 Each tick every unplaced pod is drained, in name order, through one
 batched ``filter_many``, as in the JAX simulator.  A capacity spec's
-``replica_loss`` what-if replays the sharded control plane, which the
-port does not have: such a spec is refused by name.
+``replica_loss`` what-if ("what does losing a replica cost?") replays the
+``ha`` section below with a storm sized from the forecast's peak, and
+reports the adoption latency, the pods pended through the orphan window,
+their re-placements and the rebalances.
 
-The JAX simulator's other sections (``audit``, ``slo``, ``ha``) replay
-subsystems the port does not have yet (ROADMAP A.5): such a workload is
-refused by name, and the command exits 2.
+An ``ha`` section is a run of active extender replicas (``shard/``) on
+the virtual clock with a seeded replica kill mid-storm: N replica
+schedulers share one fake apiserver, converge on a shard map, place a pod
+storm offered to each replica in turn as kube-scheduler's retries would
+offer it, one replica is killed, the survivors bump the epoch and adopt
+its nodes, and every pod that pended through the orphan window places
+again.  The report carries the adoption latency, the re-placed pods and
+the audits (no grant lost or duplicated, no card overbooked;
+``examples/vgpu-workload-ha.json``):
+
+    {"ha": {"replicas": 3, "seed": 7, "kill_after": 6,
+            "storm": {"name": "train", "gpu": 1, "gpumem": 16384,
+                      "count": 22},
+            "storm_interval_s": 1, "settle_s": 120}}
+
+An ``ha`` section with ``explain: true`` audits the explain timelines of
+the JAX package's provenance store, which the port does not have yet: it
+is refused by name, as are the JAX simulator's ``audit`` and ``slo``
+sections (ROADMAP A.5), and the command exits 2.
 
 Usage:
     vgpu-simulate --nodes 4 --chips 8 --hbm 81079 --mesh 8 \\
@@ -161,6 +179,8 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
+import random
 import sys
 import threading
 from typing import Dict, List, Optional
@@ -191,6 +211,7 @@ from ..tpulib.types import TopologyDesc
 from ..util import nodelock
 from ..util.config import Config, ResourceNames
 from ..util.types import (
+    ASSIGNED_NODE_ANNOTATION,
     GANG_GROUP_ANNOTATION,
     GANG_TOTAL_ANNOTATION,
     MESH_ANNOTATION,
@@ -198,10 +219,10 @@ from ..util.types import (
 )
 
 #: The JAX simulator's self-contained sections, in the order it tries
-#: them: ``fragmentation``, ``elastic``, ``capacity``, ``serving`` and
-#: ``queueing`` run here, the others are refused until ROADMAP A.5 brings
-#: them.  True: a section is requested when present; False: when it is
-#: not empty.
+#: them: ``fragmentation``, ``elastic``, ``capacity``, ``serving``, ``ha``
+#: and ``queueing`` run here, ``audit`` and ``slo`` are refused until
+#: ROADMAP A.5 brings them.  True: a section is requested when present;
+#: False: when it is not empty.
 SECTIONS = (("fragmentation", False), ("elastic", True), ("capacity", True),
             ("serving", True), ("audit", True), ("slo", True),
             ("ha", False), ("queueing", False))
@@ -352,6 +373,13 @@ def run_simulation(workload: dict, *, nodes: int = 0, chips: int = 0,
             # would place its pods twice).
             result = run_queueing_phase(
                 workload["queueing"], nodes=nodes, chips=chips, hbm=hbm,
+                mesh=mesh, generation=generation, policy=policy)
+        elif key == "ha":
+            # A self-contained run of replica schedulers over one fake
+            # apiserver on the virtual clock (the plain replay below is
+            # one replica).
+            result = run_ha_phase(
+                workload["ha"], nodes=nodes, chips=chips, hbm=hbm,
                 mesh=mesh, generation=generation, policy=policy)
         else:
             raise SectionRefused(
@@ -1840,13 +1868,8 @@ def run_capacity_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
        critical queue stays unstarved, then verified against the ACTUAL
        arrivals at the recommended size.
 
-    Raises :class:`SectionRefused` for a ``replica_loss`` what-if (the
-    sharded control plane, ROADMAP A.5)."""
-    if spec.get("replica_loss"):
-        raise SectionRefused(
-            "the capacity section's 'replica_loss' what-if is not "
-            "simulated by this port: it replays the sharded control plane "
-            "(shard/), which comes with ROADMAP A.5")
+    With ``replica_loss`` the cost of losing a replica is priced through
+    ``run_ha_phase`` with a storm sized from the forecast's peak."""
     bucket_s = float(spec.get("bucket_s", 30.0))
     history_buckets = int(spec.get("history_buckets", 48))
     horizon_buckets = int(spec.get("horizon_buckets", 16))
@@ -1952,6 +1975,34 @@ def run_capacity_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
                   and critical not in applied["starved_at"]
                   and not applied["overbooked_chips"])
 
+    replica_loss = None
+    if spec.get("replica_loss"):
+        # "What does losing a replica cost?": the ha run (run_ha_phase)
+        # with a storm sized from the forecast's peak, so the orphan
+        # window is contended as the forecast says it will be.  The cost:
+        # the adoption latency, the pods pended through the window (the
+        # re-placement churn) and the rebalances.
+        rl = dict(spec["replica_loss"])
+        peak = max((max(ps["predicted"]) for ps in per_stream),
+                   default=1.0)
+        storm = rl.pop("storm", None) or {
+            "name": "whatif", "gpu": 1, "gpumem": 2000,
+            "count": max(8, int(math.ceil(peak)) * 4)}
+        rl.setdefault("replicas", 3)
+        rl.setdefault("seed", 7)
+        ha = run_ha_phase(dict(rl, storm=storm), nodes=max(nodes, 3),
+                          chips=chips, hbm=hbm, mesh=mesh,
+                          generation=generation, policy=policy)
+        replica_loss = {
+            "replicas": ha["replicas"],
+            "killed": ha["killed"],
+            "adoption_latency_s": ha["adoption_latency_s"],
+            "pods_pended_through_window": ha["pending_during_window"],
+            "replacement_churn": len(ha["replaced"]),
+            "shard_rebalances": ha["rebalances"],
+            "protocol_ok": ha["verdict"]["ok"],
+        }
+
     elastic_whatif = None
     if spec.get("elastic_whatif"):
         # "Shrink tenant A's elastic jobs, or buy nodes?" — the elastic
@@ -1985,6 +2036,8 @@ def run_capacity_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
         "no_overbooking": not (predicted_run["overbooked_chips"]
                                or actual_run["overbooked_chips"]),
     }
+    if replica_loss is not None:
+        verdict["replica_loss_protocol_ok"] = replica_loss["protocol_ok"]
     if elastic_whatif is not None:
         verdict["elastic_whatif_resolved"] = \
             elastic_whatif["ab"]["verdict"]["no_overbooking"]
@@ -2004,10 +2057,223 @@ def run_capacity_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
         "actual": actual_run,
         "starvation": eta_rows,
         "recommendation": recommendation,
-        "replica_loss": None,
+        "replica_loss": replica_loss,
         "elastic_whatif": elastic_whatif,
         "verdict": verdict,
     }
+
+
+def run_ha_phase(spec: dict, *, nodes: int, chips: int, hbm: int,
+                 mesh, generation: str, policy: str) -> dict:
+    """Active extender replicas (``shard/``) on the virtual clock: N
+    replica schedulers over one fake apiserver converge on a shard map, a
+    pod storm is offered to each replica in turn (kube-scheduler's retry:
+    a non-owner refuses, the owner places), a seeded replica is killed
+    mid-storm, and the survivors' lease detectors drive the epoch bump,
+    the adoption and the re-placement.  Everything runs on a SimClock, so
+    a seed replays bit for bit.
+
+    Raises :class:`SectionRefused` for ``explain`` (the JAX simulator's
+    explain-timeline audit reads the provenance store, ROADMAP A.5)."""
+    if spec.get("explain"):
+        raise SectionRefused(
+            "the 'ha' section's 'explain' audit is not simulated by this "
+            "port: it reads the provenance store (provenance/), which "
+            "comes with ROADMAP A.5")
+    clock = SimClock()
+    kube = FakeKube()
+    n_rep = int(spec.get("replicas", 3))
+    seed = int(spec.get("seed", 0))
+    rng = random.Random(seed)
+    # Tight coordination timings: the run is about the protocol (death,
+    # bump, adoption), not production TTLs.
+    ttl = float(spec.get("replica_ttl_s", 10.0))
+    reps: List[Scheduler] = []
+    for i in range(n_rep):
+        reps.append(Scheduler(kube, Config(
+            node_scheduler_policy=policy,
+            shard_replica=f"replica-{i}",
+            shard_ttl_s=ttl, shard_grace_beats=1,
+            shard_stale_ttl_s=ttl / 2,
+            shard_adoption_grace_s=ttl / 2 + 1.0), clock=clock))
+    names = build_fleet(reps[0], kube, nodes, chips, hbm, mesh, generation)
+    for s in reps[1:]:
+        for n in names:
+            info = reps[0].nodes.get_node(n)
+            s.nodes.add_node(n, NodeInfo(
+                name=n, devices=list(info.devices),
+                topology=info.topology))
+    for s in reps:
+        kube.watch_pods(s.on_pod_event)
+
+    alive = list(range(n_rep))
+
+    def tick_all() -> None:
+        for i in alive:
+            reps[i].shards.tick()
+
+    # The boot partition converges once every replica has seen every
+    # other's beats.
+    for _ in range(4):
+        tick_all()
+        clock.advance(1.0)
+    epoch_before = reps[0].shards.epoch()
+
+    storm_spec = dict(spec.get("storm") or
+                      {"name": "train", "gpu": 1, "gpumem": 2000,
+                       "count": 24})
+    count = int(storm_spec.get("count", 24))
+    interval = float(spec.get("storm_interval_s", 2.0))
+    kill_after = int(spec.get("kill_after", max(1, count // 3)))
+    pods = [spec_pod(storm_spec, i) for i in range(count)]
+    for pod in pods:
+        kube.create_pod(pod)
+
+    placed: List[dict] = []
+    pending: List[dict] = []
+    killed: Optional[int] = None
+    placed_before_kill = 0
+
+    def try_place(pod) -> dict:
+        # Offered to each live replica in turn, from a seeded start, so
+        # the routing itself does not know the owner.
+        start = rng.randrange(len(alive))
+        last_err = ""
+        for k in range(len(alive)):
+            i = alive[(start + k) % len(alive)]
+            r = reps[i].filter(pod, names)
+            if r.node:
+                return {"pod": pod["metadata"]["name"], "node": r.node,
+                        "replica": reps[i].shards.replica}
+            last_err = r.error or next(iter(r.failed.values()), "no fit")
+        return {"pod": pod["metadata"]["name"], "reason": last_err,
+                "placed": None}
+
+    for idx, pod in enumerate(pods):
+        if killed is None and idx == kill_after:
+            # The seeded kill: the victim never ticks again and is never
+            # offered a pod, as a replica killed outright looks from
+            # outside.  Counted now: a pre-kill pod that pended must not
+            # count a later placement as before the kill.
+            killed = rng.choice(alive)
+            alive.remove(killed)
+            placed_before_kill = len(placed)
+        got = try_place(pod)
+        if got.get("node"):
+            placed.append(got)
+        else:
+            pending.append({"pod": got["pod"], "reason": got["reason"]})
+        clock.advance(interval)
+        tick_all()
+
+    grants_at_storm_end = {
+        p["metadata"]["name"]:
+            p.get("metadata", {}).get("annotations", {}).get(
+                ASSIGNED_NODE_ANNOTATION, "")
+        for p in kube.list_pods()}
+
+    # Settle: the survivors declare the victim dead, bump the epoch, serve
+    # the adoption grace and replay the decision annotations; done when
+    # no adoption is pending and every node is placeable by its owner.
+    settle_s = float(spec.get("settle_s", 120.0))
+    settle_t0 = clock()
+    while clock() - settle_t0 < settle_s:
+        tick_all()
+        owners_live = True
+        adopting = False
+        for n in names:
+            m = reps[alive[0]].shards.map
+            owner = m.owner_of(n) if m is not None else None
+            if owner not in {reps[i].shards.replica for i in alive}:
+                owners_live = False
+                break
+            oi = next(i for i in alive
+                      if reps[i].shards.replica == owner)
+            if reps[oi].shards.reject_reason(n) is not None:
+                adopting = True
+                break
+        if owners_live and not adopting and all(
+                not reps[i].shards.rebalancer.pending_nodes()
+                for i in alive):
+            break
+        clock.advance(2.0)
+    adoption_latencies = [
+        lat for i in alive
+        for lat in reps[i].shards.rebalancer.last_adoption_latency_s]
+    epoch_after = reps[alive[0]].shards.epoch()
+
+    # Every pod that pended through the orphan window is offered again.
+    replaced: List[dict] = []
+    still_pending: List[dict] = []
+    for entry in pending:
+        pod = kube.get_pod("sim", entry["pod"])
+        got = try_place(pod)
+        if got.get("node"):
+            replaced.append({"pod": got["pod"], "node": got["node"],
+                             "replica": got["replica"]})
+        else:
+            still_pending.append({"pod": got["pod"],
+                                  "reason": got["reason"]})
+
+    # The audits: every decision at the storm's end still stands (none
+    # lost); no replica holds a pod on another node than its annotation
+    # says (none duplicated); no card over its totals on any survivor.
+    lost, duplicated = [], []
+    for p in kube.list_pods():
+        pname = p["metadata"]["name"]
+        node_now = p.get("metadata", {}).get("annotations", {}).get(
+            ASSIGNED_NODE_ANNOTATION, "")
+        was = grants_at_storm_end.get(pname, "")
+        if was and not node_now:
+            lost.append(pname)
+        uid = p["metadata"]["uid"]
+        seen = {reps[i].pods.get(uid).node for i in alive
+                if reps[i].pods.get(uid) is not None}
+        if node_now:
+            seen.add(node_now)
+        if len(seen) > 1:
+            duplicated.append({"pod": pname, "nodes": sorted(seen)})
+    overbooked = sorted({c for i in alive
+                         for c in overbooked_chips(reps[i])})
+
+    verdict = {
+        "adopted_all": all(
+            not reps[i].shards.rebalancer.pending_nodes()
+            for i in alive) and epoch_after > epoch_before,
+        "replaced_all": not still_pending,
+        "no_grant_lost": not lost,
+        "no_grant_duplicated": not duplicated,
+        "no_overbooking": not overbooked,
+    }
+    verdict["ok"] = all(verdict.values())
+    result = {
+        "seed": seed,
+        "replicas": n_rep,
+        "killed": f"replica-{killed}" if killed is not None else None,
+        "epoch_before": epoch_before,
+        "epoch_after": epoch_after,
+        "placed_before_kill": placed_before_kill,
+        "placed_total": len(placed) + len(replaced),
+        "pending_during_window": len(pending),
+        "replaced": replaced,
+        "still_pending": still_pending,
+        "adoption_latency_s": round(max(adoption_latencies), 1)
+        if adoption_latencies else 0.0,
+        "shards_adopted": sum(
+            reps[i].shards.rebalancer.adopted_total for i in alive),
+        "rebalances": sum(
+            reps[i].shards.rebalances_total for i in alive),
+        "cas_failures": {
+            reps[i].shards.replica: dict(reps[i].shards.cas_failures)
+            for i in range(n_rep)},
+        "grants_lost": lost,
+        "grants_duplicated": duplicated,
+        "overbooked_chips": overbooked,
+        "verdict": verdict,
+    }
+    for s in reps:
+        s.close()
+    return result
 
 
 def format_capacity(cp: dict) -> str:
@@ -2038,6 +2304,14 @@ def format_capacity(cp: dict) -> str:
                 rec["critical_queue"],
                 "" if rec["applied"] is None else
                 " (verified against the actual trace)"))
+    rl = cp.get("replica_loss")
+    if rl:
+        lines.append(
+            "  losing a replica costs: {:.1f}s adoption, {} pod(s) "
+            "pended, {} re-placed, {} rebalance(s)".format(
+                rl["adoption_latency_s"],
+                rl["pods_pended_through_window"],
+                rl["replacement_churn"], rl["shard_rebalances"]))
     ew = cp.get("elastic_whatif")
     if ew:
         buy = ("buy {} node(s)".format(ew["nodes_to_add_instead"])
@@ -2153,6 +2427,35 @@ def format_serving(sv: dict) -> str:
     return "\n".join(lines)
 
 
+def format_ha(hr: dict) -> str:
+    v = hr["verdict"]
+    lines = [
+        "active-active HA: {} replica(s), seed {}; killed {} "
+        "mid-storm".format(hr["replicas"], hr["seed"], hr["killed"]),
+        "  epoch {} → {}; {} shard(s) adopted in {:.1f}s; "
+        "{} rebalance transition(s)".format(
+            hr["epoch_before"], hr["epoch_after"],
+            hr["shards_adopted"], hr["adoption_latency_s"],
+            hr["rebalances"]),
+        "  {} placed before kill, {} pended through the orphan "
+        "window, {} re-placed on survivors".format(
+            hr["placed_before_kill"], hr["pending_during_window"],
+            len(hr["replaced"])),
+    ]
+    for r in hr["replaced"]:
+        lines.append(f"  {r['pod']:<24s} ↻ {r['node']} "
+                     f"(via {r['replica']})")
+    for p in hr["still_pending"]:
+        lines.append(f"  {p['pod']:<24s} STRANDED: {p['reason']}")
+    if hr["grants_lost"] or hr["grants_duplicated"]:
+        lines.append("  GRANTS lost: {} duplicated: {}".format(
+            hr["grants_lost"], hr["grants_duplicated"]))
+    if hr["overbooked_chips"]:
+        lines.append("  OVERBOOKED: " + ", ".join(hr["overbooked_chips"]))
+    lines.append("  verdict: " + ("PASS" if v["ok"] else f"FAIL {v}"))
+    return "\n".join(lines)
+
+
 def format_report(result: dict) -> str:
     cp = result.get("capacity")
     if cp:
@@ -2169,6 +2472,9 @@ def format_report(result: dict) -> str:
     el = result.get("elastic")
     if el:
         return format_elastic(el)
+    hr = result.get("ha")
+    if hr:
+        return format_ha(hr)
     f = result["fleet"]
     if "source" in f:
         head = ("fleet: {nodes} node(s) from {source}, "

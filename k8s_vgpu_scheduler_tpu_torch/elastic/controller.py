@@ -42,9 +42,9 @@ Where the port departs from the JAX module, each place says so: the
 resize records the JAX controller sends to its provenance store
 (``resize-shrink``/``-grow`` on every member) are left out until the
 provenance slice (ROADMAP A.5), as the rescuer's and the admission
-loop's are; and the one-planner gate of a sharded control plane
-(``shards.leads``) waits for the shard slice: the port's single replica
-always plans.  This module imports no torch, grpc or protobuf.
+loop's are.  Under active replicas (``shard/``) one elected replica plans
+(``shards.leads("elastic")``); resizes in flight drain on the replica
+that started them.  This module imports no torch, grpc or protobuf.
 """
 
 from __future__ import annotations
@@ -471,6 +471,11 @@ class ResizeController:
         self._progress_in_flight(now, actions)
         self._prune(now)
         if not self.cfg.enabled:
+            return actions
+        shards = getattr(self.s, "shards", None)
+        if shards is not None and not shards.leads("elastic"):
+            # One elected replica plans resizes (a grow's capacity check
+            # spans the whole fleet); those in flight above drain here.
             return actions
         gangs = self.elastic_gangs()
         with self._lock:

@@ -26,9 +26,11 @@ Chronically idle oversubscribed grants (``grant_efficiency``, from the
 usage ledger) are flagged, never rescinded: a sweep action, a journal
 event and ``vtpu_idle_grants``.  A rescued pod leaves its gang
 (``gangs.drop_member``, without a tombstone: the pod reschedules under
-its own uid and may join its group again).  The ownership gate of a sharded control plane
-(``shards``) waits for the shard slice (ROADMAP A.5).  The JAX
-rescuer's provenance records go to the port's tracer (``util/trace``)
+its own uid and may join its group again).  Under active replicas
+(``shard/``) every destructive action is gated on ownership: only the
+replica that owns a node under the shard map rescues its grants, and a
+non-owner hands a node's lease off (forgets it), so a handoff never
+evicts twice.  The JAX rescuer's provenance records go to the port's tracer (``util/trace``)
 under the same event names until the provenance slice (A.5).
 
 ``sweep`` is a plain method, so tests drive it on their own clock;
@@ -139,9 +141,21 @@ class Rescuer:
         actions: List[dict] = []
         tr = trace.tracer()
         leases, pods = self.s.leases, self.s.pods
+        # Ownership-gated under active replicas: inert, owns() is True for
+        # every node; on but with no map seen, False for every node (a
+        # blind replica rescinds nothing).
+        shards = getattr(self.s, "shards", None)
+        sharded = shards is not None and shards.enabled
 
         # 1. Lease transitions, each edge once.
         for node, old, new in leases.sweep(now):
+            if sharded and not shards.owns(node):
+                # Handed off: the node's failure belongs to its owner.  A
+                # lease kept here would in time declare dead a node that
+                # only stopped beating this replica.
+                leases.forget(node)
+                actions.append({"kind": "lease-handoff", "node": node})
+                continue
             actions.append({"kind": "lease", "node": node,
                             "from": old.name, "to": new.name})
             tr.event(node, f"lease-{new.name.lower()}", node=node,
@@ -184,6 +198,11 @@ class Rescuer:
 
         # 3. Stranded grants.
         for info in pods.list_pods():
+            if sharded and not shards.owns(info.node):
+                # Another replica owns the node (each replica mirrors the
+                # whole fleet's grants); rescuing from here would race its
+                # owner's sweep.
+                continue
             if leases.state_of(info.node) is LeaseState.DEAD:
                 self.enqueue(info.uid, "node-dead")
                 continue
@@ -217,6 +236,10 @@ class Rescuer:
         idle_now = set()
         for pe in self.s.grant_efficiency(now).idle:
             if not pe.oversubscribe:
+                continue
+            if sharded and not shards.owns(pe.node):
+                # The owner's ledger has the node's usage reports; ours
+                # would flag unmetered grants as idle.
                 continue
             idle_now.add(pe.uid)
             if pe.uid in self.idle_flagged:

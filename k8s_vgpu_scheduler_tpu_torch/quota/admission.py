@@ -104,6 +104,14 @@ class AdmissionLoop:
         mgr = self.s.quota
         if not mgr.enabled:
             return []
+        shards = getattr(self.s, "shards", None)
+        if shards is not None and not shards.leads("quota-admission"):
+            # Under active replicas the fair-share order is fleet-wide
+            # state, so one live replica (elected over the shard map's
+            # replica set) runs the loop.  The others keep their queues in
+            # step through the queue-state annotations the informer
+            # replays; the election moves with the epoch.
+            return []
         now = self._clock() if now is None else now
         actions: List[dict] = []
         registry = self.s.pods

@@ -1398,8 +1398,8 @@ class BatchEngine:
         """Why a vector job the solver found no node for fits none: the
         per-node rejection tokens over the first ``limit`` offered nodes,
         from the same rule set as the scalar path (``node_reject_reason``)
-        plus the lease gate's reason for a gated row, the batched twin of
-        the per-pod path's failed map.  (The JAX cycle emits it as a
+        plus the lease or shard gate's reason for a gated row, the batched
+        twin of the per-pod path's failed map.  (The JAX cycle emits it as a
         provenance record; the port's store waits for ROADMAP A.5
         provenance.)"""
         fleet = self.fleet
@@ -1414,8 +1414,10 @@ class BatchEngine:
                 reasons[name] = "no GPU inventory registered"
                 continue
             if not fleet.alive[row]:
-                reasons[name] = self.s.leases.reject_reason(name) \
-                    or "gated"
+                why = self.s.leases.reject_reason(name)
+                if why is None and self.s.shards.enabled:
+                    why = self.s.shards.reject_reason(name)
+                reasons[name] = why or "gated"
                 continue
             reasons[name] = node_reject_reason(fleet, req, affinity, row)
         return reasons
@@ -1443,13 +1445,18 @@ class BatchEngine:
 
     def _gate_rows(self) -> None:
         """Per-cycle node gates: the lease reject (suspect and dead nodes
-        take no new placements) and the measured-utilization bonus.  (The
-        JAX engine also gates on shard ownership when its sharded control
-        plane is on; the port's waits for ROADMAP A.5 shard, and runs as
-        the JAX one does with it off.)"""
+        take no new placements), the shard-ownership gate (another replica
+        owns the node's placements) and the measured-utilization bonus."""
         fleet = self.fleet
+        shards = self.s.shards
         # One lease-lock acquisition for the whole row set.
         alive = self.s.leases.alive_map(fleet.names)
+        if shards.enabled:
+            # placeable() fails closed before a shard map is seen: a blind
+            # replica gates out the whole fleet, as the per-pod paths'
+            # shard-no-map does.
+            alive = [ok and shards.placeable(name)
+                     for ok, name in zip(alive, fleet.names)]
         if self.s.cfg.score_by_actual:
             from ..accounting import efficiency as eff_mod
             bonus = [

@@ -75,7 +75,11 @@ tick plans the cheapest compaction, reserves the box
 reads, beside the quarantined ones) and asks the victims to checkpoint
 through the same eviction requests, and the beneficiary's next Filter
 releases the box and lands on it.  ``snapshot()`` is the fleet's usage as
-the defragmenter and the fragmentation views read it.  This
+the defragmenter and the fragmentation views read it.  With
+``Config.shard_replica`` the extender is one of several active replicas
+(``shard/``): each places only on the nodes the epoch-numbered shard map
+gives it, commits a decision as a compare-and-swap fenced by that epoch,
+and adopts a dead replica's nodes.  This
 module imports neither grpc nor protobuf: the register stream's messages
 are read through their attributes, and only ``cmd/scheduler.py`` converts
 at the gRPC edge.
@@ -120,6 +124,8 @@ from ..placement.mesh import MESH_ANNOTATION, local_mesh_for, parse_mesh
 from ..placement.reserve import SliceReservations
 from ..quota.admission import AdmissionConfig, AdmissionLoop
 from ..quota.queues import QuotaManager
+from ..shard import commit as shard_commit
+from ..shard.shardmap import ShardConfig, ShardManager
 from ..tpulib.types import TopologyDesc
 from ..util import codec, perf, trace
 from ..util.config import Config
@@ -291,6 +297,21 @@ class Scheduler:
                 hysteresis_s=self.cfg.resize_hysteresis_s,
                 checkpoint_grace_s=self.cfg.resize_checkpoint_grace_s,
                 downgrade_after_s=self.cfg.elastic_downgrade_after_s),
+            clock=clock)
+        # Active-active replicas (shard/): inert without
+        # Config.shard_replica, when candidate_gate() is None, no gate runs
+        # on any path and decisions keep the group-commit writer.
+        # vgpu-scheduler starts the coordination thread; embedders, tests
+        # and the simulator call shards.tick() themselves.
+        self.shards = ShardManager(
+            self,
+            ShardConfig(
+                replica=self.cfg.shard_replica,
+                ttl_s=self.cfg.shard_ttl_s,
+                grace_beats=self.cfg.shard_grace_beats,
+                stale_ttl_s=self.cfg.shard_stale_ttl_s,
+                adoption_grace_s=self.cfg.shard_adoption_grace_s,
+                coord_object=self.cfg.shard_coord_object),
             clock=clock)
         # The commit lock: held to re-check a winner's revisions and
         # record its grant, and for gang and serial decisions whole; never
@@ -1203,10 +1224,9 @@ class Scheduler:
                                ) -> List[FilterResult]:
         """A batched cycle's epilogue: every decision prepared, then the
         patches written in chunks the decision writer's adaptive sizer
-        steers, one ``write_many`` call a chunk.  A failed entry rolls
-        back only its own grant.  (The JAX epilogue also has a fenced
-        compare-and-swap branch for its sharded control plane, which waits
-        for ROADMAP A.5 shard.)"""
+        steers, one ``write_many`` call a chunk, or with the shard layer on
+        one fenced ``cas_commit_many`` a chunk (a CAS for each entry).  A
+        failed entry rolls back only its own grant."""
         out: List[Optional[FilterResult]] = [None] * len(pairs)
         writes: List[tuple] = []   # (index, pod, result, patch)
         for i, (pod, result) in enumerate(pairs):
@@ -1222,19 +1242,29 @@ class Scheduler:
             chunk = writes[at:at + sizer.size()]
             at += len(chunk)
             write_t0 = time.monotonic()
-            outcomes = self._decisions.write_many(
-                [(pod_namespace(pod), pod_name(pod), patch)
-                 for _i, pod, _result, patch in chunk])
-            seconds = time.monotonic() - write_t0
+            if self.shards.enabled:
+                errs = shard_commit.cas_commit_many(
+                    self.client, self.shards,
+                    [(pod, result.node, patch)
+                     for _i, pod, result, patch in chunk])
+                seconds = time.monotonic() - write_t0
+                sizer.observe(len(chunk), seconds)
+            else:
+                outcomes = self._decisions.write_many(
+                    [(pod_namespace(pod), pod_name(pod), patch)
+                     for _i, pod, _result, patch in chunk])
+                seconds = time.monotonic() - write_t0
+                errs = [None if e is None
+                        else f"writing decision failed: {e}"
+                        for e in outcomes]
             if reg.enabled:
                 # One sample a flush, the amortized unit.
                 reg.record("decision-write", seconds)
                 reg.set_gauge("decision_write_chunk", len(chunk))
-            for (i, pod, result, _patch), e in zip(chunk, outcomes):
-                err = None if e is None else f"writing decision failed: {e}"
+            for (i, pod, result, _patch), err in zip(chunk, errs):
                 if err is not None:
                     log.error("failed to write the decision for %s: %s",
-                              pod_name(pod), e)
+                              pod_name(pod), err)
                 out[i] = self._conclude_decision(pod, result, err)
         return out
 
@@ -1251,9 +1281,12 @@ class Scheduler:
                          pod=pod_name(pod), error=result.error,
                          preempting=result.preempt is not None)
             self._note_slice_rejection(pod, result)
-            if result.failed:
+            if result.failed and any(not r.startswith("shard-")
+                                     for r in result.failed.values()):
                 # A released governed pod that found no seat: the reclaim
-                # trigger's signal (borrowers may hold its cards).
+                # trigger's signal (borrowers may hold its cards).  Shard
+                # ownership refusals alone are not: the pod's next retry
+                # lands on the owning replica.
                 self.quota.note_unplaced(uid)
             if result.preempt is not None:
                 self._request_preemptions(pod, result.preempt)
@@ -1287,8 +1320,10 @@ class Scheduler:
 
     def _write_decision_single(self, pod: dict, result: FilterResult,
                                patch: dict) -> Optional[str]:
-        """One pod's decision write through the group-commit batcher; the
-        error, or None.  One write in four is timed into the
+        """One pod's decision write through the group-commit batcher, or
+        with the shard layer on as a fenced CAS (``shard/commit.py``),
+        which bypasses the batcher: it carries its own resourceVersion.
+        The error, or None.  One write in four is timed into the
         ``decision-write`` phase (the span records every one)."""
         tid = trace.trace_id_of(pod)
         reg = perf.registry()
@@ -1299,17 +1334,28 @@ class Scheduler:
         with trace.tracer().span("decision-write", trace_id=tid,
                                  pod=pod_name(pod), node=result.node,
                                  qos=pod_qos(pod)) as wsp:
-            try:
-                batched = self._decisions.write(
-                    pod_namespace(pod), pod_name(pod), patch)
-                if batched > 1:
-                    # Rode a group commit with batched - 1 other decisions.
-                    wsp.set("batch_size", batched)
-            except Exception as e:  # noqa: BLE001 — no grant outlives a failed write
-                err = f"writing decision failed: {e}"
-                log.error("failed to write the decision for %s: %s",
-                          pod_name(pod), e)
-                wsp.set("error", str(e))
+            if self.shards.enabled:
+                # Keyed by (shard epoch, pod resourceVersion): a stale map,
+                # lost ownership or a peer's decision fails closed and the
+                # pod requeues.
+                err = shard_commit.cas_commit(
+                    self.client, self.shards, pod, result.node, patch)
+                if err is not None:
+                    log.warning("decision for %s not committed: %s",
+                                pod_name(pod), err)
+                    wsp.set("error", err)
+            else:
+                try:
+                    batched = self._decisions.write(
+                        pod_namespace(pod), pod_name(pod), patch)
+                    if batched > 1:
+                        # Rode a group commit with batched - 1 others.
+                        wsp.set("batch_size", batched)
+                except Exception as e:  # noqa: BLE001 — no grant outlives a failed write
+                    err = f"writing decision failed: {e}"
+                    log.error("failed to write the decision for %s: %s",
+                              pod_name(pod), e)
+                    wsp.set("error", str(e))
             if write_rec:
                 reg.record("decision-write", time.monotonic() - write_t0)
         return err
@@ -1317,8 +1363,8 @@ class Scheduler:
     def _conclude_decision(self, pod: dict, result: FilterResult,
                            err: Optional[str]) -> FilterResult:
         """After the write: count it, and on a failure roll the grant back
-        and count the failure by reason (the port has no shard commit, so
-        every failure is a transport one)."""
+        and count the failure by reason: the shard commit's ``shard-fence``
+        or ``shard-cas`` prefix, else ``transport``."""
         uid = pod_uid(pod)
         with self._dwf_lock:
             self.decision_writes_total += 1
@@ -1327,9 +1373,11 @@ class Scheduler:
         self._del_pod_wt(uid)
         trace.tracer().event(uid, "decision-write-failed",
                              trace_id=trace.trace_id_of(pod), error=err)
+        reason = err.split(":", 1)[0].strip() \
+            if err.startswith("shard-") else "transport"
         with self._dwf_lock:
-            self.decision_write_failures["transport"] = \
-                self.decision_write_failures.get("transport", 0) + 1
+            self.decision_write_failures[reason] = \
+                self.decision_write_failures.get(reason, 0) + 1
         return FilterResult(error=err)
 
     def _decide(self, pod: dict, node_names: List[str],
@@ -1489,6 +1537,11 @@ class Scheduler:
         fresh snapshot)."""
         if self.leases.reject_reason(node) is not None:
             return None
+        if self.shards.enabled \
+                and self.shards.reject_reason(node) is not None:
+            # The node's ownership moved between snapshot and commit (an
+            # epoch bump): the retry decides again under the new map.
+            return None
         with self._usage_cache_lock:
             entry = self._refresh_entry_locked(node)
         if entry is None:
@@ -1575,6 +1628,10 @@ class Scheduler:
                           self.cfg.topology_policy)
         failed: Dict[str, str] = {}
         candidates: List[str] = []
+        # The shard gate, resolved once a decision: None when the layer is
+        # inert; fail-closed shard-no-map refusals when it is on but has
+        # seen no map.
+        shard_gate = self.shards.candidate_gate()
         for name in node_names:
             entry = snap.get(name)
             if entry is None:
@@ -1586,6 +1643,12 @@ class Scheduler:
             if why is not None:
                 failed[name] = why
                 continue
+            # Another replica owns the node's placements.
+            if shard_gate is not None:
+                why = shard_gate(name)
+                if why is not None:
+                    failed[name] = why
+                    continue
             # A type list that excludes every card of the node is decided
             # on the shared snapshot: no copy, no fit.
             why = score_mod.type_excluded(affinity, entry.usage)
@@ -1729,9 +1792,13 @@ class Scheduler:
         gang_uids = {u for g in self.gangs.groups().values()
                      for u in (*g.members, *g.placements)}
         offered = set(node_names)
+        # Nor the nodes another replica owns: the requester could not be
+        # committed there.
+        shard_gate = self.shards.candidate_gate()
         entries = {name: (e.info, e.usage) for name, e in snap.items()
                    if name in offered
-                   and self.leases.reject_reason(name) is None}
+                   and self.leases.reject_reason(name) is None
+                   and (shard_gate is None or shard_gate(name) is None)}
         return plan_preemption(
             requests, pod_priority(pod, self.cfg), entries,
             self.pods.by_node(), anns, self.cfg.topology_policy,
@@ -1817,6 +1884,7 @@ class Scheduler:
         clone = score_mod.clone_usage
         failed: Dict[str, str] = {}
         best: Optional[Tuple[float, str, list]] = None
+        shard_gate = self.shards.candidate_gate()
         for name in node_names:
             entry = snap.get(name)
             if entry is None:
@@ -1826,6 +1894,11 @@ class Scheduler:
             if why is not None:
                 failed[name] = why
                 continue
+            if shard_gate is not None:
+                why = shard_gate(name)
+                if why is not None:
+                    failed[name] = why
+                    continue
             why = score_mod.type_excluded(affinity, entry.usage)
             if why is not None:
                 failed[name] = why
@@ -1903,10 +1976,12 @@ class Scheduler:
         # The immutable snapshot's entries: place_gang lays CowUsage views
         # over them.
         offered = set(node_names) if node_names else None
+        shard_gate = self.shards.candidate_gate()
         usage = {name: (e.info, e.usage)
                  for name, e in self.snapshot().items()
                  if (offered is None or name in offered)
-                 and self.leases.reject_reason(name) is None}
+                 and self.leases.reject_reason(name) is None
+                 and (shard_gate is None or shard_gate(name) is None)}
         # An admitted gang at its quorum again has replacements in freed
         # slots: only they are placed (the peers' grants are charged, and
         # a bound member's node never changes).
@@ -2079,6 +2154,7 @@ class Scheduler:
         self.admission.stop()
         self.defrag.stop()
         self.elastic.stop()
+        self.shards.stop()
         self.batch.close()
         with self._pool_lock:
             pool, self._pool = self._pool, None

@@ -11,7 +11,8 @@ Families whose source the port has carry values: grants per card and per
 pod, ``node_tpu_memory_percentage``, preemption requests, leases,
 quarantine, rescue, usage and efficiency from the ledger, idle grants,
 the capacity queues (pending, admitted, fair share, borrowed cards,
-reclaims), slice availability and the largest free box (over
+reclaims), the shard layer (epoch, nodes owned and orphaned, adoptions,
+the fenced commits' failures), slice availability and the largest free box (over
 ``placement/frag.py``'s views of the scheduler's snapshot), the cards
 held in slice reservations and the defragmenter's plans, migrations,
 completions and aborts, the capacity forecast (each queue's demand,
@@ -50,11 +51,6 @@ from .core import Scheduler
 #: the subsystem off: zero-valued where the family has no labels (or a
 #: fixed label set), empty where its labels name live objects.
 A5_FAMILIES = {
-    "vtpu_shard_epoch": "sharded control plane",
-    "vtpu_shards_owned": "sharded control plane",
-    "vtpu_shards_orphaned": "sharded control plane",
-    "vtpu_shard_rebalances": "sharded control plane",
-    "vtpu_commit_cas_failures": "sharded control plane",
     "vtpu_audit_findings": "fleet audit",
     "vtpu_audit_sweeps": "fleet audit",
     "vtpu_audit_sweep_seconds": "fleet audit",
@@ -425,7 +421,8 @@ class ClusterCollector:
         resize_thrash.add_metric(
             [], elastic.thrash_total if elastic else 0)
 
-        # Sharded control plane (A.5): empty, as with the layer absent.
+        # Active replicas (shard/): the epoch, the nodes owned and orphaned,
+        # the adoptions and the fenced commits' failures by token.
         shard_epoch = GaugeMetricFamily(
             "vtpu_shard_epoch",
             "Shard-map epoch this replica operates under (replicas "
@@ -459,6 +456,14 @@ class ClusterCollector:
             "apiserver I/O) — every one requeues its pod",
             labels=["reason"],
         )
+        shards = getattr(self.scheduler, "shards", None)
+        if shards is not None:
+            shard_epoch.add_metric([], shards.epoch())
+            shards_owned.add_metric([], shards.owned_count())
+            shards_orphaned.add_metric([], len(shards.orphaned_nodes()))
+            shard_rebalances.add_metric([], shards.rebalances_total)
+            for reason, n in sorted(dict(shards.cas_failures).items()):
+                cas_failures.add_metric([reason], n)
 
         # Performance observatory (A.5): empty, gauges and the
         # per-generation gc counts at 0.
@@ -744,8 +749,8 @@ class ClusterCollector:
         for severity in ("page", "ticket"):
             slo_alerts.add_metric([severity], 0)
 
-        # Decision-write failures by reason (the port writes no shard
-        # commit yet, so the shard reasons stay zero).
+        # Decision-write failures by reason: the transport, or the shard
+        # commit's fence or CAS.
         dwf = CounterMetricFamily(
             "vtpu_decision_write_failures",
             "Decision-annotation writes that failed after their path's "
@@ -757,7 +762,8 @@ class ClusterCollector:
         )
         failures = dict(getattr(self.scheduler, "decision_write_failures",
                                 None) or {})
-        for reason in ("shard-cas", "shard-fence", "transport"):
+        for reason in sorted(set(failures)
+                             | {"shard-cas", "shard-fence", "transport"}):
             dwf.add_metric([reason], failures.get(reason, 0))
 
         fleet = self.scheduler.grant_efficiency()

@@ -179,6 +179,23 @@ class Config:
     resize_hysteresis_s: float = 300.0
     resize_checkpoint_grace_s: float = 120.0
     elastic_downgrade_after_s: float = 30.0
+    # Active-active extender replicas (shard/).  shard_replica is this
+    # replica's name (the chart passes the pod name); empty: the shard
+    # layer is inert and the single-replica path runs as without it.
+    # Then: seconds without a coordination beat before a peer replica is
+    # suspect, and how many more of those periods before it is dead and
+    # its nodes are adopted; the coordination tick's period; how old the
+    # map may be when a decision is committed (older: the commit fails
+    # closed and the pod requeues); how long an adopted node stays
+    # unplaceable after the epoch bump (at least the stale TTL); and the
+    # Node the map is compare-and-swapped on.
+    shard_replica: str = ""
+    shard_ttl_s: float = 15.0
+    shard_grace_beats: int = 2
+    shard_tick_s: float = 3.0
+    shard_stale_ttl_s: float = 10.0
+    shard_adoption_grace_s: float = 12.0
+    shard_coord_object: str = "vtpu-shard-coordination"
     # The extender's /debug endpoints (stacks, profile, vars, tracez,
     # events); unauthenticated, so off unless asked for.
     enable_debug: bool = False

@@ -20,9 +20,10 @@ Both replays drain each tick's unplaced pods through their batched
 per-pod drain gives (each package's ``filter_many`` rebound to a Filter a
 pod), so no joint decision differs from a sequential one.
 
-The stated departure, pinned below with both answers: ``replica_loss``
-(the sharded control plane's what-if) is refused by name where the JAX
-simulator replays it.
+A ``replica_loss`` what-if (the cost of losing a replica, through the
+simulator's ``ha`` run of the shard layer) is replayed by both simulators
+with equal answers, and its report's bytes are pinned for the card
+(``chip_smoke.HA_SHA256``).
 """
 
 import copy
@@ -762,35 +763,51 @@ def test_the_example_prints_the_capacity_report_as_jax(serial, tmp_path,
     assert "verdict: PASS" in out
 
 
-def test_replica_loss_is_refused_by_name(serial, monkeypatch, tmp_path,
-                                         capsys):
-    """The JAX simulator replays the what-if (its run_ha_phase, here a
-    stand-in); the port refuses the spec by name and exits 2."""
-    workload = json.loads((EXAMPLES / "workload-capacity.json").read_text())
-    seen = []
+def replica_loss_workload() -> dict:
+    """The port's example with the JAX example's replica_loss what-if."""
+    workload = copy.deepcopy(EXAMPLE)
+    workload["capacity"]["replica_loss"] = {"replicas": 3, "kill_after": 8}
+    return workload
 
-    def ha(spec, **kw):
-        seen.append(spec)
-        return {"replicas": 3, "killed": "r0", "adoption_latency_s": 1.0,
-                "pending_during_window": 0, "replaced": [],
-                "rebalances": 1, "verdict": {"ok": True}}
 
-    monkeypatch.setattr(jsim, "run_ha_phase", ha)
-    ref = jsim.run_simulation(copy.deepcopy(workload), **fleet_kw())
-    assert seen and ref["capacity"]["replica_loss"]["protocol_ok"]
-    port_wl = copy.deepcopy(workload)
-    port_wl["capacity"]["streams"] = [
-        {BACK.get(k, k): v for k, v in s.items()}
-        for s in port_wl["capacity"]["streams"]]
-    with pytest.raises(tsim.SectionRefused, match="replica_loss.*shard/"):
-        tsim.run_simulation(copy.deepcopy(port_wl), **fleet_kw())
+def test_the_replica_loss_whatif_equals_the_jax_one(serial, tmp_path,
+                                                    capsys):
+    """The JAX example (examples/workload-capacity.json, replica_loss
+    included) on the 2 x 4 fleet: the port's section, the what-if's ha
+    run through the shard layer included, equals the JAX section; the
+    protocol holds; ``vgpu-simulate`` prints the JAX report."""
+    jax_example = json.loads((EXAMPLES / "workload-capacity.json")
+                             .read_text())
+    workload = replica_loss_workload()
+    assert jax_capacity(workload) == jax_example
+    port = tsim.run_simulation(copy.deepcopy(workload), **fleet_kw())
+    ref = as_port(json.loads(json.dumps(jsim.run_simulation(
+        jax_example, generation="h100", **fleet_kw()))))
+    assert port == ref
+    cp = port["capacity"]
+    rl = cp["replica_loss"]
+    assert rl["protocol_ok"] and cp["verdict"]["replica_loss_protocol_ok"]
+    assert (rl["replicas"], rl["shard_rebalances"]) == (3, 2)
+    assert cp["verdict"]["ok"] and port["fits"]
     wl = tmp_path / "wl.json"
-    wl.write_text(json.dumps(port_wl))
-    rc = tsim.main(["--workload", str(wl), "--nodes", "2", "--chips", "4",
-                    "--hbm", "16384", "--mesh", "4x1"])
-    err = capsys.readouterr().err
-    assert rc == 2
-    assert "replica_loss" in err and "shard/" in err and "ROADMAP A.5" in err
+    wl.write_text(json.dumps(workload))
+    assert tsim.main(["--workload", str(wl), "--nodes", "2", "--chips", "4",
+                      "--hbm", "16384", "--mesh", "4x1"]) == 0
+    out = capsys.readouterr().out
+    assert out.rstrip("\n") == jsim.format_report(ref)
+    assert "losing a replica costs: " in out
+
+
+def test_the_replica_loss_report_is_bit_identical_and_pinned(tmp_path,
+                                                             capsys):
+    """``vgpu-simulate --json`` twice on the default decision path (the
+    card's): the same bytes, whose sha256 chip_smoke.py holds the card
+    machine's run to (``HA_SHA256["replica_loss"]``)."""
+    first = cli_json(capsys, replica_loss_workload(), tmp_path)
+    assert cli_json(capsys, replica_loss_workload(), tmp_path) == first
+    assert hashlib.sha256(first.encode()).hexdigest() == \
+        chip_smoke.HA_SHA256["replica_loss"]
+    assert json.loads(first)["capacity"]["replica_loss"]["protocol_ok"]
 
 
 def test_the_elastic_whatif_equals_the_jax_one(serial):

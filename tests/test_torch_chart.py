@@ -321,6 +321,74 @@ def test_the_batch_values_render_into_the_extender(key):
         jsonschema.validate(broken, schema())
 
 
+SHARD_VALUES = {"shardTtl": 15, "shardTick": 3, "shardStaleTtl": 10,
+                "shardAdoptionGrace": 12}
+
+
+def jax_extender(override) -> dict:
+    """The JAX chart's extender container (and its Deployment's replica
+    count) rendered with ``override``."""
+    out = render_chart(str(ROOT / "charts" / "vtpu"),
+                       values_override=override, release_name=RELEASE,
+                       namespace=NAMESPACE)
+    [dep] = [d for _, d in docs(out) if d["kind"] == "Deployment"]
+    [ext] = [c for c in dep["spec"]["template"]["spec"]["containers"]
+             if c["name"] == "vtpu-extender"]
+    return dict(replicas=dep["spec"]["replicas"], env=ext.get("env"),
+                shard=[str(a) for a in ext["command"] if "shard" in str(a)])
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_the_replicas_render_the_shard_flags_as_the_jax_chart(replicas):
+    """``scheduler.replicas`` with the four shard timings (the JAX
+    chart's values and defaults): one replica renders no shard flag and no
+    POD_NAME; two render the JAX chart's ``--shard-*`` flags and env, with
+    ``--shard-replica=$(POD_NAME)``; the argv parses into the port's
+    config, with the pod's name as the replica."""
+    import jsonschema
+
+    vals = values()
+    assert {k: vals["scheduler"][k] for k in SHARD_VALUES} == SHARD_VALUES
+    assert vals["scheduler"]["replicas"] == 1
+    vals["scheduler"]["replicas"] = replicas
+    jsonschema.validate(vals, schema())
+    out = render({"scheduler": {"replicas": replicas}})
+    dep = one(out, "Deployment")
+    ext = containers(out)["vgpu-extender"]
+    mine = dict(replicas=dep["spec"]["replicas"], env=ext.get("env"),
+                shard=[str(a) for a in ext["command"] if "shard" in str(a)])
+    assert mine == jax_extender({"scheduler": {"replicas": replicas}})
+    argv = [str(a).replace("$(POD_NAME)", "vgpu-scheduler-0")
+            for a in ext["command"][3:]]
+    cfg = scheduler.build_config(scheduler.parse_args(argv))
+    if replicas == 1:
+        assert mine["shard"] == [] and mine["env"] is None
+        assert cfg.shard_replica == ""
+        return
+    assert mine["shard"][0] == "--shard-replica=$(POD_NAME)"
+    assert (cfg.shard_replica, cfg.shard_ttl_s, cfg.shard_tick_s,
+            cfg.shard_stale_ttl_s, cfg.shard_adoption_grace_s) == (
+        "vgpu-scheduler-0", 15.0, 3.0, 10.0, 12.0)
+
+
+def test_the_shard_timings_render_and_bad_ones_are_refused():
+    import jsonschema
+
+    over = {"replicas": 3, "shardTtl": 5, "shardTick": 1,
+            "shardStaleTtl": 2, "shardAdoptionGrace": 2.5}
+    out = containers(render({"scheduler": over}))["vgpu-extender"]
+    assert [str(a) for a in out["command"] if "shard" in str(a)] == \
+        jax_extender({"scheduler": over})["shard"] == [
+            "--shard-replica=$(POD_NAME)", "--shard-ttl=5", "--shard-tick=1",
+            "--shard-stale-ttl=2", "--shard-adoption-grace=2.5"]
+    for key, bad in (("replicas", 0), ("shardTtl", 0), ("shardTick", -1),
+                     ("replicas", 1.5), ("shardAdoptionGrace", "x")):
+        broken = values()
+        broken["scheduler"][key] = bad
+        with pytest.raises(jsonschema.ValidationError):
+            jsonschema.validate(broken, schema())
+
+
 def test_the_capacity_values_render_into_the_extender():
     """``scheduler.capacity`` (in the schema since the capacity forecast
     came to the port) renders the five ``--capacity-*`` flags at the JAX
@@ -541,8 +609,6 @@ def test_every_object_of_the_schema_refuses_unknown_keys():
 A5_VALUES = [("scheduler", "defragCheckpointGrace", 120),
              ("scheduler", "slo", {"objectives": []}),
              ("scheduler", "enableDefrag", True),
-             ("scheduler", "replicas", 2),
-             ("scheduler", "shardTtl", 15),
              (None, "vgpuMonitor", {})]
 
 
@@ -694,8 +760,9 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
     # lag and GC panels less their batched-cycle queries; 50 since the
     # batched cycles' and the solve workers': batch size, cycle latency,
     # fallbacks by cause and the solve-worker pool, and the pending queue
-    # depth and batch fallbacks back in the informer-lag and GC panels.
-    assert len(want) == 50 and ours["uid"] == "vgpu-overview"
+    # depth and batch fallbacks back in the informer-lag and GC panels; 53
+    # since the shard layer's: the three "Control-plane HA" panels.
+    assert len(want) == 53 and ours["uid"] == "vgpu-overview"
     for p in ours["panels"]:
         assert "TPU" not in p["title"] + p.get("description", "")
     alerts = yaml.safe_load((CHART / "dashboards" / "vgpu-alerts.yaml")
@@ -714,9 +781,10 @@ def test_the_dashboard_is_the_jax_ones_less_a5():
     # with elastic meshes, VtpuQueueStarvationForecast and
     # VtpuCapacityForecastDrift with the capacity forecast,
     # VtpuFilterCommitConflictStorm, VtpuSchedulerTickStall and
-    # VtpuDecisionWriteFailures with the throughput machinery, and
-    # VtpuFilterBatchFallbackStorm with the batched cycles.
-    assert len(ours_rules) == 24
+    # VtpuDecisionWriteFailures with the throughput machinery,
+    # VtpuFilterBatchFallbackStorm with the batched cycles, and
+    # VtpuShardOrphaned with the shard layer.
+    assert len(ours_rules) == 25
     for r in ours_rules:
         assert r["annotations"]["summary"]
         assert "TPU" not in r["annotations"]["summary"]

@@ -346,6 +346,14 @@ def test_the_fleet_leg_runs_on_the_mock_nvml(tmp_path, v2_idle_s):
     assert (scaled["cards"], scaled["placed"] + scaled["pending"],
             scaled["idle_grants"], scaled["exit_code"]) == (1024, 968, 16, 1)
     assert fleet.sim.returncode == 1
+    # The simulator's capacity and ha runs beside the same pods: each at
+    # its pinned sha256, the replica kill on the 128 nodes passing.
+    sims = got["simulate_capacity"]
+    assert {sims[k]["sha256"] for k in ("ha_example", "ha_replica_loss")} \
+        == set(chip_smoke.HA_SHA256.values())
+    scale = sims["ha_scale"]
+    assert scale["verdict"]["ok"] and scale["pended"] > 0
+    assert scale["epochs"][1] > scale["epochs"][0]
     # The Filter storm at its rehearsal size, its four modes and the two
     # in-process drains.
     storm = got["filter_storm"]
@@ -643,3 +651,45 @@ def test_the_chart_mapping_fails_where_the_chart_does_not_tie_up(
     fault(r)
     with pytest.raises(chip_smoke.Fail):
         chip_smoke.chart_mapping(r, tmp_path / "bad", "n")
+
+
+# -- the replica failover -------------------------------------------------------------
+
+
+def test_the_ha_leg_runs_on_the_mock_nvml(tmp_path, monkeypatch):
+    """node_agent's ha_leg on the CPU: two extender replicas on one
+    FakeKube, each streaming a one-card mock inventory, at the leg's
+    timings; the same checks as on the card (the gate, the stale-map
+    fence, the adoption at E+1, B refused beside A's grant, then placed),
+    with stand-in pods (no process on a card)."""
+    from k8s_vgpu_scheduler_tpu_torch.util.config import Config
+
+    lib = _kernels.build_mock_nvml()
+    fixture = {"generation": "h100", "mesh": [1], "hbm_mib": 81079}
+    (tmp_path / "nvml.json").write_text(json.dumps(fixture))
+    monkeypatch.setenv("MOCK_NVML_JSON", str(tmp_path / "nvml.json"))
+    monkeypatch.setenv("LD_LIBRARY_PATH", str(lib.parent))
+    monkeypatch.setenv("DEFRAG_TRAINER", "standin")
+    backend = MockBackend(fixture)
+    inv = backend.inventory()
+    cfg = Config(node_name=chip_smoke.PLUGIN_NODE,
+                 shim_host_dir=str(tmp_path / "shim"),
+                 cache_host_dir=str(tmp_path / "containers"))
+    got = chip_smoke.ha_leg(backend, inv, cfg, tmp_path, inv.chips[0].uuid)
+    assert got["epoch"] >= 1
+    assert {got["owner"], got["survivor"]} == set(chip_smoke.HA_REPLICAS)
+    assert got["fence"]["error"].startswith("shard-fence: stale-map")
+    adoption = got["adoption"]
+    assert adoption["adopting_reason"].startswith("shard-adopting: ")
+    assert adoption["full_reason"].startswith("insufficient-hbm")
+    timing = chip_smoke.HA_TIMING
+    dead_after = timing["shard_ttl_s"] * (1 + timing["shard_grace_beats"])
+    assert dead_after + timing["shard_adoption_grace_s"] <= \
+        adoption["latency_s"] < chip_smoke.HA_WAIT_S
+    assert [f["what"] for f in got["filters"]] == [
+        "gate", "place", "fence", "adopting", "full", "place"]
+    assert {f["replica"] for f in got["filters"]} == set(
+        chip_smoke.HA_REPLICAS)
+    assert got["a_run"]["kind"] == got["b_run"]["kind"] == "standin"
+    assert got["commit_ms"]["n"] == chip_smoke.HA_CAS_WRITES
+    assert got["card_mib_max"] <= got["card_total_mib"]

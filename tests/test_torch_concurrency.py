@@ -170,18 +170,31 @@ def join_all(threads, deadline):
 
 
 # -- the stress -----------------------------------------------------------------
-#: The stress and churn cases run on each package as they are, and again
-#: with every Filter through the batch gate (``filter_batch``: the JAX
-#: suite's VTPU_TEST_FILTER_BATCH rerun).
-STRESS_SIDES = (*SIDES, *(f"{side}-batched" for side in SIDES))
+#: The stress and churn cases run on each package as they are, again with
+#: every Filter through the batch gate (``filter_batch``: the JAX suite's
+#: VTPU_TEST_FILTER_BATCH rerun), and again with the shard layer on as one
+#: replica that owns the whole fleet (``fenced``: the JAX suite's
+#: VTPU_TEST_SHARD_FENCE rerun), so that every decision passes the epoch
+#: fence and commits as a compare-and-swap on the pod's resourceVersion
+#: under the same racing load.  Its stale TTL outlasts the case: nothing
+#: here bumps an epoch (tests/test_torch_shard.py races those).
+STRESS_SIDES = (*SIDES, *(f"{side}-{mode}" for mode in ("batched", "fenced")
+                          for side in SIDES))
 
 
 def stress_env(side, built, **cfg):
-    name, _, batched = side.partition("-")
+    name, _, mode = side.partition("-")
     pkg = PKGS[name]
-    if batched:
+    if mode == "batched":
         cfg["filter_batch"] = True
-    return (pkg, *make_env(pkg, built, **cfg))
+    if mode == "fenced":
+        cfg.update(shard_replica="stress-replica", shard_stale_ttl_s=3600.0,
+                   shard_adoption_grace_s=3600.0)
+    kube, s, names = make_env(pkg, built, **cfg)
+    if mode == "fenced":
+        s.shards.tick()
+        assert s.shards.active, "the shard map must converge first"
+    return pkg, kube, s, names
 
 
 @pytest.mark.parametrize("side", STRESS_SIDES)
@@ -226,6 +239,22 @@ def test_racing_filters_binds_and_deletes_never_overbook(side, built):
     if side.endswith("-batched"):
         assert s.batch.stats.pods >= 1
         assert s.export_perf()["queue"]["pending_depth"] == 0
+    fenced_checks(side, kube, s)
+
+
+def fenced_checks(side, kube, s) -> None:
+    """With the fence on: the fence itself never refused (the map stayed
+    fresh and owned), and every standing decision was stamped by the
+    replica at its epoch."""
+    if not side.endswith("-fenced"):
+        return
+    assert not {"no-map", "stale-map", "lost-ownership", "adopting"} \
+        & set(s.shards.cas_failures), s.shards.cas_failures
+    decided = [p["metadata"]["annotations"] for p in kube.list_pods()
+               if p["metadata"]["annotations"].get("vtpu.dev/assigned-node")]
+    assert decided
+    assert all(a.get("vtpu.dev/shard-owner") == "stress-replica"
+               and a.get("vtpu.dev/shard-epoch") == "1" for a in decided)
 
 
 @pytest.mark.parametrize("side", STRESS_SIDES)
@@ -255,6 +284,7 @@ def test_conflict_retry_converges_under_node_churn(side, built):
         stop.set()
         churner.join(timeout=10)
     assert not overbooked(s)
+    fenced_checks(side, kube, s)
 
 
 # -- the protocol -----------------------------------------------------------------

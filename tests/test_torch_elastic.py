@@ -1087,3 +1087,47 @@ def test_a_resync_leaves_resize_requests_to_the_controller():
 
     rec, _ = run_both(script)
     assert rec[0] == list(values[:3]) + [""]
+
+
+# -- active replicas: one resize planner -------------------------------------------
+
+def elastic_planner(pkg):
+    """Two replicas with elastic resizing on: which replicas' ticks plan
+    (reach the gang scan), before and after the planner is killed."""
+    from tests.test_torch_shard import kill_and_settle, make_fleet
+
+    kube, reps, names, clock = make_fleet(pkg, n_rep=2, enable_elastic=True)
+    planned = []
+    try:
+        for s in reps:
+            real = s.elastic.elastic_gangs
+
+            def scan(_s=s, _real=real):
+                planned.append(_s.shards.replica)
+                return _real()
+
+            s.elastic.elastic_gangs = scan
+        for s in reps:
+            s.elastic.tick()
+        first = list(planned)
+        planner = next(s for s in reps if s.shards.replica == first[0])
+        alive = kill_and_settle(reps, clock, planner)
+        del planned[:]
+        for s in alive:
+            s.elastic.tick()
+        return dict(first=first, second=list(planned),
+                    leads=[s.shards.leads("elastic") for s in reps])
+    finally:
+        for s in reps:
+            s.close()
+
+
+def test_one_replica_plans_resizes_and_the_lead_moves_with_the_epoch():
+    """The resize controller's leader gate (``shards.leads("elastic")``)
+    on both packages."""
+    from tests.test_torch_shard import PKGS, SIDES
+
+    got = {side: elastic_planner(PKGS[side]) for side in SIDES}
+    assert got["port"] == got["jax"], got
+    assert len(got["port"]["first"]) == len(got["port"]["second"]) == 1
+    assert got["port"]["first"] != got["port"]["second"]

@@ -605,3 +605,57 @@ def test_concurrent_filters_during_node_death_never_overbook(side):
         assert not overbooked(s)
     finally:
         s.close()
+
+
+# -- active replicas: the rescuer's ownership gate --------------------------------
+
+def handoff_rescue(pkg):
+    """A node's lease dies while both replicas track it: the owner rescues
+    the pod once, the other hands the lease off; then the owner dies, the
+    survivor adopts the node and rescues nothing again.  What each sweep
+    did, the rescue count and the pod's decision at the end."""
+    from tests.test_torch_shard import kill_and_settle, make_fleet
+
+    kube, reps, names, clock = make_fleet(pkg, n_rep=2, n_nodes=4)
+    a, b = reps
+    try:
+        node = next(n for n in names if a.shards.reject_reason(n) is None)
+        pod = pkg.pod("victim", "victim-u", mem="2000")
+        kube.create_pod(pod)
+        assert a.filter(pod, [node]).node == node
+        a.leases.beat(node)
+        b.leases.beat(node)
+        clock.advance(a.leases.cfg.dead_after_s + 1.0)
+        sweeps = []
+        for s in (a, b, a, b):
+            sweeps.append((s.shards.replica, sorted(
+                x["kind"] for x in s.rescuer.sweep()
+                if x.get("node") == node or x.get("uid") == "victim-u")))
+        kill_and_settle(reps, clock, a)
+        assert b.shards.owns(node) and b.shards.placeable(node)
+        sweeps.append((b.shards.replica, sorted(
+            x["kind"] for x in b.rescuer.sweep()
+            if x.get("node") == node or x.get("uid") == "victim-u")))
+        anns = kube.get_pod("default", "victim")["metadata"]["annotations"]
+        return dict(sweeps=sweeps,
+                    rescued=sum(k.count("rescued") for _, k in sweeps),
+                    assigned=anns.get("vtpu.dev/assigned-node", ""),
+                    tracked=[s.pods.get("victim-u") is not None
+                             for s in (a, b)])
+    finally:
+        for s in reps:
+            s.close()
+
+
+def test_a_shard_handoff_never_rescues_twice():
+    """The rescuer's ownership gate under active replicas (``shard/``),
+    on both packages: one rescue in all, by the owner, none by the
+    non-owner before or after it adopts the node."""
+    from tests.test_torch_shard import PKGS, SIDES
+
+    got = {side: handoff_rescue(PKGS[side]) for side in SIDES}
+    assert got["port"] == got["jax"], got
+    assert got["port"]["rescued"] == 1
+    assert got["port"]["sweeps"][1][1] == ["lease-handoff"]
+    assert got["port"]["assigned"] == "" and got["port"]["tracked"] == [
+        False, False]

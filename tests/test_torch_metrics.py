@@ -15,7 +15,7 @@
   bounds and counts); the performance observatory's timed families
   (``OBSERVATORY_TIMED``: their samples' names and labels, not their
   values) and its lock counters (equal but for the "nodes" lock, which
-  the JAX shard layer also takes), each side on a fresh registry; the
+  the JAX defrag tick takes more often), each side on a fresh registry; the
   families of ``A5_FAMILIES``, which the port emits zero-valued or
   empty, as the JAX collector does with the subsystem off; the rejection
   reasons read "GPU" for "TPU" (the name table of
@@ -120,10 +120,10 @@ OBSERVATORY_TIMED = ("vtpu_cycle_phase_seconds", "vtpu_lock_wait_seconds",
                      "vtpu_informer_resync_seconds")
 
 
-#: The lock counters: equal per lock but "nodes", which the JAX package's
-#: shard layer (not yet in the port) also takes: once a scrape for its
-#: ``vtpu_shards_owned`` gauge, and on each defrag tick.  There the JAX
-#: count is at least the port's.
+#: The lock counters: equal per lock but "nodes", which the JAX package
+#: takes more often on a defrag tick (without the defragmenter the counts
+#: are equal, the shard layer's scrape included).  There the JAX count is
+#: at least the port's.
 OBSERVATORY_LOCK_COUNTS = ("vtpu_lock_acquires", "vtpu_lock_sampled_acquires")
 
 
@@ -458,10 +458,6 @@ def test_the_fabric_fleet_reads_slice_availability_as_jax(monkeypatch):
 
 
 A5_ITEMS = {
-    "sharded control plane": ["vtpu_shard_epoch", "vtpu_shards_owned",
-                              "vtpu_shards_orphaned",
-                              "vtpu_shard_rebalances",
-                              "vtpu_commit_cas_failures"],
     "fleet audit": ["vtpu_audit_findings", "vtpu_audit_sweeps",
                     "vtpu_audit_sweep_seconds",
                     "vtpu_audit_last_clean_timestamp"],

@@ -1378,3 +1378,52 @@ def test_the_card_quota_leg_on_the_mock_nvml(tmp_path, monkeypatch):
     assert cap["replay"]["streams"] == 3
     assert cap["replay"]["verdict"]["no_overbooking"]
     assert ended["held"] == [["uidPV2", "trainer-2"]]
+
+
+# -- active replicas: one admission leader ------------------------------------------
+
+SHARD_QUEUE = {"name": "qa", "namespaces": ["team-a"], "weight": 1,
+               "quota": {"chips": 4}}
+
+
+def admission_leader(pkg):
+    """Three replicas over one apiserver: which replicas' admission ticks
+    act on a held pod (only the elected leader's), then the same after
+    the leader is killed (the election moves with the epoch)."""
+    from tests.test_torch_shard import kill_and_settle, make_fleet
+
+    kube, reps, names, clock = make_fleet(
+        pkg, n_rep=3, quota_queues=(SHARD_QUEUE,), queue_reclaim_grace_s=0.0)
+    try:
+        def hold(name):
+            pod = pkg.pod(name, f"{name}-u", mem="2000")
+            pod["metadata"]["namespace"] = "team-a"
+            kube.create_pod(pod)
+            for s in live:
+                r = s.filter(pod, names)
+                assert r.node is None and "queue" in r.error
+
+        live = list(reps)
+        hold("first")
+        first = [s.shards.replica for s in live if s.admission.tick()]
+        leader = next(s for s in reps if s.shards.replica == first[0])
+        live = kill_and_settle(reps, clock, leader)
+        hold("second")
+        second = [s.shards.replica for s in live if s.admission.tick()]
+        return dict(first=first, second=second,
+                    leads=[s.shards.leads("quota-admission") for s in live])
+    finally:
+        for s in reps:
+            s.close()
+
+
+def test_one_replica_admits_and_the_lead_moves_with_the_epoch():
+    """The admission loop's leader gate (``shards.leads``) on both
+    packages: one replica releases, and after its death one survivor."""
+    from tests.test_torch_shard import PKGS, SIDES
+
+    got = {side: admission_leader(PKGS[side]) for side in SIDES}
+    assert got["port"] == got["jax"], got
+    assert len(got["port"]["first"]) == len(got["port"]["second"]) == 1
+    assert got["port"]["first"] != got["port"]["second"]
+    assert got["port"]["leads"].count(True) == 1

@@ -611,6 +611,13 @@ def test_the_whole_port_places_a_pod_on_the_mock_nvml(tmp_path):
     assert {batched["winner"], batched["loser"]} == {
         n for n, _ in chip_smoke.RACE_BATCH_PODS}
     assert "group-commit" in batched["tick_phases_ms"]
+    # The replica failover: the gate, the stale-map fence, the adoption at
+    # E+1 and B placed after A, stand-in pods (checked in the child).
+    ha = na["ha"]
+    assert ha["a_run"]["kind"] == ha["b_run"]["kind"] == "standin"
+    assert ha["fence"]["error"].startswith("shard-fence: stale-map")
+    assert ha["adoption"]["full_reason"].startswith(chip_smoke.RACE_REASON)
+    assert [f["what"] for f in ha["filters"]][-1] == "place"
     train = na["pods"]["train"]["pod"]["spec"]
     assert [v["name"] for v in train["volumes"]] == ["vtpu-podinfo"]
     assert "volumes" not in na["pods"]["serve"]["pod"]["spec"]

@@ -38,11 +38,14 @@ A ``gang`` entry is placed by both gang managers, a ``queueing`` section
 replayed by both capacity queues, a ``fragmentation`` section by both
 defragmenters, an ``elastic`` section by both resize controllers and a
 ``capacity`` section by both capacity planners (case by case in
-``tests/test_torch_capacity.py``), with equal answers.
+``tests/test_torch_capacity.py``) and an ``ha`` section by both shard
+layers (replica schedulers over one fake apiserver, a seeded kill), with
+equal answers.
 
 The stated departure, pinned below with both answers: a workload with an
-``audit``, ``slo`` or ``ha`` section, which the JAX simulator replays, is
-refused by name (ROADMAP A.5) and ``vgpu-simulate`` exits 2.
+``audit`` or ``slo`` section, or an ``ha`` section with ``explain``, which
+the JAX simulator replays, is refused by name (ROADMAP A.5) and
+``vgpu-simulate`` exits 2.
 """
 
 import copy
@@ -72,7 +75,7 @@ EXAMPLES = ROOT / "examples"
 KEYS = {"gpu": "tpu", "gpumem": "tpumem",
         "gpumem-percentage": "tpumem-percentage", "gpucores": "tpucores"}
 A5_SECTIONS = ("queueing", "fragmentation", "elastic", "capacity", "audit",
-               "slo", "ha")
+               "slo")
 
 
 class _OrderedScheduler(jsim.Scheduler):
@@ -913,3 +916,123 @@ def test_fragmentation_replay_is_deterministic(serial):
     ref = jsim.run_simulation(jax_workload(FRAGMENTATION), nodes=2,
                               chips=8, hbm=16384, mesh=(4, 2))
     assert json.loads(json.dumps(a)) == as_port(json.loads(json.dumps(ref)))
+
+
+# -- (h) the ha section ---------------------------------------------------------
+
+#: tests/test_simulate.py's HA spec, in the JAX simulator's names.
+HA = {"ha": {
+    "replicas": 3, "seed": 7,
+    "storm": {"name": "train", "tpu": 1, "tpumem": 16384, "count": 22},
+    "storm_interval_s": 1, "kill_after": 6, "settle_s": 120,
+}}
+HA_FLEET = dict(nodes=6, chips=4, hbm=16384, mesh=(4, 1))
+
+
+def port_ha() -> dict:
+    return json.loads((EXAMPLES / "vgpu-workload-ha.json").read_text())
+
+
+def test_the_ha_example_is_the_jax_one_in_the_ports_names():
+    """examples/vgpu-workload-ha.json is examples/workload-ha.json (and
+    tests/test_simulate.py's spec) with the storm's keys in the port's
+    names."""
+    jax_example = json.loads((EXAMPLES / "workload-ha.json").read_text())
+    assert jax_example == HA
+    mine = port_ha()
+    mine["ha"]["storm"] = {KEYS.get(k, k): v
+                           for k, v in mine["ha"]["storm"].items()}
+    assert mine == HA
+
+
+def test_the_ha_report_equals_the_jax_one(serial):
+    """tests/test_simulate.py's replica-kill failover on both simulators:
+    the same kill, epochs, adoptions and latencies, the same pods pended
+    through the orphan window and re-placed on the same survivors, the
+    same CAS tokens by replica; every verdict passes; two port runs are
+    bit-identical."""
+    port = tsim.run_simulation(port_ha(), **HA_FLEET)
+    ref = as_port(json.loads(json.dumps(jsim.run_simulation(
+        copy.deepcopy(HA), generation="h100", **HA_FLEET))))
+    assert port == ref
+    hr = port["ha"]
+    assert hr["verdict"] == dict(adopted_all=True, replaced_all=True,
+                                 no_grant_lost=True,
+                                 no_grant_duplicated=True,
+                                 no_overbooking=True, ok=True)
+    assert hr["pending_during_window"] > 0 and hr["killed"]
+    assert hr["epoch_after"] > hr["epoch_before"] and port["fits"]
+    again = tsim.run_simulation(port_ha(), **HA_FLEET)
+    assert json.dumps(again, sort_keys=True) == json.dumps(port,
+                                                           sort_keys=True)
+
+
+def test_the_ha_report_prints_as_jax(serial, capsys):
+    assert tsim.main(["--workload", str(EXAMPLES / "vgpu-workload-ha.json"),
+                      "--nodes", "6", "--chips", "4", "--hbm", "16384",
+                      "--mesh", "4x1"]) == 0
+    out = capsys.readouterr().out
+    ref = jsim.run_simulation(copy.deepcopy(HA), generation="h100",
+                              **HA_FLEET)
+    assert out.rstrip("\n") == as_port(jsim.format_report(ref))
+    assert "active-active HA: 3 replica(s), seed 7" in out
+    assert "verdict: PASS" in out
+
+
+def test_the_ha_report_is_bit_identical_and_pinned(tmp_path, capsys):
+    """``vgpu-simulate --json`` twice on the default decision path (the
+    card's): the same bytes, whose sha256 chip_smoke.py holds the card
+    machine's run to (``HA_SHA256["example"]``)."""
+    import hashlib
+
+    import chip_smoke
+
+    argv = ["--workload", str(EXAMPLES / "vgpu-workload-ha.json"),
+            *chip_smoke.HA_EXAMPLE_FLEET, "--json"]
+    assert tsim.main(argv) == 0
+    first = capsys.readouterr().out
+    assert tsim.main(argv) == 0
+    assert capsys.readouterr().out == first
+    assert hashlib.sha256(first.encode()).hexdigest() == \
+        chip_smoke.HA_SHA256["example"]
+    assert json.loads(first)["ha"]["verdict"]["ok"]
+
+
+def test_an_ha_explain_audit_is_refused_by_name(serial, tmp_path, capsys):
+    """``explain: true`` audits the provenance store's timelines: the JAX
+    simulator replays it (its verdict carries ``explain_ok``); the port
+    refuses the spec by name and ``vgpu-simulate`` exits 2."""
+    jwl = copy.deepcopy(HA)
+    jwl["ha"].update(explain=True, storm=dict(HA["ha"]["storm"], count=8),
+                     kill_after=3)
+    ref = jsim.run_simulation(jwl, generation="h100", **HA_FLEET)
+    assert "explain_ok" in ref["ha"]["verdict"]
+    workload = port_ha()
+    workload["ha"]["explain"] = True
+    with pytest.raises(tsim.SectionRefused, match="'explain'.*provenance/"):
+        tsim.run_simulation(copy.deepcopy(workload), **HA_FLEET)
+    wl = tmp_path / "wl.json"
+    wl.write_text(json.dumps(workload))
+    assert tsim.main(["--workload", str(wl), "--nodes", "6"]) == 2
+    err = capsys.readouterr().err
+    assert "'explain'" in err and "ROADMAP A.5" in err
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_seeded_ha_runs_equal_the_jax_ones(serial, seed):
+    """More seeds (another kill, another routing) on a 4-node fleet with
+    two cards a node: the reports are equal."""
+    jwl = copy.deepcopy(HA)
+    jwl["ha"].update(seed=seed, kill_after=5,
+                     storm=dict(HA["ha"]["storm"], tpumem=8000, count=16))
+    mine = copy.deepcopy(jwl)
+    mine["ha"]["storm"] = {BACK_KEYS.get(k, k): v
+                           for k, v in mine["ha"]["storm"].items()}
+    fleet = dict(nodes=4, chips=2, hbm=16384, mesh=(2, 1))
+    port = tsim.run_simulation(mine, **fleet)
+    ref = as_port(json.loads(json.dumps(jsim.run_simulation(
+        jwl, generation="h100", **fleet))))
+    assert port == ref and port["ha"]["verdict"]["ok"]
+
+
+BACK_KEYS = {v: k for k, v in KEYS.items()}
